@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # every phase; needs one CUDA card
-    python3 chip_smoke.py --kernels-only   # build + kernel checks only
+    python3 chip_smoke.py        # every phase; needs one CUDA card
 
 Phases (any failure exits non-zero):
 
@@ -15,7 +14,8 @@ Phases (any failure exits non-zero):
    residency modes, paged decode and paged prefill attention) plus ragged
    and f32 cases; each maximum error is held to a stated tolerance, and
    the kernel, plain-version and (where one exists) library-call times are
-   measured with CUDA events, L2 flushed before every launch;
+   device times between CUDA events, L2 flushed before every run, with a
+   spin kernel holding the card until the host has queued the whole run;
 4. the main path: ``serve_continuous`` serving llama3.2-1b at full width
    (16 layers, d=2048, bf16, random weights from a seed) with continuous
    batching, chunked paged prefill and paged decode; every request must
@@ -31,7 +31,6 @@ full report is also written to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import shutil
@@ -64,28 +63,61 @@ def nvidia_smi_line() -> str:
 
 class Timer:
     """Median device time of a callable, with the L2 cache flushed before
-    every timed launch (the main path meets every weight cold)."""
+    every timed run (the main path meets every weight cold).
+
+    The host stays off the clock: before each run a spin kernel
+    (``torch.cuda._sleep``) holds the card while the host queues the start
+    event, the callable's launches and the end event, so the events bracket
+    device work only.  The spin lasts twice the callable's host time, at
+    least 1 ms; a run whose queuing outlasted its spin is thrown away and
+    the spin doubled."""
 
     def __init__(self, torch, reps: int = 15):
         self.torch = torch
         self.reps = reps
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8,
                                  device="cuda")
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 100)
+        a, b = self._events()
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        self.cycles_per_ms = cycles / a.elapsed_time(b)
+
+    def _events(self):
+        return (self.torch.cuda.Event(enable_timing=True),
+                self.torch.cuda.Event(enable_timing=True))
 
     def __call__(self, fn) -> float:
         torch = self.torch
         fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = max(1.0, 2.0 * host_ms)
         times = []
-        for _ in range(self.reps):
+        for _ in range(4 * self.reps):
             self.flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_ms * self.cycles_per_ms))
+            a, b = self._events()
+            t0 = time.perf_counter()
             a.record()
             fn()
             b.record()
+            queued_ms = (time.perf_counter() - t0) * 1e3
             b.synchronize()
+            if queued_ms >= spin_ms:
+                spin_ms *= 2.0
+                continue
             times.append(a.elapsed_time(b))
-        return statistics.median(times)
+            if len(times) == self.reps:
+                return statistics.median(times)
+        raise RuntimeError(f"timer: the host never got ahead of the card "
+                           f"({len(times)} of {self.reps} runs kept)")
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +186,7 @@ def check_gemms(torch, report, timer, cfg, dispatcher):
         for mode in (0, 1, 2):
             def kernel():
                 return ops.rsa_gemm(a, b, block_m=bm, block_n=bn, block_k=bk,
-                                    mode=mode, out_dtype=odt, impl="kernel")
+                                    mode=mode, out_dtype=odt)
             out = kernel()
             plain = rsa_gemm_plain(a, b, block_k=bk, mode=mode,
                                    out_dtype=odt)
@@ -247,8 +279,7 @@ def check_paged(torch, report, timer, cfg):
         ka, va, tables, lens = paged_inputs(torch, gen, 8, KVH, G, hd, bs,
                                             dec_lengths, dt)
         q = torch.randn((8, H, hd), generator=gen, device="cuda").to(dt)
-        out = ops.paged_attention(q, ka, va, tables, lens, logit_cap=cap,
-                                  impl="kernel")
+        out = ops.paged_attention(q, ka, va, tables, lens, logit_cap=cap)
         plain = paged_attention_plain(q, ka, va, tables, lens, scale=scale,
                                       logit_cap=cap)
         torch.cuda.synchronize()
@@ -264,7 +295,7 @@ def check_paged(torch, report, timer, cfg):
                "tol": tol, "ok": good}
         if timed:
             rec["ms"] = timer(lambda: ops.paged_attention(
-                q, ka, va, tables, lens, impl="kernel"))
+                q, ka, va, tables, lens))
             rec["plain_ms"] = timer(lambda: paged_attention_plain(
                 q, ka, va, tables, lens, scale=scale))
             rows = sum(-(-n // bs) * bs for n in dec_lengths)
@@ -285,7 +316,7 @@ def check_paged(torch, report, timer, cfg):
         C = 64
         q = torch.randn((8, C, H, hd), generator=gen, device="cuda").to(dt)
         out = ops.paged_prefill_attention(q, ka, va, tables, st, lens,
-                                          logit_cap=cap, impl="kernel")
+                                          logit_cap=cap)
         plain = paged_prefill_attention_plain(q, ka, va, tables, st, lens,
                                               scale=scale, logit_cap=cap)
         torch.cuda.synchronize()
@@ -297,7 +328,7 @@ def check_paged(torch, report, timer, cfg):
                "max_abs_err": err, "tol": tol, "ok": good}
         if timed:
             rec["ms"] = timer(lambda: ops.paged_prefill_attention(
-                q, ka, va, tables, st, lens, impl="kernel"))
+                q, ka, va, tables, st, lens))
             rec["plain_ms"] = timer(lambda: paged_prefill_attention_plain(
                 q, ka, va, tables, st, lens, scale=scale))
             rows = sum(-(-n // bs) * bs for n in lengths)
@@ -322,9 +353,7 @@ def check_paged(torch, report, timer, cfg):
 def main_path(torch, report):
     from repro_torch import dispatch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attn import (paged_attention_plain,
-                                                paged_prefill_attention_plain)
-    from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
     from repro_torch.launch.serve import serve_continuous
 
     ops.reset_counts()
@@ -336,13 +365,8 @@ def main_path(torch, report):
         clock="wall", device="cuda", log=False)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    gemm_keys = dict(ops.rsa_gemm.launches_by_key)
-    counts = {"rsa_gemm": ops.rsa_gemm.launches,
-              "paged_decode": ops.paged_attention.launches,
-              "paged_prefill": ops.paged_prefill_attention.launches,
-              "plain_calls": rsa_gemm_plain.calls
-              + paged_attention_plain.calls
-              + paged_prefill_attention_plain.calls}
+    counts = ops.launch_counts()
+    gemm_keys = dict(rsa_gemm_cuda.launches_by_key)
     L = engine.cfg.num_layers
     s = engine.summary()
     done = [r for r in engine.requests.values() if r.outcome == "done"]
@@ -499,11 +523,7 @@ def kernel_table(report, gemm_keys, counts):
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="build and check the kernels; skip the main path")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         log("chip_smoke: src/repro_torch not found beside this script; run "
             "it from a checkout of the repository")
@@ -546,21 +566,21 @@ def main(argv=None) -> int:
                     log(f"    {p.stem.split('-')[0]}: {line.strip()}")
 
     log("== 3. kernels against their plain versions (tolerances stated)")
+    from repro_torch import dispatch
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.sara import SaraDispatcher
     cfg = get_arch("llama3.2-1b")
     timer = Timer(torch)
-    ok = check_gemms(torch, report, timer, cfg, SaraDispatcher())
-    ok &= check_paged(torch, report, timer, cfg)
+    with dispatch.use(execute="kernel"):
+        ok = check_gemms(torch, report, timer, cfg, SaraDispatcher())
+        ok &= check_paged(torch, report, timer, cfg)
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
 
-    gemm_keys, counts = {}, {"paged_decode": 0, "paged_prefill": 0}
-    if not args.kernels_only:
-        log("== 4. main path: llama3.2-1b full width, continuous batching")
-        mp_ok, gemm_keys, counts = main_path(torch, report)
-        ok &= mp_ok
-        time_breakdown(report, gemm_keys, counts)
+    log("== 4. main path: llama3.2-1b full width, continuous batching")
+    mp_ok, gemm_keys, counts = main_path(torch, report)
+    ok &= mp_ok
+    time_breakdown(report, gemm_keys, counts)
 
     report["ok"] = bool(ok)
     report["seconds"] = time.time() - t_start
@@ -572,9 +592,7 @@ def main(argv=None) -> int:
         log(f"chip_smoke: FAILED after {report['seconds']:.1f} s")
         return 1
     log(f"== done in {report['seconds']:.1f} s")
-    if not args.kernels_only:
-        print(json.dumps({"kernels": kernel_table(report, gemm_keys,
-                                                  counts)}))
+    print(json.dumps({"kernels": kernel_table(report, gemm_keys, counts)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,9 @@ GEMM kernel (CUDA tensors) or its plain version (CPU tensors, or
 
 from repro_torch.dispatch.context import (EXECUTE_MODES, DispatchPolicy,
                                           active, default_registry,
-                                          use, use_kernel)
+                                          use)
 from repro_torch.dispatch.executor import gemm
 from repro_torch.dispatch.registry import SiteRecord, SiteRegistry
 
 __all__ = ["EXECUTE_MODES", "DispatchPolicy", "SiteRecord", "SiteRegistry",
-           "active", "default_registry", "gemm", "use", "use_kernel"]
+           "active", "default_registry", "gemm", "use"]

@@ -70,11 +70,6 @@ def active() -> DispatchPolicy:
     return _DEFAULT
 
 
-def use_kernel(t: torch.Tensor) -> bool:
-    """Whether the active policy runs the CUDA kernel for operand ``t``."""
-    return active().backend(t) == "kernel"
-
-
 @contextlib.contextmanager
 def use(dispatcher=None, execute: Optional[str] = None,
         registry: Optional[SiteRegistry] = None):

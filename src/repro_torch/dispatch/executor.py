@@ -69,5 +69,5 @@ def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
                                src(M, K, N) if src is not None else "oracle")
     out = ops.rsa_gemm(x.reshape(M, K), w, block_m=tile[0],
                        block_n=tile[1], block_k=tile[2], mode=tile[3],
-                       out_dtype=out_dtype, impl=backend)
+                       out_dtype=out_dtype)
     return out.reshape(tuple(x.shape[:-1]) + (N,))

@@ -3,7 +3,9 @@
 ``paged_decode_cuda`` / ``paged_prefill_cuda`` launch
 ``csrc/paged_attn.cu`` (replacing
 ``repro/kernels/paged_attn.py::paged_gqa_decode_pallas`` and
-``::paged_gqa_prefill_pallas``).  The plain PyTorch versions port the
+``::paged_gqa_prefill_pallas``); each counts the launches that returned
+no error in its ``.launches`` (an empty batch launches nothing and counts
+nothing).  The plain PyTorch versions port the
 reference's masked-dense oracles (``repro/kernels/ref.py::paged_gather``,
 ``paged_attention_ref``, ``paged_prefill_attention_ref``): gather every
 lane's pages through its block table, run one masked f32 softmax, zero
@@ -142,7 +144,11 @@ def paged_decode_cuda(q, k_arena, v_arena, tables, lengths, *,
         lengths.data_ptr(), S, KVH, G, hd, hd_v, NB, bs, W, scale,
         logit_cap, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged decode attention")
+    paged_decode_cuda.launches += 1
     return out
+
+
+paged_decode_cuda.launches = 0      # kernel launches that returned no error
 
 
 def paged_prefill_cuda(q, k_arena, v_arena, tables, starts, lengths, *,
@@ -168,4 +174,8 @@ def paged_prefill_cuda(q, k_arena, v_arena, tables, starts, lengths, *,
         bs, W, scale, logit_cap,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged prefill attention")
+    paged_prefill_cuda.launches += 1
     return out
+
+
+paged_prefill_cuda.launches = 0     # kernel launches that returned no error

@@ -1,7 +1,9 @@
 """RSA GEMM: the reconfigurable-tiling GEMM every model projection runs.
 
 ``rsa_gemm_cuda`` launches ``csrc/rsa_gemm.cu`` (replaces
-``repro/kernels/rsa_gemm.py::rsa_gemm_pallas``); ``rsa_gemm_plain`` is its
+``repro/kernels/rsa_gemm.py::rsa_gemm_pallas``) and counts each launch
+that returned no error in ``rsa_gemm_cuda.launches`` (an empty product
+launches nothing and counts nothing); ``rsa_gemm_plain`` is its
 plain PyTorch version, used for CPU tensors and as the reference the
 kernel is held against on the card.  Both compute the residency mode's
 rounding, which is part of the function:
@@ -104,4 +106,12 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
         a.stride(0), b.data_ptr(), ldb, out.data_ptr(), M, N, K, block_k,
         sms, vec_a, vec_b, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, f"rsa_gemm {M}x{K}x{N} mode={mode}")
+    rsa_gemm_cuda.launches += 1
+    key = (M, K, N, mode)
+    rsa_gemm_cuda.launches_by_key[key] = \
+        rsa_gemm_cuda.launches_by_key.get(key, 0) + 1
     return out
+
+
+rsa_gemm_cuda.launches = 0          # kernel launches that returned no error
+rsa_gemm_cuda.launches_by_key = {}  # the same, per (M, K, N, mode)

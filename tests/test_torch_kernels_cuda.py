@@ -16,6 +16,7 @@ import math
 import pytest
 import torch
 
+from repro_torch import dispatch
 from repro_torch.core.hw import IS, OS, WS
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attn import (paged_attention_plain,
@@ -46,7 +47,9 @@ def test_rsa_gemm_kernel_matches_plain(cuda, mode, dtype, out, transposed):
     stored = torch.randn((N, K) if transposed else (K, N), generator=cuda,
                          device="cuda").to(dtype)
     b = stored.t() if transposed else stored
+    n0 = ops.launch_counts()["rsa_gemm"]
     got = ops.rsa_gemm(a, b, block_k=bk, mode=mode, out_dtype=out)
+    assert ops.launch_counts()["rsa_gemm"] == n0 + 1
     want = rsa_gemm_plain(a, b, block_k=bk, mode=mode, out_dtype=out)
     tol = K * 2.0 ** -24 * (a.abs().float() @ b.abs().float()).max().item()
     if out == torch.bfloat16:
@@ -72,12 +75,13 @@ def test_paged_kernels_match_plain(cuda, dtype, tol):
     q = torch.randn((S, 16, KVH * G, hd), generator=cuda,
                     device="cuda").to(dtype)
     scale = hd ** -0.5
-    got = ops.paged_prefill_attention(q, k, v, tables, starts, lengths,
-                                      impl="kernel")
+    with dispatch.use(execute="kernel"):
+        got = ops.paged_prefill_attention(q, k, v, tables, starts, lengths)
     want = paged_prefill_attention_plain(q, k, v, tables, starts, lengths,
                                          scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
-    got = ops.paged_attention(q[:, 0], k, v, tables, lengths, impl="kernel")
+    with dispatch.use(execute="kernel"):
+        got = ops.paged_attention(q[:, 0], k, v, tables, lengths)
     want = paged_attention_plain(q[:, 0], k, v, tables, lengths,
                                  scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol

@@ -91,7 +91,7 @@ def test_decode_plain_matches_pallas_and_ref(cap, KVH, G):
     via = ops.paged_attention(_t(q), _t(k), _t(v), _t(tables), _t(lengths),
                               logit_cap=cap).numpy()
     assert np.array_equal(via, ours)
-    assert ops.paged_attention.launches == 0
+    assert ops.launch_counts()["paged_decode"] == 0
 
 
 @pytest.mark.parametrize("cap", [0.0, 5.0])
@@ -125,7 +125,7 @@ def test_prefill_plain_matches_pallas_and_ref(cap, KVH, G):
         _t(q), _t(k), _t(v), _t(tables), _t(starts), _t(lengths),
         logit_cap=cap).numpy()
     assert np.array_equal(via, ours)
-    assert ops.paged_prefill_attention.launches == 0
+    assert ops.launch_counts()["paged_prefill"] == 0
 
 
 def test_decode_is_the_one_row_prefill():

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch import dispatch
 from repro_torch.core.hw import IS, OS, WS
 from repro_torch.kernels import ops
 from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
@@ -121,7 +122,7 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     a, b = torch.randn(4, 32), torch.randn(32, 8)
     out = ops.rsa_gemm(a, b, block_k=128, mode=IS)
     assert torch.allclose(out, a @ b, atol=1e-5)
-    assert ops.rsa_gemm.launches == 0
+    assert ops.launch_counts()["rsa_gemm"] == 0
     assert rsa_gemm_plain.calls == 1
-    with pytest.raises(ValueError):
-        ops.rsa_gemm(a, b, block_k=128, mode=IS, impl="kernel")
+    with pytest.raises(ValueError), dispatch.use(execute="kernel"):
+        ops.rsa_gemm(a, b, block_k=128, mode=IS)
