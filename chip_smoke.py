@@ -11,8 +11,9 @@ Phases (any failure exits non-zero):
    nvcc for sm_90a;
 3. kernels against their plain PyTorch versions, on the card, at the
    full-width llama3.2-1b shapes of the main path (RSA GEMM in all three
-   residency modes, paged decode and paged prefill attention) plus ragged
-   and f32 cases; each maximum error is held to a stated tolerance, and
+   residency modes, paged decode and paged prefill attention, and the two
+   cascade-decode phases: decode-lse and shared-prefix) plus ragged and
+   f32 cases; each maximum error is held to a stated tolerance, and
    the kernel, plain-version and (where one exists) library-call times are
    device times between CUDA events, L2 flushed before every run, with a
    spin kernel holding the card until the host has queued the whole run;
@@ -22,7 +23,16 @@ Phases (any failure exits non-zero):
    finish, the KV pool must end leak-free, every kernel must have launched
    and no plain version may have run.  The logits of one chunk-prefill step
    and one decode step are held against the same steps under
-   ``execute="torch"`` (the plain versions).
+   ``execute="torch"`` (the plain versions);
+5. the cascade path: the same model served with the prefix cache and
+   cascade decode (``prefix_cache=True, shared_prefix_decode=True``) on 24
+   requests that open with one 384-token system prompt.  The first is
+   served alone, so its pages are in the trie, then the other 23 arrive
+   together; each of them must hit, some decode steps must run the two
+   cascade kernels (16 launches each per step), no plain version may run,
+   the pool must audit clean with the trie's pins and be whole after the
+   trie is cleared, and the logits of one cascade decode step are held
+   against the same step under ``execute="torch"``.
 
 The lines before the last are the JSON kernel table, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -45,8 +55,10 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 F32_EPS = 2.0 ** -24
 BF16_EPS = 2.0 ** -8
-PAGED_TPU = {"decode": "src/repro/kernels/paged_attn.py:104",
-             "prefill": "src/repro/kernels/paged_attn.py:278"}
+PAGED_TPU = {"paged_decode": "src/repro/kernels/paged_attn.py:104",
+             "paged_prefill": "src/repro/kernels/paged_attn.py:278",
+             "paged_decode_lse": "src/repro/kernels/paged_attn.py:413",
+             "paged_prefix": "src/repro/kernels/paged_attn.py:517"}
 RSA_TPU = "src/repro/kernels/rsa_gemm.py:64"
 
 
@@ -346,6 +358,137 @@ def check_paged(torch, report, timer, cfg):
     return ok
 
 
+def cascade_inputs(torch, gen, dtype, KVH, G, hd, bs):
+    """The cascade kernels at full width: 8 lanes, a 24-page (384-row)
+    shared prefix padded to 32 with the last id, one lane outside the
+    group (lane 6), ragged unique lengths including 0.  Also returns each
+    lane's full table (prefix pages, then its own) for the one-pass
+    comparison."""
+    S, P = 8, 24
+    prefix_lens = [P * bs] * S
+    prefix_lens[6] = 0
+    ulens = [0, 1, 15, 16, 17, 100, 128, 129]
+    uw = max(-(-n // bs) for n in ulens)
+    nxt, utables, full = P, [], []
+    for s in range(S):
+        n = -(-ulens[s] // bs)
+        own = list(range(nxt, nxt + n))
+        nxt += n
+        row = own or [0]
+        utables.append(row + [row[-1]] * (uw - len(row)))
+        full.append(list(range(prefix_lens[s] // bs)) + own)
+    W = max(len(r) for r in full)
+    full = [r + [r[-1]] * (W - len(r)) for r in full]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    k = torch.randn((nxt + 1, bs, KVH, hd), generator=gen, device="cuda")
+    v = torch.randn((nxt + 1, bs, KVH, hd), generator=gen, device="cuda")
+    return dict(
+        q=torch.randn((S, KVH * G, hd), generator=gen,
+                      device="cuda").to(dtype),
+        k=k.to(dtype), v=v.to(dtype),
+        prefix_pages=torch.tensor(list(range(P)) + [P - 1] * 8, **i32),
+        prefix_lens=torch.tensor(prefix_lens, **i32),
+        utables=torch.tensor(utables, **i32),
+        ulens=torch.tensor(ulens, **i32),
+        full=torch.tensor(full, **i32),
+        lens=torch.tensor([a + b for a, b in zip(prefix_lens, ulens)],
+                          **i32),
+        plens=prefix_lens, ulens_list=ulens)
+
+
+def check_cascade(torch, report, timer, cfg):
+    """Both cascade kernels against their plain versions: o within the
+    attention tolerance, (m, l) within 1e-4 relative (f32 summation
+    order), and the empty rows (a lane of unique length 0, the lane
+    outside the group) exactly (0, -1e30, 0); then ops.shared_paged_
+    attention (kernels + merge) against ops.paged_attention (kernel) over
+    the full tables."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attn import (
+        NEG, paged_attention_lse_plain, paged_decode_lse_cuda,
+        paged_prefix_cuda, shared_prefix_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    KVH, H, hd, bs = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    ok = True
+    for dt, cap, timed in ((torch.bfloat16, 0.0, True),
+                           (torch.float32, 0.0, False),
+                           (torch.bfloat16, 30.0, False),
+                           (torch.float32, 30.0, False)):
+        x = cascade_inputs(torch, gen, dt, KVH, G, hd, bs)
+        a = (x["q"], x["k"], x["v"])
+        tol = 5 * 2 * BF16_EPS if dt == torch.bfloat16 else 1e-5
+        phases = (
+            ("paged_prefix", 6,
+             lambda: paged_prefix_cuda(*a, x["prefix_pages"],
+                                       x["prefix_lens"], scale=scale,
+                                       logit_cap=cap),
+             lambda: shared_prefix_attention_plain(
+                 *a, x["prefix_pages"], x["prefix_lens"], scale=scale,
+                 logit_cap=cap),
+             # rows the prefix phase needs: the longest prefix, read once
+             max(x["plens"]), sum(x["plens"])),
+            ("paged_decode_lse", 0,
+             lambda: paged_decode_lse_cuda(*a, x["utables"], x["ulens"],
+                                           scale=scale, logit_cap=cap),
+             lambda: paged_attention_lse_plain(
+                 *a, x["utables"], x["ulens"], scale=scale, logit_cap=cap),
+             sum(-(-n // bs) * bs for n in x["ulens_list"]),
+             sum(x["ulens_list"])))
+        for name, empty_lane, kernel, plain_fn, rows, pairs in phases:
+            got, want = kernel(), plain_fn()
+            torch.cuda.synchronize()
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            m_err = ((got[1] - want[1]).abs() / (1 + want[1].abs())) \
+                .max().item()
+            l_err = ((got[2] - want[2]).abs() / (1 + want[2])).max().item()
+            empty = bool((got[0][empty_lane] == 0).all()
+                         and (got[1][empty_lane] == NEG).all()
+                         and (got[2][empty_lane] == 0).all())
+            good = (err <= tol and m_err <= 1e-4 and l_err <= 1e-4
+                    and empty and math.isfinite(err))
+            ok &= good
+            rec = {"kernel": name, "dtype": str(dt).split(".")[-1],
+                   "softcap": cap, "prefix_lens": x["plens"],
+                   "unique_lens": x["ulens_list"], "max_abs_err": err,
+                   "tol": tol, "m_rel_err": m_err, "l_rel_err": l_err,
+                   "ml_tol": 1e-4, "empty_lane_exact": empty, "ok": good}
+            if timed:
+                rec["ms"] = timer(kernel)
+                rec["plain_ms"] = timer(plain_fn)
+                io = 2 * x["q"].numel() * 2 + 2 * x["q"].shape[0] * H * 4
+                flops = 2.0 * H * 2 * hd * pairs
+                rec["bound_ms"], rec["bound_by"] = attn_bound_ms(
+                    rows, KVH, hd, io, flops)
+                rec["library_ms"] = None
+            report["paged"].append(rec)
+            log(f"  {name:<16} {rec['dtype']} cap={cap}: max_abs_err "
+                f"{err:.3e} (tol {tol:.1e}), m/l rel err {m_err:.1e}/"
+                f"{l_err:.1e} (tol 1e-4), empty lane "
+                f"{'exact' if empty else 'WRONG'} "
+                f"{'ok' if good else 'FAIL'}"
+                + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f}"
+                   f" ms bound {rec['bound_ms']:.5f} ms" if timed else ""))
+        cascade = ops.shared_paged_attention(
+            *a, x["utables"], x["ulens"], x["prefix_pages"],
+            x["prefix_lens"], logit_cap=cap)
+        whole = ops.paged_attention(*a, x["full"], x["lens"], logit_cap=cap)
+        torch.cuda.synchronize()
+        err = (cascade.float() - whole.float()).abs().max().item()
+        good = err <= tol and math.isfinite(err) and cascade.dtype == dt
+        ok &= good
+        report["paged"].append({
+            "kernel": "shared_paged_attention vs paged_attention",
+            "dtype": str(dt).split(".")[-1], "softcap": cap,
+            "max_abs_err": err, "tol": tol, "ok": good})
+        log(f"  cascade (prefix + lse + merge) vs one paged decode over the "
+            f"full tables, {str(dt).split('.')[-1]} cap={cap}: max_abs_err "
+            f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}")
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -461,11 +604,175 @@ def main_path(torch, report):
     return ok, gemm_keys, counts
 
 
-def time_breakdown(report, gemm_keys, counts):
-    """Kernel time the main path spent, estimated as each kernel's median
-    time at its main-path shape (phase 3, L2 cold) times its launches,
-    beside the wall time of the model calls (host work included)."""
-    mp = report["main_path"]
+# ---------------------------------------------------------------------------
+# phase 5: the cascade path
+# ---------------------------------------------------------------------------
+
+SYSTEM_LEN, SUFFIX_LO, SUFFIX_HI, CASCADE_GEN = 384, 16, 128, 32
+
+
+def cascade_path(torch, report):
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg = get_arch("llama3.2-1b")
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_LEN).astype(np.int32)
+    reqs = []
+    for i in range(24):
+        n = int(rng.integers(SUFFIX_LO, SUFFIX_HI + 1))
+        p = np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+        reqs.append(Request(rid=f"req-{i}", prompt=p.astype(np.int32),
+                            max_new_tokens=CASCADE_GEN))
+    engine = ServingEngine(cfg, EngineConfig(
+        num_slots=8, max_len=SYSTEM_LEN + SUFFIX_HI + CASCADE_GEN + 1,
+        block_size=16, prefill_chunk=64, temperature=0.0, seed=0,
+        clock="wall", execute="auto", prefix_cache=True,
+        shared_prefix_decode=True), device="cuda")
+    L = cfg.num_layers
+    ops.reset_counts()
+    t0 = time.time()
+    engine.run(reqs[:1])             # the system prompt's pages enter the trie
+    for r in reqs[1:]:
+        r.arrival_time = engine.now()
+    engine.run(reqs[1:])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    gemm_keys = dict(rsa_gemm_cuda.launches_by_key)
+    s = engine.summary()
+    done = [r for r in engine.requests.values() if r.outcome == "done"]
+    audit = engine.pool.audit_leaks(engine.prefix_cache.pages())
+    trie_pages = len(engine.prefix_cache.pages())
+    engine.prefix_cache.clear()
+    engine.pool.check()
+    whole = engine.pool.num_free == engine.pool.num_blocks
+    cascade_steps = engine.shared_prefix_steps
+    decode_steps = s["decode_steps"]
+    ok = (len(done) == 24
+          and all(len(r.generated) == CASCADE_GEN for r in done)
+          and s["prefix_cache_hits"] == 23 and cascade_steps > 0
+          and counts["paged_prefix"] == L * cascade_steps
+          and counts["paged_decode_lse"] == L * cascade_steps
+          and counts["paged_decode"] == L * (decode_steps - cascade_steps)
+          and counts["rsa_gemm"] > 0 and counts["paged_prefill"] > 0
+          and counts["plain_calls"] == 0 and whole)
+    res = report["cascade_path"] = {
+        "requests": 24, "completed": len(done), "wall_s": wall,
+        "counts": counts, "decode_steps": decode_steps,
+        "cascade_steps": cascade_steps,
+        "cascade_lanes": engine.shared_prefix_lanes,
+        "prefill_steps": counts["paged_prefill"] // L,
+        "prefix_cache_hits": s["prefix_cache_hits"],
+        "prefix_cache_hit_rate": s["prefix_cache_hit_rate"],
+        "cache_hit_tokens": s["cache_hit_tokens"],
+        "kv_cow_copies": s["kv_cow_copies"],
+        "ttft_p50_s": s["ttft_p50_s"], "ttft_p99_s": s["ttft_p99_s"],
+        "decode_tok_s": s["decode_tok_s"], "prefill_tok_s": s["prefill_tok_s"],
+        "decode_wall_s": engine.metrics.decode_s,
+        "prefill_wall_s": engine.metrics.prefill_s,
+        "leak_audit": audit, "trie_pages": trie_pages, "pool_whole": whole}
+    log(f"  served {len(done)}/24 requests in {wall:.2f} s ({engine.steps} "
+        f"engine steps: {res['prefill_steps']} chunk-prefill, "
+        f"{decode_steps} decode model calls, {cascade_steps} of them "
+        f"cascade, {engine.shared_prefix_lanes} group lanes in all)")
+    log(f"  prefix cache: {s['prefix_cache_hits']} hits / "
+        f"{s['prefix_cache_misses']} misses (hit rate "
+        f"{s['prefix_cache_hit_rate']:.4f}), {s['cache_hit_tokens']} prompt "
+        f"tokens not recomputed, {s['kv_cow_copies']} copy-on-write copies")
+    log(f"  launches: {json.dumps(counts)}")
+    log(f"  per cascade step: paged_prefix "
+        f"{counts['paged_prefix'] / max(cascade_steps, 1):.1f}, "
+        f"paged_decode_lse "
+        f"{counts['paged_decode_lse'] / max(cascade_steps, 1):.1f} "
+        f"({L} each, one per layer)")
+    log(f"  ttft p50 {s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s, "
+        f"decode {s['decode_tok_s']:.1f} tok/s, prefill "
+        f"{s['prefill_tok_s']:.1f} tok/s")
+    log(f"  leak audit with the trie's {trie_pages} pins: {audit}; pool "
+        f"whole after clear: {whole}")
+    if not ok:
+        log(f"  CASCADE PATH FAIL: completed {len(done)}, hits "
+            f"{s['prefix_cache_hits']}, cascade steps {cascade_steps}, "
+            f"decode steps {decode_steps}, counts {counts}, whole {whole}")
+
+    # one cascade decode step, kernels vs plain versions, on a random
+    # arena: lanes 0-6 share 24 pages, lane 7 is outside the group
+    model, params = engine.model, engine.params
+    bs, P, S = 16, 24, 8
+    own = [int(rng.integers(SUFFIX_LO, SUFFIX_HI + 1)) for _ in range(S)]
+    kv = [SYSTEM_LEN + n for n in own]
+    nxt, full = P, []
+    for n in own:
+        k = -(-(n + 1) // bs)           # covers the pending row too
+        full.append(list(range(P)) + list(range(nxt, nxt + k)))
+        nxt += k
+    W = max(len(r) for r in full)
+    full = [r + [r[-1]] * (W - len(r)) for r in full]
+    plens = [SYSTEM_LEN] * (S - 1) + [0]
+    ul = [kv[i] + 1 - plens[i] for i in range(S)]
+    uw = max(len(full[i]) - plens[i] // bs for i in range(S))
+    utab = []
+    for i in range(S):
+        row = full[i][plens[i] // bs:][:uw]
+        utab.append(row + [row[-1]] * (uw - len(row)))
+    i32 = dict(dtype=torch.int32, device="cuda")
+    ops_in = [torch.tensor(a, **i32) for a in (
+        full, kv, [1] * S, list(range(P)) + [P - 1] * 8, plens, utab, ul)]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (S, 1)),
+                           device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    arena0 = model.init_paged_arena(nxt + 1, bs)
+    for leaf in arena0.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    res_l = {}
+    for mode, step in (("torch", "cascade"), ("kernel", "cascade"),
+                       ("kernel", "decode")):
+        arena = {n: a.clone() for n, a in arena0.items()}
+        with torch.no_grad(), dispatch.use(execute=mode):
+            if step == "cascade":
+                res_l[mode, step], _ = model.paged_shared_decode_step(
+                    params, toks, arena, *ops_in)
+            else:          # the same step without the cascade: full tables
+                res_l[mode, step], _ = model.paged_decode_step(
+                    params, toks, arena, *ops_in[:3])
+    torch.cuda.synchronize()
+    # bf16 through 16 layers, as phase 4: 5% of the largest logit.  The
+    # second line shows that the split into two phases changes no lane's
+    # math beyond rounding: the kernels' cascade step against their plain
+    # decode step over the lanes' full tables
+    good = True
+    for (a, b), what in (((("kernel", "cascade"), ("torch", "cascade")),
+                          "kernels vs plain"),
+                         ((("kernel", "cascade"), ("kernel", "decode")),
+                          "cascade vs plain decode, kernels")):
+        ref = res_l[b]
+        err = (res_l[a] - ref).abs().max().item()
+        tol = 0.05 * ref.abs().max().item()
+        agree = (res_l[a].argmax(-1) == ref.argmax(-1)).float().mean().item()
+        g = err <= tol and math.isfinite(err)
+        good &= g
+        tag = "cascade" if b[0] == "torch" else "cascade_vs_decode"
+        res.update({f"{tag}_logits_max_abs_err": err,
+                    f"{tag}_logits_tol": tol,
+                    f"{tag}_greedy_agreement": agree})
+        log(f"  cascade decode step logits, {what}: max_abs_err {err:.4e} "
+            f"(tol {tol:.4e}) {'ok' if g else 'FAIL'}; greedy agreement "
+            f"{agree:.3f}")
+    return ok and good, counts, gemm_keys
+
+
+def time_breakdown(report, path, gemm_keys, counts):
+    """Kernel time a path spent (``report[path]``: phase 4's main path or
+    phase 5's cascade path), estimated as each kernel's median time at its
+    main-path shape (phase 3, L2 cold) times its launches, beside the wall
+    time of the model calls (host work included)."""
+    mp = report[path]
     timed = {r["key"]: r["ms"] for r in report["gemm"] if r.get("recommended")}
     attn = {r["kernel"]: r["ms"] for r in report["paged"] if "ms" in r}
     unembed = [k for k in timed if k[2] > 100000]
@@ -477,7 +784,8 @@ def time_breakdown(report, gemm_keys, counts):
     for k in unembed:
         est["decode"] += timed[k] * mp["decode_steps"]
         est["prefill"] += timed[k] * mp["prefill_steps"]
-    est["decode"] += attn["paged_decode"] * counts["paged_decode"]
+    for name in ("paged_decode", "paged_prefix", "paged_decode_lse"):
+        est["decode"] += attn[name] * counts[name]
     est["prefill"] += attn["paged_prefill"] * counts["paged_prefill"]
     out = {}
     for phase in ("decode", "prefill"):
@@ -493,7 +801,10 @@ def time_breakdown(report, gemm_keys, counts):
 
 
 def kernel_table(report, gemm_keys, counts):
-    """The JSON kernel line: one entry per kernel and main-path shape."""
+    """The JSON kernel line: one entry per kernel and main-path shape.
+    ``counts`` holds each kernel's launches on the path that runs it
+    (phase 4 for the GEMM, decode and prefill, phase 5 for the cascade
+    kernels)."""
     out = []
     for rec in report["gemm"]:
         if not rec.get("recommended"):
@@ -511,11 +822,10 @@ def kernel_table(report, gemm_keys, counts):
     for rec in report["paged"]:
         if "ms" not in rec:
             continue
-        kind = rec["kernel"].split("_")[1]
         out.append({
             "name": rec["kernel"], "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
-            "replaces": PAGED_TPU[kind],
+            "replaces": PAGED_TPU[rec["kernel"]],
             "launches": counts[rec["kernel"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -574,13 +884,22 @@ def main() -> int:
     with dispatch.use(execute="kernel"):
         ok = check_gemms(torch, report, timer, cfg, SaraDispatcher())
         ok &= check_paged(torch, report, timer, cfg)
+        ok &= check_cascade(torch, report, timer, cfg)
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
 
     log("== 4. main path: llama3.2-1b full width, continuous batching")
     mp_ok, gemm_keys, counts = main_path(torch, report)
     ok &= mp_ok
-    time_breakdown(report, gemm_keys, counts)
+    time_breakdown(report, "main_path", gemm_keys, counts)
+
+    log("== 5. cascade path: prefix cache + cascade decode, llama3.2-1b full "
+        "width")
+    cp_ok, cp_counts, cp_keys = cascade_path(torch, report)
+    ok &= cp_ok
+    time_breakdown(report, "cascade_path", cp_keys, cp_counts)
+    counts = dict(counts, paged_decode_lse=cp_counts["paged_decode_lse"],
+                  paged_prefix=cp_counts["paged_prefix"])
 
     report["ok"] = bool(ok)
     report["seconds"] = time.time() - t_start

@@ -39,6 +39,11 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _F, _F, _P],
         "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        "paged_decode_lse_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                    _P],
+        "paged_prefix_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _F, _P],
     },
 }
 

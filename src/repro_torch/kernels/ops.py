@@ -16,10 +16,11 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels.paged_attn import (paged_attention_plain,
-                                            paged_decode_cuda,
-                                            paged_prefill_attention_plain,
-                                            paged_prefill_cuda)
+from repro_torch.kernels.paged_attn import (
+    merge_softmax_states, paged_attention_lse_plain, paged_attention_plain,
+    paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_attention_plain,
+    paged_prefill_cuda, paged_prefix_cuda, shared_paged_attention_plain,
+    shared_prefix_attention_plain)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
 
 
@@ -73,14 +74,52 @@ def paged_prefill_attention(q, k_arena, v_arena, tables, starts, lengths, *,
                               logit_cap=logit_cap)
 
 
+def shared_paged_attention(q, k_arena, v_arena, unique_tables, unique_lens,
+                           prefix_pages, prefix_lens, *,
+                           logit_cap: float = 0.0) -> torch.Tensor:
+    """Cascade decode for shared prefixes: each lane attends over its
+    shared-prefix rows (``prefix_pages``, read once for every sharing lane)
+    and its unique suffix rows (``unique_tables``), as ``paged_attention``
+    over the concatenated page lists would.
+
+    q: (S, H, hd) one query token per lane; prefix_pages: (P,) int32 pages
+    every sharing lane's table starts with (tail-padded with the last id);
+    prefix_lens: (S,) int32 prefix rows lane s attends (0 = not in the
+    group); unique_tables: (S, W) int32 each lane's pages past the prefix
+    (non-members keep their whole table); unique_lens: (S,) int32 valid
+    suffix rows.  Returns (S, H, hd_v); lanes empty in both phases yield
+    zeros.  The plain version rebuilds each lane's table and runs one
+    softmax (bitwise the plain decode at equal width); the kernels run the
+    two phases and merge their softmax states, as the reference's Pallas
+    path does."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _backend(q) == "torch":
+        return shared_paged_attention_plain(
+            q, k_arena, v_arena, unique_tables, unique_lens, prefix_pages,
+            prefix_lens, scale=scale, logit_cap=logit_cap)
+    q = q.contiguous()
+    o_p, m_p, l_p = paged_prefix_cuda(q, k_arena, v_arena, prefix_pages,
+                                      prefix_lens, scale=scale,
+                                      logit_cap=logit_cap)
+    o_u, m_u, l_u = paged_decode_lse_cuda(q, k_arena, v_arena,
+                                          unique_tables, unique_lens,
+                                          scale=scale, logit_cap=logit_cap)
+    o, _, _ = merge_softmax_states(o_p, m_p, l_p, o_u, m_u, l_u)
+    return o.to(q.dtype)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches, and calls of the plain versions, since the last
     ``reset_counts``."""
     return {"rsa_gemm": rsa_gemm_cuda.launches,
             "paged_decode": paged_decode_cuda.launches,
             "paged_prefill": paged_prefill_cuda.launches,
+            "paged_decode_lse": paged_decode_lse_cuda.launches,
+            "paged_prefix": paged_prefix_cuda.launches,
             "plain_calls": rsa_gemm_plain.calls + paged_attention_plain.calls
-            + paged_prefill_attention_plain.calls}
+            + paged_prefill_attention_plain.calls
+            + paged_attention_lse_plain.calls
+            + shared_prefix_attention_plain.calls}
 
 
 def reset_counts() -> None:
@@ -89,6 +128,10 @@ def reset_counts() -> None:
     rsa_gemm_cuda.launches_by_key = {}
     paged_decode_cuda.launches = 0
     paged_prefill_cuda.launches = 0
+    paged_decode_lse_cuda.launches = 0
+    paged_prefix_cuda.launches = 0
     rsa_gemm_plain.calls = 0
     paged_attention_plain.calls = 0
     paged_prefill_attention_plain.calls = 0
+    paged_attention_lse_plain.calls = 0
+    shared_prefix_attention_plain.calls = 0

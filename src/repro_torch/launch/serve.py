@@ -1,6 +1,8 @@
 """Serving launcher — thin CLI over the continuous-batching ServingEngine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefix-cache \
+      --shared-prefix-decode
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full \\
       --requests 16 --slots 8 --prompt-len 512 --gen 32 --prefill-chunk 64
 
@@ -25,14 +27,20 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      kv_layout: str = "paged", prefill_chunk: int = 64,
                      block_size: int = 16,
                      min_prompt_len: Optional[int] = None,
+                     prefix_cache: bool = False,
+                     shared_prefix_decode: bool = False,
+                     shared_prefix_len: int = 0,
                      clock: str = "steps", device: Optional[str] = None,
                      override_cfg=None, log: bool = True):
     """Serve a request set through the continuous-batching engine (paged KV,
     chunked prefill).  Prompts are random tokens from ``seed``: every one
     ``prompt_len`` long, or uniform in ``[min_prompt_len, prompt_len]``
-    when ``min_prompt_len`` is given, all arriving at time 0.  ``execute``
-    selects how the kernels run ("auto": CUDA kernels for CUDA tensors,
-    plain PyTorch on the CPU; "kernel"; "torch"); ``clock`` is the
+    when ``min_prompt_len`` is given, all arriving at time 0.
+    ``shared_prefix_len`` > 0 makes every prompt open with the same token
+    run (a system prompt) so that ``prefix_cache`` has something to hit;
+    ``shared_prefix_decode`` adds cascade decode over the shared pages.
+    ``execute`` selects how the kernels run ("auto": CUDA kernels for CUDA
+    tensors, plain PyTorch on the CPU; "kernel"; "torch"); ``clock`` is the
     engine's ("steps" or "wall").  Returns ({rid: tokens}, engine)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -47,12 +55,19 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         num_slots=num_slots, max_len=prompt_len + gen + 1,
         block_size=block_size, temperature=temperature, top_k=top_k,
         seed=seed, clock=clock, execute=execute, kv_layout=kv_layout,
-        prefill_chunk=prefill_chunk), device=device)
+        prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+        shared_prefix_decode=shared_prefix_decode), device=device)
+    shared = (rng.integers(0, cfg.vocab_size,
+                           min(shared_prefix_len, prompt_len)).astype(np.int32)
+              if shared_prefix_len > 0 else None)
     lo = prompt_len if min_prompt_len is None else min_prompt_len
     reqs = []
     for i in range(num_requests):
         n = int(rng.integers(lo, prompt_len + 1))
         p = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        if shared is not None:
+            k = min(len(shared), n)
+            p[:k] = shared[:k]
         reqs.append(Request(rid=f"req-{i}", prompt=p, max_new_tokens=gen))
     t0 = time.time()
     outputs = engine.run(reqs)
@@ -84,6 +99,18 @@ def main():
                     choices=["auto", "kernel", "torch"],
                     help="kernels (CUDA) or their plain PyTorch versions")
     ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix cache: refcounted "
+                         "copy-on-write KV pages shared across prompts "
+                         "with a common token prefix")
+    ap.add_argument("--shared-prefix-decode", action="store_true",
+                    help="with --prefix-cache: cascade decode attention, "
+                         "one pass over the common physical prefix pages "
+                         "plus per-lane unique suffixes, merged by softmax "
+                         "state")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help=">0: every prompt opens with the same token run "
+                         "of this length (a system prompt)")
     ap.add_argument("--clock", default="wall", choices=["wall", "steps"])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -91,6 +118,41 @@ def main():
     ap.add_argument("--smoke", action="store_true",
                     help="fast smoke: tiny greedy trace, assert completion")
     a = ap.parse_args()
+    if a.smoke and a.prefix_cache:
+        # a shared-prefix workload served twice, cache off then cache on
+        # (plus cascade decode when asked): the greedy tokens must agree
+        # while the cached run reuses pages
+        common = dict(arch=a.arch, num_requests=4, num_slots=2,
+                      prompt_len=24, gen=6, temperature=0.0,
+                      execute=a.execute, prefill_chunk=8,
+                      shared_prefix_len=16, device=a.device, log=False)
+        base, _ = serve_continuous(**common)
+        outputs, engine = serve_continuous(
+            **common, prefix_cache=True,
+            shared_prefix_decode=a.shared_prefix_decode)
+        if not all(len(v) == 6 for v in outputs.values()) or \
+                set(outputs) != set(base):
+            raise SystemExit(f"smoke failed: {outputs}")
+        for rid in base:
+            if not np.array_equal(outputs[rid], base[rid]):
+                raise SystemExit(f"smoke failed: {rid} cache-on "
+                                 f"{outputs[rid]} != cache-off {base[rid]}")
+        stats = engine.prefix_cache.stats()
+        if stats["prefix_cache_hits"] <= 0 or \
+                stats["prefix_cache_reused_pages"] <= 0 or \
+                engine.metrics.cache_hit_tokens <= 0:
+            raise SystemExit(f"smoke failed: no cache hit {stats}")
+        if a.shared_prefix_decode and engine.shared_prefix_steps <= 0:
+            raise SystemExit("smoke failed: no cascade decode step")
+        engine.prefix_cache.clear()
+        engine.pool.check()
+        if engine.pool.num_free != engine.pool.num_blocks:
+            raise SystemExit("smoke failed: KV pages leaked")
+        print(f"prefix-cache smoke OK (hit_rate="
+              f"{stats['prefix_cache_hit_rate']:.2f}, reused_pages="
+              f"{stats['prefix_cache_reused_pages']}, cascade steps "
+              f"{engine.shared_prefix_steps}, greedy parity)")
+        return
     if a.smoke:
         outputs, engine = serve_continuous(
             arch=a.arch, num_requests=3, num_slots=2, prompt_len=12, gen=6,
@@ -110,7 +172,10 @@ def main():
                      num_slots=a.slots, prompt_len=a.prompt_len, gen=a.gen,
                      temperature=a.temperature, top_k=a.top_k,
                      execute=a.execute, prefill_chunk=a.prefill_chunk,
-                     min_prompt_len=a.min_prompt_len, clock=a.clock,
+                     min_prompt_len=a.min_prompt_len,
+                     prefix_cache=a.prefix_cache,
+                     shared_prefix_decode=a.shared_prefix_decode,
+                     shared_prefix_len=a.shared_prefix_len, clock=a.clock,
                      device=a.device)
 
 

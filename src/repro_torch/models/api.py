@@ -57,6 +57,14 @@ class Model:
         return serving.paged_decode_step(params, tokens, self.cfg, arena,
                                          block_tables, kv_lens, write_mask)
 
+    def paged_shared_decode_step(self, params, tokens, arena, block_tables,
+                                 kv_lens, write_mask, prefix_pages,
+                                 prefix_lens, unique_tables, unique_lens):
+        return serving.paged_shared_decode_step(
+            params, tokens, self.cfg, arena, block_tables, kv_lens,
+            write_mask, prefix_pages, prefix_lens, unique_tables,
+            unique_lens)
+
 
 def build_model(cfg: ArchConfig, device: Optional[str] = None) -> Model:
     """``device`` defaults to CUDA and raises where there is none."""

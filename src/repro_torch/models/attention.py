@@ -1,5 +1,6 @@
-"""GQA attention through the physically paged KV arena (decode + chunked
-prefill) — the paged half of ``repro/models/attention.py``.
+"""GQA attention through the physically paged KV arena (decode, cascade
+decode and chunked prefill) — the paged half of
+``repro/models/attention.py``.
 
 The arena write is in place: the chunk's K/V rows go into the flattened
 ``(NB * bs, KVH, hd)`` view of the layer's pages with ``index_copy_``,
@@ -121,6 +122,40 @@ def gqa_paged_decode(params: Params, x: torch.Tensor,
     attn_len = kv_lens + wm
     o = kops.paged_attention(q[:, 0], k_arena, v_arena, block_tables,
                              attn_len, logit_cap=cfg.attn_logit_softcap)
+    S = x.shape[0]
+    return dense(o.reshape(S, 1, cfg.q_dim), params["wo"], None, cdt,
+                 site="layer.attn.out")
+
+
+def gqa_paged_shared_decode(params: Params, x: torch.Tensor,
+                            positions: torch.Tensor, cfg: ArchConfig, *,
+                            k_arena, v_arena, block_tables, kv_lens,
+                            write_mask, prefix_pages, prefix_lens,
+                            unique_tables, unique_lens):
+    """Cascade-decode twin of :func:`gqa_paged_decode`: the KV write goes
+    through the full per-lane ``block_tables`` exactly as there (the
+    pending token's row lands in the lane's own, never shared, tail page),
+    while attention splits into a shared-prefix phase over
+    ``prefix_pages`` (read once for every sharing lane) and a per-lane
+    unique phase over ``unique_tables``, merged by softmax state
+    (kernels/ops.py::shared_paged_attention).  Rope is applied before the
+    arena write, so attention over the cached rows is position-free and
+    the split changes no lane's math, only how often the shared pages are
+    read.  Returns out (S, 1, d)."""
+    from repro_torch.kernels import ops as kops
+    cdt = dtype_of(cfg.compute_dtype)
+    q, k, v = _proj_qkv(params, x, x, cfg, cdt)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    NB, bs = k_arena.shape[0], k_arena.shape[1]
+    wm = (write_mask > 0).to(kv_lens.dtype)
+    rows = _paged_chunk_rows(block_tables, kv_lens, wm, 1, bs, NB)
+    _arena_write_chunk(k_arena, rows, k[:, :1])
+    _arena_write_chunk(v_arena, rows, v[:, :1])
+    o = kops.shared_paged_attention(
+        q[:, 0], k_arena, v_arena, unique_tables, unique_lens,
+        prefix_pages, prefix_lens, logit_cap=cfg.attn_logit_softcap)
     S = x.shape[0]
     return dense(o.reshape(S, 1, cfg.q_dim), params["wo"], None, cdt,
                  site="layer.attn.out")

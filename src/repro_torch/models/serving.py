@@ -1,5 +1,5 @@
-"""Paged serving steps: chunked prefill and batched decode through the
-physical KV arena (the paged half of ``repro/models/serving.py``).
+"""Paged serving steps: chunked prefill, batched decode and cascade decode
+through the physical KV arena (the paged half of ``repro/models/serving.py``).
 
 The arena is ``{"k": (L, NB, bs, KVH, hd), "v": ...}``; every step writes
 its new rows into it in place and returns it beside the logits.  The
@@ -15,12 +15,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import dense, dtype_of, rmsnorm
-from repro_torch.models.transformer import (Params, _check_family, _embed,
-                                            _unembed_weight, layer_params,
-                                            paged_decoder_layer_apply,
-                                            paged_prefill_layer_apply)
+from repro_torch.models.transformer import (
+    Params, _check_family, _embed, _unembed_weight, layer_params,
+    paged_decoder_layer_apply, paged_prefill_layer_apply,
+    paged_shared_decoder_layer_apply)
 
 Arena = Dict[str, torch.Tensor]
+
+# families whose text layers run the paged chunked path in the reference
+CHUNKED_PREFILL_FAMILIES = ("dense", "moe")
 
 
 def init_paged_arena(cfg: ArchConfig, num_blocks: int, block_size: int,
@@ -70,6 +73,45 @@ def paged_decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
         return paged_decoder_layer_apply(
             layer_p, h, positions, cfg, k_arena=ak, v_arena=av,
             block_tables=block_tables, kv_lens=kv_lens, write_mask=wm)
+
+    x = _scan_paged_layers(body, x, params, arena)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return _lm_head(params, x[:, -1, :], cfg), arena
+
+
+def paged_shared_decode_step(params: Params, tokens: torch.Tensor,
+                             cfg: ArchConfig, arena: Arena,
+                             block_tables: torch.Tensor,
+                             kv_lens: torch.Tensor,
+                             write_mask: torch.Tensor,
+                             prefix_pages: torch.Tensor,
+                             prefix_lens: torch.Tensor,
+                             unique_tables: torch.Tensor,
+                             unique_lens: torch.Tensor
+                             ) -> Tuple[torch.Tensor, Arena]:
+    """Cascade decode: :func:`paged_decode_step`, but each lane's attention
+    splits into a shared-prefix phase (``prefix_pages`` (P,) read once per
+    step for every lane of the sharing group, ``prefix_lens`` (S,) rows of
+    it per lane, 0 outside the group) and a per-lane unique phase over
+    ``unique_tables`` (S, W) / ``unique_lens`` (S,), merged by softmax
+    state.  The KV write still goes through the full ``block_tables``.
+    GQA text families only.  Returns ((S, V) f32 logits, arena)."""
+    if cfg.family not in CHUNKED_PREFILL_FAMILIES or \
+            cfg.attention_type == "mla":
+        raise ValueError(f"family {cfg.family!r}/{cfg.attention_type} "
+                         "cannot run shared-prefix cascade decode (GQA text "
+                         "families only)")
+    _check_family(cfg)
+    x = _embed(params, tokens, cfg)
+    positions = kv_lens[:, None]
+    wm = write_mask.to(torch.int32)
+
+    def body(h, layer_p, ak, av):
+        return paged_shared_decoder_layer_apply(
+            layer_p, h, positions, cfg, k_arena=ak, v_arena=av,
+            block_tables=block_tables, kv_lens=kv_lens, write_mask=wm,
+            prefix_pages=prefix_pages, prefix_lens=prefix_lens,
+            unique_tables=unique_tables, unique_lens=unique_lens)
 
     x = _scan_paged_layers(body, x, params, arena)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)

@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (gqa_paged_decode,
-                                          gqa_paged_prefill, init_gqa)
+                                          gqa_paged_prefill,
+                                          gqa_paged_shared_decode, init_gqa)
 from repro_torch.models.mlp import init_mlp, mlp_apply
 from repro_torch.models.modules import (dense_init, dtype_of, embed_init,
                                         rmsnorm)
@@ -78,6 +79,27 @@ def paged_decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
     a = gqa_paged_decode(p["attn"], h, positions, cfg, k_arena=k_arena,
                          v_arena=v_arena, block_tables=block_tables,
                          kv_lens=kv_lens, write_mask=write_mask)
+    x = x + a.to(x.dtype)
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg).to(x.dtype)
+
+
+def paged_shared_decoder_layer_apply(p: Params, x, positions,
+                                     cfg: ArchConfig, *, k_arena, v_arena,
+                                     block_tables, kv_lens, write_mask,
+                                     prefix_pages, prefix_lens,
+                                     unique_tables, unique_lens
+                                     ) -> torch.Tensor:
+    """Cascade-decode twin of :func:`paged_decoder_layer_apply`: attention
+    over a shared page prefix runs once per step for every lane in the
+    sharing group (models/attention.py::gqa_paged_shared_decode).  Dense
+    MLP only.  Returns x."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a = gqa_paged_shared_decode(
+        p["attn"], h, positions, cfg, k_arena=k_arena, v_arena=v_arena,
+        block_tables=block_tables, kv_lens=kv_lens, write_mask=write_mask,
+        prefix_pages=prefix_pages, prefix_lens=prefix_lens,
+        unique_tables=unique_tables, unique_lens=unique_lens)
     x = x + a.to(x.dtype)
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h2, cfg).to(x.dtype)

@@ -19,11 +19,21 @@ The paged, chunked-prefill path of ``repro/serving/engine.py``:
   dispatcher, execution mode and site registry; ``gemm_plan`` is read back
   from the registry and ``plan_changes`` counts steps whose executed plan
   differs from the previous one.
+* ``prefix_cache`` (serving/prefix_cache.py): admission maps each prompt's
+  longest cached page prefix into the new table (refcounted), prefill
+  streams only the suffix, a chunk that would write into a shared or
+  pinned page copies it first (``_cow_chunk_pages``), and a prompt whose
+  final chunk lands pins its full pages into the trie.
+* ``shared_prefix_decode`` (cascade decode): on a step where two or more
+  decode lanes' tables open with the same physical pages, attention runs
+  as a shared-prefix phase over those pages (read once for the group) and
+  a per-lane unique phase, merged by softmax state
+  (``Model.paged_shared_decode_step``).
 
 Parts of the reference engine that are not ported (the dense KV layout,
-bucketed prefill, prefix cache, cascade decode, speculative decoding, the
-chaos harness, the sanitizer, snapshots, span tracing, ADAPTNET dispatch)
-raise ``ValueError`` when their config field is set; nothing is ignored.
+bucketed prefill, speculative decoding, the chaos harness, the sanitizer,
+snapshots, span tracing, ADAPTNET dispatch) raise ``ValueError`` when
+their config field is set; nothing is ignored.
 
 The clock is either ``"wall"`` (live serving; every step ends in a device
 synchronisation) or ``"steps"`` (virtual time in engine-step units —
@@ -35,7 +45,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +56,7 @@ from repro_torch.core.sara import SaraDispatcher
 from repro_torch.dispatch import SiteRegistry
 from repro_torch.serving.kv_pool import KVArena, KVBlockPool, PoolError
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
 
 
@@ -63,6 +74,36 @@ def sample_logits(gen: torch.Generator, logits: torch.Tensor,
                              torch.full_like(logits, -1e30), logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+def gemm_sites(cfg: ArchConfig, m_tokens: int
+               ) -> List[Tuple[str, int, int, int]]:
+    """The (M, K, N) of each distinct GEMM the model runs on ``m_tokens``
+    rows this step (MoE expert GEMMs use the expected routed-row count):
+    an analytic estimate, used for the prefill FLOPs a cache hit saves."""
+    m = max(int(m_tokens), 1)
+    d = cfg.d_model
+    sites: List[Tuple[str, int, int, int]] = []
+    if cfg.attention_type == "gqa":
+        sites += [("attn_qkv", m, d, cfg.q_dim + 2 * cfg.kv_dim),
+                  ("attn_out", m, cfg.q_dim, d)]
+    elif cfg.attention_type == "mla":
+        a = cfg.mla
+        sites += [("mla_down", m, d,
+                   a.q_lora_rank + a.kv_lora_rank + a.qk_rope_head_dim),
+                  ("mla_out", m, cfg.num_heads * a.v_head_dim, d)]
+    if cfg.moe is not None:
+        sites += [("moe_expert",
+                   max(m * cfg.moe.experts_per_token, 1), d,
+                   2 * cfg.moe.d_ff_expert),
+                  ("moe_router", m, d, cfg.moe.num_experts)]
+    else:
+        sites += [("mlp_up", m, d, 2 * cfg.d_ff),
+                  ("mlp_down", m, cfg.d_ff, d)]
+    if cfg.ssm is not None:
+        sites += [("ssm_proj", m, d, 2 * cfg.ssm.expand * d)]
+    sites += [("lm_head", m, d, cfg.vocab_size)]
+    return sites
 
 
 @dataclass
@@ -87,12 +128,12 @@ class EngineConfig:
     preempt_budget: int = 3           # preempt/readmit cycles before failing
     prefill_chunk: Optional[int] = 64
     kv_layout: str = "paged"          # "paged" ("auto" resolves to it)
+    prefix_cache: bool = False        # cross-request prefix cache
+    shared_prefix_decode: bool = False  # cascade decode (needs prefix_cache)
     # not ported — setting any of these raises
     dispatcher_mode: str = "oracle"
     adaptnet_dir: Optional[str] = None
     buckets: Optional[Sequence[int]] = None
-    prefix_cache: bool = False
-    shared_prefix_decode: bool = False
     spec_draft: Optional[str] = None
     sanitize: bool = False
     chaos: Optional[object] = None
@@ -102,8 +143,6 @@ class EngineConfig:
 
 def _check_ported(e: EngineConfig) -> None:
     unported = {
-        "prefix_cache": e.prefix_cache,
-        "shared_prefix_decode": e.shared_prefix_decode,
         "spec_draft": e.spec_draft is not None,
         "chaos": e.chaos is not None,
         "sanitize": e.sanitize,
@@ -115,6 +154,9 @@ def _check_ported(e: EngineConfig) -> None:
     bad = [name for name, on in unported.items() if on]
     if bad:
         raise ValueError(f"not ported to the PyTorch engine: {bad}")
+    if e.shared_prefix_decode and not e.prefix_cache:
+        raise ValueError("shared_prefix_decode needs prefix_cache: shared "
+                         "page runs only arise from cache-hit admissions")
     if e.kv_layout not in ("paged", "auto"):
         raise ValueError(f"kv_layout {e.kv_layout!r} is not ported (the "
                          "engine serves the paged layout only)")
@@ -168,10 +210,24 @@ class ServingEngine:
         num_blocks = (e.num_blocks if e.num_blocks is not None
                       else e.num_slots * self._max_blocks_per_slot)
         self.pool = KVBlockPool(num_blocks, e.block_size)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.pool) if e.prefix_cache else None)
         self.sched = ContinuousScheduler(
             e.num_slots, self.pool,
             max_prefills_per_step=e.max_prefills_per_step, reserve=e.reserve,
-            prefill_chunk=self.prefill_chunk, metrics=self.metrics)
+            prefill_chunk=self.prefill_chunk, prefix_cache=self.prefix_cache,
+            metrics=self.metrics)
+        # analytic per-token prefill cost (2*M*K*N over every GEMM site at
+        # M=1, layer sites times the stack depth): what each cache-hit
+        # token avoids recomputing; feeds metrics.prefill_flops_saved
+        self._flops_per_token = float(sum(
+            2 * m * k * n * (1 if name == "lm_head" else cfg.num_layers)
+            for name, m, k, n in gemm_sites(cfg, 1)))
+        # cascade decode telemetry: steps that ran the two-phase attention,
+        # and the sharing-group lanes summed over those steps
+        self.shared_prefix_steps = 0
+        self.shared_prefix_lanes = 0
+        self._leak_audit: Dict[str, int] = {}
         self.requests: Dict[str, Request] = {}
         self.arena = KVArena(
             self.model.init_paged_arena(num_blocks + 1, e.block_size),
@@ -268,6 +324,9 @@ class ServingEngine:
             if not self.sched.grow(req, req.prefill_pos + n):
                 self.metrics.stalls += 1
                 continue
+            if not self._cow_chunk_pages(req, req.prefill_pos, n):
+                self.metrics.stalls += 1
+                continue
             ctx = req.context()
             toks[slot, :n] = ctx[req.prefill_pos:req.prefill_pos + n]
             chunk[slot] = n
@@ -305,12 +364,47 @@ class ServingEngine:
             if req.prefill_pos < req.context_len:
                 continue                 # more chunks to stream next step
             req.prefilling = False
+            if self.prefix_cache is not None:
+                # index the finished prompt's fully covered pages; decode
+                # only appends rows >= prompt_len, so their content is
+                # frozen from here on and pinning is safe.  Spans already
+                # cached keep their existing page.
+                nfull = req.prompt_len // e.block_size
+                if nfull:
+                    self.prefix_cache.insert(
+                        req.prompt, self.pool.table(req.rid).blocks[:nfull])
             tok = int(sampled[slot])
             req.generated.append(tok)
             self._last_tok[slot, 0] = tok
             self._first_token(req)
             if req.done():
                 self._retire(req)
+
+    def _cow_chunk_pages(self, req: Request, pos: int, n: int) -> bool:
+        """Copy-on-write gate for the pages the coming chunk writes (rows
+        ``[pos, pos + n)``).  A cache-hit lane's first recomputed token can
+        land inside a shared or pinned page (the minus-one resume offset,
+        or a readmitted lane re-streaming over pages it donated to the
+        cache), and writing through the arena would corrupt every other
+        owner, so each target page is made private first.  A copy that
+        cannot get a free page evicts cache entries; if the pool is still
+        dry the lane stalls exactly like a failed ``grow()``."""
+        if self.prefix_cache is None or n <= 0:
+            return True
+        bs = self.ecfg.block_size
+        for pi in range(pos // bs, (pos + n - 1) // bs + 1):
+            while True:
+                try:
+                    self.pool.ensure_writable(req.rid, pi)
+                    break
+                except PoolError:
+                    # ensure_writable raises only when the free list is
+                    # empty; any successful eviction guarantees progress
+                    if self.prefix_cache.evict(1) == 0:
+                        req.stalled = True
+                        return False
+        req.stalled = False
+        return True
 
     def _retire(self, req: Request) -> None:
         slot = req.slot
@@ -366,8 +460,13 @@ class ServingEngine:
             self._finish(req, req.outcome)
         for req in plan.prefills:
             # reset lane bookkeeping on every admission: chunked prefill
-            # extends the row count with `+=` from whatever is here
+            # extends the row count with `+=` from whatever is here.  Cache
+            # hits resume at the cached offset (prefill_pos), misses at 0.
             self._kv_rows[req.slot] = req.prefill_pos
+            if req.cached_prefix_tokens:
+                self.metrics.on_cache_hit(req.cached_prefix_tokens,
+                                          req.cached_pages,
+                                          self._flops_per_token)
         self._do_chunk_prefills()
 
         # a request can finish at prefill and chunked lanes may still be
@@ -422,14 +521,90 @@ class ServingEngine:
         width = KVBlockPool.table_width(max(need), self._max_blocks_per_slot)
         rids = [active[s].rid if s in active else None for s in range(S)]
         tables = self.pool.dense_block_table(rids, width)
-        kv_read = e.block_size * sum(need)
+        group = (self._shared_prefix_group(active, kv, wm)
+                 if e.shared_prefix_decode else None)
         t0 = time.time()
         with torch.no_grad(), self._dispatch_scope("decode"):
-            logits, _ = self.model.paged_decode_step(
-                self.params, self._tensor(self._last_tok), self.arena.leaves,
-                self._tensor(tables), self._tensor(kv), self._tensor(wm))
+            args = [self._tensor(a) for a in (self._last_tok, tables, kv, wm)]
+            if group is not None:
+                prefix_pages, prefix_lens, utables, ulens, kv_read, _ = group
+                self.shared_prefix_steps += 1
+                self.shared_prefix_lanes += int((prefix_lens > 0).sum())
+                logits, _ = self.model.paged_shared_decode_step(
+                    self.params, args[0], self.arena.leaves, *args[1:],
+                    *[self._tensor(a) for a in (prefix_pages, prefix_lens,
+                                                utables, ulens)])
+            else:
+                kv_read = e.block_size * sum(need)
+                logits, _ = self.model.paged_decode_step(
+                    self.params, args[0], self.arena.leaves, *args[1:])
         self._sync()
         return logits, time.time() - t0, kv_read
+
+    def _shared_prefix_group(self, active: Dict[int, Request],
+                             kv: np.ndarray, wm: np.ndarray):
+        """Detect the hottest shared page run among the decode lanes: the
+        largest group (>= 2 lanes) whose block tables begin with the same
+        physical pages, with >= 1 fully written common page.  Returns the
+        cascade operands ``(prefix_pages, prefix_lens, unique_tables,
+        unique_lens, kv_read_rows, n_prefix_pages)``, padded to
+        power-of-two widths like the plain decode tables, or ``None`` when
+        no group exists this step."""
+        e = self.ecfg
+        S, bs = e.num_slots, e.block_size
+        blocks = {s: self.pool.table(r.rid).blocks
+                  for s, r in active.items()}
+        groups: Dict[int, List[int]] = {}
+        for s, b in blocks.items():
+            # only fully written pages can sit in the shared phase (it
+            # reads whole pages), so a lane needs >= bs committed rows
+            if b and int(kv[s]) >= bs:
+                groups.setdefault(b[0], []).append(s)
+        if not groups:
+            return None
+        best = max(groups.values(), key=len)
+        if len(best) < 2:
+            return None
+        # longest common physical prefix, capped at each member's fully
+        # written pages: the pending token's row stays in the unique phase
+        # (it is written this very step)
+        P = min(min(int(kv[s]) // bs for s in best),
+                min(len(blocks[s]) for s in best))
+        first = blocks[best[0]]
+        i = 0
+        while i < P and all(blocks[s][i] == first[i] for s in best[1:]):
+            i += 1
+        P = i
+        if P < 1:
+            return None
+        members = set(best)
+        prefix_lens = np.zeros((S,), np.int32)
+        ulens = np.zeros((S,), np.int32)
+        for s in active:
+            attn = int(kv[s]) + int(wm[s])
+            if s in members:
+                prefix_lens[s] = P * bs
+                ulens[s] = attn - P * bs
+            else:
+                ulens[s] = attn
+        uneed = max(self.pool.blocks_for(int(n)) for n in ulens)
+        uw = KVBlockPool.table_width(max(uneed, 1),
+                                     self._max_blocks_per_slot)
+        utables = np.zeros((S, uw), np.int32)
+        for s in active:
+            off = P if s in members else 0
+            b = blocks[s][off:off + uw]
+            if b:
+                utables[s, :len(b)] = b
+                utables[s, len(b):] = b[-1]
+        pw = KVBlockPool.table_width(P, self._max_blocks_per_slot)
+        prefix_pages = np.full((pw,), first[P - 1], np.int32)
+        prefix_pages[:P] = first[:P]
+        # the P shared pages are read once for the whole group instead of
+        # once per member lane
+        kv_read = bs * (P + sum(self.pool.blocks_for(int(n))
+                                for n in ulens))
+        return prefix_pages, prefix_lens, utables, ulens, kv_read, P
 
     def run(self, requests: Sequence[Request]) -> Dict[str, np.ndarray]:
         """Serve a request set to completion; returns {rid: generated}.
@@ -446,6 +621,12 @@ class ServingEngine:
                 self.metrics.on_finish("rejected")
         while self.step():
             pass
+        # every request drained: no table may survive and the only pins
+        # left are the prefix trie's (``prefix_cache.clear()`` returns the
+        # pool to whole)
+        self._leak_audit = self.pool.audit_leaks(
+            self.prefix_cache.pages() if self.prefix_cache is not None
+            else ())
         return {r.rid: np.asarray(r.generated, np.int32) for r in requests}
 
     def dispatch_stats(self) -> Dict[str, int]:
@@ -469,4 +650,11 @@ class ServingEngine:
         s["kv_layout"] = self.kv_layout
         s["kv_peak_blocks"] = self.pool.peak_in_use
         s["engine_steps"] = self.steps
+        s["kv_shared_pages"] = self.pool.shared_pages
+        s["kv_cow_copies"] = self.pool.cow_copies
+        if self.prefix_cache is not None:
+            s.update(self.prefix_cache.stats())
+        s["shared_prefix_steps"] = self.shared_prefix_steps
+        s["shared_prefix_lanes"] = self.shared_prefix_lanes
+        s.update(self._leak_audit)
         return s

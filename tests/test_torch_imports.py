@@ -73,7 +73,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefix_cache", True), ("shared_prefix_decode", True),
+    ("shared_prefix_decode", True),        # needs prefix_cache
     ("spec_draft", "self"), ("chaos", object()), ("sanitize", True),
     ("snapshot_dir", "/nonexistent"), ("trace", True),
     ("kv_layout", "dense"), ("prefill_chunk", None), ("buckets", (16,)),

@@ -8,7 +8,10 @@ card:
 Tolerances: f32 kernels sum in another order than the plain versions
 (bounded by K * 2^-24 * max(|a| @ |b|) for the GEMM, 1e-5 for attention);
 bf16 outputs add one bf16 rounding (2^-8 relative) per block_k chunk of
-the GEMM, and the attention kernels round p to bf16 before p @ V.
+the GEMM, and the attention kernels round p to bf16 before p @ V.  The
+cascade kernels' f32 softmax states (m, l) differ from the plain versions'
+by summation order only (1e-4 relative), and their empty rows (a lane of
+length 0, a lane outside the sharing group) are exactly (0, -1e30, 0).
 """
 
 import math
@@ -19,8 +22,12 @@ import torch
 from repro_torch import dispatch
 from repro_torch.core.hw import IS, OS, WS
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attn import (paged_attention_plain,
-                                            paged_prefill_attention_plain)
+from repro_torch.kernels.paged_attn import (NEG, paged_attention_lse_plain,
+                                            paged_attention_plain,
+                                            paged_decode_lse_cuda,
+                                            paged_prefill_attention_plain,
+                                            paged_prefix_cuda,
+                                            shared_prefix_attention_plain)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +93,85 @@ def test_paged_kernels_match_plain(cuda, dtype, tol):
                                  scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert got[3].abs().max().item() == 0.0      # the length-0 lane
+
+
+def _cascade(gen, dtype):
+    """Full width: 8 lanes, 8 kv heads, G = 4, hd = 64, pages of 16; a
+    24-page shared prefix padded to 32 with the last id; lane 6 is outside
+    the group, lane 5 takes only 20 pages of the run; unique lengths are
+    ragged and include 0."""
+    S, KVH, G, hd, bs, P = 8, 8, 4, 64, 16, 24
+    prefix_lens = [P * bs] * 8
+    prefix_lens[5], prefix_lens[6] = 20 * bs, 0
+    ulens = [0, 1, 15, 16, 17, 100, 128, 129]
+    uw = max(-(-n // bs) for n in ulens)
+    nxt, utables, full = P, [], []
+    for s in range(S):
+        n = -(-ulens[s] // bs)
+        own = list(range(nxt, nxt + n))
+        nxt += n
+        row = own or [0]
+        utables.append(row + [row[-1]] * (uw - len(row)))
+        full.append(list(range(prefix_lens[s] // bs)) + own)
+    W = max(len(r) for r in full)
+    full = [(r or [0]) + [(r or [0])[-1]] * (W - len(r or [0])) for r in full]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    k = torch.randn((nxt + 1, bs, KVH, hd), generator=gen,
+                    device="cuda").to(dtype)
+    return dict(
+        q=torch.randn((S, KVH * G, hd), generator=gen,
+                      device="cuda").to(dtype),
+        k=k, v=torch.randn_like(k),
+        prefix_pages=torch.tensor(list(range(P)) + [P - 1] * 8, **i32),
+        prefix_lens=torch.tensor(prefix_lens, **i32),
+        utables=torch.tensor(utables, **i32),
+        ulens=torch.tensor(ulens, **i32),
+        full=torch.tensor(full, **i32),
+        lens=torch.tensor([a + b for a, b in zip(prefix_lens, ulens)],
+                          **i32))
+
+
+def _states_close(got, want, tol):
+    (go, gm, gl), (wo, wm, wl) = got, want
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+    assert ((gm - wm).abs() <= 1e-4 * (1 + wm.abs())).all()
+    assert ((gl - wl).abs() <= 1e-4 * (1 + wl)).all()
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+def test_cascade_kernels_match_plain(cuda, dtype, tol, cap):
+    x = _cascade(cuda, dtype)
+    scale = 64 ** -0.5
+    a = (x["q"], x["k"], x["v"])
+    got = paged_prefix_cuda(*a, x["prefix_pages"], x["prefix_lens"],
+                            scale=scale, logit_cap=cap)
+    want = shared_prefix_attention_plain(*a, x["prefix_pages"],
+                                         x["prefix_lens"], scale=scale,
+                                         logit_cap=cap)
+    _states_close(got, want, tol)
+    # the lane outside the group: exactly the empty state
+    assert (got[0][6] == 0).all() and (got[1][6] == NEG).all() and \
+        (got[2][6] == 0).all()
+    got = paged_decode_lse_cuda(*a, x["utables"], x["ulens"], scale=scale,
+                                logit_cap=cap)
+    want = paged_attention_lse_plain(*a, x["utables"], x["ulens"],
+                                     scale=scale, logit_cap=cap)
+    _states_close(got, want, tol)
+    # the lane of unique length 0: exactly the empty state
+    assert (got[0][0] == 0).all() and (got[1][0] == NEG).all() and \
+        (got[2][0] == 0).all()
+    # the two phases merged equal one paged decode over the full tables
+    n0 = ops.launch_counts()
+    with dispatch.use(execute="kernel"):
+        cascade = ops.shared_paged_attention(
+            *a, x["utables"], x["ulens"], x["prefix_pages"],
+            x["prefix_lens"], logit_cap=cap)
+        whole = ops.paged_attention(*a, x["full"], x["lens"], logit_cap=cap)
+    n1 = ops.launch_counts()
+    assert (n1["paged_prefix"] - n0["paged_prefix"],
+            n1["paged_decode_lse"] - n0["paged_decode_lse"]) == (1, 1)
+    assert n1["plain_calls"] == n0["plain_calls"]
+    assert cascade.dtype == dtype
+    assert (cascade.float() - whole.float()).abs().max().item() <= tol

@@ -12,8 +12,10 @@ import torch
 
 from repro_torch.core.hw import IS, OS
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.paged_attn import (paged_decode_cuda,
-                                            paged_prefill_cuda)
+from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
+                                            paged_decode_lse_cuda,
+                                            paged_prefill_cuda,
+                                            paged_prefix_cuda)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
 
 
@@ -110,3 +112,61 @@ def test_paged_counts_each_launch_and_no_failed_one(card):
     counts = ops.launch_counts()
     assert (counts["paged_decode"], counts["paged_prefill"]) == (1, 1)
     assert counts["plain_calls"] == 0
+
+
+def _cascade(S, P, err, card):
+    """One launch of each cascade kernel: the unique phase over (S, 2)
+    tables, the shared-prefix phase over P prefix pages."""
+    KVH, G, hd, bs = 2, 2, 8, 4
+    k = torch.zeros(8, bs, KVH, hd)
+    q = torch.zeros(S, KVH * G, hd)
+    card.err = err
+    lse = paged_decode_lse_cuda(q, k, k, torch.zeros(S, 2, dtype=torch.int32),
+                                torch.ones(S, dtype=torch.int32), scale=0.5)
+    pre = paged_prefix_cuda(q, k, k, torch.zeros(P, dtype=torch.int32),
+                            torch.full((S,), 4, dtype=torch.int32),
+                            scale=0.5)
+    return lse, pre
+
+
+@pytest.mark.parametrize("S,P", [(0, 2), (3, 0)])
+def test_empty_cascade_problem_counts_no_launch(card, S, P):
+    lse, (o, m, l) = _cascade(S, P, 0, card)
+    # no prefix page: every row comes back as the empty state
+    assert o.shape == (S, 4, 8) and m.shape == l.shape == (S, 4)
+    assert torch.all(o == 0) and torch.all(m == NEG) and torch.all(l == 0)
+    assert card.calls == (["paged_decode_lse_launch"] if S else [])
+    counts = ops.launch_counts()
+    assert counts["paged_decode_lse"] == (S > 0)
+    assert counts["paged_prefix"] == 0
+
+
+def test_cascade_counts_each_launch_and_no_failed_one(card):
+    _cascade(3, 2, 0, card)
+    assert card.calls == ["paged_decode_lse_launch", "paged_prefix_launch"]
+    with pytest.raises(RuntimeError, match="paged decode-lse attention"):
+        _cascade(3, 2, 700, card)      # cudaErrorIllegalAddress
+    card.err = 9                       # cudaErrorInvalidConfiguration
+    with pytest.raises(RuntimeError, match="shared-prefix attention"):
+        paged_prefix_cuda(torch.zeros(3, 4, 8), torch.zeros(8, 4, 2, 8),
+                          torch.zeros(8, 4, 2, 8),
+                          torch.zeros(2, dtype=torch.int32),
+                          torch.ones(3, dtype=torch.int32), scale=0.5)
+    counts = ops.launch_counts()
+    assert (counts["paged_decode_lse"], counts["paged_prefix"]) == (1, 1)
+    assert counts["plain_calls"] == 0
+
+
+def test_shared_attention_launches_both_phases_once(card):
+    """On (posed) CUDA tensors ``ops.shared_paged_attention`` runs the two
+    kernels and merges their states: no plain call, no plain decode."""
+    k = torch.zeros(8, 4, 2, 8)
+    out = ops.shared_paged_attention(
+        torch.zeros(3, 4, 8), k, k, torch.zeros(3, 2, dtype=torch.int32),
+        torch.ones(3, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+        torch.full((3,), 4, dtype=torch.int32))
+    assert out.shape == (3, 4, 8) and out.dtype == torch.float32
+    assert card.calls == ["paged_prefix_launch", "paged_decode_lse_launch"]
+    counts = ops.launch_counts()
+    assert (counts["paged_prefix"], counts["paged_decode_lse"],
+            counts["paged_decode"], counts["plain_calls"]) == (1, 1, 0, 0)
