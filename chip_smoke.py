@@ -32,7 +32,24 @@ Phases (any failure exits non-zero):
    cascade kernels (16 launches each per step), no plain version may run,
    the pool must audit clean with the trie's pins and be whole after the
    trie is cleared, and the logits of one cascade decode step are held
-   against the same step under ``execute="torch"``.
+   against the same step under ``execute="torch"``;
+6. the deepseek-v3 path: ``deepseek-v3-671b`` at its published widths
+   (d=7168, 128 heads, absorbed MLA with kv_lora_rank 512, 256 routed
+   experts top-8 plus one shared, vocab 129280, bf16, random weights from
+   seed 0), depth cut to one dense layer and one MoE layer, served with
+   continuous batching, chunked paged prefill and paged decode; every
+   request must finish leak-free, the MLA kernels must launch once per
+   layer per model step, every GEMM site but the f32 router (pinned to the
+   plain product, as in the reference) must run on the RSA kernel with
+   every expert and head bank as one launch, and no plain version may
+   run.  The logits of one chunk-prefill step and one decode step are held
+   against the plain versions, and every 2-D GEMM shape the path launched
+   is held against its plain version and timed.
+
+Phase 3 also holds the two paged MLA kernels (decode over ragged lengths
+0-545, prefill of a 64-row chunk at ragged starts) and the bank GEMM (the
+expert banks, E = 256, and the MLA head banks, E = 128 views of W_UK /
+W_UV) against their plain versions at phase 6's shapes.
 
 The lines before the last are the JSON kernel table, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -60,6 +77,8 @@ PAGED_TPU = {"paged_decode": "src/repro/kernels/paged_attn.py:104",
              "paged_decode_lse": "src/repro/kernels/paged_attn.py:413",
              "paged_prefix": "src/repro/kernels/paged_attn.py:517"}
 RSA_TPU = "src/repro/kernels/rsa_gemm.py:64"
+MLA_TPU = {"paged_mla_decode": "src/repro/kernels/paged_attn.py:189",
+           "paged_mla_prefill": "src/repro/kernels/paged_attn.py:578"}
 
 
 def log(*a):
@@ -489,6 +508,242 @@ def check_cascade(torch, report, timer, cfg):
     return ok
 
 
+def bank_cases(dcfg):
+    """(site, E, M, K, N, head_view) of every bank GEMM on phase 6's path:
+    the expert banks (E = 256 at M = 8 slots x capacity 4, at decode and
+    prefill alike) and the MLA head banks (E = 128 heads at M = 8 decode
+    rows and 8 x 64 prefill rows), whose weights are strided views of
+    W_UK / W_UV."""
+    from repro_torch.models.moe import padded_num_experts, row_capacity
+    m, H, d = dcfg.mla, dcfg.num_heads, dcfg.d_model
+    E, f = padded_num_experts(dcfg), dcfg.moe.d_ff_expert
+    out = []
+    for M in sorted({DS_SLOTS * row_capacity(1, dcfg),     # decode rows
+                     DS_SLOTS * row_capacity(64, dcfg)}):  # chunk rows
+        out += [("moe.expert.gate/up", E, M, d, f, False),
+                ("moe.expert.down", E, M, f, d, False)]
+    for M in (DS_SLOTS, DS_SLOTS * 64):
+        out += [("layer.mla.q_absorb", H, M, m.qk_nope_head_dim,
+                 m.kv_lora_rank, True),
+                ("layer.mla.v_mix", H, M, m.kv_lora_rank, m.v_head_dim,
+                 True)]
+    return out
+
+
+def check_banks(torch, report, timer, dcfg, dispatcher):
+    """The bank GEMM (one launch per bank) against its plain version at
+    every bank shape of phase 6, in every mode, bf16 (timed, with
+    ``torch.bmm`` as the library yardstick) and f32 at one expert and one
+    head shape; tolerance as the 2-D GEMM's, per bank member."""
+    from repro_torch.core.hw import DATAFLOW_NAMES
+    from repro_torch.dispatch.executor import _clamped_blocks
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    ok = True
+    cases = [c + (torch.bfloat16, True) for c in bank_cases(dcfg)]
+    ex, hd = cases[0], cases[-4]
+    cases += [("f32 expert (E=16)", 16) + ex[2:6] + (torch.float32, False),
+              ("f32 q_absorb",) + hd[1:6] + (torch.float32, False)]
+    for site, E, M, K, N, view, dt, timed in cases:
+        a = torch.randn((E, M, K), generator=gen, device="cuda").to(dt)
+        if view:                   # W (N, E*K) read as (E, K, N), in place
+            w = (torch.randn((N, E * K), generator=gen, device="cuda")
+                 * (1.0 / math.sqrt(K))).to(dt)
+            b = w.reshape(N, E, K).permute(1, 2, 0)
+        else:
+            b = torch.empty((E, K, N), dtype=dt, device="cuda")
+            for e in range(E):     # one member at a time: no 15 GB f32 draw
+                b[e] = torch.randn((K, N), generator=gen, device="cuda") \
+                    * (1.0 / math.sqrt(K))
+        cfg_t = dispatcher.recommend(M, K, N)
+        bk = _clamped_blocks(cfg_t, M, K, N)[2]
+        library_ms = None
+        for mode in (0, 1, 2):
+            def kernel():
+                return ops.rsa_gemm(a, b, block_k=bk, mode=mode)
+            out = kernel()
+            plain = rsa_gemm_plain(a, b, block_k=bk, mode=mode)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            K_mag = max((a[e:e + 32].abs().float() @
+                         b[e:e + 32].abs().float()).max().item()
+                        for e in range(0, E, 32))
+            tol = K * F32_EPS * K_mag
+            if dt == torch.bfloat16:
+                chunks = 1 if mode == 0 else -(-K // bk)
+                tol += (chunks + 1) * BF16_EPS * plain.abs().max().item()
+            good = err <= tol and math.isfinite(err)
+            ok &= good
+            rec = {"site": site, "E": E, "M": M, "K": K, "N": N,
+                   "dtype": str(dt).split(".")[-1], "head_view": view,
+                   "bk": bk, "mode": DATAFLOW_NAMES[mode],
+                   "recommended": timed and mode == cfg_t.mode,
+                   "max_abs_err": err, "tol": tol, "ok": good}
+            if rec["recommended"]:
+                rec["ms"] = timer(kernel)
+                rec["plain_ms"] = timer(lambda: rsa_gemm_plain(
+                    a, b, block_k=bk, mode=mode))
+                rec["library_ms"] = library_ms = timer(
+                    lambda: torch.bmm(a, b))
+                nbytes = (E * M * K + E * K * N + E * M * N) * 2
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                t_ops = 2.0 * E * M * N * K / PEAK_BF16_FLOPS * 1e3
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else \
+                    "operations"
+                rec["key"] = (E, M, K, N, mode)
+            report["bank"].append(rec)
+            log(f"  rsa_gemm bank {site:<20} {E}x({M}x{K}x{N}) "
+                f"{rec['mode']} bk={bk} {rec['dtype']}"
+                f"{' view' if view else ''}: max_abs_err {err:.3e} (tol "
+                f"{tol:.3e}) {'ok' if good else 'FAIL'}"
+                + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f}"
+                   f" ms bmm {library_ms:.4f} ms bound {rec['bound_ms']:.4f}"
+                   f" ms  [phase 6 path]" if rec["recommended"] else ""))
+        del a, b
+        torch.cuda.empty_cache()
+    return ok
+
+
+def mla_inputs(torch, gen, lengths, r, rd, bs, dtype):
+    """Random latent arenas + per-lane tables over disjoint pages (dead
+    columns repeat the last live id; a length-0 lane gets an all-zero
+    row)."""
+    S = len(lengths)
+    W = max(1, max(-(-n // bs) for n in lengths))
+    tables = torch.zeros((S, W), dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        nblk = -(-n // bs)
+        if nblk:
+            tables[i, :nblk] = torch.arange(nxt, nxt + nblk)
+            tables[i, nblk:] = nxt + nblk - 1
+            nxt += nblk
+    ckv = torch.randn((nxt + 1, bs, r), generator=gen, device="cuda")
+    kr = torch.randn((nxt + 1, bs, rd), generator=gen, device="cuda")
+    return (ckv.to(dtype), kr.to(dtype), tables.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def mla_bound_ms(rows, r, rd, io_bytes, flops):
+    """Least time: each live latent row read once (c_kv and k_rope, bf16),
+    q in and o_lat out once; or the score + mix FLOPs at the bf16 peak."""
+    t_bytes = (rows * (r + rd) * 2 + io_bytes) / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def check_mla(torch, report, timer, dcfg):
+    """Both MLA kernels against their plain versions at full width (8
+    lanes, 128 heads, r = 512, rd = 64, pages of 16, scale 1/sqrt(192)):
+    decode over ragged lengths 0-545 (a length-0 lane, page boundaries),
+    prefill of a 64-row chunk at ragged starts with an empty lane."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_mla import (
+        paged_mla_attention_plain, paged_mla_prefill_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    m, H, bs, S = dcfg.mla, dcfg.num_heads, 16, 8
+    r, rd = m.kv_lora_rank, m.qk_rope_head_dim
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(qk)
+    ok = True
+    dec_lengths = [0, 1, 15, 16, 17, 200, 400, 545]
+    starts = [0, 0, 64, 100, 0, 448, 0, 10]
+    chunks = [64, 10, 64, 37, 0, 64, 1, 64]
+    C = 64
+    for dt, timed in ((torch.bfloat16, True), (torch.float32, False)):
+        # bf16: p rounded to bf16 before p @ c_kv (as the TPU kernel does)
+        # against the plain version's f32 p, on outputs |o| <~ 5, plus the
+        # output's own bf16 rounding; f32: 576-term score sums and the
+        # softmax in another order, ~sqrt(576) * 2^-24 on partial sums ~30
+        tol = 5 * 2 * BF16_EPS if dt == torch.bfloat16 else 1e-4
+        ckv, kr, tables, lens = mla_inputs(torch, gen, dec_lengths, r, rd,
+                                           bs, dt)
+        qa = torch.randn((S, H, r), generator=gen, device="cuda").to(dt)
+        qr = torch.randn((S, H, rd), generator=gen, device="cuda").to(dt)
+
+        def dec():
+            return ops.mla_paged_attention(qa, qr, ckv, kr, tables, lens,
+                                           qk_dim=qk)
+
+        def dec_plain():
+            return paged_mla_attention_plain(qa, qr, ckv, kr, tables, lens,
+                                             scale=scale)
+        out, plain = dec(), dec_plain()
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        empty = bool((out[0] == 0).all())
+        good = err <= tol and math.isfinite(err) and empty
+        ok &= good
+        rec = {"kernel": "paged_mla_decode", "dtype": str(dt).split(".")[-1],
+               "lengths": dec_lengths, "max_abs_err": err, "tol": tol,
+               "empty_lane_zero": empty, "ok": good}
+        if timed:
+            rec["ms"] = timer(dec)
+            rec["plain_ms"] = timer(dec_plain)
+            rows = sum(-(-n // bs) * bs for n in dec_lengths)
+            flops = 2.0 * H * (r + rd + r) * sum(dec_lengths)
+            io = (qa.numel() + qr.numel() + out.numel()) * 2
+            rec["bound_ms"], rec["bound_by"] = mla_bound_ms(rows, r, rd, io,
+                                                            flops)
+            rec["library_ms"] = None
+        report["mla"].append(rec)
+        log(f"  paged_mla_decode  {rec['dtype']}: max_abs_err {err:.3e} "
+            f"(tol {tol:.1e}), length-0 lane {'zero' if empty else 'WRONG'}"
+            f" {'ok' if good else 'FAIL'}"
+            + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
+               f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+
+        lengths = [a + b for a, b in zip(starts, chunks)]
+        ckv, kr, tables, lens = mla_inputs(torch, gen, lengths, r, rd, bs,
+                                           dt)
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        qa = torch.randn((S, C, H, r), generator=gen, device="cuda").to(dt)
+        qr = torch.randn((S, C, H, rd), generator=gen, device="cuda").to(dt)
+
+        def pre():
+            return ops.mla_paged_prefill_attention(qa, qr, ckv, kr, tables,
+                                                   st, lens, qk_dim=qk)
+
+        def pre_plain():
+            return paged_mla_prefill_attention_plain(
+                qa, qr, ckv, kr, tables, st, lens, scale=scale)
+        out, plain = pre(), pre_plain()
+        torch.cuda.synchronize()
+        live = torch.arange(C, device="cuda")[None, :] < \
+            torch.tensor(chunks, device="cuda")[:, None]
+        err = (out.float() - plain.float()).abs()[live].max().item()
+        empty = bool((out[4] == 0).all())
+        good = err <= tol and math.isfinite(err) and empty
+        ok &= good
+        rec = {"kernel": "paged_mla_prefill", "dtype": str(dt).split(".")[-1],
+               "starts": starts, "chunks": chunks, "max_abs_err": err,
+               "tol": tol, "empty_lane_zero": empty, "ok": good}
+        if timed:
+            rec["ms"] = timer(pre)
+            rec["plain_ms"] = timer(pre_plain)
+            rows = sum(-(-n // bs) * bs for n in lengths)
+            # each live chunk row against its causal columns
+            pairs = sum(s + c + 1 for s, n in zip(starts, chunks)
+                        for c in range(n))
+            flops = 2.0 * H * (r + rd + r) * pairs
+            io = (qa.numel() + qr.numel() + out.numel()) * 2
+            rec["bound_ms"], rec["bound_by"] = mla_bound_ms(rows, r, rd, io,
+                                                            flops)
+            rec["library_ms"] = None
+        report["mla"].append(rec)
+        log(f"  paged_mla_prefill {rec['dtype']}: max_abs_err {err:.3e} "
+            f"(tol {tol:.1e}), empty lane {'zero' if empty else 'WRONG'} "
+            f"{'ok' if good else 'FAIL'}"
+            + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
+               f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -767,6 +1022,326 @@ def cascade_path(torch, report):
     return ok and good, counts, gemm_keys
 
 
+# ---------------------------------------------------------------------------
+# phase 6: deepseek-v3 (absorbed MLA + MoE) at full width
+# ---------------------------------------------------------------------------
+
+DS_REQUESTS, DS_SLOTS, DS_GEN, DS_LO, DS_HI = 12, 8, 16, 64, 512
+
+
+def deepseek_cfg():
+    """deepseek-v3-671b at its published widths, depth cut to one dense
+    layer then one MoE layer (the split ``reduced()`` keeps): ~28 GB of
+    bf16 weights."""
+    from repro_torch.configs.registry import get_arch
+    return get_arch("deepseek-v3-671b").replace(num_layers=2,
+                                                first_dense_layers=1)
+
+
+def check_gemm_keys(torch, timer, keys, dispatcher, vocab):
+    """Each 2-D GEMM shape a path launched, (M, K, N, mode): the kernel
+    against its plain version (bf16; the unembedding with f32 output) at
+    the recommended block_k, and timed beside the plain version,
+    ``torch.matmul`` and its bound."""
+    from repro_torch.core.hw import DATAFLOW_NAMES
+    from repro_torch.dispatch.executor import _clamped_blocks
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out_recs, ok = [], True
+    for key in sorted(keys):
+        M, K, N, mode = key
+        bk = _clamped_blocks(dispatcher.recommend(M, K, N), M, K, N)[2]
+        odt = torch.float32 if N == vocab else torch.bfloat16
+        a = torch.randn((M, K), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        b = (torch.randn((K, N), generator=gen, device="cuda")
+             * (1.0 / math.sqrt(K))).to(torch.bfloat16)
+
+        def kernel():
+            return ops.rsa_gemm(a, b, block_k=bk, mode=mode, out_dtype=odt)
+        out = kernel()
+        plain = rsa_gemm_plain(a, b, block_k=bk, mode=mode, out_dtype=odt)
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        tol = gemm_tolerance(torch, a, b, plain, mode, bk,
+                             odt == torch.float32)
+        good = err <= tol and math.isfinite(err)
+        ok &= good
+        nbytes = (M * K + K * N) * 2 + M * N * out.element_size()
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2.0 * M * N * K / PEAK_BF16_FLOPS * 1e3
+        rec = {"M": M, "K": K, "N": N, "mode": DATAFLOW_NAMES[mode],
+               "bk": bk, "out": str(odt).split(".")[-1], "key": key,
+               "max_abs_err": err, "tol": tol, "ok": good,
+               "ms": timer(kernel),
+               "plain_ms": timer(lambda: rsa_gemm_plain(
+                   a, b, block_k=bk, mode=mode, out_dtype=odt)),
+               "library_ms": timer(lambda: torch.matmul(a, b)),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out_recs.append(rec)
+        log(f"  rsa_gemm {M}x{K}x{N} {rec['mode']} bk={bk} bf16->"
+            f"{rec['out']}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+            f"{'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms plain "
+            f"{rec['plain_ms']:.4f} ms matmul {rec['library_ms']:.4f} ms "
+            f"bound {rec['bound_ms']:.4f} ms")
+        del a, b
+    return ok, out_recs
+
+
+class RoutingReplay:
+    """Stands in for ``models.moe.route`` in phase 6's logits check.
+
+    The MoE router's top-k is discontinuous: bf16 rounding that differs by
+    an ulp between the kernels and the plain versions can flip a near-tie
+    expert choice, which replaces a token's whole expert output and, where
+    an expert is over capacity, shifts which other tokens of the row are
+    dropped.  So the check runs the plain step first ("record"), then the
+    kernels free ("compare": the share of tokens whose top-k set agrees
+    with the plain run is counted), then the kernels with the plain run's
+    expert choices ("replay", gates recomputed from the kernel run's own
+    probabilities), which holds the kernels' arithmetic to the plain
+    versions' with the decision fixed."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.mode, self.calls, self.i = "record", [], 0
+        self.agree = self.tokens = 0
+
+    def __call__(self, params, x, cfg):
+        top, g = self.route(params, x, cfg)
+        if self.mode == "record":
+            self.calls.append(top)
+            return top, g
+        want = self.calls[self.i]
+        self.i = (self.i + 1) % len(self.calls)
+        if self.mode == "compare":
+            same = (top.sort(-1).values == want.sort(-1).values).all(-1)
+            self.agree += int(same.sum().item())
+            self.tokens += same.numel()
+            return top, g
+        return want, self.moe.gates(self.moe.router_probs(params, x, cfg),
+                                    want)
+
+
+def deepseek_path(torch, report, timer, dispatcher):
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.models.moe import padded_num_experts
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg = deepseek_cfg()
+    L, V = cfg.num_layers, cfg.vocab_size
+    t0 = time.time()
+    engine = ServingEngine(cfg, EngineConfig(
+        num_slots=DS_SLOTS, max_len=DS_HI + DS_GEN + 1, block_size=16,
+        prefill_chunk=64, temperature=0.0, seed=0, clock="wall",
+        execute="auto"), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(engine.params)) / 1e9
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=f"req-{i}", prompt=rng.integers(
+        0, V, int(rng.integers(DS_LO, DS_HI + 1))).astype(np.int32),
+        max_new_tokens=DS_GEN) for i in range(DS_REQUESTS)]
+    ops.reset_counts()
+    t0 = time.time()
+    outputs = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    gemm_keys = dict(rsa_gemm_cuda.launches_by_key)
+    s = engine.summary()
+    done = [r for r in engine.requests.values() if r.outcome == "done"]
+    engine.pool.check()
+    decode_steps = s["decode_steps"]
+    steps = sum(n for k, n in gemm_keys.items() if len(k) == 4 and
+                k[2] == V)                   # one unembedding per model call
+    prefill_steps = steps - decode_steps
+    E_pad = padded_num_experts(cfg)
+    banks = {k: n for k, n in gemm_keys.items() if len(k) == 5}
+    expert = sum(n for k, n in banks.items() if k[0] == E_pad)
+    heads = sum(n for k, n in banks.items() if k[0] == cfg.num_heads)
+    plan_ok = all(desc.endswith("@torch") == (site == "moe.router")
+                  for site, desc in engine.gemm_plan.items())
+    ok = (len(done) == DS_REQUESTS
+          and all(len(v) == DS_GEN for v in outputs.values())
+          and engine.pool.num_free == engine.pool.num_blocks
+          and decode_steps > 0 and prefill_steps > 0
+          and counts["paged_mla_decode"] == L * decode_steps
+          and counts["paged_mla_prefill"] == L * prefill_steps
+          and expert == 3 * (L - cfg.first_dense_layers) * steps
+          and heads == 2 * L * steps
+          and counts["paged_decode"] == counts["paged_prefill"] == 0
+          and counts["plain_calls"] == 0 and plan_ok)
+    res = report["deepseek_path"] = {
+        "config": {"d_model": cfg.d_model, "num_layers": L,
+                   "first_dense_layers": cfg.first_dense_layers,
+                   "num_heads": cfg.num_heads, "mla": vars(cfg.mla),
+                   "moe": vars(cfg.moe), "experts_padded": E_pad,
+                   "d_ff": cfg.d_ff, "vocab": V},
+        "weights_gb": weights_gb, "init_s": init_s,
+        "requests": DS_REQUESTS, "completed": len(done), "wall_s": wall,
+        "counts": counts, "gemm_launches_by_shape": {
+            "x".join(str(v) for v in k[:-1]) + f":{k[-1]}": n
+            for k, n in gemm_keys.items()},
+        "prefill_steps": prefill_steps, "decode_steps": decode_steps,
+        "bank_launches": {"expert": expert, "head": heads},
+        "ttft_p50_s": s["ttft_p50_s"], "ttft_p99_s": s["ttft_p99_s"],
+        "decode_tok_s": s["decode_tok_s"], "prefill_tok_s": s["prefill_tok_s"],
+        "decode_wall_s": engine.metrics.decode_s,
+        "prefill_wall_s": engine.metrics.prefill_s,
+        "gemm_plan": engine.gemm_plan,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "pool_leak_free": engine.pool.num_free == engine.pool.num_blocks}
+    log(f"  {weights_gb:.2f} GB of bf16 weights (seed 0) initialised in "
+        f"{init_s:.1f} s")
+    log(f"  served {len(done)}/{DS_REQUESTS} requests in {wall:.2f} s "
+        f"({engine.steps} engine steps: {prefill_steps} chunk-prefill, "
+        f"{decode_steps} decode model calls)")
+    log(f"  launches: {json.dumps(counts)}")
+    log(f"  per model step: paged_mla_decode "
+        f"{counts['paged_mla_decode'] / max(decode_steps, 1):.1f} per decode"
+        f" step, paged_mla_prefill "
+        f"{counts['paged_mla_prefill'] / max(prefill_steps, 1):.1f} per "
+        f"chunk-prefill step ({L} each); expert-bank launches "
+        f"{expert / max(steps, 1):.1f} (3), head-bank "
+        f"{heads / max(steps, 1):.1f} ({2 * L}), all rsa_gemm "
+        f"{counts['rsa_gemm'] / max(steps, 1):.1f}")
+    log(f"  ttft p50 {s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s, "
+        f"decode {s['decode_tok_s']:.1f} tok/s, prefill "
+        f"{s['prefill_tok_s']:.1f} tok/s")
+    log("  executed gemm plan:")
+    for site, desc in engine.gemm_plan.items():
+        log(f"    {site:<20} {desc}")
+    if not ok:
+        log(f"  DEEPSEEK PATH FAIL: completed {len(done)}, free "
+            f"{engine.pool.num_free}/{engine.pool.num_blocks}, steps "
+            f"{prefill_steps}+{decode_steps}, banks {expert}/{heads}, "
+            f"plan ok {plan_ok}, counts {counts}")
+
+    # one chunk-prefill step and one decode step, kernels vs plain versions
+    model, params = engine.model, engine.params
+    S, C, bs = DS_SLOTS, 64, 16
+    W = -(-(C + 1) // bs)
+    tables = torch.arange(S * W, dtype=torch.int32,
+                          device="cuda").reshape(S, W)
+    toks = torch.as_tensor(rng.integers(0, V, (S, C)), device="cuda")
+    chunk = torch.as_tensor([64, 64, 40, 17, 64, 1, 33, 64],
+                            dtype=torch.int32, device="cuda")
+    kv0 = torch.zeros(S, dtype=torch.int32, device="cuda")
+    from repro_torch.models import moe
+    replay = RoutingReplay(moe)
+    out, nxt = {}, None
+    moe.route = replay
+    try:
+        for mode, execute in (("record", "torch"), ("compare", "kernel"),
+                              ("replay", "kernel")):
+            replay.mode = mode
+            arena = model.init_paged_arena(S * W + 1, bs)
+            with torch.no_grad(), dispatch.use(execute=execute):
+                pl, _ = model.paged_prefill_step(params, toks, arena, tables,
+                                                 kv0, chunk)
+                if nxt is None:
+                    nxt = pl.argmax(-1)[:, None]
+                dl, _ = model.paged_decode_step(
+                    params, nxt, arena, tables, chunk,
+                    torch.ones(S, dtype=torch.int32, device="cuda"))
+            out[mode] = (pl, dl)
+    finally:
+        moe.route = replay.route
+    torch.cuda.synchronize()
+    # bf16 through 2 layers, as phases 4-5: 5% of the largest logit, with
+    # the routing decision fixed (RoutingReplay); the free run's error and
+    # its routing agreement are reported beside it
+    good = True
+    res["routing_agreement"] = replay.agree / max(replay.tokens, 1)
+    log(f"  routing: {replay.agree}/{replay.tokens} tokens chose the same "
+        f"top-{cfg.moe.experts_per_token} experts on the kernels as on the "
+        f"plain versions")
+    for i, name in ((0, "prefill"), (1, "decode")):
+        ref = out["record"][i]
+        err = (out["replay"][i] - ref).abs().max().item()
+        free = (out["compare"][i] - ref).abs().max().item()
+        tol = 0.05 * ref.abs().max().item()
+        agree = (out["replay"][i].argmax(-1) == ref.argmax(-1)).float() \
+            .mean().item()
+        g = err <= tol and math.isfinite(err)
+        good &= g
+        res.update({f"{name}_logits_max_abs_err": err,
+                    f"{name}_logits_tol": tol,
+                    f"{name}_logits_free_routing_max_abs_err": free,
+                    f"{name}_greedy_agreement": agree})
+        log(f"  {name} step logits, kernels vs plain (same routing): "
+            f"max_abs_err {err:.4e} (tol {tol:.4e}) {'ok' if g else 'FAIL'};"
+            f" greedy agreement {agree:.3f}; free routing: max_abs_err "
+            f"{free:.4e}")
+    del engine, model, params, out
+    torch.cuda.empty_cache()
+
+    log("  the path's 2-D GEMM shapes, kernel vs plain (bf16):")
+    g_ok, recs = check_gemm_keys(
+        torch, timer, [k for k in gemm_keys if len(k) == 4], dispatcher, V)
+    report["ds_gemm"] = recs
+    return ok and good and g_ok, counts, gemm_keys
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def deepseek_breakdown(report, gemm_keys, counts):
+    """Phase 6's kernel time, estimated as in ``time_breakdown``: each GEMM
+    shape's time (2-D shapes timed after the run, banks and MLA in phase 3)
+    times its launches, beside the wall time of the model calls."""
+    mp = report["deepseek_path"]
+    from repro_torch.models.moe import row_capacity
+    V, E_pad = mp["config"]["vocab"], mp["config"]["experts_padded"]
+    cfg = deepseek_cfg()
+    m_dec, m_pre = (DS_SLOTS * row_capacity(1, cfg),
+                    DS_SLOTS * row_capacity(64, cfg))
+    timed = {r["key"]: r["ms"] for r in report["ds_gemm"]}
+    timed.update({r["key"]: r["ms"] for r in report["bank"]
+                  if r.get("recommended")})
+    mla = {r["kernel"]: r["ms"] for r in report["mla"] if "ms" in r}
+    est = {"decode": 0.0, "prefill": 0.0}
+    steps = {p: mp[f"{p}_steps"] for p in est}
+    for key, n in gemm_keys.items():
+        ms = timed.get(key, 0.0)
+        expert = len(key) == 5 and key[0] == E_pad
+        if (len(key) == 4 and key[2] == V) or (expert and m_dec == m_pre):
+            # the same shape at decode and prefill: split by model calls
+            per = n / (steps["decode"] + steps["prefill"])
+            est["decode"] += ms * per * steps["decode"]
+            est["prefill"] += ms * per * steps["prefill"]
+        else:
+            M = key[1] if len(key) == 5 else key[0]
+            dec = M == (m_dec if expert else DS_SLOTS)
+            est["decode" if dec else "prefill"] += ms * n
+    est["decode"] += mla["paged_mla_decode"] * counts["paged_mla_decode"]
+    est["prefill"] += mla["paged_mla_prefill"] * counts["paged_mla_prefill"]
+    out = {}
+    for phase in ("decode", "prefill"):
+        wall_ms = mp[f"{phase}_wall_s"] * 1e3
+        n = max(steps[phase], 1)
+        out[phase] = {"steps": steps[phase], "wall_ms_per_step": wall_ms / n,
+                      "kernel_ms_per_step_est": est[phase] / n,
+                      "kernel_share_est": est[phase] / wall_ms}
+        log(f"  {phase}: {wall_ms / n:.2f} ms per step (wall), "
+            f"{est[phase] / n:.2f} ms of it in kernels (estimate, "
+            f"{100 * est[phase] / wall_ms:.0f}%)")
+    mp["time_breakdown"] = out
+
+
 def time_breakdown(report, path, gemm_keys, counts):
     """Kernel time a path spent (``report[path]``: phase 4's main path or
     phase 5's cascade path), estimated as each kernel's median time at its
@@ -800,12 +1375,45 @@ def time_breakdown(report, path, gemm_keys, counts):
     mp["time_breakdown"] = out
 
 
-def kernel_table(report, gemm_keys, counts):
+def kernel_table(report, gemm_keys, counts, ds_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
     ``counts`` holds each kernel's launches on the path that runs it
     (phase 4 for the GEMM, decode and prefill, phase 5 for the cascade
-    kernels)."""
+    kernels, phase 6 for the MLA kernels); ``ds_keys`` phase 6's GEMM
+    launches by shape (its 2-D shapes and its banks)."""
     out = []
+    gemm_src = "src/repro_torch/kernels/csrc/rsa_gemm.cu"
+    for rec in report["ds_gemm"]:
+        out.append({
+            "name": f"rsa_gemm[deepseek {rec['M']}x{rec['K']}x{rec['N']} "
+                    f"{rec['mode']}]",
+            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
+            "launches": ds_keys.get(rec["key"], 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    for rec in report["bank"]:
+        if not rec.get("recommended"):
+            continue
+        out.append({
+            "name": f"rsa_gemm_bank[{rec['site']} {rec['E']}x({rec['M']}x"
+                    f"{rec['K']}x{rec['N']}) {rec['mode']}]",
+            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
+            "launches": ds_keys.get(rec["key"], 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    for rec in report["mla"]:
+        if "ms" not in rec:
+            continue
+        out.append({
+            "name": rec["kernel"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_mla.cu",
+            "replaces": MLA_TPU[rec["kernel"]],
+            "launches": counts[rec["kernel"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
     for rec in report["gemm"]:
         if not rec.get("recommended"):
             continue
@@ -846,7 +1454,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"gemm": [], "paged": []}
+    report = {"gemm": [], "paged": [], "bank": [], "mla": []}
     t_start = time.time()
 
     log("== 1. environment")
@@ -880,11 +1488,16 @@ def main() -> int:
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.sara import SaraDispatcher
     cfg = get_arch("llama3.2-1b")
+    dcfg = deepseek_cfg()
+    dispatcher = SaraDispatcher()
     timer = Timer(torch)
     with dispatch.use(execute="kernel"):
-        ok = check_gemms(torch, report, timer, cfg, SaraDispatcher())
+        ok = check_gemms(torch, report, timer, cfg, dispatcher)
         ok &= check_paged(torch, report, timer, cfg)
         ok &= check_cascade(torch, report, timer, cfg)
+        ok &= check_mla(torch, report, timer, dcfg)
+        ok &= check_banks(torch, report, timer, dcfg, dispatcher)
+    torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
 
@@ -898,8 +1511,18 @@ def main() -> int:
     cp_ok, cp_counts, cp_keys = cascade_path(torch, report)
     ok &= cp_ok
     time_breakdown(report, "cascade_path", cp_keys, cp_counts)
+    torch.cuda.empty_cache()
+
+    log("== 6. deepseek-v3 path: absorbed MLA + MoE at full width, depth "
+        "cut to 1 dense + 1 MoE layer")
+    ds_ok, ds_counts, ds_keys = deepseek_path(torch, report, timer,
+                                              dispatcher)
+    ok &= ds_ok
+    deepseek_breakdown(report, ds_keys, ds_counts)
     counts = dict(counts, paged_decode_lse=cp_counts["paged_decode_lse"],
-                  paged_prefix=cp_counts["paged_prefix"])
+                  paged_prefix=cp_counts["paged_prefix"],
+                  paged_mla_decode=ds_counts["paged_mla_decode"],
+                  paged_mla_prefill=ds_counts["paged_mla_prefill"])
 
     report["ok"] = bool(ok)
     report["seconds"] = time.time() - t_start
@@ -911,7 +1534,8 @@ def main() -> int:
         log(f"chip_smoke: FAILED after {report['seconds']:.1f} s")
         return 1
     log(f"== done in {report['seconds']:.1f} s")
-    print(json.dumps({"kernels": kernel_table(report, gemm_keys, counts)}))
+    print(json.dumps({"kernels": kernel_table(report, gemm_keys, counts,
+                                              ds_keys)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import dtype_of
+from repro_torch.models.moe import padded_num_experts
+from repro_torch.models.transformer import _is_moe_layer, num_dense_layers
 
 
 def _steps(directory: Path):
@@ -51,28 +53,74 @@ def load_checkpoint(directory, step: Optional[int] = None
     return step, flat, manifest.get("metadata", {})
 
 
+def _stack_shapes(prefix: str, n: int, cfg: ArchConfig,
+                  moe: bool) -> Dict[str, tuple]:
+    """Leaves of a stack of n decoder layers under ``prefix``."""
+    d, H = cfg.d_model, cfg.num_heads
+    shapes = {f"{prefix}/ln1": (n, d), f"{prefix}/ln2": (n, d)}
+    a = f"{prefix}/attn"
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        shapes.update({
+            f"{a}/w_dq": (n, d, m.q_lora_rank),
+            f"{a}/q_norm": (n, m.q_lora_rank),
+            f"{a}/w_uq": (n, m.q_lora_rank,
+                          H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            f"{a}/w_dkv": (n, d, m.kv_lora_rank + m.qk_rope_head_dim),
+            f"{a}/kv_norm": (n, m.kv_lora_rank),
+            f"{a}/w_uk": (n, m.kv_lora_rank, H * m.qk_nope_head_dim),
+            f"{a}/w_uv": (n, m.kv_lora_rank, H * m.v_head_dim),
+            f"{a}/wo": (n, H * m.v_head_dim, d)})
+    else:
+        shapes.update({f"{a}/wq": (n, d, cfg.q_dim),
+                       f"{a}/wk": (n, d, cfg.kv_dim),
+                       f"{a}/wv": (n, d, cfg.kv_dim),
+                       f"{a}/wo": (n, cfg.q_dim, d)})
+        if cfg.use_bias:
+            shapes.update({f"{a}/bq": (n, cfg.q_dim),
+                           f"{a}/bk": (n, cfg.kv_dim),
+                           f"{a}/bv": (n, cfg.kv_dim)})
+    if moe:
+        mo = cfg.moe
+        E, f = padded_num_experts(cfg), mo.d_ff_expert
+        fs = f * mo.num_shared_experts
+        shapes.update({f"{prefix}/moe/router": (n, d, E),
+                       f"{prefix}/moe/w_gate": (n, E, d, f),
+                       f"{prefix}/moe/w_up": (n, E, d, f),
+                       f"{prefix}/moe/w_down": (n, E, f, d)})
+        if fs:
+            shapes.update({f"{prefix}/moe/shared/w_gate": (n, d, fs),
+                           f"{prefix}/moe/shared/w_up": (n, d, fs),
+                           f"{prefix}/moe/shared/w_down": (n, fs, d)})
+    else:
+        shapes.update({f"{prefix}/mlp/w_gate": (n, d, cfg.d_ff),
+                       f"{prefix}/mlp/w_up": (n, d, cfg.d_ff),
+                       f"{prefix}/mlp/w_down": (n, cfg.d_ff, d)})
+    return shapes
+
+
 def _expected_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     L, d = cfg.num_layers, cfg.d_model
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "ln_f": (d,),
-        "layers/ln1": (L, d),
-        "layers/ln2": (L, d),
-        "layers/attn/wq": (L, d, cfg.q_dim),
-        "layers/attn/wk": (L, d, cfg.kv_dim),
-        "layers/attn/wv": (L, d, cfg.kv_dim),
-        "layers/attn/wo": (L, cfg.q_dim, d),
-        "layers/mlp/w_gate": (L, d, cfg.d_ff),
-        "layers/mlp/w_up": (L, d, cfg.d_ff),
-        "layers/mlp/w_down": (L, cfg.d_ff, d),
-    }
-    if cfg.use_bias:
-        shapes.update({"layers/attn/bq": (L, cfg.q_dim),
-                       "layers/attn/bk": (L, cfg.kv_dim),
-                       "layers/attn/bv": (L, cfg.kv_dim)})
+    nd = num_dense_layers(cfg)
+    shapes = {"embed": (cfg.vocab_size, d), "ln_f": (d,)}
+    if nd:
+        shapes.update(_stack_shapes("dense_layers", nd, cfg, moe=False))
+    shapes.update(_stack_shapes("layers", L - nd, cfg,
+                                moe=_is_moe_layer(cfg, nd)))
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.vocab_size)
     return shapes
+
+
+# leaves the reference draws in f32 whatever ``param_dtype`` is (its
+# init_moe gives the router and the shared expert's w_down no dtype)
+F32_LEAVES = ("moe/router", "moe/shared/w_down")
+
+
+def _leaf_dtype(key: str, cfg: ArchConfig) -> torch.dtype:
+    if key.endswith(F32_LEAVES):
+        return torch.float32
+    return dtype_of(cfg.param_dtype)
 
 
 def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -89,15 +137,15 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
                       device) -> Dict:
     """The port's parameter dict from the reference's flat leaves for a
-    dense GQA ``cfg``, in ``cfg.param_dtype`` on ``device``.  Raises on a
-    missing, unexpected or misshapen leaf."""
+    served ``cfg`` (dense GQA, or MoE with MLA), in ``cfg.param_dtype``
+    (``F32_LEAVES`` in f32, as the reference draws them) on ``device``.
+    Raises on a missing, unexpected or misshapen leaf."""
     want = _expected_shapes(cfg)
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
         raise KeyError(f"checkpoint leaves do not match {cfg.name}: "
                        f"missing {missing}, unexpected {extra}")
-    dt = dtype_of(cfg.param_dtype)
     params: Dict = {}
     for key, shape in want.items():
         a = flat[key]
@@ -107,5 +155,5 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
         *path, leaf = key.split("/")
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = _to_tensor(a, dt, device)
+        node[leaf] = _to_tensor(a, _leaf_dtype(key, cfg), device)
     return params

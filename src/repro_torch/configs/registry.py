@@ -1,15 +1,15 @@
 """Architecture registry: --arch <id> -> ArchConfig.
 
-The port's first slice serves ``llama3.2-1b`` only; more archs join as
-their families are ported.
+The port serves ``llama3.2-1b`` (dense GQA) and ``deepseek-v3-671b``
+(absorbed MLA + MoE); more archs join as their families are ported.
 """
 from typing import Dict
 
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import deepseek_v3_671b, llama3_2_1b
 from repro_torch.configs.base import ArchConfig
 
 REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
-                                   for m in (llama3_2_1b,)}
+                                   for m in (llama3_2_1b, deepseek_v3_671b)}
 ARCH_IDS = tuple(REGISTRY)
 
 

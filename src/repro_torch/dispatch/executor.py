@@ -12,12 +12,21 @@ tensors, the plain PyTorch version for CPU tensors or under
 
 ``w`` may be a transposed view of a row-major (N, K) matrix (the tied
 unembedding ``embed.T``); the kernel reads it in place, with no copy.
-Expert banks and the gradient GEMMs of the reference's custom VJP are
-not in this slice: serving needs neither.
+
+Expert banks (``w`` of shape (E, K, N) against ``x`` (..., E, C, K)) are
+recommended at M = rows per bank GEMM and run as ONE bank launch of the
+RSA kernel, the counterpart of the reference's ``vmap`` of the Pallas
+kernel over the bank (``repro/dispatch/executor.py::_gemm_experts``).
+``backend="torch"`` pins a site to the plain product (``torch.matmul``),
+the counterpart of the reference's ``backend="xla"``: the MoE router uses
+it so that its top-k decision does not depend on the execution mode.  The
+gradient GEMMs of the reference's custom VJP are not ported: serving
+needs none.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -43,31 +52,77 @@ def _resolved_tile(policy, m: int, k: int, n: int):
     return cfg, _clamped_blocks(cfg, m, k, n) + (cfg.mode,)
 
 
-def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
-         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Self-adaptive GEMM: (..., M', K) @ (K, N) -> (..., M', N), with
-    M = prod of the leading dims.  ``out_dtype`` (default ``x.dtype``)
-    lets bf16 operands produce f32 output with f32 accumulation — the
-    same arithmetic as casting both operands to f32 first, since a
-    product of two bf16 values is exact in f32."""
-    from repro_torch.dispatch.context import active
-    from repro_torch.kernels import ops
+def _record(policy, site: str, M: int, K: int, N: int, backend: str):
+    """Resolve and record the (M, K, N) site; returns the executed tile."""
+    cfg, tile = _resolved_tile(policy, M, K, N)
+    if policy.registry is not None:
+        src = getattr(policy.dispatcher, "source_of", None)
+        policy.registry.record(site, M, K, N, cfg, *tile, backend,
+                               src(M, K, N) if src is not None else "oracle")
+    return tile
 
-    if w.dim() != 2:
-        raise ValueError(f"gemm weight must be 2D, got {tuple(w.shape)}")
+
+def _run(x2, w, tile, pinned: bool, out_dtype):
+    from repro_torch.kernels import ops
+    if pinned:
+        return torch.matmul(x2, w).to(out_dtype or x2.dtype)
+    return ops.rsa_gemm(x2, w, block_m=tile[0], block_n=tile[1],
+                        block_k=tile[2], mode=tile[3], out_dtype=out_dtype)
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
+         out_dtype: Optional[torch.dtype] = None,
+         backend: Optional[str] = None) -> torch.Tensor:
+    """Self-adaptive GEMM.
+
+    w 2-D: (..., M', K) @ (K, N) -> (..., M', N), M = prod of the leading
+    dims.  w 3-D: expert bank, x (..., E, C, K) @ w (E, K, N) ->
+    (..., E, C, N), one GEMM per bank member, recommended at M =
+    prod(...) * C and run as one bank launch.
+
+    ``out_dtype`` (default ``x.dtype``) lets bf16 operands produce f32
+    output with f32 accumulation — the same arithmetic as casting both
+    operands to f32 first, since a product of two bf16 values is exact in
+    f32.  ``backend="torch"`` pins the site to the plain product
+    (``torch.matmul``) whatever the policy."""
+    from repro_torch.dispatch.context import active
+
+    if backend not in (None, "torch"):
+        raise ValueError(f"backend must be None or 'torch', got {backend!r}")
     policy = active()
+    pinned = backend == "torch"
+    exec_backend = "torch" if pinned else policy.backend(x)
+    if w.dim() == 3:
+        return _gemm_bank(x, w, site, policy, exec_backend, pinned,
+                          out_dtype)
+    if w.dim() != 2:
+        raise ValueError(f"gemm weight must be 2D or 3D (expert bank), got "
+                         f"{tuple(w.shape)}")
     M = x.numel() // x.shape[-1] if x.dim() > 1 else 1
     K, N = int(x.shape[-1]), int(w.shape[-1])
     if int(w.shape[0]) != K:
         raise ValueError(f"gemm shape mismatch: x {tuple(x.shape)} @ "
                          f"w {tuple(w.shape)}")
-    cfg, tile = _resolved_tile(policy, M, K, N)
-    backend = policy.backend(x)
-    if policy.registry is not None:
-        src = getattr(policy.dispatcher, "source_of", None)
-        policy.registry.record(site, M, K, N, cfg, *tile, backend,
-                               src(M, K, N) if src is not None else "oracle")
-    out = ops.rsa_gemm(x.reshape(M, K), w, block_m=tile[0],
-                       block_n=tile[1], block_k=tile[2], mode=tile[3],
-                       out_dtype=out_dtype)
+    tile = _record(policy, site, M, K, N, exec_backend)
+    out = _run(x.reshape(M, K), w, tile, pinned, out_dtype)
     return out.reshape(tuple(x.shape[:-1]) + (N,))
+
+
+def _gemm_bank(x, w, site: str, policy, exec_backend: str, pinned: bool,
+               out_dtype):
+    """x (..., E, C, K) @ w (E, K, N) -> (..., E, C, N): the bank's rows
+    gathered to (E, M, K) (a copy unless the leading dims are 1), one bank
+    GEMM, the result moved back."""
+    E, K, N = (int(s) for s in w.shape)
+    if x.dim() < 3 or int(x.shape[-3]) != E or int(x.shape[-1]) != K:
+        raise ValueError(f"expert gemm shape mismatch: x {tuple(x.shape)} "
+                         f"vs w {tuple(w.shape)}")
+    C = int(x.shape[-2])
+    lead = tuple(x.shape[:-3])
+    B = math.prod(lead)
+    M = B * C                                # rows per bank GEMM
+    tile = _record(policy, site, M, K, N, exec_backend)
+    xe = x.reshape(B, E, C, K).transpose(0, 1).reshape(E, M, K)
+    out = _run(xe.contiguous(), w, tile, pinned, out_dtype)    # (E, M, N)
+    out = out.reshape(E, B, C, N).transpose(0, 1)
+    return out.reshape(lead + (E, C, N))

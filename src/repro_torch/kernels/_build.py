@@ -32,7 +32,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "rsa_gemm": {
         "rsa_gemm_launch": [_I, _I, _I, _I, _P, _LL, _P, _LL, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I,
+                            _I, _LL, _LL, _LL, _P],
     },
     "paged_attn": {
         "paged_decode_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -44,6 +45,12 @@ SIGNATURES = {
                                     _P],
         "paged_prefix_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    },
+    "paged_mla": {
+        "paged_mla_decode_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _F, _P],
+        "paged_mla_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 

@@ -34,6 +34,13 @@
 //
 // block_m and block_n do not change the arithmetic (each output element
 // is owned by one sub-tile in every mode); block_k sets the WS/IS chunks.
+//
+// Expert banks.  One launch runs E independent GEMMs C[e] = A[e] @ B[e]
+// (the reference's vmap of the Pallas kernel over an expert or head bank,
+// which adds a grid axis): blockIdx.z is the bank, and each operand steps
+// by its own bank stride, so a bank of weights can be a strided view (the
+// MLA head banks are views of W_UK / W_UV).  Within a bank the arithmetic
+// is the 2-D kernel's exactly; E = 1 is the 2-D GEMM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -216,8 +223,12 @@ template <typename T> struct Tiles {
 template <typename T, typename TO, bool BT>
 __global__ void __launch_bounds__(NT)
 rsa_os_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
-              TO* __restrict__ C, int M, int N, int K, int vec_a, int vec_b) {
+              TO* __restrict__ C, int M, int N, int K, int vec_a, int vec_b, long long sa,
+              long long sb, long long sc) {
   constexpr int TM = Tiles<T>::OS_M, TN = Tiles<T>::OS_N, P = Tiles<T>::P;
+  A += blockIdx.z * sa;
+  B += blockIdx.z * sb;
+  C += blockIdx.z * sc;
   __shared__ __align__(128) T As[TM * (BK + P)];
   __shared__ __align__(128) T Bs[BK * (TN + P)];
   __shared__ __align__(128) float Cs[TM * (TN + 4)];
@@ -239,8 +250,12 @@ rsa_os_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
 template <typename T, typename TO, bool BT>
 __global__ void __launch_bounds__(NT)
 rsa_ws_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
-              TO* __restrict__ C, int M, int N, int K, int bk, int vec_a, int vec_b) {
+              TO* __restrict__ C, int M, int N, int K, int bk, int vec_a, int vec_b,
+              long long sa, long long sb, long long sc) {
   constexpr int TM = Tiles<T>::WS_M, TN = Tiles<T>::WS_N, P = Tiles<T>::P;
+  A += blockIdx.z * sa;
+  B += blockIdx.z * sb;
+  C += blockIdx.z * sc;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Bslab = aligned_slab<T>(smem_raw);  // (chunk rows) x (TN + P)
   __shared__ __align__(128) T As[TM * (BK + P)];
@@ -272,8 +287,11 @@ template <typename T, typename TO, bool BT>
 __global__ void __launch_bounds__(NT)
 rsa_is_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
               TO* __restrict__ C, int M, int N, int K, int bk, int slab_ld, int vec_a,
-              int vec_b) {
+              int vec_b, long long sa, long long sb, long long sc) {
   constexpr int TM = Tiles<T>::IS_M, TN = Tiles<T>::IS_N, P = Tiles<T>::P;
+  A += blockIdx.z * sa;
+  B += blockIdx.z * sb;
+  C += blockIdx.z * sc;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Aslab = aligned_slab<T>(smem_raw);  // TM x slab_ld
   __shared__ __align__(128) T Bs[BK * (TN + P)];
@@ -303,17 +321,20 @@ rsa_is_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
 
 template <typename T, typename TO, bool BT>
 int launch(int mode, const void* A, long long lda, const void* B, long long ldb, void* C,
-           int M, int N, int K, int bk, int num_sms, int vec_a, int vec_b,
-           cudaStream_t stream) {
+           int M, int N, int K, int bk, int num_sms, int vec_a, int vec_b, int E,
+           long long sa, long long sb, long long sc, cudaStream_t stream) {
   using Ti = Tiles<T>;
   const T* a = static_cast<const T*>(A);
   const T* b = static_cast<const T*>(B);
   TO* c = static_cast<TO*>(C);
-  const int target = 2 * num_sms;  // CTAs to aim for when splitting a sweep
+  // CTAs to aim for when splitting a sweep; a bank's E GEMMs already
+  // multiply the grid, so each aims for its share (E = 1: the 2-D split)
+  const int target = max(1, cdiv(2 * num_sms, E));
   const int chunk_rows = min(bk, cdiv(K, BK) * BK);
   if (mode == 0) {
-    dim3 grid(cdiv(N, Ti::OS_N), cdiv(M, Ti::OS_M));
-    rsa_os_kernel<T, TO, BT><<<grid, NT, 0, stream>>>(a, lda, b, ldb, c, M, N, K, vec_a, vec_b);
+    dim3 grid(cdiv(N, Ti::OS_N), cdiv(M, Ti::OS_M), E);
+    rsa_os_kernel<T, TO, BT><<<grid, NT, 0, stream>>>(a, lda, b, ldb, c, M, N, K, vec_a, vec_b,
+                                                      sa, sb, sc);
   } else if (mode == 1) {
     const int ntiles = cdiv(N, Ti::WS_N), mtiles = cdiv(M, Ti::WS_M);
     const int msplit = max(1, min(mtiles, cdiv(target, ntiles)));
@@ -321,9 +342,9 @@ int launch(int mode, const void* A, long long lda, const void* B, long long ldb,
     cudaError_t e = cudaFuncSetAttribute(rsa_ws_kernel<T, TO, BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid(ntiles, msplit);
+    dim3 grid(ntiles, msplit, E);
     rsa_ws_kernel<T, TO, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, vec_a,
-                                                        vec_b);
+                                                        vec_b, sa, sb, sc);
   } else if (mode == 2) {
     const int ntiles = cdiv(N, Ti::IS_N), mtiles = cdiv(M, Ti::IS_M);
     const int nsplit = max(1, min(ntiles, cdiv(target, mtiles)));
@@ -332,9 +353,9 @@ int launch(int mode, const void* A, long long lda, const void* B, long long ldb,
     cudaError_t e = cudaFuncSetAttribute(rsa_is_kernel<T, TO, BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid(nsplit, mtiles);
+    dim3 grid(nsplit, mtiles, E);
     rsa_is_kernel<T, TO, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, slab_ld,
-                                                        vec_a, vec_b);
+                                                        vec_a, vec_b, sa, sb, sc);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -343,13 +364,13 @@ int launch(int mode, const void* A, long long lda, const void* B, long long ldb,
 
 template <typename T, typename TO>
 int launch_bt(int b_trans, int mode, const void* A, long long lda, const void* B, long long ldb,
-              void* C, int M, int N, int K, int bk, int num_sms, int vec_a, int vec_b,
-              cudaStream_t stream) {
+              void* C, int M, int N, int K, int bk, int num_sms, int vec_a, int vec_b, int E,
+              long long sa, long long sb, long long sc, cudaStream_t stream) {
   if (b_trans)
-    return launch<T, TO, true>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b,
-                               stream);
-  return launch<T, TO, false>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b,
-                              stream);
+    return launch<T, TO, true>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b, E,
+                               sa, sb, sc, stream);
+  return launch<T, TO, false>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b, E,
+                              sa, sb, sc, stream);
 }
 
 }  // namespace
@@ -357,21 +378,25 @@ int launch_bt(int b_trans, int mode, const void* A, long long lda, const void* B
 // dtype codes: 0 = float32, 1 = bfloat16.  mode: 0 = OS, 1 = WS, 2 = IS.
 // B is row-major (K, N) with row stride ldb, or (b_trans) the transpose of
 // a row-major (N, K) matrix with row stride ldb.  C is contiguous (M, N).
+// E >= 1 GEMMs run in one launch, bank e at A + e * sa, B + e * sb and
+// C + e * sc (element strides; C's is M * N for a contiguous (E, M, N)).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int rsa_gemm_launch(int mode, int in_dtype, int out_dtype, int b_trans,
                                const void* A, long long lda, const void* B, long long ldb,
                                void* C, int M, int N, int K, int bk, int num_sms, int vec_a,
-                               int vec_b, void* stream) {
+                               int vec_b, int E, long long sa, long long sb, long long sc,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bk <= 0 || bk % BK != 0) return (int)cudaErrorInvalidValue;
+  if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   if (in_dtype == 0 && out_dtype == 0)
     return launch_bt<float, float>(b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
-                                   vec_a, vec_b, st);
+                                   vec_a, vec_b, E, sa, sb, sc, st);
   if (in_dtype == 1 && out_dtype == 1)
     return launch_bt<bf16, bf16>(b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
-                                 vec_a, vec_b, st);
+                                 vec_a, vec_b, E, sa, sb, sc, st);
   if (in_dtype == 1 && out_dtype == 0)
     return launch_bt<bf16, float>(b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
-                                  vec_a, vec_b, st);
+                                  vec_a, vec_b, E, sa, sb, sc, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,9 @@ from repro_torch.kernels.paged_attn import (
     paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_attention_plain,
     paged_prefill_cuda, paged_prefix_cuda, shared_paged_attention_plain,
     shared_prefix_attention_plain)
+from repro_torch.kernels.paged_mla import (
+    paged_mla_attention_plain, paged_mla_decode_cuda,
+    paged_mla_prefill_attention_plain, paged_mla_prefill_cuda)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
 
 
@@ -32,9 +35,10 @@ def _backend(t: torch.Tensor) -> str:
 def rsa_gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
              block_n: int = 128, block_k: int = 256, mode: int = 0,
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(M, K) @ (K, N) with SARA-configurable tiling; arbitrary shapes.
-    ``block_m``/``block_n`` do not change the result (see
-    ``kernels/rsa_gemm.py``); ``block_k`` and ``mode`` do."""
+    """(M, K) @ (K, N), or a bank (E, M, K) @ (E, K, N) in one launch, with
+    SARA-configurable tiling; arbitrary shapes.  ``block_m``/``block_n`` do
+    not change the result (see ``kernels/rsa_gemm.py``); ``block_k`` and
+    ``mode`` do."""
     if _backend(a) == "torch":
         return rsa_gemm_plain(a, b, block_k=block_k, mode=mode,
                               out_dtype=out_dtype)
@@ -108,6 +112,40 @@ def shared_paged_attention(q, k_arena, v_arena, unique_tables, unique_lens,
     return o.to(q.dtype)
 
 
+def mla_paged_attention(q_abs, q_rope, ckv_arena, krope_arena, tables,
+                        lengths, *, qk_dim: int) -> torch.Tensor:
+    """Paged decode for absorbed MLA: attend in the compressed latent space
+    through the block table.  q_abs (S, H, r) pre-absorbed queries, q_rope
+    (S, H, rd); ckv_arena (NB, bs, r), krope_arena (NB, bs, rd).
+    ``qk_dim`` is the full per-head query-key dim (nope + rope) that sets
+    the softmax scale.  Returns the latent mix o_lat (S, H, r); lanes of
+    length 0 yield zeros."""
+    scale = 1.0 / (qk_dim ** 0.5)
+    if _backend(q_abs) == "torch":
+        return paged_mla_attention_plain(q_abs, q_rope, ckv_arena,
+                                         krope_arena, tables, lengths,
+                                         scale=scale)
+    return paged_mla_decode_cuda(q_abs.contiguous(), q_rope.contiguous(),
+                                 ckv_arena, krope_arena, tables, lengths,
+                                 scale=scale)
+
+
+def mla_paged_prefill_attention(q_abs, q_rope, ckv_arena, krope_arena,
+                                tables, starts, lengths, *,
+                                qk_dim: int) -> torch.Tensor:
+    """Chunked paged prefill for absorbed MLA, causal within the chunk;
+    shapes as :func:`paged_prefill_attention` with q_abs (S, C, H, r) and
+    q_rope (S, C, H, rd).  Returns o_lat (S, C, H, r)."""
+    scale = 1.0 / (qk_dim ** 0.5)
+    if _backend(q_abs) == "torch":
+        return paged_mla_prefill_attention_plain(
+            q_abs, q_rope, ckv_arena, krope_arena, tables, starts, lengths,
+            scale=scale)
+    return paged_mla_prefill_cuda(q_abs.contiguous(), q_rope.contiguous(),
+                                  ckv_arena, krope_arena, tables, starts,
+                                  lengths, scale=scale)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches, and calls of the plain versions, since the last
     ``reset_counts``."""
@@ -116,10 +154,14 @@ def launch_counts() -> Dict[str, int]:
             "paged_prefill": paged_prefill_cuda.launches,
             "paged_decode_lse": paged_decode_lse_cuda.launches,
             "paged_prefix": paged_prefix_cuda.launches,
+            "paged_mla_decode": paged_mla_decode_cuda.launches,
+            "paged_mla_prefill": paged_mla_prefill_cuda.launches,
             "plain_calls": rsa_gemm_plain.calls + paged_attention_plain.calls
             + paged_prefill_attention_plain.calls
             + paged_attention_lse_plain.calls
-            + shared_prefix_attention_plain.calls}
+            + shared_prefix_attention_plain.calls
+            + paged_mla_attention_plain.calls
+            + paged_mla_prefill_attention_plain.calls}
 
 
 def reset_counts() -> None:
@@ -130,8 +172,12 @@ def reset_counts() -> None:
     paged_prefill_cuda.launches = 0
     paged_decode_lse_cuda.launches = 0
     paged_prefix_cuda.launches = 0
+    paged_mla_decode_cuda.launches = 0
+    paged_mla_prefill_cuda.launches = 0
     rsa_gemm_plain.calls = 0
     paged_attention_plain.calls = 0
     paged_prefill_attention_plain.calls = 0
     paged_attention_lse_plain.calls = 0
     shared_prefix_attention_plain.calls = 0
+    paged_mla_attention_plain.calls = 0
+    paged_mla_prefill_attention_plain.calls = 0

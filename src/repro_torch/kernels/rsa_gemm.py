@@ -18,6 +18,13 @@ rounding, which is part of the function:
 (N, K) one (``w.t()``, as the tied unembedding passes ``embed.t()``); the
 kernel reads either in place.  Neither version pads: the kernel masks the
 ragged edges.
+
+Expert banks: with 3-D operands, a (E, M, K) and b (E, K, N), both
+versions compute the E products (E, M, N), each with the 2-D arithmetic
+above; the kernel runs the whole bank in one launch (the reference's
+``vmap`` of the Pallas kernel over the bank) and counts one launch.  Each
+``b[e]`` may be any of the 2-D layouts above, at any bank stride, so the
+MLA head banks are read as views of W_UK / W_UV.
 """
 
 from __future__ import annotations
@@ -30,25 +37,42 @@ from repro_torch.core.hw import IS, OS, WS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BLOCK_K = 2048             # the largest block_k the kernel's slabs hold
+_PLAIN_BANK_ELEMS = 1 << 28    # f32 weight elements one plain bank pass holds
+
+
+def _plain_product(a, b, block_k: int, mode: int, out_dtype):
+    af, bf = a.float(), b.float()
+    if mode == OS:
+        return (af @ bf).to(out_dtype)
+    K = a.shape[-1]
+    out = None
+    for k0 in range(0, max(K, 1), block_k):
+        prod = (af[..., k0:k0 + block_k] @ bf[..., k0:k0 + block_k, :]) \
+            .to(out_dtype)
+        out = prod if out is None else out + prod
+    return out
 
 
 def rsa_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                    mode: int, out_dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
-    """(M, K) @ (K, N) with the mode's rounding, in plain PyTorch."""
+    """(M, K) @ (K, N), or a bank (E, M, K) @ (E, K, N), with the mode's
+    rounding, in plain PyTorch.  A bank runs in groups of banks whose f32
+    weights stay below ``_PLAIN_BANK_ELEMS`` elements (a full-width expert
+    bank in f32 would be 15 GB)."""
     rsa_gemm_plain.calls += 1
     out_dtype = out_dtype or a.dtype
     if mode not in (OS, WS, IS):
         raise ValueError(f"unknown mode {mode}")
-    af, bf = a.float(), b.float()
-    if mode == OS:
-        return (af @ bf).to(out_dtype)
-    K = a.shape[1]
-    out = None
-    for k0 in range(0, max(K, 1), block_k):
-        prod = (af[:, k0:k0 + block_k] @ bf[k0:k0 + block_k]).to(out_dtype)
-        out = prod if out is None else out + prod
-    return out
+    if a.dim() == 2:
+        return _plain_product(a, b, block_k, mode, out_dtype)
+    E = a.shape[0]
+    per = max(1, _PLAIN_BANK_ELEMS // max(1, b[0].numel()))
+    if per >= E:
+        return _plain_product(a, b, block_k, mode, out_dtype)
+    return torch.cat([_plain_product(a[e:e + per], b[e:e + per], block_k,
+                                     mode, out_dtype)
+                      for e in range(0, E, per)])
 
 
 rsa_gemm_plain.calls = 0
@@ -67,13 +91,16 @@ def _b_layout(b: torch.Tensor):
 def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                   mode: int, out_dtype: Optional[torch.dtype] = None
                   ) -> torch.Tensor:
-    """Launch the CUDA RSA GEMM on PyTorch's current stream."""
+    """Launch the CUDA RSA GEMM on PyTorch's current stream: one 2-D
+    product, or one launch for a whole bank (3-D operands)."""
     from repro_torch.kernels import _build
     out_dtype = out_dtype or a.dtype
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError("rsa_gemm_cuda needs both operands on one CUDA "
                          "device")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    bank = a.dim() == 3
+    if a.dim() not in (2, 3) or b.dim() != a.dim() or \
+            a.shape[-1] != b.shape[-2] or (bank and a.shape[0] != b.shape[0]):
         raise ValueError(f"shape mismatch {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES or \
@@ -86,32 +113,40 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     if block_k % 32 or not 0 < block_k <= MAX_BLOCK_K:
         raise ValueError(f"block_k {block_k} must be a multiple of 32 in "
                          f"(0, {MAX_BLOCK_K}]")
-    if a.stride(1) != 1:
+    if a.stride(-1) != 1:
         raise ValueError(f"A must be row-major, got strides {a.stride()}")
-    M, K = a.shape
-    N = b.shape[1]
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    if M == 0 or N == 0:
+    E = a.shape[0] if bank else 1
+    if E > 65535:
+        raise ValueError(f"a bank holds at most 65535 GEMMs, got {E}")
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    out = torch.empty(((E,) if bank else ()) + (M, N), dtype=out_dtype,
+                      device=a.device)
+    if E == 0 or M == 0 or N == 0:
         return out
     if K == 0:
         return out.zero_()
-    b_trans, ldb = _b_layout(b)
+    b_trans, ldb = _b_layout(b[0] if bank else b)
+    lda = a.stride(-2)
+    sa, sb = (a.stride(0), b.stride(0)) if bank else (0, 0)
     vec = 16 // a.element_size()
-    vec_a = int(a.data_ptr() % 16 == 0 and a.stride(0) % vec == 0)
-    vec_b = int(b.data_ptr() % 16 == 0 and ldb % vec == 0)
+    vec_a = int(a.data_ptr() % 16 == 0 and lda % vec == 0 and sa % vec == 0)
+    vec_b = int(b.data_ptr() % 16 == 0 and ldb % vec == 0 and sb % vec == 0)
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    key = ((E,) if bank else ()) + (M, K, N, mode)
     lib = _build.library("rsa_gemm")
     err = lib.rsa_gemm_launch(
         mode, _DTYPES[a.dtype], _DTYPES[out_dtype], b_trans, a.data_ptr(),
-        a.stride(0), b.data_ptr(), ldb, out.data_ptr(), M, N, K, block_k,
-        sms, vec_a, vec_b, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, f"rsa_gemm {M}x{K}x{N} mode={mode}")
+        lda, b.data_ptr(), ldb, out.data_ptr(), M, N, K, block_k,
+        sms, vec_a, vec_b, E, sa, sb, M * N,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, f"rsa_gemm {'x'.join(map(str, key[:-1]))} "
+                      f"mode={mode}")
     rsa_gemm_cuda.launches += 1
-    key = (M, K, N, mode)
     rsa_gemm_cuda.launches_by_key[key] = \
         rsa_gemm_cuda.launches_by_key.get(key, 0) + 1
     return out
 
 
 rsa_gemm_cuda.launches = 0          # kernel launches that returned no error
-rsa_gemm_cuda.launches_by_key = {}  # the same, per (M, K, N, mode)
+rsa_gemm_cuda.launches_by_key = {}  # the same, per ([E,] M, K, N, mode)

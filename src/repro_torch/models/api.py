@@ -26,7 +26,8 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 class Model:
-    """Functional model wrapper over the dense paged decoder."""
+    """Functional model wrapper over the served paged decoders (dense GQA,
+    MoE with absorbed MLA)."""
 
     def __init__(self, cfg: ArchConfig, device: Optional[str] = None):
         transformer._check_family(cfg)

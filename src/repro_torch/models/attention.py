@@ -1,6 +1,7 @@
-"""GQA attention through the physically paged KV arena (decode, cascade
-decode and chunked prefill) — the paged half of
-``repro/models/attention.py``.
+"""Attention through the physically paged KV arena — the paged half of
+``repro/models/attention.py``: GQA (decode, cascade decode and chunked
+prefill) and absorbed MLA (decode and chunked prefill over the latent
+arena).
 
 The arena write is in place: the chunk's K/V rows go into the flattened
 ``(NB * bs, KVH, hd)`` view of the layer's pages with ``index_copy_``,
@@ -15,9 +16,10 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import (apply_rope, dense, dense_init,
-                                        dtype_of)
+                                        dtype_of, rmsnorm)
 
 Params = Dict[str, Any]
 
@@ -191,3 +193,145 @@ def gqa_paged_prefill(params: Params, x: torch.Tensor,
                                      logit_cap=cfg.attn_logit_softcap)
     return dense(o.reshape(S, C, cfg.q_dim), params["wo"], None, cdt,
                  site="layer.attn.out")
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention), absorbed, paged
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
+    """``lead`` prepends stacking axes (the layer axis) to every leaf."""
+    m = cfg.mla
+    dt = cfg.param_dtype
+    d, H = cfg.d_model, cfg.num_heads
+    lead = tuple(lead)
+    z = dict(dtype=dtype_of(dt), device=gen.device)
+    return {
+        "w_dq": dense_init(gen, lead + (d, m.q_lora_rank), dt),
+        "q_norm": torch.zeros(lead + (m.q_lora_rank,), **z),
+        "w_uq": dense_init(gen, lead + (m.q_lora_rank, H * (
+            m.qk_nope_head_dim + m.qk_rope_head_dim)), dt),
+        "w_dkv": dense_init(gen, lead + (d, m.kv_lora_rank +
+                                         m.qk_rope_head_dim), dt),
+        "kv_norm": torch.zeros(lead + (m.kv_lora_rank,), **z),
+        "w_uk": dense_init(gen, lead + (m.kv_lora_rank,
+                                        H * m.qk_nope_head_dim), dt),
+        "w_uv": dense_init(gen, lead + (m.kv_lora_rank, H * m.v_head_dim),
+                           dt),
+        "wo": dense_init(gen, lead + (H * m.v_head_dim, d), dt,
+                         scale=1.0 / ((H * m.v_head_dim) ** 0.5 *
+                                      (2 * cfg.num_layers) ** 0.5)),
+    }
+
+
+def _mla_q(params, x, positions, cfg: ArchConfig, cdt):
+    m = cfg.mla
+    B, S = x.shape[0], x.shape[1]
+    cq = rmsnorm(dense(x, params["w_dq"], None, cdt,
+                       site="layer.mla.q_down"), params["q_norm"],
+                 cfg.norm_eps)
+    q = dense(cq, params["w_uq"], None, cdt, site="layer.mla.q_up").reshape(
+        B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                     m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params, x, positions, cfg: ArchConfig, cdt):
+    m = cfg.mla
+    dkv = dense(x, params["w_dkv"], None, cdt, site="layer.mla.kv_down")
+    c_kv, k_rope = torch.split(dkv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = rmsnorm(c_kv, params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_absorb_q(q_nope, w_uk, cdt, *, site: str):
+    """Absorb W_UK into the queries as the per-head bank GEMM
+    x (..., H, S, d) @ w (H, d, r), one bank launch.  q_nope (..., S, H, d);
+    w_uk (r, H, d).  The bank is a strided view of W_UK, read in place.
+    Returns (..., S, H, r)."""
+    wk = w_uk.to(cdt).permute(1, 2, 0)                      # (H, d, r)
+    xq = q_nope.to(cdt).movedim(-2, -3)                     # (..., H, S, d)
+    return dispatch.gemm(xq, wk, site=site).movedim(-3, -2)  # (..., S, H, r)
+
+
+def _mla_mix_latent(o_lat, w_uv, cdt, *, site: str):
+    """Mix attention's latent output up through W_UV as the per-head bank
+    GEMM x (..., H, S, r) @ w (H, r, dv).  o_lat (..., S, H, r); w_uv
+    (r, H, dv).  Returns (..., S, H, dv)."""
+    wv = w_uv.to(cdt).permute(1, 0, 2)                      # (H, r, dv)
+    xo = o_lat.to(cdt).movedim(-2, -3)                      # (..., H, S, r)
+    return dispatch.gemm(xo, wv, site=site).movedim(-3, -2)  # (.., S, H, dv)
+
+
+def mla_paged_prefill(params: Params, x: torch.Tensor,
+                      positions: torch.Tensor, cfg: ArchConfig, *,
+                      ckv_arena, krope_arena, block_tables, kv_lens,
+                      chunk_lens):
+    """Absorbed-MLA chunked prefill through the paged latent arena.
+
+    The arena stores the compressed (c_kv, k_rope) rows only, written in
+    place before attention; chunk queries are absorbed through W_UK before
+    the kernel and the latent mix goes through W_UV and W_O after.  Shapes
+    as in :func:`gqa_paged_prefill` with ckv_arena (NB, bs, kv_lora_rank)
+    and krope_arena (NB, bs, qk_rope_head_dim).  Returns out (S, C, d)."""
+    from repro_torch.kernels import ops as kops
+    m = cfg.mla
+    cdt = dtype_of(cfg.compute_dtype)
+    S, C = x.shape[0], x.shape[1]
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, x, positions, cfg, cdt)   # (S,C,H,*)
+    c_kv, k_rope = _mla_ckv(params, x, positions, cfg, cdt)   # (S,C,r/rd)
+
+    NB, bs = ckv_arena.shape[0], ckv_arena.shape[1]
+    rows = _paged_chunk_rows(block_tables, kv_lens, chunk_lens, C, bs, NB)
+    _arena_write_chunk(ckv_arena, rows, c_kv)
+    _arena_write_chunk(krope_arena, rows, k_rope)
+
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_abs = _mla_absorb_q(q_nope, w_uk, cdt, site="layer.mla.q_absorb")
+    attn_len = kv_lens + chunk_lens
+    o_lat = kops.mla_paged_prefill_attention(
+        q_abs, q_rope, ckv_arena, krope_arena, block_tables, kv_lens,
+        attn_len, qk_dim=m.qk_nope_head_dim + m.qk_rope_head_dim)
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = _mla_mix_latent(o_lat, w_uv, cdt, site="layer.mla.v_mix")
+    out = out.reshape(S, C, H * m.v_head_dim)
+    return dense(out, params["wo"], None, cdt, site="layer.mla.out")
+
+
+def mla_paged_decode(params: Params, x: torch.Tensor,
+                     positions: torch.Tensor, cfg: ArchConfig, *, ckv_arena,
+                     krope_arena, block_tables, kv_lens, write_mask):
+    """Absorbed-MLA batched decode through the paged latent arena: the
+    one-token form of :func:`mla_paged_prefill`, with the arena contract of
+    :func:`gqa_paged_decode`.  Returns out (S, 1, d)."""
+    from repro_torch.kernels import ops as kops
+    m = cfg.mla
+    cdt = dtype_of(cfg.compute_dtype)
+    S = x.shape[0]
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, x, positions, cfg, cdt)   # (S,1,H,*)
+    c_kv, k_rope = _mla_ckv(params, x, positions, cfg, cdt)   # (S,1,r/rd)
+
+    NB, bs = ckv_arena.shape[0], ckv_arena.shape[1]
+    wm = (write_mask > 0).to(kv_lens.dtype)
+    rows = _paged_chunk_rows(block_tables, kv_lens, wm, 1, bs, NB)
+    _arena_write_chunk(ckv_arena, rows, c_kv[:, :1])
+    _arena_write_chunk(krope_arena, rows, k_rope[:, :1])
+
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_abs = _mla_absorb_q(q_nope, w_uk, cdt,
+                          site="layer.mla.q_absorb")[:, 0]
+    attn_len = kv_lens + wm
+    o_lat = kops.mla_paged_attention(
+        q_abs, q_rope[:, 0], ckv_arena, krope_arena, block_tables, attn_len,
+        qk_dim=m.qk_nope_head_dim + m.qk_rope_head_dim)       # (S, H, r)
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = _mla_mix_latent(o_lat[:, None], w_uv, cdt,
+                          site="layer.mla.v_mix")[:, 0]
+    out = out.reshape(S, 1, H * m.v_head_dim)
+    return dense(out, params["wo"], None, cdt, site="layer.mla.out")

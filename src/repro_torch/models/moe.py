@@ -1,0 +1,185 @@
+"""Mixture-of-Experts feed-forward: the serving half of
+``repro/models/moe.py``.
+
+Routing is per row (one batch row: a lane's chunk at prefill, its one
+token at decode) and sort-based, in the reference's order of operations:
+
+- the f32 router GEMM, pinned to the plain product (``backend="torch"``,
+  the reference's ``backend="xla"``) so the top-k decision does not depend
+  on the execution mode; padding experts are set to -1e30 before the
+  softmax;
+- top-k of the probabilities, renormalised;
+- a stable sort of the (token, choice) pairs by expert; pair i of a row
+  lands at ``pos = i - searchsorted(se, se, left)`` of its expert and is
+  kept when ``pos < C`` (``C = row_capacity``); dropped pairs go to one
+  extra discard slot;
+- the (B, E_pad, C, d) buffer through the three expert-bank GEMMs
+  (``dispatch.gemm`` with a 3-D weight: one bank launch each);
+- the combine: each kept pair's row gathered back, scaled by its gate and
+  scatter-added onto its token;
+- the shared experts, a dense gated MLP on every token, added on top.
+
+Every expert's whole capacity buffer is computed, empty slots included, as
+in the reference.  The aux losses the reference returns are for training
+and are not computed here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import dispatch
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.modules import (activation, dense, dense_init,
+                                        dtype_of)
+
+Params = Dict[str, Any]
+
+
+def padded_num_experts(cfg: ArchConfig, ep_axis: int = 16) -> int:
+    """Routed experts padded up to a multiple of ``ep_axis`` (the
+    reference's expert-parallel axis); the router never picks padding."""
+    e = cfg.moe.num_experts
+    return int(math.ceil(e / ep_axis) * ep_axis)
+
+
+def row_capacity(seq: int, cfg: ArchConfig) -> int:
+    """Slots per expert for one row of ``seq`` tokens (at least 4)."""
+    m = cfg.moe
+    cap = int(math.ceil(seq * m.experts_per_token / m.num_experts
+                        * m.capacity_factor))
+    return max(cap, 4)
+
+
+def _bank_init(gen: torch.Generator, lead, E: int, d_in: int, d_out: int,
+               dt: str, scale=None) -> torch.Tensor:
+    """An (*lead, E, d_in, d_out) expert bank drawn one expert at a time:
+    ``dense_init`` draws f32, and a full-width bank at once would hold
+    ~15 GB of f32 temporaries."""
+    w = torch.empty(tuple(lead) + (E, d_in, d_out), dtype=dtype_of(dt),
+                    device=gen.device)
+    flat = w.view((-1, d_in, d_out))
+    for i in range(flat.shape[0]):
+        flat[i] = dense_init(gen, (d_in, d_out), dt, scale=scale)
+    return w
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, lead=(),
+             ep_axis: int = 16) -> Params:
+    """``lead`` prepends stacking axes (the layer axis) to every leaf."""
+    m = cfg.moe
+    dt = cfg.param_dtype
+    E = padded_num_experts(cfg, ep_axis)
+    d, f = cfg.d_model, m.d_ff_expert
+    lead = tuple(lead)
+    p = {
+        "router": dense_init(gen, lead + (d, E), "float32", scale=0.02),
+        "w_gate": _bank_init(gen, lead, E, d, f, dt),
+        "w_up": _bank_init(gen, lead, E, d, f, dt),
+        "w_down": _bank_init(gen, lead, E, f, d, dt,
+                             scale=1.0 / (f ** 0.5 *
+                                          (2 * cfg.num_layers) ** 0.5)),
+    }
+    if m.num_shared_experts > 0:
+        fs = f * m.num_shared_experts
+        p["shared"] = {
+            "w_gate": dense_init(gen, lead + (d, fs), dt),
+            "w_up": dense_init(gen, lead + (d, fs), dt),
+            # f32 whatever param_dtype is, as the reference draws it
+            "w_down": dense_init(gen, lead + (fs, d), "float32",
+                                 scale=1.0 / (fs ** 0.5 *
+                                              (2 * cfg.num_layers) ** 0.5)),
+        }
+    return p
+
+
+def router_probs(params: Params, x: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """f32 routing probabilities (B, S, E_pad) of x (B, S, d); padding
+    experts get exactly 0."""
+    E_pad = params["router"].shape[-1]
+    logits = dispatch.gemm(x.float(), params["router"].float(),
+                           site="moe.router", backend="torch")
+    pad = torch.arange(E_pad, device=x.device) >= cfg.moe.num_experts
+    return torch.softmax(logits.masked_fill(pad, -1e30), dim=-1)
+
+
+def gates(probs: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
+    """The chosen experts' probabilities, renormalised over the top-k."""
+    g = torch.gather(probs, -1, top_idx)
+    return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+
+
+def route(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """The router's decision for x (B, S, d): (top_idx (B, S, k) int64,
+    gate_vals (B, S, k) f32 renormalised)."""
+    probs = router_probs(params, x, cfg)
+    top_idx = torch.topk(probs, cfg.moe.experts_per_token, dim=-1).indices
+    return top_idx, gates(probs, top_idx)
+
+
+def dispatch_plan(top_idx: torch.Tensor, E_pad: int, C: int):
+    """Sort-based dispatch of each row's (token, choice) pairs, (B, S*k)
+    each: dest (slot in the row's flat E_pad*C buffer, E_pad*C when
+    dropped), st (source token), order (the stable sort by expert, to
+    carry the gates along) and keep (pos < C)."""
+    B, S, k = top_idx.shape
+    flat_e = top_idx.reshape(B, S * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order).contiguous()
+    st = order // k                 # flat pair i is token i // k
+    pos = torch.arange(S * k, device=top_idx.device)[None, :] - \
+        torch.searchsorted(se, se, side="left")
+    keep = pos < C
+    dest = torch.where(keep, se * C + pos, torch.full_like(se, E_pad * C))
+    return dest, st, order, keep
+
+
+def moe_apply(params: Params, x: torch.Tensor,
+              cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d)."""
+    m = cfg.moe
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S, d = x.shape
+    E_pad = params["router"].shape[-1]
+    k = m.experts_per_token
+    C = row_capacity(S, cfg)
+    dev = x.device
+
+    top_idx, gate_vals = route(params, x, cfg)
+    dest, st, order, keep = dispatch_plan(top_idx, E_pad, C)
+    sg = torch.gather(gate_vals.reshape(B, S * k), 1, order)
+
+    # scatter each kept pair's row into its expert slot; dropped pairs add
+    # zero rows to the extra slot at E_pad * C
+    slots = E_pad * C + 1
+    rows_b = torch.arange(B, device=dev)[:, None]
+    src = x.to(cdt)[rows_b, st] * keep[..., None].to(cdt)      # (B, S*k, d)
+    buf = torch.zeros((B * slots, d), dtype=cdt, device=dev)
+    buf.index_add_(0, (dest + rows_b * slots).reshape(-1),
+                   src.reshape(-1, d))
+    buf = buf.view(B, slots, d)[:, :-1].reshape(B, E_pad, C, d)
+
+    act = activation(cfg.mlp_activation)
+    g = dispatch.gemm(buf, params["w_gate"].to(cdt), site="moe.expert.gate")
+    u = dispatch.gemm(buf, params["w_up"].to(cdt), site="moe.expert.up")
+    out_buf = dispatch.gemm(act(g) * u, params["w_down"].to(cdt),
+                            site="moe.expert.down")             # (B,E,C,d)
+
+    flat = out_buf.reshape(B, E_pad * C, d)
+    gathered = flat[rows_b, torch.clamp(dest, max=E_pad * C - 1)]
+    contrib = gathered * (sg * keep)[..., None].to(cdt)
+    y = torch.zeros((B * S, d), dtype=cdt, device=dev)
+    y.index_add_(0, (st + rows_b * S).reshape(-1), contrib.reshape(-1, d))
+    y = y.view(B, S, d)
+
+    if "shared" in params:
+        sp = params["shared"]
+        gs = act(dense(x, sp["w_gate"], None, cdt, site="moe.shared.gate"))
+        us = dense(x, sp["w_up"], None, cdt, site="moe.shared.up")
+        y = y + dense(gs * us, sp["w_down"], None, cdt,
+                      site="moe.shared.down")
+    return y.to(x.dtype)

@@ -1,10 +1,12 @@
 """Paged serving steps: chunked prefill, batched decode and cascade decode
 through the physical KV arena (the paged half of ``repro/models/serving.py``).
 
-The arena is ``{"k": (L, NB, bs, KVH, hd), "v": ...}``; every step writes
-its new rows into it in place and returns it beside the logits.  The
-layer stack is a Python loop over layer views (the reference's
-``lax.scan``).
+The arena is ``{"k": (L, NB, bs, KVH, hd), "v": ...}`` for GQA and the
+latent ``{"k": c_kv (L, NB, bs, r), "v": k_rope (L, NB, bs, rd)}`` for
+MLA; every step writes its new rows into it in place and returns it
+beside the logits.  The layer stack is a Python loop over layer views
+(the reference's ``lax.scan``), over ``dense_layers`` first where a model
+has a leading dense stack.
 """
 
 from __future__ import annotations
@@ -29,22 +31,39 @@ CHUNKED_PREFILL_FAMILIES = ("dense", "moe")
 def init_paged_arena(cfg: ArchConfig, num_blocks: int, block_size: int,
                      device) -> Arena:
     """Per-layer physical KV pages ``(num_layers, num_blocks, block_size,
-    KVH, hd)``.  The serving engine passes pool blocks + 1 and uses the
-    trailing block as write-discard scratch for masked lanes."""
+    *feat)``: K/V rows ``(KVH, hd)`` for GQA, the compressed latent rows
+    for MLA (``k`` holds c_kv (r,), ``v`` holds k_rope (rd,)).  The serving
+    engine passes pool blocks + 1 and uses the trailing block as
+    write-discard scratch for masked lanes."""
     _check_family(cfg)
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
     dt = dtype_of(cfg.compute_dtype)
+    lead = (cfg.num_layers, num_blocks, block_size)
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        return {"k": torch.zeros(lead + (m.kv_lora_rank,), dtype=dt,
+                                 device=device),
+                "v": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dt,
+                                 device=device)}
+    shape = lead + (cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def _scan_paged_layers(body, x, params: Params, arena: Arena):
     """Run ``body(h, layer_p, k_pages, v_pages) -> h`` over the layer stack
-    with each layer's arena pages (written in place)."""
-    for i in range(arena["k"].shape[0]):
-        x = body(x, layer_params(params["layers"], i), arena["k"][i],
-                 arena["v"][i])
+    with each layer's arena pages (written in place): the ``dense_layers``
+    stack over the arena's first layers, then ``layers`` over the rest."""
+    i = 0
+    for name in ("dense_layers", "layers"):
+        stack = params.get(name)
+        if stack is None:
+            continue
+        for j in range(stack["ln1"].shape[0]):
+            x = body(x, layer_params(stack, j), arena["k"][i], arena["v"][i])
+            i += 1
+    if i != arena["k"].shape[0]:
+        raise ValueError(f"the parameters hold {i} layers, the arena "
+                         f"{arena['k'].shape[0]}")
     return x
 
 

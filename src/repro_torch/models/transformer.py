@@ -1,9 +1,12 @@
-"""Dense pre-norm decoder (GQA attention + gated MLP): parameters and the
-paged layer bodies of ``repro/models/transformer.py``.
+"""Pre-norm decoders: parameters and the paged layer bodies of
+``repro/models/transformer.py`` for the two served families, dense GQA
+(attention + gated MLP) and MoE with absorbed MLA (deepseek-v3: a leading
+stack of dense-MLP layers, then MoE layers).
 
 Per-layer leaves are stacked on a leading layer axis, as in the reference
 (``layers/attn/wq`` is (L, d, q_dim)); a layer's parameters are views of
-those stacks.
+those stacks.  A model with leading dense layers keeps them in a second
+stack, ``dense_layers``, as the reference does.
 """
 
 from __future__ import annotations
@@ -15,22 +18,62 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (gqa_paged_decode,
                                           gqa_paged_prefill,
-                                          gqa_paged_shared_decode, init_gqa)
+                                          gqa_paged_shared_decode, init_gqa,
+                                          init_mla, mla_paged_decode,
+                                          mla_paged_prefill)
 from repro_torch.models.mlp import init_mlp, mlp_apply
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.modules import (dense_init, dtype_of, embed_init,
                                         rmsnorm)
 
 Params = Dict[str, Any]
 
 
+# the (family, attention) pairs the port serves
+SERVED = (("dense", "gqa"), ("moe", "mla"))
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.attention_type != "gqa":
-        raise ValueError(f"the port serves dense GQA decoders only, got "
-                         f"family {cfg.family!r} / {cfg.attention_type!r}")
+    if (cfg.family, cfg.attention_type) not in SERVED:
+        raise ValueError(f"the port serves {SERVED} (family, attention) "
+                         f"decoders only, got family {cfg.family!r} / "
+                         f"{cfg.attention_type!r}")
+    if cfg.moe is not None and cfg.moe_every != 1:
+        raise NotImplementedError("moe_every != 1 (stacks must be "
+                                  "homogeneous)")
+
+
+def _is_moe_layer(cfg: ArchConfig, layer_idx: int) -> bool:
+    if cfg.moe is None:
+        return False
+    if layer_idx < cfg.first_dense_layers:
+        return False
+    return (layer_idx - cfg.first_dense_layers) % cfg.moe_every == 0
+
+
+def num_dense_layers(cfg: ArchConfig) -> int:
+    """Leading layers kept in the ``dense_layers`` stack (MoE models only)."""
+    return cfg.first_dense_layers if cfg.moe is not None else 0
+
+
+def _init_stack(gen: torch.Generator, cfg: ArchConfig, n: int,
+                moe: bool) -> Params:
+    """n stacked decoder layers: attention (GQA or MLA) and MoE or MLP."""
+    zeros = dict(dtype=dtype_of(cfg.param_dtype), device=gen.device)
+    d = cfg.d_model
+    init_attn = init_mla if cfg.attention_type == "mla" else init_gqa
+    p = {"ln1": torch.zeros((n, d), **zeros),
+         "ln2": torch.zeros((n, d), **zeros),
+         "attn": init_attn(gen, cfg, lead=(n,))}
+    if moe:
+        p["moe"] = init_moe(gen, cfg, lead=(n,))
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg, lead=(n,))
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    """Random parameters for a dense GQA decoder, drawn from ``gen`` on
+    """Random parameters for a served decoder, drawn from ``gen`` on
     ``gen.device``."""
     _check_family(cfg)
     dt = cfg.param_dtype
@@ -42,12 +85,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (d, cfg.vocab_size), dt)
-    p["layers"] = {
-        "ln1": torch.zeros((L, d), **zeros),
-        "ln2": torch.zeros((L, d), **zeros),
-        "attn": init_gqa(gen, cfg, lead=(L,)),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg, lead=(L,)),
-    }
+    nd = num_dense_layers(cfg)
+    if nd:
+        p["dense_layers"] = _init_stack(gen, cfg, nd, moe=False)
+    p["layers"] = _init_stack(gen, cfg, L - nd, moe=_is_moe_layer(cfg, nd))
     return p
 
 
@@ -69,19 +110,31 @@ def _unembed_weight(params, cfg: ArchConfig) -> torch.Tensor:
     return params["unembed"]
 
 
+def _ffn(p: Params, x, cfg: ArchConfig) -> torch.Tensor:
+    """The layer's feed-forward half, added to x: MoE or the dense MLP."""
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    f = moe_apply(p["moe"], h2, cfg) if "moe" in p else \
+        mlp_apply(p["mlp"], h2, cfg)
+    return x + f.to(x.dtype)
+
+
 def paged_decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
                               k_arena, v_arena, block_tables, kv_lens,
                               write_mask) -> torch.Tensor:
     """One decoder layer's batched single-token decode through the paged KV
     arena (see models/attention.py::gqa_paged_decode for the arena
-    contract; the arena is written in place).  Returns x."""
+    contract; the arena is written in place).  With MLA, k_arena/v_arena
+    are the latent (c_kv, k_rope) pages.  Returns x."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a = gqa_paged_decode(p["attn"], h, positions, cfg, k_arena=k_arena,
-                         v_arena=v_arena, block_tables=block_tables,
-                         kv_lens=kv_lens, write_mask=write_mask)
-    x = x + a.to(x.dtype)
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg).to(x.dtype)
+    paged = dict(block_tables=block_tables, kv_lens=kv_lens,
+                 write_mask=write_mask)
+    if cfg.attention_type == "mla":
+        a = mla_paged_decode(p["attn"], h, positions, cfg, ckv_arena=k_arena,
+                             krope_arena=v_arena, **paged)
+    else:
+        a = gqa_paged_decode(p["attn"], h, positions, cfg, k_arena=k_arena,
+                             v_arena=v_arena, **paged)
+    return _ffn(p, x + a.to(x.dtype), cfg)
 
 
 def paged_shared_decoder_layer_apply(p: Params, x, positions,
@@ -92,17 +145,16 @@ def paged_shared_decoder_layer_apply(p: Params, x, positions,
                                      ) -> torch.Tensor:
     """Cascade-decode twin of :func:`paged_decoder_layer_apply`: attention
     over a shared page prefix runs once per step for every lane in the
-    sharing group (models/attention.py::gqa_paged_shared_decode).  Dense
-    MLP only.  Returns x."""
+    sharing group (models/attention.py::gqa_paged_shared_decode).  GQA
+    only: absorbed MLA keeps the plain paged path, as in the reference.
+    Returns x."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     a = gqa_paged_shared_decode(
         p["attn"], h, positions, cfg, k_arena=k_arena, v_arena=v_arena,
         block_tables=block_tables, kv_lens=kv_lens, write_mask=write_mask,
         prefix_pages=prefix_pages, prefix_lens=prefix_lens,
         unique_tables=unique_tables, unique_lens=unique_lens)
-    x = x + a.to(x.dtype)
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg).to(x.dtype)
+    return _ffn(p, x + a.to(x.dtype), cfg)
 
 
 def paged_prefill_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
@@ -112,9 +164,12 @@ def paged_prefill_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
     (see models/attention.py::gqa_paged_prefill; the arena is written in
     place).  Returns x."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a = gqa_paged_prefill(p["attn"], h, positions, cfg, k_arena=k_arena,
-                          v_arena=v_arena, block_tables=block_tables,
-                          kv_lens=kv_lens, chunk_lens=chunk_lens)
-    x = x + a.to(x.dtype)
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg).to(x.dtype)
+    paged = dict(block_tables=block_tables, kv_lens=kv_lens,
+                 chunk_lens=chunk_lens)
+    if cfg.attention_type == "mla":
+        a = mla_paged_prefill(p["attn"], h, positions, cfg,
+                              ckv_arena=k_arena, krope_arena=v_arena, **paged)
+    else:
+        a = gqa_paged_prefill(p["attn"], h, positions, cfg, k_arena=k_arena,
+                              v_arena=v_arena, **paged)
+    return _ffn(p, x + a.to(x.dtype), cfg)

@@ -3,7 +3,8 @@
 The paged, chunked-prefill path of ``repro/serving/engine.py``:
 
 * ``num_slots`` fixed decode lanes share one physical KV page arena
-  ``(layers, num_blocks + 1, block_size, KVH, hd)`` bound to a
+  ``(layers, num_blocks + 1, block_size, KVH, hd)`` (with MLA, the latent
+  rows: c_kv ``(..., r)`` and k_rope ``(..., rd)``) bound to a
   ``KVBlockPool``; the trailing page is the write-discard scratch that
   masked rows land in.
 * Prefill is chunked and paged: every step runs ONE ragged batch over all
@@ -28,7 +29,8 @@ The paged, chunked-prefill path of ``repro/serving/engine.py``:
   decode lanes' tables open with the same physical pages, attention runs
   as a shared-prefix phase over those pages (read once for the group) and
   a per-lane unique phase, merged by softmax state
-  (``Model.paged_shared_decode_step``).
+  (``Model.paged_shared_decode_step``).  GQA only: with MLA it raises, as
+  in the reference.
 
 Parts of the reference engine that are not ported (the dense KV layout,
 bucketed prefill, speculative decoding, the chaos harness, the sanitizer,
@@ -192,6 +194,9 @@ class ServingEngine:
         self.cfg = cfg
         self.ecfg = e = engine or EngineConfig()
         _check_ported(e)
+        if e.shared_prefix_decode and cfg.attention_type == "mla":
+            raise ValueError("shared_prefix_decode is GQA-only (absorbed MLA "
+                             "keeps the plain paged decode)")
         self.model = build_model(cfg, device)
         self.device = self.model.device
         self.params = params if params is not None \

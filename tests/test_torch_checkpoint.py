@@ -61,3 +61,35 @@ def test_mismatched_leaves_raise(tmp_path):
         params_from_numpy(bad, tcfg, "cpu")
     with pytest.raises(FileNotFoundError):
         load_checkpoint(tmp_path)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_saved_deepseek_tree_loads_unchanged(tmp_path, dtype):
+    """The reduced deepseek-v3 tree (a leading ``dense_layers`` stack, MLA
+    attention, a MoE layer with its 16-expert banks, the shared expert and
+    the untied unembedding) loads bit for bit; the router keeps its f32."""
+    jcfg = get_arch("deepseek-v3-671b").reduced().replace(param_dtype=dtype)
+    tcfg = tget_arch("deepseek-v3-671b").reduced().replace(param_dtype=dtype)
+    params = build_model(jcfg).init(jax.random.PRNGKey(2))
+    CheckpointManager(str(tmp_path)).save(3, params)
+    _, flat, _ = load_checkpoint(tmp_path)
+    ours = params_from_numpy(flat, tcfg, "cpu")
+    want = _flatten(params)
+    got = dict(_leaves(ours))
+    assert set(got) == set(want)
+    assert {"dense_layers/attn/w_dq", "layers/attn/w_uk",
+            "layers/moe/router", "layers/moe/w_down",
+            "layers/moe/shared/w_up", "dense_layers/mlp/w_gate",
+            "unembed"} <= set(got)
+    assert got["layers/moe/w_gate"].shape[1] == 16      # 8 experts padded
+    for key, arr in want.items():
+        t = got[key]
+        bf16 = str(arr.dtype) == "bfloat16"
+        assert t.dtype == (torch.bfloat16 if bf16 else torch.float32), key
+        assert tuple(t.shape) == arr.shape
+        if bf16:
+            assert np.array_equal(t.view(torch.int16).numpy(),
+                                  arr.view(np.int16)), key
+        else:
+            assert np.array_equal(t.numpy(), arr), key
+    assert got["layers/moe/router"].dtype == torch.float32

@@ -99,3 +99,160 @@ def test_registry_records_what_ran():
     with pytest.raises(ValueError):
         with dispatch.use(execute="xla"):
             pass
+
+
+# ---------------------------------------------------------------------------
+# expert banks and the deepseek-v3 sites
+# ---------------------------------------------------------------------------
+
+def _bank_bound(xe, w):
+    """The f32 summation bound of each bank's product, as in
+    ``test_torch_rsa_gemm``: K * 2^-24 * (|a| @ |b|)."""
+    K = xe.shape[-1]
+    return K * 2.0 ** -24 * np.einsum(
+        "emk,ekn->emn", np.abs(xe).astype(np.float64),
+        np.abs(w).astype(np.float64)) + 1e-30
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bank_gemm_matches_reference_experts(mode):
+    """An expert bank through the port's ``dispatch.gemm`` (one bank GEMM
+    with the mode forced) against the reference's ``_gemm_experts``: its
+    vmap of the RSA Pallas kernel (interpret mode) with the same forced
+    mode, and its XLA einsum.  Both sides within the f32 summation bound
+    of an f64 product; the executed tile and M = prod(lead) * C agree."""
+    import jax.numpy as jnp
+    from repro import dispatch as jdispatch
+    from repro.core.tpu_costmodel import TPUTileConfig as JTile
+    from repro.dispatch import SiteRegistry as JRegistry
+    from repro_torch.core.tpu_costmodel import TPUTileConfig
+
+    class Forced:
+        """The oracle's blocks with the residency mode forced."""
+        def __init__(self, inner, cls):
+            self.inner, self.cls = inner, cls
+
+        def recommend(self, m, k, n):
+            c = self.inner.recommend(m, k, n)
+            return self.cls(c.class_id, c.block_m, c.block_n, c.block_k,
+                            mode)
+
+    rng = np.random.default_rng(mode)
+    B, E, C, K, N = 2, 3, 5, 200, 72          # ragged K and N, lead dim 2
+    x = rng.standard_normal((B, E, C, K)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    ref64 = np.einsum("beck,ekn->becn", x.astype(np.float64),
+                      w.astype(np.float64))
+    xe = np.moveaxis(x, 1, 0).reshape(E, B * C, K)
+    bound = np.moveaxis(_bank_bound(xe, w).reshape(E, B, C, N), 0, 1)
+
+    treg = dispatch.SiteRegistry()
+    with dispatch.use(Forced(SaraDispatcher(), TPUTileConfig),
+                      registry=treg):
+        ours = dispatch.gemm(torch.from_numpy(x), torch.from_numpy(w),
+                             site="moe.expert.gate").numpy()
+    jreg = JRegistry()
+    with jdispatch.use(Forced(JDispatcher(), JTile), execute="pallas",
+                       registry=jreg, interpret=True):
+        pallas = np.asarray(jdispatch.gemm(jnp.asarray(x), jnp.asarray(w),
+                                           site="moe.expert.gate"))
+    with jdispatch.use(execute="xla"):
+        einsum = np.asarray(jdispatch.gemm(jnp.asarray(x), jnp.asarray(w),
+                                           site="moe.expert.gate"))
+    assert ours.shape == pallas.shape == (B, E, C, N)
+    for got in (ours, pallas, einsum):
+        assert (np.abs(got - ref64) <= bound).all()
+    t = treg.sites()["moe.expert.gate"]
+    j = jreg.sites()["moe.expert.gate"]
+    assert (t.m, t.k, t.n) == (j.m, j.k, j.n) == (B * C, K, N)
+    assert t.executed() == (j.block_m, j.block_n, j.block_k, j.mode)
+    assert t.mode == mode and t.backend == "torch"
+
+
+def test_bank_gemm_reads_head_bank_views():
+    """The MLA head banks are strided views of W_UK / W_UV: the bank GEMM
+    reads them in place and equals the einsum the reference's absorption
+    stands for."""
+    rng = np.random.default_rng(4)
+    S, C, H, d, r = 2, 3, 4, 16, 8
+    w_uk = torch.from_numpy(rng.standard_normal((r, H * d))
+                            .astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((S, C, H, d)).astype(np.float32))
+    wk = w_uk.reshape(r, H, d).permute(1, 2, 0)          # (H, d, r) view
+    assert not wk.is_contiguous()
+    out = dispatch.gemm(q.movedim(-2, -3), wk, site="layer.mla.q_absorb")
+    want = torch.einsum("schd,rhd->schr", q, w_uk.reshape(r, H, d))
+    assert torch.allclose(out.movedim(-3, -2), want, atol=1e-5)
+
+
+def test_backend_pin_runs_the_plain_product():
+    reg = dispatch.SiteRegistry()
+    x, w = torch.randn(2, 3, 8), torch.randn(8, 16)
+    with dispatch.use(registry=reg):
+        y = dispatch.gemm(x, w, site="moe.router", backend="torch")
+    assert torch.equal(y, torch.matmul(x, w))
+    assert reg.sites()["moe.router"].backend == "torch"
+    with pytest.raises(ValueError):
+        dispatch.gemm(x, w, site="x", backend="xla")
+    with pytest.raises(ValueError):
+        dispatch.gemm(torch.randn(2, 5, 8), torch.randn(3, 8, 4), site="x")
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+def test_registry_matches_reference_deepseek(step):
+    """One reduced deepseek-v3 prefill or decode step records the same
+    (site, M, K, N, executed tile) in both packages, banks included."""
+    import jax
+    import jax.numpy as jnp
+    from repro import dispatch as jdispatch
+    from repro.checkpoint.manager import _flatten
+    from repro.dispatch import SiteRegistry as JRegistry
+    from repro.models.api import build_model as jbuild
+    from repro_torch.checkpoint import params_from_numpy
+    from repro_torch.configs.registry import get_arch as tget_arch
+    from repro_torch.models.api import build_model as tbuild
+
+    torch.set_num_threads(2)
+    jcfg = get_arch("deepseek-v3-671b").reduced()
+    tcfg = tget_arch("deepseek-v3-671b").reduced()
+    jm, tm = jbuild(jcfg), tbuild(tcfg, device="cpu")
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(_flatten(jparams), tcfg, "cpu")
+    S, C, W, bs = 2, 6, 3, 4
+    tables = np.arange(S * W, dtype=np.int32).reshape(S, W)
+    kv = np.array([0, 2], np.int32)
+    rng = np.random.default_rng(0)
+    if step == "prefill":
+        toks = rng.integers(0, 512, (S, C)).astype(np.int32)
+        lens = np.array([6, 4], np.int32)
+    else:
+        toks = rng.integers(0, 512, (S, 1)).astype(np.int32)
+        lens = np.ones(S, np.int32)
+    jreg, treg = JRegistry(), dispatch.SiteRegistry()
+    with jdispatch.use(JDispatcher(), execute="xla", registry=jreg):
+        ja = jm.init_paged_arena(S * W + 1, bs)
+        args = [jnp.asarray(a) for a in (toks,)] + [ja] + \
+            [jnp.asarray(a) for a in (tables, kv, lens)]
+        if step == "prefill":
+            jm.paged_prefill_step(jparams, *args)
+        else:
+            jm.paged_decode_step(jparams, args[0], {}, *args[1:])
+    with torch.no_grad(), dispatch.use(SaraDispatcher(), registry=treg):
+        ta = tm.init_paged_arena(S * W + 1, bs)
+        targs = [torch.from_numpy(toks), ta] + \
+            [torch.from_numpy(a) for a in (tables, kv, lens)]
+        if step == "prefill":
+            tm.paged_prefill_step(tparams, *targs)
+        else:
+            tm.paged_decode_step(tparams, *targs)
+
+    def key(rec):
+        return (rec.m, rec.k, rec.n, rec.block_m, rec.block_n, rec.block_k,
+                rec.mode)
+
+    theirs = {s: key(r) for s, r in jreg.sites().items()}
+    ours = {s: key(r) for s, r in treg.sites().items()}
+    assert ours == theirs
+    assert {"moe.expert.gate", "moe.expert.up", "moe.expert.down",
+            "layer.mla.q_absorb", "layer.mla.v_mix", "moe.router",
+            "layer.mlp.gate"} <= set(ours)

@@ -72,3 +72,75 @@ def test_greedy_tokens_match_reference_engine():
     assert s["decode_steps"] == jeng.summary()["decode_steps"]
     assert s["gemm_kernel_sites"] == 0 and s["gemm_torch_sites"] > 0
     assert 0.0 < s["sara_cache_hit_rate"] <= 1.0
+
+
+@pytest.fixture(scope="module")
+def deepseek():
+    """Reduced deepseek-v3 (one dense MLA layer, then one MoE layer with 8
+    experts padded to 16), JAX-initialised, in both packages."""
+    jcfg = get_arch("deepseek-v3-671b").reduced()
+    tcfg = tget_arch("deepseek-v3-671b").reduced()
+    jparams = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    return jcfg, jparams, tcfg, params_from_numpy(_flatten(jparams), tcfg,
+                                                  "cpu")
+
+
+def _serve_both(deepseek, prompts, **kw):
+    jcfg, jparams, tcfg, tparams = deepseek
+    common = dict(num_slots=2, max_len=32, block_size=4, prefill_chunk=8,
+                  temperature=0.0, clock="steps", kv_layout="paged")
+    common.update(kw)
+    jeng = JServingEngine(jcfg, JEngineConfig(**common, execute="xla"),
+                          params=jparams)
+    jout = jeng.run([JRequest(f"r{i}", p, GEN) for i, p in
+                     enumerate(prompts)])
+    teng = ServingEngine(tcfg, EngineConfig(**common), params=tparams,
+                         device="cpu")
+    tout = teng.run([Request(f"r{i}", p, GEN) for i, p in
+                     enumerate(prompts)])
+    assert set(tout) == set(jout)
+    for rid in jout:
+        assert len(tout[rid]) == GEN
+        assert np.array_equal(tout[rid], jout[rid]), (rid, tout[rid],
+                                                      jout[rid])
+    return jeng, teng
+
+
+def test_greedy_tokens_match_reference_engine_deepseek(deepseek):
+    """The MLA + MoE path: the same requests as the llama test, identical
+    tokens; every site of both stacks recorded, the router pinned."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in PROMPTS]
+    jeng, teng = _serve_both(deepseek, prompts)
+    teng.pool.check()
+    assert teng.pool.num_free == teng.pool.num_blocks
+    assert all(r.outcome == "done" for r in teng.requests.values())
+    assert {"layer.mla.q_down", "layer.mla.q_up", "layer.mla.kv_down",
+            "layer.mla.q_absorb", "layer.mla.v_mix", "layer.mla.out",
+            "layer.mlp.gate", "layer.mlp.up", "layer.mlp.down",
+            "moe.router", "moe.expert.gate", "moe.expert.up",
+            "moe.expert.down", "moe.shared.gate", "moe.shared.up",
+            "moe.shared.down", "unembed"} == set(teng.gemm_plan)
+    assert teng.summary()["decode_steps"] == jeng.summary()["decode_steps"]
+
+
+def test_prefix_cache_matches_reference_engine_deepseek(deepseek):
+    """The prefix cache on the latent arena: three identical 16-token
+    prompts on one slot hit the trie, resume inside the last shared page
+    and copy it on write, as the JAX engine does; cascade decode is refused
+    for MLA, as in the reference."""
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, 512, 16).astype(np.int32)
+    jeng, teng = _serve_both(deepseek, [prompt.copy() for _ in range(3)],
+                             num_slots=1, num_blocks=8, prefix_cache=True)
+    assert teng.prefix_cache.hits == jeng.prefix_cache.hits == 2
+    assert teng.pool.cow_copies == jeng.pool.cow_copies >= 2
+    assert teng.metrics.cache_hit_tokens == jeng.metrics.cache_hit_tokens
+    teng.prefix_cache.clear()
+    teng.pool.check()
+    assert teng.pool.num_free == teng.pool.num_blocks
+    _, _, tcfg, tparams = deepseek
+    with pytest.raises(ValueError, match="GQA-only"):
+        ServingEngine(tcfg, EngineConfig(prefix_cache=True,
+                                         shared_prefix_decode=True),
+                      params=tparams, device="cpu")

@@ -12,6 +12,8 @@ the GEMM, and the attention kernels round p to bf16 before p @ V.  The
 cascade kernels' f32 softmax states (m, l) differ from the plain versions'
 by summation order only (1e-4 relative), and their empty rows (a lane of
 length 0, a lane outside the sharing group) are exactly (0, -1e30, 0).
+The bank GEMM is held to the 2-D GEMM's bound and, member by member, to
+the 2-D kernel bitwise; the MLA kernels to the attention tolerances.
 """
 
 import math
@@ -175,3 +177,143 @@ def test_cascade_kernels_match_plain(cuda, dtype, tol, cap):
     assert n1["plain_calls"] == n0["plain_calls"]
     assert cascade.dtype == dtype
     assert (cascade.float() - whole.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("mode", [OS, WS, IS])
+@pytest.mark.parametrize("dtype,out", [(torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("bank", ["experts", "head views"])
+def test_bank_gemm_kernel_matches_plain(cuda, mode, dtype, out, bank):
+    """One launch for a whole bank, each member bitwise the 2-D kernel; the
+    head bank is a strided view of one (N, E*K) weight (as the MLA banks
+    view W_UK), read in place."""
+    E, M, K, N, bk = 5, 40, 300, 96, 128
+    a = torch.randn((E, M, K), generator=cuda, device="cuda").to(dtype)
+    if bank == "experts":
+        b = torch.randn((E, K, N), generator=cuda, device="cuda").to(dtype)
+    else:                                   # W_UK (N, E*K) as (E, K, N)
+        w = torch.randn((N, E * K), generator=cuda, device="cuda").to(dtype)
+        b = w.reshape(N, E, K).permute(1, 2, 0)
+    n0 = ops.launch_counts()["rsa_gemm"]
+    got = ops.rsa_gemm(a, b, block_k=bk, mode=mode, out_dtype=out)
+    assert ops.launch_counts()["rsa_gemm"] == n0 + 1
+    want = rsa_gemm_plain(a, b, block_k=bk, mode=mode, out_dtype=out)
+    for e in range(E):                      # the bank is E 2-D products
+        one = ops.rsa_gemm(a[e], b[e], block_k=bk, mode=mode, out_dtype=out)
+        assert torch.equal(one, got[e])
+    tol = K * 2.0 ** -24 * torch.bmm(a.abs().float(),
+                                     b.abs().float()).max().item()
+    if out == torch.bfloat16:
+        chunks = 1 if mode == OS else math.ceil(K / bk)
+        tol += (chunks + 1) * 2.0 ** -8 * want.abs().max().item()
+    assert got.shape == (E, M, N)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _mla_inputs(gen, dtype, lengths, H, r, rd, bs):
+    S = len(lengths)
+    W = max(1, max(-(-n // bs) for n in lengths))
+    tables = torch.zeros((S, W), dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        nb = -(-n // bs)
+        if nb:
+            tables[i, :nb] = torch.arange(nxt, nxt + nb)
+            tables[i, nb:] = nxt + nb - 1
+            nxt += nb
+    ckv = torch.randn((nxt + 1, bs, r), generator=gen, device="cuda")
+    kr = torch.randn((nxt + 1, bs, rd), generator=gen, device="cuda")
+    return ckv.to(dtype), kr.to(dtype), tables.cuda(), \
+        torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("H,r,rd,bs", [(16, 512, 64, 16), (4, 16, 8, 16),
+                                       (4, 16, 8, 4)])
+def test_mla_kernels_match_plain(cuda, dtype, tol, H, r, rd, bs):
+    """Both MLA kernels against their plain versions: ragged lengths with a
+    length-0 lane and a page boundary, ragged prefill starts with an empty
+    lane; the full-width latent (512 + 64) and the reduced one, at pages
+    of 16 and of 4 (the CPU tests' page)."""
+    from repro_torch.kernels.paged_mla import (
+        paged_mla_attention_plain, paged_mla_prefill_attention_plain)
+    qk = 192
+    scale = 1.0 / math.sqrt(qk)
+    lengths = [0, 1, 16, 17, 70]
+    ckv, kr, tables, lens = _mla_inputs(cuda, dtype, lengths, H, r, rd, bs)
+    S = len(lengths)
+    qa = torch.randn((S, H, r), generator=cuda, device="cuda").to(dtype)
+    qr = torch.randn((S, H, rd), generator=cuda, device="cuda").to(dtype)
+    with dispatch.use(execute="kernel"):
+        got = ops.mla_paged_attention(qa, qr, ckv, kr, tables, lens,
+                                      qk_dim=qk)
+    want = paged_mla_attention_plain(qa, qr, ckv, kr, tables, lens,
+                                     scale=scale)
+    assert (got[0] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+    C = 8
+    starts = [0, 5, 16, 0, 60]
+    chunks = [8, 7, 3, 0, 8]
+    ckv, kr, tables, lens = _mla_inputs(
+        cuda, dtype, [s + c for s, c in zip(starts, chunks)], H, r, rd, bs)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    qa = torch.randn((S, C, H, r), generator=cuda, device="cuda").to(dtype)
+    qr = torch.randn((S, C, H, rd), generator=cuda, device="cuda").to(dtype)
+    with dispatch.use(execute="kernel"):
+        got = ops.mla_paged_prefill_attention(qa, qr, ckv, kr, tables, st,
+                                              lens, qk_dim=qk)
+    want = paged_mla_prefill_attention_plain(qa, qr, ckv, kr, tables, st,
+                                             lens, scale=scale)
+    live = torch.arange(C, device="cuda")[None, :] < \
+        torch.tensor(chunks, device="cuda")[:, None]
+    assert (got[3] == 0).all()
+    assert (got.float() - want.float()).abs()[live].max().item() <= tol
+
+
+def test_reduced_deepseek_steps_match_plain(cuda):
+    """The reduced deepseek-v3 model (one dense MLA layer, one MoE layer;
+    head banks with K = 16 below the kernel's 32-deep k tile) in f32: one
+    chunk-prefill and one decode step on the kernels against the same
+    steps on the plain versions on the CPU, from the same weights; every
+    GEMM and both MLA kernels launched, 1e-4 on logits (f32 summation
+    order through two layers, as the CPU parity tests)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import build_model
+    cfg = get_arch("deepseek-v3-671b").reduced()
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    dev = build_model(cfg, device="cuda")
+    dparams = _to(params, "cuda")
+    S, C, W, bs = 3, 5, 4, 4
+    tables = torch.arange(S * W, dtype=torch.int32).reshape(S, W)
+    kv0 = torch.zeros(S, dtype=torch.int32)
+    chunk = torch.tensor([5, 3, 0], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (S, C),
+                         generator=torch.Generator().manual_seed(0))
+    wm = torch.tensor([1, 1, 0], dtype=torch.int32)
+    ops.reset_counts()
+    res = {}
+    for name, model, p, d in (("cpu", cpu, params, "cpu"),
+                              ("cuda", dev, dparams, "cuda")):
+        arena = model.init_paged_arena(S * W + 1, bs)
+        a = [t.to(d) for t in (toks, tables, kv0, chunk)]
+        with torch.no_grad():
+            pl, _ = model.paged_prefill_step(p, a[0], arena, *a[1:])
+            nxt = res["cpu"][0].argmax(-1)[:, None].to(d) if res else \
+                pl.argmax(-1)[:, None]
+            dl, _ = model.paged_decode_step(p, nxt, arena, a[1], a[3],
+                                            wm.to(d))
+        res[name] = (pl.cpu(), dl.cpu())
+    counts = ops.launch_counts()
+    assert counts["paged_mla_prefill"] == counts["paged_mla_decode"] == 2
+    assert counts["rsa_gemm"] > 0
+    for i in (0, 1):
+        diff = (res["cuda"][i] - res["cpu"][i])[:2].abs().max().item()
+        assert diff < 1e-4
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

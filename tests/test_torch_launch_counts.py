@@ -16,6 +16,8 @@ from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_cuda,
                                             paged_prefix_cuda)
+from repro_torch.kernels.paged_mla import (paged_mla_decode_cuda,
+                                           paged_mla_prefill_cuda)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
 
 
@@ -170,3 +172,82 @@ def test_shared_attention_launches_both_phases_once(card):
     counts = ops.launch_counts()
     assert (counts["paged_prefix"], counts["paged_decode_lse"],
             counts["paged_decode"], counts["plain_calls"]) == (1, 1, 0, 0)
+
+
+def test_bank_gemm_counts_one_launch_per_bank(card):
+    """A whole expert bank is ONE launch, counted under its (E, M, K, N,
+    mode); an empty bank launches nothing; a failed one counts nothing."""
+    a, b = torch.zeros(16, 8, 64), torch.zeros(16, 64, 32)
+    out = rsa_gemm_cuda(a, b, block_k=64, mode=IS)
+    assert out.shape == (16, 8, 32)
+    assert card.calls == ["rsa_gemm_launch"]
+    assert ops.launch_counts()["rsa_gemm"] == 1
+    assert rsa_gemm_cuda.launches_by_key == {(16, 8, 64, 32, IS): 1}
+    # a head bank read as a strided view of one (r, H*d) weight
+    w = torch.zeros(32, 4 * 64)
+    rsa_gemm_cuda(torch.zeros(4, 8, 64), w.reshape(32, 4, 64).permute(1, 2, 0),
+                  block_k=64, mode=OS)
+    assert ops.launch_counts()["rsa_gemm"] == 2
+    rsa_gemm_cuda(torch.zeros(0, 8, 64), torch.zeros(0, 64, 32), block_k=64,
+                  mode=IS)
+    card.err = 9
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        rsa_gemm_cuda(a, b, block_k=64, mode=IS)
+    assert card.calls == ["rsa_gemm_launch"] * 3
+    assert ops.launch_counts()["rsa_gemm"] == 2
+    with pytest.raises(ValueError, match="shape mismatch"):
+        rsa_gemm_cuda(a, torch.zeros(15, 64, 32), block_k=64, mode=IS)
+
+
+def _mla(S, C, err, card, H=4):
+    r, rd, bs, W = 16, 8, 4, 3
+    ckv, kr = torch.zeros(S * W + 1, bs, r), torch.zeros(S * W + 1, bs, rd)
+    tables = torch.zeros(S, W, dtype=torch.int32)
+    lengths = torch.ones(S, dtype=torch.int32)
+    card.err = err
+    paged_mla_decode_cuda(torch.zeros(S, H, r), torch.zeros(S, H, rd), ckv,
+                          kr, tables, lengths, scale=0.2)
+    paged_mla_prefill_cuda(torch.zeros(S, C, H, r), torch.zeros(S, C, H, rd),
+                           ckv, kr, tables, torch.zeros(S, dtype=torch.int32),
+                           lengths, scale=0.2)
+
+
+@pytest.mark.parametrize("S,C,H", [(0, 4, 4), (3, 0, 4), (3, 4, 0)])
+def test_empty_mla_batch_counts_no_launch(card, S, C, H):
+    _mla(S, C, 0, card, H=H)
+    decode = S > 0 and H > 0            # the empty chunk launches nothing
+    assert card.calls == (["paged_mla_decode_launch"] if decode else [])
+    counts = ops.launch_counts()
+    assert counts["paged_mla_decode"] == int(decode)
+    assert counts["paged_mla_prefill"] == 0
+
+
+def test_mla_counts_each_launch_and_no_failed_one(card):
+    _mla(3, 4, 0, card)
+    assert card.calls == ["paged_mla_decode_launch",
+                          "paged_mla_prefill_launch"]
+    with pytest.raises(RuntimeError, match="paged MLA decode attention"):
+        _mla(3, 4, 1, card)            # cudaErrorInvalidValue
+    counts = ops.launch_counts()
+    assert (counts["paged_mla_decode"], counts["paged_mla_prefill"]) == (1, 1)
+    assert counts["plain_calls"] == 0
+
+
+def test_mla_kernels_refuse_what_they_do_not_take(card):
+    S, H, bs = 2, 4, 4
+    tables = torch.zeros(S, 2, dtype=torch.int32)
+    lengths = torch.ones(S, dtype=torch.int32)
+    with pytest.raises(ValueError, match="r <= 512"):
+        paged_mla_decode_cuda(torch.zeros(S, H, 1024), torch.zeros(S, H, 8),
+                              torch.zeros(5, bs, 1024), torch.zeros(5, bs, 8),
+                              tables, lengths, scale=0.1)
+    with pytest.raises(ValueError, match="int32"):
+        paged_mla_decode_cuda(torch.zeros(S, H, 16), torch.zeros(S, H, 8),
+                              torch.zeros(5, bs, 16), torch.zeros(5, bs, 8),
+                              tables.long(), lengths, scale=0.1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        paged_mla_decode_cuda(torch.zeros(S, H, 16), torch.zeros(S, H, 4),
+                              torch.zeros(5, bs, 16), torch.zeros(5, bs, 8),
+                              tables, lengths, scale=0.1)
+    assert card.calls == []
+    assert ops.launch_counts()["paged_mla_decode"] == 0
