@@ -45,11 +45,22 @@ Phases (any failure exits non-zero):
    run.  The logits of one chunk-prefill step and one decode step are held
    against the plain versions, and every 2-D GEMM shape the path launched
    is held against its plain version and timed.
+7. the training path: ``train_main`` trains llama3.2-1b at full width
+   (optimized profile: attention through the flash-attention kernels) in
+   f32 for 4 steps of batch 2 x 1024 tokens, every GEMM and its dx/dw on
+   the RSA kernel; the loss must fall, the driver must not restart, no
+   plain version may run, the final checkpoint must restore leaf for leaf,
+   and step 1's loss and grad norm must match the same step from the same
+   init on the plain versions (1e-5 / 1e-4 relative).  It reports each
+   kernel's launches per step, step time, tokens/s and the model-FLOPs
+   share of the card's f32 peak.
 
 Phase 3 also holds the two paged MLA kernels (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts) and the bank GEMM (the
 expert banks, E = 256, and the MLA head banks, E = 128 views of W_UK /
-W_UV) against their plain versions at phase 6's shapes.
+W_UV) against their plain versions at phase 6's shapes, and the three
+flash-attention kernels (forward, dq, dk/dv) and every training GEMM
+(forward, dx and dw of each site, f32) at phase 7's shapes.
 
 The lines before the last are the JSON kernel table, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -69,6 +80,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 F32_EPS = 2.0 ** -24
 BF16_EPS = 2.0 ** -8
@@ -79,6 +91,10 @@ PAGED_TPU = {"paged_decode": "src/repro/kernels/paged_attn.py:104",
 RSA_TPU = "src/repro/kernels/rsa_gemm.py:64"
 MLA_TPU = {"paged_mla_decode": "src/repro/kernels/paged_attn.py:189",
            "paged_mla_prefill": "src/repro/kernels/paged_attn.py:578"}
+FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attn.py:123",
+             "flash_dq": "src/repro/kernels/flash_attn.py:265",
+             "flash_dkv": "src/repro/kernels/flash_attn.py:282"}
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 4     # phase 7's batch and steps
 
 
 def log(*a):
@@ -744,6 +760,224 @@ def check_mla(torch, report, timer, dcfg):
     return ok
 
 
+def bound_ms(nbytes, flops, peak):
+    """(least time, what bounds it): bytes over the memory rate against
+    operations over ``peak``."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def check_flash(torch, report, timer, cfg):
+    """The three flash-attention kernels against their plain versions at
+    phase 7's attention shape (B = 2, S = 1024, 32 / 8 heads, hd = 64,
+    causal, f32), a ragged length (Sq = Skv = 1000), kv rows past every
+    query (Sq = 500, Skv = 1000: their dk/dv must be exactly 0), the
+    bidirectional form, and a bf16 forward.  The backward kernels are held
+    alone: both versions get the kernel forward's lse and delta.
+    Tolerances are the reference's for its kernel: 2e-6 absolute + 2e-6
+    relative (f32 forward), 2e-2 (bf16), 3e-5 absolute + 1e-3 relative
+    (gradients).  Every case is timed against the plain versions and
+    ``scaled_dot_product_attention`` (GQA, forward; its backward through
+    autograd computes dq, dk and dv at once), a yardstick the port never
+    calls; the main case is the kernel table's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (
+        flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda, flash_dq_plain,
+        flash_fwd_cuda, flash_fwd_plain)
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    ok = True
+    for name, B, Sq, Skv, causal, dt in (
+            ("main", TRAIN_B, TRAIN_S, TRAIN_S, True, f32),
+            ("ragged", 2, 1000, 1000, True, f32),
+            ("kv past every query", 1, 500, 1000, True, f32),
+            ("bidirectional", TRAIN_B, TRAIN_S, TRAIN_S, False, f32),
+            ("bf16 forward", TRAIN_B, TRAIN_S, TRAIN_S, True, bf16)):
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, Skv, KVH, hd), generator=gen,
+                        device="cuda").to(dt)
+        v = torch.randn((B, Skv, KVH, hd), generator=gen,
+                        device="cuda").to(dt)
+        bq, bk = min(512, Sq), min(512, Skv)
+        blocks = dict(causal=causal, scale=scale, bq=bq, bk=bk)
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+        po, plse = flash_fwd_plain(q, k, v, **blocks)
+        rt = 2e-6 if dt == f32 else 2e-2
+        res = {"fwd o": (o, po, rt, rt), "fwd lse": (lse, plse, 2e-6, 2e-6)}
+        if dt == f32:
+            do = torch.randn(o.shape, generator=gen, device="cuda")
+            delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+            stats = (q, k, v, do, lse, delta)
+            dq = flash_dq_cuda(*stats, causal=causal, scale=scale)
+            dk, dv = flash_dkv_cuda(*stats, causal=causal, scale=scale)
+            pdq = flash_dq_plain(*stats, **blocks)
+            pdk, pdv = flash_dkv_plain(*stats, **blocks)
+            res.update({"dq": (dq, pdq, 3e-5, 1e-3),
+                        "dk": (dk, pdk, 3e-5, 1e-3),
+                        "dv": (dv, pdv, 3e-5, 1e-3)})
+        torch.cuda.synchronize()
+        errs, good = {}, True
+        for key, (got, want, atol, rtol) in res.items():
+            diff = (got.float() - want.float()).abs()
+            errs[key] = diff.max().item()
+            good &= bool((diff <= atol + rtol * want.float().abs()).all()) \
+                and math.isfinite(errs[key])
+        zeros = None
+        if Skv > Sq and causal:
+            zeros = bool((dk[:, Sq:] == 0).all() and (dv[:, Sq:] == 0).all())
+            good &= zeros
+        ok &= good
+        rec = {"case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
+               "KVH": KVH, "hd": hd, "causal": causal,
+               "dtype": str(dt).split(".")[-1], "max_abs_err": errs,
+               "tol": {k: (a, r) for k, (_, _, a, r) in res.items()},
+               "past_rows_zero": zeros, "ok": good}
+        log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} {rec['dtype']} "
+            f"{'causal' if causal else 'full'}: max_abs_err "
+            + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+            + (f"; dk/dv past every query {'0' if zeros else 'NONZERO'}"
+               if zeros is not None else "") + f" {'ok' if good else 'FAIL'}")
+        pairs = B * H * sum(min(r + 1, Skv) if causal else Skv
+                            for r in range(Sq))
+        es = q.element_size()
+        qb, kb = q.numel() * es, k.numel() * es
+        st = 4 * B * H * Sq                      # one f32 per query row
+        peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(dt == f32)
+                      for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        try:
+            out = sdpa()
+        except TypeError:                # a torch without enable_gqa
+            G = H // KVH
+            kt, vt = (t.detach().repeat_interleave(G, dim=1)
+                      .requires_grad_(dt == f32) for t in (kt, vt))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+            out = sdpa()
+            rec["library"] = "sdpa over k/v expanded to H heads"
+        timed = {"flash_fwd": (
+            lambda: flash_fwd_cuda(q, k, v, causal=causal, scale=scale),
+            lambda: flash_fwd_plain(q, k, v, **blocks), sdpa,
+            bound_ms(qb + 2 * kb + qb + st, 4 * hd * pairs, peak),
+            errs["fwd o"])}
+        if dt == f32:
+            gout = do.transpose(1, 2)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (qt, kt, vt), gout,
+                                           retain_graph=True)
+            timed["flash_dq"] = (
+                lambda: flash_dq_cuda(*stats, causal=causal, scale=scale),
+                lambda: flash_dq_plain(*stats, **blocks), sdpa_bwd,
+                bound_ms(3 * qb + 2 * kb + 2 * st, 6 * hd * pairs, peak),
+                errs["dq"])
+            timed["flash_dkv"] = (
+                lambda: flash_dkv_cuda(*stats, causal=causal, scale=scale),
+                lambda: flash_dkv_plain(*stats, **blocks), sdpa_bwd,
+                bound_ms(2 * qb + 4 * kb + 2 * st, 8 * hd * pairs, peak),
+                max(errs["dk"], errs["dv"]))
+        rec["main"] = name == "main"
+        rec["timed"] = {}
+        for kname, (kern, plain_fn, lib, (b_ms, b_by), err) in \
+                timed.items():
+            t = {"ms": timer(kern), "plain_ms": timer(plain_fn),
+                 "library_ms": timer(lib), "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err}
+            rec["timed"][kname] = t
+            log(f"    {kname:<9} kernel {t['ms']:.4f} ms plain "
+                f"{t['plain_ms']:.4f} ms sdpa {t['library_ms']:.4f} ms "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        del qt, kt, vt, out
+        report["flash"].append(rec)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_gemm_cases(cfg):
+    """(site, pass, M, K, N, a_transposed, b_transposed) of every GEMM of
+    phase 7's train step: each site's forward, dx = dy @ w^T and dw =
+    x^T @ dy, at M = batch x seq (the unembedding at one loss chunk,
+    tied: w is embed^T)."""
+    d, q, kv, ff, V = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
+                       cfg.vocab_size)
+    M = TRAIN_B * TRAIN_S
+    out = []
+    for site, m, k, n, tied in (
+            ("q/o", M, d, q, False), ("k/v", M, d, kv, False),
+            ("gate/up", M, d, ff, False), ("down", M, ff, d, False),
+            ("unembed", TRAIN_B * min(cfg.loss_chunk, TRAIN_S), d, V, True)):
+        out += [(site, "fwd", m, k, n, False, tied),
+                (site, "dx", m, n, k, False, not tied),
+                (site, "dw", k, m, n, True, False)]
+    return out
+
+
+def check_train_gemms(torch, report, cfg, dispatcher):
+    """Every GEMM of the train step in f32, its recommended mode and
+    blocks, in the layouts the step hands the kernel (dx reads w^T in
+    place, dw reads x^T in place), against its plain version within the
+    f32 summation bound; timed (5 runs, L2 flushed) beside the plain
+    version and ``torch.matmul``, bound by the f32 CUDA-core peak."""
+    from repro_torch.core.hw import DATAFLOW_NAMES
+    from repro_torch.dispatch.executor import _clamped_blocks
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
+    timer = Timer(torch, reps=5)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    ok = True
+    for site, pas, M, K, N, at, bt in train_gemm_cases(cfg):
+        a = torch.randn((K, M) if at else (M, K), generator=gen,
+                        device="cuda")
+        a = a.t() if at else a
+        b = torch.randn((N, K) if bt else (K, N), generator=gen,
+                        device="cuda") * (1.0 / math.sqrt(K))
+        b = b.t() if bt else b
+        c = dispatcher.recommend(M, K, N)
+        _, _, bk = _clamped_blocks(c, M, K, N)
+        mode = c.mode
+
+        def kernel():
+            return rsa_gemm_cuda(a, b, block_k=bk, mode=mode)
+        out = kernel()
+        plain = rsa_gemm_plain(a, b, block_k=bk, mode=mode)
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        tol = gemm_tolerance(torch, a, b, plain, mode, bk, True)
+        good = err <= tol and math.isfinite(err)
+        ok &= good
+        b_ms, b_by = bound_ms(4.0 * (M * K + K * N + M * N),
+                              2.0 * M * N * K, PEAK_F32_FLOPS)
+        rec = {"site": site, "pass": pas, "M": M, "K": K, "N": N,
+               "a_transposed": at, "b_transposed": bt, "bk": bk,
+               "mode": DATAFLOW_NAMES[mode], "max_abs_err": err, "tol": tol,
+               "ok": good, "ms": timer(kernel),
+               "plain_ms": timer(lambda: rsa_gemm_plain(a, b, block_k=bk,
+                                                        mode=mode)),
+               "library_ms": timer(lambda: torch.matmul(a, b)),
+               "bound_ms": b_ms, "bound_by": b_by, "key": (M, K, N, mode)}
+        report["train_gemm"].append(rec)
+        log(f"  rsa_gemm train {site:<8} {pas:<3} {M}x{K}x{N} {rec['mode']} "
+            f"bk={bk} f32{' A^T' if at else ''}{' B^T' if bt else ''}: "
+            f"max_abs_err {err:.3e} (tol {tol:.3e}) "
+            f"{'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms plain "
+            f"{rec['plain_ms']:.4f} ms matmul {rec['library_ms']:.4f} ms "
+            f"bound {rec['bound_ms']:.4f} ms")
+        del a, b, out, plain
+    torch.cuda.empty_cache()
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1291,6 +1525,166 @@ def deepseek_path(torch, report, timer, dispatcher):
     return ok and good and g_ok, counts, gemm_keys
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the training path
+# ---------------------------------------------------------------------------
+
+def _state_leaves(tree):
+    """Leaves of nested dicts and named tuples, in a fixed order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _state_leaves(tree[k])
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _state_leaves(v)
+    else:
+        yield tree
+
+
+def train_path(torch, report):
+    """``train_main`` on full-width llama3.2-1b (optimized profile), f32,
+    batch 2 x 1024, 4 steps, every kernel launched and counted; then the
+    checkpoint round trip, and a second ``train_main`` from the same init
+    and data for one step on the plain versions (``execute="torch"``)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.launch.steps import ShapeSpec, model_flops_estimate
+    from repro_torch.launch.train import train_main
+
+    cfg = get_arch("llama3.2-1b", optimized=True)
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.time()
+    params, history, driver = train_main(
+        override_cfg=cfg, preset="full", steps=TRAIN_STEPS,
+        global_batch=TRAIN_B, seq_len=TRAIN_S, checkpoint_dir=str(ckpt),
+        checkpoint_every=10 * TRAIN_STEPS, lr=1e-3, log_every=1, seed=0,
+        execute="kernel", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    keys = dict(rsa_gemm_cuda.launches_by_key)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        opt_state_dtype="float32")
+    flops = model_flops_estimate(cfg32, params, ShapeSpec(
+        "train", TRAIN_S, TRAIN_B, "train"))
+    losses = [h["loss"] for h in history]
+    step_s = [e.seconds for e in driver.events]
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    chunks = -(-TRAIN_S // cfg.loss_chunk)      # loss chunks a step
+    # under remat each forward GEMM runs twice (forward, recompute) and
+    # has two gradient GEMMs; each layer's flash forward runs twice
+    expect = {"rsa_gemm": 4 * (7 * cfg.num_layers + chunks),
+              "flash_fwd": 2 * cfg.num_layers, "flash_dq": cfg.num_layers,
+              "flash_dkv": cfg.num_layers}
+
+    # the final checkpoint, restored and compared leaf for leaf
+    state = {"params": params, "opt": driver.opt_state}
+    t1 = time.time()
+    latest, restored, _ = CheckpointManager(ckpt).restore(state)
+    ckpt_same = all(torch.equal(a, b) for a, b in zip(
+        _state_leaves(restored), _state_leaves(state)))
+    n_leaves = sum(1 for _ in _state_leaves(state))
+    restore_s = time.time() - t1
+    del state, restored, params, driver.opt_state
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # a second run from the same init and data, one step, on the plain
+    # versions
+    ops.reset_counts()
+    _, plain_hist, plain_driver = train_main(
+        override_cfg=cfg, preset="full", steps=1, global_batch=TRAIN_B,
+        seq_len=TRAIN_S, checkpoint_dir=str(ckpt), checkpoint_every=10,
+        lr=1e-3, log_every=0, seed=0, execute="torch", device="cuda")
+    plain_loss = plain_hist[0]["loss"]
+    plain_gn = plain_hist[0]["grad_norm"]
+    plain_counts = ops.launch_counts()
+    del plain_driver
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    loss_err = abs(history[0]["loss"] - plain_loss) / abs(plain_loss)
+    gn_err = abs(history[0]["grad_norm"] - plain_gn) / abs(plain_gn)
+    med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    tokens_per_step = TRAIN_B * TRAIN_S
+    finite = all(math.isfinite(x) for x in losses)
+    ok = (driver.restarts == 0 and finite and losses[-1] < losses[0]
+          and len(history) == TRAIN_STEPS and counts["plain_calls"] == 0
+          and all(counts[k] > 0 for k in expect) and ckpt_same
+          and latest == TRAIN_STEPS and loss_err <= 1e-5 and gn_err <= 1e-4
+          and plain_counts["plain_calls"] > 0
+          and sum(v for k, v in plain_counts.items()
+                  if k != "plain_calls") == 0)
+    report["train_path"] = {
+        "arch": cfg.name, "dtype": "float32", "batch": TRAIN_B,
+        "seq": TRAIN_S, "steps": TRAIN_STEPS, "wall_s": wall,
+        "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
+        "restarts": driver.restarts, "counts": counts,
+        "launches_per_step": per_step, "expected_per_step": expect,
+        "gemm_launches_by_shape": {
+            f"{k[0]}x{k[1]}x{k[2]}:{k[3]}": v for k, v in keys.items()},
+        "step_s": step_s, "median_step_s": med,
+        "tokens_per_s": tokens_per_step / med,
+        "model_flops_per_step": flops,
+        "model_flops_share_f32_peak": flops / med / PEAK_F32_FLOPS,
+        "peak_memory_gb": peak_gb, "checkpoint_step": latest,
+        "checkpoint_leaves": n_leaves, "checkpoint_identical": ckpt_same,
+        "checkpoint_restore_s": restore_s,
+        "plain_step1_loss": plain_loss, "plain_step1_grad_norm": plain_gn,
+        "step1_loss_rel_err": loss_err, "step1_grad_norm_rel_err": gn_err,
+        "plain_counts": plain_counts}
+    log(f"  trained {len(history)} steps in {wall:.2f} s (wall, with two "
+        f"checkpoints), restarts {driver.restarts}, losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  launches: {json.dumps(counts)}")
+    log("  launches per step: " + ", ".join(
+        f"{k} {per_step[k]:.1f} (expected {v})" for k, v in expect.items())
+        + f", plain_calls {counts['plain_calls']}")
+    log(f"  step {1e3 * med:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{tokens_per_step / med:.1f} tokens/s, model FLOPs "
+        f"{flops / 1e12:.2f} TFLOP a step = "
+        f"{100 * flops / med / PEAK_F32_FLOPS:.2f}% of the f32 CUDA-core "
+        f"peak (67 TFLOP/s); peak memory {peak_gb:.1f} GB")
+    log(f"  checkpoint: step {latest}, {n_leaves} leaves restored "
+        f"{'identical' if ckpt_same else 'DIFFERENT'} in {restore_s:.1f} s")
+    log(f"  step 1 vs plain versions: loss {history[0]['loss']:.6f} vs "
+        f"{plain_loss:.6f} (rel {loss_err:.2e}, tol 1e-5), grad_norm "
+        f"{history[0]['grad_norm']:.6f} vs {plain_gn:.6f} (rel "
+        f"{gn_err:.2e}, tol 1e-4)")
+    if not ok:
+        log("  TRAIN PATH FAIL")
+    return ok, counts, keys
+
+
+def train_breakdown(report, keys, counts):
+    """Kernel time of one train step, estimated as each GEMM shape's and
+    flash kernel's phase-3 time times its launches a step, beside the
+    measured step time."""
+    tp = report["train_path"]
+    gemm = {r["key"]: r["ms"] for r in report["train_gemm"]}
+    flash = next(r for r in report["flash"] if r["main"])["timed"]
+    est = {"gemm": sum(gemm.get(k, 0.0) * n for k, n in keys.items())
+           / TRAIN_STEPS,
+           **{k: flash[k]["ms"] * counts[k] / TRAIN_STEPS for k in flash}}
+    untimed = sorted(f"{k[0]}x{k[1]}x{k[2]}:{k[3]}" for k in keys
+                     if k not in gemm)
+    step_ms = 1e3 * tp["median_step_s"]
+    total = sum(est.values())
+    tp["kernel_ms_per_step_est"] = est
+    tp["kernel_share_est"] = total / step_ms
+    tp["untimed_gemm_shapes"] = untimed
+    log(f"  per step: {step_ms:.1f} ms wall, {total:.1f} ms of it in kernels"
+        f" (estimate, {100 * total / step_ms:.0f}%): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in est.items())
+        + (f"; untimed GEMM shapes {untimed}" if untimed else ""))
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1375,14 +1769,36 @@ def time_breakdown(report, path, gemm_keys, counts):
     mp["time_breakdown"] = out
 
 
-def kernel_table(report, gemm_keys, counts, ds_keys):
+def kernel_table(report, gemm_keys, counts, ds_keys, train_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
     ``counts`` holds each kernel's launches on the path that runs it
     (phase 4 for the GEMM, decode and prefill, phase 5 for the cascade
-    kernels, phase 6 for the MLA kernels); ``ds_keys`` phase 6's GEMM
-    launches by shape (its 2-D shapes and its banks)."""
+    kernels, phase 6 for the MLA kernels, phase 7 for the flash kernels);
+    ``ds_keys`` phase 6's GEMM launches by shape (its 2-D shapes and its
+    banks), ``train_keys`` phase 7's."""
     out = []
     gemm_src = "src/repro_torch/kernels/csrc/rsa_gemm.cu"
+    for rec in report["flash"]:
+        if not rec["main"]:
+            continue
+        for name, t in rec["timed"].items():
+            out.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+                "replaces": FLASH_TPU[name], "launches": counts[name],
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
+    for rec in report["train_gemm"]:
+        out.append({
+            "name": f"rsa_gemm[train {rec['site']} {rec['pass']} {rec['M']}x"
+                    f"{rec['K']}x{rec['N']} {rec['mode']} f32]",
+            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
+            "launches": train_keys.get(rec["key"], 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     for rec in report["ds_gemm"]:
         out.append({
             "name": f"rsa_gemm[deepseek {rec['M']}x{rec['K']}x{rec['N']} "
@@ -1454,7 +1870,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"gemm": [], "paged": [], "bank": [], "mla": []}
+    report = {"gemm": [], "paged": [], "bank": [], "mla": [], "flash": [],
+              "train_gemm": []}
     t_start = time.time()
 
     log("== 1. environment")
@@ -1497,6 +1914,8 @@ def main() -> int:
         ok &= check_cascade(torch, report, timer, cfg)
         ok &= check_mla(torch, report, timer, dcfg)
         ok &= check_banks(torch, report, timer, dcfg, dispatcher)
+        ok &= check_flash(torch, report, timer, cfg)
+        ok &= check_train_gemms(torch, report, cfg, dispatcher)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -1519,10 +1938,20 @@ def main() -> int:
                                               dispatcher)
     ok &= ds_ok
     deepseek_breakdown(report, ds_keys, ds_counts)
+    torch.cuda.empty_cache()
+
+    log("== 7. training path: llama3.2-1b full width, f32, flash attention,"
+        f" {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens")
+    tr_ok, tr_counts, tr_keys = train_path(torch, report)
+    ok &= tr_ok
+    train_breakdown(report, tr_keys, tr_counts)
     counts = dict(counts, paged_decode_lse=cp_counts["paged_decode_lse"],
                   paged_prefix=cp_counts["paged_prefix"],
                   paged_mla_decode=ds_counts["paged_mla_decode"],
-                  paged_mla_prefill=ds_counts["paged_mla_prefill"])
+                  paged_mla_prefill=ds_counts["paged_mla_prefill"],
+                  flash_fwd=tr_counts["flash_fwd"],
+                  flash_dq=tr_counts["flash_dq"],
+                  flash_dkv=tr_counts["flash_dkv"])
 
     report["ok"] = bool(ok)
     report["seconds"] = time.time() - t_start
@@ -1535,7 +1964,7 @@ def main() -> int:
         return 1
     log(f"== done in {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernel_table(report, gemm_keys, counts,
-                                              ds_keys)}))
+                                              ds_keys, tr_keys)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

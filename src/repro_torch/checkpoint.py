@@ -1,19 +1,27 @@
-"""Weights carried across from the reference's checkpoints.
+"""Checkpoints in the reference's format, read and written.
 
 ``repro/checkpoint/manager.py`` writes one directory per step,
 ``step_<8 digits>/{manifest.json, data.npz}``, with every leaf under its
 ``/``-joined tree path (``layers/attn/wq`` is the (L, d, q_dim) stack of
-every layer's query weight).  :func:`load_checkpoint` reads that layout
-with numpy alone, and :func:`params_from_numpy` turns the flat leaves into
-the port's parameter dict for a config, so both packages can run on the
-same weights.
+every layer's query weight; a named tuple's fields by name, so a training
+state saves as ``params/...``, ``opt/step``, ``opt/m/...``, ``opt/v/...``).
+:func:`load_checkpoint` reads that layout with numpy alone, and
+:func:`params_from_numpy` turns the flat leaves into the port's parameter
+dict for a config, so both packages can run on the same weights.
+:class:`CheckpointManager` writes it (atomic rename, ``keep`` newest
+steps, optional save on a writer thread) and restores into a tree of
+tensors, so each package restores what the other saved.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import threading
+import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,3 +165,125 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
             node = node.setdefault(p, {})
         node[leaf] = _to_tensor(a, _leaf_dtype(key, cfg), device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# the manager: save and restore trees of tensors
+# ---------------------------------------------------------------------------
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` that nothing else aliases (the caller may update
+    ``t`` in place while a writer thread saves the copy).  bfloat16 leaves
+    become raw 2-byte records, as numpy saves the reference's."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Tuple[np.ndarray, str]]:
+    """{path: (host array, dtype name)} over nested dicts and named
+    tuples, keyed as the reference's ``_flatten`` keys them."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    else:
+        name = str(tree.dtype).replace("torch.", "")
+        return {prefix[:-1]: (_host(tree), name)}
+    flat = {}
+    for k, v in items:
+        flat.update(_flatten(v, f"{prefix}{k}/"))
+    return flat
+
+
+def _unflatten(target, flat: Dict[str, np.ndarray], prefix: str = ""):
+    """``target``'s structure with each leaf read from ``flat`` in the
+    leaf's dtype on the leaf's device."""
+    if isinstance(target, dict):
+        return {k: _unflatten(v, flat, f"{prefix}{k}/")
+                for k, v in target.items()}
+    if isinstance(target, tuple) and hasattr(target, "_fields"):
+        return type(target)(*(_unflatten(v, flat, f"{prefix}{k}/")
+                              for k, v in zip(target._fields, target)))
+    key = prefix[:-1]
+    if key not in flat:
+        raise KeyError(f"checkpoint missing {key}")
+    return _to_tensor(flat[key], target.dtype, target.device)
+
+
+class CheckpointManager:
+    """The reference's ``CheckpointManager`` on trees of tensors."""
+
+    def __init__(self, directory, keep: int = 3):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._lock = threading.Lock()
+        self._pending: Optional[threading.Thread] = None
+
+    def _step_dir(self, step: int) -> Path:
+        return self.dir / f"step_{step:08d}"
+
+    def steps(self):
+        return _steps(self.dir)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def save(self, step: int, tree: Any, metadata: Optional[dict] = None,
+             blocking: bool = True) -> None:
+        # every leaf is copied to the host here, on the calling thread
+        flat = _flatten(tree)
+
+        def _write():
+            with self._lock:
+                tmp = self.dir / f".tmp_step_{step:08d}_{os.getpid()}"
+                if tmp.exists():
+                    shutil.rmtree(tmp)
+                tmp.mkdir(parents=True)
+                np.savez(tmp / "data.npz", **{k: a for k, (a, _) in
+                                              flat.items()})
+                manifest = {
+                    "step": step,
+                    "time": time.time(),
+                    "keys": sorted(flat),
+                    "shapes": {k: list(a.shape) for k, (a, _) in
+                               flat.items()},
+                    "dtypes": {k: d for k, (_, d) in flat.items()},
+                    "metadata": metadata or {},
+                }
+                (tmp / "manifest.json").write_text(json.dumps(manifest))
+                final = self._step_dir(step)
+                if final.exists():
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                self._gc()
+
+        if blocking:
+            _write()
+        else:
+            self.wait()
+            self._pending = threading.Thread(target=_write, daemon=True)
+            self._pending.start()
+
+    def wait(self):
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def _gc(self):
+        for s in self.steps()[:-self.keep]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    def restore_flat(self, step: Optional[int] = None
+                     ) -> Tuple[int, Dict[str, np.ndarray], dict]:
+        return load_checkpoint(self.dir, step)
+
+    def restore(self, target_tree: Any, step: Optional[int] = None
+                ) -> Tuple[int, Any, dict]:
+        """Restore into the structure, dtypes and devices of
+        ``target_tree``."""
+        step, flat, meta = self.restore_flat(step)
+        return step, _unflatten(target_tree, flat), meta

@@ -13,15 +13,23 @@ tensors, the plain PyTorch version for CPU tensors or under
 ``w`` may be a transposed view of a row-major (N, K) matrix (the tied
 unembedding ``embed.T``); the kernel reads it in place, with no copy.
 
+A 2-D GEMM whose operands need a gradient runs through ``_Gemm2d``, the
+counterpart of the reference's custom VJP (``_pallas_gemm2d``): its
+backward runs dx = dy @ w^T and dw = x^T @ dy through the same RSA GEMM,
+each with its own recommended tile, resolved in the forward (as the
+reference resolves them at trace time) and kept with the backend, so a
+backward that runs outside the ``dispatch.use`` block still follows the
+forward's policy.  The registry records the forward site only.
+
 Expert banks (``w`` of shape (E, K, N) against ``x`` (..., E, C, K)) are
 recommended at M = rows per bank GEMM and run as ONE bank launch of the
 RSA kernel, the counterpart of the reference's ``vmap`` of the Pallas
 kernel over the bank (``repro/dispatch/executor.py::_gemm_experts``).
 ``backend="torch"`` pins a site to the plain product (``torch.matmul``),
 the counterpart of the reference's ``backend="xla"``: the MoE router uses
-it so that its top-k decision does not depend on the execution mode.  The
-gradient GEMMs of the reference's custom VJP are not ported: serving
-needs none.
+it so that its top-k decision does not depend on the execution mode.  A
+bank GEMM whose operands need a gradient raises: MoE/MLA training is
+queued (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -62,12 +70,38 @@ def _record(policy, site: str, M: int, K: int, N: int, backend: str):
     return tile
 
 
-def _run(x2, w, tile, pinned: bool, out_dtype):
-    from repro_torch.kernels import ops
-    if pinned:
-        return torch.matmul(x2, w).to(out_dtype or x2.dtype)
-    return ops.rsa_gemm(x2, w, block_m=tile[0], block_n=tile[1],
-                        block_k=tile[2], mode=tile[3], out_dtype=out_dtype)
+def _run(a, b, tile, backend: str, out_dtype):
+    """One RSA GEMM on ``backend``: the CUDA kernel or its plain version."""
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
+    fn = rsa_gemm_plain if backend == "torch" else rsa_gemm_cuda
+    return fn(a, b, block_k=tile[2], mode=tile[3], out_dtype=out_dtype)
+
+
+class _Gemm2d(torch.autograd.Function):
+    """(M, K) @ (K, N) through the RSA GEMM, differentiable: dx and dw run
+    through the same kernel, each with its own tile, cast to the operands'
+    types as the reference's ``_pallas_gemm2d_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x2, w, tile, dx_tile, dw_tile, backend, out_dtype):
+        ctx.save_for_backward(x2, w)
+        ctx.args = (dx_tile, dw_tile, backend)
+        return _run(x2, w, tile, backend, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        dx_tile, dw_tile, backend = ctx.args
+        dy = dy.contiguous()
+        a, b = x2, w
+        if dy.dtype != x2.dtype:   # f32 output of bf16 operands
+            a, b = x2.float(), w.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _run(dy, b.t(), dx_tile, backend, None).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _run(a.t(), dy, dw_tile, backend, None).to(w.dtype)
+        return dx, dw, None, None, None, None, None
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
@@ -104,7 +138,18 @@ def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
         raise ValueError(f"gemm shape mismatch: x {tuple(x.shape)} @ "
                          f"w {tuple(w.shape)}")
     tile = _record(policy, site, M, K, N, exec_backend)
-    out = _run(x.reshape(M, K), w, tile, pinned, out_dtype)
+    x2 = x.reshape(M, K)
+    if pinned:
+        out = torch.matmul(x2, w).to(out_dtype or x2.dtype)
+    elif torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        # the gradient GEMMs' own recommendations: dx is an (M, N) x (N, K)
+        # GEMM, dw a (K, M) x (M, N) one
+        _, dx_tile = _resolved_tile(policy, M, N, K)
+        _, dw_tile = _resolved_tile(policy, K, M, N)
+        out = _Gemm2d.apply(x2, w, tile, dx_tile, dw_tile, exec_backend,
+                            out_dtype)
+    else:
+        out = _run(x2, w, tile, exec_backend, out_dtype)
     return out.reshape(tuple(x.shape[:-1]) + (N,))
 
 
@@ -117,12 +162,18 @@ def _gemm_bank(x, w, site: str, policy, exec_backend: str, pinned: bool,
     if x.dim() < 3 or int(x.shape[-3]) != E or int(x.shape[-1]) != K:
         raise ValueError(f"expert gemm shape mismatch: x {tuple(x.shape)} "
                          f"vs w {tuple(w.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "the gradient of a bank GEMM (MoE/MLA training) is not ported "
+            "yet (ROADMAP queue 1)")
     C = int(x.shape[-2])
     lead = tuple(x.shape[:-3])
     B = math.prod(lead)
     M = B * C                                # rows per bank GEMM
     tile = _record(policy, site, M, K, N, exec_backend)
     xe = x.reshape(B, E, C, K).transpose(0, 1).reshape(E, M, K)
-    out = _run(xe.contiguous(), w, tile, pinned, out_dtype)    # (E, M, N)
+    xe = xe.contiguous()
+    out = torch.matmul(xe, w).to(out_dtype or xe.dtype) if pinned else \
+        _run(xe, w, tile, exec_backend, out_dtype)              # (E, M, N)
     out = out.reshape(E, B, C, N).transpose(0, 1)
     return out.reshape(lead + (E, C, N))

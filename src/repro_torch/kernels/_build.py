@@ -31,7 +31,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signature of every exported launch function, per library
 SIGNATURES = {
     "rsa_gemm": {
-        "rsa_gemm_launch": [_I, _I, _I, _I, _P, _LL, _P, _LL, _P,
+        "rsa_gemm_launch": [_I, _I, _I, _I, _I, _P, _LL, _P, _LL, _P,
                             _I, _I, _I, _I, _I, _I, _I,
                             _I, _LL, _LL, _LL, _P],
     },
@@ -51,6 +51,11 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _F, _P],
         "paged_mla_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_attn": {
+        "flash_fwd_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
+        "flash_dq_launch": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
+        "flash_dkv_launch": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
     },
 }
 

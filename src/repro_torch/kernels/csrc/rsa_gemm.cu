@@ -10,9 +10,11 @@
 // (M = 512) the larger projections approach the tensor-core rate.  The
 // design keeps one owner per output sub-tile (no atomics, no dependence on
 // scheduling), reads B in place (row-major (K, N) or the transpose of a
-// row-major (N, K), so the tied unembedding needs no copy), masks ragged
-// edges instead of padding, and spreads the swept dimension across CTAs so
-// a single M tile still covers the card.  bf16 operands run on the tensor
+// row-major (N, K), so the tied unembedding needs no copy) and A likewise
+// (row-major (M, K) or the transpose of a row-major (K, M): the weight
+// gradient x^T @ dy reads x in place), masks ragged edges instead of
+// padding, and spreads the swept dimension across CTAs so a single M tile
+// still covers the card.  bf16 operands run on the tensor
 // cores (WMMA 16x16x16, f32 accumulation); f32 operands run on CUDA-core
 // FMAs in full f32.  It is a first, simple kernel: no TMA, no wgmma, no
 // software pipelining.
@@ -120,6 +122,18 @@ __device__ void load_tile_t(T* dst, int ldd, const T* __restrict__ srcT, long lo
   }
 }
 
+// A tile (rows of M x cols of K): row-major, or (AT) the transpose of a
+// row-major (K, M) matrix, read along m.
+template <typename T, bool AT>
+__device__ __forceinline__ void load_a(T* dst, int ldd, const T* __restrict__ A, long long lda,
+                                       int m0, int k0, int rows, int cols, int M, int K,
+                                       bool vec) {
+  if (AT)
+    load_tile_t(dst, ldd, A, lda, m0, k0, rows, cols, M, K, vec);
+  else
+    load_tile(dst, ldd, A, lda, m0, k0, rows, cols, M, K, vec);
+}
+
 template <typename T, bool BT>
 __device__ __forceinline__ void load_b(T* dst, int ldd, const T* __restrict__ B, long long ldb,
                                        int k0, int n0, int rows, int cols, int K, int N,
@@ -220,7 +234,7 @@ template <typename T> struct Tiles {
   static constexpr int IS_M = 16, IS_N = 64;
 };
 
-template <typename T, typename TO, bool BT>
+template <typename T, typename TO, bool AT, bool BT>
 __global__ void __launch_bounds__(NT)
 rsa_os_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
               TO* __restrict__ C, int M, int N, int K, int vec_a, int vec_b, long long sa,
@@ -236,7 +250,7 @@ rsa_os_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
   Acc<T, TM, TN> acc;
   acc.zero();
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(As, BK + P, A, lda, m0, k0, TM, BK, M, K, vec_a);
+    load_a<T, AT>(As, BK + P, A, lda, m0, k0, TM, BK, M, K, vec_a);
     load_b<T, BT>(Bs, TN + P, B, ldb, k0, n0, BK, TN, K, N, vec_b);
     __syncthreads();
     acc.mma(As, BK + P, Bs, TN + P, BK);
@@ -247,7 +261,7 @@ rsa_os_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
   epilogue<TO, TM, TN>(Cs, TN + 4, C, m0, n0, M, N, false);
 }
 
-template <typename T, typename TO, bool BT>
+template <typename T, typename TO, bool AT, bool BT>
 __global__ void __launch_bounds__(NT)
 rsa_ws_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
               TO* __restrict__ C, int M, int N, int K, int bk, int vec_a, int vec_b,
@@ -271,7 +285,7 @@ rsa_ws_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
       Acc<T, TM, TN> acc;
       acc.zero();
       for (int k0 = 0; k0 < kc; k0 += BK) {
-        load_tile(As, BK + P, A, lda, m0, kb + k0, TM, BK, M, K, vec_a);
+        load_a<T, AT>(As, BK + P, A, lda, m0, kb + k0, TM, BK, M, K, vec_a);
         __syncthreads();
         acc.mma(As, BK + P, Bslab + k0 * (TN + P), TN + P, BK);
         __syncthreads();
@@ -283,7 +297,7 @@ rsa_ws_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
   }
 }
 
-template <typename T, typename TO, bool BT>
+template <typename T, typename TO, bool AT, bool BT>
 __global__ void __launch_bounds__(NT)
 rsa_is_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
               TO* __restrict__ C, int M, int N, int K, int bk, int slab_ld, int vec_a,
@@ -301,7 +315,7 @@ rsa_is_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
   for (int kb = 0; kb < K; kb += bk) {
     const int kc = min(bk, ((K - kb + BK - 1) / BK) * BK);
     __syncthreads();
-    load_tile(Aslab, slab_ld, A, lda, m0, kb, TM, kc, M, K, vec_a);
+    load_a<T, AT>(Aslab, slab_ld, A, lda, m0, kb, TM, kc, M, K, vec_a);
     for (int nt = blockIdx.x; nt < ntiles; nt += gridDim.x) {
       const int n0 = nt * TN;
       Acc<T, TM, TN> acc;
@@ -319,7 +333,7 @@ rsa_is_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
   }
 }
 
-template <typename T, typename TO, bool BT>
+template <typename T, typename TO, bool AT, bool BT>
 int launch(int mode, const void* A, long long lda, const void* B, long long ldb, void* C,
            int M, int N, int K, int bk, int num_sms, int vec_a, int vec_b, int E,
            long long sa, long long sb, long long sc, cudaStream_t stream) {
@@ -333,28 +347,28 @@ int launch(int mode, const void* A, long long lda, const void* B, long long ldb,
   const int chunk_rows = min(bk, cdiv(K, BK) * BK);
   if (mode == 0) {
     dim3 grid(cdiv(N, Ti::OS_N), cdiv(M, Ti::OS_M), E);
-    rsa_os_kernel<T, TO, BT><<<grid, NT, 0, stream>>>(a, lda, b, ldb, c, M, N, K, vec_a, vec_b,
+    rsa_os_kernel<T, TO, AT, BT><<<grid, NT, 0, stream>>>(a, lda, b, ldb, c, M, N, K, vec_a, vec_b,
                                                       sa, sb, sc);
   } else if (mode == 1) {
     const int ntiles = cdiv(N, Ti::WS_N), mtiles = cdiv(M, Ti::WS_M);
     const int msplit = max(1, min(mtiles, cdiv(target, ntiles)));
     const size_t dyn = (size_t)chunk_rows * (Ti::WS_N + Ti::P) * sizeof(T) + 128;
-    cudaError_t e = cudaFuncSetAttribute(rsa_ws_kernel<T, TO, BT>,
+    cudaError_t e = cudaFuncSetAttribute(rsa_ws_kernel<T, TO, AT, BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
     dim3 grid(ntiles, msplit, E);
-    rsa_ws_kernel<T, TO, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, vec_a,
+    rsa_ws_kernel<T, TO, AT, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, vec_a,
                                                         vec_b, sa, sb, sc);
   } else if (mode == 2) {
     const int ntiles = cdiv(N, Ti::IS_N), mtiles = cdiv(M, Ti::IS_M);
     const int nsplit = max(1, min(ntiles, cdiv(target, mtiles)));
     const int slab_ld = chunk_rows + Ti::P;
     const size_t dyn = (size_t)Ti::IS_M * slab_ld * sizeof(T) + 128;
-    cudaError_t e = cudaFuncSetAttribute(rsa_is_kernel<T, TO, BT>,
+    cudaError_t e = cudaFuncSetAttribute(rsa_is_kernel<T, TO, AT, BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
     dim3 grid(nsplit, mtiles, E);
-    rsa_is_kernel<T, TO, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, slab_ld,
+    rsa_is_kernel<T, TO, AT, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, slab_ld,
                                                         vec_a, vec_b, sa, sb, sc);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -363,25 +377,30 @@ int launch(int mode, const void* A, long long lda, const void* B, long long ldb,
 }
 
 template <typename T, typename TO>
-int launch_bt(int b_trans, int mode, const void* A, long long lda, const void* B, long long ldb,
-              void* C, int M, int N, int K, int bk, int num_sms, int vec_a, int vec_b, int E,
-              long long sa, long long sb, long long sc, cudaStream_t stream) {
-  if (b_trans)
-    return launch<T, TO, true>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b, E,
-                               sa, sb, sc, stream);
-  return launch<T, TO, false>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b, E,
-                              sa, sb, sc, stream);
+int launch_t(int a_trans, int b_trans, int mode, const void* A, long long lda, const void* B,
+             long long ldb, void* C, int M, int N, int K, int bk, int num_sms, int vec_a,
+             int vec_b, int E, long long sa, long long sb, long long sc, cudaStream_t stream) {
+#define RSA_LAUNCH(AT, BT)                                                                    \
+  return launch<T, TO, AT, BT>(mode, A, lda, B, ldb, C, M, N, K, bk, num_sms, vec_a, vec_b, E, \
+                               sa, sb, sc, stream)
+  if (a_trans && b_trans) RSA_LAUNCH(true, true);
+  if (a_trans) RSA_LAUNCH(true, false);
+  if (b_trans) RSA_LAUNCH(false, true);
+  RSA_LAUNCH(false, false);
+#undef RSA_LAUNCH
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  mode: 0 = OS, 1 = WS, 2 = IS.
-// B is row-major (K, N) with row stride ldb, or (b_trans) the transpose of
-// a row-major (N, K) matrix with row stride ldb.  C is contiguous (M, N).
-// E >= 1 GEMMs run in one launch, bank e at A + e * sa, B + e * sb and
-// C + e * sc (element strides; C's is M * N for a contiguous (E, M, N)).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int rsa_gemm_launch(int mode, int in_dtype, int out_dtype, int b_trans,
+// A is row-major (M, K) with row stride lda, or (a_trans) the transpose of
+// a row-major (K, M) matrix with row stride lda.  B is row-major (K, N)
+// with row stride ldb, or (b_trans) the transpose of a row-major (N, K)
+// matrix with row stride ldb.  C is contiguous (M, N).  E >= 1 GEMMs run
+// in one launch, bank e at A + e * sa, B + e * sb and C + e * sc (element
+// strides; C's is M * N for a contiguous (E, M, N)).  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int rsa_gemm_launch(int mode, int in_dtype, int out_dtype, int a_trans, int b_trans,
                                const void* A, long long lda, const void* B, long long ldb,
                                void* C, int M, int N, int K, int bk, int num_sms, int vec_a,
                                int vec_b, int E, long long sa, long long sb, long long sc,
@@ -390,13 +409,13 @@ extern "C" int rsa_gemm_launch(int mode, int in_dtype, int out_dtype, int b_tran
   if (bk <= 0 || bk % BK != 0) return (int)cudaErrorInvalidValue;
   if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   if (in_dtype == 0 && out_dtype == 0)
-    return launch_bt<float, float>(b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
-                                   vec_a, vec_b, E, sa, sb, sc, st);
+    return launch_t<float, float>(a_trans, b_trans, mode, A, lda, B, ldb, C, M, N, K, bk,
+                                  num_sms, vec_a, vec_b, E, sa, sb, sc, st);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch_bt<bf16, bf16>(b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
-                                 vec_a, vec_b, E, sa, sb, sc, st);
+    return launch_t<bf16, bf16>(a_trans, b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
+                                vec_a, vec_b, E, sa, sb, sc, st);
   if (in_dtype == 1 && out_dtype == 0)
-    return launch_bt<bf16, float>(b_trans, mode, A, lda, B, ldb, C, M, N, K, bk, num_sms,
-                                  vec_a, vec_b, E, sa, sb, sc, st);
+    return launch_t<bf16, float>(a_trans, b_trans, mode, A, lda, B, ldb, C, M, N, K, bk,
+                                 num_sms, vec_a, vec_b, E, sa, sb, sc, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,325 @@
+"""Flash attention, forward and backward: full-sequence causal or
+bidirectional GQA attention that never writes an (Sq, Skv) score matrix
+to memory.
+
+``flash_fwd_cuda`` / ``flash_dq_cuda`` / ``flash_dkv_cuda`` launch the
+three kernels of ``csrc/flash_attn.cu`` (replacing
+``repro/kernels/flash_attn.py::_flash_fwd`` and the dq and dk/dv
+``pallas_call`` sites of ``::_flash_bwd``); each counts the launches that
+returned no error in its ``.launches`` (an empty problem launches nothing
+and counts nothing).  The kernels take any Sq/Skv and mask the ragged
+edges themselves.
+
+``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` are the
+plain PyTorch versions, used for CPU tensors and as what the kernels are
+held against on the card.  They follow the reference's arithmetic block for block: operands padded to
+(bq, bk) multiples, the same (q-block, kv-block) pair order (``_pairs``:
+i-major for the forward and dq, j-major for dk/dv), masked scores set to
+``NEG = -1e30`` (so a masked column gives p = 0, never NaN), p cast to v's
+type before p @ v, l clamped at 1e-30, ds cast to the operand type before
+ds @ k and ds^T @ q, and per-q-head dk/dv summed over each kv head's group
+of G heads in the output type.  Scores, softmax state and accumulators are
+f32 throughout.
+
+Layouts are the model's: q (B, Sq, H, hd), k (B, Skv, KVH, hd), v (B, Skv,
+KVH, hd_v), o (B, Sq, H, hd_v) in q's type, lse and delta (B, H, Sq) f32.
+H must be a multiple of KVH; a causal mask compares absolute positions
+(column <= row), as the reference's does.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128             # the widest hd / hd_v the kernels' tiles hold
+
+
+def _pairs(n_q: int, n_k: int, bq: int, bk: int, causal: bool,
+           order: str) -> List[Tuple[int, int, bool, bool]]:
+    """(q-block i, kv-block j, start, emit) in the reference's order.
+    Causal keeps the pairs that overlap the lower triangle; in j order a kv
+    block past every q row is visited once, fully masked, so its dk/dv
+    block is written (as zeros)."""
+    def overlap(i: int, j: int) -> bool:
+        return (not causal) or ((i + 1) * bq - 1 >= j * bk)
+
+    if order == "i":
+        ps = [(i, j) for i in range(n_q) for j in range(n_k) if overlap(i, j)]
+        key = 0
+    else:
+        ps = []
+        for j in range(n_k):
+            js = [(i, j) for i in range(n_q) if overlap(i, j)]
+            ps.extend(js if js else [(n_q - 1, j)])
+        key = 1
+    n = len(ps)
+    return [(i, j, t == 0 or ps[t][key] != ps[t - 1][key],
+             t == n - 1 or ps[t][key] != ps[t + 1][key])
+            for t, (i, j) in enumerate(ps)]
+
+
+def _heads_major(x: torch.Tensor, rows: int, G: int = 1) -> torch.Tensor:
+    """(B, S, heads, d) padded to ``rows`` -> (B, heads * G, rows, d), each
+    kv head repeated for its G query heads."""
+    x = F.pad(x, (0, 0, 0, 0, 0, rows - x.shape[1])).transpose(1, 2)
+    return x.repeat_interleave(G, dim=1) if G > 1 else x
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """f32 exp, taken in f64 and rounded: the correctly rounded value the
+    kernels' and the reference's f32 exp approximate to an ulp or two.
+    (torch 2.13's vectorised f32 exp on the CPU has returned values ~1e-4
+    off on its first call in a process.)"""
+    return torch.exp(x.double()).float()
+
+
+def _masked_scores(qb, kb, i, j, bq, bk, kv_len, causal, scale):
+    """f32 (B, H, bq, bk) scores of q-block i against kv-block j, masked
+    to NEG past kv_len and (causal) above the diagonal."""
+    s = (qb.float() @ kb.float().transpose(-1, -2)) * scale
+    row = i * bq + torch.arange(bq, device=s.device)[:, None]
+    col = j * bk + torch.arange(bk, device=s.device)[None, :]
+    m = col < kv_len
+    if causal:
+        m = m & (col <= row)
+    return torch.where(m, s, torch.full_like(s, NEG))
+
+
+def flash_fwd_plain(q, k, v, *, causal: bool, scale: float, bq: int,
+                    bk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o (B, Sq, H, hd_v) in q's type, lse (B, H, Sq) f32)."""
+    flash_fwd_plain.calls += 1
+    B, Sq, H, _ = q.shape
+    Skv, KVH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KVH
+    n_q, n_k = -(-Sq // bq), -(-Skv // bk)
+    qh = _heads_major(q, n_q * bq)
+    kh, vh = _heads_major(k, n_k * bk, G), _heads_major(v, n_k * bk, G)
+    o = torch.empty((B, H, n_q * bq, hd_v), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, n_q * bq), dtype=torch.float32, device=q.device)
+    for i, j, start, emit in _pairs(n_q, n_k, bq, bk, causal, "i"):
+        rows = slice(i * bq, (i + 1) * bq)
+        cols = slice(j * bk, (j + 1) * bk)
+        if start:
+            m = torch.full((B, H, bq), NEG, device=q.device)
+            l = torch.zeros((B, H, bq), device=q.device)
+            acc = torch.zeros((B, H, bq, hd_v), device=q.device)
+        s = _masked_scores(qh[:, :, rows], kh[:, :, cols], i, j, bq, bk, Skv,
+                           causal, scale)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = _exp(s - m_new[..., None])
+        corr = _exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + \
+            p.to(v.dtype).float() @ vh[:, :, cols].float()
+        m = m_new
+        if emit:
+            lc = torch.clamp(l, min=1e-30)
+            o[:, :, rows] = (acc / lc[..., None]).to(q.dtype)
+            lse[:, :, rows] = m + torch.log(lc.double()).float()
+    return o[:, :, :Sq].transpose(1, 2).contiguous(), \
+        lse[:, :, :Sq].contiguous()
+
+
+flash_fwd_plain.calls = 0
+
+
+def _bwd_blocks(q, k, v, do, lse, delta, causal, scale, bq, bk):
+    """The padded, head-major operands of the backward and ``block(i, j)``,
+    which recomputes pair (i, j)'s p = exp(s - lse) and ds = p (dp - delta)
+    * scale as the reference's dq and dk/dv kernels both do."""
+    B, Sq, H, _ = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    n_q, n_k = -(-Sq // bq), -(-Skv // bk)
+    qh, doh = _heads_major(q, n_q * bq), _heads_major(do, n_q * bq)
+    kh, vh = _heads_major(k, n_k * bk, G), _heads_major(v, n_k * bk, G)
+    pad = (0, n_q * bq - Sq)
+    lse_p, delta_p = F.pad(lse, pad), F.pad(delta, pad)
+
+    def block(i, j):
+        rows = slice(i * bq, (i + 1) * bq)
+        cols = slice(j * bk, (j + 1) * bk)
+        s = _masked_scores(qh[:, :, rows], kh[:, :, cols], i, j, bq, bk, Skv,
+                           causal, scale)
+        p = _exp(s - lse_p[:, :, rows, None])
+        do_f = doh[:, :, rows].float()
+        dp = do_f @ vh[:, :, cols].float().transpose(-1, -2)
+        ds = p * (dp - delta_p[:, :, rows, None]) * scale
+        return rows, cols, p, do_f, ds
+
+    return qh, kh, n_q, n_k, block
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                   bq: int, bk: int) -> torch.Tensor:
+    """dq (B, Sq, H, hd) in q's type from the saved lse and delta =
+    rowsum(do * o) (both (B, H, Sq) f32)."""
+    flash_dq_plain.calls += 1
+    B, Sq, H, hd = q.shape
+    _, kh, n_q, n_k, block = _bwd_blocks(q, k, v, do, lse, delta, causal,
+                                         scale, bq, bk)
+    dq = torch.empty((B, H, n_q * bq, hd), dtype=q.dtype, device=q.device)
+    for i, j, start, emit in _pairs(n_q, n_k, bq, bk, causal, "i"):
+        rows, cols, _, _, ds = block(i, j)
+        if start:
+            acc = torch.zeros((B, H, bq, hd), device=q.device)
+        acc = acc + ds.to(k.dtype).float() @ kh[:, :, cols].float()
+        if emit:
+            dq[:, :, rows] = acc.to(q.dtype)
+    return dq[:, :, :Sq].transpose(1, 2).contiguous()
+
+
+flash_dq_plain.calls = 0
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                    bq: int, bk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk (B, Skv, KVH, hd), dv (B, Skv, KVH, hd_v)) in q's type: the
+    per-q-head dk/dv, each in q's type, summed over each kv head's
+    group."""
+    flash_dkv_plain.calls += 1
+    B, Sq, H, hd = q.shape
+    Skv, KVH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KVH
+    qh, _, n_q, n_k, block = _bwd_blocks(q, k, v, do, lse, delta, causal,
+                                         scale, bq, bk)
+    dk = torch.empty((B, H, n_k * bk, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, H, n_k * bk, hd_v), dtype=q.dtype, device=q.device)
+    for i, j, start, emit in _pairs(n_q, n_k, bq, bk, causal, "j"):
+        rows, cols, p, do_f, ds = block(i, j)
+        if start:
+            dk_acc = torch.zeros((B, H, bk, hd), device=q.device)
+            dv_acc = torch.zeros((B, H, bk, hd_v), device=q.device)
+        dv_acc = dv_acc + p.transpose(-1, -2) @ do_f
+        dk_acc = dk_acc + ds.to(q.dtype).float().transpose(-1, -2) @ \
+            qh[:, :, rows].float()
+        if emit:
+            dk[:, :, cols] = dk_acc.to(q.dtype)
+            dv[:, :, cols] = dv_acc.to(q.dtype)
+    dk = dk.reshape(B, KVH, G, n_k * bk, hd).sum(2)
+    dv = dv.reshape(B, KVH, G, n_k * bk, hd_v).sum(2)
+    return (dk[:, :, :Skv].transpose(1, 2).contiguous(),
+            dv[:, :, :Skv].transpose(1, 2).contiguous())
+
+
+flash_dkv_plain.calls = 0
+
+
+def _check(q, k, v, *extra):
+    """Validate what the kernels take; returns (B, Sq, Skv, H, KVH, hd,
+    hd_v)."""
+    ts = (q, k, v) + extra
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("flash kernels need every tensor on q's CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"unsupported dtypes q {q.dtype}, k {k.dtype}, "
+                         f"v {v.dtype}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash kernels need contiguous tensors")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, S, heads, d), got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Skv, KVH, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, Skv, KVH, hd) or v.shape[:3] != (B, Skv, KVH) or \
+            KVH == 0 or H % KVH:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if max(hd, hd_v) > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels hold hd, hd_v <= "
+                         f"{MAX_HEAD_DIM}, got {hd} / {hd_v}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"grid too large: B {B}, H {H}")
+    return B, Sq, Skv, H, KVH, hd, hd_v
+
+
+def _check_stats(lse, delta, B, H, Sq):
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, Sq):
+            raise ValueError(f"{name} must be f32 (B, H, Sq) = "
+                             f"{(B, H, Sq)}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float):
+    """(o, lse) through the CUDA forward kernel."""
+    from repro_torch.kernels import _build
+    B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v)
+    o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if B * Sq * H == 0:
+        return o, lse
+    if Skv == 0:
+        raise ValueError("flash attention needs at least one key")
+    err = _build.library("flash_attn").flash_fwd_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, KVH, hd, hd_v,
+        int(causal), scale, _stream(q))
+    _build.check(err, "flash attention forward")
+    flash_fwd_cuda.launches += 1
+    return o, lse
+
+
+flash_fwd_cuda.launches = 0      # kernel launches that returned no error
+
+
+def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
+    """dq (B, Sq, H, hd) through the CUDA dq kernel."""
+    from repro_torch.kernels import _build
+    B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v, do, lse, delta)
+    if do.shape != (B, Sq, H, hd_v) or do.dtype != q.dtype:
+        raise ValueError(f"do must be {(B, Sq, H, hd_v)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    _check_stats(lse, delta, B, H, Sq)
+    dq = torch.empty_like(q)
+    if B * Sq * H == 0:
+        return dq
+    if Skv == 0:
+        return dq.zero_()
+    err = _build.library("flash_attn").flash_dq_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B,
+        Sq, Skv, H, KVH, hd, hd_v, int(causal), scale, _stream(q))
+    _build.check(err, "flash attention dq")
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+flash_dq_cuda.launches = 0
+
+
+def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
+    """(dk (B, Skv, KVH, hd), dv (B, Skv, KVH, hd_v)) through the CUDA
+    dk/dv kernel, which sums each kv head's G query heads itself."""
+    from repro_torch.kernels import _build
+    B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v, do, lse, delta)
+    if do.shape != (B, Sq, H, hd_v) or do.dtype != q.dtype:
+        raise ValueError(f"do must be {(B, Sq, H, hd_v)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    _check_stats(lse, delta, B, H, Sq)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if B * Skv * KVH == 0:
+        return dk, dv
+    if Sq == 0:
+        return dk.zero_(), dv.zero_()
+    err = _build.library("flash_attn").flash_dkv_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, Sq, Skv, H, KVH, hd, hd_v, int(causal), scale,
+        _stream(q))
+    _build.check(err, "flash attention dk/dv")
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_dkv_cuda.launches = 0

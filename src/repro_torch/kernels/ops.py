@@ -7,7 +7,8 @@ active dispatch policy resolves for the operands (``dispatch.context``:
 tensor under ``"kernel"`` launches the kernel or raises.  The kernel
 functions count their own launches (``launch_counts``), so a run can show
 that it went through the kernels.  Unlike the reference's ``ops``, nothing
-here pads operands to block multiples: the kernels mask ragged edges.
+here pads operands to block multiples: the kernels mask ragged edges (the
+plain flash attention pads, as the reference does).
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels.flash_attn import (
+    flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda, flash_dq_plain,
+    flash_fwd_cuda, flash_fwd_plain)
 from repro_torch.kernels.paged_attn import (
     merge_softmax_states, paged_attention_lse_plain, paged_attention_plain,
     paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_attention_plain,
@@ -146,6 +150,58 @@ def mla_paged_prefill_attention(q_abs, q_rope, ckv_arena, krope_arena,
                                   lengths, scale=scale)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its two backward kernels, the counterpart of
+    the reference's custom VJP (``flash_attention_pallas``).  The forward
+    saves (q, k, v, o, lse); the backward computes delta = rowsum(do * o)
+    as a torch op, as the reference does outside its kernels, then runs
+    dq and dk/dv on the backend the forward ran on."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, backend):
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+        if backend == "torch":
+            o, lse = flash_fwd_plain(q, k, v, causal=causal, scale=scale,
+                                     bq=block_q, bk=block_k)
+        else:
+            o, lse = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, block_q, block_k, backend)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, bq, bk, backend = ctx.args
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        if backend == "torch":
+            blocks = dict(causal=causal, scale=scale, bq=bq, bk=bk)
+            dq = flash_dq_plain(q, k, v, do, lse, delta, **blocks)
+            dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, **blocks)
+        else:
+            dq = flash_dq_cuda(q, k, v, do, lse, delta, causal=causal,
+                               scale=scale)
+            dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
+                                    scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
+                    block_k: int = 512) -> torch.Tensor:
+    """Flash attention with arbitrary Sq/Skv, differentiable (hand-written
+    backward kernels).  q: (B, Sq, H, hd); k: (B, Skv, KVH, hd); v: (B,
+    Skv, KVH, hd_v) -> (B, Sq, H, hd_v); scale hd**-0.5.  ``block_q`` /
+    ``block_k`` are the reference's blocks, clamped to the lengths as
+    there: the plain version computes in those blocks, the kernels in
+    their own tiles."""
+    bq = min(block_q, max(q.shape[1], 1))
+    bk = min(block_k, max(k.shape[1], 1))
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, bq, bk,
+                                 _backend(q))
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches, and calls of the plain versions, since the last
     ``reset_counts``."""
@@ -156,12 +212,17 @@ def launch_counts() -> Dict[str, int]:
             "paged_prefix": paged_prefix_cuda.launches,
             "paged_mla_decode": paged_mla_decode_cuda.launches,
             "paged_mla_prefill": paged_mla_prefill_cuda.launches,
+            "flash_fwd": flash_fwd_cuda.launches,
+            "flash_dq": flash_dq_cuda.launches,
+            "flash_dkv": flash_dkv_cuda.launches,
             "plain_calls": rsa_gemm_plain.calls + paged_attention_plain.calls
             + paged_prefill_attention_plain.calls
             + paged_attention_lse_plain.calls
             + shared_prefix_attention_plain.calls
             + paged_mla_attention_plain.calls
-            + paged_mla_prefill_attention_plain.calls}
+            + paged_mla_prefill_attention_plain.calls
+            + flash_fwd_plain.calls + flash_dq_plain.calls
+            + flash_dkv_plain.calls}
 
 
 def reset_counts() -> None:
@@ -174,6 +235,9 @@ def reset_counts() -> None:
     paged_prefix_cuda.launches = 0
     paged_mla_decode_cuda.launches = 0
     paged_mla_prefill_cuda.launches = 0
+    flash_fwd_cuda.launches = 0
+    flash_dq_cuda.launches = 0
+    flash_dkv_cuda.launches = 0
     rsa_gemm_plain.calls = 0
     paged_attention_plain.calls = 0
     paged_prefill_attention_plain.calls = 0
@@ -181,3 +245,6 @@ def reset_counts() -> None:
     shared_prefix_attention_plain.calls = 0
     paged_mla_attention_plain.calls = 0
     paged_mla_prefill_attention_plain.calls = 0
+    flash_fwd_plain.calls = 0
+    flash_dq_plain.calls = 0
+    flash_dkv_plain.calls = 0

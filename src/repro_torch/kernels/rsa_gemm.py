@@ -15,8 +15,10 @@ rounding, which is part of the function:
       bf16 it shows whenever K > block_k.
 
 ``b`` is either a row-major (K, N) matrix or the transpose of a row-major
-(N, K) one (``w.t()``, as the tied unembedding passes ``embed.t()``); the
-kernel reads either in place.  Neither version pads: the kernel masks the
+(N, K) one (``w.t()``, as the tied unembedding passes ``embed.t()``), and
+``a`` either a row-major (M, K) matrix or the transpose of a row-major
+(K, M) one (the weight gradient ``x.t() @ dy``); the kernel reads each in
+place.  Neither version pads: the kernel masks the
 ragged edges.
 
 Expert banks: with 3-D operands, a (E, M, K) and b (E, K, N), both
@@ -78,14 +80,15 @@ def rsa_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
 rsa_gemm_plain.calls = 0
 
 
-def _b_layout(b: torch.Tensor):
-    """(b_trans, leading dim) of B as the kernel reads it, or raise."""
-    if b.stride(1) == 1:
-        return 0, b.stride(0)
-    if b.stride(0) == 1:
-        return 1, b.stride(1)     # b is the transpose of a row-major (N, K)
-    raise ValueError(f"B must be row-major or the transpose of a row-major "
-                     f"matrix, got strides {b.stride()}")
+def _layout(x: torch.Tensor, name: str):
+    """(transposed, leading dim) of a 2-D operand as the kernel reads it,
+    or raise."""
+    if x.stride(1) == 1:
+        return 0, x.stride(0)
+    if x.stride(0) == 1:
+        return 1, x.stride(1)     # the transpose of a row-major matrix
+    raise ValueError(f"{name} must be row-major or the transpose of a "
+                     f"row-major matrix, got strides {x.stride()}")
 
 
 def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
@@ -113,8 +116,6 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     if block_k % 32 or not 0 < block_k <= MAX_BLOCK_K:
         raise ValueError(f"block_k {block_k} must be a multiple of 32 in "
                          f"(0, {MAX_BLOCK_K}]")
-    if a.stride(-1) != 1:
-        raise ValueError(f"A must be row-major, got strides {a.stride()}")
     E = a.shape[0] if bank else 1
     if E > 65535:
         raise ValueError(f"a bank holds at most 65535 GEMMs, got {E}")
@@ -126,8 +127,8 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
         return out
     if K == 0:
         return out.zero_()
-    b_trans, ldb = _b_layout(b[0] if bank else b)
-    lda = a.stride(-2)
+    a_trans, lda = _layout(a[0] if bank else a, "A")
+    b_trans, ldb = _layout(b[0] if bank else b, "B")
     sa, sb = (a.stride(0), b.stride(0)) if bank else (0, 0)
     vec = 16 // a.element_size()
     vec_a = int(a.data_ptr() % 16 == 0 and lda % vec == 0 and sa % vec == 0)
@@ -136,7 +137,8 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     key = ((E,) if bank else ()) + (M, K, N, mode)
     lib = _build.library("rsa_gemm")
     err = lib.rsa_gemm_launch(
-        mode, _DTYPES[a.dtype], _DTYPES[out_dtype], b_trans, a.data_ptr(),
+        mode, _DTYPES[a.dtype], _DTYPES[out_dtype], a_trans, b_trans,
+        a.data_ptr(),
         lda, b.data_ptr(), ldb, out.data_ptr(), M, N, K, block_k,
         sms, vec_a, vec_b, E, sa, sb, M * N,
         torch.cuda.current_stream(a.device).cuda_stream)

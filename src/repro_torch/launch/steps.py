@@ -1,0 +1,177 @@
+"""Step builders: the train step and the model-FLOPs estimate — the port of
+``repro/launch/steps.py`` for one device (no mesh, no shardings).
+
+The train step takes the value and gradient of ``Model.loss`` with
+autograd (every GEMM's dx/dw and the flash-attention backward run through
+the hand-written kernels under the active dispatch policy), then runs
+``AdamW.update`` and ``apply_updates``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import dispatch
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.api import Model, build_model
+from repro_torch.models.moe import padded_num_experts
+from repro_torch.optim.adamw import AdamW, apply_updates, tree_map
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """A workload shape, as ``repro/configs/shapes.py`` names them."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # "train" | "prefill" | "decode"
+
+
+@contextlib.contextmanager
+def _dispatch_ctx(scope: str, execute: str = "auto",
+                  registry: Optional[dispatch.SiteRegistry] = None):
+    reg = registry if registry is not None else dispatch.default_registry()
+    with dispatch.use(execute=execute, registry=reg), reg.scope(scope):
+        yield reg
+
+
+# ---------------------------------------------------------------------------
+# MODEL_FLOPS (the "useful work" numerator of a model-FLOPs share)
+# ---------------------------------------------------------------------------
+
+def _paths(tree, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _matmul_param_count(cfg: ArchConfig, params) -> Tuple[float, float]:
+    """(N_total_matmul, N_active_matmul): params participating in matmuls.
+
+    Token-embedding gathers are excluded (untied); a tied table is counted
+    once (it runs as the unembed matmul).  MoE expert banks are scaled by
+    top-k/E for the active count.
+    """
+    total = 0.0
+    routed = 0.0
+    for ps, leaf in _paths(params):
+        n = float(leaf.numel())
+        if ps.endswith("embed") and not cfg.tie_embeddings:
+            continue
+        if "moe/w_" in ps or ("moe" in ps and ps.split("/")[-1].startswith("w_")
+                              and "shared" not in ps):
+            routed += n
+        total += n
+    active = total
+    if cfg.moe is not None and routed > 0:
+        frac = cfg.moe.experts_per_token / padded_num_experts(cfg)
+        active = total - routed + routed * frac
+    return total, active
+
+
+def _attention_flops(cfg: ArchConfig, B: int, S: int, kind: str) -> float:
+    """Score+value matmul FLOPs (not covered by 6ND)."""
+    H, hd = cfg.num_heads, cfg.head_dim
+    if cfg.attention_type == "none":
+        return 0.0
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        per_pair = 2 * H * (qk + m.v_head_dim)
+    else:
+        per_pair = 4 * H * hd
+    n_attn_layers = cfg.num_layers
+    if cfg.shared_attn_every:
+        n_attn_layers = cfg.num_layers // cfg.shared_attn_every
+    if kind == "decode":
+        fwd = per_pair * B * S * n_attn_layers
+        if cfg.encoder_layers:
+            fwd += per_pair * B * S * cfg.num_layers        # cross-attn
+        return fwd
+    pairs = B * S * S / 2                                   # causal self
+    fwd = per_pair * pairs * n_attn_layers
+    if cfg.encoder_layers:
+        fwd += per_pair * B * S * S * cfg.encoder_layers    # bidirectional enc
+        fwd += per_pair * B * S * S * cfg.num_layers        # cross: S_dec x S_enc
+    return 3 * fwd if kind == "train" else fwd
+
+
+def _ssm_flops(cfg: ArchConfig, B: int, S: int, kind: str) -> float:
+    """Chunked-scan FLOPs of SSM blocks (not covered by 6ND)."""
+    if cfg.ssm is None:
+        return 0.0
+    s = cfg.ssm
+    n_ssm = cfg.num_layers
+    if cfg.shared_attn_every:                 # hybrid: attn slots replace SSM
+        n_ssm -= cfg.num_layers // cfg.shared_attn_every
+    if s.kind == "mamba2":
+        d_inner = s.expand * cfg.d_model
+        H, P, N = (s.num_heads or d_inner // s.head_dim), s.head_dim, s.state_dim
+        lc = s.chunk
+        if kind == "decode":
+            per_tok = 4.0 * N * H * P
+        else:
+            per_tok = 2.0 * lc * N + 2.0 * lc * H * P + 4.0 * N * H * P
+    else:                                              # rwkv6
+        d = cfg.d_model
+        hd = s.head_dim
+        lc = s.chunk
+        if kind == "decode":
+            per_tok = 4.0 * hd * d
+        else:
+            per_tok = 4.0 * hd * d + 2.0 * lc * d
+    tokens = B * (1 if kind == "decode" else S)
+    fwd = per_tok * tokens * n_ssm
+    return 3.0 * fwd if kind == "train" else fwd
+
+
+def model_flops_estimate(cfg: ArchConfig, params, shape: ShapeSpec) -> float:
+    """6*N_active*D (train) / 2*N_active*D (inference) + attention/SSM
+    FLOPs."""
+    _, n_active = _matmul_param_count(cfg, params)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = B * (1 if shape.kind == "decode" else S)
+    base = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
+    return (base + _attention_flops(cfg, B, S, shape.kind)
+            + _ssm_flops(cfg, B, S, shape.kind))
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+def make_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> AdamW:
+    return AdamW(lr=lr, state_dtype=cfg.opt_state_dtype)
+
+
+def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
+                     device: Optional[str] = None):
+    """(model, train_step, optimizer); ``train_step(params, opt_state,
+    batch) -> (params, opt_state, metrics)`` returns new tensors and
+    leaves its arguments as they were."""
+    model: Model = build_model(cfg, device)
+    opt = make_optimizer(cfg, lr)
+
+    def train_step(params, opt_state, batch):
+        with torch.enable_grad():
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            loss, metrics = model.loss(leaves, batch)
+            loss.backward()
+        grads = tree_map(lambda p: p.grad, leaves)
+        del leaves
+        updates, opt_state, opt_metrics = opt.update(grads, opt_state,
+                                                     params)
+        del grads
+        params = apply_updates(params, updates)
+        metrics = {**{k: v.detach() for k, v in metrics.items()},
+                   **opt_metrics, "loss": loss.detach()}
+        return params, opt_state, metrics
+
+    return model, train_step, opt

@@ -27,7 +27,7 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 class Model:
     """Functional model wrapper over the served paged decoders (dense GQA,
-    MoE with absorbed MLA)."""
+    MoE with absorbed MLA); dense GQA also trains."""
 
     def __init__(self, cfg: ArchConfig, device: Optional[str] = None):
         transformer._check_family(cfg)
@@ -42,6 +42,17 @@ class Model:
 
     def num_params(self, params) -> int:
         return param_count(params)
+
+    # ---- training (dense GQA only) ------------------------------------------
+    def loss(self, params, batch):
+        """(loss, metrics) of ``batch = {"tokens": (B, S + 1) int}``."""
+        return transformer.loss_fn(params, batch, self.cfg)
+
+    def logits(self, params, batch) -> torch.Tensor:
+        return transformer.logits(params, batch, self.cfg)
+
+    def forward(self, params, batch):
+        return transformer.forward(params, batch, self.cfg)
 
     # ---- paged serving (physical KV arena; serving/kv_pool.py) ------------
     def init_paged_arena(self, num_blocks: int, block_size: int):

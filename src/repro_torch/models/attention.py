@@ -1,7 +1,8 @@
-"""Attention through the physically paged KV arena — the paged half of
-``repro/models/attention.py``: GQA (decode, cascade decode and chunked
-prefill) and absorbed MLA (decode and chunked prefill over the latent
-arena).
+"""Attention — the paged half of ``repro/models/attention.py``, GQA
+(decode, cascade decode and chunked prefill) and absorbed MLA (decode and
+chunked prefill over the latent arena) through the physically paged KV
+arena, and full-sequence GQA self-attention for training (no cache),
+through the flash-attention kernels.
 
 The arena write is in place: the chunk's K/V rows go into the flattened
 ``(NB * bs, KVH, hd)`` view of the layer's pages with ``index_copy_``,
@@ -58,6 +59,61 @@ def _proj_qkv(params, x, kv_x, cfg: ArchConfig, compute_dtype,
     k = k.reshape(B, kv_x.shape[1], cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, kv_x.shape[1], cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def multihead_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
+                        chunk: int = 1024, logit_cap: float = 0.0,
+                        causal_skip: bool = False, impl: str = "xla"):
+    """q: (B, Sq, H, hd); k: (B, Skv, KVH, hd); v: (B, Skv, KVH, hd_v).
+
+    ``impl="pallas"`` (the reference's name for its flash-attention
+    kernel) runs the flash-attention kernels for a full-sequence call from
+    position 0 with no logit softcap, in blocks of ``min(chunk, 512)``.
+    Every other call is the reference's blockwise XLA route
+    (``_chunked_attn``: decode, softcap, ``q_offset``/``kv_len`` masks, or
+    ``impl="xla"``), which is not ported yet (ROADMAP queue 1 item 10) and
+    raises; ``causal_skip`` belongs to that route."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if kv_len is None:
+        kv_len = Skv
+    if (impl == "pallas" and logit_cap == 0.0 and isinstance(q_offset, int)
+            and q_offset == 0 and isinstance(kv_len, int) and kv_len == Skv
+            and Sq > 1):
+        from repro_torch.kernels import ops as kops
+        blk = min(chunk, 512)
+        return kops.flash_attention(q, k, v, causal=causal, block_q=blk,
+                                    block_k=blk)
+    raise NotImplementedError(
+        f"attention impl={impl!r} with Sq={Sq}, q_offset={q_offset!r}, "
+        f"kv_len={kv_len!r}, logit_cap={logit_cap}: the blockwise XLA route "
+        f"(_chunked_attn) and the softcap/offset fallbacks are not ported "
+        f"yet (ROADMAP queue 1 item 10); full-sequence attention runs with "
+        f"attn_impl='pallas' (get_arch(..., optimized=True))")
+
+
+def gqa_self_attention(params: Params, x: torch.Tensor,
+                       positions: torch.Tensor, cfg: ArchConfig, *,
+                       cache=None, update_cache: bool = False,
+                       causal: bool = True):
+    """Full-sequence self-attention for training (``cache=None``); the
+    reference's prefill/decode through a dense cache is not ported (the
+    port serves through the paged arena).  Returns (out, None)."""
+    if cache is not None or update_cache:
+        raise NotImplementedError("dense-cache prefill/decode is not ported "
+                                  "(ROADMAP queue 1 item 10); serve through "
+                                  "the paged arena")
+    cdt = dtype_of(cfg.compute_dtype)
+    q, k, v = _proj_qkv(params, x, x, cfg, cdt)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = multihead_attention(q, k, v, causal=causal, q_offset=0,
+                              chunk=cfg.attn_chunk,
+                              logit_cap=cfg.attn_logit_softcap,
+                              causal_skip=cfg.flash_causal_skip,
+                              impl=cfg.attn_impl)
+    B, S = x.shape[0], x.shape[1]
+    return dense(out.reshape(B, S, cfg.q_dim), params["wo"], None, cdt,
+                 site="layer.attn.out"), None
 
 
 def _paged_chunk_rows(tables: torch.Tensor, kv_lens: torch.Tensor,

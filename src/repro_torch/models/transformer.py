@@ -1,7 +1,8 @@
 """Pre-norm decoders: parameters and the paged layer bodies of
 ``repro/models/transformer.py`` for the two served families, dense GQA
 (attention + gated MLP) and MoE with absorbed MLA (deepseek-v3: a leading
-stack of dense-MLP layers, then MoE layers).
+stack of dense-MLP layers, then MoE layers), and the training forward
+pass and loss of the dense GQA family.
 
 Per-layer leaves are stacked on a leading layer axis, as in the reference
 (``layers/attn/wq`` is (L, d, q_dim)); a layer's parameters are views of
@@ -11,26 +12,31 @@ stack, ``dense_layers``, as the reference does.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (gqa_paged_decode,
                                           gqa_paged_prefill,
-                                          gqa_paged_shared_decode, init_gqa,
+                                          gqa_paged_shared_decode,
+                                          gqa_self_attention, init_gqa,
                                           init_mla, mla_paged_decode,
                                           mla_paged_prefill)
 from repro_torch.models.mlp import init_mlp, mlp_apply
 from repro_torch.models.moe import init_moe, moe_apply
-from repro_torch.models.modules import (dense_init, dtype_of, embed_init,
-                                        rmsnorm)
+from repro_torch.models.modules import (dense, dense_init, dtype_of,
+                                        embed_init, rmsnorm)
 
 Params = Dict[str, Any]
 
 
-# the (family, attention) pairs the port serves
+# the (family, attention) pairs the port serves, and those it trains
 SERVED = (("dense", "gqa"), ("moe", "mla"))
+TRAINED = (("dense", "gqa"),)
+
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -41,6 +47,20 @@ def _check_family(cfg: ArchConfig) -> None:
     if cfg.moe is not None and cfg.moe_every != 1:
         raise NotImplementedError("moe_every != 1 (stacks must be "
                                   "homogeneous)")
+
+
+def check_trained_family(cfg: ArchConfig) -> None:
+    """Training (forward, loss, logits) is ported for dense GQA only, with
+    full-sequence attention through the flash kernels."""
+    if (cfg.family, cfg.attention_type) not in TRAINED:
+        raise NotImplementedError(
+            f"the port trains {TRAINED} (family, attention) decoders only, "
+            f"got {cfg.family!r} / {cfg.attention_type!r} (ROADMAP queue 1)")
+    if cfg.attn_impl != "pallas":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r}: the blockwise XLA attention route "
+            f"is not ported yet (ROADMAP queue 1 item 10); train with "
+            f"attn_impl='pallas' (get_arch(..., optimized=True))")
 
 
 def _is_moe_layer(cfg: ArchConfig, layer_idx: int) -> bool:
@@ -173,3 +193,99 @@ def paged_prefill_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
         a = gqa_paged_prefill(p["attn"], h, positions, cfg, k_arena=k_arena,
                               v_arena=v_arena, **paged)
     return _ffn(p, x + a.to(x.dtype), cfg)
+
+
+# ---------------------------------------------------------------------------
+# training forward pass (no cache) and loss
+# ---------------------------------------------------------------------------
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), device=device) for k in AUX_KEYS}
+
+
+def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig):
+    """One dense decoder layer over a full sequence (no cache).  Returns
+    (x, None, aux) as the reference's does (a dense layer's aux is 0)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, _ = gqa_self_attention(p["attn"], h, positions, cfg)
+    x = _ffn(p, x + a.to(x.dtype), cfg)
+    return x, None, _zero_aux(x.device)
+
+
+def _decoder_stack(params: Params, x, positions, cfg: ArchConfig):
+    """The layer loop of the reference's ``_scan_decoder``; with
+    ``cfg.remat`` each layer is checkpointed (its activations recomputed
+    in the backward pass), as ``_maybe_remat`` does."""
+    def body(layer_p, h):
+        return decoder_layer_apply(layer_p, h, positions, cfg)[0]
+
+    for i in range(params["layers"]["ln1"].shape[0]):
+        lp = layer_params(params["layers"], i)
+        x = checkpoint(body, lp, x, use_reentrant=False) if cfg.remat \
+            else body(lp, x)
+    return x
+
+
+def forward(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ArchConfig) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """Training/eval forward (no cache) of a dense decoder.  Returns
+    (hidden (B, S, d) after the final norm, aux, loss mask (B, S)), with S
+    = tokens.shape[1] - 1; logits are not materialised here."""
+    check_trained_family(cfg)
+    tokens = batch["tokens"]
+    x = _embed(params, tokens[:, :-1], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _decoder_stack(params, x, positions, cfg)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    mask = torch.ones(tuple(tokens[:, 1:].shape), dtype=torch.float32,
+                      device=x.device)
+    return x, _zero_aux(x.device), mask
+
+
+def _chunk_loss(h, y, m, w):
+    logits = dense(h, w, None, torch.float32, site="loss.unembed")
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+    return ((lse - gold) * m).sum(), m.sum()
+
+
+def chunked_ce_loss(params: Params, hidden, labels, mask,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """Sequence-chunked cross-entropy: the (B, S, V) logits are never
+    materialised at once, and each chunk's logits are recomputed in the
+    backward pass (checkpointed, as the reference's ``jax.checkpoint``).
+    hidden (B, S, d); labels (B, S) int; mask (B, S)."""
+    w = _unembed_weight(params, cfg)
+    B, S, _ = hidden.shape
+    c = min(cfg.loss_chunk, S)
+    n = -(-S // c)
+    pad = n * c - S
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for i in range(n):
+        rows = slice(i * c, (i + 1) * c)
+        l, k = checkpoint(_chunk_loss, hidden[:, rows], labels[:, rows],
+                          mask[:, rows], w, use_reentrant=False)
+        tot = tot + l
+        cnt = cnt + k
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: Params, batch, cfg: ArchConfig):
+    """(total loss, metrics) as the reference's ``loss_fn`` (a dense model
+    adds no MoE terms)."""
+    hidden, aux, mask = forward(params, batch, cfg)
+    labels = batch["tokens"][:, 1:]
+    loss = chunked_ce_loss(params, hidden, labels, mask, cfg)
+    return loss, {"ce_loss": loss, **aux}
+
+
+def logits(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:
+    """Full (B, S, V) f32 logits, for small-scale evaluation and tests."""
+    hidden, _, _ = forward(params, batch, cfg)
+    return dense(hidden, _unembed_weight(params, cfg), None, torch.float32,
+                 site="unembed")

@@ -1,0 +1,115 @@
+"""AdamW, a cosine schedule and global-norm clipping on nested dicts of
+tensors — the port of ``repro/optim/adamw.py`` with its f32 arithmetic.
+
+Optimizer state is ``AdamWState(step, m, v)``: the step an int32 scalar,
+the moments dicts shaped like the parameters in ``state_dtype``.  Every
+function returns new tensors and leaves its inputs as they were, as the
+reference's pure functions do.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
+
+import torch
+
+from repro_torch.models.modules import dtype_of
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor
+    m: Any
+    v: Any
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """Leaves in the reference's order (dict keys sorted, as jax's)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    min_ratio: float = 0.1) -> Callable:
+    def lr(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        warm = base_lr * step / max(1.0, warmup)
+        t = torch.clamp((step - warmup) / max(1.0, total - warmup), 0, 1)
+        cos = base_lr * (min_ratio + (1 - min_ratio) * 0.5 *
+                         (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+class AdamW:
+    def __init__(self, lr: Union[Callable, float] = 3e-4, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 state_dtype: str = "float32"):
+        self.lr = lr if callable(lr) else \
+            (lambda _: torch.tensor(lr, dtype=torch.float32))
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+        self.state_dtype = dtype_of(state_dtype)
+
+    def init(self, params) -> AdamWState:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=self.state_dtype,
+                               device=p.device)
+        device = tree_leaves(params)[0].device
+        return AdamWState(step=torch.zeros((), dtype=torch.int32,
+                                           device=device),
+                          m=tree_map(zeros, params),
+                          v=tree_map(zeros, params))
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params
+               ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+        step = state.step + 1
+        grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        b1, b2, sd = self.b1, self.b2, self.state_dtype
+        m_new = tree_map(lambda g, m: (b1 * m.float() + (1 - b1) * g.float())
+                         .to(sd), grads, state.m)
+        v_new = tree_map(lambda g, v: (b2 * v.float() + (1 - b2) *
+                                       torch.square(g.float())).to(sd),
+                         grads, state.v)
+        lr = self.lr(step).to(step.device)
+        f32 = dict(dtype=torch.float32, device=step.device)
+        bc1 = 1 - torch.tensor(b1, **f32) ** step.float()
+        bc2 = 1 - torch.tensor(b2, **f32) ** step.float()
+
+        def delta(p, m, v):
+            d = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
+            if p.dim() >= 2:     # decoupled weight decay on matrices only
+                d = d + self.weight_decay * p.float()
+            return (-lr * d).to(p.dtype)
+
+        updates = tree_map(delta, params, m_new, v_new)
+        return updates, AdamWState(step=step, m=m_new, v=v_new), \
+            {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)

@@ -256,3 +256,91 @@ def test_registry_matches_reference_deepseek(step):
     assert {"moe.expert.gate", "moe.expert.up", "moe.expert.down",
             "layer.mla.q_absorb", "layer.mla.v_mix", "moe.router",
             "layer.mlp.gate"} <= set(ours)
+
+
+# ---------------------------------------------------------------------------
+# the GEMM gradient (training)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tied", [False, True], ids=["w", "embed.T"])
+def test_gemm_gradient_matches_pallas_vjp(monkeypatch, tied):
+    """dx and dw of a 2-D GEMM through the port's ``_Gemm2d`` against
+    ``jax.grad`` through the reference's custom VJP (``_pallas_gemm2d``,
+    the RSA Pallas kernel in interpret mode): the same gradients within
+    the f32 summation bound of an f64 product, and each gradient GEMM run
+    with the reference's own recommended tile, dx as (M, N, K) and dw as
+    (K, M, N).  ``tied`` passes w as the transposed view of a row-major
+    (N, K) table, as the tied unembedding passes ``embed.T``."""
+    import jax
+    import jax.numpy as jnp
+    from repro import dispatch as jdispatch
+    from repro_torch.dispatch import executor
+
+    rng = np.random.default_rng(7)
+    M, K, N = 40, 200, 72
+    x = rng.standard_normal((2, M // 2, K)).astype(np.float32)
+    stored = rng.standard_normal((N, K) if tied else (K, N)).astype(
+        np.float32)
+    w = stored.T if tied else stored
+    dy = np.cos(x.reshape(M, K).astype(np.float64) @ w.astype(np.float64))
+
+    def f(x, w):
+        return jnp.sum(jnp.sin(jdispatch.gemm(x, w, site="loss.unembed")))
+
+    with jdispatch.use(JDispatcher(), execute="pallas", interpret=True):
+        jx, jw = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+
+    ran = []
+    real = executor._run
+    monkeypatch.setattr(executor, "_run", lambda a, b, tile, *r:
+                        ran.append((tuple(a.shape), tile)) or
+                        real(a, b, tile, *r))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ts = torch.from_numpy(stored).requires_grad_(True)
+    tw = ts.t() if tied else ts
+    with dispatch.use(SaraDispatcher()):
+        torch.sin(dispatch.gemm(tx, tw, site="loss.unembed")).sum().backward()
+    gw = ts.grad.t() if tied else ts.grad
+    # bound: the summed dimension times 2^-24 times |dy| @ |operand|,
+    # doubled because each package's dy = cos(y) carries its forward's own
+    # f32 rounding of y
+    x2 = np.abs(x.reshape(M, K)).astype(np.float64)
+    bx = N * 2.0 ** -24 * (np.abs(dy) @ np.abs(w.T)) + 1e-30
+    bw = M * 2.0 ** -24 * (x2.T @ np.abs(dy)) + 1e-30
+    dx64 = dy @ w.T.astype(np.float64)
+    dw64 = x.reshape(M, K).T.astype(np.float64) @ dy
+    for got, want, ref, bound in ((tx.grad.numpy().reshape(M, K),
+                                   np.asarray(jx).reshape(M, K), dx64, bx),
+                                  (gw.numpy(), np.asarray(jw), dw64, bw)):
+        assert (np.abs(got - ref) <= 2 * bound).all()
+        assert (np.abs(want - ref) <= 2 * bound).all()
+    disp = JDispatcher()
+    tiles = {shape: tile for shape, tile in ran}
+    for shape, (m, k, n) in (((M, K), (M, K, N)), ((M, N), (M, N, K)),
+                             ((K, M), (K, M, N))):
+        c = disp.recommend(m, k, n)
+        assert tiles[shape] == j_clamped(c, m, k, n) + (c.mode,), shape
+    assert len(ran) == 3
+
+
+def test_gemm_gradient_keeps_the_forward_policy():
+    """The backward runs on the backend and tiles resolved in the forward,
+    even outside the ``dispatch.use`` block; a bank GEMM that needs a
+    gradient raises (MoE/MLA training is queued); the registry records
+    the forward site only."""
+    reg = dispatch.SiteRegistry()
+    x = torch.randn(6, 64, requires_grad=True)
+    w = torch.randn(64, 96, requires_grad=True)
+    with dispatch.use(registry=reg, execute="torch"), reg.scope("train"):
+        y = dispatch.gemm(x, w, site="layer.mlp.up")
+    assert reg.records == 1
+    with dispatch.use(execute="kernel"):   # would raise on CPU tensors
+        y.sum().backward()
+    assert torch.allclose(x.grad, torch.ones(6, 96) @ w.detach().t(),
+                          atol=1e-4)
+    assert torch.allclose(w.grad, x.detach().t() @ torch.ones(6, 96),
+                          atol=1e-4)
+    assert reg.records == 1 and list(reg.sites("train")) == ["layer.mlp.up"]
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        dispatch.gemm(torch.randn(2, 3, 5, 8), torch.randn(3, 8, 4,
+                                                           requires_grad=True))

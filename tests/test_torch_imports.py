@@ -26,6 +26,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.kernels.flash_attn", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline", "repro_torch.runtime.driver",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} <= \
+        set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -84,3 +88,40 @@ def test_engine_refuses_unported_features(field, value):
     with pytest.raises(ValueError):
         ServingEngine(get_arch("llama3.2-1b").reduced(),
                       EngineConfig(**{field: value}), device="cpu")
+
+
+def test_train_entry_point_raises_without_cuda(monkeypatch, tmp_path):
+    from repro_torch.launch.train import train_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(steps=1, log_every=0, checkpoint_dir=str(tmp_path))
+
+
+def test_unported_training_routes_raise(tmp_path):
+    """Training refuses what it has not ported, before the driver (which
+    would retry the error): the blockwise XLA attention route, a mesh,
+    and every family but dense GQA; a bank GEMM under autograd raises."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train_main
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import multihead_attention
+    kw = dict(steps=1, log_every=0, device="cpu",
+              checkpoint_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        train_main(**kw)                     # llama's attn_impl is "xla"
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train_main(data_axis=2, **kw)
+    with pytest.raises(NotImplementedError, match="trains"):
+        train_main(override_cfg=get_arch("deepseek-v3-671b",
+                                         optimized=True), **kw)
+    assert not any(tmp_path.iterdir())       # no checkpoint was written
+    q = torch.zeros(1, 4, 2, 8)
+    for args in (dict(impl="xla"), dict(impl="pallas", q_offset=2),
+                 dict(impl="pallas", logit_cap=30.0),
+                 dict(impl="pallas", kv_len=3)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            multihead_attention(q, q, q, causal=True, **args)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        multihead_attention(q[:, :1], q, q, causal=True, impl="pallas")
+    with pytest.raises(NotImplementedError):
+        transformer.check_trained_family(get_arch("deepseek-v3-671b"))

@@ -13,7 +13,10 @@ cascade kernels' f32 softmax states (m, l) differ from the plain versions'
 by summation order only (1e-4 relative), and their empty rows (a lane of
 length 0, a lane outside the sharing group) are exactly (0, -1e30, 0).
 The bank GEMM is held to the 2-D GEMM's bound and, member by member, to
-the 2-D kernel bitwise; the MLA kernels to the attention tolerances.
+the 2-D kernel bitwise; the MLA kernels to the attention tolerances.  The
+flash kernels are held to the reference's own tolerances for its kernel
+(``tests/test_flash_attn.py``): 2e-6 f32 and 2e-2 bf16 on the forward,
+3e-5 absolute + 1e-3 relative on the gradients.
 """
 
 import math
@@ -317,3 +320,137 @@ def test_reduced_deepseek_steps_match_plain(cuda):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("mode", [OS, WS, IS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_trans", [False, True])
+def test_transposed_a_gemm_matches_plain(cuda, mode, dtype, b_trans):
+    """The weight gradient x^T @ dy reads x (row-major (M, K)) in place as
+    the transposed A, with B row-major or itself transposed."""
+    M, K, N, bk = 300, 70, 136, 128      # the GEMM is (K, M) @ (M, N)
+    x = torch.randn((M, K), generator=cuda, device="cuda").to(dtype)
+    stored = torch.randn((N, M) if b_trans else (M, N), generator=cuda,
+                         device="cuda").to(dtype)
+    dy = stored.t() if b_trans else stored
+    n0 = ops.launch_counts()["rsa_gemm"]
+    got = ops.rsa_gemm(x.t(), dy, block_k=bk, mode=mode)
+    assert ops.launch_counts()["rsa_gemm"] == n0 + 1
+    want = rsa_gemm_plain(x.t(), dy, block_k=bk, mode=mode)
+    tol = M * 2.0 ** -24 * (x.t().abs().float() @ dy.abs().float()
+                            ).max().item()
+    if dtype == torch.bfloat16:
+        chunks = 1 if mode == OS else math.ceil(M / bk)
+        tol += (chunks + 1) * 2.0 ** -8 * want.abs().max().item()
+    assert got.shape == (K, N)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+FLASH_CASES = [
+    # B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk (the reference's cases,
+    # and the training shape's heads at a short length)
+    (2, 256, 256, 4, 2, 64, 64, True, 128, 128),
+    (1, 200, 200, 4, 1, 32, 48, True, 128, 64),
+    (2, 128, 256, 4, 4, 64, 64, False, 64, 128),
+    (1, 300, 300, 2, 2, 64, 64, True, 64, 128),
+    (1, 64, 64, 8, 2, 128, 128, True, 64, 64),
+    (1, 64, 256, 4, 2, 64, 64, True, 64, 64),      # kv past every query
+    (2, 100, 100, 32, 8, 64, 64, True, 512, 512),
+]
+
+
+def _flash_run(gen, case, dtype, execute):
+    B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
+    g = torch.Generator(device="cuda")
+    g.manual_seed(sum(case[:7]))
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               .requires_grad_(True)
+               for shape in ((B, Sq, H, hd), (B, Skv, KVH, hd),
+                             (B, Skv, KVH, hd_v)))
+    with dispatch.use(execute=execute):
+        o = ops.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                block_k=bk)
+        torch.sin(o.float()).sum().backward()
+    return o.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(c[:8]) for c in FLASH_CASES])
+def test_flash_kernels_match_plain(cuda, case):
+    """Forward, dq and dk/dv (through autograd, delta as a torch op) on the
+    kernels against the plain versions, f32; a kv block past every query
+    row gets exactly zero dk/dv."""
+    n0 = ops.launch_counts()
+    got = _flash_run(cuda, case, torch.float32, "kernel")
+    n1 = ops.launch_counts()
+    assert [n1[k] - n0[k] for k in ("flash_fwd", "flash_dq",
+                                    "flash_dkv")] == [1, 1, 1]
+    want = _flash_run(cuda, case, torch.float32, "torch")
+    assert (got[0] - want[0]).abs().max().item() <= \
+        2e-6 + 2e-6 * want[0].abs().max().item()
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.allclose(g, w, atol=3e-5, rtol=1e-3)
+    Sq, Skv = case[1], case[2]
+    if case[7] and Skv > Sq:
+        assert not got[2][:, Sq:].any() and not got[3][:, Sq:].any()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:5],
+                         ids=[str(c[:8]) for c in FLASH_CASES[:5]])
+def test_flash_forward_bf16_matches_plain(cuda, case):
+    B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
+    q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda")
+    k = torch.randn((B, Skv, KVH, hd), generator=cuda, device="cuda")
+    v = torch.randn((B, Skv, KVH, hd_v), generator=cuda, device="cuda")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    with torch.no_grad():
+        with dispatch.use(execute="kernel"):
+            got = ops.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                      block_k=bk)
+        with dispatch.use(execute="torch"):
+            want = ops.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                       block_k=bk)
+    assert got.dtype == torch.bfloat16
+    assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_reduced_train_step_matches_cpu(cuda):
+    """One train step of the reduced llama3.2-1b (optimized profile, f32)
+    on the kernels against the same step on the CPU's plain versions, from
+    the same weights and batch: the loss to 1e-5 relative, the grad norm
+    to 1e-4 relative, every new weight within 1e-4 of its leaf's largest
+    magnitude; every flash kernel and the GEMM launched."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, _batch
+    from repro_torch.launch.steps import build_train_step
+    cfg = get_arch("llama3.2-1b", optimized=True).reduced()
+    tokens = torch.from_numpy(_batch(DataConfig(cfg.vocab_size, 48, 2,
+                                                seed=1), 0)["tokens"])
+    init = build_train_step(cfg, device="cpu")[0].init(0)
+    res = {}
+    ops.reset_counts()
+    for dev in ("cpu", "cuda"):
+        _, step, opt = build_train_step(cfg, lr=1e-3, device=dev)
+        params = _to(init, dev)
+        new, _, met = step(params, opt.init(params),
+                           {"tokens": tokens.to(dev)})
+        res[dev] = (_to(new, "cpu"), float(met["loss"]),
+                    float(met["grad_norm"]))
+    counts = ops.launch_counts()
+    assert counts["flash_fwd"] == 4 and counts["flash_dq"] == 2 and \
+        counts["flash_dkv"] == 2          # 2 layers, remat recomputes
+    assert counts["rsa_gemm"] > 0
+    (pc, lc, gc), (pg, lg, gg) = res["cpu"], res["cuda"]
+    assert abs(lg - lc) <= 1e-5 * lc and abs(gg - gc) <= 1e-4 * gc
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    want = dict(leaves(pc))
+    for key, got in leaves(pg):
+        assert (got - want[key]).abs().max().item() <= \
+            1e-4 * want[key].abs().max().item() + 1e-6, key

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.hw import IS, OS
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
+                                            flash_fwd_cuda)
 from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_cuda,
@@ -251,3 +253,92 @@ def test_mla_kernels_refuse_what_they_do_not_take(card):
                               tables, lengths, scale=0.1)
     assert card.calls == []
     assert ops.launch_counts()["paged_mla_decode"] == 0
+
+
+def test_transposed_a_gemm_counts_one_launch(card):
+    """The weight gradient's x^T (a column-major view) is read in place:
+    one launch, counted under its shape; a layout with no unit stride
+    raises before any launch."""
+    x = torch.zeros(8, 64)
+    out = rsa_gemm_cuda(x.t(), torch.zeros(8, 32), block_k=64, mode=OS)
+    assert out.shape == (64, 32)
+    assert card.calls == ["rsa_gemm_launch"]
+    assert rsa_gemm_cuda.launches_by_key == {(64, 8, 32, OS): 1}
+    with pytest.raises(ValueError, match="A must be row-major"):
+        rsa_gemm_cuda(torch.zeros(8, 128)[:, ::2], torch.zeros(64, 32),
+                      block_k=64, mode=OS)
+    assert card.calls == ["rsa_gemm_launch"]
+
+
+def _flash(B, Sq, Skv, err, card, G=2):
+    """One launch of each flash kernel (forward, dq, dk/dv)."""
+    KVH, hd = 2, 16
+    q, do = torch.zeros(B, Sq, KVH * G, hd), torch.zeros(B, Sq, KVH * G, hd)
+    k = torch.zeros(B, Skv, KVH, hd)
+    lse = torch.zeros(B, KVH * G, Sq)
+    card.err = err
+    o, _ = flash_fwd_cuda(q, k, k, causal=True, scale=0.25)
+    dq = flash_dq_cuda(q, k, k, do, lse, lse, causal=True, scale=0.25)
+    dk, dv = flash_dkv_cuda(q, k, k, do, lse, lse, causal=True, scale=0.25)
+    return o, dq, dk, dv
+
+
+@pytest.mark.parametrize("B,Sq,Skv", [(0, 8, 8), (2, 0, 8)])
+def test_empty_flash_problem_counts_no_launch(card, B, Sq, Skv):
+    o, dq, dk, dv = _flash(B, Sq, Skv, 0, card)
+    assert o.shape == (B, Sq, 4, 16) and dk.shape == (B, Skv, 2, 16)
+    assert card.calls == []
+    if B:                     # no query: every key's gradient is zero
+        assert torch.all(dk == 0) and torch.all(dv == 0)
+    counts = ops.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_dq"] == \
+        counts["flash_dkv"] == 0
+
+
+def test_flash_counts_each_launch_and_no_failed_one(card):
+    _flash(2, 8, 8, 0, card)
+    assert card.calls == ["flash_fwd_launch", "flash_dq_launch",
+                          "flash_dkv_launch"]
+    with pytest.raises(RuntimeError, match="flash attention forward"):
+        _flash(2, 8, 8, 1, card)       # cudaErrorInvalidValue
+    card.err = 700                     # cudaErrorIllegalAddress
+    q, k = torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(RuntimeError, match="flash attention dq"):
+        flash_dq_cuda(q, k, k, q, lse, lse, causal=False, scale=0.25)
+    with pytest.raises(RuntimeError, match="flash attention dk/dv"):
+        flash_dkv_cuda(q, k, k, q, lse, lse, causal=False, scale=0.25)
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dq"],
+            counts["flash_dkv"]) == (1, 1, 1)
+    assert counts["plain_calls"] == 0
+
+
+def test_flash_autograd_launches_each_kernel_once(card):
+    """On (posed) CUDA tensors ``ops.flash_attention`` and its backward run
+    the three kernels once each and no plain version."""
+    q = torch.zeros(1, 8, 4, 16, requires_grad=True)
+    k = torch.zeros(1, 8, 2, 16, requires_grad=True)
+    v = torch.zeros(1, 8, 2, 16, requires_grad=True)
+    ops.flash_attention(q, k, v, causal=True).sum().backward()
+    assert card.calls == ["flash_fwd_launch", "flash_dq_launch",
+                          "flash_dkv_launch"]
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"],
+            counts["plain_calls"]) == (1, 1, 1, 0)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="hd, hd_v <= 128"):
+        flash_fwd_cuda(torch.zeros(1, 8, 4, 256), torch.zeros(1, 8, 2, 256),
+                       k, causal=True, scale=0.1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        flash_fwd_cuda(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16),
+                       causal=True, scale=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_cuda(q.transpose(1, 2), k, k, causal=True, scale=0.1)
+    with pytest.raises(ValueError, match="lse must be f32"):
+        flash_dq_cuda(q, k, k, q, torch.zeros(1, 4, 7), torch.zeros(1, 4, 8),
+                      causal=True, scale=0.1)
+    assert card.calls == []
