@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import dtype_of
 from repro_torch.models.moe import padded_num_experts
+from repro_torch.models.ssm import rwkv_num_heads
 from repro_torch.models.transformer import _is_moe_layer, num_dense_layers
 
 
@@ -107,14 +108,35 @@ def _stack_shapes(prefix: str, n: int, cfg: ArchConfig,
     return shapes
 
 
+def _rwkv_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """Leaves of the stacked RWKV6 layers: ``ln1`` and every leaf of the
+    reference's ``init_rwkv_block``."""
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    H, K = rwkv_num_heads(cfg), cfg.ssm.head_dim
+    lora = max(32, d // 32)
+    blk = {**{m: (d,) for m in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                                "mu_ck", "mu_cr", "decay_base")},
+           **{w: (d, d) for w in ("w_r", "w_k", "w_v", "w_g", "w_o",
+                                  "w_cr")},
+           **{n: (H, K) for n in ("bonus_u", "ln_scale", "ln_bias")},
+           "w_decay_a": (d, lora), "w_decay_b": (lora, d),
+           "w_ck": (d, ff), "w_cv": (ff, d)}
+    shapes = {f"layers/blk/{k}": (L,) + v for k, v in blk.items()}
+    shapes["layers/ln1"] = (L, d)
+    return shapes
+
+
 def _expected_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     L, d = cfg.num_layers, cfg.d_model
     nd = num_dense_layers(cfg)
     shapes = {"embed": (cfg.vocab_size, d), "ln_f": (d,)}
-    if nd:
-        shapes.update(_stack_shapes("dense_layers", nd, cfg, moe=False))
-    shapes.update(_stack_shapes("layers", L - nd, cfg,
-                                moe=_is_moe_layer(cfg, nd)))
+    if cfg.family == "ssm":
+        shapes.update(_rwkv_shapes(cfg))
+    else:
+        if nd:
+            shapes.update(_stack_shapes("dense_layers", nd, cfg, moe=False))
+        shapes.update(_stack_shapes("layers", L - nd, cfg,
+                                    moe=_is_moe_layer(cfg, nd)))
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.vocab_size)
     return shapes
@@ -145,7 +167,7 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
                       device) -> Dict:
     """The port's parameter dict from the reference's flat leaves for a
-    served ``cfg`` (dense GQA, or MoE with MLA), in ``cfg.param_dtype``
+    served ``cfg`` (dense GQA, MoE with MLA, or RWKV6), in ``cfg.param_dtype``
     (``F32_LEAVES`` in f32, as the reference draws them) on ``device``.
     Raises on a missing, unexpected or misshapen leaf."""
     want = _expected_shapes(cfg)

@@ -57,6 +57,10 @@ SIGNATURES = {
         "flash_dq_launch": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
         "flash_dkv_launch": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
     },
+    "linear_attn": {
+        "wkv_bshk_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+        "linear_attn_launch": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

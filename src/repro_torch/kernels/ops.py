@@ -8,18 +8,22 @@ tensor under ``"kernel"`` launches the kernel or raises.  The kernel
 functions count their own launches (``launch_counts``), so a run can show
 that it went through the kernels.  Unlike the reference's ``ops``, nothing
 here pads operands to block multiples: the kernels mask ragged edges (the
-plain flash attention pads, as the reference does).
+plain flash attention pads, as the reference does).  The two linear
+attention scans pad S to a multiple of the chunk with zero rows, as the
+reference's wrappers do.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_attn import (
     flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda, flash_dq_plain,
     flash_fwd_cuda, flash_fwd_plain)
+from repro_torch.kernels.linear_attn import (
+    linear_attn_cuda, linear_attn_plain, wkv_bshk_cuda, wkv_bshk_plain)
 from repro_torch.kernels.paged_attn import (
     merge_softmax_states, paged_attention_lse_plain, paged_attention_plain,
     paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_attention_plain,
@@ -202,6 +206,57 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
                                  _backend(q))
 
 
+def _pad_rows(chunk: int, *ts):
+    """Each tensor zero-padded along dim 1 to a multiple of ``chunk``."""
+    pad = -ts[0].shape[1] % chunk
+    if not pad:
+        return ts
+    return tuple(torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in ts)
+
+
+def _forward_only(what: str, *ts) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{what} is forward only in the port: its backward (the "
+            f"reference recomputes it through the plain scan) waits for RWKV "
+            f"training, ROADMAP.md queue 1 item 11")
+
+
+def wkv_attention(r, k, v, logw, u, state0, chunk: int = 64
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 chunked linear attention with carried state.  r, k, logw: (B,
+    S, H, K); v: (B, S, H, V); u: (H, K); state0: (B, H, K, V) f32 ->
+    (o (B, S, H, V) in r's dtype, final state (B, H, K, V) f32).  S is
+    padded to a multiple of ``chunk`` with zero rows, which leave the state
+    as it is."""
+    _forward_only("wkv_attention", r, k, v, logw, u, state0)
+    S = r.shape[1]
+    rr, kk, vv, ww = _pad_rows(chunk, r, k, v, logw)
+    if _backend(r) == "torch":
+        o, sf = wkv_bshk_plain(rr, kk, vv, ww, u, state0, chunk=chunk)
+    else:
+        o, sf = wkv_bshk_cuda(*(t.contiguous() for t in (rr, kk, vv, ww, u,
+                                                        state0)),
+                              chunk=chunk)
+    return o[:, :S], sf
+
+
+def linear_attn(r, k, v, logw, u, chunk: int = 64) -> torch.Tensor:
+    """Chunked linear attention from a zero state.  r, k, logw: (BH, S, K);
+    v: (BH, S, V); u: (BH, K) -> (BH, S, V) in r's dtype; S is padded to a
+    multiple of ``chunk``."""
+    _forward_only("linear_attn", r, k, v, logw, u)
+    S = r.shape[1]
+    rr, kk, vv, ww = _pad_rows(chunk, r, k, v, logw)
+    if _backend(r) == "torch":
+        o = linear_attn_plain(rr, kk, vv, ww, u, chunk=chunk)
+    else:
+        o = linear_attn_cuda(*(t.contiguous() for t in (rr, kk, vv, ww, u)),
+                             chunk=chunk)
+    return o[:, :S]
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches, and calls of the plain versions, since the last
     ``reset_counts``."""
@@ -215,6 +270,8 @@ def launch_counts() -> Dict[str, int]:
             "flash_fwd": flash_fwd_cuda.launches,
             "flash_dq": flash_dq_cuda.launches,
             "flash_dkv": flash_dkv_cuda.launches,
+            "wkv_bshk": wkv_bshk_cuda.launches,
+            "linear_attn": linear_attn_cuda.launches,
             "plain_calls": rsa_gemm_plain.calls + paged_attention_plain.calls
             + paged_prefill_attention_plain.calls
             + paged_attention_lse_plain.calls
@@ -222,7 +279,8 @@ def launch_counts() -> Dict[str, int]:
             + paged_mla_attention_plain.calls
             + paged_mla_prefill_attention_plain.calls
             + flash_fwd_plain.calls + flash_dq_plain.calls
-            + flash_dkv_plain.calls}
+            + flash_dkv_plain.calls + wkv_bshk_plain.calls
+            + linear_attn_plain.calls}
 
 
 def reset_counts() -> None:
@@ -238,6 +296,9 @@ def reset_counts() -> None:
     flash_fwd_cuda.launches = 0
     flash_dq_cuda.launches = 0
     flash_dkv_cuda.launches = 0
+    wkv_bshk_cuda.launches = 0
+    wkv_bshk_cuda.launches_by_chunk = {}
+    linear_attn_cuda.launches = 0
     rsa_gemm_plain.calls = 0
     paged_attention_plain.calls = 0
     paged_prefill_attention_plain.calls = 0
@@ -248,3 +309,5 @@ def reset_counts() -> None:
     flash_fwd_plain.calls = 0
     flash_dq_plain.calls = 0
     flash_dkv_plain.calls = 0
+    wkv_bshk_plain.calls = 0
+    linear_attn_plain.calls = 0

@@ -5,6 +5,15 @@
       --shared-prefix-decode
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full \\
       --requests 16 --slots 8 --prompt-len 512 --gen 32 --prefill-chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --preset reduced --smoke --device cpu
+
+The layout follows the model's family: the attention families are served
+from the paged KV arena with chunked prefill (64 tokens unless
+``--prefill-chunk`` says otherwise), the recurrent ones (rwkv6-1.6b) from
+the dense per-slot state with whole-prompt prefill.  The WKV kernel route
+of rwkv6-1.6b is the reference's optimized profile:
+``serve_continuous(override_cfg=get_arch("rwkv6-1.6b", optimized=True))``.
 
 Runs on CUDA unless ``--device cpu`` is given (the CPU runs the kernels'
 plain PyTorch versions); with no CUDA and no ``--device cpu`` it raises.
@@ -14,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
@@ -24,7 +33,8 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      prompt_len: int = 32, gen: int = 32,
                      temperature: float = 0.8, top_k: int = 40,
                      seed: int = 0, execute: str = "auto",
-                     kv_layout: str = "paged", prefill_chunk: int = 64,
+                     kv_layout: str = "auto",
+                     prefill_chunk: Union[int, str, None] = "auto",
                      block_size: int = 16,
                      min_prompt_len: Optional[int] = None,
                      prefix_cache: bool = False,
@@ -32,8 +42,11 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      shared_prefix_len: int = 0,
                      clock: str = "steps", device: Optional[str] = None,
                      override_cfg=None, log: bool = True):
-    """Serve a request set through the continuous-batching engine (paged KV,
-    chunked prefill).  Prompts are random tokens from ``seed``: every one
+    """Serve a request set through the continuous-batching engine.  With
+    ``kv_layout`` and ``prefill_chunk`` "auto" the attention families run
+    paged with chunked prefill (64 tokens, or ``prefill_chunk``) and the
+    recurrent families dense with whole-prompt prefill.
+    Prompts are random tokens from ``seed``: every one
     ``prompt_len`` long, or uniform in ``[min_prompt_len, prompt_len]``
     when ``min_prompt_len`` is given, all arriving at time 0.
     ``shared_prefix_len`` > 0 makes every prompt open with the same token
@@ -98,7 +111,11 @@ def main():
     ap.add_argument("--execute", default="auto",
                     choices=["auto", "kernel", "torch"],
                     help="kernels (CUDA) or their plain PyTorch versions")
-    ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--prefill-chunk", default="auto",
+                    type=lambda v: v if v == "auto" else int(v),
+                    help="chunked-prefill tokens per lane and step (paged "
+                         "families; 'auto': 64); recurrent families "
+                         "prefill whole prompts")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="cross-request prefix cache: refcounted "
                          "copy-on-write KV pages shared across prompts "
@@ -155,9 +172,9 @@ def main():
         return
     if a.smoke:
         outputs, engine = serve_continuous(
-            arch=a.arch, num_requests=3, num_slots=2, prompt_len=12, gen=6,
-            temperature=0.0, execute=a.execute, prefill_chunk=8,
-            device=a.device)
+            arch=a.arch, preset=a.preset, num_requests=3, num_slots=2,
+            prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
+            prefill_chunk=a.prefill_chunk, device=a.device)
         if not all(len(v) == 6 for v in outputs.values()):
             raise SystemExit(f"smoke failed: {outputs}")
         engine.pool.check()

@@ -26,8 +26,9 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 class Model:
-    """Functional model wrapper over the served paged decoders (dense GQA,
-    MoE with absorbed MLA); dense GQA also trains."""
+    """Functional model wrapper over the served models: the paged decoders
+    (dense GQA, MoE with absorbed MLA) and the recurrent RWKV6 stack (ssm,
+    dense per-sequence state); dense GQA also trains."""
 
     def __init__(self, cfg: ArchConfig, device: Optional[str] = None):
         transformer._check_family(cfg)
@@ -53,6 +54,18 @@ class Model:
 
     def forward(self, params, batch):
         return transformer.forward(params, batch, self.cfg)
+
+    # ---- dense-state serving (ssm family) ----------------------------------
+    def init_cache(self, batch: int):
+        return serving.init_cache(self.cfg, batch, self.device)
+
+    def prefill(self, params, batch, cache):
+        """(last-position logits (B, V), cache) of exact-length prompts
+        ``batch = {"tokens": (B, n) int}``."""
+        return serving.prefill(params, batch, self.cfg, cache)
+
+    def decode_step(self, params, tokens, cache):
+        return serving.decode_step(params, tokens, self.cfg, cache)
 
     # ---- paged serving (physical KV arena; serving/kv_pool.py) ------------
     def init_paged_arena(self, num_blocks: int, block_size: int):

@@ -1,8 +1,9 @@
 """Pre-norm decoders: parameters and the paged layer bodies of
-``repro/models/transformer.py`` for the two served families, dense GQA
-(attention + gated MLP) and MoE with absorbed MLA (deepseek-v3: a leading
-stack of dense-MLP layers, then MoE layers), and the training forward
-pass and loss of the dense GQA family.
+``repro/models/transformer.py`` for the served attention families, dense
+GQA (attention + gated MLP) and MoE with absorbed MLA (deepseek-v3: a
+leading stack of dense-MLP layers, then MoE layers), the RWKV6 stack of
+the ssm family (``_scan_rwkv``), and the training forward pass and loss of
+the dense GQA family.
 
 Per-layer leaves are stacked on a leading layer axis, as in the reference
 (``layers/attn/wq`` is (L, d, q_dim)); a layer's parameters are views of
@@ -28,12 +29,14 @@ from repro_torch.models.mlp import init_mlp, mlp_apply
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.modules import (dense, dense_init, dtype_of,
                                         embed_init, rmsnorm)
+from repro_torch.models.ssm import (RWKVState, init_rwkv_block,
+                                    rwkv_block_apply)
 
 Params = Dict[str, Any]
 
 
 # the (family, attention) pairs the port serves, and those it trains
-SERVED = (("dense", "gqa"), ("moe", "mla"))
+SERVED = (("dense", "gqa"), ("moe", "mla"), ("ssm", "none"))
 TRAINED = (("dense", "gqa"),)
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
@@ -47,6 +50,9 @@ def _check_family(cfg: ArchConfig) -> None:
     if cfg.moe is not None and cfg.moe_every != 1:
         raise NotImplementedError("moe_every != 1 (stacks must be "
                                   "homogeneous)")
+    if cfg.family == "ssm" and cfg.ssm.kind != "rwkv6":
+        raise ValueError(f"the port's ssm family is RWKV6, got "
+                         f"{cfg.ssm.kind!r}")
 
 
 def check_trained_family(cfg: ArchConfig) -> None:
@@ -105,6 +111,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (d, cfg.vocab_size), dt)
+    if cfg.family == "ssm":
+        p["layers"] = {"ln1": torch.zeros((L, d), **zeros),
+                       "blk": init_rwkv_block(gen, cfg, lead=(L,))}
+        return p
     nd = num_dense_layers(cfg)
     if nd:
         p["dense_layers"] = _init_stack(gen, cfg, nd, moe=False)
@@ -193,6 +203,22 @@ def paged_prefill_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
         a = gqa_paged_prefill(p["attn"], h, positions, cfg, k_arena=k_arena,
                               v_arena=v_arena, **paged)
     return _ffn(p, x + a.to(x.dtype), cfg)
+
+
+def _scan_rwkv(params: Params, x, cfg: ArchConfig,
+               states: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
+    """The RWKV6 layer loop (the reference's ``lax.scan``): each layer's
+    pre-norm block from its slice of the layer-stacked ``states``.
+    Returns (x, the new states stacked again)."""
+    new = []
+    for i in range(params["layers"]["ln1"].shape[0]):
+        lp = layer_params(params["layers"], i)
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        y, st = rwkv_block_apply(lp["blk"], h, cfg,
+                                 RWKVState(*(t[i] for t in states)))
+        x = x + y.to(x.dtype)
+        new.append(st)
+    return x, RWKVState(*(torch.stack(f) for f in zip(*new)))
 
 
 # ---------------------------------------------------------------------------

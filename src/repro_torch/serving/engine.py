@@ -1,6 +1,10 @@
 """ServingEngine: continuous-batching inference over the port's model stack.
 
-The paged, chunked-prefill path of ``repro/serving/engine.py``:
+Two layouts of ``repro/serving/engine.py``, chosen by the model's family
+(``kv_layout="auto"``): the paged layout with chunked prefill for the
+attention families, and the dense slot layout for the recurrent ones.
+
+The paged, chunked-prefill path (dense GQA, MoE/MLA):
 
 * ``num_slots`` fixed decode lanes share one physical KV page arena
   ``(layers, num_blocks + 1, block_size, KVH, hd)`` (with MLA, the latent
@@ -32,10 +36,28 @@ The paged, chunked-prefill path of ``repro/serving/engine.py``:
   (``Model.paged_shared_decode_step``).  GQA only: with MLA it raises, as
   in the reference.
 
-Parts of the reference engine that are not ported (the dense KV layout,
-bucketed prefill, speculative decoding, the chaos harness, the sanitizer,
-snapshots, span tracing, ADAPTNET dispatch) raise ``ValueError`` when
-their config field is set; nothing is ignored.
+The dense slot layout (recurrent families: RWKV6), whole-prompt prefill:
+
+* One stacked per-slot state cache (``Model.init_cache(num_slots)``);
+  nothing is paged (the state is O(1) in sequence length), but the
+  ``KVBlockPool`` still meters each request's tokens, so
+  ``reserve="incremental"`` can stall a lane.
+* Each admitted request prefills alone at its exact length (a recurrent
+  state integrates every token, so nothing is padded) from a fresh batch-1
+  state, under registry scope ``prefill:m{n}``; the result is copied into
+  its slot (``_slot_restore``).
+* Each step decodes EVERY slot in one batched call under scope
+  ``"decode"``, as the reference's ``vmap`` over slots does: free lanes
+  compute too (admission overwrites their state), and a stalled lane rolls
+  back to the snapshot taken before the step (``_slot_snapshot``).  The
+  port batches the lanes, so the decode GEMMs record M = num_slots where
+  the reference's vmapped trace records M = 1.
+
+Parts of the reference engine that are not ported (the dense KV layout of
+the attention families and their bucketed prefill, speculative decoding,
+the chaos harness, the sanitizer, snapshots, span tracing, ADAPTNET
+dispatch) raise ``ValueError`` when their config field is set; nothing is
+ignored.
 
 The clock is either ``"wall"`` (live serving; every step ends in a device
 synchronisation) or ``"steps"`` (virtual time in engine-step units —
@@ -47,7 +69,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +78,7 @@ from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sara import SaraDispatcher
 from repro_torch.dispatch import SiteRegistry
+from repro_torch.models.serving import PAGED_FAMILIES
 from repro_torch.serving.kv_pool import KVArena, KVBlockPool, PoolError
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -128,8 +151,10 @@ class EngineConfig:
     clock: str = "steps"              # "steps" | "wall"
     execute: str = "auto"             # "auto" | "kernel" | "torch"
     preempt_budget: int = 3           # preempt/readmit cycles before failing
-    prefill_chunk: Optional[int] = 64
-    kv_layout: str = "paged"          # "paged" ("auto" resolves to it)
+    # "auto": 64 paged, whole-prompt dense; None: the reference's bucketed
+    # prefill (paged: not ported) or whole-prompt (dense); an int: chunked
+    prefill_chunk: Union[int, str, None] = "auto"
+    kv_layout: str = "auto"           # "paged" | "dense" | "auto" (by family)
     prefix_cache: bool = False        # cross-request prefix cache
     shared_prefix_decode: bool = False  # cascade decode (needs prefix_cache)
     # not ported — setting any of these raises
@@ -141,6 +166,9 @@ class EngineConfig:
     chaos: Optional[object] = None
     snapshot_dir: Optional[str] = None
     trace: bool = False
+
+
+PAGED_PREFILL_CHUNK = 64   # the paged families' chunk under "auto"
 
 
 def _check_ported(e: EngineConfig) -> None:
@@ -159,13 +187,12 @@ def _check_ported(e: EngineConfig) -> None:
     if e.shared_prefix_decode and not e.prefix_cache:
         raise ValueError("shared_prefix_decode needs prefix_cache: shared "
                          "page runs only arise from cache-hit admissions")
-    if e.kv_layout not in ("paged", "auto"):
-        raise ValueError(f"kv_layout {e.kv_layout!r} is not ported (the "
-                         "engine serves the paged layout only)")
-    if e.prefill_chunk is None:
-        raise ValueError("bucketed prefill is not ported: set prefill_chunk")
-    if e.prefill_chunk < 1:
-        raise ValueError("prefill_chunk must be >= 1")
+    if e.kv_layout not in ("paged", "dense", "auto"):
+        raise ValueError(f"unknown kv_layout {e.kv_layout!r}")
+    if e.prefill_chunk not in (None, "auto") and (
+            not isinstance(e.prefill_chunk, int) or e.prefill_chunk < 1):
+        raise ValueError(f"prefill_chunk must be 'auto', None or an int >= "
+                         f"1, got {e.prefill_chunk!r}")
     if e.dispatcher_mode != "oracle":
         raise ValueError(f"dispatcher_mode {e.dispatcher_mode!r} is not "
                          "ported (only 'oracle')")
@@ -173,6 +200,43 @@ def _check_ported(e: EngineConfig) -> None:
         raise ValueError(f"unknown clock {e.clock!r}")
     if e.execute not in dispatch.EXECUTE_MODES:
         raise ValueError(f"execute must be one of {dispatch.EXECUTE_MODES}")
+
+
+def _resolve_layout(cfg: ArchConfig, e: EngineConfig
+                    ) -> Tuple[str, Optional[int]]:
+    """The engine's KV layout and prefill chunk.  ``"auto"`` is paged for
+    the attention families and dense for the recurrent ones, and a
+    recurrent family cannot page, as in the reference.  The port serves
+    the attention families paged with chunked prefill (``prefill_chunk``
+    "auto": 64; None, the reference's bucketed prefill, is not ported) and
+    the recurrent ones dense with whole-prompt prefill (chunk None), and
+    raises for the other combinations."""
+    layout, chunk = e.kv_layout, e.prefill_chunk
+    if layout == "auto":
+        layout = "paged" if cfg.family in PAGED_FAMILIES else "dense"
+    if layout == "paged" and cfg.family not in PAGED_FAMILIES:
+        raise ValueError(
+            f"family {cfg.family!r} keeps recurrent state in the dense slot "
+            f"layout; kv_layout='paged' supports {PAGED_FAMILIES}")
+    if layout == "dense" and cfg.family in PAGED_FAMILIES:
+        raise ValueError("the dense KV layout of the attention families is "
+                         "not ported (ROADMAP.md queue 1 item 10): serve "
+                         "them with kv_layout='paged'")
+    if layout == "paged":
+        if chunk is None:
+            raise ValueError("bucketed prefill is not ported: set "
+                             "prefill_chunk")
+        return layout, PAGED_PREFILL_CHUNK if chunk == "auto" else chunk
+    if chunk not in (None, "auto"):
+        raise ValueError("prefill_chunk streams prompts directly into KV "
+                         "pages; it requires kv_layout='paged' (recurrent "
+                         "families prefill whole prompts: prefill_chunk="
+                         "None)")
+    if e.prefix_cache:
+        raise ValueError("prefix_cache requires chunked prefill: a cache hit "
+                         "admits a request mid-prompt, and only the chunked "
+                         "prefill path can resume from a per-lane offset")
+    return layout, None
 
 
 class ServingEngine:
@@ -207,10 +271,11 @@ class ServingEngine:
         self.dispatcher = dispatcher if dispatcher is not None \
             else SaraDispatcher()
         self.metrics = ServingMetrics()
-        self.kv_layout = "paged"
+        self.kv_layout, chunk = _resolve_layout(cfg, e)
         # no prompt exceeds max_len, so a larger chunk would only pad the
         # batch with dead query rows the kernel still computes
-        self.prefill_chunk = min(e.prefill_chunk, e.max_len)
+        self.prefill_chunk = (min(chunk, e.max_len) if chunk is not None
+                              else None)
         self._max_blocks_per_slot = -(-e.max_len // e.block_size)
         num_blocks = (e.num_blocks if e.num_blocks is not None
                       else e.num_slots * self._max_blocks_per_slot)
@@ -234,15 +299,23 @@ class ServingEngine:
         self.shared_prefix_lanes = 0
         self._leak_audit: Dict[str, int] = {}
         self.requests: Dict[str, Request] = {}
-        self.arena = KVArena(
-            self.model.init_paged_arena(num_blocks + 1, e.block_size),
-            e.block_size)
-        self.pool.bind_arena(self.arena)
+        self.arena: Optional[KVArena] = None
+        self._cache = None
+        if self.kv_layout == "paged":
+            self.arena = KVArena(
+                self.model.init_paged_arena(num_blocks + 1, e.block_size),
+                e.block_size)
+            self.pool.bind_arena(self.arena)
+        else:
+            # stacked per-slot states: the slot is the batch axis
+            self._cache = self.model.init_cache(e.num_slots)
         self._kv_rows = np.zeros((e.num_slots,), np.int32)
         self._last_tok = np.zeros((e.num_slots, 1), np.int32)
         # what one masked-dense decode step would stream: every slot's full
-        # capacity (the paged win the metrics report)
-        self._dense_kv_rows = e.num_slots * e.max_len
+        # capacity (the paged win the metrics report; recurrent-state
+        # families have no KV rows)
+        self._dense_kv_rows = (e.num_slots * e.max_len
+                               if cfg.attention_type != "none" else 0)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(e.seed + 1)
         self._vtime = 0.0
@@ -282,6 +355,70 @@ class ServingEngine:
         if plan != self.gemm_plan:
             self.plan_changes += 1       # a real reconfiguration
             self.gemm_plan = plan
+
+    # -- dense slot layout (recurrent families) ------------------------------
+    def bucket_for(self, n: int) -> int:
+        """The prefill shape of an n-token prompt: n itself on the dense
+        layout, which only recurrent families run (their state integrates
+        every input token, so nothing may be padded).  The bucketed
+        prefill of attention families is not ported."""
+        if self.kv_layout == "dense":
+            return n
+        raise NotImplementedError("bucketed prefill of attention families "
+                                  "is not ported (ROADMAP.md queue 1 item "
+                                  "10)")
+
+    def _slot_snapshot(self, slot: int):
+        """A copy of one slot's state, as a batch-1 cache (the layer-stacked
+        state leaves carry the slot on dim 1)."""
+        c = self._cache
+        return {"pos": c["pos"][slot:slot + 1].clone(),
+                "layers": type(c["layers"])(*(t[:, slot:slot + 1].clone()
+                                              for t in c["layers"]))}
+
+    def _slot_restore(self, slot: int, one) -> None:
+        """Write a batch-1 cache (a snapshot, or a fresh prefill's state)
+        into one slot of the stacked cache, in place."""
+        c = self._cache
+        c["pos"][slot] = one["pos"][0]
+        for t, o in zip(c["layers"], one["layers"]):
+            t[:, slot] = o[:, 0]
+
+    def _do_prefill(self, req: Request) -> None:
+        """Prefill one admitted request at its exact length from a fresh
+        batch-1 state, copy the state into its slot and sample its first
+        token."""
+        e = self.ecfg
+        context = req.context()
+        n = int(context.shape[0])
+        scope = f"prefill:m{self.bucket_for(n)}"
+        toks = self._tensor(np.asarray(context, np.int32)[None])
+        t0 = time.time()
+        with torch.no_grad(), self._dispatch_scope(scope):
+            logits, new = self.model.prefill(self.params, {"tokens": toks},
+                                             self.model.init_cache(1))
+        self._sync()
+        dt = time.time() - t0
+        self._dispatch(scope)
+        self.metrics.on_prefill(n, dt)
+        self._slot_restore(req.slot, new)
+        req.prefill_pos = n
+        req.prefilling = False
+        tok = int(sample_logits(self._gen, logits, e.temperature,
+                                e.top_k).cpu()[0])
+        req.generated.append(tok)
+        self._last_tok[req.slot, 0] = tok
+        self._first_token(req)
+
+    def _decode_dense(self):
+        """One batched decode over every slot of the state cache.  Returns
+        (logits (S, V) on the device, seconds, KV rows streamed)."""
+        t0 = time.time()
+        with torch.no_grad(), self._dispatch_scope("decode"):
+            logits, self._cache = self.model.decode_step(
+                self.params, self._tensor(self._last_tok), self._cache)
+        self._sync()
+        return logits, time.time() - t0, self._dense_kv_rows
 
     # -- request lifecycle ----------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -472,7 +609,14 @@ class ServingEngine:
                 self.metrics.on_cache_hit(req.cached_prefix_tokens,
                                           req.cached_pages,
                                           self._flops_per_token)
-        self._do_chunk_prefills()
+        if self.kv_layout == "paged":
+            self._do_chunk_prefills()
+        else:
+            for req in [r for _, r in sorted(self.sched.active.items())
+                        if r.prefilling]:
+                self._do_prefill(req)
+                if req.done():
+                    self._retire(req)
 
         # a request can finish at prefill and chunked lanes may still be
         # mid-prefill, so re-check the planned decode slots
@@ -481,19 +625,30 @@ class ServingEngine:
                   and not self.sched.active[s].prefilling}
         if active:
             # decide stalls BEFORE decoding: the coming step writes the KV
-            # of each lane's pending token
+            # of each lane's pending token; a stalled dense lane keeps a
+            # snapshot of its state to roll back to
+            snaps = {}
             for slot, req in active.items():
                 if not self.sched.grow(req,
                                        req.prompt_len + len(req.generated)):
                     self.metrics.stalls += 1
-            logits, dt, kv_read = self._decode_paged(active)
+                    if self.kv_layout == "dense":
+                        snaps[slot] = self._slot_snapshot(slot)
+            if self.kv_layout == "paged":
+                logits, dt, kv_read = self._decode_paged(active)
+            else:
+                logits, dt, kv_read = self._decode_dense()
             self._dispatch("decode")
             sampled = sample_logits(self._gen, logits, self.ecfg.temperature,
                                     self.ecfg.top_k).cpu().numpy()
             committed = 0
             for slot, req in sorted(active.items()):
                 if req.stalled:
-                    continue             # replays once the pool can cover it
+                    # replays once the pool can cover it: paged lanes wrote
+                    # nothing (trash page), dense lanes roll back
+                    if slot in snaps:
+                        self._slot_restore(slot, snaps[slot])
+                    continue
                 req.generated.append(int(sampled[slot]))
                 self._last_tok[slot, 0] = req.generated[-1]
                 self._kv_rows[slot] += 1

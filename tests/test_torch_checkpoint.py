@@ -93,3 +93,43 @@ def test_saved_deepseek_tree_loads_unchanged(tmp_path, dtype):
         else:
             assert np.array_equal(t.numpy(), arr), key
     assert got["layers/moe/router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_saved_rwkv_tree_loads_unchanged(tmp_path, dtype):
+    """The reduced rwkv6 tree (``layers/ln1`` and every leaf of
+    ``init_rwkv_block``, stacked over the layers, and the untied
+    unembedding) loads bit for bit, every leaf in ``param_dtype``."""
+    jcfg = get_arch("rwkv6-1.6b").reduced().replace(param_dtype=dtype)
+    tcfg = tget_arch("rwkv6-1.6b").reduced().replace(param_dtype=dtype)
+    params = build_model(jcfg).init(jax.random.PRNGKey(4))
+    CheckpointManager(str(tmp_path)).save(5, params)
+    _, flat, _ = load_checkpoint(tmp_path)
+    ours = params_from_numpy(flat, tcfg, "cpu")
+    want = _flatten(params)
+    got = dict(_leaves(ours))
+    assert set(got) == set(want)
+    assert {"layers/ln1", "layers/blk/w_decay_a", "layers/blk/bonus_u",
+            "layers/blk/w_cv", "unembed"} <= set(got)
+    for key, arr in want.items():
+        t = got[key]
+        assert t.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                           else torch.float32), key
+        assert tuple(t.shape) == arr.shape
+        if dtype == "bfloat16":
+            assert np.array_equal(t.view(torch.int16).numpy(),
+                                  arr.view(np.int16)), key
+        else:
+            assert np.array_equal(t.numpy(), arr), key
+
+
+def test_rwkv_full_width_shapes_match_the_reference():
+    """At full width (24 layers, d = 2048, lora 64, vocab 65536) the leaves
+    the port expects are exactly the reference's tree, shaped abstractly
+    (``jax.eval_shape``: nothing is allocated)."""
+    from repro_torch.checkpoint import _expected_shapes
+    tree = jax.eval_shape(build_model(get_arch("rwkv6-1.6b")).init,
+                          jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in _leaves(tree)}
+    assert _expected_shapes(tget_arch("rwkv6-1.6b")) == want
+    assert want["layers/blk/w_decay_a"] == (24, 2048, 64)

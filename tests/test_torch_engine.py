@@ -144,3 +144,99 @@ def test_prefix_cache_matches_reference_engine_deepseek(deepseek):
         ServingEngine(tcfg, EngineConfig(prefix_cache=True,
                                          shared_prefix_decode=True),
                       params=tparams, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    """Reduced rwkv6 (2 layers, d = 64, f32), JAX-initialised, in both
+    packages."""
+    jparams = jbuild(get_arch("rwkv6-1.6b").reduced()).init(
+        jax.random.PRNGKey(0))
+    return jparams, params_from_numpy(
+        _flatten(jparams), tget_arch("rwkv6-1.6b").reduced(), "cpu")
+
+
+@pytest.mark.parametrize("impl,reserve", [("pallas", "full"),
+                                          ("xla", "full"),
+                                          ("pallas", "incremental")])
+def test_greedy_tokens_match_reference_engine_rwkv(rwkv, impl, reserve):
+    """The dense slot layout of the recurrent family: exact-length prefill
+    per admission and one decode of every slot per step, on both WKV
+    routes.  Four requests on two slots; with ``reserve="incremental"``
+    and a 10-page pool a lane stalls (its state rolls back to the
+    snapshot) and one request is preempted and re-prefilled, in both
+    engines alike.  The pool ends whole."""
+    jparams, tparams = rwkv
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 13, 21, 9)]
+    common = dict(num_slots=2, max_len=32, block_size=4, temperature=0.0,
+                  clock="steps", kv_layout="auto", prefill_chunk=None,
+                  reserve=reserve,
+                  num_blocks=10 if reserve == "incremental" else None)
+    jcfg = get_arch("rwkv6-1.6b").reduced().replace(ssm_impl=impl)
+    tcfg = tget_arch("rwkv6-1.6b").reduced().replace(ssm_impl=impl)
+    jeng = JServingEngine(jcfg, JEngineConfig(**common, execute="xla"),
+                          params=jparams)
+    jout = jeng.run([JRequest(f"r{i}", p, GEN) for i, p in
+                     enumerate(prompts)])
+    teng = ServingEngine(tcfg, EngineConfig(**common), params=tparams,
+                         device="cpu")
+    tout = teng.run([Request(f"r{i}", p, GEN) for i, p in
+                     enumerate(prompts)])
+    assert teng.kv_layout == "dense"
+    assert set(tout) == set(jout)
+    for rid in jout:
+        assert len(tout[rid]) == GEN
+        assert np.array_equal(tout[rid], jout[rid]), (rid, tout[rid],
+                                                      jout[rid])
+    assert all(r.outcome == "done" for r in teng.requests.values())
+    for name in ("stalls", "preemptions", "decode_steps"):
+        assert getattr(teng.metrics, name) == getattr(jeng.metrics, name)
+    if reserve == "incremental":
+        assert teng.metrics.stalls > 0 and teng.metrics.preemptions > 0
+    teng.pool.check()
+    assert teng.pool.num_free == teng.pool.num_blocks
+    assert teng.summary()["kv_read_tokens_dense_per_step"] == 0
+
+
+def test_default_config_picks_layout_and_chunk_by_family(rwkv):
+    """``EngineConfig()`` serves each family the way it is ported: the
+    attention families paged with 64-token chunks (or the max length,
+    when shorter), the recurrent ones dense with whole-prompt prefill."""
+    _, tparams = rwkv
+    llama = ServingEngine(tget_arch("llama3.2-1b").reduced(),
+                          EngineConfig(max_len=96), device="cpu")
+    assert (llama.kv_layout, llama.prefill_chunk) == ("paged", 64)
+    short = ServingEngine(tget_arch("llama3.2-1b").reduced(),
+                          EngineConfig(max_len=40), device="cpu")
+    assert short.prefill_chunk == 40
+    rw = ServingEngine(tget_arch("rwkv6-1.6b").reduced(), EngineConfig(),
+                       params=tparams, device="cpu")
+    assert (rw.kv_layout, rw.prefill_chunk) == ("dense", None)
+    with pytest.raises(ValueError, match="prefill_chunk must be"):
+        ServingEngine(tget_arch("llama3.2-1b").reduced(),
+                      EngineConfig(prefill_chunk="whole"), device="cpu")
+
+
+def test_rwkv_engine_refuses_what_the_reference_refuses(rwkv):
+    """A recurrent family cannot page, the dense layout has no chunked
+    prefill, and a prefix cache needs chunked prefill, as in the
+    reference; the attention families keep refusing the dense layout."""
+    _, tparams = rwkv
+    tcfg = tget_arch("rwkv6-1.6b").reduced()
+    for kw, match in ((dict(kv_layout="paged", prefill_chunk=8), "dense"),
+                      (dict(kv_layout="auto", prefill_chunk=8),
+                       "kv_layout='paged'"),
+                      (dict(kv_layout="auto", prefill_chunk=None,
+                            prefix_cache=True), "prefix_cache")):
+        with pytest.raises(ValueError, match=match):
+            ServingEngine(tcfg, EngineConfig(**kw), params=tparams,
+                          device="cpu")
+    with pytest.raises(ValueError, match="queue 1 item 10"):
+        ServingEngine(tget_arch("llama3.2-1b").reduced(),
+                      EngineConfig(kv_layout="dense", prefill_chunk=None),
+                      device="cpu")
+    from repro_torch.models.api import build_model
+    with pytest.raises(ValueError, match="paged KV arena"):
+        build_model(tcfg, device="cpu").init_paged_arena(4, 4)

@@ -28,8 +28,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.serving.engine" in mods
     assert {"repro_torch.kernels.flash_attn", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.runtime.driver",
-            "repro_torch.launch.steps", "repro_torch.launch.train"} <= \
-        set(mods)
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.kernels.linear_attn", "repro_torch.models.ssm",
+            "repro_torch.configs.rwkv6_1_6b"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -71,6 +72,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_continuous(num_requests=1, log=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_continuous(arch="rwkv6-1.6b", num_requests=1, log=False)
     # an explicit CPU device runs the plain versions
     assert ServingEngine(cfg, EngineConfig(), device="cpu").device.type == \
         "cpu"

@@ -16,7 +16,10 @@ The bank GEMM is held to the 2-D GEMM's bound and, member by member, to
 the 2-D kernel bitwise; the MLA kernels to the attention tolerances.  The
 flash kernels are held to the reference's own tolerances for its kernel
 (``tests/test_flash_attn.py``): 2e-6 f32 and 2e-2 bf16 on the forward,
-3e-5 absolute + 1e-3 relative on the gradients.
+3e-5 absolute + 1e-3 relative on the gradients.  The WKV and linear
+attention kernels sum their f32 dot products in another order than the
+plain versions: 1e-5 of the output's largest magnitude (at least 1e-5),
+plus one bf16 rounding (2^-8 of it) for bf16 outputs.
 """
 
 import math
@@ -454,3 +457,129 @@ def test_reduced_train_step_matches_cpu(cuda):
     for key, got in leaves(pg):
         assert (got - want[key]).abs().max().item() <= \
             1e-4 * want[key].abs().max().item() + 1e-6, key
+
+
+WKV_CASES = [
+    # name, B, S, H, K, V, chunk (the phase-3 cases of chip_smoke.py, and
+    # the reference's tests/test_wkv_kernel.py shapes)
+    ("prefill", 1, 512, 32, 64, 64, 64),
+    ("ragged", 1, 100, 32, 64, 64, 64),
+    ("decode", 8, 1, 32, 64, 64, 1),
+    ("ref ragged", 2, 100, 3, 16, 16, 32),
+    ("ref V != K", 1, 64, 1, 8, 24, 64),
+    ("ref many chunks", 2, 96, 4, 32, 32, 16),
+    ("chunk 1 over 5 rows", 2, 5, 4, 16, 16, 1),
+]
+
+
+def _wkv_inputs(gen, B, S, H, K, V, strong, dtype=torch.float32):
+    """Random WKV operands.  ``strong`` draws log decays over the model's
+    whole clip range, -exp(U(-12, 1)) (down to -e), so a 64-row chunk's
+    cumsum reaches ~ -174: exp of its negation would overflow."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if strong:
+        lw = -torch.exp(torch.rand((B, S, H, K), generator=gen,
+                                   device="cuda") * 13.0 - 12.0)
+    else:
+        lw = -torch.exp(rn(B, S, H, K) * 0.5 - 2.0)
+    ts = (rn(B, S, H, K), rn(B, S, H, K), rn(B, S, H, V), lw,
+          rn(H, K) * 0.1)
+    return [t.to(dtype) for t in ts] + [rn(B, H, K, V) * 0.3]
+
+
+def _close(got, want, bf16=False):
+    assert torch.isfinite(got).all()
+    mag = max(1.0, want.float().abs().max().item())
+    tol = 1e-5 * mag + (2.0 ** -8 * mag if bf16 else 0.0)
+    return (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("case", WKV_CASES, ids=[c[0] for c in WKV_CASES])
+def test_wkv_kernel_matches_plain(cuda, case, strong):
+    _, B, S, H, K, V, chunk = case
+    args = _wkv_inputs(cuda, B, S, H, K, V, strong)
+    ops.reset_counts()
+    with dispatch.use(execute="kernel"):
+        o, sf = ops.wkv_attention(*args, chunk=chunk)
+    with dispatch.use(execute="torch"):
+        po, psf = ops.wkv_attention(*args, chunk=chunk)
+    assert ops.launch_counts()["wkv_bshk"] == 1
+    assert o.shape == (B, S, H, V) and sf.shape == (B, H, K, V)
+    assert _close(o, po) and _close(sf, psf)
+
+
+def test_wkv_kernel_state_carry_composes(cuda):
+    """[0:S/2] then [S/2:S] with the carried state equals one pass."""
+    args = _wkv_inputs(cuda, 1, 512, 32, 64, 64, False)
+    r, k, v, lw, u, s0 = args
+    with dispatch.use(execute="kernel"):
+        o, sf = ops.wkv_attention(*args, chunk=64)
+        oa, sa = ops.wkv_attention(r[:, :256], k[:, :256], v[:, :256],
+                                   lw[:, :256], u, s0, chunk=64)
+        ob, sb = ops.wkv_attention(r[:, 256:], k[:, 256:], v[:, 256:],
+                                   lw[:, 256:], u, sa, chunk=64)
+    assert _close(torch.cat([oa, ob], 1), o) and _close(sb, sf)
+
+
+def test_wkv_kernel_bf16_matches_plain(cuda):
+    args = _wkv_inputs(cuda, 2, 100, 4, 32, 32, False, torch.bfloat16)
+    with dispatch.use(execute="kernel"):
+        o, sf = ops.wkv_attention(*args, chunk=32)
+    with dispatch.use(execute="torch"):
+        po, psf = ops.wkv_attention(*args, chunk=32)
+    assert o.dtype == torch.bfloat16 and sf.dtype == torch.float32
+    assert _close(o, po, bf16=True) and _close(sf, psf)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("shape", [(64, 1024, 64, 64), (2, 64, 16, 16),
+                                   (4, 100, 16, 32), (1, 257, 32, 32)])
+def test_linear_attn_kernel_matches_plain(cuda, shape, chunk):
+    BH, S, K, V = shape
+
+    def rn(*sh):
+        return torch.randn(sh, generator=cuda, device="cuda")
+    args = (rn(BH, S, K) * 0.5, rn(BH, S, K) * 0.5, rn(BH, S, V),
+            -torch.exp(rn(BH, S, K) * 0.5 - 3.0), rn(BH, K) * 0.1)
+    ops.reset_counts()
+    with dispatch.use(execute="kernel"):
+        o = ops.linear_attn(*args, chunk=chunk)
+    with dispatch.use(execute="torch"):
+        want = ops.linear_attn(*args, chunk=chunk)
+    assert ops.launch_counts()["linear_attn"] == 1
+    assert o.shape == (BH, S, V) and _close(o, want)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_reduced_rwkv_serve_matches_cpu(cuda, impl):
+    """The reduced rwkv6 model (2 layers, d = 64, f32) served on the card
+    and on the CPU from the same weights (dense slot layout, 3 requests on
+    2 slots): the same greedy tokens, and on the kernel route 2 WKV
+    launches per model call (one per layer)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_arch("rwkv6-1.6b").reduced().replace(ssm_impl=impl)
+    ecfg = EngineConfig(num_slots=2, max_len=32, temperature=0.0,
+                        kv_layout="auto", prefill_chunk=None)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 13, 21)]
+    params = None
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, ecfg, device=dev,
+                            params=None if params is None else
+                            _to(params, dev))
+        params = eng.params
+        ops.reset_counts()
+        outs[dev] = eng.run([Request(f"r{i}", p, 6)
+                             for i, p in enumerate(prompts)])
+        calls = eng.metrics.decode_steps + len(prompts)
+        counts = ops.launch_counts()
+    assert counts["wkv_bshk"] == (2 * calls if impl == "pallas" else 0)
+    assert counts["plain_calls"] == 0 and counts["rsa_gemm"] > 0
+    for rid, toks in outs["cpu"].items():
+        assert list(outs["cuda"][rid]) == list(toks), rid

@@ -14,6 +14,7 @@ from repro_torch.core.hw import IS, OS
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
                                             flash_fwd_cuda)
+from repro_torch.kernels.linear_attn import linear_attn_cuda, wkv_bshk_cuda
 from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_cuda,
@@ -341,4 +342,90 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="lse must be f32"):
         flash_dq_cuda(q, k, k, q, torch.zeros(1, 4, 7), torch.zeros(1, 4, 8),
                       causal=True, scale=0.1)
+    assert card.calls == []
+
+
+def _wkv(B, S, err, card, chunk=1):
+    H, K, V = 2, 8, 4
+    card.err = err
+    r = torch.zeros(B, S, H, K)
+    return wkv_bshk_cuda(r, r, torch.zeros(B, S, H, V), r, torch.zeros(H, K),
+                         torch.ones(B, H, K, V), chunk=chunk)
+
+
+@pytest.mark.parametrize("B,S", [(0, 4), (2, 0)])
+def test_empty_wkv_problem_counts_no_launch(card, B, S):
+    o, sf = _wkv(B, S, 0, card)
+    assert o.shape == (B, S, 2, 4) and sf.shape == (B, 2, 8, 4)
+    assert torch.all(sf == 1)          # no token: the state passes through
+    la = linear_attn_cuda(torch.zeros(B, S, 8), torch.zeros(B, S, 8),
+                          torch.zeros(B, S, 4), torch.zeros(B, S, 8),
+                          torch.zeros(B, 8), chunk=1)
+    assert la.shape == (B, S, 4)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert counts["wkv_bshk"] == counts["linear_attn"] == 0
+    assert wkv_bshk_cuda.launches_by_chunk == {}
+
+
+def test_wkv_counts_each_launch_and_no_failed_one(card):
+    _wkv(2, 4, 0, card, chunk=2)
+    _wkv(3, 1, 0, card)                # a decode step: chunk 1
+    with pytest.raises(RuntimeError, match="WKV scan"):
+        _wkv(2, 4, 700, card)          # cudaErrorIllegalAddress
+    t = torch.zeros(3, 8, 8)
+    card.err = 0
+    linear_attn_cuda(t, t, torch.zeros(3, 8, 4), t, torch.zeros(3, 8),
+                     chunk=4)
+    card.err = 700
+    with pytest.raises(RuntimeError, match="linear attention"):
+        linear_attn_cuda(t, t, torch.zeros(3, 8, 4), t, torch.zeros(3, 8),
+                         chunk=4)
+    assert card.calls == ["wkv_bshk_launch"] * 3 + ["linear_attn_launch"] * 2
+    counts = ops.launch_counts()
+    assert (counts["wkv_bshk"], counts["linear_attn"],
+            counts["plain_calls"]) == (2, 1, 0)
+    assert wkv_bshk_cuda.launches_by_chunk == {2: 1, 1: 1}
+    ops.reset_counts()
+    assert wkv_bshk_cuda.launches_by_chunk == {}
+
+
+def test_wkv_ops_pad_and_launch_once(card):
+    """``ops.wkv_attention`` pads a ragged S to the chunk and launches the
+    kernel once; ``ops.linear_attn`` likewise."""
+    r = torch.zeros(1, 5, 2, 8)
+    o, sf = ops.wkv_attention(r, r, torch.zeros(1, 5, 2, 4), r,
+                              torch.zeros(2, 8), torch.zeros(1, 2, 8, 4),
+                              chunk=4)
+    assert o.shape == (1, 5, 2, 4)
+    t = torch.zeros(2, 5, 8)
+    assert ops.linear_attn(t, t, torch.zeros(2, 5, 4), t, torch.zeros(2, 8),
+                           chunk=4).shape == (2, 5, 4)
+    assert card.calls == ["wkv_bshk_launch", "linear_attn_launch"]
+    counts = ops.launch_counts()
+    assert (counts["wkv_bshk"], counts["linear_attn"],
+            counts["plain_calls"]) == (1, 1, 0)
+
+
+def test_wkv_kernels_refuse_what_they_do_not_take(card):
+    r, v = torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 4)
+    u, s0 = torch.zeros(2, 8), torch.zeros(1, 2, 8, 4)
+    with pytest.raises(ValueError, match="chunk must be in"):
+        wkv_bshk_cuda(r, r, v, r, u, s0, chunk=3)        # 4 % 3
+    with pytest.raises(ValueError, match="chunk must be in"):
+        wkv_bshk_cuda(torch.zeros(1, 128, 2, 8), torch.zeros(1, 128, 2, 8),
+                      torch.zeros(1, 128, 2, 4), torch.zeros(1, 128, 2, 8),
+                      u, s0, chunk=128)
+    big = torch.zeros(1, 4, 2, 128)
+    with pytest.raises(ValueError, match="K, V <= 64"):
+        wkv_bshk_cuda(big, big, v, big, torch.zeros(2, 128),
+                      torch.zeros(1, 2, 128, 4), chunk=4)
+    with pytest.raises(ValueError, match="state0 must be float32"):
+        wkv_bshk_cuda(r, r, v, r, u, s0.double(), chunk=4)
+    with pytest.raises(ValueError, match="unsupported dtypes"):
+        wkv_bshk_cuda(r, r.double(), v, r, u, s0, chunk=4)
+    with pytest.raises(ValueError, match="do not match"):
+        wkv_bshk_cuda(r, r, v, r, torch.zeros(3, 8), s0, chunk=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_bshk_cuda(r.transpose(1, 2), r, v, r, u, s0, chunk=4)
     assert card.calls == []
