@@ -66,6 +66,24 @@ Phases (any failure exits non-zero):
    may run.  A batched prefill and a decode step are held against the
    plain versions, and decode logits after t streamed tokens against one
    prefill of the prompt plus those tokens (5% of the largest logit).
+9. the self-adaptive paths.  Path A (``launch/selfadaptive_gemm.py``, the
+   reference's ``examples/selfadaptive_gemm.py``) trains a raw-encoding
+   ADAPTNET-TPU on the card (60 000 samples, 8 epochs), asks the ADAPTNETX
+   kernel for the tile of each of the first 10 synthetic Table-IV GEMMs
+   and runs each through the RSA GEMM in f32: one ADAPTNETX launch per
+   layer; each layer's logits against the plain version (the reference's
+   rtol = atol = 1e-5), its pick against the host twin ``logits_np``, its
+   GEMM against the plain GEMM.
+   Path B trains a logbucket net over llama3.2-1b's serving shapes on the
+   card (30 000 samples, 5 epochs), saves it and serves llama3.2-1b at
+   full width (bf16, phase 4's weights) through ``serve_continuous(...,
+   dispatcher="adaptnet")`` on 8 requests: every request must finish
+   leak-free, the net must decide sites (fallbacks exactly the shapes
+   past its range), every plan line must say ``@kernel`` and no plain
+   version may run; a chunk-prefill and a decode step under the net's
+   plan are held against the plain versions (5%).  The card trains its
+   own nets (it has no JAX), so its picks show plumbing and agreement
+   with the host twin, not quality on the H100.
 
 Phase 3 also holds the two paged MLA kernels (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts) and the bank GEMM (the
@@ -74,7 +92,9 @@ W_UV) against their plain versions at phase 6's shapes, and the three
 flash-attention kernels (forward, dq, dk/dv) and every training GEMM
 (forward, dx and dw of each site, f32) at phase 7's shapes, and the WKV
 kernel (prefill, ragged with decays down to -e, the chunk-1 decode, the
-state carry) and the linear-attention kernel at phase 8's widths.
+state carry) and the linear-attention kernel at phase 8's widths, and the
+ADAPTNETX kernel (75, 108 and 135 classes; the reference's ids, ids past
+the table, a batch of 64) beside the host twin's time per query.
 
 The lines before the last are the JSON kernel table, then the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  The
@@ -110,7 +130,11 @@ FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attn.py:123",
              "flash_dkv": "src/repro/kernels/flash_attn.py:282"}
 LINEAR_TPU = {"wkv_bshk": "src/repro/kernels/linear_attn.py:106",
               "linear_attn": "src/repro/kernels/linear_attn.py:141"}
+ADAPTNETX_TPU = "src/repro/kernels/adaptnetx.py:31"
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 4     # phase 7's batch and steps
+SA_SAMPLES, SA_EPOCHS, SA_LAYERS = 60_000, 8, 10   # phase 9, path A
+SB_SAMPLES, SB_EPOCHS = 30_000, 5                  # phase 9, path B
+SB_REQUESTS, SB_GEN = 8, 16
 
 
 def log(*a):
@@ -1136,6 +1160,89 @@ def check_wkv(torch, report, timer, rcfg):
         f" launched it {launches} time): max_abs_err {err:.3e} (tol "
         f"{tol:.3e}) {'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms "
         f"plain {rec['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    return ok
+
+
+def adaptnetx_bound(p, B):
+    """(bound ms, what bounds it) of B queries: the weights read once,
+    each query's three embedding rows, ids and logits; 2 x (3E x H + H x
+    C) f32 operations a query."""
+    E, (H, C) = p["emb_m"].shape[1], p["w2"].shape
+    nbytes = 4 * (3 * E * H + H + H * C + C) + B * 4 * (3 * E + 3 + C)
+    return bound_ms(nbytes, B * 2.0 * (3 * E * H + H * C), PEAK_F32_FLOPS)
+
+
+def adaptnetx_close(got, want) -> bool:
+    """The reference's own tolerance for its kernel (``assert_allclose``
+    with rtol = atol = 1e-5): f32 sums of 48 and 128 terms in another
+    order."""
+    return bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+
+
+def check_adaptnetx(torch, report, timer):
+    """The ADAPTNETX kernel against its plain version at 75, 108 and 135
+    classes (the reference's tests' and the port's tile space): the
+    reference's kernel-test ids, ids past the table and negative
+    (clamped), and a batch of 64 queries; tolerance the reference's own
+    (``adaptnetx_close``).  Each case is timed, kernel and plain, through
+    ``ops.adaptnetx_recommend``; the host twin ``logits_np`` is timed per
+    query on the host clock beside it, as context (what the serving
+    dispatcher pays per cache miss).  No single PyTorch call computes
+    this function: no library time."""
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.core.adaptnet import (AdaptNetConfig, init_params,
+                                           logits_np)
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    ok = True
+    for C in (75, 108, 135):
+        p = init_params(gen, AdaptNetConfig(num_classes=C))
+        # nonzero biases, so a bias the kernel dropped would show
+        p["b1"] = torch.randn(p["b1"].shape, generator=gen,
+                              device="cuda") * 0.1
+        p["b2"] = torch.randn(p["b2"].shape, generator=gen,
+                              device="cuda") * 0.1
+        host = {k: v.cpu().numpy() for k, v in p.items()}
+        batch = torch.randint(-10, 12_000, (64, 3), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        for name, ids in (("[1,1,1]", [1, 1, 1]),
+                          ("[9999,5000,1]", [9999, 5000, 1]),
+                          ("[123,4567,8910]", [123, 4567, 8910]),
+                          ("past the table", [20_000, -3, 10_001]),
+                          ("batch 64", batch)):
+            ids = torch.as_tensor(ids, dtype=torch.int32, device="cuda")
+            B = 1 if ids.dim() == 1 else ids.shape[0]
+
+            def run(mode):
+                with dispatch.use(execute=mode):
+                    return ops.adaptnetx_recommend(ids, p)
+            got, want = run("kernel"), run("torch")
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            good = adaptnetx_close(got, want) and got.shape == want.shape \
+                and bool(torch.isfinite(got).all())
+            ok &= good
+            ids_np = ids.reshape(-1, 3).cpu().numpy()
+            logits_np(host, ids_np[:1])
+            t0 = time.perf_counter()
+            for row in ids_np:
+                logits_np(host, row[None])
+            host_ms = (time.perf_counter() - t0) * 1e3 / B
+            b_ms, b_by = adaptnetx_bound(p, B)
+            rec = {"kernel": "adaptnetx", "C": C, "case": name, "B": B,
+                   "max_abs_err": err, "tol": "1e-5 + 1e-5 |plain|",
+                   "ok": good, "ms": timer(lambda: run("kernel")),
+                   "plain_ms": timer(lambda: run("torch")),
+                   "host_logits_np_ms_per_query": host_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            report["adaptnetx"].append(rec)
+            log(f"  adaptnetx C={C} {name:<16} B={B}: max_abs_err {err:.3e}"
+                f" (tol 1e-5 + 1e-5 |plain|) {'ok' if good else 'FAIL'}  "
+                f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+                f"bound {b_ms:.6f} ms ({b_by}); host logits_np {host_ms:.4f} ms "
+                f"a query (host clock)")
     return ok
 
 
@@ -2220,17 +2327,234 @@ def time_breakdown(report, path, gemm_keys, counts):
     mp["time_breakdown"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the self-adaptive paths (ADAPTNET trained and served)
+# ---------------------------------------------------------------------------
+
+def top2_gap(logits) -> float:
+    top = logits.topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def selfadaptive_gemm_path(torch, report):
+    """Path A: ``launch.selfadaptive_gemm.run`` as a user runs it, with
+    the counts at 0 just before; then each layer's ADAPTNETX logits
+    against the plain version, its pick against the host twin, its GEMM
+    against the plain GEMM.  Returns (ok, counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.adaptnetx import OPERANDS, adaptnetx_plain
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
+    from repro_torch.launch.selfadaptive_gemm import run
+
+    ops.reset_counts()
+    t0 = time.time()
+    res = run(n_samples=SA_SAMPLES, epochs=SA_EPOCHS, layers=SA_LAYERS,
+              seed=0, device="cuda", log=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    ok = (counts["adaptnetx"] == SA_LAYERS and counts["plain_calls"] == 0
+          and counts["rsa_gemm"] > 0)
+    p = res["params"]
+    layers = []
+    for r in res["layers"]:
+        want = adaptnetx_plain(r["ids"][None], *(p[k] for k in OPERANDS))[0]
+        plain = rsa_gemm_plain(r["a"], r["b"], block_k=r["cfg"].block_k,
+                               mode=r["cfg"].mode)
+        torch.cuda.synchronize()
+        err = (r["logits"] - want).abs().max().item()
+        gap = top2_gap(want)
+        pick_ok = r["cid"] == r["host_cid"] or \
+            gap <= 2e-5 * (1 + want.abs().max().item())
+        g_err = (r["out"] - plain).abs().max().item()
+        g_tol = gemm_tolerance(torch, r["a"], r["b"], plain, r["cfg"].mode,
+                               r["cfg"].block_k, True)
+        good = adaptnetx_close(r["logits"], want) and pick_ok and \
+            g_err <= g_tol
+        ok &= good
+        layers.append({"name": r["name"], "M": r["M"], "K": r["K"],
+                       "N": r["N"], "tile": r["cfg"].describe(),
+                       "class": r["cid"], "host_class": r["host_cid"],
+                       "top2_gap": gap, "logits_max_abs_err": err,
+                       "gemm_max_abs_err": g_err, "gemm_tol": g_tol,
+                       "gemm_ms": r["ms"], "ok": good})
+        log(f"  A {r['name']:>4} {r['M']}x{r['K']}x{r['N']}: ADAPTNETX "
+            f"class {r['cid']} [{r['cfg'].describe()}], host twin "
+            f"{r['host_cid']}; logits err {err:.2e} (tol 1e-5 + 1e-5 "
+            f"|plain|); f32 GEMM "
+            f"err {g_err:.2e} (tol {g_tol:.2e}) {r['ms']:.4f} ms "
+            f"{'ok' if good else 'FAIL'}")
+    report["selfadaptive_gemm"] = {
+        "samples": SA_SAMPLES, "epochs": SA_EPOCHS, "wall_s": wall,
+        "test_accuracy": res["accuracy"],
+        "geomean_rel_time_tpu_model": res["geomean_rel_time"],
+        "counts": counts, "layers": layers}
+    log(f"  A: trained in-run, test accuracy {res['accuracy']:.4f} "
+        f"(TPU cost model's geomean pick/best {res['geomean_rel_time']:.4f},"
+        f" a TPU-model number); {counts['adaptnetx']} ADAPTNETX launches "
+        f"(expected {SA_LAYERS}), {counts['rsa_gemm']} RSA GEMM launches, "
+        f"plain_calls {counts['plain_calls']}; {wall:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, counts
+
+
+def adaptnet_serving_path(torch, report):
+    """Path B: a logbucket net trained on the card over llama3.2-1b's
+    serving shapes and saved; llama3.2-1b served at full width (bf16,
+    phase 4's weights: seed 0) through ``serve_continuous(...,
+    dispatcher="adaptnet")`` with it; then a chunk-prefill and a decode
+    step under the net's plan against the plain versions (5%, as phase
+    4)."""
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.core.adaptnet import trained_max_dim
+    from repro_torch.core.sara import SaraDispatcher
+    from repro_torch.dispatch.executor import _clamped_blocks
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.launch.train_adaptnet import (save_adaptnet,
+                                                   serving_gemm_shapes,
+                                                   train_serving_adaptnet)
+
+    t0 = time.time()
+    params, info = train_serving_adaptnet(
+        SB_SAMPLES, SB_EPOCHS, shapes=serving_gemm_shapes(("llama3.2-1b",)),
+        seed=0, log=False, device="cuda")
+    ckpt = ROOT / "build" / "chip_smoke_adaptnet"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save_adaptnet(str(ckpt), params, info)
+    train_s = time.time() - t0
+    ops.reset_counts()
+    t1 = time.time()
+    outputs, engine = serve_continuous(
+        arch="llama3.2-1b", preset="full", num_requests=SB_REQUESTS,
+        num_slots=8, prompt_len=512, min_prompt_len=64, gen=SB_GEN,
+        temperature=0.0, top_k=0, seed=0, execute="auto", prefill_chunk=64,
+        block_size=16, clock="wall", device="cuda", dispatcher="adaptnet",
+        adaptnet_ckpt=str(ckpt), log=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    counts = ops.launch_counts()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    s = engine.summary()
+    done = [r for r in engine.requests.values() if r.outcome == "done"]
+    engine.pool.check()
+    disp = engine.dispatcher
+    dim_max = trained_max_dim(disp.adaptnet_params)
+    recs = [r for sc in engine.registry.scopes()
+            for r in engine.registry.sites(sc).values()]
+    fallback = {(r.m, r.k, r.n) for r in recs if r.source == "oracle_fallback"}
+    past = {(r.m, r.k, r.n) for r in recs if max(r.m, r.k, r.n) > dim_max}
+    oracle = SaraDispatcher()
+    differ = sum(r.executed() != _clamped_blocks(
+        oracle.recommend(r.m, r.k, r.n), r.m, r.k, r.n) +
+        (oracle.recommend(r.m, r.k, r.n).mode,) for r in recs)
+    ok = (len(done) == SB_REQUESTS
+          and all(len(v) == SB_GEN for v in outputs.values())
+          and engine.pool.num_free == engine.pool.num_blocks
+          and disp.mode == "adaptnet" and s["rec_adaptnet_sites"] > 0
+          and fallback == past and all(r.backend == "kernel" for r in recs)
+          and all("@kernel" in d for d in engine.gemm_plan.values())
+          and counts["plain_calls"] == 0 and counts["rsa_gemm"] > 0
+          and counts["paged_decode"] > 0 and counts["paged_prefill"] > 0)
+    main = report.get("main_path", {})
+    res = report["adaptnet_serving"] = {
+        "train_samples": SB_SAMPLES, "train_epochs": SB_EPOCHS,
+        "train_s": train_s, "net_accuracy": info["accuracy"],
+        "geomean_rel_time_tpu_model": info["geomean_rel_time"],
+        "dim_max": dim_max, "requests": SB_REQUESTS,
+        "completed": len(done), "wall_s": wall, "counts": counts,
+        "rec_adaptnet_sites": s["rec_adaptnet_sites"],
+        "rec_oracle_sites": s["rec_oracle_sites"],
+        "rec_fallback_sites": s["rec_fallback_sites"],
+        "executed_sites": len(recs), "sites_tiled_unlike_oracle": differ,
+        "source_info": disp.source_info(),
+        "ttft_p50_s": s["ttft_p50_s"], "ttft_p99_s": s["ttft_p99_s"],
+        "decode_tok_s": s["decode_tok_s"],
+        "main_path_ttft_p50_s": main.get("ttft_p50_s"),
+        "main_path_decode_tok_s": main.get("decode_tok_s"),
+        "gemm_plan": engine.gemm_plan,
+        "pool_leak_free": engine.pool.num_free == engine.pool.num_blocks}
+    log(f"  B: net trained in-run in {train_s:.1f} s (test accuracy "
+        f"{info['accuracy']:.4f}, dim_max {dim_max}); served "
+        f"{len(done)}/{SB_REQUESTS} in {wall:.2f} s, mode {disp.mode}, "
+        f"rec_adaptnet_sites {s['rec_adaptnet_sites']}, rec_fallback_sites "
+        f"{s['rec_fallback_sites']} (shapes past dim_max: {len(past)}), "
+        f"plain_calls {counts['plain_calls']} {'ok' if ok else 'FAIL'}")
+    log(f"  B: {differ} of {len(recs)} executed sites tiled unlike the "
+        f"oracle; ttft p50 {s['ttft_p50_s']:.4f} s, decode "
+        f"{s['decode_tok_s']:.1f} tok/s (phase 4, oracle, 16 requests of "
+        f"32 tokens: {main.get('ttft_p50_s', float('nan')):.4f} s, "
+        f"{main.get('decode_tok_s', float('nan')):.1f} tok/s; context only)")
+    log("  executed gemm plan (adaptnet):")
+    for site, desc in engine.gemm_plan.items():
+        log(f"    {site:<16} {desc}")
+
+    # one chunk-prefill and one decode step under the net's plan, kernels
+    # against the plain versions, as phase 4
+    model, wts, cfg = engine.model, engine.params, engine.cfg
+    rng = np.random.default_rng(7)
+    S, C, bs = 8, 64, 16
+    W = -(-(C + 1) // bs)
+    tables = torch.arange(S * W, dtype=torch.int32,
+                          device="cuda").reshape(S, W)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (S, C)),
+                           device="cuda")
+    chunk = torch.as_tensor([64, 64, 40, 17, 64, 1, 33, 64],
+                            dtype=torch.int32, device="cuda")
+    kv0 = torch.zeros(S, dtype=torch.int32, device="cuda")
+    out = {}
+    nxt = None
+    for mode in ("torch", "kernel"):
+        arena = model.init_paged_arena(S * W + 1, bs)
+        with torch.no_grad(), dispatch.use(disp, execute=mode):
+            pl, _ = model.paged_prefill_step(wts, toks, arena, tables, kv0,
+                                             chunk)
+            if nxt is None:
+                nxt = pl.argmax(-1)[:, None]
+            dl, _ = model.paged_decode_step(
+                wts, nxt, arena, tables, chunk,
+                torch.ones(S, dtype=torch.int32, device="cuda"))
+        out[mode] = (pl, dl)
+    torch.cuda.synchronize()
+    for i, name in ((0, "prefill"), (1, "decode")):
+        want = out["torch"][i]
+        err = (out["kernel"][i] - want).abs().max().item()
+        tol = 0.05 * want.abs().max().item()
+        g = err <= tol and math.isfinite(err)
+        ok &= g
+        res[f"{name}_logits_max_abs_err"] = err
+        res[f"{name}_logits_tol"] = tol
+        log(f"  B: {name} step logits under the adaptnet plan, kernels vs "
+            f"plain: max_abs_err {err:.4e} (tol {tol:.4e}) "
+            f"{'ok' if g else 'FAIL'}")
+    return ok
+
+
 def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
     ``counts`` holds each kernel's launches on the path that runs it
     (phase 4 for the GEMM, decode and prefill, phase 5 for the cascade
     kernels, phase 6 for the MLA kernels, phase 7 for the flash kernels,
     phase 8 for the WKV kernel, the one entry-point call of phase 3 for
-    linear attention); ``ds_keys`` phase 6's GEMM launches by shape (its
-    2-D shapes and its banks), ``train_keys`` phase 7's, ``rw_keys``
-    phase 8's."""
+    linear attention, phase 9's path A for ADAPTNETX); ``ds_keys`` phase
+    6's GEMM launches by shape (its 2-D shapes and its banks),
+    ``train_keys`` phase 7's, ``rw_keys`` phase 8's."""
     out = []
     gemm_src = "src/repro_torch/kernels/csrc/rsa_gemm.cu"
+    # ADAPTNETX at path A's shape: one query over the port's 135 classes
+    ax = [r for r in report["adaptnetx"] if r["C"] == 135]
+    one = next(r for r in ax if r["case"] == "[123,4567,8910]")
+    path_a = max(lay["logits_max_abs_err"]
+                 for lay in report["selfadaptive_gemm"]["layers"])
+    out.append({
+        "name": "adaptnetx[C=135 B=1]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adaptnetx.cu",
+        "replaces": ADAPTNETX_TPU, "launches": counts["adaptnetx"],
+        "max_abs_err": max([r["max_abs_err"] for r in ax] + [path_a]),
+        "ms": one["ms"], "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        "library_ms": None})
     launches = dict(report["rwkv_path"]["wkv_launches"],
                     main=counts["linear_attn"])
     for rec in report["wkv"]:
@@ -2350,7 +2674,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"gemm": [], "paged": [], "bank": [], "mla": [], "flash": [],
-              "train_gemm": [], "wkv": [], "rwkv_gemm": []}
+              "train_gemm": [], "wkv": [], "rwkv_gemm": [], "adaptnetx": []}
     t_start = time.time()
 
     log("== 1. environment")
@@ -2396,6 +2720,7 @@ def main() -> int:
         ok &= check_flash(torch, report, timer, cfg)
         ok &= check_train_gemms(torch, report, cfg, dispatcher)
         ok &= check_wkv(torch, report, timer, get_arch("rwkv6-1.6b"))
+        ok &= check_adaptnetx(torch, report, timer)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -2433,6 +2758,17 @@ def main() -> int:
                                                  dispatcher)
     ok &= rw_ok
     rwkv_breakdown(report, rw_keys, rw_counts, rw_pre)
+    torch.cuda.empty_cache()
+
+    log("== 9. self-adaptive paths: (A) ADAPTNET-TPU trained, ADAPTNETX "
+        "picks each GEMM's tile; (B) adaptnet-mode serving, llama3.2-1b full "
+        "width")
+    t9 = time.time()
+    sa_ok, sa_counts = selfadaptive_gemm_path(torch, report)
+    ok &= sa_ok
+    ok &= adaptnet_serving_path(torch, report)
+    report["phase9_s"] = time.time() - t9
+    log(f"  phase 9 took {report['phase9_s']:.1f} s")
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")
     counts = dict(counts, paged_decode_lse=cp_counts["paged_decode_lse"],
                   paged_prefix=cp_counts["paged_prefix"],
@@ -2442,7 +2778,8 @@ def main() -> int:
                   flash_dq=tr_counts["flash_dq"],
                   flash_dkv=tr_counts["flash_dkv"],
                   wkv_bshk=rw_counts["wkv_bshk"],
-                  linear_attn=la["entry_point_launches"])
+                  linear_attn=la["entry_point_launches"],
+                  adaptnetx=sa_counts["adaptnetx"])
 
     report["ok"] = bool(ok)
     report["seconds"] = time.time() - t_start

@@ -61,6 +61,10 @@ SIGNATURES = {
         "wkv_bshk_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
         "linear_attn_launch": [_I] + [_P] * 6 + [_I] * 5 + [_P],
     },
+    "adaptnetx": {
+        "adaptnetx_launch": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _I, _P,
+                                                              _I, _P],
+    },
 }
 
 _LOCK = threading.Lock()

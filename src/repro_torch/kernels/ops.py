@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.adaptnetx import (OPERANDS, adaptnetx_cuda,
+                                           adaptnetx_plain)
 from repro_torch.kernels.flash_attn import (
     flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda, flash_dq_plain,
     flash_fwd_cuda, flash_fwd_plain)
@@ -257,6 +259,25 @@ def linear_attn(r, k, v, logw, u, chunk: int = 64) -> torch.Tensor:
     return o[:, :S]
 
 
+def adaptnetx_recommend(ids, params: Dict[str, torch.Tensor]
+                        ) -> torch.Tensor:
+    """Fused ADAPTNET queries on a raw-encoding net (``core/adaptnet.py``):
+    ids (3,) -> (C,) f32 logits, as the reference's wrapper, or a batch
+    (B, 3) -> (B, C).  ``w1, b1, w2, b2`` are cast to f32 as the
+    reference's kernel call casts them, and the tables too (a no-op for
+    the f32 nets ``core/adaptnet.py`` makes); ids move to the params'
+    device.  The argmax is left to the caller."""
+    w1 = params["w1"]
+    q = torch.as_tensor(ids, device=w1.device)
+    if q.shape[-1:] != (3,) or q.dim() > 2:
+        raise ValueError(f"ids must be (3,) or (B, 3), got {tuple(q.shape)}")
+    q2 = q.reshape(-1, 3).to(torch.int32).contiguous()
+    t = [params[k].float().contiguous() for k in OPERANDS]
+    fn = adaptnetx_plain if _backend(w1) == "torch" else adaptnetx_cuda
+    out = fn(q2, *t)
+    return out[0] if q.dim() == 1 else out
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches, and calls of the plain versions, since the last
     ``reset_counts``."""
@@ -272,6 +293,7 @@ def launch_counts() -> Dict[str, int]:
             "flash_dkv": flash_dkv_cuda.launches,
             "wkv_bshk": wkv_bshk_cuda.launches,
             "linear_attn": linear_attn_cuda.launches,
+            "adaptnetx": adaptnetx_cuda.launches,
             "plain_calls": rsa_gemm_plain.calls + paged_attention_plain.calls
             + paged_prefill_attention_plain.calls
             + paged_attention_lse_plain.calls
@@ -280,7 +302,7 @@ def launch_counts() -> Dict[str, int]:
             + paged_mla_prefill_attention_plain.calls
             + flash_fwd_plain.calls + flash_dq_plain.calls
             + flash_dkv_plain.calls + wkv_bshk_plain.calls
-            + linear_attn_plain.calls}
+            + linear_attn_plain.calls + adaptnetx_plain.calls}
 
 
 def reset_counts() -> None:
@@ -299,6 +321,7 @@ def reset_counts() -> None:
     wkv_bshk_cuda.launches = 0
     wkv_bshk_cuda.launches_by_chunk = {}
     linear_attn_cuda.launches = 0
+    adaptnetx_cuda.launches = 0
     rsa_gemm_plain.calls = 0
     paged_attention_plain.calls = 0
     paged_prefill_attention_plain.calls = 0
@@ -311,3 +334,4 @@ def reset_counts() -> None:
     flash_dkv_plain.calls = 0
     wkv_bshk_plain.calls = 0
     linear_attn_plain.calls = 0
+    adaptnetx_plain.calls = 0

@@ -7,12 +7,16 @@
       --requests 16 --slots 8 --prompt-len 512 --gen 32 --prefill-chunk 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --preset reduced --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --dispatcher adaptnet --adaptnet-ckpt build/adaptnet
 
 The layout follows the model's family: the attention families are served
 from the paged KV arena with chunked prefill (64 tokens unless
 ``--prefill-chunk`` says otherwise), the recurrent ones (rwkv6-1.6b) from
-the dense per-slot state with whole-prompt prefill.  The WKV kernel route
-of rwkv6-1.6b is the reference's optimized profile:
+the dense per-slot state with whole-prompt prefill.  ``--dispatcher
+adaptnet --adaptnet-ckpt DIR`` tiles every GEMM site with a trained
+ADAPTNET-TPU (``launch/train_adaptnet.py``) instead of the oracle.  The
+WKV kernel route of rwkv6-1.6b is the reference's optimized profile:
 ``serve_continuous(override_cfg=get_arch("rwkv6-1.6b", optimized=True))``.
 
 Runs on CUDA unless ``--device cpu`` is given (the CPU runs the kernels'
@@ -41,6 +45,9 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      shared_prefix_decode: bool = False,
                      shared_prefix_len: int = 0,
                      clock: str = "steps", device: Optional[str] = None,
+                     dispatcher: str = "oracle",
+                     adaptnet_ckpt: Optional[str] = None,
+                     defrag_threshold: Optional[float] = None,
                      override_cfg=None, log: bool = True):
     """Serve a request set through the continuous-batching engine.  With
     ``kv_layout`` and ``prefill_chunk`` "auto" the attention families run
@@ -54,7 +61,10 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
     ``shared_prefix_decode`` adds cascade decode over the shared pages.
     ``execute`` selects how the kernels run ("auto": CUDA kernels for CUDA
     tensors, plain PyTorch on the CPU; "kernel"; "torch"); ``clock`` is the
-    engine's ("steps" or "wall").  Returns ({rid: tokens}, engine)."""
+    engine's ("steps" or "wall").  ``dispatcher`` is the recommendation
+    source: "oracle", or "adaptnet" with the net saved in
+    ``adaptnet_ckpt``; ``defrag_threshold`` turns on the engine's
+    auto-defrag.  Returns ({rid: tokens}, engine)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.serving import EngineConfig, Request, ServingEngine
 
@@ -69,7 +79,9 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         block_size=block_size, temperature=temperature, top_k=top_k,
         seed=seed, clock=clock, execute=execute, kv_layout=kv_layout,
         prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-        shared_prefix_decode=shared_prefix_decode), device=device)
+        shared_prefix_decode=shared_prefix_decode, dispatcher_mode=dispatcher,
+        adaptnet_dir=adaptnet_ckpt, defrag_threshold=defrag_threshold),
+        device=device)
     shared = (rng.integers(0, cfg.vocab_size,
                            min(shared_prefix_len, prompt_len)).astype(np.int32)
               if shared_prefix_len > 0 else None)
@@ -128,6 +140,14 @@ def main():
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help=">0: every prompt opens with the same token run "
                          "of this length (a system prompt)")
+    ap.add_argument("--dispatcher", default="oracle",
+                    choices=["oracle", "adaptnet"],
+                    help="GEMM tile recommendation source")
+    ap.add_argument("--adaptnet-ckpt", default=None,
+                    help="trained ADAPTNET-TPU dir (launch.train_adaptnet)")
+    ap.add_argument("--defrag-threshold", type=float, default=None,
+                    help="auto-defragment the KV pool from the engine "
+                         "whenever fragmentation exceeds this fraction")
     ap.add_argument("--clock", default="wall", choices=["wall", "steps"])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -135,6 +155,8 @@ def main():
     ap.add_argument("--smoke", action="store_true",
                     help="fast smoke: tiny greedy trace, assert completion")
     a = ap.parse_args()
+    picks = dict(dispatcher=a.dispatcher, adaptnet_ckpt=a.adaptnet_ckpt,
+                 defrag_threshold=a.defrag_threshold)
     if a.smoke and a.prefix_cache:
         # a shared-prefix workload served twice, cache off then cache on
         # (plus cascade decode when asked): the greedy tokens must agree
@@ -142,7 +164,8 @@ def main():
         common = dict(arch=a.arch, num_requests=4, num_slots=2,
                       prompt_len=24, gen=6, temperature=0.0,
                       execute=a.execute, prefill_chunk=8,
-                      shared_prefix_len=16, device=a.device, log=False)
+                      shared_prefix_len=16, device=a.device, log=False,
+                      **picks)
         base, _ = serve_continuous(**common)
         outputs, engine = serve_continuous(
             **common, prefix_cache=True,
@@ -174,7 +197,7 @@ def main():
         outputs, engine = serve_continuous(
             arch=a.arch, preset=a.preset, num_requests=3, num_slots=2,
             prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
-            prefill_chunk=a.prefill_chunk, device=a.device)
+            prefill_chunk=a.prefill_chunk, device=a.device, **picks)
         if not all(len(v) == 6 for v in outputs.values()):
             raise SystemExit(f"smoke failed: {outputs}")
         engine.pool.check()
@@ -183,6 +206,15 @@ def main():
         if "unembed" not in engine.gemm_plan:
             raise SystemExit(f"smoke failed: no unembed site in "
                              f"{engine.gemm_plan}")
+        if a.dispatcher == "adaptnet":
+            # the learned model, not the oracle, must have driven dispatch
+            src = engine.dispatcher.source_info()
+            if engine.dispatcher.mode != "adaptnet" or not (
+                    src["adaptnet"] > 0 or src["oracle_fallback"] > 0):
+                raise SystemExit(f"smoke failed: adaptnet did not dispatch "
+                                 f"({engine.dispatcher.mode}, {src})")
+            print(f"serving smoke OK (adaptnet: {src})")
+            return
         print("serving smoke OK")
         return
     serve_continuous(arch=a.arch, preset=a.preset, num_requests=a.requests,
@@ -193,7 +225,7 @@ def main():
                      prefix_cache=a.prefix_cache,
                      shared_prefix_decode=a.shared_prefix_decode,
                      shared_prefix_len=a.shared_prefix_len, clock=a.clock,
-                     device=a.device)
+                     device=a.device, **picks)
 
 
 if __name__ == "__main__":

@@ -53,11 +53,18 @@ The dense slot layout (recurrent families: RWKV6), whole-prompt prefill:
   port batches the lanes, so the decode GEMMs record M = num_slots where
   the reference's vmapped trace records M = 1.
 
+``EngineConfig.dispatcher_mode`` selects the recommendation source:
+``"oracle"`` (exhaustive tile-space search) or ``"adaptnet"`` (a trained
+ADAPTNET-TPU loaded from ``adaptnet_dir``, with the oracle as the
+fallback for shapes outside its trained range); ``dispatch_stats`` counts
+the executed sites each source decided.  ``defrag_threshold`` compacts
+the page pool after any step that leaves ``pool.fragmentation()`` above
+it (``kv_defrag_auto`` counts those steps).
+
 Parts of the reference engine that are not ported (the dense KV layout of
 the attention families and their bucketed prefill, speculative decoding,
-the chaos harness, the sanitizer, snapshots, span tracing, ADAPTNET
-dispatch) raise ``ValueError`` when their config field is set; nothing is
-ignored.
+the chaos harness, the sanitizer, snapshots, span tracing) raise
+``ValueError`` when their config field is set; nothing is ignored.
 
 The clock is either ``"wall"`` (live serving; every step ends in a device
 synchronisation) or ``"steps"`` (virtual time in engine-step units —
@@ -157,9 +164,12 @@ class EngineConfig:
     kv_layout: str = "auto"           # "paged" | "dense" | "auto" (by family)
     prefix_cache: bool = False        # cross-request prefix cache
     shared_prefix_decode: bool = False  # cascade decode (needs prefix_cache)
+    dispatcher_mode: str = "oracle"   # tile source: "oracle" | "adaptnet"
+    adaptnet_dir: Optional[str] = None  # trained ADAPTNET-TPU checkpoint dir
+    # auto-defrag: compact the pool after any step that leaves
+    # fragmentation() above this threshold (None = manual defrag() only)
+    defrag_threshold: Optional[float] = None
     # not ported — setting any of these raises
-    dispatcher_mode: str = "oracle"
-    adaptnet_dir: Optional[str] = None
     buckets: Optional[Sequence[int]] = None
     spec_draft: Optional[str] = None
     sanitize: bool = False
@@ -179,7 +189,6 @@ def _check_ported(e: EngineConfig) -> None:
         "snapshot_dir": e.snapshot_dir is not None,
         "trace": e.trace,
         "buckets (bucketed prefill)": e.buckets is not None,
-        "adaptnet_dir": e.adaptnet_dir is not None,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -193,9 +202,6 @@ def _check_ported(e: EngineConfig) -> None:
             not isinstance(e.prefill_chunk, int) or e.prefill_chunk < 1):
         raise ValueError(f"prefill_chunk must be 'auto', None or an int >= "
                          f"1, got {e.prefill_chunk!r}")
-    if e.dispatcher_mode != "oracle":
-        raise ValueError(f"dispatcher_mode {e.dispatcher_mode!r} is not "
-                         "ported (only 'oracle')")
     if e.clock not in ("steps", "wall"):
         raise ValueError(f"unknown clock {e.clock!r}")
     if e.execute not in dispatch.EXECUTE_MODES:
@@ -269,7 +275,7 @@ class ServingEngine:
             raise ValueError(f"params live on {self.params['embed'].device}, "
                              f"the engine on {self.device}")
         self.dispatcher = dispatcher if dispatcher is not None \
-            else SaraDispatcher()
+            else self._build_dispatcher(e)
         self.metrics = ServingMetrics()
         self.kv_layout, chunk = _resolve_layout(cfg, e)
         # no prompt exceeds max_len, so a larger chunk would only pad the
@@ -324,6 +330,21 @@ class ServingEngine:
         self.gemm_plan: Dict[str, str] = {}
         self.plan_changes = 0
         self.steps = 0
+        self.defrag_auto = 0             # steps that ended in an auto-defrag
+
+    @staticmethod
+    def _build_dispatcher(ecfg: EngineConfig) -> SaraDispatcher:
+        if ecfg.dispatcher_mode == "adaptnet":
+            if not ecfg.adaptnet_dir:
+                raise ValueError(
+                    "dispatcher_mode='adaptnet' needs adaptnet_dir: a "
+                    "checkpoint saved by `python -m repro_torch.launch."
+                    "train_adaptnet --out <dir>`")
+            return SaraDispatcher.from_checkpoint(ecfg.adaptnet_dir)
+        if ecfg.dispatcher_mode != "oracle":
+            raise ValueError(f"unknown dispatcher_mode "
+                             f"{ecfg.dispatcher_mode!r}")
+        return SaraDispatcher()
 
     # -- time -----------------------------------------------------------------
     def now(self) -> float:
@@ -592,6 +613,10 @@ class ServingEngine:
         if self.sched.idle():
             return False
         self._step_body()
+        thr = self.ecfg.defrag_threshold
+        if thr is not None and self.pool.fragmentation() > thr:
+            self.defrag_auto += 1
+            self.defrag()
         self._vtime += 1.0
         self.steps += 1
         return True
@@ -792,23 +817,36 @@ class ServingEngine:
     def dispatch_stats(self) -> Dict[str, int]:
         """Executed-GEMM dispatch telemetry (registry-backed)."""
         backends: Dict[str, int] = {}
+        sources: Dict[str, int] = {}
         for scope in self.registry.scopes():
             for b, c in self.registry.backends(scope).items():
                 backends[b] = backends.get(b, 0) + c
+            for s, c in self.registry.sources(scope).items():
+                sources[s] = sources.get(s, 0) + c
         return {"gemm_plan_changes": self.plan_changes,
                 "gemm_sites_executed": len(self.gemm_plan),
                 "gemm_traced_scopes": len(self.registry.scopes()),
                 "gemm_kernel_sites": backends.get("kernel", 0),
                 "gemm_torch_sites": backends.get("torch", 0),
-                "rec_oracle_sites": sum(
-                    self.registry.sources(s).get("oracle", 0)
-                    for s in self.registry.scopes())}
+                "rec_adaptnet_sites": sources.get("adaptnet", 0),
+                "rec_oracle_sites": sources.get("oracle", 0),
+                "rec_fallback_sites": sources.get("oracle_fallback", 0)}
+
+    def defrag(self) -> int:
+        """Compact live KV pages to the front of the arena between steps:
+        the pool rewrites every block table and (paged layout) mirrors the
+        move map into page storage.  Returns the number of pages moved;
+        the next step reads the remapped tables."""
+        return len(self.pool.defrag())
 
     def summary(self) -> Dict[str, float]:
         s = self.metrics.summary(self.dispatcher.cache_info(),
                                  dispatch=self.dispatch_stats())
         s["kv_layout"] = self.kv_layout
         s["kv_peak_blocks"] = self.pool.peak_in_use
+        s["kv_fragmentation"] = self.pool.fragmentation()
+        s["kv_defrag_block_moves"] = self.pool.defrag_moves
+        s["kv_defrag_auto"] = self.defrag_auto
         s["engine_steps"] = self.steps
         s["kv_shared_pages"] = self.pool.shared_pages
         s["kv_cow_copies"] = self.pool.cow_copies

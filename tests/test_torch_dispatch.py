@@ -71,8 +71,14 @@ def test_cache_info_counts_hits_and_misses():
     assert d.source_info()["oracle"] == 2
     d.cache_clear()
     assert d.cache_info() == {"hits": 0, "misses": 0, "size": 0}
+    # adaptnet mode is ported (tests/test_torch_adaptnet_serving.py); with
+    # no net installed it answers from the oracle, as the reference does,
+    # and an unknown mode raises
+    idle = SaraDispatcher(mode="adaptnet")
+    assert idle.recommend(8, 64, 64) == d.recommend(8, 64, 64)
+    assert idle.source_of(8, 64, 64) == "oracle"
     with pytest.raises(ValueError):
-        SaraDispatcher(mode="adaptnet")
+        SaraDispatcher(mode="pallas")
 
 
 def test_registry_records_what_ran():

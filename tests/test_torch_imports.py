@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +31,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.pipeline", "repro_torch.runtime.driver",
             "repro_torch.launch.steps", "repro_torch.launch.train",
             "repro_torch.kernels.linear_attn", "repro_torch.models.ssm",
-            "repro_torch.configs.rwkv6_1_6b"} <= set(mods)
+            "repro_torch.configs.rwkv6_1_6b", "repro_torch.core.adaptnet",
+            "repro_torch.core.dataset", "repro_torch.core.workloads",
+            "repro_torch.kernels.adaptnetx",
+            "repro_torch.launch.train_adaptnet",
+            "repro_torch.launch.selfadaptive_gemm"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -74,6 +79,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve_continuous(num_requests=1, log=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_continuous(arch="rwkv6-1.6b", num_requests=1, log=False)
+    from repro_torch.core import adaptnet as A
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.sara import train_adaptnet_tpu
+    from repro_torch.launch.selfadaptive_gemm import run
+    from repro_torch.launch.train_adaptnet import train_serving_adaptnet
+    ds = Dataset(np.ones((8, 3), np.int32), np.zeros(8, np.int32), 135)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        A.train(ds, ds, epochs=1, batch=4, log=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_adaptnet_tpu(n_samples=64, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_serving_adaptnet(64, 1, shapes=[(8, 8, 8)], log=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(n_samples=64, epochs=1, layers=1, log=False)
     # an explicit CPU device runs the plain versions
     assert ServingEngine(cfg, EngineConfig(), device="cpu").device.type == \
         "cpu"

@@ -19,7 +19,9 @@ flash kernels are held to the reference's own tolerances for its kernel
 3e-5 absolute + 1e-3 relative on the gradients.  The WKV and linear
 attention kernels sum their f32 dot products in another order than the
 plain versions: 1e-5 of the output's largest magnitude (at least 1e-5),
-plus one bf16 rounding (2^-8 of it) for bf16 outputs.
+plus one bf16 rounding (2^-8 of it) for bf16 outputs.  ADAPTNETX is
+held to the reference's rtol = atol = 1e-5 (f32 sums of 48 and 128 terms
+in another order).
 """
 
 import math
@@ -581,5 +583,96 @@ def test_reduced_rwkv_serve_matches_cpu(cuda, impl):
         counts = ops.launch_counts()
     assert counts["wkv_bshk"] == (2 * calls if impl == "pallas" else 0)
     assert counts["plain_calls"] == 0 and counts["rsa_gemm"] > 0
+    for rid, toks in outs["cpu"].items():
+        assert list(outs["cuda"][rid]) == list(toks), rid
+
+
+def _adaptnetx_params(gen, C, E=16, H=128, rows=10_001):
+    def rn(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+    return {"emb_m": rn(rows, E) * 0.02, "emb_k": rn(rows, E) * 0.02,
+            "emb_n": rn(rows, E) * 0.02, "w1": rn(3 * E, H) / (3 * E) ** 0.5,
+            "b1": rn(H) * 0.1, "w2": rn(H, C) / H ** 0.5, "b2": rn(C) * 0.1}
+
+
+@pytest.mark.parametrize("num_classes", [75, 108, 135])
+def test_adaptnetx_kernel_matches_plain(cuda, num_classes):
+    """The reference's kernel-test ids, ids past the table and negative
+    (clamped), and a batch of 64 queries: rtol = atol = 1e-5, the
+    reference's own tolerance (f32 sums of 48 and 128 terms in another
+    order)."""
+    p = _adaptnetx_params(cuda, num_classes)
+    singles = ([1, 1, 1], [9999, 5000, 1], [123, 4567, 8910],
+               [20000, -3, 10001])
+    batch = torch.randint(-10, 12_000, (64, 3), generator=cuda,
+                          device="cuda", dtype=torch.int32)
+    ops.reset_counts()
+    for ids in list(singles) + [batch]:
+        ids = torch.as_tensor(ids, device="cuda")
+        with dispatch.use(execute="kernel"):
+            got = ops.adaptnetx_recommend(ids, p)
+        with dispatch.use(execute="torch"):
+            want = ops.adaptnetx_recommend(ids, p)
+        assert got.shape == want.shape == ids.shape[:-1] + (num_classes,)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["adaptnetx"] == len(singles) + 1
+    assert counts["plain_calls"] == len(singles) + 1
+
+
+@pytest.mark.parametrize("E,H,C,rows", [(8, 256, 300, 7), (64, 1024, 3, 1),
+                                        (1, 1, 1, 2)])
+def test_adaptnetx_kernel_other_widths(cuda, E, H, C, rows):
+    """Hidden widths above the 128 threads, wide and narrow class counts,
+    the largest embedding width, one-row tables."""
+    p = _adaptnetx_params(cuda, C, E=E, H=H, rows=rows)
+    ids = torch.randint(-2, rows + 3, (33, 3), generator=cuda, device="cuda")
+    with dispatch.use(execute="kernel"):
+        got = ops.adaptnetx_recommend(ids, p)
+    with dispatch.use(execute="torch"):
+        want = ops.adaptnetx_recommend(ids, p)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_reduced_adaptnet_serve_matches_cpu(cuda, tmp_path):
+    """A logbucket net trained by the port on the CPU drives the reduced
+    llama3.2-1b (paged, chunk 8, f32) on the card and on the CPU from the
+    same weights: the same greedy tokens, the same executed tile and
+    source at every site, no plain version on the card."""
+    import numpy as np
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train_adaptnet import (save_adaptnet,
+                                                   serving_gemm_shapes,
+                                                   train_serving_adaptnet)
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_arch("llama3.2-1b").reduced()
+    params, info = train_serving_adaptnet(
+        6000, 2, shapes=serving_gemm_shapes(("llama3.2-1b",), reduced=True),
+        max_dim=256, num_buckets=64, seed=0, log=False, device="cpu")
+    save_adaptnet(str(tmp_path), params, info)
+    ecfg = EngineConfig(num_slots=2, max_len=32, block_size=4,
+                        prefill_chunk=8, temperature=0.0, kv_layout="paged",
+                        dispatcher_mode="adaptnet", adaptnet_dir=str(tmp_path))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 13, 21)]
+    weights = None
+    outs, plans = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, ecfg, device=dev,
+                            params=None if weights is None else
+                            _to(weights, dev))
+        weights = eng.params
+        ops.reset_counts()
+        outs[dev] = eng.run([Request(f"r{i}", p, 6)
+                             for i, p in enumerate(prompts)])
+        plans[dev] = {(s, n): (r.executed(), r.source)
+                      for s in eng.registry.scopes()
+                      for n, r in eng.registry.sites(s).items()}
+        counts = ops.launch_counts()
+        s = eng.summary()
+        assert s["rec_adaptnet_sites"] > 0 and s["rec_fallback_sites"] > 0
+    assert counts["plain_calls"] == 0 and counts["rsa_gemm"] > 0
+    assert plans["cuda"] == plans["cpu"]
     for rid, toks in outs["cpu"].items():
         assert list(outs["cuda"][rid]) == list(toks), rid

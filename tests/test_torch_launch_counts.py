@@ -429,3 +429,56 @@ def test_wkv_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         wkv_bshk_cuda(r.transpose(1, 2), r, v, r, u, s0, chunk=4)
     assert card.calls == []
+
+
+def _adaptnetx_params(C=135, E=16, H=128, rows=50):
+    return {"emb_m": torch.zeros(rows, E), "emb_k": torch.zeros(rows, E),
+            "emb_n": torch.zeros(rows, E), "w1": torch.zeros(3 * E, H),
+            "b1": torch.zeros(H), "w2": torch.zeros(H, C),
+            "b2": torch.zeros(C)}
+
+
+def test_empty_adaptnetx_batch_counts_no_launch(card):
+    out = ops.adaptnetx_recommend(torch.zeros(0, 3, dtype=torch.int32),
+                                  _adaptnetx_params())
+    assert out.shape == (0, 135)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert counts["adaptnetx"] == 0 and counts["plain_calls"] == 0
+
+
+def test_adaptnetx_counts_each_launch_and_no_failed_one(card):
+    p = _adaptnetx_params()
+    one = ops.adaptnetx_recommend(torch.tensor([1, 2, 3]), p)
+    many = ops.adaptnetx_recommend(torch.ones(64, 3, dtype=torch.int64), p)
+    assert one.shape == (135,) and many.shape == (64, 135)
+    assert card.calls == ["adaptnetx_launch"] * 2
+    card.err = 9                       # cudaErrorInvalidConfiguration
+    with pytest.raises(RuntimeError, match="ADAPTNETX"):
+        ops.adaptnetx_recommend(torch.tensor([1, 2, 3]), p)
+    counts = ops.launch_counts()
+    assert counts["adaptnetx"] == 2 and counts["plain_calls"] == 0
+
+
+def test_adaptnetx_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.adaptnetx import adaptnetx_cuda
+    p = _adaptnetx_params()
+    leaves = [p[k] for k in ("emb_m", "emb_k", "emb_n", "w1", "b1", "w2",
+                             "b2")]
+    ids = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        adaptnetx_cuda(ids.long(), *leaves)
+    with pytest.raises(ValueError, match="f32"):
+        adaptnetx_cuda(ids, *leaves[:3], leaves[3].double(), *leaves[4:])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        adaptnetx_cuda(ids, *leaves[:3], torch.zeros(47, 128), *leaves[4:])
+    with pytest.raises(ValueError, match=r"\(B, 3\)"):
+        adaptnetx_cuda(torch.zeros(2, 4, dtype=torch.int32), *leaves)
+    big = _adaptnetx_params(E=65)
+    with pytest.raises(ValueError, match="E <= 64"):
+        adaptnetx_cuda(ids, *(big[k] for k in ("emb_m", "emb_k", "emb_n",
+                                                "w1", "b1", "w2", "b2")))
+    with pytest.raises(ValueError, match="ids"):
+        ops.adaptnetx_recommend(torch.zeros(2, 2, 3), p)
+    assert card.calls == []
+    assert ops.launch_counts()["adaptnetx"] == 0
