@@ -13,7 +13,11 @@ Phases (any failure exits non-zero):
    full-width llama3.2-1b shapes of the main path (RSA GEMM in all three
    residency modes, paged decode and paged prefill attention, and the two
    cascade-decode phases: decode-lse and shared-prefix) plus ragged and
-   f32 cases; each maximum error is held to a stated tolerance, and
+   f32 cases; each maximum error is held to a stated tolerance.  WS and IS
+   are one function run by one kernel (``csrc/rsa_psum.cu``): at every
+   GEMM shape of phases 3, 6, 7 and 8 their outputs must be bitwise equal,
+   and a second run bitwise equal to the first (one line per shape; the
+   rest of phase 8's prefill shapes are counted in one line), and
    the kernel, plain-version and (where one exists) library-call times are
    device times between CUDA events, L2 flushed before every run, with a
    spin kernel holding the card until the host has queued the whole run;
@@ -96,8 +100,10 @@ state carry) and the linear-attention kernel at phase 8's widths, and the
 ADAPTNETX kernel (75, 108 and 135 classes; the reference's ids, ids past
 the table, a batch of 64) beside the host twin's time per query.
 
-The lines before the last are the JSON kernel table, then the card's name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.  The
+After phase 9 one line per mode gives the worst kernel / library-call
+factor over the run's timed GEMM shapes, with its shape.  The lines
+before the last are the JSON kernel table, then the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.  The
 full report is also written to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -123,6 +129,13 @@ PAGED_TPU = {"paged_decode": "src/repro/kernels/paged_attn.py:104",
              "paged_decode_lse": "src/repro/kernels/paged_attn.py:413",
              "paged_prefix": "src/repro/kernels/paged_attn.py:517"}
 RSA_TPU = "src/repro/kernels/rsa_gemm.py:64"
+# each mode's pallas_call in the reference, and the port's kernel for it:
+# OS in rsa_gemm.cu, WS and IS (one function) in rsa_psum.cu
+RSA_TPU_BY_MODE = {"OS": RSA_TPU, "WS": "src/repro/kernels/rsa_gemm.py:96",
+                   "IS": "src/repro/kernels/rsa_gemm.py:113"}
+RSA_SRC_BY_MODE = {"OS": "src/repro_torch/kernels/csrc/rsa_gemm.cu",
+                   "WS": "src/repro_torch/kernels/csrc/rsa_psum.cu",
+                   "IS": "src/repro_torch/kernels/csrc/rsa_psum.cu"}
 MLA_TPU = {"paged_mla_decode": "src/repro/kernels/paged_attn.py:189",
            "paged_mla_prefill": "src/repro/kernels/paged_attn.py:578"}
 FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attn.py:123",
@@ -239,6 +252,49 @@ def gemm_tolerance(torch, a, b, plain, mode, bk, out_f32):
     return tol
 
 
+def psum_bitwise(torch, run, what, rec=None, quiet=False):
+    """WS and IS are one function and one kernel (``csrc/rsa_psum.cu``):
+    ``run(mode)`` on the same inputs must give bitwise equal outputs in the
+    two modes, and a second WS run the same bits as the first.  Logs one
+    line (unless ``quiet`` and both hold), stores both in ``rec``, returns
+    whether both hold."""
+    ws, is_, again = run(1), run(2), run(1)
+    torch.cuda.synchronize()
+    eq, rerun = torch.equal(ws, is_), torch.equal(ws, again)
+    if rec is not None:
+        rec.update(ws_is_bitwise=eq, run_to_run_bitwise=rerun)
+    if not (quiet and eq and rerun):
+        log(f"    {what}: WS == IS bitwise {eq}, run to run bitwise "
+            f"{rerun} {'ok' if eq and rerun else 'FAIL'}")
+    del ws, is_, again
+    return eq and rerun
+
+
+def mode_summary(report):
+    """Per mode, the worst kernel / library-call factor over every timed
+    GEMM and bank shape of the run, with its shape."""
+    worst = {}
+    for part in ("gemm", "bank", "train_gemm", "ds_gemm", "rwkv_gemm"):
+        for rec in report.get(part, []):
+            if not rec.get("ms") or not rec.get("library_ms"):
+                continue
+            x = rec["ms"] / rec["library_ms"]
+            if x > worst.get(rec["mode"], {}).get("factor", 0.0):
+                shape = (f"{rec['E']}x(" if "E" in rec else "") + \
+                    f"{rec['M']}x{rec['K']}x{rec['N']}" + \
+                    (")" if "E" in rec else "")
+                worst[rec["mode"]] = {
+                    "factor": x, "part": part, "shape": shape,
+                    "ms": rec["ms"], "library_ms": rec["library_ms"]}
+    report["gemm_mode_summary"] = worst
+    for mode in ("OS", "WS", "IS"):
+        if mode in worst:
+            w = worst[mode]
+            log(f"  rsa_gemm {mode}: worst kernel/library {w['factor']:.2f}x"
+                f" at {w['part']} {w['shape']} (kernel {w['ms']:.4f} ms, "
+                f"library {w['library_ms']:.4f} ms)")
+
+
 def check_gemms(torch, report, timer, cfg, dispatcher):
     from repro_torch.core.hw import DATAFLOW_NAMES
     from repro_torch.dispatch.executor import _clamped_blocks
@@ -314,6 +370,9 @@ def check_gemms(torch, report, timer, cfg, dispatcher):
                    f" ms matmul {rec['library_ms']:.4f} ms bound "
                    f"{rec['bound_ms']:.4f} ms" if main else "")
                 + ("  [main path]" if rec["recommended"] else ""))
+        ok &= psum_bitwise(torch, lambda mode: ops.rsa_gemm(
+            a, b, block_m=bm, block_n=bn, block_k=bk, mode=mode,
+            out_dtype=odt), f"{site} {M}x{K}x{N}", rec)
     return ok
 
 
@@ -658,6 +717,9 @@ def check_banks(torch, report, timer, dcfg, dispatcher):
                 + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f}"
                    f" ms bmm {library_ms:.4f} ms bound {rec['bound_ms']:.4f}"
                    f" ms  [phase 6 path]" if rec["recommended"] else ""))
+        ok &= psum_bitwise(torch, lambda mode: ops.rsa_gemm(
+            a, b, block_k=bk, mode=mode), f"bank {site} {E}x({M}x{K}x{N})",
+            rec)
         del a, b
         torch.cuda.empty_cache()
     return ok
@@ -1013,6 +1075,9 @@ def check_train_gemms(torch, report, cfg, dispatcher):
             f"{'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms plain "
             f"{rec['plain_ms']:.4f} ms matmul {rec['library_ms']:.4f} ms "
             f"bound {rec['bound_ms']:.4f} ms")
+        ok &= psum_bitwise(torch, lambda m: rsa_gemm_cuda(
+            a, b, block_k=bk, mode=m), f"train {site} {pas} {M}x{K}x{N}",
+            rec)
         del a, b, out, plain
     torch.cuda.empty_cache()
     return ok
@@ -1578,6 +1643,9 @@ def check_gemm_keys(torch, timer, keys, dispatcher, vocab, quick=None):
         rec = {"M": M, "K": K, "N": N, "mode": DATAFLOW_NAMES[mode],
                "bk": bk, "out": str(odt).split(".")[-1], "key": key,
                "max_abs_err": err, "tol": tol, "ok": good}
+        ok &= psum_bitwise(torch, lambda m: ops.rsa_gemm(
+            a, b, block_k=bk, mode=m, out_dtype=odt), f"{M}x{K}x{N}", rec,
+            quiet=quick is not None)
         if quick is not None:
             rec["ms"] = quick(kernel)
             out_recs.append(rec)
@@ -2195,11 +2263,14 @@ def rwkv_path(torch, report, timer, dispatcher):
     pre_ms = {r["key"]: r["ms"] for r in recs + q_recs if r["M"] != RW_SLOTS}
     if q_recs:
         w = max(q_recs, key=lambda r: r["max_abs_err"] / r["tol"])
+        bitwise = sum(r["ws_is_bitwise"] and r["run_to_run_bitwise"]
+                      for r in q_recs)
         log(f"  the other {len(q_recs)} prefill GEMM shapes, kernel vs "
             f"plain: {sum(r['ok'] for r in q_recs)} ok, worst max_abs_err "
             f"{w['max_abs_err']:.3e} (tol {w['tol']:.3e}, {w['M']}x{w['K']}"
             f"x{w['N']} {w['mode']}) {'ok' if q_ok else 'FAIL'}; kernel "
-            f"timed (median of 5)")
+            f"timed (median of 5); WS == IS and run to run bitwise at "
+            f"{bitwise} of {len(q_recs)}")
     return ok and good and g_ok and q_ok, counts, gemm_keys, pre_ms
 
 
@@ -2531,6 +2602,17 @@ def adaptnet_serving_path(torch, report):
     return ok
 
 
+def gemm_entry(rec, name, launches):
+    """A kernel-table entry of one timed GEMM shape: OS from rsa_gemm.cu,
+    WS and IS from rsa_psum.cu, each against its own pallas_call."""
+    return {"name": name, "route": "cuda",
+            "source": RSA_SRC_BY_MODE[rec["mode"]],
+            "replaces": RSA_TPU_BY_MODE[rec["mode"]], "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+
 def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
     ``counts`` holds each kernel's launches on the path that runs it
@@ -2541,7 +2623,6 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
     6's GEMM launches by shape (its 2-D shapes and its banks),
     ``train_keys`` phase 7's, ``rw_keys`` phase 8's."""
     out = []
-    gemm_src = "src/repro_torch/kernels/csrc/rsa_gemm.cu"
     # ADAPTNETX at path A's shape: one query over the port's 135 classes
     ax = [r for r in report["adaptnetx"] if r["C"] == 135]
     one = next(r for r in ax if r["case"] == "[123,4567,8910]")
@@ -2573,14 +2654,9 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
     for rec in report["rwkv_gemm"]:
-        out.append({
-            "name": f"rsa_gemm[rwkv6 {rec['M']}x{rec['K']}x{rec['N']} "
-                    f"{rec['mode']}]",
-            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
-            "launches": rw_keys.get(rec["key"], 0),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[rwkv6 {rec['M']}x{rec['K']}x{rec['N']} "
+                 f"{rec['mode']}]", rw_keys.get(rec["key"], 0)))
     for rec in report["flash"]:
         if not rec["main"]:
             continue
@@ -2594,34 +2670,20 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
     for rec in report["train_gemm"]:
-        out.append({
-            "name": f"rsa_gemm[train {rec['site']} {rec['pass']} {rec['M']}x"
-                    f"{rec['K']}x{rec['N']} {rec['mode']} f32]",
-            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
-            "launches": train_keys.get(rec["key"], 0),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[train {rec['site']} {rec['pass']} {rec['M']}x"
+                 f"{rec['K']}x{rec['N']} {rec['mode']} f32]",
+            train_keys.get(rec["key"], 0)))
     for rec in report["ds_gemm"]:
-        out.append({
-            "name": f"rsa_gemm[deepseek {rec['M']}x{rec['K']}x{rec['N']} "
-                    f"{rec['mode']}]",
-            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
-            "launches": ds_keys.get(rec["key"], 0),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[deepseek {rec['M']}x{rec['K']}x{rec['N']} "
+                 f"{rec['mode']}]", ds_keys.get(rec["key"], 0)))
     for rec in report["bank"]:
-        if not rec.get("recommended"):
-            continue
-        out.append({
-            "name": f"rsa_gemm_bank[{rec['site']} {rec['E']}x({rec['M']}x"
-                    f"{rec['K']}x{rec['N']}) {rec['mode']}]",
-            "route": "cuda", "source": gemm_src, "replaces": RSA_TPU,
-            "launches": ds_keys.get(rec["key"], 0),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if rec.get("recommended"):
+            out.append(gemm_entry(
+                rec, f"rsa_gemm_bank[{rec['site']} {rec['E']}x({rec['M']}x"
+                     f"{rec['K']}x{rec['N']}) {rec['mode']}]",
+                ds_keys.get(rec["key"], 0)))
     for rec in report["mla"]:
         if "ms" not in rec:
             continue
@@ -2634,18 +2696,11 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
     for rec in report["gemm"]:
-        if not rec.get("recommended"):
-            continue
-        out.append({
-            "name": f"rsa_gemm[{rec['site']} {rec['M']}x{rec['K']}x"
-                    f"{rec['N']} {rec['mode']}]",
-            "route": "cuda", "source": "src/repro_torch/kernels/csrc/"
-                                       "rsa_gemm.cu",
-            "replaces": RSA_TPU,
-            "launches": gemm_keys.get(rec["key"], 0),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if rec.get("recommended"):
+            out.append(gemm_entry(
+                rec, f"rsa_gemm[{rec['site']} {rec['M']}x{rec['K']}x"
+                     f"{rec['N']} {rec['mode']}]",
+                gemm_keys.get(rec["key"], 0)))
     for rec in report["paged"]:
         if "ms" not in rec:
             continue
@@ -2769,6 +2824,8 @@ def main() -> int:
     ok &= adaptnet_serving_path(torch, report)
     report["phase9_s"] = time.time() - t9
     log(f"  phase 9 took {report['phase9_s']:.1f} s")
+    log("== the RSA GEMM's modes against their library calls")
+    mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")
     counts = dict(counts, paged_decode_lse=cp_counts["paged_decode_lse"],
                   paged_prefix=cp_counts["paged_prefix"],

@@ -25,6 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one library only: rsa_psum encodes TMA descriptors through the
+# driver API (cuTensorMapEncodeTiled)
+LIB_FLAGS = {"rsa_psum": ["-lcuda"]}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -34,6 +37,10 @@ SIGNATURES = {
         "rsa_gemm_launch": [_I, _I, _I, _I, _I, _P, _LL, _P, _LL, _P,
                             _I, _I, _I, _I, _I, _I, _I,
                             _I, _LL, _LL, _LL, _P],
+    },
+    "rsa_psum": {
+        "rsa_psum_launch": [_I, _I, _I, _I, _I, _P, _LL, _LL, _P, _LL, _LL,
+                            _P, _LL] + [_I] * 10 + [_P, _P, _P],
     },
     "paged_attn": {
         "paged_decode_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -84,7 +91,7 @@ def nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LIB_FLAGS.get(name, [])).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -106,7 +113,8 @@ def build_all() -> Dict[str, Path]:
     for name, target in todo.items():
         tmp = target.with_suffix(f".tmp{os.getpid()}.so")
         procs[name] = (tmp, subprocess.Popen(
-            [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+             *LIB_FLAGS.get(name, [])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     errors = []
     for name, (tmp, proc) in procs.items():

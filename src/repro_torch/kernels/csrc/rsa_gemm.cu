@@ -1,9 +1,10 @@
-// RSA GEMM for Hopper (sm_90a): C (M, N) = A (M, K) @ B (K, N) run with a
-// SARA-recommended logical tile (block_m, block_n, block_k) and residency
-// mode (OS / WS / IS).
+// RSA GEMM for Hopper (sm_90a), OS mode: C (M, N) = A (M, K) @ B (K, N)
+// with the whole K accumulated in f32 and cast to the output type once.
 //
-// Replaces kernels/rsa_gemm.py::rsa_gemm_pallas (the _kernel_os and
-// _kernel_psum bodies of the OS, WS and IS pallas_call sites).
+// Replaces kernels/rsa_gemm.py::rsa_gemm_pallas in its OS mode (the
+// _kernel_os body).  The WS and IS modes (the _kernel_psum body, with its
+// per-block_k-chunk rounding) are csrc/rsa_psum.cu: a wgmma + TMA kernel
+// for bf16 and a register-blocked one for f32, with split-K for skinny M.
 //
 // What bounds it on the H100: at decode (M = 8) every projection is a
 // matrix-vector product bound by the bytes of B (the weight); at prefill
@@ -12,30 +13,13 @@
 // scheduling), reads B in place (row-major (K, N) or the transpose of a
 // row-major (N, K), so the tied unembedding needs no copy) and A likewise
 // (row-major (M, K) or the transpose of a row-major (K, M): the weight
-// gradient x^T @ dy reads x in place), masks ragged edges instead of
-// padding, and spreads the swept dimension across CTAs so a single M tile
-// still covers the card.  bf16 operands run on the tensor
-// cores (WMMA 16x16x16, f32 accumulation); f32 operands run on CUDA-core
-// FMAs in full f32.  It is a first, simple kernel: no TMA, no wgmma, no
-// software pipelining.
-//
-// The logical block is not the CTA tile: a 512 x 512 f32 accumulator
-// would not fit in shared memory.  Each CTA works on Hopper-sized
-// sub-tiles, and the mode sets its loop order and the rounding:
-//
-//   OS: one CTA per (TM x TN) output sub-tile; the f32 accumulator stays
-//       in registers over the whole K and is cast to the output type once.
-//   WS: for each block_k chunk of K, ascending, a (chunk x TN) slab of B
-//       stays in shared memory while the CTA sweeps its share of the M
-//       sub-tiles.  Each chunk's f32 product is cast to the output type
-//       and added to the output tile in the output type, as _kernel_psum
-//       does.
-//   IS: for each block_k chunk, a (TM x chunk) slab of A stays in shared
-//       memory while the CTA sweeps its share of the N sub-tiles, with
-//       the same per-chunk rounding as WS.
-//
-// block_m and block_n do not change the arithmetic (each output element
-// is owned by one sub-tile in every mode); block_k sets the WS/IS chunks.
+// gradient x^T @ dy reads x in place), and masks ragged edges instead of
+// padding.  One CTA owns a 64 x 64 output sub-tile and keeps its f32
+// accumulator in registers over the whole K.  bf16 operands run on the
+// tensor cores (WMMA 16x16x16, f32 accumulation); f32 operands run on
+// CUDA-core FMAs in full f32.  It is a first, simple kernel: no TMA, no
+// wgmma, no software pipelining.  block_m, block_n and block_k do not
+// change its arithmetic.
 //
 // Expert banks.  One launch runs E independent GEMMs C[e] = A[e] @ B[e]
 // (the reference's vmap of the Pallas kernel over an expert or head bank,
@@ -57,8 +41,6 @@ namespace wmma = nvcuda::wmma;
 constexpr int NT = 128;  // threads per CTA (4 warps)
 constexpr int BK = 32;   // k depth of one streamed tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
@@ -66,13 +48,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 }
 
 int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// The dynamic shared-memory slab, rounded up to a 128-byte boundary (WMMA
-// needs 32-byte aligned tiles); launches request 128 extra bytes for it.
-template <typename T>
-__device__ __forceinline__ T* aligned_slab(unsigned char* raw) {
-  return reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(raw) + 127) & ~uintptr_t(127));
-}
 
 // rows x cols of row-major src (leading dim ld) starting at (r0, c0) into
 // shared dst (leading dim ldd), zero outside [0, R) x [0, C).  cols is a
@@ -210,19 +185,15 @@ template <int TM, int TN> struct Acc<float, TM, TN> {
   }
 };
 
-// Write the f32 sub-tile Cs to the output: cast once (add == false), or
-// cast and add to what the output holds, in the output type (add == true,
-// the WS/IS per-chunk rounding).  A thread always owns the same elements.
+// Write the f32 sub-tile Cs to the output, cast once.
 template <typename TO, int TM, int TN>
 __device__ void epilogue(const float* Cs, int ldc, TO* __restrict__ Cg, int m0, int n0,
-                         int M, int N, bool add) {
+                         int M, int N) {
   for (int idx = threadIdx.x; idx < TM * TN; idx += NT) {
     const int r = idx / TN, c = idx - r * TN;
     const int gr = m0 + r, gc = n0 + c;
     if (gr < M && gc < N) {
-      TO* o = Cg + (long long)gr * N + gc;
-      const TO p = from_f<TO>(Cs[r * ldc + c]);
-      *o = add ? from_f<TO>(to_f(*o) + to_f(p)) : p;
+      Cg[(long long)gr * N + gc] = from_f<TO>(Cs[r * ldc + c]);
     }
   }
 }
@@ -230,8 +201,6 @@ __device__ void epilogue(const float* Cs, int ldc, TO* __restrict__ Cg, int m0, 
 template <typename T> struct Tiles {
   static constexpr int P = 16 / sizeof(T);                 // 16-byte row padding
   static constexpr int OS_M = 64, OS_N = 64;
-  static constexpr int WS_M = 64, WS_N = sizeof(T) == 2 ? 32 : 16;
-  static constexpr int IS_M = 16, IS_N = 64;
 };
 
 template <typename T, typename TO, bool AT, bool BT>
@@ -258,79 +227,7 @@ rsa_os_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, l
   }
   acc.store(Cs, TN + 4);
   __syncthreads();
-  epilogue<TO, TM, TN>(Cs, TN + 4, C, m0, n0, M, N, false);
-}
-
-template <typename T, typename TO, bool AT, bool BT>
-__global__ void __launch_bounds__(NT)
-rsa_ws_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
-              TO* __restrict__ C, int M, int N, int K, int bk, int vec_a, int vec_b,
-              long long sa, long long sb, long long sc) {
-  constexpr int TM = Tiles<T>::WS_M, TN = Tiles<T>::WS_N, P = Tiles<T>::P;
-  A += blockIdx.z * sa;
-  B += blockIdx.z * sb;
-  C += blockIdx.z * sc;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Bslab = aligned_slab<T>(smem_raw);  // (chunk rows) x (TN + P)
-  __shared__ __align__(128) T As[TM * (BK + P)];
-  __shared__ __align__(128) float Cs[TM * (TN + 4)];
-  const int n0 = blockIdx.x * TN;
-  const int mtiles = (M + TM - 1) / TM;
-  for (int kb = 0; kb < K; kb += bk) {
-    const int kc = min(bk, ((K - kb + BK - 1) / BK) * BK);
-    __syncthreads();
-    load_b<T, BT>(Bslab, TN + P, B, ldb, kb, n0, kc, TN, K, N, vec_b);
-    for (int mt = blockIdx.y; mt < mtiles; mt += gridDim.y) {
-      const int m0 = mt * TM;
-      Acc<T, TM, TN> acc;
-      acc.zero();
-      for (int k0 = 0; k0 < kc; k0 += BK) {
-        load_a<T, AT>(As, BK + P, A, lda, m0, kb + k0, TM, BK, M, K, vec_a);
-        __syncthreads();
-        acc.mma(As, BK + P, Bslab + k0 * (TN + P), TN + P, BK);
-        __syncthreads();
-      }
-      acc.store(Cs, TN + 4);
-      __syncthreads();
-      epilogue<TO, TM, TN>(Cs, TN + 4, C, m0, n0, M, N, kb > 0);
-    }
-  }
-}
-
-template <typename T, typename TO, bool AT, bool BT>
-__global__ void __launch_bounds__(NT)
-rsa_is_kernel(const T* __restrict__ A, long long lda, const T* __restrict__ B, long long ldb,
-              TO* __restrict__ C, int M, int N, int K, int bk, int slab_ld, int vec_a,
-              int vec_b, long long sa, long long sb, long long sc) {
-  constexpr int TM = Tiles<T>::IS_M, TN = Tiles<T>::IS_N, P = Tiles<T>::P;
-  A += blockIdx.z * sa;
-  B += blockIdx.z * sb;
-  C += blockIdx.z * sc;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Aslab = aligned_slab<T>(smem_raw);  // TM x slab_ld
-  __shared__ __align__(128) T Bs[BK * (TN + P)];
-  __shared__ __align__(128) float Cs[TM * (TN + 4)];
-  const int m0 = blockIdx.y * TM;
-  const int ntiles = (N + TN - 1) / TN;
-  for (int kb = 0; kb < K; kb += bk) {
-    const int kc = min(bk, ((K - kb + BK - 1) / BK) * BK);
-    __syncthreads();
-    load_a<T, AT>(Aslab, slab_ld, A, lda, m0, kb, TM, kc, M, K, vec_a);
-    for (int nt = blockIdx.x; nt < ntiles; nt += gridDim.x) {
-      const int n0 = nt * TN;
-      Acc<T, TM, TN> acc;
-      acc.zero();
-      for (int k0 = 0; k0 < kc; k0 += BK) {
-        load_b<T, BT>(Bs, TN + P, B, ldb, kb + k0, n0, BK, TN, K, N, vec_b);
-        __syncthreads();
-        acc.mma(Aslab + k0, slab_ld, Bs, TN + P, BK);
-        __syncthreads();
-      }
-      acc.store(Cs, TN + 4);
-      __syncthreads();
-      epilogue<TO, TM, TN>(Cs, TN + 4, C, m0, n0, M, N, kb > 0);
-    }
-  }
+  epilogue<TO, TM, TN>(Cs, TN + 4, C, m0, n0, M, N);
 }
 
 template <typename T, typename TO, bool AT, bool BT>
@@ -341,38 +238,10 @@ int launch(int mode, const void* A, long long lda, const void* B, long long ldb,
   const T* a = static_cast<const T*>(A);
   const T* b = static_cast<const T*>(B);
   TO* c = static_cast<TO*>(C);
-  // CTAs to aim for when splitting a sweep; a bank's E GEMMs already
-  // multiply the grid, so each aims for its share (E = 1: the 2-D split)
-  const int target = max(1, cdiv(2 * num_sms, E));
-  const int chunk_rows = min(bk, cdiv(K, BK) * BK);
-  if (mode == 0) {
-    dim3 grid(cdiv(N, Ti::OS_N), cdiv(M, Ti::OS_M), E);
-    rsa_os_kernel<T, TO, AT, BT><<<grid, NT, 0, stream>>>(a, lda, b, ldb, c, M, N, K, vec_a, vec_b,
-                                                      sa, sb, sc);
-  } else if (mode == 1) {
-    const int ntiles = cdiv(N, Ti::WS_N), mtiles = cdiv(M, Ti::WS_M);
-    const int msplit = max(1, min(mtiles, cdiv(target, ntiles)));
-    const size_t dyn = (size_t)chunk_rows * (Ti::WS_N + Ti::P) * sizeof(T) + 128;
-    cudaError_t e = cudaFuncSetAttribute(rsa_ws_kernel<T, TO, AT, BT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(ntiles, msplit, E);
-    rsa_ws_kernel<T, TO, AT, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, vec_a,
-                                                        vec_b, sa, sb, sc);
-  } else if (mode == 2) {
-    const int ntiles = cdiv(N, Ti::IS_N), mtiles = cdiv(M, Ti::IS_M);
-    const int nsplit = max(1, min(ntiles, cdiv(target, mtiles)));
-    const int slab_ld = chunk_rows + Ti::P;
-    const size_t dyn = (size_t)Ti::IS_M * slab_ld * sizeof(T) + 128;
-    cudaError_t e = cudaFuncSetAttribute(rsa_is_kernel<T, TO, AT, BT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(nsplit, mtiles, E);
-    rsa_is_kernel<T, TO, AT, BT><<<grid, NT, dyn, stream>>>(a, lda, b, ldb, c, M, N, K, bk, slab_ld,
-                                                        vec_a, vec_b, sa, sb, sc);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (mode != 0) return (int)cudaErrorInvalidValue;  // WS/IS: rsa_psum.cu
+  dim3 grid(cdiv(N, Ti::OS_N), cdiv(M, Ti::OS_M), E);
+  rsa_os_kernel<T, TO, AT, BT><<<grid, NT, 0, stream>>>(a, lda, b, ldb, c, M, N, K, vec_a, vec_b,
+                                                    sa, sb, sc);
   return (int)cudaGetLastError();
 }
 
@@ -392,7 +261,9 @@ int launch_t(int a_trans, int b_trans, int mode, const void* A, long long lda, c
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  mode: 0 = OS, 1 = WS, 2 = IS.
+// dtype codes: 0 = float32, 1 = bfloat16.  mode: 0 = OS (the only mode
+// this library runs; WS and IS are rsa_psum_launch, which takes their
+// split plan and workspace).
 // A is row-major (M, K) with row stride lda, or (a_trans) the transpose of
 // a row-major (K, M) matrix with row stride lda.  B is row-major (K, N)
 // with row stride ldb, or (b_trans) the transpose of a row-major (N, K)

@@ -13,7 +13,8 @@ cascade kernels' f32 softmax states (m, l) differ from the plain versions'
 by summation order only (1e-4 relative), and their empty rows (a lane of
 length 0, a lane outside the sharing group) are exactly (0, -1e30, 0).
 The bank GEMM is held to the 2-D GEMM's bound and, member by member, to
-the 2-D kernel bitwise; the MLA kernels to the attention tolerances.  The
+the 2-D kernel bitwise; the WS/IS kernel's two modes, and two runs of it,
+are held to each other bitwise (one kernel computes both); the MLA kernels to the attention tolerances.  The
 flash kernels are held to the reference's own tolerances for its kernel
 (``tests/test_flash_attn.py``): 2e-6 f32 and 2e-2 bf16 on the forward,
 3e-5 absolute + 1e-3 relative on the gradients.  The WKV and linear
@@ -676,3 +677,134 @@ def test_reduced_adaptnet_serve_matches_cpu(cuda, tmp_path):
     assert plans["cuda"] == plans["cpu"]
     for rid, toks in outs["cpu"].items():
         assert list(outs["cuda"][rid]) == list(toks), rid
+
+
+# --------------------------------------------------------------------------
+# the WS/IS kernel (csrc/rsa_psum.cu): one kernel for both modes
+# --------------------------------------------------------------------------
+
+def _gemm_tol(a, b, want, bk, out):
+    """The file's GEMM bound: K * 2^-24 * max(|a| @ |b|), plus one bf16
+    rounding per block_k chunk (and one more) of max |plain| for a bf16
+    output."""
+    K = a.shape[-1]
+    tol = K * 2.0 ** -24 * torch.matmul(a.abs().float(),
+                                        b.abs().float()).max().item()
+    if out == torch.bfloat16:
+        tol += (math.ceil(K / bk) + 1) * 2.0 ** -8 * want.abs().max().item()
+    return tol
+
+
+def _psum_check(a, b, bk, out):
+    """WS and IS each one launch, bitwise equal to each other and to a
+    second run, and within the bound of the plain version."""
+    got = {}
+    for mode in (WS, IS):
+        n0 = ops.launch_counts()["rsa_gemm"]
+        got[mode] = ops.rsa_gemm(a, b, block_k=bk, mode=mode, out_dtype=out)
+        assert ops.launch_counts()["rsa_gemm"] == n0 + 1
+    again = ops.rsa_gemm(a, b, block_k=bk, mode=WS, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got[WS].dtype == out
+    assert torch.equal(got[WS], got[IS])
+    assert torch.equal(got[WS], again)
+    want = rsa_gemm_plain(a, b, block_k=bk, mode=WS, out_dtype=out)
+    err = (got[WS].float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= _gemm_tol(a, b, want, bk, out)
+    return got[WS]
+
+
+PSUM_DTYPES = [(torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("dtype,out", PSUM_DTYPES,
+                         ids=["bf16", "bf16-f32", "f32"])
+@pytest.mark.parametrize("bk", [32, 256, 2048])
+@pytest.mark.parametrize("K", [64, 200, 1000, 8192])
+@pytest.mark.parametrize("M", [1, 8, 32, 65, 300])
+def test_psum_gemm_matches_plain(cuda, M, K, bk, dtype, out):
+    """Skinny and wide M (the swapped operands and split-K at M <= 128),
+    K below, around and far above block_k, every input/output type."""
+    N = 392 if M <= 32 else 136
+    a = torch.randn((M, K), generator=cuda, device="cuda").to(dtype)
+    b = (torch.randn((K, N), generator=cuda, device="cuda") /
+         math.sqrt(K)).to(dtype)
+    _psum_check(a, b, bk, out)
+
+
+@pytest.mark.parametrize("dtype,out", PSUM_DTYPES,
+                         ids=["bf16", "bf16-f32", "f32"])
+@pytest.mark.parametrize("a_t,b_t", [(False, True), (True, False),
+                                     (True, True)], ids=["BT", "AT", "ATBT"])
+@pytest.mark.parametrize("M", [8, 300])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_psum_transposed_operands(cuda, aligned, M, a_t, b_t, dtype, out):
+    """A^T and B^T read in place, through TMA where base and row stride are
+    16-byte aligned and through the producer's own loads where not (a view
+    one column narrower than its storage)."""
+    K, N, bk = 520, 264, 256
+    pad = 0 if aligned else 1
+
+    def operand(rows, cols, transposed):
+        shape = (cols, rows + pad) if transposed else (rows, cols + pad)
+        x = torch.randn(shape, generator=cuda, device="cuda") / \
+            math.sqrt(K)
+        x = x.to(dtype)
+        return x[:, :rows].t() if transposed else x[:, :cols]
+
+    a = operand(M, K, a_t)
+    b = operand(K, N, b_t)
+    _psum_check(a, b, bk, out)
+
+
+@pytest.mark.parametrize("dtype,out", PSUM_DTYPES[:1] + PSUM_DTYPES[2:],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M", [8, 32, 300])
+@pytest.mark.parametrize("bank", ["experts", "head views"])
+def test_psum_bank_gemm(cuda, bank, M, dtype, out):
+    """A bank in one launch, WS = IS bitwise, each member bitwise the 2-D
+    kernel; head banks are strided views of one (N, E*K) weight."""
+    E, K, N, bk = 4, 256, 192, 128
+    a = torch.randn((E, M, K), generator=cuda, device="cuda").to(dtype)
+    if bank == "experts":
+        b = torch.randn((E, K, N), generator=cuda, device="cuda").to(dtype)
+    else:
+        w = torch.randn((N, E * K), generator=cuda, device="cuda").to(dtype)
+        b = w.reshape(N, E, K).permute(1, 2, 0)
+    got = _psum_check(a, b, bk, out)
+    for e in range(E):
+        one = ops.rsa_gemm(a[e], b[e], block_k=bk, mode=IS, out_dtype=out)
+        assert torch.equal(one, got[e])
+
+
+def test_psum_split_plan_and_refused_launch(cuda):
+    """A decode GEMM that splits K (one launch, deterministic), then a
+    launch the kernel refuses and one with mismatched devices: neither
+    leaves a ticket set, so the next split launch is right again."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rsa_gemm import _psum_plan, _tickets
+    M, K, N, bk = 8, 2048, 2048, 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = _psum_plan(1, M, K, N, bk, torch.bfloat16, sms)
+    assert plan.nsplit > 1
+    a = torch.randn((M, K), generator=cuda, device="cuda").bfloat16()
+    b = (torch.randn((K, N), generator=cuda, device="cuda") /
+         math.sqrt(K)).bfloat16()
+    first = _psum_check(a, b, bk, torch.bfloat16)
+    lib = _build.library("rsa_psum")
+    tickets = _tickets(a.device, plan.tiles)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    err = lib.rsa_psum_launch(              # nsplit inconsistent with K/bk
+        WS, 1, 1, 0, 0, a.data_ptr(), K, 0, b.data_ptr(), N, 0,
+        out.data_ptr(), M * N, 1, M, N, K, bk, plan.tile, int(plan.swap),
+        plan.nsplit + 1, plan.pieces, plan.piece, None, tickets.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(ValueError):
+        ops.rsa_gemm(a, b.cpu(), block_k=bk, mode=WS)
+    torch.cuda.synchronize()
+    assert not tickets.any()
+    assert torch.equal(_psum_check(a, b, bk, torch.bfloat16), first)
+    assert not tickets.any()

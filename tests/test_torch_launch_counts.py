@@ -69,7 +69,8 @@ def test_gemm_counts_each_launch_by_shape(card):
     rsa_gemm_cuda(a, b, block_k=64, mode=IS)
     rsa_gemm_cuda(a, b, block_k=64, mode=IS)
     rsa_gemm_cuda(a, b.t().contiguous().t(), block_k=64, mode=OS)
-    assert card.calls == ["rsa_gemm_launch"] * 3
+    # WS/IS launch the psum kernel's library, OS the OS kernel's
+    assert card.calls == ["rsa_psum_launch"] * 2 + ["rsa_gemm_launch"]
     assert ops.launch_counts()["rsa_gemm"] == 3
     assert rsa_gemm_cuda.launches_by_key == {(8, 64, 32, IS): 2,
                                              (8, 64, 32, OS): 1}
@@ -80,7 +81,7 @@ def test_failed_gemm_launch_raises_and_counts_nothing(card):
     with pytest.raises(RuntimeError, match="cudaError_t 9"):
         rsa_gemm_cuda(torch.zeros(8, 64), torch.zeros(64, 32), block_k=64,
                       mode=IS)
-    assert card.calls == ["rsa_gemm_launch"]
+    assert card.calls == ["rsa_psum_launch"]
     assert ops.launch_counts()["rsa_gemm"] == 0
 
 
@@ -183,7 +184,7 @@ def test_bank_gemm_counts_one_launch_per_bank(card):
     a, b = torch.zeros(16, 8, 64), torch.zeros(16, 64, 32)
     out = rsa_gemm_cuda(a, b, block_k=64, mode=IS)
     assert out.shape == (16, 8, 32)
-    assert card.calls == ["rsa_gemm_launch"]
+    assert card.calls == ["rsa_psum_launch"]
     assert ops.launch_counts()["rsa_gemm"] == 1
     assert rsa_gemm_cuda.launches_by_key == {(16, 8, 64, 32, IS): 1}
     # a head bank read as a strided view of one (r, H*d) weight
@@ -196,7 +197,8 @@ def test_bank_gemm_counts_one_launch_per_bank(card):
     card.err = 9
     with pytest.raises(RuntimeError, match="cudaError_t 9"):
         rsa_gemm_cuda(a, b, block_k=64, mode=IS)
-    assert card.calls == ["rsa_gemm_launch"] * 3
+    assert card.calls == ["rsa_psum_launch", "rsa_gemm_launch",
+                          "rsa_psum_launch"]
     assert ops.launch_counts()["rsa_gemm"] == 2
     with pytest.raises(ValueError, match="shape mismatch"):
         rsa_gemm_cuda(a, torch.zeros(15, 64, 32), block_k=64, mode=IS)
