@@ -14,10 +14,14 @@ Phases (any failure exits non-zero):
    residency modes, paged decode and paged prefill attention, and the two
    cascade-decode phases: decode-lse and shared-prefix) plus ragged and
    f32 cases; each maximum error is held to a stated tolerance.  WS and IS
-   are one function run by one kernel (``csrc/rsa_psum.cu``): at every
-   GEMM shape of phases 3, 6, 7 and 8 their outputs must be bitwise equal,
-   and a second run bitwise equal to the first (one line per shape; the
-   rest of phase 8's prefill shapes are counted in one line), and
+   are one function run by one kernel (``csrc/rsa_psum.cu``), and OS runs
+   on it as a single chunk: at every GEMM shape of phases 3, 6, 7 and 8
+   the WS and IS outputs must be bitwise equal, and a second run (WS, and
+   OS) bitwise equal to the first (one line per shape; the rest of phase
+   8's prefill shapes are counted in one line).  The split-KV decode kernel
+   also runs three timed bf16 cases through decode and decode-lse (lengths
+   across split boundaries, a lane ending inside the first split, one lane
+   of 8192 rows), each line with its plan (splits, CTAs); and
    the kernel, plain-version and (where one exists) library-call times are
    device times between CUDA events, L2 flushed before every run, with a
    spin kernel holding the card until the host has queued the whole run;
@@ -129,13 +133,11 @@ PAGED_TPU = {"paged_decode": "src/repro/kernels/paged_attn.py:104",
              "paged_decode_lse": "src/repro/kernels/paged_attn.py:413",
              "paged_prefix": "src/repro/kernels/paged_attn.py:517"}
 RSA_TPU = "src/repro/kernels/rsa_gemm.py:64"
-# each mode's pallas_call in the reference, and the port's kernel for it:
-# OS in rsa_gemm.cu, WS and IS (one function) in rsa_psum.cu
+# each mode's pallas_call in the reference; the port runs all three modes
+# in one kernel, rsa_psum.cu (OS as a single block_k chunk over K)
 RSA_TPU_BY_MODE = {"OS": RSA_TPU, "WS": "src/repro/kernels/rsa_gemm.py:96",
                    "IS": "src/repro/kernels/rsa_gemm.py:113"}
-RSA_SRC_BY_MODE = {"OS": "src/repro_torch/kernels/csrc/rsa_gemm.cu",
-                   "WS": "src/repro_torch/kernels/csrc/rsa_psum.cu",
-                   "IS": "src/repro_torch/kernels/csrc/rsa_psum.cu"}
+RSA_SRC = "src/repro_torch/kernels/csrc/rsa_psum.cu"
 MLA_TPU = {"paged_mla_decode": "src/repro/kernels/paged_attn.py:189",
            "paged_mla_prefill": "src/repro/kernels/paged_attn.py:578"}
 FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attn.py:123",
@@ -255,19 +257,24 @@ def gemm_tolerance(torch, a, b, plain, mode, bk, out_f32):
 def psum_bitwise(torch, run, what, rec=None, quiet=False):
     """WS and IS are one function and one kernel (``csrc/rsa_psum.cu``):
     ``run(mode)`` on the same inputs must give bitwise equal outputs in the
-    two modes, and a second WS run the same bits as the first.  Logs one
-    line (unless ``quiet`` and both hold), stores both in ``rec``, returns
-    whether both hold."""
+    two modes, and a second WS run the same bits as the first; OS (the same
+    kernel with one chunk, its splits fixed up in order) must give the same
+    bits twice too.  Logs one line (unless ``quiet`` and all hold), stores
+    them in ``rec``, returns whether all hold."""
     ws, is_, again = run(1), run(2), run(1)
+    os_a, os_b = run(0), run(0)
     torch.cuda.synchronize()
     eq, rerun = torch.equal(ws, is_), torch.equal(ws, again)
+    os_rerun = torch.equal(os_a, os_b)
     if rec is not None:
-        rec.update(ws_is_bitwise=eq, run_to_run_bitwise=rerun)
-    if not (quiet and eq and rerun):
+        rec.update(ws_is_bitwise=eq, run_to_run_bitwise=rerun and os_rerun,
+                   os_run_to_run_bitwise=os_rerun)
+    good = eq and rerun and os_rerun
+    if not (quiet and good):
         log(f"    {what}: WS == IS bitwise {eq}, run to run bitwise "
-            f"{rerun} {'ok' if eq and rerun else 'FAIL'}")
-    del ws, is_, again
-    return eq and rerun
+            f"{rerun} (OS {os_rerun}) {'ok' if good else 'FAIL'}")
+    del ws, is_, again, os_a, os_b
+    return good
 
 
 def mode_summary(report):
@@ -406,12 +413,15 @@ def attn_bound_ms(kv_rows, KVH, hd, io_bytes, flops):
 def check_paged(torch, report, timer, cfg):
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attn import (
-        paged_attention_plain, paged_prefill_attention_plain)
+        _decode_plan, paged_attention_lse_plain, paged_attention_plain,
+        paged_decode_lse_cuda, paged_prefill_attention_plain)
+    from repro_torch.launch.bench_decode import gathered_sdpa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     KVH, H, hd, bs = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
     G = H // KVH
     scale = 1.0 / math.sqrt(hd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok = True
     # decode: ragged lengths incl. 0, page boundaries and the main path's
     # longest context (max_len 545); prefill: ragged starts/chunks incl. an
@@ -448,12 +458,22 @@ def check_paged(torch, report, timer, cfg):
             flops = 2.0 * H * 2 * hd * sum(dec_lengths)
             rec["bound_ms"], rec["bound_by"] = attn_bound_ms(
                 rows, KVH, hd, 2 * q.numel() * 2, flops)
+            # no PyTorch call reads K/V through a page table: SDPA over the
+            # same K/V gathered contiguous beforehand is a yardstick only
             rec["library_ms"] = None
+            rec["sdpa_gathered_ms"] = timer(gathered_sdpa(
+                q, ka, va, tables, lens, scale))
+            rec["plan"] = _decode_plan(8, KVH, G, tables.shape[1], bs, hd,
+                                       hd, 2, sms)._asdict()
         report["paged"].append(rec)
         log(f"  paged_decode  {rec['dtype']} cap={cap}: max_abs_err "
             f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}"
             + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
-               f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+               f" bound {rec['bound_ms']:.4f} ms, SDPA over K/V gathered "
+               f"beforehand {rec['sdpa_gathered_ms']:.4f} ms; plan "
+               f"{rec['plan']['splits']} splits, "
+               f"{rec['plan']['splits'] * rec['plan']['units']} CTAs"
+               if timed else ""))
 
         lengths = [s + c for s, c in zip(starts, chunks)]
         ka, va, tables, lens = paged_inputs(torch, gen, 8, KVH, G, hd, bs,
@@ -489,6 +509,57 @@ def check_paged(torch, report, timer, cfg):
             f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}"
             + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
                f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+
+    # the split-KV plan's edges, bf16, through decode and decode-lse: lengths
+    # on and across the split boundaries (8 pages, 128 rows, a split here),
+    # one lane ending inside the first split, one lane of 8192 rows
+    tol = 5 * 2 * BF16_EPS
+    for case, lengths in (
+            ("split boundaries", [127, 128, 129, 255, 256, 257, 383, 545]),
+            ("inside the first split", [3, 300, 545, 411, 250, 129, 64, 500]),
+            ("long context", [8192])):
+        S = len(lengths)
+        ka, va, tables, lens = paged_inputs(torch, gen, S, KVH, G, hd, bs,
+                                            lengths, torch.bfloat16)
+        q = torch.randn((S, H, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        a = (q, ka, va, tables, lens)
+        plan = _decode_plan(S, KVH, G, tables.shape[1], bs, hd, hd, 2, sms)
+        out = ops.paged_attention(*a)
+        o, m, l = paged_decode_lse_cuda(*a, scale=scale)
+        wo, wm, wl = paged_attention_lse_plain(*a, scale=scale)
+        plain = paged_attention_plain(*a, scale=scale)
+        torch.cuda.synchronize()
+        err = max((out.float() - plain.float()).abs().max().item(),
+                  (o.float() - wo.float()).abs().max().item())
+        m_err = ((m - wm).abs() / (1 + wm.abs())).max().item()
+        l_err = ((l - wl).abs() / (1 + wl)).max().item()
+        good = (err <= tol and m_err <= 1e-4 and l_err <= 1e-4
+                and math.isfinite(err))
+        ok &= good
+        rows = sum(-(-n // bs) * bs for n in lengths)
+        bound, by = attn_bound_ms(rows, KVH, hd, 2 * q.numel() * 2,
+                                  2.0 * H * 2 * hd * sum(lengths))
+        rec = {"kernel": "paged_decode", "case": case, "dtype": "bfloat16",
+               "lengths": lengths, "max_abs_err": err, "tol": tol,
+               "m_rel_err": m_err, "l_rel_err": l_err, "ml_tol": 1e-4,
+               "ok": good, "plan": plan._asdict(),
+               "case_ms": timer(lambda: ops.paged_attention(*a)),
+               "lse_ms": timer(lambda: paged_decode_lse_cuda(*a,
+                                                             scale=scale)),
+               "plain_ms": timer(lambda: paged_attention_plain(
+                   *a, scale=scale)),
+               "sdpa_gathered_ms": timer(gathered_sdpa(*a, scale)),
+               "bound_ms": bound, "bound_by": by}
+        report["paged"].append(rec)
+        log(f"  paged_decode  bf16 {case} (S={S}, W={tables.shape[1]}): "
+            f"max_abs_err {err:.3e} (tol {tol:.1e}), lse m/l rel err "
+            f"{m_err:.1e}/{l_err:.1e} (tol 1e-4) {'ok' if good else 'FAIL'}"
+            f"  plan {plan.splits} splits x {plan.units} = {plan.ctas} CTAs"
+            f" of {plan.warps} warps: kernel {rec['case_ms']:.4f} ms "
+            f"(lse {rec['lse_ms']:.4f}) plain {rec['plain_ms']:.4f} ms "
+            f"SDPA over K/V gathered beforehand "
+            f"{rec['sdpa_gathered_ms']:.4f} ms bound {bound:.5f} ms")
     return ok
 
 
@@ -541,6 +612,7 @@ def check_cascade(torch, report, timer, cfg):
     from repro_torch.kernels.paged_attn import (
         NEG, paged_attention_lse_plain, paged_decode_lse_cuda,
         paged_prefix_cuda, shared_prefix_attention_plain)
+    from repro_torch.launch.bench_decode import gathered_sdpa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     KVH, H, hd, bs = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
@@ -597,6 +669,9 @@ def check_cascade(torch, report, timer, cfg):
                 rec["bound_ms"], rec["bound_by"] = attn_bound_ms(
                     rows, KVH, hd, io, flops)
                 rec["library_ms"] = None
+                if name == "paged_decode_lse":   # a yardstick only
+                    rec["sdpa_gathered_ms"] = timer(gathered_sdpa(
+                        *a, x["utables"], x["ulens"], scale))
             report["paged"].append(rec)
             log(f"  {name:<16} {rec['dtype']} cap={cap}: max_abs_err "
                 f"{err:.3e} (tol {tol:.1e}), m/l rel err {m_err:.1e}/"
@@ -604,7 +679,10 @@ def check_cascade(torch, report, timer, cfg):
                 f"{'exact' if empty else 'WRONG'} "
                 f"{'ok' if good else 'FAIL'}"
                 + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f}"
-                   f" ms bound {rec['bound_ms']:.5f} ms" if timed else ""))
+                   f" ms bound {rec['bound_ms']:.5f} ms" if timed else "")
+                + (f", SDPA over K/V gathered beforehand "
+                   f"{rec['sdpa_gathered_ms']:.4f} ms"
+                   if "sdpa_gathered_ms" in rec else ""))
         cascade = ops.shared_paged_attention(
             *a, x["utables"], x["ulens"], x["prefix_pages"],
             x["prefix_lens"], logit_cap=cap)
@@ -2603,10 +2681,9 @@ def adaptnet_serving_path(torch, report):
 
 
 def gemm_entry(rec, name, launches):
-    """A kernel-table entry of one timed GEMM shape: OS from rsa_gemm.cu,
-    WS and IS from rsa_psum.cu, each against its own pallas_call."""
-    return {"name": name, "route": "cuda",
-            "source": RSA_SRC_BY_MODE[rec["mode"]],
+    """A kernel-table entry of one timed GEMM shape: every mode from
+    rsa_psum.cu, each against its own pallas_call."""
+    return {"name": name, "route": "cuda", "source": RSA_SRC,
             "replaces": RSA_TPU_BY_MODE[rec["mode"]], "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

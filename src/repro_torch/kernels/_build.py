@@ -33,23 +33,17 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # C signature of every exported launch function, per library
 SIGNATURES = {
-    "rsa_gemm": {
-        "rsa_gemm_launch": [_I, _I, _I, _I, _I, _P, _LL, _P, _LL, _P,
-                            _I, _I, _I, _I, _I, _I, _I,
-                            _I, _LL, _LL, _LL, _P],
-    },
     "rsa_psum": {
         "rsa_psum_launch": [_I, _I, _I, _I, _I, _P, _LL, _LL, _P, _LL, _LL,
                             _P, _LL] + [_I] * 10 + [_P, _P, _P],
     },
     "paged_attn": {
-        "paged_decode_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _F, _F, _P],
+        "paged_decode_launch": [_I] + [_P] * 6 + [_I] * 8 + [_F, _F] +
+                               [_I] * 4 + [_P] * 3,
         "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-        "paged_decode_lse_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                    _P],
+        "paged_decode_lse_launch": [_I] + [_P] * 8 + [_I] * 8 + [_F, _F] +
+                                   [_I] * 4 + [_P] * 3,
         "paged_prefix_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
     },

@@ -1,9 +1,13 @@
-// RSA GEMM, WS and IS modes, for Hopper (sm_90a): C (M, N) = A (M, K) @
+// RSA GEMM, all three modes, for Hopper (sm_90a): C (M, N) = A (M, K) @
 // B (K, N) with the per-chunk rounding of the reference's _kernel_psum.
 //
 // Replaces kernels/rsa_gemm.py::rsa_gemm_pallas in its WS and IS modes
-// (the _kernel_psum body of the two psum pallas_call sites).  The OS mode
-// stays in rsa_gemm.cu.
+// (the _kernel_psum body of the two psum pallas_call sites) and in its OS
+// mode (_kernel_os): OS is this function with one chunk, bk >= K, where
+// run = T(0 + T(acc)) = T(acc) is OS's single cast of the f32 sum.  The
+// wrapper (kernels/rsa_gemm.py) launches OS with bk = K rounded up to 64
+// and a WS or IS walk order; its splits then cut K anywhere, and the
+// fix-up closes the one chunk once, after summing every split.
 //
 // The function.  For every output tile, each block_k chunk of K, in
 // ascending order, is multiplied in f32, cast to the output type T and
@@ -841,7 +845,8 @@ int launch_f32_t(int a_trans, int b_trans, const Params32& p, int E, cudaStream_
 
 }  // namespace
 
-// WS (mode 1) and IS (mode 2) RSA GEMM, one launch.  dtype codes: 0 =
+// RSA GEMM, one launch, walking the tiles in WS (mode 1) or IS (mode 2)
+// order; OS comes here as a single chunk (bk >= K).  dtype codes: 0 =
 // float32, 1 = bfloat16 (in -> out: f32 -> f32, bf16 -> bf16, bf16 -> f32).
 // A is row-major (M, K) with row stride lda, or (a_trans) the transpose of
 // a row-major (K, M) matrix; B is row-major (K, N) with row stride ldb, or

@@ -12,6 +12,12 @@ oracles (``repro/kernels/ref.py``): gather every lane's pages through its
 block table, run one masked f32 softmax, zero the lanes of length 0.  They
 serve CPU tensors and are what the kernels are held against on the card.
 
+Decode and decode-lse run one split-KV kernel, planned by
+:func:`_decode_plan`: a CTA holds the query rows of one (lane, kv head),
+and while those CTAs would fill at most half the card each lane's page
+columns are cut into splits whose f32 partial states the last CTA to
+arrive merges in split order (one launch, deterministic).
+
 Arena (NB, bs, KVH, hd); tables (S, W) int32 page ids in logical order,
 dead columns repeating the last live id; lengths (S,) int32 valid rows
 (including a prefill chunk's own rows, written before the call).  The
@@ -23,7 +29,12 @@ both f32; a row with nothing to attend comes back as (0, -1e30, 0), which
 
 from __future__ import annotations
 
+import functools
+from typing import Dict, NamedTuple, Optional
+
 import torch
+
+from repro_torch.kernels.rsa_gemm import _cdiv, _tickets
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -247,23 +258,138 @@ def _check(q, k_arena, v_arena, tables, lengths, starts=None,
     return KVH, q.shape[-2] // KVH, hd, hd_v, NB, bs, tables.shape[1]
 
 
-def paged_decode_cuda(q, k_arena, v_arena, tables, lengths, *,
-                      scale: float, logit_cap: float = 0.0):
-    """q (S, H, hd) -> (S, H, hd_v) through the CUDA decode kernel."""
+class DecodePlan(NamedTuple):
+    """How ``csrc/paged_attn.cu``'s split-KV kernel runs one decode call:
+    a grid of (splits, KVH * rblocks, S) CTAs of ``warps`` warps."""
+    rows: int       # query rows a CTA holds: G rounded up to 1, 2, 4 or 8
+    rblocks: int    # row blocks of a kv head (G > 8)
+    warps: int      # warps a CTA, 1-4 (fewer where a tile's rows are wide)
+    splits: int     # page-column splits of a (lane, kv head, row block)
+    pages: int      # page columns a split covers (splits * pages >= W)
+    units: int      # (lane, kv head, row block) triples: one ticket each
+    part: int       # f32 elements of one split's partial state
+
+    @property
+    def ctas(self) -> int:
+        return self.splits * self.units
+
+    @property
+    def ws_elems(self) -> int:
+        return self.units * self.splits * self.part if self.splits > 1 \
+            else 0
+
+
+_DEC_TILE = 32            # token rows of a tile (one a lane)
+_DEC_STAGES = 2           # tiles in flight a warp
+_DEC_MAX_WARPS = 4
+_SMEM_MAX = 232448        # dynamic shared memory a CTA may take
+_MAX_HD_V = 256           # 8 output columns a lane
+_MIN_SPLIT_ROWS = 128     # a split covers at least one tile a warp
+_SPLIT_CTAS_PER_SM = 2    # what a split plan aims at
+
+
+def _row_bytes(width: int, esize: int) -> int:
+    """A shared tile row: 32-byte multiple plus 16, so the 16-byte reads of
+    eight consecutive rows fall in eight different bank groups."""
+    return _cdiv(width * esize, 32) * 32 + 16
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_plan(S: int, KVH: int, G: int, W: int, bs: int, hd: int,
+                 hd_v: int, esize: int, num_sms: int, *,
+                 splits: Optional[int] = None) -> DecodePlan:
+    """The decode kernel's rows, warps and split-KV plan for one call.
+
+    The lengths live on the device, so the plan sees only the table width
+    W.  A CTA holds up to 8 query rows of a kv head (more rows take more
+    row blocks) and 4 warps, fewer where two stages of a warp's 32-row K
+    and V tiles would not fit in shared memory.  While the S * KVH * rblocks
+    CTAs fill at most half the SMs, the W page columns are cut into splits
+    of ``pages`` columns, aiming at ``_SPLIT_CTAS_PER_SM`` CTAs an SM, each
+    split at least ``_MIN_SPLIT_ROWS`` rows (a tile for every warp); a
+    grid over half the card is not split.  ``splits`` overrides the rule
+    (``launch/bench_decode.py`` times the choices).  Raises where the
+    kernel does not hold the shape (hd_v > 256, or rows too wide for shared
+    memory)."""
+    if hd_v > _MAX_HD_V:
+        raise ValueError(f"the decode kernel holds hd_v <= {_MAX_HD_V}, "
+                         f"got {hd_v}")
+    rows = 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8
+    rblocks = _cdiv(G, rows)
+    vec = 16 // esize
+    kw, vw = _cdiv(hd, vec) * vec, _cdiv(hd_v, 8) * 8
+    per_warp = 4 * rows * _DEC_TILE + _DEC_STAGES * _DEC_TILE * (
+        _row_bytes(kw, esize) + _row_bytes(vw, esize))
+    warps = min(_DEC_MAX_WARPS, (_SMEM_MAX - 4 * rows * kw) // per_warp)
+    if warps < 1:
+        raise ValueError(f"the decode kernel's tiles of hd {hd} / hd_v "
+                         f"{hd_v} do not fit in shared memory")
+    units = S * KVH * rblocks
+    if splits is None:
+        min_pages = _cdiv(_MIN_SPLIT_ROWS, bs)
+        want = _cdiv(_SPLIT_CTAS_PER_SM * num_sms, max(units, 1))
+        pages = W if 2 * units > num_sms else \
+            max(min_pages, _cdiv(W, want))
+    else:
+        pages = _cdiv(W, max(1, splits))
+    pages = max(1, pages)
+    splits = max(1, _cdiv(W, pages))
+    return DecodePlan(rows, rblocks, warps, splits, pages, units,
+                      rows * (vw + 2))
+
+
+# a ticket per (lane, kv head, row block), apart from the GEMM's tickets
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _decode(q, k_arena, v_arena, tables, lengths, scale, logit_cap, lse,
+            plan):
+    """One launch of the split-KV decode kernel; (o,) or (o, m, l)."""
     from repro_torch.kernels import _build
     KVH, G, hd, hd_v, NB, bs, W = _check(q, k_arena, v_arena, tables,
                                          lengths)
     S = q.shape[0]
-    out = torch.empty((S, KVH * G, hd_v), dtype=q.dtype, device=q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = plan or _decode_plan(S, KVH, G, W, bs, hd, hd_v,
+                                q.element_size(), sms)
+    if lse:
+        out, m, l = _lse_outputs(q, hd_v, S == 0)
+        state = (m.data_ptr(), l.data_ptr())
+    else:
+        out = torch.empty((S, KVH * G, hd_v), dtype=q.dtype,
+                          device=q.device)
+        state = ()
     if S == 0:
-        return out
-    err = _build.library("paged_attn").paged_decode_launch(
+        return (out, m, l) if lse else (out,)
+    ws = torch.empty(plan.ws_elems, dtype=torch.float32,
+                     device=q.device) if plan.splits > 1 else None
+    tickets = _tickets(q.device, plan.units, _TICKETS) \
+        if plan.splits > 1 else None
+    lib = _build.library("paged_attn")
+    launch = lib.paged_decode_lse_launch if lse else lib.paged_decode_launch
+    err = launch(
         _DTYPES[q.dtype], q.data_ptr(), k_arena.data_ptr(),
-        v_arena.data_ptr(), out.data_ptr(), tables.data_ptr(),
+        v_arena.data_ptr(), out.data_ptr(), *state, tables.data_ptr(),
         lengths.data_ptr(), S, KVH, G, hd, hd_v, NB, bs, W, scale,
-        logit_cap, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged decode attention")
-    paged_decode_cuda.launches += 1
+        logit_cap, plan.rows, plan.warps, plan.splits, plan.pages,
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged decode-lse attention" if lse else
+                 "paged decode attention")
+    return (out, m, l) if lse else (out,)
+
+
+def paged_decode_cuda(q, k_arena, v_arena, tables, lengths, *,
+                      scale: float, logit_cap: float = 0.0,
+                      plan: Optional[DecodePlan] = None):
+    """q (S, H, hd) -> (S, H, hd_v) through the CUDA split-KV decode
+    kernel, under ``_decode_plan``'s plan unless ``plan`` gives another
+    (to time it)."""
+    out, = _decode(q, k_arena, v_arena, tables, lengths, scale, logit_cap,
+                   False, plan)
+    if q.shape[0]:
+        paged_decode_cuda.launches += 1
     return out
 
 
@@ -315,25 +441,15 @@ def _lse_outputs(q, hd_v, empty: bool):
 
 
 def paged_decode_lse_cuda(q, k_arena, v_arena, tables, lengths, *,
-                          scale: float, logit_cap: float = 0.0):
+                          scale: float, logit_cap: float = 0.0,
+                          plan: Optional[DecodePlan] = None):
     """q (S, H, hd) -> (o (S, H, hd_v), m (S, H) f32, l (S, H) f32) through
-    the CUDA decode kernel with its softmax-state outputs."""
-    from repro_torch.kernels import _build
-    KVH, G, hd, hd_v, NB, bs, W = _check(q, k_arena, v_arena, tables,
-                                         lengths)
-    S = q.shape[0]
-    out, m, l = _lse_outputs(q, hd_v, S == 0)
-    if S == 0:
-        return out, m, l
-    err = _build.library("paged_attn").paged_decode_lse_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k_arena.data_ptr(),
-        v_arena.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), S, KVH, G, hd, hd_v, NB, bs,
-        W, scale, logit_cap,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged decode-lse attention")
-    paged_decode_lse_cuda.launches += 1
-    return out, m, l
+    the CUDA split-KV decode kernel with its softmax-state outputs."""
+    res = _decode(q, k_arena, v_arena, tables, lengths, scale, logit_cap,
+                  True, plan)
+    if q.shape[0]:
+        paged_decode_lse_cuda.launches += 1
+    return res
 
 
 paged_decode_lse_cuda.launches = 0  # kernel launches that returned no error

@@ -8,26 +8,28 @@ plain PyTorch version, used for CPU tensors and as the reference the
 kernel is held against on the card.  Both compute the residency mode's
 rounding, which is part of the function:
 
-  OS: the whole K accumulates in f32 and is cast to the output type once
-      (``csrc/rsa_gemm.cu``).
+  OS: the whole K accumulates in f32 and is cast to the output type once.
   WS, IS: each ``block_k`` chunk of K, ascending, is multiplied in f32,
       cast to the output type and added to the output in the output type
       (``_kernel_psum``).  In f32 this equals OS up to summation order; in
       bf16 it shows whenever K > block_k.
 
-WS and IS are one function, so they are one kernel (``csrc/rsa_psum.cu``):
-one CTA owns an output tile, keeps the chunk's f32 sum in registers and
-the running output-type sum on chip, and writes C once; the mode only
-orders the walk over tiles, and the two modes' outputs are bitwise equal.
-Which tile, whether the operands swap roles (M <= 32: the weight on
-wgmma's 64-row side) and how K is split when the tiles fill at most half
-the card is
-:func:`_psum_plan`, a function of the shape, ``block_k``, dtype and SM
-count, never of the mode.  A split lies inside one ``block_k`` chunk; the
-last CTA of a tile to arrive sums the splits' f32 partials (from a
-workspace allocated here) in a fixed order, so the result is deterministic
-and each GEMM is still one launch.  ``block_k`` sets the rounding only:
-the WS/IS kernel holds no block_k slab in shared memory.
+OS is the WS/IS function with a single chunk (run = T(0 + T(acc)) =
+T(acc)), so all three modes are one kernel (``csrc/rsa_psum.cu``): OS
+launches it with a ``block_k`` that covers K (K rounded up to 64; the
+caller's block_k is ignored, as OS ignores it) and the walk order
+``_OS_WALK``.  One CTA owns an output tile, keeps the chunk's f32 sum in
+registers and the running output-type sum on chip, and writes C once; the
+mode only orders the walk over tiles, and the WS and IS outputs are
+bitwise equal.  Which tile, whether the operands swap roles (M <= 32: the
+weight on wgmma's 64-row side) and how K is split when the tiles fill at
+most half the card is :func:`_psum_plan`, a function of the shape,
+``block_k``, dtype and SM count, never of the mode.  A split lies inside
+one ``block_k`` chunk (under OS, anywhere in K); the last CTA of a tile to
+arrive sums the splits' f32 partials (from a workspace allocated here) in
+a fixed order, so the result is deterministic and each GEMM is still one
+launch.  ``block_k`` sets the rounding only: the kernel holds no block_k
+slab in shared memory.
 
 ``b`` is either a row-major (K, N) matrix or the transpose of a row-major
 (N, K) one (``w.t()``, as the tied unembedding passes ``embed.t()``), and
@@ -100,7 +102,7 @@ rsa_gemm_plain.calls = 0
 
 
 class PsumPlan(NamedTuple):
-    """How ``csrc/rsa_psum.cu`` runs one WS/IS GEMM."""
+    """How ``csrc/rsa_psum.cu`` runs one GEMM."""
     tile: int       # bf16: the n side of wgmma's tile (8, 32, 64, 128);
                     # f32: the CTA tile's rows (32 or 128; x 16384/rows)
     swap: bool      # bf16: B's N on wgmma's 64-row side, A's M on its n
@@ -125,6 +127,10 @@ _WS_SHARE = 0.5              # workspace bytes at most this share of the
 _WS_CAP = 64 * 2 ** 20       # operands' bytes, and at most 64 MiB
 _FIXUP_CAP = 512 * 2 ** 10   # partial bytes one CTA sums for one tile
 _SWAP_MAX_M = 32             # bf16 GEMMs up to this M swap the operands
+# the walk order OS launches with: WS (M inside an N panel, consecutive
+# CTAs sharing the weight's panel in L2); launch/bench_gemm.py times it
+# against IS's at the main paths' OS shapes, within 1% of it there
+_OS_WALK = WS
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -136,7 +142,8 @@ def _psum_plan(E: int, M: int, K: int, N: int, block_k: int,
                dtype: torch.dtype, num_sms: int, a_trans: bool = False, *,
                swap: Optional[bool] = None,
                split: Optional[bool] = None) -> PsumPlan:
-    """The WS/IS kernel's tile, operand roles and split-K for one GEMM.
+    """The kernel's tile, operand roles and split-K for one GEMM (OS passes
+    a ``block_k`` that covers K, so its splits cut K freely).
 
     bf16: M <= ``_SWAP_MAX_M`` swaps the operands (the weight streams
     once, the M rows are wgmma's n of 8 or 32; an A^T n side needs a whole
@@ -195,15 +202,19 @@ def _psum_plan(E: int, M: int, K: int, N: int, block_k: int,
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 ticket per output tile, kept per device: every split
-    launch leaves them zero again (the last CTA of a tile resets its
-    ticket), so they are zeroed once, when the buffer grows."""
-    t = _TICKETS.get(device)
+def _tickets(device: torch.device, n: int,
+             store: Optional[Dict[torch.device, torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """A zeroed int32 ticket per output tile (or per unit of another split
+    kernel, whose own ``store`` keeps its buffer apart), kept per device:
+    every split launch leaves them zero again (the CTA that merges resets
+    its ticket), so they are zeroed once, when the buffer grows."""
+    store = _TICKETS if store is None else store
+    t = store.get(device)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 4096, 2 * (0 if t is None else t.numel())),
                         dtype=torch.int32, device=device)
-        _TICKETS[device] = t
+        store[device] = t
     return t
 
 
@@ -220,10 +231,13 @@ def _layout(x: torch.Tensor, name: str):
 
 def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                   mode: int, out_dtype: Optional[torch.dtype] = None,
-                  plan: Optional[PsumPlan] = None) -> torch.Tensor:
+                  plan: Optional[PsumPlan] = None,
+                  walk: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA RSA GEMM on PyTorch's current stream: one 2-D
-    product, or one launch for a whole bank (3-D operands).  WS/IS run
-    ``_psum_plan``'s plan unless ``plan`` gives another (to time it)."""
+    product, or one launch for a whole bank (3-D operands), in every mode
+    through ``csrc/rsa_psum.cu``.  It runs ``_psum_plan``'s plan unless
+    ``plan`` gives another, and OS walks the tiles in ``_OS_WALK``'s order
+    unless ``walk`` (WS or IS) gives the other (both to time them)."""
     from repro_torch.kernels import _build
     out_dtype = out_dtype or a.dtype
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
@@ -261,30 +275,22 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     key = ((E,) if bank else ()) + (M, K, N, mode)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if mode == OS:
-        vec = 16 // a.element_size()
-        vec_a = int(a.data_ptr() % 16 == 0 and lda % vec == 0 and
-                    sa % vec == 0)
-        vec_b = int(b.data_ptr() % 16 == 0 and ldb % vec == 0 and
-                    sb % vec == 0)
-        err = _build.library("rsa_gemm").rsa_gemm_launch(
-            mode, _DTYPES[a.dtype], _DTYPES[out_dtype], a_trans, b_trans,
-            a.data_ptr(), lda, b.data_ptr(), ldb, out.data_ptr(), M, N, K,
-            block_k, sms, vec_a, vec_b, E, sa, sb, M * N, stream)
+    if mode == OS:       # one chunk over the whole K: one cast of the sum
+        block_k, walk = _cdiv(K, 64) * 64, walk or _OS_WALK
     else:
-        plan = plan or _psum_plan(E, M, K, N, block_k, a.dtype, sms,
-                                  bool(a_trans))
-        ws = torch.empty(plan.ws_elems, dtype=torch.float32,
-                         device=a.device) if plan.nsplit > 1 else None
-        tickets = _tickets(a.device, plan.tiles) if plan.nsplit > 1 \
-            else None
-        err = _build.library("rsa_psum").rsa_psum_launch(
-            mode, _DTYPES[a.dtype], _DTYPES[out_dtype], a_trans, b_trans,
-            a.data_ptr(), lda, sa, b.data_ptr(), ldb, sb, out.data_ptr(),
-            M * N, E, M, N, K, block_k, plan.tile, int(plan.swap),
-            plan.nsplit, plan.pieces, plan.piece,
-            None if ws is None else ws.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), stream)
+        walk = mode
+    plan = plan or _psum_plan(E, M, K, N, block_k, a.dtype, sms,
+                              bool(a_trans))
+    ws = torch.empty(plan.ws_elems, dtype=torch.float32,
+                     device=a.device) if plan.nsplit > 1 else None
+    tickets = _tickets(a.device, plan.tiles) if plan.nsplit > 1 else None
+    err = _build.library("rsa_psum").rsa_psum_launch(
+        walk, _DTYPES[a.dtype], _DTYPES[out_dtype], a_trans, b_trans,
+        a.data_ptr(), lda, sa, b.data_ptr(), ldb, sb, out.data_ptr(),
+        M * N, E, M, N, K, block_k, plan.tile, int(plan.swap),
+        plan.nsplit, plan.pieces, plan.piece,
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), stream)
     _build.check(err, f"rsa_gemm {'x'.join(map(str, key[:-1]))} "
                       f"mode={mode}")
     rsa_gemm_cuda.launches += 1

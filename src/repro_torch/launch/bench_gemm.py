@@ -1,16 +1,18 @@
-"""Time the RSA GEMM's WS/IS kernel against the plans it rejected, on the card.
+"""Time the RSA GEMM kernel against the plans it rejected, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_gemm [--out FILE]
 
 For each shape the kernel runs under ``_psum_plan``'s plan in the shape's
-own mode, in the other mode (WS and IS differ only in the order CTAs walk
-the tiles), and under the alternatives the plan's two rules turned down:
-the operands swapped or not (bf16), K split or not.  Each time is the
-median device time of 15 runs between CUDA events, L2 flushed before each
-run, beside ``torch.matmul`` on the same inputs.  Every alternative is
-checked against the plan's output (bitwise for the other mode, within
-the f32 summation bound otherwise).  One line per shape; the records go
-to ``--out`` as JSON.  Needs a CUDA card.
+own mode, in the other walk order (WS and IS differ only in the order CTAs
+walk the tiles; OS, one chunk over the whole K, walks in ``_OS_WALK``'s
+order or the other), and under the alternatives the plan's two rules
+turned down: the operands swapped or not (bf16), K split or not.  Each
+time is the median device time of 15 runs between CUDA events, L2 flushed
+before each run, beside ``torch.matmul`` (``torch.bmm`` for a bank) on the
+same inputs.  Every alternative is checked against the plan's output
+(bitwise for the other walk order, within the f32 summation bound
+otherwise).  One line per shape; the records go to ``--out`` as JSON.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,22 +26,30 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.hw import IS, WS
-from repro_torch.kernels.rsa_gemm import _psum_plan, rsa_gemm_cuda
+from repro_torch.core.hw import IS, OS, WS
+from repro_torch.kernels.rsa_gemm import _OS_WALK, _psum_plan, rsa_gemm_cuda
 
-# name, M, K, N, block_k, dtype, mode: the main paths' shapes each rule
-# decides (phases 4, 6, 7 and 8 of chip_smoke.py)
+BF, F32 = torch.bfloat16, torch.float32
+# name, E, M, K, N, block_k, dtype, mode, B^T: the main paths' shapes each
+# rule decides (phases 4, 6, 7 and 8 of chip_smoke.py); the OS rows are
+# kernel row 1's (llama decode k/v, a deepseek head bank, the training dx of
+# gate/up and of the tied unembedding)
 SHAPES = [
-    ("llama decode q/o", 8, 2048, 2048, 2048, torch.bfloat16, IS),
-    ("llama decode down", 8, 8192, 2048, 2048, torch.bfloat16, IS),
-    ("deepseek decode kv_a", 8, 7168, 576, 2048, torch.bfloat16, IS),
-    ("rwkv prefill r", 73, 2048, 2048, 2048, torch.bfloat16, IS),
-    ("rwkv prefill decay_b", 73, 64, 2048, 128, torch.bfloat16, IS),
-    ("rwkv prefill channel_v", 296, 7168, 2048, 2048, torch.bfloat16, WS),
-    ("llama prefill down", 512, 8192, 2048, 2048, torch.bfloat16, IS),
-    ("llama prefill gate/up", 512, 2048, 8192, 2048, torch.bfloat16, WS),
-    ("train k/v fwd", 2048, 2048, 512, 2048, torch.float32, WS),
-    ("train gate/up fwd", 2048, 2048, 8192, 2048, torch.float32, WS),
+    ("llama decode q/o", 1, 8, 2048, 2048, 2048, BF, IS, False),
+    ("llama decode down", 1, 8, 8192, 2048, 2048, BF, IS, False),
+    ("deepseek decode kv_a", 1, 8, 7168, 576, 2048, BF, IS, False),
+    ("rwkv prefill r", 1, 73, 2048, 2048, 2048, BF, IS, False),
+    ("rwkv prefill decay_b", 1, 73, 64, 2048, 128, BF, IS, False),
+    ("rwkv prefill channel_v", 1, 296, 7168, 2048, 2048, BF, WS, False),
+    ("llama prefill down", 1, 512, 8192, 2048, 2048, BF, IS, False),
+    ("llama prefill gate/up", 1, 512, 2048, 8192, 2048, BF, WS, False),
+    ("train k/v fwd", 1, 2048, 2048, 512, 2048, F32, WS, False),
+    ("train gate/up fwd", 1, 2048, 2048, 8192, 2048, F32, WS, False),
+    ("OS llama decode k/v", 1, 8, 2048, 512, 2048, BF, OS, False),
+    ("OS llama prefill k/v", 1, 512, 2048, 512, 2048, BF, OS, False),
+    ("OS head bank q_absorb", 128, 8, 128, 512, 128, BF, OS, False),
+    ("OS train gate/up dx", 1, 2048, 8192, 2048, 2048, F32, OS, True),
+    ("OS train unembed dx", 1, 1024, 128256, 2048, 2048, F32, OS, False),
 ]
 
 
@@ -62,41 +72,52 @@ def timer(fn, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def run_shape(name, M, K, N, bk, dtype, mode, sms):
+def run_shape(name, E, M, K, N, bk, dtype, mode, b_t, sms):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(M + K + N)
-    a = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
-    b = (torch.randn((K, N), generator=gen, device="cuda") /
-         math.sqrt(K)).to(dtype)
-    plan = _psum_plan(1, M, K, N, bk, dtype, sms)
-    variants = {"plan": (mode, plan),
-                "other mode": (WS + IS - mode, plan),
+    lead = (E,) if E > 1 else ()
+    a = torch.randn(lead + (M, K), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn(lead + ((N, K) if b_t else (K, N)), generator=gen,
+                     device="cuda") / math.sqrt(K)).to(dtype)
+    b = b.transpose(-1, -2) if b_t else b
+    pk = -(-K // 64) * 64 if mode == OS else bk    # the block_k planned
+    plan = _psum_plan(E, M, K, N, pk, dtype, sms)
+    walk = _OS_WALK if mode == OS else mode
+    variants = {"plan": (walk, plan),
+                "other walk": (WS + IS - walk, plan),
                 "split" if plan.nsplit == 1 else "unsplit":
-                    (mode, _psum_plan(1, M, K, N, bk, dtype, sms,
+                    (walk, _psum_plan(E, M, K, N, pk, dtype, sms,
                                       split=plan.nsplit == 1))}
     if dtype == torch.bfloat16:
         variants["unswapped" if plan.swap else "swapped"] = (
-            mode, _psum_plan(1, M, K, N, bk, dtype, sms,
+            walk, _psum_plan(E, M, K, N, pk, dtype, sms,
                              swap=not plan.swap))
-    want = rsa_gemm_cuda(a, b, block_k=bk, mode=mode, plan=plan)
-    bound = K * 2.0 ** -24 * (a.abs().float() @ b.abs().float()).max() \
-        .item()
+
+    def run(w, p):
+        if mode == OS:
+            return rsa_gemm_cuda(a, b, block_k=bk, mode=OS, plan=p, walk=w)
+        return rsa_gemm_cuda(a, b, block_k=bk, mode=w, plan=p)
+    want = run(walk, plan)
+    mag = (torch.bmm if E > 1 else torch.matmul)(a.abs().float(),
+                                                  b.abs().float())
+    bound = K * 2.0 ** -24 * mag.max().item()
     if dtype == torch.bfloat16:       # one bf16 rounding a chunk, twice
-        bound += 2 * (-(-K // bk) + 1) * 2.0 ** -8 * \
-            want.abs().max().item()
-    rec = {"name": name, "M": M, "K": K, "N": N, "block_k": bk,
-           "dtype": str(dtype).split(".")[-1],
-           "mode": "WS" if mode == WS else "IS",
-           "matmul_ms": timer(lambda: torch.matmul(a, b)), "variants": {}}
-    for vname, (m, p) in variants.items():
-        got = rsa_gemm_cuda(a, b, block_k=bk, mode=m, plan=p)
+        chunks = 1 if mode == OS else -(-K // bk)
+        bound += 2 * (chunks + 1) * 2.0 ** -8 * want.abs().max().item()
+    library = torch.bmm if E > 1 else torch.matmul
+    rec = {"name": name, "E": E, "M": M, "K": K, "N": N, "block_k": pk,
+           "dtype": str(dtype).split(".")[-1], "b_transposed": b_t,
+           "mode": {OS: "OS", WS: "WS", IS: "IS"}[mode],
+           "walk": "WS" if walk == WS else "IS",
+           "matmul_ms": timer(lambda: library(a, b)), "variants": {}}
+    for vname, (w, p) in variants.items():
+        got = run(w, p)
         err = (got.float() - want.float()).abs().max().item()
-        ok = torch.equal(got, want) if vname == "other mode" else \
+        ok = torch.equal(got, want) if vname == "other walk" else \
             err <= bound
         rec["variants"][vname] = {
-            "ms": timer(lambda: rsa_gemm_cuda(a, b, block_k=bk, mode=m,
-                                              plan=p)),
-            "plan": p._asdict(), "max_abs_err": err, "ok": ok}
+            "ms": timer(lambda: run(w, p)), "walk": "WS" if w == WS else
+            "IS", "plan": p._asdict(), "max_abs_err": err, "ok": ok}
     return rec
 
 
@@ -118,8 +139,10 @@ def main(argv=None) -> int:
         rec = run_shape(*shape, sms)
         recs.append(rec)
         ok &= all(v["ok"] for v in rec["variants"].values())
-        print(f"{rec['name']:<24} {rec['M']}x{rec['K']}x{rec['N']} "
-              f"{rec['dtype']} {rec['mode']}  matmul "
+        print(f"{rec['name']:<24} "
+              f"{str(rec['E']) + 'x' if rec['E'] > 1 else ''}"
+              f"{rec['M']}x{rec['K']}x{rec['N']} "
+              f"{rec['dtype']} {rec['mode']} (walk {rec['walk']})  library "
               f"{rec['matmul_ms']:.4f} ms  " + "  ".join(
                   f"{k} {v['ms']:.4f}"
                   f"{'' if v['ok'] else ' (MISMATCH)'}"

@@ -12,6 +12,10 @@ the GEMM, and the attention kernels round p to bf16 before p @ V.  The
 cascade kernels' f32 softmax states (m, l) differ from the plain versions'
 by summation order only (1e-4 relative), and their empty rows (a lane of
 length 0, a lane outside the sharing group) are exactly (0, -1e30, 0).
+OS runs on the WS/IS kernel as one chunk over K: one bf16 rounding, and
+two runs bitwise equal (its split-K fix-up is ordered).  The split-KV
+decode kernel is held to the attention tolerances at every split count,
+and to itself run to run, bitwise.
 The bank GEMM is held to the 2-D GEMM's bound and, member by member, to
 the 2-D kernel bitwise; the WS/IS kernel's two modes, and two runs of it,
 are held to each other bitwise (one kernel computes both); the MLA kernels to the attention tolerances.  The
@@ -35,6 +39,7 @@ from repro_torch.core.hw import IS, OS, WS
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attn import (NEG, paged_attention_lse_plain,
                                             paged_attention_plain,
+                                            paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_attention_plain,
                                             paged_prefix_cuda,
@@ -808,3 +813,154 @@ def test_psum_split_plan_and_refused_launch(cuda):
     assert not tickets.any()
     assert torch.equal(_psum_check(a, b, bk, torch.bfloat16), first)
     assert not tickets.any()
+
+
+# ---------------------------------------------------------------------------
+# OS on the psum kernel: one chunk over the whole K
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,out", PSUM_DTYPES,
+                         ids=["bf16", "bf16-f32", "f32"])
+@pytest.mark.parametrize("K", [64, 200, 1000, 8192])
+@pytest.mark.parametrize("M", [1, 8, 32, 65, 300])
+def test_os_gemm_matches_plain(cuda, M, K, dtype, out):
+    """OS runs the psum kernel with one chunk (block_k >= K): one launch a
+    call, run to run bitwise (a split's fix-up is ordered), within the OS
+    bound of the plain version (one bf16 rounding), whatever block_k the
+    caller passes."""
+    N = 392 if M <= 32 else 136
+    a = torch.randn((M, K), generator=cuda, device="cuda").to(dtype)
+    b = (torch.randn((K, N), generator=cuda, device="cuda") /
+         math.sqrt(K)).to(dtype)
+    n0 = ops.launch_counts()["rsa_gemm"]
+    got = ops.rsa_gemm(a, b, block_k=32, mode=OS, out_dtype=out)
+    again = ops.rsa_gemm(a, b, block_k=2048, mode=OS, out_dtype=out)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rsa_gemm"] == n0 + 2
+    assert got.dtype == out and torch.equal(got, again)
+    want = rsa_gemm_plain(a, b, block_k=32, mode=OS, out_dtype=out)
+    tol = K * 2.0 ** -24 * (a.abs().float() @ b.abs().float()).max().item()
+    if out == torch.bfloat16:
+        tol += 2 * 2.0 ** -8 * want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= tol
+
+
+def test_os_gemm_at_the_unembedding_depth(cuda):
+    """K = 128256 (the tied unembedding's dx, here at decode M): one chunk
+    the whole vocabulary deep, split across the card, bitwise twice."""
+    M, K, N = 8, 128256, 2048
+    a = torch.randn((M, K), generator=cuda, device="cuda")
+    b = torch.randn((N, K), generator=cuda, device="cuda") / math.sqrt(K)
+    got = ops.rsa_gemm(a, b.t(), block_k=256, mode=OS)
+    again = ops.rsa_gemm(a, b.t(), block_k=256, mode=OS)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = rsa_gemm_plain(a, b.t(), block_k=256, mode=OS)
+    tol = K * 2.0 ** -24 * (a.abs() @ b.t().abs()).max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the split-KV paged decode kernel (decode and decode-lse)
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(gen, S, KVH, G, hd, dtype, lengths, bs=16):
+    """Disjoint pages a lane, in shuffled arena order; dead columns repeat
+    the last live id; the table is as wide as the longest lane."""
+    W = max(1, max(-(-n // bs) for n in lengths))
+    NB = sum(-(-n // bs) for n in lengths) + 1
+    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(S))
+    tables = torch.zeros((S, W), dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        nb = -(-n // bs)
+        if nb:
+            tables[i, :nb] = perm[nxt:nxt + nb].int()
+            tables[i, nb:] = tables[i, nb - 1]
+            nxt += nb
+    k = torch.randn((NB, bs, KVH, hd), generator=gen, device="cuda")
+    v = torch.randn((NB, bs, KVH, hd), generator=gen, device="cuda")
+    q = torch.randn((S, KVH * G, hd), generator=gen, device="cuda")
+    return (q.to(dtype), k.to(dtype), v.to(dtype), tables.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+DECODE_LENGTHS = {
+    1: [8192],
+    8: [0, 1, 16, 17, 545, 2000, 4097, 8192],
+    64: [(i * 37) % 600 for i in range(63)] + [8192],
+}
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 8, 64])
+def test_split_decode_kernels_match_plain(cuda, S, G, hd, dtype, tol, cap):
+    """Decode and decode-lse at S in {1, 8, 64} (split and unsplit plans),
+    G in {1, 4, 8}, hd = hd_v in {64, 128, 256}, lengths 0 ... 8192 with
+    the soft cap on and off, against the plain versions: o within today's
+    tolerances, (m, l) within 1e-4 relative, the empty lane exactly (0,
+    -1e30, 0); one launch a call."""
+    lengths = DECODE_LENGTHS[S]
+    q, k, v, tables, lens = _decode_inputs(cuda, S, 2, G, hd, dtype,
+                                           lengths)
+    scale = hd ** -0.5
+    n0 = ops.launch_counts()
+    got = paged_decode_cuda(q, k, v, tables, lens, scale=scale,
+                            logit_cap=cap)
+    lse = paged_decode_lse_cuda(q, k, v, tables, lens, scale=scale,
+                                logit_cap=cap)
+    n1 = ops.launch_counts()
+    assert (n1["paged_decode"] - n0["paged_decode"],
+            n1["paged_decode_lse"] - n0["paged_decode_lse"]) == (1, 1)
+    want = paged_attention_plain(q, k, v, tables, lens, scale=scale,
+                                 logit_cap=cap)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    _states_close(lse, paged_attention_lse_plain(
+        q, k, v, tables, lens, scale=scale, logit_cap=cap), tol)
+    assert torch.equal(lse[0], got)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (got[i] == 0).all() and (lse[1][i] == NEG).all() and \
+                (lse[2][i] == 0).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 16, 64, 512])
+def test_split_decode_any_split_count_is_right_and_bitwise(cuda, splits):
+    """Forced split counts at phase 3's widths (8 lanes, 8 kv heads, G = 4,
+    hd 64, bf16, lengths 0 ... 8192), one lane ending inside the first
+    split: each within the tolerance, and bitwise equal run to run (the
+    merge is ordered); the tickets are left zero."""
+    from repro_torch.kernels.paged_attn import DecodePlan, _decode_plan
+    lengths = [3, 1, 16, 17, 545, 2000, 0, 8192]
+    q, k, v, tables, lens = _decode_inputs(cuda, 8, 8, 4, 64,
+                                           torch.bfloat16, lengths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = _decode_plan(8, 8, 4, tables.shape[1], 16, 64, 64, 2, sms,
+                        splits=splits)
+    assert isinstance(plan, DecodePlan)
+    a = (q, k, v, tables, lens)
+    got = paged_decode_lse_cuda(*a, scale=0.125, plan=plan)
+    again = paged_decode_lse_cuda(*a, scale=0.125, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _states_close(got, paged_attention_lse_plain(*a, scale=0.125), 4e-2)
+    from repro_torch.kernels.paged_attn import _TICKETS
+    assert not _TICKETS[q.device].any()
+
+
+def test_split_decode_refuses_over_limit_before_launch(cuda):
+    """hd_v past 256 raises before any launch; nothing is counted."""
+    q, k, v, tables, lens = _decode_inputs(cuda, 2, 1, 4, 512,
+                                           torch.bfloat16, [5, 40])
+    n0 = ops.launch_counts()
+    for fn in (paged_decode_cuda, paged_decode_lse_cuda):
+        with pytest.raises(ValueError, match="hd_v <= 256"):
+            fn(q, k, v, tables, lens, scale=0.1)
+    n1 = ops.launch_counts()
+    assert n1["paged_decode"] == n0["paged_decode"]
+    assert n1["paged_decode_lse"] == n0["paged_decode_lse"]

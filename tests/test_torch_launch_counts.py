@@ -25,16 +25,19 @@ from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
 
 
 class _Library:
-    """Stands in for a built kernel library: records each launch call and
-    returns ``err`` (0 = cudaSuccess)."""
+    """Stands in for a built kernel library: records each launch call (its
+    name in ``calls``, its arguments in ``args``) and returns ``err`` (0 =
+    cudaSuccess)."""
 
     def __init__(self):
         self.calls = []
+        self.args = []
         self.err = 0
 
     def __getattr__(self, name):
         def launch(*args):
             self.calls.append(name)
+            self.args.append(args)
             return self.err
         return launch
 
@@ -69,8 +72,8 @@ def test_gemm_counts_each_launch_by_shape(card):
     rsa_gemm_cuda(a, b, block_k=64, mode=IS)
     rsa_gemm_cuda(a, b, block_k=64, mode=IS)
     rsa_gemm_cuda(a, b.t().contiguous().t(), block_k=64, mode=OS)
-    # WS/IS launch the psum kernel's library, OS the OS kernel's
-    assert card.calls == ["rsa_psum_launch"] * 2 + ["rsa_gemm_launch"]
+    # every mode launches the psum kernel's library (OS as one chunk)
+    assert card.calls == ["rsa_psum_launch"] * 3
     assert ops.launch_counts()["rsa_gemm"] == 3
     assert rsa_gemm_cuda.launches_by_key == {(8, 64, 32, IS): 2,
                                              (8, 64, 32, OS): 1}
@@ -83,6 +86,40 @@ def test_failed_gemm_launch_raises_and_counts_nothing(card):
                       mode=IS)
     assert card.calls == ["rsa_psum_launch"]
     assert ops.launch_counts()["rsa_gemm"] == 0
+
+
+@pytest.mark.parametrize("E,M,K,N,dtype,a_t,b_t", [
+    (1, 8, 2048, 512, torch.bfloat16, False, False),     # decode k/v: split
+    (1, 2048, 8192, 2048, torch.float32, False, True),   # train dx (w^T)
+    (1, 2048, 128256, 2048, torch.float32, False, False),  # unembed dx
+    (128, 8, 128, 512, torch.bfloat16, False, False),    # an MLA head bank
+    (1, 64, 8, 32, torch.float32, True, False),          # dw: x^T, K < 64
+    (1, 37, 1000, 300, torch.bfloat16, False, True)])    # ragged, B^T
+@pytest.mark.parametrize("block_k", [32, 256, 2048])
+def test_os_launches_the_psum_kernel_as_one_chunk(card, E, M, K, N, dtype,
+                                                   a_t, b_t, block_k):
+    """OS is one ``rsa_psum_launch`` whose block_k covers K in a single
+    chunk (K rounded up to 64, whatever the caller's block_k), walking the
+    tiles in a WS (1) or IS (2) order; its splits, if any, are the pieces of
+    that one chunk.  Counted once, under mode OS."""
+    a = torch.zeros((K, M) if a_t else (M, K), dtype=dtype)
+    a = a.t() if a_t else a
+    b = torch.zeros((N, K) if b_t else (K, N), dtype=dtype)
+    b = b.t() if b_t else b
+    if E > 1:
+        a, b = a.expand(E, M, K), b.expand(E, K, N)
+    rsa_gemm_cuda(a, b, block_k=block_k, mode=OS)
+    assert card.calls == ["rsa_psum_launch"]
+    args = card.args[0]
+    walk, k, bk, nsplit, pieces = (args[0], args[16], args[17], args[20],
+                                   args[21])
+    assert walk in (1, 2)
+    assert k == K and bk >= K and bk % 64 == 0 and bk - K < 64
+    assert -(-K // bk) == 1 and nsplit in (1, pieces)
+    assert (args[23] is not None) == (nsplit > 1)     # the workspace
+    assert ops.launch_counts()["rsa_gemm"] == 1
+    key = ((E,) if E > 1 else ()) + (M, K, N, OS)
+    assert rsa_gemm_cuda.launches_by_key == {key: 1}
 
 
 def _paged(S, C, err, card):
@@ -118,6 +155,46 @@ def test_paged_counts_each_launch_and_no_failed_one(card):
     counts = ops.launch_counts()
     assert (counts["paged_decode"], counts["paged_prefill"]) == (1, 1)
     assert counts["plain_calls"] == 0
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("S,W,split", [(1, 512, True), (8, 64, True),
+                                       (64, 64, False), (3, 3, False)])
+def test_decode_is_one_launch_whatever_the_plan(card, lse, S, W, split):
+    """A decode call is ONE launch, split or not: the plan's rows, warps,
+    splits and pages go to the kernel, a split plan with its workspace and
+    tickets, an unsplit one with neither."""
+    KVH, G, hd, bs = 8, 4, 64, 16
+    k = torch.zeros(4, bs, KVH, hd, dtype=torch.bfloat16)
+    q = torch.zeros(S, KVH * G, hd, dtype=torch.bfloat16)
+    tables = torch.zeros(S, W, dtype=torch.int32)
+    lengths = torch.full((S,), W * bs, dtype=torch.int32)
+    fn = paged_decode_lse_cuda if lse else paged_decode_cuda
+    fn(q, k, k, tables, lengths, scale=0.125)
+    name = "paged_decode_lse_launch" if lse else "paged_decode_launch"
+    assert card.calls == [name]
+    args = card.args[0][2:] if lse else card.args[0]  # past m, l
+    rows, warps, nsplit, pages, ws, tickets = args[17:23]
+    assert (rows, warps) == (4, 4)
+    assert (nsplit > 1) == split and nsplit * pages >= W
+    assert (ws is not None) == split and (tickets is not None) == split
+    counts = ops.launch_counts()
+    assert counts["paged_decode_lse" if lse else "paged_decode"] == 1
+    assert counts["plain_calls"] == 0
+
+
+def test_decode_refuses_what_it_does_not_take(card):
+    """hd_v past 256 raises before any launch, and counts nothing."""
+    k = torch.zeros(4, 4, 2, 8)
+    v = torch.zeros(4, 4, 2, 512)
+    for fn in (paged_decode_cuda, paged_decode_lse_cuda):
+        with pytest.raises(ValueError, match="hd_v <= 256"):
+            fn(torch.zeros(3, 4, 8), k, v, torch.zeros(3, 2,
+                                                       dtype=torch.int32),
+               torch.ones(3, dtype=torch.int32), scale=0.5)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert counts["paged_decode"] == counts["paged_decode_lse"] == 0
 
 
 def _cascade(S, P, err, card):
@@ -197,8 +274,7 @@ def test_bank_gemm_counts_one_launch_per_bank(card):
     card.err = 9
     with pytest.raises(RuntimeError, match="cudaError_t 9"):
         rsa_gemm_cuda(a, b, block_k=64, mode=IS)
-    assert card.calls == ["rsa_psum_launch", "rsa_gemm_launch",
-                          "rsa_psum_launch"]
+    assert card.calls == ["rsa_psum_launch"] * 3
     assert ops.launch_counts()["rsa_gemm"] == 2
     with pytest.raises(ValueError, match="shape mismatch"):
         rsa_gemm_cuda(a, torch.zeros(15, 64, 32), block_k=64, mode=IS)
@@ -265,12 +341,12 @@ def test_transposed_a_gemm_counts_one_launch(card):
     x = torch.zeros(8, 64)
     out = rsa_gemm_cuda(x.t(), torch.zeros(8, 32), block_k=64, mode=OS)
     assert out.shape == (64, 32)
-    assert card.calls == ["rsa_gemm_launch"]
+    assert card.calls == ["rsa_psum_launch"]
     assert rsa_gemm_cuda.launches_by_key == {(64, 8, 32, OS): 1}
     with pytest.raises(ValueError, match="A must be row-major"):
         rsa_gemm_cuda(torch.zeros(8, 128)[:, ::2], torch.zeros(64, 32),
                       block_k=64, mode=OS)
-    assert card.calls == ["rsa_gemm_launch"]
+    assert card.calls == ["rsa_psum_launch"]
 
 
 def _flash(B, Sq, Skv, err, card, G=2):
@@ -484,3 +560,32 @@ def test_adaptnetx_kernel_refuses_what_it_does_not_take(card):
         ops.adaptnetx_recommend(torch.zeros(2, 2, 3), p)
     assert card.calls == []
     assert ops.launch_counts()["adaptnetx"] == 0
+
+
+def _c_params(source: str, fn: str):
+    """The C parameter types of ``extern "C" int fn(...)`` in a source."""
+    import re
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", source,
+                  re.S)
+    assert m, fn
+    return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SIGNATURES))
+def test_signatures_match_the_c_declarations(lib):
+    """Every bound launch function's argtypes follow its C declaration:
+    one per parameter, a pointer for each pointer (ctypes would otherwise
+    pass a Python int as a 32-bit int), a 64-bit int for each long long
+    and a float for each float; every library has a source."""
+    import ctypes
+    source = (_build.CSRC / f"{lib}.cu").read_text()
+    for fn, argtypes in _build.SIGNATURES[lib].items():
+        params = _c_params(source, fn)
+        assert len(params) == len(argtypes), fn
+        for c, t in zip(params, argtypes):
+            want = (ctypes.c_void_p if "*" in c else ctypes.c_longlong
+                    if "long long" in c else ctypes.c_float if c == "float"
+                    else ctypes.c_int)
+            assert t is want, (fn, c, t)
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == \
+        sorted(_build.SIGNATURES)

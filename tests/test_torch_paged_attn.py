@@ -17,8 +17,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.paged_attn import paged_gqa_decode_lse_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attn import (paged_attention_plain,
+from repro_torch.kernels.paged_attn import (NEG, _decode_plan,
+                                            merge_softmax_states,
+                                            paged_attention_lse_plain,
+                                            paged_attention_plain,
                                             paged_gather,
                                             paged_prefill_attention_plain)
 
@@ -142,3 +146,137 @@ def test_decode_is_the_one_row_prefill():
         _t(q[:, None]), _t(k), _t(v), _t(tables),
         _t(np.maximum(lengths - 1, 0)), _t(lengths), scale=0.3)
     assert torch.allclose(dec, pre[:, 0], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV decode kernel's arithmetic (csrc/paged_attn.cu): each split's
+# page columns attended alone, the states merged in ascending split order
+# ---------------------------------------------------------------------------
+
+def _split_decode(q, k, v, tables, lengths, plan, scale, cap):
+    """The plain twin of the kernel's split-and-merge: split j attends the
+    page columns [j * pages, (j + 1) * pages) through
+    ``paged_attention_lse_plain`` (a lane whose length ends before them
+    gets the empty state), and ``merge_softmax_states`` folds the splits in
+    ascending order from the empty state.  Returns (o, m, l)."""
+    S, W = tables.shape
+    bs = k.shape[1]
+    H, hd_v = q.shape[1], v.shape[-1]
+    o = torch.zeros((S, H, hd_v))
+    m = torch.full((S, H), NEG)
+    l = torch.zeros((S, H))
+    for j in range(plan.splits):
+        c0, c1 = j * plan.pages, min((j + 1) * plan.pages, W)
+        if c1 <= c0:
+            continue
+        lens = torch.clamp(lengths - c0 * bs, 0, (c1 - c0) * bs)
+        part = paged_attention_lse_plain(
+            q, k, v, tables[:, c0:c1].contiguous(), lens, scale=scale,
+            logit_cap=cap)
+        o, m, l = merge_softmax_states(o, m, l, *part)
+    return o.to(q.dtype), m, l
+
+
+# lengths 0, 1, 16, 17, one shorter than the first split (3), two past
+# several splits; with bs = 4 and W = 100 every split of lanes 0-4 is empty
+SPLIT_LENGTHS = np.array([0, 1, 16, 17, 3, 250, 399, 128], np.int32)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3, 7],
+                         ids=["plan", "1", "3", "7"])
+@pytest.mark.parametrize("cap", [0.0, 5.0])
+@pytest.mark.parametrize("KVH,G", [(2, 2), (1, 4)])
+def test_split_decode_twin_matches_plain_and_pallas(splits, cap, KVH, G):
+    """The twin equals the one-softmax plain versions and the reference's
+    Pallas kernels (interpret) within this file's 2e-5 on o and 1e-5 on m
+    (l: 1e-5 of its size, a sum of up to 400 terms), for the rule's plan
+    (4 splits of 32 pages here) and forced split counts; the empty lane is
+    exactly (0, -1e30, 0)."""
+    rng = np.random.default_rng(40 + int(cap) + KVH + (splits or 0))
+    hd, W = 16, 100
+    tables, used = _tables(SPLIT_LENGTHS, BS, width=W)
+    k, v = _arena(rng, used + 2, KVH, hd)
+    S = len(SPLIT_LENGTHS)
+    q = rng.standard_normal((S, KVH * G, hd)).astype(np.float32)
+    scale = 1.0 / hd ** 0.5
+    plan = _decode_plan(S, KVH, G, W, BS, hd, hd, 4, 132, splits=splits)
+    if splits is None:
+        assert plan.splits == 4 and plan.pages == 32
+    tq, tk, tv, tt, tl = (_t(x) for x in (q, k, v, tables, SPLIT_LENGTHS))
+    o, m, l = _split_decode(tq, tk, tv, tt, tl, plan, scale, cap)
+    plain = paged_attention_plain(tq, tk, tv, tt, tl, scale=scale,
+                                  logit_cap=cap)
+    lo, lm, ll = paged_attention_lse_plain(tq, tk, tv, tt, tl, scale=scale,
+                                           logit_cap=cap)
+    assert (o - plain).abs().max().item() <= TOL
+    assert (o - lo).abs().max().item() <= TOL
+    assert (m - lm).abs().max().item() <= 1e-5
+    assert ((l - ll).abs() / ll.clamp(min=1.0)).max().item() <= 1e-5
+    args = [jnp.asarray(x) for x in (q, k, v, tables, SPLIT_LENGTHS)]
+    pallas = np.asarray(jops.paged_attention(*args, logit_cap=cap,
+                                             impl="pallas", interpret=True))
+    assert np.abs(o.numpy() - pallas).max() <= TOL
+    po, pm, pl = paged_gqa_decode_lse_pallas(
+        args[0].reshape(S, KVH, G, hd), *args[1:], scale, True,
+        logit_cap=cap)
+    assert np.abs(o.numpy() - np.asarray(po).reshape(S, -1, hd)).max() \
+        <= TOL
+    assert np.abs(m.numpy() - np.asarray(pm).reshape(S, -1)).max() <= 1e-5
+    pl = np.asarray(pl).reshape(S, -1)
+    assert (np.abs(l.numpy() - pl) / np.maximum(pl, 1.0)).max() <= 1e-5
+    assert torch.all(o[0] == 0) and torch.all(m[0] == NEG) and \
+        torch.all(l[0] == 0)
+
+
+def _split_columns(plan, W):
+    return [range(j * plan.pages, min((j + 1) * plan.pages, W))
+            for j in range(plan.splits)]
+
+
+DECODE_GRID = [(S, KVH, G, W, bs)
+               for S in (1, 2, 8, 16, 64, 256)
+               for KVH in (1, 2, 8)
+               for G in (1, 3, 4, 8, 12)
+               for W in (0, 1, 3, 16, 35, 64, 512)
+               for bs in (4, 16, 64)]
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_decode_plan_covers_every_column_once(chunk):
+    """On a grid: every page column lies in exactly one split, every split
+    but an all-dead tail holds at least one column, a split plan keeps
+    within half the card's CTAs before splitting and takes at least 128
+    rows a split, and a grid that fills over half the card is not split.
+    The plan is a pure function of its inputs."""
+    for S, KVH, G, W, bs in DECODE_GRID[chunk::4]:
+        for hd, esize in ((64, 2), (256, 4)):
+            plan = _decode_plan(S, KVH, G, W, bs, hd, hd, esize, 132)
+            assert plan == _decode_plan(S, KVH, G, W, bs, hd, hd, esize, 132)
+            cols = [c for r in _split_columns(plan, W) for c in r]
+            assert cols == list(range(W)), (S, KVH, G, W, bs)
+            assert all(len(r) > 0 for r in _split_columns(plan, W)) or W == 0
+            assert plan.rows in (1, 2, 4, 8) and plan.rows >= min(G, 8)
+            assert plan.rows * plan.rblocks >= G
+            assert plan.units == S * KVH * plan.rblocks
+            assert 1 <= plan.warps <= 4
+            if 2 * plan.units > 132:
+                assert plan.splits == 1
+            if plan.splits > 1:
+                assert plan.pages * bs >= 128
+                assert plan.ws_elems == plan.ctas * plan.part
+
+
+def test_decode_plan_shapes_of_the_paths():
+    """Phase 3's and phase 4's decode (8 lanes, 8 kv heads, G = 4, hd 64,
+    pages of 16, bf16) splits 5 ways, the long context (one lane of 8192
+    rows) 32 ways, 16+ lanes not at all; gemma-2b's G = 8, hd 256 fits
+    (3 warps in bf16, 1 in f32); hd_v past 256 raises."""
+    p = _decode_plan(8, 8, 4, 64, 16, 64, 64, 2, 132)
+    assert (p.rows, p.warps, p.splits, p.pages) == (4, 4, 5, 13)
+    p = _decode_plan(1, 8, 4, 512, 16, 64, 64, 2, 132)
+    assert (p.splits, p.pages, p.ctas) == (32, 16, 256)
+    assert _decode_plan(16, 8, 4, 64, 16, 64, 64, 2, 132).splits == 1
+    assert _decode_plan(8, 1, 8, 64, 16, 256, 256, 2, 132).warps == 3
+    assert _decode_plan(8, 1, 8, 64, 16, 256, 256, 4, 132).warps == 1
+    with pytest.raises(ValueError, match="hd_v <= 256"):
+        _decode_plan(8, 8, 4, 64, 16, 64, 512, 2, 132)

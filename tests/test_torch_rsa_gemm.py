@@ -22,7 +22,8 @@ from repro.kernels import ops as jops
 from repro_torch import dispatch
 from repro_torch.core.hw import IS, OS, WS
 from repro_torch.kernels import ops
-from repro_torch.kernels.rsa_gemm import _psum_plan, rsa_gemm_plain
+from repro_torch.kernels.rsa_gemm import (_FIXUP_CAP, _psum_plan,
+                                         rsa_gemm_plain)
 
 MODES = [OS, WS, IS]
 
@@ -126,6 +127,82 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     assert rsa_gemm_plain.calls == 1
     with pytest.raises(ValueError), dispatch.use(execute="kernel"):
         ops.rsa_gemm(a, b, block_k=128, mode=IS)
+
+
+# ---------------------------------------------------------------------------
+# OS as the WS/IS function with one chunk: the premise of running OS on the
+# psum kernel (block_k >= K)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["plain", "A^T", "B^T", "bank"])
+@pytest.mark.parametrize("dtype,out", [("f32", "f32"), ("bf16", "bf16"),
+                                       ("bf16", "f32")])
+@pytest.mark.parametrize("K", [20, 64, 200, 1000])
+def test_os_is_one_chunk_of_ws_and_is(K, dtype, out, layout):
+    """With block_k >= K the chunked rounding closes one chunk, T(acc): OS,
+    WS and IS are bitwise the same function, for f32, bf16 -> bf16 and
+    bf16 -> f32, a bank, A^T and B^T."""
+    rng = np.random.default_rng(K + len(layout))
+    E = 3 if layout == "bank" else 1
+    M, N = 9, 40
+    a = torch.from_numpy(rng.standard_normal((E, M, K)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((E, K, N)).astype(np.float32))
+    if dtype == "bf16":
+        a, b = a.bfloat16(), b.bfloat16()
+    if layout == "A^T":
+        a = a[0].t().contiguous().t()
+    elif layout == "B^T":
+        b = b[0].t().contiguous().t()
+    elif layout == "plain":
+        a, b = a[0], b[0]
+    odt = torch.float32 if out == "f32" else torch.bfloat16
+    want = rsa_gemm_plain(a, b, block_k=128, mode=OS, out_dtype=odt)
+    for bk in (-(-K // 64) * 64, 2048):
+        for mode in (WS, IS):
+            got = rsa_gemm_plain(a, b, block_k=bk, mode=mode, out_dtype=odt)
+            assert got.dtype == odt and torch.equal(got, want), (bk, mode)
+
+
+def _os_shapes():
+    """(E, M, K, N, dtype, a_trans) of the OS launches on the main paths:
+    llama decode k/v and prefill, the deepseek head banks, the training
+    dx (up to the unembedding's K = 128256) and dw."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [(1, 8, 2048, 512, bf, False), (1, 512, 2048, 512, bf, False),
+            (128, 8, 128, 512, bf, False), (128, 8, 512, 128, bf, False),
+            (128, 512, 128, 512, bf, False),
+            (1, 2048, 8192, 2048, f32, False),
+            (1, 2048, 2048, 8192, f32, False),
+            (1, 1024, 128256, 2048, f32, False),
+            (1, 8, 128256, 2048, bf, False),
+            (1, 2048, 2048, 512, f32, True),
+            (1, 2048, 1024, 128256, f32, True),
+            (1, 8, 2048, 128256, bf, False)]
+
+
+@pytest.mark.parametrize("shape", _os_shapes(),
+                         ids=lambda s: "x".join(map(str, s[:4])))
+def test_psum_plan_of_os_shapes(shape):
+    """The OS block_k (K rounded up to 64) makes one chunk: the splits cover
+    K exactly once, in pieces of whole 64-deep stages, and the workspace
+    and fix-up caps hold, up to K = 128256."""
+    E, M, K, N, dt, a_trans = shape
+    bk = -(-K // 64) * 64
+    plan = _psum_plan(E, M, K, N, bk, dt, 132, a_trans)
+    spl = _splits(plan, K, bk)
+    covered = []
+    for k0, k1 in spl:
+        assert 0 <= k0 <= k1 <= K
+        covered += range(k0, k1)
+    assert covered == list(range(K))
+    assert plan.nsplit in (1, plan.pieces)        # the one chunk's pieces
+    size = 2 if dt == torch.bfloat16 else 4
+    assert plan.ws_elems * 4 <= min(PLAN_CAP_BYTES,
+                                    0.5 * E * (M * K + K * N) * size)
+    if plan.nsplit > 1:
+        assert plan.piece % 64 == 0
+        assert plan.nsplit * plan.tile_elems * 4 <= _FIXUP_CAP
+        assert 2 * plan.tiles <= 132
 
 
 # ---------------------------------------------------------------------------
