@@ -21,7 +21,11 @@ Phases (any failure exits non-zero):
    8's prefill shapes are counted in one line).  The split-KV decode kernel
    also runs three timed bf16 cases through decode and decode-lse (lengths
    across split boundaries, a lane ending inside the first split, one lane
-   of 8192 rows), each line with its plan (splits, CTAs); and
+   of 8192 rows), each line with its plan (splits, CTAs).  Prefill and
+   the shared-prefix phase run one tensor-core kernel: each line prints
+   its split-KV plan (splits, CTAs, width), the timed prefill line
+   SDPA over K/V gathered beforehand with the causal-offset mask as a
+   yardstick, and both kernels also run one untimed bf16 case at hd 128;
    the kernel, plain-version and (where one exists) library-call times are
    device times between CUDA events, L2 flushed before every run, with a
    spin kernel holding the card until the host has queued the whole run;
@@ -410,12 +414,20 @@ def attn_bound_ms(kv_rows, KVH, hd, io_bytes, flops):
                                  "operations")
 
 
+def plan_text(plan) -> str:
+    """One line of an ``_attn_plan``: splits x units = CTAs, width."""
+    return (f"{plan['splits']} splits x {plan['units']} = "
+            f"{plan['splits'] * plan['units']} CTAs, width {plan['width']}")
+
+
 def check_paged(torch, report, timer, cfg):
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attn import (
-        _decode_plan, paged_attention_lse_plain, paged_attention_plain,
-        paged_decode_lse_cuda, paged_prefill_attention_plain)
-    from repro_torch.launch.bench_decode import gathered_sdpa
+        _attn_plan, _decode_plan, paged_attention_lse_plain,
+        paged_attention_plain, paged_decode_lse_cuda,
+        paged_prefill_attention_plain)
+    from repro_torch.launch.bench_decode import (gathered_sdpa,
+                                                 gathered_sdpa_prefill)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     KVH, H, hd, bs = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
@@ -503,12 +515,46 @@ def check_paged(torch, report, timer, cfg):
             flops = 2.0 * H * 2 * hd * pairs
             rec["bound_ms"], rec["bound_by"] = attn_bound_ms(
                 rows, KVH, hd, 2 * q.numel() * 2, flops)
+            # as for decode: SDPA over K/V gathered beforehand, masked to
+            # the lengths and the causal offset, is a yardstick only
             rec["library_ms"] = None
+            rec["sdpa_gathered_ms"] = timer(gathered_sdpa_prefill(
+                q, ka, va, tables, st, lens, scale))
+        rec["plan"] = _attn_plan(8, C * G, KVH, tables.shape[1], bs, hd, hd,
+                                 q.element_size(), sms,
+                                 prefill=True)._asdict()
         report["paged"].append(rec)
         log(f"  paged_prefill {rec['dtype']} cap={cap}: max_abs_err "
-            f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}"
+            f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}; plan "
+            f"{plan_text(rec['plan'])}"
             + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
-               f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+               f" bound {rec['bound_ms']:.4f} ms, SDPA over K/V gathered "
+               f"beforehand {rec['sdpa_gathered_ms']:.4f} ms"
+               if timed else ""))
+
+    # hd 128 (the registry's qwen2-moe, deepseek-coder, command-r-plus),
+    # bf16, untimed: the kernel's 128-wide form at the same chunks
+    ka, va, tables, lens = paged_inputs(torch, gen, 8, KVH, G, 128, bs,
+                                        lengths, torch.bfloat16)
+    q = torch.randn((8, 64, H, 128), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    out = ops.paged_prefill_attention(q, ka, va, tables, st, lens)
+    plain = paged_prefill_attention_plain(q, ka, va, tables, st, lens,
+                                          scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    tol = 5 * 2 * BF16_EPS
+    good = err <= tol and math.isfinite(err)
+    ok &= good
+    plan = _attn_plan(8, 64 * G, KVH, tables.shape[1], bs, 128, 128, 2, sms,
+                      prefill=True)
+    report["paged"].append({
+        "kernel": "paged_prefill", "case": "hd 128", "dtype": "bfloat16",
+        "starts": starts, "chunks": chunks, "max_abs_err": err, "tol": tol,
+        "ok": good, "plan": plan._asdict()})
+    log(f"  paged_prefill bf16 hd 128: max_abs_err {err:.3e} (tol "
+        f"{tol:.1e}) {'ok' if good else 'FAIL'}; plan "
+        f"{plan_text(plan._asdict())}")
 
     # the split-KV plan's edges, bf16, through decode and decode-lse: lengths
     # on and across the split boundaries (8 pages, 128 rows, a split here),
@@ -610,7 +656,7 @@ def check_cascade(torch, report, timer, cfg):
     the full tables."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attn import (
-        NEG, paged_attention_lse_plain, paged_decode_lse_cuda,
+        NEG, _attn_plan, paged_attention_lse_plain, paged_decode_lse_cuda,
         paged_prefix_cuda, shared_prefix_attention_plain)
     from repro_torch.launch.bench_decode import gathered_sdpa
     gen = torch.Generator(device="cuda")
@@ -618,6 +664,7 @@ def check_cascade(torch, report, timer, cfg):
     KVH, H, hd, bs = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
     G = H // KVH
     scale = 1.0 / math.sqrt(hd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok = True
     for dt, cap, timed in ((torch.bfloat16, 0.0, True),
                            (torch.float32, 0.0, False),
@@ -672,6 +719,10 @@ def check_cascade(torch, report, timer, cfg):
                 if name == "paged_decode_lse":   # a yardstick only
                     rec["sdpa_gathered_ms"] = timer(gathered_sdpa(
                         *a, x["utables"], x["ulens"], scale))
+            if name == "paged_prefix":
+                rec["plan"] = _attn_plan(
+                    1, x["q"].shape[0] * G, KVH, x["prefix_pages"].shape[0],
+                    bs, hd, hd, x["q"].element_size(), sms)._asdict()
             report["paged"].append(rec)
             log(f"  {name:<16} {rec['dtype']} cap={cap}: max_abs_err "
                 f"{err:.3e} (tol {tol:.1e}), m/l rel err {m_err:.1e}/"
@@ -682,7 +733,9 @@ def check_cascade(torch, report, timer, cfg):
                    f" ms bound {rec['bound_ms']:.5f} ms" if timed else "")
                 + (f", SDPA over K/V gathered beforehand "
                    f"{rec['sdpa_gathered_ms']:.4f} ms"
-                   if "sdpa_gathered_ms" in rec else ""))
+                   if "sdpa_gathered_ms" in rec else "")
+                + (f"; plan {plan_text(rec['plan'])}" if "plan" in rec
+                   else ""))
         cascade = ops.shared_paged_attention(
             *a, x["utables"], x["ulens"], x["prefix_pages"],
             x["prefix_lens"], logit_cap=cap)
@@ -698,6 +751,33 @@ def check_cascade(torch, report, timer, cfg):
         log(f"  cascade (prefix + lse + merge) vs one paged decode over the "
             f"full tables, {str(dt).split('.')[-1]} cap={cap}: max_abs_err "
             f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}")
+
+    # hd 128, bf16, untimed: the prefix kernel's 128-wide form
+    x = cascade_inputs(torch, gen, torch.bfloat16, KVH, G, 128, bs)
+    a = (x["q"], x["k"], x["v"], x["prefix_pages"], x["prefix_lens"])
+    got = paged_prefix_cuda(*a, scale=128 ** -0.5)
+    want = shared_prefix_attention_plain(*a, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    tol = 5 * 2 * BF16_EPS
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    m_err = ((got[1] - want[1]).abs() / (1 + want[1].abs())).max().item()
+    l_err = ((got[2] - want[2]).abs() / (1 + want[2])).max().item()
+    empty = bool((got[0][6] == 0).all() and (got[1][6] == NEG).all()
+                 and (got[2][6] == 0).all())
+    good = (err <= tol and m_err <= 1e-4 and l_err <= 1e-4 and empty
+            and math.isfinite(err))
+    ok &= good
+    plan = _attn_plan(1, x["q"].shape[0] * G, KVH,
+                      x["prefix_pages"].shape[0], bs, 128, 128, 2, sms)
+    report["paged"].append({
+        "kernel": "paged_prefix", "case": "hd 128", "dtype": "bfloat16",
+        "prefix_lens": x["plens"], "max_abs_err": err, "tol": tol,
+        "m_rel_err": m_err, "l_rel_err": l_err, "ml_tol": 1e-4,
+        "empty_lane_exact": empty, "ok": good, "plan": plan._asdict()})
+    log(f"  paged_prefix     bf16 hd 128: max_abs_err {err:.3e} (tol "
+        f"{tol:.1e}), m/l rel err {m_err:.1e}/{l_err:.1e} (tol 1e-4), empty "
+        f"lane {'exact' if empty else 'WRONG'} {'ok' if good else 'FAIL'}; "
+        f"plan {plan_text(plan._asdict())}")
     return ok
 
 

@@ -40,12 +40,12 @@ SIGNATURES = {
     "paged_attn": {
         "paged_decode_launch": [_I] + [_P] * 6 + [_I] * 8 + [_F, _F] +
                                [_I] * 4 + [_P] * 3,
-        "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        "paged_prefill_launch": [_I] + [_P] * 7 + [_I] * 9 + [_F, _F] +
+                                [_I] * 3 + [_P] * 3,
         "paged_decode_lse_launch": [_I] + [_P] * 8 + [_I] * 8 + [_F, _F] +
                                    [_I] * 4 + [_P] * 3,
-        "paged_prefix_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        "paged_prefix_launch": [_I] + [_P] * 8 + [_I] * 8 + [_F, _F] +
+                               [_I] * 3 + [_P] * 3,
     },
     "paged_mla": {
         "paged_mla_decode_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,

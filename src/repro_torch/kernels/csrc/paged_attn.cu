@@ -15,7 +15,7 @@
 // row 0 (prefill only; a decode query sits at position length - 1).
 //
 // Every kernel, as in the reference: scores and the online-softmax state
-// (m, l, acc) are f32 on CUDA cores, p is rounded to the value type before
+// (m, l, acc) are f32, p is rounded to the value type before
 // p @ V while l sums the f32 p, an optional tanh soft cap is applied before
 // the mask, and a lane of length 0 writes zeros (and, where the state is an
 // output, (0, -1e30, 0)).  Dead columns are never read.
@@ -49,27 +49,62 @@
 //     split order and resets the ticket.  The result is deterministic
 //     (bitwise from run to run) and each call is one launch.
 //
-// Prefill and the shared-prefix phase: paged_attn_kernel.  One CTA owns RB
-// consecutive query rows of one (lane, kv head), in the reference's
-// flattened order (row i is chunk row i / G, group head i % G), so the
-// online-softmax state of a row never leaves its CTA: prefill splits the
-// C * G rows of a lane across CTAs.  The CTA loads its own table row, start
-// and length (there is no scalar prefetch on the GPU) and walks the lane's
-// pages in order, stopping at the first page past the length or past the
-// causal limit of its last row, which is exact: such a page contributes
-// exp(-1e30 - m) == 0 to every row.  The shared-prefix phase reads ONE page
-// list for every lane: q's (S, KVH, G, hd) layout read as a chunk of S rows
-// at s = 0, so flattened row i is lane i / G, head i % G, and one CTA of
-// PREFILL_RB = 32 rows holds the S * G = 8 * 4 rows of a kv head at full
-// width.  Each prefix page is then read once per kv head instead of once
-// per lane, which is what the cascade buys; more rows split across CTAs,
-// and no state crosses a CTA.  Row i attends columns < prefix_lens[lane]
-// (0 = the lane is not in the group), and the CTA stops at the first page
-// past its rows' longest prefix.  A non-member row shares its CTA with
-// members and is masked on every page, where m stays -1e30 and
-// exp(s - m) = exp(0) = 1: its p is zeroed explicitly wherever the mask is
-// off, so it keeps l == 0 and comes back as (0, -1e30, 0).  What bounds
-// the prefix phase is the same as decode: the bytes of the shared pages.
+// Prefill and the shared-prefix phase: paged_attn_tc_kernel, one kernel for
+// both.  A CTA owns a tile of 64 flattened query rows of one (lane, kv
+// head), in the reference's order: prefill row i is chunk row i / G, group
+// head i % G; the prefix phase reads q's (S, KVH, G, hd) layout as one chunk
+// of S rows, so row i is lane i / G and every lane's rows of a kv head share
+// the CTA, and with it each read of a shared page.  At llama's widths phase
+// 3's prefill moves ~1.2 MB and does ~0.2 GFLOP (bound 0.0018 ms on an H100
+// SXM), the prefix phase ~0.8 MB (0.00025 ms): far below the card's compute
+// line, so what bounds both is latency, not bytes or the MMA rate.  The old
+// kernel (4 f32 warps, one 16-row page at a time, four CTA-wide barriers a
+// page, a scalar hd-long dot product per score) took 0.48 and 0.36 ms on an
+// "NVIDIA H100 80GB HBM3, 700.00 W"; the prefix phase had 8 CTAs on 132
+// SMs.  This one:
+//   * grid (splits, KVH * row tiles, S).  The plan (kernels/paged_attn.py::
+//     _attn_plan) cuts the page columns into splits: the prefix phase under
+//     the decode kernel's half-card rule, prefill under its own (the grid
+//     waits on the lanes with the longest causal reach).  Split j covers the
+//     columns [j * pages, (j + 1) * pages) of the table and stops at the
+//     CTA's limit: the causal limit of its last row (and the lane's length)
+//     for prefill, its rows' longest prefix for the prefix phase.  A split
+//     past that limit returns at once.  Live splits write f32 partials (m,
+//     l, unnormalised acc) to a workspace, take a ticket, and the last
+//     merges them in ascending split order and resets the ticket: one
+//     launch, bitwise from run to run.  The merge issues each split's loads
+//     together, both rows of a thread at once.
+//   * K/V stream in tiles of 64 token rows gathered across pages (one table
+//     entry a row) through a ring of 2-3 stages of 16-byte cp.async copies,
+//     element copies where the arena or hd is not 16-byte aligned.  The
+//     table entries of the first tiles are read beside the lengths, later
+//     ones a tile ahead into a register, and each row's arena row (page *
+//     bs + offset) is staged once in shared memory.  One barrier a tile.
+//   * 4 warps a CTA, 16 rows each; a tile with fewer rows (the prefix
+//     phase's 32) keeps all 4, the idle ones sharing the copies, which
+//     launch/bench_decode.py timed faster than 2 warps.
+//   * bf16: S = Q K^T and O += P V run on
+//     mma.sync.m16n8k16 (bf16 -> f32) in FlashAttention-2's register
+//     layout, the online-softmax state (m, l) in registers.  Q fragments
+//     are loaded once (hd <= 128; at 256 they are re-read from shared
+//     memory each tile, leaving the registers to the 128 f32 accumulators
+//     of a 256-wide O), K through ldmatrix, V through ldmatrix.trans, and P
+//     becomes the A operand of P V in registers.  wgmma is not used: 64-row
+//     tiles of a few hundred columns are latency-bound.
+//   * f32 (no TF32): the same tiles, ring, plan and register layout on CUDA
+//     cores: each thread computes its 2 rows x 16 columns of S and 2 rows x
+//     D / 4 columns of O, P shared across its quad by shuffles.
+//   * the kernel is templated on D = max(hd, hd_v) rounded up to 64, 128 or
+//     256 (zero-padded in shared memory).  The soft cap and the mask each
+//     run as a pass of their own, the mask only on a tile that reaches past
+//     a row's limit (the diagonal), so the common tile is one short
+//     straight line.  A masked score is exactly -1e30 and its p is zeroed,
+//     so a row with nothing to attend in a split keeps (m, l) = (-1e30, 0)
+//     and a non-member lane comes back as exactly (0, -1e30, 0).
+//   * on that card a CTA's tile costs ~4,400 cycles at one CTA an SM
+//     (launch/probe_attn.py): about a quarter of it issuing the next
+//     tile's 16-byte copies, a third the softmax, the MMAs far less; hence
+//     the splits, which shorten each CTA's serial chain of tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,9 +114,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 128;        // threads per CTA (4 warps)
-constexpr int MAXACC = 16;     // output elements a thread accumulates
-constexpr int PREFILL_RB = 32; // query rows per CTA, prefill
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -101,145 +133,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// PREFIX = false: chunked prefill, one CTA per (row block, kv head, lane).
-// PREFIX = true: the shared-prefix phase, launched as one "lane" (s = 0)
-// whose C rows are the lanes; tables is the single prefix page list,
-// lengths[c] the prefix length of lane c, and mout / lout take each row's
-// f32 (m, l).
-template <typename T, int RB, bool PREFIX>
-__global__ void __launch_bounds__(NT)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ karena,
-                  const T* __restrict__ varena, T* __restrict__ out,
-                  float* __restrict__ mout, float* __restrict__ lout,
-                  const int* __restrict__ tables, const int* __restrict__ starts,
-                  const int* __restrict__ lengths, int C, int KVH, int G, int hd, int hdv,
-                  int NB, int bs, int W, float scale, float cap) {
-  const int h = blockIdx.y, s = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rows_total = C * G;
-  const int row0 = blockIdx.x * RB;
-  const int nrows = min(RB, rows_total - row0);
-  const int len = lengths[s];
-  const int q0 = starts != nullptr ? starts[s] : len - 1;
-
-  extern __shared__ float sm[];
-  float* qs = sm;                   // RB x hd
-  float* ks = qs + RB * hd;         // bs x (hd + 1)
-  float* vs = ks + bs * (hd + 1);   // bs x hdv
-  float* ps = vs + bs * hdv;        // RB x bs
-  float* mrow = ps + RB * bs;       // RB running max
-  float* lrow = mrow + RB;          // RB running exp-sum
-  float* crow = lrow + RB;          // RB this page's correction
-  int* rlen = reinterpret_cast<int*>(crow + RB);  // RB prefix length (PREFIX)
-
-  for (int idx = tid; idx < RB * hd; idx += NT) {
-    const int i = idx / hd, d = idx - i * hd;
-    float v = 0.f;
-    if (i < nrows) {
-      const int r = row0 + i, c = r / G, g = r - c * G;
-      v = to_f(q[((((long long)s * C + c) * KVH + h) * G + g) * hd + d]);
-    }
-    qs[idx] = v;
-  }
-  for (int i = tid; i < RB; i += NT) {
-    mrow[i] = NEG;
-    lrow[i] = 0.f;
-    if constexpr (PREFIX) rlen[i] = i < nrows ? lengths[(row0 + i) / G] : 0;
-  }
-  float acc[MAXACC];
-#pragma unroll
-  for (int t = 0; t < MAXACC; ++t) acc[t] = 0.f;
-  __syncthreads();
-
-  // pages past `limit` rows hold nothing any row attends: decode/prefill stop
-  // at the lane's length and the causal limit of this CTA's last row, the
-  // prefix phase at its rows' longest prefix
-  int limit = min(len, q0 + (row0 + nrows - 1) / G + 1);
-  if constexpr (PREFIX) {
-    limit = 0;
-    for (int i = 0; i < nrows; ++i) limit = max(limit, rlen[i]);
-  }
-  for (int j = 0; j < W && j * bs < limit; ++j) {
-    const int page = tables[(long long)s * W + j];
-    if (page < 0 || page >= NB) __trap();  // a table naming no arena page
-    const long long base = (long long)page * bs;
-    for (int idx = tid; idx < bs * hd; idx += NT) {
-      const int r = idx / hd, d = idx - r * hd;
-      ks[r * (hd + 1) + d] = to_f(karena[((base + r) * KVH + h) * hd + d]);
-    }
-    for (int idx = tid; idx < bs * hdv; idx += NT) {
-      const int r = idx / hdv, d = idx - r * hdv;
-      vs[idx] = to_f(varena[((base + r) * KVH + h) * hdv + d]);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < RB * bs; idx += NT) {
-      const int i = idx / bs, r = idx - i * bs;
-      const int col = j * bs + r, qpos = q0 + (row0 + i) / G;
-      float dot = 0.f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qs[i * hd + d], ks[r * (hd + 1) + d], dot);
-      float sc = dot * scale;
-      if (cap > 0.f) sc = tanhf(sc / cap) * cap;
-      const bool live = PREFIX ? col < rlen[i] : (col < len && col <= qpos);
-      ps[idx] = live ? sc : NEG;
-    }
-    __syncthreads();
-    for (int i = warp; i < RB; i += NT / 32) {
-      float mx = NEG;
-      for (int r = lane; r < bs; r += 32) mx = fmaxf(mx, ps[i * bs + r]);
-      const float m_new = fmaxf(mrow[i], warp_max(mx));
-      float sum = 0.f;
-      for (int r = lane; r < bs; r += 32) {
-        float p = expf(ps[i * bs + r] - m_new);
-        if constexpr (PREFIX) {
-          if (j * bs + r >= rlen[i]) p = 0.f;  // a masked column adds nothing
-        }
-        sum += p;
-        ps[i * bs + r] = to_f(from_f<T>(p));  // p in the value type for p @ V
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(mrow[i] - m_new);
-        crow[i] = corr;
-        lrow[i] = lrow[i] * corr + sum;
-        mrow[i] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < MAXACC; ++t) {
-      const int idx = tid + t * NT;
-      if (idx < RB * hdv) {
-        const int i = idx / hdv, d = idx - i * hdv;
-        float a = acc[t] * crow[i];
-        for (int r = 0; r < bs; ++r) a = fmaf(ps[i * bs + r], vs[r * hdv + d], a);
-        acc[t] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int t = 0; t < MAXACC; ++t) {
-    const int idx = tid + t * NT;
-    if (idx < RB * hdv) {
-      const int i = idx / hdv, d = idx - i * hdv;
-      if (i < nrows) {
-        const int r = row0 + i, c = r / G, g = r - c * G;
-        out[((((long long)s * C + c) * KVH + h) * G + g) * hdv + d] =
-            from_f<T>(acc[t] / fmaxf(lrow[i], 1e-30f));
-      }
-    }
-  }
-  if (mout != nullptr) {
-    for (int i = tid; i < nrows; i += NT) {
-      const int r = row0 + i, c = r / G, g = r - c * G;
-      const long long o = (((long long)s * C + c) * KVH + h) * G + g;
-      mout[o] = mrow[i];
-      lout[o] = lrow[i];
-    }
-  }
 }
 
 // ------------------------------------------------------------ decode --
@@ -636,41 +529,554 @@ int decode_dispatch(int dtype, const void* q, const void* k, const void* v, void
                     : launch_decode_rows<bf16>(a, S, rows, warps, stream);
 }
 
-template <typename T, int RB, bool PREFIX>
-int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l,
-           const int* tables, const int* starts, const int* lengths, int S, int C, int KVH,
-           int G, int hd, int hdv, int NB, int bs, int W, float scale, float cap,
-           cudaStream_t stream) {
-  if ((long long)RB * hdv > (long long)NT * MAXACC) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)RB * hd + (size_t)bs * (hd + 1) + (size_t)bs * hdv +
-                       (size_t)RB * bs + 3 * RB) +
-      (PREFIX ? sizeof(int) * RB : 0);
+// ------------------------------------------------- prefill and prefix --
+
+constexpr int AT = 64;          // query rows of a CTA tile; token rows of a K/V tile
+constexpr int ANT = 128;        // threads of a CTA: 4 warps of 16 query rows
+
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* m;             // prefix phase: (S, KVH * G) f32 state outputs
+  float* l;
+  const int* tables;    // prefill (S, W); prefix (1, P)
+  const int* starts;    // prefill (S,); null for the prefix phase
+  const int* lengths;   // prefill (S,) lane lengths; prefix (C,) prefix lengths
+  int C, KVH, G, hd, hdv, NB, bs, W;
+  float scale, cap;
+  int rtiles;           // 64-row tiles of a (lane, kv head)
+  int nsplit, pages;    // splits a unit, page columns each
+  int vec_q, vec_k, vec_v;  // rows copyable in 16-byte pieces
+  float* ws;            // nsplit partials a unit: 64 m, 64 l, 64 x D acc
+  int* tickets;         // one zeroed int a unit
+};
+
+__device__ __forceinline__ int warp_max_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Register layout (both types, mma.sync's accumulator layout): lane = 4 g +
+// t of warp w holds CTA rows w * 16 + g and w * 16 + g + 8; of S its
+// columns 8 j + 2 t + {0, 1} (j < 8) in s[j][0..1] (first row) and
+// s[j][2..3] (second row); of O the columns 8 j + 2 t + {0, 1} (j < D / 8)
+// in o[j][..] alike.
+template <typename T, int D, int STAGES>
+__global__ void __launch_bounds__(ANT) paged_attn_tc_kernel(const AttnArgs p) {
+  constexpr int ES = (int)sizeof(T);
+  constexpr int RS = D * ES + 16;          // shared row stride (bytes)
+  constexpr int TILE = AT * RS;            // one 64-row tile (bytes)
+  constexpr int CPR = D * ES / 16;         // 16-byte pieces a row
+  constexpr int NJ = AT / 8;               // 8-column tiles of S
+  constexpr int NV = D / 8;                // 8-column tiles of O
+  constexpr bool TC = sizeof(T) == 2;      // bf16: tensor cores
+  constexpr bool QREG = TC && D <= 128;    // Q fragments kept in registers
+  const bool prefix = p.starts == nullptr;
+  const int split = blockIdx.x, h = blockIdx.y / p.rtiles, s = blockIdx.z;
+  const int row0 = (blockIdx.y % p.rtiles) * AT;
+  const int unit = blockIdx.z * gridDim.y + blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int nrows = min(AT, p.C * p.G - row0);
+  const int* trow = p.tables + (long long)s * p.W;
+  const int span = p.pages * p.bs;
+  const int c_begin = split * span;
+  const int c_cap = min((split + 1) * p.pages, p.W) * p.bs;   // the split's columns
+  // thread r < 64 reads the table entry of row r of a tile (a column below
+  // W always names a page: dead ones repeat the last live id); those of the
+  // first STAGES tiles go out beside the lengths, so the two share a trip
+  auto entry = [&](int t) -> int {
+    const int col = c_begin + t * AT + tid;
+    return tid < AT && col < c_cap ? trow[col / p.bs] : -1;
+  };
+  int pe[STAGES];
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i) pe[i] = entry(i);
+
+  // the columns any row of the CTA attends: [0, limit)
+  int limit, q0 = 0;
+  if (prefix) {
+    int mx = 0;
+    for (int c = row0 / p.G + lane; c <= (row0 + nrows - 1) / p.G; c += 32)
+      mx = max(mx, p.lengths[c]);
+    limit = warp_max_int(mx);
+  } else {
+    q0 = p.starts[s];
+    limit = min(p.lengths[s], q0 + (row0 + nrows - 1) / p.G + 1);
+  }
+  limit = max(0, min(limit, p.W * p.bs));
+  const int nlive = max(1, min(p.nsplit, (limit + span - 1) / span));
+  if (split >= nlive) return;                    // past the CTA's limit
+  const int c_end = min(limit, c_cap);
+  const int ntiles = c_end > c_begin ? (c_end - c_begin + AT - 1) / AT : 0;
+
+  // this thread's two rows, and the columns each attends: [0, rl)
+  const int r0 = warp * 16 + g8, r1 = r0 + 8;
+  auto row_limit = [&](int r) -> int {
+    if (r >= nrows) return 0;
+    const int c = (row0 + r) / p.G;
+    return prefix ? min(c_end, p.lengths[c]) : min(c_end, q0 + c + 1);
+  };
+  const int rl0 = row_limit(r0), rl1 = row_limit(r1);
+
+  extern __shared__ __align__(16) unsigned char asmem[];
+  unsigned char* qs = asmem;                                  // 64 query rows
+  unsigned char* ring = asmem + TILE;                         // STAGES x (K, V)
+  int* pgs = reinterpret_cast<int*>(ring + STAGES * 2 * TILE);  // STAGES x 64 arena rows
+  __shared__ int last;
+
+  const T* K = static_cast<const T*>(p.k);
+  const T* V = static_cast<const T*>(p.v);
+  // the arena row (page * bs + offset) of row tid of tile t, from its table
+  // entry; -1 past the split's live columns
+  auto arow = [&](int t, int pg) -> int {
+    const int col = c_begin + t * AT + tid;
+    if (col >= c_end) return -1;
+    if (pg < 0 || pg >= p.NB) __trap();          // a table naming no arena page
+    return pg * p.bs + col % p.bs;
+  };
+  // 64 rows of `width` elements (zero past width, and on rows -1) into a
+  // tile: 16-byte cp.async pieces, or element copies
+  auto copy = [&](unsigned char* dst, const T* arena, int width, bool vec, const int* rows) {
+    if (vec) {
+      const int real = width * ES / 16;
+      for (int idx = tid; idx < AT * CPR; idx += ANT) {
+        const int r = idx / CPR, c = idx - r * CPR;
+        const int row = rows[r];
+        const bool live = row >= 0 && c < real;
+        const T* src = arena;
+        if (live) src += ((long long)row * p.KVH + h) * width + c * (16 / ES);
+        cp_async16(dst + r * RS + c * 16, src, live ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < AT * D; idx += ANT) {
+        const int r = idx / D, d = idx - r * D;
+        const int row = rows[r];
+        T x = from_f<T>(0.f);
+        if (row >= 0 && d < width) x = arena[((long long)row * p.KVH + h) * width + d];
+        reinterpret_cast<T*>(dst + r * RS)[d] = x;
+      }
+    }
+  };
+  auto load = [&](int st) {
+    unsigned char* kd = ring + st * 2 * TILE;
+    copy(kd, K, p.hd, p.vec_k, pgs + st * AT);
+    copy(kd + TILE, V, p.hdv, p.vec_v, pgs + st * AT);
+  };
+
+  // the query rows (zero past the CTA's rows and past hd)
+  {
+    const T* Q = static_cast<const T*>(p.q);
+    auto qrow = [&](int r) -> const T* {
+      const int fr = row0 + r, c = fr / p.G, g = fr - c * p.G;
+      return Q + ((((long long)s * p.C + c) * p.KVH + h) * p.G + g) * p.hd;
+    };
+    if (p.vec_q) {
+      const int real = p.hd * ES / 16;
+      for (int idx = tid; idx < AT * CPR; idx += ANT) {
+        const int r = idx / CPR, c = idx - r * CPR;
+        const bool live = r < nrows && c < real;
+        cp_async16(qs + r * RS + c * 16, live ? qrow(r) + c * (16 / ES) : Q, live ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < AT * D; idx += ANT) {
+        const int r = idx / D, d = idx - r * D;
+        reinterpret_cast<T*>(qs + r * RS)[d] =
+            r < nrows && d < p.hd ? qrow(r)[d] : from_f<T>(0.f);
+      }
+    }
+  }
+  // the arena rows of the first STAGES - 1 tiles; the next tile's table
+  // entry stays in preg
+  int preg = pe[STAGES - 1];
+  if (tid < AT) {
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) pgs[i * AT + tid] = arow(i, pe[i]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ntiles) load(i);
+    cp_async_commit();                            // group 0 holds the queries too
+  }
+  if constexpr (STAGES == 1) cp_async_commit();
+
+  float o[NV][4], mrow[2] = {NEG, NEG}, lrow[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  const bool active = warp * 16 < nrows;         // warp-uniform: a warp with rows
+
+  for (int t = 0; t < ntiles; ++t) {
+    if constexpr (STAGES == 1) {
+      if (tid < AT) {
+        pgs[tid] = arow(t, preg);
+        preg = entry(t + 1);
+      }
+      __syncthreads();
+      load(0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      const int nxt = t + STAGES - 1;
+      if (tid < AT) {                             // that slot's last reader passed a barrier
+        pgs[(nxt % STAGES) * AT + tid] = arow(nxt, preg);
+        preg = entry(nxt + 1);
+      }
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();                            // tile t landed; tile t - 1 is free
+      if (nxt < ntiles) load(nxt % STAGES);
+      cp_async_commit();
+    }
+    if (active) {
+      const unsigned char* ks = ring + (t % STAGES) * 2 * TILE;
+      const unsigned char* vs = ks + TILE;
+      const int c0 = c_begin + t * AT;
+      float sc[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+
+      // S = Q K^T
+      if constexpr (TC) {
+        if constexpr (QREG) {
+          if (t == 0) {
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * RS + (kk * 16 + (lane >> 4) * 8) * 2);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4];
+          if constexpr (QREG) {
+            a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
+          } else {
+            ldsm_x4(a, qs + (warp * 16 + (lane & 15)) * RS + (kk * 16 + (lane >> 4) * 8) * 2);
+          }
+#pragma unroll
+          for (int nn = 0; nn < NJ / 2; ++nn) {
+            uint32_t b[4];
+            ldsm_x4(b, ks + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                           (kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+            mma_bf16(sc[2 * nn], a, b[0], b[1]);
+            mma_bf16(sc[2 * nn + 1], a, b[2], b[3]);
+          }
+        }
+      } else {
+        const float* qa = reinterpret_cast<const float*>(qs + r0 * RS);
+        const float* qb = reinterpret_cast<const float*>(qs + r1 * RS);
+#pragma unroll 2
+        for (int d = 0; d < D; d += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(qa + d);
+          const float4 y = *reinterpret_cast<const float4*>(qb + d);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float4 kv =
+                  *reinterpret_cast<const float4*>(ks + (8 * j + 2 * t4 + e) * RS + d * 4);
+              float u = sc[j][e], w = sc[j][2 + e];
+              u = fmaf(x.x, kv.x, u); u = fmaf(x.y, kv.y, u);
+              u = fmaf(x.z, kv.z, u); u = fmaf(x.w, kv.w, u);
+              w = fmaf(y.x, kv.x, w); w = fmaf(y.y, kv.y, w);
+              w = fmaf(y.z, kv.z, w); w = fmaf(y.w, kv.w, w);
+              sc[j][e] = u;
+              sc[j][2 + e] = w;
+            }
+        }
+      }
+
+      // online softmax: scale, soft cap, then the mask (only on a tile that
+      // reaches past a row's limit), each a pass of its own so the common
+      // tile (no cap, no mask) runs one short straight line
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sc[j][x] *= p.scale;
+      if (p.cap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sc[j][x] = tanhf(sc[j][x] / p.cap) * p.cap;
+      }
+      if (!__all_sync(0xffffffffu, c0 + AT <= min(rl0, rl1))) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (c0 + 8 * j + 2 * t4 + (x & 1) >= (x < 2 ? rl0 : rl1)) sc[j][x] = NEG;
+      }
+      float mx0 = fmaxf(sc[0][0], sc[0][1]), mx1 = fmaxf(sc[0][2], sc[0][3]);
+#pragma unroll
+      for (int j = 1; j < NJ; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+      const float mn0 = fmaxf(mrow[0], quad_max(mx0)), mn1 = fmaxf(mrow[1], quad_max(mx1));
+      const float cr0 = __expf(mrow[0] - mn0), cr1 = __expf(mrow[1] - mn1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // a masked score is exactly NEG: its p is 0 even where m is NEG
+          const float x = sc[j][e] > NEG ? __expf(sc[j][e] - mn0) : 0.f;
+          const float y = sc[j][2 + e] > NEG ? __expf(sc[j][2 + e] - mn1) : 0.f;
+          sum0 += x;
+          sum1 += y;
+          sc[j][e] = x;
+          sc[j][2 + e] = y;
+        }
+      // l: this thread's share of the row sum (the quad adds up at the end)
+      lrow[0] = lrow[0] * cr0 + sum0;
+      lrow[1] = lrow[1] * cr1 + sum1;
+      mrow[0] = mn0;
+      mrow[1] = mn1;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        o[j][0] *= cr0; o[j][1] *= cr0;
+        o[j][2] *= cr1; o[j][3] *= cr1;
+      }
+
+      // O += P V, p in the value type
+      if constexpr (TC) {
+#pragma unroll
+        for (int kk = 0; kk < AT / 16; ++kk) {
+          const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                                 pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                                 pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                 pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+          for (int nn = 0; nn < NV / 2; ++nn) {
+            uint32_t b[4];
+            ldsm_x4_t(b, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                             (nn * 16 + (lane >> 4) * 8) * 2);
+            mma_bf16(o[2 * nn], a, b[0], b[1]);
+            mma_bf16(o[2 * nn + 1], a, b[2], b[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            // token 8 j + u: its p sits with quad lane u / 2, as element u % 2
+            const int src = (lane & ~3) | (u >> 1);
+            const float p0 = __shfl_sync(0xffffffffu, sc[j][u & 1], src);
+            const float p1 = __shfl_sync(0xffffffffu, sc[j][2 + (u & 1)], src);
+            const float* vr = reinterpret_cast<const float*>(vs + (8 * j + u) * RS);
+#pragma unroll
+            for (int jj = 0; jj < NV; ++jj) {
+              const float2 x = *reinterpret_cast<const float2*>(vr + 8 * jj + 2 * t4);
+              o[jj][0] = fmaf(p0, x.x, o[jj][0]);
+              o[jj][1] = fmaf(p0, x.y, o[jj][1]);
+              o[jj][2] = fmaf(p1, x.x, o[jj][2]);
+              o[jj][3] = fmaf(p1, x.y, o[jj][3]);
+            }
+          }
+      }
+    }
+    if constexpr (STAGES == 1) __syncthreads();   // the stage is refilled next
+  }
+  cp_async_wait<0>();
+  lrow[0] = quad_sum(lrow[0]);
+  lrow[1] = quad_sum(lrow[1]);
+
+  T* out = static_cast<T*>(p.o);
+  // the flattened (lane, chunk row, kv head, group head) index of CTA row r
+  auto orow = [&](int r) -> long long {
+    const int fr = row0 + r, c = fr / p.G, g = fr - c * p.G;
+    return (((long long)s * p.C + c) * p.KVH + h) * p.G + g;
+  };
+  auto emit = [&](int hr, float M, float L) {
+    const int r = hr ? r1 : r0;
+    const long long i = orow(r);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e;
+        if (col < p.hdv) out[i * p.hdv + col] = from_f<T>(o[j][2 * hr + e] / fmaxf(L, 1e-30f));
+      }
+    if (p.m != nullptr && t4 == 0) {
+      p.m[i] = M;
+      p.l[i] = L;
+    }
+  };
+  if (nlive == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      if ((hr ? r1 : r0) < nrows) emit(hr, mrow[hr], lrow[hr]);
+    return;
+  }
+
+  // several live splits: write this split's partial, and the last of them
+  // to arrive merges them all, in ascending split order.  Both rows of a
+  // thread go together and each split's loads issue before any is used, so
+  // the merge costs a few dependent trips to L2, not two a split and row.
+  constexpr int PSZ = AT * (D + 2);
+  {
+    float* part = p.ws + ((long long)unit * p.nsplit + split) * PSZ;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = hr ? r1 : r0;
+      if (r >= nrows) continue;
+      if (t4 == 0) {
+        __stcg(&part[r], mrow[hr]);
+        __stcg(&part[AT + r], lrow[hr]);
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        __stcg(reinterpret_cast<float2*>(&part[2 * AT + r * D + 8 * j + 2 * t4]),
+               make_float2(o[j][2 * hr], o[j][2 * hr + 1]));
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&p.tickets[unit], 1) == nlive - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (active) {
+    const float* base = p.ws + (long long)unit * p.nsplit * PSZ;
+    float M[2] = {NEG, NEG}, L[2] = {0.f, 0.f};
+#pragma unroll 8
+    for (int sp = 0; sp < nlive; ++sp) {
+      M[0] = fmaxf(M[0], __ldcg(&base[sp * PSZ + r0]));
+      M[1] = fmaxf(M[1], __ldcg(&base[sp * PSZ + r1]));
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    constexpr int MU = D <= 64 ? 4 : 1;
+#pragma unroll MU
+    for (int sp = 0; sp < nlive; ++sp) {
+      const float* part = base + sp * PSZ;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = hr ? r1 : r0;
+        const float f = __expf(__ldcg(&part[r]) - M[hr]);
+        L[hr] += __ldcg(&part[AT + r]) * f;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const float2 x =
+              __ldcg(reinterpret_cast<const float2*>(&part[2 * AT + r * D + 8 * j + 2 * t4]));
+          o[j][2 * hr] += x.x * f;
+          o[j][2 * hr + 1] += x.y * f;
+        }
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      if ((hr ? r1 : r0) < nrows) emit(hr, M[hr], L[hr]);
+  }
+  if (tid == 0) p.tickets[unit] = 0;
+}
+
+template <typename T, int D, int STAGES>
+int launch_attn(const AttnArgs& a, int S, cudaStream_t stream) {
+  constexpr int RS = D * (int)sizeof(T) + 16;
+  const size_t smem = (size_t)AT * RS * (1 + 2 * STAGES) + sizeof(int) * STAGES * AT;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_attn_kernel<T, RB, PREFIX>,
+    cudaError_t e = cudaFuncSetAttribute(paged_attn_tc_kernel<T, D, STAGES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((C * G + RB - 1) / RB, KVH, S);
-  paged_attn_kernel<T, RB, PREFIX><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), m, l, tables, starts, lengths, C, KVH, G, hd, hdv, NB, bs, W, scale,
-      cap);
+  dim3 grid(a.nsplit, a.KVH * a.rtiles, S);
+  paged_attn_tc_kernel<T, D, STAGES><<<grid, ANT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int RB, bool PREFIX>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o, float* m,
-                 float* l, const int* tables, const int* starts, const int* lengths, int S,
-                 int C, int KVH, int G, int hd, int hdv, int NB, int bs, int W, float scale,
-                 float cap, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch<float, RB, PREFIX>(q, k, v, o, m, l, tables, starts, lengths, S, C, KVH, G,
-                                     hd, hdv, NB, bs, W, scale, cap, stream);
-  if (dtype == 1)
-    return launch<bf16, RB, PREFIX>(q, k, v, o, m, l, tables, starts, lengths, S, C, KVH, G,
-                                    hd, hdv, NB, bs, W, scale, cap, stream);
-  return (int)cudaErrorInvalidValue;
+// The width D the kernel is instantiated for: max(hd, hd_v) rounded up.
+int attn_width(int hd, int hdv) {
+  const int w = max(hd, hdv);
+  return w <= 64 ? 64 : w <= 128 ? 128 : 256;
+}
+
+int attn_dispatch(int dtype, const void* q, const void* k, const void* v, void* o, float* m,
+                  float* l, const int* tables, const int* starts, const int* lengths, int S,
+                  int C, int KVH, int G, int hd, int hdv, int NB, int bs, int W, float scale,
+                  float cap, int width, int nsplit, int pages, float* ws, int* tickets,
+                  cudaStream_t stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 65535 || C < 1 || KVH < 1 || G < 1 || hd < 1 || hd > 256 || hdv < 1 ||
+      hdv > 256 || bs < 1 || W < 0 || nsplit < 1 || pages < 1 ||
+      (long long)nsplit * pages < W || width != attn_width(hd, hdv) ||
+      (nsplit > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int esz = dtype == 0 ? 4 : 2;
+  AttnArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.m = m;
+  a.l = l;
+  a.tables = tables;
+  a.starts = starts;
+  a.lengths = lengths;
+  a.C = C;
+  a.KVH = KVH;
+  a.G = G;
+  a.hd = hd;
+  a.hdv = hdv;
+  a.NB = NB;
+  a.bs = bs;
+  a.W = W;
+  a.scale = scale;
+  a.cap = cap;
+  a.rtiles = (int)(((long long)C * G + AT - 1) / AT);
+  if ((long long)KVH * a.rtiles > 65535) return (int)cudaErrorInvalidValue;
+  a.nsplit = nsplit;
+  a.pages = pages;
+  a.vec_q = reinterpret_cast<uintptr_t>(q) % 16 == 0 && (hd * esz) % 16 == 0;
+  a.vec_k = reinterpret_cast<uintptr_t>(k) % 16 == 0 && (hd * esz) % 16 == 0;
+  a.vec_v = reinterpret_cast<uintptr_t>(v) % 16 == 0 && (hdv * esz) % 16 == 0;
+  a.ws = ws;
+  a.tickets = tickets;
+  if (dtype == 1) {
+    if (width == 64) return launch_attn<bf16, 64, 3>(a, S, stream);
+    if (width == 128) return launch_attn<bf16, 128, 2>(a, S, stream);
+    return launch_attn<bf16, 256, 2>(a, S, stream);
+  }
+  if (width == 64) return launch_attn<float, 64, 2>(a, S, stream);
+  if (width == 128) return launch_attn<float, 128, 2>(a, S, stream);
+  return launch_attn<float, 256, 1>(a, S, stream);
 }
 
 }  // namespace
@@ -696,14 +1102,23 @@ extern "C" int paged_decode_launch(int dtype, const void* q, const void* k, cons
                          static_cast<cudaStream_t>(stream));
 }
 
+// Prefill: q (S, C, KVH, G, hd), chunk row r of lane s at absolute
+// position starts[s] + r, attending columns < lengths[s] and <= its
+// position.  The plan (kernels/paged_attn.py::_attn_plan) gives `width`
+// (max(hd, hd_v) rounded up to 64, 128 or 256) and `nsplit` splits of
+// `pages` page columns (nsplit * pages >= W); with nsplit > 1, `ws` holds
+// nsplit partials of 64 * (width + 2) f32 a (lane, kv head, 64-row tile)
+// and `tickets` one zeroed int each, left zeroed again.
 extern "C" int paged_prefill_launch(int dtype, const void* q, const void* k, const void* v,
                                     void* o, const int* tables, const int* starts,
                                     const int* lengths, int S, int C, int KVH, int G, int hd,
                                     int hdv, int NB, int bs, int W, float scale, float cap,
+                                    int width, int nsplit, int pages, float* ws, int* tickets,
                                     void* stream) {
-  return launch_dtype<PREFILL_RB, false>(dtype, q, k, v, o, nullptr, nullptr, tables, starts,
-                                         lengths, S, C, KVH, G, hd, hdv, NB, bs, W, scale, cap,
-                                         static_cast<cudaStream_t>(stream));
+  if (starts == nullptr) return (int)cudaErrorInvalidValue;
+  return attn_dispatch(dtype, q, k, v, o, nullptr, nullptr, tables, starts, lengths, S, C, KVH,
+                       G, hd, hdv, NB, bs, W, scale, cap, width, nsplit, pages, ws, tickets,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_decode_lse_launch(int dtype, const void* q, const void* k, const void* v,
@@ -719,14 +1134,17 @@ extern "C" int paged_decode_lse_launch(int dtype, const void* q, const void* k, 
 }
 
 // Shared-prefix phase: q (S, KVH, G, hd) against the P pages of
-// prefix_pages, lane s masked to its first prefix_lens[s] rows.
+// prefix_pages, lane s masked to its first prefix_lens[s] rows, run as one
+// chunk of S rows; the plan as for prefill, a unit being a (kv head, 64-row
+// tile of the S * G rows).
 extern "C" int paged_prefix_launch(int dtype, const void* q, const void* k, const void* v,
                                    void* o, float* m, float* l, const int* prefix_pages,
                                    const int* prefix_lens, int S, int KVH, int G, int hd,
                                    int hdv, int NB, int bs, int P, float scale, float cap,
+                                   int width, int nsplit, int pages, float* ws, int* tickets,
                                    void* stream) {
   if (m == nullptr || l == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_dtype<PREFILL_RB, true>(dtype, q, k, v, o, m, l, prefix_pages, nullptr,
-                                        prefix_lens, 1, S, KVH, G, hd, hdv, NB, bs, P, scale,
-                                        cap, static_cast<cudaStream_t>(stream));
+  return attn_dispatch(dtype, q, k, v, o, m, l, prefix_pages, nullptr, prefix_lens, 1, S, KVH,
+                       G, hd, hdv, NB, bs, P, scale, cap, width, nsplit, pages, ws, tickets,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -16,7 +16,12 @@ Decode and decode-lse run one split-KV kernel, planned by
 :func:`_decode_plan`: a CTA holds the query rows of one (lane, kv head),
 and while those CTAs would fill at most half the card each lane's page
 columns are cut into splits whose f32 partial states the last CTA to
-arrive merges in split order (one launch, deterministic).
+arrive merges in split order (one launch, deterministic).  Prefill and
+the shared-prefix phase run one tensor-core kernel, planned by
+:func:`_attn_plan` (the same rule for the prefix phase, a measured one
+for prefill): a CTA holds 64 flattened query rows of a (lane, kv head)
+(the prefix phase stacks every lane's rows of a kv head into one such
+chunk), and takes hd, hd_v <= 256.
 
 Arena (NB, bs, KVH, hd); tables (S, W) int32 page ids in logical order,
 dead columns repeating the last live id; lengths (S,) int32 valid rows
@@ -338,7 +343,8 @@ def _decode_plan(S: int, KVH: int, G: int, W: int, bs: int, hd: int,
                       rows * (vw + 2))
 
 
-# a ticket per (lane, kv head, row block), apart from the GEMM's tickets
+# a ticket per unit of the decode and prefill / prefix kernels (each launch
+# leaves its tickets zero), apart from the GEMM's tickets
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -380,6 +386,103 @@ def _decode(q, k_arena, v_arena, tables, lengths, scale, logit_cap, lse,
     return (out, m, l) if lse else (out,)
 
 
+class AttnPlan(NamedTuple):
+    """How ``csrc/paged_attn.cu``'s tensor-core kernel runs one prefill or
+    shared-prefix call: a grid of (splits, KVH * rtiles, lanes) CTAs of 4
+    warps, each owning 64 flattened query rows of a (lane, kv head)."""
+    width: int      # D: max(hd, hd_v) rounded up to 64, 128 or 256
+    rtiles: int     # 64-row tiles of a (lane, kv head)
+    splits: int     # page-column splits of a unit
+    pages: int      # page columns a split covers (splits * pages >= W)
+    units: int      # (lane, kv head, row tile) triples: one ticket each
+    part: int       # f32 elements of one split's partial state
+
+    @property
+    def ctas(self) -> int:
+        return self.splits * self.units
+
+    @property
+    def ws_elems(self) -> int:
+        return self.units * self.splits * self.part if self.splits > 1 \
+            else 0
+
+
+_ATTN_TILE = 64           # query rows of a CTA, token rows of a K/V tile
+_PREFILL_SPLIT_ROWS = 128  # prefill: a split covers at least two K/V tiles
+_PREFILL_CTAS_PER_SM = 4   # prefill: what the grid of splits may reach
+
+
+@functools.lru_cache(maxsize=4096)
+def _attn_plan(lanes: int, rows: int, KVH: int, W: int, bs: int, hd: int,
+               hd_v: int, esize: int, num_sms: int, *, prefill: bool = False,
+               splits: Optional[int] = None) -> AttnPlan:
+    """The prefill / shared-prefix kernel's plan for one call.
+
+    ``rows`` query rows of each of ``lanes`` lanes and ``KVH`` kv heads
+    (prefill: C * G of each lane; the prefix phase: S * G of its one page
+    list) are cut into 64-row tiles, one unit each.  The prefix phase cuts
+    the W page columns into splits as :func:`_decode_plan` does: while the
+    units fill at most half the SMs, aiming at ``_SPLIT_CTAS_PER_SM`` CTAs
+    an SM, each split at least one 64-row K/V tile.  Prefill (``prefill``)
+    splits under its own rule, fitted to ``launch/bench_decode.py``'s
+    timings: as many splits as keep the grid within
+    ``_PREFILL_CTAS_PER_SM`` CTAs an SM, each split at least
+    ``_PREFILL_SPLIT_ROWS`` rows.  A prefill grid mostly waits on the
+    lanes with the longest causal reach (the others' splits past their
+    limit return at once), so halving their serial tiles pays even where
+    the units already fill the card (phase 3's 256 units: 2 splits).
+    ``splits`` overrides either rule (``launch/bench_decode.py`` times the
+    choices).  Raises where the kernel does not hold the shape (hd or hd_v
+    > 256)."""
+    if hd > _MAX_HD_V or hd_v > _MAX_HD_V:
+        raise ValueError(f"the prefill and prefix kernels hold hd, hd_v <= "
+                         f"{_MAX_HD_V}, got {hd} / {hd_v}")
+    wide = max(hd, hd_v)
+    width = 64 if wide <= 64 else 128 if wide <= 128 else 256
+    rtiles = max(1, _cdiv(rows, _ATTN_TILE))
+    units = lanes * KVH * rtiles
+    if splits is not None:
+        pages = _cdiv(W, max(1, splits))
+    elif prefill:
+        most = max(1, _PREFILL_CTAS_PER_SM * num_sms // max(units, 1))
+        pages = _cdiv(W, min(most, max(1, _cdiv(
+            W, _cdiv(_PREFILL_SPLIT_ROWS, bs)))))
+    else:
+        min_pages = _cdiv(_ATTN_TILE, bs)
+        want = _cdiv(_SPLIT_CTAS_PER_SM * num_sms, max(units, 1))
+        pages = W if 2 * units > num_sms else \
+            max(min_pages, _cdiv(W, want))
+    pages = max(1, pages)
+    splits = max(1, _cdiv(W, pages))
+    return AttnPlan(width, rtiles, splits, pages, units,
+                    _ATTN_TILE * (width + 2))
+
+
+def _sms(q) -> int:
+    return torch.cuda.get_device_properties(q.device).multi_processor_count
+
+
+def _attn_launch(fn, what, plan, q, k_arena, v_arena, out, state, tables,
+                 starts, lengths, dims, scale, logit_cap):
+    """One launch of the prefill / shared-prefix kernel under ``plan``,
+    with its split workspace and tickets; raises on a launch error."""
+    from repro_torch.kernels import _build
+    ws = torch.empty(plan.ws_elems, dtype=torch.float32,
+                     device=q.device) if plan.splits > 1 else None
+    tickets = _tickets(q.device, plan.units, _TICKETS) \
+        if plan.splits > 1 else None
+    err = getattr(_build.library("paged_attn"), fn)(
+        _DTYPES[q.dtype], q.data_ptr(), k_arena.data_ptr(),
+        v_arena.data_ptr(), out.data_ptr(), *state, tables.data_ptr(),
+        *(() if starts is None else (starts.data_ptr(),)),
+        lengths.data_ptr(), *dims, scale, logit_cap, plan.width,
+        plan.splits, plan.pages,
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, what)
+
+
 def paged_decode_cuda(q, k_arena, v_arena, tables, lengths, *,
                       scale: float, logit_cap: float = 0.0,
                       plan: Optional[DecodePlan] = None):
@@ -397,28 +500,25 @@ paged_decode_cuda.launches = 0      # kernel launches that returned no error
 
 
 def paged_prefill_cuda(q, k_arena, v_arena, tables, starts, lengths, *,
-                       scale: float, logit_cap: float = 0.0):
-    """q (S, C, H, hd) -> (S, C, H, hd_v) through the CUDA prefill
-    kernel."""
-    from repro_torch.kernels import _build
+                       scale: float, logit_cap: float = 0.0,
+                       plan: Optional[AttnPlan] = None):
+    """q (S, C, H, hd) -> (S, C, H, hd_v) through the CUDA prefill kernel,
+    under ``_attn_plan``'s plan unless ``plan`` gives another (to time
+    it)."""
     KVH, G, hd, hd_v, NB, bs, W = _check(q, k_arena, v_arena, tables,
                                          lengths, starts)
     S, C = q.shape[0], q.shape[1]
     if starts.shape != (S,):
         raise ValueError(f"starts {tuple(starts.shape)} does not match "
                          f"{S} lanes")
-    if 32 * hd_v > 128 * 16:
-        raise ValueError(f"the prefill kernel holds hd_v <= 64, got {hd_v}")
+    plan = plan or _attn_plan(S, C * G, KVH, W, bs, hd, hd_v,
+                              q.element_size(), _sms(q), prefill=True)
     out = torch.empty((S, C, KVH * G, hd_v), dtype=q.dtype, device=q.device)
     if S == 0 or C == 0:
         return out
-    err = _build.library("paged_attn").paged_prefill_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k_arena.data_ptr(),
-        v_arena.data_ptr(), out.data_ptr(), tables.data_ptr(),
-        starts.data_ptr(), lengths.data_ptr(), S, C, KVH, G, hd, hd_v, NB,
-        bs, W, scale, logit_cap,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged prefill attention")
+    _attn_launch("paged_prefill_launch", "paged prefill attention", plan, q,
+                 k_arena, v_arena, out, (), tables, starts, lengths,
+                 (S, C, KVH, G, hd, hd_v, NB, bs, W), scale, logit_cap)
     paged_prefill_cuda.launches += 1
     return out
 
@@ -456,30 +556,29 @@ paged_decode_lse_cuda.launches = 0  # kernel launches that returned no error
 
 
 def paged_prefix_cuda(q, k_arena, v_arena, prefix_pages, prefix_lens, *,
-                      scale: float, logit_cap: float = 0.0):
+                      scale: float, logit_cap: float = 0.0,
+                      plan: Optional[AttnPlan] = None):
     """q (S, H, hd) -> (o (S, H, hd_v), m (S, H) f32, l (S, H) f32) through
     the CUDA shared-prefix kernel: every lane's rows against the one page
-    list ``prefix_pages`` (P,), masked per lane by ``prefix_lens`` (S,)."""
-    from repro_torch.kernels import _build
+    list ``prefix_pages`` (P,), masked per lane by ``prefix_lens`` (S,),
+    under ``_attn_plan``'s split-KV plan (one chunk of S * G rows a kv
+    head) unless ``plan`` gives another."""
     if prefix_pages.dim() != 1:
         raise ValueError(f"prefix_pages must be 1-D, got "
                          f"{tuple(prefix_pages.shape)}")
     pages = prefix_pages.reshape(1, -1)
     KVH, G, hd, hd_v, NB, bs, P = _check(q, k_arena, v_arena, pages,
                                          prefix_lens, table_rows=1)
-    if 32 * hd_v > 128 * 16:
-        raise ValueError(f"the prefix kernel holds hd_v <= 64, got {hd_v}")
     S = q.shape[0]
+    plan = plan or _attn_plan(1, S * G, KVH, P, bs, hd, hd_v,
+                              q.element_size(), _sms(q))
     out, m, l = _lse_outputs(q, hd_v, S == 0 or P == 0)
     if S == 0 or P == 0:
         return out, m, l
-    err = _build.library("paged_attn").paged_prefix_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k_arena.data_ptr(),
-        v_arena.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        pages.data_ptr(), prefix_lens.data_ptr(), S, KVH, G, hd, hd_v, NB,
-        bs, P, scale, logit_cap,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "shared-prefix attention")
+    _attn_launch("paged_prefix_launch", "shared-prefix attention", plan, q,
+                 k_arena, v_arena, out, (m.data_ptr(), l.data_ptr()), pages,
+                 None, prefix_lens, (S, KVH, G, hd, hd_v, NB, bs, P), scale,
+                 logit_cap)
     paged_prefix_cuda.launches += 1
     return out, m, l
 

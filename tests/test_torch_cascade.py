@@ -37,7 +37,8 @@ from repro.serving.prefix_cache import PrefixCache as JPrefixCache
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attn import (NEG, merge_softmax_states,
+from repro_torch.kernels.paged_attn import (NEG, _attn_plan,
+                                            merge_softmax_states,
                                             paged_attention_lse_plain,
                                             paged_attention_plain,
                                             shared_paged_attention_plain,
@@ -243,6 +244,86 @@ def test_merge_with_an_empty_side_is_the_identity():
         assert torch.allclose(mo, o, atol=1e-6, rtol=0)
     zo, zm, zl = merge_softmax_states(eo, em, el, eo, em, el)
     assert torch.all(zo == 0.0) and torch.all(zl == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the shared-prefix kernel's split-KV arithmetic (csrc/paged_attn.cu): each
+# split's page columns attended alone, the states merged in split order
+# ---------------------------------------------------------------------------
+
+def _split_prefix(q, k, v, pages, plens, plan, scale, cap):
+    """The plain twin of the prefix kernel's split-and-merge: split j
+    attends the prefix columns [j * pages, (j + 1) * pages) through
+    ``shared_prefix_attention_plain`` (lanes whose prefix ends before them
+    get the empty state), and ``merge_softmax_states`` folds the splits in
+    ascending order from the empty state.  Returns (o, m, l)."""
+    S, H = q.shape[0], q.shape[1]
+    P, bs = pages.shape[0], k.shape[1]
+    o = torch.zeros((S, H, v.shape[-1]))
+    m = torch.full((S, H), NEG)
+    l = torch.zeros((S, H))
+    for j in range(plan.splits):
+        c0, c1 = j * plan.pages, min((j + 1) * plan.pages, P)
+        if c1 <= c0:
+            continue
+        lens = torch.clamp(plens - c0 * bs, 0, (c1 - c0) * bs)
+        part = shared_prefix_attention_plain(
+            q, k, v, pages[c0:c1].contiguous(), lens, scale=scale,
+            logit_cap=cap)
+        o, m, l = merge_softmax_states(o, m, l, *part)
+    return o.to(q.dtype), m, l
+
+
+def _prefix_split_inputs(rng, KVH, G, hd, P=40, pad=2):
+    """Six lanes over a P-page prefix (pages of 4 rows) on shuffled arena
+    pages: the whole run, one row short of it, a non-member, a prefix
+    inside the first split, one on a 24-row boundary (7 forced splits of 6
+    pages) and one a row past it."""
+    plens = np.array([P * BS, P * BS - 1, 0, 3, 24, 25], np.int32)
+    pages = rng.permutation(P + 3)[:P].astype(np.int32)
+    pages = np.concatenate([pages, np.full(pad, pages[-1], np.int32)])
+    k = rng.standard_normal((P + 3, BS, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((P + 3, BS, KVH, hd)).astype(np.float32)
+    q = rng.standard_normal((6, KVH * G, hd)).astype(np.float32)
+    return q, k, v, pages, plens
+
+
+@pytest.mark.parametrize("splits", [None, 2, 7], ids=["plan", "2", "7"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("cap", [0.0, 5.0])
+def test_split_prefix_twin_matches_plain_ref_and_pallas(splits, hd, cap):
+    """The twin equals the one-softmax plain version, the reference's
+    oracle and its Pallas kernel (interpret) within 2e-5 on o and 1e-5
+    relative on m and l, under the plan's split count (3 splits of 16
+    pages: 64 rows each) and forced ones; the non-member lane is exactly
+    (0, -1e30, 0)."""
+    rng = np.random.default_rng(hd + int(cap) + (splits or 0))
+    KVH, G = 2, 2
+    q, k, v, pages, plens = _prefix_split_inputs(rng, KVH, G, hd)
+    S, W = q.shape[0], pages.shape[0]
+    scale = 1.0 / hd ** 0.5
+    plan = _attn_plan(1, S * G, KVH, W, BS, hd, hd, 4, 132, splits=splits)
+    if splits is None:
+        assert (plan.splits, plan.pages) == (3, 16)
+    tq, tk, tv, tp, tl = (_t(x) for x in (q, k, v, pages, plens))
+    o, m, l = _split_prefix(tq, tk, tv, tp, tl, plan, scale, cap)
+    args = [jnp.asarray(x) for x in (q, k, v, pages, plens)]
+    wants = [shared_prefix_attention_plain(tq, tk, tv, tp, tl, scale=scale,
+                                           logit_cap=cap),
+             jref.shared_prefix_attention_ref(*args, scale=scale,
+                                              logit_cap=cap),
+             paged_gqa_prefix_pallas(args[0].reshape(S, KVH, G, hd),
+                                     *args[1:], scale, True, logit_cap=cap)]
+    for wo, wm, wl in wants:
+        wo, wm, wl = (np.asarray(x).reshape(S, KVH * G, -1)
+                      for x in (wo, wm, wl))
+        wm, wl = wm[..., 0], wl[..., 0]
+        assert np.abs(o.numpy() - wo).max() <= 2e-5
+        assert (np.abs(m.numpy() - wm) / np.maximum(np.abs(wm), 1.0)).max() \
+            <= 1e-5
+        assert (np.abs(l.numpy() - wl) / np.maximum(wl, 1.0)).max() <= 1e-5
+    assert torch.all(o[2] == 0) and torch.all(m[2] == NEG) and \
+        torch.all(l[2] == 0)
 
 
 # ---------------------------------------------------------------------------

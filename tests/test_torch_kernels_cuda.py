@@ -42,6 +42,7 @@ from repro_torch.kernels.paged_attn import (NEG, paged_attention_lse_plain,
                                             paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_attention_plain,
+                                            paged_prefill_cuda,
                                             paged_prefix_cuda,
                                             shared_prefix_attention_plain)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
@@ -964,3 +965,207 @@ def test_split_decode_refuses_over_limit_before_launch(cuda):
     n1 = ops.launch_counts()
     assert n1["paged_decode"] == n0["paged_decode"]
     assert n1["paged_decode_lse"] == n0["paged_decode_lse"]
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core prefill / shared-prefix kernel
+# ---------------------------------------------------------------------------
+
+PREFILL_STARTS = [0, 3, 100, 17, 250]      # none on a page boundary but 0
+PREFILL_CHUNKS = [0, 1, 10, 37, 64]
+
+
+def _prefill_inputs(gen, KVH, G, hd, dtype, starts=PREFILL_STARTS,
+                    chunks=PREFILL_CHUNKS, C=64):
+    """Shuffled disjoint pages a lane over lengths starts + chunks, and a
+    64-row chunk of queries a lane (rows past a lane's chunk included)."""
+    lengths = [s + c for s, c in zip(starts, chunks)]
+    S = len(lengths)
+    _, k, v, tables, lens = _decode_inputs(gen, S, KVH, G, hd, dtype,
+                                           lengths)
+    q = torch.randn((S, C, KVH * G, hd), generator=gen, device="cuda")
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    return q.to(dtype), k, v, tables, st, lens
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_prefill_kernel_matches_plain(cuda, G, hd, dtype, tol, cap):
+    """Prefill at hd = hd_v in {64, 128, 256}, G in {1, 4, 8}, chunks 0, 1,
+    10, 37 and 64 at starts off the page boundaries, every row of the
+    64-row chunk (rows past a lane's chunk too), against the plain version;
+    one launch a call; the lane of length 0 is zeros; the plan splits the
+    20 page columns 3 ways (10, 40 and 80 units)."""
+    q, k, v, tables, st, lens = _prefill_inputs(cuda, 2, G, hd, dtype)
+    scale = hd ** -0.5
+    n0 = ops.launch_counts()["paged_prefill"]
+    got = paged_prefill_cuda(q, k, v, tables, st, lens, scale=scale,
+                             logit_cap=cap)
+    assert ops.launch_counts()["paged_prefill"] == n0 + 1
+    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
+                                         scale=scale, logit_cap=cap)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got[0] == 0).all()
+
+
+PREFIX_LENS = [640, 640, 3, 0, 64, 65, 300, 639]   # lane 3 is not a member
+
+
+def _prefix_inputs(gen, KVH, G, hd, dtype, plens=PREFIX_LENS, P=40, pad=3,
+                   hd_v=None):
+    """A P-page shared prefix on shuffled arena pages, padded with ``pad``
+    repeats of the last id; lanes attend their ``plens`` first rows."""
+    bs, S = 16, len(plens)
+    NB = P + 5
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(P))
+    pages = perm[:P].int().tolist()
+    k = torch.randn((NB, bs, KVH, hd), generator=gen, device="cuda")
+    v = torch.randn((NB, bs, KVH, hd_v or hd), generator=gen, device="cuda")
+    q = torch.randn((S, KVH * G, hd), generator=gen, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    return (q.to(dtype), k.to(dtype), v.to(dtype),
+            torch.tensor(pages + [pages[-1]] * pad, **i32),
+            torch.tensor(plens, **i32))
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_prefix_kernel_matches_plain(cuda, G, hd, dtype, tol, cap):
+    """The shared-prefix phase at hd in {64, 128, 256}, G in {1, 4, 8} (8,
+    32 and 64 rows a kv head: 1, 2 and 4 of the 4 warps hold rows), prefix
+    lengths inside the first split, on and across split boundaries (the
+    plan splits the 43 columns 11 ways), against the plain version: o
+    within the attention tolerance, (m, l) within 1e-4 relative, the
+    non-member lane exactly (0, -1e30, 0); one launch a call."""
+    q, k, v, pages, plens = _prefix_inputs(cuda, 2, G, hd, dtype)
+    scale = hd ** -0.5
+    n0 = ops.launch_counts()["paged_prefix"]
+    got = paged_prefix_cuda(q, k, v, pages, plens, scale=scale,
+                            logit_cap=cap)
+    assert ops.launch_counts()["paged_prefix"] == n0 + 1
+    _states_close(got, shared_prefix_attention_plain(
+        q, k, v, pages, plens, scale=scale, logit_cap=cap), tol)
+    assert (got[0][3] == 0).all() and (got[1][3] == NEG).all() and \
+        (got[2][3] == 0).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_and_prefix_any_split_count_are_right_and_bitwise(
+        cuda, dtype, splits):
+    """Forced split counts, from 1 to a split a page column: each call
+    within the tolerance and bitwise equal to a second run (the merge is
+    ordered); one launch a call; the tickets are left zero."""
+    from repro_torch.kernels.paged_attn import _TICKETS, _attn_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tol = 1e-5 if dtype == torch.float32 else 4e-2
+    q, k, v, tables, st, lens = _prefill_inputs(
+        cuda, 2, 4, 64, dtype, starts=[700, 13, 0], chunks=[64, 37, 0])
+    plan = _attn_plan(3, 64 * 4, 2, tables.shape[1], 16, 64, 64,
+                      q.element_size(), sms, prefill=True, splits=splits)
+    n0 = ops.launch_counts()["paged_prefill"]
+    a = (q, k, v, tables, st, lens)
+    got = paged_prefill_cuda(*a, scale=0.125, plan=plan)
+    again = paged_prefill_cuda(*a, scale=0.125, plan=plan)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_prefill"] == n0 + 2
+    assert torch.equal(got, again)
+    want = paged_prefill_attention_plain(*a, scale=0.125)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+    q, k, v, pages, plens = _prefix_inputs(cuda, 2, 4, 64, dtype, P=45)
+    plan = _attn_plan(1, 8 * 4, 2, pages.shape[0], 16, 64, 64,
+                      q.element_size(), sms, splits=splits)
+    a = (q, k, v, pages, plens)
+    got = paged_prefix_cuda(*a, scale=0.125, plan=plan)
+    again = paged_prefix_cuda(*a, scale=0.125, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _states_close(got, shared_prefix_attention_plain(*a, scale=0.125), tol)
+    assert (got[1][3] == NEG).all() and (got[2][3] == 0).all()
+    assert not _TICKETS[q.device].any()
+
+
+def _unaligned(x):
+    """The same values in storage one element off a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 != 0
+    return y
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("hd", [64, 66])
+def test_prefill_and_prefix_on_unaligned_arenas(cuda, hd, dtype, tol):
+    """Arenas and queries off the 16-byte boundary (and hd = 66, whose rows
+    are no 16-byte multiple in either type) take the element copies: the
+    same results as the plain versions."""
+    q, k, v, tables, st, lens = _prefill_inputs(cuda, 2, 4, hd, dtype)
+    q, k, v = _unaligned(q), _unaligned(k), _unaligned(v)
+    scale = hd ** -0.5
+    got = paged_prefill_cuda(q, k, v, tables, st, lens, scale=scale)
+    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
+                                         scale=scale)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    q, k, v, pages, plens = _prefix_inputs(cuda, 2, 4, hd, dtype)
+    k, v = _unaligned(k), _unaligned(v)
+    _states_close(paged_prefix_cuda(q, k, v, pages, plens, scale=scale),
+                  shared_prefix_attention_plain(q, k, v, pages, plens,
+                                                scale=scale), tol)
+
+
+def test_prefill_and_prefix_take_unequal_hd_and_hd_v(cuda):
+    """hd = 64 with hd_v = 256, and hd = 200 with hd_v = 40: the kernel's
+    width is the larger, rounded up; the rest zero-padded."""
+    for hd, hd_v in ((64, 256), (200, 40)):
+        q, k, v, pages, plens = _prefix_inputs(cuda, 2, 4, hd,
+                                               torch.bfloat16, hd_v=hd_v)
+        got = paged_prefix_cuda(q, k, v, pages, plens, scale=0.1)
+        assert got[0].shape == (8, 8, hd_v)
+        _states_close(got, shared_prefix_attention_plain(
+            q, k, v, pages, plens, scale=0.1), 4e-2)
+        lengths = [s + c for s, c in zip(PREFILL_STARTS, PREFILL_CHUNKS)]
+        tables = torch.zeros((5, 3), dtype=torch.int32, device="cuda")
+        tables[:] = pages[:3]
+        lens = torch.tensor([min(n, 48) for n in lengths], dtype=torch.int32,
+                            device="cuda")
+        st = torch.clamp(lens - torch.tensor(PREFILL_CHUNKS, device="cuda"),
+                         min=0).int()
+        qp = torch.randn((5, 16, 8, hd), generator=cuda, device="cuda") \
+            .to(torch.bfloat16)
+        got = paged_prefill_cuda(qp, k, v, tables, st, lens, scale=0.1)
+        want = paged_prefill_attention_plain(qp, k, v, tables, st, lens,
+                                             scale=0.1)
+        assert (got.float() - want.float()).abs().max().item() <= 4e-2
+
+
+def test_prefill_and_prefix_refuse_before_or_at_launch(cuda):
+    """hd_v past 256 raises before any launch; a plan the kernel does not
+    take (a width other than its own) is refused at launch and raises;
+    neither is counted."""
+    from repro_torch.kernels.paged_attn import _attn_plan
+    n0 = ops.launch_counts()
+    q, k, v, pages, plens = _prefix_inputs(cuda, 1, 4, 64, torch.bfloat16,
+                                           hd_v=512)
+    with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+        paged_prefix_cuda(q, k, v, pages, plens, scale=0.1)
+    q, k, v, tables, st, lens = _prefill_inputs(cuda, 2, 4, 64,
+                                                torch.bfloat16)
+    wide = torch.zeros(k.shape[:3] + (300,), dtype=k.dtype, device="cuda")
+    with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+        paged_prefill_cuda(q, k, wide, tables, st, lens, scale=0.1)
+    wrong = _attn_plan(5, 256, 2, tables.shape[1], 16, 128, 128, 2, 132,
+                       prefill=True)
+    with pytest.raises(RuntimeError, match="paged prefill attention"):
+        paged_prefill_cuda(q, k, v, tables, st, lens, scale=0.1, plan=wrong)
+    n1 = ops.launch_counts()
+    assert n1["paged_prefill"] == n0["paged_prefill"]
+    assert n1["paged_prefix"] == n0["paged_prefix"]

@@ -197,6 +197,74 @@ def test_decode_refuses_what_it_does_not_take(card):
     assert counts["paged_decode"] == counts["paged_decode_lse"] == 0
 
 
+@pytest.mark.parametrize("S,W,split", [(1, 28, True), (8, 32, True),
+                                       (8, 4, False), (3, 3, False)])
+def test_prefill_is_one_launch_whatever_the_plan(card, S, W, split):
+    """A prefill call is ONE launch, split or not: the plan's width, splits
+    and pages go to the kernel, a split plan with its workspace and
+    tickets, an unsplit one with neither."""
+    KVH, G, hd, bs, C = 8, 4, 64, 16, 64
+    k = torch.zeros(4, bs, KVH, hd, dtype=torch.bfloat16)
+    q = torch.zeros(S, C, KVH * G, hd, dtype=torch.bfloat16)
+    paged_prefill_cuda(q, k, k, torch.zeros(S, W, dtype=torch.int32),
+                       torch.zeros(S, dtype=torch.int32),
+                       torch.full((S,), W * bs, dtype=torch.int32),
+                       scale=0.125)
+    assert card.calls == ["paged_prefill_launch"]
+    width, nsplit, pages, ws, tickets = card.args[0][19:24]
+    assert width == 64
+    assert (nsplit > 1) == split and nsplit * pages >= W
+    assert (ws is not None) == split and (tickets is not None) == split
+    counts = ops.launch_counts()
+    assert counts["paged_prefill"] == 1 and counts["plain_calls"] == 0
+
+
+@pytest.mark.parametrize("S,G,P,hd,split", [(8, 4, 32, 64, True),
+                                            (8, 8, 48, 128, True),
+                                            (1, 4, 2, 256, False),
+                                            (256, 4, 32, 64, False)])
+def test_prefix_is_one_launch_whatever_the_plan(card, S, G, P, hd, split):
+    """A shared-prefix call is ONE launch whatever its plan: the width
+    rounded up from hd, a split plan (phase 5's: 8 kv heads, 32 rows, 32
+    page columns) with its workspace and tickets."""
+    KVH, bs = 8, 16
+    k = torch.zeros(4, bs, KVH, hd, dtype=torch.bfloat16)
+    paged_prefix_cuda(torch.zeros(S, KVH * G, hd, dtype=torch.bfloat16), k,
+                      k, torch.zeros(P, dtype=torch.int32),
+                      torch.full((S,), P * bs, dtype=torch.int32),
+                      scale=0.125)
+    assert card.calls == ["paged_prefix_launch"]
+    width, nsplit, pages, ws, tickets = card.args[0][19:24]
+    assert width == max(64, hd)
+    assert (nsplit > 1) == split and nsplit * pages >= P
+    assert (ws is not None) == split and (tickets is not None) == split
+    counts = ops.launch_counts()
+    assert counts["paged_prefix"] == 1 and counts["plain_calls"] == 0
+
+
+def test_prefill_and_prefix_refuse_what_they_do_not_take(card):
+    """hd or hd_v past 256 raises before any launch, and counts nothing;
+    hd_v up to 256 launches."""
+    k = torch.zeros(4, 4, 2, 8)
+    tables = torch.zeros(3, 2, dtype=torch.int32)
+    ones = torch.ones(3, dtype=torch.int32)
+    for wide in (torch.zeros(4, 4, 2, 512), torch.zeros(4, 4, 2, 257)):
+        with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+            paged_prefill_cuda(torch.zeros(3, 2, 4, 8), k, wide, tables,
+                               ones, ones, scale=0.5)
+        with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+            paged_prefix_cuda(torch.zeros(3, 4, 8), k, wide,
+                              torch.zeros(2, dtype=torch.int32), ones,
+                              scale=0.5)
+    assert card.calls == []
+    paged_prefix_cuda(torch.zeros(3, 4, 8), k, torch.zeros(4, 4, 2, 256),
+                      torch.zeros(2, dtype=torch.int32), ones, scale=0.5)
+    assert card.calls == ["paged_prefix_launch"]
+    assert card.args[0][19] == 256
+    counts = ops.launch_counts()
+    assert counts["paged_prefill"] == 0 and counts["paged_prefix"] == 1
+
+
 def _cascade(S, P, err, card):
     """One launch of each cascade kernel: the unique phase over (S, 2)
     tables, the shared-prefix phase over P prefix pages."""

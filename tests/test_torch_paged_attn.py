@@ -19,7 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.paged_attn import paged_gqa_decode_lse_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attn import (NEG, _decode_plan,
+from repro_torch.kernels.paged_attn import (NEG, _attn_plan, _decode_plan,
                                             merge_softmax_states,
                                             paged_attention_lse_plain,
                                             paged_attention_plain,
@@ -280,3 +280,103 @@ def test_decode_plan_shapes_of_the_paths():
     assert _decode_plan(8, 1, 8, 64, 16, 256, 256, 4, 132).warps == 1
     with pytest.raises(ValueError, match="hd_v <= 256"):
         _decode_plan(8, 8, 4, 64, 16, 64, 512, 2, 132)
+
+
+# ---------------------------------------------------------------------------
+# the prefill / shared-prefix kernel's plan (csrc/paged_attn.cu)
+# ---------------------------------------------------------------------------
+
+ATTN_GRID = [(lanes, rows, KVH, W, bs)
+             for lanes in (1, 2, 8, 64)
+             for rows in (1, 8, 32, 33, 64, 256, 512)
+             for KVH in (1, 2, 8)
+             for W in (0, 1, 3, 16, 35, 64, 512)
+             for bs in (4, 16, 64)]
+
+
+@pytest.mark.parametrize("prefill", [False, True], ids=["prefix", "prefill"])
+@pytest.mark.parametrize("chunk", range(2))
+def test_attn_plan_covers_every_column_once(prefill, chunk):
+    """On a grid, both rules: every page column lies in exactly one split
+    and every split holds one; the units are the 64-row tiles of every
+    (lane, kv head); the prefix phase
+    splits only while its units fill at most half the card, each split at
+    least one 64-row tile; prefill keeps its grid within 4 CTAs an SM and
+    each split at least 128 rows; the plan is a pure function."""
+    for lanes, rows, KVH, W, bs in ATTN_GRID[chunk::2]:
+        for hd, esize in ((64, 2), (128, 2), (256, 4)):
+            plan = _attn_plan(lanes, rows, KVH, W, bs, hd, hd, esize, 132,
+                              prefill=prefill)
+            assert plan == _attn_plan(lanes, rows, KVH, W, bs, hd, hd, esize,
+                                      132, prefill=prefill)
+            cols = [c for r in _split_columns(plan, W) for c in r]
+            assert cols == list(range(W)), (lanes, rows, KVH, W, bs)
+            assert all(len(r) > 0 for r in _split_columns(plan, W)) or W == 0
+            assert plan.rtiles == -(-rows // 64) and plan.width == hd
+            assert plan.units == lanes * KVH * plan.rtiles
+            assert plan.part == 64 * (hd + 2)
+            if plan.splits > 1:
+                assert plan.ws_elems == plan.ctas * plan.part
+                if prefill:
+                    assert plan.ctas <= 4 * 132
+                    assert plan.pages * bs >= 128 or \
+                        plan.pages * bs * plan.splits >= W * bs
+                else:
+                    assert 2 * plan.units <= 132
+                    assert plan.pages * bs >= 64
+            else:
+                assert plan.ws_elems == 0
+
+
+def test_attn_plan_shapes_of_the_paths():
+    """Phase 3's prefill (8 lanes, 64-row chunks, G = 4, 8 kv heads, hd 64,
+    32 page columns of 16, bf16) runs 2 splits of 256 units; one lane's
+    late chunk (28 columns) 4 splits; phase 5's prefix phase (8 lanes x G
+    = 4 = 32 rows, 32 columns) 8 splits of 8 units; the width is
+    the larger of hd and hd_v rounded up to 64, 128 or 256; hd or hd_v
+    past 256 raises."""
+    p = _attn_plan(8, 256, 8, 32, 16, 64, 64, 2, 132, prefill=True)
+    assert (p.rtiles, p.units, p.splits, p.pages) == (4, 256, 2, 16)
+    p = _attn_plan(1, 256, 8, 28, 16, 64, 64, 2, 132, prefill=True)
+    assert (p.splits, p.pages, p.ctas) == (4, 7, 128)
+    p = _attn_plan(1, 32, 8, 32, 16, 64, 64, 2, 132)
+    assert (p.units, p.splits, p.pages, p.ctas) == (8, 8, 4, 64)
+    for hd, esize, width in ((64, 2, 64), (128, 2, 128), (256, 2, 256),
+                             (64, 4, 64), (200, 4, 256), (16, 2, 64)):
+        p = _attn_plan(8, 256, 8, 32, 16, hd, hd, esize, 132, prefill=True)
+        assert (p.width, p.part) == (width, 64 * (width + 2))
+    assert _attn_plan(1, 32, 8, 32, 16, 64, 256, 2, 132).width == 256
+    for hd, hd_v in ((64, 512), (512, 64)):
+        with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+            _attn_plan(1, 32, 8, 32, 16, hd, hd_v, 2, 132)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_prefill_plain_matches_pallas_at_wide_heads(hd):
+    """The plain prefill against the reference's Pallas kernel (interpret)
+    and oracle at the widths the CUDA kernel now takes (hd 128: qwen2-moe,
+    deepseek-coder, command-r-plus; hd 256: gemma-2b, G = 8), with ragged
+    starts, an empty lane and the soft cap."""
+    rng = np.random.default_rng(hd)
+    KVH, G, C = 1, 8 if hd == 256 else 4, 4
+    starts = np.array([0, 3, 9, 0], np.int32)
+    chunks = np.array([4, 3, 1, 0], np.int32)
+    lengths = starts + chunks
+    tables, used = _tables(lengths, BS, width=4)
+    k, v = _arena(rng, used + 2, KVH, hd)
+    q = rng.standard_normal((4, C, KVH * G, hd)).astype(np.float32)
+    scale = 1.0 / hd ** 0.5
+    for cap in (0.0, 5.0):
+        ours = paged_prefill_attention_plain(
+            _t(q), _t(k), _t(v), _t(tables), _t(starts), _t(lengths),
+            scale=scale, logit_cap=cap).numpy()
+        args = [jnp.asarray(x) for x in (q, k, v, tables, starts, lengths)]
+        pallas = np.asarray(jops.paged_prefill_attention(
+            *args, logit_cap=cap, impl="pallas", interpret=True))
+        oracle = np.asarray(jref.paged_prefill_attention_ref(
+            *args, scale=scale, logit_cap=cap))
+        assert np.abs(ours - oracle).max() <= TOL
+        for s, c in enumerate(chunks):
+            assert np.abs(ours[s, :c] - pallas[s, :c]).max(initial=0.0) \
+                <= TOL
+        assert np.all(ours[3] == 0.0)
