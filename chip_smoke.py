@@ -1034,8 +1034,12 @@ def check_flash(torch, report, timer, cfg):
     phase 7's attention shape (B = 2, S = 1024, 32 / 8 heads, hd = 64,
     causal, f32), a ragged length (Sq = Skv = 1000), kv rows past every
     query (Sq = 500, Skv = 1000: their dk/dv must be exactly 0), the
-    bidirectional form, and a bf16 forward.  The backward kernels are held
-    alone: both versions get the kernel forward's lse and delta.
+    bidirectional form, a bf16 forward, and a group of G = 8 (32 / 4
+    heads: 8 dk/dv partials a kv head).  The backward kernels are held
+    alone: both versions get the kernel forward's lse and delta.  The main
+    case's dk/dv runs twice and must give the same bits; each case logs
+    its plan (``_flash_plan``), and the build's registers, spills and
+    SASS FFMA / LDS counts of each flash kernel are logged first.
     Tolerances are the reference's for its kernel: 2e-6 absolute + 2e-6
     relative (f32 forward), 2e-2 (bf16), 3e-5 absolute + 1e-3 relative
     (gradients).  Every case is timed against the plain versions and
@@ -1043,21 +1047,30 @@ def check_flash(torch, report, timer, cfg):
     autograd computes dq, dk and dv at once), a yardstick the port never
     calls; the main case is the kernel table's."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn import (
-        flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda, flash_dq_plain,
-        flash_fwd_cuda, flash_fwd_plain)
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        _flash_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
+        flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
+    from repro_torch.launch.bench_flash import build_report
+    H0, KVH0, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     f32, bf16 = torch.float32, torch.bfloat16
     ok = True
-    for name, B, Sq, Skv, causal, dt in (
-            ("main", TRAIN_B, TRAIN_S, TRAIN_S, True, f32),
-            ("ragged", 2, 1000, 1000, True, f32),
-            ("kv past every query", 1, 500, 1000, True, f32),
-            ("bidirectional", TRAIN_B, TRAIN_S, TRAIN_S, False, f32),
-            ("bf16 forward", TRAIN_B, TRAIN_S, TRAIN_S, True, bf16)):
+    report["flash_build"] = build_report(_build.build_all())
+    for line in report["flash_build"]:
+        log(f"  {line}")
+    for name, B, Sq, Skv, causal, dt, H, KVH in (
+            ("main", TRAIN_B, TRAIN_S, TRAIN_S, True, f32, H0, KVH0),
+            ("ragged", 2, 1000, 1000, True, f32, H0, KVH0),
+            ("kv past every query", 1, 500, 1000, True, f32, H0, KVH0),
+            ("bidirectional", TRAIN_B, TRAIN_S, TRAIN_S, False, f32, H0,
+             KVH0),
+            ("bf16 forward", TRAIN_B, TRAIN_S, TRAIN_S, True, bf16, H0,
+             KVH0),
+            ("G = 8", TRAIN_B, TRAIN_S, TRAIN_S, True, f32, H0, H0 // 8)):
+        plan = _flash_plan(H, KVH, hd, hd)
         q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Skv, KVH, hd), generator=gen,
                         device="cuda").to(dt)
@@ -1091,17 +1104,30 @@ def check_flash(torch, report, timer, cfg):
         if Skv > Sq and causal:
             zeros = bool((dk[:, Sq:] == 0).all() and (dv[:, Sq:] == 0).all())
             good &= zeros
+        bitwise = None
+        if name == "main":
+            dk2, dv2 = flash_dkv_cuda(*stats, causal=causal, scale=scale)
+            bitwise = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+            good &= bitwise
         ok &= good
         rec = {"case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
                "KVH": KVH, "hd": hd, "causal": causal,
-               "dtype": str(dt).split(".")[-1], "max_abs_err": errs,
+               "dtype": str(dt).split(".")[-1], "plan": plan._asdict(),
+               "max_abs_err": errs,
                "tol": {k: (a, r) for k, (_, _, a, r) in res.items()},
-               "past_rows_zero": zeros, "ok": good}
-        log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} {rec['dtype']} "
-            f"{'causal' if causal else 'full'}: max_abs_err "
+               "past_rows_zero": zeros, "dkv_run_to_run_bitwise": bitwise,
+               "ok": good}
+        log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} "
+            f"{rec['dtype']} {'causal' if causal else 'full'}: max_abs_err "
             + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
             + (f"; dk/dv past every query {'0' if zeros else 'NONZERO'}"
-               if zeros is not None else "") + f" {'ok' if good else 'FAIL'}")
+               if zeros is not None else "")
+            + (f"; dk/dv run to run bitwise {bitwise}"
+               if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
+        log(f"    plan: forward 64 query rows a CTA, {plan.fwd_stages} "
+            f"ring stage(s); dk/dv {plan.dkv_rows} kv rows a CTA, "
+            f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
+            f"{plan.parts} partial(s) a kv head")
         pairs = B * H * sum(min(r + 1, Skv) if causal else Skv
                             for r in range(Sq))
         es = q.element_size()

@@ -13,34 +13,54 @@
 // column at or past Skv is masked.  Nothing is padded: each kernel masks
 // its ragged tiles itself.
 //
-// The reference's 512 x 512 blocks do not fit a CTA (a 512 x 64 f32 q
-// block alone is 128 KB), so the kernels work on 64 x 64 tiles:
-//   fwd: one CTA per (64 query rows, head, batch) walks the kv tiles up to
-//        the causal limit with the online softmax (m, l, acc) in f32;
-//   dq:  the same grid, recomputing p = exp(s - lse) from the saved lse;
-//   dkv: one CTA per (64 kv rows, kv head, batch) holds its K and V tiles
-//        and walks the G query heads of its group and, for each, the query
-//        tiles from the diagonal on; each head's dk/dv is rounded to the
-//        output type before the group sum, as the reference's per-head
-//        outputs are, so a kv tile past every query row writes zeros.
-// The causal skip is the loop bounds.  256 threads, as a 16 x 16 grid:
-// thread (ty, tx) owns tile rows 4ty..4ty+3 and tile columns tx + 16c, in
-// registers; tiles are staged in shared memory as f32 with an odd row
-// stride (no bank conflicts on the strided reads).
-//
 // Arithmetic, as the reference's: scores q.k * scale in f32; masked scores
 // give p = 0; p is rounded to v's type before p @ v while l sums the f32 p;
 // l is clamped at 1e-30; lse = m + log(l); ds = p (dp - delta) * scale is
 // rounded to the operand type before ds @ k and ds^T @ q, and dv = p^T @ do
-// in f32.  Only the summation order differs (64-column tiles against the
-// reference's blocks).
+// in f32; each query head's dk/dv is rounded to the output type before the
+// group sum, so a kv row past every query gets exact zeros.  The forward
+// and dk/dv take exp as exp2 of log2(e)-scaled scores (the forward keeps m
+// in log2 units and returns lse = m ln 2 + log l); dq keeps expf.  Only the
+// summation order and that rounding differ from the reference's.
 //
 // What bounds it on the H100: operations.  At training shapes (S = 1024,
 // hd = 64) every q row meets up to 1024 keys, about 4 hd flops a pair each
-// way, far above the bytes of q, k, v and o.  f32 runs on CUDA-core FMAs
-// (67 TFLOP/s peak); bf16 operands are widened to f32 in shared memory and
-// take the same path.  This first kernel uses no tensor cores, no TMA and
-// no pipelining.
+// way, far above the bytes of q, k, v and o.  f32 runs full-f32 CUDA-core
+// FMAs (67 TFLOP/s peak), never TF32; bf16 operands are widened to f32 as
+// they land in shared memory and take the same path.
+//
+// The forward and dk/dv kernels (kernels/flash_attn.py::_flash_plan picks
+// the ring stages, the kv rows of a dk/dv CTA and the heads it walks; a
+// forward CTA holds 64 query rows, three CTAs an SM at W = 64):
+//  * Register-blocked products.  A warp owns 16 rows of a tile; lane (ly,
+//    lx) = (lane / 8, lane % 8) owns rows ly + 4i (i < 4) and columns lx +
+//    8j (j < 8) of a 64-column score tile, and columns 32c + 4lx .. +3 (c <
+//    NCV) of an output tile.  A score tile is the product of two row-major
+//    tiles read as float4 along the head dim (12 LDS.128 for 128 FFMA); an
+//    output tile reads p as float4 along its columns against float4 rows of
+//    V (4 + 4 NCV loads for 32 NCV FFMA a column step).  Row strides W + 4
+//    (W = 32 NCV) and 72 keep every read and p's stores conflict-free.
+//  * A warp's rows never leave it: the 8 lanes of a row reduce its max and
+//    sum with __shfl_xor_sync and keep m, l and the rescale in registers,
+//    and p (and in dk/dv ds) passes through the warp's own rows of a
+//    shared tile, so a tile costs one barrier, the ring's.
+//  * A cp.async ring (1 or 2 stages) brings K/V tiles (forward) or q, do,
+//    lse and delta tiles (dk/dv) ahead of the products: 16-byte copies for
+//    f32 rows on 16-byte boundaries, 4-byte ones for other f32 rows;
+//    bf16 rows take ordinary loads, widened as they land.
+//  * Masks only where a warp's part of a tile needs them (the causal
+//    diagonal, the ragged edges); a dk/dv warp with nothing live skips
+//    the tile.
+//  * Heaviest first: a 1-D grid whose leading CTAs walk the most tiles.
+//  * dk/dv: one CTA per (64 or 128 kv rows, `heads` query heads, batch)
+//    holds its K and V tiles and computes s = K q^T -> p, dv += p^T do,
+//    dp = V do^T -> ds, dk += ds^T q.  Each head's dk/dv is rounded to the
+//    output type; a kv head's G heads are summed in g order in f32, within
+//    a CTA and then over the group's CTAs by a second kernel reading their
+//    partials from an f32 scratch (summing across a thread-block cluster
+//    through distributed shared memory measured slower: PERF.md).
+// dq keeps its first design (64 x 64 tiles of 4 x 4 micro-tiles, staged
+// synchronously) until it is redesigned the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,12 +70,18 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 256;        // threads per CTA (16 x 16)
+constexpr int NT = 256;        // threads per CTA (16 x 16) of dq
 constexpr int TILE = 64;       // query rows and kv rows per tile
 constexpr int RT = 4;          // tile rows a thread owns (TILE / 16)
 constexpr int SC = 4;          // score columns a thread owns (TILE / 16)
 constexpr int LDS = TILE + 1;  // row stride of a score tile in shared memory
 constexpr float NEG = -1e30f;
+
+constexpr int KT = 64;         // kv rows (forward) / query rows (dk/dv) a tile
+constexpr int FWD_THREADS = 128;  // 64 query rows of a forward CTA
+constexpr int LDP = KT + 8;    // row stride of a p / ds tile
+constexpr int MAX_SMEM = 232448;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -69,16 +95,328 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// ---------------------------------------------------------------------------
+// copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
 }
+__device__ __forceinline__ void cp_async4(float* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every committed group landed: with 1 or 2 ring stages, the tile about to
+// be used is the last one committed
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// `n` rows of d <= W elements (row r at src + (row0 + r) * stride) into
+// dst (row stride W + 4 floats) as f32; rows at or past `rows` and the
+// columns from d to d rounded up to 4 are zero.  f32: 16-byte cp.async
+// copies (vec: d % 4 == 0 and 16-byte aligned rows) or 4-byte ones; bf16:
+// ordinary loads.
+template <typename T, int W>
+__device__ __forceinline__ void copy_rows(float* dst, const T* __restrict__ src, long long stride,
+                                          int row0, int n, int rows, int d, bool vec, int tid,
+                                          int nthr) {
+  constexpr int W4 = W / 4;
+  const int d4 = (d + 3) >> 2;
+  for (int idx = tid; idx < n * W4; idx += nthr) {
+    const int r = idx / W4, c = (idx % W4) * 4;
+    if (c >= 4 * d4) continue;
+    const int gr = row0 + r;
+    float* s = dst + r * (W + 4) + c;
+    const bool row_ok = gr < rows;
+    const T* g = src + (row_ok ? (long long)gr * stride + c : 0);
+    if constexpr (sizeof(T) == 4) {
+      if (vec) {
+        cp_async16(s, g, row_ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = row_ok && c + u < d;
+          cp_async4(s + u, ok ? g + u : src, ok ? 4 : 0);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[u] = row_ok && c + u < d ? to_f(g[u]) : 0.f;
+    }
+  }
+}
+
+// KT f32 values (lse or delta of a query tile) from src + row0; zero past
+// `rows`.
+__device__ __forceinline__ void copy_vec(float* dst, const float* __restrict__ src, int row0,
+                                         int rows, int tid, int nthr) {
+  for (int i = tid; i < KT; i += nthr) {
+    const bool ok = row0 + i < rows;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok ? 4 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// register-blocked products (lane (ly, lx) of a warp owning 16 rows)
+// ---------------------------------------------------------------------------
+
+// acc[i][j] = sum_{k < k4} A[4i * ld + k] * Bm[8j * ld + k]: A points at the
+// lane's first row (row ly of the warp's 16), Bm at its first column (row
+// lx of the other operand); both row-major along k, k4 a multiple of 4.
+__device__ __forceinline__ void nt_product(float (&acc)[4][8], const float* A, const float* Bm,
+                                           int ld, int k4) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < k4; k += 4) {
+    float4 a[4], b[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + 4 * i * ld + k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(Bm + 8 * j * ld + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        s = fmaf(a[i].w, b[j].w, s);
+        acc[i][j] = s;
+      }
+  }
+}
+
+// acc[i][4c + e] += sum_{k < KT} P[4i * ldp + k] * V[k * ldv + 32c + e]:
+// P points at the lane's first row of a p / ds tile, V at column 4lx of
+// the B operand (KT rows, row-major along the output columns).
+template <int NCV>
+__device__ __forceinline__ void nn_product(float (&acc)[4][4 * NCV], const float* P, int ldp,
+                                           const float* V, int ldv) {
+#pragma unroll 2
+  for (int k = 0; k < KT; k += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(P + 4 * i * ldp + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 v[NCV];
+#pragma unroll
+      for (int c = 0; c < NCV; ++c)
+        v[c] = *reinterpret_cast<const float4*>(V + (k + kk) * ldv + 32 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = kk == 0 ? p[i].x : kk == 1 ? p[i].y : kk == 2 ? p[i].z : p[i].w;
+#pragma unroll
+        for (int c = 0; c < NCV; ++c) {
+          acc[i][4 * c + 0] = fmaf(a, v[c].x, acc[i][4 * c + 0]);
+          acc[i][4 * c + 1] = fmaf(a, v[c].y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(a, v[c].z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(a, v[c].w, acc[i][4 * c + 3]);
+        }
+      }
+    }
+  }
+}
+
+// 2^x, flushing results below 2^-126 to 0: what p needs (exp2f adds
+// denormal handling around the same MUFU.EX2)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct Dims {
+  int Sq, Skv, H, KVH, hd, hdv, causal;
+  float scale;
+};
+
+// the forward's and dk/dv's launch: shapes, plan and which rows may take
+// 16-byte copies
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse_in, *delta;
+  void *o1, *o2;     // o (forward) or dk, dv
+  float* lse_out;
+  float* ws;         // dk/dv: the f32 partials of a kv head's group, or null
+  int B, Sq, Skv, H, KVH, hd, hdv, causal;
+  float scale;
+  int rows, stages, heads, parts;  // rows: dk/dv's kv rows a CTA
+  int vec_q, vec_k, vec_v, vec_o;
+};
+
+__host__ __device__ constexpr int cdiv_c(int a, int b) { return (a + b - 1) / b; }
+
+// shared memory (bytes) of a forward CTA (64 query rows) and of a dk/dv
+// CTA of `rows` kv rows, at output width W and `stages` ring stages
+__host__ __device__ constexpr int fwd_smem(int W, int stages) {
+  return 4 * (64 * (W + 4) + stages * 2 * KT * (W + 4) + 64 * LDP);
+}
+__host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
+  return 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (W + 4) + 2 * KT));
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// One CTA of 4 warps holds BQ = 64 query rows of one (head, batch): CTA x
+// = (tile t from the last, head h, batch b) = ((nqt - 1 - t) * B + b) * H
+// + h, so every head's heaviest causal tile starts first.  At W = 64 three
+// CTAs fit an SM with one ring stage (168 registers).
+template <typename T, int NCV>
+__global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
+    flash_fwd_kernel(const Args a) {
+  constexpr int W = 32 * NCV, LD = W + 4, BQ = 64, nthr = FWD_THREADS;
+  const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
+  const int lin = blockIdx.x;
+  const int q0 = (nqt - 1 - lin / HB) * BQ;
+  const int h = lin % a.H, b = (lin / a.H) % a.B;
+  const int kvh = h / (a.H / a.KVH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int r0 = warp * 16 + ly;  // the lane's rows: r0 + 4i
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;                  // BQ x LD
+  float* Ps = Qs + BQ * LD;        // BQ x LDP
+  float* ring = Ps + BQ * LDP;     // stages x (K, V), KT x LD each
+
+  const T* qg = static_cast<const T*>(a.q);
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = static_cast<const T*>(a.v);
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const T* qb = qg + (long long)b * a.Sq * qstride + (long long)h * a.hd;
+  const T* kb = kg + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const T* vb = vg + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
+  const int n = cdiv_c(kv_end, KT), stages = a.stages;
+  auto load = [&](int t) {
+    float* st = ring + (t % stages) * 2 * KT * LD;
+    copy_rows<T, W>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_rows<T, W>(st + KT * LD, vb, vstride, t * KT, KT, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  };
+  copy_rows<T, W>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
+
+  float o[4][4 * NCV], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NCV; ++c) o[i][c] = 0.f;
+  }
+  const int hd4 = (a.hd + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;  // scores in log2 units: p = 2^(x - m)
+  for (int t = 0; t < n; ++t) {
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const float* Ks = ring + (t % stages) * 2 * KT * LD;
+    const float* Vs = Ks + KT * LD;
+    const int j0 = t * KT;
+    float s[4][8];
+    nt_product(s, Qs + r0 * LD, Ks + lx * LD, LD, hd4);
+    const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > q0 + warp * 16);
+    // the four rows' max and sum reduced together over their 8 lanes
+    float mx[4], corr[4], m_ref[4], sum[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + r0 + 4 * i;
+      mx[i] = NEG;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = s[i][j] * sl2;
+        if (edge) {
+          const int col = j0 + lx + 8 * j;
+          if (!(col < a.Skv && (!a.causal || col <= row))) x = NEG;
+        }
+        s[i][j] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with no live column yet subtracts 0: its masked p are 0
+      m_ref[i] = m_new > 0.5f * NEG ? m_new : 0.f;
+      corr[i] = exp2_ftz(m[i] - m_ref[i]);
+      m[i] = m_new;
+      sum[i] = 0.f;
+      float* prow = Ps + (r0 + 4 * i) * LDP + lx;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2_ftz(s[i][j] - m_ref[i]);
+        sum[i] += p;
+        prow[8 * j] = round_to<T>(p);  // p in v's type for p @ v
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l[i] = l[i] * corr[i] + sum[i];
+#pragma unroll
+      for (int c = 0; c < 4 * NCV; ++c) o[i][c] *= corr[i];
+    }
+    __syncwarp();  // a row's p comes from the 8 lanes of its own warp
+    nn_product<NCV>(o, Ps + r0 * LDP, LDP, Vs + 4 * lx, LD);
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
+  }
+
+  T* og = static_cast<T*>(a.o1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r0 + 4 * i;
+    if (row >= a.Sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    T* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < a.hdv) orow[col] = from_f<T>(o[i][4 * c + e] / lc);
+      }
+    if (lx == 0) a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dq
+// ---------------------------------------------------------------------------
+
+// dq's staging and products (the first design)
 
 // TILE rows of d values from src (row r at src + (row0 + r) * stride) into
 // dst (row stride ld >= width) as f32; rows at or past `rows` and columns
@@ -137,112 +475,6 @@ __device__ __forceinline__ void dot_rows(float (&s)[RT][SC], const float* X, con
   }
 }
 
-struct Dims {
-  int Sq, Skv, H, KVH, hd, hdv, causal;
-  float scale;
-};
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Dims D) {
-  constexpr int W = 16 * NC, LD = W + 1;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (D.H / D.KVH);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, warp = tid >> 5, lane = tid & 31;
-  extern __shared__ float sm[];
-  float* Qs = sm;                 // TILE x LD
-  float* Ks = Qs + TILE * LD;     // TILE x LD
-  float* Vs = Ks + TILE * LD;     // TILE x LD
-  float* Ps = Vs + TILE * LD;     // TILE x LDS: scores, then p
-  float* mrow = Ps + TILE * LDS;  // running max
-  float* lrow = mrow + TILE;      // running sum of p
-  float* crow = lrow + TILE;      // this tile's correction
-
-  const long long qstride = (long long)D.H * D.hd, ostride = (long long)D.H * D.hdv;
-  const long long kstride = (long long)D.KVH * D.hd, vstride = (long long)D.KVH * D.hdv;
-  const T* qb = q + (long long)b * D.Sq * qstride + (long long)h * D.hd;
-  const T* kb = k + (long long)b * D.Skv * kstride + (long long)kvh * D.hd;
-  const T* vb = v + (long long)b * D.Skv * vstride + (long long)kvh * D.hdv;
-  load_rows(Qs, LD, W, qb, qstride, q0, D.Sq, D.hd);
-  for (int i = tid; i < TILE; i += NT) {
-    mrow[i] = NEG;
-    lrow[i] = 0.f;
-  }
-  float acc[RT][NC];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const int kv_end = D.causal ? min(D.Skv, q0 + TILE) : D.Skv;
-  for (int j0 = 0; j0 < kv_end; j0 += TILE) {
-    __syncthreads();  // the previous tile's K, V and p are consumed
-    load_rows(Ks, LD, W, kb, kstride, j0, D.Skv, D.hd);
-    load_rows(Vs, LD, W, vb, vstride, j0, D.Skv, D.hdv);
-    __syncthreads();
-    float s[RT][SC];
-    dot_rows(s, Qs, Ks, LD, D.hd, ty, tx);
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int c = 0; c < SC; ++c) {
-        const int row = q0 + ty * RT + r, col = j0 + tx + 16 * c;
-        const bool live = col < D.Skv && (!D.causal || col <= row);
-        Ps[(ty * RT + r) * LDS + tx + 16 * c] = live ? s[r][c] * D.scale : NEG;
-      }
-    __syncthreads();
-    for (int i = warp; i < TILE; i += NT / 32) {
-      float* pr = Ps + i * LDS;
-      const float a = pr[lane], c2 = pr[lane + 32];
-      const float m_new = fmaxf(mrow[i], warp_max(fmaxf(a, c2)));
-      const float pa = a > 0.5f * NEG ? expf(a - m_new) : 0.f;
-      const float pc = c2 > 0.5f * NEG ? expf(c2 - m_new) : 0.f;
-      const float sum = warp_sum(pa + pc);
-      pr[lane] = round_to<T>(pa);  // p in v's type for p @ v
-      pr[lane + 32] = round_to<T>(pc);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(mrow[i] - m_new);
-        crow[i] = corr;
-        lrow[i] = lrow[i] * corr + sum;
-        mrow[i] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const float corr = crow[ty * RT + r];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
-    }
-    mma_rows<NC>(acc, Ps, LDS, Vs, LD, ty, tx);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int i = ty * RT + r, row = q0 + i;
-    if (row >= D.Sq) continue;
-    const float l = fmaxf(lrow[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D.hdv) o[((long long)b * D.Sq + row) * ostride + (long long)h * D.hdv + col] =
-          from_f<T>(acc[r][c] / l);
-    }
-  }
-  for (int i = tid; i < TILE; i += NT)
-    if (q0 + i < D.Sq)
-      lse[((long long)b * D.H + h) * D.Sq + q0 + i] = mrow[i] + logf(fmaxf(lrow[i], 1e-30f));
-}
-
-// ---------------------------------------------------------------------------
-// backward: dq
-// ---------------------------------------------------------------------------
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(NT)
@@ -318,100 +550,192 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 // backward: dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                 Dims D) {
-  constexpr int W = 16 * NC, LD = W + 1;
-  const int j0 = blockIdx.x * TILE, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = D.H / D.KVH;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  extern __shared__ float sm[];
-  float* Ks = sm;                 // TILE x LD, this CTA's kv rows
-  float* Vs = Ks + TILE * LD;
-  float* Qs = Vs + TILE * LD;     // one query tile
-  float* Os = Qs + TILE * LD;     // its do
-  float* PT = Os + TILE * LD;     // p^T, TILE (kv) x LDS (q)
-  float* DT = PT + TILE * LDS;    // ds^T
-  float* Ls = DT + TILE * LDS;
-  float* Dl = Ls + TILE;
+// One CTA of 2 x a.rows threads per (a.rows kv rows, `a.heads` query heads
+// of a kv head's group, batch): CTA x = ((kv tile * B + b) * KVH + kvh) *
+// parts + rank, so kv tile 0 (the longest causal walk) starts first.  Rank
+// r walks heads [r * heads, min(G, (r + 1) * heads)), each from the
+// diagonal query tile on; its warps each own 16 kv rows and compute all
+// four products for them: s = K q^T -> p, dv += p^T do, dp = V do^T -> ds,
+// dk += ds^T q, p and then ds passing through the warp's own rows of one
+// shared tile (no barrier but the ring's).  Each head's dk/dv is rounded
+// to T and the heads are summed in g order in f32: a rank's heads into
+// its partial (ws, dk's layout, then dv's), the ranks' partials by
+// flash_dkv_sum_kernel.  With G = 1 the CTA writes dk/dv itself.
+template <typename T, int NCV>
+__global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
+  constexpr int W = 32 * NCV, LD = W + 4;
+  const int BK = a.rows, nthr = blockDim.x;
+  const int cs = a.parts, G = a.H / a.KVH;
+  const int lin = blockIdx.x, per = a.B * a.KVH * cs;
+  const int j0 = lin / per * BK, rank = lin % cs;
+  const int kvh = (lin / cs) % a.KVH, b = (lin / (cs * a.KVH)) % a.B;
+  const int g0 = rank * a.heads, g1 = min(G, g0 + a.heads);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int r0 = warp * 16 + ly;  // the lane's kv rows: r0 + 4i
+  extern __shared__ __align__(16) float sm[];
+  float* Ks = sm;                  // BK x LD, this CTA's kv rows
+  float* Vs = Ks + BK * LD;
+  float* Ps = Vs + BK * LD;        // p^T, then ds^T: BK (kv) x LDP (q)
+  float* ring = Ps + BK * LDP;     // stages x (q, do: KT x LD; lse, delta: KT)
+  const int slot = 2 * KT * LD + 2 * KT;
 
-  const long long qstride = (long long)D.H * D.hd, ostride = (long long)D.H * D.hdv;
-  const long long kstride = (long long)D.KVH * D.hd, vstride = (long long)D.KVH * D.hdv;
-  const T* kb = k + (long long)b * D.Skv * kstride + (long long)kvh * D.hd;
-  const T* vb = v + (long long)b * D.Skv * vstride + (long long)kvh * D.hdv;
-  load_rows(Ks, LD, W, kb, kstride, j0, D.Skv, D.hd);
-  load_rows(Vs, LD, W, vb, vstride, j0, D.Skv, D.hdv);
-
-  float dk_sum[RT][NC], dv_sum[RT][NC];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_sum[r][c] = dv_sum[r][c] = 0.f;
-
+  const T* qg = static_cast<const T*>(a.q);
+  const T* og = static_cast<const T*>(a.dout);
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const T* kb = static_cast<const T*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const T* vb = static_cast<const T*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
   // causal: query tiles wholly above this kv tile see none of it
-  const int q_begin = D.causal ? j0 : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const T* qb = q + (long long)b * D.Sq * qstride + (long long)h * D.hd;
-    const T* ob = dout + (long long)b * D.Sq * ostride + (long long)h * D.hdv;
-    const long long srow = ((long long)b * D.H + h) * D.Sq;
-    float dk_h[RT][NC], dv_h[RT][NC];
+  const int q_begin = a.causal ? j0 : 0;
+  const int nqt = q_begin < a.Sq ? cdiv_c(a.Sq - q_begin, KT) : 0;
+  const int n = (g1 - g0) * nqt, stages = a.stages;
+  auto load = [&](int t) {
+    float* st = ring + (t % stages) * slot;
+    const int h = kvh * G + g0 + t / nqt, i0 = q_begin + (t % nqt) * KT;
+    const long long srow = ((long long)b * a.H + h) * a.Sq;
+    copy_rows<T, W>(st, qg + (long long)b * a.Sq * qstride + (long long)h * a.hd, qstride, i0, KT,
+                    a.Sq, a.hd, a.vec_q, tid, nthr);
+    copy_rows<T, W>(st + KT * LD, og + (long long)b * a.Sq * ostride + (long long)h * a.hdv,
+                    ostride, i0, KT, a.Sq, a.hdv, a.vec_o, tid, nthr);
+    copy_vec(st + 2 * KT * LD, a.lse_in + srow, i0, a.Sq, tid, nthr);
+    copy_vec(st + 2 * KT * LD + KT, a.delta + srow, i0, a.Sq, tid, nthr);
+  };
+  if (n > 0) {
+    copy_rows<T, W>(Ks, kb, kstride, j0, BK, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_rows<T, W>(Vs, vb, vstride, j0, BK, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  }
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
+
+  // where this CTA's part goes: the partial of its rank, or dk/dv (G = 1)
+  const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
+  const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
+  const long long kbase = (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const long long vbase = (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  float* wk = a.ws ? a.ws + rank * ndk + kbase : nullptr;
+  float* wv = a.ws ? a.ws + cs * ndk + rank * ndv + vbase : nullptr;
+  // adds round_to<T>(acc) into (first: sets) the rank's f32 partial
+  auto add_part = [&](float* w, const float (&acc)[4][4 * NCV], long long stride, int d,
+                      bool first) {
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+    for (int i = 0; i < 4; ++i) {
+      const int row = j0 + r0 + 4 * i;
+      if (row >= a.Skv) continue;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) dk_h[r][c] = dv_h[r][c] = 0.f;
-    for (int i0 = q_begin; i0 < D.Sq; i0 += TILE) {
-      __syncthreads();
-      load_rows(Qs, LD, W, qb, qstride, i0, D.Sq, D.hd);
-      load_rows(Os, LD, W, ob, ostride, i0, D.Sq, D.hdv);
-      load_vec(Ls, lse + srow, i0, D.Sq);
-      load_vec(Dl, delta + srow, i0, D.Sq);
-      __syncthreads();
-      // the transposed tiles: rows are this CTA's kv rows, columns queries
-      float s[RT][SC], dp[RT][SC];
-      dot_rows(s, Ks, Qs, LD, D.hd, ty, tx);
-      dot_rows(dp, Vs, Os, LD, D.hdv, ty, tx);
+      for (int c = 0; c < NCV; ++c)
 #pragma unroll
-      for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int c = 0; c < SC; ++c) {
-          const int kr = ty * RT + r, qc = tx + 16 * c;
-          const int col = j0 + kr, row = i0 + qc;
-          const bool live = col < D.Skv && row < D.Sq && (!D.causal || col <= row);
-          const float p = live ? expf(s[r][c] * D.scale - Ls[qc]) : 0.f;
-          PT[kr * LDS + qc] = p;
-          DT[kr * LDS + qc] = round_to<T>(p * (dp[r][c] - Dl[qc]) * D.scale);
+        for (int e = 0; e < 4; ++e) {
+          const int col = 32 * c + 4 * lx + e;
+          if (col < d) {
+            float* x = w + row * stride + col;
+            *x = (first ? 0.f : *x) + round_to<T>(acc[i][4 * c + e]);
+          }
         }
-      __syncthreads();
-      mma_rows<NC>(dv_h, PT, LDS, Os, LD, ty, tx);
-      mma_rows<NC>(dk_h, DT, LDS, Qs, LD, ty, tx);
     }
+  };
+
+  float dk[4][4 * NCV], dv[4][4 * NCV];
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        dk_sum[r][c] += round_to<T>(dk_h[r][c]);
-        dv_sum[r][c] += round_to<T>(dv_h[r][c]);
+    for (int c = 0; c < 4 * NCV; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const int hd4 = (a.hd + 3) & ~3, hdv4 = (a.hdv + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  for (int t = 0; t < n; ++t) {
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const float* Qt = ring + (t % stages) * slot;
+    const float* Ot = Qt + KT * LD;
+    const float* Lt = Ot + KT * LD;
+    const float* Dl = Lt + KT;
+    const int i0 = q_begin + (t % nqt) * KT, kw = j0 + warp * 16;
+    // causal: a warp whose kv rows all follow the tile's last query row
+    // has nothing live in it (128-row CTAs: half the warps on tile 0)
+    if (!(a.causal && kw > i0 + KT - 1)) {
+      const bool edge = (a.causal && kw + 15 > i0) || i0 + KT > a.Sq || kw + 16 > a.Skv;
+      float x[4][8];
+      nt_product(x, Ks + r0 * LD, Qt + lx * LD, LD, hd4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p = exp2_ftz(fmaf(x[i][j], sl2, -Lt[lx + 8 * j] * LOG2E));
+          if (edge) {
+            const int kr = j0 + r0 + 4 * i, qc = i0 + lx + 8 * j;
+            if (!(qc < a.Sq && kr < a.Skv && (!a.causal || kr <= qc))) p = 0.f;
+          }
+          Ps[(r0 + 4 * i) * LDP + lx + 8 * j] = p;
+        }
+      __syncwarp();  // a kv row's p comes from the 8 lanes of its own warp
+      nn_product<NCV>(dv, Ps + r0 * LDP, LDP, Ot + 4 * lx, LD);
+      nt_product(x, Vs + r0 * LD, Ot + lx * LD, LD, hdv4);
+      __syncwarp();  // every lane is past p^T before ds^T replaces it
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float* e = Ps + (r0 + 4 * i) * LDP + lx + 8 * j;
+          *e = round_to<T>(*e * (x[i][j] - Dl[lx + 8 * j]) * a.scale);
+        }
+      __syncwarp();
+      nn_product<NCV>(dk, Ps + r0 * LDP, LDP, Qt + 4 * lx, LD);
+    }
+    if (g1 - g0 > 1 && t % nqt == nqt - 1) {  // a head done: into the partial
+      add_part(wk, dk, kstride, a.hd, t < nqt);
+      add_part(wv, dv, vstride, a.hdv, t < nqt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * NCV; ++c) dk[i][c] = dv[i][c] = 0.f;
+    }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
+  }
+  if (g1 - g0 > 1 && n > 0) return;  // the partial holds the rank's heads
+  if (wk) {
+    add_part(wk, dk, kstride, a.hd, true);
+    add_part(wv, dv, vstride, a.hdv, true);
+    return;
+  }
+  T* dkg = static_cast<T*>(a.o1) + kbase;
+  T* dvg = static_cast<T*>(a.o2) + vbase;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = j0 + r0 + 4 * i;
+    if (row >= a.Skv) continue;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < a.hd) dkg[row * kstride + col] = from_f<T>(dk[i][4 * c + e]);
+        if (col < a.hdv) dvg[row * vstride + col] = from_f<T>(dv[i][4 * c + e]);
       }
   }
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int row = j0 + ty * RT + r;
-    if (row >= D.Skv) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D.hd)
-        dk[((long long)b * D.Skv + row) * kstride + (long long)kvh * D.hd + col] =
-            from_f<T>(dk_sum[r][c]);
-      if (col < D.hdv)
-        dv[((long long)b * D.Skv + row) * vstride + (long long)kvh * D.hdv + col] =
-            from_f<T>(dv_sum[r][c]);
-    }
-  }
+}
+
+// dk, dv = the `parts` partials of ws summed in rank order
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_dkv_sum_kernel(const float* __restrict__ ws, T* __restrict__ dk, T* __restrict__ dv,
+                     long long ndk, long long ndv, int parts) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ndk + ndv) return;
+  const bool is_k = i < ndk;
+  const long long j = is_k ? i : i - ndk, nn = is_k ? ndk : ndv;
+  const float* w = ws + (is_k ? 0 : parts * ndk) + j;
+  float s = 0.f;
+  for (int r = 0; r < parts; ++r) s += w[r * nn];
+  (is_k ? dk : dv)[j] = from_f<T>(s);
 }
 
 // ---------------------------------------------------------------------------
@@ -425,88 +749,125 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// which kernel: 0 = fwd, 1 = dq, 2 = dkv
-template <typename T, int NC>
-int launch(int which, const void* q, const void* k, const void* v, const void* x,
-           const float* lse, const float* delta, void* o1, void* o2, float* lse_out, int B,
-           const Dims& D, cudaStream_t stream) {
-  constexpr int LD = 16 * NC + 1;
-  const size_t tile = sizeof(float) * TILE * LD, stile = sizeof(float) * TILE * LDS;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <typename T, int NCV>
+int launch_fwd(const Args& a, cudaStream_t st) {
+  const int smem = fwd_smem(32 * NCV, a.stages);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if (which == 0) {
-    const size_t smem = 3 * tile + stile + 3 * TILE * sizeof(float);
-    if ((e = set_smem(flash_fwd_kernel<T, NC>, smem)) != cudaSuccess) return (int)e;
-    dim3 grid(cdiv(D.Sq, TILE), D.H, B);
-    flash_fwd_kernel<T, NC><<<grid, NT, smem, stream>>>(qt, kt, vt, static_cast<T*>(o1),
-                                                        lse_out, D);
-  } else if (which == 1) {
-    const size_t smem = 4 * tile + stile + 2 * TILE * sizeof(float);
-    if ((e = set_smem(flash_dq_kernel<T, NC>, smem)) != cudaSuccess) return (int)e;
-    dim3 grid(cdiv(D.Sq, TILE), D.H, B);
-    flash_dq_kernel<T, NC><<<grid, NT, smem, stream>>>(
-        qt, kt, vt, static_cast<const T*>(x), lse, delta, static_cast<T*>(o1), D);
-  } else {
-    const size_t smem = 4 * tile + 2 * stile + 2 * TILE * sizeof(float);
-    if ((e = set_smem(flash_dkv_kernel<T, NC>, smem)) != cudaSuccess) return (int)e;
-    dim3 grid(cdiv(D.Skv, TILE), D.KVH, B);
-    flash_dkv_kernel<T, NC><<<grid, NT, smem, stream>>>(
-        qt, kt, vt, static_cast<const T*>(x), lse, delta, static_cast<T*>(o1),
-        static_cast<T*>(o2), D);
-  }
+  if ((e = set_smem(flash_fwd_kernel<T, NCV>, smem)) != cudaSuccess) return (int)e;
+  const long long grid = (long long)cdiv(a.Sq, 64) * a.H * a.B;
+  flash_fwd_kernel<T, NCV><<<(unsigned)grid, FWD_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int which, int dtype, const void* q, const void* k, const void* v, const void* x,
-             const float* lse, const float* delta, void* o1, void* o2, float* lse_out, int B,
-             int Sq, int Skv, int H, int KVH, int hd, int hdv, int causal, float scale,
-             void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 || hd <= 0 || hdv <= 0 ||
-      B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Dims D{Sq, Skv, H, KVH, hd, hdv, causal, scale};
-  const int width = hd > hdv ? hd : hdv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (width <= 64) {
-    if (dtype == 0)
-      return launch<float, 4>(which, q, k, v, x, lse, delta, o1, o2, lse_out, B, D, st);
-    if (dtype == 1)
-      return launch<bf16, 4>(which, q, k, v, x, lse, delta, o1, o2, lse_out, B, D, st);
-  } else if (width <= 128) {
-    if (dtype == 0)
-      return launch<float, 8>(which, q, k, v, x, lse, delta, o1, o2, lse_out, B, D, st);
-    if (dtype == 1)
-      return launch<bf16, 8>(which, q, k, v, x, lse, delta, o1, o2, lse_out, B, D, st);
-  }
-  return (int)cudaErrorInvalidValue;
+template <typename T, int NCV>
+int launch_dkv(const Args& a, cudaStream_t st) {
+  const int smem = dkv_smem(a.rows, 32 * NCV, a.stages);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = set_smem(flash_dkv_kernel<T, NCV>, smem)) != cudaSuccess) return (int)e;
+  const long long grid = (long long)cdiv(a.Skv, a.rows) * a.B * a.KVH * a.parts;
+  flash_dkv_kernel<T, NCV><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess || !a.ws) return (int)e;
+  const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
+  const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
+  flash_dkv_sum_kernel<T><<<(unsigned)((ndk + ndv + 255) / 256), 256, 0, st>>>(
+      a.ws, static_cast<T*>(a.o1), static_cast<T*>(a.o2), ndk, ndv, a.parts);
+  return (int)cudaGetLastError();
+}
+
+// dq: the first design's launch
+template <typename T, int NC>
+int launch_dq(const void* q, const void* k, const void* v, const void* x, const float* lse,
+              const float* delta, void* o1, int B, const Dims& D, cudaStream_t stream) {
+  constexpr int LD = 16 * NC + 1;
+  const size_t tile = sizeof(float) * TILE * LD, stile = sizeof(float) * TILE * LDS;
+  const size_t smem = 4 * tile + stile + 2 * TILE * sizeof(float);
+  cudaError_t e;
+  if ((e = set_smem(flash_dq_kernel<T, NC>, smem)) != cudaSuccess) return (int)e;
+  dim3 grid(cdiv(D.Sq, TILE), D.H, B);
+  flash_dq_kernel<T, NC><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(x), lse, delta, static_cast<T*>(o1), D);
+  return (int)cudaGetLastError();
+}
+
+bool valid(int B, int Sq, int Skv, int H, int KVH, int hd, int hdv) {
+  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && hd > 0 && hdv > 0 &&
+         hd <= 128 && hdv <= 128 && B <= 65535 && H <= 65535;
+}
+
+// the forward's and dk/dv's Args from a launch's arguments; false where
+// the plan is not one the kernels take
+bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int hd, int hdv,
+               int causal, float scale, int rows, int stages) {
+  if (!valid(B, Sq, Skv, H, KVH, hd, hdv) || dtype < 0 || dtype > 1) return false;
+  if (stages < 1 || stages > 2 || (rows != 64 && rows != 128)) return false;
+  a.B = B, a.Sq = Sq, a.Skv = Skv, a.H = H, a.KVH = KVH, a.hd = hd, a.hdv = hdv;
+  a.causal = causal, a.scale = scale;
+  a.rows = rows, a.stages = stages;
+  const bool f32 = dtype == 0;
+  a.vec_q = f32 && hd % 4 == 0 && aligned16(a.q);
+  a.vec_k = f32 && hd % 4 == 0 && aligned16(a.k);
+  a.vec_v = f32 && hdv % 4 == 0 && aligned16(a.v);
+  a.vec_o = f32 && hdv % 4 == 0 && aligned16(a.dout);
+  return true;
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, do, dq, dk, dv
-// alike; lse and delta are f32).  Each returns the cudaError_t of its
-// launch (0 on success).
+// alike; lse and delta are f32).  The plan's arguments (stages, rows,
+// heads, parts, ws) are kernels/flash_attn.py::_flash_plan's.  Each
+// returns the cudaError_t of its launch (0 on success).
 extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* o,
                                 float* lse, int B, int Sq, int Skv, int H, int KVH, int hd,
-                                int hdv, int causal, float scale, void* stream) {
-  return dispatch(0, dtype, q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse, B, Sq, Skv, H,
-                  KVH, hd, hdv, causal, scale, stream);
+                                int hdv, int causal, float scale, int stages, void* stream) {
+  Args a = {};
+  a.q = q, a.k = k, a.v = v, a.o1 = o, a.lse_out = lse;
+  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, 64, stages))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = (hd > hdv ? hd : hdv) > 64;
+  if (dtype == 0) return wide ? launch_fwd<float, 4>(a, st) : launch_fwd<float, 2>(a, st);
+  return wide ? launch_fwd<bf16, 4>(a, st) : launch_fwd<bf16, 2>(a, st);
 }
 
 extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const float* lse, const float* delta, void* dq,
                                int B, int Sq, int Skv, int H, int KVH, int hd, int hdv,
                                int causal, float scale, void* stream) {
-  return dispatch(1, dtype, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Sq, Skv, H, KVH,
-                  hd, hdv, causal, scale, stream);
+  if (!valid(B, Sq, Skv, H, KVH, hd, hdv)) return (int)cudaErrorInvalidValue;
+  const Dims D{Sq, Skv, H, KVH, hd, hdv, causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = (hd > hdv ? hd : hdv) > 64;
+  if (dtype == 0)
+    return wide ? launch_dq<float, 8>(q, k, v, dout, lse, delta, dq, B, D, st)
+                : launch_dq<float, 4>(q, k, v, dout, lse, delta, dq, B, D, st);
+  if (dtype == 1)
+    return wide ? launch_dq<bf16, 8>(q, k, v, dout, lse, delta, dq, B, D, st)
+                : launch_dq<bf16, 4>(q, k, v, dout, lse, delta, dq, B, D, st);
+  return (int)cudaErrorInvalidValue;
 }
 
+// ws: `parts` f32 partials of dk then of dv (parts x B x Skv x KVH x (hd
+// + hd_v) floats), required where G > 1, null where G = 1.
 extern "C" int flash_dkv_launch(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* delta, void* dk,
                                 void* dv, int B, int Sq, int Skv, int H, int KVH, int hd,
-                                int hdv, int causal, float scale, void* stream) {
-  return dispatch(2, dtype, q, k, v, dout, lse, delta, dk, dv, nullptr, B, Sq, Skv, H, KVH, hd,
-                  hdv, causal, scale, stream);
+                                int hdv, int causal, float scale, int rows, int stages,
+                                int heads, int parts, float* ws, void* stream) {
+  Args a = {};
+  a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta;
+  a.o1 = dk, a.o2 = dv, a.ws = ws;
+  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, stages) ||
+      heads < 1 || parts != cdiv(H / KVH, heads) || (H / KVH > 1) != (ws != nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.heads = heads, a.parts = parts;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = (hd > hdv ? hd : hdv) > 64;
+  if (dtype == 0) return wide ? launch_dkv<float, 4>(a, st) : launch_dkv<float, 2>(a, st);
+  return wide ? launch_dkv<bf16, 4>(a, st) : launch_dkv<bf16, 2>(a, st);
 }

@@ -10,6 +10,12 @@ returned no error in its ``.launches`` (an empty problem launches nothing
 and counts nothing).  The kernels take any Sq/Skv and mask the ragged
 edges themselves.
 
+:func:`_flash_plan` decides how the forward and dk/dv kernels run a call
+(ring stages, the kv rows of a dk/dv CTA and the query heads it walks,
+so the partials a kv head's group is summed from); both kernels issue their
+heaviest causal tiles first, in the order :func:`_fwd_ctas` and
+:func:`_dkv_ctas` spell out.
+
 ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` are the
 plain PyTorch versions, used for CPU tensors and as what the kernels are
 held against on the card.  They follow the reference's arithmetic block for block: operands padded to
@@ -29,7 +35,8 @@ H must be a multiple of KVH; a causal mask compares absolute positions
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -247,14 +254,124 @@ def _check_stats(lse, delta, B, H, Sq):
                              f"{(B, H, Sq)}, got {t.dtype} {tuple(t.shape)}")
 
 
+class FlashPlan(NamedTuple):
+    """How ``csrc/flash_attn.cu`` runs one forward and one dk/dv call (dq
+    keeps its fixed grid of 64 x 64 tiles)."""
+    fwd_stages: int  # K/V tiles in the forward's cp.async ring
+    dkv_rows: int    # kv rows of a dk/dv CTA, 64 or 128 (2 x rows threads)
+    dkv_stages: int  # q / do / lse / delta tiles in dk/dv's ring
+    heads: int       # query heads a dk/dv CTA walks, in g order
+    parts: int       # dk/dv CTAs of one kv head's group: ceil(G / heads),
+    #                  whose f32 partials a second kernel sums (G > 1)
+
+
+_TILE = 64                # rows of a forward CTA and of each ring tile
+_MAX_SMEM = 232448        # shared memory a CTA may have on the H100
+_SM_SMEM = 233472         # shared memory of an SM (228 KB; 1 KB a CTA is
+#                           the runtime's)
+_FWD_CTAS = {64: 3, 128: 1}  # forward CTAs an SM by W: its launch bounds
+_MAX_PARTS = 8            # partials a kv head's group is summed from
+
+
+def _width(hd: int, hd_v: int) -> int:
+    """W: the kernels' output-tile width, max(hd, hd_v) rounded up to 64
+    or 128."""
+    return 64 if max(hd, hd_v) <= 64 else 128
+
+
+def _fwd_smem(W: int, stages: int) -> int:
+    """Shared bytes of a forward CTA: q, p, and K/V tiles a stage (rows
+    W + 4 floats apart, p's 72) — ``fwd_smem`` of the source."""
+    return 4 * (_TILE * (W + 4) + stages * 2 * _TILE * (W + 4) + _TILE * 72)
+
+
+def _dkv_smem(rows: int, W: int, stages: int) -> int:
+    """Shared bytes of a dk/dv CTA of ``rows`` kv rows: K, V, p^T / ds^T,
+    and q, do, lse, delta a stage — ``dkv_smem`` of the source."""
+    return 4 * (2 * rows * (W + 4) + rows * 72 +
+                stages * (2 * _TILE * (W + 4) + 2 * _TILE))
+
+
+@functools.lru_cache(maxsize=1024)
+def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
+                fwd_stages: Optional[int] = None,
+                dkv_rows: Optional[int] = None,
+                dkv_stages: Optional[int] = None,
+                heads: Optional[int] = None) -> FlashPlan:
+    """The forward's and dk/dv's plan for one call.
+
+    A forward CTA holds 64 query rows (4 warps); its ring takes the most
+    stages (up to 2) that keep the most CTAs an SM its registers allow:
+    at W = 64 one stage and three CTAs (two stages would leave two), at W
+    = 128 two.  A dk/dv CTA holds 128 kv rows (8 warps) where that fits
+    two ring stages, else 64, and takes 2 stages where they fit, else 1.
+    It walks ceil(G / 8) query heads, so a kv head's group is summed from
+    at most 8 partials.  ``fwd_stages``, ``dkv_rows``, ``dkv_stages`` (1
+    or 2) and ``heads`` override the rules (``launch/bench_flash.py``
+    times the choices).  Raises where the kernels do not take the plan."""
+    if max(hd, hd_v) > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels hold hd, hd_v <= "
+                         f"{MAX_HEAD_DIM}, got {hd} / {hd_v}")
+    W, G = _width(hd, hd_v), H // KVH
+    dkv_rows = dkv_rows or (128 if _dkv_smem(128, W, 2) <= _MAX_SMEM
+                            else 64)
+    if dkv_rows not in (64, 128):
+        raise ValueError(f"a dk/dv CTA holds 64 or 128 kv rows, not "
+                         f"{dkv_rows}")
+
+    def ring(smem, stages) -> int:
+        if stages is None:
+            return 2 if smem(2) <= _MAX_SMEM else 1
+        if stages not in (1, 2) or smem(stages) > _MAX_SMEM:
+            raise ValueError(f"{stages} ring stages do not fit at width {W}")
+        return stages
+
+    if fwd_stages is None:       # the most CTAs an SM, then the most stages
+        fwd_stages = max((1, 2), key=lambda n: (min(
+            _FWD_CTAS[W], _SM_SMEM // (_fwd_smem(W, n) + 1024)), n))
+
+    heads = heads or -(-G // _MAX_PARTS)
+    if not 1 <= heads <= G:
+        raise ValueError(f"a dk/dv CTA walks 1 to G = {G} heads, not {heads}")
+    return FlashPlan(ring(lambda n: _fwd_smem(W, n), fwd_stages), dkv_rows,
+                     ring(lambda n: _dkv_smem(dkv_rows, W, n), dkv_stages),
+                     heads, -(-G // heads))
+
+
+def _fwd_ctas(B: int, Sq: int, H: int) -> List[Tuple[int, int, int]]:
+    """(query tile, head, batch) of each forward CTA in launch order, as
+    the kernel decodes ``blockIdx.x``: the last (causally heaviest) tile of
+    every head first."""
+    nqt, HB = -(-Sq // _TILE), H * B
+    return [(nqt - 1 - lin // HB, lin % H, (lin // H) % B)
+            for lin in range(nqt * HB)]
+
+
+def _dkv_ctas(plan: FlashPlan, B: int, Skv: int, KVH: int,
+              G: int) -> List[Tuple[int, int, int, range]]:
+    """(kv tile, kv head, batch, query heads g) of each dk/dv CTA in launch
+    order, as the kernel decodes ``blockIdx.x``: kv tile 0 (the longest
+    causal walk) first, the ``parts`` CTAs of a group side by side."""
+    cs, per = plan.parts, B * KVH * plan.parts
+    out = []
+    for lin in range(-(-Skv // plan.dkv_rows) * per):
+        rank = lin % cs
+        out.append((lin // per, (lin // cs) % KVH, (lin // (cs * KVH)) % B,
+                    range(rank * plan.heads, min(G, (rank + 1) * plan.heads))))
+    return out
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float):
-    """(o, lse) through the CUDA forward kernel."""
+def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float,
+                   plan: Optional[FlashPlan] = None):
+    """(o, lse) through the CUDA forward kernel, under :func:`_flash_plan`'s
+    plan unless ``plan`` gives another (to time it)."""
     from repro_torch.kernels import _build
     B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v)
+    plan = plan or _flash_plan(H, KVH, hd, hd_v)
     o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B * Sq * H == 0:
@@ -264,7 +381,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float):
     err = _build.library("flash_attn").flash_fwd_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, KVH, hd, hd_v,
-        int(causal), scale, _stream(q))
+        int(causal), scale, plan.fwd_stages, _stream(q))
     _build.check(err, "flash attention forward")
     flash_fwd_cuda.launches += 1
     return o, lse
@@ -298,11 +415,16 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
 flash_dq_cuda.launches = 0
 
 
-def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
+def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                   plan: Optional[FlashPlan] = None):
     """(dk (B, Skv, KVH, hd), dv (B, Skv, KVH, hd_v)) through the CUDA
-    dk/dv kernel, which sums each kv head's G query heads itself."""
+    dk/dv kernel, which sums each kv head's G query heads itself, under
+    :func:`_flash_plan`'s plan unless ``plan`` gives another.  Where G >
+    1 a second kernel sums the group's partials from an f32 scratch: one
+    call, one count."""
     from repro_torch.kernels import _build
     B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v, do, lse, delta)
+    plan = plan or _flash_plan(H, KVH, hd, hd_v)
     if do.shape != (B, Sq, H, hd_v) or do.dtype != q.dtype:
         raise ValueError(f"do must be {(B, Sq, H, hd_v)} {q.dtype}, got "
                          f"{tuple(do.shape)} {do.dtype}")
@@ -312,11 +434,15 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
         return dk, dv
     if Sq == 0:
         return dk.zero_(), dv.zero_()
+    ws = torch.empty(plan.parts * B * Skv * KVH * (hd + hd_v),
+                     dtype=torch.float32, device=q.device) \
+        if H > KVH else None
     err = _build.library("flash_attn").flash_dkv_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, Sq, Skv, H, KVH, hd, hd_v, int(causal), scale,
-        _stream(q))
+        plan.dkv_rows, plan.dkv_stages, plan.heads, plan.parts,
+        None if ws is None else ws.data_ptr(), _stream(q))
     _build.check(err, "flash attention dk/dv")
     flash_dkv_cuda.launches += 1
     return dk, dv

@@ -368,6 +368,20 @@ FLASH_CASES = [
     (1, 64, 64, 8, 2, 128, 128, True, 64, 64),
     (1, 64, 256, 4, 2, 64, 64, True, 64, 64),      # kv past every query
     (2, 100, 100, 32, 8, 64, 64, True, 512, 512),
+    # the redesigned kernels' cases: G 1 / 4 / 8 / 12 (12: two heads a
+    # dk/dv CTA), hd / hd_v 32/48, 64/64, 128/128, 100/50 (rows whose width
+    # is not a multiple of 4 take 4-byte copies), lengths 1, 63, 65, 129
+    # and 1000, Sq < Skv causal, Sq > Skv bidirectional, phase 7's heads
+    (1, 1, 1, 4, 4, 64, 64, True, 64, 64),
+    (1, 63, 63, 8, 1, 64, 64, True, 64, 64),
+    (1, 65, 65, 12, 1, 128, 128, True, 64, 64),
+    (2, 129, 129, 24, 2, 100, 50, True, 64, 64),
+    (1, 129, 129, 8, 2, 32, 48, True, 64, 64),
+    (1, 1000, 1000, 8, 2, 64, 64, True, 512, 512),
+    (1, 100, 300, 8, 1, 32, 48, True, 64, 64),     # kv past every query
+    (1, 300, 100, 4, 1, 64, 64, False, 64, 64),    # Sq > Skv
+    (1, 65, 129, 12, 1, 100, 50, False, 64, 64),
+    (2, 1024, 1024, 32, 8, 64, 64, True, 512, 512),
 ]
 
 
@@ -407,8 +421,91 @@ def test_flash_kernels_match_plain(cuda, case):
         assert not got[2][:, Sq:].any() and not got[3][:, Sq:].any()
 
 
-@pytest.mark.parametrize("case", FLASH_CASES[:5],
-                         ids=[str(c[:8]) for c in FLASH_CASES[:5]])
+def _flash_inputs(case, dtype, seed=0):
+    """q, k, v, do, and the plain forward's lse and delta, of a case."""
+    from repro_torch.kernels.flash_attn import flash_fwd_plain
+    B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + sum(case[:7]))
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   for shape in ((B, Sq, H, hd), (B, Skv, KVH, hd),
+                                 (B, Skv, KVH, hd_v), (B, Sq, H, hd_v)))
+    o, lse = flash_fwd_plain(q, k, v, causal=causal, scale=hd ** -0.5,
+                             bq=bq, bk=bk)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(c[:8]) for c in FLASH_CASES])
+def test_flash_kernels_are_bitwise_run_to_run(cuda, case):
+    """Two launches on the same inputs give the same bits: o and lse of
+    the forward, dk and dv of dk/dv (its group sum is ordered, no
+    atomics)."""
+    from repro_torch.kernels.flash_attn import flash_dkv_cuda, flash_fwd_cuda
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
+    kw = dict(causal=case[7], scale=case[5] ** -0.5)
+    o1, l1 = flash_fwd_cuda(q, k, v, **kw)
+    o2, l2 = flash_fwd_cuda(q, k, v, **kw)
+    dk1, dv1 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(c[:8]) for c in FLASH_CASES])
+def test_flash_plan_variants_give_the_same_bits(cuda, case):
+    """Every plan the kernels take gives the plan's bits: the forward with
+    1 or 2 ring stages (a row's tiles and their order do not change),
+    dk/dv with 64 or 128 kv rows a CTA and 1 or 2 stages, and, where the
+    plan walks one head a CTA, every head of a group in one CTA (the same
+    f32 adds of the rounded heads, in g order)."""
+    from repro_torch.kernels.flash_attn import (
+        _dkv_smem, _flash_plan, _width, flash_dkv_cuda, flash_fwd_cuda)
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case[:8]
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
+    kw = dict(causal=causal, scale=hd ** -0.5)
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    W, G = _width(hd, hd_v), H // KVH
+    want = flash_fwd_cuda(q, k, v, **kw)
+    for st in (1, 2):
+        p = _flash_plan(H, KVH, hd, hd_v, fwd_stages=st)
+        got = flash_fwd_cuda(q, k, v, plan=p, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), p
+    want = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    variants = [dict(dkv_rows=r, dkv_stages=st) for r in (64, 128)
+                for st in (1, 2) if _dkv_smem(r, W, st) <= 232448]
+    if plan.heads == 1 and G > 1:
+        variants.append(dict(heads=G))
+    for var in variants:
+        p = _flash_plan(H, KVH, hd, hd_v, **var)
+        got = flash_dkv_cuda(q, k, v, do, lse, delta, plan=p, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), p
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:-1],
+                         ids=[str(c[:8]) for c in FLASH_CASES[:-1]])
+def test_flash_dkv_bf16_matches_plain(cuda, case):
+    """The bf16 dk/dv kernel (operands widened to f32 as they land, ds and
+    each head's dk/dv rounded to bf16) against the plain version at the
+    reference's bf16 tolerance."""
+    from repro_torch.kernels.flash_attn import flash_dkv_cuda, flash_dkv_plain
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.bfloat16)
+    kw = dict(causal=case[7], scale=case[5] ** -0.5)
+    got = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    want = flash_dkv_plain(q, k, v, do, lse, delta, bq=case[8], bk=case[9],
+                           **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.allclose(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+    if case[7] and case[2] > case[1]:
+        assert not got[0][:, case[1]:].any() and \
+            not got[1][:, case[1]:].any()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:-1],
+                         ids=[str(c[:8]) for c in FLASH_CASES[:-1]])
 def test_flash_forward_bf16_matches_plain(cuda, case):
     B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
     q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda")

@@ -12,7 +12,10 @@ import torch
 
 from repro_torch.core.hw import IS, OS
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
+from repro_torch.kernels.flash_attn import (_dkv_ctas, _dkv_smem,
+                                            _flash_plan, _fwd_ctas,
+                                            _fwd_smem, _width,
+                                            flash_dkv_cuda, flash_dq_cuda,
                                             flash_fwd_cuda)
 from repro_torch.kernels.linear_attn import linear_attn_cuda, wkv_bshk_cuda
 from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
@@ -489,6 +492,139 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         flash_dq_cuda(q, k, k, q, torch.zeros(1, 4, 7), torch.zeros(1, 4, 8),
                       causal=True, scale=0.1)
     assert card.calls == []
+
+
+_FLASH_GRID = [
+    # B, Sq, Skv, H, KVH, hd, hd_v, causal
+    (2, 1024, 1024, 32, 8, 64, 64, True),      # phase 7
+    (1, 1, 1, 4, 4, 64, 64, True),
+    (1, 63, 200, 8, 1, 32, 48, True),
+    (2, 129, 65, 24, 2, 100, 50, False),
+    (1, 1000, 1000, 96, 8, 128, 128, True),    # G = 12
+    (3, 65, 129, 32, 1, 128, 64, True),        # G = 32 (MQA)
+    (1, 300, 100, 9, 1, 16, 16, False),        # G = 9: a ragged last rank
+]
+
+
+@pytest.mark.parametrize("case", _FLASH_GRID, ids=str)
+def test_flash_plan_covers_every_tile_and_head_once(case):
+    """The forward's CTAs cover every (query tile, head, batch) once, the
+    heaviest causal tile of every head first; dk/dv's cover every (kv
+    tile, kv head, batch) once with the ``parts`` CTAs of a group side by
+    side, whose ranks walk the group's G query heads in g order, kv tile
+    0 (the longest causal walk) first.  The forward's ring: one stage at
+    W = 64 (three CTAs an SM), two at W = 128; dk/dv's: 128 kv rows a CTA
+    and 2 stages where they fit; at most 8 partials a group."""
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case
+    G, W = H // KVH, _width(hd, hd_v)
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    assert plan.fwd_stages == (1 if W == 64 else 2)
+    assert 3 * (_fwd_smem(64, 1) + 1024) <= 233472 < \
+        3 * (_fwd_smem(64, 2) + 1024)
+    assert plan.dkv_rows == (128 if _dkv_smem(128, W, 2) <= 232448 else 64)
+    assert plan.dkv_stages == (
+        2 if _dkv_smem(plan.dkv_rows, W, 2) <= 232448 else 1)
+    assert plan.heads == -(-G // 8) and plan.parts == -(-G // plan.heads)
+    assert plan.parts <= 8
+    ctas = _fwd_ctas(B, Sq, H)
+    nqt = -(-Sq // 64)
+    assert sorted(ctas) == [(t, h, b) for t in range(nqt)
+                            for h in range(H) for b in range(B)]
+    assert [t for t, _, _ in ctas] == sorted((t for t, _, _ in ctas),
+                                             reverse=True)
+    for heads in sorted({plan.heads, 1, 2, G} - {0}):
+        if heads > G:
+            continue
+        for dkv_rows in (64, 128):
+            cs = -(-G // heads)
+            p = plan._replace(heads=heads, parts=cs, dkv_rows=dkv_rows)
+            ctas = _dkv_ctas(p, B, Skv, KVH, G)
+            nkt = -(-Skv // dkv_rows)
+            assert len(ctas) == nkt * B * KVH * cs
+            assert [j for j, _, _, _ in ctas] == sorted(
+                j for j, _, _, _ in ctas)
+            groups = []
+            for i in range(0, len(ctas), cs):
+                part = ctas[i:i + cs]
+                assert len({(j, kvh, b) for j, kvh, b, _ in part}) == 1
+                assert [g for _, _, _, gs in part for g in gs] == \
+                    list(range(G))
+                groups.append(part[0][:3])
+            assert sorted(groups) == [(j, kvh, b) for j in range(nkt)
+                                      for kvh in range(KVH)
+                                      for b in range(B)]
+
+
+def test_flash_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="hd, hd_v <= 128"):
+        _flash_plan(4, 2, 256, 64)
+    with pytest.raises(ValueError, match="64 or 128 kv rows"):
+        _flash_plan(4, 2, 64, 64, dkv_rows=256)
+    with pytest.raises(ValueError, match="ring stages do not fit"):
+        _flash_plan(4, 2, 128, 128, fwd_stages=3)
+    with pytest.raises(ValueError, match="ring stages do not fit"):
+        _flash_plan(4, 2, 128, 128, dkv_rows=128, dkv_stages=1)
+    with pytest.raises(ValueError, match="ring stages do not fit"):
+        _flash_plan(4, 2, 64, 64, fwd_stages=4)
+    with pytest.raises(ValueError, match="1 to G = 16 heads"):
+        _flash_plan(32, 2, 64, 64, heads=17)
+    assert _flash_plan(32, 1, 64, 64).parts == 8
+    assert _flash_plan(32, 1, 64, 64, heads=32).parts == 1
+
+
+@pytest.mark.parametrize("H,KVH,hd,stages,dkv_rows", [
+    (32, 8, 64, 2, 128), (32, 8, 128, 1, 64), (96, 8, 64, 1, 64),
+    (4, 4, 100, 2, 64), (16, 2, 32, 2, 128)])
+def test_flash_launches_carry_the_plan(card, H, KVH, hd, stages, dkv_rows):
+    """The forward's launch gets the plan's stages, dk/dv's its rows,
+    stages, heads and parts, and (G > 1) an f32 scratch of parts x (hd +
+    hd_v) floats a kv row and head for the group's partials; each call is
+    one counted launch, the summing kernel included."""
+    B, S, hd_v = 2, 70, 48
+    plan = _flash_plan(H, KVH, hd, hd_v, fwd_stages=stages,
+                       dkv_rows=dkv_rows, dkv_stages=stages)
+    q, do = torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd_v)
+    k, v = torch.zeros(B, S, KVH, hd), torch.zeros(B, S, KVH, hd_v)
+    lse = torch.zeros(B, H, S)
+    flash_fwd_cuda(q, k, v, causal=True, scale=0.1, plan=plan)
+    flash_dkv_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1, plan=plan)
+    assert card.calls == ["flash_fwd_launch", "flash_dkv_launch"]
+    assert card.args[0][15] == stages
+    assert card.args[1][18:22] == (dkv_rows, plan.dkv_stages, plan.heads,
+                                   plan.parts)
+    assert (card.args[1][22] is not None) == (H > KVH)
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dkv"],
+            counts["plain_calls"]) == (1, 1, 0)
+
+
+def test_flash_default_plan_reaches_the_launch(card):
+    """Without a plan the wrappers launch under ``_flash_plan``'s: phase
+    7's heads give the forward one ring stage (three CTAs an SM), dk/dv
+    128 kv rows a CTA, 2 stages, one head a CTA, and groups of 4 partials
+    in a scratch."""
+    q, k = torch.zeros(2, 8, 32, 64), torch.zeros(2, 8, 8, 64)
+    lse = torch.zeros(2, 32, 8)
+    flash_fwd_cuda(q, k, k, causal=True, scale=0.125)
+    flash_dkv_cuda(q, k, k, q, lse, lse, causal=True, scale=0.125)
+    assert card.args[0][15] == 1
+    assert card.args[1][18:22] == (128, 2, 1, 4) and card.args[1][22]
+
+
+def test_flash_dkv_refuses_wide_heads_before_a_launch(card):
+    """hd or hd_v past 128 raises before any launch of dk/dv or dq, and
+    counts nothing."""
+    q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
+    lse = torch.zeros(1, 4, 8)
+    for v in (torch.zeros(1, 8, 2, 160),):
+        do = torch.zeros(1, 8, 4, 160)
+        with pytest.raises(ValueError, match="hd, hd_v <= 128"):
+            flash_dkv_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
+        with pytest.raises(ValueError, match="hd, hd_v <= 128"):
+            flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert counts["flash_dkv"] == counts["flash_dq"] == 0
 
 
 def _wkv(B, S, err, card, chunk=1):
