@@ -97,8 +97,10 @@ Phases (any failure exits non-zero):
    own nets (it has no JAX), so its picks show plumbing and agreement
    with the host twin, not quality on the H100.
 
-Phase 3 also holds the two paged MLA kernels (decode over ragged lengths
-0-545, prefill of a 64-row chunk at ragged starts) and the bank GEMM (the
+Phase 3 also holds the paged MLA kernel (decode over ragged lengths
+0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
+in bf16, beside SDPA over the latents gathered beforehand; a forced split
+count run twice, bitwise; one timed lane of 4096 rows) and the bank GEMM (the
 expert banks, E = 256, and the MLA head banks, E = 128 views of W_UK /
 W_UV) against their plain versions at phase 6's shapes, and the three
 flash-attention kernels (forward, dq, dk/dv) and every training GEMM
@@ -912,25 +914,55 @@ def mla_bound_ms(rows, r, rd, io_bytes, flops):
                                  "operations")
 
 
+def mla_plan_text(plan) -> str:
+    """One line of an ``_mla_plan``: splits x units = CTAs of rows, dv."""
+    return (f"{plan['splits']} splits x {plan['units']} = "
+            f"{plan['splits'] * plan['units']} CTAs of {plan['rows']} rows, "
+            f"dv {plan['dv']}")
+
+
 def check_mla(torch, report, timer, dcfg):
     """Both MLA kernels against their plain versions at full width (8
     lanes, 128 heads, r = 512, rd = 64, pages of 16, scale 1/sqrt(192)):
     decode over ragged lengths 0-545 (a length-0 lane, page boundaries),
-    prefill of a 64-row chunk at ragged starts with an empty lane."""
+    prefill of a 64-row chunk at ragged starts with an empty lane, each
+    with its plan; in bf16 (timed, beside SDPA over the latents gathered
+    beforehand, with the SDPA backends that refuse these widths) a forced
+    split count run twice, bitwise, and one timed lane of 4096 rows."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_mla import (
-        paged_mla_attention_plain, paged_mla_prefill_attention_plain)
+        _mla_plan, paged_mla_attention_plain, paged_mla_decode_cuda,
+        paged_mla_prefill_attention_plain)
+    from repro_torch.launch.bench_mla import gathered_mla_sdpa, sdpa_backends
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     m, H, bs, S = dcfg.mla, dcfg.num_heads, 16, 8
     r, rd = m.kv_lora_rank, m.qk_rope_head_dim
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     scale = 1.0 / math.sqrt(qk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok = True
     dec_lengths = [0, 1, 15, 16, 17, 200, 400, 545]
     starts = [0, 0, 64, 100, 0, 448, 0, 10]
     chunks = [64, 10, 64, 37, 0, 64, 1, 64]
     C = 64
+
+    def yardstick(rec, sdpa):
+        """SDPA over latents gathered beforehand, with the backends that
+        take these widths; None where every backend refuses."""
+        rec["library_ms"] = None
+        rec["sdpa_backends"] = sdpa_backends(sdpa)
+        try:
+            rec["sdpa_gathered_ms"] = timer(sdpa)
+        except RuntimeError as e:
+            rec["sdpa_gathered_ms"] = None
+            log(f"  SDPA refused the MLA widths: {str(e).splitlines()[0]}")
+        refused = [b for b, v in rec["sdpa_backends"].items() if v != "ok"]
+        return (f", SDPA over latents gathered beforehand "
+                + (f"{rec['sdpa_gathered_ms']:.4f} ms"
+                   if rec["sdpa_gathered_ms"] is not None else "None")
+                + f" (refused by {', '.join(refused) or 'none'})")
+
     for dt, timed in ((torch.bfloat16, True), (torch.float32, False)):
         # bf16: p rounded to bf16 before p @ c_kv (as the TPU kernel does)
         # against the plain version's f32 p, on outputs |o| <~ 5, plus the
@@ -941,6 +973,8 @@ def check_mla(torch, report, timer, dcfg):
                                            bs, dt)
         qa = torch.randn((S, H, r), generator=gen, device="cuda").to(dt)
         qr = torch.randn((S, H, rd), generator=gen, device="cuda").to(dt)
+        plan = _mla_plan(S, H, tables.shape[1], bs, r, rd, qa.element_size(),
+                         sms)
 
         def dec():
             return ops.mla_paged_attention(qa, qr, ckv, kr, tables, lens,
@@ -957,7 +991,8 @@ def check_mla(torch, report, timer, dcfg):
         ok &= good
         rec = {"kernel": "paged_mla_decode", "dtype": str(dt).split(".")[-1],
                "lengths": dec_lengths, "max_abs_err": err, "tol": tol,
-               "empty_lane_zero": empty, "ok": good}
+               "empty_lane_zero": empty, "plan": plan._asdict(), "ok": good}
+        extra = ""
         if timed:
             rec["ms"] = timer(dec)
             rec["plain_ms"] = timer(dec_plain)
@@ -966,13 +1001,35 @@ def check_mla(torch, report, timer, dcfg):
             io = (qa.numel() + qr.numel() + out.numel()) * 2
             rec["bound_ms"], rec["bound_by"] = mla_bound_ms(rows, r, rd, io,
                                                             flops)
-            rec["library_ms"] = None
+            extra = yardstick(rec, gathered_mla_sdpa(qa, qr, ckv, kr, tables,
+                                                     lens, scale))
+            # a forced split count: the ordered merge, bitwise run to run
+            forced = _mla_plan(S, H, tables.shape[1], bs, r, rd, 2, sms,
+                               splits=3)
+            a = (qa, qr, ckv, kr, tables, lens)
+            f1 = paged_mla_decode_cuda(*a, scale=scale, plan=forced)
+            f2 = paged_mla_decode_cuda(*a, scale=scale, plan=forced)
+            torch.cuda.synchronize()
+            f_err = (f1.float() - plain.float()).abs().max().item()
+            bitwise = bool(torch.equal(f1, f2))
+            f_good = bitwise and f_err <= tol and bool((f1[0] == 0).all())
+            ok &= f_good
+            rec["forced_splits"] = {"plan": forced._asdict(),
+                                    "max_abs_err": f_err,
+                                    "run_to_run_bitwise": bitwise,
+                                    "ok": f_good}
         report["mla"].append(rec)
         log(f"  paged_mla_decode  {rec['dtype']}: max_abs_err {err:.3e} "
             f"(tol {tol:.1e}), length-0 lane {'zero' if empty else 'WRONG'}"
-            f" {'ok' if good else 'FAIL'}"
+            f" {'ok' if good else 'FAIL'}; plan {mla_plan_text(rec['plan'])}"
             + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
-               f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+               f" bound {rec['bound_ms']:.4f} ms" + extra if timed else ""))
+        if timed:
+            f = rec["forced_splits"]
+            log(f"  paged_mla_decode  bf16 forced "
+                f"{mla_plan_text(f['plan'])}: max_abs_err "
+                f"{f['max_abs_err']:.3e}, run to run bitwise "
+                f"{f['run_to_run_bitwise']} {'ok' if f['ok'] else 'FAIL'}")
 
         lengths = [a + b for a, b in zip(starts, chunks)]
         ckv, kr, tables, lens = mla_inputs(torch, gen, lengths, r, rd, bs,
@@ -980,6 +1037,8 @@ def check_mla(torch, report, timer, dcfg):
         st = torch.tensor(starts, dtype=torch.int32, device="cuda")
         qa = torch.randn((S, C, H, r), generator=gen, device="cuda").to(dt)
         qr = torch.randn((S, C, H, rd), generator=gen, device="cuda").to(dt)
+        plan = _mla_plan(S, C * H, tables.shape[1], bs, r, rd,
+                         qa.element_size(), sms)
 
         def pre():
             return ops.mla_paged_prefill_attention(qa, qr, ckv, kr, tables,
@@ -998,7 +1057,9 @@ def check_mla(torch, report, timer, dcfg):
         ok &= good
         rec = {"kernel": "paged_mla_prefill", "dtype": str(dt).split(".")[-1],
                "starts": starts, "chunks": chunks, "max_abs_err": err,
-               "tol": tol, "empty_lane_zero": empty, "ok": good}
+               "tol": tol, "empty_lane_zero": empty, "plan": plan._asdict(),
+               "ok": good}
+        extra = ""
         if timed:
             rec["ms"] = timer(pre)
             rec["plain_ms"] = timer(pre_plain)
@@ -1010,13 +1071,47 @@ def check_mla(torch, report, timer, dcfg):
             io = (qa.numel() + qr.numel() + out.numel()) * 2
             rec["bound_ms"], rec["bound_by"] = mla_bound_ms(rows, r, rd, io,
                                                             flops)
-            rec["library_ms"] = None
+            extra = yardstick(rec, gathered_mla_sdpa(qa, qr, ckv, kr, tables,
+                                                     lens, scale, st))
         report["mla"].append(rec)
         log(f"  paged_mla_prefill {rec['dtype']}: max_abs_err {err:.3e} "
             f"(tol {tol:.1e}), empty lane {'zero' if empty else 'WRONG'} "
-            f"{'ok' if good else 'FAIL'}"
+            f"{'ok' if good else 'FAIL'}; plan {mla_plan_text(rec['plan'])}"
             + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms"
-               f" bound {rec['bound_ms']:.4f} ms" if timed else ""))
+               f" bound {rec['bound_ms']:.4f} ms" + extra if timed else ""))
+
+    # one lane of 4096 rows, bf16: the split plan of a long context
+    tol = 5 * 2 * BF16_EPS
+    ckv, kr, tables, lens = mla_inputs(torch, gen, [4096], r, rd, bs,
+                                       torch.bfloat16)
+    qa = torch.randn((1, H, r), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    qr = torch.randn((1, H, rd), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    a = (qa, qr, ckv, kr, tables, lens)
+    plan = _mla_plan(1, H, tables.shape[1], bs, r, rd, 2, sms)
+    out = ops.mla_paged_attention(*a, qk_dim=qk)
+    plain = paged_mla_attention_plain(*a, scale=scale)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    good = err <= tol and math.isfinite(err)
+    ok &= good
+    bound, by = mla_bound_ms(4096, r, rd, (qa.numel() + qr.numel() +
+                                           out.numel()) * 2,
+                             2.0 * H * (r + rd + r) * 4096)
+    rec = {"kernel": "paged_mla_decode", "case": "one lane of 4096",
+           "dtype": "bfloat16", "lengths": [4096], "max_abs_err": err,
+           "tol": tol, "ok": good, "plan": plan._asdict(),
+           "case_ms": timer(lambda: ops.mla_paged_attention(*a, qk_dim=qk)),
+           "plain_ms": timer(lambda: paged_mla_attention_plain(
+               *a, scale=scale)),
+           "bound_ms": bound, "bound_by": by}
+    extra = yardstick(rec, gathered_mla_sdpa(*a, scale))
+    report["mla"].append(rec)
+    log(f"  paged_mla_decode  bf16 one lane of 4096: max_abs_err {err:.3e}"
+        f" (tol {tol:.1e}) {'ok' if good else 'FAIL'}; plan "
+        f"{mla_plan_text(rec['plan'])}  kernel {rec['case_ms']:.4f} ms "
+        f"plain {rec['plain_ms']:.4f} ms bound {bound:.4f} ms" + extra)
     return ok
 
 
@@ -1539,6 +1634,7 @@ def main_path(torch, report):
         "prefill_wall_s": engine.metrics.prefill_s,
         "sara_cache_hit_rate": s["sara_cache_hit_rate"],
         "gemm_plan": engine.gemm_plan, "plan_changes": engine.plan_changes,
+        "ran_plan_changes": engine.ran_plan_changes,
         "pool_leak_free": engine.pool.num_free == engine.pool.num_blocks}
     log(f"  served {len(done)}/16 requests in {wall:.2f} s "
         f"({engine.steps} engine steps: {prefill_steps} chunk-prefill, "
@@ -1553,8 +1649,10 @@ def main_path(torch, report):
     log(f"  ttft p50 {s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s, "
         f"decode {s['decode_tok_s']:.1f} tok/s, prefill "
         f"{s['prefill_tok_s']:.1f} tok/s, sara_cache_hit_rate "
-        f"{s['sara_cache_hit_rate']:.4f}, plan_changes {engine.plan_changes}")
-    log("  executed gemm plan:")
+        f"{s['sara_cache_hit_rate']:.4f}, plan_changes (recommendation) "
+        f"{engine.plan_changes}, ran_plan_changes (on the card) "
+        f"{engine.ran_plan_changes}")
+    log("  gemm plan (recommendation, then what the kernel ran):")
     for site, desc in engine.gemm_plan.items():
         log(f"    {site:<16} {desc}")
     if not ok:
@@ -1980,7 +2078,7 @@ def deepseek_path(torch, report, timer, dispatcher):
     log(f"  ttft p50 {s['ttft_p50_s']:.4f} s p99 {s['ttft_p99_s']:.4f} s, "
         f"decode {s['decode_tok_s']:.1f} tok/s, prefill "
         f"{s['prefill_tok_s']:.1f} tok/s")
-    log("  executed gemm plan:")
+    log("  gemm plan (recommendation, then what the kernel ran):")
     for site, desc in engine.gemm_plan.items():
         log(f"    {site:<20} {desc}")
     if not ok:
@@ -2270,7 +2368,7 @@ def rwkv_path(torch, report, timer, dispatcher):
     weights_gb = sum(t.numel() * t.element_size()
                      for t in _leaves(engine.params)) / 1e9
     plan_ok = bool(engine.gemm_plan) and all(
-        d.endswith("@kernel") for d in engine.gemm_plan.values())
+        "@kernel" in d for d in engine.gemm_plan.values())
     others = sum(n for k, n in counts.items()
                  if k not in ("rsa_gemm", "wkv_bshk", "plain_calls"))
     leak_free = engine.pool.num_free == engine.pool.num_blocks
@@ -2322,7 +2420,7 @@ def rwkv_path(torch, report, timer, dispatcher):
         f"decode {s['decode_tok_s']:.1f} tok/s, prefill "
         f"{s['prefill_tok_s']:.1f} tok/s, peak memory "
         f"{res['peak_mem_gb']:.1f} GB")
-    log("  executed gemm plan:")
+    log("  gemm plan (recommendation, then what the kernel ran):")
     for site, desc in engine.gemm_plan.items():
         log(f"    {site:<16} {desc}")
     if not ok:
@@ -2666,6 +2764,7 @@ def adaptnet_serving_path(torch, report):
     from repro_torch.core.sara import SaraDispatcher
     from repro_torch.dispatch.executor import _clamped_blocks
     from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import _launch_plan
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.launch.train_adaptnet import (save_adaptnet,
                                                    serving_gemm_shapes,
@@ -2701,9 +2800,18 @@ def adaptnet_serving_path(torch, report):
     fallback = {(r.m, r.k, r.n) for r in recs if r.source == "oracle_fallback"}
     past = {(r.m, r.k, r.n) for r in recs if max(r.m, r.k, r.n) > dim_max}
     oracle = SaraDispatcher()
-    differ = sum(r.executed() != _clamped_blocks(
-        oracle.recommend(r.m, r.k, r.n), r.m, r.k, r.n) +
-        (oracle.recommend(r.m, r.k, r.n).mode,) for r in recs)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def oracle_tile(r):
+        c = oracle.recommend(r.m, r.k, r.n)
+        return _clamped_blocks(c, r.m, r.k, r.n) + (c.mode,)
+    # recommendations unlike the oracle's, and plans the card ran unlike the
+    # one the oracle's block_k and mode would have run (llama3.2-1b has no
+    # bank: E = 1; its forward GEMMs read x row-major, bf16)
+    differ = sum(r.executed() != oracle_tile(r) for r in recs)
+    ran_differ = sum(r.ran_plan() != _launch_plan(
+        1, r.m, r.k, r.n, oracle_tile(r)[2], oracle_tile(r)[3],
+        torch.bfloat16, sms)[1] for r in recs)
     ok = (len(done) == SB_REQUESTS
           and all(len(v) == SB_GEN for v in outputs.values())
           and engine.pool.num_free == engine.pool.num_blocks
@@ -2722,7 +2830,9 @@ def adaptnet_serving_path(torch, report):
         "rec_adaptnet_sites": s["rec_adaptnet_sites"],
         "rec_oracle_sites": s["rec_oracle_sites"],
         "rec_fallback_sites": s["rec_fallback_sites"],
-        "executed_sites": len(recs), "sites_tiled_unlike_oracle": differ,
+        "executed_sites": len(recs),
+        "sites_recommended_unlike_oracle": differ,
+        "sites_ran_unlike_oracle": ran_differ,
         "source_info": disp.source_info(),
         "ttft_p50_s": s["ttft_p50_s"], "ttft_p99_s": s["ttft_p99_s"],
         "decode_tok_s": s["decode_tok_s"],
@@ -2736,12 +2846,13 @@ def adaptnet_serving_path(torch, report):
         f"rec_adaptnet_sites {s['rec_adaptnet_sites']}, rec_fallback_sites "
         f"{s['rec_fallback_sites']} (shapes past dim_max: {len(past)}), "
         f"plain_calls {counts['plain_calls']} {'ok' if ok else 'FAIL'}")
-    log(f"  B: {differ} of {len(recs)} executed sites tiled unlike the "
-        f"oracle; ttft p50 {s['ttft_p50_s']:.4f} s, decode "
+    log(f"  B: {differ} of {len(recs)} executed sites recommended unlike "
+        f"the oracle, {ran_differ} ran a plan unlike the oracle's on the "
+        f"card; ttft p50 {s['ttft_p50_s']:.4f} s, decode "
         f"{s['decode_tok_s']:.1f} tok/s (phase 4, oracle, 16 requests of "
         f"32 tokens: {main.get('ttft_p50_s', float('nan')):.4f} s, "
         f"{main.get('decode_tok_s', float('nan')):.1f} tok/s; context only)")
-    log("  executed gemm plan (adaptnet):")
+    log("  gemm plan (adaptnet; recommendation, then what the kernel ran):")
     for site, desc in engine.gemm_plan.items():
         log(f"    {site:<16} {desc}")
 
@@ -2877,7 +2988,7 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
             "launches": counts[rec["kernel"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     for rec in report["gemm"]:
         if rec.get("recommended"):
             out.append(gemm_entry(

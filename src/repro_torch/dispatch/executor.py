@@ -3,12 +3,14 @@
 ``gemm(x, w, site=...)`` is the single seam every dense GEMM in the
 model stack goes through.  It asks the active dispatcher for the (M, K, N)
 tile configuration, clamps the blocks exactly as the reference does
-(``repro/dispatch/executor.py::_clamped_blocks``, so the executed tile
-equals the reference's), records the executed configuration in the active
-``SiteRegistry`` under the current scope, and runs ``kernels/ops.rsa_gemm``
-with the blocks and residency mode (OS/WS/IS): the CUDA kernel for CUDA
-tensors, the plain PyTorch version for CPU tensors or under
-``execute="torch"``.
+(``repro/dispatch/executor.py::_clamped_blocks``, so the recommended tile
+equals the reference's), records it in the active ``SiteRegistry`` under
+the current scope, and runs the RSA GEMM with its ``block_k`` and
+residency mode (OS/WS/IS), the two inputs the function depends on: the
+CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors or
+under ``execute="torch"``.  The kernel's launch records in the same
+``SiteRecord`` the plan it ran (tile, swap, split-K, walk, block_k), so
+the registry holds both.
 
 ``w`` may be a transposed view of a row-major (N, K) matrix (the tied
 unembedding ``embed.T``); the kernel reads it in place, with no copy.
@@ -19,7 +21,8 @@ backward runs dx = dy @ w^T and dw = x^T @ dy through the same RSA GEMM,
 each with its own recommended tile, resolved in the forward (as the
 reference resolves them at trace time) and kept with the backend, so a
 backward that runs outside the ``dispatch.use`` block still follows the
-forward's policy.  The registry records the forward site only.
+forward's policy.  The registry records the forward site only; what the
+backward's two launches ran is added to its record as ``dx`` and ``dw``.
 
 Expert banks (``w`` of shape (E, K, N) against ``x`` (..., E, C, K)) are
 recommended at M = rows per bank GEMM and run as ONE bank launch of the
@@ -61,20 +64,29 @@ def _resolved_tile(policy, m: int, k: int, n: int):
 
 
 def _record(policy, site: str, M: int, K: int, N: int, backend: str):
-    """Resolve and record the (M, K, N) site; returns the executed tile."""
+    """Resolve and record the (M, K, N) site; returns the recommended tile
+    and the record (None without a registry)."""
     cfg, tile = _resolved_tile(policy, M, K, N)
+    rec = None
     if policy.registry is not None:
         src = getattr(policy.dispatcher, "source_of", None)
-        policy.registry.record(site, M, K, N, cfg, *tile, backend,
-                               src(M, K, N) if src is not None else "oracle")
-    return tile
+        rec = policy.registry.record(
+            site, M, K, N, cfg, *tile, backend,
+            src(M, K, N) if src is not None else "oracle")
+    return tile, rec
 
 
-def _run(a, b, tile, backend: str, out_dtype):
-    """One RSA GEMM on ``backend``: the CUDA kernel or its plain version."""
+def _run(a, b, tile, backend: str, out_dtype, rec=None, role: str = "fwd"):
+    """One RSA GEMM on ``backend``: the CUDA kernel or its plain version.
+    The kernel's launch records what it ran in ``rec.ran[role]``."""
     from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
-    fn = rsa_gemm_plain if backend == "torch" else rsa_gemm_cuda
-    return fn(a, b, block_k=tile[2], mode=tile[3], out_dtype=out_dtype)
+    if backend == "torch":
+        return rsa_gemm_plain(a, b, block_k=tile[2], mode=tile[3],
+                              out_dtype=out_dtype)
+    on_launch = None if rec is None else \
+        (lambda ran: rec.ran.__setitem__(role, ran))
+    return rsa_gemm_cuda(a, b, block_k=tile[2], mode=tile[3],
+                         out_dtype=out_dtype, on_launch=on_launch)
 
 
 class _Gemm2d(torch.autograd.Function):
@@ -83,25 +95,27 @@ class _Gemm2d(torch.autograd.Function):
     types as the reference's ``_pallas_gemm2d_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, x2, w, tile, dx_tile, dw_tile, backend, out_dtype):
+    def forward(ctx, x2, w, tile, dx_tile, dw_tile, backend, out_dtype, rec):
         ctx.save_for_backward(x2, w)
-        ctx.args = (dx_tile, dw_tile, backend)
-        return _run(x2, w, tile, backend, out_dtype)
+        ctx.args = (dx_tile, dw_tile, backend, rec)
+        return _run(x2, w, tile, backend, out_dtype, rec)
 
     @staticmethod
     def backward(ctx, dy):
         x2, w = ctx.saved_tensors
-        dx_tile, dw_tile, backend = ctx.args
+        dx_tile, dw_tile, backend, rec = ctx.args
         dy = dy.contiguous()
         a, b = x2, w
         if dy.dtype != x2.dtype:   # f32 output of bf16 operands
             a, b = x2.float(), w.float()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _run(dy, b.t(), dx_tile, backend, None).to(x2.dtype)
+            dx = _run(dy, b.t(), dx_tile, backend, None, rec,
+                      "dx").to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _run(a.t(), dy, dw_tile, backend, None).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+            dw = _run(a.t(), dy, dw_tile, backend, None, rec,
+                      "dw").to(w.dtype)
+        return dx, dw, None, None, None, None, None, None
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
@@ -137,7 +151,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
     if int(w.shape[0]) != K:
         raise ValueError(f"gemm shape mismatch: x {tuple(x.shape)} @ "
                          f"w {tuple(w.shape)}")
-    tile = _record(policy, site, M, K, N, exec_backend)
+    tile, rec = _record(policy, site, M, K, N, exec_backend)
     x2 = x.reshape(M, K)
     if pinned:
         out = torch.matmul(x2, w).to(out_dtype or x2.dtype)
@@ -147,9 +161,9 @@ def gemm(x: torch.Tensor, w: torch.Tensor, *, site: str = "dense",
         _, dx_tile = _resolved_tile(policy, M, N, K)
         _, dw_tile = _resolved_tile(policy, K, M, N)
         out = _Gemm2d.apply(x2, w, tile, dx_tile, dw_tile, exec_backend,
-                            out_dtype)
+                            out_dtype, rec)
     else:
-        out = _run(x2, w, tile, exec_backend, out_dtype)
+        out = _run(x2, w, tile, exec_backend, out_dtype, rec)
     return out.reshape(tuple(x.shape[:-1]) + (N,))
 
 
@@ -170,10 +184,10 @@ def _gemm_bank(x, w, site: str, policy, exec_backend: str, pinned: bool,
     lead = tuple(x.shape[:-3])
     B = math.prod(lead)
     M = B * C                                # rows per bank GEMM
-    tile = _record(policy, site, M, K, N, exec_backend)
+    tile, rec = _record(policy, site, M, K, N, exec_backend)
     xe = x.reshape(B, E, C, K).transpose(0, 1).reshape(E, M, K)
     xe = xe.contiguous()
     out = torch.matmul(xe, w).to(out_dtype or xe.dtype) if pinned else \
-        _run(xe, w, tile, exec_backend, out_dtype)              # (E, M, N)
+        _run(xe, w, tile, exec_backend, out_dtype, rec)         # (E, M, N)
     out = out.reshape(E, B, C, N).transpose(0, 1)
     return out.reshape(lead + (E, C, N))

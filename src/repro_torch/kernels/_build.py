@@ -48,10 +48,10 @@ SIGNATURES = {
                                [_I] * 3 + [_P] * 3,
     },
     "paged_mla": {
-        "paged_mla_decode_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _F, _P],
-        "paged_mla_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "paged_mla_decode_launch": [_I] + [_P] * 7 + [_I] * 7 + [_F] +
+                                   [_I] * 4 + [_P] * 3,
+        "paged_mla_prefill_launch": [_I] + [_P] * 8 + [_I] * 8 + [_F] +
+                                    [_I] * 4 + [_P] * 3,
     },
     "flash_attn": {
         "flash_fwd_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 8 +

@@ -49,11 +49,11 @@ MLA head banks are read as views of W_UK / W_UV.
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.hw import IS, OS, WS
+from repro_torch.core.hw import DATAFLOW_NAMES, IS, OS, WS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the largest block_k a call may ask for: the reference's bound, kept for
@@ -199,6 +199,44 @@ def _psum_plan(E: int, M: int, K: int, N: int, block_k: int,
     return one
 
 
+class RanPlan(NamedTuple):
+    """What one ``rsa_psum_launch`` ran, taken from its arguments: the
+    plan's tile, operand roles and split-K, the walk order over the tiles
+    and the ``block_k`` the kernel rounded at.  Under OS that is K rounded
+    up to 64, whatever block_k the caller asked for."""
+    tile: int
+    swap: bool
+    nsplit: int
+    pieces: int
+    piece: int
+    walk: int       # WS or IS: the order the CTAs take the tiles in
+    block_k: int
+
+    def describe(self) -> str:
+        split = f"{self.nsplit}" + (f" ({self.pieces}x{self.piece})"
+                                    if self.nsplit > 1 else "")
+        return (f"tile={self.tile}{' swap' if self.swap else ''} "
+                f"splits={split} bk={self.block_k} "
+                f"walk={DATAFLOW_NAMES[self.walk]}")
+
+
+def _launch_plan(E: int, M: int, K: int, N: int, block_k: int, mode: int,
+                 dtype: torch.dtype, num_sms: int, a_trans: bool = False,
+                 plan: Optional[PsumPlan] = None, walk: Optional[int] = None
+                 ) -> Tuple[PsumPlan, RanPlan]:
+    """(the plan, what the launch runs) of one GEMM: OS launches one chunk
+    over K (K rounded up to 64) in ``_OS_WALK``'s order, or ``walk``'s;
+    WS and IS launch ``block_k`` in their own order.  ``_psum_plan``'s plan
+    unless ``plan`` gives another."""
+    if mode == OS:
+        block_k, walk = _cdiv(K, 64) * 64, walk or _OS_WALK
+    else:
+        walk = mode
+    plan = plan or _psum_plan(E, M, K, N, block_k, dtype, num_sms, a_trans)
+    return plan, RanPlan(plan.tile, plan.swap, plan.nsplit, plan.pieces,
+                         plan.piece, walk, block_k)
+
+
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -232,12 +270,17 @@ def _layout(x: torch.Tensor, name: str):
 def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                   mode: int, out_dtype: Optional[torch.dtype] = None,
                   plan: Optional[PsumPlan] = None,
-                  walk: Optional[int] = None) -> torch.Tensor:
+                  walk: Optional[int] = None,
+                  on_launch: Optional[Callable[[RanPlan], None]] = None
+                  ) -> torch.Tensor:
     """Launch the CUDA RSA GEMM on PyTorch's current stream: one 2-D
     product, or one launch for a whole bank (3-D operands), in every mode
     through ``csrc/rsa_psum.cu``.  It runs ``_psum_plan``'s plan unless
     ``plan`` gives another, and OS walks the tiles in ``_OS_WALK``'s order
-    unless ``walk`` (WS or IS) gives the other (both to time them)."""
+    unless ``walk`` (WS or IS) gives the other (both to time them).  After
+    a launch that returned no error, ``on_launch`` gets the ``RanPlan``
+    the launch's arguments were taken from (the site registry records
+    it)."""
     from repro_torch.kernels import _build
     out_dtype = out_dtype or a.dtype
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
@@ -275,20 +318,16 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     key = ((E,) if bank else ()) + (M, K, N, mode)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if mode == OS:       # one chunk over the whole K: one cast of the sum
-        block_k, walk = _cdiv(K, 64) * 64, walk or _OS_WALK
-    else:
-        walk = mode
-    plan = plan or _psum_plan(E, M, K, N, block_k, a.dtype, sms,
-                              bool(a_trans))
+    plan, ran = _launch_plan(E, M, K, N, block_k, mode, a.dtype, sms,
+                             bool(a_trans), plan, walk)
     ws = torch.empty(plan.ws_elems, dtype=torch.float32,
                      device=a.device) if plan.nsplit > 1 else None
     tickets = _tickets(a.device, plan.tiles) if plan.nsplit > 1 else None
     err = _build.library("rsa_psum").rsa_psum_launch(
-        walk, _DTYPES[a.dtype], _DTYPES[out_dtype], a_trans, b_trans,
+        ran.walk, _DTYPES[a.dtype], _DTYPES[out_dtype], a_trans, b_trans,
         a.data_ptr(), lda, sa, b.data_ptr(), ldb, sb, out.data_ptr(),
-        M * N, E, M, N, K, block_k, plan.tile, int(plan.swap),
-        plan.nsplit, plan.pieces, plan.piece,
+        M * N, E, M, N, K, ran.block_k, ran.tile, int(ran.swap),
+        ran.nsplit, ran.pieces, ran.piece,
         None if ws is None else ws.data_ptr(),
         None if tickets is None else tickets.data_ptr(), stream)
     _build.check(err, f"rsa_gemm {'x'.join(map(str, key[:-1]))} "
@@ -296,6 +335,8 @@ def rsa_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     rsa_gemm_cuda.launches += 1
     rsa_gemm_cuda.launches_by_key[key] = \
         rsa_gemm_cuda.launches_by_key.get(key, 0) + 1
+    if on_launch is not None:
+        on_launch(ran)
     return out
 
 

@@ -22,8 +22,10 @@ The paged, chunked-prefill path (dense GQA, MoE/MLA):
   as in the reference.
 * Every GEMM goes through the SARA dispatch layer with this engine's
   dispatcher, execution mode and site registry; ``gemm_plan`` is read back
-  from the registry and ``plan_changes`` counts steps whose executed plan
-  differs from the previous one.
+  from the registry (each site's recommendation and, on the kernel
+  backend, the plan the card ran), ``plan_changes`` counts steps whose
+  recommendation differs from the previous one and ``ran_plan_changes``
+  steps whose plan on the card does: a real reconfiguration.
 * ``prefix_cache`` (serving/prefix_cache.py): admission maps each prompt's
   longest cached page prefix into the new table (refcounted), prefill
   streams only the suffix, a chunk that would write into a shared or
@@ -253,8 +255,8 @@ class ServingEngine:
     another; CUDA missing raises); ``submit()`` requests and drive
     ``step()`` until it returns False, or use ``run()`` for a whole
     request set.  Telemetry comes out of ``summary()`` / ``metrics`` /
-    ``dispatch_stats()`` and the executed per-site tile plan out of
-    ``gemm_plan``."""
+    ``dispatch_stats()`` and the per-site tile plan (recommended, and
+    what ran) out of ``gemm_plan``."""
 
     def __init__(self, cfg: ArchConfig, engine: EngineConfig = None,
                  params=None, dispatcher: Optional[SaraDispatcher] = None,
@@ -327,8 +329,12 @@ class ServingEngine:
         self._vtime = 0.0
         self._t0 = time.time()
         self.registry = SiteRegistry()
+        # site -> the recommendation and what the card ran (describe())
         self.gemm_plan: Dict[str, str] = {}
-        self.plan_changes = 0
+        self.plan_changes = 0            # steps whose recommendation changed
+        self.ran_plan_changes = 0        # steps whose plan on the card changed
+        self._rec_plan: Dict[str, str] = {}
+        self._ran_plan: Dict[str, object] = {}
         self.steps = 0
         self.defrag_auto = 0             # steps that ended in an auto-defrag
 
@@ -371,11 +377,18 @@ class ServingEngine:
             yield
 
     def _dispatch(self, scope: str) -> None:
-        """Adopt the executed plan of ``scope``."""
-        plan = self.registry.plan(scope)
-        if plan != self.gemm_plan:
-            self.plan_changes += 1       # a real reconfiguration
-            self.gemm_plan = plan
+        """Adopt the plan of ``scope``: count a change of recommendation
+        and, apart, a change of what the card ran."""
+        sites = self.registry.sites(scope)
+        rec = {n: r.recommendation() for n, r in sites.items()}
+        ran = {n: r.ran_plan() for n, r in sites.items()}
+        if rec != self._rec_plan:
+            self.plan_changes += 1       # another recommendation
+            self._rec_plan = rec
+        if ran != self._ran_plan:
+            self.ran_plan_changes += 1   # a real reconfiguration on the card
+            self._ran_plan = ran
+        self.gemm_plan = {n: r.describe() for n, r in sites.items()}
 
     # -- dense slot layout (recurrent families) ------------------------------
     def bucket_for(self, n: int) -> int:
@@ -824,6 +837,7 @@ class ServingEngine:
             for s, c in self.registry.sources(scope).items():
                 sources[s] = sources.get(s, 0) + c
         return {"gemm_plan_changes": self.plan_changes,
+                "gemm_ran_plan_changes": self.ran_plan_changes,
                 "gemm_sites_executed": len(self.gemm_plan),
                 "gemm_traced_scopes": len(self.registry.scopes()),
                 "gemm_kernel_sites": backends.get("kernel", 0),

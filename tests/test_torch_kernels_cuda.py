@@ -244,13 +244,15 @@ def _mla_inputs(gen, dtype, lengths, H, r, rd, bs):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 4e-2)])
-@pytest.mark.parametrize("H,r,rd,bs", [(16, 512, 64, 16), (4, 16, 8, 16),
-                                       (4, 16, 8, 4)])
+@pytest.mark.parametrize("bs", [4, 16, 64])
+@pytest.mark.parametrize("r,rd", [(16, 8), (512, 64)])
+@pytest.mark.parametrize("H", [4, 16, 128])
 def test_mla_kernels_match_plain(cuda, dtype, tol, H, r, rd, bs):
     """Both MLA kernels against their plain versions: ragged lengths with a
     length-0 lane and a page boundary, ragged prefill starts with an empty
-    lane; the full-width latent (512 + 64) and the reduced one, at pages
-    of 16 and of 4 (the CPU tests' page)."""
+    lane; the full-width latent (512 + 64) and the reduced one, 4 to 128
+    heads (a 64-row CTA spanning chunk rows, or heads of one), at pages
+    of 4 (the CPU tests'), 16 (the paths') and 64."""
     from repro_torch.kernels.paged_mla import (
         paged_mla_attention_plain, paged_mla_prefill_attention_plain)
     qk = 192
@@ -285,6 +287,108 @@ def test_mla_kernels_match_plain(cuda, dtype, tol, H, r, rd, bs):
         torch.tensor(chunks, device="cuda")[:, None]
     assert (got[3] == 0).all()
     assert (got.float() - want.float()).abs()[live].max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("r,rd", [(16, 8), (512, 64)])
+@pytest.mark.parametrize("H", [4, 128])
+def test_mla_prefill_chunks_off_page_boundaries(cuda, dtype, tol, H, r, rd):
+    """Prefill chunks of 0, 1, 10, 37 and 64 rows at starts off the page
+    boundaries (pages of 16), C = 64: at H = 4 a 64-row CTA spans 16 chunk
+    rows and masks each row at its own limit, at H = 128 it holds 64 heads
+    of one chunk row and masks only its last tile.  Every row of the chunk
+    is compared, those past a lane's length too (they attend to every live
+    column, as the reference's); the empty lane is exactly zero."""
+    from repro_torch.kernels.paged_mla import (
+        paged_mla_prefill_attention_plain, paged_mla_prefill_cuda)
+    starts, chunks, C = PREFILL_STARTS, PREFILL_CHUNKS, 64
+    ckv, kr, tables, lens = _mla_inputs(
+        cuda, dtype, [s + c for s, c in zip(starts, chunks)], H, r, rd, 16)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    S = len(starts)
+    qa = torch.randn((S, C, H, r), generator=cuda, device="cuda").to(dtype)
+    qr = torch.randn((S, C, H, rd), generator=cuda, device="cuda").to(dtype)
+    got = paged_mla_prefill_cuda(qa, qr, ckv, kr, tables, st, lens,
+                                 scale=0.07)
+    want = paged_mla_prefill_attention_plain(qa, qr, ckv, kr, tables, st,
+                                             lens, scale=0.07)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, paged_mla_prefill_cuda(qa, qr, ckv, kr, tables,
+                                                   st, lens, scale=0.07))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16, 64, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 4e-2),
+                                       (torch.float32, 1e-5)])
+def test_mla_split_decode_any_split_count_is_right_and_bitwise(
+        cuda, dtype, tol, splits):
+    """Forced split counts from 1 to a split a page column (256 pages of
+    16: lengths up to 4096, one lane inside the first split, a lane of
+    length 0): each within the tolerance, bitwise equal run to run (the
+    merge is ordered), one launch a call, the tickets left zero and the
+    empty lane exactly zero."""
+    from repro_torch.kernels.paged_mla import (_TICKETS, _mla_plan,
+                                               paged_mla_attention_plain,
+                                               paged_mla_decode_cuda)
+    H, r, rd, bs = 128, 512, 64, 16
+    lengths = [3, 1, 16, 17, 545, 2000, 0, 4096]
+    ckv, kr, tables, lens = _mla_inputs(cuda, dtype, lengths, H, r, rd, bs)
+    S = len(lengths)
+    qa = torch.randn((S, H, r), generator=cuda, device="cuda").to(dtype)
+    qr = torch.randn((S, H, rd), generator=cuda, device="cuda").to(dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = _mla_plan(S, H, tables.shape[1], bs, r, rd, qa.element_size(),
+                     sms, splits=splits)
+    assert plan.splits == splits
+    a = (qa, qr, ckv, kr, tables, lens)
+    n0 = ops.launch_counts()["paged_mla_decode"]
+    got = paged_mla_decode_cuda(*a, scale=0.07, plan=plan)
+    again = paged_mla_decode_cuda(*a, scale=0.07, plan=plan)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_mla_decode"] == n0 + 2
+    assert torch.equal(got, again)
+    assert (got[6] == 0).all()
+    want = paged_mla_attention_plain(*a, scale=0.07)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if splits > 1:
+        assert not _TICKETS[qa.device].any()
+
+
+def test_mla_kernels_refuse_before_or_at_launch(cuda):
+    """Widths past the kernel's (r > 512, rd > 64) raise before any launch;
+    a plan the kernel does not take (another accumulator width, or rows a
+    CTA its type does not run) is refused at launch and raises; neither is
+    counted."""
+    from repro_torch.kernels.paged_mla import (_mla_plan,
+                                               paged_mla_decode_cuda,
+                                               paged_mla_prefill_cuda)
+    n0 = ops.launch_counts()
+    ckv, kr, tables, lens = _mla_inputs(cuda, torch.bfloat16, [5, 40], 4,
+                                        16, 8, 16)
+    qa = torch.randn((2, 4, 16), generator=cuda, device="cuda") \
+        .to(torch.bfloat16)
+    qr = torch.randn((2, 4, 8), generator=cuda, device="cuda") \
+        .to(torch.bfloat16)
+    wide = torch.zeros((2, 4, 600), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="r <= 512"):
+        paged_mla_decode_cuda(wide, qr, torch.zeros(
+            ckv.shape[:2] + (600,), dtype=torch.bfloat16, device="cuda"), kr,
+            tables, lens, scale=0.1)
+    with pytest.raises(ValueError, match="rd <= 64"):
+        paged_mla_prefill_cuda(
+            qa[:, None], torch.zeros((2, 1, 4, 72), dtype=torch.bfloat16,
+                                     device="cuda"), ckv,
+            torch.zeros(ckv.shape[:2] + (72,), dtype=torch.bfloat16,
+                        device="cuda"), tables, lens - 1, lens, scale=0.1)
+    plan = _mla_plan(2, 4, tables.shape[1], 16, 16, 8, 2, 132)
+    for wrong in (plan._replace(dv=256), plan._replace(rows=32)):
+        with pytest.raises(RuntimeError, match="paged MLA decode attention"):
+            paged_mla_decode_cuda(qa, qr, ckv, kr, tables, lens, scale=0.1,
+                                  plan=wrong)
+    n1 = ops.launch_counts()
+    assert n1["paged_mla_decode"] == n0["paged_mla_decode"]
+    assert n1["paged_mla_prefill"] == n0["paged_mla_prefill"]
 
 
 def test_reduced_deepseek_steps_match_plain(cuda):

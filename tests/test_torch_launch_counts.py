@@ -5,12 +5,17 @@ CUDA ones and a stand-in library takes the launch calls, returning the
 error code each test sets.  Nothing reads or writes the outputs' data.
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import pytest
 import torch
 
-from repro_torch.core.hw import IS, OS
+from repro.core.sara import SaraDispatcher as JDispatcher
+from repro.dispatch.executor import _clamped_blocks as j_clamped
+from repro_torch import dispatch
+from repro_torch.core.hw import IS, OS, WS
+from repro_torch.core.sara import SaraDispatcher
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attn import (_dkv_ctas, _dkv_smem,
                                             _flash_plan, _fwd_ctas,
@@ -22,9 +27,10 @@ from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_cuda,
                                             paged_prefix_cuda)
-from repro_torch.kernels.paged_mla import (paged_mla_decode_cuda,
+from repro_torch.kernels.paged_mla import (_mla_plan, paged_mla_decode_cuda,
                                            paged_mla_prefill_cuda)
-from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+from repro_torch.kernels.rsa_gemm import (_OS_WALK, RanPlan, _launch_plan,
+                                          rsa_gemm_cuda)
 
 
 class _Library:
@@ -123,6 +129,115 @@ def test_os_launches_the_psum_kernel_as_one_chunk(card, E, M, K, N, dtype,
     assert ops.launch_counts()["rsa_gemm"] == 1
     key = ((E,) if E > 1 else ()) + (M, K, N, OS)
     assert rsa_gemm_cuda.launches_by_key == {key: 1}
+
+
+# ---------------------------------------------------------------------------
+# the site registry: the recommendation (the reference's executed tile)
+# beside the plan the kernel ran, taken from the launch
+# ---------------------------------------------------------------------------
+
+def _ran_args(args):
+    """The plan one ``rsa_psum_launch`` call's arguments carry."""
+    return RanPlan(tile=args[18], swap=bool(args[19]), nsplit=args[20],
+                   pieces=args[21], piece=args[22], walk=args[0],
+                   block_k=args[17])
+
+
+class _Forced:
+    """The oracle's recommendation with the residency mode forced."""
+
+    def __init__(self, mode):
+        self.inner, self.mode = SaraDispatcher(), mode
+
+    def recommend(self, m, k, n):
+        return dataclasses.replace(self.inner.recommend(m, k, n),
+                                   mode=self.mode)
+
+
+@pytest.mark.parametrize("mode", [OS, WS, IS])
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (8, 2048, 512, torch.bfloat16),      # decode k/v: swapped, split
+    (512, 2048, 2048, torch.bfloat16),   # prefill q/o
+    (40, 200, 72, torch.float32)])       # ragged, f32
+def test_registry_records_the_plan_the_launch_ran(card, mode, M, K, N,
+                                                  dtype):
+    """A kernel site's record holds the plan of its ``rsa_psum_launch``,
+    argument for argument (OS: block_k is K rounded up to 64 and the walk
+    ``_OS_WALK``; WS / IS: the recommended block_k, walked in their own
+    order), which is also ``_launch_plan``'s; beside it the recommendation
+    stays the reference's clamped tile."""
+    reg = dispatch.SiteRegistry()
+    with dispatch.use(_Forced(mode), registry=reg):
+        dispatch.gemm(torch.zeros(M, K, dtype=dtype),
+                      torch.zeros(K, N, dtype=dtype), site="layer.attn.q")
+    assert card.calls == ["rsa_psum_launch"]
+    rec = reg.sites()["layer.attn.q"]
+    ran = rec.ran_plan()
+    assert ran == _ran_args(card.args[0]) and set(rec.ran) == {"fwd"}
+    assert ran == _launch_plan(1, M, K, N, rec.block_k, mode, dtype, 132)[1]
+    assert ran.walk == (_OS_WALK if mode == OS else mode)
+    assert ran.block_k == (-(-K // 64) * 64 if mode == OS else rec.block_k)
+    c = JDispatcher().recommend(M, K, N)
+    assert rec.executed() == j_clamped(c, M, K, N) + (mode,)
+    assert rec.backend == "kernel"
+    assert rec.describe() == f"{rec.recommendation()} ran[{ran.describe()}]"
+    assert reg.plan()["layer.attn.q"] == rec.describe()
+
+
+def test_registry_records_a_bank_launch(card):
+    """An expert bank's one launch is recorded in its site's record; the
+    recommendation is at M = rows per bank GEMM."""
+    reg = dispatch.SiteRegistry()
+    with dispatch.use(_Forced(IS), registry=reg):
+        dispatch.gemm(torch.zeros(2, 4, 3, 64), torch.zeros(4, 64, 32),
+                      site="moe.expert.gate")
+    assert card.calls == ["rsa_psum_launch"] and card.args[0][13] == 4
+    rec = reg.sites()["moe.expert.gate"]
+    assert (rec.m, rec.k, rec.n) == (6, 64, 32)
+    assert rec.ran_plan() == _ran_args(card.args[0])
+    c = JDispatcher().recommend(6, 64, 32)
+    assert rec.executed() == j_clamped(c, 6, 64, 32) + (IS,)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_registry_records_the_backward_launches(card, tied):
+    """A differentiable 2-D GEMM records its forward launch as "fwd" and
+    its backward's two as "dx" (dy @ w^T: M x N x K) and "dw" (x^T @ dy: K
+    x M x N), each with its own recommendation's block_k; the registry
+    holds the forward site only."""
+    M, K, N = 40, 200, 72
+    x = torch.zeros(M, K, requires_grad=True)
+    stored = torch.zeros((N, K) if tied else (K, N), requires_grad=True)
+    w = stored.t() if tied else stored
+    reg = dispatch.SiteRegistry()
+    disp = SaraDispatcher()
+    with dispatch.use(disp, registry=reg):
+        y = dispatch.gemm(x, w, site="loss.unembed")
+    y.sum().backward()
+    assert card.calls == ["rsa_psum_launch"] * 3
+    assert list(reg.sites()) == ["loss.unembed"]
+    rec = reg.sites()["loss.unembed"]
+    assert [rec.ran[r] for r in ("fwd", "dx", "dw")] == \
+        [_ran_args(a) for a in card.args]
+    for args, (m, k, n) in zip(card.args, ((M, K, N), (M, N, K),
+                                           (K, M, N))):
+        assert (args[14], args[16], args[15]) == (m, k, n)
+        c = disp.recommend(m, k, n)
+        bk = -(-k // 64) * 64 if c.mode == OS else \
+            min(c.block_k, -(-k // 128) * 128)
+        assert args[17] == bk
+
+
+def test_torch_backend_records_no_ran_plan():
+    """On the plain version nothing is launched: the record's ran plan is
+    None and its description the recommendation alone."""
+    reg = dispatch.SiteRegistry()
+    with dispatch.use(SaraDispatcher(), registry=reg):
+        dispatch.gemm(torch.zeros(6, 64), torch.zeros(64, 96), site="q")
+    rec = reg.sites()["q"]
+    assert rec.ran_plan() is None and rec.ran == {}
+    assert rec.describe() == rec.recommendation()
+    assert rec.describe().endswith("@torch")
 
 
 def _paged(S, C, err, card):
@@ -385,6 +500,65 @@ def test_mla_counts_each_launch_and_no_failed_one(card):
     assert counts["plain_calls"] == 0
 
 
+@pytest.mark.parametrize("prefill", [False, True])
+@pytest.mark.parametrize("S,W,split", [(8, 35, True), (1, 256, True),
+                                       (64, 35, False), (3, 3, False)])
+def test_mla_is_one_launch_whatever_the_plan(card, prefill, S, W, split):
+    """An MLA call is ONE launch, split or not: ``_mla_plan``'s rows, dv,
+    splits and pages go to the kernel, a split plan with its workspace and
+    tickets, an unsplit one with neither (phase 3's decode: 5 splits of 8
+    pages; a prefill chunk of 64 rows x 128 heads is not split)."""
+    H, r, rd, bs, C = 128, 512, 64, 16, 64
+    bf = torch.bfloat16
+    ckv, kr = torch.zeros(4, bs, r, dtype=bf), torch.zeros(4, bs, rd, dtype=bf)
+    tables = torch.zeros(S, W, dtype=torch.int32)
+    lengths = torch.full((S,), W * bs, dtype=torch.int32)
+    lead = (S, C, H) if prefill else (S, H)
+    qa, qr = torch.zeros(lead + (r,), dtype=bf), torch.zeros(lead + (rd,),
+                                                              dtype=bf)
+    if prefill:
+        paged_mla_prefill_cuda(qa, qr, ckv, kr, tables,
+                               torch.zeros(S, dtype=torch.int32), lengths,
+                               scale=0.07)
+        args = card.args[0][18:24]
+    else:
+        paged_mla_decode_cuda(qa, qr, ckv, kr, tables, lengths, scale=0.07)
+        args = card.args[0][16:22]
+    name = "paged_mla_prefill_launch" if prefill else \
+        "paged_mla_decode_launch"
+    assert card.calls == [name]
+    rows, dv, nsplit, pages, ws, tickets = args
+    plan = _mla_plan(S, (C if prefill else 1) * H, W, bs, r, rd, 2, 132)
+    assert (rows, dv, nsplit, pages) == (plan.rows, plan.dv, plan.splits,
+                                         plan.pages)
+    assert (rows, dv) == (64, 512)
+    split = split and not prefill
+    assert (nsplit > 1) == split and nsplit * pages >= W
+    assert (ws is not None) == split and (tickets is not None) == split
+    counts = ops.launch_counts()
+    assert counts["paged_mla_prefill" if prefill else
+                  "paged_mla_decode"] == 1
+    assert counts["plain_calls"] == 0
+
+
+def test_mla_plan_override_reaches_the_launch(card):
+    """A plan given by the caller (a forced split count) is what the launch
+    gets, and each call counts once."""
+    H, r, rd, bs, S, W = 128, 512, 64, 16, 8, 35
+    bf = torch.bfloat16
+    ckv, kr = torch.zeros(4, bs, r, dtype=bf), torch.zeros(4, bs, rd, dtype=bf)
+    a = (torch.zeros(S, H, r, dtype=bf), torch.zeros(S, H, rd, dtype=bf), ckv,
+         kr, torch.zeros(S, W, dtype=torch.int32),
+         torch.full((S,), 545, dtype=torch.int32))
+    for kw in ({"splits": 7}, {"splits": 1}, {"splits": 35}):
+        plan = _mla_plan(S, H, W, bs, r, rd, 2, 132, **kw)
+        paged_mla_decode_cuda(*a, scale=0.07, plan=plan)
+        assert card.args[-1][16:20] == (plan.rows, plan.dv, plan.splits,
+                                        plan.pages)
+        assert (card.args[-1][20] is not None) == (plan.splits > 1)
+    assert ops.launch_counts()["paged_mla_decode"] == 3
+
+
 def test_mla_kernels_refuse_what_they_do_not_take(card):
     S, H, bs = 2, 4, 4
     tables = torch.zeros(S, 2, dtype=torch.int32)
@@ -401,8 +575,14 @@ def test_mla_kernels_refuse_what_they_do_not_take(card):
         paged_mla_decode_cuda(torch.zeros(S, H, 16), torch.zeros(S, H, 4),
                               torch.zeros(5, bs, 16), torch.zeros(5, bs, 8),
                               tables, lengths, scale=0.1)
+    with pytest.raises(ValueError, match="rd <= 64"):
+        paged_mla_prefill_cuda(torch.zeros(S, 3, H, 16),
+                               torch.zeros(S, 3, H, 80),
+                               torch.zeros(5, bs, 16), torch.zeros(5, bs, 80),
+                               tables, lengths, lengths, scale=0.1)
     assert card.calls == []
-    assert ops.launch_counts()["paged_mla_decode"] == 0
+    counts = ops.launch_counts()
+    assert counts["paged_mla_decode"] == counts["paged_mla_prefill"] == 0
 
 
 def test_transposed_a_gemm_counts_one_launch(card):

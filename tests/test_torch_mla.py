@@ -38,7 +38,11 @@ from repro.models.api import build_model as jbuild
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_mla import (paged_mla_attention_plain,
+from repro_torch.kernels.paged_attn import (NEG, _attention_lse,
+                                            merge_softmax_states,
+                                            paged_gather)
+from repro_torch.kernels.paged_mla import (_MERGE_CAP, _mla_plan,
+                                           paged_mla_attention_plain,
                                            paged_mla_prefill_attention_plain)
 from repro_torch.models import attention as tattn
 from repro_torch.models.api import build_model as tbuild
@@ -141,6 +145,155 @@ def test_prefill_plain_matches_pallas_and_ref(H, r, rd, qk_dim):
     theirs = np.asarray(jops.mla_paged_prefill_attention(
         *args, qk_dim=qk_dim, impl="xla"))
     assert np.abs(wrapped - theirs)[live].max() < TOL
+
+
+# ---------------------------------------------------------------------------
+# the split-KV MLA kernel's arithmetic (csrc/paged_mla.cu): each split's page
+# columns attended alone, the states merged in ascending split order
+# ---------------------------------------------------------------------------
+
+def _split_mla_decode(qa, qr, ckv, kr, tables, lengths, plan, scale):
+    """The plain twin of the kernel's split-and-merge.  MLA decode is GQA
+    with one kv head: key [c_kv | k_rope], value c_kv, the H heads its
+    group.  Split j attends the page columns [j * pages, (j + 1) * pages)
+    alone (a lane whose length ends before them gets the empty state) and
+    ``merge_softmax_states`` folds the splits in ascending order from the
+    empty state.  Returns (o, m, l)."""
+    S, W = tables.shape
+    bs = ckv.shape[1]
+    H, r = qa.shape[1], qa.shape[2]
+    q = torch.cat([qa, qr], -1)
+    o = torch.zeros((S, H, r))
+    m = torch.full((S, H), NEG)
+    l = torch.zeros((S, H))
+    for j in range(plan.splits):
+        c0, c1 = j * plan.pages, min((j + 1) * plan.pages, W)
+        if c1 <= c0:
+            continue
+        t = tables[:, c0:c1].contiguous()
+        c = paged_gather(ckv, t).float()[:, :, None]          # (S, L, 1, r)
+        k = torch.cat([c, paged_gather(kr, t).float()[:, :, None]], -1)
+        lens = torch.clamp(lengths.long() - c0 * bs, 0, (c1 - c0) * bs)
+        mask = torch.arange(k.shape[1])[None, :] < lens[:, None]
+        part = _attention_lse(q, k, c, mask, scale, 0.0)
+        o, m, l = merge_softmax_states(o, m, l, *part)
+    return o, m, l
+
+
+# lengths 0, 1, 4, 5 (a page boundary), one inside the first split, two
+# across several; with bs = 4 and W = 100 splits of 8 pages are 32 rows
+SPLIT_LENGTHS = np.array([0, 1, 4, 5, 3, 250, 399, 128], np.int32)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3, 7, 100],
+                         ids=["plan", "1", "3", "7", "100"])
+@pytest.mark.parametrize("H,r,rd", [(4, 16, 8), (16, 32, 16)])
+def test_split_mla_decode_twin_matches_plain_pallas_and_ref(splits, H, r,
+                                                            rd):
+    """The twin equals the one-softmax plain decode, the reference's Pallas
+    kernel (interpret) and ``ref.paged_mla_attention_ref`` within this
+    file's 2e-5, for the rule's plan and forced split counts (a split of
+    one page each at 100); the empty lane is exactly (0, -1e30, 0)."""
+    rng = np.random.default_rng(60 + H + (splits or 0))
+    W = 100
+    tables, used = _tables(SPLIT_LENGTHS, BS, width=W)
+    ckv, krope = _latent(rng, used + 2, r, rd)
+    S = len(SPLIT_LENGTHS)
+    qa = rng.standard_normal((S, H, r)).astype(np.float32)
+    qr = rng.standard_normal((S, H, rd)).astype(np.float32)
+    scale = 1.0 / (r + rd) ** 0.5
+    plan = _mla_plan(S, H, W, BS, r, rd, 4, 132, splits=splits)
+    if splits is None:     # 8 units, at most 16 splits of whole 32-row tiles
+        assert (plan.units, plan.splits, plan.pages) == (8, 13, 8)
+    else:
+        assert plan.splits == splits
+    t = [_t(x) for x in (qa, qr, ckv, krope, tables, SPLIT_LENGTHS)]
+    o, m, l = _split_mla_decode(*t, plan, scale)
+    plain = paged_mla_attention_plain(*t, scale=scale)
+    assert (o - plain).abs().max().item() <= TOL
+    args = [jnp.asarray(a) for a in (qa, qr, ckv, krope, tables,
+                                     SPLIT_LENGTHS)]
+    pallas = np.asarray(paged_mla_decode_pallas(*args, scale, True))
+    oracle = np.asarray(jref.paged_mla_attention_ref(*args, scale=scale))
+    assert np.abs(o.numpy() - pallas).max() <= TOL
+    assert np.abs(o.numpy() - oracle).max() <= TOL
+    assert torch.all(o[0] == 0) and torch.all(m[0] == NEG) and \
+        torch.all(l[0] == 0)
+
+
+def _split_columns(plan, W):
+    return [range(j * plan.pages, min((j + 1) * plan.pages, W))
+            for j in range(plan.splits)]
+
+
+MLA_GRID = [(S, rows, W, bs)
+            for S in (1, 2, 8, 16, 64)
+            for rows in (1, 4, 16, 128, 64 * 16, 64 * 128)
+            for W in (0, 1, 3, 16, 35, 64, 256)
+            for bs in (4, 16, 64)]
+
+
+@pytest.mark.parametrize("chunk", range(3))
+def test_mla_plan_covers_every_column_once(chunk):
+    """On a grid (decode: rows = H; prefill: C * H): every page column lies
+    in exactly one split and every split holds at least one; the row
+    blocks cover the lane's rows; units and the workspace are exact; a
+    split plan keeps to one CTA an SM and whole latent tiles (64 rows in
+    bf16, 32 in f32) and a merge of at most ``_MERGE_CAP`` bytes, and a
+    grid over half the card is not split.  The plan is a pure function of
+    its inputs."""
+    for S, rows, W, bs in MLA_GRID[chunk::3]:
+        for r, rd, esize in ((512, 64, 2), (16, 8, 4), (100, 20, 2)):
+            plan = _mla_plan(S, rows, W, bs, r, rd, esize, 132)
+            assert plan == _mla_plan(S, rows, W, bs, r, rd, esize, 132)
+            cols = [c for x in _split_columns(plan, W) for c in x]
+            assert cols == list(range(W)), (S, rows, W, bs)
+            assert all(len(x) > 0 for x in _split_columns(plan, W)) or W == 0
+            assert plan.rows == (64 if esize == 2 else 32)
+            assert plan.rblocks == -(-rows // plan.rows)
+            assert plan.units == S * plan.rblocks
+            assert plan.dv >= r and plan.dv in (64, 128, 256, 512)
+            assert plan.dv >= 128 or esize == 4     # a wgmma n of 64 or more
+            assert plan.part == plan.rows * (plan.dv + 2)
+            if 2 * plan.units > 132:
+                assert plan.splits == 1
+            if plan.splits > 1:
+                tile = 64 if esize == 2 else 32
+                assert plan.ctas <= 132
+                assert plan.pages % max(1, -(-tile // bs)) == 0
+                assert plan.splits * plan.part * 4 <= _MERGE_CAP
+                assert plan.ws_elems == plan.ctas * plan.part
+            else:
+                assert plan.ws_elems == 0
+
+
+def test_mla_plan_shapes_of_the_paths_and_limits():
+    """Phase 3's decode (8 lanes, 128 heads, 35 pages of 16, bf16) runs 5
+    splits of 8 pages over 16 units (80 CTAs); one lane of 4096 rows 7
+    splits of 40 pages (the merge's cap: 7 partials of 131584 bytes);
+    phase 3's and phase 6's prefill chunk (64 rows x 128 heads a lane, 1024
+    units) is not split; f32 takes 32-row CTAs.  Widths past the kernel's
+    (r > 512, rd > 64, r + rd > 576) and other element sizes raise."""
+    p = _mla_plan(8, 128, 35, 16, 512, 64, 2, 132)
+    assert (p.rows, p.dv, p.rblocks, p.units) == (64, 512, 2, 16)
+    assert (p.splits, p.pages, p.ctas) == (5, 8, 80)
+    assert p.ws_elems == 80 * 64 * 514
+    p = _mla_plan(1, 128, 256, 16, 512, 64, 2, 132)
+    assert (p.splits, p.pages, p.ctas) == (7, 40, 14)
+    assert _mla_plan(1, 128, 256, 16, 512, 64, 2, 132,
+                     splits=64).ctas == 128
+    p = _mla_plan(8, 64 * 128, 35, 16, 512, 64, 2, 132)
+    assert (p.units, p.splits) == (1024, 1)
+    p = _mla_plan(8, 128, 35, 16, 512, 64, 4, 132)
+    assert (p.rows, p.rblocks, p.units, p.splits) == (32, 4, 32, 4)
+    assert _mla_plan(8, 4, 35, 16, 16, 8, 2, 132).dv == 128
+    assert _mla_plan(8, 4, 35, 16, 16, 8, 4, 132).dv == 64
+    assert _mla_plan(8, 128, 35, 16, 512, 64, 2, 132, splits=3).splits == 3
+    for r, rd in ((513, 8), (512, 65), (520, 56), (0, 8)):
+        with pytest.raises(ValueError, match="r <= 512"):
+            _mla_plan(8, 128, 35, 16, r, rd, 2, 132)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        _mla_plan(8, 128, 35, 16, 512, 64, 1, 132)
 
 
 @pytest.fixture(scope="module")
