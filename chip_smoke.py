@@ -1398,15 +1398,29 @@ def check_wkv(torch, report, timer, rcfg):
     nonzero state0), a ragged S = 100 padded to the chunk with decays drawn
     over the model's whole clip range (-exp(U(-12, 1)), down to -e: a
     64-row cumsum reaches ~ -174, whose negation overflows exp), the decode
-    step (B = 8 slots, S = 1, chunk 1), and the state carry ([0:256] then
-    [256:512] with the carried state equals one pass); and the
-    linear-attention kernel at BH = 64, S = 1024, K = V = 64, after one
-    call of its entry point ``ops.linear_attn`` with the counts at 0 (it
-    is on no model path).  Each case is timed against its plain version
-    (no single PyTorch call computes this recurrence: no library time)."""
+    step (B = 8 slots, S = 1, chunk 1), a one-chunk prefill (B = 1, S =
+    64), and the state carry ([0:256] then [256:512] with the carried
+    state equals one pass); and the linear-attention kernel at BH = 64, S =
+    1024, K = V = 64, after one call of its entry point ``ops.linear_attn``
+    with the counts at 0 (it is on no model path).  Each line prints the
+    call's plan (``_wkv_plan``); each case is timed against its plain
+    version (no single PyTorch call computes this recurrence: no library
+    time).  The prefill then runs under every forced chunked plan (chain
+    folded or launched, V whole or in tiles of 16),
+    each within tolerance and bitwise equal to itself run to run."""
     from repro_torch import dispatch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.linear_attn import linear_attn_plain
+    from repro_torch.kernels.linear_attn import (_wkv_plan,
+                                                 linear_attn_plain,
+                                                 wkv_bshk_cuda)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plan_str(p):
+        if p.variant == "decode":
+            return (f"decode, {p.vt} columns a CTA x {p.vsplit} = {p.ctas}"
+                    f" CTAs")
+        return (f"{p.n} chunks, chain {p.chain}, V tile {p.vt} x "
+                f"{p.vsplit} = {p.ctas} inter CTAs")
     H, K = rcfg.d_model // rcfg.ssm.head_dim, rcfg.ssm.head_dim
     V = K
     gen = torch.Generator(device="cuda")
@@ -1432,8 +1446,10 @@ def check_wkv(torch, report, timer, rcfg):
     for name, B, S, chunk, strong in (
             ("prefill", 1, 512, 64, False),
             ("ragged", 1, 100, 64, True),
-            ("decode", 8, 1, 1, False)):
+            ("decode", 8, 1, 1, False),
+            ("one chunk", 1, 64, 64, False)):
         args = inputs(B, S, strong)
+        plan = _wkv_plan(B, -(-S // chunk) * chunk, H, K, V, chunk, sms)
         o, sf = run(args, chunk, "kernel")
         po, psf = run(args, chunk, "torch")
         torch.cuda.synchronize()
@@ -1446,16 +1462,39 @@ def check_wkv(torch, report, timer, rcfg):
                               wkv_ops(B, H, K, V, S, chunk), PEAK_F32_FLOPS)
         rec = {"kernel": "wkv_bshk", "case": name, "B": B, "S": S, "H": H,
                "K": K, "V": V, "chunk": chunk, "strong_decays": strong,
+               "plan": plan._asdict(),
                "max_abs_err": err, "tol": tol, "finite": finite, "ok": good,
                "ms": timer(lambda: run(args, chunk, "kernel")),
                "plain_ms": timer(lambda: run(args, chunk, "torch")),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         report["wkv"].append(rec)
-        log(f"  wkv_bshk {name:<8} B={B} S={S} H={H} K={K} V={V} chunk="
+        log(f"  wkv_bshk {name:<9} B={B} S={S} H={H} K={K} V={V} chunk="
             f"{chunk}{' decays to -e' if strong else ''}: max_abs_err "
             f"{err:.3e} (tol {tol:.3e}) {'ok' if good else 'FAIL'}  kernel "
             f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4f} ms ({b_by})\n    plan: {plan_str(plan)}")
+        if name == "prefill":
+            forced = [_wkv_plan(B, S, H, K, V, chunk, sms, variant="chunked",
+                                chain=c, vt=vt)
+                      for c in ("fold", "launch") for vt in (V, 16)]
+            po, psf = run(args, chunk, "torch")
+            tol = max(wkv_tolerance(po), wkv_tolerance(psf))
+            n_ok = 0
+            for p in forced:
+                a1 = wkv_bshk_cuda(*args, chunk=chunk, plan=p)
+                a2 = wkv_bshk_cuda(*args, chunk=chunk, plan=p)
+                torch.cuda.synchronize()
+                e = max((a1[0] - po).abs().max().item(),
+                        (a1[1] - psf).abs().max().item())
+                n_ok += e <= tol and all(torch.equal(x, y)
+                                         for x, y in zip(a1, a2))
+            good = n_ok == len(forced)
+            ok &= good
+            rec["forced_plans_ok"] = f"{n_ok} of {len(forced)}"
+            log(f"    forced plans (chain folded / launched, V tile {V} / "
+                f"16): within tol and run to run "
+                f"bitwise at {n_ok} of {len(forced)} "
+                f"{'ok' if good else 'FAIL'}")
 
     # the state carry: two halves through the kernel equal one pass
     r, k, v, lw, u, s0 = inputs(1, 512, False)
@@ -1493,8 +1532,10 @@ def check_wkv(torch, report, timer, rcfg):
     # r, k, logw, v, o and a u row per BH row; no state in or out
     b_ms, b_by = bound_ms((3 * BH * S * K + 2 * BH * S * V + BH * K) * 4,
                           wkv_ops(BH, 1, K, V, S, 64), PEAK_F32_FLOPS)
+    plan = _wkv_plan(BH, S, 1, K, V, 64, sms)
     rec = {"kernel": "linear_attn", "case": "main", "BH": BH, "S": S,
            "K": K, "V": V, "chunk": 64, "entry_point_launches": launches,
+           "plan": plan._asdict(),
            "max_abs_err": err, "tol": tol, "ok": good,
            "ms": timer(lambda: ops.linear_attn(*la, chunk=64)),
            "plain_ms": timer(lambda: linear_attn_plain(*la, chunk=64)),
@@ -1503,7 +1544,8 @@ def check_wkv(torch, report, timer, rcfg):
     log(f"  linear_attn BH={BH} S={S} K={K} V={V} chunk=64 (ops.linear_attn"
         f" launched it {launches} time): max_abs_err {err:.3e} (tol "
         f"{tol:.3e}) {'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms "
-        f"plain {rec['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        f"plain {rec['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})\n"
+        f"    plan: {plan_str(plan)}")
     return ok
 
 

@@ -61,8 +61,8 @@ SIGNATURES = {
                             [_F, _I, _I, _I, _I, _P, _P],
     },
     "linear_attn": {
-        "wkv_bshk_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
-        "linear_attn_launch": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+        "wkv_bshk_launch": [_I] + [_P] * 8 + [_I] * 9 + [_P, _P],
+        "linear_attn_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P, _P],
     },
     "adaptnetx": {
         "adaptnetx_launch": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _I, _P,

@@ -8,13 +8,16 @@ with log decays ``logw`` = log w_t <= 0, in the chunked closed form.
 ``wkv_bshk_cuda`` / ``linear_attn_cuda`` launch the two entry points of
 ``csrc/linear_attn.cu`` (replacing
 ``repro/kernels/linear_attn.py::linear_attn_bshk_pallas`` and
-``::linear_attn_pallas``); each counts the launches that returned no error
-in its ``.launches`` (an empty problem launches nothing and counts
-nothing).  ``wkv_bshk_plain`` / ``linear_attn_plain`` are the plain
-PyTorch versions, used for CPU tensors and as what the kernels are held
-against on the card.  Both repeat the TPU kernels' arithmetic chunk by
-chunk (``_kernel_bshk`` and ``_kernel``): with cs the inclusive cumsum of
-the chunk's log decays per key column and cs_prev = cs - logw,
+``::linear_attn_pallas``) under ``_wkv_plan``'s plan: chunk 1 runs the
+one-pass decode kernel; a longer chunk runs every chunk's intra part at
+once, chains the state in chunk order, and adds each chunk's inter part.
+Each call counts one launch in its ``.launches``, however many kernels
+the plan runs (an empty problem launches nothing and counts nothing).
+``wkv_bshk_plain`` / ``linear_attn_plain`` are the plain PyTorch versions,
+used for CPU tensors and as what the kernels are held against on the card.
+Both repeat the TPU kernels' arithmetic chunk by chunk (``_kernel_bshk``
+and ``_kernel``): with cs the inclusive cumsum of the chunk's log decays
+per key column and cs_prev = cs - logw,
 
     o     = (r * exp(cs_prev)) @ h                        inter-chunk
           + A @ v,  A[t, j] = sum_k r[t,k] k[j,k] exp(cs_prev[t,k] - cs[j,k]), j < t
@@ -23,6 +26,9 @@ the chunk's log decays per key column and cs_prev = cs - logw,
 
 every exponent <= 0 (the masked (t, j) pairs are never exponentiated).
 The state and all arithmetic are f32; o comes back in r's dtype.
+``wkv_scan_parallel`` is the plain twin of the kernel's decomposition
+(every chunk's intra part at once, A factorised across 16-row
+sub-chunks, the chain in order, then the inter part).
 
 Layouts are the reference's.  ``wkv_bshk_*``: r, k, logw (B, S, H, K), v
 (B, S, H, V), u (H, K), state0 (B, H, K, V) f32 -> (o (B, S, H, V), final
@@ -34,12 +40,16 @@ adds nothing, logw = 0 keeps the state).
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.rsa_gemm import _cdiv
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 64                   # the largest K, V and chunk the kernel holds
+SUB = 16                       # rows of a sub-chunk of the factorised A
 
 
 def wkv_scan(r, k, v, logw, u, h, chunk: int
@@ -70,6 +80,63 @@ def wkv_scan(r, k, v, logw, u, h, chunk: int
         h = torch.exp(wsum)[..., None] * h + \
             torch.einsum("blhk,blhv->bhkv", kdec, vc)
     return torch.cat(outs, dim=1), h
+
+
+def _decay_block(rc, kc, cs, cp) -> torch.Tensor:
+    """A (B, n, H, t, j) of every chunk at once, zero on and above the
+    diagonal, as the intra kernel forms it: directly inside each 16-row
+    sub-chunk and, across it, factorised at the sub-chunk's boundary row
+    bnd as (r exp(cs_prev - cs[bnd-1])) . (k exp(cs[bnd-1] - cs)), both
+    exponents <= 0."""
+    lc = rc.shape[2]
+    t = torch.arange(lc, device=rc.device)
+    keep = (t[None, :] < t[:, None]) & \
+        ((t[:, None] // SUB) == (t[None, :] // SUB))      # j < t, one sub-chunk
+    diff = cp[:, :, :, None] - cs[:, :, None]             # (B, n, t, j, H, K)
+    diff = torch.where(keep[None, None, :, :, None, None], diff,
+                       torch.full_like(diff, -1e30))
+    A = torch.einsum("bnthk,bnjhk,bntjhk->bnhtj", rc, kc, torch.exp(diff))
+    for bnd in range(SUB, lc, SUB):
+        rows = slice(bnd, min(bnd + SUB, lc))
+        ref = cs[:, :, bnd - 1:bnd]
+        rt = rc[:, :, rows] * torch.exp(cp[:, :, rows] - ref)
+        kt = kc[:, :, :bnd] * torch.exp(ref - cs[:, :, :bnd])
+        A[..., rows, :bnd] = torch.einsum("bnthk,bnjhk->bnhtj", rt, kt)
+    return A
+
+
+def wkv_scan_parallel(r, k, v, logw, u, h, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the CUDA kernel's chunked variant, on
+    ``wkv_scan``'s arguments: every chunk's intra part at once (cumsum, A
+    factorised across 16-row sub-chunks, the bonus diagonal, A @ v, the
+    state increment dS_c = (k exp(wsum - cs))^T v and the decay
+    exp(wsum_c)); the chain h_c = exp(wsum_c) h_{c-1} + dS_c in chunk
+    order, as ``wkv_scan`` rounds it; then each chunk's inter part (r
+    exp(cs_prev)) @ h_{c-1}.  Returns (o f32, final state);
+    counts nothing."""
+    B, S, H, K = r.shape
+    V, n = v.shape[-1], S // chunk
+
+    def chunks(x):
+        return x.reshape(B, n, chunk, H, x.shape[-1])
+    rc, kc, vc, lw = map(chunks, (r, k, v, logw))
+    cs = torch.cumsum(lw, dim=2)                          # (B, n, lc, H, K)
+    cp = cs - lw
+    wsum = cs[:, :, -1]                                   # (B, n, H, K)
+    A = _decay_block(rc, kc, cs, cp)
+    diag = (rc * u[:, None, None] * kc).sum(-1, keepdim=True)
+    o = torch.einsum("bnhtj,bnjhv->bnthv", A, vc) + diag * vc
+    ds = torch.einsum("bnthk,bnthv->bnhkv",
+                      kc * torch.exp(wsum[:, :, None] - cs), vc)
+    dec = torch.exp(wsum)[..., None]                      # (B, n, H, K, 1)
+    hprev = []
+    for c in range(n):                                    # the chain, in order
+        hprev.append(h)
+        h = dec[:, c] * h + ds[:, c]
+    o = o + torch.einsum("bnthk,bnhkv->bnthv", rc * torch.exp(cp),
+                         torch.stack(hprev, 1))
+    return o.reshape(B, S, H, V), h
 
 
 def wkv_bshk_plain(r, k, v, logw, u, state0, *, chunk: int
@@ -121,7 +188,34 @@ def _check(r, k, v, logw, u, chunk: int, state0=None) -> None:
         raise ValueError(f"shape mismatch r {tuple(r.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, logw "
                          f"{tuple(logw.shape)}")
-    K, V, S = r.shape[-1], v.shape[-1], r.shape[1]
+    _limits(r.shape[-1], v.shape[-1], chunk, r.shape[1])
+
+
+class WkvPlan(NamedTuple):
+    """How ``csrc/linear_attn.cu`` runs one call.  ``decode`` (chunk 1):
+    one CTA per (b, h, tile of 32 state columns).  ``chunked``: the intra
+    kernel (one CTA per (b, h, chunk)), the chain (``fold``: inside the
+    inter kernel; ``launch``: a kernel of one CTA per (b, h, 16 state
+    columns)), and the inter kernel (one CTA per (b, h, chunk, V tile))."""
+    variant: str    # "chunked" or "decode"
+    chain: str      # "fold" or "launch" ("" for decode)
+    vt: int         # state columns a CTA of the inter or decode kernel
+    vsplit: int     # V tiles: ceil(V / vt)
+    n: int          # chunks
+    ctas: int       # CTAs of the inter kernel (decode: of its one kernel)
+    ws_elems: int   # f32 workspace elements (0 for decode)
+
+
+_FOLD_MAX = 5                  # chunks the inter CTAs fold the chain over;
+                               # past it the chain runs in its own kernel
+                               # (launch/bench_wkv.py at B = 1, H = 32:
+                               # folding 2-10% faster to n = 5, launching
+                               # 3-4% faster from n = 6, 18% at n = 16)
+DECODE_VT = 32                 # state columns of a decode CTA
+
+
+def _limits(K: int, V: int, chunk: int, S: int) -> None:
+    """Raise where the kernel does not hold the widths or the chunk."""
     if not (1 <= K <= MAX_DIM and 1 <= V <= MAX_DIM):
         raise ValueError(f"the WKV kernel holds K, V <= {MAX_DIM}, got K={K}"
                          f" V={V}")
@@ -130,10 +224,87 @@ def _check(r, k, v, logw, u, chunk: int, state0=None) -> None:
                          f"chunk={chunk} S={S}")
 
 
-def wkv_bshk_cuda(r, k, v, logw, u, state0, *, chunk: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, final state) through the CUDA WKV kernel, (B, S, H, K) layout."""
+@functools.lru_cache(maxsize=4096)
+def _wkv_plan(B: int, S: int, H: int, K: int, V: int, chunk: int,
+              num_sms: int = 132, *, variant: Optional[str] = None,
+              chain: Optional[str] = None, vt: Optional[int] = None
+              ) -> WkvPlan:
+    """The WKV kernel's plan for one call of B x H heads over S rows in
+    chunks of ``chunk``.
+
+    Chunk 1 takes the decode kernel (32 state columns a CTA).  A longer
+    chunk takes the chunked variant: its inter kernel holds V (rounded up
+    to 4) whole, or halves it where the B * H * n CTAs of whole tiles
+    fill at most half the SMs (``launch/bench_wkv.py`` at B = 1, H = 32:
+    halving 4-5% faster at n = 1, 2, whole 1-5% faster from n = 3); the
+    inter CTAs fold the chain while n <= 5, and a kernel of its own walks
+    it beyond.  ``variant``, ``chain`` and ``vt`` (a
+    multiple of 4 up to V) force the chunked variant's choices
+    (``launch/bench_wkv.py``, ``chip_smoke.py`` and the card tests run
+    each).  Raises where the kernel does not hold the widths, the chunk or
+    the forced plan."""
+    _limits(K, V, chunk, S)
+    n = S // chunk
+    variant = variant or ("decode" if chunk == 1 else "chunked")
+    if variant == "decode":
+        if chunk != 1 or chain or vt not in (None, DECODE_VT):
+            raise ValueError(f"the decode kernel runs chunk 1 alone, "
+                             f"{DECODE_VT} columns a CTA")
+        vsplit = _cdiv(V, DECODE_VT)
+        return WkvPlan("decode", "", DECODE_VT, vsplit, n, B * H * vsplit, 0)
+    if variant != "chunked":
+        raise ValueError(f"unknown WKV variant {variant!r}")
+    V4 = _cdiv(V, 4) * 4
+    if vt is None:
+        vt = V4 // 2 if V4 % 8 == 0 and 2 * B * H * n <= num_sms else V4
+    elif vt % 4 or not 4 <= vt <= V4:
+        raise ValueError(f"a V tile is a multiple of 4 up to {V4}, not {vt}")
+    chain = chain or ("fold" if n <= _FOLD_MAX else "launch")
+    if chain not in ("fold", "launch"):
+        raise ValueError(f"the chain is folded or launched, not {chain!r}")
+    vsplit, bhn = _cdiv(V, vt), B * H * n
+    ws = B * S * H * V + bhn * (chunk * K + K * V + K) + \
+        (bhn * K * V if chain == "launch" else 0)
+    return WkvPlan("chunked", chain, vt, vsplit, n, bhn * vsplit, ws)
+
+
+def _sms(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _launch(fn, what, plan, tensors, dims, chunk, ref):
+    """One call of a WKV entry point under ``plan``, with its workspace;
+    raises on a launch error."""
     from repro_torch.kernels import _build
+    ws = torch.empty(plan.ws_elems, dtype=torch.float32, device=ref.device) \
+        if plan.ws_elems else None
+    err = getattr(_build.library("linear_attn"), fn)(
+        _DTYPES[ref.dtype], *(t.data_ptr() for t in tensors), *dims, chunk,
+        int(plan.variant == "decode"), int(plan.chain == "launch"),
+        plan.vt, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(ref.device).cuda_stream)
+    _build.check(err, what)
+
+
+def _check_plan(plan: WkvPlan, B: int, S: int, H: int, K: int, V: int,
+                chunk: int) -> None:
+    """Raise unless ``plan`` is the plan its own choices give at these
+    dimensions (so its workspace size is theirs), before any launch."""
+    try:
+        same = plan == _wkv_plan(B, S, H, K, V, chunk, variant=plan.variant,
+                                 chain=plan.chain or None, vt=plan.vt)
+    except ValueError:
+        same = False
+    if not same:
+        raise ValueError(f"plan {plan} is not one for (B, S, H, K, V) = "
+                         f"{(B, S, H, K, V)}, chunk={chunk}")
+
+
+def wkv_bshk_cuda(r, k, v, logw, u, state0, *, chunk: int,
+                  plan: Optional[WkvPlan] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, final state) through the CUDA WKV kernel, (B, S, H, K) layout,
+    under ``_wkv_plan``'s plan unless ``plan`` gives another."""
     if r.dim() != 4:
         raise ValueError(f"r must be (B, S, H, K), got {tuple(r.shape)}")
     _check(r, k, v, logw, u, chunk, state0)
@@ -146,43 +317,42 @@ def wkv_bshk_cuda(r, k, v, logw, u, state0, *, chunk: int
     o = torch.empty(v.shape, dtype=r.dtype, device=r.device)
     if B * H == 0 or S == 0:
         return o, state0.clone()
+    plan = plan or _wkv_plan(B, S, H, K, V, chunk, _sms(r))
+    _check_plan(plan, B, S, H, K, V, chunk)
     sf = torch.empty_like(state0)
-    err = _build.library("linear_attn").wkv_bshk_launch(
-        _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        logw.data_ptr(), u.data_ptr(), state0.data_ptr(), o.data_ptr(),
-        sf.data_ptr(), B, S, H, K, V, chunk,
-        torch.cuda.current_stream(r.device).cuda_stream)
-    _build.check(err, "WKV scan")
+    _launch("wkv_bshk_launch", "WKV scan", plan,
+            (r, k, v, logw, u, state0, o, sf), (B, S, H, K, V), chunk, r)
     wkv_bshk_cuda.launches += 1
     wkv_bshk_cuda.launches_by_chunk[chunk] = \
         wkv_bshk_cuda.launches_by_chunk.get(chunk, 0) + 1
     return o, sf
 
 
-wkv_bshk_cuda.launches = 0           # kernel launches that returned no error
+wkv_bshk_cuda.launches = 0           # calls whose launches returned no error
 wkv_bshk_cuda.launches_by_chunk = {}  # the same, per chunk (1: decode)
 
 
-def linear_attn_cuda(r, k, v, logw, u, *, chunk: int) -> torch.Tensor:
-    """o through the CUDA kernel, (BH, S, K) layout, zero initial state."""
-    from repro_torch.kernels import _build
+def linear_attn_cuda(r, k, v, logw, u, *, chunk: int,
+                     plan: Optional[WkvPlan] = None) -> torch.Tensor:
+    """o through the CUDA kernel, (BH, S, K) layout, zero initial state,
+    under ``_wkv_plan``'s plan (H = 1) unless ``plan`` gives another."""
     if r.dim() != 3:
         raise ValueError(f"r must be (BH, S, K), got {tuple(r.shape)}")
     _check(r, k, v, logw, u, chunk)
     BH, S, K = r.shape
+    V = v.shape[-1]
     if u.shape != (BH, K):
         raise ValueError(f"u {tuple(u.shape)} does not match (BH, K) = "
                          f"{(BH, K)}")
     o = torch.empty(v.shape, dtype=r.dtype, device=r.device)
     if BH == 0 or S == 0:
         return o
-    err = _build.library("linear_attn").linear_attn_launch(
-        _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        logw.data_ptr(), u.data_ptr(), o.data_ptr(), BH, S, K, v.shape[-1],
-        chunk, torch.cuda.current_stream(r.device).cuda_stream)
-    _build.check(err, "linear attention")
+    plan = plan or _wkv_plan(BH, S, 1, K, V, chunk, _sms(r))
+    _check_plan(plan, BH, S, 1, K, V, chunk)
+    _launch("linear_attn_launch", "linear attention", plan,
+            (r, k, v, logw, u, o), (BH, S, K, V), chunk, r)
     linear_attn_cuda.launches += 1
     return o
 
 
-linear_attn_cuda.launches = 0
+linear_attn_cuda.launches = 0  # calls whose launches returned no error

@@ -679,6 +679,15 @@ WKV_CASES = [
     ("ref V != K", 1, 64, 1, 8, 24, 64),
     ("ref many chunks", 2, 96, 4, 32, 32, 16),
     ("chunk 1 over 5 rows", 2, 5, 4, 16, 16, 1),
+    # one chunk (V in tiles), sixteen (the chain's own kernel), and chunks
+    # whose 16-row sub-chunks do not divide them
+    ("one chunk", 1, 64, 32, 64, 64, 64),
+    ("sixteen chunks", 1, 1024, 32, 64, 64, 64),
+    ("chunk 24", 2, 96, 4, 32, 32, 24),
+    ("chunk 40", 1, 120, 4, 64, 64, 40),
+    # K and V not multiples of 4: every row loads element by element
+    ("odd widths", 2, 40, 3, 10, 6, 16),
+    ("odd widths decode", 3, 2, 2, 10, 6, 1),
 ]
 
 
@@ -718,6 +727,89 @@ def test_wkv_kernel_matches_plain(cuda, case, strong):
     assert ops.launch_counts()["wkv_bshk"] == 1
     assert o.shape == (B, S, H, V) and sf.shape == (B, H, K, V)
     assert _close(o, po) and _close(sf, psf)
+
+
+def _wkv_forced(B, S, H, K, V, chunk):
+    """Every plan the kernel takes for one shape: decode (chunk 1), and the
+    chunked variant with the chain folded and launched, V whole and in
+    tiles of 16."""
+    from repro_torch.kernels.linear_attn import _wkv_plan
+    plans = []
+    if chunk == 1:
+        plans.append(_wkv_plan(B, S, H, K, V, 1, variant="decode"))
+    V4 = -(-V // 4) * 4
+    for chain in ("fold", "launch"):
+        for vt in sorted({V4, min(V4, 16)}):
+            plans.append(_wkv_plan(B, S, H, K, V, chunk, variant="chunked",
+                                   chain=chain, vt=vt))
+    return plans
+
+
+WKV_FORCED = [c for c in WKV_CASES if c[0] in (
+    "prefill", "sixteen chunks", "chunk 40", "ref V != K",
+    "chunk 1 over 5 rows", "decode", "odd widths", "odd widths decode")]
+
+
+@pytest.mark.parametrize("case", WKV_FORCED, ids=[c[0] for c in WKV_FORCED])
+def test_wkv_kernel_forced_plans_run_to_run_bitwise(cuda, case):
+    """Every forced plan is within tolerance of the plain version (decays
+    down to -e) and bitwise equal to itself run to run; the two chain
+    placements give the same bits, as the chain rounds alike in both."""
+    from repro_torch.kernels.linear_attn import wkv_bshk_cuda
+    _, B, S, H, K, V, chunk = case
+    r, k, v, lw, u, s0 = _wkv_inputs(cuda, B, S, H, K, V, True)
+    r, k, v, lw = ops._pad_rows(chunk, r, k, v, lw)   # as ops pads
+    S = r.shape[1]
+    with dispatch.use(execute="torch"):
+        po, psf = ops.wkv_attention(r, k, v, lw, u, s0, chunk=chunk)
+    by_chain = {}
+    for plan in _wkv_forced(B, S, H, K, V, chunk):
+        ops.reset_counts()
+        o, sf = wkv_bshk_cuda(r, k, v, lw, u, s0, chunk=chunk, plan=plan)
+        o2, sf2 = wkv_bshk_cuda(r, k, v, lw, u, s0, chunk=chunk, plan=plan)
+        assert ops.launch_counts()["wkv_bshk"] == 2, plan
+        assert torch.equal(o, o2) and torch.equal(sf, sf2), plan
+        assert _close(o, po) and _close(sf, psf), plan
+        key = (plan.variant, plan.vt)
+        if key in by_chain:
+            assert torch.equal(o, by_chain[key][0]), plan
+            assert torch.equal(sf, by_chain[key][1]), plan
+        by_chain[key] = (o, sf)
+
+
+@pytest.mark.parametrize("chunk", [1, 32, 64])
+def test_wkv_kernel_bf16_plans_match_plain(cuda, chunk):
+    """bf16 operands widen to f32 as they land and o rounds once: every
+    plan within one bf16 rounding of the plain version."""
+    from repro_torch.kernels.linear_attn import wkv_bshk_cuda
+    B, S = (8, 3) if chunk == 1 else (2, 128)
+    args = _wkv_inputs(cuda, B, S, 4, 64, 64, True, torch.bfloat16)
+    with dispatch.use(execute="torch"):
+        po, psf = ops.wkv_attention(*args, chunk=chunk)
+    for plan in _wkv_forced(B, S, 4, 64, 64, chunk):
+        o, sf = wkv_bshk_cuda(*args, chunk=chunk, plan=plan)
+        assert o.dtype == torch.bfloat16, plan
+        assert _close(o, po, bf16=True) and _close(sf, psf), plan
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 64])
+def test_linear_attn_kernel_forced_plans(cuda, chunk):
+    """Row 14's entry point under every forced plan (BH = 64, S = 1024 at
+    chunk 64: sixteen chunks), run to run bitwise, within tolerance."""
+    from repro_torch.kernels.linear_attn import linear_attn_cuda
+    BH, S, K, V = (64, 1024, 64, 64) if chunk == 64 else (6, 80, 32, 24)
+
+    def rn(*sh):
+        return torch.randn(sh, generator=cuda, device="cuda")
+    args = (rn(BH, S, K) * 0.5, rn(BH, S, K) * 0.5, rn(BH, S, V),
+            -torch.exp(rn(BH, S, K) * 0.5 - 3.0), rn(BH, K) * 0.1)
+    with dispatch.use(execute="torch"):
+        want = ops.linear_attn(*args, chunk=chunk)
+    for plan in _wkv_forced(BH, S, 1, K, V, chunk):
+        o = linear_attn_cuda(*args, chunk=chunk, plan=plan)
+        assert torch.equal(o, linear_attn_cuda(*args, chunk=chunk,
+                                               plan=plan)), plan
+        assert _close(o, want), plan
 
 
 def test_wkv_kernel_state_carry_composes(cuda):

@@ -22,7 +22,8 @@ from repro_torch.kernels.flash_attn import (_dkv_ctas, _dkv_smem,
                                             _fwd_smem, _width,
                                             flash_dkv_cuda, flash_dq_cuda,
                                             flash_fwd_cuda)
-from repro_torch.kernels.linear_attn import linear_attn_cuda, wkv_bshk_cuda
+from repro_torch.kernels.linear_attn import (_wkv_plan, linear_attn_cuda,
+                                             wkv_bshk_cuda)
 from repro_torch.kernels.paged_attn import (NEG, paged_decode_cuda,
                                             paged_decode_lse_cuda,
                                             paged_prefill_cuda,
@@ -891,6 +892,157 @@ def test_wkv_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         wkv_bshk_cuda(r.transpose(1, 2), r, v, r, u, s0, chunk=4)
     assert card.calls == []
+
+
+WKV_GRID = [(B, S, H, K, V, chunk)
+            for B, H in ((1, 32), (8, 32), (2, 3), (64, 1), (1, 1))
+            for S, chunk in ((1, 1), (5, 1), (64, 64), (128, 64), (512, 64),
+                             (1024, 64), (96, 24), (120, 40), (96, 16))
+            for K, V in ((64, 64), (8, 24), (16, 16), (5, 7))]
+
+
+def _covered(plan, B, S, H, V, chunk):
+    """How many times each (b, h, chunk, state column) is in a CTA of the
+    plan's widest kernel (the decode kernel, or the inter kernel: one CTA
+    per (b, h, chunk, V tile), a tile of vt columns from tile * vt)."""
+    n = S // chunk
+    seen = {}
+    for bc in range(B * H * n):
+        for tile in range(plan.vsplit):
+            for col in range(tile * plan.vt, min(V, (tile + 1) * plan.vt)):
+                seen[(bc, col)] = seen.get((bc, col), 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("B,S,H,K,V,chunk", WKV_GRID)
+def test_wkv_plan_on_a_grid(B, S, H, K, V, chunk):
+    """Chunk 1 plans the decode kernel (32 columns a CTA), a longer chunk
+    the chunked variant; every (b, h, chunk) and every state column in one
+    CTA exactly once; V whole, or halved where the B * H * n CTAs of whole
+    tiles fill at most half the 132 SMs; the chain folded while n <= 5; the
+    workspace exactly o_intra, r_hat, dS, the decays and (launched chain)
+    every h_{c-1}."""
+    plan = _wkv_plan(B, S, H, K, V, chunk, 132)
+    n = S // chunk
+    assert plan.n == n
+    seen = _covered(plan, B, S, H, V, chunk)
+    assert len(seen) == B * H * n * V and set(seen.values()) == {1}
+    assert plan.vsplit == -(-V // plan.vt)
+    if chunk == 1:
+        assert plan.variant == "decode" and plan.ws_elems == 0
+        assert plan.vt == 32 and plan.ctas == B * H * plan.vsplit
+        return
+    V4 = -(-V // 4) * 4
+    assert plan.variant == "chunked"
+    split = V4 % 8 == 0 and 2 * B * H * n <= 132
+    assert plan.vt == (V4 // 2 if split else V4)
+    assert plan.ctas == B * H * n * plan.vsplit
+    assert plan.chain == ("fold" if n <= 5 else "launch")
+    bhn = B * H * n
+    assert plan.ws_elems == B * S * H * V + bhn * (chunk * K + K * V + K) + \
+        (bhn * K * V if plan.chain == "launch" else 0)
+
+
+def test_wkv_plan_refuses_what_the_kernel_does_not_take():
+    """K, V or the chunk past 64, a chunk that does not divide S, a decode
+    plan at a chunk > 1 or of another tile, an unknown chain, a V tile off
+    the grid of 4."""
+    for args in ((1, 64, 2, 65, 64, 64), (1, 64, 2, 64, 65, 64),
+                 (1, 128, 2, 64, 64, 128), (1, 100, 2, 64, 64, 64)):
+        with pytest.raises(ValueError):
+            _wkv_plan(*args)
+    with pytest.raises(ValueError, match="chunk 1 alone"):
+        _wkv_plan(1, 64, 2, 64, 64, 64, variant="decode")
+    with pytest.raises(ValueError, match="folded or launched"):
+        _wkv_plan(1, 64, 2, 64, 64, 64, chain="ring")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _wkv_plan(1, 64, 2, 64, 64, 64, vt=18)
+    with pytest.raises(ValueError, match="32 columns a CTA"):
+        _wkv_plan(8, 1, 2, 64, 64, 1, vt=64)
+
+
+def _wkv_args(B, S, H, K, V):
+    r = torch.zeros(B, S, H, K)
+    return (r, r, torch.zeros(B, S, H, V), r, torch.zeros(H, K),
+            torch.zeros(B, H, K, V))
+
+
+def _launch_plan_args(args):
+    """(variant, chain, vt, workspace given) of a recorded launch."""
+    return args[-5:-2] + (args[-2] is not None,)
+
+
+@pytest.mark.parametrize("B,S,H,K,V,chunk", [
+    (1, 512, 32, 64, 64, 64), (8, 1, 32, 64, 64, 1), (1, 64, 32, 64, 64, 64),
+    (2, 5, 4, 16, 16, 1), (1, 1024, 32, 64, 64, 64)])
+def test_wkv_plan_reaches_the_launch(card, B, S, H, K, V, chunk):
+    """Without a plan the wrapper launches under ``_wkv_plan``'s; a forced
+    plan reaches the launch's arguments as given; every plan counts one
+    launch a call, however many kernels it runs."""
+    args = _wkv_args(B, S, H, K, V)
+    plan = _wkv_plan(B, S, H, K, V, chunk, 132)
+    wkv_bshk_cuda(*args, chunk=chunk)
+    forced = [_wkv_plan(B, S, H, K, V, chunk, 132, variant="chunked",
+                        chain=c, vt=vt)
+              for c in ("fold", "launch") for vt in (16, V)]
+    if chunk == 1:
+        forced += [_wkv_plan(B, S, H, K, V, 1, 132, variant="decode")]
+    for p in forced:
+        wkv_bshk_cuda(*args, chunk=chunk, plan=p)
+    assert card.calls == ["wkv_bshk_launch"] * (1 + len(forced))
+    for got, p in zip(card.args, [plan] + forced):
+        assert _launch_plan_args(got) == (
+            int(p.variant == "decode"), int(p.chain == "launch"), p.vt,
+            p.ws_elems > 0)
+        assert got[9:15] == (B, S, H, K, V, chunk)
+    counts = ops.launch_counts()
+    assert counts["wkv_bshk"] == 1 + len(forced)
+    assert wkv_bshk_cuda.launches_by_chunk == {chunk: 1 + len(forced)}
+
+
+def test_linear_attn_plan_reaches_the_launch(card):
+    """``linear_attn_cuda`` plans with H = 1 over its BH rows: sixteen
+    chunks launch the chain; a forced plan reaches the launch; one count a
+    call."""
+    t = torch.zeros(64, 1024, 64)
+    linear_attn_cuda(t, t, t, t, torch.zeros(64, 64), chunk=64)
+    p = _wkv_plan(64, 1024, 1, 64, 64, 64, 132, chain="fold", vt=32)
+    linear_attn_cuda(t, t, t, t, torch.zeros(64, 64), chunk=64, plan=p)
+    assert card.calls == ["linear_attn_launch"] * 2
+    assert _launch_plan_args(card.args[0]) == (0, 1, 64, True)
+    assert _launch_plan_args(card.args[1]) == (0, 0, 32, True)
+    assert card.args[0][7:12] == (64, 1024, 64, 64, 64)
+    assert ops.launch_counts()["linear_attn"] == 2
+
+
+def test_wkv_plan_of_another_shape_is_refused_before_a_launch(card):
+    """A plan made for another chunk count, other heads or widths (whose
+    workspace would not fit), or a decode plan at a chunk > 1, raises
+    before any launch and counts nothing."""
+    args = _wkv_args(1, 128, 2, 16, 16)
+    for other in (_wkv_plan(1, 64, 2, 16, 16, 64, 132),
+                  _wkv_plan(1, 128, 4, 16, 16, 64, 132),
+                  _wkv_plan(1, 128, 2, 32, 16, 64, 132),
+                  _wkv_plan(1, 128, 2, 16, 16, 1, 132)):
+        with pytest.raises(ValueError, match="not one for"):
+            wkv_bshk_cuda(*args, chunk=64, plan=other)
+    assert card.calls == [] and ops.launch_counts()["wkv_bshk"] == 0
+
+
+def test_wkv_kernels_refuse_wide_or_long_chunks_before_a_launch(card):
+    """K, V or the chunk past 64 raise before any launch of either entry
+    point, and count nothing."""
+    for K, V, chunk in ((65, 8, 4), (8, 65, 4), (8, 8, 65)):
+        S = 2 * chunk
+        with pytest.raises(ValueError, match="K, V <= 64|chunk must be in"):
+            wkv_bshk_cuda(*_wkv_args(1, S, 2, K, V), chunk=chunk)
+        t = torch.zeros(2, S, K)
+        with pytest.raises(ValueError, match="K, V <= 64|chunk must be in"):
+            linear_attn_cuda(t, t, torch.zeros(2, S, V), t,
+                             torch.zeros(2, K), chunk=chunk)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert counts["wkv_bshk"] == counts["linear_attn"] == 0
 
 
 def _adaptnetx_params(C=135, E=16, H=128, rows=50):

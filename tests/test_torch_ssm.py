@@ -9,6 +9,17 @@ engine's registry against the JAX reference on the same numpy inputs.
 * The plain linear attention against ``ops.linear_attn`` (Pallas,
   interpret) and the sequential ``ref.linear_attn_ref`` at the reference's
   2e-4.
+* The plain twin of the CUDA kernel's chunk-parallel decomposition
+  (``wkv_scan_parallel``: every chunk's intra part at once, the chain in
+  chunk order, then the inter part; A factorised across 16-row
+  sub-chunks) against ``wkv_scan``, the reference's Pallas
+  ``linear_attn_bshk_pallas`` / ``linear_attn_pallas`` (interpret) and its
+  ``_wkv_chunked``, on ``WKV_CASES``, chunk 64 at S = 64, 100 and 512 and
+  chunks 24 and 40 (sub-chunk boundaries that do not divide them) with
+  decays down to -e, and chunk 1 over 5 rows: 2e-5 absolute, and 1e-5 of
+  the largest magnitude for the strong decays (their cumsums reach ~ -174,
+  where summation order moves cs by ~1e-5).  Its final state is bitwise
+  ``wkv_scan``'s: the chain rounds as the scan does.
 * ``rwkv_block_apply``, model prefill and decode logits of the reduced
   rwkv6 (JAX-initialised weights carried across) for both ``ssm_impl``
   routes: 2e-5 (f32 summation order through two layers; logits ~3).
@@ -59,14 +70,18 @@ def _threads():
     torch.set_num_threads(2)
 
 
-def _wkv_inputs(case, seed=0):
+def _wkv_inputs(case, seed=0, strong=False):
+    """Random WKV operands; ``strong`` draws log decays over the model's
+    whole clip range, -exp(U(-12, 1)) (down to -e)."""
     B, S, H, K, V, _ = case
     rng = np.random.default_rng(seed)
     f = np.float32
-    return (rng.standard_normal((B, S, H, K)).astype(f),
-            rng.standard_normal((B, S, H, K)).astype(f),
-            rng.standard_normal((B, S, H, V)).astype(f),
-            (-np.exp(rng.standard_normal((B, S, H, K)) * 0.5 - 2.0)).astype(f),
+    r = rng.standard_normal((B, S, H, K)).astype(f)
+    k = rng.standard_normal((B, S, H, K)).astype(f)
+    v = rng.standard_normal((B, S, H, V)).astype(f)
+    lw = -np.exp(rng.uniform(-12.0, 1.0, (B, S, H, K))) if strong else \
+        -np.exp(rng.standard_normal((B, S, H, K)) * 0.5 - 2.0)
+    return (r, k, v, lw.astype(f),
             (rng.standard_normal((H, K)) * 0.1).astype(f),
             (rng.standard_normal((B, H, K, V)) * 0.3).astype(f))
 
@@ -85,6 +100,74 @@ def test_wkv_plain_matches_reference(case):
     po, psf = ssm._wkv_chunked(*map(torch.from_numpy, args), chunk)
     np.testing.assert_allclose(po.numpy(), o.numpy(), atol=2e-5)
     np.testing.assert_allclose(psf.numpy(), sf.numpy(), atol=2e-5)
+
+
+TWIN_CASES = [(c, False) for c in WKV_CASES] + [
+    # chunk 64 at one, two (ragged) and eight chunks, sub-chunk boundaries
+    # that do not divide the chunk, and chunk 1 over 5 rows; decays to -e
+    ((1, 64, 2, 16, 16, 64), True),
+    ((1, 100, 2, 16, 16, 64), True),
+    ((1, 512, 2, 16, 16, 64), True),
+    ((2, 96, 2, 16, 8, 24), True),
+    ((1, 120, 2, 8, 16, 40), True),
+    ((2, 5, 3, 16, 16, 1), True),
+]
+
+
+@pytest.mark.parametrize("case,strong", TWIN_CASES,
+                         ids=[f"{c}{'-strong' if s else ''}"
+                              for c, s in TWIN_CASES])
+def test_wkv_parallel_twin_matches_reference(case, strong):
+    """``wkv_scan_parallel`` (the CUDA kernel's decomposition) against the
+    sequential plain scan, the reference's Pallas kernel in interpret mode
+    and its ``_wkv_chunked``."""
+    from repro_torch.kernels.linear_attn import wkv_scan, wkv_scan_parallel
+    args = _wkv_inputs(case, 3, strong)
+    S, chunk = case[1], case[-1]
+    r, k, v, lw, u, s0 = map(torch.from_numpy, args)
+    rr, kk, vv, ww = ops._pad_rows(chunk, r, k, v, lw)
+    o, sf = wkv_scan_parallel(rr, kk, vv, ww, u[None], s0, chunk)
+    po, psf = wkv_scan(rr, kk, vv, ww, u[None], s0, chunk)
+    assert torch.equal(sf, psf)          # the chain rounds as the scan does
+    o = o[:, :S].numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    wants = [(po[:, :S].numpy(), psf.numpy())]
+    wants += [tuple(map(np.asarray, w)) for w in (
+        jops.wkv_attention(*jargs, chunk, True),
+        jssm._wkv_chunked(*jargs, chunk))]
+    for wo, wsf in wants:
+        tol = 1e-5 * max(1.0, np.abs(wo).max(), np.abs(wsf).max()) \
+            if strong else 2e-5
+        np.testing.assert_allclose(o, wo, atol=tol, rtol=0)
+        np.testing.assert_allclose(sf.numpy(), wsf, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 64, 16, 16), 16),
+                                         ((4, 100, 16, 32), 32),
+                                         ((1, 257, 32, 32), 64)])
+def test_linear_attn_parallel_twin_matches_reference(shape, chunk):
+    """The twin on ``linear_attn``'s layout (one head a row, u a row, zero
+    state) against ``ops.linear_attn`` (Pallas, interpret) and the
+    sequential ``ref.linear_attn_ref`` at the reference's 2e-4."""
+    from repro_torch.kernels.linear_attn import wkv_scan_parallel
+    BH, S, K, V = shape
+    rng = np.random.default_rng(1)
+    f = np.float32
+    args = ((rng.standard_normal((BH, S, K)) * 0.5).astype(f),
+            (rng.standard_normal((BH, S, K)) * 0.5).astype(f),
+            rng.standard_normal((BH, S, V)).astype(f),
+            (-np.exp(rng.standard_normal((BH, S, K)) * 0.5 - 3.0)).astype(f),
+            (rng.standard_normal((BH, K)) * 0.1).astype(f))
+    t = [torch.from_numpy(a) for a in args]
+    padded = ops._pad_rows(chunk, *t[:4])
+    o, _ = wkv_scan_parallel(*(x[:, :, None] for x in padded), t[4][:, None],
+                             torch.zeros(BH, 1, K, V), chunk)
+    out = o[:, :S, 0].numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (jops.linear_attn(*jargs, chunk=chunk, interpret=True),
+                 jref.linear_attn_ref(*jargs)):
+        np.testing.assert_allclose(out, np.asarray(want), rtol=2e-4,
+                                   atol=2e-4)
 
 
 def test_wkv_state_carry_composes():
