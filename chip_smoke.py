@@ -1131,10 +1131,11 @@ def check_flash(torch, report, timer, cfg):
     query (Sq = 500, Skv = 1000: their dk/dv must be exactly 0), the
     bidirectional form, a bf16 forward, and a group of G = 8 (32 / 4
     heads: 8 dk/dv partials a kv head).  The backward kernels are held
-    alone: both versions get the kernel forward's lse and delta.  The main
-    case's dk/dv runs twice and must give the same bits; each case logs
-    its plan (``_flash_plan``), and the build's registers, spills and
-    SASS FFMA / LDS counts of each flash kernel are logged first.
+    alone: both versions get the kernel forward's lse and delta.  In the
+    main and G = 8 cases dq and dk/dv run twice and must give the same
+    bits; each case logs its plan (``_flash_plan``), and the build's
+    registers, spills and SASS FFMA / LDS counts of each flash kernel are
+    logged first.
     Tolerances are the reference's for its kernel: 2e-6 absolute + 2e-6
     relative (f32 forward), 2e-2 (bf16), 3e-5 absolute + 1e-3 relative
     (gradients).  Every case is timed against the plain versions and
@@ -1200,9 +1201,11 @@ def check_flash(torch, report, timer, cfg):
             zeros = bool((dk[:, Sq:] == 0).all() and (dv[:, Sq:] == 0).all())
             good &= zeros
         bitwise = None
-        if name == "main":
+        if name in ("main", "G = 8"):
+            dq2 = flash_dq_cuda(*stats, causal=causal, scale=scale)
             dk2, dv2 = flash_dkv_cuda(*stats, causal=causal, scale=scale)
-            bitwise = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+            bitwise = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                           and torch.equal(dv, dv2))
             good &= bitwise
         ok &= good
         rec = {"case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
@@ -1210,17 +1213,18 @@ def check_flash(torch, report, timer, cfg):
                "dtype": str(dt).split(".")[-1], "plan": plan._asdict(),
                "max_abs_err": errs,
                "tol": {k: (a, r) for k, (_, _, a, r) in res.items()},
-               "past_rows_zero": zeros, "dkv_run_to_run_bitwise": bitwise,
+               "past_rows_zero": zeros, "run_to_run_bitwise": bitwise,
                "ok": good}
         log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} "
             f"{rec['dtype']} {'causal' if causal else 'full'}: max_abs_err "
             + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
             + (f"; dk/dv past every query {'0' if zeros else 'NONZERO'}"
                if zeros is not None else "")
-            + (f"; dk/dv run to run bitwise {bitwise}"
+            + (f"; dq, dk/dv run to run bitwise {bitwise}"
                if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
         log(f"    plan: forward 64 query rows a CTA, {plan.fwd_stages} "
-            f"ring stage(s); dk/dv {plan.dkv_rows} kv rows a CTA, "
+            f"ring stage(s); dq {plan.dq_rows} query rows a CTA, 2 ring "
+            f"stages; dk/dv {plan.dkv_rows} kv rows a CTA, "
             f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
             f"{plan.parts} partial(s) a kv head")
         pairs = B * H * sum(min(r + 1, Skv) if causal else Skv

@@ -18,10 +18,10 @@
 // l is clamped at 1e-30; lse = m + log(l); ds = p (dp - delta) * scale is
 // rounded to the operand type before ds @ k and ds^T @ q, and dv = p^T @ do
 // in f32; each query head's dk/dv is rounded to the output type before the
-// group sum, so a kv row past every query gets exact zeros.  The forward
-// and dk/dv take exp as exp2 of log2(e)-scaled scores (the forward keeps m
-// in log2 units and returns lse = m ln 2 + log l); dq keeps expf.  Only the
-// summation order and that rounding differ from the reference's.
+// group sum, so a kv row past every query gets exact zeros.  Every kernel
+// takes exp as exp2 of log2(e)-scaled scores (the forward keeps m in log2
+// units and returns lse = m ln 2 + log l).  Only the summation order and
+// that rounding differ from the reference's.
 //
 // What bounds it on the H100: operations.  At training shapes (S = 1024,
 // hd = 64) every q row meets up to 1024 keys, about 4 hd flops a pair each
@@ -29,9 +29,10 @@
 // FMAs (67 TFLOP/s peak), never TF32; bf16 operands are widened to f32 as
 // they land in shared memory and take the same path.
 //
-// The forward and dk/dv kernels (kernels/flash_attn.py::_flash_plan picks
-// the ring stages, the kv rows of a dk/dv CTA and the heads it walks; a
-// forward CTA holds 64 query rows, three CTAs an SM at W = 64):
+// The design of all three (kernels/flash_attn.py::_flash_plan picks the
+// forward's and dk/dv's ring stages, the rows of a dq or dk/dv CTA and the
+// heads a dk/dv CTA walks; a forward CTA holds 64 query rows, three CTAs
+// an SM at W = 64; dq's ring has 2 stages):
 //  * Register-blocked products.  A warp owns 16 rows of a tile; lane (ly,
 //    lx) = (lane / 8, lane % 8) owns rows ly + 4i (i < 4) and columns lx +
 //    8j (j < 8) of a 64-column score tile, and columns 32c + 4lx .. +3 (c <
@@ -41,17 +42,21 @@
 //    V (4 + 4 NCV loads for 32 NCV FFMA a column step).  Row strides W + 4
 //    (W = 32 NCV) and 72 keep every read and p's stores conflict-free.
 //  * A warp's rows never leave it: the 8 lanes of a row reduce its max and
-//    sum with __shfl_xor_sync and keep m, l and the rescale in registers,
-//    and p (and in dk/dv ds) passes through the warp's own rows of a
-//    shared tile, so a tile costs one barrier, the ring's.
-//  * A cp.async ring (1 or 2 stages) brings K/V tiles (forward) or q, do,
-//    lse and delta tiles (dk/dv) ahead of the products: 16-byte copies for
-//    f32 rows on 16-byte boundaries, 4-byte ones for other f32 rows;
+//    sum with __shfl_xor_sync and keep m, l and the rescale (or dq's lse
+//    and delta) in registers, and p (and in dq and dk/dv ds) passes through
+//    the warp's own rows of a shared tile, so a tile costs one barrier, the
+//    ring's.
+//  * A cp.async ring (1 or 2 stages) brings K/V tiles (forward, dq) or q,
+//    do, lse and delta tiles (dk/dv) ahead of the products: 16-byte copies
+//    for f32 rows on 16-byte boundaries, 4-byte ones for other f32 rows;
 //    bf16 rows take ordinary loads, widened as they land.
 //  * Masks only where a warp's part of a tile needs them (the causal
-//    diagonal, the ragged edges); a dk/dv warp with nothing live skips
-//    the tile.
+//    diagonal, the ragged edges); a dq or dk/dv warp with nothing live
+//    (causally, or all its rows past the end) skips the tile.
 //  * Heaviest first: a 1-D grid whose leading CTAs walk the most tiles.
+//  * dq: one CTA per (64 or 128 query rows, head, batch) holds its q and
+//    do tiles and computes s = q K^T -> p, dp = do V^T -> ds, dq += ds K,
+//    the kv tiles in order (no atomics, no split of the walk).
 //  * dk/dv: one CTA per (64 or 128 kv rows, `heads` query heads, batch)
 //    holds its K and V tiles and computes s = K q^T -> p, dv += p^T do,
 //    dp = V do^T -> ds, dk += ds^T q.  Each head's dk/dv is rounded to the
@@ -59,8 +64,6 @@
 //    a CTA and then over the group's CTAs by a second kernel reading their
 //    partials from an f32 scratch (summing across a thread-block cluster
 //    through distributed shared memory measured slower: PERF.md).
-// dq keeps its first design (64 x 64 tiles of 4 x 4 micro-tiles, staged
-// synchronously) until it is redesigned the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,16 +73,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 256;        // threads per CTA (16 x 16) of dq
-constexpr int TILE = 64;       // query rows and kv rows per tile
-constexpr int RT = 4;          // tile rows a thread owns (TILE / 16)
-constexpr int SC = 4;          // score columns a thread owns (TILE / 16)
-constexpr int LDS = TILE + 1;  // row stride of a score tile in shared memory
 constexpr float NEG = -1e30f;
-
-constexpr int KT = 64;         // kv rows (forward) / query rows (dk/dv) a tile
+constexpr int KT = 64;         // kv rows (forward, dq) / query rows (dk/dv) a tile
 constexpr int FWD_THREADS = 128;  // 64 query rows of a forward CTA
 constexpr int LDP = KT + 8;    // row stride of a p / ds tile
+constexpr int DQ_STAGES = 2;   // K/V tiles in dq's cp.async ring
 constexpr int MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
@@ -240,31 +238,29 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-struct Dims {
-  int Sq, Skv, H, KVH, hd, hdv, causal;
-  float scale;
-};
-
-// the forward's and dk/dv's launch: shapes, plan and which rows may take
-// 16-byte copies
+// a launch: shapes, plan and which rows may take 16-byte copies
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse_in, *delta;
-  void *o1, *o2;     // o (forward) or dk, dv
+  void *o1, *o2;     // o (forward), dq, or dk, dv
   float* lse_out;
   float* ws;         // dk/dv: the f32 partials of a kv head's group, or null
   int B, Sq, Skv, H, KVH, hd, hdv, causal;
   float scale;
-  int rows, stages, heads, parts;  // rows: dk/dv's kv rows a CTA
+  int rows, stages, heads, parts;  // rows: dq's query / dk/dv's kv rows a CTA
   int vec_q, vec_k, vec_v, vec_o;
 };
 
 __host__ __device__ constexpr int cdiv_c(int a, int b) { return (a + b - 1) / b; }
 
-// shared memory (bytes) of a forward CTA (64 query rows) and of a dk/dv
-// CTA of `rows` kv rows, at output width W and `stages` ring stages
+// shared memory (bytes) of a forward CTA (64 query rows), of a dq CTA of
+// `rows` query rows (DQ_STAGES ring stages) and of a dk/dv CTA of `rows`
+// kv rows, at output width W and `stages` ring stages
 __host__ __device__ constexpr int fwd_smem(int W, int stages) {
   return 4 * (64 * (W + 4) + stages * 2 * KT * (W + 4) + 64 * LDP);
+}
+__host__ __device__ constexpr int dq_smem(int rows, int W) {
+  return 4 * (2 * rows * (W + 4) + rows * LDP + DQ_STAGES * 2 * KT * (W + 4));
 }
 __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
   return 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (W + 4) + 2 * KT));
@@ -416,133 +412,109 @@ __global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
 // backward: dq
 // ---------------------------------------------------------------------------
 
-// dq's staging and products (the first design)
+// One CTA of a.rows / 16 warps (64 or 128 query rows) of one (head,
+// batch): CTA x = ((nqt - 1 - t) * B + b) * H + h, so the heaviest causal
+// tile of every head starts first and a kv group's heads, which read the
+// same K/V tiles, run side by side.  Its q and do tiles stay resident; K/V
+// tiles come through a 2-stage ring.  A warp's 16 rows compute s = q K^T and dp
+// = do V^T, form ds = round_T(p (dp - delta) scale) in registers, store it
+// to their own rows of a ds tile and add ds K into dq: each row's sum runs
+// over the kv tiles in order, k = 0 .. 63 within a tile, under every plan.
+template <typename T, int NCV>
+__global__ void __launch_bounds__(256) flash_dq_kernel(const Args a) {
+  constexpr int W = 32 * NCV, LD = W + 4;
+  const int BQ = a.rows, nthr = blockDim.x;
+  const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
+  const int lin = blockIdx.x;
+  const int q0 = (nqt - 1 - lin / HB) * BQ;
+  const int h = lin % a.H, b = (lin / a.H) % a.B;
+  const int kvh = h / (a.H / a.KVH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int r0 = warp * 16 + ly;  // the lane's rows: r0 + 4i
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;                  // BQ x LD
+  float* Os = Qs + BQ * LD;        // do, BQ x LD
+  float* Ds = Os + BQ * LD;        // ds, BQ x LDP
+  float* ring = Ds + BQ * LDP;     // DQ_STAGES x (K, V), KT x LD each
 
-// TILE rows of d values from src (row r at src + (row0 + r) * stride) into
-// dst (row stride ld >= width) as f32; rows at or past `rows` and columns
-// d..width-1 are zero.
-template <typename T>
-__device__ void load_rows(float* dst, int ld, int width, const T* __restrict__ src,
-                          long long stride, int row0, int rows, int d) {
-  for (int idx = threadIdx.x; idx < TILE * width; idx += NT) {
-    const int r = idx / width, c = idx - r * width;
-    const int gr = row0 + r;
-    dst[r * ld + c] = (gr < rows && c < d) ? to_f(src[gr * stride + c]) : 0.f;
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const T* qb = static_cast<const T*>(a.q) + (long long)b * a.Sq * qstride + (long long)h * a.hd;
+  const T* ob = static_cast<const T*>(a.dout) + (long long)b * a.Sq * ostride + (long long)h * a.hdv;
+  const T* kb = static_cast<const T*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const T* vb = static_cast<const T*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
+  const int n = cdiv_c(kv_end, KT);
+  auto load = [&](int t) {
+    float* st = ring + (t % DQ_STAGES) * 2 * KT * LD;
+    copy_rows<T, W>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_rows<T, W>(st + KT * LD, vb, vstride, t * KT, KT, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  };
+  copy_rows<T, W>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  copy_rows<T, W>(Os, ob, ostride, q0, BQ, a.Sq, a.hdv, a.vec_o, tid, nthr);
+  load(0);  // n >= 1: Skv > 0, and a causal CTA sees key 0
+  cp_async_commit();
+
+  // -lse log2(e) and delta of the lane's rows (0 past Sq, where q and do
+  // are zero rows, so ds is 0)
+  const long long srow = ((long long)b * a.H + h) * a.Sq;
+  float nl[4], dl[4], dq[4][4 * NCV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r0 + 4 * i;
+    nl[i] = row < a.Sq ? -a.lse_in[srow + row] * LOG2E : 0.f;
+    dl[i] = row < a.Sq ? a.delta[srow + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NCV; ++c) dq[i][c] = 0.f;
   }
-}
-
-// TILE f32 values (lse or delta of a query tile) into dst; zero past `rows`.
-__device__ void load_vec(float* dst, const float* __restrict__ src, int row0, int rows) {
-  for (int i = threadIdx.x; i < TILE; i += NT) dst[i] = row0 + i < rows ? src[row0 + i] : 0.f;
-}
-
-// acc[r][c] += sum_kk A[(4ty + r) * lda + kk] * Bm[kk * ldb + tx + 16c] over
-// kk < TILE: a (TILE x TILE) @ (TILE x 16NC) product into the thread's rows
-template <int NC>
-__device__ __forceinline__ void mma_rows(float (&acc)[RT][NC], const float* A, int lda,
-                                         const float* Bm, int ldb, int ty, int tx) {
-  for (int kk = 0; kk < TILE; ++kk) {
-    float a[RT];
+  const int hd4 = (a.hd + 3) & ~3, hdv4 = (a.hdv + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  const int wq = q0 + warp * 16;      // the warp's first row
+  for (int t = 0; t < n; ++t) {
+    cp_async_wait_ring();
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (t + 1 < n) load(t + 1);
+    cp_async_commit();
+    const float* Ks = ring + (t % DQ_STAGES) * 2 * KT * LD;
+    const float* Vs = Ks + KT * LD;
+    const int j0 = t * KT;
+    // nothing live for the warp: all its rows past Sq, or (causal) the
+    // tile wholly right of its last row (128-row CTAs: the low half's
+    // warps on the last tile)
+    if (wq < a.Sq && !(a.causal && j0 > wq + 15)) {
+      const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > wq);
+      float s[4][8], dp[4][8];
+      nt_product(s, Qs + r0 * LD, Ks + lx * LD, LD, hd4);
+      nt_product(dp, Os + r0 * LD, Vs + lx * LD, LD, hdv4);
 #pragma unroll
-    for (int r = 0; r < RT; ++r) a[r] = A[(ty * RT + r) * lda + kk];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float b = Bm[kk * ldb + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r][c] = fmaf(a[r], b, acc[r][c]);
+        for (int j = 0; j < 8; ++j) {
+          float p = exp2_ftz(fmaf(s[i][j], sl2, nl[i]));
+          if (edge) {
+            const int row = q0 + r0 + 4 * i, col = j0 + lx + 8 * j;
+            if (!(col < a.Skv && (!a.causal || col <= row))) p = 0.f;
+          }
+          Ds[(r0 + 4 * i) * LDP + lx + 8 * j] = round_to<T>(p * (dp[i][j] - dl[i]) * a.scale);
+        }
+      __syncwarp();  // a row's ds comes from the 8 lanes of its own warp
+      nn_product<NCV>(dq, Ds + r0 * LDP, LDP, Ks + 4 * lx, LD);
     }
   }
-}
 
-// s[r][c] = sum_k X[(4ty + r) * ld + k] * Y[(tx + 16c) * ld + k] over k < d:
-// the thread's entries of a (TILE x d) @ (TILE x d)^T product
-__device__ __forceinline__ void dot_rows(float (&s)[RT][SC], const float* X, const float* Y,
-                                         int ld, int d, int ty, int tx) {
+  T* dqg = static_cast<T*>(a.o1);
 #pragma unroll
-  for (int r = 0; r < RT; ++r)
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r0 + 4 * i;
+    if (row >= a.Sq) continue;
+    T* drow = dqg + ((long long)b * a.Sq + row) * qstride + (long long)h * a.hd;
 #pragma unroll
-    for (int c = 0; c < SC; ++c) s[r][c] = 0.f;
-  for (int k = 0; k < d; ++k) {
-    float x[RT], y[SC];
+    for (int c = 0; c < NCV; ++c)
 #pragma unroll
-    for (int r = 0; r < RT; ++r) x[r] = X[(ty * RT + r) * ld + k];
-#pragma unroll
-    for (int c = 0; c < SC; ++c) y[c] = Y[(tx + 16 * c) * ld + k];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int c = 0; c < SC; ++c) s[r][c] = fmaf(x[r], y[c], s[r][c]);
-  }
-}
-
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, Dims D) {
-  constexpr int W = 16 * NC, LD = W + 1;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (D.H / D.KVH);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  extern __shared__ float sm[];
-  float* Qs = sm;                 // TILE x LD
-  float* Os = Qs + TILE * LD;     // do, TILE x LD
-  float* Ks = Os + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* DS = Vs + TILE * LD;     // TILE x LDS
-  float* Ls = DS + TILE * LDS;    // lse of the tile's rows
-  float* Dl = Ls + TILE;          // delta of the tile's rows
-
-  const long long qstride = (long long)D.H * D.hd, ostride = (long long)D.H * D.hdv;
-  const long long kstride = (long long)D.KVH * D.hd, vstride = (long long)D.KVH * D.hdv;
-  const T* qb = q + (long long)b * D.Sq * qstride + (long long)h * D.hd;
-  const T* ob = dout + (long long)b * D.Sq * ostride + (long long)h * D.hdv;
-  const T* kb = k + (long long)b * D.Skv * kstride + (long long)kvh * D.hd;
-  const T* vb = v + (long long)b * D.Skv * vstride + (long long)kvh * D.hdv;
-  const long long srow = ((long long)b * D.H + h) * D.Sq;
-  load_rows(Qs, LD, W, qb, qstride, q0, D.Sq, D.hd);
-  load_rows(Os, LD, W, ob, ostride, q0, D.Sq, D.hdv);
-  load_vec(Ls, lse + srow, q0, D.Sq);
-  load_vec(Dl, delta + srow, q0, D.Sq);
-  float acc[RT][NC];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const int kv_end = D.causal ? min(D.Skv, q0 + TILE) : D.Skv;
-  for (int j0 = 0; j0 < kv_end; j0 += TILE) {
-    __syncthreads();
-    load_rows(Ks, LD, W, kb, kstride, j0, D.Skv, D.hd);
-    load_rows(Vs, LD, W, vb, vstride, j0, D.Skv, D.hdv);
-    __syncthreads();
-    float s[RT][SC], dp[RT][SC];
-    dot_rows(s, Qs, Ks, LD, D.hd, ty, tx);
-    dot_rows(dp, Os, Vs, LD, D.hdv, ty, tx);
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int c = 0; c < SC; ++c) {
-        const int i = ty * RT + r, row = q0 + i, col = j0 + tx + 16 * c;
-        const bool live = col < D.Skv && (!D.causal || col <= row);
-        const float p = live ? expf(s[r][c] * D.scale - Ls[i]) : 0.f;
-        DS[i * LDS + tx + 16 * c] = round_to<T>(p * (dp[r][c] - Dl[i]) * D.scale);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < a.hd) drow[col] = from_f<T>(dq[i][4 * c + e]);
       }
-    __syncthreads();
-    mma_rows<NC>(acc, DS, LDS, Ks, LD, ty, tx);
-  }
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int row = q0 + ty * RT + r;
-    if (row >= D.Sq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D.hd)
-        dq[((long long)b * D.Sq + row) * qstride + (long long)h * D.hd + col] =
-            from_f<T>(acc[r][c]);
-    }
   }
 }
 
@@ -778,19 +750,14 @@ int launch_dkv(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// dq: the first design's launch
-template <typename T, int NC>
-int launch_dq(const void* q, const void* k, const void* v, const void* x, const float* lse,
-              const float* delta, void* o1, int B, const Dims& D, cudaStream_t stream) {
-  constexpr int LD = 16 * NC + 1;
-  const size_t tile = sizeof(float) * TILE * LD, stile = sizeof(float) * TILE * LDS;
-  const size_t smem = 4 * tile + stile + 2 * TILE * sizeof(float);
+template <typename T, int NCV>
+int launch_dq(const Args& a, cudaStream_t st) {
+  const int smem = dq_smem(a.rows, 32 * NCV);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if ((e = set_smem(flash_dq_kernel<T, NC>, smem)) != cudaSuccess) return (int)e;
-  dim3 grid(cdiv(D.Sq, TILE), D.H, B);
-  flash_dq_kernel<T, NC><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(x), lse, delta, static_cast<T*>(o1), D);
+  if ((e = set_smem(flash_dq_kernel<T, NCV>, smem)) != cudaSuccess) return (int)e;
+  const long long grid = (long long)cdiv(a.Sq, a.rows) * a.H * a.B;
+  flash_dq_kernel<T, NCV><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -799,8 +766,8 @@ bool valid(int B, int Sq, int Skv, int H, int KVH, int hd, int hdv) {
          hd <= 128 && hdv <= 128 && B <= 65535 && H <= 65535;
 }
 
-// the forward's and dk/dv's Args from a launch's arguments; false where
-// the plan is not one the kernels take
+// a launch's Args from its arguments; false where the plan is not one the
+// kernels take
 bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int hd, int hdv,
                int causal, float scale, int rows, int stages) {
   if (!valid(B, Sq, Skv, H, KVH, hd, hdv) || dtype < 0 || dtype > 1) return false;
@@ -838,18 +805,15 @@ extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const v
 extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const float* lse, const float* delta, void* dq,
                                int B, int Sq, int Skv, int H, int KVH, int hd, int hdv,
-                               int causal, float scale, void* stream) {
-  if (!valid(B, Sq, Skv, H, KVH, hd, hdv)) return (int)cudaErrorInvalidValue;
-  const Dims D{Sq, Skv, H, KVH, hd, hdv, causal, scale};
+                               int causal, float scale, int rows, void* stream) {
+  Args a = {};
+  a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta, a.o1 = dq;
+  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, DQ_STAGES))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = (hd > hdv ? hd : hdv) > 64;
-  if (dtype == 0)
-    return wide ? launch_dq<float, 8>(q, k, v, dout, lse, delta, dq, B, D, st)
-                : launch_dq<float, 4>(q, k, v, dout, lse, delta, dq, B, D, st);
-  if (dtype == 1)
-    return wide ? launch_dq<bf16, 8>(q, k, v, dout, lse, delta, dq, B, D, st)
-                : launch_dq<bf16, 4>(q, k, v, dout, lse, delta, dq, B, D, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return wide ? launch_dq<float, 4>(a, st) : launch_dq<float, 2>(a, st);
+  return wide ? launch_dq<bf16, 4>(a, st) : launch_dq<bf16, 2>(a, st);
 }
 
 // ws: `parts` f32 partials of dk then of dv (parts x B x Skv x KVH x (hd

@@ -10,10 +10,11 @@ returned no error in its ``.launches`` (an empty problem launches nothing
 and counts nothing).  The kernels take any Sq/Skv and mask the ragged
 edges themselves.
 
-:func:`_flash_plan` decides how the forward and dk/dv kernels run a call
-(ring stages, the kv rows of a dk/dv CTA and the query heads it walks,
-so the partials a kv head's group is summed from); both kernels issue their
-heaviest causal tiles first, in the order :func:`_fwd_ctas` and
+:func:`_flash_plan` decides how the three kernels run a call (the
+forward's and dk/dv's ring stages, the query rows of a dq CTA, the kv
+rows of a dk/dv CTA and the query heads it walks, so the partials a kv
+head's group is summed from); each kernel issues its heaviest causal
+tiles first, in the order :func:`_fwd_ctas` (forward and dq) and
 :func:`_dkv_ctas` spell out.
 
 ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` are the
@@ -255,14 +256,14 @@ def _check_stats(lse, delta, B, H, Sq):
 
 
 class FlashPlan(NamedTuple):
-    """How ``csrc/flash_attn.cu`` runs one forward and one dk/dv call (dq
-    keeps its fixed grid of 64 x 64 tiles)."""
+    """How ``csrc/flash_attn.cu`` runs one forward, dq and dk/dv call."""
     fwd_stages: int  # K/V tiles in the forward's cp.async ring
     dkv_rows: int    # kv rows of a dk/dv CTA, 64 or 128 (2 x rows threads)
     dkv_stages: int  # q / do / lse / delta tiles in dk/dv's ring
     heads: int       # query heads a dk/dv CTA walks, in g order
     parts: int       # dk/dv CTAs of one kv head's group: ceil(G / heads),
     #                  whose f32 partials a second kernel sums (G > 1)
+    dq_rows: int     # query rows of a dq CTA, 64 or 128 (2 x rows threads)
 
 
 _TILE = 64                # rows of a forward CTA and of each ring tile
@@ -285,6 +286,12 @@ def _fwd_smem(W: int, stages: int) -> int:
     return 4 * (_TILE * (W + 4) + stages * 2 * _TILE * (W + 4) + _TILE * 72)
 
 
+def _dq_smem(rows: int, W: int) -> int:
+    """Shared bytes of a dq CTA of ``rows`` query rows: q, do, ds, and the
+    K/V tiles of its 2-stage ring — ``dq_smem`` of the source."""
+    return 4 * (2 * rows * (W + 4) + rows * 72 + 2 * 2 * _TILE * (W + 4))
+
+
 def _dkv_smem(rows: int, W: int, stages: int) -> int:
     """Shared bytes of a dk/dv CTA of ``rows`` kv rows: K, V, p^T / ds^T,
     and q, do, lse, delta a stage — ``dkv_smem`` of the source."""
@@ -297,18 +304,23 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
                 fwd_stages: Optional[int] = None,
                 dkv_rows: Optional[int] = None,
                 dkv_stages: Optional[int] = None,
-                heads: Optional[int] = None) -> FlashPlan:
-    """The forward's and dk/dv's plan for one call.
+                heads: Optional[int] = None,
+                dq_rows: Optional[int] = None) -> FlashPlan:
+    """The three kernels' plan for one call.
 
     A forward CTA holds 64 query rows (4 warps); its ring takes the most
     stages (up to 2) that keep the most CTAs an SM its registers allow:
     at W = 64 one stage and three CTAs (two stages would leave two), at W
-    = 128 two.  A dk/dv CTA holds 128 kv rows (8 warps) where that fits
-    two ring stages, else 64, and takes 2 stages where they fit, else 1.
-    It walks ceil(G / 8) query heads, so a kv head's group is summed from
-    at most 8 partials.  ``fwd_stages``, ``dkv_rows``, ``dkv_stages`` (1
-    or 2) and ``heads`` override the rules (``launch/bench_flash.py``
-    times the choices).  Raises where the kernels do not take the plan."""
+    = 128 two.  A dq CTA holds 128 query rows and a dk/dv CTA 128 kv rows
+    (8 warps) where that fits two ring stages, else 64 (W = 128).  dq's
+    ring always has 2 stages (at W = 64, 128 rows and 2 stages measured
+    2-3% faster than 64 rows and 1 stage, two CTAs an SM; PERF.md §6);
+    dk/dv's takes 2 where they fit, else 1.  A dk/dv CTA walks ceil(G /
+    8) query heads, so a kv head's group is summed from at most 8
+    partials.  ``fwd_stages``, ``dq_rows``, ``dkv_rows``, ``dkv_stages``
+    (rows 64 or 128, stages 1 or 2) and ``heads`` override the rules
+    (``launch/bench_flash.py`` times the choices).  Raises where the
+    kernels do not take the plan."""
     if max(hd, hd_v) > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels hold hd, hd_v <= "
                          f"{MAX_HEAD_DIM}, got {hd} / {hd_v}")
@@ -318,10 +330,17 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     if dkv_rows not in (64, 128):
         raise ValueError(f"a dk/dv CTA holds 64 or 128 kv rows, not "
                          f"{dkv_rows}")
+    dq_rows = dq_rows or (128 if _dq_smem(128, W) <= _MAX_SMEM else 64)
+    if dq_rows not in (64, 128):
+        raise ValueError(f"a dq CTA holds 64 or 128 query rows, not "
+                         f"{dq_rows}")
+    if _dq_smem(dq_rows, W) > _MAX_SMEM:
+        raise ValueError(f"a dq CTA of {dq_rows} query rows does not fit "
+                         f"at width {W}")
 
     def ring(smem, stages) -> int:
         if stages is None:
-            return 2 if smem(2) <= _MAX_SMEM else 1
+            stages = 2 if smem(2) <= _MAX_SMEM else 1
         if stages not in (1, 2) or smem(stages) > _MAX_SMEM:
             raise ValueError(f"{stages} ring stages do not fit at width {W}")
         return stages
@@ -335,16 +354,19 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
         raise ValueError(f"a dk/dv CTA walks 1 to G = {G} heads, not {heads}")
     return FlashPlan(ring(lambda n: _fwd_smem(W, n), fwd_stages), dkv_rows,
                      ring(lambda n: _dkv_smem(dkv_rows, W, n), dkv_stages),
-                     heads, -(-G // heads))
+                     heads, -(-G // heads), dq_rows)
 
 
-def _fwd_ctas(B: int, Sq: int, H: int) -> List[Tuple[int, int, int]]:
-    """(query tile, head, batch) of each forward CTA in launch order, as
-    the kernel decodes ``blockIdx.x``: the last (causally heaviest) tile of
-    every head first."""
-    nqt, HB = -(-Sq // _TILE), H * B
+def _fwd_ctas(B: int, Sq: int, H: int,
+              rows: int = _TILE) -> List[Tuple[int, int, int]]:
+    """(query tile, head, batch) of each forward CTA (64 query rows) or dq
+    CTA (the plan's ``rows``) in launch order, as both kernels decode
+    ``blockIdx.x``: the last (causally heaviest) tile of every head first,
+    a kv group's heads side by side."""
+    nqt, HB = -(-Sq // rows), H * B
     return [(nqt - 1 - lin // HB, lin % H, (lin // H) % B)
             for lin in range(nqt * HB)]
+
 
 
 def _dkv_ctas(plan: FlashPlan, B: int, Skv: int, KVH: int,
@@ -390,10 +412,13 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float,
 flash_fwd_cuda.launches = 0      # kernel launches that returned no error
 
 
-def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """dq (B, Sq, H, hd) through the CUDA dq kernel."""
+def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                  plan: Optional[FlashPlan] = None):
+    """dq (B, Sq, H, hd) through the CUDA dq kernel, under
+    :func:`_flash_plan`'s plan unless ``plan`` gives another."""
     from repro_torch.kernels import _build
     B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v, do, lse, delta)
+    plan = plan or _flash_plan(H, KVH, hd, hd_v)
     if do.shape != (B, Sq, H, hd_v) or do.dtype != q.dtype:
         raise ValueError(f"do must be {(B, Sq, H, hd_v)} {q.dtype}, got "
                          f"{tuple(do.shape)} {do.dtype}")
@@ -406,7 +431,8 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     err = _build.library("flash_attn").flash_dq_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B,
-        Sq, Skv, H, KVH, hd, hd_v, int(causal), scale, _stream(q))
+        Sq, Skv, H, KVH, hd, hd_v, int(causal), scale, plan.dq_rows,
+        _stream(q))
     _build.check(err, "flash attention dq")
     flash_dq_cuda.launches += 1
     return dq

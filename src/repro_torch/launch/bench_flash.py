@@ -11,11 +11,13 @@ f32 CUDA-core peak, the causal pairs counted) and beside
 ``F.scaled_dot_product_attention`` in f32 with ``enable_gqa=True`` (its
 forward; its backward through autograd computes dq, dk and dv at once), a
 yardstick the port never calls.  With ``--variant`` the forward also runs
-with 1 and 2 ring stages (three and two CTAs an SM), and dk/dv with 64
-and 128 kv rows a CTA, 1 and 2 stages, one or two heads a CTA, and every
-head of a group in one CTA; each variant is held to the plan's result,
-bitwise (two heads a CTA: at the gradients' 3e-5 + 1e-3 relative, as the
-pairs are summed first).  Each time is the median device time of 15
+with 1 and 2 ring stages (three and two CTAs an SM), dq with 64 and 128
+query rows a CTA (its ring has 2 stages), and dk/dv with 64 and 128 kv
+rows a CTA, 1 and 2 stages, one or two heads a CTA, and every head of a
+group in one CTA;
+each variant is held to the plan's result, bitwise (two heads a dk/dv
+CTA: at the gradients' 3e-5 + 1e-3 relative, as the pairs are summed
+first).  Each time is the median device time of 15
 runs between CUDA events, L2 flushed before each.  The build's registers
 and spills and each flash kernel's FFMA and LDS counts in its SASS
 (``cuobjdump -sass``) are printed first.  One line per case; the records
@@ -35,8 +37,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import (
-    _dkv_smem, _flash_plan, _MAX_SMEM, _width, flash_dkv_cuda, flash_dq_cuda,
-    flash_fwd_cuda)
+    _dkv_smem, _dq_smem, _flash_plan, _MAX_SMEM, _width, flash_dkv_cuda,
+    flash_dq_cuda, flash_fwd_cuda)
 from repro_torch.launch.bench_gemm import timer
 
 H, KVH, HD = 32, 8, 64          # llama3.2-1b's attention
@@ -171,6 +173,15 @@ def run_case(name, B, S, variants):
                 "ms": timer(lambda: flash_fwd_cuda(q, k, v, plan=p, **kw)),
                 "is_plan": p == plan,
                 "ok": all(torch.equal(x, y) for x, y in zip(got, want))}
+        want = flash_dq_cuda(*st, **kw)
+        for r in (64, 128):
+            if _dq_smem(r, W) > _MAX_SMEM:
+                continue
+            p = _flash_plan(H, KVH, HD, HD, dq_rows=r)
+            got = flash_dq_cuda(*st, plan=p, **kw)
+            rec["variants"][f"dq rows {r}"] = {
+                "ms": timer(lambda: flash_dq_cuda(*st, plan=p, **kw)),
+                "is_plan": p == plan, "ok": torch.equal(got, want)}
         want = flash_dkv_cuda(*st, **kw)
         dkv = [dict(dkv_rows=r, dkv_stages=n, heads=hs) for r in (64, 128)
                for n in (1, 2) for hs in (1, 2)

@@ -544,13 +544,17 @@ def _flash_inputs(case, dtype, seed=0):
                          ids=[str(c[:8]) for c in FLASH_CASES])
 def test_flash_kernels_are_bitwise_run_to_run(cuda, case):
     """Two launches on the same inputs give the same bits: o and lse of
-    the forward, dk and dv of dk/dv (its group sum is ordered, no
-    atomics)."""
-    from repro_torch.kernels.flash_attn import flash_dkv_cuda, flash_fwd_cuda
+    the forward, dq (each row's kv tiles summed in order), dk and dv of
+    dk/dv (its group sum is ordered, no atomics)."""
+    from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
+                                                flash_fwd_cuda)
     q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
     kw = dict(causal=case[7], scale=case[5] ** -0.5)
     o1, l1 = flash_fwd_cuda(q, k, v, **kw)
     o2, l2 = flash_fwd_cuda(q, k, v, **kw)
+    dq1 = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dq2 = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dq1, dq2)
     dk1, dv1 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
     dk2, dv2 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
@@ -561,12 +565,15 @@ def test_flash_kernels_are_bitwise_run_to_run(cuda, case):
                          ids=[str(c[:8]) for c in FLASH_CASES])
 def test_flash_plan_variants_give_the_same_bits(cuda, case):
     """Every plan the kernels take gives the plan's bits: the forward with
-    1 or 2 ring stages (a row's tiles and their order do not change),
-    dk/dv with 64 or 128 kv rows a CTA and 1 or 2 stages, and, where the
-    plan walks one head a CTA, every head of a group in one CTA (the same
-    f32 adds of the rounded heads, in g order)."""
+    1 or 2 ring stages (a row's tiles and their order do not change), dq
+    with 64 or 128 query rows a CTA (the same, and a warp skips only
+    tiles with nothing live for its rows), dk/dv with 64
+    or 128 kv rows a CTA and 1 or 2 stages, and, where the plan walks one
+    head a CTA, every head of a group in one CTA (the same f32 adds of the
+    rounded heads, in g order)."""
     from repro_torch.kernels.flash_attn import (
-        _dkv_smem, _flash_plan, _width, flash_dkv_cuda, flash_fwd_cuda)
+        _dkv_smem, _dq_smem, _flash_plan, _width, flash_dkv_cuda,
+        flash_dq_cuda, flash_fwd_cuda)
     B, Sq, Skv, H, KVH, hd, hd_v, causal = case[:8]
     q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
     kw = dict(causal=causal, scale=hd ** -0.5)
@@ -577,6 +584,13 @@ def test_flash_plan_variants_give_the_same_bits(cuda, case):
         p = _flash_plan(H, KVH, hd, hd_v, fwd_stages=st)
         got = flash_fwd_cuda(q, k, v, plan=p, **kw)
         assert all(torch.equal(x, y) for x, y in zip(got, want)), p
+    want = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    for r in (64, 128):
+        if _dq_smem(r, W) > 232448:
+            continue
+        p = _flash_plan(H, KVH, hd, hd_v, dq_rows=r)
+        got = flash_dq_cuda(q, k, v, do, lse, delta, plan=p, **kw)
+        assert torch.equal(got, want), p
     want = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
     variants = [dict(dkv_rows=r, dkv_stages=st) for r in (64, 128)
                 for st in (1, 2) if _dkv_smem(r, W, st) <= 232448]
@@ -606,6 +620,26 @@ def test_flash_dkv_bf16_matches_plain(cuda, case):
     if case[7] and case[2] > case[1]:
         assert not got[0][:, case[1]:].any() and \
             not got[1][:, case[1]:].any()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:-1],
+                         ids=[str(c[:8]) for c in FLASH_CASES[:-1]])
+def test_flash_dq_bf16_matches_plain(cuda, case):
+    """The bf16 dq kernel (operands widened to f32 as they land, ds and dq
+    rounded to bf16) against the plain version at the reference's bf16
+    tolerance, under the plan and under 64-row CTAs."""
+    from repro_torch.kernels.flash_attn import (_flash_plan, flash_dq_cuda,
+                                                flash_dq_plain)
+    B, Sq, Skv, H, KVH, hd, hd_v = case[:7]
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.bfloat16)
+    kw = dict(causal=case[7], scale=hd ** -0.5)
+    want = flash_dq_plain(q, k, v, do, lse, delta, bq=case[8], bk=case[9],
+                          **kw)
+    for plan in (None, _flash_plan(H, KVH, hd, hd_v, dq_rows=64)):
+        got = flash_dq_cuda(q, k, v, do, lse, delta, plan=plan, **kw)
+        assert got.dtype == torch.bfloat16
+        assert torch.allclose(got.float(), want.float(), atol=2e-2,
+                              rtol=2e-2), plan
 
 
 @pytest.mark.parametrize("case", FLASH_CASES[:-1],

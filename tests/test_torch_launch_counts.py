@@ -18,6 +18,7 @@ from repro_torch.core.hw import IS, OS, WS
 from repro_torch.core.sara import SaraDispatcher
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attn import (_dkv_ctas, _dkv_smem,
+                                            _dq_smem,
                                             _flash_plan, _fwd_ctas,
                                             _fwd_smem, _width,
                                             flash_dkv_cuda, flash_dq_cuda,
@@ -736,6 +737,37 @@ def test_flash_plan_covers_every_tile_and_head_once(case):
                                       for b in range(B)]
 
 
+@pytest.mark.parametrize("case", _FLASH_GRID, ids=str)
+@pytest.mark.parametrize("rows", [64, 128])
+def test_dq_ctas_cover_every_tile_and_head_once(case, rows):
+    """dq's CTAs cover every (query tile, head, batch) once, the heaviest
+    causal tile of every head first, and the heads of one kv group (and
+    then the whole batch) side by side, so their K/V tiles meet in L2:
+    ``_fwd_ctas`` at the plan's rows, as dq decodes ``blockIdx.x`` the
+    way the forward does.  The plan: 128 query rows a CTA where they fit
+    with the 2-stage ring (W = 64), else 64 (W = 128)."""
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case
+    G, W = H // KVH, _width(hd, hd_v)
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    assert plan.dq_rows == (128 if W == 64 else 64)
+    assert _dq_smem(128, 64) <= 232448 < _dq_smem(128, 128)
+    assert _dq_smem(64, 128) <= 232448
+    ctas = _fwd_ctas(B, Sq, H, rows)
+    nqt = -(-Sq // rows)
+    assert len(ctas) == nqt * H * B
+    assert sorted(ctas) == [(t, h, b) for t in range(nqt)
+                            for h in range(H) for b in range(B)]
+    assert [t for t, _, _ in ctas] == sorted((t for t, _, _ in ctas),
+                                             reverse=True)
+    assert ctas[0][0] == nqt - 1
+    for i in range(0, len(ctas), H):     # one (tile, batch): heads 0..H-1
+        part = ctas[i:i + H]
+        assert [h for _, h, _ in part] == list(range(H))
+        assert len({(t, b) for t, _, b in part}) == 1
+        for g in range(KVH):             # a kv group: G adjacent CTAs
+            assert {h // G for _, h, _ in part[g * G:(g + 1) * G]} == {g}
+
+
 def test_flash_plan_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="hd, hd_v <= 128"):
         _flash_plan(4, 2, 256, 64)
@@ -751,6 +783,36 @@ def test_flash_plan_refuses_what_the_kernels_do_not_take():
         _flash_plan(32, 2, 64, 64, heads=17)
     assert _flash_plan(32, 1, 64, 64).parts == 8
     assert _flash_plan(32, 1, 64, 64, heads=32).parts == 1
+
+
+@pytest.mark.parametrize("hd,kw,match", [
+    (64, dict(dq_rows=32), "64 or 128 query rows"),
+    (64, dict(dq_rows=256), "64 or 128 query rows"),
+    (128, dict(dq_rows=96), "64 or 128 query rows"),
+    (128, dict(dq_rows=128), "128 query rows does not fit at width 128"),
+    (100, dict(dq_rows=128), "128 query rows does not fit at width 128"),
+    (128, dict(dkv_rows=128), "ring stages do not fit"),
+])
+def test_flash_plan_refuses_dq_plans_the_kernel_does_not_take(hd, kw, match):
+    """dq's rows are 64 or 128, within the 227 KB of a CTA with its
+    2-stage ring: 128 rows do not fit at W = 128 (nor do 128 dk/dv rows
+    with any ring)."""
+    with pytest.raises(ValueError, match=match):
+        _flash_plan(4, 2, hd, hd, **kw)
+
+
+@pytest.mark.parametrize("hd,rows", [
+    (64, 64), (64, 128), (128, 64), (100, 64), (32, 128), (50, 64),
+    (16, 128)])
+def test_flash_plan_takes_every_dq_plan_that_fits(hd, rows):
+    """Every forced dq plan that fits is kept as given, and the forward's
+    and dk/dv's fields stay the rule's."""
+    W = _width(hd, hd)
+    assert _dq_smem(rows, W) <= 232448
+    p = _flash_plan(32, 8, hd, hd, dq_rows=rows)
+    assert p.dq_rows == rows
+    rule = _flash_plan(32, 8, hd, hd)
+    assert p._replace(dq_rows=rule.dq_rows) == rule
 
 
 @pytest.mark.parametrize("H,KVH,hd,stages,dkv_rows", [
@@ -779,17 +841,39 @@ def test_flash_launches_carry_the_plan(card, H, KVH, hd, stages, dkv_rows):
             counts["plain_calls"]) == (1, 1, 0)
 
 
+@pytest.mark.parametrize("hd,rows", [
+    (64, 64), (64, 128), (128, 64), (100, 64), (32, 128), (50, 64)])
+def test_flash_dq_launch_carries_the_plan(card, hd, rows):
+    """A forced dq plan reaches ``flash_dq_launch``'s rows, and each call
+    is one counted launch."""
+    B, S, H, KVH, hd_v = 2, 70, 8, 2, 48
+    plan = _flash_plan(H, KVH, hd, hd_v, dq_rows=rows)
+    q, do = torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd_v)
+    k, v = torch.zeros(B, S, KVH, hd), torch.zeros(B, S, KVH, hd_v)
+    lse = torch.zeros(B, H, S)
+    for n in (1, 2):
+        flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1,
+                      plan=plan)
+        assert card.calls == ["flash_dq_launch"] * n
+        assert card.args[-1][8:18] == (B, S, S, H, KVH, hd, hd_v, 1,
+                                       pytest.approx(0.1), rows)
+        counts = ops.launch_counts()
+        assert (counts["flash_dq"], counts["plain_calls"]) == (n, 0)
+
+
 def test_flash_default_plan_reaches_the_launch(card):
     """Without a plan the wrappers launch under ``_flash_plan``'s: phase
-    7's heads give the forward one ring stage (three CTAs an SM), dk/dv
-    128 kv rows a CTA, 2 stages, one head a CTA, and groups of 4 partials
-    in a scratch."""
+    7's heads give the forward one ring stage (three CTAs an SM), dq 128
+    query rows a CTA, dk/dv 128 kv rows a CTA, 2 stages, one
+    head a CTA, and groups of 4 partials in a scratch."""
     q, k = torch.zeros(2, 8, 32, 64), torch.zeros(2, 8, 8, 64)
     lse = torch.zeros(2, 32, 8)
     flash_fwd_cuda(q, k, k, causal=True, scale=0.125)
     flash_dkv_cuda(q, k, k, q, lse, lse, causal=True, scale=0.125)
+    flash_dq_cuda(q, k, k, q, lse, lse, causal=True, scale=0.125)
     assert card.args[0][15] == 1
     assert card.args[1][18:22] == (128, 2, 1, 4) and card.args[1][22]
+    assert card.args[2][17] == 128 and len(card.args[2]) == 19
 
 
 def test_flash_dkv_refuses_wide_heads_before_a_launch(card):
