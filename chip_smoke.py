@@ -85,7 +85,8 @@ Phases (any failure exits non-zero):
    and runs each through the RSA GEMM in f32: one ADAPTNETX launch per
    layer; each layer's logits against the plain version (the reference's
    rtol = atol = 1e-5), its pick against the host twin ``logits_np``, its
-   GEMM against the plain GEMM.
+   GEMM against the plain GEMM, and its query's time beside its GEMM's
+   (L2 flushed) with the query's share of the two.
    Path B trains a logbucket net over llama3.2-1b's serving shapes on the
    card (30 000 samples, 5 epochs), saves it and serves llama3.2-1b at
    full width (bf16, phase 4's weights) through ``serve_continuous(...,
@@ -108,7 +109,10 @@ flash-attention kernels (forward, dq, dk/dv) and every training GEMM
 kernel (prefill, ragged with decays down to -e, the chunk-1 decode, the
 state carry) and the linear-attention kernel at phase 8's widths, and the
 ADAPTNETX kernel (75, 108 and 135 classes; the reference's ids, ids past
-the table, a batch of 64) beside the host twin's time per query.
+the table, a batch of 64; each line with its plan and the timer's floor;
+under one query and the batch every forced plan bitwise the plan's, and
+each query alone bitwise its row of the batch) beside the host twin's
+time per query.
 
 After phase 9 one line per mode gives the worst kernel / library-call
 factor over the run's timed GEMM shapes, with its shape.  The lines
@@ -1577,16 +1581,26 @@ def check_adaptnetx(torch, report, timer):
     (``adaptnetx_close``).  Each case is timed, kernel and plain, through
     ``ops.adaptnetx_recommend``; the host twin ``logits_np`` is timed per
     query on the host clock beside it, as context (what the serving
-    dispatcher pays per cache miss).  No single PyTorch call computes
-    this function: no library time."""
-    import numpy as np
+    dispatcher pays per cache miss), and each kernel time beside the
+    timer's floor (one launch adding 1 to one element).  No single
+    PyTorch call computes this function: no library time.  Each line
+    prints the plan (``_adaptnetx_plan``); under the one query and the
+    batch every forced plan (``VARIANTS``) must give the plan's logits
+    bitwise, and each of the 64 queries alone its row of the batch."""
     from repro_torch import dispatch
     from repro_torch.core.adaptnet import (AdaptNetConfig, init_params,
                                            logits_np)
     from repro_torch.kernels import ops
+    from repro_torch.kernels.adaptnetx import (OPERANDS, VARIANTS,
+                                               _adaptnetx_plan,
+                                               adaptnetx_cuda)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     ok = True
+    one = torch.zeros(1, device="cuda")
+    floor = report["adaptnetx_floor_ms"] = timer(lambda: one.add_(1.0))
+    log(f"  adaptnetx: timer floor (one launch adding 1 to one element) "
+        f"{floor:.4f} ms")
     for C in (75, 108, 135):
         p = init_params(gen, AdaptNetConfig(num_classes=C))
         # nonzero biases, so a bias the kernel dropped would show
@@ -1621,19 +1635,54 @@ def check_adaptnetx(torch, report, timer):
                 logits_np(host, row[None])
             host_ms = (time.perf_counter() - t0) * 1e3 / B
             b_ms, b_by = adaptnetx_bound(p, B)
+            plan = _adaptnetx_plan(B, 16, 128, C)
             rec = {"kernel": "adaptnetx", "C": C, "case": name, "B": B,
                    "max_abs_err": err, "tol": "1e-5 + 1e-5 |plain|",
-                   "ok": good, "ms": timer(lambda: run("kernel")),
+                   "ok": good,
+                   "plan": dict(plan._asdict(), combine=plan.combine),
+                   "ms": timer(lambda: run("kernel")),
                    "plain_ms": timer(lambda: run("torch")),
+                   "floor_ms": floor,
                    "host_logits_np_ms_per_query": host_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             report["adaptnetx"].append(rec)
             log(f"  adaptnetx C={C} {name:<16} B={B}: max_abs_err {err:.3e}"
                 f" (tol 1e-5 + 1e-5 |plain|) {'ok' if good else 'FAIL'}  "
-                f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+                f"kernel {rec['ms']:.4f} ms (floor {floor:.4f}, net "
+                f"{rec['ms'] - floor:.4f}) plain {rec['plain_ms']:.4f} ms "
                 f"bound {b_ms:.6f} ms ({b_by}); host logits_np {host_ms:.4f} ms "
-                f"a query (host clock)")
+                f"a query (host clock)\n    plan: {adaptnetx_plan_str(plan)}")
+            if name not in ("[123,4567,8910]", "batch 64"):
+                continue
+            # forced plans, bitwise the plan's; each query alone = its row
+            q2 = ids.reshape(-1, 3).contiguous()
+            t = [p[k] for k in OPERANDS]
+            ref = adaptnetx_cuda(q2, *t)
+            same, n = 0, 0
+            for _, kw in VARIANTS:
+                try:
+                    forced = _adaptnetx_plan(B, 16, 128, C, **kw)
+                except ValueError:
+                    continue
+                n += 1
+                same += torch.equal(adaptnetx_cuda(q2, *t, plan=forced), ref)
+            alone = sum(torch.equal(adaptnetx_cuda(q2[b:b + 1], *t)[0],
+                                    ref[b]) for b in range(B))
+            good = same == n and alone == B
+            ok &= good
+            rec.update(forced_plans_bitwise=f"{same} of {n}",
+                       alone_equals_batch=f"{alone} of {B}")
+            log(f"    forced plans bitwise the plan's at {same} of {n}; "
+                f"each query alone bitwise its row at {alone} of {B} "
+                f"{'ok' if good else 'FAIL'}")
     return ok
+
+
+def adaptnetx_plan_str(p) -> str:
+    return (f"{p.tiles} tiles of {p.qt} queries x {p.ctiles} of {p.ct} "
+            f"classes, {p.groups} CTAs a tile x {p.chunks} chunks of 32 "
+            f"units, combine {p.combine}, {p.stages} stages = {p.ctas} CTAs,"
+            f" {p.smem} B shared")
 
 
 # ---------------------------------------------------------------------------
@@ -2735,11 +2784,13 @@ def top2_gap(logits) -> float:
     return (top[0] - top[1]).item()
 
 
-def selfadaptive_gemm_path(torch, report):
+def selfadaptive_gemm_path(torch, report, timer):
     """Path A: ``launch.selfadaptive_gemm.run`` as a user runs it, with
     the counts at 0 just before; then each layer's ADAPTNETX logits
     against the plain version, its pick against the host twin, its GEMM
-    against the plain GEMM.  Returns (ok, counts)."""
+    against the plain GEMM, and (after the counts are read) its query
+    and its GEMM timed by ``timer`` (L2 flushed), with the query's share
+    of the two.  Returns (ok, counts)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.adaptnetx import OPERANDS, adaptnetx_plain
     from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
@@ -2771,18 +2822,27 @@ def selfadaptive_gemm_path(torch, report):
         good = adaptnetx_close(r["logits"], want) and pick_ok and \
             g_err <= g_tol
         ok &= good
+        cfg = r["cfg"]
+        q_ms = timer(lambda: ops.adaptnetx_recommend(r["ids"], p))
+        g_ms = timer(lambda: ops.rsa_gemm(
+            r["a"], r["b"], block_m=cfg.block_m, block_n=cfg.block_n,
+            block_k=cfg.block_k, mode=cfg.mode))
         layers.append({"name": r["name"], "M": r["M"], "K": r["K"],
-                       "N": r["N"], "tile": r["cfg"].describe(),
+                       "N": r["N"], "tile": cfg.describe(),
                        "class": r["cid"], "host_class": r["host_cid"],
                        "top2_gap": gap, "logits_max_abs_err": err,
                        "gemm_max_abs_err": g_err, "gemm_tol": g_tol,
-                       "gemm_ms": r["ms"], "ok": good})
+                       "gemm_ms": r["ms"], "query_timer_ms": q_ms,
+                       "gemm_timer_ms": g_ms,
+                       "query_share": q_ms / (q_ms + g_ms), "ok": good})
         log(f"  A {r['name']:>4} {r['M']}x{r['K']}x{r['N']}: ADAPTNETX "
-            f"class {r['cid']} [{r['cfg'].describe()}], host twin "
+            f"class {r['cid']} [{cfg.describe()}], host twin "
             f"{r['host_cid']}; logits err {err:.2e} (tol 1e-5 + 1e-5 "
             f"|plain|); f32 GEMM "
             f"err {g_err:.2e} (tol {g_tol:.2e}) {r['ms']:.4f} ms "
-            f"{'ok' if good else 'FAIL'}")
+            f"{'ok' if good else 'FAIL'}\n"
+            f"      L2 cold: query {q_ms:.4f} ms, GEMM {g_ms:.4f} ms, the "
+            f"query {100 * q_ms / (q_ms + g_ms):.1f}% of the two")
     report["selfadaptive_gemm"] = {
         "samples": SA_SAMPLES, "epochs": SA_EPOCHS, "wall_s": wall,
         "test_accuracy": res["accuracy"],
@@ -3159,7 +3219,7 @@ def main() -> int:
         "picks each GEMM's tile; (B) adaptnet-mode serving, llama3.2-1b full "
         "width")
     t9 = time.time()
-    sa_ok, sa_counts = selfadaptive_gemm_path(torch, report)
+    sa_ok, sa_counts = selfadaptive_gemm_path(torch, report, timer)
     ok &= sa_ok
     ok &= adaptnet_serving_path(torch, report)
     report["phase9_s"] = time.time() - t9

@@ -65,8 +65,8 @@ SIGNATURES = {
         "linear_attn_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P, _P],
     },
     "adaptnetx": {
-        "adaptnetx_launch": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _I, _P,
-                                                              _I, _P],
+        "adaptnetx_launch": [_P] * 4 + [_I] * 4 + [_P] * 4 +
+                            [_I, _I, _P, _I] + [_I] * 5 + [_P],
     },
 }
 

@@ -955,10 +955,11 @@ def test_adaptnetx_kernel_matches_plain(cuda, num_classes):
 
 
 @pytest.mark.parametrize("E,H,C,rows", [(8, 256, 300, 7), (64, 1024, 3, 1),
-                                        (1, 1, 1, 2)])
+                                        (1, 1, 1, 2), (5, 130, 7, 3)])
 def test_adaptnetx_kernel_other_widths(cuda, E, H, C, rows):
-    """Hidden widths above the 128 threads, wide and narrow class counts,
-    the largest embedding width, one-row tables."""
+    """Several hidden chunks and class tiles, wide and narrow class
+    counts, the largest embedding width, one-row tables, H and C not
+    multiples of 4 (the 4-byte copies)."""
     p = _adaptnetx_params(cuda, C, E=E, H=H, rows=rows)
     ids = torch.randint(-2, rows + 3, (33, 3), generator=cuda, device="cuda")
     with dispatch.use(execute="kernel"):
@@ -966,6 +967,60 @@ def test_adaptnetx_kernel_other_widths(cuda, E, H, C, rows):
     with dispatch.use(execute="torch"):
         want = ops.adaptnetx_recommend(ids, p)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+ADAPTNETX_SHAPES = [(16, 128, 135, 10_001), (16, 128, 75, 10_001),
+                    (8, 256, 300, 7), (64, 1024, 3, 1), (5, 130, 7, 3),
+                    (1, 1, 1, 2)]
+
+
+@pytest.mark.parametrize("B", [1, 33, 64])
+@pytest.mark.parametrize("E,H,C,rows", ADAPTNETX_SHAPES)
+def test_adaptnetx_forced_plans_bitwise(cuda, E, H, C, rows, B):
+    """Every forced plan (``VARIANTS``: 1 to 32 chunks a CTA, so one CTA
+    and clusters of 2-8, query tiles of 1-64, class tiles of 64, one ring
+    stage)
+    gives bitwise the chosen plan's logits, and each repeats bitwise run
+    to run: the kernel sums in one fixed order whatever the plan."""
+    from repro_torch.kernels.adaptnetx import (OPERANDS, VARIANTS,
+                                               _adaptnetx_plan,
+                                               adaptnetx_cuda)
+    p = _adaptnetx_params(cuda, C, E=E, H=H, rows=rows)
+    t = [p[k] for k in OPERANDS]
+    ids = torch.randint(-2, rows + 3, (B, 3), generator=cuda, device="cuda",
+                        dtype=torch.int32)
+    want = adaptnetx_cuda(ids, *t)
+    ops.reset_counts()
+    ran = 0
+    for _, kw in VARIANTS:
+        try:
+            plan = _adaptnetx_plan(B, E, H, C, **kw)
+        except ValueError:
+            continue
+        got, again = (adaptnetx_cuda(ids, *t, plan=plan) for _ in range(2))
+        ran += 2
+        assert torch.equal(got, want), plan
+        assert torch.equal(got, again), plan
+    assert ops.launch_counts()["adaptnetx"] == ran
+    with dispatch.use(execute="torch"):
+        plain = ops.adaptnetx_recommend(ids, p)
+    torch.testing.assert_close(want, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("E,H,C,rows", ADAPTNETX_SHAPES)
+def test_adaptnetx_query_alone_equals_batch(cuda, E, H, C, rows):
+    """A query alone gives bitwise its row in batches of 33 and 64."""
+    p = _adaptnetx_params(cuda, C, E=E, H=H, rows=rows)
+    batch = torch.randint(-2, rows + 3, (64, 3), generator=cuda,
+                          device="cuda", dtype=torch.int32)
+    with dispatch.use(execute="kernel"):
+        rows64 = ops.adaptnetx_recommend(batch, p)
+        rows33 = ops.adaptnetx_recommend(batch[:33], p)
+        for b in range(64):
+            alone = ops.adaptnetx_recommend(batch[b], p)
+            assert torch.equal(alone, rows64[b]), b
+            if b < 33:
+                assert torch.equal(alone, rows33[b]), b
 
 
 def test_reduced_adaptnet_serve_matches_cpu(cuda, tmp_path):

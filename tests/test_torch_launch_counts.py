@@ -1182,6 +1182,160 @@ def test_adaptnetx_kernel_refuses_what_it_does_not_take(card):
     assert ops.launch_counts()["adaptnetx"] == 0
 
 
+def _adaptnetx_plans(B, E, H, C):
+    """The plan and every forced variant the shape takes."""
+    from repro_torch.kernels.adaptnetx import VARIANTS, _adaptnetx_plan
+    plans = [_adaptnetx_plan(B, E, H, C)]
+    for _, kw in VARIANTS:
+        try:
+            plans.append(_adaptnetx_plan(B, E, H, C, **kw))
+        except ValueError:
+            pass
+    return plans
+
+
+@pytest.mark.parametrize("B", [1, 33, 64])
+@pytest.mark.parametrize("E", [1, 16, 64])
+@pytest.mark.parametrize("H", [1, 31, 128, 130, 1024])
+@pytest.mark.parametrize("C", [1, 3, 75, 135, 300, 2000])
+def test_adaptnetx_plan_on_a_grid(B, E, H, C):
+    """Under the plan and every forced variant the shape takes, through a
+    model of the kernel's index arithmetic (``csrc/adaptnetx.cu``: CTA x =
+    tile * groups + g holds chunks g * chunks on, nk of them; entry e = q *
+    nc + c of a tile is summed by CTA e // per, which expects 4 * nchunk *
+    (hi - lo) bytes; chunk kk's partial lands at kk * step + q * ct + c):
+    every (query, hidden chunk, class) is computed once; each summing CTA
+    receives the partials it waits for, one into each slot, and its sum,
+    reading slot k * step + off for ascending k, meets chunk k at step k;
+    a CTA's shared memory is the kernel's layout and fits 227 KB; a
+    cluster is at most 8 CTAs (portable)."""
+    import numpy as np
+    from repro_torch.kernels.adaptnetx import (MAX_CLUSTER, SMEM_MAX,
+                                               _adaptnetx_smem)
+    nchunk = -(-H // 32)
+    for plan in _adaptnetx_plans(B, E, H, C):
+        qt, ct, groups = plan.qt, plan.ct, plan.groups
+        nqs = [min(qt, B - t * qt) for t in range(plan.tiles)]
+        ncs = [min(ct, C - t * ct) for t in range(plan.ctiles)]
+        assert min(nqs) >= 1 and sum(nqs) == B
+        assert min(ncs) >= 1 and sum(ncs) == C
+        assert plan.ctas == groups * plan.tiles * plan.ctiles
+        assert 1 <= groups <= MAX_CLUSTER
+        assert plan.combine == ("none" if groups == 1 else "cluster")
+        seen = {}
+        for x in range(groups * plan.tiles):
+            g, tile = x % groups, x // groups
+            nk = min(plan.chunks, nchunk - g * plan.chunks)
+            assert nk >= 1
+            for ctile in range(plan.ctiles):
+                for k in range(g * plan.chunks, g * plan.chunks + nk):
+                    key = (tile, ctile, k)
+                    seen[key] = seen.get(key, 0) + 1
+        assert seen == {(t, c, k): 1 for t in range(plan.tiles)
+                        for c in range(plan.ctiles) for k in range(nchunk)}
+        step = qt * ct
+        for nq in set(nqs):
+            for nc in set(ncs):
+                e = np.arange(nq * nc)
+                per = -(-(nq * nc) // groups)
+                owner = e // per
+                assert owner.max() < groups
+                for r in range(groups):
+                    lo = min(nq * nc, r * per)
+                    hi = min(nq * nc, lo + per)
+                    # every chunk's CTA stores each entry once: the
+                    # stores into r are the bytes its mbarrier expects
+                    assert nchunk * int((owner == r).sum()) == \
+                        nchunk * (hi - lo)
+                    assert np.array_equal(e[owner == r], np.arange(lo, hi))
+                off = (e // nc) * ct + e % nc
+                assert len(np.unique(off)) == len(off) and off.max() < step
+        assert 1 <= plan.stages <= plan.chunks
+        assert plan.smem == _adaptnetx_smem(E, H, qt, ct,
+                                            plan.stages) <= SMEM_MAX
+
+
+def test_adaptnetx_plan_rule():
+    """The rule's choices at path A's widths: one query over a cluster of
+    4 CTAs, one 32-unit chunk each, every weight byte in flight at once;
+    a batch of 64 in tiles of 4; more than 8 chunks in a cluster of 8,
+    several chunks a CTA, with the ring cut to fit; classes past 256 in
+    tiles of 256."""
+    from repro_torch.kernels.adaptnetx import _adaptnetx_plan
+    p = _adaptnetx_plan(1, 16, 128, 135)
+    assert (p.qt, p.ct, p.groups, p.chunks, p.combine, p.stages, p.ctas) \
+        == (1, 135, 4, 1, "cluster", 1, 4)
+    p = _adaptnetx_plan(64, 16, 128, 135)
+    assert (p.qt, p.tiles, p.groups, p.ctas) == (4, 16, 4, 64)
+    p = _adaptnetx_plan(64, 64, 1024, 2000)
+    assert (p.groups, p.chunks, p.combine, p.ct, p.ctiles) == \
+        (8, 4, "cluster", 256, 8)
+    assert p.stages < p.chunks
+    p = _adaptnetx_plan(1, 64, 1024, 3)
+    assert (p.groups, p.chunks, p.combine, p.stages, p.ctas) == \
+        (8, 4, "cluster", 4, 8)
+    p = _adaptnetx_plan(33, 64, 1024, 3)
+    assert (p.groups, p.chunks, p.combine, p.tiles) == (8, 4, "cluster", 9)
+    p = _adaptnetx_plan(1, 16, 288, 3)
+    assert (p.groups, p.chunks) == (5, 2)
+    assert _adaptnetx_plan(5, 1, 1, 1).combine == "none"
+
+
+@pytest.mark.parametrize("B,E,H,C", [(1, 16, 128, 135), (64, 16, 128, 135),
+                                     (33, 64, 1024, 3), (33, 5, 130, 7)])
+def test_adaptnetx_plan_reaches_the_launch(card, B, E, H, C):
+    """Without a plan the wrapper launches under ``_adaptnetx_plan``'s; a
+    forced plan reaches ``adaptnetx_launch``'s arguments (query and class
+    tiles, CTAs a tile, chunks a CTA, stages); one count a call."""
+    from repro_torch.kernels.adaptnetx import (OPERANDS, _adaptnetx_plan,
+                                               adaptnetx_cuda)
+    p = _adaptnetx_params(C=C, E=E, H=H)
+    t = [p[k] for k in OPERANDS]
+    ids = torch.zeros(B, 3, dtype=torch.int32)
+    plans = _adaptnetx_plans(B, E, H, C)
+    adaptnetx_cuda(ids, *t)
+    for plan in plans:
+        adaptnetx_cuda(ids, *t, plan=plan)
+    assert card.calls == ["adaptnetx_launch"] * (len(plans) + 1)
+    assert ops.launch_counts()["adaptnetx"] == len(plans) + 1
+    for plan, args in zip([_adaptnetx_plan(B, E, H, C)] + plans, card.args):
+        assert args[15] == B
+        assert args[16:21] == (plan.qt, plan.ct, plan.groups, plan.chunks,
+                               plan.stages)
+    assert any(pl.combine == "cluster" for pl in plans) == (H > 32)
+
+
+def test_adaptnetx_unfit_plan_is_refused_before_a_launch(card):
+    """A plan of another shape, one edited past its own rule and forced
+    choices the shape cannot take raise before any launch."""
+    from repro_torch.kernels.adaptnetx import (OPERANDS, _adaptnetx_plan,
+                                               adaptnetx_cuda)
+    p = _adaptnetx_params()
+    t = [p[k] for k in OPERANDS]
+    ids = torch.zeros(2, 3, dtype=torch.int32)
+    plan = _adaptnetx_plan(2, 16, 128, 135)
+    for other in (_adaptnetx_plan(2, 16, 128, 75),
+                  _adaptnetx_plan(3, 16, 128, 135),
+                  _adaptnetx_plan(2, 16, 256, 135),
+                  plan._replace(stages=2), plan._replace(groups=2),
+                  plan._replace(chunks=2), plan._replace(tiles=2),
+                  plan._replace(smem=plan.smem - 4)):
+        with pytest.raises(ValueError, match="is not one for"):
+            adaptnetx_cuda(ids, *t, plan=other)
+    for kw in ({"chunks": 0}, {"chunks": 5}, {"qt": 3}, {"ct": 101},
+               {"ct": 0}, {"stages": 2}, {"chunks": 2, "stages": 3}):
+        with pytest.raises(ValueError):
+            _adaptnetx_plan(2, 16, 128, 135, **kw)
+    with pytest.raises(ValueError, match="cluster of up to 8"):
+        _adaptnetx_plan(2, 16, 1024, 135, chunks=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        _adaptnetx_plan(64, 64, 1024, 2000, qt=64, chunks=32)
+    with pytest.raises(ValueError, match="E <= 64"):
+        _adaptnetx_plan(1, 65, 128, 135)
+    assert card.calls == []
+    assert ops.launch_counts()["adaptnetx"] == 0
+
+
 def _c_params(source: str, fn: str):
     """The C parameter types of ``extern "C" int fn(...)`` in a source."""
     import re
