@@ -97,6 +97,30 @@ Phases (any failure exits non-zero):
    plan are held against the plain versions (5%).  The card trains its
    own nets (it has no JAX), so its picks show plumbing and agreement
    with the host twin, not quality on the H100.
+10. the speculative path.  (a) phase 4's model, weights and trace served
+   through ``serve_continuous(..., spec_draft="self", spec_k=4)``: every
+   request must finish with its 32 tokens, both page pools must end whole,
+   more than one token must commit a verify step, no plain version may
+   run, every verify call must launch the prefill kernel 16 times and the
+   RSA GEMM 113 times, every draft round the decode kernel 16 times (the
+   launches of each model call are counted around it), and every plan
+   line must say ``@kernel``.  One verify step (S = 8, C = 5, chunks 1-5
+   at kv offsets off the page boundaries up to 545) is held against the
+   same step under ``execute="torch"`` and its row 0 against the decode
+   step of the same pending token (5% of the largest logit); the verify
+   GEMM shapes (M = 40) against their plain versions, timed.  Reported,
+   not gated: how many requests emit phase 4's tokens, with each other
+   one's first differing position and phase 4's top-2 gap there; decode
+   tok/s beside phase 4's, the accept rate, tokens a verify step, and
+   a kernel-time estimate of one spec step beside its wall.  (b) The
+   reference's test pair (``tests/test_spec_decode.py``) on the card in
+   f32: reduced llama3.2-1b (hd 16) on its ``_requests(3)`` trace, plain
+   and with ``spec_k=3`` drafting by ``self``, by reduced ``gemma-2b``
+   and by ``self`` from a 4-page draft pool; every run's tokens must equal
+   the plain run's, apart from positions where the plain run's top-2 gap
+   is within 1e-4 of its largest logit (printed as near-ties); the gemma
+   draft must be rejected somewhere, the starved pool must preempt draft
+   lanes, no plain version may run and every pool must end whole.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -112,7 +136,9 @@ ADAPTNETX kernel (75, 108 and 135 classes; the reference's ids, ids past
 the table, a batch of 64; each line with its plan and the timer's floor;
 under one query and the batch every forced plan bitwise the plan's, and
 each query alone bitwise its row of the batch) beside the host twin's
-time per query.
+time per query, and the prefill kernel at phase 10's verify shape (S = 8,
+C = 5, chunks 1-5 at kv offsets off the page boundaries), timed beside
+its bound and the SDPA yardstick.
 
 After phase 9 one line per mode gives the worst kernel / library-call
 factor over the run's timed GEMM shapes, with its shape.  The lines
@@ -160,6 +186,11 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 4     # phase 7's batch and steps
 SA_SAMPLES, SA_EPOCHS, SA_LAYERS = 60_000, 8, 10   # phase 9, path A
 SB_SAMPLES, SB_EPOCHS = 30_000, 5                  # phase 9, path B
 SB_REQUESTS, SB_GEN = 8, 16
+# phase 10: speculative decoding, spec_k draft tokens a lane and step; the
+# verify shape's kv offsets and chunk lengths (phases 3 and 10a)
+SPEC_K = 4
+VERIFY_STARTS = [540, 3, 100, 17, 250, 400, 61, 129]
+VERIFY_CHUNKS = [5, 1, 3, 5, 2, 5, 4, 5]
 
 
 def log(*a):
@@ -561,6 +592,47 @@ def check_paged(torch, report, timer, cfg):
     log(f"  paged_prefill bf16 hd 128: max_abs_err {err:.3e} (tol "
         f"{tol:.1e}) {'ok' if good else 'FAIL'}; plan "
         f"{plan_text(plan._asdict())}")
+
+    # phase 10's verify shape: C = spec_k + 1 = 5 rows a lane, chunks 1-5
+    # at kv offsets off the page and 64-row tile boundaries (lengths to
+    # 545), bf16, timed beside its bound and the SDPA yardstick
+    C = SPEC_K + 1
+    lengths = [s + c for s, c in zip(VERIFY_STARTS, VERIFY_CHUNKS)]
+    ka, va, tables, lens = paged_inputs(torch, gen, 8, KVH, G, hd, bs,
+                                        lengths, torch.bfloat16)
+    st = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device="cuda")
+    q = torch.randn((8, C, H, hd), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    a = (q, ka, va, tables, st, lens)
+    out = ops.paged_prefill_attention(*a)
+    plain = paged_prefill_attention_plain(*a, scale=scale)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    good = err <= tol and math.isfinite(err)
+    ok &= good
+    plan = _attn_plan(8, C * G, KVH, tables.shape[1], bs, hd, hd, 2, sms,
+                      prefill=True)
+    rows = sum(-(-n // bs) * bs for n in lengths)
+    pairs = sum(s + r + 1 for s, c in zip(VERIFY_STARTS, VERIFY_CHUNKS)
+                for r in range(c))
+    bound, by = attn_bound_ms(rows, KVH, hd, 2 * q.numel() * 2,
+                              2.0 * H * 2 * hd * pairs)
+    rec = {"kernel": "paged_prefill", "case": "spec verify",
+           "dtype": "bfloat16", "starts": VERIFY_STARTS,
+           "chunks": VERIFY_CHUNKS, "max_abs_err": err, "tol": tol,
+           "ok": good, "plan": plan._asdict(),
+           "case_ms": timer(lambda: ops.paged_prefill_attention(*a)),
+           "plain_ms": timer(lambda: paged_prefill_attention_plain(
+               *a, scale=scale)),
+           "sdpa_gathered_ms": timer(gathered_sdpa_prefill(*a, scale)),
+           "bound_ms": bound, "bound_by": by}
+    report["paged"].append(rec)
+    log(f"  paged_prefill bf16 spec verify (S=8, C={C}, chunks "
+        f"{VERIFY_CHUNKS}, lengths to {max(lengths)}): max_abs_err "
+        f"{err:.3e} (tol {tol:.1e}) {'ok' if good else 'FAIL'}; plan "
+        f"{plan_text(plan._asdict())}  kernel {rec['case_ms']:.4f} ms "
+        f"plain {rec['plain_ms']:.4f} ms bound {bound:.5f} ms ({by}), SDPA "
+        f"over K/V gathered beforehand {rec['sdpa_gathered_ms']:.4f} ms")
 
     # the split-KV plan's edges, bf16, through decode and decode-lse: lengths
     # on and across the split boundaries (8 pages, 128 rows, a split here),
@@ -1730,7 +1802,9 @@ def main_path(torch, report):
         "sara_cache_hit_rate": s["sara_cache_hit_rate"],
         "gemm_plan": engine.gemm_plan, "plan_changes": engine.plan_changes,
         "ran_plan_changes": engine.ran_plan_changes,
-        "pool_leak_free": engine.pool.num_free == engine.pool.num_blocks}
+        "pool_leak_free": engine.pool.num_free == engine.pool.num_blocks,
+        # phase 10a serves the same trace speculatively
+        "tokens": {rid: v.tolist() for rid, v in outputs.items()}}
     log(f"  served {len(done)}/16 requests in {wall:.2f} s "
         f"({engine.steps} engine steps: {prefill_steps} chunk-prefill, "
         f"{decode_steps} decode model calls)")
@@ -3003,6 +3077,413 @@ def adaptnet_serving_path(torch, report):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 10: speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_CALLS = ("paged_verify_step", "paged_decode_step", "paged_prefill_step")
+
+
+def context_logits(torch, model, params, tokens, bs, chunk=64):
+    """f32 logits (V,) after one lane's ``tokens`` through the model's
+    chunked prefill on a fresh arena: what greedy decode picks the next
+    token from."""
+    import numpy as np
+    n, dev = len(tokens), params["embed"].device
+    pages = -(-n // bs)
+    arena = model.init_paged_arena(pages + 1, bs)
+    tables = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+    t = torch.as_tensor(np.asarray(tokens, np.int32), device=dev)[None]
+    i32 = dict(dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for p0 in range(0, n, chunk):
+            c = min(chunk, n - p0)
+            logits, _ = model.paged_prefill_step(
+                params, t[:, p0:p0 + c], arena, tables,
+                torch.tensor([p0], **i32), torch.tensor([c], **i32))
+    return logits[0]
+
+
+def first_difference(torch, model, params, prompt, want, got, bs):
+    """The first position where ``got`` leaves ``want`` (None where they
+    agree), the top-2 gap of the model's logits there after ``prompt`` and
+    ``want``'s tokens before it, and the largest logit's magnitude."""
+    p = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if p is None:
+        return None, 0.0, 0.0
+    logits = context_logits(torch, model, params,
+                            list(prompt) + list(want[:p]), bs)
+    return p, top2_gap(logits), logits.abs().max().item()
+
+
+class CallLaunches:
+    """Counts, for every call of the model's paged steps while it is
+    installed, the kernel launches that call made (``ops.launch_counts``
+    before and after): the phase's per-call launch gates.  ``model`` of a
+    call is the ``Model`` it ran on (the target's or the draft's)."""
+
+    KEYS = ("rsa_gemm", "paged_prefill", "paged_decode", "plain_calls")
+
+    def __init__(self):
+        from repro_torch.models.api import Model
+        self.cls, self.calls = Model, []
+        self.orig = {n: getattr(Model, n) for n in SPEC_CALLS}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        def wrap(name, fn):
+            def run(model, *a, **k):
+                before = ops.launch_counts()
+                out = fn(model, *a, **k)
+                after = ops.launch_counts()
+                self.calls.append((name, id(model), {
+                    key: after[key] - before[key] for key in self.KEYS}))
+                return out
+            return run
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+    def of(self, name, model=None):
+        return [d for n, m, d in self.calls
+                if n == name and (model is None or m == id(model))]
+
+
+def spec_path(torch, report, timer, dispatcher):
+    """10a: phase 4's trace served with ``spec_draft="self", spec_k=4``."""
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.launch.serve import serve_continuous
+
+    smi = nvidia_smi_line()
+    ops.reset_counts()
+    t0 = time.time()
+    with CallLaunches() as calls:
+        outputs, engine = serve_continuous(
+            arch="llama3.2-1b", preset="full", num_requests=16, num_slots=8,
+            prompt_len=512, min_prompt_len=64, gen=32, temperature=0.0,
+            top_k=0, seed=0, execute="auto", prefill_chunk=64,
+            block_size=16, clock="wall", device="cuda", log=False,
+            spec_draft="self", spec_k=SPEC_K)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    gemm_keys = dict(rsa_gemm_cuda.launches_by_key)
+    cfg, L = engine.cfg, engine.cfg.num_layers
+    s = engine.summary()
+    done = [r for r in engine.requests.values() if r.outcome == "done"]
+    engine.pool.check()
+    engine.spec.check()
+    whole = (engine.pool.num_free == engine.pool.num_blocks
+             and engine.spec.live_pages() == 0)
+    verify = calls.of("paged_verify_step")
+    drafts = calls.of("paged_decode_step", engine.spec.model)
+    catchup = calls.of("paged_prefill_step", engine.spec.model)
+    prefill = calls.of("paged_prefill_step", engine.model)
+    n_gemm = 7 * L + 1
+    per_call = {"verify": (verify, "paged_prefill"),
+                "draft round": (drafts, "paged_decode"),
+                "draft catch-up": (catchup, "paged_prefill"),
+                "target prefill": (prefill, "paged_prefill")}
+    launch_ok = (len(verify) == s["spec_steps"] > 0
+                 and len(drafts) % SPEC_K == 0 and len(drafts) > 0
+                 and len(calls.of("paged_decode_step", engine.model)) == 0)
+    for what, (cs, attn) in per_call.items():
+        launch_ok &= all(
+            d["rsa_gemm"] == n_gemm and d[attn] == L and d["plain_calls"] == 0
+            and sum(d.values()) == n_gemm + L for d in cs)
+    launch_ok &= (counts["plain_calls"] == 0
+                  and counts["paged_decode"] == L * len(drafts)
+                  and counts["paged_prefill"] == L * (
+                      len(verify) + len(catchup) + len(prefill)))
+    plans = dict(engine.gemm_plan)
+    plans.update({f"spec_draft {n}": d for n, d in
+                  engine.registry.plan("spec_draft").items()})
+    at_kernel = all("@kernel" in d for d in plans.values())
+    ok = (len(done) == 16 and all(len(v) == 32 for v in outputs.values())
+          and whole and s["spec_steps"] > 0
+          and s["spec_accepted_per_step"] > 1.0 and launch_ok and at_kernel)
+    steps = s["spec_steps"]
+    # lanes a verify step served (no lane stalls under full reservation)
+    lane_steps = round(sum(engine.metrics.slot_occupancy) * 8)
+    per_lane = (s["spec_accepted_tokens"] + s["spec_bonus_tokens"]) / \
+        max(lane_steps, 1)
+    res = report["spec_path"] = {
+        "requests": 16, "completed": len(done), "wall_s": wall,
+        "counts": counts, "spec_steps": steps,
+        "verify_calls": len(verify), "draft_rounds": len(drafts),
+        "draft_catchup_calls": len(catchup),
+        "target_prefill_calls": len(prefill),
+        "spec_drafted_tokens": s["spec_drafted_tokens"],
+        "spec_accepted_tokens": s["spec_accepted_tokens"],
+        "spec_bonus_tokens": s["spec_bonus_tokens"],
+        "spec_accept_rate": s["spec_accept_rate"],
+        "spec_accepted_per_step": s["spec_accepted_per_step"],
+        "lane_steps": lane_steps, "committed_per_lane_step": per_lane,
+        "stalls": s["stalls"],
+        "spec_draft_preempts": s["spec_draft_preempts"],
+        "decode_tok_s": s["decode_tok_s"], "ttft_p50_s": s["ttft_p50_s"],
+        "decode_wall_s": engine.metrics.decode_s,
+        "prefill_wall_s": engine.metrics.prefill_s,
+        "launches_per_call_ok": launch_ok, "plans_at_kernel": at_kernel,
+        "gemm_plan": engine.gemm_plan, "pools_whole": whole,
+        "kv_draft_leaked_blocks": s["kv_draft_leaked_blocks"]}
+    log(f"  served {len(done)}/16 requests in {wall:.2f} s: {steps} spec "
+        f"steps ({len(verify)} verify calls, {len(drafts)} draft rounds, "
+        f"{len(catchup)} draft catch-up chunks), {len(prefill)} target "
+        f"chunk-prefill calls")
+    log(f"  launches: {json.dumps(counts)}")
+    for what, (cs, attn) in per_call.items():
+        seen = sorted({(d["rsa_gemm"], d[attn]) for d in cs})
+        log(f"  per {what} call: (rsa_gemm, {attn}) {seen} over {len(cs)} "
+            f"calls (expected [({n_gemm}, {L})])")
+    log(f"  every plan line @kernel: {at_kernel}; pools whole (target "
+        f"{engine.pool.num_free}/{engine.pool.num_blocks} free, draft "
+        f"{engine.spec.live_pages()} pages live): {whole}")
+    log(f"  spec: {s['spec_drafted_tokens']} drafted, "
+        f"{s['spec_accepted_tokens']} accepted (rate "
+        f"{s['spec_accept_rate']:.4f}), {s['spec_bonus_tokens']} bonus, "
+        f"{s['spec_accepted_per_step']:.4f} committed a verify step "
+        f"({per_lane:.4f} a lane over {lane_steps} lane-steps, "
+        f"{s['stalls']} stalls), {s['spec_draft_preempts']} draft "
+        f"preemptions  [{smi}]")
+    log(f"  decode {s['decode_tok_s']:.1f} tok/s with spec against phase "
+        f"4's {report['main_path']['decode_tok_s']:.1f} tok/s (the same "
+        f"trace and weights); ttft p50 {s['ttft_p50_s']:.4f} s  [{smi}]")
+    if not ok:
+        log(f"  SPEC PATH FAIL: completed {len(done)}, whole {whole}, "
+            f"launches {launch_ok}, plans {at_kernel}, summary "
+            f"{ {k: v for k, v in s.items() if k.startswith('spec')} }")
+
+    # reported, not gated: how many requests emit phase 4's tokens (the
+    # kernels round bf16 differently at the verify shape), and for each
+    # that does not, its first differing position and phase 4's top-2
+    # gap there (the kernels' prefill over phase 4's context)
+    want = report["main_path"]["tokens"]
+    same, diffs = 0, {}
+    for rid, got in outputs.items():
+        p, gap, top = first_difference(
+            torch, engine.model, engine.params, engine.requests[rid].prompt,
+            want[rid], got.tolist(), 16)
+        if p is None:
+            same += 1
+        else:
+            diffs[rid] = {"position": p, "top2_gap": gap, "max_logit": top}
+            log(f"    {rid}: first differs from phase 4 at token {p}, "
+                f"phase 4's top-2 gap there {gap:.4e} (largest logit "
+                f"{top:.3f})")
+    res.update(equal_to_phase4=same, differing=diffs)
+    log(f"  {same}/16 requests emit phase 4's tokens")
+
+    # one verify step (S = 8, C = 5, ragged chunks, kv offsets off the
+    # page boundaries up to 545) on a random arena: the kernels against
+    # the plain versions, and its row 0 against the decode step of the
+    # same pending token over a copy of the same arena; the decode step's
+    # kernels against its plain versions give the bf16 noise of this
+    # arena beside them
+    model, params = engine.model, engine.params
+    bs, S, C = 16, 8, SPEC_K + 1
+    lengths = [s0 + c for s0, c in zip(VERIFY_STARTS, VERIFY_CHUNKS)]
+    nxt, rows = 0, []
+    for n in lengths:
+        k = -(-n // bs)
+        rows.append(list(range(nxt, nxt + k)))
+        nxt += k
+    W = max(len(r) for r in rows)
+    rows = [r + [r[-1]] * (W - len(r)) for r in rows]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    tables = torch.tensor(rows, **i32)
+    kv = torch.tensor(VERIFY_STARTS, **i32)
+    clens = torch.tensor(VERIFY_CHUNKS, **i32)
+    rng = np.random.default_rng(10)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (S, C)),
+                           device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    arena0 = model.init_paged_arena(nxt + 1, bs)
+    for leaf in arena0.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    out = {}
+    for mode, step in (("torch", "verify"), ("kernel", "verify"),
+                       ("torch", "decode"), ("kernel", "decode")):
+        arena = {n: a.clone() for n, a in arena0.items()}
+        with torch.no_grad(), dispatch.use(execute=mode):
+            if step == "verify":
+                out[mode, step], _ = model.paged_verify_step(
+                    params, toks, arena, tables, kv, clens)
+            else:
+                out[mode, step], _ = model.paged_decode_step(
+                    params, toks[:, :1], arena, tables, kv,
+                    torch.ones(S, **i32))
+    torch.cuda.synchronize()
+    valid = (torch.arange(C, device="cuda")[None] < clens[:, None])
+    good = True
+    for a, b, what, tag in (
+            (out["kernel", "verify"][valid], out["torch", "verify"][valid],
+             "kernels vs plain", "verify"),
+            (out["kernel", "verify"][:, 0], out["kernel", "decode"],
+             "row 0 vs the decode step, kernels", "verify_row0_vs_decode"),
+            (out["kernel", "decode"], out["torch", "decode"],
+             "(the decode step, kernels vs plain)", "decode")):
+        err = (a - b).abs().max().item()
+        tol = 0.05 * b.abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        g = err <= tol and math.isfinite(err)
+        good &= g
+        res.update({f"{tag}_logits_max_abs_err": err,
+                    f"{tag}_logits_tol": tol,
+                    f"{tag}_greedy_agreement": agree})
+        log(f"  {'verify step logits, ' if tag != 'decode' else ''}"
+            f"{what}: max_abs_err {err:.4e} (tol "
+            f"{tol:.4e}) {'ok' if g else 'FAIL'}; greedy agreement "
+            f"{agree:.3f}")
+
+    # the verify step's GEMM shapes (M = 8 x 5 = 40), against their plain
+    # versions and timed beside torch.matmul and their bounds
+    keys40 = {k: n for k, n in gemm_keys.items() if k[0] == S * C}
+    g_ok, res_gemm = check_gemm_keys(torch, timer, keys40, dispatcher,
+                                     cfg.vocab_size)
+    report["spec_gemm"] = res_gemm
+    return ok and good and g_ok, counts, gemm_keys
+
+
+def spec_breakdown(report, gemm_keys):
+    """Kernel time of one spec step, estimated from the phase 3 times at
+    its shapes (L2 cold): the verify (16 prefill launches at the verify
+    shape and its 113 GEMMs at M = 40), SPEC_K draft rounds (16 decode
+    launches at S = 8 and 113 GEMMs at M = 8 each) and the draft
+    catch-up chunks averaged over the steps (the phase 4 prefill shape),
+    beside the wall of a spec step (draft and verify, host included)."""
+    sp, smi = report["spec_path"], nvidia_smi_line()
+    timed = {r["key"]: r["ms"] for r in report["gemm"] if r.get("recommended")}
+    timed.update({r["key"]: r["ms"] for r in report["spec_gemm"]})
+    attn = {r["kernel"]: r["ms"] for r in report["paged"] if "ms" in r}
+    verify_attn = next(r["case_ms"] for r in report["paged"]
+                       if r.get("case") == "spec verify")
+    missing = [k for k in gemm_keys if k not in timed]
+    steps = sp["spec_steps"]
+
+    def gemm_ms(m, calls):
+        return sum(timed.get(k, 0.0) * n for k, n in gemm_keys.items()
+                   if k[0] == m) / max(calls, 1)
+    verify = 16 * verify_attn + gemm_ms(40, sp["verify_calls"])
+    draft = SPEC_K * (16 * attn["paged_decode"]
+                      + gemm_ms(8, sp["draft_rounds"]))
+    catchup = sp["draft_catchup_calls"] * (
+        16 * attn["paged_prefill"] + sum(
+            timed.get(k, 0.0) * n for k, n in gemm_keys.items()
+            if k[0] == 512) / max(sp["draft_catchup_calls"]
+                                  + sp["target_prefill_calls"], 1)) / steps
+    wall = sp["decode_wall_s"] * 1e3 / steps
+    est = verify + draft + catchup
+    sp["time_breakdown"] = {
+        "wall_ms_per_spec_step": wall, "verify_kernel_ms_est": verify,
+        "draft_rounds_kernel_ms_est": draft,
+        "catchup_kernel_ms_per_step_est": catchup,
+        "kernel_ms_per_spec_step_est": est, "kernel_share_est": est / wall,
+        "untimed_gemm_keys": [list(k) for k in missing]}
+    log(f"  spec step: {wall:.2f} ms (wall: draft + verify), kernels "
+        f"{est:.2f} ms of it (estimate, {100 * est / wall:.0f}%): verify "
+        f"{verify:.3f} (16 x {verify_attn:.4f} ms prefill at C=5 + GEMMs at "
+        f"M=40), {SPEC_K} draft rounds {draft:.3f} (16 x "
+        f"{attn['paged_decode']:.4f} ms decode at S=8 + GEMMs at M=8 each),"
+        f" catch-up {catchup:.3f} a step  [{smi}]"
+        + (f"; untimed GEMM shapes {missing}" if missing else ""))
+
+
+SPEC_B_RUNS = (("self", dict(spec_draft="self")),
+               ("gemma-2b", dict(spec_draft="gemma-2b")),
+               ("self, 4 draft pages", dict(spec_draft="self",
+                                            spec_draft_blocks=4)))
+
+
+def spec_reduced(torch, report):
+    """10b: the reference's test pair on the card in f32: reduced
+    llama3.2-1b on ``tests/test_spec_decode.py``'s ``_requests(3)``
+    trace, plain, then with ``spec_k=3`` drafting by ``self``, by reduced
+    ``gemma-2b``, and by ``self`` from a 4-page draft pool."""
+    import numpy as np
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    smi = nvidia_smi_line()
+    cfg = get_arch("llama3.2-1b").reduced()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 500, 12).astype(np.int32) for _ in range(3)]
+    common = dict(num_slots=2, max_len=40, block_size=8, kv_layout="paged",
+                  prefill_chunk=8, temperature=0.0, seed=0, clock="steps",
+                  execute="auto")
+
+    def serve(**kw):
+        engine = ServingEngine(cfg, EngineConfig(**common, **kw),
+                               device="cuda")
+        ops.reset_counts()
+        out = engine.run([Request(f"r{i}", p.copy(), 8)
+                          for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        engine.pool.check()
+        whole = engine.pool.num_free == engine.pool.num_blocks
+        if engine.spec is not None:
+            engine.spec.check()
+            whole &= engine.spec.live_pages() == 0
+        ran = (counts["plain_calls"] == 0 and counts["rsa_gemm"] > 0
+               and counts["paged_prefill"] > 0
+               and counts["paged_decode"] > 0)
+        return out, engine, counts, whole and ran
+
+    base, plain_eng, counts, ok = serve()
+    res = report["spec_reduced"] = {"plain": {"counts": counts, "ok": ok}}
+    log(f"  plain: {counts['paged_prefill']} prefill / "
+        f"{counts['paged_decode']} decode launches, plain_calls "
+        f"{counts['plain_calls']}, pool whole {ok}")
+    for name, kw in SPEC_B_RUNS:
+        out, engine, counts, good = serve(spec_k=3, **kw)
+        s = engine.summary()
+        near = []
+        for rid, got in out.items():
+            p, gap, top = first_difference(
+                torch, plain_eng.model, plain_eng.params,
+                engine.requests[rid].prompt, base[rid].tolist(),
+                got.tolist(), 8)
+            if p is None:
+                continue
+            tie = gap <= 1e-4 * top
+            good &= tie
+            near.append({"rid": rid, "position": p, "top2_gap": gap,
+                         "tol": 1e-4 * top, "near_tie": tie})
+            log(f"    {rid}: differs from plain at token {p}, plain top-2 "
+                f"gap {gap:.3e} (tol {1e-4 * top:.3e}): "
+                f"{'near-tie' if tie else 'FAIL'}")
+        if kw["spec_draft"] == "gemma-2b":
+            good &= s["spec_drafted_tokens"] > s["spec_accepted_tokens"]
+        if "spec_draft_blocks" in kw:
+            good &= s["spec_draft_preempts"] > 0
+        good &= s["spec_steps"] > 0
+        res[name] = {"counts": counts, "near_ties": near, "ok": good, **{
+            k: s[k] for k in s if k.startswith("spec_")}}
+        ok &= good
+        log(f"  {name}: tokens equal plain at {3 - len(near)}/3 requests "
+            f"(+{len(near)} near-ties), {s['spec_steps']} verify steps, "
+            f"{s['spec_drafted_tokens']} drafted / "
+            f"{s['spec_accepted_tokens']} accepted, "
+            f"{s['spec_accepted_per_step']:.3f} committed a step, "
+            f"{s['spec_draft_preempts']} draft preemptions, launches "
+            f"{counts['paged_prefill']} prefill / {counts['paged_decode']} "
+            f"decode, plain_calls {counts['plain_calls']}, pools whole "
+            f"{engine.pool.num_free == engine.pool.num_blocks and engine.spec.live_pages() == 0}"
+            f" {'ok' if good else 'FAIL'}  [{smi}]")
+    return ok
+
+
 def gemm_entry(rec, name, launches):
     """A kernel-table entry of one timed GEMM shape: every mode from
     rsa_psum.cu, each against its own pallas_call."""
@@ -3013,7 +3494,8 @@ def gemm_entry(rec, name, launches):
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
 
-def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
+def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
+                 sp_counts, sp_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
     ``counts`` holds each kernel's launches on the path that runs it
     (phase 4 for the GEMM, decode and prefill, phase 5 for the cascade
@@ -3021,8 +3503,30 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys):
     phase 8 for the WKV kernel, the one entry-point call of phase 3 for
     linear attention, phase 9's path A for ADAPTNETX); ``ds_keys`` phase
     6's GEMM launches by shape (its 2-D shapes and its banks),
-    ``train_keys`` phase 7's, ``rw_keys`` phase 8's."""
+    ``train_keys`` phase 7's, ``rw_keys`` phase 8's; ``sp_counts`` and
+    ``sp_keys`` phase 10a's (the verify shape's prefill, the draft rounds'
+    decode and the verify GEMMs at M = 40 get entries of their own)."""
     out = []
+    sp = report["spec_path"]
+    vrec = next(r for r in report["paged"] if r.get("case") == "spec verify")
+    drec = next(r for r in report["paged"]
+                if r["kernel"] == "paged_decode" and "ms" in r)
+    for name, rec, launches, ms in (
+            (f"paged_prefill[spec verify S=8 C={SPEC_K + 1}]", vrec,
+             16 * sp["verify_calls"], vrec["case_ms"]),
+            ("paged_decode[spec draft S=8]", drec, sp_counts["paged_decode"],
+             drec["ms"])):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": PAGED_TPU[rec["kernel"]], "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": ms,
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    for rec in report["spec_gemm"]:
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[spec verify {rec['M']}x{rec['K']}x{rec['N']} "
+                 f"{rec['mode']}]", sp_keys.get(rec["key"], 0)))
     # ADAPTNETX at path A's shape: one query over the port's 135 classes
     ax = [r for r in report["adaptnetx"] if r["C"] == 135]
     one = next(r for r in ax if r["case"] == "[123,4567,8910]")
@@ -3224,6 +3728,17 @@ def main() -> int:
     ok &= adaptnet_serving_path(torch, report)
     report["phase9_s"] = time.time() - t9
     log(f"  phase 9 took {report['phase9_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"== 10. speculative decoding: (a) llama3.2-1b full width, self "
+        f"draft, k = {SPEC_K}; (b) the reference's test pair, reduced, f32")
+    t10 = time.time()
+    sp_ok, sp_counts, sp_keys = spec_path(torch, report, timer, dispatcher)
+    ok &= sp_ok
+    spec_breakdown(report, sp_keys)
+    ok &= spec_reduced(torch, report)
+    report["phase10_s"] = time.time() - t10
+    log(f"  phase 10 took {report['phase10_s']:.1f} s")
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")
@@ -3249,7 +3764,8 @@ def main() -> int:
         return 1
     log(f"== done in {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernel_table(report, gemm_keys, counts,
-                                              ds_keys, tr_keys, rw_keys)}))
+                                              ds_keys, tr_keys, rw_keys,
+                                              sp_counts, sp_keys)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,19 @@
 
 The port serves ``llama3.2-1b`` (dense GQA), ``deepseek-v3-671b``
 (absorbed MLA + MoE) and ``rwkv6-1.6b`` (RWKV6, recurrent state), and
-trains ``llama3.2-1b``; more archs join as their families are ported.
+trains ``llama3.2-1b``; ``gemma-2b`` (dense MQA, GeGLU) is registered as
+the reduced speculative draft the reference's tests use; more archs join
+as their families are ported.
 """
 from typing import Dict
 
-from repro_torch.configs import deepseek_v3_671b, llama3_2_1b, rwkv6_1_6b
+from repro_torch.configs import (deepseek_v3_671b, gemma_2b, llama3_2_1b,
+                                 rwkv6_1_6b)
 from repro_torch.configs.base import ArchConfig
 
 REGISTRY: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama3_2_1b, deepseek_v3_671b, rwkv6_1_6b)}
+    for m in (gemma_2b, llama3_2_1b, deepseek_v3_671b, rwkv6_1_6b)}
 ARCH_IDS = tuple(REGISTRY)
 
 # The reference's optimized profile of the registered archs
@@ -20,6 +23,7 @@ ARCH_IDS = tuple(REGISTRY)
 # small dense model, and the WKV kernel for the RWKV6 scan.  ``tp_strategy`` is data here: one device has no
 # mesh to lay out.
 OPTIMIZED_OVERRIDES: Dict[str, dict] = {
+    "gemma-2b":         {"attn_impl": "pallas", "tp_strategy": "dp_all"},
     "llama3.2-1b":      {"attn_impl": "pallas", "tp_strategy": "dp_all"},
     "deepseek-v3-671b": {"attn_impl": "pallas"},
     "rwkv6-1.6b":       {"ssm_impl": "pallas"},

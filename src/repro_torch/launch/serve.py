@@ -9,13 +9,18 @@
       --preset reduced --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --dispatcher adaptnet --adaptnet-ckpt build/adaptnet
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --spec-draft self
 
 The layout follows the model's family: the attention families are served
 from the paged KV arena with chunked prefill (64 tokens unless
 ``--prefill-chunk`` says otherwise), the recurrent ones (rwkv6-1.6b) from
 the dense per-slot state with whole-prompt prefill.  ``--dispatcher
 adaptnet --adaptnet-ckpt DIR`` tiles every GEMM site with a trained
-ADAPTNET-TPU (``launch/train_adaptnet.py``) instead of the oracle.  The
+ADAPTNET-TPU (``launch/train_adaptnet.py``) instead of the oracle.
+``--spec-draft self|<arch> --spec-k K`` decodes speculatively (greedy
+only): K draft tokens a lane and step, verified by one K+1-row target
+pass; the tokens equal plain greedy decode's.  The
 WKV kernel route of rwkv6-1.6b is the reference's optimized profile:
 ``serve_continuous(override_cfg=get_arch("rwkv6-1.6b", optimized=True))``.
 
@@ -48,6 +53,7 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      dispatcher: str = "oracle",
                      adaptnet_ckpt: Optional[str] = None,
                      defrag_threshold: Optional[float] = None,
+                     spec_draft: Optional[str] = None, spec_k: int = 4,
                      override_cfg=None, log: bool = True):
     """Serve a request set through the continuous-batching engine.  With
     ``kv_layout`` and ``prefill_chunk`` "auto" the attention families run
@@ -64,7 +70,9 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
     engine's ("steps" or "wall").  ``dispatcher`` is the recommendation
     source: "oracle", or "adaptnet" with the net saved in
     ``adaptnet_ckpt``; ``defrag_threshold`` turns on the engine's
-    auto-defrag.  Returns ({rid: tokens}, engine)."""
+    auto-defrag.  ``spec_draft`` ("self" or a registry arch) turns on
+    speculative decoding with ``spec_k`` draft tokens a lane and step.
+    Returns ({rid: tokens}, engine)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.serving import EngineConfig, Request, ServingEngine
 
@@ -80,8 +88,8 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         seed=seed, clock=clock, execute=execute, kv_layout=kv_layout,
         prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
         shared_prefix_decode=shared_prefix_decode, dispatcher_mode=dispatcher,
-        adaptnet_dir=adaptnet_ckpt, defrag_threshold=defrag_threshold),
-        device=device)
+        adaptnet_dir=adaptnet_ckpt, defrag_threshold=defrag_threshold,
+        spec_draft=spec_draft, spec_k=spec_k), device=device)
     shared = (rng.integers(0, cfg.vocab_size,
                            min(shared_prefix_len, prompt_len)).astype(np.int32)
               if shared_prefix_len > 0 else None)
@@ -148,6 +156,13 @@ def main():
     ap.add_argument("--defrag-threshold", type=float, default=None,
                     help="auto-defragment the KV pool from the engine "
                          "whenever fragmentation exceeds this fraction")
+    ap.add_argument("--spec-draft", default=None, metavar="DRAFT",
+                    help="speculative decoding: 'self' or a registry arch "
+                         "for the draft model (greedy only: --temperature "
+                         "0; the tokens equal plain greedy decode's)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per lane and step (verified "
+                         "by one K+1-row target pass)")
     ap.add_argument("--clock", default="wall", choices=["wall", "steps"])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -193,6 +208,43 @@ def main():
               f"{stats['prefix_cache_reused_pages']}, cascade steps "
               f"{engine.shared_prefix_steps}, greedy parity)")
         return
+    if a.smoke and a.spec_draft:
+        # the same greedy trace served plain, then speculatively: equal
+        # tokens (every committed token is a verify argmax), accepted
+        # drafts, more than one committed token a verify step for "self",
+        # and both page pools whole
+        common = dict(
+            arch=a.arch, preset=a.preset, num_requests=4, num_slots=2,
+            prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
+            kv_layout="paged",
+            prefill_chunk=8 if a.prefill_chunk == "auto" else a.prefill_chunk,
+            device=a.device, log=False, **picks)
+        base, _ = serve_continuous(**common)
+        outputs, engine = serve_continuous(
+            **common, spec_draft=a.spec_draft, spec_k=a.spec_k)
+        if not all(len(v) == 6 for v in outputs.values()) or \
+                set(outputs) != set(base):
+            raise SystemExit(f"smoke failed: {outputs}")
+        for rid in base:
+            if not np.array_equal(outputs[rid], base[rid]):
+                raise SystemExit(f"smoke failed: {rid} spec {outputs[rid]} "
+                                 f"!= plain {base[rid]}")
+        s = engine.summary()
+        if s["spec_steps"] <= 0 or s["spec_accepted_tokens"] < 1:
+            raise SystemExit(f"smoke failed: no accepted draft {s}")
+        if a.spec_draft == "self" and s["spec_accepted_per_step"] <= 1.0:
+            raise SystemExit(f"smoke failed: self-draft committed "
+                             f"{s['spec_accepted_per_step']} a step")
+        engine.spec.check()
+        engine.pool.check()
+        if engine.spec.live_pages() != 0 or \
+                engine.pool.num_free != engine.pool.num_blocks:
+            raise SystemExit("smoke failed: KV pages leaked")
+        print(f"spec-decode smoke OK (draft={a.spec_draft}, k={a.spec_k}: "
+              f"greedy parity, {int(s['spec_accepted_tokens'])} accepted "
+              f"draft tokens, {s['spec_accepted_per_step']:.2f} "
+              f"committed/step over {int(s['spec_steps'])} verify steps)")
+        return
     if a.smoke:
         outputs, engine = serve_continuous(
             arch=a.arch, preset=a.preset, num_requests=3, num_slots=2,
@@ -225,6 +277,7 @@ def main():
                      prefix_cache=a.prefix_cache,
                      shared_prefix_decode=a.shared_prefix_decode,
                      shared_prefix_len=a.shared_prefix_len, clock=a.clock,
+                     spec_draft=a.spec_draft, spec_k=a.spec_k,
                      device=a.device, **picks)
 
 

@@ -77,6 +77,13 @@ class Model:
         return serving.paged_prefill_step(params, tokens, self.cfg, arena,
                                           block_tables, kv_lens, chunk_lens)
 
+    def paged_verify_step(self, params, tokens, arena, block_tables,
+                          kv_lens, chunk_lens):
+        """((S, C, V) f32 logits at every chunk row, arena): the
+        speculative verifier."""
+        return serving.paged_verify_step(params, tokens, self.cfg, arena,
+                                         block_tables, kv_lens, chunk_lens)
+
     def paged_decode_step(self, params, tokens, arena, block_tables,
                           kv_lens, write_mask):
         return serving.paged_decode_step(params, tokens, self.cfg, arena,

@@ -158,6 +158,30 @@ def paged_shared_decode_step(params: Params, tokens: torch.Tensor,
     return _lm_head(params, x[:, -1, :], cfg), arena
 
 
+def _paged_chunk(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                 arena: Arena, block_tables: torch.Tensor,
+                 kv_lens: torch.Tensor, chunk_lens: torch.Tensor
+                 ) -> torch.Tensor:
+    """The ragged chunk pass shared by prefill and verify: every layer
+    writes the chunk's K/V rows into the lane's pages, then attends
+    causally over everything written so far.  Returns the final-normed
+    hidden rows (S, C, d)."""
+    _check_paged(cfg)
+    C = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    positions = kv_lens[:, None] + torch.arange(C, device=kv_lens.device,
+                                                dtype=kv_lens.dtype)[None]
+
+    def body(h, layer_p, ak, av):
+        return paged_prefill_layer_apply(
+            layer_p, h, positions, cfg, k_arena=ak, v_arena=av,
+            block_tables=block_tables, kv_lens=kv_lens,
+            chunk_lens=chunk_lens)
+
+    x = _scan_paged_layers(body, x, params, arena)
+    return rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+
 def paged_prefill_step(params: Params, tokens: torch.Tensor,
                        cfg: ArchConfig, arena: Arena,
                        block_tables: torch.Tensor, kv_lens: torch.Tensor,
@@ -173,23 +197,35 @@ def paged_prefill_step(params: Params, tokens: torch.Tensor,
     rows into the lane's pages, then attends causally over everything
     written so far.  Returns ((S, V) f32 logits at each lane's last valid
     chunk row, arena)."""
-    _check_paged(cfg)
     S, C = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = kv_lens[:, None] + torch.arange(C, device=kv_lens.device,
-                                                dtype=kv_lens.dtype)[None]
-
-    def body(h, layer_p, ak, av):
-        return paged_prefill_layer_apply(
-            layer_p, h, positions, cfg, k_arena=ak, v_arena=av,
-            block_tables=block_tables, kv_lens=kv_lens,
-            chunk_lens=chunk_lens)
-
-    x = _scan_paged_layers(body, x, params, arena)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    x = _paged_chunk(params, tokens, cfg, arena, block_tables, kv_lens,
+                     chunk_lens)
     last = torch.clamp(chunk_lens.long() - 1, 0, C - 1)
     h_last = x[torch.arange(S, device=x.device), last]
     return _lm_head(params, h_last, cfg), arena
+
+
+def paged_verify_step(params: Params, tokens: torch.Tensor,
+                      cfg: ArchConfig, arena: Arena,
+                      block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                      chunk_lens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Arena]:
+    """Speculative-decode verifier: the ragged chunked-prefill pass with
+    logits at every chunk row.
+
+    As :func:`paged_prefill_step` (tokens (S, C) carry each lane's pending
+    token followed by its draft proposals; their K/V rows land in the
+    lane's pages before attention), except that the LM head runs over all
+    C rows: row i's logits accept or correct draft token i+1.  Returns
+    ((S, C, V) f32 logits, arena); rows past ``chunk_lens`` are garbage
+    the caller ignores (their K/V went to the trash page)."""
+    if cfg.family not in CHUNKED_PREFILL_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} cannot verify through the "
+                         f"paged arena (chunked prefill supports "
+                         f"{CHUNKED_PREFILL_FAMILIES})")
+    x = _paged_chunk(params, tokens, cfg, arena, block_tables, kv_lens,
+                     chunk_lens)
+    return _lm_head(params, x, cfg), arena
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,13 @@ The paged, chunked-prefill path (dense GQA, MoE/MLA):
   a per-lane unique phase, merged by softmax state
   (``Model.paged_shared_decode_step``).  GQA only: with MLA it raises, as
   in the reference.
+* ``spec_draft`` (speculative decoding, serving/spec_decode.py): each
+  decode step drafts up to ``spec_k`` tokens a lane with a draft model
+  (``"self"`` or a registry arch) in its own page pool and arena, verifies
+  every lane's pending token plus drafts in ONE target pass through the
+  chunked-prefill kernel (``Model.paged_verify_step``, C = spec_k + 1
+  rows a lane) and commits the longest agreeing prefix plus one corrected
+  token.  Greedy only; the tokens equal plain greedy decode's.
 
 The dense slot layout (recurrent families: RWKV6), whole-prompt prefill:
 
@@ -64,9 +71,13 @@ the page pool after any step that leaves ``pool.fragmentation()`` above
 it (``kv_defrag_auto`` counts those steps).
 
 Parts of the reference engine that are not ported (the dense KV layout of
-the attention families and their bucketed prefill, speculative decoding,
-the chaos harness, the sanitizer, snapshots, span tracing) raise
-``ValueError`` when their config field is set; nothing is ignored.
+the attention families and their bucketed prefill, the chaos harness, the
+sanitizer, snapshots, span tracing) raise ``ValueError`` when their config
+field is set; nothing is ignored.  ``run()`` ends with the reference's
+teardown audit (no table survives, the only pins are the prefix trie's;
+with ``spec_draft`` the draft pool is checked and must be empty,
+``kv_draft_leaked_blocks``) on every run, where the reference audits only
+under ``sanitize``.
 
 The clock is either ``"wall"`` (live serving; every step ends in a device
 synchronisation) or ``"steps"`` (virtual time in engine-step units —
@@ -92,6 +103,8 @@ from repro_torch.serving.kv_pool import KVArena, KVBlockPool, PoolError
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
+from repro_torch.serving.spec_decode import (SpecDecoder, accept_tokens,
+                                             resolve_draft)
 
 
 def sample_logits(gen: torch.Generator, logits: torch.Tensor,
@@ -171,9 +184,15 @@ class EngineConfig:
     # auto-defrag: compact the pool after any step that leaves
     # fragmentation() above this threshold (None = manual defrag() only)
     defrag_threshold: Optional[float] = None
+    # speculative decoding: a registry arch or "self" drafts spec_k tokens
+    # a lane and step, verified by one (spec_k + 1)-row target pass; needs
+    # chunked prefill and greedy decoding.  spec_draft_blocks is the draft
+    # pool's page budget (None: the target pool's)
+    spec_draft: Optional[str] = None
+    spec_k: int = 4
+    spec_draft_blocks: Optional[int] = None
     # not ported — setting any of these raises
     buckets: Optional[Sequence[int]] = None
-    spec_draft: Optional[str] = None
     sanitize: bool = False
     chaos: Optional[object] = None
     snapshot_dir: Optional[str] = None
@@ -185,7 +204,6 @@ PAGED_PREFILL_CHUNK = 64   # the paged families' chunk under "auto"
 
 def _check_ported(e: EngineConfig) -> None:
     unported = {
-        "spec_draft": e.spec_draft is not None,
         "chaos": e.chaos is not None,
         "sanitize": e.sanitize,
         "snapshot_dir": e.snapshot_dir is not None,
@@ -317,6 +335,37 @@ class ServingEngine:
         else:
             # stacked per-slot states: the slot is the batch axis
             self._cache = self.model.init_cache(e.num_slots)
+        self.spec: Optional[SpecDecoder] = None
+        if e.spec_draft is not None:
+            if self.prefill_chunk is None:
+                raise ValueError(
+                    "spec_draft requires prefill_chunk: the verify pass IS "
+                    "the ragged chunked-prefill kernel (spec_k + 1 rows "
+                    "per lane through block tables), and this layout "
+                    "resolved to no chunk")
+            if e.temperature > 0.0:
+                raise ValueError(
+                    "spec_draft requires greedy decoding (temperature <= "
+                    "0): the accept rule compares drafts against the "
+                    "verify argmax, which is only the sampling rule when "
+                    "greedy")
+            if e.shared_prefix_decode:
+                raise ValueError(
+                    "spec_draft is incompatible with shared_prefix_decode: "
+                    "the verify chunk replaces the decode step the "
+                    "cascade would group")
+            if e.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            draft_cfg, draft_params = resolve_draft(
+                cfg, self.params, e.spec_draft, e.seed)
+            self.spec = SpecDecoder(
+                draft_cfg, draft_params, num_slots=e.num_slots,
+                block_size=e.block_size,
+                num_blocks=(e.spec_draft_blocks
+                            if e.spec_draft_blocks is not None
+                            else num_blocks),
+                max_blocks_per_slot=self._max_blocks_per_slot,
+                chunk=self.prefill_chunk, spec_k=e.spec_k)
         self._kv_rows = np.zeros((e.num_slots,), np.int32)
         self._last_tok = np.zeros((e.num_slots, 1), np.int32)
         # what one masked-dense decode step would stream: every slot's full
@@ -588,6 +637,8 @@ class ServingEngine:
         req.outcome = "done"
         self.metrics.on_retire(req.arrival_time, req.t_admit, req.t_done,
                                in_deadline=not req.expired_at(req.t_done))
+        if self.spec is not None:
+            self.spec.release(req.rid)
         self._kv_rows[slot] = 0          # pages already back in the free list
 
     def _finish(self, req: Request, outcome: str, reason: str = "") -> None:
@@ -597,6 +648,8 @@ class ServingEngine:
         if not req.outcome:
             self.sched.finish(req, outcome, self.now(), reason=reason)
         self.metrics.on_finish(req.outcome)
+        if self.spec is not None:
+            self.spec.release(req.rid)
         if slot >= 0:
             self._last_tok[slot, 0] = 0
             self._kv_rows[slot] = 0
@@ -615,6 +668,8 @@ class ServingEngine:
         slot = victim.slot
         self.sched.preempt(victim)
         self.metrics.preemptions += 1
+        if self.spec is not None:
+            self.spec.release(victim.rid)
         self._last_tok[slot, 0] = 0
         self._kv_rows[slot] = 0
 
@@ -661,7 +716,9 @@ class ServingEngine:
         active = {s: self.sched.active[s] for s in plan.decode_slots
                   if s in self.sched.active
                   and not self.sched.active[s].prefilling}
-        if active:
+        if active and self.spec is not None:
+            self._spec_decode_step(active)
+        elif active:
             # decide stalls BEFORE decoding: the coming step writes the KV
             # of each lane's pending token; a stalled dense lane keeps a
             # snapshot of its state to roll back to
@@ -738,6 +795,111 @@ class ServingEngine:
                     self.params, args[0], self.arena.leaves, *args[1:])
         self._sync()
         return logits, time.time() - t0, kv_read
+
+    def _spec_decode_step(self, active: Dict[int, Request]) -> None:
+        """One speculative step over the fully-prefilled lanes: draft up to
+        ``spec_k`` tokens a lane (draft model, own page arena), verify
+        every lane's pending token plus drafts with ONE target pass
+        through the ragged chunked-prefill kernel (C = spec_k + 1 rows a
+        lane), and commit the longest draft prefix the verify argmax
+        agrees with plus one corrected or bonus token.  Rejected drafts
+        roll back by not advancing the lanes' lengths: the rows they wrote
+        (in both arenas) lie past the new length inside reserved pages and
+        are overwritten in place next step, copy-on-write gated below
+        where target pages are shared with the prefix cache."""
+        e = self.ecfg
+        S, K = e.num_slots, e.spec_k
+        # the per-lane quota: the bonus token always commits one, so never
+        # draft past the remaining budget; reserve verify rows [L-1,
+        # L-1+k] up front, degrading k -> 0 before stalling
+        quota: Dict[int, int] = {}
+        for slot, req in sorted(active.items()):
+            L = req.prompt_len + len(req.generated)
+            k = max(0, min(K, req.max_new_tokens - len(req.generated) - 1))
+            if not self.sched.grow(req, L + k):
+                k = 0
+                if not self.sched.grow(req, L):
+                    self.metrics.stalls += 1
+            quota[slot] = k
+        for slot, req in sorted(active.items()):
+            if req.stalled:
+                continue                 # writes nothing: no fork needed
+            L = req.prompt_len + len(req.generated)
+            if not self._cow_chunk_pages(req, L - 1, quota[slot] + 1):
+                self.metrics.stalls += 1
+
+        draft_lanes = {s: (r, quota[s]) for s, r in active.items()
+                       if not r.stalled and quota[s] > 0}
+        drafts: Dict[int, List[int]] = {}
+        preempts = 0
+        dt_draft = 0.0
+        if draft_lanes:
+            t0 = time.time()
+            with self._dispatch_scope("spec_draft"):
+                drafts, preempts = self.spec.draft(draft_lanes)
+            dt_draft = time.time() - t0
+
+        # verify: one ragged chunk batch at a fixed width.  Row 0 is the
+        # pending token (what plain decode would run), rows 1..k the
+        # drafts; stalled lanes ride along with chunk 0 (their rows land
+        # in the trash page, their logits are ignored)
+        C = K + 1
+        toks = np.zeros((S, C), np.int32)
+        clens = np.zeros((S,), np.int32)
+        for slot, req in sorted(active.items()):
+            if req.stalled:
+                continue
+            d = drafts.get(slot, [])
+            toks[slot, 0] = self._last_tok[slot, 0]
+            toks[slot, 1:1 + len(d)] = d
+            clens[slot] = 1 + len(d)
+        kv = np.where(clens > 0, self._kv_rows, 0).astype(np.int32)
+        rids = [active[s].rid if s in active and clens[s] > 0 else None
+                for s in range(S)]
+        tables = self.pool.dense_block_table(rids, self._max_blocks_per_slot)
+        kv_read = e.block_size * sum(
+            self.pool.blocks_for(int(kv[s]) + int(clens[s]))
+            for s in range(S))
+        t0 = time.time()
+        with torch.no_grad(), self._dispatch_scope("spec_verify"):
+            logits, _ = self.model.paged_verify_step(
+                self.params, self._tensor(toks), self.arena.leaves,
+                self._tensor(tables), self._tensor(kv), self._tensor(clens))
+        self._sync()
+        dt = time.time() - t0
+        self._dispatch("spec_verify")
+        # greedy verify picks (S, C), on the device (the first maximal
+        # index, as np.argmax); only the ints come to the host
+        argm = torch.argmax(logits, -1).cpu().numpy()
+
+        committed = accepted = bonus = drafted = live = 0
+        for slot, req in sorted(active.items()):
+            if req.stalled:
+                continue                 # replays the pending token
+            live += 1
+            d = drafts.get(slot, [])
+            drafted += len(d)
+            a, commit = accept_tokens(d, argm[slot, :len(d) + 1])
+            c = 0
+            for t in commit:             # EOS or the budget can cut it
+                req.generated.append(int(t))
+                c += 1
+                if req.done():
+                    break
+            accepted += min(a, c)
+            bonus += c - min(a, c)
+            committed += c
+            self._kv_rows[slot] += c
+            self._last_tok[slot, 0] = req.generated[-1]
+            self.spec.commit(req.rid, int(self._kv_rows[slot]))
+            self._first_token(req)
+            if req.done():
+                self._retire(req)
+        self.metrics.on_spec_step(live, drafted, accepted, bonus, preempts)
+        self.metrics.on_decode_step(
+            len(active), e.num_slots, committed, dt + dt_draft,
+            kv_read_tokens=kv_read,
+            kv_read_tokens_dense=self._dense_kv_rows)
 
     def _shared_prefix_group(self, active: Dict[int, Request],
                              kv: np.ndarray, wm: np.ndarray):
@@ -825,6 +987,12 @@ class ServingEngine:
         self._leak_audit = self.pool.audit_leaks(
             self.prefix_cache.pages() if self.prefix_cache is not None
             else ())
+        if self.spec is not None:
+            # draft pages leave with their target request, so a drained
+            # engine leaves the draft pool empty too
+            self.spec.check()
+            self._leak_audit["kv_draft_leaked_blocks"] = \
+                self.spec.live_pages()
         return {r.rid: np.asarray(r.generated, np.int32) for r in requests}
 
     def dispatch_stats(self) -> Dict[str, int]:

@@ -100,7 +100,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("shared_prefix_decode", True),        # needs prefix_cache
-    ("spec_draft", "self"), ("chaos", object()), ("sanitize", True),
+    ("spec_draft", "rwkv6-1.6b"),          # a draft outside the paged families
+    ("chaos", object()), ("sanitize", True),
     ("snapshot_dir", "/nonexistent"), ("trace", True),
     ("kv_layout", "dense"), ("prefill_chunk", None), ("buckets", (16,)),
     ("dispatcher_mode", "adaptnet"), ("execute", "pallas")])

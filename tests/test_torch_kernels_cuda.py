@@ -1437,6 +1437,82 @@ def test_prefix_kernel_matches_plain(cuda, G, hd, dtype, tol, cap):
         (got[2][3] == 0).all()
 
 
+# speculative decoding's verify: C = spec_k + 1 rows a lane, ragged chunks
+# 0, 1, ..., C at kv offsets off the page and 64-row tile boundaries
+VERIFY_STARTS = [0, 3, 67, 130, 541, 250]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("C", [2, 5, 9])
+def test_prefill_kernel_at_verify_shapes(cuda, C, G, hd, dtype, tol):
+    """The prefill kernel at the verify shapes (C in {2, 5, 9} rows a
+    lane, chunks 0, 1, C - 1 and C, G in {1, 4}, hd 16 (rounded up to the
+    64-wide tile) and 64) against the plain version at every row; two runs
+    bitwise equal, one launch each; the lane of length 0 is zeros."""
+    chunks = [0, 1, C, C - 1, C, 2]
+    q, k, v, tables, st, lens = _prefill_inputs(
+        cuda, 2, G, hd, dtype, starts=VERIFY_STARTS, chunks=chunks, C=C)
+    scale = hd ** -0.5
+    n0 = ops.launch_counts()["paged_prefill"]
+    got = paged_prefill_cuda(q, k, v, tables, st, lens, scale=scale)
+    again = paged_prefill_cuda(q, k, v, tables, st, lens, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_prefill"] == n0 + 2
+    assert torch.equal(got, again)
+    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
+                                         scale=scale)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma-2b"])
+def test_reduced_verify_step_matches_cpu(cuda, arch):
+    """``paged_verify_step`` of the reduced model (f32, hd 16; llama G = 2,
+    gemma G = 4) on the kernels against the same step on the plain
+    versions on the CPU, from the same weights and arena: every row up to
+    each lane's chunk length within 1e-4, the written arena rows within
+    1e-5 (f32 summation order, as the CPU parity tests); the prefill
+    kernel once a layer and the RSA GEMM 7 times a layer plus the
+    unembedding."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import build_model
+    cfg = get_arch(arch).reduced()
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    dev = build_model(cfg, device="cuda")
+    dparams = _to(params, "cuda")
+    S, C, W, bs = 4, 4, 4, 4
+    g = torch.Generator().manual_seed(1)
+    tables = torch.randperm(S * W, generator=g).int().reshape(S, W)
+    kv = torch.tensor([0, 5, 7, 8], dtype=torch.int32)
+    clens = torch.tensor([0, 1, 4, 4], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (S, C), generator=g)
+    arena0 = {n: torch.randn(a.shape, generator=g)
+              for n, a in cpu.init_paged_arena(S * W + 1, bs).items()}
+    res = {}
+    ops.reset_counts()
+    for name, model, p, d in (("cpu", cpu, params, "cpu"),
+                              ("cuda", dev, dparams, "cuda")):
+        arena = {n: a.to(d).clone() for n, a in arena0.items()}
+        with torch.no_grad():
+            logits, arena = model.paged_verify_step(
+                p, toks.to(d), arena, *(t.to(d) for t in (tables, kv,
+                                                            clens)))
+        res[name] = (logits.cpu(), {n: a.cpu() for n, a in arena.items()})
+    counts = ops.launch_counts()
+    assert counts["paged_prefill"] == cfg.num_layers
+    assert counts["rsa_gemm"] == 7 * cfg.num_layers + 1
+    valid = torch.arange(C)[None] < clens[:, None]
+    diff = (res["cuda"][0][valid] - res["cpu"][0][valid]).abs().max()
+    assert diff.item() < 1e-4
+    for n in ("k", "v"):
+        d = (res["cuda"][1][n][:, :-1] - res["cpu"][1][n][:, :-1]).abs()
+        assert d.max().item() < 1e-5
+
+
 @pytest.mark.parametrize("splits", [1, 2, 3, 7, 16, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefill_and_prefix_any_split_count_are_right_and_bitwise(
