@@ -121,6 +121,25 @@ Phases (any failure exits non-zero):
    is within 1e-4 of its largest logit (printed as near-ties); the gemma
    draft must be rejected somewhere, the starved pool must preempt draft
    lanes, no plain version may run and every pool must end whole.
+11. the SAGAR path (``launch/sagar.py``, the paper's own model): the
+   paper's 2^14-MAC instance (32 x 32 cells, 108 classes), 400 000
+   log-uniform workloads (seed 42) labelled on the host by the copied
+   cost model (EDP oracle), the raw ADAPTNET at its published widths (E =
+   16, H = 128) trained on the card for 20 epochs and gated on the
+   reference's test gates (accuracy >= 0.80, geomean relative EDP <=
+   1.02); the 2^12 and 2^13 instances (75 and 90 classes) at 60 000
+   samples and 8 epochs; Fig. 7e on a 60 000-sample 2^14 set (seed 11:
+   kNN, logistic regression and the plain MLP on the card, the random
+   forest on the host), gated on ADAPTNET beating logistic regression by
+   more than 0.05; one batched ADAPTNETX launch per Table-IV workload
+   (6 launches of 13-72 queries) with the 2^14 net, its logits against
+   the plain version (rtol = atol = 1e-5) and every pick equal to the
+   host twin's, each batch timed beside its bound; and
+   ``SaraDispatcher.gemm`` at 512x512x512 and 128x8000x128 (f32) and
+   8x2048x2048 (bf16), each call one RSA launch and no plain call, its
+   registry record the dispatcher's recommendation, its output against
+   the plain GEMM at phase 3's tolerance.  Relative EDP and cycles are
+   cost-model numbers for the paper's 28 nm array, not measurements.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -191,6 +210,13 @@ SB_REQUESTS, SB_GEN = 8, 16
 SPEC_K = 4
 VERIFY_STARTS = [540, 3, 100, 17, 250, 400, 61, 129]
 VERIFY_CHUNKS = [5, 1, 3, 5, 2, 5, 4, 5]
+# phase 11: the SAGAR path; Fig. 8's size for the 2^14 net, the
+# reference's tests' size for 2^12, 2^13 and Fig. 7e; SaraDispatcher.gemm
+# at quickstart's two f32 shapes and the main path's bf16 decode shape
+SG_SAMPLES, SG_EPOCHS = 400_000, 20
+SG_SMALL_SAMPLES, SG_SMALL_EPOCHS = 60_000, 8
+SG_GEMMS = ((512, 512, 512, "float32"), (128, 8000, 128, "float32"),
+            (8, 2048, 2048, "bfloat16"))
 
 
 def log(*a):
@@ -3484,6 +3510,179 @@ def spec_reduced(torch, report):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's SAGAR model (launch/sagar.py)
+# ---------------------------------------------------------------------------
+
+def sagar_instance(r, paper: bool):
+    """One Fig. 8 line of ``launch.sagar.adaptnet_on``'s result."""
+    geo = r["geomean_rel_edp"]
+    log(f"  2^{r['p']} MACs ({r['num_classes']} classes): "
+        f"{len(r['train'].labels) + len(r['test'].labels)} workloads "
+        f"labelled on the host in {r['generate_s']:.1f} s "
+        f"({r['distinct_labels']} distinct labels); trained on the card in "
+        f"{r['train_s']:.1f} s; test accuracy {r['accuracy']:.4f}"
+        + (" (paper: 95%)" if paper else "")
+        + f", geomean relative EDP {geo:.5f} = {100 / geo:.2f}% of the "
+        f"oracle (model" + ("; paper: 99.93%)" if paper else ")")
+        + f", median {r['median_rel_edp']:.5f}")
+    return {"p": r["p"], "classes": r["num_classes"],
+            "samples": len(r["train"].labels) + len(r["test"].labels),
+            "generate_s": r["generate_s"], "train_s": r["train_s"],
+            "distinct_labels": r["distinct_labels"],
+            "test_accuracy": r["accuracy"], "geomean_rel_edp_model": geo,
+            "median_rel_edp_model": r["median_rel_edp"]}
+
+
+def sagar_path(torch, report, timer):
+    """Phase 11: ``launch/sagar.py``'s parts as a user runs them, on the
+    card: the 2^14 net at Fig. 8's size (gated on the reference's test
+    gates), 2^12 and 2^13 at 60 000 samples, Fig. 7e on a 60 000-sample
+    set (seed 11), one batched ADAPTNETX launch per Table-IV workload
+    with the 2^14 net, and ``SaraDispatcher.gemm`` at quickstart's two
+    f32 shapes and the main path's bf16 decode shape.  The counts are 0
+    from the first part on and read after the last launch of the path;
+    the comparisons with the plain versions and the timings follow.
+    Returns ok; the counts stay in ``report["sagar"]``."""
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.core.hw import DATAFLOW_NAMES
+    from repro_torch.core.sara import SaraDispatcher
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.adaptnetx import (OPERANDS, _adaptnetx_plan,
+                                               adaptnetx_plain)
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
+    from repro_torch.launch import sagar as S
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = report["sagar"] = {}
+    ok = True
+    ops.reset_counts()
+    f3 = res["fig3_model"] = S.fig3(log=False)
+    log(f"  Fig. 3 (model cycles): monolithic 128x128 "
+        f"{f3['monolithic_cycles']:.0f}, distributed 16 x 32x32 "
+        f"{f3['distributed_cycles']:.0f} "
+        f"({f3['distributed_reads'] / f3['monolithic_reads']:.1f}x the "
+        f"reads), RSA best {f3['rsa_best_cycles']:.0f}")
+    big = S.adaptnet_on(14, SG_SAMPLES, SG_EPOCHS, 42, dev)
+    r = sagar_instance(big, True)
+    good = r["test_accuracy"] >= 0.80 and r["geomean_rel_edp_model"] <= 1.02
+    ok &= good
+    log(f"    gates: accuracy >= 0.80 and geomean relative EDP <= 1.02 "
+        f"(the reference's tests/test_adaptnet.py) {'ok' if good else 'FAIL'}"
+        f"  [{SG_EPOCHS} epochs]")
+    res["instances"] = [r]
+    for p in (12, 13):
+        res["instances"].append(sagar_instance(
+            S.adaptnet_on(p, SG_SMALL_SAMPLES, SG_SMALL_EPOCHS, 42, dev),
+            False))
+    small = S.adaptnet_on(14, SG_SMALL_SAMPLES, SG_SMALL_EPOCHS, 11, dev)
+    rows = S.fig7e(small["train"], small["test"], small, dev)
+    res["fig7e"] = [{"name": x["name"], "accuracy": x["accuracy"],
+                     "train_s": x["train_s"]} for x in rows]
+    for x in rows:
+        log(f"  {x['name']} {x['accuracy']:.4f}, trained in "
+            f"{x['train_s']:.1f} s")
+    acc = {x["name"]: x["accuracy"] for x in rows}
+    margin = acc["fig7e.ADAPTNET.accuracy"] - acc["fig7e.LogReg.accuracy"]
+    good = margin > 0.05
+    ok &= good
+    log(f"    ADAPTNET above LogReg by {margin:.4f} (> 0.05, the "
+        f"reference's gate) {'ok' if good else 'FAIL'}")
+
+    # the path's launches: one ADAPTNETX query a workload, then each GEMM
+    p = big["result"].params
+    wl = S.adaptnetx_workloads(p, big["inst"], dev)
+    d = SaraDispatcher()
+    gemms = []
+    for M, K, N, dt in SG_GEMMS:
+        dt = getattr(torch, dt)
+        reg = dispatch.SiteRegistry()
+        before = ops.launch_counts()
+        with dispatch.use(registry=reg):
+            g = S.sara_gemms(dev, [(M, K, N)], dt, dispatcher=d)[0]
+        after = ops.launch_counts()
+        g.update(dtype=dt, rec=reg.sites("_")["sara.gemm"],
+                 launched={k: after[k] - before[k] for k in after})
+        gemms.append(g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    good = (counts["adaptnetx"] == len(wl) and
+            counts["rsa_gemm"] == len(gemms) and counts["plain_calls"] == 0)
+    ok &= good
+    log(f"  launches on the path: adaptnetx {counts['adaptnetx']} (expected "
+        f"{len(wl)}), rsa_gemm {counts['rsa_gemm']} (expected {len(gemms)}),"
+        f" plain_calls {counts['plain_calls']} {'ok' if good else 'FAIL'}")
+
+    wrecs = []
+    for w in wl:
+        t = [p[k] for k in OPERANDS]
+        want = adaptnetx_plain(w["ids"].to(torch.int32), *t)
+        torch.cuda.synchronize()
+        err = (w["logits"] - want).abs().max().item()
+        same = int(np.sum(w["picks"] == w["host_picks"]))
+        good = adaptnetx_close(w["logits"], want) and same == w["B"]
+        ok &= good
+        b_ms, b_by = adaptnetx_bound(p, w["B"])
+        plan = _adaptnetx_plan(w["B"], p["emb_m"].shape[1], *p["w2"].shape)
+        rec = {"workload": w["name"], "B": w["B"], "max_abs_err": err,
+               "picks_equal_host_twin": f"{same} of {w['B']}",
+               "oracle_share": w["oracle_share"],
+               "geomean_rel_edp_model": w["geomean_rel_edp"],
+               "ms": timer(lambda: ops.adaptnetx_recommend(w["ids"], p)),
+               "plain_ms": timer(lambda: adaptnetx_plain(
+                   w["ids"].to(torch.int32), *t)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "plan": adaptnetx_plan_str(plan), "ok": good}
+        wrecs.append(rec)
+        log(f"  adaptnetx {w['name']:<12} B={w['B']:>3}: max_abs_err "
+            f"{err:.2e} (tol 1e-5 + 1e-5 |plain|), picks equal the host twin"
+            f" at {same} of {w['B']}, oracle's pick at "
+            f"{100 * w['oracle_share']:.1f}%, geomean relative EDP "
+            f"{w['geomean_rel_edp']:.5f} (model) {'ok' if good else 'FAIL'}"
+            f"\n    kernel {rec['ms']:.4f} ms a batched query (floor "
+            f"{report['adaptnetx_floor_ms']:.4f}) plain {rec['plain_ms']:.4f}"
+            f" ms bound {b_ms:.6f} ms ({b_by}); plan: {rec['plan']}")
+    res["adaptnetx"] = wrecs
+
+    grecs = []
+    for g in gemms:
+        x, w, rec = g["x"], g["w"], g["rec"]
+        M, K, N = g["M"], g["K"], g["N"]
+        f32 = g["dtype"] == torch.float32
+        plain = rsa_gemm_plain(x, w, block_k=rec.block_k, mode=rec.mode)
+        torch.cuda.synchronize()
+        err = (g["out"].float() - plain.float()).abs().max().item()
+        tol = gemm_tolerance(torch, x, w, plain, rec.mode, rec.block_k, f32)
+        good = (err <= tol and math.isfinite(err)
+                and g["launched"]["rsa_gemm"] == 1
+                and g["launched"]["plain_calls"] == 0
+                and rec.cfg == d.recommend(M, K, N) and rec.backend == "kernel")
+        ok &= good
+        nbytes = (M * K + K * N + M * N) * x.element_size()
+        b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K,
+                              PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        grec = {"M": M, "K": K, "N": N, "dtype": str(g["dtype"]).split(".")[-1],
+                "mode": DATAFLOW_NAMES[rec.mode], "bk": rec.block_k,
+                "recommendation": rec.describe(), "launched": g["launched"],
+                "max_abs_err": err, "tol": tol,
+                "ms": timer(lambda: d.gemm(x, w)),
+                "plain_ms": timer(lambda: rsa_gemm_plain(
+                    x, w, block_k=rec.block_k, mode=rec.mode)),
+                "library_ms": timer(lambda: torch.matmul(x, w)),
+                "bound_ms": b_ms, "bound_by": b_by, "ok": good}
+        grecs.append(grec)
+        log(f"  SaraDispatcher.gemm {M}x{K}x{N} {grec['dtype']}: "
+            f"{rec.describe()}; {g['launched']['rsa_gemm']} RSA launch, "
+            f"{g['launched']['plain_calls']} plain calls; max_abs_err "
+            f"{err:.3e} (tol {tol:.3e}) {'ok' if good else 'FAIL'}  kernel "
+            f"{grec['ms']:.4f} ms plain {grec['plain_ms']:.4f} ms matmul "
+            f"{grec['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    res["gemms"] = grecs
+    res["counts"] = counts
+    return ok
+
+
 def gemm_entry(rec, name, launches):
     """A kernel-table entry of one timed GEMM shape: every mode from
     rsa_psum.cu, each against its own pallas_call."""
@@ -3540,6 +3739,23 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
         "ms": one["ms"], "plain_ms": one["plain_ms"],
         "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
         "library_ms": None})
+    # phase 11: the batched ADAPTNETX query of the bert workload (C = 108,
+    # B = 72) and each SaraDispatcher.gemm shape
+    sg = report["sagar"]
+    bert = next(r for r in sg["adaptnetx"] if r["workload"] == "bert_base")
+    out.append({
+        "name": f"adaptnetx[C=108 B={bert['B']} sagar]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adaptnetx.cu",
+        "replaces": ADAPTNETX_TPU, "launches": sg["counts"]["adaptnetx"],
+        "max_abs_err": max(r["max_abs_err"] for r in sg["adaptnetx"]),
+        "ms": bert["ms"], "plain_ms": bert["plain_ms"],
+        "bound_ms": bert["bound_ms"], "bound_by": bert["bound_by"],
+        "library_ms": None})
+    for rec in sg["gemms"]:
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[sara.gemm {rec['M']}x{rec['K']}x{rec['N']} "
+                 f"{rec['mode']} {rec['dtype']}]",
+            rec["launched"]["rsa_gemm"]))
     launches = dict(report["rwkv_path"]["wkv_launches"],
                     main=counts["linear_attn"])
     for rec in report["wkv"]:
@@ -3739,6 +3955,15 @@ def main() -> int:
     ok &= spec_reduced(torch, report)
     report["phase10_s"] = time.time() - t10
     log(f"  phase 10 took {report['phase10_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== 11. the SAGAR path: ADAPTNET on the paper's RSA configuration "
+        "space (2^12-2^14 MACs), Fig. 7e, ADAPTNETX on the Table-IV "
+        "workloads, SaraDispatcher.gemm")
+    t11 = time.time()
+    ok &= sagar_path(torch, report, timer)
+    report["phase11_s"] = time.time() - t11
+    log(f"  phase 11 took {report['phase11_s']:.1f} s")
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

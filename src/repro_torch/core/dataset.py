@@ -1,13 +1,16 @@
 """GEMM-workload datasets for ADAPTNET training.
 
-The part of ``repro/core/dataset.py`` that the port's trainers need,
-copied: ``MAX_DIM``, ``Dataset`` (with ``split``) and ``sample_workloads``.
-Paper §III-B samples M/N/K from positive integers <= 10^4; sampling here
-is log-uniform by default (``dist="uniform"`` is the paper's sampler).
-The SAGAR-labelled ``generate`` and the ``relative_*`` helpers rest on the
-paper's RSA cost model, which the port does not have yet (ROADMAP queue 1
-item 18); the port labels with the tile cost model
-(``core/tpu_costmodel.py``) instead.
+A copy of ``repro/core/dataset.py`` (numpy only): ``MAX_DIM``,
+``Dataset`` (with ``split``), ``sample_workloads``, the SAGAR-labelled
+``generate`` and the ``relative_performance`` / ``geomean_relative``
+scores.  Paper §III-B samples M/N/K from positive integers <= 10^4;
+sampling here is log-uniform by default (``dist="uniform"`` is the
+paper's sampler).  ``generate`` labels each workload with the exhaustive
+oracle over the paper's RSA configuration space (``core/costmodel.py``,
+EDP by default), bit for bit the reference's labels; the relative scores
+are that cost model's EDP or cycles of a pick over the best, model
+numbers for the paper's 28 nm array.  The serving trainers label with
+the tile cost model (``core/tpu_costmodel.py``) instead.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+
+from repro_torch.core import costmodel as cm
+from repro_torch.core.rsa import RSAInstance, SAGAR_INSTANCE, enumerate_configs
 
 MAX_DIM = 10_000
 
@@ -50,3 +56,32 @@ def sample_workloads(n: int, *, dist: str = "loguniform", seed: int = 0,
     else:
         raise ValueError(dist)
     return dims.astype(np.int32)
+
+
+def generate(n: int = 400_000, *, inst: RSAInstance = SAGAR_INSTANCE,
+             dist: str = "loguniform", objective: str = "edp",
+             seed: int = 0, chunk: int = 100_000) -> Dataset:
+    """Label n workloads with the exhaustive-search oracle (vectorized)."""
+    feats = sample_workloads(n, dist=dist, seed=seed)
+    labels = np.empty(n, np.int32)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        labels[lo:hi] = cm.best_config(
+            inst, feats[lo:hi, 0], feats[lo:hi, 1], feats[lo:hi, 2],
+            objective=objective)
+    return Dataset(feats, labels, num_classes=len(enumerate_configs(inst)))
+
+
+def relative_performance(inst: RSAInstance, feats: np.ndarray,
+                         pred: np.ndarray, metric: str = "edp") -> np.ndarray:
+    """per-sample predicted-config cost / oracle cost (>= 1)."""
+    cost = cm.sweep_configs(inst, feats[:, 0], feats[:, 1], feats[:, 2])
+    table = cost.edp if metric == "edp" else cost.runtime
+    chosen = np.take_along_axis(table, pred[:, None].astype(int), -1)[:, 0]
+    return chosen / table.min(axis=-1)
+
+
+def geomean_relative(inst: RSAInstance, feats: np.ndarray, pred: np.ndarray,
+                     metric: str = "edp") -> float:
+    rel = relative_performance(inst, feats, pred, metric)
+    return float(np.exp(np.mean(np.log(rel))))

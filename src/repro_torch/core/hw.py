@@ -1,10 +1,18 @@
-"""Constants of the recommender's tile space.
+"""Hardware constants.
 
-``TPUChip`` is the hardware model the tile cost model
-(``core/tpu_costmodel.py``) prices configurations against.  It is copied
-unchanged from the reference (``repro/core/hw.py``) so that the port
-recommends exactly the tile the reference does; it does not describe the
-H100 the port runs on.  An H100 tile space is later work (ROADMAP queue 1).
+Two hardware models live here, both copied unchanged from the reference
+(``repro/core/hw.py``):
+
+1. ``TPUChip``, the chip the recommender's tile cost model
+   (``core/tpu_costmodel.py``) prices configurations against, so that the
+   port recommends exactly the tile the reference does.  It does not
+   describe the H100 the port runs on; an H100 tile space is later work
+   (ROADMAP queue 1 item 14).
+2. ``AcceleratorTech``, the paper's 28 nm accelerator technology constants
+   that the SAGAR cost model (``core/costmodel.py``) and the PPA
+   arithmetic (``core/ppa.py``) read.  They describe the paper's array,
+   which no kernel of the port executes: every cycle, energy and EDP
+   derived from them is a model number.
 """
 
 from __future__ import annotations
@@ -23,6 +31,33 @@ class TPUChip:
 
 
 TPU_V5E = TPUChip()
+
+
+@dataclass(frozen=True)
+class AcceleratorTech:
+    freq_hz: float = 1e9                # SAGAR runs at 1 GHz (paper §V-B)
+    # per-op energies (28nm-class, pJ) — Dally et al. CACM'20 + Horowitz
+    # ISSCC'14 scaling; the paper cites 100 fJ/bit-mm wire energy.
+    e_mac_pj: float = 1.0               # one 8-bit-ish MAC
+    e_sram_read_pj_per_byte: float = 6.0
+    e_sram_write_pj_per_byte: float = 8.0
+    e_dram_pj_per_byte: float = 160.0
+    e_wire_fj_per_bit_mm: float = 100.0
+    e_noc_hop_pj_per_byte: float = 2.0  # mesh NoC hop (router+link)
+    # NoC latency per hop (cycles) for the distributed baseline (OpenSMART)
+    noc_hop_cycles: float = 1.0
+    # SAGAR bypass pipelining: 8 systolic-cells per pipeline stage (Fig 13h)
+    bypass_cells_per_stage: int = 8
+
+    # published PnR numbers (paper Fig. 13b) used by core/ppa.py
+    sagar_area_mm2: float = 81.90
+    sagar_power_w: float = 13.01
+    sagar_tops: float = 32.768
+    adaptnetx_area_frac: float = 0.0865
+    adaptnetx_power_frac: float = 0.0136
+
+
+TECH_28NM = AcceleratorTech()
 
 
 # Dataflow ids (paper: output/weight/input stationary)

@@ -17,6 +17,9 @@ tile space is later work (ROADMAP queue 1 item 14).
 Execution lives in the dispatch layer (``repro_torch.dispatch``): model
 GEMM sites call ``dispatch.gemm(x, w, site=...)``, which asks the active
 dispatcher for the configuration and runs the RSA GEMM kernel with it.
+``SaraDispatcher.gemm`` is the one-call self-adaptive GEMM over that
+layer, with this dispatcher active and its ``execute`` mode (the
+reference's ``use_pallas`` switch).
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ class SaraDispatcher:
 
     mode: str = "oracle"                   # "oracle" | "adaptnet"
     adaptnet_params: Optional[Dict] = None
+    # how ``gemm`` runs: "auto" (the RSA kernel on CUDA tensors, the plain
+    # version on CPU tensors), "kernel" or "torch" (``dispatch.context``)
+    execute: str = "auto"
     _cache: Dict = field(default_factory=dict)
     _sources: Dict = field(default_factory=dict)
     _hits: int = 0
@@ -66,9 +72,13 @@ class SaraDispatcher:
     _n_fallback: int = 0
 
     def __post_init__(self) -> None:
+        from repro_torch.dispatch.context import EXECUTE_MODES
         if self.mode not in MODES:
             raise ValueError(f"unknown dispatcher mode {self.mode!r} "
                              f"(one of {MODES})")
+        if self.execute not in EXECUTE_MODES:
+            raise ValueError(f"unknown execute mode {self.execute!r} "
+                             f"(one of {EXECUTE_MODES})")
 
     def __setattr__(self, name, value):
         # flipping the recommendation source on a live dispatcher must not
@@ -189,6 +199,16 @@ class SaraDispatcher:
         self._sources.clear()
         self._hits = self._misses = 0
         self._n_adaptnet = self._n_oracle = self._n_fallback = 0
+
+    # -- execution -----------------------------------------------------------
+    def gemm(self, x, w, *, site: str = "sara.gemm"):
+        """Self-adaptive GEMM: (..., M, K) @ (K, N) through the dispatch
+        layer with this dispatcher active under its ``execute`` mode; the
+        active registry records the site.  Nothing falls back: "kernel" on
+        CPU tensors raises."""
+        from repro_torch import dispatch
+        with dispatch.use(self, execute=self.execute):
+            return dispatch.gemm(x, w, site=site)
 
 
 def train_adaptnet_tpu(n_samples: int = 150_000, epochs: int = 10,

@@ -24,7 +24,7 @@ distribution mixes
 
 Labels come from the exhaustive tile-space oracle (closed-form cost
 model).  The reference's default archs include three that the port's
-registry does not have yet (ROADMAP queue 1 item 18), so the port's
+registry does not have yet (ROADMAP queue 1 item 9b), so the port's
 default is the archs it serves.
 """
 

@@ -138,6 +138,11 @@ class SpecDecoder:
         return torch.as_tensor(a, device=self.device)
 
     # -- lifecycle ------------------------------------------------------------
+    def rows(self, rid: str) -> int:
+        """Draft-arena rows that hold ``rid``'s real context (0 for a
+        request that has not drafted, or was released)."""
+        return self._rows.get(rid, 0)
+
     def commit(self, rid: str, rows: int) -> None:
         """Record the draft row count after acceptance (the target's new
         kv rows: the context minus the new pending token).  Accepted draft

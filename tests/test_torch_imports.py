@@ -35,7 +35,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.dataset", "repro_torch.core.workloads",
             "repro_torch.kernels.adaptnetx",
             "repro_torch.launch.train_adaptnet",
-            "repro_torch.launch.selfadaptive_gemm"} <= set(mods)
+            "repro_torch.launch.selfadaptive_gemm",
+            "repro_torch.core.rsa", "repro_torch.core.costmodel",
+            "repro_torch.core.sigma", "repro_torch.core.ppa",
+            "repro_torch.core.adaptnetx_model",
+            "repro_torch.core.baselines",
+            "repro_torch.launch.sagar"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -93,6 +98,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train_serving_adaptnet(64, 1, shapes=[(8, 8, 8)], log=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(n_samples=64, epochs=1, layers=1, log=False)
+    from repro_torch.core import baselines as B
+    from repro_torch.core.sara import SaraDispatcher
+    from repro_torch.launch import sagar
+    for fn in (B.knn, B.logistic_regression, B.plain_mlp, B.run_all):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(ds, ds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sagar.run(n_samples=64, epochs=1, instances=(12,), log=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        SaraDispatcher(execute="kernel").gemm(torch.ones(2, 3),
+                                              torch.ones(3, 4))
     # an explicit CPU device runs the plain versions
     assert ServingEngine(cfg, EngineConfig(), device="cpu").device.type == \
         "cpu"

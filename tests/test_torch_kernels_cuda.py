@@ -1023,6 +1023,54 @@ def test_adaptnetx_query_alone_equals_batch(cuda, E, H, C, rows):
                 assert torch.equal(alone, rows33[b]), b
 
 
+@pytest.mark.parametrize("B", [72, 197])
+def test_adaptnetx_sagar_batches_match_plain(cuda, B):
+    """The SAGAR path's batches (``launch/sagar.py``: the 2^14-MAC net's
+    108 classes, one query per Table-IV layer; bert's 72, all 197
+    layers): the batch against the plain version at the reference's
+    tolerance, and each query alone bitwise its row of the batch."""
+    p = _adaptnetx_params(cuda, 108)
+    ids = torch.randint(1, 10_001, (B, 3), generator=cuda, device="cuda",
+                        dtype=torch.int32)
+    ops.reset_counts()
+    with dispatch.use(execute="kernel"):
+        got = ops.adaptnetx_recommend(ids, p)
+        alone = [ops.adaptnetx_recommend(ids[b], p) for b in range(B)]
+    assert ops.launch_counts()["adaptnetx"] == B + 1
+    with dispatch.use(execute="torch"):
+        want = ops.adaptnetx_recommend(ids, p)
+    assert got.shape == (B, 108)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for b in range(B):
+        assert torch.equal(alone[b], got[b]), b
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [(128, 8000, 128, torch.float32),
+                                         (8, 2048, 2048, torch.bfloat16)])
+def test_sara_dispatcher_gemm_matches_plain(cuda, M, K, N, dtype):
+    """``SaraDispatcher.gemm`` on the card: one RSA kernel launch a call
+    and no plain call, its registry record the dispatcher's
+    recommendation run on the kernel, the output against the plain GEMM
+    at the file's GEMM bound."""
+    from repro_torch.core.sara import SaraDispatcher
+    d = SaraDispatcher()
+    a = torch.randn((M, K), generator=cuda, device="cuda").to(dtype)
+    b = (torch.randn((K, N), generator=cuda, device="cuda") /
+         K ** 0.5).to(dtype)
+    reg = dispatch.SiteRegistry()
+    ops.reset_counts()
+    with dispatch.use(registry=reg):
+        got = d.gemm(a, b)
+    counts = ops.launch_counts()
+    assert counts["rsa_gemm"] == 1 and counts["plain_calls"] == 0
+    rec = reg.sites("_")["sara.gemm"]
+    assert rec.cfg == d.recommend(M, K, N) and rec.backend == "kernel"
+    assert rec.ran_plan() is not None
+    want = rsa_gemm_plain(a, b, block_k=rec.block_k, mode=rec.mode)
+    tol = _gemm_tol(a, b, want, rec.block_k, dtype)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
 def test_reduced_adaptnet_serve_matches_cpu(cuda, tmp_path):
     """A logbucket net trained by the port on the CPU drives the reduced
     llama3.2-1b (paged, chunk 8, f32) on the card and on the CPU from the

@@ -219,6 +219,44 @@ def _draft_both(jd, td, specs, quotas):
     return jout, tout, jreqs, treqs
 
 
+def _rows(dec, reqs):
+    """rid -> ``dec.rows(rid)`` for every request of ``reqs`` (slot ->
+    request)."""
+    return {r.rid: dec.rows(r.rid) for r in reqs.values()}
+
+
+def test_rows_matches_reference_through_the_lifecycle(llama):
+    """``SpecDecoder.rows`` against the reference's after each ``draft``,
+    ``commit`` and ``release``, on the two-chunk catch-up case: a fresh
+    13-token context drafting over two 8-row chunks beside a 5-token and a
+    k = 1 lane; then partial commits, a second draft, and each lane
+    released in turn (0 after release, and for a request never seen)."""
+    jd, td = _decoders(llama, num_blocks=24)
+    specs = [(0, 10, 3), (1, 5, 0), (2, 7, 2)]
+    jout, tout, jreqs, treqs = _draft_both(jd, td, specs,
+                                           {0: 3, 1: 3, 2: 1})
+    assert tout == jout
+    assert _rows(td, treqs) == _rows(jd, jreqs)
+    assert _rows(td, treqs)["r0"] > 8      # caught up past the first chunk
+    for s, (a, extra) in {0: (2, 1), 1: (0, 1), 2: (1, 0)}.items():
+        for reqs, dec in ((jreqs, jd), (treqs, td)):
+            r = reqs[s]
+            r.generated += [int(t) for t in tout[0].get(s, [])[:a]] + \
+                [7] * extra
+            dec.commit(r.rid, r.context_len - 1)
+        assert _rows(td, treqs) == _rows(jd, jreqs)
+    with jdispatch.use(execute="xla"):
+        jd.draft({s: (jreqs[s], 3) for s in jreqs})
+    td.draft({s: (treqs[s], 3) for s in treqs})
+    assert _rows(td, treqs) == _rows(jd, jreqs)
+    for s in jreqs:
+        jd.release(jreqs[s].rid)
+        td.release(treqs[s].rid)
+        assert _rows(td, treqs) == _rows(jd, jreqs)
+        assert td.rows(treqs[s].rid) == 0
+    assert td.rows("never-seen") == jd.rows("never-seen") == 0
+
+
 def test_draft_matches_reference(llama):
     """Three lanes (a fresh 13-token context catching up over two 8-row
     chunks, a 5-token one, and one drafting k = 1 of 3), then a steady
@@ -229,7 +267,7 @@ def test_draft_matches_reference(llama):
     quotas = {0: 3, 1: 3, 2: 1}
     jout, tout, jreqs, treqs = _draft_both(jd, td, specs, quotas)
     assert tout == jout and tout[1] == 0
-    assert td._rows == jd._rows
+    assert _rows(td, jreqs) == _rows(jd, jreqs)
     for rid in jd.pool.live_requests():
         assert td.pool.table(rid).blocks == jd.pool.table(rid).blocks
     # commit part of each draft, as the engine does, and draft again: the
@@ -245,7 +283,7 @@ def test_draft_matches_reference(llama):
         jout2 = jd.draft({s: (jreqs[s], 3) for s in jreqs})
     tout2 = td.draft({s: (treqs[s], 3) for s in treqs})
     assert tout2 == jout2
-    assert td._rows == jd._rows
+    assert _rows(td, jreqs) == _rows(jd, jreqs)
 
 
 def test_draft_preemption_matches_reference(llama):
@@ -255,15 +293,16 @@ def test_draft_preemption_matches_reference(llama):
     jd, td = _decoders(llama, num_blocks=5)
     specs = [(0, 12, 2), (1, 4, 1), (2, 9, 0)]
     quotas = {0: 3, 1: 3, 2: 3}
-    jout, tout, _, _ = _draft_both(jd, td, specs, quotas)
+    jout, tout, jreqs, _ = _draft_both(jd, td, specs, quotas)
     assert tout == jout and tout[1] > 0
-    assert td._rows == jd._rows
+    assert _rows(td, jreqs) == _rows(jd, jreqs)
     assert sorted(td.pool.live_requests()) == sorted(jd.pool.live_requests())
     assert td.live_pages() == jd.pool.num_in_use
     for rid in list(td.pool.live_requests()):
         td.release(rid)
     td.check()
-    assert td.live_pages() == 0 and td._rows == {}
+    assert td.live_pages() == 0
+    assert set(_rows(td, jreqs).values()) == {0}
 
 
 # ---------------------------------------------------------------------------
