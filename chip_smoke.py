@@ -140,6 +140,27 @@ Phases (any failure exits non-zero):
    registry record the dispatcher's recommendation, its output against
    the plain GEMM at phase 3's tolerance.  Relative EDP and cycles are
    cost-model numbers for the paper's 28 nm array, not measurements.
+12. observability and fault tolerance on the main path: phase 4's
+   ``serve_continuous`` call three times.  (a) With ``trace_out`` (under
+   ``build/``, copied to ``chiprun_out/``) and ``sanitize=True``: 16/16
+   requests with phase 4's tokens bitwise, no poison hit, generation
+   fault or leak, ``validate_trace`` finds no problem and nothing was
+   dropped, every request has one submit and one finish, the dispatch
+   events number ``dispatch_records``, no plain version runs; it prints
+   the counters, the events, the export's bytes and each step phase's
+   mean host ms over decode, prefill and mixed steps.  (b) With the
+   reference's chaos smoke odds (``ChaosConfig(seed=0, pool_oom_p=0.15,
+   poison_p=0.15, stall_p=0.1, preempt_p=0.1)``) under the sanitizer:
+   every request ends exactly once, at least one fault is injected and
+   contained, every poisoned page is trapped on its own lane, nothing
+   leaks, and every finished request that was never force-preempted
+   emits phase 4's tokens bitwise (any survivor that differs is printed
+   with its first difference and phase 4's top-2 gap there).  (c) Served
+   with ``snapshot_every=8`` and killed after step 20; a fresh engine
+   from the same configs (weights from the seed) restores step 16 and
+   finishes: all 16 requests emit phase 4's tokens bitwise; it prints the
+   snapshot's bytes and the seconds to save and to restore, and deletes
+   the snapshots.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -3683,6 +3704,293 @@ def sagar_path(torch, report, timer):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 12: observability and fault tolerance on the main path
+# ---------------------------------------------------------------------------
+
+# phase 4's serve_continuous call, which every part of phase 12 repeats
+MAIN_SERVE = dict(arch="llama3.2-1b", preset="full", num_requests=16,
+                  num_slots=8, prompt_len=512, min_prompt_len=64, gen=32,
+                  temperature=0.0, top_k=0, seed=0, execute="auto",
+                  prefill_chunk=64, block_size=16, clock="wall",
+                  device="cuda", log=False)
+CHAOS_SMOKE = dict(seed=0, pool_oom_p=0.15, poison_p=0.15, stall_p=0.1,
+                   preempt_p=0.1)   # the reference's --smoke --chaos odds
+CHAOS_LIGHT = dict(CHAOS_SMOKE, pool_oom_p=0.02, poison_p=0.02)
+SNAPSHOT_EVERY, KILL_AT = 8, 20
+
+
+def phase_breakdown(engine):
+    """Each step phase's mean host ms over the steps that ran only decode,
+    only a prefill chunk, or both (from the timeline's slices; the phases
+    around model calls time the launches' issue, ``sync`` the wait)."""
+    from repro_torch.obs.trace import STEP_PHASES
+    steps = {}
+    for e in engine.obs.events("step"):
+        if e.ph == "X":
+            st = steps.setdefault(e.args["step"], {})
+            st[e.name] = st.get(e.name, 0.0) + e.dur
+    out = {}
+    for kind in ("decode", "prefill", "mixed"):
+        sts = [st for st in steps.values()
+               if ("paged_decode" in st, "prefill_chunk" in st) ==
+               {"decode": (True, False), "prefill": (False, True),
+                "mixed": (True, True)}[kind]]
+        if sts:
+            names = [n for n in STEP_PHASES + ("engine_step",)
+                     if any(n in st for st in sts)]
+            out[kind] = {"steps": len(sts), **{
+                n: 1e3 * sum(st.get(n, 0.0) for st in sts) / len(sts)
+                for n in names}}
+    return out
+
+
+def request_events(engine, name):
+    from collections import Counter
+    return Counter(e.args["rid"] for e in engine.obs.events("request")
+                   if e.name == name)
+
+
+def obs_path(torch, report):
+    """12a: phase 4's serve with a trace and the sanitizer; 12b: with the
+    reference's chaos smoke odds; 12c: killed after step 20 and resumed
+    from its last snapshot by a fresh engine."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.obs import REQUIRED_CATEGORIES, validate_trace
+    from repro_torch.serving import ChaosConfig, ServingEngine
+    want = report["main_path"]["tokens"]
+    rids = set(want)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    rep = report["phase12"] = {}
+    smi = nvidia_smi_line()
+    ok = True
+
+    # -- 12a: trace + sanitize -------------------------------------------
+    trace = build / "chip_smoke_trace.json"
+    ops.reset_counts()
+    t0 = time.time()
+    out, eng = serve_continuous(**MAIN_SERVE, trace_out=str(trace),
+                                sanitize=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    s = eng.summary()
+    doc = json.loads(trace.read_text())
+    problems = validate_trace(doc, REQUIRED_CATEGORIES)
+    submits, roots = request_events(eng, "submit"), request_events(
+        eng, "request")
+    one_each = (set(submits) == set(roots) == rids
+                and all(submits[r] == roots[r] == 1 for r in rids))
+    ndisp = len(eng.obs.events("dispatch"))
+    same = sum(np.array_equal(out[r], np.asarray(want[r])) for r in rids)
+    done = sum(r.outcome == "done" for r in eng.requests.values())
+    leak_free = (s["kv_leaked_tables"] == 0 and s["kv_leaked_refs"] == 0
+                 and eng.pool.num_free == eng.pool.num_blocks)
+    nbytes = trace.stat().st_size + trace.with_suffix(".jsonl").stat().st_size
+    good = (done == 16 and same == 16 and s["kv_poison_hits"] == 0
+            and s["kv_generation_faults"] == 0 and leak_free
+            and problems == [] and doc["otherData"]["dropped_events"] == 0
+            and one_each and ndisp == eng.obs.counters["dispatch_records"]
+            and counts["plain_calls"] == 0 and counts["paged_decode"] > 0
+            and counts["paged_prefill"] > 0)
+    ok &= good
+    breakdown = phase_breakdown(eng)
+    rep["a"] = {"wall_s": wall, "completed": done, "same_tokens": same,
+                "counters": dict(eng.obs.counters),
+                "gauges": dict(eng.obs.gauges), "events": len(eng.obs),
+                "dropped": eng.obs.dropped, "export_bytes": nbytes,
+                "trace_problems": problems, "dispatch_events": ndisp,
+                "one_submit_one_finish": one_each, "counts": counts,
+                "engine_steps": eng.steps, "breakdown_ms": breakdown,
+                "kv_poison_fills": s["kv_poison_fills"],
+                "kv_sanitize_checks": s["kv_sanitize_checks"], "ok": good}
+    shutil.copy(trace, out_dir / trace.name)
+    log(f"  12a trace + sanitize: {done}/16 requests in {wall:.2f} s "
+        f"({eng.steps} engine steps), {same}/16 emit phase 4's tokens, "
+        f"poison hits {s['kv_poison_hits']}, generation faults "
+        f"{s['kv_generation_faults']}, {s['kv_poison_fills']} pages "
+        f"poisoned on free, {s['kv_sanitize_checks']} sanitizer checks, "
+        f"leak-free {leak_free}, plain_calls {counts['plain_calls']}")
+    log(f"      trace: {len(eng.obs)} events ({eng.obs.dropped} dropped), "
+        f"export {nbytes} bytes (chiprun_out/{trace.name} opens in "
+        f"ui.perfetto.dev), validate_trace problems {len(problems)}, one "
+        f"submit and one finish a request {one_each}, dispatch events "
+        f"{ndisp} = dispatch_records "
+        f"{eng.obs.counters['dispatch_records']} "
+        f"{'ok' if good else 'FAIL'}")
+    log(f"      counters {json.dumps(eng.obs.counters)}")
+    for kind, b in breakdown.items():
+        log(f"      {kind} steps ({b['steps']}), mean host ms a step: " +
+            ", ".join(f"{n} {v:.3f}" for n, v in b.items() if n != "steps")
+            + f"  [{smi}]")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12b: chaos, at the reference's smoke odds, and at the smoke's
+    # stall and preemption odds with OOM and poison at 0.02 (at the smoke
+    # odds every request of this trace fails: the second run has
+    # survivors to hold to phase 4's tokens) ------------------------------
+    for name, key, odds in (("12b", "b", CHAOS_SMOKE),
+                            ("12b'", "b_light", CHAOS_LIGHT)):
+        ops.reset_counts()
+        t0 = time.time()
+        out, eng = serve_continuous(
+            **MAIN_SERVE, sanitize=True, chaos=ChaosConfig(**odds),
+            trace_out=str(build / "chip_smoke_chaos.json"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = ops.launch_counts()
+        s = eng.summary()
+        faults = eng.obs.events("fault")
+        kind_rids = {}
+        for e in faults:
+            if e.name == "fault":
+                kind_rids.setdefault(e.args["kind"], []).append(
+                    e.args["rid"])
+        contained = {e.args["rid"] for e in faults
+                     if e.name == "contained"}
+        poisoned = set(kind_rids.get("poison", []))
+        preempted = set(kind_rids.get("preempt", []))
+        outcomes = {r.rid: r.outcome for r in eng.requests.values()}
+        terminal = (all(outcomes.values()) and set(outcomes) == rids
+                    and eng.req_spans.closed == 16
+                    and eng.req_spans.open_requests() == {})
+        poison_own = (poisoned <= contained
+                      and all(outcomes[r] == "failed" for r in poisoned)
+                      and s["kv_poison_hits"] == s["chaos_poison_injected"])
+        leak_free = (s["kv_leaked_tables"] == 0
+                     and s["kv_leaked_refs"] == 0
+                     and eng.pool.num_free == eng.pool.num_blocks)
+        survivors = sorted(r for r, o in outcomes.items() if o == "done")
+        plain_same = [r for r in survivors if r not in preempted
+                      and np.array_equal(out[r], np.asarray(want[r]))]
+        plain_survivors = [r for r in survivors if r not in preempted]
+        good = (terminal and s["faults_injected"] >= 1
+                and s["faults_contained"] >= 1 and poison_own
+                and leak_free and len(plain_same) == len(plain_survivors)
+                and counts["plain_calls"] == 0)
+        ok &= good
+        diffs = {}
+        for r in survivors:
+            if not np.array_equal(out[r], np.asarray(want[r])):
+                p, gap, top = first_difference(
+                    torch, eng.model, eng.params, eng.requests[r].prompt,
+                    want[r], out[r].tolist(), 16)
+                diffs[r] = {"position": p, "top2_gap": gap,
+                            "max_logit": top,
+                            "force_preempted": r in preempted}
+        rep[key] = {"odds": odds, "wall_s": wall, "outcomes": outcomes,
+                    "injected": {k: len(v) for k, v in kind_rids.items()},
+                    "summary": {k: v for k, v in s.items()
+                                if k.startswith(("chaos_", "faults_",
+                                                 "requests_", "kv_poison",
+                                                 "engine_step", "preempt"))},
+                    "contained": sorted(contained),
+                    "poisoned": sorted(poisoned),
+                    "force_preempted": sorted(preempted),
+                    "survivors": survivors,
+                    "plain_survivors_same": len(plain_same),
+                    "plain_survivors": len(plain_survivors),
+                    "differences": diffs, "counts": counts, "ok": good}
+        log(f"  {name} chaos {odds}: outcomes "
+            f"{sorted(outcomes.values())} in {wall:.2f} s, every request "
+            f"terminal once {terminal}; injected {rep[key]['injected']} "
+            f"({s['faults_injected']}), contained {s['faults_contained']}, "
+            f"step retries {s['engine_step_retries']}, poison hits "
+            f"{s['kv_poison_hits']} each on its own lane {poison_own}, "
+            f"leak-free {leak_free}, plain_calls {counts['plain_calls']}")
+        log(f"      {len(plain_same)}/{len(plain_survivors)} survivors "
+            f"never force-preempted emit phase 4's tokens; force-preempted "
+            f"survivors {sorted(preempted & set(survivors))} "
+            f"{'ok' if good else 'FAIL'}")
+        for r, d in diffs.items():
+            tag = " (force-preempted)" if d["force_preempted"] else ""
+            log(f"      {r}{tag}: first differs from phase 4 at token "
+                f"{d['position']}, phase 4's top-2 gap there "
+                f"{d['top2_gap']:.4e} (largest logit {d['max_logit']:.2f})")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 12c: kill and resume ----------------------------------------------
+    snap = build / "chip_smoke_snapshot"
+    shutil.rmtree(snap, ignore_errors=True)
+    ops.reset_counts()
+    t0 = time.time()
+    first, victim = serve_continuous(
+        **MAIN_SERVE, snapshot_dir=str(snap), snapshot_every=SNAPSHOT_EVERY,
+        stop_after=KILL_AT)
+    torch.cuda.synchronize()
+    victim_s = time.time() - t0
+    nsnap = victim.summary()["engine_snapshots"]
+    last = KILL_AT // SNAPSHOT_EVERY * SNAPSHOT_EVERY
+    snap_bytes = sum(f.stat().st_size
+                     for f in (snap / f"step_{last:08d}").iterdir())
+    done_before = {r.rid for r in victim.requests.values()
+                   if r.outcome == "done"}
+    # the seconds of one save, into a directory of its own
+    t0 = time.time()
+    victim.snapshot(str(build / "chip_smoke_snapshot_timed"))
+    save_s = time.time() - t0
+    shutil.rmtree(build / "chip_smoke_snapshot_timed", ignore_errors=True)
+    # the fresh engine takes the victim's configs (it only restores: no
+    # snapshots of its own) and draws the weights from the seed again
+    cfg, ecfg = victim.cfg, dataclasses.replace(victim.ecfg,
+                                                snapshot_every=0)
+    del victim
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = ServingEngine(cfg, ecfg, device="cuda")
+    t0 = time.time()
+    step = fresh.restore()
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    restored = set(fresh.requests)
+    while fresh.step():
+        pass
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    got = {r: np.asarray(first[r]) for r in rids}
+    got.update({r.rid: np.asarray(r.generated, np.int32)
+                for r in fresh.requests.values()})
+    same = sum(np.array_equal(got[r], np.asarray(want[r])) for r in rids)
+    covered = rids <= restored | done_before
+    fresh.pool.check()
+    good = (step == last and nsnap == KILL_AT // SNAPSHOT_EVERY
+            and covered and same == 16
+            and all(r.outcome == "done" for r in fresh.requests.values())
+            and fresh.pool.num_free == fresh.pool.num_blocks
+            and counts["plain_calls"] == 0)
+    ok &= good
+    rep["c"] = {"killed_at": KILL_AT, "snapshots": nsnap, "restored_step":
+                step, "restored_requests": len(restored),
+                "done_before_snapshot": len(done_before & (rids -
+                                                           restored)),
+                "snapshot_bytes": snap_bytes, "save_s": save_s,
+                "restore_s": restore_s, "victim_s": victim_s,
+                "same_tokens": same, "counts": counts, "ok": good}
+    log(f"  12c kill and resume: killed after step {KILL_AT} ({nsnap} "
+        f"snapshots, every {SNAPSHOT_EVERY}), a fresh engine restored step "
+        f"{step} ({len(restored)} live requests) and finished: {same}/16 "
+        f"emit phase 4's tokens; snapshot {snap_bytes} bytes, save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s, plain_calls "
+        f"{counts['plain_calls']} {'ok' if good else 'FAIL'}  [{smi}]")
+    shutil.rmtree(snap, ignore_errors=True)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
 def gemm_entry(rec, name, launches):
     """A kernel-table entry of one timed GEMM shape: every mode from
     rsa_psum.cu, each against its own pallas_call."""
@@ -3964,6 +4272,14 @@ def main() -> int:
     ok &= sagar_path(torch, report, timer)
     report["phase11_s"] = time.time() - t11
     log(f"  phase 11 took {report['phase11_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== 12. observability and fault tolerance on the main path: (a) "
+        "trace + sanitizer, (b) chaos, (c) kill and resume")
+    t12 = time.time()
+    ok &= obs_path(torch, report)
+    report["phase12_s"] = time.time() - t12
+    log(f"  phase 12 took {report['phase12_s']:.1f} s")
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

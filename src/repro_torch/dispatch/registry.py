@@ -14,6 +14,15 @@ kernel does not run those blocks: its tile, operand roles and split-K are
 ``kernels/rsa_gemm.py::_psum_plan``'s and only ``block_k`` and the mode
 reach it.  What it ran is ``ran``, recorded by the launch itself
 (``rsa_gemm_cuda``'s ``on_launch``); it is empty on the torch backend.
+
+With a ``recorder`` (:class:`repro_torch.obs.TraceRecorder`) attached, a
+record also emits one ``dispatch`` trace event and counts
+``dispatch_records``, as the reference's does at trace time: only inside
+a watched model call whose argument signature is new (``JitWatch``, the
+port's stand-in for a trace), once a (scope, site, shape) in that call,
+so eager repeats (a site in every layer, every draft round) and calls of
+a signature already seen emit nothing.  Outside every watched call each
+record emits, as an eager call of the reference's does.
 """
 
 from __future__ import annotations
@@ -72,12 +81,14 @@ class SiteRecord:
 
 
 class SiteRegistry:
-    """Scope -> site-name -> SiteRecord, insertion-ordered."""
+    """Scope -> site-name -> SiteRecord, insertion-ordered; with a
+    ``recorder``, a ``dispatch`` trace event per site a trace records."""
 
-    def __init__(self) -> None:
+    def __init__(self, recorder=None) -> None:
         self._scopes: Dict[str, Dict[str, SiteRecord]] = {}
         self._stack: List[str] = []
         self.records: int = 0          # total record() calls
+        self.recorder = recorder
 
     # -- scoping -------------------------------------------------------------
     @contextlib.contextmanager
@@ -105,7 +116,32 @@ class SiteRegistry:
             key = f"{site}[{m}x{k}x{n}]"
         scope[key] = rec
         self.records += 1
+        if self.recorder is not None:
+            tracing = getattr(self.recorder, "tracing", None)
+            if tracing is None:
+                self._emit(rec)          # eager: every call records
+            elif tracing and (self.current_scope(), key) not in \
+                    self.recorder.traced:
+                self.recorder.traced.add((self.current_scope(), key))
+                self._emit(rec)
         return rec
+
+    def _emit(self, rec: SiteRecord) -> None:
+        """One ``dispatch`` trace event per recorded site (trace time)."""
+        self.recorder.count("dispatch_records")
+        if not self.recorder.spans:
+            return
+        from repro_torch.core.tpu_costmodel import tile_cost_seconds
+        costs = tile_cost_seconds(rec.m, rec.k, rec.n)
+        self.recorder.instant(
+            "dispatch", f"{self.current_scope()}/{rec.site}",
+            track="dispatch", site=rec.site, scope=self.current_scope(),
+            m=rec.m, k=rec.k, n=rec.n,
+            block_m=rec.block_m, block_n=rec.block_n, block_k=rec.block_k,
+            mode=DATAFLOW_NAMES[rec.mode], backend=rec.backend,
+            source=rec.source,
+            cost_s=float(costs[rec.cfg.class_id]),
+            cost_best_s=float(costs.min()))
 
     # -- read-back -----------------------------------------------------------
     def scopes(self) -> Tuple[str, ...]:

@@ -11,6 +11,12 @@
       --dispatcher adaptnet --adaptnet-ckpt build/adaptnet
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --spec-draft self
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --trace-out build/trace.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --sanitize
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --chaos 0
 
 The layout follows the model's family: the attention families are served
 from the paged KV arena with chunked prefill (64 tokens unless
@@ -20,7 +26,13 @@ adaptnet --adaptnet-ckpt DIR`` tiles every GEMM site with a trained
 ADAPTNET-TPU (``launch/train_adaptnet.py``) instead of the oracle.
 ``--spec-draft self|<arch> --spec-k K`` decodes speculatively (greedy
 only): K draft tokens a lane and step, verified by one K+1-row target
-pass; the tokens equal plain greedy decode's.  The
+pass; the tokens equal plain greedy decode's.  ``--trace-out PATH`` records
+every span and writes a Chrome/Perfetto trace-event JSON (open it at
+https://ui.perfetto.dev) and a ``.jsonl`` twin; ``--sanitize`` runs the
+KV-arena sanitizer; ``--chaos SEED`` injects seeded faults that the
+engine's step error boundary contains; ``--deadline`` gives each request
+a deadline; ``--snapshot-dir DIR --snapshot-every N`` writes an engine
+snapshot every N steps.  The
 WKV kernel route of rwkv6-1.6b is the reference's optimized profile:
 ``serve_continuous(override_cfg=get_arch("rwkv6-1.6b", optimized=True))``.
 
@@ -54,6 +66,11 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      adaptnet_ckpt: Optional[str] = None,
                      defrag_threshold: Optional[float] = None,
                      spec_draft: Optional[str] = None, spec_k: int = 4,
+                     trace_out: Optional[str] = None, sanitize: bool = False,
+                     chaos=None, deadline_s: Optional[float] = None,
+                     snapshot_dir: Optional[str] = None,
+                     snapshot_every: int = 0,
+                     stop_after: Optional[int] = None,
                      override_cfg=None, log: bool = True):
     """Serve a request set through the continuous-batching engine.  With
     ``kv_layout`` and ``prefill_chunk`` "auto" the attention families run
@@ -72,6 +89,16 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
     ``adaptnet_ckpt``; ``defrag_threshold`` turns on the engine's
     auto-defrag.  ``spec_draft`` ("self" or a registry arch) turns on
     speculative decoding with ``spec_k`` draft tokens a lane and step.
+    ``trace_out`` records every span (``EngineConfig.trace``) and writes a
+    Chrome/Perfetto trace-event JSON there after the run, plus a ``.jsonl``
+    event stream.  ``sanitize`` runs the KV-arena sanitizer; ``chaos`` (a
+    :class:`repro_torch.serving.faults.ChaosConfig`) injects seeded faults
+    that the step error boundary contains; ``deadline_s`` is each
+    request's deadline (engine steps under the step clock);
+    ``snapshot_dir`` / ``snapshot_every`` write engine snapshots;
+    ``stop_after`` submits the requests and takes only that many engine
+    steps (a simulated crash: the tokens are those generated so far, and a
+    fresh engine resumes from the last snapshot with ``restore()``).
     Returns ({rid: tokens}, engine)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -89,7 +116,9 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
         shared_prefix_decode=shared_prefix_decode, dispatcher_mode=dispatcher,
         adaptnet_dir=adaptnet_ckpt, defrag_threshold=defrag_threshold,
-        spec_draft=spec_draft, spec_k=spec_k), device=device)
+        spec_draft=spec_draft, spec_k=spec_k, trace=trace_out is not None,
+        sanitize=sanitize, chaos=chaos, snapshot_dir=snapshot_dir,
+        snapshot_every=snapshot_every), device=device)
     shared = (rng.integers(0, cfg.vocab_size,
                            min(shared_prefix_len, prompt_len)).astype(np.int32)
               if shared_prefix_len > 0 else None)
@@ -101,7 +130,16 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         if shared is not None:
             k = min(len(shared), n)
             p[:k] = shared[:k]
-        reqs.append(Request(rid=f"req-{i}", prompt=p, max_new_tokens=gen))
+        reqs.append(Request(rid=f"req-{i}", prompt=p, max_new_tokens=gen,
+                            deadline_s=deadline_s))
+    if stop_after is not None:
+        for r in reqs:
+            engine.submit(r)
+        for _ in range(stop_after):
+            if not engine.step():
+                break
+        return ({r.rid: np.asarray(r.generated, np.int32) for r in reqs},
+                engine)
     t0 = time.time()
     outputs = engine.run(reqs)
     if log:
@@ -114,6 +152,11 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         print("  executed gemm plan (last step):")
         for site, desc in engine.gemm_plan.items():
             print(f"    {site:<24} {desc}")
+    if trace_out is not None:
+        jsonl = engine.export_trace(trace_out)
+        if log:
+            print(f"  trace: {trace_out} (+ {jsonl}), {len(engine.obs)} "
+                  f"events; open it at https://ui.perfetto.dev")
     return outputs, engine
 
 
@@ -163,6 +206,27 @@ def main():
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens proposed per lane and step (verified "
                          "by one K+1-row target pass)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record every span and write a Chrome/Perfetto "
+                         "trace-event JSON here after the run")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="KV-arena sanitizer: poison freed pages, "
+                         "generation-check decode tables, per-step pool "
+                         "invariants, leak audit at drain")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="seeded fault injection (pool OOM, poisoned "
+                         "pages, stalls, forced preemption); faults are "
+                         "contained by the step error boundary")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request deadline (engine steps under the "
+                         "step clock): queued requests past it expire, "
+                         "hopeless admissions are shed")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="engine snapshots go here (ServingEngine."
+                         "snapshot / restore)")
+    ap.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                    help=">0: snapshot the engine every N steps (needs "
+                         "--snapshot-dir)")
     ap.add_argument("--clock", default="wall", choices=["wall", "steps"])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -172,6 +236,47 @@ def main():
     a = ap.parse_args()
     picks = dict(dispatcher=a.dispatcher, adaptnet_ckpt=a.adaptnet_ckpt,
                  defrag_threshold=a.defrag_threshold)
+    if a.smoke and a.chaos is not None:
+        # the same greedy trace served twice, fault-free and then with
+        # every injector armed: the chaotic run must end every request,
+        # contain at least one injected fault inside the step boundary and
+        # leave every request that finished with the fault-free tokens
+        from repro_torch.serving import ChaosConfig
+        common = dict(
+            arch=a.arch, preset=a.preset, num_requests=4, num_slots=2,
+            prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
+            kv_layout="paged",
+            prefill_chunk=8 if a.prefill_chunk == "auto" else a.prefill_chunk,
+            sanitize=True, device=a.device, log=False, **picks)
+        base, _ = serve_continuous(**common)
+        chaos = ChaosConfig(seed=a.chaos, pool_oom_p=0.15, poison_p=0.15,
+                            stall_p=0.1, preempt_p=0.1)
+        outputs, engine = serve_continuous(
+            **common, chaos=chaos, deadline_s=a.deadline,
+            snapshot_dir=a.snapshot_dir, snapshot_every=a.snapshot_every,
+            trace_out=a.trace_out)
+        s = engine.summary()
+        if s["faults_injected"] < 1 or s["faults_contained"] < 1:
+            raise SystemExit(f"smoke failed: no fault injected and "
+                             f"contained {s}")
+        outcomes = {r.rid: r.outcome for r in engine.requests.values()}
+        if not all(outcomes.values()):
+            raise SystemExit(f"smoke failed: a request never ended "
+                             f"{outcomes}")
+        done = [rid for rid, o in outcomes.items() if o == "done"]
+        for rid in done:
+            if not np.array_equal(outputs[rid], base[rid]):
+                raise SystemExit(f"smoke failed: {rid} chaos "
+                                 f"{outputs[rid]} != fault-free {base[rid]}")
+        if s["kv_leaked_tables"] or s["kv_leaked_refs"] or \
+                engine.pool.num_free != engine.pool.num_blocks:
+            raise SystemExit(f"smoke failed: KV pages leaked {s}")
+        print(f"chaos smoke OK (seed={a.chaos}: "
+              f"{int(s['faults_injected'])} injected, "
+              f"{int(s['faults_contained'])} contained, outcomes="
+              f"{sorted(outcomes.values())}, greedy parity for "
+              f"{len(done)} survivors)")
+        return
     if a.smoke and a.prefix_cache:
         # a shared-prefix workload served twice, cache off then cache on
         # (plus cascade decode when asked): the greedy tokens must agree
@@ -180,11 +285,12 @@ def main():
                       prompt_len=24, gen=6, temperature=0.0,
                       execute=a.execute, prefill_chunk=8,
                       shared_prefix_len=16, device=a.device, log=False,
-                      **picks)
+                      sanitize=a.sanitize, **picks)
         base, _ = serve_continuous(**common)
         outputs, engine = serve_continuous(
             **common, prefix_cache=True,
-            shared_prefix_decode=a.shared_prefix_decode)
+            shared_prefix_decode=a.shared_prefix_decode,
+            trace_out=a.trace_out)
         if not all(len(v) == 6 for v in outputs.values()) or \
                 set(outputs) != set(base):
             raise SystemExit(f"smoke failed: {outputs}")
@@ -218,10 +324,11 @@ def main():
             prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
             kv_layout="paged",
             prefill_chunk=8 if a.prefill_chunk == "auto" else a.prefill_chunk,
-            device=a.device, log=False, **picks)
+            sanitize=a.sanitize, device=a.device, log=False, **picks)
         base, _ = serve_continuous(**common)
         outputs, engine = serve_continuous(
-            **common, spec_draft=a.spec_draft, spec_k=a.spec_k)
+            **common, spec_draft=a.spec_draft, spec_k=a.spec_k,
+            trace_out=a.trace_out)
         if not all(len(v) == 6 for v in outputs.values()) or \
                 set(outputs) != set(base):
             raise SystemExit(f"smoke failed: {outputs}")
@@ -249,12 +356,26 @@ def main():
         outputs, engine = serve_continuous(
             arch=a.arch, preset=a.preset, num_requests=3, num_slots=2,
             prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
-            prefill_chunk=a.prefill_chunk, device=a.device, **picks)
+            prefill_chunk=a.prefill_chunk, device=a.device,
+            trace_out=a.trace_out, sanitize=a.sanitize,
+            snapshot_dir=a.snapshot_dir, snapshot_every=a.snapshot_every,
+            **picks)
         if not all(len(v) == 6 for v in outputs.values()):
             raise SystemExit(f"smoke failed: {outputs}")
         engine.pool.check()
         if engine.pool.num_free != engine.pool.num_blocks:
             raise SystemExit("smoke failed: KV pages leaked")
+        if a.sanitize:
+            s = engine.summary()
+            if s["kv_sanitize_checks"] <= 0 or s["kv_poison_hits"] or \
+                    s["kv_generation_faults"] or s["kv_leaked_tables"] or \
+                    s["kv_leaked_refs"]:
+                raise SystemExit(f"smoke failed: sanitizer {s}")
+            print(f"sanitizer clean ({int(s['kv_sanitize_checks'])} checks, "
+                  f"{int(s['kv_poison_fills'])} pages poisoned on free)")
+        if a.snapshot_dir and a.snapshot_every > 0:
+            print(f"snapshots: {engine.summary()['engine_snapshots']} "
+                  f"written to {a.snapshot_dir}")
         if "unembed" not in engine.gemm_plan:
             raise SystemExit(f"smoke failed: no unembed site in "
                              f"{engine.gemm_plan}")
@@ -269,6 +390,12 @@ def main():
             return
         print("serving smoke OK")
         return
+    chaos = None
+    if a.chaos is not None:
+        from repro_torch.serving import ChaosConfig
+        chaos = ChaosConfig(seed=a.chaos, pool_oom_p=0.05,
+                            poison_p=0.05 if a.sanitize else 0.0,
+                            stall_p=0.05, preempt_p=0.05)
     serve_continuous(arch=a.arch, preset=a.preset, num_requests=a.requests,
                      num_slots=a.slots, prompt_len=a.prompt_len, gen=a.gen,
                      temperature=a.temperature, top_k=a.top_k,
@@ -278,6 +405,10 @@ def main():
                      shared_prefix_decode=a.shared_prefix_decode,
                      shared_prefix_len=a.shared_prefix_len, clock=a.clock,
                      spec_draft=a.spec_draft, spec_k=a.spec_k,
+                     trace_out=a.trace_out, sanitize=a.sanitize,
+                     chaos=chaos, deadline_s=a.deadline,
+                     snapshot_dir=a.snapshot_dir,
+                     snapshot_every=a.snapshot_every,
                      device=a.device, **picks)
 
 

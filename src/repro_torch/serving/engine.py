@@ -70,14 +70,44 @@ the executed sites each source decided.  ``defrag_threshold`` compacts
 the page pool after any step that leaves ``pool.fragmentation()`` above
 it (``kv_defrag_auto`` counts those steps).
 
-Parts of the reference engine that are not ported (the dense KV layout of
-the attention families and their bucketed prefill, the chaos harness, the
-sanitizer, snapshots, span tracing) raise ``ValueError`` when their config
-field is set; nothing is ignored.  ``run()`` ends with the reference's
-teardown audit (no table survives, the only pins are the prefix trie's;
-with ``spec_draft`` the draft pool is checked and must be empty,
-``kv_draft_leaked_blocks``) on every run, where the reference audits only
-under ``sanitize``.
+Observability (``repro_torch.obs``), as in the reference: one
+``TraceRecorder`` (``self.obs``) takes every layer's counters and gauges
+(always on) and, under ``trace``, its events: request lifecycle spans
+(``RequestTracker``, driven by the scheduler), a per-step phase timeline
+(``StepTimeline``: schedule, prefill / prefill_chunk, decode /
+paged_decode, spec_draft / spec_verify, sample, sync), one ``dispatch``
+event per GEMM site a trace records, ``compile`` events and the KV pool's
+``arena`` events.  Every model call runs inside a ``JitWatch`` under the
+reference's names (prefill, decode, paged_decode, chunk_prefill,
+paged_shared_decode, spec_verify; the reference's paged_write belongs to
+its bucketed prefill, which is not ported).  A phase that wraps model
+calls measures the host's time to issue their launches; the ``sync``
+phase wraps the device synchronisation each model call already ends with,
+and the timeline adds none of its own.  ``export_trace`` writes the
+Chrome/Perfetto JSON and a JSONL twin; ``site_timings`` joins each scope's
+wall time with its sites.
+
+Fault tolerance (``serving/faults.py``), as in the reference: ``chaos``
+injects seeded pool OOMs, poisoned pages, lane stalls and forced
+preemptions; ``step()`` is an error boundary that fails exactly the
+request(s) a ``PoolError`` / ``SanitizerError`` names (a fault always
+raises before any token of the step commits, so surviving lanes replay
+their pending token: on the card the abandoned step's K/V rows have
+already landed, and the replay writes the same rows again) and retries an
+unattributable one ``max_step_retries`` times; ``sanitize`` poisons freed
+pages with NaN, replays each decode table's page generations, scans each
+live lane's logits for non-finite values and runs the pool's invariant
+check every step; ``snapshot()`` / ``restore()`` (``serving/snapshot.py``)
+save and resume a mid-trace engine through the checkpoint manager, every
+``snapshot_every`` steps when ``snapshot_dir`` is set.
+
+The reference's dense KV layout of the attention families and its
+bucketed prefill are not ported: ``buckets`` and ``kv_layout="dense"``
+for an attention family raise ``ValueError``; nothing is ignored.
+``run()`` ends with the reference's teardown audit (no table survives,
+the only pins are the prefix trie's; with ``spec_draft`` the draft pool
+is checked and must be empty, ``kv_draft_leaked_blocks``) on every run,
+where the reference audits only under ``sanitize``.
 
 The clock is either ``"wall"`` (live serving; every step ends in a device
 synchronisation) or ``"steps"`` (virtual time in engine-step units —
@@ -99,7 +129,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sara import SaraDispatcher
 from repro_torch.dispatch import SiteRegistry
 from repro_torch.models.serving import PAGED_FAMILIES
-from repro_torch.serving.kv_pool import KVArena, KVBlockPool, PoolError
+from repro_torch.obs import (JitWatch, RequestTracker, StepTimeline,
+                             TraceRecorder, write_chrome_trace, write_jsonl)
+from repro_torch.serving.faults import (OUTCOME_COUNTERS, ChaosConfig,
+                                        FaultInjector, fault_rids)
+from repro_torch.serving.kv_pool import (KVArena, KVBlockPool, PoolError,
+                                         SanitizerError)
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
@@ -157,8 +192,8 @@ def gemm_sites(cfg: ArchConfig, m_tokens: int
 class EngineConfig:
     """Serving-engine knobs (the fields of the reference's EngineConfig).
 
-    Fields of features this port does not have stay here so that setting
-    one raises instead of being silently ignored."""
+    ``buckets`` (the bucketed prefill, not ported) stays here so that
+    setting it raises instead of being silently ignored."""
 
     num_slots: int = 4
     max_len: int = 96                 # per-slot token capacity (prompt+gen+1)
@@ -191,28 +226,43 @@ class EngineConfig:
     spec_draft: Optional[str] = None
     spec_k: int = 4
     spec_draft_blocks: Optional[int] = None
-    # not ported — setting any of these raises
-    buckets: Optional[Sequence[int]] = None
-    sanitize: bool = False
-    chaos: Optional[object] = None
-    snapshot_dir: Optional[str] = None
+    # observability: counters and gauges are always on; ``trace`` also
+    # records span / instant events (request lifecycle, step phases,
+    # dispatch / compile / arena) into a ring of ``trace_capacity`` events,
+    # written by ``export_trace()`` (serve.py --trace-out)
     trace: bool = False
+    trace_capacity: int = 65536
+    # KV-arena sanitizer: NaN-poison freed pages, stamp pages with a
+    # generation replayed after every decode / verify, scan live lanes'
+    # logits for non-finite values, check the pool's invariants every
+    # step; a use-after-free raises SanitizerError instead of garbage
+    sanitize: bool = False
+    # chaos harness (serving/faults.py): seeded pool OOMs, poisoned pages
+    # (needs sanitize), lane stalls, forced mid-prefill preemptions
+    chaos: Optional[ChaosConfig] = None
+    # step error boundary: an unattributable PoolError / SanitizerError is
+    # retried this many times, the backoff doubling from retry_backoff_s
+    # (slept only under the wall clock)
+    max_step_retries: int = 2
+    retry_backoff_s: float = 0.05
+    # crash safety: snapshot() / restore() through the checkpoint manager,
+    # automatically every snapshot_every steps (0: manual only)
+    snapshot_dir: Optional[str] = None
+    snapshot_every: int = 0
+    # not ported — setting it raises
+    buckets: Optional[Sequence[int]] = None
 
 
 PAGED_PREFILL_CHUNK = 64   # the paged families' chunk under "auto"
 
 
 def _check_ported(e: EngineConfig) -> None:
-    unported = {
-        "chaos": e.chaos is not None,
-        "sanitize": e.sanitize,
-        "snapshot_dir": e.snapshot_dir is not None,
-        "trace": e.trace,
-        "buckets (bucketed prefill)": e.buckets is not None,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise ValueError(f"not ported to the PyTorch engine: {bad}")
+    if e.buckets is not None:
+        raise ValueError("not ported to the PyTorch engine: ['buckets "
+                         "(bucketed prefill)']")
+    if e.chaos is not None and not isinstance(e.chaos, ChaosConfig):
+        raise ValueError(f"chaos must be a ChaosConfig, got "
+                         f"{type(e.chaos).__name__}")
     if e.shared_prefix_decode and not e.prefix_cache:
         raise ValueError("shared_prefix_decode needs prefix_cache: shared "
                          "page runs only arise from cache-hit admissions")
@@ -297,6 +347,12 @@ class ServingEngine:
         self.dispatcher = dispatcher if dispatcher is not None \
             else self._build_dispatcher(e)
         self.metrics = ServingMetrics()
+        # observability: one recorder for every layer (engine steps,
+        # request spans, dispatch / compile / arena events); counters
+        # always on, span recording behind EngineConfig.trace
+        self.obs = TraceRecorder(capacity=e.trace_capacity, spans=e.trace)
+        self.req_spans = RequestTracker(self.obs)
+        self.timeline = StepTimeline(self.obs)
         self.kv_layout, chunk = _resolve_layout(cfg, e)
         # no prompt exceeds max_len, so a larger chunk would only pad the
         # batch with dead query rows the kernel still computes
@@ -305,36 +361,61 @@ class ServingEngine:
         self._max_blocks_per_slot = -(-e.max_len // e.block_size)
         num_blocks = (e.num_blocks if e.num_blocks is not None
                       else e.num_slots * self._max_blocks_per_slot)
-        self.pool = KVBlockPool(num_blocks, e.block_size)
+        self.pool = KVBlockPool(num_blocks, e.block_size,
+                                sanitize=e.sanitize)
+        self.pool.attach_recorder(self.obs)
         self.prefix_cache: Optional[PrefixCache] = (
-            PrefixCache(self.pool) if e.prefix_cache else None)
+            PrefixCache(self.pool, recorder=self.obs) if e.prefix_cache
+            else None)
         self.sched = ContinuousScheduler(
             e.num_slots, self.pool,
             max_prefills_per_step=e.max_prefills_per_step, reserve=e.reserve,
-            prefill_chunk=self.prefill_chunk, prefix_cache=self.prefix_cache,
-            metrics=self.metrics)
+            prefill_chunk=self.prefill_chunk, tracker=self.req_spans,
+            prefix_cache=self.prefix_cache, metrics=self.metrics)
+        # every submitted request, live or terminal: how the step error
+        # boundary maps a fault's rids back to Request objects
+        self.requests: Dict[str, Request] = {}
+        self.chaos: Optional[FaultInjector] = None
+        if e.chaos is not None and e.chaos.any_enabled():
+            if e.chaos.poison_p > 0 and not e.sanitize:
+                raise ValueError(
+                    "chaos.poison_p needs sanitize=True: the sanitizer's "
+                    "poison scan is what detects (and contains) the "
+                    "injected page; without it the fault surfaces as "
+                    "silent garbage tokens")
+            self.chaos = FaultInjector(e.chaos, recorder=self.obs)
+        self._step_idx = 0               # monotonic, drives chaos schedules
         # analytic per-token prefill cost (2*M*K*N over every GEMM site at
         # M=1, layer sites times the stack depth): what each cache-hit
         # token avoids recomputing; feeds metrics.prefill_flops_saved
         self._flops_per_token = float(sum(
             2 * m * k * n * (1 if name == "lm_head" else cfg.num_layers)
             for name, m, k, n in gemm_sites(cfg, 1)))
-        # cascade decode telemetry: steps that ran the two-phase attention,
-        # and the sharing-group lanes summed over those steps
-        self.shared_prefix_steps = 0
+        # cascade decode: the sharing-group lanes summed over the steps
+        # that ran the two-phase attention (the steps themselves are the
+        # shared_prefix_steps counter, the last step's lanes a gauge)
         self.shared_prefix_lanes = 0
         self._leak_audit: Dict[str, int] = {}
-        self.requests: Dict[str, Request] = {}
         self.arena: Optional[KVArena] = None
         self._cache = None
+        m = self.model
         if self.kv_layout == "paged":
             self.arena = KVArena(
-                self.model.init_paged_arena(num_blocks + 1, e.block_size),
+                m.init_paged_arena(num_blocks + 1, e.block_size),
                 e.block_size)
             self.pool.bind_arena(self.arena)
+            self._paged_decode = JitWatch(m.paged_decode_step,
+                                          "paged_decode", self.obs)
+            self._chunk_prefill = JitWatch(m.paged_prefill_step,
+                                           "chunk_prefill", self.obs)
+            self._paged_shared_decode = (
+                JitWatch(m.paged_shared_decode_step, "paged_shared_decode",
+                         self.obs) if e.shared_prefix_decode else None)
         else:
             # stacked per-slot states: the slot is the batch axis
-            self._cache = self.model.init_cache(e.num_slots)
+            self._cache = m.init_cache(e.num_slots)
+            self._prefill = JitWatch(m.prefill, "prefill", self.obs)
+            self._decode = JitWatch(m.decode_step, "decode", self.obs)
         self.spec: Optional[SpecDecoder] = None
         if e.spec_draft is not None:
             if self.prefill_chunk is None:
@@ -365,7 +446,10 @@ class ServingEngine:
                             if e.spec_draft_blocks is not None
                             else num_blocks),
                 max_blocks_per_slot=self._max_blocks_per_slot,
-                chunk=self.prefill_chunk, spec_k=e.spec_k)
+                chunk=self.prefill_chunk, spec_k=e.spec_k,
+                recorder=self.obs)
+            self._spec_verify = JitWatch(m.paged_verify_step, "spec_verify",
+                                         self.obs)
         self._kv_rows = np.zeros((e.num_slots,), np.int32)
         self._last_tok = np.zeros((e.num_slots, 1), np.int32)
         # what one masked-dense decode step would stream: every slot's full
@@ -377,15 +461,30 @@ class ServingEngine:
         self._gen.manual_seed(e.seed + 1)
         self._vtime = 0.0
         self._t0 = time.time()
-        self.registry = SiteRegistry()
+        # the recorder hook turns each site a trace records into a
+        # "dispatch" event
+        self.registry = SiteRegistry(recorder=self.obs)
         # site -> the recommendation and what the card ran (describe())
         self.gemm_plan: Dict[str, str] = {}
         self.plan_changes = 0            # steps whose recommendation changed
         self.ran_plan_changes = 0        # steps whose plan on the card changed
         self._rec_plan: Dict[str, str] = {}
         self._ran_plan: Dict[str, object] = {}
-        self.steps = 0
-        self.defrag_auto = 0             # steps that ended in an auto-defrag
+
+    @property
+    def steps(self) -> int:
+        """Engine steps taken (a restored engine counts the snapshot's)."""
+        return self._step_idx
+
+    @property
+    def defrag_auto(self) -> int:
+        """Steps that ended in an auto-defrag."""
+        return int(self.obs.counters.get("kv_defrag_auto", 0))
+
+    @property
+    def shared_prefix_steps(self) -> int:
+        """Decode steps that ran the cascade (two-phase) attention."""
+        return int(self.obs.counters.get("shared_prefix_steps", 0))
 
     @staticmethod
     def _build_dispatcher(ecfg: EngineConfig) -> SaraDispatcher:
@@ -474,14 +573,19 @@ class ServingEngine:
         e = self.ecfg
         context = req.context()
         n = int(context.shape[0])
-        scope = f"prefill:m{self.bucket_for(n)}"
+        bucket = self.bucket_for(n)
+        scope = f"prefill:m{bucket}"
         toks = self._tensor(np.asarray(context, np.int32)[None])
+        fresh = self.model.init_cache(1)
         t0 = time.time()
-        with torch.no_grad(), self._dispatch_scope(scope):
-            logits, new = self.model.prefill(self.params, {"tokens": toks},
-                                             self.model.init_cache(1))
-        self._sync()
+        with torch.no_grad(), self._dispatch_scope(scope), \
+                self.timeline.phase("prefill", rid=req.rid, bucket=bucket):
+            logits, new = self._prefill(self.params, {"tokens": toks}, fresh)
+        with self.timeline.phase("sync"):
+            self._sync()
         dt = time.time() - t0
+        self.obs.add_scope_wall(scope, dt)
+        self.req_spans.on_prefill_chunk(req.rid, n, dt, bucket=bucket)
         self._dispatch(scope)
         self.metrics.on_prefill(n, dt)
         self._slot_restore(req.slot, new)
@@ -493,15 +597,19 @@ class ServingEngine:
         self._last_tok[req.slot, 0] = tok
         self._first_token(req)
 
-    def _decode_dense(self):
+    def _decode_dense(self, active: Dict[int, Request]):
         """One batched decode over every slot of the state cache.  Returns
         (logits (S, V) on the device, seconds, KV rows streamed)."""
         t0 = time.time()
-        with torch.no_grad(), self._dispatch_scope("decode"):
-            logits, self._cache = self.model.decode_step(
+        with torch.no_grad(), self._dispatch_scope("decode"), \
+                self.timeline.phase("decode", lanes=len(active)):
+            logits, self._cache = self._decode(
                 self.params, self._tensor(self._last_tok), self._cache)
-        self._sync()
-        return logits, time.time() - t0, self._dense_kv_rows
+        with self.timeline.phase("sync"):
+            self._sync()
+        dt = time.time() - t0
+        self.obs.add_scope_wall("decode", dt)
+        return logits, dt, self._dense_kv_rows
 
     # -- request lifecycle ----------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -528,6 +636,7 @@ class ServingEngine:
         if req.t_first_token < 0:
             req.t_first_token = self.now()
             self.metrics.on_first_token(req.arrival_time, req.t_first_token)
+            self.req_spans.on_first_token(req.rid)
 
     def _do_chunk_prefills(self) -> None:
         """One chunked-prefill step over every mid-prefill lane (a ragged
@@ -564,14 +673,23 @@ class ServingEngine:
         rids = [lanes[s].rid if chunk[s] > 0 else None for s in range(S)]
         tables = self.pool.dense_block_table(rids, width)
 
+        scope = "prefill_chunk"
         t0 = time.time()
-        with torch.no_grad(), self._dispatch_scope("prefill_chunk"):
-            logits, _ = self.model.paged_prefill_step(
+        with torch.no_grad(), self._dispatch_scope(scope), \
+                self.timeline.phase("prefill_chunk",
+                                    lanes=int((chunk > 0).sum())):
+            logits, _ = self._chunk_prefill(
                 self.params, self._tensor(toks), self.arena.leaves,
                 self._tensor(tables), self._tensor(kv), self._tensor(chunk))
-        self._sync()
+        with self.timeline.phase("sync"):
+            self._sync()
         dt = time.time() - t0
-        self._dispatch("prefill_chunk")
+        self.obs.add_scope_wall(scope, dt)
+        self._dispatch(scope)
+        for slot, req in sorted(lanes.items()):
+            if chunk[slot] > 0:
+                self.req_spans.on_prefill_chunk(req.rid, int(chunk[slot]),
+                                                dt, pos=req.prefill_pos)
 
         total = int(chunk.sum())
         self.metrics.on_prefill(total, dt, kv_write_rows=total)
@@ -642,25 +760,30 @@ class ServingEngine:
         self._kv_rows[slot] = 0          # pages already back in the free list
 
     def _finish(self, req: Request, outcome: str, reason: str = "") -> None:
-        """Terminal-failure bookkeeping (deadline/cancel sweep, preempt
-        budget exhausted)."""
+        """Terminal-failure bookkeeping shared by fault containment, the
+        scheduler's deadline / cancel sweep and preempt-budget exhaustion.
+        When the scheduler already closed the request (``plan.finished``
+        hands them over with ``outcome`` set and slot / pages / span gone)
+        only the engine's counters remain; otherwise the scheduler's
+        teardown runs here too."""
         slot = req.slot
         if not req.outcome:
             self.sched.finish(req, outcome, self.now(), reason=reason)
         self.metrics.on_finish(req.outcome)
+        self.obs.count(OUTCOME_COUNTERS[req.outcome], 1)
         if self.spec is not None:
             self.spec.release(req.rid)
         if slot >= 0:
             self._last_tok[slot, 0] = 0
             self._kv_rows[slot] = 0
 
-    def _preempt_newest(self) -> None:
-        """Every lane is stalled: preempt the newest request (recompute on
-        readmit) so the rest can make progress — or fail it once its
-        preemption budget is spent, so it cannot cycle forever."""
-        victim = max(self.sched.active.values(), key=lambda r: r.t_admit)
+    def _preempt(self, victim: Request) -> None:
+        """Preempt one admitted request (recompute on readmit), or fail it
+        once its preemption budget is spent: a victim the pool can never
+        hold would otherwise cycle preempt -> readmit -> stall forever."""
         victim.preempt_count += 1
         if victim.preempt_count > self.ecfg.preempt_budget:
+            self.obs.count("preempt_budget_exhausted", 1)
             self._finish(victim, "failed",
                          reason=f"preemption budget "
                                 f"({self.ecfg.preempt_budget}) exhausted")
@@ -673,24 +796,148 @@ class ServingEngine:
         self._last_tok[slot, 0] = 0
         self._kv_rows[slot] = 0
 
+    def _preempt_newest(self) -> None:
+        """Every lane is stalled: preempt the newest request so the rest
+        can make progress."""
+        self._preempt(max(self.sched.active.values(),
+                          key=lambda r: r.t_admit))
+
+    # -- chaos injection points -----------------------------------------------
+    def _inject_admission_chaos(self) -> None:
+        """Post-schedule chaos: force-preempt a mid-prefill lane (the
+        recompute-on-readmit path and the preemption budget), then maybe
+        raise a simulated pool OOM attributed to one live lane."""
+        step = self._step_idx
+        mid_prefill = [r for _, r in sorted(self.sched.active.items())
+                       if r.prefilling]
+        victim = self.chaos.preempt(step, mid_prefill)
+        if victim is not None:
+            self._preempt(victim)
+        live = [r for _, r in sorted(self.sched.active.items())]
+        victim = self.chaos.pool_oom(step, live)
+        if victim is not None:
+            raise self.chaos.oom_error(step, victim)
+
+    def _inject_decode_chaos(self, active: Dict[int, Request],
+                             snaps: Dict) -> None:
+        """Pre-decode chaos: forced lane stalls (paged writes land in the
+        trash page and the token replays; a dense lane gets the rollback
+        snapshot a real stall takes) and, paged under sanitize,
+        NaN-poisoning one fully written, exclusively owned page of a lane,
+        so that the post-decode poison scan must trap and attribute it."""
+        step = self._step_idx
+        lanes = [r for _, r in sorted(active.items())]
+        for req in self.chaos.stall_lanes(step, lanes):
+            if not req.stalled:
+                req.stalled = True
+                self.metrics.stalls += 1
+                if self.kv_layout == "dense" and req.slot not in snaps:
+                    snaps[req.slot] = self._slot_snapshot(req.slot)
+        if self.kv_layout != "paged" or self.ecfg.chaos.poison_p <= 0:
+            return
+        bs = self.ecfg.block_size
+        cands = []
+        for slot, req in sorted(active.items()):
+            if req.stalled:
+                continue
+            full = int(self._kv_rows[slot]) // bs
+            pages = [b for b in self.pool.table(req.rid).blocks[:full]
+                     if self.pool.refcount(b) == 1
+                     and self.pool.pincount(b) == 0]
+            cands.append((req, pages))
+        hit = self.chaos.poison(step, cands)
+        if hit is not None:
+            self.arena.poison_page(hit[1])
+
     # -- main loop ------------------------------------------------------------
     def step(self) -> bool:
         """One engine step: admissions, one ragged chunk batch over every
-        mid-prefill lane, then one batched decode over the fully-prefilled
-        lanes.  Returns False when there is nothing left to do."""
+        mid-prefill lane (or whole-prompt prefills on the dense layout),
+        then one batched decode over the fully-prefilled lanes.  Returns
+        False when there is nothing left to do.
+
+        The step is an error boundary: a ``PoolError`` / ``SanitizerError``
+        that names its request(s) fails exactly those and the engine lives
+        on; an unattributable one is retried ``max_step_retries`` times
+        (backoff doubling from ``retry_backoff_s``, slept only under the
+        wall clock) before it surfaces."""
         if self.sched.idle():
             return False
-        self._step_body()
-        thr = self.ecfg.defrag_threshold
-        if thr is not None and self.pool.fragmentation() > thr:
-            self.defrag_auto += 1
-            self.defrag()
+        e = self.ecfg
+        retries = max(0, e.max_step_retries)
+        delay = e.retry_backoff_s
+        for attempt in range(retries + 1):
+            fault = None
+            self.timeline.begin()
+            try:
+                self._step_body()
+                thr = e.defrag_threshold
+                if thr is not None and self.pool.fragmentation() > thr:
+                    self.obs.count("kv_defrag_auto", 1)
+                    self.defrag()
+            except (PoolError, SanitizerError) as exc:
+                # decided below: one request's fault or engine trouble;
+                # either way the timeline closes cleanly first
+                fault = exc
+            finally:
+                self.obs.gauge("kv_pages_in_use", self.pool.num_in_use)
+                self.obs.gauge("kv_fragmentation", self.pool.fragmentation())
+                self.obs.gauge("slot_occupancy",
+                               len(self.sched.active) / e.num_slots)
+                self.timeline.end(active=len(self.sched.active),
+                                  waiting=self.sched.pending())
+            if fault is None:
+                break
+            if self._contain_fault(fault):
+                break                    # victims failed; engine lives on
+            if attempt >= retries:
+                raise fault              # unattributable and out of retries
+            self.obs.count("engine_step_retries", 1)
+            self.obs.instant("fault", "step_retry", track="faults",
+                             attempt=attempt + 1,
+                             error=type(fault).__name__)
+            if e.clock == "wall" and delay > 0:
+                time.sleep(delay)        # the step clock retries at once
+            delay *= 2
+        if e.sanitize:
+            # the full invariant sweep every step: refcount drift and
+            # free-list corruption surface at the step that caused them
+            self.pool.check()
+            if self.spec is not None:
+                self.spec.check()
+            self.obs.count("kv_sanitize_checks", 1)
         self._vtime += 1.0
-        self.steps += 1
+        self._step_idx += 1
+        if e.snapshot_dir and e.snapshot_every > 0 \
+                and self._step_idx % e.snapshot_every == 0:
+            self.snapshot()
+        return True
+
+    def _contain_fault(self, fault: Exception) -> bool:
+        """Fail exactly the request(s) a step fault names instead of the
+        whole engine.  True when the fault named at least one live
+        request: its pages free, its span closes with outcome ``failed``,
+        and the surviving lanes replay their pending token next step (the
+        raise always precedes token commit, so no generated sequence sees
+        the abandoned step)."""
+        victims = [self.requests[rid] for rid in fault_rids(fault)
+                   if rid in self.requests
+                   and not self.requests[rid].outcome]
+        if not victims:
+            return False
+        self.obs.count("faults_contained", len(victims))
+        for req in victims:
+            self.obs.instant("fault", "contained", track="faults",
+                             rid=req.rid, error=type(fault).__name__)
+            self._finish(req, "failed", reason=str(fault)[:200])
         return True
 
     def _step_body(self) -> None:
-        plan = self.sched.plan(self.now())
+        with self.timeline.phase("schedule"):
+            plan = self.sched.plan(self.now())
+        # requests the scheduling pass terminated (expired / shed /
+        # cancelled): the scheduler tore down slot, pages and span; the
+        # counters and lane arrays are the engine's side
         for req in plan.finished:
             self._finish(req, req.outcome)
         for req in plan.prefills:
@@ -702,9 +949,16 @@ class ServingEngine:
                 self.metrics.on_cache_hit(req.cached_prefix_tokens,
                                           req.cached_pages,
                                           self._flops_per_token)
+                self.req_spans.on_cache_hit(req.rid,
+                                            tokens=req.cached_prefix_tokens,
+                                            pages=req.cached_pages)
+        if self.chaos is not None:
+            self._inject_admission_chaos()
         if self.kv_layout == "paged":
             self._do_chunk_prefills()
         else:
+            # every still-prefilling lane, not just this plan's admissions:
+            # a step aborted between admission and prefill leaves them
             for req in [r for _, r in sorted(self.sched.active.items())
                         if r.prefilling]:
                 self._do_prefill(req)
@@ -729,28 +983,34 @@ class ServingEngine:
                     self.metrics.stalls += 1
                     if self.kv_layout == "dense":
                         snaps[slot] = self._slot_snapshot(slot)
+            if self.chaos is not None:
+                # after grow() (which clears stalled on success), so that
+                # a forced stall survives into this step's decode mask
+                self._inject_decode_chaos(active, snaps)
             if self.kv_layout == "paged":
                 logits, dt, kv_read = self._decode_paged(active)
             else:
-                logits, dt, kv_read = self._decode_dense()
+                logits, dt, kv_read = self._decode_dense(active)
             self._dispatch("decode")
-            sampled = sample_logits(self._gen, logits, self.ecfg.temperature,
-                                    self.ecfg.top_k).cpu().numpy()
-            committed = 0
-            for slot, req in sorted(active.items()):
-                if req.stalled:
-                    # replays once the pool can cover it: paged lanes wrote
-                    # nothing (trash page), dense lanes roll back
-                    if slot in snaps:
-                        self._slot_restore(slot, snaps[slot])
-                    continue
-                req.generated.append(int(sampled[slot]))
-                self._last_tok[slot, 0] = req.generated[-1]
-                self._kv_rows[slot] += 1
-                committed += 1
-                self._first_token(req)
-                if req.done():
-                    self._retire(req)
+            with self.timeline.phase("sample"):
+                sampled = sample_logits(self._gen, logits,
+                                        self.ecfg.temperature,
+                                        self.ecfg.top_k).cpu().numpy()
+                committed = 0
+                for slot, req in sorted(active.items()):
+                    if req.stalled:
+                        # replays once the pool can cover it: paged lanes
+                        # wrote nothing (trash page), dense lanes roll back
+                        if slot in snaps:
+                            self._slot_restore(slot, snaps[slot])
+                        continue
+                    req.generated.append(int(sampled[slot]))
+                    self._last_tok[slot, 0] = req.generated[-1]
+                    self._kv_rows[slot] += 1
+                    committed += 1
+                    self._first_token(req)
+                    if req.done():
+                        self._retire(req)
             self.metrics.on_decode_step(
                 len(active), self.ecfg.num_slots, committed, dt,
                 kv_read_tokens=kv_read,
@@ -776,25 +1036,78 @@ class ServingEngine:
         width = KVBlockPool.table_width(max(need), self._max_blocks_per_slot)
         rids = [active[s].rid if s in active else None for s in range(S)]
         tables = self.pool.dense_block_table(rids, width)
+        # the generation stamp of every page the table names, replayed
+        # after the kernel to trap a table that outlived a free
+        gens = (self.pool.table_generations(rids, width)
+                if e.sanitize else None)
+        self.obs.gauge("decode_table_width", width)
         group = (self._shared_prefix_group(active, kv, wm)
-                 if e.shared_prefix_decode else None)
+                 if self._paged_shared_decode is not None else None)
         t0 = time.time()
-        with torch.no_grad(), self._dispatch_scope("decode"):
-            args = [self._tensor(a) for a in (self._last_tok, tables, kv, wm)]
-            if group is not None:
-                prefix_pages, prefix_lens, utables, ulens, kv_read, _ = group
-                self.shared_prefix_steps += 1
-                self.shared_prefix_lanes += int((prefix_lens > 0).sum())
-                logits, _ = self.model.paged_shared_decode_step(
+        args = [self._tensor(a) for a in (self._last_tok, tables, kv, wm)]
+        if group is not None:
+            prefix_pages, prefix_lens, utables, ulens, kv_read, npages = group
+            lanes = int((prefix_lens > 0).sum())
+            self.obs.count("shared_prefix_steps", 1)
+            self.obs.gauge("shared_prefix_lanes", lanes)
+            self.shared_prefix_lanes += lanes
+            with torch.no_grad(), self._dispatch_scope("decode"), \
+                    self.timeline.phase("paged_decode", lanes=len(active),
+                                        width=width, shared_pages=npages):
+                logits, _ = self._paged_shared_decode(
                     self.params, args[0], self.arena.leaves, *args[1:],
                     *[self._tensor(a) for a in (prefix_pages, prefix_lens,
                                                 utables, ulens)])
-            else:
-                kv_read = e.block_size * sum(need)
-                logits, _ = self.model.paged_decode_step(
+        else:
+            kv_read = e.block_size * sum(need)
+            with torch.no_grad(), self._dispatch_scope("decode"), \
+                    self.timeline.phase("paged_decode", lanes=len(active),
+                                        width=width):
+                logits, _ = self._paged_decode(
                     self.params, args[0], self.arena.leaves, *args[1:])
-        self._sync()
-        return logits, time.time() - t0, kv_read
+        with self.timeline.phase("sync"):
+            self._sync()
+        dt = time.time() - t0
+        self.obs.add_scope_wall("decode", dt)
+        if e.sanitize:
+            self._sanitize_decode(active, rids, tables, gens, logits)
+        return logits, dt, kv_read
+
+    def _poison_scan(self, active: Dict[int, Request], finite: np.ndarray,
+                     what: str) -> None:
+        """Raise an attributed ``SanitizerError`` for the live lanes whose
+        logits are not all finite (``finite``: (S,) bool): the kernel read a
+        poisoned (freed) page through a live table.  The step error
+        boundary fails exactly these lanes instead of the engine."""
+        bad = [s for s, r in sorted(active.items())
+               if not r.stalled and not finite[s]]
+        if bad:
+            self.obs.count("kv_poison_hits", len(bad))
+            lanes = ", ".join(f"{s} ({active[s].rid})" for s in bad)
+            err = SanitizerError(
+                f"poisoned KV page read: {what} produced non-finite "
+                f"logits on lane(s) {lanes} — a freed (NaN-filled) arena "
+                "page is still reachable through a live block table")
+            err.rids = [active[s].rid for s in bad]
+            raise err
+
+    def _check_generations(self, rids, tables, gens) -> None:
+        try:
+            self.pool.assert_generations(rids, tables, gens)
+        except SanitizerError:
+            self.obs.count("kv_generation_faults", 1)
+            raise
+
+    def _sanitize_decode(self, active: Dict[int, Request], rids, tables,
+                         gens, logits: torch.Tensor) -> None:
+        """Post-decode sanitizer traps.  (1) generation replay: every
+        (page, generation) pair the step's table named must still be
+        current; a page freed and handed out again since is a
+        use-after-free.  (2) poison scan: a non-finite logit row on a live
+        lane means the kernel streamed a poisoned (freed) page."""
+        self._check_generations(rids, tables, gens)
+        finite = torch.isfinite(logits).all(-1).cpu().numpy()
+        self._poison_scan(active, finite, "decode")
 
     def _spec_decode_step(self, active: Dict[int, Request]) -> None:
         """One speculative step over the fully-prefilled lanes: draft up to
@@ -821,6 +1134,8 @@ class ServingEngine:
                 if not self.sched.grow(req, L):
                     self.metrics.stalls += 1
             quota[slot] = k
+        if self.chaos is not None:
+            self._inject_decode_chaos(active, {})
         for slot, req in sorted(active.items()):
             if req.stalled:
                 continue                 # writes nothing: no fork needed
@@ -835,9 +1150,14 @@ class ServingEngine:
         dt_draft = 0.0
         if draft_lanes:
             t0 = time.time()
-            with self._dispatch_scope("spec_draft"):
+            with self._dispatch_scope("spec_draft"), \
+                    self.timeline.phase("spec_draft",
+                                        lanes=len(draft_lanes)):
                 drafts, preempts = self.spec.draft(draft_lanes)
             dt_draft = time.time() - t0
+            self.obs.add_scope_wall("spec_draft", dt_draft)
+            if preempts:
+                self.obs.count("spec_draft_preempts", preempts)
 
         # verify: one ragged chunk batch at a fixed width.  Row 0 is the
         # pending token (what plain decode would run), rows 1..k the
@@ -854,52 +1174,80 @@ class ServingEngine:
             toks[slot, 1:1 + len(d)] = d
             clens[slot] = 1 + len(d)
         kv = np.where(clens > 0, self._kv_rows, 0).astype(np.int32)
+        width = self._max_blocks_per_slot
         rids = [active[s].rid if s in active and clens[s] > 0 else None
                 for s in range(S)]
-        tables = self.pool.dense_block_table(rids, self._max_blocks_per_slot)
+        tables = self.pool.dense_block_table(rids, width)
+        gens = (self.pool.table_generations(rids, width)
+                if e.sanitize else None)
         kv_read = e.block_size * sum(
             self.pool.blocks_for(int(kv[s]) + int(clens[s]))
             for s in range(S))
         t0 = time.time()
-        with torch.no_grad(), self._dispatch_scope("spec_verify"):
-            logits, _ = self.model.paged_verify_step(
+        with torch.no_grad(), self._dispatch_scope("spec_verify"), \
+                self.timeline.phase("spec_verify",
+                                    lanes=int((clens > 0).sum()),
+                                    width=width):
+            logits, _ = self._spec_verify(
                 self.params, self._tensor(toks), self.arena.leaves,
                 self._tensor(tables), self._tensor(kv), self._tensor(clens))
-        self._sync()
+        with self.timeline.phase("sync"):
+            self._sync()
         dt = time.time() - t0
+        self.obs.add_scope_wall("spec_verify", dt)
         self._dispatch("spec_verify")
-        # greedy verify picks (S, C), on the device (the first maximal
-        # index, as np.argmax); only the ints come to the host
-        argm = torch.argmax(logits, -1).cpu().numpy()
+        if e.sanitize:
+            self._sanitize_spec(active, rids, tables, gens, logits, clens)
 
-        committed = accepted = bonus = drafted = live = 0
-        for slot, req in sorted(active.items()):
-            if req.stalled:
-                continue                 # replays the pending token
-            live += 1
-            d = drafts.get(slot, [])
-            drafted += len(d)
-            a, commit = accept_tokens(d, argm[slot, :len(d) + 1])
-            c = 0
-            for t in commit:             # EOS or the budget can cut it
-                req.generated.append(int(t))
-                c += 1
+        with self.timeline.phase("sample"):
+            # greedy verify picks (S, C), on the device (the first maximal
+            # index, as np.argmax); only the ints come to the host
+            argm = torch.argmax(logits, -1).cpu().numpy()
+            committed = accepted = bonus = drafted = live = 0
+            for slot, req in sorted(active.items()):
+                if req.stalled:
+                    continue             # replays the pending token
+                live += 1
+                d = drafts.get(slot, [])
+                drafted += len(d)
+                a, commit = accept_tokens(d, argm[slot, :len(d) + 1])
+                c = 0
+                for t in commit:         # EOS or the budget can cut it
+                    req.generated.append(int(t))
+                    c += 1
+                    if req.done():
+                        break
+                accepted += min(a, c)
+                bonus += c - min(a, c)
+                committed += c
+                self._kv_rows[slot] += c
+                self._last_tok[slot, 0] = req.generated[-1]
+                self.spec.commit(req.rid, int(self._kv_rows[slot]))
+                self._first_token(req)
                 if req.done():
-                    break
-            accepted += min(a, c)
-            bonus += c - min(a, c)
-            committed += c
-            self._kv_rows[slot] += c
-            self._last_tok[slot, 0] = req.generated[-1]
-            self.spec.commit(req.rid, int(self._kv_rows[slot]))
-            self._first_token(req)
-            if req.done():
-                self._retire(req)
+                    self._retire(req)
+        self.obs.count("spec_steps", 1)
+        self.obs.count("spec_drafted_tokens", drafted)
+        self.obs.count("spec_accepted_tokens", accepted)
+        self.obs.count("spec_bonus_tokens", bonus)
+        self.obs.gauge("spec_accepted_per_step", committed / max(live, 1))
         self.metrics.on_spec_step(live, drafted, accepted, bonus, preempts)
         self.metrics.on_decode_step(
             len(active), e.num_slots, committed, dt + dt_draft,
             kv_read_tokens=kv_read,
             kv_read_tokens_dense=self._dense_kv_rows)
+
+    def _sanitize_spec(self, active: Dict[int, Request], rids, tables,
+                       gens, logits: torch.Tensor,
+                       clens: np.ndarray) -> None:
+        """Post-verify sanitizer traps, the spec twin of
+        ``_sanitize_decode``: only each lane's live chunk rows are scanned
+        (rows past ``clens`` are trash-page garbage by construction)."""
+        self._check_generations(rids, tables, gens)
+        rows = torch.isfinite(logits).all(-1).cpu().numpy()     # (S, C)
+        finite = np.array([rows[s, :int(clens[s])].all()
+                           for s in range(rows.shape[0])])
+        self._poison_scan(active, finite, "spec verify")
 
     def _shared_prefix_group(self, active: Dict[int, Request],
                              kv: np.ndarray, wm: np.ndarray):
@@ -969,16 +1317,19 @@ class ServingEngine:
     def run(self, requests: Sequence[Request]) -> Dict[str, np.ndarray]:
         """Serve a request set to completion; returns {rid: generated}.
         An invalid request is recorded as ``rejected`` and skipped."""
-        if self.steps == 0:
+        if self._step_idx == 0:
             # the wall clock starts with serving, not with model set-up
             self._t0 = time.time()
         for r in requests:
             try:
                 self.submit(r)
-            except (ValueError, PoolError):
+            except (ValueError, PoolError) as exc:
                 r.outcome = "rejected"
                 self.requests[r.rid] = r
                 self.metrics.on_finish("rejected")
+                self.obs.count("requests_rejected", 1)
+                self.obs.instant("request", "rejected", f"req:{r.rid}",
+                                 rid=r.rid, reason=str(exc)[:200])
         while self.step():
             pass
         # every request drained: no table may survive and the only pins
@@ -1012,7 +1363,11 @@ class ServingEngine:
                 "gemm_torch_sites": backends.get("torch", 0),
                 "rec_adaptnet_sites": sources.get("adaptnet", 0),
                 "rec_oracle_sites": sources.get("oracle", 0),
-                "rec_fallback_sites": sources.get("oracle_fallback", 0)}
+                "rec_fallback_sites": sources.get("oracle_fallback", 0),
+                # new argument signatures of the watched model calls: the
+                # signal a shape-diversity regression shows up in
+                "jit_compiles": int(self.obs.counters.get("jit_compiles",
+                                                          0))}
 
     def defrag(self) -> int:
         """Compact live KV pages to the front of the arena between steps:
@@ -1036,5 +1391,76 @@ class ServingEngine:
             s.update(self.prefix_cache.stats())
         s["shared_prefix_steps"] = self.shared_prefix_steps
         s["shared_prefix_lanes"] = self.shared_prefix_lanes
+        c = self.obs.counters
+        for k in ("faults_contained", "engine_step_retries",
+                  "preempt_budget_exhausted", "engine_snapshots",
+                  "engine_restores"):
+            s[k] = int(c.get(k, 0))
+        if self.chaos is not None:
+            s["faults_injected"] = self.chaos.total_injected()
+            s.update(self.chaos.summary())
+        if self.ecfg.sanitize:
+            s["kv_sanitize_checks"] = self.pool.sanitize_checks
+            s["kv_poison_fills"] = self.pool.poison_fills
+            s["kv_poison_hits"] = int(c.get("kv_poison_hits", 0))
+            s["kv_generation_faults"] = self.pool.generation_faults
         s.update(self._leak_audit)
         return s
+
+    # -- crash safety ---------------------------------------------------------
+    def snapshot(self, directory: Optional[str] = None,
+                 blocking: bool = True) -> int:
+        """Write a restorable engine snapshot (KV storage, scheduler queue
+        and slots, live requests, pool ownership, prefix-cache trie,
+        metrics, sampling state) through the checkpoint manager (atomic
+        rename: a crash mid-save never corrupts the latest snapshot).
+        Returns the snapshot's step index."""
+        from repro_torch.serving.snapshot import save_engine
+        d = directory or self.ecfg.snapshot_dir
+        if not d:
+            raise ValueError("snapshot needs a directory: pass one or set "
+                             "EngineConfig.snapshot_dir")
+        step = save_engine(self, d, blocking=blocking)
+        self.obs.count("engine_snapshots", 1)
+        return step
+
+    def restore(self, directory: Optional[str] = None,
+                step: Optional[int] = None) -> int:
+        """Resume from a snapshot into this freshly built engine (same
+        configs, nothing submitted yet).  Under greedy decoding every
+        surviving request continues token for token.  Returns the restored
+        step index."""
+        from repro_torch.serving.snapshot import restore_engine
+        d = directory or self.ecfg.snapshot_dir
+        if not d:
+            raise ValueError("restore needs a directory: pass one or set "
+                             "EngineConfig.snapshot_dir")
+        step = restore_engine(self, d, step=step)
+        self.obs.count("engine_restores", 1)
+        return step
+
+    # -- observability export -------------------------------------------------
+    def site_timings(self) -> Dict[str, Dict]:
+        """Measured wall time per scope joined with the sites that scope
+        executes: every (site, M, K, N, tile) with the wall time of the
+        model calls it ran inside."""
+        out: Dict[str, Dict] = {}
+        for scope, (calls, secs) in self.obs.scope_wall.items():
+            sites = {name: {"m": r.m, "k": r.k, "n": r.n,
+                            "tile": r.describe(), "source": r.source}
+                     for name, r in self.registry.sites(scope).items()}
+            out[scope] = {"calls": calls, "seconds": secs, "sites": sites}
+        return out
+
+    def export_trace(self, path: str) -> str:
+        """Write the trace as Chrome/Perfetto trace-event JSON at ``path``
+        plus a structured JSONL sibling (``.jsonl``); the JSON opens at
+        https://ui.perfetto.dev.  Returns the JSONL path."""
+        meta = {"arch": self.cfg.name, "kv_layout": self.kv_layout,
+                "prefill_chunk": self.prefill_chunk,
+                "dispatcher_mode": self.ecfg.dispatcher_mode,
+                "site_timings": self.site_timings()}
+        write_chrome_trace(path, self.obs, meta)
+        jsonl = (path[:-5] if path.endswith(".json") else path) + ".jsonl"
+        write_jsonl(jsonl, self.obs, meta)
+        return jsonl

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.obs import JitWatch, TraceRecorder
 from repro_torch.serving.kv_pool import KVArena, KVBlockPool, PoolError
 
 
@@ -109,11 +110,18 @@ class SpecDecoder:
     The engine calls :meth:`draft` (inside its ``spec_draft`` dispatch
     scope), then :meth:`commit` per lane after acceptance, and
     :meth:`release` whenever a request leaves its slot (retire, terminal
-    failure, preemption), so draft pages never outlive target pages."""
+    failure, preemption), so draft pages never outlive target pages.
+
+    ``recorder`` (the engine's ``TraceRecorder``) takes the draft pool's
+    arena events and the two watched draft calls, ``spec_draft_prefill``
+    (a catch-up chunk) and ``spec_draft_loop`` (the k rounds as one
+    watched call, so that its compile events match the reference's fused
+    ``lax.scan``); without one a private recorder counts them."""
 
     def __init__(self, draft_cfg: ArchConfig, draft_params, *,
                  num_slots: int, block_size: int, num_blocks: int,
-                 max_blocks_per_slot: int, chunk: int, spec_k: int):
+                 max_blocks_per_slot: int, chunk: int, spec_k: int,
+                 recorder=None):
         from repro_torch.models.api import build_model
 
         self.cfg = draft_cfg
@@ -132,7 +140,12 @@ class SpecDecoder:
             self.model.init_paged_arena(num_blocks + 1, block_size),
             block_size)
         self.pool.bind_arena(self.arena)
+        rec = recorder if recorder is not None else TraceRecorder()
+        self.pool.attach_recorder(rec)
         self._rows: Dict[str, int] = {}
+        self._draft_prefill = JitWatch(self.model.paged_prefill_step,
+                                       "spec_draft_prefill", rec)
+        self._draft_loop = JitWatch(self._loop, "spec_draft_loop", rec)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -229,7 +242,7 @@ class SpecDecoder:
                     for s in range(S)]
             tables = self.pool.dense_block_table(rids, self._max_blocks)
             with torch.no_grad():
-                self.model.paged_prefill_step(
+                self._draft_prefill(
                     self.params, self._tensor(toks), self.arena.leaves,
                     self._tensor(tables), self._tensor(kv),
                     self._tensor(chunk))
@@ -249,23 +262,30 @@ class SpecDecoder:
             kv[slot] = req.context_len - 1
             nwrites[slot] = k
         rids = [jobs[s][0].rid if s in jobs else None for s in range(S)]
-        tables = self._tensor(self.pool.dense_block_table(rids,
-                                                          self._max_blocks))
-        feed, pos = self._tensor(first), self._tensor(kv)
-        nwrites = self._tensor(nwrites)
-        rounds = []
+        tables = self.pool.dense_block_table(rids, self._max_blocks)
         with torch.no_grad():
-            for i in range(self.spec_k):
-                wm = (nwrites > i).to(torch.int32)
-                logits, _ = self.model.paged_decode_step(
-                    self.params, feed, self.arena.leaves, tables, pos, wm)
-                nxt = torch.argmax(logits, -1).to(torch.int32)
-                rounds.append(nxt)
-                feed = nxt[:, None]
-                pos = pos + wm
-        toks = torch.stack(rounds).cpu().numpy()          # (spec_k, S)
+            toks = self._draft_loop(
+                self.params, self._tensor(first), self.arena.leaves,
+                self._tensor(tables), self._tensor(kv),
+                self._tensor(nwrites)).cpu().numpy()      # (spec_k, S)
         drafts = {slot: [int(t) for t in toks[:jobs[slot][1], slot]]
                   for slot in jobs}
         for slot, (req, k, pos) in jobs.items():
             self._rows[req.rid] = req.context_len - 1 + k
         return drafts, preempts
+
+    def _loop(self, params, first, leaves, tables, kv, nwrites
+              ) -> torch.Tensor:
+        """The k draft rounds, (spec_k, S) tokens on the device: round i
+        feeds the previous round's argmax and writes a lane's K/V only
+        while i < nwrites[lane]."""
+        feed, pos, rounds = first, kv, []
+        for i in range(self.spec_k):
+            wm = (nwrites > i).to(torch.int32)
+            logits, _ = self.model.paged_decode_step(
+                params, feed, leaves, tables, pos, wm)
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+            rounds.append(nxt)
+            feed = nxt[:, None]
+            pos = pos + wm
+        return torch.stack(rounds)

@@ -40,7 +40,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.sigma", "repro_torch.core.ppa",
             "repro_torch.core.adaptnetx_model",
             "repro_torch.core.baselines",
-            "repro_torch.launch.sagar"} <= set(mods)
+            "repro_torch.launch.sagar", "repro_torch.obs",
+            "repro_torch.obs.trace", "repro_torch.obs.spans",
+            "repro_torch.obs.export", "repro_torch.runtime.failplan",
+            "repro_torch.serving.faults",
+            "repro_torch.serving.snapshot"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -114,11 +118,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         "cpu"
 
 
+def _poison_without_sanitize():
+    from repro_torch.serving import ChaosConfig
+    return ChaosConfig(poison_p=0.5)
+
+
 @pytest.mark.parametrize("field,value", [
     ("shared_prefix_decode", True),        # needs prefix_cache
     ("spec_draft", "rwkv6-1.6b"),          # a draft outside the paged families
-    ("chaos", object()), ("sanitize", True),
-    ("snapshot_dir", "/nonexistent"), ("trace", True),
+    ("chaos", object()),                   # not a ChaosConfig
+    ("chaos", _poison_without_sanitize()),  # poison needs the sanitizer
+    ("trace_capacity", 0),
     ("kv_layout", "dense"), ("prefill_chunk", None), ("buckets", (16,)),
     ("dispatcher_mode", "adaptnet"), ("execute", "pallas")])
 def test_engine_refuses_unported_features(field, value):
@@ -127,6 +137,22 @@ def test_engine_refuses_unported_features(field, value):
     with pytest.raises(ValueError):
         ServingEngine(get_arch("llama3.2-1b").reduced(),
                       EngineConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("trace", True), ("sanitize", True), ("snapshot_dir", "/nonexistent"),
+    ("chaos", None)])
+def test_engine_takes_ported_features(field, value):
+    """Tracing, the sanitizer, snapshots and the chaos harness are ported:
+    setting them builds an engine (a snapshot directory is only touched
+    by ``snapshot()``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.serving import ChaosConfig, EngineConfig, ServingEngine
+    if field == "chaos":
+        value = ChaosConfig(seed=1, pool_oom_p=0.5, stall_p=0.5)
+    eng = ServingEngine(get_arch("llama3.2-1b").reduced(),
+                        EngineConfig(**{field: value}), device="cpu")
+    assert getattr(eng.ecfg, field) == value
 
 
 def test_train_entry_point_raises_without_cuda(monkeypatch, tmp_path):

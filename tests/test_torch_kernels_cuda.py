@@ -1675,3 +1675,147 @@ def test_prefill_and_prefix_refuse_before_or_at_launch(cuda):
     n1 = ops.launch_counts()
     assert n1["paged_prefill"] == n0["paged_prefill"]
     assert n1["paged_prefix"] == n0["paged_prefix"]
+
+
+# ---------------------------------------------------------------------------
+# the paged kernels against a poisoned arena (the serving sanitizer's
+# NaN-on-free): a row the mask excludes must never reach the output
+# ---------------------------------------------------------------------------
+
+def _poisoned_layout(lengths, bs, pad):
+    """Tables over disjoint pages from page 1 up: page 0 and the trailing
+    page are owned by no lane, as freed pages are.  Columns past a lane's
+    pages repeat its last live id (``pad="last"``, the engine's tables)
+    or name page 0 (``pad="zero"``); a lane of length 0 is all page 0.
+    Returns (tables (S, W) int32 on the card, number of pages, owned
+    page ids)."""
+    W = max(1, max(-(-n // bs) for n in lengths))
+    tables = torch.zeros((len(lengths), W), dtype=torch.int32)
+    nxt, owned = 1, []
+    for i, n in enumerate(lengths):
+        nblk = -(-n // bs)
+        if nblk:
+            tables[i, :nblk] = torch.arange(nxt, nxt + nblk)
+            tables[i, nblk:] = nxt + nblk - 1 if pad == "last" else 0
+            owned += list(range(nxt, nxt + nblk))
+            nxt += nblk
+    return tables.cuda(), nxt + 1, owned
+
+
+def _arena_pair(gen, shape, dtype, owned):
+    """The same random pages for the owned ids in two arenas, every other
+    page NaN in the first and zero in the second."""
+    live = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    mask = torch.zeros(shape[0], dtype=torch.bool, device="cuda")
+    mask[torch.tensor(owned, dtype=torch.long, device="cuda")] = True
+    m = mask.view((-1,) + (1,) * (len(shape) - 1))
+    poisoned = torch.where(m, live, torch.full_like(live, float("nan")))
+    return poisoned, torch.where(m, live, torch.zeros_like(live))
+
+
+def _finite_and_bitwise(got, clean):
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for g, c in zip(got, clean):
+        assert torch.isfinite(g.float()).all()
+        assert g.dtype == c.dtype
+        assert torch.equal(g.view(bits[g.dtype]), c.view(bits[c.dtype]))
+
+
+# phase 3's shapes: lengths and chunks ending inside a page (17, 37, 545)
+# and inside a split, one lane of 4096 rows, an empty lane
+POISON_DEC = [0, 1, 15, 16, 17, 200, 545, 4096]
+POISON_STARTS = [0, 0, 64, 100, 0, 448, 0, 10]
+POISON_CHUNKS = [64, 10, 64, 37, 0, 64, 1, 64]
+
+
+@pytest.mark.parametrize("pad", ["last", "zero"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernels_ignore_a_poisoned_arena(cuda, dtype, pad):
+    """Split-KV decode (and decode-lse), the prefill kernel and the
+    shared-prefix phase at phase 3's llama widths (8 kv heads, G = 4,
+    hd 64, pages of 16) over an arena whose unowned pages, page 0 among
+    them, are NaN: finite outputs, bitwise those of the same launches
+    over an arena whose unowned pages are zero."""
+    KVH, G, hd, bs = 8, 4, 64, 16
+    S, scale = len(POISON_DEC), hd ** -0.5
+    tables, NB, owned = _poisoned_layout(POISON_DEC, bs, pad)
+    k = _arena_pair(cuda, (NB, bs, KVH, hd), dtype, owned)
+    v = _arena_pair(cuda, (NB, bs, KVH, hd), dtype, owned)
+    lens = torch.tensor(POISON_DEC, dtype=torch.int32, device="cuda")
+    q = torch.randn((S, KVH * G, hd), generator=cuda, device="cuda") \
+        .to(dtype)
+    runs = []
+    for i in range(2):
+        with dispatch.use(execute="kernel"):
+            dec = ops.paged_attention(q, k[i], v[i], tables, lens)
+        lse = paged_decode_lse_cuda(q, k[i], v[i], tables, lens,
+                                    scale=scale)
+        runs.append((dec,) + tuple(lse))
+    _finite_and_bitwise(*runs)
+
+    lengths = [s + c for s, c in zip(POISON_STARTS, POISON_CHUNKS)]
+    tables, NB, owned = _poisoned_layout(lengths, bs, pad)
+    k = _arena_pair(cuda, (NB, bs, KVH, hd), dtype, owned)
+    v = _arena_pair(cuda, (NB, bs, KVH, hd), dtype, owned)
+    st = torch.tensor(POISON_STARTS, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qp = torch.randn((S, 64, KVH * G, hd), generator=cuda, device="cuda") \
+        .to(dtype)
+    runs = []
+    for i in range(2):
+        with dispatch.use(execute="kernel"):
+            runs.append((ops.paged_prefill_attention(qp, k[i], v[i], tables,
+                                                     st, lens),))
+    _finite_and_bitwise(*runs)
+
+    # the prefix phase: 24 shared pages padded to 32, lanes masked to
+    # 0-24 pages and to rows inside a page
+    P, pw = 24, 32
+    pages = torch.arange(1, P + 1, dtype=torch.int32, device="cuda")
+    pad_ids = torch.full((pw - P,), P if pad == "last" else 0,
+                         dtype=torch.int32, device="cuda")
+    pages = torch.cat([pages, pad_ids])
+    plens = torch.tensor([P * bs, 0, 1, 17, 100, 20 * bs, 383, P * bs],
+                         dtype=torch.int32, device="cuda")
+    k = _arena_pair(cuda, (P + 2, bs, KVH, hd), dtype, list(range(1, P + 1)))
+    v = _arena_pair(cuda, (P + 2, bs, KVH, hd), dtype, list(range(1, P + 1)))
+    runs = [paged_prefix_cuda(q, k[i], v[i], pages, plens, scale=scale)
+            for i in range(2)]
+    _finite_and_bitwise(*runs)
+
+
+@pytest.mark.parametrize("pad", ["last", "zero"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_kernels_ignore_a_poisoned_arena(cuda, dtype, pad):
+    """The MLA decode and prefill kernels at phase 3's deepseek widths (128
+    heads, r = 512, rd = 64, pages of 16) over a poisoned latent arena:
+    finite outputs, bitwise those over an arena of zeros."""
+    H, r, rd, bs, qk = 128, 512, 64, 16, 192
+    S = len(POISON_DEC)
+    tables, NB, owned = _poisoned_layout(POISON_DEC, bs, pad)
+    ckv = _arena_pair(cuda, (NB, bs, r), dtype, owned)
+    kr = _arena_pair(cuda, (NB, bs, rd), dtype, owned)
+    lens = torch.tensor(POISON_DEC, dtype=torch.int32, device="cuda")
+    qa = torch.randn((S, H, r), generator=cuda, device="cuda").to(dtype)
+    qr = torch.randn((S, H, rd), generator=cuda, device="cuda").to(dtype)
+    runs = []
+    for i in range(2):
+        with dispatch.use(execute="kernel"):
+            runs.append((ops.mla_paged_attention(qa, qr, ckv[i], kr[i],
+                                                 tables, lens, qk_dim=qk),))
+    _finite_and_bitwise(*runs)
+
+    lengths = [s + c for s, c in zip(POISON_STARTS, POISON_CHUNKS)]
+    tables, NB, owned = _poisoned_layout(lengths, bs, pad)
+    ckv = _arena_pair(cuda, (NB, bs, r), dtype, owned)
+    kr = _arena_pair(cuda, (NB, bs, rd), dtype, owned)
+    st = torch.tensor(POISON_STARTS, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qa = torch.randn((S, 64, H, r), generator=cuda, device="cuda").to(dtype)
+    qr = torch.randn((S, 64, H, rd), generator=cuda, device="cuda").to(dtype)
+    runs = []
+    for i in range(2):
+        with dispatch.use(execute="kernel"):
+            runs.append((ops.mla_paged_prefill_attention(
+                qa, qr, ckv[i], kr[i], tables, st, lens, qk_dim=qk),))
+    _finite_and_bitwise(*runs)

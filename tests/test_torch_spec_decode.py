@@ -14,9 +14,10 @@ the verify scope's recommendations exact.  The reference is pinned to
 its XLA twins (``execute="xla"``, the paged XLA route it takes off TPU);
 the port runs its plain versions, as it does for CPU tensors.
 
-The edge cases run without the reference's ``sanitize``, which the port
-does not have yet (its engine audits the pools at the end of every run
-instead).
+The edge cases run without the reference's ``sanitize`` (the port's
+engine audits the pools at the end of every run anyway);
+``test_torch_sanitizer.py`` and ``test_torch_faults.py`` run the spec
+path under it.
 """
 
 import subprocess
