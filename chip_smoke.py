@@ -161,6 +161,29 @@ Phases (any failure exits non-zero):
    finishes: all 16 requests emit phase 4's tokens bitwise; it prints the
    snapshot's bytes and the seconds to save and to restore, and deletes
    the snapshots.
+13. every attention family on every KV layout, bf16, random weights from
+   seeds, at published widths: (a) qwen2-moe-a2.7b (24 layers, q/k/v
+   biases, 60 -> 64 experts top-4 plus 4 shared) and (b) gemma-2b (18
+   layers, MQA at hd 256), no depth cut, 12 requests of 64-512 tokens,
+   paged with chunks of 64; (c) deepseek-coder-33b and command-r-plus-104b
+   cut to 2 layers (the cut printed), 4 requests; (d) phase 4's weights
+   and trace on the dense layout with bucketed prefill (the blockwise
+   attention route) and paged with the buckets scattered into pages;
+   (e) seamless-m4t-medium (12 + 12 layers, the optimized profile: the
+   encoder and a prefill's cross attention on the flash forward), 8
+   requests with seeded source features at src_len 128; (f) internvl2-76b
+   cut to 2 layers, 4 requests with seeded patch embeddings.  On every
+   path: every request finishes, the pool ends leak-free, each paged
+   kernel launches once a layer and model call where the layout runs it,
+   the flash forward once an encoder and a cross-attention layer a
+   prefill, every GEMM site but the f32 router runs on the RSA kernel with
+   each expert bank one launch, no plain version runs, and one prefill
+   and one decode step are within 5% of the plain versions' largest logit
+   (MoE routing replayed; both decode the plain run's tokens).  (d)
+   prints how many requests emit phase 4's tokens (not gated), a dense
+   decode call's wall and the blockwise route's device time a layer; each
+   path's two most launched GEMM shapes are held against the plain
+   version and timed.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -178,7 +201,11 @@ under one query and the batch every forced plan bitwise the plan's, and
 each query alone bitwise its row of the batch) beside the host twin's
 time per query, and the prefill kernel at phase 10's verify shape (S = 8,
 C = 5, chunks 1-5 at kv offsets off the page boundaries), timed beside
-its bound and the SDPA yardstick.
+its bound and the SDPA yardstick, and phase 13's shapes: qwen2-moe's
+expert banks, the decode and prefill kernels at gemma-2b's (G = 8, hd
+256) and qwen2-moe's (G = 1, hd 128) widths and the bidirectional flash
+forward at seamless-m4t-medium's encoder shape, each run to run bitwise,
+timed beside its bound and yardstick.
 
 After phase 9 one line per mode gives the worst kernel / library-call
 factor over the run's timed GEMM shapes, with its shape.  The lines
@@ -238,6 +265,9 @@ SG_SAMPLES, SG_EPOCHS = 400_000, 20
 SG_SMALL_SAMPLES, SG_SMALL_EPOCHS = 60_000, 8
 SG_GEMMS = ((512, 512, 512, "float32"), (128, 8000, 128, "float32"),
             (8, 2048, 2048, "bfloat16"))
+# phase 13: the paths' slots and the encdec source length
+P13_SLOTS, P13_SRC = 8, 128
+P13_KEYS = {}     # each phase 13 path's GEMM launches by (.., M, K, N, mode)
 
 
 def log(*a):
@@ -928,11 +958,13 @@ def bank_cases(dcfg):
     return out
 
 
-def check_banks(torch, report, timer, dcfg, dispatcher):
+def check_banks(torch, report, timer, dcfg, dispatcher, cases=None,
+                path="6"):
     """The bank GEMM (one launch per bank) against its plain version at
-    every bank shape of phase 6, in every mode, bf16 (timed, with
-    ``torch.bmm`` as the library yardstick) and f32 at one expert and one
-    head shape; tolerance as the 2-D GEMM's, per bank member."""
+    every bank shape of phase 6 (or the given ``cases`` of phase ``path``),
+    in every mode, bf16 (timed, with ``torch.bmm`` as the library
+    yardstick) and, for phase 6, f32 at one expert and one head shape;
+    tolerance as the 2-D GEMM's, per bank member."""
     from repro_torch.core.hw import DATAFLOW_NAMES
     from repro_torch.dispatch.executor import _clamped_blocks
     from repro_torch.kernels import ops
@@ -940,10 +972,14 @@ def check_banks(torch, report, timer, dcfg, dispatcher):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     ok = True
-    cases = [c + (torch.bfloat16, True) for c in bank_cases(dcfg)]
-    ex, hd = cases[0], cases[-4]
-    cases += [("f32 expert (E=16)", 16) + ex[2:6] + (torch.float32, False),
-              ("f32 q_absorb",) + hd[1:6] + (torch.float32, False)]
+    if cases is None:
+        cases = [c + (torch.bfloat16, True) for c in bank_cases(dcfg)]
+        ex, hd = cases[0], cases[-4]
+        cases += [("f32 expert (E=16)", 16) + ex[2:6]
+                  + (torch.float32, False),
+                  ("f32 q_absorb",) + hd[1:6] + (torch.float32, False)]
+    else:
+        cases = [c + (torch.bfloat16, True) for c in cases]
     for site, E, M, K, N, view, dt, timed in cases:
         a = torch.randn((E, M, K), generator=gen, device="cuda").to(dt)
         if view:                   # W (N, E*K) read as (E, K, N), in place
@@ -974,8 +1010,8 @@ def check_banks(torch, report, timer, dcfg, dispatcher):
                 tol += (chunks + 1) * BF16_EPS * plain.abs().max().item()
             good = err <= tol and math.isfinite(err)
             ok &= good
-            rec = {"site": site, "E": E, "M": M, "K": K, "N": N,
-                   "dtype": str(dt).split(".")[-1], "head_view": view,
+            rec = {"site": site, "path": path, "E": E, "M": M, "K": K,
+                   "N": N, "dtype": str(dt).split(".")[-1], "head_view": view,
                    "bk": bk, "mode": DATAFLOW_NAMES[mode],
                    "recommended": timed and mode == cfg_t.mode,
                    "max_abs_err": err, "tol": tol, "ok": good}
@@ -999,7 +1035,7 @@ def check_banks(torch, report, timer, dcfg, dispatcher):
                 f"{tol:.3e}) {'ok' if good else 'FAIL'}"
                 + (f"  kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f}"
                    f" ms bmm {library_ms:.4f} ms bound {rec['bound_ms']:.4f}"
-                   f" ms  [phase 6 path]" if rec["recommended"] else ""))
+                   f" ms  [phase {path} path]" if rec["recommended"] else ""))
         ok &= psum_bitwise(torch, lambda mode: ops.rsa_gemm(
             a, b, block_k=bk, mode=mode), f"bank {site} {E}x({M}x{K}x{N})",
             rec)
@@ -1802,6 +1838,161 @@ def adaptnetx_plan_str(p) -> str:
             f"classes, {p.groups} CTAs a tile x {p.chunks} chunks of 32 "
             f"units, combine {p.combine}, {p.stages} stages = {p.ctas} CTAs,"
             f" {p.smem} B shared")
+
+
+def p13_paged_case(torch, gen, H, KVH, hd, lengths, starts, chunks, sms,
+                   timer, tag):
+    """The decode and prefill kernels at one arch's serving widths (bf16):
+    decode over ``lengths``, a 64-row chunk prefill at ``starts`` /
+    ``chunks``; each against its plain version, twice for run-to-run
+    bits, timed beside its plain version, its bound and SDPA over K/V
+    gathered beforehand (a yardstick: no PyTorch call reads a page
+    table)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attn import (
+        _attn_plan, _decode_plan, paged_attention_plain,
+        paged_prefill_attention_plain)
+    from repro_torch.launch.bench_decode import (gathered_sdpa,
+                                                 gathered_sdpa_prefill)
+    bs, G, scale = 16, H // KVH, 1.0 / math.sqrt(hd)
+    tol = 5 * 2 * BF16_EPS
+    recs = []
+    ka, va, tables, lens = paged_inputs(torch, gen, len(lengths), KVH, G,
+                                        hd, bs, lengths, torch.bfloat16)
+    q = torch.randn((len(lengths), H, hd), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    a = (q, ka, va, tables, lens)
+    rows = sum(-(-n // bs) * bs for n in lengths)
+    bound, by = attn_bound_ms(rows, KVH, hd, 2 * q.numel() * 2,
+                              2.0 * H * 2 * hd * sum(lengths))
+    plan = _decode_plan(len(lengths), KVH, G, tables.shape[1], bs, hd, hd, 2,
+                        sms)
+    recs.append(("paged_decode", a, lambda *x: ops.paged_attention(*x),
+                 lambda *x: paged_attention_plain(*x, scale=scale),
+                 gathered_sdpa(*a, scale), bound, by,
+                 f"{plan.splits} splits x {plan.units} = {plan.ctas} CTAs",
+                 {"lengths": lengths}))
+    plens = [s + c for s, c in zip(starts, chunks)]
+    ka, va, tables, lens = paged_inputs(torch, gen, len(plens), KVH, G, hd,
+                                        bs, plens, torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    q = torch.randn((len(plens), 64, H, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    a = (q, ka, va, tables, st, lens)
+    rows = sum(-(-n // bs) * bs for n in plens)
+    pairs = sum(min(s + r + 1, s + c) for s, c in zip(starts, chunks)
+                for r in range(c))
+    bound, by = attn_bound_ms(rows, KVH, hd, 2 * q.numel() * 2,
+                              2.0 * H * 2 * hd * pairs)
+    plan = _attn_plan(len(plens), 64 * G, KVH, tables.shape[1], bs, hd, hd,
+                      2, sms, prefill=True)
+    recs.append(("paged_prefill", a,
+                 lambda *x: ops.paged_prefill_attention(*x),
+                 lambda *x: paged_prefill_attention_plain(*x, scale=scale),
+                 gathered_sdpa_prefill(*a, scale), bound, by,
+                 plan_text(plan._asdict()),
+                 {"starts": starts, "chunks": chunks}))
+    out, ok = [], True
+    for kernel, a, run, plain_fn, sdpa, bound, by, plan, shape in recs:
+        got, again, want = run(*a), run(*a), plain_fn(*a)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        bitwise = bool(torch.equal(got, again))
+        good = err <= tol and math.isfinite(err) and bitwise
+        ok &= good
+        rec = {"kernel": kernel, "case": tag, "dtype": "bfloat16", "H": H,
+               "KVH": KVH, "hd": hd, **shape, "max_abs_err": err,
+               "tol": tol, "run_to_run_bitwise": bitwise, "ok": good,
+               "plan": plan, "ms": timer(lambda: run(*a)),
+               "plain_ms": timer(lambda: plain_fn(*a)),
+               "sdpa_gathered_ms": timer(sdpa), "library_ms": None,
+               "bound_ms": bound, "bound_by": by}
+        out.append(rec)
+        log(f"  {kernel:<13} bf16 {tag} (H={H}/{KVH}, hd={hd}): max_abs_err "
+            f"{err:.3e} (tol {tol:.1e}), run to run bitwise {bitwise} "
+            f"{'ok' if good else 'FAIL'}; plan {plan}  kernel "
+            f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
+            f"{bound:.5f} ms ({by}), SDPA over K/V gathered beforehand "
+            f"{rec['sdpa_gathered_ms']:.4f} ms")
+    return ok, out
+
+
+def p13_bank_cases():
+    """qwen2-moe-a2.7b's expert banks on phase 13a's path: 64 padded
+    experts, M = 8 slots x the row capacity of a decode row (4) and of a
+    64-token chunk (6), gate / up (2048 -> 1408) and down (1408 -> 2048)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.moe import padded_num_experts, row_capacity
+    cfg = get_arch("qwen2-moe-a2.7b")
+    E, d, f = padded_num_experts(cfg), cfg.d_model, cfg.moe.d_ff_expert
+    out = []
+    for M in sorted({P13_SLOTS * row_capacity(1, cfg),
+                     P13_SLOTS * row_capacity(64, cfg)}):
+        out += [("qwen2 moe.expert.gate/up", E, M, d, f, False),
+                ("qwen2 moe.expert.down", E, M, f, d, False)]
+    return out
+
+
+def check_p13_kernels(torch, report, timer, dispatcher):
+    """Phase 13's kernel shapes: the bank GEMM at qwen2-moe's expert
+    banks; the decode and prefill kernels at gemma-2b's (G = 8, hd 256)
+    and qwen2-moe's (G = 1, hd 128) serving widths (8 lanes, lengths and
+    chunks off the page boundaries up to phase 13's 528 rows); the flash
+    forward, bidirectional, at seamless-m4t-medium's encoder shape (B = 1,
+    S = 128, 16 heads x 64, bf16) against its plain version (2e-2, the
+    reference's bf16 tolerance) and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import flash_fwd_cuda, flash_fwd_plain
+    ok = check_banks(torch, report, timer, None, dispatcher,
+                     cases=p13_bank_cases(), path="13a")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = [64, 77, 130, 255, 300, 401, 512, 528]
+    starts = [0, 64, 128, 192, 256, 17, 333, 448]
+    chunks = [64, 64, 40, 64, 17, 64, 1, 64]
+    for tag, H, KVH, hd in (("gemma-2b", 8, 1, 256),
+                            ("qwen2-moe-a2.7b", 16, 16, 128)):
+        good, recs = p13_paged_case(torch, gen, H, KVH, hd, lengths, starts,
+                                    chunks, sms, timer, tag)
+        ok &= good
+        report["paged"] += recs
+    B, S, H, hd = 1, P13_SRC, 16, 64
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(hd)
+    o, _ = flash_fwd_cuda(q, k, v, causal=False, scale=scale)
+    o2, _ = flash_fwd_cuda(q, k, v, causal=False, scale=scale)
+    po, _ = flash_fwd_plain(q, k, v, causal=False, scale=scale, bq=S, bk=S)
+    torch.cuda.synchronize()
+    diff = (o.float() - po.float()).abs()
+    err = diff.max().item()
+    bitwise = bool(torch.equal(o, o2))
+    good = bool((diff <= 2e-2 + 2e-2 * po.float().abs()).all()) and \
+        bitwise and math.isfinite(err)
+    ok &= good
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    es = q.element_size()
+    b_ms, b_by = bound_ms(4 * q.numel() * es + 4 * B * H * S,
+                          4 * hd * B * H * S * S, PEAK_BF16_FLOPS)
+    rec = {"case": "seamless encoder", "B": B, "Sq": S, "Skv": S, "H": H,
+           "KVH": H, "hd": hd, "causal": False, "dtype": "bfloat16",
+           "max_abs_err": err, "tol": (2e-2, 2e-2),
+           "run_to_run_bitwise": bitwise, "ok": good,
+           "ms": timer(lambda: flash_fwd_cuda(q, k, v, causal=False,
+                                              scale=scale)),
+           "plain_ms": timer(lambda: flash_fwd_plain(
+               q, k, v, causal=False, scale=scale, bq=S, bk=S)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    report["p13_flash"] = rec
+    log(f"  flash_fwd bf16 seamless encoder (B={B}, S={S}, H={H}, hd={hd}, "
+        f"bidirectional): max_abs_err {err:.3e} (tol 2e-2 + 2e-2 rel), run "
+        f"to run bitwise {bitwise} {'ok' if good else 'FAIL'}  kernel "
+        f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
+        f"{rec['library_ms']:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -3991,6 +4182,415 @@ def obs_path(torch, report):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 13: every attention family on every KV layout
+# ---------------------------------------------------------------------------
+
+def p13_cfg(arch, layers=None, optimized=False):
+    """A registry arch at its published widths (bf16), optionally cut in
+    depth."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(arch, optimized=optimized)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def p13_requests(cfg, n, lo, hi, gen, seed):
+    """n requests of lo-hi random tokens from ``seed``; a vlm request
+    carries seeded patch embeddings, an encdec request seeded source
+    features of ``P13_SRC`` frames."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    fe = cfg.frontend
+    out = []
+    for i in range(n):
+        p = rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+        extras = None
+        if cfg.family == "vlm":
+            extras = {"patch_embeds": rng.standard_normal(
+                (1, fe.num_tokens, fe.feature_dim)).astype(np.float32)}
+        elif cfg.family == "encdec":
+            extras = {"src_features": rng.standard_normal(
+                (1, P13_SRC, fe.feature_dim)).astype(np.float32)}
+        out.append(Request(rid=f"req-{i}", prompt=p.astype(np.int32),
+                           max_new_tokens=gen, extras=extras))
+    return out
+
+
+def p13_serve(torch, key, cfg, reqs, cut=None, **ecfg):
+    """Serve ``reqs`` on the card and hold the path to phase 13's gates:
+    every request done, the pool leak-free, 0 plain calls, every plan line
+    on the RSA kernel but the f32 router, each expert bank one launch a
+    layer and model call, the paged decode / prefill kernels once a layer
+    and model call where the layout runs them (none on the dense layout
+    or in a bucketed prefill), the flash forward once an encoder layer and
+    a decoder layer's cross-attention a prefill under the optimized
+    profile.  Returns (ok, record, engine, launches by GEMM key)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.models.moe import padded_num_experts
+    from repro_torch.serving import EngineConfig, ServingEngine
+    ecfg = dict(dict(num_slots=P13_SLOTS, block_size=16, temperature=0.0,
+                     seed=0, clock="wall", execute="auto"), **ecfg)
+    ecfg.setdefault("max_len", max(r.prompt_len for r in reqs)
+                    + reqs[0].max_new_tokens + 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine = ServingEngine(cfg, EngineConfig(**ecfg), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(engine.params)) / 1e9
+    ops.reset_counts()
+    t0 = time.time()
+    outputs = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    keys = dict(rsa_gemm_cuda.launches_by_key)
+    L, V = cfg.num_layers, cfg.vocab_size
+    engine.pool.check()
+    done = [r for r in engine.requests.values() if r.outcome == "done"]
+    leak_free = engine.pool.num_free == engine.pool.num_blocks
+    D = engine.metrics.decode_steps
+    calls = sum(n for k, n in keys.items() if len(k) == 4 and k[2] == V)
+    P = calls - D
+    paged = engine.kv_layout == "paged"
+    want = {"paged_decode": L * D if paged else 0,
+            "paged_prefill": (L * P if paged and engine.prefill_chunk
+                              else 0),
+            "flash_fwd": ((cfg.encoder_layers + L) * P
+                          if cfg.family == "encdec"
+                          and cfg.attn_impl == "pallas" else 0)}
+    banks = {k: n for k, n in keys.items() if len(k) == 5}
+    expert = None
+    if cfg.moe is not None:
+        E = padded_num_experts(cfg)
+        expert = sum(n for k, n in banks.items() if k[0] == E)
+        want["expert banks"] = 3 * (L - cfg.first_dense_layers) * calls
+    got = {k: counts[k] for k in ("paged_decode", "paged_prefill",
+                                  "flash_fwd")}
+    if expert is not None:
+        got["expert banks"] = expert
+    plan_ok = all(("@kernel" in desc) == (site != "moe.router")
+                  for site, desc in engine.gemm_plan.items())
+    ok = (len(done) == len(reqs) and leak_free and got == want
+          and counts["plain_calls"] == 0 and counts["rsa_gemm"] > 0
+          and D > 0 and P > 0 and plan_ok
+          and all(len(v) == r.max_new_tokens
+                  for r, v in zip(reqs, outputs.values())))
+    s = engine.summary()
+    rec = {"arch": cfg.name, "num_layers": L, "cut": cut, "vocab": V,
+           "kv_layout": engine.kv_layout,
+           "prefill_chunk": engine.prefill_chunk,
+           "attn_impl": cfg.attn_impl, "weights_gb": weights_gb,
+           "init_s": init_s, "requests": len(reqs), "completed": len(done),
+           "wall_s": wall, "prefill_calls": P, "decode_steps": D,
+           "counts": counts, "want": want, "got": got, "plan_ok": plan_ok,
+           "pool_leak_free": leak_free, "decode_tok_s": s["decode_tok_s"],
+           "ttft_p50_s": s["ttft_p50_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "gemm_launches_by_shape": {
+               "x".join(str(v) for v in k[:-1]) + f":{k[-1]}": n
+               for k, n in keys.items()},
+           "tokens": {rid: v.tolist() for rid, v in outputs.items()}}
+    layout = (f"{engine.kv_layout}, "
+              + (f"chunks of {engine.prefill_chunk}" if engine.prefill_chunk
+                 else "bucketed prefill"))
+    if cut:
+        log(f"  {key}: depth cut {cut}")
+    log(f"  {key}: {cfg.name} {weights_gb:.2f} GB bf16 ({layout}, attn_impl "
+        f"{cfg.attn_impl}); served {len(done)}/{len(reqs)} requests in "
+        f"{wall:.2f} s ({P} prefill calls, {D} decode steps), pool "
+        f"leak-free {leak_free}, plain_calls {counts['plain_calls']}, every "
+        f"plan line @kernel but the router {plan_ok}; launches "
+        + ", ".join(f"{k} {got[k]} (expected {want[k]})" for k in want)
+        + f", rsa_gemm {counts['rsa_gemm']}; decode {s['decode_tok_s']:.1f} "
+        f"tok/s, ttft p50 {s['ttft_p50_s']:.3f} s, peak "
+        f"{rec['peak_mem_gb']:.1f} GB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        log(f"    {key} FAIL: completed {len(done)}, counts {counts}, plan "
+            f"{engine.gemm_plan}")
+    return ok, rec, engine, keys
+
+
+def p13_inputs(torch, cfg, rng, S, n):
+    """One step's inputs for S lanes of n tokens, on the card (vlm patch
+    embeddings and encdec source features included)."""
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (S, n)), device="cuda")}
+    fe, cdt = cfg.frontend, torch.bfloat16
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (S, fe.num_tokens, fe.feature_dim)), device="cuda").to(cdt)
+    elif cfg.family == "encdec":
+        batch["src_features"] = torch.as_tensor(rng.standard_normal(
+            (S, P13_SRC, fe.feature_dim)), device="cuda").to(cdt)
+    return batch
+
+
+def p13_step(torch, engine, kind, batch, S, nxt=None):
+    """One prefill and one decode step of ``engine``'s model on ``batch``
+    under the ambient execution mode, from fresh KV storage.  ``kind``:
+    "chunked" (paged_prefill_step, 64 rows a lane, ragged), "bucketed" (a
+    padded batch prefill through the dense cache, scattered into pages
+    lane by lane, then paged_decode_step) or "dense" (prefill and
+    decode_step on the dense cache).  The decode step takes ``nxt`` (S,
+    1), or the prefill's greedy tokens.  Returns ((S, V) prefill logits,
+    (S, V) decode logits, the decoded tokens)."""
+    from repro_torch.models.attention import KVCache
+    model, params, cfg = engine.model, engine.params, engine.cfg
+    bs = 16
+    toks = batch["tokens"]
+    C = toks.shape[1]
+    length = C - 7                            # 7 rows of bucket padding
+    fe_rows = cfg.frontend.num_tokens if cfg.family == "vlm" else 0
+    rows = -(-(C + fe_rows + 1) // bs) * bs
+    W = rows // bs
+    tables = torch.arange(S * W, dtype=torch.int32,
+                          device="cuda").reshape(S, W)
+    ones = torch.ones(S, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        if kind == "chunked":
+            chunk = torch.tensor([64, 64, 40, 17, 64, 1, 33, 64][:S],
+                                 dtype=torch.int32, device="cuda")
+            arena = model.init_paged_arena(S * W + 1, bs)
+            kv0 = torch.zeros(S, dtype=torch.int32, device="cuda")
+            pl, _ = model.paged_prefill_step(params, toks, arena, tables,
+                                             kv0, chunk)
+            nxt = pl.argmax(-1)[:, None] if nxt is None else nxt
+            dl, _ = model.paged_decode_step(params, nxt, arena, tables,
+                                            chunk, ones)
+            return pl, dl, nxt
+        src = P13_SRC if cfg.family == "encdec" else 0
+        cache = model.init_cache(S, rows, src)
+        pl, cache = model.prefill(params, batch, cache, length)
+        nxt = pl.argmax(-1)[:, None] if nxt is None else nxt
+        if kind == "dense":
+            dl, _ = model.decode_step(params, nxt, cache)
+            return pl, dl, nxt
+        arena = model.init_paged_arena(S * W + 1, bs)
+        lc = cache["layers"]
+        for b in range(S):
+            model.paged_prefill_write(
+                arena, KVCache(lc.k[:, b:b + 1], lc.v[:, b:b + 1],
+                               lc.length[:, b:b + 1]), tables[b])
+        state = {k: cache[k] for k in ("cross_k", "cross_v") if k in cache}
+        kv = torch.full((S,), length + fe_rows, dtype=torch.int32,
+                        device="cuda")
+        dl, _ = model.paged_decode_step(params, nxt, arena, tables, kv, ones,
+                                        state)
+        return pl, dl, nxt
+
+
+def p13_logits(torch, key, engine, kind, S=4, n=64):
+    """One prefill and one decode step on the kernels against the same
+    steps under ``execute="torch"`` (the plain versions), bf16: 5% of the
+    plain logits' largest magnitude, as phases 4-6; both decode the plain
+    run's greedy tokens.  A MoE model replays the plain run's expert
+    choices (RoutingReplay), as phase 6."""
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.models import moe
+    batch = p13_inputs(torch, engine.cfg, np.random.default_rng(7), S, n)
+    replay = RoutingReplay(moe) if engine.cfg.moe is not None else None
+    runs = (("record", "torch"), ("replay", "kernel")) if replay else \
+        (("plain", "torch"), ("kernel", "kernel"))
+    out, nxt = {}, None
+    if replay:
+        moe.route = replay
+    try:
+        for mode, execute in runs:
+            if replay:
+                replay.mode = mode
+            with dispatch.use(execute=execute):
+                *out[execute], nxt = p13_step(torch, engine, kind, batch, S,
+                                              nxt)
+    finally:
+        if replay:
+            moe.route = replay.route
+    torch.cuda.synchronize()
+    ok, rec = True, {}
+    for i, name in ((0, "prefill"), (1, "decode")):
+        ref = out["torch"][i]
+        err = (out["kernel"][i] - ref).abs().max().item()
+        tol = 0.05 * ref.abs().max().item()
+        agree = (out["kernel"][i].argmax(-1) == ref.argmax(-1)).float() \
+            .mean().item()
+        good = err <= tol and math.isfinite(err)
+        ok &= good
+        rec.update({f"{name}_logits_max_abs_err": err,
+                    f"{name}_logits_tol": tol,
+                    f"{name}_greedy_agreement": agree})
+        log(f"    {key} {name} step logits ({kind}), kernels vs plain"
+            f"{' (same routing)' if replay else ''}: max_abs_err {err:.4e} "
+            f"(tol {tol:.4e}) {'ok' if good else 'FAIL'}; greedy agreement "
+            f"{agree:.3f}")
+    return ok, rec
+
+
+def p13_path(torch, report, key, cfg, reqs, kind, cut=None, S=4, **ecfg):
+    ok, rec, engine, keys = p13_serve(torch, key, cfg, reqs, cut=cut, **ecfg)
+    good, lrec = p13_logits(torch, key, engine, kind, S=S)
+    rec.update(lrec)
+    report["p13"][key] = rec
+    P13_KEYS[key] = keys
+    del engine
+    torch.cuda.empty_cache()
+    return ok and good
+
+
+def p13_dense_decode_time(torch, report, engine, timer):
+    """13d (i): one dense decode call's wall time (host clock to the
+    device synchronisation) beside the blockwise route's device time for
+    one layer's attention at that call's shape (8 lanes over the slot
+    caches, each lane at its own length)."""
+    from repro_torch.models.attention import multihead_attention
+    cfg, c = engine.cfg, engine._cache
+    S, T = c["layers"].k.shape[1], c["layers"].k.shape[2]
+    lens = torch.tensor([64, 130, 200, 280, 350, 420, 500, T - 1],
+                        device="cuda")[:S]
+    q = torch.randn((S, 1, cfg.num_heads, cfg.head_dim), device="cuda") \
+        .to(torch.bfloat16)
+    k, v = c["layers"].k[0], c["layers"].v[0]
+    attn_ms = timer(lambda: multihead_attention(
+        q, k, v, causal=True, q_offset=lens - 1, kv_len=lens,
+        chunk=cfg.attn_chunk))
+    toks = torch.zeros((S, 1), dtype=torch.int64, device="cuda")
+    walls = []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            engine.model.decode_step(engine.params, toks, c)
+            torch.cuda.synchronize()
+            walls.append((time.time() - t0) * 1e3)
+    rec = {"decode_call_wall_ms": statistics.median(walls),
+           "blockwise_attention_ms_a_layer": attn_ms,
+           "layers": cfg.num_layers, "lanes": S, "cache_rows": T}
+    log(f"    13d dense decode call: wall {rec['decode_call_wall_ms']:.2f} ms "
+        f"(median of 5); the blockwise route's attention "
+        f"{attn_ms:.4f} ms a layer on the card (x{cfg.num_layers} layers = "
+        f"{attn_ms * cfg.num_layers:.3f} ms) over {S} lanes x {T} cache rows")
+    return rec
+
+
+def p13_llama(torch, report, timer):
+    """13d: phase 4's weights and trace on the dense layout with bucketed
+    prefill, then paged with buckets scattered into pages."""
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    base = report["main_path"]["tokens"]
+    ok = True
+    for tag, layout in (("13d(i)", "dense"), ("13d(ii)", "paged")):
+        ops.reset_counts()
+        t0 = time.time()
+        outputs, engine = serve_continuous(
+            arch="llama3.2-1b", preset="full", num_requests=16, num_slots=8,
+            prompt_len=512, min_prompt_len=64, gen=32, temperature=0.0,
+            top_k=0, seed=0, execute="auto", kv_layout=layout,
+            prefill_chunk=None, block_size=16, clock="wall", device="cuda",
+            log=False)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = ops.launch_counts()
+        keys = dict(rsa_gemm_cuda.launches_by_key)
+        L, V = engine.cfg.num_layers, engine.cfg.vocab_size
+        D = engine.metrics.decode_steps
+        calls = sum(n for k, n in keys.items() if len(k) == 4 and k[2] == V)
+        engine.pool.check()
+        done = sum(r.outcome == "done" for r in engine.requests.values())
+        leak_free = engine.pool.num_free == engine.pool.num_blocks
+        want = L * D if layout == "paged" else 0
+        plan_ok = all("@kernel" in d for d in engine.gemm_plan.values())
+        same = sum(outputs[rid].tolist() == base[rid] for rid in base)
+        good = (done == 16 and leak_free and counts["plain_calls"] == 0
+                and counts["paged_decode"] == want and plan_ok
+                and counts["paged_prefill"] == 0 and calls > D > 0)
+        ok &= good
+        rec = {"kv_layout": layout, "prefill_chunk": None, "wall_s": wall,
+               "vocab": V,
+               "completed": done, "pool_leak_free": leak_free,
+               "prefill_calls": calls - D, "decode_steps": D,
+               "counts": counts, "same_tokens_as_phase4": same,
+               "decode_tok_s": engine.summary()["decode_tok_s"],
+               "gemm_launches_by_shape": {
+                   "x".join(str(v) for v in k[:-1]) + f":{k[-1]}": n
+                   for k, n in keys.items()}}
+        log(f"  {tag}: llama3.2-1b {layout} layout, bucketed prefill: served "
+            f"{done}/16 in {wall:.2f} s ({calls - D} prefill calls, {D} "
+            f"decode steps), leak-free {leak_free}, plain_calls "
+            f"{counts['plain_calls']}, paged_decode {counts['paged_decode']}"
+            f" (expected {want}), paged_prefill {counts['paged_prefill']} "
+            f"(expected 0), rsa_gemm {counts['rsa_gemm']}, every plan line "
+            f"@kernel {plan_ok}; {same}/16 requests emit phase 4's tokens "
+            f"(not gated: the route's attention sums in another order in "
+            f"bf16); decode {rec['decode_tok_s']:.1f} tok/s "
+            f"{'ok' if good else 'FAIL'}")
+        if layout == "dense":
+            rec.update(p13_dense_decode_time(torch, report, engine, timer))
+        g, lrec = p13_logits(torch, tag, engine,
+                             "dense" if layout == "dense" else "bucketed")
+        ok &= g
+        rec.update(lrec)
+        report["p13"][tag] = rec
+        P13_KEYS[tag] = keys
+        del engine
+        torch.cuda.empty_cache()
+    return ok
+
+
+def p13_all(torch, report, timer):
+    """Phase 13's six paths; each model is freed before the next."""
+    report["p13"] = {}
+    ok = True
+    t = time.time()
+    cfg = p13_cfg("qwen2-moe-a2.7b")
+    ok &= p13_path(torch, report, "13a", cfg, p13_requests(
+        cfg, 12, 64, 512, 16, seed=0), "chunked", S=8, prefill_chunk=64)
+    cfg = p13_cfg("gemma-2b")
+    ok &= p13_path(torch, report, "13b", cfg, p13_requests(
+        cfg, 12, 64, 512, 16, seed=0), "chunked", S=8, prefill_chunk=64)
+    for key, arch, full in (("13c deepseek-coder-33b", "deepseek-coder-33b",
+                             62),
+                            ("13c command-r-plus-104b",
+                             "command-r-plus-104b", 64)):
+        cfg = p13_cfg(arch, layers=2)
+        ok &= p13_path(torch, report, key, cfg, p13_requests(
+            cfg, 4, 64, 512, 16, seed=1), "chunked", cut=f"{full} -> 2",
+            num_slots=4, prefill_chunk=64)
+    ok &= p13_llama(torch, report, timer)
+    cfg = p13_cfg("seamless-m4t-medium", optimized=True)
+    ok &= p13_path(torch, report, "13e", cfg, p13_requests(
+        cfg, 8, 32, 128, 16, seed=2), "bucketed", src_len=P13_SRC,
+        prefill_chunk=None)
+    cfg = p13_cfg("internvl2-76b", layers=2)
+    ok &= p13_path(torch, report, "13f", cfg, p13_requests(
+        cfg, 4, 32, 128, 16, seed=3), "bucketed", cut="80 -> 2",
+        num_slots=4, prefill_chunk=None)
+    report["phase13_s"] = time.time() - t
+    return ok
+
+
+def p13_gemms(torch, report, timer, dispatcher):
+    """Each phase 13 path's two most launched 2-D GEMM shapes against the
+    plain version, timed beside ``torch.matmul`` and the bound (the kernel
+    table's phase 13 GEMM entries)."""
+    ok = True
+    report["p13_gemm"] = []
+    for key, keys in P13_KEYS.items():
+        top = sorted((k for k in keys if len(k) == 4),
+                     key=lambda k: -keys[k])[:2]
+        good, recs = check_gemm_keys(torch, timer, top, dispatcher,
+                                     report["p13"][key]["vocab"])
+        ok &= good
+        for rec in recs:
+            rec["path"] = key
+        report["p13_gemm"] += recs
+    return ok
+
+
 def gemm_entry(rec, name, launches):
     """A kernel-table entry of one timed GEMM shape: every mode from
     rsa_psum.cu, each against its own pallas_call."""
@@ -3999,6 +4599,53 @@ def gemm_entry(rec, name, launches):
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+
+P13_PAGED = {"gemma-2b": "13b", "qwen2-moe-a2.7b": "13a"}
+
+
+def p13_table(report):
+    """Phase 13's kernel-table entries: the decode and prefill kernels at
+    gemma-2b's and qwen2-moe's widths (launches of 13b / 13a), qwen2's
+    expert banks (13a), the bidirectional flash forward at seamless's
+    encoder shape (13e) and each path's two most launched GEMM shapes."""
+    out = []
+    p13, keys = report["p13"], P13_KEYS
+    for rec in report["paged"]:
+        path = P13_PAGED.get(rec.get("case"))
+        if path is None:
+            continue
+        out.append({
+            "name": f"{rec['kernel']}[{path} {rec['case']} S=8 G="
+                    f"{rec['H'] // rec['KVH']} hd={rec['hd']}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": PAGED_TPU[rec["kernel"]],
+            "launches": p13[path]["counts"][rec["kernel"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    for rec in report["bank"]:
+        if rec.get("recommended") and rec["path"] == "13a":
+            out.append(gemm_entry(
+                rec, f"rsa_gemm_bank[13a {rec['site']} {rec['E']}x("
+                     f"{rec['M']}x{rec['K']}x{rec['N']}) {rec['mode']}]",
+                keys["13a"].get(rec["key"], 0)))
+    f = report["p13_flash"]
+    out.append({
+        "name": f"flash_fwd[13e seamless encoder B={f['B']} S={f['Sq']} "
+                f"H={f['H']} hd={f['hd']} bidirectional bf16]",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": FLASH_TPU["flash_fwd"],
+        "launches": p13["13e"]["counts"]["flash_fwd"],
+        "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+        "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+    for rec in report["p13_gemm"]:
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[{rec['path']} {rec['M']}x{rec['K']}x{rec['N']} "
+                 f"{rec['mode']}]", keys[rec["path"]].get(rec["key"], 0)))
+    return out
 
 
 def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
@@ -4107,7 +4754,7 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
             rec, f"rsa_gemm[deepseek {rec['M']}x{rec['K']}x{rec['N']} "
                  f"{rec['mode']}]", ds_keys.get(rec["key"], 0)))
     for rec in report["bank"]:
-        if rec.get("recommended"):
+        if rec.get("recommended") and rec["path"] == "6":
             out.append(gemm_entry(
                 rec, f"rsa_gemm_bank[{rec['site']} {rec['E']}x({rec['M']}x"
                      f"{rec['K']}x{rec['N']}) {rec['mode']}]",
@@ -4129,8 +4776,9 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                 rec, f"rsa_gemm[{rec['site']} {rec['M']}x{rec['K']}x"
                      f"{rec['N']} {rec['mode']}]",
                 gemm_keys.get(rec["key"], 0)))
+    out += p13_table(report)
     for rec in report["paged"]:
-        if "ms" not in rec:
+        if "ms" not in rec or rec.get("case") in P13_PAGED:
             continue
         out.append({
             "name": rec["kernel"], "route": "cuda",
@@ -4204,6 +4852,7 @@ def main() -> int:
         ok &= check_train_gemms(torch, report, cfg, dispatcher)
         ok &= check_wkv(torch, report, timer, get_arch("rwkv6-1.6b"))
         ok &= check_adaptnetx(torch, report, timer)
+        ok &= check_p13_kernels(torch, report, timer, dispatcher)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -4280,6 +4929,17 @@ def main() -> int:
     ok &= obs_path(torch, report)
     report["phase12_s"] = time.time() - t12
     log(f"  phase 12 took {report['phase12_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== 13. every attention family on every KV layout: (a) qwen2-moe-"
+        "a2.7b, (b) gemma-2b, (c) deepseek-coder-33b and command-r-plus-104b"
+        " (2 layers each), paged with chunks of 64; (d) llama3.2-1b dense "
+        "and paged with bucketed prefill; (e) seamless-m4t-medium (encdec, "
+        "flash encoder); (f) internvl2-76b (vlm, 2 layers), bucketed prefill"
+        " and paged decode")
+    ok &= p13_all(torch, report, timer)
+    ok &= p13_gemms(torch, report, timer, dispatcher)
+    log(f"  phase 13 took {report['phase13_s']:.1f} s")
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

@@ -62,11 +62,32 @@ def load_checkpoint(directory, step: Optional[int] = None
     return step, flat, manifest.get("metadata", {})
 
 
-def _stack_shapes(prefix: str, n: int, cfg: ArchConfig,
-                  moe: bool) -> Dict[str, tuple]:
-    """Leaves of a stack of n decoder layers under ``prefix``."""
+def _gqa_shapes(a: str, n: int, cfg: ArchConfig) -> Dict[str, tuple]:
+    """Leaves of n stacked GQA blocks under ``a``, biases included."""
+    d = cfg.d_model
+    shapes = {f"{a}/wq": (n, d, cfg.q_dim), f"{a}/wk": (n, d, cfg.kv_dim),
+              f"{a}/wv": (n, d, cfg.kv_dim), f"{a}/wo": (n, cfg.q_dim, d)}
+    if cfg.use_bias:
+        shapes.update({f"{a}/bq": (n, cfg.q_dim), f"{a}/bk": (n, cfg.kv_dim),
+                       f"{a}/bv": (n, cfg.kv_dim)})
+    return shapes
+
+
+def _mlp_shapes(m: str, n: int, cfg: ArchConfig) -> Dict[str, tuple]:
+    d = cfg.d_model
+    return {f"{m}/w_gate": (n, d, cfg.d_ff), f"{m}/w_up": (n, d, cfg.d_ff),
+            f"{m}/w_down": (n, cfg.d_ff, d)}
+
+
+def _stack_shapes(prefix: str, n: int, cfg: ArchConfig, moe: bool,
+                  cross: bool = False) -> Dict[str, tuple]:
+    """Leaves of a stack of n decoder layers under ``prefix`` (with
+    ``cross``, an encdec decoder's cross-attention block and its norm)."""
     d, H = cfg.d_model, cfg.num_heads
     shapes = {f"{prefix}/ln1": (n, d), f"{prefix}/ln2": (n, d)}
+    if cross:
+        shapes[f"{prefix}/ln_cross"] = (n, d)
+        shapes.update(_gqa_shapes(f"{prefix}/cross", n, cfg))
     a = f"{prefix}/attn"
     if cfg.attention_type == "mla":
         m = cfg.mla
@@ -81,14 +102,7 @@ def _stack_shapes(prefix: str, n: int, cfg: ArchConfig,
             f"{a}/w_uv": (n, m.kv_lora_rank, H * m.v_head_dim),
             f"{a}/wo": (n, H * m.v_head_dim, d)})
     else:
-        shapes.update({f"{a}/wq": (n, d, cfg.q_dim),
-                       f"{a}/wk": (n, d, cfg.kv_dim),
-                       f"{a}/wv": (n, d, cfg.kv_dim),
-                       f"{a}/wo": (n, cfg.q_dim, d)})
-        if cfg.use_bias:
-            shapes.update({f"{a}/bq": (n, cfg.q_dim),
-                           f"{a}/bk": (n, cfg.kv_dim),
-                           f"{a}/bv": (n, cfg.kv_dim)})
+        shapes.update(_gqa_shapes(a, n, cfg))
     if moe:
         mo = cfg.moe
         E, f = padded_num_experts(cfg), mo.d_ff_expert
@@ -102,9 +116,7 @@ def _stack_shapes(prefix: str, n: int, cfg: ArchConfig,
                            f"{prefix}/moe/shared/w_up": (n, d, fs),
                            f"{prefix}/moe/shared/w_down": (n, fs, d)})
     else:
-        shapes.update({f"{prefix}/mlp/w_gate": (n, d, cfg.d_ff),
-                       f"{prefix}/mlp/w_up": (n, d, cfg.d_ff),
-                       f"{prefix}/mlp/w_down": (n, cfg.d_ff, d)})
+        shapes.update(_mlp_shapes(f"{prefix}/mlp", n, cfg))
     return shapes
 
 
@@ -130,8 +142,22 @@ def _expected_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     L, d = cfg.num_layers, cfg.d_model
     nd = num_dense_layers(cfg)
     shapes = {"embed": (cfg.vocab_size, d), "ln_f": (d,)}
+    fe = cfg.frontend
+    if fe.kind == "audio_frames":
+        shapes["frontend/proj"] = (fe.feature_dim, d)
+    elif fe.kind == "vision_patches":
+        shapes.update({"frontend/proj1": (fe.feature_dim, d),
+                       "frontend/proj2": (d, d)})
     if cfg.family == "ssm":
         shapes.update(_rwkv_shapes(cfg))
+    elif cfg.family == "encdec":
+        n = cfg.encoder_layers
+        shapes.update({"enc_layers/ln1": (n, d), "enc_layers/ln2": (n, d),
+                       "ln_enc": (d,)})
+        shapes.update(_gqa_shapes("enc_layers/attn", n, cfg))
+        shapes.update(_mlp_shapes("enc_layers/mlp", n, cfg))
+        shapes.update(_stack_shapes("layers", L, cfg, moe=False,
+                                    cross=True))
     else:
         if nd:
             shapes.update(_stack_shapes("dense_layers", nd, cfg, moe=False))
@@ -167,7 +193,7 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
                       device) -> Dict:
     """The port's parameter dict from the reference's flat leaves for a
-    served ``cfg`` (dense GQA, MoE with MLA, or RWKV6), in ``cfg.param_dtype``
+    served ``cfg`` (any family of the registry but hybrid), in ``cfg.param_dtype``
     (``F32_LEAVES`` in f32, as the reference draws them) on ``device``.
     Raises on a missing, unexpected or misshapen leaf."""
     want = _expected_shapes(cfg)

@@ -17,11 +17,22 @@
       --sanitize
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --chaos 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --kv-layout dense --prefill-chunk none
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --arch seamless-m4t-medium
 
-The layout follows the model's family: the attention families are served
-from the paged KV arena with chunked prefill (64 tokens unless
-``--prefill-chunk`` says otherwise), the recurrent ones (rwkv6-1.6b) from
-the dense per-slot state with whole-prompt prefill.  ``--dispatcher
+The layout follows the model's family unless ``--kv-layout`` says
+otherwise: the attention families are served from the paged KV arena
+with chunked prefill (64 tokens unless ``--prefill-chunk`` says
+otherwise; ``--prefill-chunk none`` is the bucketed prefill, which vlm
+and encdec always use), the recurrent ones (rwkv6-1.6b) from the dense
+per-slot state with whole-prompt prefill; ``--kv-layout dense`` serves
+an attention family from stacked per-slot KV caches with bucketed
+prefill.  An encdec model (seamless-m4t-medium) encodes ``--prompt-len``
+random source frames a request (``src_len``); a vlm model
+(internvl2-76b) prepends zero patch embeddings unless the request brings
+its own, as in the reference.  ``--dispatcher
 adaptnet --adaptnet-ckpt DIR`` tiles every GEMM site with a trained
 ADAPTNET-TPU (``launch/train_adaptnet.py``) instead of the oracle.
 ``--spec-draft self|<arch> --spec-k K`` decodes speculatively (greedy
@@ -73,9 +84,12 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
                      stop_after: Optional[int] = None,
                      override_cfg=None, log: bool = True):
     """Serve a request set through the continuous-batching engine.  With
-    ``kv_layout`` and ``prefill_chunk`` "auto" the attention families run
-    paged with chunked prefill (64 tokens, or ``prefill_chunk``) and the
-    recurrent families dense with whole-prompt prefill.
+    ``kv_layout`` and ``prefill_chunk`` "auto" the dense and moe families
+    run paged with chunked prefill (64 tokens, or ``prefill_chunk``), vlm
+    and encdec paged with bucketed prefill, and the recurrent families
+    dense with whole-prompt prefill; ``kv_layout="dense"`` and
+    ``prefill_chunk=None`` select the other layouts.  An encdec model gets
+    ``src_len = prompt_len`` random source frames a request.
     Prompts are random tokens from ``seed``: every one
     ``prompt_len`` long, or uniform in ``[min_prompt_len, prompt_len]``
     when ``min_prompt_len`` is given, all arriving at time 0.
@@ -113,6 +127,7 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         num_slots=num_slots, max_len=prompt_len + gen + 1,
         block_size=block_size, temperature=temperature, top_k=top_k,
         seed=seed, clock=clock, execute=execute, kv_layout=kv_layout,
+        src_len=prompt_len if cfg.family == "encdec" else 0,
         prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
         shared_prefix_decode=shared_prefix_decode, dispatcher_mode=dispatcher,
         adaptnet_dir=adaptnet_ckpt, defrag_threshold=defrag_threshold,
@@ -130,8 +145,12 @@ def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
         if shared is not None:
             k = min(len(shared), n)
             p[:k] = shared[:k]
+        extras = None
+        if cfg.family == "encdec":
+            extras = {"src_features": rng.standard_normal(
+                (1, prompt_len, cfg.frontend.feature_dim)).astype(np.float32)}
         reqs.append(Request(rid=f"req-{i}", prompt=p, max_new_tokens=gen,
-                            deadline_s=deadline_s))
+                            extras=extras, deadline_s=deadline_s))
     if stop_after is not None:
         for r in reqs:
             engine.submit(r)
@@ -174,11 +193,19 @@ def main():
     ap.add_argument("--execute", default="auto",
                     choices=["auto", "kernel", "torch"],
                     help="kernels (CUDA) or their plain PyTorch versions")
+    ap.add_argument("--kv-layout", default="auto",
+                    choices=["auto", "paged", "dense"],
+                    help="decode KV storage: the paged arena or stacked "
+                         "per-slot caches ('auto': paged for the attention "
+                         "families, dense for the recurrent ones)")
     ap.add_argument("--prefill-chunk", default="auto",
-                    type=lambda v: v if v == "auto" else int(v),
+                    type=lambda v: (v if v == "auto" else None
+                                    if v == "none" else int(v)),
                     help="chunked-prefill tokens per lane and step (paged "
-                         "families; 'auto': 64); recurrent families "
-                         "prefill whole prompts")
+                         "dense / moe; 'auto': 64 there), or 'none': the "
+                         "bucketed prefill (vlm, encdec and the dense "
+                         "layout always; the recurrent families prefill "
+                         "whole prompts)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="cross-request prefix cache: refcounted "
                          "copy-on-write KV pages shared across prompts "
@@ -356,7 +383,8 @@ def main():
         outputs, engine = serve_continuous(
             arch=a.arch, preset=a.preset, num_requests=3, num_slots=2,
             prompt_len=12, gen=6, temperature=0.0, execute=a.execute,
-            prefill_chunk=a.prefill_chunk, device=a.device,
+            kv_layout=a.kv_layout, prefill_chunk=a.prefill_chunk,
+            device=a.device,
             trace_out=a.trace_out, sanitize=a.sanitize,
             snapshot_dir=a.snapshot_dir, snapshot_every=a.snapshot_every,
             **picks)
@@ -399,7 +427,8 @@ def main():
     serve_continuous(arch=a.arch, preset=a.preset, num_requests=a.requests,
                      num_slots=a.slots, prompt_len=a.prompt_len, gen=a.gen,
                      temperature=a.temperature, top_k=a.top_k,
-                     execute=a.execute, prefill_chunk=a.prefill_chunk,
+                     execute=a.execute, kv_layout=a.kv_layout,
+                     prefill_chunk=a.prefill_chunk,
                      min_prompt_len=a.min_prompt_len,
                      prefix_cache=a.prefix_cache,
                      shared_prefix_decode=a.shared_prefix_decode,

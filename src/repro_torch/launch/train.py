@@ -4,12 +4,13 @@
 
 Uses the full substrate: synthetic pipeline, AdamW, the train step (every
 GEMM and its dx/dw through the RSA kernel, attention through the
-flash-attention kernels), the fault-tolerant driver with periodic async
-checkpoints + restart, straggler monitor.  There is no mesh:
-``data_axis``/``model_axis`` other than 1 raise.  ``--optimized`` applies
-the reference's optimized profile (``attn_impl="pallas"``, the flash
-kernels); without it the config's ``attn_impl="xla"`` asks for the
-blockwise attention route, which is not ported and raises.  The entry
+flash-attention kernels or the blockwise route), the fault-tolerant
+driver with periodic async checkpoints + restart, straggler monitor.
+There is no mesh: ``data_axis``/``model_axis`` other than 1 raise.
+``--optimized`` applies the reference's optimized profile
+(``attn_impl="pallas"``, the flash kernels); without it the config's
+``attn_impl="xla"`` runs attention through the blockwise route (plain
+PyTorch, differentiated by autograd), as the reference's does.  The entry
 point runs on CUDA unless ``device`` names another device, and raises
 where there is no CUDA device.
 """

@@ -23,9 +23,7 @@ distribution mixes
               site list (reduced configs, new architectures).
 
 Labels come from the exhaustive tile-space oracle (closed-form cost
-model).  The reference's default archs include three that the port's
-registry does not have yet (ROADMAP queue 1 item 9b), so the port's
-default is the archs it serves.
+model).  The default archs are the reference's.
 """
 
 from __future__ import annotations
@@ -41,7 +39,8 @@ from repro_torch.core.dataset import Dataset, sample_workloads
 
 DECODE_MS = (1, 2, 4, 8, 16, 32, 64)
 PREFILL_MS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
-DEFAULT_ARCHS = ("llama3.2-1b", "deepseek-v3-671b", "rwkv6-1.6b")
+DEFAULT_ARCHS = ("llama3.2-1b", "gemma-2b", "qwen2-moe-a2.7b",
+                 "deepseek-coder-33b")
 
 
 def serving_gemm_shapes(archs: Sequence[str] = DEFAULT_ARCHS,

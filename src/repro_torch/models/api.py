@@ -26,9 +26,10 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 class Model:
-    """Functional model wrapper over the served models: the paged decoders
-    (dense GQA, MoE with absorbed MLA) and the recurrent RWKV6 stack (ssm,
-    dense per-sequence state); dense GQA also trains."""
+    """Functional model wrapper over the served models: the attention
+    families (dense GQA, MoE with GQA or absorbed MLA, vlm, encdec) on the
+    paged arena or a dense per-sequence cache, and the recurrent RWKV6
+    stack (ssm, dense per-sequence state); dense GQA also trains."""
 
     def __init__(self, cfg: ArchConfig, device: Optional[str] = None):
         transformer._check_family(cfg)
@@ -55,14 +56,18 @@ class Model:
     def forward(self, params, batch):
         return transformer.forward(params, batch, self.cfg)
 
-    # ---- dense-state serving (ssm family) ----------------------------------
-    def init_cache(self, batch: int):
-        return serving.init_cache(self.cfg, batch, self.device)
+    # ---- dense-cache serving ------------------------------------------------
+    def init_cache(self, batch: int, max_len: int = 0, src_len: int = 0):
+        """``max_len`` KV rows a sequence (attention families; the ssm
+        state needs none), ``src_len`` cross rows (encdec)."""
+        return serving.init_cache(self.cfg, batch, self.device, max_len,
+                                  src_len)
 
-    def prefill(self, params, batch, cache):
-        """(last-position logits (B, V), cache) of exact-length prompts
-        ``batch = {"tokens": (B, n) int}``."""
-        return serving.prefill(params, batch, self.cfg, cache)
+    def prefill(self, params, batch, cache, length=None):
+        """(logits at the last valid position (B, V), cache) of prompts
+        ``batch = {"tokens": (B, n) int, ...}``, right-padded past
+        ``length`` (attention families)."""
+        return serving.prefill(params, batch, self.cfg, cache, length)
 
     def decode_step(self, params, tokens, cache):
         return serving.decode_step(params, tokens, self.cfg, cache)
@@ -71,6 +76,13 @@ class Model:
     def init_paged_arena(self, num_blocks: int, block_size: int):
         return serving.init_paged_arena(self.cfg, num_blocks, block_size,
                                         self.device)
+
+    def init_paged_state(self, num_slots: int, src_len: int = 0):
+        return serving.init_paged_state(self.cfg, num_slots, self.device,
+                                        src_len)
+
+    def paged_prefill_write(self, arena, layers_cache, block_ids):
+        return serving.paged_prefill_write(arena, layers_cache, block_ids)
 
     def paged_prefill_step(self, params, tokens, arena, block_tables,
                            kv_lens, chunk_lens):
@@ -85,9 +97,12 @@ class Model:
                                          block_tables, kv_lens, chunk_lens)
 
     def paged_decode_step(self, params, tokens, arena, block_tables,
-                          kv_lens, write_mask):
+                          kv_lens, write_mask, state=None):
+        """``state``: :meth:`init_paged_state`'s dense residue (an encdec
+        model's cross K/V), where the reference passes it second."""
         return serving.paged_decode_step(params, tokens, self.cfg, arena,
-                                         block_tables, kv_lens, write_mask)
+                                         block_tables, kv_lens, write_mask,
+                                         state)
 
     def paged_shared_decode_step(self, params, tokens, arena, block_tables,
                                  kv_lens, write_mask, prefix_pages,

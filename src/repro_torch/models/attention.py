@@ -1,28 +1,148 @@
-"""Attention — the paged half of ``repro/models/attention.py``, GQA
-(decode, cascade decode and chunked prefill) and absorbed MLA (decode and
-chunked prefill over the latent arena) through the physically paged KV
-arena, and full-sequence GQA self-attention for training (no cache),
-through the flash-attention kernels.
+"""Attention (``repro/models/attention.py``).
 
-The arena write is in place: the chunk's K/V rows go into the flattened
+- The blockwise route (``_chunked_attn``, with ``_chunked_attn_tri``): the
+  reference's XLA attention, a loop over query and key chunks with running
+  max / sum accumulators in f32, its logit softcap and its ``q_offset`` /
+  ``kv_len`` masks.  It reaches no Pallas kernel in the reference, so here
+  it is plain PyTorch.  The port decodes every lane of the dense layout
+  in one call, so ``q_offset`` and ``kv_len`` may be per-lane ``(B,)``
+  tensors where the reference's are scalars under ``vmap``.
+- ``multihead_attention``: the flash-attention kernels for the calls the
+  reference sends to its flash kernel (``impl="pallas"``, a full sequence
+  from position 0, no softcap), the blockwise route for every other call.
+- GQA self-attention with and without a dense ``KVCache`` (training,
+  prefill, decode; ``causal=False`` for an encoder), cross-attention over
+  an encoder's K/V, and absorbed MLA over a dense latent cache.
+- The paged half: GQA (decode, cascade decode and chunked prefill) and
+  absorbed MLA (decode and chunked prefill over the latent arena) through
+  the physically paged KV arena and the paged kernels.
+
+A dense cache write is in place: the new rows go into the cache's
+``(B, S_max, ...)`` tensors at each sequence's length (clamped as the
+reference's ``dynamic_update_slice`` clamps its start), and the returned
+``KVCache`` holds the same tensors with the new lengths.  The paged arena
+write is in place too: the chunk's K/V rows go into the flattened
 ``(NB * bs, KVH, hd)`` view of the layer's pages with ``index_copy_``,
 where the reference rebuilds the array.  Rows a lane does not own this
-step (past its chunk length, or a masked decode lane) all land in row 0 of
-the trash block, the arena's last page, which the pool never allocates.
+step (past its chunk length, or a masked decode lane) all land in row 0
+of the trash block, the arena's last page, which the pool never
+allocates.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import (apply_rope, dense, dense_init,
-                                        dtype_of, rmsnorm)
+                                        dtype_of, rmsnorm, softcap)
 
 Params = Dict[str, Any]
+NEG_INF = -2.0e38
+Offset = Union[int, torch.Tensor]
+
+
+class KVCache(NamedTuple):
+    """A dense per-sequence cache: k, v (B, S_max, KVH, hd) for GQA, or
+    c_kv (B, S_max, r) and k_rope (B, S_max, rd) for MLA; ``length`` (B,)
+    int32 rows valid per sequence.  Stacked over layers the leaves gain a
+    leading layer axis, ``length`` (L, B)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# the blockwise route
+# ---------------------------------------------------------------------------
+
+def _per_lane(x: Offset, device) -> torch.Tensor:
+    """A scalar or (B,) offset as a (B', 1) int64 column (B' = 1 or B)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64).reshape(-1, 1)
+    return torch.full((1, 1), int(x), dtype=torch.int64, device=device)
+
+
+def _block_step(carry, q_blk, k_blk, v_blk, mask, scale, logit_cap):
+    """One (query chunk, key chunk) update of the running (m, l, acc), as
+    the reference's ``kv_step``: scores and the value mix in f32 from the
+    streams' dtype (a bf16 product is exact in f32), p rounded to v's
+    dtype before the mix.  mask: (B', qc, kc) bool."""
+    m, l, acc = carry
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk.float(),
+                     k_blk.float()) * scale
+    if logit_cap > 0.0:
+        s = softcap(s, logit_cap)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p.to(v_blk.dtype).float(), v_blk.float())
+    return m_new, l_new, acc_new
+
+
+def _chunked_attn(q, k, v, *, causal: bool, q_offset: Offset,
+                  kv_len: Offset, chunk: int, logit_cap: float = 0.0,
+                  causal_skip: bool = False) -> torch.Tensor:
+    """Blockwise attention.  q: (B, Sq, KVH, G, hd) grouped queries; k, v:
+    (B, Skv, KVH, hd / hd_v); ``q_offset`` the absolute position of q[0]
+    and ``kv_len`` the valid key rows, each an int or a (B,) tensor (one
+    per sequence).  ``causal_skip`` with ``q_offset`` the int 0 is the
+    reference's ``_chunked_attn_tri``: only the lower-triangular (query
+    chunk, key chunk) pairs are walked, and only the diagonal pair is
+    masked causally (every key of an earlier chunk precedes every query).
+    Returns (B, Sq, KVH, G, hd_v) f32."""
+    B, Sq, KVH, G, hd = q.shape
+    Skv = k.shape[1]
+    hd_v = v.shape[-1]
+    dev = q.device
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+    qc, kc = min(chunk, Sq), min(chunk, Skv)
+    n_q, n_k = -(-Sq // qc), -(-Skv // kc)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, n_q * qc - Sq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, n_k * kc - Skv))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n_k * kc - Skv))
+    q_pos = _per_lane(q_offset, dev) + torch.arange(n_q * qc, device=dev)
+    k_pos = torch.arange(n_k * kc, device=dev)
+    kv_valid = k_pos[None, :] < _per_lane(kv_len, dev)      # (B', n_k*kc)
+
+    def mask_of(i, j, diag=True):
+        qs, ks = slice(i * qc, (i + 1) * qc), slice(j * kc, (j + 1) * kc)
+        mask = kv_valid[:, None, ks]                        # (B', 1, kc)
+        if causal and diag:
+            mask = mask & (k_pos[None, None, ks] <= q_pos[:, qs, None])
+        return mask
+
+    def init():
+        return (torch.full((B, KVH, G, qc), NEG_INF, device=dev),
+                torch.zeros((B, KVH, G, qc), device=dev),
+                torch.zeros((B, KVH, G, qc, hd_v), device=dev))
+
+    def finish(carry):
+        _, l, acc = carry
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,KVH,G,qc,hd)
+        return out.permute(0, 3, 1, 2, 4)                   # (B,qc,KVH,G,hd)
+
+    tri = (causal and causal_skip and not isinstance(q_offset, torch.Tensor)
+           and q_offset == 0)
+    blocks = []
+    for i in range(n_q):
+        q_blk = q[:, i * qc:(i + 1) * qc]
+        carry = init()
+        # the triangular walk: chunk pairs (i, j <= i) only, and only the
+        # diagonal pair needs the causal mask
+        for j in range(i + 1 if tri else n_k):
+            ks = slice(j * kc, (j + 1) * kc)
+            carry = _block_step(carry, q_blk, k[:, ks], v[:, ks],
+                                mask_of(i, j, diag=not tri or i == j),
+                                scale, logit_cap)
+        blocks.append(finish(carry))
+    return torch.cat(blocks, dim=1)[:, :Sq]
 
 
 def init_gqa(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
@@ -61,59 +181,132 @@ def _proj_qkv(params, x, kv_x, cfg: ArchConfig, compute_dtype,
     return q, k, v
 
 
-def multihead_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
-                        chunk: int = 1024, logit_cap: float = 0.0,
-                        causal_skip: bool = False, impl: str = "xla"):
+def multihead_attention(q, k, v, *, causal: bool, q_offset: Offset = 0,
+                        kv_len: Optional[Offset] = None, chunk: int = 1024,
+                        logit_cap: float = 0.0, causal_skip: bool = False,
+                        impl: str = "xla") -> torch.Tensor:
     """q: (B, Sq, H, hd); k: (B, Skv, KVH, hd); v: (B, Skv, KVH, hd_v).
 
     ``impl="pallas"`` (the reference's name for its flash-attention
     kernel) runs the flash-attention kernels for a full-sequence call from
     position 0 with no logit softcap, in blocks of ``min(chunk, 512)``.
-    Every other call is the reference's blockwise XLA route
-    (``_chunked_attn``: decode, softcap, ``q_offset``/``kv_len`` masks, or
-    ``impl="xla"``), which is not ported yet (ROADMAP queue 1 item 10) and
-    raises; ``causal_skip`` belongs to that route."""
-    Sq, Skv = q.shape[1], k.shape[1]
+    Every other call (decode, a softcap, ``q_offset`` / ``kv_len`` masks,
+    or ``impl="xla"``) takes the blockwise route, as in the reference.
+    The blockwise route returns f32, the flash kernels q's dtype."""
+    B, Sq, H, hd = q.shape
+    KVH, Skv = k.shape[2], k.shape[1]
     if kv_len is None:
         kv_len = Skv
-    if (impl == "pallas" and logit_cap == 0.0 and isinstance(q_offset, int)
-            and q_offset == 0 and isinstance(kv_len, int) and kv_len == Skv
+    if (impl == "pallas" and logit_cap == 0.0
+            and not isinstance(q_offset, torch.Tensor) and q_offset == 0
+            and not isinstance(kv_len, torch.Tensor) and kv_len == Skv
             and Sq > 1):
         from repro_torch.kernels import ops as kops
         blk = min(chunk, 512)
         return kops.flash_attention(q, k, v, causal=causal, block_q=blk,
                                     block_k=blk)
-    raise NotImplementedError(
-        f"attention impl={impl!r} with Sq={Sq}, q_offset={q_offset!r}, "
-        f"kv_len={kv_len!r}, logit_cap={logit_cap}: the blockwise XLA route "
-        f"(_chunked_attn) and the softcap/offset fallbacks are not ported "
-        f"yet (ROADMAP queue 1 item 10); full-sequence attention runs with "
-        f"attn_impl='pallas' (get_arch(..., optimized=True))")
+    qg = q.reshape(B, Sq, KVH, H // KVH, hd)
+    out = _chunked_attn(qg, k, v, causal=causal, q_offset=q_offset,
+                        kv_len=kv_len, chunk=chunk, logit_cap=logit_cap,
+                        causal_skip=causal_skip)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def _cache_write(buf: torch.Tensor, start: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """Write ``new`` (B, S, ...) into ``buf`` (B, S_max, ...) at each
+    sequence's ``start`` (B,), in place; the start is clamped to S_max - S
+    as ``dynamic_update_slice`` clamps it (a free lane of the dense layout
+    keeps decoding past its capacity; its rows are never read)."""
+    B, S = new.shape[0], new.shape[1]
+    s0 = torch.clamp(start.long(), 0, buf.shape[1] - S)
+    rows = s0[:, None] + torch.arange(S, device=buf.device)
+    lanes = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    buf[lanes, rows] = new.to(buf.dtype)
+
+
+def _cache_update(cache: KVCache, k_new, v_new) -> KVCache:
+    """The new rows written at each sequence's length; the lengths grow by
+    the step's width."""
+    _cache_write(cache.k, cache.length, k_new)
+    _cache_write(cache.v, cache.length, v_new)
+    return KVCache(cache.k, cache.v,
+                   cache.length + k_new.shape[1])
 
 
 def gqa_self_attention(params: Params, x: torch.Tensor,
                        positions: torch.Tensor, cfg: ArchConfig, *,
-                       cache=None, update_cache: bool = False,
-                       causal: bool = True):
-    """Full-sequence self-attention for training (``cache=None``); the
-    reference's prefill/decode through a dense cache is not ported (the
-    port serves through the paged arena).  Returns (out, None)."""
-    if cache is not None or update_cache:
-        raise NotImplementedError("dense-cache prefill/decode is not ported "
-                                  "(ROADMAP queue 1 item 10); serve through "
-                                  "the paged arena")
+                       cache: Optional[KVCache] = None,
+                       update_cache: bool = False, causal: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention for training (``cache=None``), prefill (a fresh
+    cache) and decode (the cache holds the history; x is the new
+    token(s)); ``causal=False`` is bidirectional (an encoder).  With a
+    cache the attention takes the blockwise route over the whole cache,
+    each sequence from its own length.  Returns (out, the cache with the
+    new rows, or None without one)."""
     cdt = dtype_of(cfg.compute_dtype)
     q, k, v = _proj_qkv(params, x, x, cfg, cdt)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = multihead_attention(q, k, v, causal=causal, q_offset=0,
-                              chunk=cfg.attn_chunk,
-                              logit_cap=cfg.attn_logit_softcap,
-                              causal_skip=cfg.flash_causal_skip,
-                              impl=cfg.attn_impl)
+    new_cache = None
+    if cache is not None:
+        start = cache.length
+        new_cache = _cache_update(cache, k, v)
+        out = multihead_attention(
+            q, new_cache.k.to(cdt), new_cache.v.to(cdt), causal=causal,
+            q_offset=start, kv_len=new_cache.length, chunk=cfg.attn_chunk,
+            logit_cap=cfg.attn_logit_softcap)
+    else:
+        if update_cache:
+            raise ValueError("prefill with a cache must pass an initialized "
+                             "cache")
+        out = multihead_attention(q, k, v, causal=causal, q_offset=0,
+                                  chunk=cfg.attn_chunk,
+                                  logit_cap=cfg.attn_logit_softcap,
+                                  causal_skip=cfg.flash_causal_skip,
+                                  impl=cfg.attn_impl)
     B, S = x.shape[0], x.shape[1]
     return dense(out.reshape(B, S, cfg.q_dim), params["wo"], None, cdt,
-                 site="layer.attn.out"), None
+                 site="layer.attn.out"), new_cache
+
+
+def gqa_cross_attention(params: Params, x: torch.Tensor, enc_kv,
+                        cfg: ArchConfig) -> torch.Tensor:
+    """Cross-attention over an encoder's K/V ``enc_kv`` ((B, S_src, KVH,
+    hd) each, no RoPE): the flash kernels for a prefill under
+    ``attn_impl="pallas"``, the blockwise route for a decode step."""
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S = x.shape[0], x.shape[1]
+    q = dense(x, params["wq"], params.get("bq"), cdt, site="layer.cross.q")
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = enc_kv
+    out = multihead_attention(q, k.to(cdt), v.to(cdt), causal=False,
+                              chunk=cfg.attn_chunk, impl=cfg.attn_impl)
+    return dense(out.reshape(B, S, cfg.q_dim), params["wo"], None, cdt,
+                 site="layer.cross.out")
+
+
+def cross_attention_kv(params: Params, enc_out: torch.Tensor,
+                       cfg: ArchConfig):
+    """The cross K/V of one decoder layer from the encoder output (B,
+    S_src, d): ((B, S_src, KVH, hd), (B, S_src, KVH, hd))."""
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S = enc_out.shape[0], enc_out.shape[1]
+    k = dense(enc_out, params["wk"], params.get("bk"), cdt,
+              site="layer.cross.k")
+    v = dense(enc_out, params["wv"], params.get("bv"), cdt,
+              site="layer.cross.v")
+    return (k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
+
+
+def init_gqa_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device) -> KVCache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 def _paged_chunk_rows(tables: torch.Tensor, kv_lens: torch.Tensor,
@@ -391,3 +584,60 @@ def mla_paged_decode(params: Params, x: torch.Tensor,
                           site="layer.mla.v_mix")[:, 0]
     out = out.reshape(S, 1, H * m.v_head_dim)
     return dense(out, params["wo"], None, cdt, site="layer.mla.out")
+
+
+def mla_self_attention(params: Params, x: torch.Tensor,
+                       positions: torch.Tensor, cfg: ArchConfig, *,
+                       cache: Optional[KVCache] = None,
+                       update_cache: bool = False
+                       ) -> Tuple[torch.Tensor, KVCache]:
+    """Absorbed MLA over a dense latent cache (prefill into a fresh cache,
+    decode over the history): the cache stores the compressed (c_kv,
+    k_rope) rows only, the queries are absorbed through W_UK, the scores
+    and the latent mix run in the compute dtype with the softmax in f32,
+    each sequence masked at its own length.  The expanded full-sequence
+    path (``cache=None``, training) is not ported: it raises.  Returns
+    (out, the cache with the new rows)."""
+    if cache is None:
+        raise NotImplementedError(
+            "mla_self_attention without a cache (the expanded full-sequence "
+            "path of MLA training) is not ported yet (ROADMAP.md queue 1 "
+            "item 11)")
+    m = cfg.mla
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S = x.shape[0], x.shape[1]
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, x, positions, cfg, cdt)
+    c_kv, k_rope = _mla_ckv(params, x, positions, cfg, cdt)
+    start = cache.length
+    new_cache = _cache_update(cache, c_kv, k_rope)
+    ckv_all, krope_all = new_cache.k.to(cdt), new_cache.v.to(cdt)
+
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_abs = _mla_absorb_q(q_nope, w_uk, cdt, site="layer.mla.q_absorb")
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(m.qk_nope_head_dim + m.qk_rope_head_dim)))
+    s_nope = torch.einsum("bshr,btr->bhst", q_abs, ckv_all)
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope, krope_all)
+    s = (s_nope + s_rope).float() * scale
+    t_pos = torch.arange(ckv_all.shape[1], device=x.device)
+    q_pos = start.long()[:, None] + torch.arange(S, device=x.device)
+    mask = (t_pos[None, None, :] <= q_pos[:, :, None]) & \
+        (t_pos[None, None, :] < new_cache.length.long()[:, None, None])
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(cdt)
+    o_lat = torch.einsum("bhst,btr->bshr", p, ckv_all)
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = _mla_mix_latent(o_lat, w_uv, cdt, site="layer.mla.v_mix")
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return dense(out, params["wo"], None, cdt,
+                 site="layer.mla.out"), new_cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device) -> KVCache:
+    m = cfg.mla
+    z = dict(dtype=dtype, device=device)
+    return KVCache(torch.zeros((batch, max_len, m.kv_lora_rank), **z),
+                   torch.zeros((batch, max_len, m.qk_rope_head_dim), **z),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))

@@ -1,21 +1,31 @@
 """ServingEngine: continuous-batching inference over the port's model stack.
 
-Two layouts of ``repro/serving/engine.py``, chosen by the model's family
-(``kv_layout="auto"``): the paged layout with chunked prefill for the
-attention families, and the dense slot layout for the recurrent ones.
+The layouts of ``repro/serving/engine.py``.  ``kv_layout="auto"`` is paged
+for the attention families and dense for the recurrent ones, on any
+device (the reference's "auto" is paged on TPU only).
 
-The paged, chunked-prefill path (dense GQA, MoE/MLA):
+The paged layout (attention families: dense GQA, MoE with GQA or MLA,
+vlm, encdec):
 
 * ``num_slots`` fixed decode lanes share one physical KV page arena
   ``(layers, num_blocks + 1, block_size, KVH, hd)`` (with MLA, the latent
   rows: c_kv ``(..., r)`` and k_rope ``(..., rd)``) bound to a
   ``KVBlockPool``; the trailing page is the write-discard scratch that
-  masked rows land in.
-* Prefill is chunked and paged: every step runs ONE ragged batch over all
-  mid-prefill lanes, each contributing up to ``prefill_chunk`` of its
-  remaining context; chunk K/V rows are written straight into the lane's
-  pages and attention runs through ``kernels/ops.paged_prefill_attention``.
-  TTFT is stamped when a lane's final chunk lands.
+  masked rows land in.  An encdec model's cross K/V stay dense per slot
+  (``Model.init_paged_state``, ``src_len`` rows each); a vlm model's
+  frontend rows live in pool pages, so reservations cover them.
+* Chunked prefill (``prefill_chunk``: "auto" is 64 for dense and moe):
+  every step runs ONE ragged batch over all mid-prefill lanes, each
+  contributing up to ``prefill_chunk`` of its remaining context; chunk
+  K/V rows are written straight into the lane's pages and attention runs
+  through ``kernels/ops.paged_prefill_attention``.  TTFT is stamped when a
+  lane's final chunk lands.
+* Bucketed prefill (``prefill_chunk=None``; always for vlm and encdec):
+  each admitted request prefills alone at a padded bucket shape
+  (``buckets``, or powers of two from 16, capped at ``max_len``) into a
+  scratch dense cache rounded up to whole pages, whose first pages are
+  then scattered into the request's pool pages (``paged_prefill_write``):
+  the rows past the true length are bucket padding that decode masks.
 * Decode runs ONE batched ``paged_decode_step`` over the fully-prefilled
   lanes through per-slot block tables (``kernels/ops.paged_attention``);
   the table width is the max live page count rounded up to a power of two,
@@ -45,22 +55,26 @@ The paged, chunked-prefill path (dense GQA, MoE/MLA):
   rows a lane) and commits the longest agreeing prefix plus one corrected
   token.  Greedy only; the tokens equal plain greedy decode's.
 
-The dense slot layout (recurrent families: RWKV6), whole-prompt prefill:
+The dense slot layout (every family; always for the recurrent ones):
 
-* One stacked per-slot state cache (``Model.init_cache(num_slots)``);
-  nothing is paged (the state is O(1) in sequence length), but the
-  ``KVBlockPool`` still meters each request's tokens, so
+* One stacked per-slot cache (``Model.init_cache(num_slots, max_len +
+  frontend rows, src_len)``): each attention layer's K/V rows a slot, or
+  the RWKV6 state, O(1) in sequence length.  Nothing is paged, but the
+  ``KVBlockPool`` still meters each request's text tokens (the vlm
+  frontend's rows are a constant per slot outside the budget), so
   ``reserve="incremental"`` can stall a lane.
-* Each admitted request prefills alone at its exact length (a recurrent
-  state integrates every token, so nothing is padded) from a fresh batch-1
-  state, under registry scope ``prefill:m{n}``; the result is copied into
-  its slot (``_slot_restore``).
+* Each admitted request prefills alone from a fresh batch-1 cache under
+  registry scope ``prefill:m{bucket}``: at a padded bucket for the
+  attention families, at its exact length for the recurrent ones (a
+  state integrates every token); the result is copied into its slot
+  (``_slot_restore``).
 * Each step decodes EVERY slot in one batched call under scope
-  ``"decode"``, as the reference's ``vmap`` over slots does: free lanes
-  compute too (admission overwrites their state), and a stalled lane rolls
-  back to the snapshot taken before the step (``_slot_snapshot``).  The
-  port batches the lanes, so the decode GEMMs record M = num_slots where
-  the reference's vmapped trace records M = 1.
+  ``"decode"``, as the reference's ``vmap`` over slots does, each lane at
+  its own position and length: free lanes compute too (admission
+  overwrites their cache), and a stalled lane rolls back to the snapshot
+  taken before the step (``_slot_snapshot``).  The port batches the
+  lanes, so the decode GEMMs record M = num_slots where the reference's
+  vmapped trace records M = 1.
 
 ``EngineConfig.dispatcher_mode`` selects the recommendation source:
 ``"oracle"`` (exhaustive tile-space search) or ``"adaptnet"`` (a trained
@@ -68,7 +82,10 @@ ADAPTNET-TPU loaded from ``adaptnet_dir``, with the oracle as the
 fallback for shapes outside its trained range); ``dispatch_stats`` counts
 the executed sites each source decided.  ``defrag_threshold`` compacts
 the page pool after any step that leaves ``pool.fragmentation()`` above
-it (``kv_defrag_auto`` counts those steps).
+it (``kv_defrag_auto`` counts those steps).  vlm requests carry
+``extras["patch_embeds"]`` (1, n_img, feature_dim) and encdec requests
+``extras["src_features"]`` (1, src_len, feature_dim), zeros when absent,
+as in the reference.
 
 Observability (``repro_torch.obs``), as in the reference: one
 ``TraceRecorder`` (``self.obs``) takes every layer's counters and gauges
@@ -78,14 +95,13 @@ Observability (``repro_torch.obs``), as in the reference: one
 paged_decode, spec_draft / spec_verify, sample, sync), one ``dispatch``
 event per GEMM site a trace records, ``compile`` events and the KV pool's
 ``arena`` events.  Every model call runs inside a ``JitWatch`` under the
-reference's names (prefill, decode, paged_decode, chunk_prefill,
-paged_shared_decode, spec_verify; the reference's paged_write belongs to
-its bucketed prefill, which is not ported).  A phase that wraps model
-calls measures the host's time to issue their launches; the ``sync``
-phase wraps the device synchronisation each model call already ends with,
-and the timeline adds none of its own.  ``export_trace`` writes the
-Chrome/Perfetto JSON and a JSONL twin; ``site_timings`` joins each scope's
-wall time with its sites.
+reference's names (prefill, decode, paged_decode, paged_write,
+chunk_prefill, paged_shared_decode, spec_verify).  A phase that wraps
+model calls measures the host's time to issue their launches; the
+``sync`` phase wraps the device synchronisation each model call already
+ends with, and the timeline adds none of its own.  ``export_trace``
+writes the Chrome/Perfetto JSON and a JSONL twin; ``site_timings`` joins
+each scope's wall time with its sites.
 
 Fault tolerance (``serving/faults.py``), as in the reference: ``chaos``
 injects seeded pool OOMs, poisoned pages, lane stalls and forced
@@ -101,9 +117,6 @@ check every step; ``snapshot()`` / ``restore()`` (``serving/snapshot.py``)
 save and resume a mid-trace engine through the checkpoint manager, every
 ``snapshot_every`` steps when ``snapshot_dir`` is set.
 
-The reference's dense KV layout of the attention families and its
-bucketed prefill are not ported: ``buckets`` and ``kv_layout="dense"``
-for an attention family raise ``ValueError``; nothing is ignored.
 ``run()`` ends with the reference's teardown audit (no table survives,
 the only pins are the prefix trie's; with ``spec_draft`` the draft pool
 is checked and must be empty, ``kv_draft_leaked_blocks``) on every run,
@@ -128,7 +141,9 @@ from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sara import SaraDispatcher
 from repro_torch.dispatch import SiteRegistry
-from repro_torch.models.serving import PAGED_FAMILIES
+from repro_torch.models.modules import dtype_of
+from repro_torch.models.serving import (CHUNKED_PREFILL_FAMILIES,
+                                       PAGED_FAMILIES)
 from repro_torch.obs import (JitWatch, RequestTracker, StepTimeline,
                              TraceRecorder, write_chrome_trace, write_jsonl)
 from repro_torch.serving.faults import (OUTCOME_COUNTERS, ChaosConfig,
@@ -190,15 +205,13 @@ def gemm_sites(cfg: ArchConfig, m_tokens: int
 
 @dataclass
 class EngineConfig:
-    """Serving-engine knobs (the fields of the reference's EngineConfig).
-
-    ``buckets`` (the bucketed prefill, not ported) stays here so that
-    setting it raises instead of being silently ignored."""
+    """Serving-engine knobs (the fields of the reference's EngineConfig)."""
 
     num_slots: int = 4
     max_len: int = 96                 # per-slot token capacity (prompt+gen+1)
     block_size: int = 16              # KV pool page size (tokens)
     num_blocks: Optional[int] = None  # KV budget; None = full slot capacity
+    buckets: Optional[Sequence[int]] = None   # prefill shapes; None = pow2
     max_prefills_per_step: int = 1    # admissions per engine step
     reserve: str = "full"             # "full" | "incremental"
     temperature: float = 0.0
@@ -206,10 +219,12 @@ class EngineConfig:
     seed: int = 0
     eos_id: Optional[int] = None
     clock: str = "steps"              # "steps" | "wall"
+    src_len: int = 0                  # encdec: shared encoder length
     execute: str = "auto"             # "auto" | "kernel" | "torch"
     preempt_budget: int = 3           # preempt/readmit cycles before failing
-    # "auto": 64 paged, whole-prompt dense; None: the reference's bucketed
-    # prefill (paged: not ported) or whole-prompt (dense); an int: chunked
+    # "auto": 64 paged for dense / moe, bucketed for vlm / encdec and on
+    # the dense layout; None: bucketed (whole prompts for the recurrent
+    # families); an int: chunked (paged dense / moe only)
     prefill_chunk: Union[int, str, None] = "auto"
     kv_layout: str = "auto"           # "paged" | "dense" | "auto" (by family)
     prefix_cache: bool = False        # cross-request prefix cache
@@ -249,17 +264,12 @@ class EngineConfig:
     # automatically every snapshot_every steps (0: manual only)
     snapshot_dir: Optional[str] = None
     snapshot_every: int = 0
-    # not ported — setting it raises
-    buckets: Optional[Sequence[int]] = None
 
 
 PAGED_PREFILL_CHUNK = 64   # the paged families' chunk under "auto"
 
 
 def _check_ported(e: EngineConfig) -> None:
-    if e.buckets is not None:
-        raise ValueError("not ported to the PyTorch engine: ['buckets "
-                         "(bucketed prefill)']")
     if e.chaos is not None and not isinstance(e.chaos, ChaosConfig):
         raise ValueError(f"chaos must be a ChaosConfig, got "
                          f"{type(e.chaos).__name__}")
@@ -280,13 +290,13 @@ def _check_ported(e: EngineConfig) -> None:
 
 def _resolve_layout(cfg: ArchConfig, e: EngineConfig
                     ) -> Tuple[str, Optional[int]]:
-    """The engine's KV layout and prefill chunk.  ``"auto"`` is paged for
-    the attention families and dense for the recurrent ones, and a
-    recurrent family cannot page, as in the reference.  The port serves
-    the attention families paged with chunked prefill (``prefill_chunk``
-    "auto": 64; None, the reference's bucketed prefill, is not ported) and
-    the recurrent ones dense with whole-prompt prefill (chunk None), and
-    raises for the other combinations."""
+    """The engine's KV layout and prefill chunk, with the reference's
+    refusals.  ``"auto"`` is paged for the attention families and dense
+    for the recurrent ones; a recurrent family cannot page.  The chunk
+    ``"auto"`` is 64 on the paged layout for the families that can stream
+    their prompts in chunks (dense, moe) and None (bucketed prefill)
+    otherwise; an int chunk needs the paged layout and one of those
+    families."""
     layout, chunk = e.kv_layout, e.prefill_chunk
     if layout == "auto":
         layout = "paged" if cfg.family in PAGED_FAMILIES else "dense"
@@ -294,25 +304,25 @@ def _resolve_layout(cfg: ArchConfig, e: EngineConfig
         raise ValueError(
             f"family {cfg.family!r} keeps recurrent state in the dense slot "
             f"layout; kv_layout='paged' supports {PAGED_FAMILIES}")
-    if layout == "dense" and cfg.family in PAGED_FAMILIES:
-        raise ValueError("the dense KV layout of the attention families is "
-                         "not ported (ROADMAP.md queue 1 item 10): serve "
-                         "them with kv_layout='paged'")
-    if layout == "paged":
-        if chunk is None:
-            raise ValueError("bucketed prefill is not ported: set "
-                             "prefill_chunk")
-        return layout, PAGED_PREFILL_CHUNK if chunk == "auto" else chunk
-    if chunk not in (None, "auto"):
-        raise ValueError("prefill_chunk streams prompts directly into KV "
-                         "pages; it requires kv_layout='paged' (recurrent "
-                         "families prefill whole prompts: prefill_chunk="
-                         "None)")
-    if e.prefix_cache:
+    if chunk == "auto":
+        chunk = (PAGED_PREFILL_CHUNK if layout == "paged"
+                 and cfg.family in CHUNKED_PREFILL_FAMILIES else None)
+    if chunk is not None:
+        if layout != "paged":
+            raise ValueError(
+                "prefill_chunk streams prompts directly into KV pages; it "
+                "requires kv_layout='paged' (the dense layout prefills "
+                "buckets, or whole prompts for the recurrent families: "
+                "prefill_chunk=None)")
+        if cfg.family not in CHUNKED_PREFILL_FAMILIES:
+            raise ValueError(
+                f"family {cfg.family!r} keeps the bucketed prefill (chunked "
+                f"prefill supports {CHUNKED_PREFILL_FAMILIES})")
+    elif e.prefix_cache:
         raise ValueError("prefix_cache requires chunked prefill: a cache hit "
                          "admits a request mid-prompt, and only the chunked "
                          "prefill path can resume from a per-lane offset")
-    return layout, None
+    return layout, chunk
 
 
 class ServingEngine:
@@ -358,7 +368,14 @@ class ServingEngine:
         # batch with dead query rows the kernel still computes
         self.prefill_chunk = (min(chunk, e.max_len) if chunk is not None
                               else None)
-        self._max_blocks_per_slot = -(-e.max_len // e.block_size)
+        # vlm frontend rows share a slot's KV rows; under the paged layout
+        # they live in pool pages, so reservations cover them
+        self._fe_rows = (cfg.frontend.num_tokens if cfg.family == "vlm"
+                         else 0)
+        self._cache_len = e.max_len + self._fe_rows
+        row_overhead = self._fe_rows if self.kv_layout == "paged" else 0
+        self._max_blocks_per_slot = -(-(e.max_len + row_overhead)
+                                      // e.block_size)
         num_blocks = (e.num_blocks if e.num_blocks is not None
                       else e.num_slots * self._max_blocks_per_slot)
         self.pool = KVBlockPool(num_blocks, e.block_size,
@@ -370,8 +387,9 @@ class ServingEngine:
         self.sched = ContinuousScheduler(
             e.num_slots, self.pool,
             max_prefills_per_step=e.max_prefills_per_step, reserve=e.reserve,
-            prefill_chunk=self.prefill_chunk, tracker=self.req_spans,
-            prefix_cache=self.prefix_cache, metrics=self.metrics)
+            token_overhead=row_overhead, prefill_chunk=self.prefill_chunk,
+            tracker=self.req_spans, prefix_cache=self.prefix_cache,
+            metrics=self.metrics)
         # every submitted request, live or terminal: how the step error
         # boundary maps a fault's rids back to Request objects
         self.requests: Dict[str, Request] = {}
@@ -398,23 +416,34 @@ class ServingEngine:
         self._leak_audit: Dict[str, int] = {}
         self.arena: Optional[KVArena] = None
         self._cache = None
+        self._state: Dict[str, torch.Tensor] = {}
         m = self.model
+        self._prefill = JitWatch(m.prefill, "prefill", self.obs)
         if self.kv_layout == "paged":
+            # the page arena (pool pages + the write-discard page) and the
+            # slot-stacked residue that stays dense (encdec cross K/V).
+            # The bucketed prefill's scratch cache is rounded up to whole
+            # pages, so that its scatter always slices whole pages
+            self._prefill_rows = self._max_blocks_per_slot * e.block_size
             self.arena = KVArena(
                 m.init_paged_arena(num_blocks + 1, e.block_size),
                 e.block_size)
             self.pool.bind_arena(self.arena)
+            self._state = m.init_paged_state(e.num_slots, e.src_len)
             self._paged_decode = JitWatch(m.paged_decode_step,
                                           "paged_decode", self.obs)
+            self._paged_write = JitWatch(m.paged_prefill_write,
+                                         "paged_write", self.obs)
             self._chunk_prefill = JitWatch(m.paged_prefill_step,
                                            "chunk_prefill", self.obs)
             self._paged_shared_decode = (
                 JitWatch(m.paged_shared_decode_step, "paged_shared_decode",
                          self.obs) if e.shared_prefix_decode else None)
         else:
-            # stacked per-slot states: the slot is the batch axis
-            self._cache = m.init_cache(e.num_slots)
-            self._prefill = JitWatch(m.prefill, "prefill", self.obs)
+            # stacked per-slot caches: the slot is the batch axis
+            self._prefill_rows = self._cache_len
+            self._cache = m.init_cache(e.num_slots, self._cache_len,
+                                       e.src_len)
             self._decode = JitWatch(m.decode_step, "decode", self.obs)
         self.spec: Optional[SpecDecoder] = None
         if e.spec_draft is not None:
@@ -455,7 +484,7 @@ class ServingEngine:
         # what one masked-dense decode step would stream: every slot's full
         # capacity (the paged win the metrics report; recurrent-state
         # families have no KV rows)
-        self._dense_kv_rows = (e.num_slots * e.max_len
+        self._dense_kv_rows = (e.num_slots * self._cache_len
                                if cfg.attention_type != "none" else 0)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(e.seed + 1)
@@ -538,57 +567,108 @@ class ServingEngine:
             self._ran_plan = ran
         self.gemm_plan = {n: r.describe() for n, r in sites.items()}
 
-    # -- dense slot layout (recurrent families) ------------------------------
+    # -- prefill buckets and the dense slot layout ---------------------------
     def bucket_for(self, n: int) -> int:
-        """The prefill shape of an n-token prompt: n itself on the dense
-        layout, which only recurrent families run (their state integrates
-        every input token, so nothing may be padded).  The bucketed
-        prefill of attention families is not ported."""
-        if self.kv_layout == "dense":
+        """The prefill shape of an n-token prompt: n itself for the
+        recurrent families (a state integrates every token, so nothing may
+        be padded); else the smallest of ``buckets`` that fits, or the
+        next power of two from 16, never past ``max_len``."""
+        if self.cfg.family in ("ssm", "hybrid"):
             return n
-        raise NotImplementedError("bucketed prefill of attention families "
-                                  "is not ported (ROADMAP.md queue 1 item "
-                                  "10)")
+        b = None
+        if self.ecfg.buckets:
+            fits = [x for x in sorted(self.ecfg.buckets) if x >= n]
+            if fits:
+                b = fits[0]
+        if b is None:
+            b = 16
+            while b < n:
+                b *= 2
+        # prefill writes `bucket` KV rows, so never pad past the slot's
+        # capacity (submit() guarantees n itself fits)
+        return max(n, min(b, self.ecfg.max_len))
 
     def _slot_snapshot(self, slot: int):
-        """A copy of one slot's state, as a batch-1 cache (the layer-stacked
-        state leaves carry the slot on dim 1)."""
+        """A copy of one slot's cache, as a batch-1 cache (every stacked
+        leaf but ``pos`` carries the slot on dim 1)."""
         c = self._cache
-        return {"pos": c["pos"][slot:slot + 1].clone(),
-                "layers": type(c["layers"])(*(t[:, slot:slot + 1].clone()
-                                              for t in c["layers"]))}
+        one = {k: v[:, slot:slot + 1].clone() for k, v in c.items()
+               if k not in ("pos", "layers")}
+        one["pos"] = c["pos"][slot:slot + 1].clone()
+        one["layers"] = type(c["layers"])(*(t[:, slot:slot + 1].clone()
+                                            for t in c["layers"]))
+        return one
 
     def _slot_restore(self, slot: int, one) -> None:
-        """Write a batch-1 cache (a snapshot, or a fresh prefill's state)
+        """Write a batch-1 cache (a snapshot, or a fresh prefill's cache)
         into one slot of the stacked cache, in place."""
         c = self._cache
         c["pos"][slot] = one["pos"][0]
         for t, o in zip(c["layers"], one["layers"]):
             t[:, slot] = o[:, 0]
+        for k in c:
+            if k not in ("pos", "layers"):
+                c[k][:, slot] = one[k][:, 0]
+
+    def _extras(self, req: Request) -> Dict[str, torch.Tensor]:
+        """A request's frontend inputs, zeros where it carries none."""
+        cfg, out = self.cfg, {}
+        shapes = {"vlm": ("patch_embeds", cfg.frontend.num_tokens),
+                  "encdec": ("src_features", self.ecfg.src_len)}
+        if cfg.family in shapes:
+            name, rows = shapes[cfg.family]
+            a = (req.extras or {}).get(name, np.zeros(
+                (1, rows, cfg.frontend.feature_dim), np.float32))
+            out[name] = torch.as_tensor(np.asarray(a), device=self.device,
+                                        dtype=dtype_of(cfg.compute_dtype))
+        return out
 
     def _do_prefill(self, req: Request) -> None:
-        """Prefill one admitted request at its exact length from a fresh
-        batch-1 state, copy the state into its slot and sample its first
+        """Prefill one admitted request alone from a fresh batch-1 cache: a
+        right-padded bucket (the attention families) or the exact prompt
+        (the recurrent ones).  Paged, its rows are scattered into the
+        request's pages (and an encdec model's cross K/V into its slot);
+        dense, the cache is copied into its slot.  Samples its first
         token."""
         e = self.ecfg
         context = req.context()
         n = int(context.shape[0])
         bucket = self.bucket_for(n)
         scope = f"prefill:m{bucket}"
-        toks = self._tensor(np.asarray(context, np.int32)[None])
-        fresh = self.model.init_cache(1)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = context
+        batch = {"tokens": self._tensor(toks), **self._extras(req)}
+        fresh = self.model.init_cache(1, self._prefill_rows, e.src_len)
         t0 = time.time()
         with torch.no_grad(), self._dispatch_scope(scope), \
                 self.timeline.phase("prefill", rid=req.rid, bucket=bucket):
-            logits, new = self._prefill(self.params, {"tokens": toks}, fresh)
+            logits, new = self._prefill(self.params, batch, fresh, n)
         with self.timeline.phase("sync"):
             self._sync()
         dt = time.time() - t0
         self.obs.add_scope_wall(scope, dt)
         self.req_spans.on_prefill_chunk(req.rid, n, dt, bucket=bucket)
         self._dispatch(scope)
-        self.metrics.on_prefill(n, dt)
-        self._slot_restore(req.slot, new)
+        if self.kv_layout == "paged":
+            # commit the prefilled rows into this request's pool pages
+            # (page-granular scatter); only the pages and the row count
+            # persist per slot
+            rows = n + self._fe_rows
+            nblk = self.pool.blocks_for(rows)
+            table = self.pool.table(req.rid).blocks
+            with torch.no_grad():
+                self._paged_write(self.arena.leaves, new["layers"],
+                                  self._tensor(np.asarray(table[:nblk],
+                                                          np.int32)))
+            self._kv_rows[req.slot] = rows
+            self.metrics.on_prefill(
+                n, dt, kv_write_rows=nblk * e.block_size,
+                kv_write_rows_padded=bucket + self._fe_rows)
+            for k in self._state:
+                self._state[k][:, req.slot] = new[k][:, 0]
+        else:
+            self.metrics.on_prefill(n, dt)
+            self._slot_restore(req.slot, new)
         req.prefill_pos = n
         req.prefilling = False
         tok = int(sample_logits(self._gen, logits, e.temperature,
@@ -622,11 +702,12 @@ class ServingEngine:
         if need > self.ecfg.max_len:
             raise ValueError(f"request {req.rid} needs {need} tokens > "
                              f"max_len {self.ecfg.max_len}")
-        if self.pool.blocks_for(need) > self.pool.num_blocks:
+        need_rows = need + self.sched.token_overhead
+        if self.pool.blocks_for(need_rows) > self.pool.num_blocks:
             raise ValueError(
-                f"request {req.rid} needs {self.pool.blocks_for(need)} KV "
-                f"blocks > pool total {self.pool.num_blocks}; it could never "
-                "be admitted")
+                f"request {req.rid} needs {self.pool.blocks_for(need_rows)} "
+                f"KV blocks > pool total {self.pool.num_blocks}; it could "
+                "never be admitted")
         if req.eos_id is None:
             req.eos_id = self.ecfg.eos_id
         self.sched.submit(req)
@@ -692,7 +773,19 @@ class ServingEngine:
                                                 dt, pos=req.prefill_pos)
 
         total = int(chunk.sum())
-        self.metrics.on_prefill(total, dt, kv_write_rows=total)
+        # the padded-bucket equivalent accrues in proportion to each chunk
+        # (integer shares that telescope to bucket_for(context) over a
+        # whole stream), as in the reference
+        padded = 0
+        for slot, req in lanes.items():
+            n = int(chunk[slot])
+            if n == 0:
+                continue
+            ctx, pos = req.context_len, req.prefill_pos
+            b = self.bucket_for(ctx)
+            padded += (b * (pos + n)) // ctx - (b * pos) // ctx
+        self.metrics.on_prefill(total, dt, kv_write_rows=total,
+                                kv_write_rows_padded=padded)
         sampled = None
         if any(chunk[s] and r.prefill_pos + chunk[s] >= r.context_len
                for s, r in lanes.items()):
@@ -852,7 +945,7 @@ class ServingEngine:
     # -- main loop ------------------------------------------------------------
     def step(self) -> bool:
         """One engine step: admissions, one ragged chunk batch over every
-        mid-prefill lane (or whole-prompt prefills on the dense layout),
+        mid-prefill lane (or one bucketed prefill per admitted request),
         then one batched decode over the fully-prefilled lanes.  Returns
         False when there is nothing left to do.
 
@@ -954,7 +1047,7 @@ class ServingEngine:
                                             pages=req.cached_pages)
         if self.chaos is not None:
             self._inject_admission_chaos()
-        if self.kv_layout == "paged":
+        if self.prefill_chunk is not None:
             self._do_chunk_prefills()
         else:
             # every still-prefilling lane, not just this plan's admissions:
@@ -1064,7 +1157,8 @@ class ServingEngine:
                     self.timeline.phase("paged_decode", lanes=len(active),
                                         width=width):
                 logits, _ = self._paged_decode(
-                    self.params, args[0], self.arena.leaves, *args[1:])
+                    self.params, args[0], self.arena.leaves, *args[1:],
+                    self._state)
         with self.timeline.phase("sync"):
             self._sync()
         dt = time.time() - t0

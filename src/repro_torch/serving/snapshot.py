@@ -13,10 +13,13 @@ leaves bit for bit), so a crash mid-save never corrupts the latest one.
 
 The leaves sit under the reference's keys, so a snapshot either package
 writes restores in the port: ``last_tok``, ``arena/k`` and ``arena/v``
-(paged), ``kv_rows``, ``cache/pos`` and ``cache/layers/<field>`` (dense:
-the reference's slot-major layout ``(S, L, 1, ...)``, which the port's
-``(L, S, ...)`` state is moved to on save and from on restore),
-``req/<i>/prompt`` and ``req/<i>/generated``, and the manifest's
+(paged), ``state/cross_k`` and ``state/cross_v`` (an encdec engine's
+dense cross K/V under the paged layout), ``kv_rows``, ``cache/pos``,
+``cache/layers/<field>`` and ``cache/cross_k`` / ``cache/cross_v``
+(dense: the reference's slot-major layout ``(S, L, 1, ...)``, a KV
+length ``(S, L)``, which the port's ``(L, S, ...)`` cache is moved to on
+save and from on restore), ``req/<i>/prompt``, ``req/<i>/generated`` and
+``req/<i>/extras/<name>`` (vlm / encdec inputs), and the manifest's
 metadata.  The reference's ``rng_key`` (a JAX PRNG key) means nothing to
 the port: the port saves its ``torch.Generator`` state as ``rng_state``
 beside it, and a restore without one (a snapshot the JAX engine wrote)
@@ -45,7 +48,7 @@ from repro_torch.serving.scheduler import Request
 
 # EngineConfig fields that must match between snapshot and restore:
 # anything that changes array shapes, allocation behaviour or the token
-# stream itself (the port has no encdec family: its src_len is 0)
+# stream itself
 _SANITY = ("num_slots", "max_len", "block_size", "reserve", "temperature",
            "top_k", "seed", "prefill_chunk", "prefix_cache", "src_len")
 
@@ -64,13 +67,10 @@ _POOL_COUNTERS = ("peak_in_use", "defrag_moves", "shared_pages",
 
 
 def _sanity(engine) -> Dict:
-    """The ``_SANITY`` values of an engine: the resolved prefill chunk
-    (the port's "auto" is the int it resolves to), src_len 0."""
-    e = engine.ecfg
-    out = {k: getattr(e, k) for k in _SANITY
-           if k not in ("prefill_chunk", "src_len")}
+    """The ``_SANITY`` values of an engine, with the resolved prefill chunk
+    (the port's "auto" is what it resolves to)."""
+    out = {k: getattr(engine.ecfg, k) for k in _SANITY}
     out["prefill_chunk"] = engine.prefill_chunk
-    out["src_len"] = 0
     return out
 
 
@@ -94,31 +94,49 @@ def _req_meta(req: Request) -> Dict:
     }
 
 
+def _slot_major(t: torch.Tensor) -> torch.Tensor:
+    """A port leaf (L, S, ...) in the reference's slot-major layout: (S,
+    L, 1, ...), or (S, L) for a KV length (a slot's batch-1 cache has a
+    batch axis on every leaf but its lengths)."""
+    t = t.transpose(0, 1)
+    return t.unsqueeze(2) if t.dim() > 2 else t
+
+
+def _dense_leaves(cache) -> Dict[str, torch.Tensor]:
+    """{snapshot key: port leaf} of a dense cache, ``pos`` aside."""
+    out = {f"cache/layers/{f}": t
+           for f, t in zip(cache["layers"]._fields, cache["layers"])}
+    out.update({f"cache/{k}": v for k, v in cache.items()
+                if k not in ("pos", "layers")})
+    return out
+
+
 def _dense_to_ref(cache) -> Dict:
-    """The port's dense state ``{"pos": (S,), "layers": (L, S, ...)}`` in
-    the reference's slot-major layout ``{"pos": (S,) int32, "layers":
-    {field: (S, L, 1, ...)}}``."""
-    return {"pos": cache["pos"].to(torch.int32),
-            "layers": {f: t.transpose(0, 1).unsqueeze(2)
-                       for f, t in zip(cache["layers"]._fields,
-                                       cache["layers"])}}
+    """The port's dense cache ``{"pos": (S,), "layers": (L, S, ...)[,
+    "cross_k", "cross_v"]}`` in the reference's slot-major layout:
+    ``{"pos": (S,) int32, "layers": {field: (S, L, 1, ...)}, ...}``."""
+    out = {"pos": cache["pos"].to(torch.int32),
+           "layers": {f: _slot_major(t) for f, t in
+                      zip(cache["layers"]._fields, cache["layers"])}}
+    out.update({k: _slot_major(v) for k, v in cache.items()
+                if k not in ("pos", "layers")})
+    return out
 
 
 def _dense_from_ref(engine, flat: Dict[str, np.ndarray]) -> None:
     """Copy the reference-layout dense leaves in ``flat`` into the
-    engine's state cache, in place."""
+    engine's cache, in place."""
     c = engine._cache
     _copy(c["pos"], flat, "cache/pos")
-    for f, t in zip(c["layers"]._fields, c["layers"]):
-        key = f"cache/layers/{f}"
+    for key, t in _dense_leaves(c).items():
         if key not in flat:
             raise KeyError(f"snapshot missing array {key!r}")
-        a = _to_tensor(flat[key], t.dtype, t.device)    # (S, L, 1, ...)
-        want = (t.shape[1], t.shape[0], 1) + tuple(t.shape[2:])
+        a = _to_tensor(flat[key], t.dtype, t.device)
+        want = tuple(_slot_major(t).shape)
         if tuple(a.shape) != want:
             raise ValueError(f"snapshot {key} has shape {tuple(a.shape)}, "
-                             f"the engine's state wants {want}")
-        t.copy_(a[:, :, 0].transpose(0, 1))
+                             f"the engine's cache wants {want}")
+        t.copy_((a[:, :, 0] if a.dim() > 2 else a).transpose(0, 1))
 
 
 def _copy(dst: torch.Tensor, flat: Dict[str, np.ndarray], key: str) -> None:
@@ -149,6 +167,8 @@ def save_engine(engine, directory: str, blocking: bool = True) -> int:
                   "rng_state": engine._gen.get_state()}
     if engine.kv_layout == "paged":
         tree["arena"] = engine.arena.leaves
+        if engine._state:
+            tree["state"] = engine._state
         tree["kv_rows"] = host(engine._kv_rows)
     else:
         tree["cache"] = _dense_to_ref(engine._cache)
@@ -157,6 +177,9 @@ def save_engine(engine, directory: str, blocking: bool = True) -> int:
         reqs[str(i)] = {"prompt": host(np.asarray(r.prompt, np.int32)),
                         "generated": host(np.asarray(r.generated,
                                                      np.int32))}
+        if r.extras:
+            reqs[str(i)]["extras"] = {k: host(np.asarray(v))
+                                      for k, v in r.extras.items()}
     if reqs:
         tree["req"] = reqs
 
@@ -230,6 +253,8 @@ def restore_engine(engine, directory: str,
     if engine.kv_layout == "paged":
         for name, leaf in engine.arena.leaves.items():
             _copy(leaf, flat, f"arena/{name}")
+        for name, leaf in engine._state.items():
+            _copy(leaf, flat, f"state/{name}")
         engine._kv_rows = np.asarray(flat["kv_rows"], np.int32).copy()
     else:
         _dense_from_ref(engine, flat)

@@ -222,7 +222,8 @@ def test_default_config_picks_layout_and_chunk_by_family(rwkv):
 def test_rwkv_engine_refuses_what_the_reference_refuses(rwkv):
     """A recurrent family cannot page, the dense layout has no chunked
     prefill, and a prefix cache needs chunked prefill, as in the
-    reference; the attention families keep refusing the dense layout."""
+    reference; an attention family on the dense layout refuses chunked
+    prefill, as in the reference."""
     _, tparams = rwkv
     tcfg = tget_arch("rwkv6-1.6b").reduced()
     for kw, match in ((dict(kv_layout="paged", prefill_chunk=8), "dense"),
@@ -233,9 +234,9 @@ def test_rwkv_engine_refuses_what_the_reference_refuses(rwkv):
         with pytest.raises(ValueError, match=match):
             ServingEngine(tcfg, EngineConfig(**kw), params=tparams,
                           device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 10"):
+    with pytest.raises(ValueError, match="kv_layout='paged'"):
         ServingEngine(tget_arch("llama3.2-1b").reduced(),
-                      EngineConfig(kv_layout="dense", prefill_chunk=None),
+                      EngineConfig(kv_layout="dense", prefill_chunk=8),
                       device="cpu")
     from repro_torch.models.api import build_model
     with pytest.raises(ValueError, match="paged KV arena"):

@@ -15,9 +15,9 @@ injector and engine error boundary against the JAX package's.
   outcomes, equal counters and survivor tokens bitwise (reduced llama is
   f32).  The reference's asserts run on both.  Where the reference
   scenario uses the default layout (dense off TPU), both engines serve
-  the paged layout with 8-token chunks, the port's only layout for the
-  attention families; one more scenario runs chaos on reduced rwkv6's
-  dense slot layout (a forced stall rolls the lane's state back).
+  the paged layout with 8-token chunks; two more scenarios run chaos on
+  the dense slot layout of reduced rwkv6 and of reduced llama3.2-1b (a
+  forced stall rolls the lane's state or KV cache back).
 
 Tolerance: none; every compared value is exact.
 """
@@ -400,7 +400,17 @@ def test_dense_layout_chaos_matches_reference():
     lane's state rolls back to the snapshot taken before the step) and
     forced preemption: equal outcomes, counters and tokens, and every
     request that finished emits the fault-free run's tokens."""
-    jpk, tpk = _packages(_pair("rwkv6-1.6b"))
+    _dense_chaos("rwkv6-1.6b")
+
+
+def test_dense_attention_layout_chaos_matches_reference():
+    """The same on reduced llama3.2-1b's dense KV layout (bucketed
+    prefill; a stalled lane's KV cache rolls back to its snapshot)."""
+    _dense_chaos("llama3.2-1b")
+
+
+def _dense_chaos(arch):
+    jpk, tpk = _packages(_pair(arch))
 
     def run(p, chaos):
         eng = p.engine(num_slots=2, max_len=24, temperature=0.0,

@@ -1819,3 +1819,151 @@ def test_mla_kernels_ignore_a_poisoned_arena(cuda, dtype, pad):
             runs.append((ops.mla_paged_prefill_attention(
                 qa, qr, ckv[i], kr[i], tables, st, lens, qk_dim=qk),))
     _finite_and_bitwise(*runs)
+
+
+# ---------------------------------------------------------------------------
+# the widths and paths of every attention family (the registry's GQA archs,
+# the dense KV layout, bucketed prefill, vlm and encdec)
+# ---------------------------------------------------------------------------
+
+ARCH_WIDTHS = {"gemma-2b": (1, 8, 256), "qwen2-moe-a2.7b": (16, 1, 128),
+               "deepseek-coder-33b": (8, 7, 128),
+               "command-r-plus-104b": (8, 12, 128),
+               "seamless-m4t-medium": (16, 1, 64)}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_WIDTHS))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-2)])
+def test_paged_kernels_at_arch_serving_widths(cuda, arch, dtype, tol):
+    """The decode and prefill kernels at each arch's (KVH, G, hd), 8 lanes
+    over lengths off the page boundaries, against the plain versions and
+    bitwise run to run."""
+    KVH, G, hd = ARCH_WIDTHS[arch]
+    lengths = [1, 17, 64, 130, 255, 300, 512, 528]
+    q, k, v, tables, lens = _decode_inputs(cuda, 8, KVH, G, hd, dtype,
+                                           lengths)
+    scale = 1.0 / math.sqrt(hd)
+    got = ops.paged_attention(q, k, v, tables, lens)
+    again = ops.paged_attention(q, k, v, tables, lens)
+    want = paged_attention_plain(q, k, v, tables, lens, scale=scale)
+    assert (got.float() - want.float()).abs().max().item() < tol
+    assert torch.equal(got, again)
+    q, k, v, tables, st, lens = _prefill_inputs(
+        cuda, KVH, G, hd, dtype, starts=[0, 64, 128, 17, 333],
+        chunks=[64, 40, 1, 64, 17])
+    got = ops.paged_prefill_attention(q, k, v, tables, st, lens)
+    again = ops.paged_prefill_attention(q, k, v, tables, st, lens)
+    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
+                                         scale=scale)
+    live = torch.arange(64, device="cuda")[None] < (lens - st)[:, None]
+    diff = (got.float() - want.float()).abs()[live]
+    assert diff.max().item() < tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M", [32, 48])
+@pytest.mark.parametrize("mode", [OS, WS, IS])
+def test_bank_gemm_at_qwen2_expert_shape(cuda, M, mode):
+    """qwen2-moe-a2.7b's expert banks, 64 x (M x 2048 x 1408) and 64 x (M x
+    1408 x 2048) in bf16 (M = 8 slots x capacity 4 or 6): one launch
+    each, within the GEMM's bound of the plain version, bitwise run to
+    run."""
+    for K, N in ((2048, 1408), (1408, 2048)):
+        a = torch.randn((64, M, K), generator=cuda, device="cuda") \
+            .to(torch.bfloat16)
+        b = (torch.randn((64, K, N), generator=cuda, device="cuda")
+             / math.sqrt(K)).to(torch.bfloat16)
+        n0 = ops.launch_counts()["rsa_gemm"]
+        got = ops.rsa_gemm(a, b, block_k=256, mode=mode)
+        again = ops.rsa_gemm(a, b, block_k=256, mode=mode)
+        assert ops.launch_counts()["rsa_gemm"] == n0 + 2
+        want = rsa_gemm_plain(a, b, block_k=256, mode=mode)
+        mag = torch.bmm(a.abs().float(), b.abs().float()).max().item()
+        chunks = 1 if mode == OS else math.ceil(K / 256)
+        tol = K * 2.0 ** -24 * mag + (chunks + 1) * 2.0 ** -8 * \
+            want.abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("Sq", [128, 64, 16])
+def test_flash_forward_bidirectional_at_seamless_encoder_shape(cuda, Sq):
+    """The flash forward, bidirectional, bf16, at seamless-m4t-medium's
+    encoder (B = 1, S = 128, 16 heads x 64) and its cross-attention
+    prefill (Sq = a bucket over the 128 source rows): the reference's
+    bf16 tolerance (2e-2) against the plain version, bitwise run to run."""
+    from repro_torch.kernels.flash_attn import (flash_fwd_cuda,
+                                                flash_fwd_plain)
+    q = torch.randn((1, Sq, 16, 64), generator=cuda, device="cuda") \
+        .to(torch.bfloat16)
+    k, v = (torch.randn((1, 128, 16, 64), generator=cuda, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = flash_fwd_cuda(q, k, v, causal=False, scale=0.125)
+    o2, lse2 = flash_fwd_cuda(q, k, v, causal=False, scale=0.125)
+    po, _ = flash_fwd_plain(q, k, v, causal=False, scale=0.125, bq=Sq,
+                            bk=128)
+    diff = (o.float() - po.float()).abs()
+    assert bool((diff <= 2e-2 + 2e-2 * po.float().abs()).all())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def _reduced_pair(arch):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import build_model
+    cfg = get_arch(arch, optimized=True).reduced()
+    params = build_model(cfg, device="cpu").init(0)
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch,layout", [
+    ("llama3.2-1b", "dense"), ("llama3.2-1b", "paged"),
+    ("qwen2-moe-a2.7b", "paged"), ("internvl2-76b", "paged"),
+    ("internvl2-76b", "dense"), ("seamless-m4t-medium", "paged"),
+    ("seamless-m4t-medium", "dense")])
+def test_reduced_bucketed_serve_matches_cpu(cuda, arch, layout):
+    """A reduced model (f32, optimized profile: seamless's encoder on the
+    flash forward) served on the card with bucketed prefill, on the dense
+    or the paged layout, against the same serve on the CPU from the same
+    weights: the same greedy tokens, the paged decode kernel once a layer
+    and decode step on the paged layout (none on the dense one), the flash
+    forward once an encoder and a decoder layer a prefill for seamless,
+    no plain call."""
+    import numpy as np
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg, params = _reduced_pair(arch)
+    rng = np.random.default_rng(0)
+    fe = cfg.frontend
+    reqs = []
+    for i, n in enumerate((5, 13, 9)):
+        extras = None
+        if cfg.family == "vlm":
+            extras = {"patch_embeds": rng.standard_normal(
+                (1, fe.num_tokens, fe.feature_dim)).astype(np.float32)}
+        if cfg.family == "encdec":
+            extras = {"src_features": rng.standard_normal(
+                (1, 10, fe.feature_dim)).astype(np.float32)}
+        reqs.append((rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                     extras))
+    ecfg = EngineConfig(num_slots=2, max_len=32, block_size=4,
+                        temperature=0.0, kv_layout=layout,
+                        prefill_chunk=None,
+                        src_len=10 if cfg.family == "encdec" else 0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, ecfg, params=_to(params, dev), device=dev)
+        ops.reset_counts()
+        out[dev] = eng.run([Request(f"r{i}", p, 6, extras=e)
+                            for i, (p, e) in enumerate(reqs)])
+        eng.pool.check()
+        assert eng.pool.num_free == eng.pool.num_blocks
+    counts = ops.launch_counts()
+    for rid in out["cpu"]:
+        assert np.array_equal(out["cuda"][rid], out["cpu"][rid]), rid
+    D = eng.metrics.decode_steps
+    assert counts["plain_calls"] == 0
+    assert counts["paged_decode"] == (cfg.num_layers * D
+                                      if layout == "paged" else 0)
+    assert counts["paged_prefill"] == 0
+    assert counts["flash_fwd"] == ((cfg.encoder_layers + cfg.num_layers) * 3
+                                   if cfg.family == "encdec" else 0)

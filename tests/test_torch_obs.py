@@ -454,3 +454,21 @@ def test_traced_rwkv_run_matches_reference(rwkv):
             assert (t["m"], j["m"]) == (2, 1)
         else:
             assert [t[k] for k in apart] == [j[k] for k in apart]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_traced_bucketed_llama_run_matches_reference(llama, layout):
+    """Bucketed prefill on both KV layouts (the dense slot caches, or the
+    buckets scattered into pages through ``paged_write``): every event,
+    counter and compile count equal the JAX engine's, but, on the dense
+    layout, the decode scope's dispatch M (num_slots in the port, 1 in
+    the reference's vmapped trace) and the analytic costs that follow
+    it."""
+    apart = ("m", "cost_s", "cost_best_s") if layout == "dense" else ()
+    jeng, teng = _run_both(llama, kv_layout=layout, prefill_chunk=None)
+    _same_trace(jeng, teng, apart=apart)
+    names = ("prefill", "decode") if layout == "dense" else \
+        ("prefill", "paged_write", "paged_decode")
+    for name in names:
+        key = f"jit_compiles.{name}"
+        assert teng.obs.counters[key] == jeng.obs.counters[key] > 0, key

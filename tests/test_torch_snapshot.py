@@ -5,11 +5,15 @@
   uninterrupted run's (and the JAX engine's on the same weights), on the
   page arena (reduced llama3.2-1b, with and without the prefix cache, by
   hand and every N steps through ``snapshot_every``) and on the dense
-  slot state (reduced rwkv6), greedy; with temperature > 0 the saved
-  ``torch.Generator`` state makes the resumed samples the uninterrupted
-  run's too;
-- a snapshot the JAX engine wrote (paged llama, dense rwkv6) restores in
-  the port and ends with the JAX engine's greedy tokens, and the port
+  slot state (reduced rwkv6) and the dense KV caches of an attention
+  family (reduced llama3.2-1b, bucketed prefill), and on the page arena
+  of an encdec model (reduced seamless-m4t-medium: bucketed prefill, its
+  cross K/V dense per slot, each request's source features), greedy;
+  with temperature > 0 the saved ``torch.Generator`` state makes the
+  resumed samples the uninterrupted run's too;
+- a snapshot the JAX engine wrote (paged llama, dense rwkv6, dense llama,
+  paged encdec) restores in the port and ends with the JAX engine's
+  greedy tokens, and the port
   writes its leaves under the reference's keys (apart from the sampling
   state: the reference's ``rng_key``, the port's ``rng_state``);
 - a bf16 arena comes back bit for bit;
@@ -42,6 +46,10 @@ PAGED = dict(num_slots=2, max_len=31, block_size=8, temperature=0.0,
              kv_layout="paged", prefill_chunk=8, max_prefills_per_step=2)
 DENSE = dict(num_slots=2, max_len=24, temperature=0.0, kv_layout="dense",
              prefill_chunk=None, max_prefills_per_step=2)
+SRC = 6
+ENCDEC = dict(num_slots=2, max_len=24, block_size=4, temperature=0.0,
+              kv_layout="paged", prefill_chunk=None, src_len=SRC,
+              max_prefills_per_step=2)
 
 
 @pytest.fixture(autouse=True)
@@ -66,14 +74,23 @@ def rwkv():
     return _pair("rwkv6-1.6b")
 
 
-def _reqs(cls, vocab, n=4, gen=6, plen=12, seed=3, shared=0):
+@pytest.fixture(scope="module")
+def seamless():
+    return _pair("seamless-m4t-medium")
+
+
+def _reqs(cls, vocab, n=4, gen=6, plen=12, seed=3, shared=0, src_feat=0):
+    """``src_feat`` > 0: each request carries (1, SRC, src_feat) source
+    features (encdec)."""
     rng = np.random.default_rng(seed)
     head = rng.integers(0, vocab, shared).astype(np.int32)
     out = []
     for i in range(n):
         p = rng.integers(0, vocab, plen).astype(np.int32)
         p[:shared] = head
-        out.append(cls(f"r{i}", p, gen))
+        extras = ({"src_features": rng.standard_normal(
+            (1, SRC, src_feat)).astype(np.float32)} if src_feat else None)
+        out.append(cls(f"r{i}", p, gen, extras=extras))
     return out
 
 
@@ -169,6 +186,29 @@ def test_kill_and_resume_dense(rwkv, tmp_path):
         np.testing.assert_array_equal(base[rid], jout[rid])
 
 
+def test_kill_and_resume_dense_attention(llama, tmp_path):
+    """The dense layout of an attention family: the per-slot KV caches and
+    their lengths cross the snapshot in the reference's slot-major
+    layout."""
+    base, _, _ = _kill_and_resume(llama, DENSE, tmp_path, kill_at=3,
+                                  reqs_kw=dict(n=3, gen=5))
+    jout = _jengine(llama, DENSE).run(_reqs(JRequest, 512, n=3, gen=5))
+    for rid in jout:
+        np.testing.assert_array_equal(base[rid], jout[rid])
+
+
+def test_kill_and_resume_paged_encdec(seamless, tmp_path):
+    """A paged encdec engine: the arena, the slots' dense cross K/V and
+    each live request's source features come back."""
+    feat = seamless[2].frontend.feature_dim
+    kw = dict(n=3, gen=5, src_feat=feat)
+    base, _, _ = _kill_and_resume(seamless, ENCDEC, tmp_path, kill_at=3,
+                                  reqs_kw=kw)
+    jout = _jengine(seamless, ENCDEC).run(_reqs(JRequest, 512, **kw))
+    for rid in jout:
+        np.testing.assert_array_equal(base[rid], jout[rid])
+
+
 def test_kill_and_resume_sampled(llama, tmp_path):
     """temperature > 0: the saved generator state continues the draws."""
     _kill_and_resume(llama, dict(PAGED, temperature=0.8, top_k=40),
@@ -233,6 +273,42 @@ def test_jax_snapshot_restores_in_port(arch, ecfg, kill, llama, rwkv,
     assert jk - {"rng_key"} == tk - {"rng_state"}
     assert jm["engine"] == tm["engine"] and jm["pool"] == tm["pool"]
     assert jm["requests"] == tm["requests"]
+
+
+@pytest.mark.parametrize("arch,ecfg,kill", [("llama", DENSE, 3),
+                                            ("seamless", ENCDEC, 3)])
+def test_jax_snapshot_restores_in_port_attention_layouts(
+        arch, ecfg, kill, llama, seamless, tmp_path):
+    """A JAX snapshot of a dense llama engine (its per-slot KV caches) and
+    of a paged encdec engine (its cross K/V state, the requests' source
+    features) restores in the port and ends with the JAX engine's tokens;
+    the port writes the same keys, its sampling state aside."""
+    pair = {"llama": llama, "seamless": seamless}[arch]
+    kw = dict(n=3, gen=5,
+              src_feat=pair[2].frontend.feature_dim if arch == "seamless"
+              else 0)
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jeng = _jengine(pair, ecfg)
+    for r in _reqs(JRequest, 512, **kw):
+        jeng.submit(r)
+    for _ in range(kill):
+        jeng.step()
+    jeng.snapshot(str(jdir))
+    _drain(jeng)
+    want = {r.rid: list(r.generated) for r in jeng.requests.values()}
+    teng = _engine(pair, ecfg)
+    assert teng.restore(str(jdir)) == kill
+    _drain(teng)
+    assert {r.rid: list(r.generated) for r in teng.requests.values()} == want
+    port = _engine(pair, ecfg)
+    for r in _reqs(Request, 512, **kw):
+        port.submit(r)
+    for _ in range(kill):
+        port.step()
+    port.snapshot(str(tdir))
+    (jk, jm), (tk, tm) = _keys(jdir), _keys(tdir)
+    assert jk - {"rng_key"} == tk - {"rng_state"}
+    assert jm["engine"] == tm["engine"] and jm["pool"] == tm["pool"]
 
 
 def test_bf16_arena_bit_for_bit(tmp_path):

@@ -118,6 +118,30 @@ def test_loss_and_every_grad_leaf_match(setup, execute):
     _assert_grads_close(tree_map(lambda p: p.grad, leaves), jgrads)
 
 
+@pytest.mark.parametrize("causal_skip", [False, True])
+def test_loss_and_grads_on_the_blockwise_route(causal_skip):
+    """``attn_impl="xla"`` (the config's default): attention through the
+    blockwise route, which autograd differentiates as ``jax.grad`` does
+    the reference's scan; S = 48 over chunks of 32 (one full, one ragged
+    chunk), with the triangular walk too.  Tolerances as above."""
+    jcfg = get_arch("llama3.2-1b").reduced().replace(
+        flash_causal_skip=causal_skip)
+    tcfg = tget_arch("llama3.2-1b").reduced().replace(
+        flash_causal_skip=causal_skip)
+    assert jcfg.attn_impl == tcfg.attn_impl == "xla"
+    jm = jbuild(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(_flatten(jparams), tcfg, "cpu")
+    tokens = j_batch(JDataConfig(jcfg.vocab_size, S, B, seed=3), 0)["tokens"]
+    jloss, _, jgrads = _jax_loss_and_grads(jm, jparams, tokens, "xla")
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), tparams)
+    loss, _ = tbuild(tcfg, device="cpu").loss(
+        leaves, {"tokens": torch.from_numpy(tokens)})
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
+    _assert_grads_close(tree_map(lambda p: p.grad, leaves), jgrads)
+
+
 def test_logits_match(setup):
     jm, jparams, tcfg, tparams, tokens = setup
     with jdispatch.use(execute="xla"):
