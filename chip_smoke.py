@@ -184,6 +184,31 @@ Phases (any failure exits non-zero):
    decode call's wall and the blockwise route's device time a layer; each
    path's two most launched GEMM shapes are held against the plain
    version and timed.
+14. the recurrent families end to end.  (a) zamba2-7b at its published
+   widths with no depth cut (81 slots: 68 Mamba2 layers in 13 groups of
+   5, each followed by the one weight-shared attention + MLP block, then
+   3 more; d=3584, shared attention 32 x 112, vocab 32000, tied; bf16,
+   random weights from seed 0) on the dense slot layout, 8 slots, 8
+   requests of 64, 128, ..., 512 tokens, 16 new tokens: phase 13's gates,
+   228 GEMM launches a model call (2 x 68 + 7 x 13 + the unembedding), the
+   decode call's wall beside its kernels' device time (torch.profiler)
+   and the device time of its SSD scans and blockwise attention; a
+   batched prefill and a decode step against the plain versions in f32
+   (5%) and bf16 (5%, or where bf16 rounding grown through 81 slots
+   passes that, no further than the plain bf16 run is from the plain f32
+   run, as phase 8), the gate that held printed.  (b) zamba2-7b trained
+   at full width with a depth cut to 13 slots (printed), and (c)
+   rwkv6-1.6b trained uncut, both through ``train_main`` (optimized
+   profile: the shared block on the flash kernels at hd 112; the WKV
+   kernel forward, its backward through the plain scan), f32, 4 steps of
+   2 x 1024 (lr 1e-3; rwkv6 1e-4, where 1e-3 makes its random-weight
+   loss rise): a falling loss, 0 restarts, 0 plain calls, each kernel's
+   launches a step as expected, step 1's loss and grad norm within 1e-5 /
+   1e-4 of the same step on the plain versions; rwkv6's grad norm, where
+   the f32 rounding grown through its 24 layers passes 1e-4, no further
+   from the plain run's than a control run with the kernel GEMMs and the
+   plain WKV scan is (the gate that held printed), and 1e-5 / 1e-4 at 2
+   layers of the same widths.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -205,7 +230,13 @@ its bound and the SDPA yardstick, and phase 13's shapes: qwen2-moe's
 expert banks, the decode and prefill kernels at gemma-2b's (G = 8, hd
 256) and qwen2-moe's (G = 1, hd 128) widths and the bidirectional flash
 forward at seamless-m4t-medium's encoder shape, each run to run bitwise,
-timed beside its bound and yardstick.
+timed beside its bound and yardstick, and phase 14's: zamba2-7b's
+serving GEMMs (bf16 at M = 8 and 512, ``ssm.in_proj``'s ragged N =
+14576 among them) and training GEMMs (f32 forward, dx and dw at 2 x 1024
+tokens), the three flash kernels at its shared block's shape (B = 2, S =
+1024, 32 / 32 heads, hd 112, causal, f32, run to run bitwise) and the
+WKV kernel at 14c's training forward (B = 2, S = 1024), each timed
+beside its plain version, its bound and ``matmul`` / SDPA.
 
 After phase 9 one line per mode gives the worst kernel / library-call
 factor over the run's timed GEMM shapes, with its shape.  The lines
@@ -218,6 +249,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -268,6 +300,14 @@ SG_GEMMS = ((512, 512, 512, "float32"), (128, 8000, 128, "float32"),
 # phase 13: the paths' slots and the encdec source length
 P13_SLOTS, P13_SRC = 8, 128
 P13_KEYS = {}     # each phase 13 path's GEMM launches by (.., M, K, N, mode)
+# phase 14: zamba2-7b served (8 slots, 8 requests of 64, 128, ..., 512
+# tokens, 16 new tokens each) and trained (depth cut to 13 slots: 2 groups
+# of 5 Mamba layers and the shared block, then 1 Mamba layer), rwkv6-1.6b
+# trained uncut; phase 3's flash case at the shared block's shape
+P14_SLOTS, P14_GEN, P14_LENS = 8, 16, tuple(range(64, 513, 64))
+P14_TRAIN_SLOTS = 13
+P14_FLASH = "zamba2 hd 112"
+P14_KEYS = {}     # each phase 14 path's GEMM launches by (M, K, N, mode)
 
 
 def log(*a):
@@ -399,7 +439,8 @@ def mode_summary(report):
     """Per mode, the worst kernel / library-call factor over every timed
     GEMM and bank shape of the run, with its shape."""
     worst = {}
-    for part in ("gemm", "bank", "train_gemm", "ds_gemm", "rwkv_gemm"):
+    for part in ("gemm", "bank", "train_gemm", "ds_gemm", "rwkv_gemm",
+                 "p14_gemm", "p14_train_gemm"):
         for rec in report.get(part, []):
             if not rec.get("ms") or not rec.get("library_ms"):
                 continue
@@ -1301,14 +1342,9 @@ def check_flash(torch, report, timer, cfg):
     ``scaled_dot_product_attention`` (GQA, forward; its backward through
     autograd computes dq, dk and dv at once), a yardstick the port never
     calls; the main case is the kernel table's."""
-    import torch.nn.functional as F
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn import (
-        _flash_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
-        flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
     from repro_torch.launch.bench_flash import build_report
     H0, KVH0, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    scale = 1.0 / math.sqrt(hd)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1316,7 +1352,7 @@ def check_flash(torch, report, timer, cfg):
     report["flash_build"] = build_report(_build.build_all())
     for line in report["flash_build"]:
         log(f"  {line}")
-    for name, B, Sq, Skv, causal, dt, H, KVH in (
+    for case in (
             ("main", TRAIN_B, TRAIN_S, TRAIN_S, True, f32, H0, KVH0),
             ("ragged", 2, 1000, 1000, True, f32, H0, KVH0),
             ("kv past every query", 1, 500, 1000, True, f32, H0, KVH0),
@@ -1325,150 +1361,171 @@ def check_flash(torch, report, timer, cfg):
             ("bf16 forward", TRAIN_B, TRAIN_S, TRAIN_S, True, bf16, H0,
              KVH0),
             ("G = 8", TRAIN_B, TRAIN_S, TRAIN_S, True, f32, H0, H0 // 8)):
-        plan = _flash_plan(H, KVH, hd, hd)
-        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, Skv, KVH, hd), generator=gen,
-                        device="cuda").to(dt)
-        v = torch.randn((B, Skv, KVH, hd), generator=gen,
-                        device="cuda").to(dt)
-        bq, bk = min(512, Sq), min(512, Skv)
-        blocks = dict(causal=causal, scale=scale, bq=bq, bk=bk)
-        o, lse = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
-        po, plse = flash_fwd_plain(q, k, v, **blocks)
-        rt = 2e-6 if dt == f32 else 2e-2
-        res = {"fwd o": (o, po, rt, rt), "fwd lse": (lse, plse, 2e-6, 2e-6)}
-        if dt == f32:
-            do = torch.randn(o.shape, generator=gen, device="cuda")
-            delta = (do * o).sum(-1).transpose(1, 2).contiguous()
-            stats = (q, k, v, do, lse, delta)
-            dq = flash_dq_cuda(*stats, causal=causal, scale=scale)
-            dk, dv = flash_dkv_cuda(*stats, causal=causal, scale=scale)
-            pdq = flash_dq_plain(*stats, **blocks)
-            pdk, pdv = flash_dkv_plain(*stats, **blocks)
-            res.update({"dq": (dq, pdq, 3e-5, 1e-3),
-                        "dk": (dk, pdk, 3e-5, 1e-3),
-                        "dv": (dv, pdv, 3e-5, 1e-3)})
-        torch.cuda.synchronize()
-        errs, good = {}, True
-        for key, (got, want, atol, rtol) in res.items():
-            diff = (got.float() - want.float()).abs()
-            errs[key] = diff.max().item()
-            good &= bool((diff <= atol + rtol * want.float().abs()).all()) \
-                and math.isfinite(errs[key])
-        zeros = None
-        if Skv > Sq and causal:
-            zeros = bool((dk[:, Sq:] == 0).all() and (dv[:, Sq:] == 0).all())
-            good &= zeros
-        bitwise = None
-        if name in ("main", "G = 8"):
-            dq2 = flash_dq_cuda(*stats, causal=causal, scale=scale)
-            dk2, dv2 = flash_dkv_cuda(*stats, causal=causal, scale=scale)
-            bitwise = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                           and torch.equal(dv, dv2))
-            good &= bitwise
+        rec, good = flash_case(torch, timer, gen, *case, hd)
         ok &= good
-        rec = {"case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
-               "KVH": KVH, "hd": hd, "causal": causal,
-               "dtype": str(dt).split(".")[-1], "plan": plan._asdict(),
-               "max_abs_err": errs,
-               "tol": {k: (a, r) for k, (_, _, a, r) in res.items()},
-               "past_rows_zero": zeros, "run_to_run_bitwise": bitwise,
-               "ok": good}
-        log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} "
-            f"{rec['dtype']} {'causal' if causal else 'full'}: max_abs_err "
-            + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
-            + (f"; dk/dv past every query {'0' if zeros else 'NONZERO'}"
-               if zeros is not None else "")
-            + (f"; dq, dk/dv run to run bitwise {bitwise}"
-               if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
-        log(f"    plan: forward 64 query rows a CTA, {plan.fwd_stages} "
-            f"ring stage(s); dq {plan.dq_rows} query rows a CTA, 2 ring "
-            f"stages; dk/dv {plan.dkv_rows} kv rows a CTA, "
-            f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
-            f"{plan.parts} partial(s) a kv head")
-        pairs = B * H * sum(min(r + 1, Skv) if causal else Skv
-                            for r in range(Sq))
-        es = q.element_size()
-        qb, kb = q.numel() * es, k.numel() * es
-        st = 4 * B * H * Sq                      # one f32 per query row
-        peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(dt == f32)
-                      for t in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-        try:
-            out = sdpa()
-        except TypeError:                # a torch without enable_gqa
-            G = H // KVH
-            kt, vt = (t.detach().repeat_interleave(G, dim=1)
-                      .requires_grad_(dt == f32) for t in (kt, vt))
-
-            def sdpa():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=causal)
-            out = sdpa()
-            rec["library"] = "sdpa over k/v expanded to H heads"
-        timed = {"flash_fwd": (
-            lambda: flash_fwd_cuda(q, k, v, causal=causal, scale=scale),
-            lambda: flash_fwd_plain(q, k, v, **blocks), sdpa,
-            bound_ms(qb + 2 * kb + qb + st, 4 * hd * pairs, peak),
-            errs["fwd o"])}
-        if dt == f32:
-            gout = do.transpose(1, 2)
-
-            def sdpa_bwd():
-                return torch.autograd.grad(out, (qt, kt, vt), gout,
-                                           retain_graph=True)
-            timed["flash_dq"] = (
-                lambda: flash_dq_cuda(*stats, causal=causal, scale=scale),
-                lambda: flash_dq_plain(*stats, **blocks), sdpa_bwd,
-                bound_ms(3 * qb + 2 * kb + 2 * st, 6 * hd * pairs, peak),
-                errs["dq"])
-            timed["flash_dkv"] = (
-                lambda: flash_dkv_cuda(*stats, causal=causal, scale=scale),
-                lambda: flash_dkv_plain(*stats, **blocks), sdpa_bwd,
-                bound_ms(2 * qb + 4 * kb + 2 * st, 8 * hd * pairs, peak),
-                max(errs["dk"], errs["dv"]))
-        rec["main"] = name == "main"
-        rec["timed"] = {}
-        for kname, (kern, plain_fn, lib, (b_ms, b_by), err) in \
-                timed.items():
-            t = {"ms": timer(kern), "plain_ms": timer(plain_fn),
-                 "library_ms": timer(lib), "bound_ms": b_ms,
-                 "bound_by": b_by, "max_abs_err": err}
-            rec["timed"][kname] = t
-            log(f"    {kname:<9} kernel {t['ms']:.4f} ms plain "
-                f"{t['plain_ms']:.4f} ms sdpa {t['library_ms']:.4f} ms "
-                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-        del qt, kt, vt, out
+        rec["main"] = case[0] == "main"
         report["flash"].append(rec)
     torch.cuda.empty_cache()
     return ok
 
 
-def train_gemm_cases(cfg):
+def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
+               hd):
+    """One case of ``check_flash``: the three kernels against their plain
+    versions (the backward pair alone, from the kernel forward's lse and
+    delta; f32 only), its plan, each kernel timed beside its plain version,
+    SDPA and its bound.  Returns (record, ok)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (
+        _flash_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
+        flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    plan = _flash_plan(H, KVH, hd, hd)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Skv, KVH, hd), generator=gen,
+                    device="cuda").to(dt)
+    v = torch.randn((B, Skv, KVH, hd), generator=gen,
+                    device="cuda").to(dt)
+    bq, bk = min(512, Sq), min(512, Skv)
+    blocks = dict(causal=causal, scale=scale, bq=bq, bk=bk)
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
+    po, plse = flash_fwd_plain(q, k, v, **blocks)
+    rt = 2e-6 if dt == f32 else 2e-2
+    res = {"fwd o": (o, po, rt, rt), "fwd lse": (lse, plse, 2e-6, 2e-6)}
+    if dt == f32:
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        stats = (q, k, v, do, lse, delta)
+        dq = flash_dq_cuda(*stats, causal=causal, scale=scale)
+        dk, dv = flash_dkv_cuda(*stats, causal=causal, scale=scale)
+        pdq = flash_dq_plain(*stats, **blocks)
+        pdk, pdv = flash_dkv_plain(*stats, **blocks)
+        res.update({"dq": (dq, pdq, 3e-5, 1e-3),
+                    "dk": (dk, pdk, 3e-5, 1e-3),
+                    "dv": (dv, pdv, 3e-5, 1e-3)})
+    torch.cuda.synchronize()
+    errs, good = {}, True
+    for key, (got, want, atol, rtol) in res.items():
+        diff = (got.float() - want.float()).abs()
+        errs[key] = diff.max().item()
+        good &= bool((diff <= atol + rtol * want.float().abs()).all()) \
+            and math.isfinite(errs[key])
+    zeros = None
+    if Skv > Sq and causal:
+        zeros = bool((dk[:, Sq:] == 0).all() and (dv[:, Sq:] == 0).all())
+        good &= zeros
+    bitwise = None
+    if name in ("main", "G = 8", P14_FLASH):
+        dq2 = flash_dq_cuda(*stats, causal=causal, scale=scale)
+        dk2, dv2 = flash_dkv_cuda(*stats, causal=causal, scale=scale)
+        bitwise = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                       and torch.equal(dv, dv2))
+        good &= bitwise
+    rec = {"case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
+           "KVH": KVH, "hd": hd, "causal": causal,
+           "dtype": str(dt).split(".")[-1], "plan": plan._asdict(),
+           "max_abs_err": errs,
+           "tol": {k: (a, r) for k, (_, _, a, r) in res.items()},
+           "past_rows_zero": zeros, "run_to_run_bitwise": bitwise,
+           "ok": good}
+    log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} "
+        f"{rec['dtype']} {'causal' if causal else 'full'}: max_abs_err "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + (f"; dk/dv past every query {'0' if zeros else 'NONZERO'}"
+           if zeros is not None else "")
+        + (f"; dq, dk/dv run to run bitwise {bitwise}"
+           if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
+    log(f"    plan: forward 64 query rows a CTA, {plan.fwd_stages} "
+        f"ring stage(s); dq {plan.dq_rows} query rows a CTA, 2 ring "
+        f"stages; dk/dv {plan.dkv_rows} kv rows a CTA, "
+        f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
+        f"{plan.parts} partial(s) a kv head")
+    pairs = B * H * sum(min(r + 1, Skv) if causal else Skv
+                        for r in range(Sq))
+    es = q.element_size()
+    qb, kb = q.numel() * es, k.numel() * es
+    st = 4 * B * H * Sq                      # one f32 per query row
+    peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(dt == f32)
+                  for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    try:
+        out = sdpa()
+    except TypeError:                # a torch without enable_gqa
+        G = H // KVH
+        kt, vt = (t.detach().repeat_interleave(G, dim=1)
+                  .requires_grad_(dt == f32) for t in (kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        out = sdpa()
+        rec["library"] = "sdpa over k/v expanded to H heads"
+    timed = {"flash_fwd": (
+        lambda: flash_fwd_cuda(q, k, v, causal=causal, scale=scale),
+        lambda: flash_fwd_plain(q, k, v, **blocks), sdpa,
+        bound_ms(qb + 2 * kb + qb + st, 4 * hd * pairs, peak),
+        errs["fwd o"])}
+    if dt == f32:
+        gout = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), gout,
+                                       retain_graph=True)
+        timed["flash_dq"] = (
+            lambda: flash_dq_cuda(*stats, causal=causal, scale=scale),
+            lambda: flash_dq_plain(*stats, **blocks), sdpa_bwd,
+            bound_ms(3 * qb + 2 * kb + 2 * st, 6 * hd * pairs, peak),
+            errs["dq"])
+        timed["flash_dkv"] = (
+            lambda: flash_dkv_cuda(*stats, causal=causal, scale=scale),
+            lambda: flash_dkv_plain(*stats, **blocks), sdpa_bwd,
+            bound_ms(2 * qb + 4 * kb + 2 * st, 8 * hd * pairs, peak),
+            max(errs["dk"], errs["dv"]))
+    rec["timed"] = {}
+    for kname, (kern, plain_fn, lib, (b_ms, b_by), err) in \
+            timed.items():
+        t = {"ms": timer(kern), "plain_ms": timer(plain_fn),
+             "library_ms": timer(lib), "bound_ms": b_ms,
+             "bound_by": b_by, "max_abs_err": err}
+        rec["timed"][kname] = t
+        log(f"    {kname:<9} kernel {t['ms']:.4f} ms plain "
+            f"{t['plain_ms']:.4f} ms sdpa {t['library_ms']:.4f} ms "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del qt, kt, vt, out
+    return rec, good
+
+
+def train_gemm_cases(cfg, sites=None):
     """(site, pass, M, K, N, a_transposed, b_transposed) of every GEMM of
-    phase 7's train step: each site's forward, dx = dy @ w^T and dw =
-    x^T @ dy, at M = batch x seq (the unembedding at one loss chunk,
-    tied: w is embed^T)."""
+    phase 7's train step (or of ``sites``, (name, K, N) each): each
+    site's forward, dx = dy @ w^T and dw = x^T @ dy, at M = batch x seq
+    (the unembedding at one loss chunk, tied: w is embed^T)."""
     d, q, kv, ff, V = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
                        cfg.vocab_size)
     M = TRAIN_B * TRAIN_S
+    if sites is None:
+        sites = (("q/o", d, q), ("k/v", d, kv), ("gate/up", d, ff),
+                 ("down", ff, d))
     out = []
     for site, m, k, n, tied in (
-            ("q/o", M, d, q, False), ("k/v", M, d, kv, False),
-            ("gate/up", M, d, ff, False), ("down", M, ff, d, False),
-            ("unembed", TRAIN_B * min(cfg.loss_chunk, TRAIN_S), d, V, True)):
+            *((name, M, k, n, False) for name, k, n in sites),
+            ("unembed", TRAIN_B * min(cfg.loss_chunk, TRAIN_S), d, V,
+             cfg.tie_embeddings)):
         out += [(site, "fwd", m, k, n, False, tied),
                 (site, "dx", m, n, k, False, not tied),
                 (site, "dw", k, m, n, True, False)]
     return out
 
 
-def check_train_gemms(torch, report, cfg, dispatcher):
-    """Every GEMM of the train step in f32, its recommended mode and
+def check_train_gemms(torch, report, cfg, dispatcher, cases=None,
+                      key="train_gemm"):
+    """Every GEMM of the train step in f32 (phase 7's, or ``cases``,
+    recorded under ``report[key]``), its recommended mode and
     blocks, in the layouts the step hands the kernel (dx reads w^T in
     place, dw reads x^T in place), against its plain version within the
     f32 summation bound; timed (5 runs, L2 flushed) beside the plain
@@ -1480,7 +1537,7 @@ def check_train_gemms(torch, report, cfg, dispatcher):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     ok = True
-    for site, pas, M, K, N, at, bt in train_gemm_cases(cfg):
+    for site, pas, M, K, N, at, bt in cases or train_gemm_cases(cfg):
         a = torch.randn((K, M) if at else (M, K), generator=gen,
                         device="cuda")
         a = a.t() if at else a
@@ -1510,7 +1567,7 @@ def check_train_gemms(torch, report, cfg, dispatcher):
                                                         mode=mode)),
                "library_ms": timer(lambda: torch.matmul(a, b)),
                "bound_ms": b_ms, "bound_by": b_by, "key": (M, K, N, mode)}
-        report["train_gemm"].append(rec)
+        report[key].append(rec)
         log(f"  rsa_gemm train {site:<8} {pas:<3} {M}x{K}x{N} {rec['mode']} "
             f"bk={bk} f32{' A^T' if at else ''}{' B^T' if bt else ''}: "
             f"max_abs_err {err:.3e} (tol {tol:.3e}) "
@@ -1562,7 +1619,8 @@ def check_wkv(torch, report, timer, rcfg):
     over the model's whole clip range (-exp(U(-12, 1)), down to -e: a
     64-row cumsum reaches ~ -174, whose negation overflows exp), the decode
     step (B = 8 slots, S = 1, chunk 1), a one-chunk prefill (B = 1, S =
-    64), and the state carry ([0:256] then [256:512] with the carried
+    64), phase 14c's training forward (B = 2, S = 1024), and the state
+    carry ([0:256] then [256:512] with the carried
     state equals one pass); and the linear-attention kernel at BH = 64, S =
     1024, K = V = 64, after one call of its entry point ``ops.linear_attn``
     with the counts at 0 (it is on no model path).  Each line prints the
@@ -1610,7 +1668,8 @@ def check_wkv(torch, report, timer, rcfg):
             ("prefill", 1, 512, 64, False),
             ("ragged", 1, 100, 64, True),
             ("decode", 8, 1, 1, False),
-            ("one chunk", 1, 64, 64, False)):
+            ("one chunk", 1, 64, 64, False),
+            ("train", TRAIN_B, TRAIN_S, 64, False)):
         args = inputs(B, S, strong)
         plan = _wkv_plan(B, -(-S // chunk) * chunk, H, K, V, chunk, sms)
         o, sf = run(args, chunk, "kernel")
@@ -1993,6 +2052,54 @@ def check_p13_kernels(torch, report, timer, dispatcher):
         f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
         f"{rec['library_ms']:.4f} ms bound {b_ms:.5f} ms ({b_by})")
     return ok
+
+
+def p14_sites(zcfg):
+    """(name, K, N) of zamba2's projection GEMMs: the Mamba block's two,
+    the shared block's attention (q, k, v and o are all d x 32 x 112 = d x
+    d) and its MLP."""
+    from repro_torch.models.ssm import mamba_dims
+    d = zcfg.d_model
+    d_inner, H, _, N = mamba_dims(zcfg)
+    return (("in_proj", d, 2 * d_inner + 2 * N + H),
+            ("out_proj", d_inner, d), ("q/k/v/o", d, zcfg.q_dim),
+            ("gate/up", d, zcfg.d_ff), ("down", zcfg.d_ff, d))
+
+
+def check_p14_kernels(torch, report, timer, dispatcher):
+    """Phase 14's shapes: zamba2-7b's serving GEMMs (bf16 at M = 8, a
+    decode step of 8 slots, and M = 512, the longest prompt's prefill; the
+    unembedding at M = 8 and at M = 1, a prefill's last row), among them
+    ``ssm.in_proj``'s ragged N = 14576, and its training GEMMs (f32,
+    forward, dx and dw at 14b's 2 x 1024 tokens), each against its plain
+    version and timed beside ``torch.matmul`` and its bound; and the three
+    flash kernels at its shared block's training shape (B = 2, S = 1024, 32
+    / 32 heads, hd 112, causal, f32), run to run bitwise, timed beside
+    SDPA."""
+    from repro_torch.configs.registry import get_arch
+    zcfg = get_arch("zamba2-7b")
+    d, V = zcfg.d_model, zcfg.vocab_size
+    sites = p14_sites(zcfg)
+    keys = {(M, K, N, dispatcher.recommend(M, K, N).mode)
+            for M in (P14_SLOTS, max(P14_LENS)) for _, K, N in sites}
+    keys |= {(M, d, V, dispatcher.recommend(M, d, V).mode)
+             for M in (1, P14_SLOTS)}
+    log("  zamba2-7b serving GEMMs, kernel vs plain (bf16)")
+    ok, report["p14_gemm"] = check_gemm_keys(torch, timer, keys, dispatcher,
+                                             V)
+    log(f"  zamba2-7b training GEMMs (f32, {TRAIN_B} x {TRAIN_S} tokens)")
+    report["p14_train_gemm"] = []
+    ok &= check_train_gemms(torch, report, zcfg, dispatcher,
+                            cases=train_gemm_cases(zcfg, sites),
+                            key="p14_train_gemm")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    rec, good = flash_case(torch, timer, gen, P14_FLASH, TRAIN_B, TRAIN_S,
+                           TRAIN_S, True, torch.float32, zcfg.num_heads,
+                           zcfg.num_kv_heads, zcfg.head_dim)
+    report["p14_flash"] = rec
+    torch.cuda.empty_cache()
+    return ok and good
 
 
 # ---------------------------------------------------------------------------
@@ -4296,7 +4403,8 @@ def p13_serve(torch, key, cfg, reqs, cut=None, **ecfg):
            "tokens": {rid: v.tolist() for rid, v in outputs.items()}}
     layout = (f"{engine.kv_layout}, "
               + (f"chunks of {engine.prefill_chunk}" if engine.prefill_chunk
-                 else "bucketed prefill"))
+                 else "whole-prompt prefill"
+                 if cfg.family in ("ssm", "hybrid") else "bucketed prefill"))
     if cut:
         log(f"  {key}: depth cut {cut}")
     log(f"  {key}: {cfg.name} {weights_gb:.2f} GB bf16 ({layout}, attn_impl "
@@ -4591,6 +4699,437 @@ def p13_gemms(torch, report, timer, dispatcher):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent families end to end
+# ---------------------------------------------------------------------------
+
+def p14_serve(torch, report, timer):
+    """14a: ``zamba2-7b`` at its published widths with no depth cut (81
+    slots: 68 Mamba2 layers in 13 groups of 5, each group followed by the
+    one shared attention + MLP block, then 3 more Mamba layers), bf16,
+    random weights from seed 0, on the dense slot layout (its only one), 8
+    slots, 8 requests of 64, 128, ..., 512 tokens and 16 greedy new
+    tokens each.  Phase 13's gates (every request done, the pool
+    leak-free, 0 plain calls, every plan line on the kernel, no paged
+    kernel), 228 GEMM launches a model call (2 x 68 + 7 x 13 + the
+    unembedding); then one decode call's wall beside the device time of
+    its SSD scans and blockwise attention, and the logits check."""
+    import numpy as np
+    from repro_torch.models.transformer import hybrid_layout
+    from repro_torch.serving import Request
+    cfg = p13_cfg("zamba2-7b", optimized=True)
+    n_m, n_groups, _, _ = hybrid_layout(cfg)
+    rng = np.random.default_rng(14)
+    reqs = [Request(rid=f"req-{i}", max_new_tokens=P14_GEN,
+                    prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32)) for i, n in enumerate(P14_LENS)]
+    ok, rec, engine, keys = p13_serve(torch, "14a", cfg, reqs,
+                                      num_slots=P14_SLOTS)
+    per_call = 2 * n_m + 7 * n_groups + 1
+    calls = rec["prefill_calls"] + rec["decode_steps"]
+    good = (engine.kv_layout == "dense" and rec["prefill_calls"] == len(reqs)
+            and rec["counts"]["rsa_gemm"] == per_call * calls)
+    rec.update(layout=hybrid_layout(cfg), gemm_per_call_expected=per_call,
+               gemm_per_call=rec["counts"]["rsa_gemm"] / max(calls, 1),
+               prompt_lens=list(P14_LENS))
+    log(f"  14a: {n_m} Mamba layers in {n_groups} groups + the shared block"
+        f" (no depth cut); rsa_gemm launches a model call "
+        f"{rec['gemm_per_call']:.1f} (2 x {n_m} + 7 x {n_groups} + 1 = "
+        f"{per_call}) over {calls} calls {'ok' if good else 'FAIL'}")
+    log("  14a gemm plan (recommendation, then what the kernel ran):")
+    for site, desc in engine.gemm_plan.items():
+        log(f"    {site:<16} {desc}")
+    rec["decode_time"] = p14_decode_time(torch, engine, timer)
+    lgood, lrec = p14_logits(torch, engine)
+    rec.update(lrec)
+    report["p14"]["14a"] = rec
+    P14_KEYS["14a"] = keys
+    del engine
+    torch.cuda.empty_cache()
+    return ok and good and lgood
+
+
+def p14_decode_time(torch, engine, timer):
+    """One decode call of the served engine's 8 slots: its wall (host
+    clock to the device synchronisation, median of 5), the device time its
+    kernels took (``torch.profiler``'s kernel events; "not measured" where
+    it records none) and so the card's idle share of the call.  Beside it,
+    isolated timings on random inputs, each multiplied by its count in a
+    call: one SSD scan at the call's shape (8 lanes, one 1-row chunk from a
+    carried state) times the 68 Mamba layers, and one shared-block
+    attention over the slot caches (the blockwise route, each lane at its
+    own length) times the 13 calls."""
+    from repro_torch.models.attention import multihead_attention
+    from repro_torch.models.ssm import _ssd_chunked, mamba_dims
+    from repro_torch.models.transformer import hybrid_layout
+    cfg, c = engine.cfg, engine._cache
+    n_m, n_groups, _, _ = hybrid_layout(cfg)
+    S, T = c["attn"].k.shape[1], c["attn"].k.shape[2]
+    toks = torch.zeros((S, 1), dtype=torch.int64, device="cuda")
+    walls = []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            engine.model.decode_step(engine.params, toks, c)
+            torch.cuda.synchronize()
+            walls.append((time.time() - t0) * 1e3)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.model.decode_step(engine.params, toks, c)
+            torch.cuda.synchronize()
+        # the kernels' own events only: a CPU op's self device time is the
+        # time of the kernels it launched, which the kernel events count
+        # already (as torch's own table sums it)
+        busy = sum(e.self_device_time_total for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3 or None
+    d_inner, H, P, N = mamba_dims(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    xh, Bm, Cm = rn(S, 1, H, P), rn(S, 1, N), rn(S, 1, N)
+    loga, h = -torch.rand((S, 1, H), generator=gen, device="cuda"), \
+        rn(S, H, P, N) * 0.1
+    ssd_ms = timer(lambda: _ssd_chunked(xh, Bm, Cm, loga, h, cfg.ssm.chunk))
+    lens = torch.tensor([64, 130, 200, 280, 350, 420, 500, T - 1],
+                        device="cuda")[:S]
+    q = rn(S, 1, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
+    attn_ms = timer(lambda: multihead_attention(
+        q, c["attn"].k[0], c["attn"].v[0], causal=True, q_offset=lens - 1,
+        kv_len=lens, chunk=cfg.attn_chunk))
+    wall = statistics.median(walls)
+    rec = {"decode_call_wall_ms": wall, "device_busy_ms": busy,
+           "device_idle_share": None if busy is None else 1 - busy / wall,
+           "ssd_ms_a_layer": ssd_ms, "ssd_ms_a_call": ssd_ms * n_m,
+           "blockwise_attention_ms_a_call": attn_ms,
+           "attention_ms_a_step": attn_ms * n_groups, "lanes": S,
+           "cache_rows": T}
+    log(f"    14a decode call: wall {wall:.2f} ms (median of 5), kernels "
+        + ("not measured" if busy is None else
+           f"{busy:.2f} ms on the card (torch.profiler; idle "
+           f"{100 * rec['device_idle_share']:.0f}% of the wall)")
+        + f"; timed alone on random inputs: the SSD scan {ssd_ms:.4f} ms "
+        f"a layer (x{n_m} = {ssd_ms * n_m:.3f} ms), the blockwise attention"
+        f" {attn_ms:.4f} ms a call (x{n_groups} = {attn_ms * n_groups:.3f} "
+        f"ms) over {S} lanes x {T} cache rows")
+    return rec
+
+
+def p14_logits(torch, engine, S=4, n=64):
+    """One batched prefill (S lanes of n tokens, exact length) and one
+    decode step of the served model on the kernels against the same steps
+    on the plain versions, in bf16 as served and with the same weights in
+    f32; every run decodes the plain bf16 run's greedy tokens.  Gates:
+    f32, 5% of the plain logits' largest magnitude (phases 4-8); bf16, 5%
+    (phase 13's gate) or, where the bf16 rounding flips grown through 81
+    slots pass that, no further from the plain bf16 run than the plain
+    bf16 run is from the plain f32 run (phase 8's gate); which one held is
+    printed."""
+    import numpy as np
+    from repro_torch import dispatch
+    from repro_torch.models.api import build_model
+    cfg, model, params = engine.cfg, engine.model, engine.params
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (S, n)), device="cuda")
+    out, nxt = {}, None
+    for dt in ("bf16", "f32"):
+        m, p = (model, params) if dt == "bf16" else \
+            (build_model(cfg32, "cuda"), _map_tree(params,
+                                                   lambda t: t.float()))
+        for mode in ("torch", "kernel"):
+            with torch.no_grad(), dispatch.use(execute=mode):
+                pl, cache = m.prefill(p, {"tokens": toks},
+                                      m.init_cache(S, n + 1))
+                nxt = pl.argmax(-1)[:, None] if nxt is None else nxt
+                dl, _ = m.decode_step(p, nxt, cache)
+            out[dt, mode] = (pl, dl)
+            del cache
+        del p
+    torch.cuda.synchronize()
+    ok, rec = True, {}
+    for i, name in ((0, "prefill"), (1, "decode")):
+        def diff(a, b):
+            return (out[a][i] - out[b][i]).abs().max().item()
+        err = diff(("f32", "kernel"), ("f32", "torch"))
+        tol = 0.05 * out["f32", "torch"][i].abs().max().item()
+        err16 = diff(("bf16", "kernel"), ("bf16", "torch"))
+        tol16 = 0.05 * out["bf16", "torch"][i].abs().max().item()
+        floor16 = diff(("bf16", "torch"), ("f32", "torch"))
+        gate = ("5%" if err16 <= tol16 else
+                "plain bf16 vs f32" if err16 <= floor16 else "none")
+        agree = (out["bf16", "kernel"][i].argmax(-1) ==
+                 out["bf16", "torch"][i].argmax(-1)).float().mean().item()
+        good = (err <= tol and math.isfinite(err) and gate != "none"
+                and math.isfinite(err16))
+        ok &= good
+        rec.update({f"{name}_logits_f32_max_abs_err": err,
+                    f"{name}_logits_f32_tol": tol,
+                    f"{name}_logits_bf16_max_abs_err": err16,
+                    f"{name}_logits_bf16_tol_5pct": tol16,
+                    f"{name}_logits_bf16_plain_vs_f32": floor16,
+                    f"{name}_logits_bf16_gate": gate,
+                    f"{name}_greedy_agreement": agree})
+        log(f"    14a {name} logits, kernels vs plain: f32 max_abs_err "
+            f"{err:.4e} (tol {tol:.4e}); bf16 {err16:.4e} (5% {tol16:.4e}, "
+            f"plain bf16 vs plain f32 {floor16:.4e}; gate held: {gate}) "
+            f"{'ok' if good else 'FAIL'}; bf16 greedy agreement {agree:.3f}")
+    return ok, rec
+
+
+def p14_train(torch, report, key, arch, layers=None, lr=1e-3):
+    """14b / 14c: ``train_main`` on ``arch`` (optimized profile) at its
+    published widths, f32, 4 steps of 2 x 1024 tokens at ``lr``, ``layers``
+    slots when a depth cut is given (printed); every kernel counted.
+    Gates, as phase 7: a falling loss, no restart, no plain call, each
+    kernel's launches a step as expected (under remat each forward GEMM
+    runs twice and has its dx and dw; the flash forward or the WKV kernel
+    runs twice a block, its backward once for flash and never for WKV: the
+    WKV backward recomputes through the plain scan, which counts nothing),
+    and step 1's loss and grad norm within 1e-5 / 1e-4 relative of the
+    same step from the same init and batch on the plain versions.  rwkv6
+    also holds phase 7's gate at 2 layers of the same widths, and its
+    24-layer step 1 runs again in ``launch/probe_grad.py`` (a process of
+    its own, since it widens f32 to f64 there) on the kernels, on the plain
+    versions and on the plain versions in f64.  Through 24 random-weight
+    layers the gradient grows ~34x and so does any rounding: the plain
+    f32 step's own grad norm lies further than 1e-4 from the f64 step's,
+    so where two f32 runs differ by more than 1e-4 the kernel run is held
+    against the f64 step instead: its grad norm and its whole gradient no
+    further from it than twice the plain f32 run's distances (two f32 runs
+    that differ only in rounding lie at different distances; a fault in an
+    f32 kernel lies orders of magnitude further), and the probed kernel
+    step the trained one to 1e-5.  The gate that held is printed."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, _batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.launch.steps import _dispatch_ctx, build_train_step
+    from repro_torch.launch.train import train_main
+    from repro_torch.models.transformer import hybrid_layout
+    cfg = get_arch(arch, optimized=True)
+    cfg32 = cfg.replace(num_layers=layers or cfg.num_layers,
+                        param_dtype="float32", compute_dtype="float32",
+                        opt_state_dtype="float32")
+    if layers:
+        log(f"  {key}: depth cut {cfg.num_layers} -> {layers} slots "
+            f"({hybrid_layout(cfg32)[0]} Mamba layers in "
+            f"{hybrid_layout(cfg32)[1]} groups + the shared block), full "
+            f"width")
+    ckpt = ROOT / "build" / f"chip_smoke_train_{key}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.time()
+    params, history, driver = train_main(
+        override_cfg=cfg, preset="full", steps=TRAIN_STEPS,
+        global_batch=TRAIN_B, seq_len=TRAIN_S, checkpoint_dir=str(ckpt),
+        checkpoint_every=10 * TRAIN_STEPS, lr=lr, log_every=1, seed=0,
+        execute="kernel", device="cuda", num_layers=layers)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    keys = dict(rsa_gemm_cuda.launches_by_key)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in _leaves(params))
+    restarts = driver.restarts
+    step_s = [e.seconds for e in driver.events]
+    del params, driver
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    chunks = -(-TRAIN_S // cfg.loss_chunk)
+    if cfg.family == "hybrid":
+        n_m, n_groups, _, _ = hybrid_layout(cfg32)
+        expect = {"rsa_gemm": 4 * (2 * n_m + 7 * n_groups + chunks),
+                  "flash_fwd": 2 * n_groups, "flash_dq": n_groups,
+                  "flash_dkv": n_groups}
+    else:
+        L = cfg32.num_layers
+        expect = {"rsa_gemm": 4 * (RW_GEMM_SITES * L + chunks),
+                  "wkv_bshk": 2 * L}
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+
+    # the same first step on the plain versions (and rwkv6's control),
+    # from the same init and the same batch (the loader's step 0)
+    batch = {"tokens": torch.from_numpy(_batch(DataConfig(
+        cfg32.vocab_size, TRAIN_S, TRAIN_B, seed=0), 0)["tokens"])
+        .to("cuda")}
+
+    def first_step(execute, scfg):
+        model, step_fn, opt = build_train_step(scfg, lr=lr, device="cuda")
+        p0 = model.init(0)
+        ops.reset_counts()
+        with _dispatch_ctx("train_step", execute):
+            _, _, met = step_fn(p0, opt.init(p0), batch)
+        out = (float(met["loss"]), float(met["grad_norm"]),
+               ops.launch_counts())
+        del p0, met, model, step_fn
+        torch.cuda.empty_cache()
+        return out
+    plain_loss, plain_gn, plain_counts = first_step("torch", cfg32)
+    probe = shallow = None
+    if cfg.family == "ssm":
+        # the same widths at 2 layers, where nothing has grown: phase 7's
+        # gate, kernels against plain
+        c2 = cfg32.replace(num_layers=2)
+        (kl, kg, _), (pl, pg, _) = (first_step(e, c2)
+                                    for e in ("kernel", "torch"))
+        shallow = (abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg), pg)
+        probe = p14_probe(key, arch, layers)
+
+    losses = [h["loss"] for h in history]
+    loss_err = abs(history[0]["loss"] - plain_loss) / abs(plain_loss)
+    gn_err = abs(history[0]["grad_norm"] - plain_gn) / abs(plain_gn)
+    vs64 = None
+    if probe is not None:
+        gn64 = probe["grad_norm"]["f64"]
+        vs64 = {n: (abs(probe["grad_norm"][n] - gn64) / gn64,
+                    probe["vs_f64"]["whole"][n]) for n in ("kernel", "plain")}
+        vs64["tie"] = abs(probe["grad_norm"]["kernel"]
+                          - history[0]["grad_norm"]) / plain_gn
+    gn_gate = ("1e-4" if gn_err <= 1e-4 else "f64" if vs64 is not None
+               and vs64["tie"] <= 1e-5
+               and all(vs64["kernel"][i] <= 2 * vs64["plain"][i]
+                       for i in (0, 1)) else "none")
+    med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    ok = (restarts == 0 and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] and len(history) == TRAIN_STEPS
+          and counts["plain_calls"] == 0
+          and all(counts[k] == TRAIN_STEPS * v for k, v in expect.items())
+          and loss_err <= 1e-5 and gn_gate != "none"
+          and (shallow is None or (shallow[0] <= 1e-5
+                                   and shallow[1] <= 1e-4))
+          and plain_counts["plain_calls"] > 0
+          and sum(v for k, v in plain_counts.items()
+                  if k != "plain_calls") == 0)
+    report["p14"][key] = {
+        "arch": cfg.name, "num_layers": cfg32.num_layers,
+        "cut": layers, "params": n_params, "dtype": "float32",
+        "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+        "wall_s": wall, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in history],
+        "restarts": restarts, "counts": counts,
+        "launches_per_step": per_step, "expected_per_step": expect,
+        "gemm_launches_by_shape": {
+            f"{k[0]}x{k[1]}x{k[2]}:{k[3]}": v for k, v in keys.items()},
+        "step_s": step_s, "median_step_s": med,
+        "tokens_per_s": TRAIN_B * TRAIN_S / med, "peak_memory_gb": peak_gb,
+        "lr": lr, "plain_step1_loss": plain_loss,
+        "plain_step1_grad_norm": plain_gn, "step1_loss_rel_err": loss_err,
+        "step1_grad_norm_rel_err": gn_err,
+        "vs_f64": vs64, "grad_norm_gate": gn_gate,
+        "two_layers": None if shallow is None else dict(zip(
+            ("loss_rel_err", "grad_norm_rel_err", "plain_grad_norm"),
+            shallow)),
+        "plain_counts": plain_counts, "ok": ok}
+    P14_KEYS[key] = keys
+    log(f"  {key}: {arch} {n_params / 1e9:.3f} B parameters, f32, lr "
+        f"{lr:g}, trained {len(history)} steps in {wall:.2f} s (wall, two "
+        f"checkpoints), restarts {restarts}, losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  {key}: launches per step: " + ", ".join(
+        f"{k} {per_step[k]:.1f} (expected {v})" for k, v in expect.items())
+        + f", plain_calls {counts['plain_calls']}")
+    log(f"  {key}: step {1e3 * med:.1f} ms (median of steps 2-{TRAIN_STEPS})"
+        f", {TRAIN_B * TRAIN_S / med:.1f} tokens/s; peak memory "
+        f"{peak_gb:.1f} GB")
+    log(f"  {key}: step 1 vs plain versions: loss {history[0]['loss']:.6f} "
+        f"vs {plain_loss:.6f} (rel {loss_err:.2e}, tol 1e-5), grad_norm "
+        f"{history[0]['grad_norm']:.6f} vs {plain_gn:.6f} (rel "
+        f"{gn_err:.2e}, tol 1e-4"
+        + ("" if vs64 is None else
+           f"; from the f64 step: kernel grad_norm rel "
+           f"{vs64['kernel'][0]:.2e}, gradient rel {vs64['kernel'][1]:.2e};"
+           f" plain f32 {vs64['plain'][0]:.2e}, {vs64['plain'][1]:.2e} "
+           f"(kernel tol 2x plain); probed kernel step vs trained "
+           f"{vs64['tie']:.2e} (tol 1e-5)") + f"; gate held: {gn_gate})"
+        + ("" if shallow is None else
+           f"; at 2 layers of the same widths: loss rel {shallow[0]:.2e}, "
+           f"grad_norm rel {shallow[1]:.2e} (tol 1e-5 / 1e-4; the plain "
+           f"grad norm {shallow[2]:.4f} there, {plain_gn:.4f} at "
+           f"{cfg32.num_layers} layers)")
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def p14_probe(key, arch, layers):
+    """``launch/probe_grad.py`` on ``arch`` at phase 7's batch: step 1 on
+    the kernels, on the plain versions and on the plain versions in f64,
+    in a process of its own; its record, or None where it failed."""
+    out = ROOT / "build" / f"chip_smoke_{key}_probe_grad.json"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.probe_grad",
+           "--arch", arch, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+           "--lrs", "", "--runs", "kernel,plain,f64", "--out", str(out)]
+    if layers:
+        cmd += ["--layers", str(layers)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.time()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    for line in run.stdout.splitlines():
+        if line.strip() and not line.startswith("    layer"):
+            log(f"    {key} probe_grad: {line.strip()}")
+    log(f"  {key}: probe_grad exit {run.returncode} in "
+        f"{time.time() - t0:.1f} s")
+    if run.returncode or not out.exists():
+        log(run.stderr[-4000:])
+        return None
+    return json.loads(out.read_text())
+
+
+def p14_all(torch, report, timer):
+    """Phase 14: 14a zamba2-7b served uncut, 14b zamba2-7b trained at
+    full width cut to 13 slots, 14c rwkv6-1.6b trained uncut."""
+    t0 = time.time()
+    report["p14"] = {}
+    ok = p14_serve(torch, report, timer)
+    ok &= p14_train(torch, report, "14b", "zamba2-7b", P14_TRAIN_SLOTS)
+    # rwkv6's random-weight gradient grows ~34x from 2 to 24 layers, and
+    # at phase 7's lr of 1e-3 its loss rises on the plain versions too
+    # (launch/probe_grad.py); at 1e-4 it falls
+    ok &= p14_train(torch, report, "14c", "rwkv6-1.6b", lr=1e-4)
+    report["phase14_s"] = time.time() - t0
+    return ok
+
+
+def p14_table(report):
+    """Phase 14's kernel-table entries: zamba2's serving GEMM shapes with
+    their launches in 14a, its training GEMMs and the flash kernels at hd
+    112 with their launches in 14b (the WKV kernel's training case is
+    among the WKV entries, with 14c's launches)."""
+    out = []
+    for rec in report["p14_gemm"]:
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[14a zamba2 {rec['M']}x{rec['K']}x{rec['N']} "
+                 f"{rec['mode']}]", P14_KEYS["14a"].get(rec["key"], 0)))
+    for rec in report["p14_train_gemm"]:
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[14b train {rec['site']} {rec['pass']} "
+                 f"{rec['M']}x{rec['K']}x{rec['N']} {rec['mode']} f32]",
+            P14_KEYS["14b"].get(rec["key"], 0)))
+    f = report["p14_flash"]
+    for name, t in f["timed"].items():
+        out.append({
+            "name": f"{name}[14b zamba2 B={f['B']} S={f['Sq']} "
+                    f"H={f['H']}/{f['KVH']} hd={f['hd']} f32]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": FLASH_TPU[name],
+            "launches": report["p14"]["14b"]["counts"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
+
+
 def gemm_entry(rec, name, launches):
     """A kernel-table entry of one timed GEMM shape: every mode from
     rsa_psum.cu, each against its own pallas_call."""
@@ -4712,7 +5251,8 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                  f"{rec['mode']} {rec['dtype']}]",
             rec["launched"]["rsa_gemm"]))
     launches = dict(report["rwkv_path"]["wkv_launches"],
-                    main=counts["linear_attn"])
+                    main=counts["linear_attn"],
+                    train=report["p14"]["14c"]["counts"]["wkv_bshk"])
     for rec in report["wkv"]:
         if "ms" not in rec or rec["case"] not in launches:
             continue
@@ -4777,6 +5317,7 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                      f"{rec['N']} {rec['mode']}]",
                 gemm_keys.get(rec["key"], 0)))
     out += p13_table(report)
+    out += p14_table(report)
     for rec in report["paged"]:
         if "ms" not in rec or rec.get("case") in P13_PAGED:
             continue
@@ -4853,6 +5394,7 @@ def main() -> int:
         ok &= check_wkv(torch, report, timer, get_arch("rwkv6-1.6b"))
         ok &= check_adaptnetx(torch, report, timer)
         ok &= check_p13_kernels(torch, report, timer, dispatcher)
+        ok &= check_p14_kernels(torch, report, timer, dispatcher)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -4940,6 +5482,13 @@ def main() -> int:
     ok &= p13_all(torch, report, timer)
     ok &= p13_gemms(torch, report, timer, dispatcher)
     log(f"  phase 13 took {report['phase13_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"== 14. the recurrent families: (a) zamba2-7b served at full width "
+        f"(81 slots, no depth cut), dense slot layout; (b) zamba2-7b trained"
+        f", cut to {P14_TRAIN_SLOTS} slots; (c) rwkv6-1.6b trained, no cut")
+    ok &= p14_all(torch, report, timer)
+    log(f"  phase 14 took {report['phase14_s']:.1f} s")
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

@@ -29,8 +29,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import dtype_of
 from repro_torch.models.moe import padded_num_experts
-from repro_torch.models.ssm import rwkv_num_heads
-from repro_torch.models.transformer import _is_moe_layer, num_dense_layers
+from repro_torch.models.ssm import mamba_dims, rwkv_num_heads
+from repro_torch.models.transformer import (_is_moe_layer, hybrid_layout,
+                                            num_dense_layers)
 
 
 def _steps(directory: Path):
@@ -138,6 +139,25 @@ def _rwkv_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _hybrid_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """Leaves of a hybrid model: ``ln1`` and every leaf of the reference's
+    ``init_mamba_block`` stacked over the Mamba layers, and the one shared
+    attention + MLP block, unstacked."""
+    d = cfg.d_model
+    n_m = hybrid_layout(cfg)[0]
+    d_inner, H, _, N = mamba_dims(cfg)
+    conv_ch = d_inner + 2 * N
+    blk = {"w_in": (d, 2 * d_inner + 2 * N + H),
+           "conv_w": (cfg.ssm.conv_width, conv_ch), "conv_b": (conv_ch,),
+           "A_log": (H,), "dt_bias": (H,), "D": (H,),
+           "norm_scale": (d_inner,), "w_out": (d_inner, d)}
+    shapes = {f"layers/blk/{k}": (n_m,) + v for k, v in blk.items()}
+    shapes["layers/ln1"] = (n_m, d)
+    shared = _stack_shapes("shared_attn", 1, cfg, moe=False)
+    shapes.update({k: v[1:] for k, v in shared.items()})
+    return shapes
+
+
 def _expected_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     L, d = cfg.num_layers, cfg.d_model
     nd = num_dense_layers(cfg)
@@ -150,6 +170,8 @@ def _expected_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
                        "frontend/proj2": (d, d)})
     if cfg.family == "ssm":
         shapes.update(_rwkv_shapes(cfg))
+    elif cfg.family == "hybrid":
+        shapes.update(_hybrid_shapes(cfg))
     elif cfg.family == "encdec":
         n = cfg.encoder_layers
         shapes.update({"enc_layers/ln1": (n, d), "enc_layers/ln2": (n, d),
@@ -193,7 +215,7 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
                       device) -> Dict:
     """The port's parameter dict from the reference's flat leaves for a
-    served ``cfg`` (any family of the registry but hybrid), in ``cfg.param_dtype``
+    served ``cfg`` (any arch of the registry), in ``cfg.param_dtype``
     (``F32_LEAVES`` in f32, as the reference draws them) on ``device``.
     Raises on a missing, unexpected or misshapen leaf."""
     want = _expected_shapes(cfg)

@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attn import (
     flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda, flash_dq_plain,
     flash_fwd_cuda, flash_fwd_plain)
 from repro_torch.kernels.linear_attn import (
-    linear_attn_cuda, linear_attn_plain, wkv_bshk_cuda, wkv_bshk_plain)
+    linear_attn_cuda, linear_attn_plain, wkv_bshk_cuda, wkv_bshk_plain,
+    wkv_scan)
 from repro_torch.kernels.paged_attn import (
     merge_softmax_states, paged_attention_lse_plain, paged_attention_plain,
     paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_attention_plain,
@@ -217,38 +218,64 @@ def _pad_rows(chunk: int, *ts):
         t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in ts)
 
 
-def _forward_only(what: str, *ts) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{what} is forward only in the port: its backward (the "
-            f"reference recomputes it through the plain scan) waits for RWKV "
-            f"training, ROADMAP.md queue 1 item 11")
+def _wkv_scan_padded(r, k, v, logw, u, state0, chunk: int):
+    """The plain chunked scan (``models/ssm.py::_wkv_chunked``'s) on the
+    wrapper's operands, S padded to a multiple of ``chunk``: (o in r's
+    dtype, final state f32).  Autograd differentiates it."""
+    S = r.shape[1]
+    rr, kk, vv, ww = (t.float() for t in _pad_rows(chunk, r, k, v, logw))
+    o, sf = wkv_scan(rr, kk, vv, ww, u.float()[None], state0.float(), chunk)
+    return o[:, :S].to(r.dtype), sf
+
+
+class _WKV(torch.autograd.Function):
+    """The WKV kernel (its plain version for CPU tensors) forward; the
+    backward recomputes through the plain chunked scan and differentiates
+    that, as the reference's ``custom_vjp`` (``_wkv_vjp_bwd``) re-runs
+    ``_wkv_chunked`` under ``jax.vjp``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0, chunk, backend):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        S = r.shape[1]
+        rr, kk, vv, ww = _pad_rows(chunk, r, k, v, logw)
+        if backend == "torch":
+            o, sf = wkv_bshk_plain(rr, kk, vv, ww, u, state0, chunk=chunk)
+        else:
+            o, sf = wkv_bshk_cuda(*(t.contiguous() for t in (
+                rr, kk, vv, ww, u, state0)), chunk=chunk)
+        return o[:, :S], sf
+
+    @staticmethod
+    def backward(ctx, do, dsf):
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = _wkv_scan_padded(*ins, ctx.chunk)
+        grads = torch.autograd.grad(outs, ins, (do, dsf), allow_unused=True)
+        return (*grads, None, None)
 
 
 def wkv_attention(r, k, v, logw, u, state0, chunk: int = 64
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV6 chunked linear attention with carried state.  r, k, logw: (B,
-    S, H, K); v: (B, S, H, V); u: (H, K); state0: (B, H, K, V) f32 ->
-    (o (B, S, H, V) in r's dtype, final state (B, H, K, V) f32).  S is
-    padded to a multiple of ``chunk`` with zero rows, which leave the state
-    as it is."""
-    _forward_only("wkv_attention", r, k, v, logw, u, state0)
-    S = r.shape[1]
-    rr, kk, vv, ww = _pad_rows(chunk, r, k, v, logw)
-    if _backend(r) == "torch":
-        o, sf = wkv_bshk_plain(rr, kk, vv, ww, u, state0, chunk=chunk)
-    else:
-        o, sf = wkv_bshk_cuda(*(t.contiguous() for t in (rr, kk, vv, ww, u,
-                                                        state0)),
-                              chunk=chunk)
-    return o[:, :S], sf
+    """RWKV6 chunked linear attention with carried state, differentiable.
+    r, k, logw: (B, S, H, K); v: (B, S, H, V); u: (H, K); state0: (B, H,
+    K, V) f32 -> (o (B, S, H, V) in r's dtype, final state (B, H, K, V)
+    f32).  S is padded to a multiple of ``chunk`` with zero rows, which
+    leave the state as it is.  The forward runs the kernel (or its plain
+    version); the gradient recomputes through the plain scan."""
+    return _WKV.apply(r, k, v, logw, u, state0, chunk, _backend(r))
+
 
 
 def linear_attn(r, k, v, logw, u, chunk: int = 64) -> torch.Tensor:
     """Chunked linear attention from a zero state.  r, k, logw: (BH, S, K);
     v: (BH, S, V); u: (BH, K) -> (BH, S, V) in r's dtype; S is padded to a
     multiple of ``chunk``."""
-    _forward_only("linear_attn", r, k, v, logw, u)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, logw, u)):
+        raise NotImplementedError("linear_attn is forward only in the port: "
+                                  "no model path takes its gradient")
     S = r.shape[1]
     rr, kk, vv, ww = _pad_rows(chunk, r, k, v, logw)
     if _backend(r) == "torch":

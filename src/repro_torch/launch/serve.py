@@ -7,6 +7,8 @@
       --requests 16 --slots 8 --prompt-len 512 --gen 32 --prefill-chunk 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --preset reduced --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --preset reduced --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --dispatcher adaptnet --adaptnet-ckpt build/adaptnet
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
@@ -26,8 +28,9 @@ The layout follows the model's family unless ``--kv-layout`` says
 otherwise: the attention families are served from the paged KV arena
 with chunked prefill (64 tokens unless ``--prefill-chunk`` says
 otherwise; ``--prefill-chunk none`` is the bucketed prefill, which vlm
-and encdec always use), the recurrent ones (rwkv6-1.6b) from the dense
-per-slot state with whole-prompt prefill; ``--kv-layout dense`` serves
+and encdec always use), the recurrent ones (rwkv6-1.6b, and the hybrid
+zamba2-7b with its shared attention block's K/V rows per slot) from the
+dense per-slot state with whole-prompt prefill; ``--kv-layout dense`` serves
 an attention family from stacked per-slot KV caches with bucketed
 prefill.  An encdec model (seamless-m4t-medium) encodes ``--prompt-len``
 random source frames a request (``src_len``); a vlm model

@@ -1,14 +1,19 @@
 """Training launcher — the port of ``repro/launch/train.py`` on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --optimized --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --optimized --device cpu --steps 3
 
 Uses the full substrate: synthetic pipeline, AdamW, the train step (every
 GEMM and its dx/dw through the RSA kernel, attention through the
-flash-attention kernels or the blockwise route), the fault-tolerant
-driver with periodic async checkpoints + restart, straggler monitor.
+flash-attention kernels or the blockwise route; rwkv6-1.6b's WKV scan
+through its kernel or the plain scan, zamba2-7b's Mamba2 blocks in plain
+torch), the fault-tolerant driver with periodic async checkpoints +
+restart, straggler monitor.
 There is no mesh: ``data_axis``/``model_axis`` other than 1 raise.
 ``--optimized`` applies the reference's optimized profile
-(``attn_impl="pallas"``, the flash kernels); without it the config's
+(``attn_impl="pallas"``, the flash kernels; ``ssm_impl="pallas"`` for
+rwkv6-1.6b, the WKV kernel); without it the config's
 ``attn_impl="xla"`` runs attention through the blockwise route (plain
 PyTorch, differentiated by autograd), as the reference's does.  The entry
 point runs on CUDA unless ``device`` names another device, and raises

@@ -28,8 +28,10 @@ def resolve_device(device: Optional[str]) -> torch.device:
 class Model:
     """Functional model wrapper over the served models: the attention
     families (dense GQA, MoE with GQA or absorbed MLA, vlm, encdec) on the
-    paged arena or a dense per-sequence cache, and the recurrent RWKV6
-    stack (ssm, dense per-sequence state); dense GQA also trains."""
+    paged arena or a dense per-sequence cache, the recurrent RWKV6 stack
+    (ssm) and the zamba2 hybrid (Mamba2 blocks and a shared attention
+    block), both on a dense per-sequence state; dense GQA, ssm and hybrid
+    also train."""
 
     def __init__(self, cfg: ArchConfig, device: Optional[str] = None):
         transformer._check_family(cfg)
@@ -45,7 +47,7 @@ class Model:
     def num_params(self, params) -> int:
         return param_count(params)
 
-    # ---- training (dense GQA only) ------------------------------------------
+    # ---- training (dense GQA, ssm, hybrid) ----------------------------------
     def loss(self, params, batch):
         """(loss, metrics) of ``batch = {"tokens": (B, S + 1) int}``."""
         return transformer.loss_fn(params, batch, self.cfg)

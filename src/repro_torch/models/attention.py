@@ -602,7 +602,7 @@ def mla_self_attention(params: Params, x: torch.Tensor,
         raise NotImplementedError(
             "mla_self_attention without a cache (the expanded full-sequence "
             "path of MLA training) is not ported yet (ROADMAP.md queue 1 "
-            "item 11)")
+            "item 11b)")
     m = cfg.mla
     cdt = dtype_of(cfg.compute_dtype)
     B, S = x.shape[0], x.shape[1]

@@ -18,11 +18,16 @@ int64, "layers": ...}`` with every leaf stacked over the layers:
 - encdec: the same for the decoder's self-attention, and ``cross_k`` /
   ``cross_v`` (L, B, S_src, KVH, hd);
 - ssm (RWKV6): ``RWKVState``, the (H, K, V) f32 WKV state and the two
-  token-shift rows per sequence, O(1) in its length.
+  token-shift rows per sequence, O(1) in its length;
+- hybrid (zamba2): ``layers`` a ``MambaState`` stacked over the Mamba
+  layers (the (H, P, N) f32 SSM state and the conv's last W - 1 input
+  rows per sequence), ``attn`` a ``KVCache`` stacked over the groups: each
+  call of the one shared attention block keeps its own K/V rows.
 
 ``prefill(..., length=)`` runs a right-padded bucket and corrects every
 KV length by the padding, as the reference does; a recurrent state
-integrates every token, so the ssm family prefills exact lengths only.
+integrates every token, so the ssm and hybrid families prefill exact
+lengths only.
 The layer stack is a Python loop over layer views (the reference's
 ``lax.scan``), over ``dense_layers`` first where a model has a leading
 dense stack.  Every sequence of a batch keeps its own position and
@@ -40,12 +45,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (KVCache, cross_attention_kv,
                                           init_gqa_cache, init_mla_cache)
 from repro_torch.models.modules import dense, dtype_of, rmsnorm
-from repro_torch.models.ssm import init_rwkv_state
+from repro_torch.models.ssm import init_mamba_state, init_rwkv_state
 from repro_torch.models.transformer import (
     Params, _check_family, _embed, _frontend_embed, _scan_rwkv,
-    _unembed_weight, decoder_layer_apply, encode, layer_params,
-    paged_decoder_layer_apply, paged_prefill_layer_apply,
-    paged_shared_decoder_layer_apply)
+    _unembed_weight, decoder_layer_apply, encode, hybrid_layout,
+    layer_params, paged_decoder_layer_apply, paged_prefill_layer_apply,
+    paged_shared_decoder_layer_apply, run_hybrid_stack)
 
 Arena = Dict[str, torch.Tensor]
 Cache = Dict[str, Any]
@@ -55,6 +60,10 @@ Cache = Dict[str, Any]
 # its fixed-length cross K/V stay dense per slot); ssm/hybrid keep the
 # dense slot layout (their state is O(1) in length)
 PAGED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+
+# families whose state integrates every token: they keep the dense slot
+# layout and prefill exact-length prompts
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 # families whose prefill can stream through the arena in chunks: pure
 # text-token causal stacks.  vlm prepends frontend rows that are not
@@ -314,7 +323,9 @@ def init_cache(cfg: ArchConfig, batch: int, device, max_len: int = 0,
                src_len: int = 0) -> Cache:
     """A zero cache for ``batch`` sequences: ``max_len`` KV rows a sequence
     for the attention families (and ``src_len`` cross rows for encdec),
-    the O(1) recurrent state for ssm."""
+    the O(1) recurrent state for ssm, both for hybrid (the Mamba states,
+    and ``max_len`` rows a sequence for each call of the shared
+    block)."""
     _check_family(cfg)
     dt = dtype_of(cfg.compute_dtype)
     cache: Cache = {"pos": torch.zeros((batch,), dtype=torch.int64,
@@ -326,6 +337,13 @@ def init_cache(cfg: ArchConfig, batch: int, device, max_len: int = 0,
     if max_len < 1:
         raise ValueError(f"family {cfg.family!r} needs max_len >= 1 KV rows "
                          f"a sequence, got {max_len}")
+    if cfg.family == "hybrid":
+        n_m, n_groups, _, _ = hybrid_layout(cfg)
+        cache["layers"] = init_mamba_state(cfg, batch, dt, device,
+                                           lead=(n_m,))
+        cache["attn"] = _stack_cache(
+            _layer_kv_cache(cfg, batch, max_len, dt, device), n_groups)
+        return cache
     cache["layers"] = _stack_cache(
         _layer_kv_cache(cfg, batch, max_len, dt, device), cfg.num_layers)
     if cfg.family == "encdec":
@@ -362,12 +380,20 @@ def _run_decoder_stack(params: Params, x, positions, cfg: ArchConfig,
     return x, KVCache(lc.k, lc.v, torch.stack(lengths))
 
 
-def _run_ssm_stack(params: Params, x, cfg: ArchConfig, cache: Cache
-                   ) -> Tuple[torch.Tensor, Cache]:
-    """The RWKV6 stack over x (B, S, d) from the cache's states; returns
-    (x after the final norm, the new cache with pos advanced by S)."""
-    x, states = _scan_rwkv(params, x, cfg, cache["layers"])
-    new = {"pos": cache["pos"] + x.shape[1], "layers": states}
+def _run_recurrent_stack(params: Params, x, cfg: ArchConfig,
+                         cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """The RWKV6 or hybrid stack over x (B, S, d) from the cache's states
+    (the hybrid's shared block at each sequence's position, over its K/V
+    rows, written in place); returns (x after the final norm, the new
+    cache with pos advanced by S)."""
+    S = x.shape[1]
+    new = {"pos": cache["pos"] + S}
+    if cfg.family == "hybrid":
+        positions = cache["pos"][:, None] + torch.arange(S, device=x.device)
+        x, new["layers"], new["attn"] = run_hybrid_stack(
+            params, x, positions, cfg, cache["layers"], cache["attn"])
+    else:
+        x, new["layers"] = _scan_rwkv(params, x, cfg, cache["layers"])
     return rmsnorm(x, params["ln_f"], cfg.norm_eps), new
 
 
@@ -386,18 +412,20 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     the projector (its rows count into ``pos`` and the KV lengths); encdec
     runs the encoder over ``batch["src_features"]`` (B, S_src,
     feature_dim) and fills the cross K/V.  A recurrent state integrates
-    every token, so the ssm family takes exact lengths only."""
+    every token, so the ssm and hybrid families take exact lengths
+    only."""
     _check_family(cfg)
     fam = cfg.family
     tokens = batch["tokens"]
     n = tokens.shape[1]
     length = n if length is None else int(length)
-    if fam == "ssm":
+    if fam in RECURRENT_FAMILIES:
         if length != n:
-            raise ValueError("the ssm family prefills exact-length prompts: "
-                             "a padded bucket would enter its state")
+            raise ValueError(f"the {fam} family prefills exact-length "
+                             f"prompts: a padded bucket would enter its "
+                             f"state")
         x = _embed(params, tokens, cfg)
-        x, new = _run_ssm_stack(params, x, cfg, cache)
+        x, new = _run_recurrent_stack(params, x, cfg, cache)
         return _lm_head(params, x[:, -1, :], cfg), new
     pad = n - length
     pos0 = cache["pos"]
@@ -433,7 +461,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     position.  tokens: (B, 1) int.  Returns ((B, V) f32 logits, the new
     cache)."""
     _check_family(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in RECURRENT_FAMILIES:
         return prefill(params, {"tokens": tokens}, cfg, cache)
     x = _embed(params, tokens, cfg)
     positions = cache["pos"][:, None] + torch.arange(

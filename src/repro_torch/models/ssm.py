@@ -1,20 +1,28 @@
-"""RWKV6 (Finch) blocks: time mix and channel mix, the RWKV half of
-``repro/models/ssm.py`` (Mamba2 waits for the zamba2 slice).
+"""The recurrent blocks of ``repro/models/ssm.py``: RWKV6 (Finch, time mix
+and channel mix) and Mamba2 (the SSD scan).
 
 Prefill runs the WKV recurrence as a chunked scan over the whole prompt;
 decode is the same scan on one token (a chunk of 1) from the carried
 state, so the per-slot state is O(1) in sequence length.  The route is
 ``cfg.ssm_impl``: ``"pallas"`` (the optimized profile) calls
 ``kernels/ops.wkv_attention`` -- the hand-written CUDA kernel on the card,
-its plain version on the CPU -- and ``"xla"`` runs ``_wkv_chunked``, the
-reference's einsum scan, in torch.  One device has no mesh, so the
-reference's per-shard ``_wkv_pallas_sharded`` is that one call.
+its plain version on the CPU; its backward recomputes through the plain
+scan -- and ``"xla"`` runs ``_wkv_chunked``, the reference's einsum scan,
+in torch.  One device has no mesh, so the reference's per-shard
+``_wkv_pallas_sharded`` is that one call.
 
 Dtypes follow the reference step for step: the five token-shift mixes and
 every GEMM run in the compute dtype; the log decay ``-exp(clip(dec, -12,
 1))`` is exponentiated in the compute dtype, then cast to f32; the WKV
 operands and state are f32; the per-head groupnorm runs in f32 with
 ``var + 64e-5``.
+
+Mamba2 has no Pallas kernel in the reference (its SSD scan is einsums in a
+``lax.scan``), so it is plain torch here too, apart from its two GEMMs
+(``ssm.in_proj``, ``ssm.out_proj``), which go through the SARA dispatch
+layer.  Its f32 islands are the reference's: ``dt``, the log decay, the
+scan and its state, the gated RMSNorm.  A chunk is ``min(chunk, S)``
+rows, so a decode step is one 1-row chunk.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -181,3 +191,156 @@ def init_rwkv_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
                             device=device),
         shift_c=torch.zeros(lead + (batch, cfg.d_model), dtype=dtype,
                             device=device))
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+class MambaState(NamedTuple):
+    ssm: torch.Tensor       # (B, H, P, N) f32
+    conv: torch.Tensor      # (B, W - 1, conv_channels)
+
+
+def mamba_dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, heads H, head dim P, state dim N)."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = s.num_heads or d_inner // s.head_dim
+    return d_inner, H, s.head_dim, s.state_dim
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ArchConfig,
+                     lead: Tuple[int, ...] = ()) -> Params:
+    """One Mamba2 block's leaves (with ``lead`` stacked in front), the
+    reference's shapes and constants, drawn from ``gen``."""
+    d, dt = cfg.d_model, cfg.param_dtype
+    d_inner, H, P, N = mamba_dims(cfg)
+    conv_ch = d_inner + 2 * N       # x ++ B ++ C  (n_groups = 1)
+    kw = dict(dtype=dtype_of(dt), device=gen.device)
+    conv_w = torch.randn(lead + (cfg.ssm.conv_width, conv_ch),
+                         generator=gen, device=gen.device) * 0.1
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=gen.device))
+    return {
+        "w_in": dense_init(gen, lead + (d, 2 * d_inner + 2 * N + H), dt),
+        "conv_w": conv_w.to(kw["dtype"]),
+        "conv_b": torch.zeros(lead + (conv_ch,), **kw),
+        "A_log": a_log.to(kw["dtype"]).expand(lead + (H,)).clone(),
+        "dt_bias": torch.full(lead + (H,), -2.0, **kw),
+        "D": torch.ones(lead + (H,), **kw),
+        "norm_scale": torch.zeros(lead + (d_inner,), **kw),
+        "w_out": dense_init(gen, lead + (d_inner, d), dt,
+                            scale=1.0 / (d_inner ** 0.5 *
+                                         (2 * cfg.num_layers) ** 0.5)),
+    }
+
+
+def _ssd_step(h, xb, bb, cb, csb, tri):
+    """One chunk of the SSD scan, f32: xb (B, lc, H, P) dt-scaled inputs,
+    bb / cb (B, lc, N), csb (B, lc, H) the inclusive cumsum of the chunk's
+    log decays, h (B, H, P, N) the state at the chunk's start.  Returns
+    (the state after it, y (B, lc, H, P))."""
+    # inter: y_t = C_t . h decayed through token t (inclusive)
+    y = torch.einsum("bln,bhpn->blhp", cb, h) * torch.exp(csb)[..., None]
+    # intra: y_t += sum_{j<=t} exp(cs_t - cs_j) (C_t . B_j) x_j
+    diff = csb[:, :, None] - csb[:, None, :, :]       # (B, t, j, H)
+    diff = torch.where(tri[None, :, :, None], diff,
+                       torch.full_like(diff, -1e30))
+    G = torch.einsum("btn,bjn->btj", cb, bb)
+    M = G[..., None] * torch.exp(diff)                # (B, t, j, H)
+    y = y + torch.einsum("btjh,bjhp->bthp", M, xb)
+    # state: h' = exp(asum) h + sum_j exp(asum - cs_j) x_j B_j^T
+    asum = csb[:, -1]                                 # (B, H)
+    dec = torch.exp(asum[:, None] - csb)              # (B, lc, H)
+    h = torch.exp(asum)[:, :, None, None] * h + \
+        torch.einsum("blhp,bln->bhpn", xb * dec[..., None], bb)
+    return h, y
+
+
+def _ssd_chunked(xh, Bm, Cm, loga, state0, lc: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunked SSD scan, f32.  xh (B, S, H, P) dt-scaled
+    inputs; Bm, Cm (B, S, N); loga (B, S, H) <= 0; state0 (B, H, P, N).
+    Chunks of ``min(lc, S)`` rows; the padded rows of a ragged last chunk
+    are masked out of the inputs and decays, as the reference masks them.
+    With a gradient to take, each chunk step is checkpointed (recomputed
+    in the backward pass), as the reference's ``jax.checkpoint(step)``.
+    Returns (y (B, S, H, P), final state)."""
+    B, S, H, P = xh.shape
+    lc = min(lc, S)
+    xc, n, S0 = _chunk(xh, lc)
+    bc, cc, ac = (_chunk(t, lc)[0] for t in (Bm, Cm, loga))
+    if n * lc != S0:
+        valid = (torch.arange(n * lc, device=xh.device) < S0).reshape(
+            1, n, lc).to(xc.dtype)
+        xc = xc * valid[..., None, None]
+        ac = ac * valid[..., None]
+    cs = torch.cumsum(ac, dim=2)                      # (B, n, lc, H)
+    tri = torch.tril(torch.ones((lc, lc), dtype=torch.bool,
+                                device=xh.device))
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xh, Bm, Cm, loga, state0))
+    h, ys = state0, []
+    for i in range(n):
+        args = (h, xc[:, i], bc[:, i], cc[:, i], cs[:, i], tri)
+        h, y = (checkpoint(_ssd_step, *args, use_reentrant=False) if remat
+                else _ssd_step(*args))
+        ys.append(y)
+    y = torch.stack(ys, 1).reshape(B, n * lc, H, P)[:, :S0]
+    return y, h
+
+
+def mamba_block_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                      state: MambaState) -> Tuple[torch.Tensor, MambaState]:
+    """The Mamba2 block; the caller adds the pre-norm residual.  x (B, S,
+    d) normalised input.  Returns (y, new state)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S, _ = x.shape
+    d_inner, H, P, N = mamba_dims(cfg)
+    W = cfg.ssm.conv_width
+    x = x.to(cdt)
+
+    zxbcdt = dense(x, params["w_in"], None, cdt, site="ssm.in_proj")
+    z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H],
+                                 dim=-1)
+
+    # causal depthwise conv over (x ++ B ++ C), from the carried rows
+    conv_in = torch.cat([state.conv.to(cdt), xBC], dim=1)
+    new_conv = conv_in[:, -(W - 1):, :] if W > 1 else state.conv
+    wts = params["conv_w"].to(cdt)
+    acc = conv_in[:, 0:S, :] * wts[0]
+    for i in range(1, W):
+        acc = acc + conv_in[:, i:i + S, :] * wts[i]
+    xBC = F.silu(acc + params["conv_b"].to(cdt))
+
+    xs, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
+    xs = xs.reshape(B, S, H, P)
+    dt_h = F.softplus(dt_raw.float() + params["dt_bias"].float())  # (B,S,H)
+    loga = -torch.exp(params["A_log"].float()) * dt_h
+    xh = xs.float() * dt_h[..., None]
+    y, new_ssm = _ssd_chunked(xh, Bm.float(), Cm.float(), loga,
+                              state.ssm.float(), cfg.ssm.chunk)
+    y = y + params["D"].float()[:, None] * xs.float()
+    y = y.reshape(B, S, d_inner).to(cdt)
+
+    # normalized gating (mamba2): rmsnorm(y) * silu(z)
+    y32 = y.float()
+    var = y32.square().mean(dim=-1, keepdim=True)
+    y = (y32 * torch.rsqrt(var + cfg.norm_eps) *
+         (1.0 + params["norm_scale"].float())).to(cdt)
+    y = y * F.silu(z)
+    out = dense(y, params["w_out"], None, cdt, site="ssm.out_proj")
+    return out.to(x.dtype), MambaState(ssm=new_ssm.to(state.ssm.dtype),
+                                       conv=new_conv.to(state.conv.dtype))
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                     device, lead: Tuple[int, ...] = ()) -> MambaState:
+    """A zero state for ``batch`` sequences (``lead`` stacked in front)."""
+    d_inner, H, P, N = mamba_dims(cfg)
+    conv_ch = d_inner + 2 * N
+    return MambaState(
+        ssm=torch.zeros(lead + (batch, H, P, N), dtype=torch.float32,
+                        device=device),
+        conv=torch.zeros(lead + (batch, cfg.ssm.conv_width - 1, conv_ch),
+                         dtype=dtype, device=device))

@@ -5,25 +5,29 @@ experts, or with absorbed MLA and a leading stack of dense-MLP layers;
 vlm, a vision-patch projector before a GQA decoder; encdec, a
 bidirectional encoder over audio-frame features and a decoder with
 cross-attention in every layer), the RWKV6 stack of the ssm family
-(``_scan_rwkv``), and the training forward pass and loss of the dense GQA
-family.
+(``_scan_rwkv``), the hybrid family's layout (zamba2: groups of Mamba2
+blocks, each followed by one weight-shared attention + MLP block, then a
+remainder of Mamba2 blocks), and the training forward pass and loss of the
+dense GQA, ssm and hybrid families.
 
 Per-layer leaves are stacked on a leading layer axis, as in the reference
 (``layers/attn/wq`` is (L, d, q_dim)); a layer's parameters are views of
 those stacks.  A model with leading dense layers keeps them in a second
-stack, ``dense_layers``, and an encdec model its encoder in
-``enc_layers``, as the reference does.
+stack, ``dense_layers``, an encdec model its encoder in ``enc_layers``,
+and a hybrid model its Mamba2 blocks in ``layers`` (stacked over the
+Mamba slots) and its one shared block, unstacked, in ``shared_attn``, as
+the reference does.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import (gqa_cross_attention,
+from repro_torch.models.attention import (KVCache, gqa_cross_attention,
                                           gqa_paged_decode,
                                           gqa_paged_prefill,
                                           gqa_paged_shared_decode,
@@ -35,16 +39,20 @@ from repro_torch.models.mlp import init_mlp, mlp_apply
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.modules import (dense, dense_init, dtype_of,
                                         embed_init, rmsnorm)
-from repro_torch.models.ssm import (RWKVState, init_rwkv_block,
-                                    rwkv_block_apply)
+from repro_torch.models.ssm import (MambaState, RWKVState,
+                                    init_mamba_block, init_mamba_state,
+                                    init_rwkv_block, init_rwkv_state,
+                                    mamba_block_apply, rwkv_block_apply)
 
 Params = Dict[str, Any]
 
 
 # the (family, attention) pairs the port serves, and those it trains
 SERVED = (("dense", "gqa"), ("moe", "gqa"), ("moe", "mla"), ("vlm", "gqa"),
-          ("encdec", "gqa"), ("ssm", "none"))
-TRAINED = (("dense", "gqa"),)
+          ("encdec", "gqa"), ("ssm", "none"), ("hybrid", "gqa"))
+TRAINED = (("dense", "gqa"), ("ssm", "none"), ("hybrid", "gqa"))
+# the SSM block each recurrent family runs
+SSM_KINDS = {"ssm": "rwkv6", "hybrid": "mamba2"}
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
@@ -57,20 +65,26 @@ def _check_family(cfg: ArchConfig) -> None:
     if cfg.moe is not None and cfg.moe_every != 1:
         raise NotImplementedError("moe_every != 1 (stacks must be "
                                   "homogeneous)")
-    if cfg.family == "ssm" and cfg.ssm.kind != "rwkv6":
-        raise ValueError(f"the port's ssm family is RWKV6, got "
-                         f"{cfg.ssm.kind!r}")
+    kind = SSM_KINDS.get(cfg.family)
+    if kind is not None and cfg.ssm.kind != kind:
+        raise ValueError(f"the port's {cfg.family} family runs {kind} "
+                         f"blocks, got {cfg.ssm.kind!r}")
 
 
 def check_trained_family(cfg: ArchConfig) -> None:
-    """Training (forward, loss, logits) is ported for dense GQA only, with
-    full-sequence attention through the flash kernels (``attn_impl=
-    "pallas"``) or the blockwise route (``"xla"``), which autograd
-    differentiates."""
+    """Training (forward, loss, logits) is ported for dense GQA, the RWKV6
+    ssm family and the zamba2 hybrid.  Full-sequence attention runs through
+    the flash kernels (``attn_impl="pallas"``) or the blockwise route
+    (``"xla"``), which autograd differentiates; the WKV scan through its
+    kernel (``ssm_impl="pallas"``, the backward recomputed through the
+    plain scan) or the plain scan; Mamba2's SSD scan is plain torch.  MoE
+    (aux losses, the bank GEMM's gradient), MLA and the frontend families
+    raise (ROADMAP queue 1 item 11b)."""
     if (cfg.family, cfg.attention_type) not in TRAINED:
         raise NotImplementedError(
             f"the port trains {TRAINED} (family, attention) decoders only, "
-            f"got {cfg.family!r} / {cfg.attention_type!r} (ROADMAP queue 1)")
+            f"got {cfg.family!r} / {cfg.attention_type!r} (ROADMAP queue 1 "
+            f"item 11b)")
 
 
 def _is_moe_layer(cfg: ArchConfig, layer_idx: int) -> bool:
@@ -147,6 +161,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
         p["layers"] = {"ln1": torch.zeros((L, d), **zeros),
                        "blk": init_rwkv_block(gen, cfg, lead=(L,))}
         return p
+    if cfg.family == "hybrid":
+        n_m = hybrid_layout(cfg)[0]
+        p["layers"] = {"ln1": torch.zeros((n_m, d), **zeros),
+                       "blk": init_mamba_block(gen, cfg, lead=(n_m,))}
+        p["shared_attn"] = layer_params(_init_stack(gen, cfg, 1, moe=False),
+                                        0)
+        return p
     if cfg.family == "encdec":
         p["enc_layers"] = init_encoder_stack(gen, cfg)
         p["layers"] = _init_stack(gen, cfg, L, moe=False, cross=True)
@@ -157,6 +178,18 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
         p["dense_layers"] = _init_stack(gen, cfg, nd, moe=False)
     p["layers"] = _init_stack(gen, cfg, L - nd, moe=_is_moe_layer(cfg, nd))
     return p
+
+
+def hybrid_layout(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    """(Mamba layers, groups, Mamba layers a group, remainder): every
+    ``shared_attn_every``-th of the ``num_layers`` slots is the shared
+    attention block, the rest are Mamba2 blocks; the slots past the last
+    whole group are the remainder's Mamba blocks."""
+    k = cfg.shared_attn_every
+    n_groups = cfg.num_layers // k
+    per_group = k - 1
+    rem = cfg.num_layers - n_groups * k
+    return n_groups * per_group + rem, n_groups, per_group, rem
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -322,6 +355,53 @@ def _scan_rwkv(params: Params, x, cfg: ArchConfig,
     return x, RWKVState(*(torch.stack(f) for f in zip(*new)))
 
 
+def _mamba_layer(lp: Params, x, cfg: ArchConfig, st: MambaState):
+    """One pre-norm Mamba2 layer: (x + block(rmsnorm(x)), new state)."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    y, st = mamba_block_apply(lp["blk"], h, cfg, st)
+    return x + y.to(x.dtype), st
+
+
+def _scan_mamba_span(layers: Params, lo: int, hi: int, x, cfg: ArchConfig,
+                     states: MambaState) -> Tuple[torch.Tensor,
+                                                  List[MambaState]]:
+    """Mamba layers lo..hi-1 of the stacked ``layers``, each from its slice
+    of the layer-stacked ``states``.  Returns (x, their new states)."""
+    new = []
+    for i in range(lo, hi):
+        x, st = _mamba_layer(layer_params(layers, i), x, cfg,
+                             MambaState(*(t[i] for t in states)))
+        new.append(st)
+    return x, new
+
+
+def run_hybrid_stack(params: Params, x, positions, cfg: ArchConfig,
+                     states: MambaState, attn: KVCache
+                     ) -> Tuple[torch.Tensor, MambaState, KVCache]:
+    """The hybrid stack over x from a cache (the reference's
+    ``_run_hybrid_stack``): each group's Mamba span from its states, then
+    the shared attention + MLP block over the group's own slice of the
+    ``n_groups``-stacked KV cache (written in place); then the remainder.
+    Returns (x, the new Mamba states stacked again, the KV cache with the
+    new lengths)."""
+    n_m, n_groups, per_group, rem = hybrid_layout(cfg)
+    lp, shared = params["layers"], params["shared_attn"]
+    new: List[MambaState] = []
+    lengths = []
+    for g in range(n_groups):
+        x, st = _scan_mamba_span(lp, g * per_group, (g + 1) * per_group, x,
+                                 cfg, states)
+        new += st
+        x, c, _ = decoder_layer_apply(
+            shared, x, positions, cfg,
+            cache=KVCache(attn.k[g], attn.v[g], attn.length[g]))
+        lengths.append(c.length)
+    x, st = _scan_mamba_span(lp, n_m - rem, n_m, x, cfg, states)
+    new += st
+    return (x, MambaState(*(torch.stack(f) for f in zip(*new))),
+            KVCache(attn.k, attn.v, torch.stack(lengths)))
+
+
 # ---------------------------------------------------------------------------
 # training forward pass (no cache) and loss
 # ---------------------------------------------------------------------------
@@ -330,30 +410,74 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros((), device=device) for k in AUX_KEYS}
 
 
-def _decoder_stack(params: Params, x, positions, cfg: ArchConfig):
-    """The layer loop of the reference's ``_scan_decoder``; with
-    ``cfg.remat`` each layer is checkpointed (its activations recomputed
-    in the backward pass), as ``_maybe_remat`` does."""
-    def body(layer_p, h):
-        return decoder_layer_apply(layer_p, h, positions, cfg)[0]
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` checkpointed (its activations recomputed in the backward
+    pass) under ``cfg.remat``, as the reference's ``_maybe_remat``."""
+    if not cfg.remat:
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
+
+def _decoder_stack(params: Params, x, positions, cfg: ArchConfig):
+    """The layer loop of the reference's ``_scan_decoder``, each layer
+    under ``_remat``."""
+    body = _remat(lambda layer_p, h:
+                  decoder_layer_apply(layer_p, h, positions, cfg)[0], cfg)
     for i in range(params["layers"]["ln1"].shape[0]):
-        lp = layer_params(params["layers"], i)
-        x = checkpoint(body, lp, x, use_reentrant=False) if cfg.remat \
-            else body(lp, x)
+        x = body(layer_params(params["layers"], i), x)
+    return x
+
+
+def _rwkv_stack(params: Params, x, cfg: ArchConfig):
+    """The RWKV6 layers from zero states (the reference's training
+    ``_scan_rwkv``), each layer under ``_remat``."""
+    zero = init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
+    body = _remat(lambda lp, h: h + rwkv_block_apply(
+        lp["blk"], rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+        zero)[0].to(h.dtype), cfg)
+    for i in range(params["layers"]["ln1"].shape[0]):
+        x = body(layer_params(params["layers"], i), x)
+    return x
+
+
+def _hybrid_stack(params: Params, x, positions, cfg: ArchConfig):
+    """The reference's training ``_hybrid_forward`` from zero states and no
+    cache: each group (its Mamba span, then the shared block) under
+    ``_remat``, then each remainder layer under it."""
+    n_m, n_groups, per_group, rem = hybrid_layout(cfg)
+    lp, shared = params["layers"], params["shared_attn"]
+    zero = init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
+
+    def group(h, g):
+        for i in range(g * per_group, (g + 1) * per_group):
+            h = _mamba_layer(layer_params(lp, i), h, cfg, zero)[0]
+        return decoder_layer_apply(shared, h, positions, cfg)[0]
+
+    group = _remat(group, cfg)
+    for g in range(n_groups):
+        x = group(x, g)
+    layer = _remat(lambda p, h: _mamba_layer(p, h, cfg, zero)[0], cfg)
+    for i in range(n_m - rem, n_m):
+        x = layer(layer_params(lp, i), x)
     return x
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ArchConfig) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """Training/eval forward (no cache) of a dense decoder.  Returns
-    (hidden (B, S, d) after the final norm, aux, loss mask (B, S)), with S
-    = tokens.shape[1] - 1; logits are not materialised here."""
+    """Training/eval forward (no cache) of a dense, ssm or hybrid decoder.
+    Returns (hidden (B, S, d) after the final norm, aux, loss mask (B,
+    S)), with S = tokens.shape[1] - 1; logits are not materialised
+    here."""
     check_trained_family(cfg)
     tokens = batch["tokens"]
     x = _embed(params, tokens[:, :-1], cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _decoder_stack(params, x, positions, cfg)
+    if cfg.family == "ssm":
+        x = _rwkv_stack(params, x, cfg)
+    elif cfg.family == "hybrid":
+        x = _hybrid_stack(params, x, positions, cfg)
+    else:
+        x = _decoder_stack(params, x, positions, cfg)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     mask = torch.ones(tuple(tokens[:, 1:].shape), dtype=torch.float32,
                       device=x.device)
@@ -394,8 +518,8 @@ def chunked_ce_loss(params: Params, hidden, labels, mask,
 
 
 def loss_fn(params: Params, batch, cfg: ArchConfig):
-    """(total loss, metrics) as the reference's ``loss_fn`` (a dense model
-    adds no MoE terms)."""
+    """(total loss, metrics) as the reference's ``loss_fn`` (the trained
+    families add no MoE terms)."""
     hidden, aux, mask = forward(params, batch, cfg)
     labels = batch["tokens"][:, 1:]
     loss = chunked_ce_loss(params, hidden, labels, mask, cfg)

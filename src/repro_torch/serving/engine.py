@@ -58,8 +58,9 @@ vlm, encdec):
 The dense slot layout (every family; always for the recurrent ones):
 
 * One stacked per-slot cache (``Model.init_cache(num_slots, max_len +
-  frontend rows, src_len)``): each attention layer's K/V rows a slot, or
-  the RWKV6 state, O(1) in sequence length.  Nothing is paged, but the
+  frontend rows, src_len)``): each attention layer's K/V rows a slot, the
+  RWKV6 state, O(1) in sequence length, or (hybrid) the Mamba2 states and
+  each shared-attention call's K/V rows.  Nothing is paged, but the
   ``KVBlockPool`` still meters each request's text tokens (the vlm
   frontend's rows are a constant per slot outside the budget), so
   ``reserve="incremental"`` can stall a lane.
@@ -71,8 +72,10 @@ The dense slot layout (every family; always for the recurrent ones):
 * Each step decodes EVERY slot in one batched call under scope
   ``"decode"``, as the reference's ``vmap`` over slots does, each lane at
   its own position and length: free lanes compute too (admission
-  overwrites their cache), and a stalled lane rolls back to the snapshot
-  taken before the step (``_slot_snapshot``).  The port batches the
+  overwrites their cache; a recurrent family's free lanes keep their
+  states, so that no state advances without a request), and a stalled
+  lane rolls back to the snapshot taken before the step
+  (``_slot_snapshot``).  The port batches the
   lanes, so the decode GEMMs record M = num_slots where the reference's
   vmapped trace records M = 1.
 
@@ -143,7 +146,7 @@ from repro_torch.core.sara import SaraDispatcher
 from repro_torch.dispatch import SiteRegistry
 from repro_torch.models.modules import dtype_of
 from repro_torch.models.serving import (CHUNKED_PREFILL_FAMILIES,
-                                       PAGED_FAMILIES)
+                                       PAGED_FAMILIES, RECURRENT_FAMILIES)
 from repro_torch.obs import (JitWatch, RequestTracker, StepTimeline,
                              TraceRecorder, write_chrome_trace, write_jsonl)
 from repro_torch.serving.faults import (OUTCOME_COUNTERS, ChaosConfig,
@@ -573,7 +576,7 @@ class ServingEngine:
         recurrent families (a state integrates every token, so nothing may
         be padded); else the smallest of ``buckets`` that fits, or the
         next power of two from 16, never past ``max_len``."""
-        if self.cfg.family in ("ssm", "hybrid"):
+        if self.cfg.family in RECURRENT_FAMILIES:
             return n
         b = None
         if self.ecfg.buckets:
@@ -590,13 +593,13 @@ class ServingEngine:
 
     def _slot_snapshot(self, slot: int):
         """A copy of one slot's cache, as a batch-1 cache (every stacked
-        leaf but ``pos`` carries the slot on dim 1)."""
-        c = self._cache
-        one = {k: v[:, slot:slot + 1].clone() for k, v in c.items()
-               if k not in ("pos", "layers")}
-        one["pos"] = c["pos"][slot:slot + 1].clone()
-        one["layers"] = type(c["layers"])(*(t[:, slot:slot + 1].clone()
-                                            for t in c["layers"]))
+        leaf but ``pos`` carries the slot on dim 1; a named tuple, such as
+        ``layers`` or a hybrid's ``attn`` KV cache, field by field)."""
+        def take(t):
+            return t[:, slot:slot + 1].clone()
+        one = {k: type(v)(*map(take, v)) if isinstance(v, tuple)
+               else take(v) for k, v in self._cache.items() if k != "pos"}
+        one["pos"] = self._cache["pos"][slot:slot + 1].clone()
         return one
 
     def _slot_restore(self, slot: int, one) -> None:
@@ -604,11 +607,12 @@ class ServingEngine:
         into one slot of the stacked cache, in place."""
         c = self._cache
         c["pos"][slot] = one["pos"][0]
-        for t, o in zip(c["layers"], one["layers"]):
-            t[:, slot] = o[:, 0]
-        for k in c:
-            if k not in ("pos", "layers"):
-                c[k][:, slot] = one[k][:, 0]
+        for k, v in c.items():
+            if k == "pos":
+                continue
+            pairs = zip(v, one[k]) if isinstance(v, tuple) else [(v, one[k])]
+            for t, o in pairs:
+                t[:, slot] = o[:, 0]
 
     def _extras(self, req: Request) -> Dict[str, torch.Tensor]:
         """A request's frontend inputs, zeros where it carries none."""
@@ -678,8 +682,11 @@ class ServingEngine:
         self._first_token(req)
 
     def _decode_dense(self, active: Dict[int, Request]):
-        """One batched decode over every slot of the state cache.  Returns
-        (logits (S, V) on the device, seconds, KV rows streamed)."""
+        """One batched decode over every slot of the state cache; a
+        recurrent family's free slots keep their states (``_hold_free``).
+        Returns (logits (S, V) on the device, seconds, KV rows
+        streamed)."""
+        old = self._cache
         t0 = time.time()
         with torch.no_grad(), self._dispatch_scope("decode"), \
                 self.timeline.phase("decode", lanes=len(active)):
@@ -689,7 +696,26 @@ class ServingEngine:
             self._sync()
         dt = time.time() - t0
         self.obs.add_scope_wall("decode", dt)
+        if self.cfg.family in RECURRENT_FAMILIES:
+            self._hold_free(old, self._cache, active)
         return logits, dt, self._dense_kv_rows
+
+    def _hold_free(self, old, new, active: Dict[int, Request]) -> None:
+        """Put every free slot's recurrent states, position and KV lengths
+        in ``new`` (the step's fresh tensors) back to ``old``'s, in place: a
+        state integrates every token it sees.  The K/V row a free lane
+        wrote lies past its length, masked until an admission overwrites
+        the slot."""
+        free = [s for s in range(self.ecfg.num_slots) if s not in active]
+        if not free:
+            return
+        idx = torch.tensor(free, device=new["pos"].device)
+        new["pos"][idx] = old["pos"][idx]
+        pairs = list(zip(new["layers"], old["layers"]))
+        if "attn" in new:
+            pairs.append((new["attn"].length, old["attn"].length))
+        for n, o in pairs:
+            n[:, idx] = o[:, idx]
 
     # -- request lifecycle ----------------------------------------------------
     def submit(self, req: Request) -> None:

@@ -15,10 +15,11 @@ The leaves sit under the reference's keys, so a snapshot either package
 writes restores in the port: ``last_tok``, ``arena/k`` and ``arena/v``
 (paged), ``state/cross_k`` and ``state/cross_v`` (an encdec engine's
 dense cross K/V under the paged layout), ``kv_rows``, ``cache/pos``,
-``cache/layers/<field>`` and ``cache/cross_k`` / ``cache/cross_v``
-(dense: the reference's slot-major layout ``(S, L, 1, ...)``, a KV
-length ``(S, L)``, which the port's ``(L, S, ...)`` cache is moved to on
-save and from on restore), ``req/<i>/prompt``, ``req/<i>/generated`` and
+``cache/layers/<field>``, ``cache/attn/<field>`` (a hybrid's shared
+attention K/V) and ``cache/cross_k`` / ``cache/cross_v`` (dense: the
+reference's slot-major layout ``(S, L, 1, ...)``, a KV length ``(S,
+L)``, which the port's ``(L, S, ...)`` cache is moved to on save and from
+on restore), ``req/<i>/prompt``, ``req/<i>/generated`` and
 ``req/<i>/extras/<name>`` (vlm / encdec inputs), and the manifest's
 metadata.  The reference's ``rng_key`` (a JAX PRNG key) means nothing to
 the port: the port saves its ``torch.Generator`` state as ``rng_state``
@@ -103,23 +104,30 @@ def _slot_major(t: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_leaves(cache) -> Dict[str, torch.Tensor]:
-    """{snapshot key: port leaf} of a dense cache, ``pos`` aside."""
-    out = {f"cache/layers/{f}": t
-           for f, t in zip(cache["layers"]._fields, cache["layers"])}
-    out.update({f"cache/{k}": v for k, v in cache.items()
-                if k not in ("pos", "layers")})
+    """{snapshot key: port leaf} of a dense cache, ``pos`` aside: a named
+    tuple (``layers``, a hybrid's ``attn``) field by field."""
+    out = {}
+    for k, v in cache.items():
+        if k == "pos":
+            continue
+        if isinstance(v, tuple):
+            out.update({f"cache/{k}/{f}": t for f, t in zip(v._fields, v)})
+        else:
+            out[f"cache/{k}"] = v
     return out
 
 
 def _dense_to_ref(cache) -> Dict:
     """The port's dense cache ``{"pos": (S,), "layers": (L, S, ...)[,
-    "cross_k", "cross_v"]}`` in the reference's slot-major layout:
-    ``{"pos": (S,) int32, "layers": {field: (S, L, 1, ...)}, ...}``."""
-    out = {"pos": cache["pos"].to(torch.int32),
-           "layers": {f: _slot_major(t) for f, t in
-                      zip(cache["layers"]._fields, cache["layers"])}}
-    out.update({k: _slot_major(v) for k, v in cache.items()
-                if k not in ("pos", "layers")})
+    "attn" | "cross_k", "cross_v"]}`` in the reference's slot-major
+    layout: ``{"pos": (S,) int32, "layers": {field: (S, L, 1, ...)},
+    ...}``."""
+    out = {"pos": cache["pos"].to(torch.int32)}
+    for k, v in cache.items():
+        if k == "pos":
+            continue
+        out[k] = ({f: _slot_major(t) for f, t in zip(v._fields, v)}
+                  if isinstance(v, tuple) else _slot_major(v))
     return out
 
 

@@ -31,7 +31,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.pipeline", "repro_torch.runtime.driver",
             "repro_torch.launch.steps", "repro_torch.launch.train",
             "repro_torch.kernels.linear_attn", "repro_torch.models.ssm",
-            "repro_torch.configs.rwkv6_1_6b", "repro_torch.core.adaptnet",
+            "repro_torch.configs.rwkv6_1_6b",
+            "repro_torch.configs.zamba2_7b", "repro_torch.core.adaptnet",
             "repro_torch.core.dataset", "repro_torch.core.workloads",
             "repro_torch.kernels.adaptnetx",
             "repro_torch.launch.train_adaptnet",
@@ -88,6 +89,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve_continuous(num_requests=1, log=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_continuous(arch="rwkv6-1.6b", num_requests=1, log=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_continuous(arch="zamba2-7b", num_requests=1, log=False)
     from repro_torch.core import adaptnet as A
     from repro_torch.core.dataset import Dataset
     from repro_torch.core.sara import train_adaptnet_tpu
@@ -178,7 +181,8 @@ def test_train_entry_point_raises_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_training_routes_raise(tmp_path):
     """Training refuses what it has not ported, before the driver (which
-    would retry the error): a mesh and every family but dense GQA.  The
+    would retry the error): a mesh and every family but dense GQA, ssm
+    (RWKV6) and the zamba2 hybrid.  The
     blockwise attention route (``attn_impl="xla"``) is ported: those
     calls now compute, their parity is in test_torch_dense_cache.py and
     test_torch_train.py."""
@@ -195,6 +199,8 @@ def test_unported_training_routes_raise(tmp_path):
                                          optimized=True), **kw)
     assert not any(tmp_path.iterdir())       # no checkpoint was written
     transformer.check_trained_family(get_arch("llama3.2-1b"))  # "xla"
+    for arch in ("rwkv6-1.6b", "zamba2-7b"):
+        transformer.check_trained_family(get_arch(arch, optimized=True))
     q = torch.ones(1, 4, 2, 8)
     for args in (dict(impl="xla"), dict(impl="pallas", q_offset=2),
                  dict(impl="pallas", logit_cap=30.0),

@@ -485,6 +485,8 @@ FLASH_CASES = [
     (1, 100, 300, 8, 1, 32, 48, True, 64, 64),     # kv past every query
     (1, 300, 100, 4, 1, 64, 64, False, 64, 64),    # Sq > Skv
     (1, 65, 129, 12, 1, 100, 50, False, 64, 64),
+    # zamba2-7b's shared attention block: 32 heads of 32 (G = 1) at hd 112
+    (2, 256, 256, 32, 32, 112, 112, True, 512, 512),
     (2, 1024, 1024, 32, 8, 64, 64, True, 512, 512),
 ]
 
@@ -886,6 +888,123 @@ def test_linear_attn_kernel_matches_plain(cuda, shape, chunk):
         want = ops.linear_attn(*args, chunk=chunk)
     assert ops.launch_counts()["linear_attn"] == 1
     assert o.shape == (BH, S, V) and _close(o, want)
+
+
+@pytest.mark.parametrize("case", [c for c in WKV_CASES if c[0] in (
+    "prefill", "ragged", "decode", "ref many chunks")],
+    ids=lambda c: c[0])
+def test_wkv_gradient_matches_plain(cuda, case):
+    """The WKV forward on the kernel and its backward (the plain scan,
+    recomputed) against the plain route's forward and backward, on the
+    card: the outputs to the kernel tolerance, every input's gradient to
+    1e-4 of its largest magnitude (the backward sees the same inputs; only
+    the forward's summation order differs, and the gradient does not
+    depend on it)."""
+    _, B, S, H, K, V, chunk = case
+    base = _wkv_inputs(cuda, B, S, H, K, V, False)
+    w = torch.randn((B, S, H, V), generator=cuda, device="cuda")
+    res = {}
+    for execute in ("kernel", "torch"):
+        ops.reset_counts()
+        ins = [t.clone().requires_grad_(True) for t in base]
+        with dispatch.use(execute=execute):
+            o, sf = ops.wkv_attention(*ins, chunk=chunk)
+            ((o * w).sum() + sf.square().sum()).backward()
+        res[execute] = (o.detach(), sf.detach(), [t.grad for t in ins],
+                        ops.launch_counts())
+    (o, sf, g, n), (po, psf, pg, _) = res["kernel"], res["torch"]
+    assert n["wkv_bshk"] == 1 and n["plain_calls"] == 0
+    assert _close(o, po) and _close(sf, psf)
+    for a, b in zip(g, pg):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= \
+            1e-4 * b.abs().max().item() + 1e-6
+
+
+def test_reduced_zamba2_serve_matches_cpu(cuda):
+    """The reduced zamba2 (7 slots: 2 groups of 2 Mamba layers and the
+    shared block, then 1 Mamba layer; d = 64, f32) served on the card and
+    on the CPU from the same weights (dense slot layout, 3 requests on 2
+    slots): the same greedy tokens, every GEMM on the kernel, no plain
+    version."""
+    import numpy as np
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_arch("zamba2-7b", optimized=True).reduced()
+    ecfg = EngineConfig(num_slots=2, max_len=32, temperature=0.0,
+                        prefill_chunk=None)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 13, 21)]
+    params = None
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, ecfg, device=dev,
+                            params=None if params is None else
+                            _to(params, dev))
+        params = eng.params
+        ops.reset_counts()
+        outs[dev] = eng.run([Request(f"r{i}", p, 6)
+                             for i, p in enumerate(prompts)])
+        counts = ops.launch_counts()
+        assert eng.kv_layout == "dense"
+    calls = eng.metrics.decode_steps + len(prompts)
+    # 5 Mamba layers x 2 GEMMs, 2 shared-block calls x 7, the unembedding
+    assert counts["rsa_gemm"] == 25 * calls
+    assert counts["plain_calls"] == 0
+    for rid, toks in outs["cpu"].items():
+        assert list(outs["cuda"][rid]) == list(toks), rid
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_reduced_ssm_train_step_matches_cpu(cuda, arch):
+    """One train step of the reduced zamba2 (its shared block on the flash
+    kernels) or rwkv6 (the WKV kernel forward, the plain scan backward),
+    optimized profile, f32, on the card against the same step on the
+    CPU's plain versions: the loss and grad norm as the llama step above;
+    the new weights within 1e-4 of each leaf's largest magnitude plus 1e-6
+    at 99.9% of its elements and all within 2 lr (Adam's normalised step
+    turns a summation-order difference of a gradient element near zero
+    into a step of its own, as in test_torch_train_ssm.py)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, _batch
+    from repro_torch.launch.steps import build_train_step
+    cfg = get_arch(arch, optimized=True).reduced()
+    tokens = torch.from_numpy(_batch(DataConfig(cfg.vocab_size, 48, 2,
+                                                seed=1), 0)["tokens"])
+    init = build_train_step(cfg, device="cpu")[0].init(0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        _, step, opt = build_train_step(cfg, lr=1e-3, device=dev)
+        params = _to(init, dev)
+        ops.reset_counts()            # the card's step alone is counted
+        new, _, met = step(params, opt.init(params),
+                           {"tokens": tokens.to(dev)})
+        res[dev] = (_to(new, "cpu"), float(met["loss"]),
+                    float(met["grad_norm"]))
+    counts = ops.launch_counts()
+    if arch == "zamba2-7b":     # 2 shared-block calls, remat recomputes
+        assert (counts["flash_fwd"], counts["flash_dq"],
+                counts["flash_dkv"]) == (4, 2, 2)
+    else:                       # 2 layers, remat recomputes
+        assert counts["wkv_bshk"] == 4
+    assert counts["rsa_gemm"] > 0 and counts["plain_calls"] == 0
+    (pc, lc, gc), (pg, lg, gg) = res["cpu"], res["cuda"]
+    assert abs(lg - lc) <= 1e-5 * lc and abs(gg - gc) <= 1e-4 * gc
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    want = dict(leaves(pc))
+    for key, got in leaves(pg):
+        diff = (got - want[key]).abs()
+        tol = 1e-4 * want[key].abs().max().item() + 1e-6
+        assert (diff <= tol).float().mean().item() >= 0.999, key
+        assert diff.max().item() <= 2e-3, key
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

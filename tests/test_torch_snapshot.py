@@ -6,13 +6,15 @@
   page arena (reduced llama3.2-1b, with and without the prefix cache, by
   hand and every N steps through ``snapshot_every``) and on the dense
   slot state (reduced rwkv6) and the dense KV caches of an attention
-  family (reduced llama3.2-1b, bucketed prefill), and on the page arena
-  of an encdec model (reduced seamless-m4t-medium: bucketed prefill, its
-  cross K/V dense per slot, each request's source features), greedy;
+  family (reduced llama3.2-1b, bucketed prefill) and of the hybrid
+  (reduced zamba2: Mamba states and the shared block's K/V), and on the
+  page arena of an encdec model (reduced seamless-m4t-medium: bucketed
+  prefill, its cross K/V dense per slot, each request's source
+  features), greedy;
   with temperature > 0 the saved ``torch.Generator`` state makes the
   resumed samples the uninterrupted run's too;
 - a snapshot the JAX engine wrote (paged llama, dense rwkv6, dense llama,
-  paged encdec) restores in the port and ends with the JAX engine's
+  paged encdec, dense zamba2) restores in the port and ends with the JAX engine's
   greedy tokens, and the port
   writes its leaves under the reference's keys (apart from the sampling
   state: the reference's ``rng_key``, the port's ``rng_state``);
@@ -77,6 +79,11 @@ def rwkv():
 @pytest.fixture(scope="module")
 def seamless():
     return _pair("seamless-m4t-medium")
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    return _pair("zamba2-7b")
 
 
 def _reqs(cls, vocab, n=4, gen=6, plen=12, seed=3, shared=0, src_feat=0):
@@ -197,6 +204,18 @@ def test_kill_and_resume_dense_attention(llama, tmp_path):
         np.testing.assert_array_equal(base[rid], jout[rid])
 
 
+def test_kill_and_resume_dense_hybrid(zamba, tmp_path):
+    """A hybrid engine (reduced zamba2): each slot's Mamba states and its
+    shared attention block's K/V rows and lengths (``cache/attn``) cross
+    the snapshot in the reference's slot-major layout."""
+    base, _, eng = _kill_and_resume(zamba, DENSE, tmp_path, kill_at=3,
+                                    reqs_kw=dict(n=3, gen=5))
+    assert set(eng._cache) == {"pos", "layers", "attn"}
+    jout = _jengine(zamba, DENSE).run(_reqs(JRequest, 512, n=3, gen=5))
+    for rid in jout:
+        np.testing.assert_array_equal(base[rid], jout[rid])
+
+
 def test_kill_and_resume_paged_encdec(seamless, tmp_path):
     """A paged encdec engine: the arena, the slots' dense cross K/V and
     each live request's source features come back."""
@@ -276,14 +295,16 @@ def test_jax_snapshot_restores_in_port(arch, ecfg, kill, llama, rwkv,
 
 
 @pytest.mark.parametrize("arch,ecfg,kill", [("llama", DENSE, 3),
-                                            ("seamless", ENCDEC, 3)])
+                                            ("seamless", ENCDEC, 3),
+                                            ("zamba", DENSE, 3)])
 def test_jax_snapshot_restores_in_port_attention_layouts(
-        arch, ecfg, kill, llama, seamless, tmp_path):
-    """A JAX snapshot of a dense llama engine (its per-slot KV caches) and
-    of a paged encdec engine (its cross K/V state, the requests' source
-    features) restores in the port and ends with the JAX engine's tokens;
-    the port writes the same keys, its sampling state aside."""
-    pair = {"llama": llama, "seamless": seamless}[arch]
+        arch, ecfg, kill, llama, seamless, zamba, tmp_path):
+    """A JAX snapshot of a dense llama engine (its per-slot KV caches), of
+    a paged encdec engine (its cross K/V state, the requests' source
+    features) and of a dense hybrid engine (its Mamba states and shared
+    attention K/V) restores in the port and ends with the JAX engine's
+    tokens; the port writes the same keys, its sampling state aside."""
+    pair = {"llama": llama, "seamless": seamless, "zamba": zamba}[arch]
     kw = dict(n=3, gen=5,
               src_feat=pair[2].frontend.feature_dim if arch == "seamless"
               else 0)

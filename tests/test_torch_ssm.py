@@ -185,12 +185,23 @@ def test_wkv_state_carry_composes():
 
 
 def test_wkv_is_forward_only():
+    """The WKV wrapper now takes a gradient (the reference's custom VJP:
+    the backward recomputes through the plain scan; its parity is in
+    test_torch_train_ssm.py), and the same forward under no_grad; linear
+    attention, which no model path differentiates, stays forward only."""
     args = [torch.from_numpy(a) for a in _wkv_inputs(WKV_CASES[3])]
     args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        ops.wkv_attention(*args, chunk=1)
+    o, sf = ops.wkv_attention(*args, chunk=1)
+    (o.sum() + sf.sum()).backward()
+    assert args[0].grad is not None and torch.isfinite(args[0].grad).all()
     with torch.no_grad():
-        ops.wkv_attention(*args, chunk=1)
+        o2, sf2 = ops.wkv_attention(*args, chunk=1)
+    assert torch.equal(o.detach(), o2) and torch.equal(sf.detach(), sf2)
+    r, k, v, lw = (t.detach()[:, :, 0] for t in args[:4])   # (BH, S, K)
+    r.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.linear_attn(r, k, v, lw, args[4][:1].expand(r.shape[0], -1),
+                        chunk=1)
 
 
 @pytest.mark.parametrize("shape,chunk", [((2, 64, 16, 16), 16),
