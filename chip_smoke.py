@@ -209,6 +209,29 @@ Phases (any failure exits non-zero):
    from the plain run's than a control run with the kernel GEMMs and the
    plain WKV scan is (the gate that held printed), and 1e-5 / 1e-4 at 2
    layers of the same widths.
+15. the other families trained (optimized profile: attention on the flash
+   kernels; f32, 4 steps of 2 x 1024 tokens at the step builder's default
+   lr 3e-4, random weights from seed 0): (a) gemma-2b at its published widths cut to 6 of 18 layers
+   (MQA at hd 256: the flash kernels' 128-column slices), (b)
+   qwen2-moe-a2.7b cut to 1 of 24 layers (60 -> 64 experts top-4 and 4
+   shared: each expert bank's dx and dw as one bank launch each), through
+   ``train_main`` with its checkpoints, the final tree restored once, (c)
+   seamless-m4t-medium uncut (12 + 12 layers; 128 seeded source frames:
+   the bidirectional encoder and the cross attention through the flash
+   forward and backward), (d) deepseek-v3-671b (expanded MLA, one dense and
+   one MoE layer) and internvl2-76b (vlm, seeded patch rows) at the reduced
+   preset, since one layer of either at published widths passes f32
+   AdamW's bytes on 80 GB (printed from 15a's measured bytes a
+   parameter).  a, c and d step ``build_train_step``'s step under a
+   ``TrainDriver`` that writes no checkpoint.  Gates, as phase 14 but
+   for the first: the loss falls on step 0's batch (after the four steps
+   below step 1's: each step draws new random tokens, whose loss spreads
+   by more than four steps move it; at lr 1e-3 seamless overshoots that
+   batch), 0 restarts, 0 plain calls, each kernel's launches a step
+   as counted from the model's layers, step 1's loss and grad norm within
+   1e-5 / 1e-4 of the same step on the plain versions, a MoE model's aux
+   metrics finite and within 1e-5 of the plain step's, and 15b's restored
+   tree leaf for leaf the trained one.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -236,7 +259,14 @@ serving GEMMs (bf16 at M = 8 and 512, ``ssm.in_proj``'s ragged N =
 tokens), the three flash kernels at its shared block's shape (B = 2, S =
 1024, 32 / 32 heads, hd 112, causal, f32, run to run bitwise) and the
 WKV kernel at 14c's training forward (B = 2, S = 1024), each timed
-beside its plain version, its bound and ``matmul`` / SDPA.
+beside its plain version, its bound and ``matmul`` / SDPA, and phase
+15's: the three flash kernels at gemma-2b's training shape (B = 2, S =
+1024, 8 / 1 heads, hd 256, causal; f32 and bf16, the bf16 gradients held
+to 2e-2) and at deepseek-v3's expanded-MLA training shape (B = 1, S =
+1024, 128 heads, hd 192 / hd_v 128, causal, f32), all three run to run
+bitwise, and the bank GEMM's dx and dw at 15b's expert banks (E = 64, M =
+172, f32, the transposes read in place) against the plain version and
+``torch.bmm``, each timed beside its bound.
 
 After phase 9 one line per mode gives the worst kernel / library-call
 factor over the run's timed GEMM shapes, with its shape.  The lines
@@ -308,6 +338,19 @@ P14_SLOTS, P14_GEN, P14_LENS = 8, 16, tuple(range(64, 513, 64))
 P14_TRAIN_SLOTS = 13
 P14_FLASH = "zamba2 hd 112"
 P14_KEYS = {}     # each phase 14 path's GEMM launches by (M, K, N, mode)
+# phase 15: the other families trained, f32, phase 7's batch and steps:
+# (key, arch, depth cut, preset, lr); 15c's seeded source frames; phase
+# 3's flash cases at gemma-2b's and the expanded MLA's widths
+# (each at the step builder's default lr, 3e-4: at 1e-3 seamless's four
+# steps overshoot step 0's batch)
+P15_RUNS = (("15a", "gemma-2b", 6, "full", 3e-4),
+            ("15b", "qwen2-moe-a2.7b", 1, "full", 3e-4),
+            ("15c", "seamless-m4t-medium", None, "full", 3e-4),
+            ("15d deepseek", "deepseek-v3-671b", None, "reduced", 3e-4),
+            ("15d internvl2", "internvl2-76b", None, "reduced", 3e-4))
+P15_SRC = 128
+P15_FLASH = {"gemma": "gemma hd 256", "mla": "deepseek MLA 192/128"}
+P15_KEYS = {}     # each phase 15 run's GEMM launches by ([E,] M, K, N, mode)
 
 
 def log(*a):
@@ -440,7 +483,7 @@ def mode_summary(report):
     GEMM and bank shape of the run, with its shape."""
     worst = {}
     for part in ("gemm", "bank", "train_gemm", "ds_gemm", "rwkv_gemm",
-                 "p14_gemm", "p14_train_gemm"):
+                 "p14_gemm", "p14_train_gemm", "p15_bank"):
         for rec in report.get(part, []):
             if not rec.get("ms") or not rec.get("library_ms"):
                 continue
@@ -1370,22 +1413,26 @@ def check_flash(torch, report, timer, cfg):
 
 
 def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
-               hd):
+               hd, hd_v=None, grads=None, twice=False):
     """One case of ``check_flash``: the three kernels against their plain
     versions (the backward pair alone, from the kernel forward's lse and
-    delta; f32 only), its plan, each kernel timed beside its plain version,
-    SDPA and its bound.  Returns (record, ok)."""
+    delta; f32 unless ``grads``), its plan, each kernel timed beside its
+    plain version, SDPA and its bound.  ``hd_v`` (default hd) is v's and
+    o's width; ``twice`` runs all three kernels twice and holds the
+    second run to the first's bits.  Returns (record, ok)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import (
         _flash_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
         flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
-    plan = _flash_plan(H, KVH, hd, hd)
+    hd_v = hd_v or hd
+    grads = dt == f32 if grads is None else grads
+    plan = _flash_plan(H, KVH, hd, hd_v)
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, Skv, KVH, hd), generator=gen,
                     device="cuda").to(dt)
-    v = torch.randn((B, Skv, KVH, hd), generator=gen,
+    v = torch.randn((B, Skv, KVH, hd_v), generator=gen,
                     device="cuda").to(dt)
     bq, bk = min(512, Sq), min(512, Skv)
     blocks = dict(causal=causal, scale=scale, bq=bq, bk=bk)
@@ -1393,17 +1440,20 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
     po, plse = flash_fwd_plain(q, k, v, **blocks)
     rt = 2e-6 if dt == f32 else 2e-2
     res = {"fwd o": (o, po, rt, rt), "fwd lse": (lse, plse, 2e-6, 2e-6)}
-    if dt == f32:
-        do = torch.randn(o.shape, generator=gen, device="cuda")
-        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    if grads:
+        # the reference's gradient tolerance in f32; in bf16 its bf16
+        # forward tolerance (ds and the products round to bf16)
+        ga, gr = (3e-5, 1e-3) if dt == f32 else (2e-2, 2e-2)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
         stats = (q, k, v, do, lse, delta)
         dq = flash_dq_cuda(*stats, causal=causal, scale=scale)
         dk, dv = flash_dkv_cuda(*stats, causal=causal, scale=scale)
         pdq = flash_dq_plain(*stats, **blocks)
         pdk, pdv = flash_dkv_plain(*stats, **blocks)
-        res.update({"dq": (dq, pdq, 3e-5, 1e-3),
-                    "dk": (dk, pdk, 3e-5, 1e-3),
-                    "dv": (dv, pdv, 3e-5, 1e-3)})
+        res.update({"dq": (dq, pdq, ga, gr), "dk": (dk, pdk, ga, gr),
+                    "dv": (dv, pdv, ga, gr)})
     torch.cuda.synchronize()
     errs, good = {}, True
     for key, (got, want, atol, rtol) in res.items():
@@ -1416,38 +1466,44 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
         zeros = bool((dk[:, Sq:] == 0).all() and (dv[:, Sq:] == 0).all())
         good &= zeros
     bitwise = None
-    if name in ("main", "G = 8", P14_FLASH):
+    if name in ("main", "G = 8", P14_FLASH) or twice:
         dq2 = flash_dq_cuda(*stats, causal=causal, scale=scale)
         dk2, dv2 = flash_dkv_cuda(*stats, causal=causal, scale=scale)
+        o2, lse2 = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
         bitwise = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                       and torch.equal(dv, dv2))
+                       and torch.equal(dv, dv2) and torch.equal(o, o2)
+                       and torch.equal(lse, lse2))
         good &= bitwise
     rec = {"case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
-           "KVH": KVH, "hd": hd, "causal": causal,
+           "KVH": KVH, "hd": hd, "hd_v": hd_v, "causal": causal,
            "dtype": str(dt).split(".")[-1], "plan": plan._asdict(),
            "max_abs_err": errs,
            "tol": {k: (a, r) for k, (_, _, a, r) in res.items()},
            "past_rows_zero": zeros, "run_to_run_bitwise": bitwise,
            "ok": good}
     log(f"  flash {name:<20} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} "
+        f"hd={hd}/{hd_v} "
         f"{rec['dtype']} {'causal' if causal else 'full'}: max_abs_err "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
         + (f"; dk/dv past every query {'0' if zeros else 'NONZERO'}"
            if zeros is not None else "")
-        + (f"; dq, dk/dv run to run bitwise {bitwise}"
+        + (f"; o, lse, dq, dk/dv run to run bitwise {bitwise}"
            if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
     log(f"    plan: forward 64 query rows a CTA, {plan.fwd_stages} "
-        f"ring stage(s); dq {plan.dq_rows} query rows a CTA, 2 ring "
-        f"stages; dk/dv {plan.dkv_rows} kv rows a CTA, "
+        f"ring stage(s); dq {plan.dq_rows} query rows a CTA, "
+        f"{'2 ring stages' if plan.slices == 1 else 'one chunk slot'}; "
+        f"dk/dv {plan.dkv_rows} kv rows a CTA, "
         f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
-        f"{plan.parts} partial(s) a kv head")
+        f"{plan.parts} partial(s) a kv head; {plan.slices} column "
+        f"slice(s)")
     pairs = B * H * sum(min(r + 1, Skv) if causal else Skv
                         for r in range(Sq))
     es = q.element_size()
-    qb, kb = q.numel() * es, k.numel() * es
+    qb, kb, vb = q.numel() * es, k.numel() * es, v.numel() * es
+    ob = qb // hd * hd_v                     # o, do
     st = 4 * B * H * Sq                      # one f32 per query row
     peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(dt == f32)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(grads)
                   for t in (q, k, v))
 
     def sdpa():
@@ -1458,19 +1514,21 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
     except TypeError:                # a torch without enable_gqa
         G = H // KVH
         kt, vt = (t.detach().repeat_interleave(G, dim=1)
-                  .requires_grad_(dt == f32) for t in (kt, vt))
+                  .requires_grad_(grads) for t in (kt, vt))
 
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=causal)
         out = sdpa()
         rec["library"] = "sdpa over k/v expanded to H heads"
+    # operations a (query, key) pair: s = q.k and p v in the forward; s,
+    # dp = do.v and ds k in dq; s, dv, dp and dk in dk/dv
     timed = {"flash_fwd": (
         lambda: flash_fwd_cuda(q, k, v, causal=causal, scale=scale),
         lambda: flash_fwd_plain(q, k, v, **blocks), sdpa,
-        bound_ms(qb + 2 * kb + qb + st, 4 * hd * pairs, peak),
+        bound_ms(qb + kb + vb + ob + st, 2 * (hd + hd_v) * pairs, peak),
         errs["fwd o"])}
-    if dt == f32:
+    if grads:
         gout = do.transpose(1, 2)
 
         def sdpa_bwd():
@@ -1479,12 +1537,14 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
         timed["flash_dq"] = (
             lambda: flash_dq_cuda(*stats, causal=causal, scale=scale),
             lambda: flash_dq_plain(*stats, **blocks), sdpa_bwd,
-            bound_ms(3 * qb + 2 * kb + 2 * st, 6 * hd * pairs, peak),
+            bound_ms(2 * qb + ob + kb + vb + 2 * st,
+                     2 * (2 * hd + hd_v) * pairs, peak),
             errs["dq"])
         timed["flash_dkv"] = (
             lambda: flash_dkv_cuda(*stats, causal=causal, scale=scale),
             lambda: flash_dkv_plain(*stats, **blocks), sdpa_bwd,
-            bound_ms(2 * qb + 4 * kb + 2 * st, 8 * hd * pairs, peak),
+            bound_ms(qb + ob + 2 * kb + 2 * vb + 2 * st,
+                     4 * (hd + hd_v) * pairs, peak),
             max(errs["dk"], errs["dv"]))
     rec["timed"] = {}
     for kname, (kern, plain_fn, lib, (b_ms, b_by), err) in \
@@ -2100,6 +2160,117 @@ def check_p14_kernels(torch, report, timer, dispatcher):
     report["p14_flash"] = rec
     torch.cuda.empty_cache()
     return ok and good
+
+
+def p15_bank_cases():
+    """(site, E, M, K, N) of qwen2-moe-a2.7b's expert banks in 15b's train
+    step: 64 padded experts, M = 2 rows x ``row_capacity(1024)`` = 172
+    slots, gate / up (2048 -> 1408) and down (1408 -> 2048)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.moe import padded_num_experts, row_capacity
+    cfg = get_arch("qwen2-moe-a2.7b")
+    E, d, f = padded_num_experts(cfg), cfg.d_model, cfg.moe.d_ff_expert
+    M = TRAIN_B * row_capacity(TRAIN_S, cfg)
+    return (("gate/up", E, M, d, f), ("down", E, M, f, d))
+
+
+def check_p15_bank_grads(torch, report, timer, dispatcher):
+    """The bank GEMM's gradient at 15b's shapes, f32: for each bank (E, M,
+    K, N) its dx = dy @ w^T, one bank launch of (E, M, N) x (E, N, K) with
+    w^T read in place, and its dw = x^T @ dy, one of (E, K, M) x (E, M, N)
+    with x^T read in place, each with its recommended tile, against the
+    plain version within the f32 summation bound (K x 2^-24 x |a| @ |b|)
+    and run to run bitwise; timed (L2 flushed) beside the plain version
+    and ``torch.bmm``, bound by the f32 CUDA-core peak."""
+    from repro_torch.core.hw import DATAFLOW_NAMES
+    from repro_torch.dispatch.executor import _clamped_blocks
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    ok = True
+    report["p15_bank"] = []
+    for site, E, M, K, N in p15_bank_cases():
+        x = torch.randn((E, M, K), generator=gen, device="cuda")
+        w = torch.randn((E, K, N), generator=gen, device="cuda") \
+            / math.sqrt(K)
+        dy = torch.randn((E, M, N), generator=gen, device="cuda")
+        for pas, a, b in (("dx", dy, w.transpose(1, 2)),
+                          ("dw", x.transpose(1, 2), dy)):
+            m, k, n = a.shape[1], a.shape[2], b.shape[2]
+            c = dispatcher.recommend(m, k, n)
+            bk, mode = _clamped_blocks(c, m, k, n)[2], c.mode
+
+            def kernel():
+                return rsa_gemm_cuda(a, b, block_k=bk, mode=mode)
+            out = kernel()
+            again = kernel()
+            plain = rsa_gemm_plain(a, b, block_k=bk, mode=mode)
+            torch.cuda.synchronize()
+            err = (out - plain).abs().max().item()
+            tol = k * F32_EPS * max(
+                (a[e:e + 16].abs() @ b[e:e + 16].abs()).max().item()
+                for e in range(0, E, 16))
+            bitwise = bool(torch.equal(out, again))
+            good = err <= tol and math.isfinite(err) and bitwise
+            ok &= good
+            b_ms, b_by = bound_ms(4.0 * E * (m * k + k * n + m * n),
+                                  2.0 * E * m * n * k, PEAK_F32_FLOPS)
+            rec = {"site": site, "pass": pas, "E": E, "M": m, "K": k,
+                   "N": n, "bk": bk, "mode": DATAFLOW_NAMES[mode],
+                   "max_abs_err": err, "tol": tol,
+                   "run_to_run_bitwise": bitwise, "ok": good,
+                   "ms": timer(kernel),
+                   "plain_ms": timer(lambda: rsa_gemm_plain(
+                       a, b, block_k=bk, mode=mode)),
+                   "library_ms": timer(lambda: torch.bmm(a, b)),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "key": (E, m, k, n, mode)}
+            report["p15_bank"].append(rec)
+            log(f"  rsa_gemm bank {pas} qwen2 {site:<7} {E}x({m}x{k}x{n}) "
+                f"{rec['mode']} bk={bk} f32 "
+                f"{'B^T' if pas == 'dx' else 'A^T'}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}), run to run bitwise {bitwise} "
+                f"{'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms "
+                f"plain {rec['plain_ms']:.4f} ms bmm "
+                f"{rec['library_ms']:.4f} ms bound {b_ms:.4f} ms")
+            del out, again, plain
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return ok
+
+
+def check_p15_kernels(torch, report, timer, dispatcher):
+    """Phase 15's shapes: the three flash kernels at gemma-2b's training
+    shape (B = 2, S = 1024, 8 / 1 heads, hd 256: two 128-column slices,
+    causal) in f32 and bf16 and at deepseek-v3's expanded-MLA training
+    shape (B = 1, S = 1024, 128 heads, hd 192 / hd_v 128, causal, f32),
+    each against its plain version and run to run bitwise, timed beside
+    SDPA and its bound (5 timed runs: the plain versions loop over
+    blocks); and the bank GEMM's dx / dw at 15b's shapes."""
+    from repro_torch.configs.registry import get_arch
+    timer = Timer(torch, reps=5)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    g = get_arch("gemma-2b")
+    m = get_arch("deepseek-v3-671b").mla
+    report["p15_flash"] = []
+    ok = True
+    for name, B, H, KVH, hd, hd_v, dt in (
+            (P15_FLASH["gemma"], TRAIN_B, g.num_heads, g.num_kv_heads,
+             g.head_dim, g.head_dim, torch.float32),
+            ("gemma hd 256 bf16", TRAIN_B, g.num_heads, g.num_kv_heads,
+             g.head_dim, g.head_dim, torch.bfloat16),
+            (P15_FLASH["mla"], 1, 128, 128,
+             m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
+             torch.float32)):
+        rec, good = flash_case(torch, timer, gen, name, B, TRAIN_S, TRAIN_S,
+                               True, dt, H, KVH, hd, hd_v, grads=True,
+                               twice=True)
+        report["p15_flash"].append(rec)
+        ok &= good
+        torch.cuda.empty_cache()
+    ok &= check_p15_bank_grads(torch, report, timer, dispatcher)
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -5100,6 +5271,311 @@ def p14_all(torch, report, timer):
     return ok
 
 
+class _NoCheckpoint:
+    """Stands in for a ``TrainDriver``'s checkpoint manager where phase 15
+    writes no checkpoint (all its runs but 15b): a step that raised would
+    have nothing to restore, so it fails the run."""
+
+    def save(self, *args, **kwargs):
+        pass
+
+    def wait(self):
+        pass
+
+    def restore(self, *args, **kwargs):
+        raise RuntimeError("phase 15 keeps no checkpoint to restore from")
+
+
+def p15_expected(cfg):
+    """Each kernel's launches in one train step of ``cfg`` (optimized
+    profile, every layer under remat): a GEMM whose input and weight both
+    take gradients runs its forward twice (forward, recompute) and its dx
+    and dw once; a frontend GEMM over the input features has no dx and is
+    not recomputed (proj, proj1); a loss chunk's unembedding is
+    checkpointed, 4 launches; an expert bank counts like a 2-D GEMM; the
+    router is pinned to the plain product.  Every attention call (each
+    decoder layer's self attention, an encdec model's encoder layers and
+    cross attention) runs the flash forward twice and its backward
+    once."""
+    from repro_torch.models.transformer import num_dense_layers
+    r = 2 if cfg.remat else 1
+    full = r + 2
+    attn = 6 if cfg.attention_type == "mla" else 4     # MLA: q/kv down, q/k/v
+    mlp = 3                                            # up, out
+    L = cfg.num_layers
+    if cfg.family == "encdec":
+        sites = 7 * cfg.encoder_layers + (attn + 4 + mlp) * L  # + cross 4
+        calls = cfg.encoder_layers + 2 * L
+        front = 2                                       # proj: fwd, dw
+    else:
+        nd = num_dense_layers(cfg)
+        moe = 3 + (3 if cfg.moe and cfg.moe.num_shared_experts else 0)
+        sites = (attn + mlp) * nd + (attn + (moe if cfg.moe else mlp)) * \
+            (L - nd)
+        calls = L
+        front = 2 + 3 if cfg.family == "vlm" else 0     # proj1, proj2
+    chunks = -(-TRAIN_S // cfg.loss_chunk)
+    return {"rsa_gemm": full * sites + front + 4 * chunks,
+            "flash_fwd": r * calls, "flash_dq": calls, "flash_dkv": calls}
+
+
+def published_params(cfg, dense_layers=0, moe_layers=0):
+    """Parameters of ``cfg`` at its published widths with the given numbers
+    of dense-MLP and MoE layers and its embeddings (untied: both), counted
+    from the shapes ``models/transformer.py::init_params`` draws."""
+    from repro_torch.models.moe import padded_num_experts
+    d, H = cfg.d_model, cfg.num_heads
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        attn = (d * m.q_lora_rank + m.q_lora_rank
+                + m.q_lora_rank * H * (m.qk_nope_head_dim
+                                       + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank
+                + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                + H * m.v_head_dim * d)
+    else:
+        attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+    dense = 2 * d + attn + 3 * d * cfg.d_ff
+    moe = 0
+    if cfg.moe is not None:
+        E, f = padded_num_experts(cfg), cfg.moe.d_ff_expert
+        moe = 2 * d + attn + d * E + 3 * E * d * f + \
+            3 * d * f * cfg.moe.num_shared_experts
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    return emb + dense_layers * dense + moe_layers * moe
+
+
+def p15_train(torch, report, key, arch, layers, preset, lr):
+    """One phase 15 run: ``arch`` (optimized profile) at its published
+    widths cut to ``layers`` (or the reduced preset), f32, 4 steps of 2 x
+    1024 tokens (with seeded ``patch_embeds`` of the frontend's rows, or
+    128 seeded ``src_features`` frames) at ``lr``, every kernel counted.
+    15b trains through ``train_main`` (the driver with its checkpoints)
+    and restores its final tree once; the others through a
+    ``TrainDriver`` over ``build_train_step``'s step with no checkpoint.
+    Gates, as phase 14 but for the first: the loss falls on step 0's batch
+    (its loss after the four steps below step 1's; each step draws a new
+    batch of random tokens, whose loss spreads by more than four steps
+    move it), no restart, no plain call, each
+    kernel's launches a step as ``p15_expected`` counts them, step 1's
+    loss and grad norm within 1e-5 / 1e-4 relative of the same step from
+    the same init and batch on the plain versions (and a MoE model's aux
+    metrics within 1e-5 of theirs, finite), 15b's restored tree leaf for
+    leaf the trained one."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, _batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
+    from repro_torch.launch.steps import (ShapeSpec, _dispatch_ctx,
+                                          build_train_step,
+                                          model_flops_estimate)
+    from repro_torch.launch.train import train_main
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.driver import DriverConfig, TrainDriver
+    base = get_arch(arch, optimized=True)
+    cfg = base.reduced() if preset == "reduced" else base
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers,
+                      param_dtype="float32", compute_dtype="float32",
+                      opt_state_dtype="float32")
+    feats = {"vlm": ("patch_embeds", cfg.frontend.num_tokens),
+             "encdec": ("src_features", P15_SRC)}.get(cfg.family)
+    dcfg = DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+
+    def make_batch(step):
+        b = {"tokens": torch.from_numpy(_batch(dcfg, step)["tokens"])
+             .to("cuda")}
+        if feats:
+            g = torch.Generator(device="cuda")
+            g.manual_seed(1000 + step)
+            b[feats[0]] = torch.randn(
+                (TRAIN_B, feats[1], cfg.frontend.feature_dim), generator=g,
+                device="cuda")
+        return b
+
+    log(f"  {key}: {arch} " + (
+        f"depth cut {base.num_layers} -> {cfg.num_layers} layers, published"
+        f" widths" if layers else "no depth cut, published widths"
+        if preset == "full" else "the reduced preset")
+        + (f", {feats[1]} seeded {feats[0]} rows" if feats else ""))
+    ckpt = ROOT / "build" / f"chip_smoke_train_{key.replace(' ', '_')}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.time()
+    if key == "15b":
+        params, history, driver = train_main(
+            override_cfg=base, preset=preset, steps=TRAIN_STEPS,
+            global_batch=TRAIN_B, seq_len=TRAIN_S, checkpoint_dir=str(ckpt),
+            checkpoint_every=10 * TRAIN_STEPS, lr=lr, log_every=1, seed=0,
+            execute="kernel", device="cuda", num_layers=layers)
+        opt_state = driver.opt_state
+        model = build_model(cfg, "cuda")
+    else:
+        model, step_fn, opt = build_train_step(cfg, lr=lr, device="cuda")
+        params = model.init(0)
+
+        def step(p, o, b):
+            with _dispatch_ctx("train_step", "kernel"):
+                return step_fn(p, o, b)
+
+        driver = TrainDriver(DriverConfig(checkpoint_dir=str(ckpt)),
+                             train_step=step, make_batch=make_batch)
+        driver.ckpt = _NoCheckpoint()
+        params, opt_state, history = driver.run(
+            params, opt.init(params), start_step=0, num_steps=TRAIN_STEPS)
+        del step_fn, opt
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    keys = dict(rsa_gemm_cuda.launches_by_key)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad(), _dispatch_ctx("eval", "kernel"):
+        after0 = float(model.loss(params, make_batch(0))[0])
+    del model
+    n_params = sum(t.numel() for t in _leaves(params))
+    flops = model_flops_estimate(cfg, params, ShapeSpec(
+        "train", TRAIN_S, TRAIN_B, "train"),
+        src_len=feats[1] if feats else None)
+    restarts = driver.restarts
+    step_s = [e.seconds for e in driver.events]
+    ckpt_same = None
+    if key == "15b":
+        state = {"params": params, "opt": opt_state}
+        latest, restored, _ = CheckpointManager(ckpt).restore(state)
+        ckpt_same = latest == TRAIN_STEPS and all(
+            torch.equal(a, b) for a, b in zip(_state_leaves(restored),
+                                              _state_leaves(state)))
+        del state, restored
+    del params, opt_state, driver
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the same first step on the plain versions, same init and batch
+    model, step_fn, opt = build_train_step(cfg, lr=lr, device="cuda")
+    p0 = model.init(0)
+    ops.reset_counts()
+    with _dispatch_ctx("train_step", "torch"):
+        _, _, met = step_fn(p0, opt.init(p0), make_batch(0))
+    plain = {k: float(v) for k, v in met.items()}
+    plain_counts = ops.launch_counts()
+    del p0, met, model, step_fn, opt
+    torch.cuda.empty_cache()
+
+    expect = p15_expected(cfg)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    losses = [h["loss"] for h in history]
+    h0 = history[0]
+    loss_err = abs(h0["loss"] - plain["loss"]) / abs(plain["loss"])
+    gn_err = abs(h0["grad_norm"] - plain["grad_norm"]) / \
+        abs(plain["grad_norm"])
+    aux = None
+    if cfg.moe is not None:
+        aux = {k: (h0[k], plain[k], abs(h0[k] - plain[k]) /
+                   max(1.0, abs(plain[k])))
+               for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
+    med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    ok = (restarts == 0 and all(math.isfinite(x) for x in losses)
+          and after0 < losses[0] and len(history) == TRAIN_STEPS
+          and counts["plain_calls"] == 0
+          and all(counts[k] == TRAIN_STEPS * v for k, v in expect.items())
+          and loss_err <= 1e-5 and gn_err <= 1e-4
+          and (aux is None or all(math.isfinite(a) and e <= 1e-5
+                                  for a, _, e in aux.values()))
+          and ckpt_same is not False
+          and plain_counts["plain_calls"] > 0
+          and sum(v for k, v in plain_counts.items()
+                  if k != "plain_calls") == 0)
+    report["p15"][key] = {
+        "arch": cfg.name, "preset": preset, "num_layers": cfg.num_layers,
+        "cut": layers, "params": n_params, "dtype": "float32",
+        "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+        "features": feats, "wall_s": wall, "losses": losses,
+        "step0_batch_loss_after": after0,
+        "grad_norms": [h["grad_norm"] for h in history],
+        "restarts": restarts, "counts": counts,
+        "launches_per_step": per_step, "expected_per_step": expect,
+        "gemm_launches_by_shape": {
+            "x".join(map(str, k[:-1])) + f":{k[-1]}": v
+            for k, v in keys.items()},
+        "step_s": step_s, "median_step_s": med,
+        "tokens_per_s": TRAIN_B * TRAIN_S / med,
+        "model_flops_per_step": flops,
+        "model_flops_share_f32_peak": flops / med / PEAK_F32_FLOPS,
+        "peak_memory_gb": peak_gb, "lr": lr,
+        "plain_step1": plain, "step1_loss_rel_err": loss_err,
+        "step1_grad_norm_rel_err": gn_err, "aux_vs_plain": aux,
+        "checkpoint_restored_identical": ckpt_same,
+        "plain_counts": plain_counts, "ok": ok}
+    P15_KEYS[key] = keys
+    log(f"  {key}: {n_params:,} parameters, f32, lr {lr:g}, "
+        f"trained {len(history)} steps in {wall:.2f} s (wall"
+        f"{', two checkpoints' if key == '15b' else ', no checkpoint'}), "
+        f"restarts {restarts}, losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; step 0's batch {losses[0]:.4f} -> {after0:.4f} after them")
+    log(f"  {key}: launches per step: " + ", ".join(
+        f"{k} {per_step[k]:.1f} (expected {v})" for k, v in expect.items())
+        + f", plain_calls {counts['plain_calls']}")
+    log(f"  {key}: step {1e3 * med:.1f} ms (median of steps 2-{TRAIN_STEPS})"
+        f", {TRAIN_B * TRAIN_S / med:.1f} tokens/s, model FLOPs "
+        f"{flops / 1e12:.4g} TFLOP a step = "
+        f"{100 * flops / med / PEAK_F32_FLOPS:.3g}% of the f32 peak; peak "
+        f"memory {peak_gb:.1f} GB ({1e9 * peak_gb / n_params:.1f} B a "
+        f"parameter)")
+    log(f"  {key}: step 1 vs plain versions: loss {h0['loss']:.6f} vs "
+        f"{plain['loss']:.6f} (rel {loss_err:.2e}, tol 1e-5), grad_norm "
+        f"{h0['grad_norm']:.6f} vs {plain['grad_norm']:.6f} (rel "
+        f"{gn_err:.2e}, tol 1e-4)"
+        + ("" if aux is None else "; aux " + ", ".join(
+            f"{k} {a:.6g} vs {b:.6g} (rel {e:.1e})"
+            for k, (a, b, e) in aux.items()) + " (tol 1e-5)")
+        + ("" if ckpt_same is None else
+           f"; final checkpoint restored "
+           f"{'identical' if ckpt_same else 'DIFFERENT'}")
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def p15_all(torch, report):
+    """Phase 15: 15a gemma-2b cut to 6 layers, 15b qwen2-moe-a2.7b cut to
+    1 layer, 15c seamless-m4t-medium uncut, 15d deepseek-v3-671b and
+    internvl2-76b at the reduced preset (their published widths do not
+    fit f32 AdamW on one card: printed)."""
+    t0 = time.time()
+    report["p15"] = {}
+    ok = True
+    for run in P15_RUNS:
+        if run[0] == "15d deepseek":
+            ok &= p15_fit_note(report)
+        ok &= p15_train(torch, report, *run)
+        torch.cuda.empty_cache()
+    report["phase15_s"] = time.time() - t0
+    return ok
+
+
+def p15_fit_note(report):
+    """Why 15d runs the reduced preset: the parameters of one layer at
+    the published widths, beside 15a's measured bytes a parameter."""
+    from repro_torch.configs.registry import get_arch
+    a = report["p15"]["15a"]
+    per = 1e9 * a["peak_memory_gb"] / a["params"]
+    ds, iv = get_arch("deepseek-v3-671b"), get_arch("internvl2-76b")
+    note = {"bytes_per_param_15a": per,
+            "deepseek_dense_layer_and_embeddings": published_params(ds, 1),
+            "deepseek_moe_layer_alone": published_params(ds, 0, 1)
+            - published_params(ds),
+            "internvl2_layer_and_embeddings": published_params(iv, 1)}
+    report["p15"]["fit"] = note
+    log(f"  15d: at published widths deepseek-v3-671b's one dense layer and "
+        f"two embeddings hold {note['deepseek_dense_layer_and_embeddings'] / 1e9:.2f}"
+        f" B parameters and one MoE layer alone "
+        f"{note['deepseek_moe_layer_alone'] / 1e9:.2f} B; internvl2-76b's "
+        f"one layer and embeddings {note['internvl2_layer_and_embeddings'] / 1e9:.2f}"
+        f" B; at 15a's {per:.1f} B a parameter of f32 AdamW training "
+        f"neither fits the card's 80 GB, so both run the reduced preset")
+    return True
+
+
 def p14_table(report):
     """Phase 14's kernel-table entries: zamba2's serving GEMM shapes with
     their launches in 14a, its training GEMMs and the flash kernels at hd
@@ -5127,6 +5603,38 @@ def p14_table(report):
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
+
+
+def p15_table(report):
+    """Phase 15's kernel-table entries: the three flash kernels at gemma-2b's
+    hd 256 (f32) with 15a's launches and at the expanded MLA's 192 / 128
+    with 15d deepseek's (the same kernels at its reduced widths: no path
+    trains MLA at published widths on one card), and the bank GEMM's dx
+    and dw at qwen2-moe's expert banks with 15b's launches of each
+    shape."""
+    out = []
+    runs = {P15_FLASH["gemma"]: "15a", P15_FLASH["mla"]: "15d deepseek"}
+    for rec in report["p15_flash"]:
+        if rec["case"] not in runs:
+            continue
+        for name, t in rec["timed"].items():
+            out.append({
+                "name": f"{name}[{rec['case']} B={rec['B']} S={rec['Sq']} "
+                        f"H={rec['H']}/{rec['KVH']} f32; launches of "
+                        f"{runs[rec['case']]}]",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+                "replaces": FLASH_TPU[name],
+                "launches": report["p15"][runs[rec["case"]]]["counts"][name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for rec in report["p15_bank"]:
+        out.append(gemm_entry(
+            rec, f"rsa_gemm_bank[15b {rec['pass']} {rec['site']} "
+                 f"{rec['E']}x({rec['M']}x{rec['K']}x{rec['N']}) "
+                 f"{rec['mode']} f32]", P15_KEYS["15b"].get(rec["key"], 0)))
     return out
 
 
@@ -5318,6 +5826,7 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                 gemm_keys.get(rec["key"], 0)))
     out += p13_table(report)
     out += p14_table(report)
+    out += p15_table(report)
     for rec in report["paged"]:
         if "ms" not in rec or rec.get("case") in P13_PAGED:
             continue
@@ -5395,6 +5904,7 @@ def main() -> int:
         ok &= check_adaptnetx(torch, report, timer)
         ok &= check_p13_kernels(torch, report, timer, dispatcher)
         ok &= check_p14_kernels(torch, report, timer, dispatcher)
+        ok &= check_p15_kernels(torch, report, timer, dispatcher)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -5489,6 +5999,15 @@ def main() -> int:
         f", cut to {P14_TRAIN_SLOTS} slots; (c) rwkv6-1.6b trained, no cut")
     ok &= p14_all(torch, report, timer)
     log(f"  phase 14 took {report['phase14_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"== 15. the other families trained, f32, {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens: (a) gemma-2b cut to 6 layers (hd "
+        f"256), (b) qwen2-moe-a2.7b cut to 1 layer, (c) seamless-m4t-medium"
+        f" uncut, (d) deepseek-v3-671b and internvl2-76b at the reduced "
+        f"preset")
+    ok &= p15_all(torch, report)
+    log(f"  phase 15 took {report['phase15_s']:.1f} s")
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

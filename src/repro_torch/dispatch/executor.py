@@ -28,11 +28,16 @@ Expert banks (``w`` of shape (E, K, N) against ``x`` (..., E, C, K)) are
 recommended at M = rows per bank GEMM and run as ONE bank launch of the
 RSA kernel, the counterpart of the reference's ``vmap`` of the Pallas
 kernel over the bank (``repro/dispatch/executor.py::_gemm_experts``).
+A bank GEMM whose operands need a gradient runs through the same
+``_Gemm2d`` on 3-D operands, the counterpart of the reference's ``vmap``
+of the custom VJP over the bank: its backward runs dx = dy @ w^T as one
+bank launch of (E, M, N) x (E, N, K) and dw = x^T @ dy as one of (E, K,
+M) x (E, M, N), each with its own recommended tile (at the member's M,
+K, N), both reading the transposes in place, and records what they ran
+as ``dx`` and ``dw``.
 ``backend="torch"`` pins a site to the plain product (``torch.matmul``),
 the counterpart of the reference's ``backend="xla"``: the MoE router uses
-it so that its top-k decision does not depend on the execution mode.  A
-bank GEMM whose operands need a gradient raises: MoE/MLA training is
-queued (ROADMAP queue 1).
+it so that its top-k decision does not depend on the execution mode.
 """
 
 from __future__ import annotations
@@ -92,7 +97,9 @@ def _run(a, b, tile, backend: str, out_dtype, rec=None, role: str = "fwd"):
 class _Gemm2d(torch.autograd.Function):
     """(M, K) @ (K, N) through the RSA GEMM, differentiable: dx and dw run
     through the same kernel, each with its own tile, cast to the operands'
-    types as the reference's ``_pallas_gemm2d_bwd`` does."""
+    types as the reference's ``_pallas_gemm2d_bwd`` does.  With 3-D
+    operands, a bank (E, M, K) @ (E, K, N), each gradient is one bank
+    launch."""
 
     @staticmethod
     def forward(ctx, x2, w, tile, dx_tile, dw_tile, backend, out_dtype, rec):
@@ -110,10 +117,10 @@ class _Gemm2d(torch.autograd.Function):
             a, b = x2.float(), w.float()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _run(dy, b.t(), dx_tile, backend, None, rec,
+            dx = _run(dy, b.transpose(-1, -2), dx_tile, backend, None, rec,
                       "dx").to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _run(a.t(), dy, dw_tile, backend, None, rec,
+            dw = _run(a.transpose(-1, -2), dy, dw_tile, backend, None, rec,
                       "dw").to(w.dtype)
         return dx, dw, None, None, None, None, None, None
 
@@ -176,10 +183,6 @@ def _gemm_bank(x, w, site: str, policy, exec_backend: str, pinned: bool,
     if x.dim() < 3 or int(x.shape[-3]) != E or int(x.shape[-1]) != K:
         raise ValueError(f"expert gemm shape mismatch: x {tuple(x.shape)} "
                          f"vs w {tuple(w.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "the gradient of a bank GEMM (MoE/MLA training) is not ported "
-            "yet (ROADMAP queue 1)")
     C = int(x.shape[-2])
     lead = tuple(x.shape[:-3])
     B = math.prod(lead)
@@ -187,7 +190,16 @@ def _gemm_bank(x, w, site: str, policy, exec_backend: str, pinned: bool,
     tile, rec = _record(policy, site, M, K, N, exec_backend)
     xe = x.reshape(B, E, C, K).transpose(0, 1).reshape(E, M, K)
     xe = xe.contiguous()
-    out = torch.matmul(xe, w).to(out_dtype or xe.dtype) if pinned else \
-        _run(xe, w, tile, exec_backend, out_dtype, rec)         # (E, M, N)
+    if pinned:
+        out = torch.matmul(xe, w).to(out_dtype or xe.dtype)
+    elif torch.is_grad_enabled() and (xe.requires_grad or w.requires_grad):
+        # the reference's vmapped custom VJP: dx an (M, N) x (N, K) GEMM
+        # a member, dw a (K, M) x (M, N) one
+        _, dx_tile = _resolved_tile(policy, M, N, K)
+        _, dw_tile = _resolved_tile(policy, K, M, N)
+        out = _Gemm2d.apply(xe, w, tile, dx_tile, dw_tile, exec_backend,
+                            out_dtype, rec)
+    else:
+        out = _run(xe, w, tile, exec_backend, out_dtype, rec)  # (E, M, N)
     out = out.reshape(E, B, C, N).transpose(0, 1)
     return out.reshape(lead + (E, C, N))

@@ -64,6 +64,22 @@
 //    a CTA and then over the group's CTAs by a second kernel reading their
 //    partials from an f32 scratch (summing across a thread-block cluster
 //    through distributed shared memory measured slower: PERF.md).
+//  * hd or hd_v past 128 (up to WIDE = 256; hd 192 runs the 256-wide tiles):
+//    a 4 x 4 NCV accumulator a thread per output would pass the register
+//    file (dk + dv at W = 256: 256 registers) and dq's and dk/dv's tiles
+//    the 227 KB of a CTA (dq: 417,792 bytes), so each CTA owns one
+//    CW = 128-column slice of its outputs (blockIdx.y; `slices` =
+//    ceil(max(hd, hd_v) / 128)) and rebuilds the scores over the whole head
+//    dim once a slice.  64 rows a CTA, one stage.  The forward keeps WIDE
+//    Q and K tiles and a slice-wide V tile (185,344 bytes); dq and dk/dv
+//    keep their resident rows WIDE and stream the other operand's tile in
+//    CW-column chunks through one slot (219,136 / 219,648 bytes), summing
+//    each score over the chunks in order, so every slice and the forward
+//    see the same scores bit for bit.  The accumulators are the W = 128
+//    kernels' (o, dq: 64 registers; dk + dv: 128): ptxas gives the forward
+//    254 registers, dq 238 (f32) / 232 (bf16), dk/dv 255 (f32 spills 76
+//    bytes; bf16 none), one CTA an SM.  Up to W = 128 nothing of this
+//    runs: blockIdx.y is 0 and the tiles are the ones above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +95,8 @@ constexpr int FWD_THREADS = 128;  // 64 query rows of a forward CTA
 constexpr int LDP = KT + 8;    // row stride of a p / ds tile
 constexpr int DQ_STAGES = 2;   // K/V tiles in dq's cp.async ring
 constexpr int MAX_SMEM = 232448;
+constexpr int CW = 128;        // a column slice / chunk of the head dim past W = 128
+constexpr int WIDE = 256;      // the tile width of every call with hd or hd_v > 128
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -168,22 +186,20 @@ __device__ __forceinline__ void copy_vec(float* dst, const float* __restrict__ s
 // register-blocked products (lane (ly, lx) of a warp owning 16 rows)
 // ---------------------------------------------------------------------------
 
-// acc[i][j] = sum_{k < k4} A[4i * ld + k] * Bm[8j * ld + k]: A points at the
-// lane's first row (row ly of the warp's 16), Bm at its first column (row
-// lx of the other operand); both row-major along k, k4 a multiple of 4.
-__device__ __forceinline__ void nt_product(float (&acc)[4][8], const float* A, const float* Bm,
-                                           int ld, int k4) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+// acc[i][j] += sum_{k < k4} A[4i * lda + k] * Bm[8j * ldb + k], k ascending:
+// A points at the lane's first row (row ly of the warp's 16), Bm at its
+// first column (row lx of the other operand); both row-major along k, k4 a
+// multiple of 4.  A sum split over column chunks of the head dim and taken
+// chunk after chunk into one acc keeps the order of the unsplit sum.
+__device__ __forceinline__ void nt_accum(float (&acc)[4][8], const float* A, int lda,
+                                         const float* Bm, int ldb, int k4) {
 #pragma unroll 2
   for (int k = 0; k < k4; k += 4) {
     float4 a[4], b[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + 4 * i * ld + k);
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + 4 * i * lda + k);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(Bm + 8 * j * ld + k);
+    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(Bm + 8 * j * ldb + k);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -196,6 +212,20 @@ __device__ __forceinline__ void nt_product(float (&acc)[4][8], const float* A, c
         acc[i][j] = s;
       }
   }
+}
+
+__device__ __forceinline__ void zero_tile(float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// acc = the product above from zero
+__device__ __forceinline__ void nt_product(float (&acc)[4][8], const float* A, int lda,
+                                           const float* Bm, int ldb, int k4) {
+  zero_tile(acc);
+  nt_accum(acc, A, lda, Bm, ldb, k4);
 }
 
 // acc[i][4c + e] += sum_{k < KT} P[4i * ldp + k] * V[k * ldv + 32c + e]:
@@ -248,6 +278,7 @@ struct Args {
   int B, Sq, Skv, H, KVH, hd, hdv, causal;
   float scale;
   int rows, stages, heads, parts;  // rows: dq's query / dk/dv's kv rows a CTA
+  int slices;        // CW-column slices of the outputs (blockIdx.y); 1 up to W = 128
   int vec_q, vec_k, vec_v, vec_o;
 };
 
@@ -255,15 +286,19 @@ __host__ __device__ constexpr int cdiv_c(int a, int b) { return (a + b - 1) / b;
 
 // shared memory (bytes) of a forward CTA (64 query rows), of a dq CTA of
 // `rows` query rows (DQ_STAGES ring stages) and of a dk/dv CTA of `rows`
-// kv rows, at output width W and `stages` ring stages
+// kv rows, at tile width W and `stages` ring stages.  At W = WIDE the
+// forward's V tiles are one CW-column slice wide, and dq's and dk/dv's
+// ring is one slot of CW-column chunks (see the wide kernels)
 __host__ __device__ constexpr int fwd_smem(int W, int stages) {
-  return 4 * (64 * (W + 4) + stages * 2 * KT * (W + 4) + 64 * LDP);
+  return 4 * (64 * (W + 4) + stages * KT * ((W + 4) + (W > CW ? CW : W) + 4) + 64 * LDP);
 }
 __host__ __device__ constexpr int dq_smem(int rows, int W) {
-  return 4 * (2 * rows * (W + 4) + rows * LDP + DQ_STAGES * 2 * KT * (W + 4));
+  return W > CW ? 4 * (2 * rows * (W + 4) + rows * LDP + 2 * KT * (CW + 4))
+                : 4 * (2 * rows * (W + 4) + rows * LDP + DQ_STAGES * 2 * KT * (W + 4));
 }
 __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
-  return 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (W + 4) + 2 * KT));
+  return W > CW ? 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (CW + 4) + 2 * KT))
+                : 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (W + 4) + 2 * KT));
 }
 
 // ---------------------------------------------------------------------------
@@ -273,22 +308,28 @@ __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
 // One CTA of 4 warps holds BQ = 64 query rows of one (head, batch): CTA x
 // = (tile t from the last, head h, batch b) = ((nqt - 1 - t) * B + b) * H
 // + h, so every head's heaviest causal tile starts first.  At W = 64 three
-// CTAs fit an SM with one ring stage (168 registers).
-template <typename T, int NCV>
-__global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
+// CTAs fit an SM with one ring stage (168 registers).  Q and K tiles are WQ
+// wide, V tiles and the output 32 NCV = WV: WQ = WV up to 128; at WQ =
+// WIDE the CTA computes the CW-column slice blockIdx.y of o (the scores
+// over the whole hd, once a slice), one ring stage (185,344 bytes).
+template <typename T, int NCV, int WQ>
+__global__ void __launch_bounds__(FWD_THREADS, WQ == 64 ? 3 : 1)
     flash_fwd_kernel(const Args a) {
-  constexpr int W = 32 * NCV, LD = W + 4, BQ = 64, nthr = FWD_THREADS;
+  constexpr int WV = 32 * NCV, LQ = WQ + 4, LV = WV + 4, BQ = 64, nthr = FWD_THREADS;
   const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
-  const int lin = blockIdx.x;
+  const int lin = blockIdx.x, sl = blockIdx.y, c0 = sl * WV;
+  if (c0 >= a.hdv) return;  // a slice past o's columns (hd wider than hd_v)
+  const int dv = min(WV, a.hdv - c0);  // the slice's columns of o
   const int q0 = (nqt - 1 - lin / HB) * BQ;
   const int h = lin % a.H, b = (lin / a.H) % a.B;
   const int kvh = h / (a.H / a.KVH);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
   const int r0 = warp * 16 + ly;  // the lane's rows: r0 + 4i
   extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;                  // BQ x LD
-  float* Ps = Qs + BQ * LD;        // BQ x LDP
-  float* ring = Ps + BQ * LDP;     // stages x (K, V), KT x LD each
+  float* Qs = sm;                  // BQ x LQ
+  float* Ps = Qs + BQ * LQ;        // BQ x LDP
+  float* ring = Ps + BQ * LDP;     // stages x (K: KT x LQ, V: KT x LV)
+  constexpr int slot = KT * (LQ + LV);
 
   const T* qg = static_cast<const T*>(a.q);
   const T* kg = static_cast<const T*>(a.k);
@@ -297,15 +338,15 @@ __global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
   const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
   const T* qb = qg + (long long)b * a.Sq * qstride + (long long)h * a.hd;
   const T* kb = kg + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
-  const T* vb = vg + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const T* vb = vg + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv + c0;
   const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
   const int n = cdiv_c(kv_end, KT), stages = a.stages;
   auto load = [&](int t) {
-    float* st = ring + (t % stages) * 2 * KT * LD;
-    copy_rows<T, W>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
-    copy_rows<T, W>(st + KT * LD, vb, vstride, t * KT, KT, a.Skv, a.hdv, a.vec_v, tid, nthr);
+    float* st = ring + (t % stages) * slot;
+    copy_rows<T, WQ>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_rows<T, WV>(st + KT * LQ, vb, vstride, t * KT, KT, a.Skv, dv, a.vec_v, tid, nthr);
   };
-  copy_rows<T, W>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  copy_rows<T, WQ>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
   for (int s = 0; s + 1 < stages; ++s) {
     if (s < n) load(s);
     cp_async_commit();
@@ -332,11 +373,11 @@ __global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
       if (t + stages - 1 < n) load(t + stages - 1);
       cp_async_commit();
     }
-    const float* Ks = ring + (t % stages) * 2 * KT * LD;
-    const float* Vs = Ks + KT * LD;
+    const float* Ks = ring + (t % stages) * slot;
+    const float* Vs = Ks + KT * LQ;
     const int j0 = t * KT;
     float s[4][8];
-    nt_product(s, Qs + r0 * LD, Ks + lx * LD, LD, hd4);
+    nt_product(s, Qs + r0 * LQ, LQ, Ks + lx * LQ, LQ, hd4);
     const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > q0 + warp * 16);
     // the four rows' max and sum reduced together over their 8 lanes
     float mx[4], corr[4], m_ref[4], sum[4];
@@ -386,7 +427,7 @@ __global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
       for (int c = 0; c < 4 * NCV; ++c) o[i][c] *= corr[i];
     }
     __syncwarp();  // a row's p comes from the 8 lanes of its own warp
-    nn_product<NCV>(o, Ps + r0 * LDP, LDP, Vs + 4 * lx, LD);
+    nn_product<NCV>(o, Ps + r0 * LDP, LDP, Vs + 4 * lx, LV);
     if (stages == 1) __syncthreads();  // the one slot is reloaded next
   }
 
@@ -396,15 +437,15 @@ __global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
     const int row = q0 + r0 + 4 * i;
     if (row >= a.Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv;
+    T* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv + c0;
 #pragma unroll
     for (int c = 0; c < NCV; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 32 * c + 4 * lx + e;
-        if (col < a.hdv) orow[col] = from_f<T>(o[i][4 * c + e] / lc);
+        if (col < dv) orow[col] = from_f<T>(o[i][4 * c + e] / lc);
       }
-    if (lx == 0) a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(lc);
+    if (lx == 0 && sl == 0) a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(lc);
   }
 }
 
@@ -484,8 +525,8 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(const Args a) {
     if (wq < a.Sq && !(a.causal && j0 > wq + 15)) {
       const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > wq);
       float s[4][8], dp[4][8];
-      nt_product(s, Qs + r0 * LD, Ks + lx * LD, LD, hd4);
-      nt_product(dp, Os + r0 * LD, Vs + lx * LD, LD, hdv4);
+      nt_product(s, Qs + r0 * LD, LD, Ks + lx * LD, LD, hd4);
+      nt_product(dp, Os + r0 * LD, LD, Vs + lx * LD, LD, hdv4);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -514,6 +555,120 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) {
         const int col = 32 * c + 4 * lx + e;
         if (col < a.hd) drow[col] = from_f<T>(dq[i][4 * c + e]);
+      }
+  }
+}
+
+// dq at hd or hd_v > 128.  One CTA of 4 warps per (64 query rows, head,
+// batch) and CW-column slice blockIdx.y of dq: its q and do rows stay
+// resident at WIDE columns, and each kv tile comes through one slot of
+// CW-column chunks of K and V, chunk after chunk: s = q K^T and dp = do
+// V^T are summed over the chunks in order (the unsplit sum's order), then
+// the slot is refilled with the slice's chunk of K (unless it holds it)
+// for dq += ds K.  219,136 bytes of shared memory; no ring, so a chunk's
+// copy does not overlap the products.
+template <typename T>
+__global__ void __launch_bounds__(128) flash_dq_wide_kernel(const Args a) {
+  constexpr int NCV = CW / 32, LF = WIDE + 4, LC = CW + 4, BQ = 64, nthr = 128;
+  const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
+  const int lin = blockIdx.x, sl = blockIdx.y, c0 = sl * CW;
+  if (c0 >= a.hd) return;  // a slice past dq's columns (hd_v wider than hd)
+  const int q0 = (nqt - 1 - lin / HB) * BQ;
+  const int h = lin % a.H, b = (lin / a.H) % a.B;
+  const int kvh = h / (a.H / a.KVH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int r0 = warp * 16 + ly;  // the lane's rows: r0 + 4i
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;                  // BQ x LF
+  float* Os = Qs + BQ * LF;        // do, BQ x LF
+  float* Ds = Os + BQ * LF;        // ds, BQ x LDP
+  float* Kc = Ds + BQ * LDP;       // a chunk of a K tile, KT x LC
+  float* Vc = Kc + KT * LC;        // and of its V tile
+
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const T* qb = static_cast<const T*>(a.q) + (long long)b * a.Sq * qstride + (long long)h * a.hd;
+  const T* ob = static_cast<const T*>(a.dout) + (long long)b * a.Sq * ostride + (long long)h * a.hdv;
+  const T* kb = static_cast<const T*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const T* vb = static_cast<const T*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
+  const int n = cdiv_c(kv_end, KT), nch = cdiv_c(max(a.hd, a.hdv), CW);
+  copy_rows<T, WIDE>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  copy_rows<T, WIDE>(Os, ob, ostride, q0, BQ, a.Sq, a.hdv, a.vec_o, tid, nthr);
+  // chunk c of kv tile t (K, and V where `with_v`) into the slot, once
+  // every warp is past the slot's last use
+  auto fetch = [&](int t, int c, bool with_v) {
+    __syncthreads();
+    const int o = c * CW;
+    copy_rows<T, CW>(Kc, kb + o, kstride, t * KT, KT, a.Skv, max(0, min(CW, a.hd - o)), a.vec_k,
+                     tid, nthr);
+    if (with_v)
+      copy_rows<T, CW>(Vc, vb + o, vstride, t * KT, KT, a.Skv, max(0, min(CW, a.hdv - o)),
+                       a.vec_v, tid, nthr);
+    cp_async_commit();
+    cp_async_wait_ring();
+    __syncthreads();
+  };
+
+  const long long srow = ((long long)b * a.H + h) * a.Sq;
+  float nl[4], dl[4], dq[4][4 * NCV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r0 + 4 * i;
+    nl[i] = row < a.Sq ? -a.lse_in[srow + row] * LOG2E : 0.f;
+    dl[i] = row < a.Sq ? a.delta[srow + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NCV; ++c) dq[i][c] = 0.f;
+  }
+  const int hd4 = (a.hd + 3) & ~3, hdv4 = (a.hdv + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;
+  const int wq = q0 + warp * 16;
+  for (int t = 0; t < n; ++t) {
+    const int j0 = t * KT;
+    const bool live = wq < a.Sq && !(a.causal && j0 > wq + 15);
+    float s[4][8], dp[4][8];
+    zero_tile(s);
+    zero_tile(dp);
+    for (int c = 0; c < nch; ++c) {
+      fetch(t, c, true);
+      const int o = c * CW;
+      if (live) {
+        nt_accum(s, Qs + r0 * LF + o, LF, Kc + lx * LC, LC, max(0, min(CW, hd4 - o)));
+        nt_accum(dp, Os + r0 * LF + o, LF, Vc + lx * LC, LC, max(0, min(CW, hdv4 - o)));
+      }
+    }
+    if (sl != nch - 1) fetch(t, sl, false);  // the slice's K columns for ds K
+    if (live) {
+      const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > wq);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p = exp2_ftz(fmaf(s[i][j], sl2, nl[i]));
+          if (edge) {
+            const int row = q0 + r0 + 4 * i, col = j0 + lx + 8 * j;
+            if (!(col < a.Skv && (!a.causal || col <= row))) p = 0.f;
+          }
+          Ds[(r0 + 4 * i) * LDP + lx + 8 * j] = round_to<T>(p * (dp[i][j] - dl[i]) * a.scale);
+        }
+      __syncwarp();  // a row's ds comes from the 8 lanes of its own warp
+      nn_product<NCV>(dq, Ds + r0 * LDP, LDP, Kc + 4 * lx, LC);
+    }
+  }
+
+  T* dqg = static_cast<T*>(a.o1);
+  const int dw = min(CW, a.hd - c0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r0 + 4 * i;
+    if (row >= a.Sq) continue;
+    T* drow = dqg + ((long long)b * a.Sq + row) * qstride + (long long)h * a.hd + c0;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < dw) drow[col] = from_f<T>(dq[i][4 * c + e]);
       }
   }
 }
@@ -636,7 +791,7 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
     if (!(a.causal && kw > i0 + KT - 1)) {
       const bool edge = (a.causal && kw + 15 > i0) || i0 + KT > a.Sq || kw + 16 > a.Skv;
       float x[4][8];
-      nt_product(x, Ks + r0 * LD, Qt + lx * LD, LD, hd4);
+      nt_product(x, Ks + r0 * LD, LD, Qt + lx * LD, LD, hd4);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -650,7 +805,7 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
         }
       __syncwarp();  // a kv row's p comes from the 8 lanes of its own warp
       nn_product<NCV>(dv, Ps + r0 * LDP, LDP, Ot + 4 * lx, LD);
-      nt_product(x, Vs + r0 * LD, Ot + lx * LD, LD, hdv4);
+      nt_product(x, Vs + r0 * LD, LD, Ot + lx * LD, LD, hdv4);
       __syncwarp();  // every lane is past p^T before ds^T replaces it
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -695,6 +850,187 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
   }
 }
 
+// dk/dv at hd or hd_v > 128.  One CTA of 4 warps per (64 kv rows, `heads`
+// query heads, batch, as flash_dkv_kernel) and CW-column slice blockIdx.y
+// of dk and dv: its K and V rows stay resident at WIDE columns, and each
+// query tile comes through one slot of CW-column chunks of q and do (with
+// its lse and delta).  A tile takes two passes over the chunks, each
+// summed in chunk order (the unsplit sum's order): s = K q^T -> p, then
+// dv += p^T do over the slice's chunk of do; dp = V do^T -> ds, then dk +=
+// ds^T q over the slice's chunk of q, the slot refilled wherever it does
+// not hold the chunk a product needs.  Only the two CW-wide accumulators
+// live in registers, as at W = 128.  The heads' sum, the partials and the
+// zeros past every query are flash_dkv_kernel's, slice by slice.
+// 219,648 bytes of shared memory.
+template <typename T>
+__global__ void __launch_bounds__(128) flash_dkv_wide_kernel(const Args a) {
+  constexpr int NCV = CW / 32, LF = WIDE + 4, LC = CW + 4, BK = 64, nthr = 128;
+  const int cs = a.parts, G = a.H / a.KVH;
+  const int lin = blockIdx.x, per = a.B * a.KVH * cs;
+  const int j0 = lin / per * BK, rank = lin % cs;
+  const int kvh = (lin / cs) % a.KVH, b = (lin / (cs * a.KVH)) % a.B;
+  const int g0 = rank * a.heads, g1 = min(G, g0 + a.heads);
+  const int sl = blockIdx.y, c0 = sl * CW;
+  // this slice's columns of dk and of dv (0 past either's width)
+  const int dkw = max(0, min(CW, a.hd - c0)), dvw = max(0, min(CW, a.hdv - c0));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int r0 = warp * 16 + ly;  // the lane's kv rows: r0 + 4i
+  extern __shared__ __align__(16) float sm[];
+  float* Ks = sm;                  // BK x LF, this CTA's kv rows
+  float* Vs = Ks + BK * LF;
+  float* Ps = Vs + BK * LF;        // p^T, then ds^T: BK (kv) x LDP (q)
+  float* Qc = Ps + BK * LDP;       // a chunk of a q tile, KT x LC
+  float* Oc = Qc + KT * LC;        // and of its do tile
+  float* Lt = Oc + KT * LC;        // the tile's lse, KT
+  float* Dl = Lt + KT;             // and delta
+
+  const T* qg = static_cast<const T*>(a.q);
+  const T* og = static_cast<const T*>(a.dout);
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const T* kb = static_cast<const T*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const T* vb = static_cast<const T*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const int q_begin = a.causal ? j0 : 0;
+  const int nqt = q_begin < a.Sq ? cdiv_c(a.Sq - q_begin, KT) : 0;
+  const int n = (g1 - g0) * nqt, nch = cdiv_c(max(a.hd, a.hdv), CW);
+  // chunk c of ring tile t into the slot, once every warp is past its
+  // last use
+  auto fetch = [&](int t, int c) {
+    __syncthreads();
+    const int h = kvh * G + g0 + t / nqt, i0 = q_begin + (t % nqt) * KT, o = c * CW;
+    const long long srow = ((long long)b * a.H + h) * a.Sq;
+    copy_rows<T, CW>(Qc, qg + (long long)b * a.Sq * qstride + (long long)h * a.hd + o, qstride,
+                     i0, KT, a.Sq, max(0, min(CW, a.hd - o)), a.vec_q, tid, nthr);
+    copy_rows<T, CW>(Oc, og + (long long)b * a.Sq * ostride + (long long)h * a.hdv + o, ostride,
+                     i0, KT, a.Sq, max(0, min(CW, a.hdv - o)), a.vec_o, tid, nthr);
+    copy_vec(Lt, a.lse_in + srow, i0, a.Sq, tid, nthr);
+    copy_vec(Dl, a.delta + srow, i0, a.Sq, tid, nthr);
+    cp_async_commit();
+    cp_async_wait_ring();
+    __syncthreads();
+  };
+  if (n > 0) {
+    copy_rows<T, WIDE>(Ks, kb, kstride, j0, BK, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_rows<T, WIDE>(Vs, vb, vstride, j0, BK, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  }
+
+  const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
+  const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
+  const long long kbase = (long long)b * a.Skv * kstride + (long long)kvh * a.hd + c0;
+  const long long vbase = (long long)b * a.Skv * vstride + (long long)kvh * a.hdv + c0;
+  float* wk = a.ws ? a.ws + rank * ndk + kbase : nullptr;
+  float* wv = a.ws ? a.ws + cs * ndk + rank * ndv + vbase : nullptr;
+  auto add_part = [&](float* w, const float (&acc)[4][4 * NCV], long long stride, int d,
+                      bool first) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = j0 + r0 + 4 * i;
+      if (row >= a.Skv) continue;
+#pragma unroll
+      for (int c = 0; c < NCV; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 32 * c + 4 * lx + e;
+          if (col < d) {
+            float* x = w + row * stride + col;
+            *x = (first ? 0.f : *x) + round_to<T>(acc[i][4 * c + e]);
+          }
+        }
+    }
+  };
+
+  float dk[4][4 * NCV], dv[4][4 * NCV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NCV; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const int hd4 = (a.hd + 3) & ~3, hdv4 = (a.hdv + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;
+  for (int t = 0; t < n; ++t) {
+    const int i0 = q_begin + (t % nqt) * KT, kw = j0 + warp * 16;
+    const bool live = !(a.causal && kw > i0 + KT - 1);
+    const bool edge = (a.causal && kw + 15 > i0) || i0 + KT > a.Sq || kw + 16 > a.Skv;
+    float x[4][8];
+    zero_tile(x);
+    for (int c = 0; c < nch; ++c) {
+      fetch(t, c);
+      if (live) nt_accum(x, Ks + r0 * LF + c * CW, LF, Qc + lx * LC, LC, max(0, min(CW, hd4 - c * CW)));
+    }
+    int held = nch - 1;  // the chunk in the slot
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p = exp2_ftz(fmaf(x[i][j], sl2, -Lt[lx + 8 * j] * LOG2E));
+          if (edge) {
+            const int kr = j0 + r0 + 4 * i, qc = i0 + lx + 8 * j;
+            if (!(qc < a.Sq && kr < a.Skv && (!a.causal || kr <= qc))) p = 0.f;
+          }
+          Ps[(r0 + 4 * i) * LDP + lx + 8 * j] = p;
+        }
+    }
+    if (dvw > 0) {
+      if (held != sl) fetch(t, held = sl);
+      if (live) {
+        __syncwarp();  // a kv row's p comes from the 8 lanes of its own warp
+        nn_product<NCV>(dv, Ps + r0 * LDP, LDP, Oc + 4 * lx, LC);
+      }
+    }
+    if (dkw > 0) {
+      zero_tile(x);
+      for (int c = 0; c < nch; ++c) {
+        if (held != c) fetch(t, held = c);
+        if (live) nt_accum(x, Vs + r0 * LF + c * CW, LF, Oc + lx * LC, LC, max(0, min(CW, hdv4 - c * CW)));
+      }
+      if (live) {
+        __syncwarp();  // every lane is past p^T before ds^T replaces it
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float* e = Ps + (r0 + 4 * i) * LDP + lx + 8 * j;
+            *e = round_to<T>(*e * (x[i][j] - Dl[lx + 8 * j]) * a.scale);
+          }
+      }
+      if (held != sl) fetch(t, held = sl);
+      if (live) {
+        __syncwarp();
+        nn_product<NCV>(dk, Ps + r0 * LDP, LDP, Qc + 4 * lx, LC);
+      }
+    }
+    if (g1 - g0 > 1 && t % nqt == nqt - 1) {  // a head done: into the partial
+      add_part(wk, dk, kstride, dkw, t < nqt);
+      add_part(wv, dv, vstride, dvw, t < nqt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * NCV; ++c) dk[i][c] = dv[i][c] = 0.f;
+    }
+  }
+  if (g1 - g0 > 1 && n > 0) return;  // the partial holds the rank's heads
+  if (wk) {
+    add_part(wk, dk, kstride, dkw, true);
+    add_part(wv, dv, vstride, dvw, true);
+    return;
+  }
+  T* dkg = static_cast<T*>(a.o1) + kbase;
+  T* dvg = static_cast<T*>(a.o2) + vbase;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = j0 + r0 + 4 * i;
+    if (row >= a.Skv) continue;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < dkw) dkg[row * kstride + col] = from_f<T>(dk[i][4 * c + e]);
+        if (col < dvw) dvg[row * vstride + col] = from_f<T>(dv[i][4 * c + e]);
+      }
+  }
+}
+
 // dk, dv = the `parts` partials of ws summed in rank order
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -723,25 +1059,32 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-template <typename T, int NCV>
+// W: the tile width, 64, 128 or WIDE (the kernels over CW-column slices)
+template <typename T, int W>
 int launch_fwd(const Args& a, cudaStream_t st) {
-  const int smem = fwd_smem(32 * NCV, a.stages);
+  constexpr int NCV = (W > CW ? CW : W) / 32;
+  const int smem = fwd_smem(W, a.stages);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if ((e = set_smem(flash_fwd_kernel<T, NCV>, smem)) != cudaSuccess) return (int)e;
+  if ((e = set_smem(flash_fwd_kernel<T, NCV, W>, smem)) != cudaSuccess) return (int)e;
   const long long grid = (long long)cdiv(a.Sq, 64) * a.H * a.B;
-  flash_fwd_kernel<T, NCV><<<(unsigned)grid, FWD_THREADS, smem, st>>>(a);
+  flash_fwd_kernel<T, NCV, W><<<dim3((unsigned)grid, a.slices), FWD_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NCV>
+template <typename T, int W>
 int launch_dkv(const Args& a, cudaStream_t st) {
-  const int smem = dkv_smem(a.rows, 32 * NCV, a.stages);
+  const int smem = dkv_smem(a.rows, W, a.stages);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if ((e = set_smem(flash_dkv_kernel<T, NCV>, smem)) != cudaSuccess) return (int)e;
   const long long grid = (long long)cdiv(a.Skv, a.rows) * a.B * a.KVH * a.parts;
-  flash_dkv_kernel<T, NCV><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
+  if constexpr (W > CW) {
+    if ((e = set_smem(flash_dkv_wide_kernel<T>, smem)) != cudaSuccess) return (int)e;
+    flash_dkv_wide_kernel<T><<<dim3((unsigned)grid, a.slices), 2 * a.rows, smem, st>>>(a);
+  } else {
+    if ((e = set_smem(flash_dkv_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
+    flash_dkv_kernel<T, W / 32><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess || !a.ws) return (int)e;
   const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
   const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
@@ -750,21 +1093,43 @@ int launch_dkv(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NCV>
+template <typename T, int W>
 int launch_dq(const Args& a, cudaStream_t st) {
-  const int smem = dq_smem(a.rows, 32 * NCV);
+  const int smem = dq_smem(a.rows, W);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if ((e = set_smem(flash_dq_kernel<T, NCV>, smem)) != cudaSuccess) return (int)e;
   const long long grid = (long long)cdiv(a.Sq, a.rows) * a.H * a.B;
-  flash_dq_kernel<T, NCV><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
+  if constexpr (W > CW) {
+    if ((e = set_smem(flash_dq_wide_kernel<T>, smem)) != cudaSuccess) return (int)e;
+    flash_dq_wide_kernel<T><<<dim3((unsigned)grid, a.slices), 2 * a.rows, smem, st>>>(a);
+  } else {
+    if ((e = set_smem(flash_dq_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
+    flash_dq_kernel<T, W / 32><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
 bool valid(int B, int Sq, int Skv, int H, int KVH, int hd, int hdv) {
   return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && hd > 0 && hdv > 0 &&
-         hd <= 128 && hdv <= 128 && B <= 65535 && H <= 65535;
+         hd <= WIDE && hdv <= WIDE && B <= 65535 && H <= 65535;
 }
+
+// the tile width of a call: max(hd, hd_v) rounded up to 64, 128 or WIDE
+int width(int hd, int hdv) {
+  const int m = hd > hdv ? hd : hdv;
+  return m <= 64 ? 64 : m <= CW ? CW : WIDE;
+}
+
+// one launch of L<T, W> at the call's width and dtype
+#define FLASH_DISPATCH(L, dtype, a, st)                                                   \
+  do {                                                                                     \
+    const int W_ = width((a).hd, (a).hdv);                                                \
+    if ((dtype) == 0)                                                                      \
+      return W_ == 64 ? L<float, 64>(a, st) : W_ == CW ? L<float, CW>(a, st)              \
+                                                       : L<float, WIDE>(a, st);           \
+    return W_ == 64 ? L<bf16, 64>(a, st) : W_ == CW ? L<bf16, CW>(a, st)                  \
+                                                    : L<bf16, WIDE>(a, st);               \
+  } while (0)
 
 // a launch's Args from its arguments; false where the plan is not one the
 // kernels take
@@ -775,6 +1140,7 @@ bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int h
   a.B = B, a.Sq = Sq, a.Skv = Skv, a.H = H, a.KVH = KVH, a.hd = hd, a.hdv = hdv;
   a.causal = causal, a.scale = scale;
   a.rows = rows, a.stages = stages;
+  a.slices = width(hd, hdv) > CW ? cdiv(hd > hdv ? hd : hdv, CW) : 1;
   const bool f32 = dtype == 0;
   a.vec_q = f32 && hd % 4 == 0 && aligned16(a.q);
   a.vec_k = f32 && hd % 4 == 0 && aligned16(a.k);
@@ -796,10 +1162,7 @@ extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const v
   a.q = q, a.k = k, a.v = v, a.o1 = o, a.lse_out = lse;
   if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, 64, stages))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = (hd > hdv ? hd : hdv) > 64;
-  if (dtype == 0) return wide ? launch_fwd<float, 4>(a, st) : launch_fwd<float, 2>(a, st);
-  return wide ? launch_fwd<bf16, 4>(a, st) : launch_fwd<bf16, 2>(a, st);
+  FLASH_DISPATCH(launch_fwd, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
@@ -810,10 +1173,7 @@ extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const vo
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta, a.o1 = dq;
   if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, DQ_STAGES))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = (hd > hdv ? hd : hdv) > 64;
-  if (dtype == 0) return wide ? launch_dq<float, 4>(a, st) : launch_dq<float, 2>(a, st);
-  return wide ? launch_dq<bf16, 4>(a, st) : launch_dq<bf16, 2>(a, st);
+  FLASH_DISPATCH(launch_dq, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // ws: `parts` f32 partials of dk then of dv (parts x B x Skv x KVH x (hd
@@ -830,8 +1190,5 @@ extern "C" int flash_dkv_launch(int dtype, const void* q, const void* k, const v
       heads < 1 || parts != cdiv(H / KVH, heads) || (H / KVH > 1) != (ws != nullptr))
     return (int)cudaErrorInvalidValue;
   a.heads = heads, a.parts = parts;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = (hd > hdv ? hd : hdv) > 64;
-  if (dtype == 0) return wide ? launch_dkv<float, 4>(a, st) : launch_dkv<float, 2>(a, st);
-  return wide ? launch_dkv<bf16, 4>(a, st) : launch_dkv<bf16, 2>(a, st);
+  FLASH_DISPATCH(launch_dkv, dtype, a, static_cast<cudaStream_t>(stream));
 }

@@ -30,8 +30,10 @@ f32 throughout.
 
 Layouts are the model's: q (B, Sq, H, hd), k (B, Skv, KVH, hd), v (B, Skv,
 KVH, hd_v), o (B, Sq, H, hd_v) in q's type, lse and delta (B, H, Sq) f32.
-H must be a multiple of KVH; a causal mask compares absolute positions
-(column <= row), as the reference's does.
+H must be a multiple of KVH; hd and hd_v are at most 256 (``MAX_HEAD_DIM``;
+the kernels split wider heads into 128-column slices, the source's header
+says how); a causal mask compares absolute positions (column <= row), as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch.nn.functional as F
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128             # the widest hd / hd_v the kernels' tiles hold
+MAX_HEAD_DIM = 256             # the widest hd / hd_v the kernels' tiles hold
 
 
 def _pairs(n_q: int, n_k: int, bq: int, bk: int, causal: bool,
@@ -264,39 +266,54 @@ class FlashPlan(NamedTuple):
     parts: int       # dk/dv CTAs of one kv head's group: ceil(G / heads),
     #                  whose f32 partials a second kernel sums (G > 1)
     dq_rows: int     # query rows of a dq CTA, 64 or 128 (2 x rows threads)
+    slices: int = 1  # 128-column slices of o / dq / dk / dv, each its
+    #                  own CTAs (blockIdx.y): ceil(max(hd, hd_v) / 128) past
+    #                  W = 128, as the source derives them from hd and hd_v
 
 
 _TILE = 64                # rows of a forward CTA and of each ring tile
 _MAX_SMEM = 232448        # shared memory a CTA may have on the H100
 _SM_SMEM = 233472         # shared memory of an SM (228 KB; 1 KB a CTA is
 #                           the runtime's)
-_FWD_CTAS = {64: 3, 128: 1}  # forward CTAs an SM by W: its launch bounds
+_FWD_CTAS = {64: 3, 128: 1, 256: 1}  # forward CTAs an SM by W: its
+#                                      launch bounds
 _MAX_PARTS = 8            # partials a kv head's group is summed from
+_SLICE = 128              # past W = 128: the columns of an output slice and
+#                           of a streamed chunk
 
 
 def _width(hd: int, hd_v: int) -> int:
-    """W: the kernels' output-tile width, max(hd, hd_v) rounded up to 64
-    or 128."""
-    return 64 if max(hd, hd_v) <= 64 else 128
+    """W: the kernels' tile width, max(hd, hd_v) rounded up to 64, 128 or
+    256 (hd 192 runs the 256-wide tiles)."""
+    m = max(hd, hd_v)
+    return 64 if m <= 64 else 128 if m <= _SLICE else 256
 
 
 def _fwd_smem(W: int, stages: int) -> int:
     """Shared bytes of a forward CTA: q, p, and K/V tiles a stage (rows
-    W + 4 floats apart, p's 72) — ``fwd_smem`` of the source."""
-    return 4 * (_TILE * (W + 4) + stages * 2 * _TILE * (W + 4) + _TILE * 72)
+    W + 4 floats apart, p's 72; at W = 256 the V tiles are one 128-column
+    slice wide) — ``fwd_smem`` of the source."""
+    wv = min(W, _SLICE)
+    return 4 * (_TILE * (W + 4) + stages * _TILE * (W + 4 + wv + 4) +
+                _TILE * 72)
 
 
 def _dq_smem(rows: int, W: int) -> int:
     """Shared bytes of a dq CTA of ``rows`` query rows: q, do, ds, and the
-    K/V tiles of its 2-stage ring — ``dq_smem`` of the source."""
+    K/V tiles of its 2-stage ring (at W = 256: one slot of 128-column K/V
+    chunks) — ``dq_smem`` of the source."""
+    if W > _SLICE:
+        return 4 * (2 * rows * (W + 4) + rows * 72 + 2 * _TILE * (_SLICE + 4))
     return 4 * (2 * rows * (W + 4) + rows * 72 + 2 * 2 * _TILE * (W + 4))
 
 
 def _dkv_smem(rows: int, W: int, stages: int) -> int:
     """Shared bytes of a dk/dv CTA of ``rows`` kv rows: K, V, p^T / ds^T,
-    and q, do, lse, delta a stage — ``dkv_smem`` of the source."""
+    and q, do, lse, delta a stage (at W = 256: 128-column q/do chunks) —
+    ``dkv_smem`` of the source."""
+    wq = _SLICE if W > _SLICE else W
     return 4 * (2 * rows * (W + 4) + rows * 72 +
-                stages * (2 * _TILE * (W + 4) + 2 * _TILE))
+                stages * (2 * _TILE * (wq + 4) + 2 * _TILE))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -311,8 +328,11 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     A forward CTA holds 64 query rows (4 warps); its ring takes the most
     stages (up to 2) that keep the most CTAs an SM its registers allow:
     at W = 64 one stage and three CTAs (two stages would leave two), at W
-    = 128 two.  A dq CTA holds 128 query rows and a dk/dv CTA 128 kv rows
-    (8 warps) where that fits two ring stages, else 64 (W = 128).  dq's
+    = 128 two, at W = 256 one (two do not fit).  A dq CTA holds 128 query
+    rows and a dk/dv CTA 128 kv rows (8 warps) where that fits two ring
+    stages, else 64 (W = 128 and 256).  Past W = 128 each kernel's outputs
+    are cut into ``slices`` 128-column slices, a grid row of CTAs each,
+    and dq and dk/dv stream 128-column chunks through one slot.  dq's
     ring always has 2 stages (at W = 64, 128 rows and 2 stages measured
     2-3% faster than 64 rows and 1 stage, two CTAs an SM; PERF.md §6);
     dk/dv's takes 2 where they fit, else 1.  A dk/dv CTA walks ceil(G /
@@ -352,9 +372,10 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     heads = heads or -(-G // _MAX_PARTS)
     if not 1 <= heads <= G:
         raise ValueError(f"a dk/dv CTA walks 1 to G = {G} heads, not {heads}")
+    slices = -(-max(hd, hd_v) // _SLICE) if W > _SLICE else 1
     return FlashPlan(ring(lambda n: _fwd_smem(W, n), fwd_stages), dkv_rows,
                      ring(lambda n: _dkv_smem(dkv_rows, W, n), dkv_stages),
-                     heads, -(-G // heads), dq_rows)
+                     heads, -(-G // heads), dq_rows, slices)
 
 
 def _fwd_ctas(B: int, Sq: int, H: int,
@@ -362,7 +383,8 @@ def _fwd_ctas(B: int, Sq: int, H: int,
     """(query tile, head, batch) of each forward CTA (64 query rows) or dq
     CTA (the plan's ``rows``) in launch order, as both kernels decode
     ``blockIdx.x``: the last (causally heaviest) tile of every head first,
-    a kv group's heads side by side."""
+    a kv group's heads side by side.  Past W = 128 the grid repeats this
+    row for each of the plan's ``slices`` (``blockIdx.y``)."""
     nqt, HB = -(-Sq // rows), H * B
     return [(nqt - 1 - lin // HB, lin % H, (lin // H) % B)
             for lin in range(nqt * HB)]

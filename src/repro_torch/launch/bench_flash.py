@@ -50,7 +50,7 @@ CASES = [("phase 7", 2, 1024), ("S 512", 2, 512), ("S 2048", 2, 2048),
 
 def _short(fn: str) -> str:
     """A mangled flash kernel's name and template arguments, short."""
-    m = re.search(r"(flash_(?:fwd|dq|dkv_sum|dkv)_kernel)", fn)
+    m = re.search(r"(flash_(?:fwd|dq|dkv_sum|dkv)(?:_wide)?_kernel)", fn)
     args = ["bf16" if "bfloat16" in fn else "f32"]
     args += re.findall(r"Li(\d+)E", fn)
     args += ["true" if b == "1" else "false" for b in re.findall(r"Lb(\d)E", fn)]

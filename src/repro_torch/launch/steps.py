@@ -2,9 +2,12 @@
 ``repro/launch/steps.py`` for one device (no mesh, no shardings).
 
 The train step takes the value and gradient of ``Model.loss`` with
-autograd (every GEMM's dx/dw and the flash-attention backward run through
-the hand-written kernels under the active dispatch policy), then runs
-``AdamW.update`` and ``apply_updates``.
+autograd (every GEMM's dx/dw, each expert bank's dx/dw and the
+flash-attention backward run through the hand-written kernels under the
+active dispatch policy), then runs ``AdamW.update`` and
+``apply_updates``.  A batch is ``{"tokens": (B, S + 1)}``, with
+``"patch_embeds"`` (vlm) or ``"src_features"`` (encdec) passed through to
+the loss.
 """
 
 from __future__ import annotations
@@ -75,8 +78,14 @@ def _matmul_param_count(cfg: ArchConfig, params) -> Tuple[float, float]:
     return total, active
 
 
-def _attention_flops(cfg: ArchConfig, B: int, S: int, kind: str) -> float:
-    """Score+value matmul FLOPs (not covered by 6ND)."""
+def _attention_flops(cfg: ArchConfig, B: int, S: int, kind: str,
+                     S_src: Optional[int] = None) -> float:
+    """Score+value matmul FLOPs (not covered by 6ND).  MLA counts its
+    expanded attention (qk_nope + qk_rope scores, v_head_dim values); an
+    encdec model its bidirectional encoder over ``S_src`` frames and each
+    decoder layer's S x S_src cross attention (``S_src`` defaults to S,
+    the reference's assumption)."""
+    S_src = S if S_src is None else S_src
     H, hd = cfg.num_heads, cfg.head_dim
     if cfg.attention_type == "none":
         return 0.0
@@ -92,13 +101,13 @@ def _attention_flops(cfg: ArchConfig, B: int, S: int, kind: str) -> float:
     if kind == "decode":
         fwd = per_pair * B * S * n_attn_layers
         if cfg.encoder_layers:
-            fwd += per_pair * B * S * cfg.num_layers        # cross-attn
+            fwd += per_pair * B * S_src * cfg.num_layers    # cross-attn
         return fwd
     pairs = B * S * S / 2                                   # causal self
     fwd = per_pair * pairs * n_attn_layers
     if cfg.encoder_layers:
-        fwd += per_pair * B * S * S * cfg.encoder_layers    # bidirectional enc
-        fwd += per_pair * B * S * S * cfg.num_layers        # cross: S_dec x S_enc
+        fwd += per_pair * B * S_src * S_src * cfg.encoder_layers  # encoder
+        fwd += per_pair * B * S * S_src * cfg.num_layers    # cross: S x S_src
     return 3 * fwd if kind == "train" else fwd
 
 
@@ -131,14 +140,29 @@ def _ssm_flops(cfg: ArchConfig, B: int, S: int, kind: str) -> float:
     return 3.0 * fwd if kind == "train" else fwd
 
 
-def model_flops_estimate(cfg: ArchConfig, params, shape: ShapeSpec) -> float:
+def model_flops_estimate(cfg: ArchConfig, params, shape: ShapeSpec,
+                         src_len: Optional[int] = None) -> float:
     """6*N_active*D (train) / 2*N_active*D (inference) + attention/SSM
-    FLOPs."""
+    FLOPs.  ``src_len``: the frontend's rows where they are not the
+    reference's assumed ``seq_len``: an encdec model's source frames (its
+    encoder's and frontend's parameters then count over B x src_len rows,
+    its attention as :func:`_attention_flops` says), a vlm model's image
+    rows (the decoder then runs over seq_len + src_len rows, the projector
+    over src_len)."""
     _, n_active = _matmul_param_count(cfg, params)
     B, S = shape.global_batch, shape.seq_len
     tokens = B * (1 if shape.kind == "decode" else S)
-    base = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
-    return (base + _attention_flops(cfg, B, S, shape.kind)
+    per = 6.0 if shape.kind == "train" else 2.0
+    base = per * n_active * tokens
+    if src_len is not None and shape.kind != "decode" and \
+            cfg.family in ("encdec", "vlm"):
+        front = sum(float(v.numel()) for k, v in _paths(params)
+                    if k.split("/")[0] in ("enc_layers", "frontend"))
+        dec_rows = tokens + (B * src_len if cfg.family == "vlm" else 0)
+        base = per * ((n_active - front) * dec_rows + front * B * src_len)
+        if cfg.family == "vlm":
+            S += src_len
+    return (base + _attention_flops(cfg, B, S, shape.kind, src_len)
             + _ssm_flops(cfg, B, S, shape.kind))
 
 

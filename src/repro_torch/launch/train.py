@@ -4,6 +4,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --optimized --device cpu --steps 3
 
+Trains every served family but vlm and encdec, whose batches carry frontend
+features the token loader does not make (they raise before the driver
+starts; ``launch.steps.build_train_step`` trains them on such batches).
 Uses the full substrate: synthetic pipeline, AdamW, the train step (every
 GEMM and its dx/dw through the RSA kernel, attention through the
 flash-attention kernels or the blockwise route; rwkv6-1.6b's WKV scan
@@ -69,6 +72,14 @@ def train_main(arch: str = "llama3.2-1b", preset: str = "reduced",
     cfg = cfg.replace(param_dtype="float32", compute_dtype="float32",
                       opt_state_dtype="float32")
     check_trained_family(cfg)     # before the driver, which retries errors
+    feats = {"vlm": "patch_embeds", "encdec": "src_features"}.get(cfg.family)
+    if feats:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family trains on batches that "
+            f"carry {feats!r} beside the tokens, and this launcher's loader "
+            f"feeds tokens only, as the reference's does (whose step fails "
+            f"on the missing key); build the step with "
+            f"launch.steps.build_train_step and pass {feats!r} in its batch")
 
     model, step_fn, opt = build_train_step(cfg, lr=lr, device=str(dev))
     params = model.init(seed)

@@ -590,25 +590,44 @@ def mla_self_attention(params: Params, x: torch.Tensor,
                        positions: torch.Tensor, cfg: ArchConfig, *,
                        cache: Optional[KVCache] = None,
                        update_cache: bool = False
-                       ) -> Tuple[torch.Tensor, KVCache]:
-    """Absorbed MLA over a dense latent cache (prefill into a fresh cache,
-    decode over the history): the cache stores the compressed (c_kv,
+                       ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """MLA self-attention.  Without a cache (training) the reference's
+    expanded path: per-head keys (c_kv through W_UK, then the shared rope
+    key broadcast over the heads) and values (c_kv through W_UV), causal
+    full-sequence attention at hd = qk_nope + qk_rope (192) and hd_v =
+    v_head_dim (128) through ``multihead_attention`` (the flash kernels
+    under ``attn_impl="pallas"``), then W_O; returns (out, None).  Over a
+    dense latent cache (prefill into a fresh cache, decode over the
+    history) the absorbed path: the cache stores the compressed (c_kv,
     k_rope) rows only, the queries are absorbed through W_UK, the scores
     and the latent mix run in the compute dtype with the softmax in f32,
-    each sequence masked at its own length.  The expanded full-sequence
-    path (``cache=None``, training) is not ported: it raises.  Returns
-    (out, the cache with the new rows)."""
-    if cache is None:
-        raise NotImplementedError(
-            "mla_self_attention without a cache (the expanded full-sequence "
-            "path of MLA training) is not ported yet (ROADMAP.md queue 1 "
-            "item 11b)")
+    each sequence masked at its own length; returns (out, the cache with
+    the new rows)."""
     m = cfg.mla
     cdt = dtype_of(cfg.compute_dtype)
     B, S = x.shape[0], x.shape[1]
     H = cfg.num_heads
     q_nope, q_rope = _mla_q(params, x, positions, cfg, cdt)
     c_kv, k_rope = _mla_ckv(params, x, positions, cfg, cdt)
+    if cache is None:
+        if update_cache:
+            raise ValueError("prefill with a cache must pass an initialized "
+                             "cache")
+        k_nope = dense(c_kv, params["w_uk"], None, cdt,
+                       site="layer.mla.k_up").reshape(
+            B, S, H, m.qk_nope_head_dim)
+        v = dense(c_kv, params["w_uv"], None, cdt,
+                  site="layer.mla.v_up").reshape(B, S, H, m.v_head_dim)
+        k_rope_b = k_rope[:, :, None, :].expand(B, S, H,
+                                                m.qk_rope_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope_b], dim=-1)
+        out = multihead_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                  causal_skip=cfg.flash_causal_skip,
+                                  impl=cfg.attn_impl)
+        out = out.reshape(B, S, H * m.v_head_dim)
+        return dense(out, params["wo"], None, cdt,
+                     site="layer.mla.out"), None
     start = cache.length
     new_cache = _cache_update(cache, c_kv, k_rope)
     ckv_all, krope_all = new_cache.k.to(cdt), new_cache.v.to(cdt)

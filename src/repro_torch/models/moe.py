@@ -20,8 +20,10 @@ token at decode) and sort-based, in the reference's order of operations:
 - the shared experts, a dense gated MLP on every token, added on top.
 
 Every expert's whole capacity buffer is computed, empty slots included, as
-in the reference.  The aux losses the reference returns are for training
-and are not computed here.
+in the reference.  With ``with_aux`` (training) ``moe_apply`` also returns
+the reference's aux metrics (:func:`moe_aux`): the Switch load-balance
+loss and the router z-loss over the real experts, and the share of
+(token, choice) pairs dropped past capacity.
 """
 
 from __future__ import annotations
@@ -96,15 +98,22 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, lead=(),
     return p
 
 
-def router_probs(params: Params, x: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
-    """f32 routing probabilities (B, S, E_pad) of x (B, S, d); padding
-    experts get exactly 0."""
+def router_logits(params: Params, x: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """f32 router logits (B, S, E_pad) of x (B, S, d), padding experts
+    set to -1e30."""
     E_pad = params["router"].shape[-1]
     logits = dispatch.gemm(x.float(), params["router"].float(),
                            site="moe.router", backend="torch")
     pad = torch.arange(E_pad, device=x.device) >= cfg.moe.num_experts
-    return torch.softmax(logits.masked_fill(pad, -1e30), dim=-1)
+    return logits.masked_fill(pad, -1e30)
+
+
+def router_probs(params: Params, x: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """f32 routing probabilities (B, S, E_pad) of x (B, S, d); padding
+    experts get exactly 0."""
+    return torch.softmax(router_logits(params, x, cfg), dim=-1)
 
 
 def gates(probs: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
@@ -113,12 +122,32 @@ def gates(probs: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
     return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
 
 
+def top_k(probs: torch.Tensor, cfg: ArchConfig):
+    """(top_idx (B, S, k) int64, gate_vals (B, S, k) f32 renormalised)."""
+    top_idx = torch.topk(probs, cfg.moe.experts_per_token, dim=-1).indices
+    return top_idx, gates(probs, top_idx)
+
+
 def route(params: Params, x: torch.Tensor, cfg: ArchConfig):
     """The router's decision for x (B, S, d): (top_idx (B, S, k) int64,
     gate_vals (B, S, k) f32 renormalised)."""
-    probs = router_probs(params, x, cfg)
-    top_idx = torch.topk(probs, cfg.moe.experts_per_token, dim=-1).indices
-    return top_idx, gates(probs, top_idx)
+    return top_k(router_probs(params, x, cfg), cfg)
+
+
+def moe_aux(logits: torch.Tensor, probs: torch.Tensor, top_idx: torch.Tensor,
+            keep: torch.Tensor, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The reference's aux metrics over the real experts E: the Switch
+    load-balance loss E * sum_e f_e p_e (f_e the share of tokens whose
+    top-1 is e, p_e the mean probability of e), the z-loss mean(logsumexp
+    (logits)^2), and the share of (token, choice) pairs dropped past
+    capacity."""
+    E = cfg.moe.num_experts
+    me = probs[..., :E].reshape(-1, E).mean(0)
+    top1 = torch.nn.functional.one_hot(top_idx[..., 0], probs.shape[-1])
+    fe = top1[..., :E].reshape(-1, E).float().mean(0)
+    return {"moe_lb_loss": E * (me * fe).sum(),
+            "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
+            "moe_drop_frac": 1.0 - keep.float().mean()}
 
 
 def dispatch_plan(top_idx: torch.Tensor, E_pad: int, C: int):
@@ -138,9 +167,12 @@ def dispatch_plan(top_idx: torch.Tensor, E_pad: int, C: int):
     return dest, st, order, keep
 
 
-def moe_apply(params: Params, x: torch.Tensor,
-              cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
+              with_aux: bool = False):
+    """x: (B, S, d) -> (B, S, d), or with ``with_aux`` ((B, S, d), the
+    aux metrics of :func:`moe_aux`).  Without it the decision comes from
+    :func:`route` (which a caller may stand in for); with it the router's
+    logits are kept for the aux losses."""
     m = cfg.moe
     cdt = dtype_of(cfg.compute_dtype)
     B, S, d = x.shape
@@ -149,7 +181,12 @@ def moe_apply(params: Params, x: torch.Tensor,
     C = row_capacity(S, cfg)
     dev = x.device
 
-    top_idx, gate_vals = route(params, x, cfg)
+    if with_aux:
+        logits = router_logits(params, x, cfg)
+        probs = torch.softmax(logits, dim=-1)
+        top_idx, gate_vals = top_k(probs, cfg)
+    else:
+        top_idx, gate_vals = route(params, x, cfg)
     dest, st, order, keep = dispatch_plan(top_idx, E_pad, C)
     sg = torch.gather(gate_vals.reshape(B, S * k), 1, order)
 
@@ -182,4 +219,6 @@ def moe_apply(params: Params, x: torch.Tensor,
         us = dense(x, sp["w_up"], None, cdt, site="moe.shared.up")
         y = y + dense(gs * us, sp["w_down"], None, cdt,
                       site="moe.shared.down")
+    if with_aux:
+        return y.to(x.dtype), moe_aux(logits, probs, top_idx, keep, cfg)
     return y.to(x.dtype)

@@ -7,8 +7,9 @@ bidirectional encoder over audio-frame features and a decoder with
 cross-attention in every layer), the RWKV6 stack of the ssm family
 (``_scan_rwkv``), the hybrid family's layout (zamba2: groups of Mamba2
 blocks, each followed by one weight-shared attention + MLP block, then a
-remainder of Mamba2 blocks), and the training forward pass and loss of the
-dense GQA, ssm and hybrid families.
+remainder of Mamba2 blocks), and the training forward pass and loss of
+every one of them (the MoE layers' aux losses included; MLA through its
+expanded full-sequence path).
 
 Per-layer leaves are stacked on a leading layer axis, as in the reference
 (``layers/attn/wq`` is (L, d, q_dim)); a layer's parameters are views of
@@ -27,7 +28,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import (KVCache, gqa_cross_attention,
+from repro_torch.models.attention import (KVCache, cross_attention_kv,
+                                          gqa_cross_attention,
                                           gqa_paged_decode,
                                           gqa_paged_prefill,
                                           gqa_paged_shared_decode,
@@ -50,7 +52,7 @@ Params = Dict[str, Any]
 # the (family, attention) pairs the port serves, and those it trains
 SERVED = (("dense", "gqa"), ("moe", "gqa"), ("moe", "mla"), ("vlm", "gqa"),
           ("encdec", "gqa"), ("ssm", "none"), ("hybrid", "gqa"))
-TRAINED = (("dense", "gqa"), ("ssm", "none"), ("hybrid", "gqa"))
+TRAINED = SERVED
 # the SSM block each recurrent family runs
 SSM_KINDS = {"ssm": "rwkv6", "hybrid": "mamba2"}
 
@@ -72,19 +74,22 @@ def _check_family(cfg: ArchConfig) -> None:
 
 
 def check_trained_family(cfg: ArchConfig) -> None:
-    """Training (forward, loss, logits) is ported for dense GQA, the RWKV6
-    ssm family and the zamba2 hybrid.  Full-sequence attention runs through
-    the flash kernels (``attn_impl="pallas"``) or the blockwise route
-    (``"xla"``), which autograd differentiates; the WKV scan through its
-    kernel (``ssm_impl="pallas"``, the backward recomputed through the
-    plain scan) or the plain scan; Mamba2's SSD scan is plain torch.  MoE
-    (aux losses, the bank GEMM's gradient), MLA and the frontend families
-    raise (ROADMAP queue 1 item 11b)."""
+    """Training (forward, loss, logits) is ported for every served (family,
+    attention) pair: dense GQA, MoE with GQA or MLA (the aux losses, each
+    expert bank's gradient as two bank launches, MLA through its expanded
+    full-sequence path at hd 192 / hd_v 128), vlm (the patch projector's
+    rows before the text), encdec (the bidirectional encoder and each
+    layer's cross attention), the RWKV6 ssm family and the zamba2 hybrid.
+    Full-sequence attention runs through the flash kernels
+    (``attn_impl="pallas"``) or the blockwise route (``"xla"``), which
+    autograd differentiates; the WKV scan through its kernel
+    (``ssm_impl="pallas"``, the backward recomputed through the plain scan)
+    or the plain scan; Mamba2's SSD scan is plain torch.  Anything else
+    raises."""
     if (cfg.family, cfg.attention_type) not in TRAINED:
         raise NotImplementedError(
             f"the port trains {TRAINED} (family, attention) decoders only, "
-            f"got {cfg.family!r} / {cfg.attention_type!r} (ROADMAP queue 1 "
-            f"item 11b)")
+            f"got {cfg.family!r} / {cfg.attention_type!r}")
 
 
 def _is_moe_layer(cfg: ArchConfig, layer_idx: int) -> bool:
@@ -215,22 +220,28 @@ def _frontend_embed(params, feats: torch.Tensor,
                  fe["proj2"], None, cdt, site="frontend.proj2")
 
 
-def encode(params: Params, feats: torch.Tensor,
-           cfg: ArchConfig) -> torch.Tensor:
+def encode(params: Params, feats: torch.Tensor, cfg: ArchConfig,
+           train: bool = False) -> torch.Tensor:
     """The encdec encoder over source features (B, S_src, feature_dim):
     the audio projection, the bidirectional layer stack (full-sequence
     self-attention from position 0: the flash kernels under
-    ``attn_impl="pallas"``), the final RMSNorm.  Returns (B, S_src, d)."""
+    ``attn_impl="pallas"``), the final RMSNorm; ``train`` puts each layer
+    under ``_remat``, as the reference's training ``enc_body``.  Returns
+    (B, S_src, d)."""
     x = _frontend_embed(params, feats, cfg)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    enc = params["enc_layers"]
-    for i in range(enc["ln1"].shape[0]):
-        lp = layer_params(enc, i)
+
+    def layer(lp, x):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = gqa_self_attention(lp["attn"], h, pos, cfg, causal=False)
         x = x + a.to(x.dtype)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h2, cfg).to(x.dtype)
+        return x + mlp_apply(lp["mlp"], h2, cfg).to(x.dtype)
+
+    body = _remat(layer, cfg) if train else layer
+    enc = params["enc_layers"]
+    for i in range(enc["ln1"].shape[0]):
+        x = body(layer_params(enc, i), x)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -251,12 +262,19 @@ def _cross(p: Params, x, enc_kv, cfg: ArchConfig) -> torch.Tensor:
     return x + gqa_cross_attention(p["cross"], hc, enc_kv, cfg).to(x.dtype)
 
 
-def _ffn(p: Params, x, cfg: ArchConfig) -> torch.Tensor:
-    """The layer's feed-forward half, added to x: MoE or the dense MLP."""
+def _ffn(p: Params, x, cfg: ArchConfig, with_aux: bool = False):
+    """The layer's feed-forward half, added to x: MoE or the dense MLP.
+    With ``with_aux``, (x, the MoE layer's aux metrics or zeros)."""
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    f = moe_apply(p["moe"], h2, cfg) if "moe" in p else \
-        mlp_apply(p["mlp"], h2, cfg)
-    return x + f.to(x.dtype)
+    aux = _zero_aux(x.device)
+    if "moe" in p:
+        f = moe_apply(p["moe"], h2, cfg, with_aux=with_aux)
+        if with_aux:
+            f, aux = f
+    else:
+        f = mlp_apply(p["mlp"], h2, cfg)
+    x = x + f.to(x.dtype)
+    return (x, aux) if with_aux else x
 
 
 def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
@@ -265,8 +283,9 @@ def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
     """One decoder layer over x (B, S, d): over a full sequence with no
     cache (training), or over a dense KV cache (prefill, decode; written
     in place), with the cross-attention block when ``enc_kv`` is given.
-    Returns (x, the layer's new cache or None, aux); the port's MoE
-    computes no aux losses, so aux is zeros as for a dense layer."""
+    Returns (x, the layer's new cache or None, aux): a MoE layer's aux
+    metrics over a full sequence, zeros for a dense layer and over a cache
+    (serving, which drops them)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attention_type == "mla":
         a, new_cache = mla_self_attention(p["attn"], h, positions, cfg,
@@ -277,6 +296,9 @@ def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
                                           cache=cache,
                                           update_cache=update_cache)
     x = _cross(p, x + a.to(x.dtype), enc_kv, cfg)
+    if cache is None:
+        x, aux = _ffn(p, x, cfg, with_aux=True)
+        return x, None, aux
     return _ffn(p, x, cfg), new_cache, _zero_aux(x.device)
 
 
@@ -418,14 +440,27 @@ def _remat(fn, cfg: ArchConfig):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _decoder_stack(params: Params, x, positions, cfg: ArchConfig):
-    """The layer loop of the reference's ``_scan_decoder``, each layer
-    under ``_remat``."""
-    body = _remat(lambda layer_p, h:
-                  decoder_layer_apply(layer_p, h, positions, cfg)[0], cfg)
-    for i in range(params["layers"]["ln1"].shape[0]):
-        x = body(layer_params(params["layers"], i), x)
-    return x
+def _decoder_stack(params: Params, x, positions, cfg: ArchConfig,
+                   enc_out=None):
+    """The layer loop of the reference's ``_scan_decoder`` (the
+    ``dense_layers`` stack first), each layer under ``_remat``, the aux
+    metrics summed over the layers; with ``enc_out`` (encdec) each layer
+    first projects its cross K/V from it, inside its remat, as the
+    reference's ``dec_body``.  Returns (x, aux)."""
+    def layer(lp, h, enc):
+        enc_kv = None if enc is None else cross_attention_kv(lp["cross"],
+                                                             enc, cfg)
+        h, _, a = decoder_layer_apply(lp, h, positions, cfg, enc_kv=enc_kv)
+        return h, a
+
+    body = _remat(layer, cfg)
+    aux = _zero_aux(x.device)
+    for name in ("dense_layers", "layers"):
+        stack = params.get(name)
+        for i in range(0 if stack is None else stack["ln1"].shape[0]):
+            x, a = body(layer_params(stack, i), x, enc_out)
+            aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+    return x, aux
 
 
 def _rwkv_stack(params: Params, x, cfg: ArchConfig):
@@ -464,24 +499,35 @@ def _hybrid_stack(params: Params, x, positions, cfg: ArchConfig):
 
 def forward(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ArchConfig) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """Training/eval forward (no cache) of a dense, ssm or hybrid decoder.
-    Returns (hidden (B, S, d) after the final norm, aux, loss mask (B,
-    S)), with S = tokens.shape[1] - 1; logits are not materialised
-    here."""
+    """Training/eval forward (no cache).  ``batch["tokens"]`` (B, S + 1);
+    vlm also takes ``batch["patch_embeds"]`` (B, n_img, feature_dim),
+    projected and prepended to the text (predictions over the text only),
+    and encdec ``batch["src_features"]`` (B, S_src, feature_dim), run
+    through the encoder (each layer under remat) for every decoder layer's
+    cross attention.  Returns (hidden (B, S, d) after the final norm, aux,
+    loss mask (B, S)); logits are not materialised here."""
     check_trained_family(cfg)
     tokens = batch["tokens"]
     x = _embed(params, tokens[:, :-1], cfg)
+    n_img = 0
+    aux = _zero_aux(x.device)
+    if cfg.family == "vlm":
+        img = _frontend_embed(params, batch["patch_embeds"], cfg)
+        n_img = img.shape[1]
+        x = torch.cat([img, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if cfg.family == "ssm":
         x = _rwkv_stack(params, x, cfg)
     elif cfg.family == "hybrid":
         x = _hybrid_stack(params, x, positions, cfg)
     else:
-        x = _decoder_stack(params, x, positions, cfg)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        enc_out = encode(params, batch["src_features"], cfg, train=True) \
+            if cfg.family == "encdec" else None
+        x, aux = _decoder_stack(params, x, positions, cfg, enc_out)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)[:, n_img:]
     mask = torch.ones(tuple(tokens[:, 1:].shape), dtype=torch.float32,
                       device=x.device)
-    return x, _zero_aux(x.device), mask
+    return x, aux, mask
 
 
 def _chunk_loss(h, y, m, w):
@@ -517,13 +563,19 @@ def chunked_ce_loss(params: Params, hidden, labels, mask,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def loss_fn(params: Params, batch, cfg: ArchConfig):
-    """(total loss, metrics) as the reference's ``loss_fn`` (the trained
-    families add no MoE terms)."""
+def loss_fn(params: Params, batch, cfg: ArchConfig,
+            moe_loss_weight: float = 0.01, z_loss_weight: float = 1e-4):
+    """(total loss, metrics) as the reference's ``loss_fn``: the
+    cross-entropy, plus the weighted load-balance and z losses of a MoE
+    model."""
     hidden, aux, mask = forward(params, batch, cfg)
     labels = batch["tokens"][:, 1:]
     loss = chunked_ce_loss(params, hidden, labels, mask, cfg)
-    return loss, {"ce_loss": loss, **aux}
+    total = loss
+    if cfg.moe is not None:
+        total = total + moe_loss_weight * aux["moe_lb_loss"] + \
+            z_loss_weight * aux["moe_z_loss"]
+    return total, {"ce_loss": loss, **aux}
 
 
 def logits(params: Params, batch, cfg: ArchConfig) -> torch.Tensor:

@@ -219,8 +219,8 @@ def test_gqa_self_attention_with_cache_per_lane(softcap):
 
 def test_mla_self_attention_with_cache_per_lane():
     """Absorbed MLA over a dense latent cache, as the GQA test: prefill
-    then decode, lane for lane; the expanded path (no cache) is item 11
-    and raises."""
+    then decode, lane for lane; and the expanded full-sequence path (no
+    cache, training) against the reference's, on the blockwise route."""
     jcfg, tcfg, _, _, jp, tp = _models("deepseek-v3-671b")
     jl = _layer0(jp["layers"]["attn"])
     tl = {k: v[0] for k, v in tp["layers"]["attn"].items()}
@@ -242,8 +242,13 @@ def test_mla_self_attention_with_cache_per_lane():
             pre[b] = o.numpy()
         dec, cache = tattn.mla_self_attention(
             tl, _t(xs), cache.length.long()[:, None], tcfg, cache=cache)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tattn.mla_self_attention(tl, _t(x), torch.arange(5)[None], tcfg)
+        full, none = tattn.mla_self_attention(tl, _t(x),
+                                              torch.arange(5)[None], tcfg)
+    assert none is None
+    with jdispatch.use(execute="xla"):
+        want, _ = jattn.mla_self_attention(jl, jnp.asarray(x),
+                                           jnp.arange(5)[None], jcfg)
+    np.testing.assert_allclose(full.numpy(), np.asarray(want), atol=ATOL)
     for b in range(B):
         jc = jattn.init_mla_cache(jcfg, 1, ML, jnp.float32)
         with jdispatch.use(execute="xla"):

@@ -331,9 +331,9 @@ def test_gemm_gradient_matches_pallas_vjp(monkeypatch, tied):
 
 def test_gemm_gradient_keeps_the_forward_policy():
     """The backward runs on the backend and tiles resolved in the forward,
-    even outside the ``dispatch.use`` block; a bank GEMM that needs a
-    gradient raises (MoE/MLA training is queued); the registry records
-    the forward site only."""
+    even outside the ``dispatch.use`` block, for a 2-D GEMM and a bank
+    GEMM alike (its dx and dw are bank products too); the registry
+    records the forward site only."""
     reg = dispatch.SiteRegistry()
     x = torch.randn(6, 64, requires_grad=True)
     w = torch.randn(64, 96, requires_grad=True)
@@ -347,6 +347,17 @@ def test_gemm_gradient_keeps_the_forward_policy():
     assert torch.allclose(w.grad, x.detach().t() @ torch.ones(6, 96),
                           atol=1e-4)
     assert reg.records == 1 and list(reg.sites("train")) == ["layer.mlp.up"]
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        dispatch.gemm(torch.randn(2, 3, 5, 8), torch.randn(3, 8, 4,
-                                                           requires_grad=True))
+    xb = torch.randn(2, 3, 5, 8, requires_grad=True)
+    wb = torch.randn(3, 8, 4, requires_grad=True)
+    with dispatch.use(registry=reg, execute="torch"), reg.scope("train"):
+        yb = dispatch.gemm(xb, wb, site="moe.expert.up")
+    with dispatch.use(execute="kernel"):
+        yb.sum().backward()
+    ones = torch.ones(2, 3, 5, 4)
+    assert torch.allclose(xb.grad, ones @ wb.detach().transpose(1, 2),
+                          atol=1e-4)
+    assert torch.allclose(wb.grad, torch.einsum("becm,becn->emn",
+                                                xb.detach(), ones),
+                          atol=1e-4)
+    assert reg.records == 2 and list(reg.sites("train")) == [
+        "layer.mlp.up", "moe.expert.up"]

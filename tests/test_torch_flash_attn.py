@@ -2,8 +2,9 @@
 reference's Pallas kernels (interpret mode) and its oracle
 (``kernels/ref.py::flash_attention_ref``), on the reference's own cases
 (``tests/test_flash_attn.py``: ragged lengths, MQA and GQA groups,
-hd_v != hd, bidirectional, bq != bk, a single block), the same numpy
-inputs into both packages.
+hd_v != hd, bidirectional, bq != bk, a single block) and at the widths
+past 128 that the port trains (MLA's 192 / 128, gemma-2b's 256), the same
+numpy inputs into both packages.
 
 Tolerances are the reference's own for its kernel against its oracle:
 2e-6 (f32) and 2e-2 (bf16) on the forward, 3e-5 absolute + 1e-3 relative
@@ -36,7 +37,14 @@ CASES = [
     (1, 300, 300, 2, 2, 64, 64, True, 64, 128),    # bq != bk, ragged
     (1, 64, 64, 8, 2, 128, 128, True, 64, 64),     # single block
 ]
+# the widths past 128 that the kernels split into 128-column slices:
+# MLA's expanded heads (192 / 128) and gemma-2b's (256, MQA)
+WIDE = [
+    (1, 96, 96, 4, 4, 192, 128, True, 64, 64),
+    (1, 80, 80, 4, 1, 256, 256, True, 64, 32),
+]
 IDS = [str(c[:8]) for c in CASES]
+WIDE_IDS = [str(c[:8]) for c in WIDE]
 
 
 @pytest.fixture(autouse=True)
@@ -67,7 +75,7 @@ def test_pair_order_is_the_reference(n_q, n_k, bq, bk, causal, order):
     assert _pairs(n_q, n_k, bq, bk, causal, order) == want
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", CASES + WIDE, ids=IDS + WIDE_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_forward_matches_pallas_and_oracle(case, dtype):
     B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
@@ -108,7 +116,7 @@ def _loss_grads_torch(q, k, v, causal, bq, bk):
     return [t.grad.numpy() for t in ts]
 
 
-@pytest.mark.parametrize("case", CASES[:4], ids=IDS[:4])
+@pytest.mark.parametrize("case", CASES[:4] + WIDE, ids=IDS[:4] + WIDE_IDS)
 def test_grads_match_pallas_vjp(case):
     *_, causal, bq, bk = case
     q, k, v = _inputs(case, 1)

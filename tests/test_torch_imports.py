@@ -181,8 +181,9 @@ def test_train_entry_point_raises_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_training_routes_raise(tmp_path):
     """Training refuses what it has not ported, before the driver (which
-    would retry the error): a mesh and every family but dense GQA, ssm
-    (RWKV6) and the zamba2 hybrid.  The
+    would retry the error): a mesh, a (family, attention) pair the port
+    does not serve, and in ``train_main`` the vlm and encdec families,
+    whose batches need features its token loader does not make.  The
     blockwise attention route (``attn_impl="xla"``) is ported: those
     calls now compute, their parity is in test_torch_dense_cache.py and
     test_torch_train.py."""
@@ -194,8 +195,8 @@ def test_unported_training_routes_raise(tmp_path):
               checkpoint_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="mesh"):
         train_main(data_axis=2, **kw)
-    with pytest.raises(NotImplementedError, match="trains"):
-        train_main(override_cfg=get_arch("deepseek-v3-671b",
+    with pytest.raises(ValueError, match="feeds tokens only"):
+        train_main(override_cfg=get_arch("internvl2-76b",
                                          optimized=True), **kw)
     assert not any(tmp_path.iterdir())       # no checkpoint was written
     transformer.check_trained_family(get_arch("llama3.2-1b"))  # "xla"
@@ -209,5 +210,7 @@ def test_unported_training_routes_raise(tmp_path):
         assert out.shape == (1, 4, 2, 8) and torch.isfinite(out).all()
     out = multihead_attention(q[:, :1], q, q, causal=True, impl="pallas")
     assert out.shape == (1, 1, 2, 8)
-    with pytest.raises(NotImplementedError):
-        transformer.check_trained_family(get_arch("deepseek-v3-671b"))
+    transformer.check_trained_family(get_arch("deepseek-v3-671b"))
+    with pytest.raises(NotImplementedError, match="trains"):
+        transformer.check_trained_family(
+            get_arch("llama3.2-1b").replace(attention_type="mla"))

@@ -26,7 +26,10 @@ attention kernels sum their f32 dot products in another order than the
 plain versions: 1e-5 of the output's largest magnitude (at least 1e-5),
 plus one bf16 rounding (2^-8 of it) for bf16 outputs.  ADAPTNETX is
 held to the reference's rtol = atol = 1e-5 (f32 sums of 48 and 128 terms
-in another order).
+in another order).  Past hd, hd_v = 128 (up to 256, over 128-column
+slices) the flash kernels are held to the same tolerances and to
+themselves run to run; the bank GEMM's gradient (dx and dw, one bank
+launch each) to the plain backward within the f32 summation bound.
 """
 
 import math
@@ -661,6 +664,99 @@ def test_flash_forward_bf16_matches_plain(cuda, case):
                                        block_k=bk)
     assert got.dtype == torch.bfloat16
     assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+# hd or hd_v past 128: the kernels' 128-column slices (two here), gemma-2b's
+# 256 (MQA), the expanded MLA's 192 / 128, a ragged 160 / 96 with G = 3,
+# hd_v > hd bidirectional, kv past every query, and G = 16 (two heads a
+# dk/dv CTA)
+WIDE_FLASH_CASES = [
+    (2, 200, 200, 8, 1, 256, 256, True, 512, 512),
+    (1, 130, 130, 16, 16, 192, 128, True, 512, 512),
+    (2, 100, 133, 6, 2, 160, 96, True, 64, 64),
+    (1, 130, 70, 4, 2, 64, 256, False, 64, 64),
+    (1, 64, 200, 4, 1, 200, 200, True, 64, 64),      # kv past every query
+    (1, 129, 129, 16, 1, 256, 256, True, 64, 64),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_FLASH_CASES,
+                         ids=[str(c[:8]) for c in WIDE_FLASH_CASES])
+def test_wide_flash_kernels_match_plain(cuda, case):
+    """Past W = 128: forward, dq and dk/dv through autograd on the kernels
+    against the plain versions (f32, the reference's tolerances; one launch
+    of each kernel, slices and all), and in bf16 at its bf16 tolerance;
+    kv rows past every query get exactly zero dk/dv."""
+    n0 = ops.launch_counts()
+    got = _flash_run(cuda, case, torch.float32, "kernel")
+    n1 = ops.launch_counts()
+    assert [n1[k] - n0[k] for k in ("flash_fwd", "flash_dq",
+                                    "flash_dkv")] == [1, 1, 1]
+    want = _flash_run(cuda, case, torch.float32, "torch")
+    assert (got[0] - want[0]).abs().max().item() <= \
+        2e-6 + 2e-6 * want[0].abs().max().item()
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.allclose(g, w, atol=3e-5, rtol=1e-3)
+    Sq, Skv = case[1], case[2]
+    if case[7] and Skv > Sq:
+        assert not got[2][:, Sq:].any() and not got[3][:, Sq:].any()
+    got = _flash_run(cuda, case, torch.bfloat16, "kernel")
+    want = _flash_run(cuda, case, torch.bfloat16, "torch")
+    for g, w in zip(got, want):
+        assert torch.allclose(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", WIDE_FLASH_CASES,
+                         ids=[str(c[:8]) for c in WIDE_FLASH_CASES])
+def test_wide_flash_kernels_are_bitwise_run_to_run(cuda, case):
+    """Past W = 128, two launches of each kernel give the same bits (every
+    slice rebuilds the scores in the unsplit sum's order; the group sum
+    is ordered)."""
+    from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
+                                                flash_fwd_cuda)
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
+    kw = dict(causal=case[7], scale=case[5] ** -0.5)
+    runs = [(flash_fwd_cuda(q, k, v, **kw),
+             flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+             flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    (o1, l1), dq1, (dk1, dv1) = runs[0]
+    (o2, l2), dq2, (dk2, dv2) = runs[1]
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert torch.equal(dq1, dq2)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("E,M,K,N", [(64, 172, 2048, 1408),
+                                     (8, 100, 96, 72), (3, 5, 40, 33)])
+def test_bank_gemm_gradient_matches_plain(cuda, E, M, K, N):
+    """A bank GEMM under autograd on the card: its backward is two bank
+    launches (dx, dw; the transposes read in place) besides the forward,
+    and dx and dw match the plain versions' within the f32 summation
+    bound (the summed dimension x 2^-24 x |a| @ |b|)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(E + M)
+    x = torch.randn((2, E, M // 2 + 1, K), generator=g, device="cuda")
+    w = torch.randn((E, K, N), generator=g, device="cuda") / math.sqrt(K)
+    dy = torch.randn((2, E, M // 2 + 1, N), generator=g, device="cuda")
+    grads = {}
+    for execute in ("kernel", "torch"):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        with dispatch.use(execute=execute):
+            y = dispatch.gemm(xs, ws, site="moe.expert.gate")
+            n0 = ops.launch_counts()["rsa_gemm"]
+            y.backward(dy)
+        if execute == "kernel":
+            assert ops.launch_counts()["rsa_gemm"] - n0 == 2
+        grads[execute] = (xs.grad, ws.grad)
+    (gx, gw), (px, pw) = grads["kernel"], grads["torch"]
+    xe = x.transpose(0, 1).reshape(E, -1, K)
+    de = dy.transpose(0, 1).reshape(E, -1, N)
+    bx = N * 2.0 ** -24 * (de.abs() @ w.abs().transpose(1, 2))
+    bw = xe.shape[1] * 2.0 ** -24 * (xe.abs().transpose(1, 2) @ de.abs())
+    ex = (gx - px).abs().transpose(0, 1).reshape(E, -1, K)
+    assert (ex <= 2 * bx + 1e-30).all()
+    assert ((gw - pw).abs() <= 2 * bw + 1e-30).all()
 
 
 def test_reduced_train_step_matches_cpu(cuda):

@@ -662,8 +662,8 @@ def test_flash_autograd_launches_each_kernel_once(card):
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):
     q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
-    with pytest.raises(ValueError, match="hd, hd_v <= 128"):
-        flash_fwd_cuda(torch.zeros(1, 8, 4, 256), torch.zeros(1, 8, 2, 256),
+    with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+        flash_fwd_cuda(torch.zeros(1, 8, 4, 264), torch.zeros(1, 8, 2, 264),
                        k, causal=True, scale=0.1)
     with pytest.raises(ValueError, match="shape mismatch"):
         flash_fwd_cuda(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16),
@@ -685,6 +685,9 @@ _FLASH_GRID = [
     (1, 1000, 1000, 96, 8, 128, 128, True),    # G = 12
     (3, 65, 129, 32, 1, 128, 64, True),        # G = 32 (MQA)
     (1, 300, 100, 9, 1, 16, 16, False),        # G = 9: a ragged last rank
+    (2, 1024, 1024, 8, 1, 256, 256, True),     # gemma-2b: W = 256, 2 slices
+    (1, 1024, 1024, 128, 128, 192, 128, True),  # MLA expanded: 192 / 128
+    (1, 70, 90, 6, 2, 64, 200, False),         # hd_v > hd past 128
 ]
 
 
@@ -700,7 +703,7 @@ def test_flash_plan_covers_every_tile_and_head_once(case):
     B, Sq, Skv, H, KVH, hd, hd_v, causal = case
     G, W = H // KVH, _width(hd, hd_v)
     plan = _flash_plan(H, KVH, hd, hd_v)
-    assert plan.fwd_stages == (1 if W == 64 else 2)
+    assert plan.fwd_stages == (2 if W == 128 else 1)
     assert 3 * (_fwd_smem(64, 1) + 1024) <= 233472 < \
         3 * (_fwd_smem(64, 2) + 1024)
     assert plan.dkv_rows == (128 if _dkv_smem(128, W, 2) <= 232448 else 64)
@@ -751,6 +754,7 @@ def test_dq_ctas_cover_every_tile_and_head_once(case, rows):
     plan = _flash_plan(H, KVH, hd, hd_v)
     assert plan.dq_rows == (128 if W == 64 else 64)
     assert _dq_smem(128, 64) <= 232448 < _dq_smem(128, 128)
+    assert _dq_smem(64, 256) <= 232448 < _dq_smem(128, 256)
     assert _dq_smem(64, 128) <= 232448
     ctas = _fwd_ctas(B, Sq, H, rows)
     nqt = -(-Sq // rows)
@@ -768,9 +772,73 @@ def test_dq_ctas_cover_every_tile_and_head_once(case, rows):
             assert {h // G for _, h, _ in part[g * G:(g + 1) * G]} == {g}
 
 
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128), (192, 192),
+                                     (160, 96), (64, 200), (129, 129)])
+def test_wide_flash_plan_covers_every_column_slice_once(hd, hd_v):
+    """Past W = 128 (hd or hd_v up to 256; 192 runs the 256-wide tiles)
+    every kernel cuts its outputs into 128-column slices, a grid row each
+    (``blockIdx.y``): every (query tile, head, batch) of the forward and
+    dq and every (kv tile, kv head, batch) of dk/dv is a CTA once a slice,
+    and the slices cover each output's columns once.  One ring stage, 64
+    rows a CTA; each CTA's shared bytes (the source's ``*_smem``) within
+    the 227 KB of a CTA, at the bytes the source's header states."""
+    H, KVH, B, S = 8, 2, 2, 300
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    W = _width(hd, hd_v)
+    assert W == 256
+    assert plan.slices == -(-max(hd, hd_v) // 128)
+    assert (plan.fwd_stages, plan.dq_rows, plan.dkv_rows,
+            plan.dkv_stages) == (1, 64, 64, 1)
+    assert (_fwd_smem(W, 1), _dq_smem(64, W), _dkv_smem(64, W, 1)) == \
+        (185344, 219136, 219648)
+    assert max(_fwd_smem(W, 1), _dq_smem(64, W),
+               _dkv_smem(64, W, 1)) <= 232448
+    assert min(_fwd_smem(W, 2), _dq_smem(128, W),
+               _dkv_smem(64, W, 2), _dkv_smem(128, W, 1)) > 232448
+    for d in (hd, hd_v):            # o / dv slices, dq / dk slices
+        cols = [c for sl in range(plan.slices)
+                for c in range(sl * 128, min(d, (sl + 1) * 128))]
+        assert cols == list(range(d))
+    ctas = [(c, sl) for c in _fwd_ctas(B, S, H, plan.dq_rows)
+            for sl in range(plan.slices)]
+    assert len(set(ctas)) == len(ctas) == \
+        -(-S // 64) * H * B * plan.slices
+    dkv = [(c[:3], tuple(c[3]), sl)
+           for c in _dkv_ctas(plan, B, S, KVH, H // KVH)
+           for sl in range(plan.slices)]
+    assert len(set(dkv)) == len(dkv) == \
+        -(-S // 64) * KVH * B * plan.parts * plan.slices
+
+
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
+def test_wide_flash_calls_are_one_launch_each(card, hd, hd_v):
+    """A call at hd or hd_v past 128 launches each kernel once with the
+    launch signature of every other width (the source derives the slices
+    from hd and hd_v) and counts one launch; dk/dv's scratch holds parts x
+    (hd + hd_v) floats a kv row and head."""
+    B, S, H, KVH = 1, 70, 8, 1
+    q, do = torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd_v)
+    k, v = torch.zeros(B, S, KVH, hd), torch.zeros(B, S, KVH, hd_v)
+    lse = torch.zeros(B, H, S)
+    flash_fwd_cuda(q, k, v, causal=True, scale=0.1)
+    flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
+    flash_dkv_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
+    assert card.calls == ["flash_fwd_launch", "flash_dq_launch",
+                          "flash_dkv_launch"]
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    assert card.args[0][11:13] == (hd, hd_v) and card.args[0][15] == 1
+    assert card.args[1][17] == 64
+    assert card.args[2][18:22] == (64, 1, plan.heads, plan.parts)
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"],
+            counts["plain_calls"]) == (1, 1, 1, 0)
+
+
 def test_flash_plan_refuses_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match="hd, hd_v <= 128"):
-        _flash_plan(4, 2, 256, 64)
+    with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+        _flash_plan(4, 2, 320, 64)
+    with pytest.raises(ValueError, match="hd, hd_v <= 256"):
+        _flash_plan(4, 2, 64, 257)
     with pytest.raises(ValueError, match="64 or 128 kv rows"):
         _flash_plan(4, 2, 64, 64, dkv_rows=256)
     with pytest.raises(ValueError, match="ring stages do not fit"):
@@ -877,15 +945,15 @@ def test_flash_default_plan_reaches_the_launch(card):
 
 
 def test_flash_dkv_refuses_wide_heads_before_a_launch(card):
-    """hd or hd_v past 128 raises before any launch of dk/dv or dq, and
+    """hd or hd_v past 256 raises before any launch of dk/dv or dq, and
     counts nothing."""
     q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
     lse = torch.zeros(1, 4, 8)
-    for v in (torch.zeros(1, 8, 2, 160),):
-        do = torch.zeros(1, 8, 4, 160)
-        with pytest.raises(ValueError, match="hd, hd_v <= 128"):
+    for v in (torch.zeros(1, 8, 2, 288),):
+        do = torch.zeros(1, 8, 4, 288)
+        with pytest.raises(ValueError, match="hd, hd_v <= 256"):
             flash_dkv_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
-        with pytest.raises(ValueError, match="hd, hd_v <= 128"):
+        with pytest.raises(ValueError, match="hd, hd_v <= 256"):
             flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
     assert card.calls == []
     counts = ops.launch_counts()
