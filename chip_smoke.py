@@ -239,7 +239,9 @@ in bf16, beside SDPA over the latents gathered beforehand; a forced split
 count run twice, bitwise; one timed lane of 4096 rows) and the bank GEMM (the
 expert banks, E = 256, and the MLA head banks, E = 128 views of W_UK /
 W_UV) against their plain versions at phase 6's shapes, and the three
-flash-attention kernels (forward, dq, dk/dv) and every training GEMM
+flash-attention kernels (forward, dq, dk/dv; f32, and bf16 with the
+forward and dk/dv on the tensor cores, all three run twice and bitwise)
+and every training GEMM
 (forward, dx and dw of each site, f32) at phase 7's shapes, and the WKV
 kernel (prefill, ragged with decays down to -e, the chunk-1 decode, the
 state carry) and the linear-attention kernel at phase 8's widths, and the
@@ -252,7 +254,8 @@ C = 5, chunks 1-5 at kv offsets off the page boundaries), timed beside
 its bound and the SDPA yardstick, and phase 13's shapes: qwen2-moe's
 expert banks, the decode and prefill kernels at gemma-2b's (G = 8, hd
 256) and qwen2-moe's (G = 1, hd 128) widths and the bidirectional flash
-forward at seamless-m4t-medium's encoder shape, each run to run bitwise,
+kernels (bf16, the forward and its gradients) at seamless-m4t-medium's
+encoder shape, each run to run bitwise,
 timed beside its bound and yardstick, and phase 14's: zamba2-7b's
 serving GEMMs (bf16 at M = 8 and 512, ``ssm.in_proj``'s ragged N =
 14576 among them) and training GEMMs (f32 forward, dx and dw at 2 x 1024
@@ -305,6 +308,9 @@ RSA_TPU_BY_MODE = {"OS": RSA_TPU, "WS": "src/repro/kernels/rsa_gemm.py:96",
 RSA_SRC = "src/repro_torch/kernels/csrc/rsa_psum.cu"
 MLA_TPU = {"paged_mla_decode": "src/repro/kernels/paged_attn.py:189",
            "paged_mla_prefill": "src/repro/kernels/paged_attn.py:578"}
+# phase 3's bf16 flash case: the tensor-core forward and dk/dv at phase 7's
+# attention shape, with gradients
+P3_BF16 = "llama bf16"
 FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attn.py:123",
              "flash_dq": "src/repro/kernels/flash_attn.py:265",
              "flash_dkv": "src/repro/kernels/flash_attn.py:282"}
@@ -327,8 +333,10 @@ SG_SAMPLES, SG_EPOCHS = 400_000, 20
 SG_SMALL_SAMPLES, SG_SMALL_EPOCHS = 60_000, 8
 SG_GEMMS = ((512, 512, 512, "float32"), (128, 8000, 128, "float32"),
             (8, 2048, 2048, "bfloat16"))
-# phase 13: the paths' slots and the encdec source length
+# phase 13: the paths' slots and the encdec source length; phase 3's flash
+# case at seamless's encoder shape
 P13_SLOTS, P13_SRC = 8, 128
+P13_FLASH = "seamless encoder"
 P13_KEYS = {}     # each phase 13 path's GEMM launches by (.., M, K, N, mode)
 # phase 14: zamba2-7b served (8 slots, 8 requests of 64, 128, ..., 512
 # tokens, 16 new tokens each) and trained (depth cut to 13 slots: 2 groups
@@ -349,7 +357,8 @@ P15_RUNS = (("15a", "gemma-2b", 6, "full", 3e-4),
             ("15d deepseek", "deepseek-v3-671b", None, "reduced", 3e-4),
             ("15d internvl2", "internvl2-76b", None, "reduced", 3e-4))
 P15_SRC = 128
-P15_FLASH = {"gemma": "gemma hd 256", "mla": "deepseek MLA 192/128"}
+P15_FLASH = {"gemma": "gemma hd 256", "gemma bf16": "gemma hd 256 bf16",
+             "mla": "deepseek MLA 192/128"}
 P15_KEYS = {}     # each phase 15 run's GEMM launches by ([E,] M, K, N, mode)
 
 
@@ -1372,16 +1381,17 @@ def check_flash(torch, report, timer, cfg):
     phase 7's attention shape (B = 2, S = 1024, 32 / 8 heads, hd = 64,
     causal, f32), a ragged length (Sq = Skv = 1000), kv rows past every
     query (Sq = 500, Skv = 1000: their dk/dv must be exactly 0), the
-    bidirectional form, a bf16 forward, and a group of G = 8 (32 / 4
+    bidirectional form, bf16 (the tensor-core forward and dk/dv, the
+    CUDA-core dq) with its gradients, and a group of G = 8 (32 / 4
     heads: 8 dk/dv partials a kv head).  The backward kernels are held
     alone: both versions get the kernel forward's lse and delta.  In the
-    main and G = 8 cases dq and dk/dv run twice and must give the same
-    bits; each case logs its plan (``_flash_plan``), and the build's
-    registers, spills and SASS FFMA / LDS counts of each flash kernel are
-    logged first.
+    main, bf16 and G = 8 cases all three kernels run twice and must give
+    the same bits; each case logs its plan (``_flash_plan``), and the
+    build's registers, spills and SASS FFMA / LDS / HMMA counts of each
+    flash kernel are logged first.
     Tolerances are the reference's for its kernel: 2e-6 absolute + 2e-6
-    relative (f32 forward), 2e-2 (bf16), 3e-5 absolute + 1e-3 relative
-    (gradients).  Every case is timed against the plain versions and
+    relative (f32 forward), 2e-2 (bf16, its gradients too), 3e-5
+    absolute + 1e-3 relative (f32 gradients); lse at 2e-6 in both.  Every case is timed against the plain versions and
     ``scaled_dot_product_attention`` (GQA, forward; its backward through
     autograd computes dq, dk and dv at once), a yardstick the port never
     calls; the main case is the kernel table's."""
@@ -1401,10 +1411,10 @@ def check_flash(torch, report, timer, cfg):
             ("kv past every query", 1, 500, 1000, True, f32, H0, KVH0),
             ("bidirectional", TRAIN_B, TRAIN_S, TRAIN_S, False, f32, H0,
              KVH0),
-            ("bf16 forward", TRAIN_B, TRAIN_S, TRAIN_S, True, bf16, H0,
-             KVH0),
+            (P3_BF16, TRAIN_B, TRAIN_S, TRAIN_S, True, bf16, H0, KVH0),
             ("G = 8", TRAIN_B, TRAIN_S, TRAIN_S, True, f32, H0, H0 // 8)):
-        rec, good = flash_case(torch, timer, gen, *case, hd)
+        rec, good = flash_case(torch, timer, gen, *case, hd, grads=True,
+                               twice=case[0] == P3_BF16)
         ok &= good
         rec["main"] = case[0] == "main"
         report["flash"].append(rec)
@@ -1422,18 +1432,18 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
     second run to the first's bits.  Returns (record, ok)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import (
-        _flash_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
+        _call_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
         flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
     hd_v = hd_v or hd
     grads = dt == f32 if grads is None else grads
-    plan = _flash_plan(H, KVH, hd, hd_v)
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, Skv, KVH, hd), generator=gen,
                     device="cuda").to(dt)
     v = torch.randn((B, Skv, KVH, hd_v), generator=gen,
                     device="cuda").to(dt)
+    plan = _call_plan(q, k, v)
     bq, bk = min(512, Sq), min(512, Skv)
     blocks = dict(causal=causal, scale=scale, bq=bq, bk=bk)
     o, lse = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
@@ -1489,8 +1499,8 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
            if zeros is not None else "")
         + (f"; o, lse, dq, dk/dv run to run bitwise {bitwise}"
            if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
-    log(f"    plan: forward 64 query rows a CTA, {plan.fwd_stages} "
-        f"ring stage(s); dq {plan.dq_rows} query rows a CTA, "
+    log(f"    plan: forward {plan.fwd_rows} query rows a CTA, "
+        f"{plan.fwd_stages} ring stage(s); dq {plan.dq_rows} query rows a CTA, "
         f"{'2 ring stages' if plan.slices == 1 else 'one chunk slot'}; "
         f"dk/dv {plan.dkv_rows} kv rows a CTA, "
         f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
@@ -2057,11 +2067,11 @@ def check_p13_kernels(torch, report, timer, dispatcher):
     banks; the decode and prefill kernels at gemma-2b's (G = 8, hd 256)
     and qwen2-moe's (G = 1, hd 128) serving widths (8 lanes, lengths and
     chunks off the page boundaries up to phase 13's 528 rows); the flash
-    forward, bidirectional, at seamless-m4t-medium's encoder shape (B = 1,
-    S = 128, 16 heads x 64, bf16) against its plain version (2e-2, the
-    reference's bf16 tolerance) and ``scaled_dot_product_attention``."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import flash_fwd_cuda, flash_fwd_plain
+    kernels, bidirectional, at seamless-m4t-medium's encoder shape (B = 1,
+    S = 128, 16 heads x 64, bf16: the tensor-core forward and dk/dv, the
+    CUDA-core dq) against their plain versions (2e-2, the reference's
+    bf16 tolerance; lse 2e-6), run twice and bitwise, beside
+    ``scaled_dot_product_attention``."""
     ok = check_banks(torch, report, timer, None, dispatcher,
                      cases=p13_bank_cases(), path="13a")
     gen = torch.Generator(device="cuda")
@@ -2076,42 +2086,11 @@ def check_p13_kernels(torch, report, timer, dispatcher):
                                     chunks, sms, timer, tag)
         ok &= good
         report["paged"] += recs
-    B, S, H, hd = 1, P13_SRC, 16, 64
-    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    scale = 1.0 / math.sqrt(hd)
-    o, _ = flash_fwd_cuda(q, k, v, causal=False, scale=scale)
-    o2, _ = flash_fwd_cuda(q, k, v, causal=False, scale=scale)
-    po, _ = flash_fwd_plain(q, k, v, causal=False, scale=scale, bq=S, bk=S)
-    torch.cuda.synchronize()
-    diff = (o.float() - po.float()).abs()
-    err = diff.max().item()
-    bitwise = bool(torch.equal(o, o2))
-    good = bool((diff <= 2e-2 + 2e-2 * po.float().abs()).all()) and \
-        bitwise and math.isfinite(err)
-    ok &= good
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    es = q.element_size()
-    b_ms, b_by = bound_ms(4 * q.numel() * es + 4 * B * H * S,
-                          4 * hd * B * H * S * S, PEAK_BF16_FLOPS)
-    rec = {"case": "seamless encoder", "B": B, "Sq": S, "Skv": S, "H": H,
-           "KVH": H, "hd": hd, "causal": False, "dtype": "bfloat16",
-           "max_abs_err": err, "tol": (2e-2, 2e-2),
-           "run_to_run_bitwise": bitwise, "ok": good,
-           "ms": timer(lambda: flash_fwd_cuda(q, k, v, causal=False,
-                                              scale=scale)),
-           "plain_ms": timer(lambda: flash_fwd_plain(
-               q, k, v, causal=False, scale=scale, bq=S, bk=S)),
-           "library_ms": timer(lambda: F.scaled_dot_product_attention(
-               qt, kt, vt)),
-           "bound_ms": b_ms, "bound_by": b_by}
+    rec, good = flash_case(torch, timer, gen, P13_FLASH, 1, P13_SRC,
+                           P13_SRC, False, torch.bfloat16, 16, 16, 64,
+                           grads=True, twice=True)
     report["p13_flash"] = rec
-    log(f"  flash_fwd bf16 seamless encoder (B={B}, S={S}, H={H}, hd={hd}, "
-        f"bidirectional): max_abs_err {err:.3e} (tol 2e-2 + 2e-2 rel), run "
-        f"to run bitwise {bitwise} {'ok' if good else 'FAIL'}  kernel "
-        f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
-        f"{rec['library_ms']:.4f} ms bound {b_ms:.5f} ms ({b_by})")
-    return ok
+    return ok and good
 
 
 def p14_sites(zcfg):
@@ -2258,7 +2237,7 @@ def check_p15_kernels(torch, report, timer, dispatcher):
     for name, B, H, KVH, hd, hd_v, dt in (
             (P15_FLASH["gemma"], TRAIN_B, g.num_heads, g.num_kv_heads,
              g.head_dim, g.head_dim, torch.float32),
-            ("gemma hd 256 bf16", TRAIN_B, g.num_heads, g.num_kv_heads,
+            (P15_FLASH["gemma bf16"], TRAIN_B, g.num_heads, g.num_kv_heads,
              g.head_dim, g.head_dim, torch.bfloat16),
             (P15_FLASH["mla"], 1, 128, 128,
              m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
@@ -5651,11 +5630,40 @@ def gemm_entry(rec, name, launches):
 P13_PAGED = {"gemma-2b": "13b", "qwen2-moe-a2.7b": "13a"}
 
 
+def bf16_flash_entries(rec, counts):
+    """Kernel-table entries of the bf16 forward and dk/dv of one
+    ``flash_case`` record: the tensor-core kernels.  The forward's
+    launches are 13e's (``counts``: seamless serves in bf16, the one path
+    that runs it); no path launches the bf16 dk/dv (training is f32), so
+    its count is 0."""
+    out = []
+    for name in ("flash_fwd", "flash_dkv"):
+        t = rec["timed"][name]
+        fwd = name == "flash_fwd"
+        out.append({
+            "name": f"{name}[{rec['case']} B={rec['B']} S={rec['Sq']} "
+                    f"H={rec['H']}/{rec['KVH']} hd={rec['hd']} "
+                    f"{'causal' if rec['causal'] else 'bidirectional'}"
+                    f"{'' if 'bf16' in rec['case'] else ' bf16'} on the "
+                    f"tensor cores; "
+                    f"{'launches of 13e' if fwd else 'no path launches it'}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": FLASH_TPU[name],
+            "launches": counts["flash_fwd"] if fwd else 0,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
+
+
 def p13_table(report):
     """Phase 13's kernel-table entries: the decode and prefill kernels at
     gemma-2b's and qwen2-moe's widths (launches of 13b / 13a), qwen2's
-    expert banks (13a), the bidirectional flash forward at seamless's
-    encoder shape (13e) and each path's two most launched GEMM shapes."""
+    expert banks (13a), the bf16 flash forward and dk/dv at seamless's
+    encoder shape (13e's forward launches), beside them phase 3's bf16
+    flash cases at phase 7's and gemma-2b's shapes, and each path's two
+    most launched GEMM shapes."""
     out = []
     p13, keys = report["p13"], P13_KEYS
     for rec in report["paged"]:
@@ -5678,16 +5686,10 @@ def p13_table(report):
                 rec, f"rsa_gemm_bank[13a {rec['site']} {rec['E']}x("
                      f"{rec['M']}x{rec['K']}x{rec['N']}) {rec['mode']}]",
                 keys["13a"].get(rec["key"], 0)))
-    f = report["p13_flash"]
-    out.append({
-        "name": f"flash_fwd[13e seamless encoder B={f['B']} S={f['Sq']} "
-                f"H={f['H']} hd={f['hd']} bidirectional bf16]",
-        "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
-        "replaces": FLASH_TPU["flash_fwd"],
-        "launches": p13["13e"]["counts"]["flash_fwd"],
-        "max_abs_err": f["max_abs_err"], "ms": f["ms"],
-        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-        "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+    for rec in [report["p13_flash"]] + [
+            r for r in report["flash"] + report["p15_flash"]
+            if r["case"] in (P3_BF16, P15_FLASH["gemma bf16"])]:
+        out += bf16_flash_entries(rec, p13["13e"]["counts"])
     for rec in report["p13_gemm"]:
         out.append(gemm_entry(
             rec, f"rsa_gemm[{rec['path']} {rec['M']}x{rec['K']}x{rec['N']} "

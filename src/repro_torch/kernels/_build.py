@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, bound through ``ctypes``.  Nothing builds at
 import: the first call of :func:`library` compiles every missing library,
 all ``nvcc`` processes started together, into ``build/repro_torch/`` at the
-root of the checkout, under names keyed by a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+root of the checkout, under names keyed by a hash of the sources (the
+shared ``csrc/*.cuh`` headers too) and the flags, so an edited source
+rebuilds and an unchanged one loads at once.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
@@ -55,7 +56,7 @@ SIGNATURES = {
     },
     "flash_attn": {
         "flash_fwd_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 8 +
-                            [_F, _I, _P],
+                            [_F, _I, _I, _P],
         "flash_dq_launch": [_I] + [_P] * 7 + [_I] * 8 + [_F, _I, _P],
         "flash_dkv_launch": [_I] + [_P] * 8 + [_I] * 8 +
                             [_F, _I, _I, _I, _I, _P, _P],
@@ -87,6 +88,8 @@ def nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LIB_FLAGS.get(name, [])).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -19,20 +19,69 @@
 // rounded to the operand type before ds @ k and ds^T @ q, and dv = p^T @ do
 // in f32; each query head's dk/dv is rounded to the output type before the
 // group sum, so a kv row past every query gets exact zeros.  Every kernel
-// takes exp as exp2 of log2(e)-scaled scores (the forward keeps m in log2
-// units and returns lse = m ln 2 + log l).  Only the summation order and
+// takes exp as exp2 of log2(e)-scaled scores (the f32 forward keeps m in
+// log2 units and returns lse = m ln 2 + log l; the bf16 one keeps the raw
+// scores' max and returns m scale + log l).  Only the summation order and
 // that rounding differ from the reference's.
 //
 // What bounds it on the H100: operations.  At training shapes (S = 1024,
 // hd = 64) every q row meets up to 1024 keys, about 4 hd flops a pair each
 // way, far above the bytes of q, k, v and o.  f32 runs full-f32 CUDA-core
-// FMAs (67 TFLOP/s peak), never TF32; bf16 operands are widened to f32 as
-// they land in shared memory and take the same path.
+// FMAs (67 TFLOP/s peak), never TF32.  bf16's forward and dk/dv run on the
+// tensor cores (989 TFLOP/s dense), in kernels of their own below
+// (flash_fwd_tc_kernel, flash_dkv_tc_kernel); bf16's dq is the f32 design
+// with its operands widened to f32 as they land in shared memory.
 //
-// The design of all three (kernels/flash_attn.py::_flash_plan picks the
-// forward's and dk/dv's ring stages, the rows of a dq or dk/dv CTA and the
-// heads a dk/dv CTA walks; a forward CTA holds 64 query rows, three CTAs
-// an SM at W = 64; dq's ring has 2 stages):
+// The bf16 forward and dk/dv (mma.sync.m16n8k16, bf16 in, f32 accumulate,
+// mma_bf16.cuh's register layout; wgmma is not used):
+//  * Tiles stay bf16 in shared memory (half the bytes of a widened tile):
+//    rows 2 W + 16 bytes apart, so ldmatrix reads no bank twice; 16-byte
+//    cp.async copies where a row is a multiple of 16 bytes on a 16-byte
+//    boundary, else 2-byte loads; columns past hd / hd_v are zero, so any
+//    hd (32/48, 100/50, 112, 160/96, 200) runs the W = 64, 128 or 256 tile.
+//  * The forward: a CTA of 64 or 128 query rows, 4 or 8 warps; a warp's
+//    16 rows compute S = Q K^T (K through ldmatrix), the online softmax in
+//    registers (exp2 of log2(e)-scaled scores, one FFMA and an exp2 a
+//    score, each thread's share of l summed over its quad at the end), and
+//    P, rounded to bf16 in registers, is the A operand of O += P V (V
+//    through ldmatrix.trans).  Q's fragments stay in registers up to W =
+//    128 and are re-read from shared memory each tile at 256, where the
+//    128 f32 accumulators a lane of a 256-wide O take those registers: a
+//    CTA owns all of o's columns, no slices.  A 2-stage ring: 46,080 /
+//    87,040 / 168,960 bytes with 64 rows (W = 64 / 128 / 256), 55,296 /
+//    104,448 / 202,752 with 128.  The plan takes 128 rows where the call
+//    has at least one such CTA an SM, else 64.  (Warps of 32 rows, two
+//    m-tiles sharing each K / V fragment, measured 2-3% faster in 128-row
+//    CTAs at llama's heads and slower in 64-row ones, for a second
+//    template: not kept.)
+//  * Branch-free inner loops: every k-tile and n-tile of the W-wide tiles
+//    runs (the zero columns past hd cost products, not branches), and a
+//    masked tile compares each column with its row's limit, computed once.
+//    launch/bench_flash.py measured both worth 10-25% (PERF.md §6).
+//  * dk/dv: a warp's 16 kv rows compute S^T = K q^T and dP^T = V do^T, so
+//    p^T and ds^T land in accumulator layout and become, in registers, the
+//    A operands of dv += p^T do and dk += ds^T q (do and q through
+//    ldmatrix.trans).  The reference's dv takes p in f32: p^T runs as hi +
+//    lo, two bf16 operands and two products, which keeps p within 2^-17 of
+//    itself; ds is rounded to bf16 as the reference rounds it.  Queries
+//    come in passes of 64 (W = 64) or 32, so the score tiles take 32 or 16
+//    registers beside the 64 / 128 of dk and dv.  At W = 256 dk + dv would
+//    need 256 f32 a lane: each CTA owns a 128-column slice (blockIdx.y),
+//    and each slice recomputes S^T and dP^T over the whole head dim, so two
+//    slices do 1.5x the products of one unsliced pass (3072 against 2048
+//    flops a (query, key) pair at hd 256).  The plan takes 64 kv rows and
+//    2 stages up to W = 128, 128 rows and 1 stage at 256 (8 warps an SM
+//    either way).
+//  * What bounds them: operations, as in f32, now at the tensor cores'
+//    rate.  What holds them below it is latency: mma.sync, the softmax
+//    and the ldmatrix loads of a tile follow one another in each warp,
+//    and 8-16 warps an SM hide only part of it (no warp specialisation,
+//    no wgmma).
+//
+// The design of the f32 kernels and of bf16's dq (kernels/flash_attn.py::
+// _flash_plan picks the forward's and dk/dv's ring stages, the rows of a
+// dq or dk/dv CTA and the heads a dk/dv CTA walks; a forward CTA holds 64
+// query rows, three CTAs an SM at W = 64; dq's ring has 2 stages):
 //  * Register-blocked products.  A warp owns 16 rows of a tile; lane (ly,
 //    lx) = (lane / 8, lane % 8) owns rows ly + 4i (i < 4) and columns lx +
 //    8j (j < 8) of a 64-column score tile, and columns 32c + 4lx .. +3 (c <
@@ -77,13 +126,15 @@
 //    each score over the chunks in order, so every slice and the forward
 //    see the same scores bit for bit.  The accumulators are the W = 128
 //    kernels' (o, dq: 64 registers; dk + dv: 128): ptxas gives the forward
-//    254 registers, dq 238 (f32) / 232 (bf16), dk/dv 255 (f32 spills 76
-//    bytes; bf16 none), one CTA an SM.  Up to W = 128 nothing of this
-//    runs: blockIdx.y is 0 and the tiles are the ones above.
+//    254 registers, dq 238 (f32) / 232 (bf16), dk/dv 255 (76 bytes of
+//    spills), one CTA an SM.  Up to W = 128 nothing of this runs:
+//    blockIdx.y is 0 and the tiles are the ones above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -118,7 +169,7 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const void* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(bytes)
                : "memory");
@@ -277,7 +328,7 @@ struct Args {
   float* ws;         // dk/dv: the f32 partials of a kv head's group, or null
   int B, Sq, Skv, H, KVH, hd, hdv, causal;
   float scale;
-  int rows, stages, heads, parts;  // rows: dq's query / dk/dv's kv rows a CTA
+  int rows, stages, heads, parts;  // rows: the query / kv rows of a CTA
   int slices;        // CW-column slices of the outputs (blockIdx.y); 1 up to W = 128
   int vec_q, vec_k, vec_v, vec_o;
 };
@@ -299,6 +350,19 @@ __host__ __device__ constexpr int dq_smem(int rows, int W) {
 __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
   return W > CW ? 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (CW + 4) + 2 * KT))
                 : 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (W + 4) + 2 * KT));
+}
+
+// bf16 tiles on the tensor cores stay bf16 in shared memory: a row of a
+// D-wide tile takes 2 D bytes and 16 of padding, so the 8 rows an ldmatrix
+// reads fall on distinct banks.  A forward CTA holds its `rows` query rows
+// and `stages` K/V tiles; a dk/dv CTA its `rows` K and V rows and `stages`
+// q / do tiles with their lse and delta.
+__host__ __device__ constexpr int tc_stride(int D) { return 2 * D + 16; }
+__host__ __device__ constexpr int fwd_tc_smem(int D, int rows, int stages) {
+  return tc_stride(D) * (rows + stages * 2 * KT);
+}
+__host__ __device__ constexpr int dkv_tc_smem(int rows, int D, int stages) {
+  return 2 * rows * tc_stride(D) + stages * (2 * KT * tc_stride(D) + 2 * KT * 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -1047,6 +1111,503 @@ flash_dkv_sum_kernel(const float* __restrict__ ws, T* __restrict__ dk, T* __rest
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores (mma_bf16.cuh's register layout: lane = 4 g + t
+// of warp w holds rows w * 16 + g and + 8 of its tile; of a score tile the
+// columns 8 j + 2 t and + 1 in s[j][0..1] (first row) and s[j][2..3])
+// ---------------------------------------------------------------------------
+
+// `n` bf16 rows of d <= D elements (row r at src + (row0 + r) * stride)
+// into dst (tc_stride(D) bytes a row); rows at or past `rows` and the
+// columns from d to D are zero.  vec: 16-byte cp.async pieces (d % 8 == 0
+// and 16-byte aligned rows), a thread's at one column, every nthr / (D /
+// 8) rows (nthr a multiple of D / 8); else 2-byte ordinary loads.
+template <int D>
+__device__ __forceinline__ void copy_tc(unsigned char* dst, const bf16* __restrict__ src,
+                                        long long stride, int row0, int n, int rows, int d,
+                                        bool vec, int tid, int nthr) {
+  constexpr int RS = tc_stride(D), CPR = D / 8;
+  if (vec) {
+    const int c = tid % CPR, step = nthr / CPR;
+    const bool col_ok = 8 * c < d;
+    const bf16* g = src + (long long)row0 * stride + 8 * c;
+    unsigned char* s = dst + 16 * c;
+    for (int r = tid / CPR; r < n; r += step) {
+      const bool live = col_ok && row0 + r < rows;
+      cp_async16(s + r * RS, live ? g + (long long)r * stride : src, live ? 16 : 0);
+    }
+  } else {
+    for (int idx = tid; idx < n * D; idx += nthr) {
+      const int r = idx / D, c = idx % D;
+      const bool live = row0 + r < rows && c < d;
+      reinterpret_cast<bf16*>(dst + r * RS)[c] =
+          live ? src[(long long)(row0 + r) * stride + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the A operand of k-tile kk of a product from an accumulator tile x (its
+// columns 16 kk .. 16 kk + 15 are the k of the product), each value
+// rounded to bf16
+template <int NJ>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&x)[NJ][4], int kk) {
+  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+// the same as a pair: hi = bf16(x), lo = bf16(x - hi), so hi + lo is x to
+// within 2^-17 of |x| (x - hi is exact in f32 and lo rounds it to 8 bits)
+__device__ __forceinline__ uint32_t split_bf16(float x0, float x1, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <int NJ>
+__device__ __forceinline__ void a_frag_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                             const float (&x)[NJ][4], int kk) {
+  hi[0] = split_bf16(x[2 * kk][0], x[2 * kk][1], lo[0]);
+  hi[1] = split_bf16(x[2 * kk][2], x[2 * kk][3], lo[1]);
+  hi[2] = split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], lo[2]);
+  hi[3] = split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], lo[3]);
+}
+
+// acc[j] += A B over the D columns: A's 16 rows from row-major tile `as`
+// (its warp's first row), B^T's 8 NJ rows from row-major tile `bs` (its
+// first row), both tc_stride(D) bytes a row.  Columns past hd are zero in
+// both, so the whole width is summed, with no branch.
+template <int D, int NJ>
+__device__ __forceinline__ void mma_nt(float (&acc)[NJ][4], const unsigned char* as,
+                                       const unsigned char* bs, int lane) {
+  constexpr int RS = tc_stride(D);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, as + (lane & 15) * RS + (16 * kk + (lane >> 4) * 8) * 2);
+#pragma unroll
+    for (int nn = 0; nn < NJ / 2; ++nn) {
+      uint32_t b[4];
+      ldsm_x4(b, bs + (16 * nn + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                     (16 * kk + ((lane >> 3) & 1) * 8) * 2);
+      mma_bf16(acc[2 * nn], a, b[0], b[1]);
+      mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[j] += A B, B the 16 rows k0 .. k0 + 15 of row-major tile `bs` (its
+// columns c0 .. c0 + 8 NO - 1), read through ldmatrix.trans.
+template <int D, int NO>
+__device__ __forceinline__ void mma_nn(float (&acc)[NO][4], const uint32_t (&a)[4],
+                                       const unsigned char* bs, int k0, int c0, int lane) {
+  constexpr int RS = tc_stride(D);
+#pragma unroll
+  for (int nn = 0; nn < NO / 2; ++nn) {
+    uint32_t b[4];
+    ldsm_x4_t(b, bs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                     (c0 + 16 * nn + (lane >> 4) * 8) * 2);
+    mma_bf16(acc[2 * nn], a, b[0], b[1]);
+    mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
+  }
+}
+
+// The bf16 forward.  One CTA of a.rows / 16 warps per (a.rows = 64 or 128
+// query rows, head, batch), CTA x as flash_fwd_kernel's (heaviest causal
+// tile first).  A warp owns 16 query rows: S = Q K^T on mma.sync (Q's
+// fragments kept in registers up to D = 128, re-read from shared memory
+// each tile at D = 256), the online softmax in registers (m the raw
+// scores' max, so the scale folds into the FFMA before each exp2; each
+// thread's share of l summed over its quad at the end), p rounded to bf16
+// in registers as the A operand of O += P V (V through ldmatrix.trans).
+// K/V tiles come through a cp.async ring of 1 or 2 stages; Q lands in the
+// first group.  The CTA owns every column of o: at D = 256 the 128 f32
+// accumulators a lane take the registers Q's fragments would, so no
+// column slices.
+// (At D = 64, 128 registers a thread keep 16 warps an SM in 128-row CTAs;
+// left free, ptxas took 142 and the CTAs an SM halved.)
+template <int D>
+__global__ void __launch_bounds__(256, D == 64 ? 2 : 1) flash_fwd_tc_kernel(const Args a) {
+  constexpr int RS = tc_stride(D), TILE = KT * RS, NJ = KT / 8, NV = D / 8;
+  constexpr bool QREG = D <= CW;
+  const int BQ = a.rows, nthr = blockDim.x;
+  const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
+  const int lin = blockIdx.x;
+  const int q0 = (nqt - 1 - lin / HB) * BQ;
+  const int h = lin % a.H, b = (lin / a.H) % a.B;
+  const int kvh = h / (a.H / a.KVH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int w0 = q0 + warp * 16;  // the warp's first row; the lane's: w0 + g8, + 8
+  extern __shared__ __align__(16) float sm[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(sm);  // BQ rows
+  unsigned char* ring = Qs + BQ * RS;                         // stages x (K, V)
+
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const bf16* qb = static_cast<const bf16*>(a.q) + (long long)b * a.Sq * qstride + (long long)h * a.hd;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const bf16* vb = static_cast<const bf16*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
+  const int n = cdiv_c(kv_end, KT), stages = a.stages;
+  auto load = [&](int t) {
+    unsigned char* st = ring + (t % stages) * 2 * TILE;
+    copy_tc<D>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_tc<D>(st + TILE, vb, vstride, t * KT, KT, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  };
+  copy_tc<D>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
+
+  float o[NV][4], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  // the columns each of the lane's rows attends: [0, lim)
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lim[r] = a.causal ? min(a.Skv, w0 + g8 + 8 * r + 1) : a.Skv;
+  const unsigned char* qw = Qs + warp * 16 * RS;  // the warp's rows of Q
+  // m is the raw scores' max: p = 2^(s sl2 - m sl2), one FFMA a score
+  const float sl2 = a.scale * LOG2E;
+  for (int t = 0; t < n; ++t) {
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const unsigned char* ks = ring + (t % stages) * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
+    const int j0 = t * KT;
+    if constexpr (QREG) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldsm_x4(qf[kk], qw + (lane & 15) * RS + (16 * kk + (lane >> 4) * 8) * 2);
+      }
+    }
+    // causal: nothing live for a warp whose rows all precede the tile
+    if (!(a.causal && j0 > w0 + 15)) {
+      float sc[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      // S = Q K^T
+      if constexpr (QREG) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+          for (int nn = 0; nn < NJ / 2; ++nn) {
+            uint32_t bk[4];
+            ldsm_x4(bk, ks + (16 * nn + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                            (16 * kk + ((lane >> 3) & 1) * 8) * 2);
+            mma_bf16(sc[2 * nn], qf[kk], bk[0], bk[1]);
+            mma_bf16(sc[2 * nn + 1], qf[kk], bk[2], bk[3]);
+          }
+      } else {
+        mma_nt<D, NJ>(sc, qw, ks, lane);
+      }
+      const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > w0);
+      float mx[2] = {NEG, NEG};
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (j0 + 8 * j + 2 * t4 + (x & 1) >= lim[x >> 1]) sc[j][x] = NEG;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) mx[x >> 1] = fmaxf(mx[x >> 1], sc[j][x]);
+      float ms[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        // a row with no live column yet subtracts 0: its masked p are 0
+        const float m_ref = m_new > 0.5f * NEG ? m_new : 0.f;
+        ms[r] = m_ref * sl2;
+        corr[r] = exp2_ftz((m[r] - m_ref) * sl2);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float p = exp2_ftz(fmaf(sc[j][x], sl2, -ms[x >> 1]));
+          sum[x >> 1] += p;
+          sc[j][x] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        o[j][0] *= corr[0];
+        o[j][1] *= corr[0];
+        o[j][2] *= corr[1];
+        o[j][3] *= corr[1];
+      }
+      // O += P V, p rounded to v's type (bf16) as it becomes the A operand
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        uint32_t pa[4];
+        a_frag<NJ>(pa, sc, kk);
+        mma_nn<D, NV>(o, pa, vs, 16 * kk, 0, lane);
+      }
+    }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
+  }
+
+  bf16* og = static_cast<bf16*>(a.o1);
+  const bool pairs = (a.hdv & 1) == 0;  // bf16 pairs of a row on 4-byte boundaries
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g8 + 8 * r;
+    const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (row >= a.Sq) continue;
+    bf16* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col >= a.hdv) break;
+      const float x0 = o[j][2 * r] / lc, x1 = o[j][2 * r + 1] / lc;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        orow[col] = __float2bfloat16(x0);
+        if (col + 1 < a.hdv) orow[col + 1] = __float2bfloat16(x1);
+      }
+    }
+    if (t4 == 0) a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[r] * a.scale + logf(lc);
+  }
+}
+
+// The bf16 dk/dv.  One CTA of a.rows / 16 warps per (a.rows kv rows,
+// `heads` query heads of a kv head's group, batch) and, at D = 256, 128-
+// column slice blockIdx.y of dk and dv; CTA x, the ranks' heads, the
+// partials and the group sum are flash_dkv_kernel's.  Its K and V rows
+// stay resident; q, do, lse and delta tiles of 64 queries come through a
+// cp.async ring of 1 or 2 stages.  A warp owns 16 kv rows and takes a
+// tile in passes of QN queries (64 at D = 64, else 32, which keeps the
+// score tiles to 16 registers beside the 128 of dk and dv): S^T = K q^T
+// and dP^T = V do^T on mma.sync land in accumulator layout, so p^T and
+// ds^T become the A operands of dv += p^T do and dk += ds^T q (do and q
+// through ldmatrix.trans) in registers.  dv takes p in f32 as the
+// reference does: p^T = hi + lo, two bf16 operands and two products.  ds
+// is rounded to bf16 for dk.  At D = 256 every slice recomputes S^T and
+// dP^T over the whole head dim.
+template <int D>
+__global__ void __launch_bounds__(256) flash_dkv_tc_kernel(const Args a) {
+  constexpr int RS = tc_stride(D), OW = D > CW ? CW : D, NO = OW / 8;
+  constexpr int QN = D == 64 ? KT : KT / 2, NJ = QN / 8;
+  const int BK = a.rows, nthr = blockDim.x;
+  const int cs = a.parts, G = a.H / a.KVH;
+  const int lin = blockIdx.x, per = a.B * a.KVH * cs;
+  const int j0 = lin / per * BK, rank = lin % cs;
+  const int kvh = (lin / cs) % a.KVH, b = (lin / (cs * a.KVH)) % a.B;
+  const int g0 = rank * a.heads, g1 = min(G, g0 + a.heads);
+  const int c0 = blockIdx.y * OW;
+  // this slice's columns of dk and of dv (0 past either's width)
+  const int dkw = max(0, min(OW, a.hd - c0)), dvw = max(0, min(OW, a.hdv - c0));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int kw = j0 + warp * 16;  // the warp's first kv row; the lane's: kw + g8, + 8
+  extern __shared__ __align__(16) float sm[];
+  unsigned char* Ks = reinterpret_cast<unsigned char*>(sm);  // BK rows
+  unsigned char* Vs = Ks + BK * RS;
+  unsigned char* ring = Vs + BK * RS;  // stages x (q, do: KT rows; lse, delta: KT f32)
+  const int slot = 2 * KT * RS + 2 * KT * 4;
+
+  const bf16* qg = static_cast<const bf16*>(a.q);
+  const bf16* og = static_cast<const bf16*>(a.dout);
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const bf16* vb = static_cast<const bf16*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  // causal: query tiles wholly above this kv tile see none of it
+  const int q_begin = a.causal ? j0 : 0;
+  const int nqt = q_begin < a.Sq ? cdiv_c(a.Sq - q_begin, KT) : 0;
+  const int n = (g1 - g0) * nqt, stages = a.stages;
+  auto load = [&](int t) {
+    unsigned char* st = ring + (t % stages) * slot;
+    const int h = kvh * G + g0 + t / nqt, i0 = q_begin + (t % nqt) * KT;
+    const long long srow = ((long long)b * a.H + h) * a.Sq;
+    copy_tc<D>(st, qg + (long long)b * a.Sq * qstride + (long long)h * a.hd, qstride, i0, KT,
+               a.Sq, a.hd, a.vec_q, tid, nthr);
+    copy_tc<D>(st + KT * RS, og + (long long)b * a.Sq * ostride + (long long)h * a.hdv, ostride,
+               i0, KT, a.Sq, a.hdv, a.vec_o, tid, nthr);
+    float* stats = reinterpret_cast<float*>(st + 2 * KT * RS);
+    copy_vec(stats, a.lse_in + srow, i0, a.Sq, tid, nthr);
+    copy_vec(stats + KT, a.delta + srow, i0, a.Sq, tid, nthr);
+  };
+  if (n > 0) {
+    copy_tc<D>(Ks, kb, kstride, j0, BK, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_tc<D>(Vs, vb, vstride, j0, BK, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  }
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
+
+  // where this CTA's part goes: the partial of its rank, or dk/dv (G = 1)
+  const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
+  const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
+  const long long kbase = (long long)b * a.Skv * kstride + (long long)kvh * a.hd + c0;
+  const long long vbase = (long long)b * a.Skv * vstride + (long long)kvh * a.hdv + c0;
+  float* wk = a.ws ? a.ws + rank * ndk + kbase : nullptr;
+  float* wv = a.ws ? a.ws + cs * ndk + rank * ndv + vbase : nullptr;
+  // adds bf16(acc) into (first: sets) the rank's f32 partial
+  auto add_part = [&](float* w, const float (&acc)[NO][4], long long stride, int d, bool first) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = kw + g8 + 8 * r;
+      if (row >= a.Skv) continue;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t4 + e;
+          if (col < d) {
+            float* x = w + row * stride + col;
+            *x = (first ? 0.f : *x) + round_to<bf16>(acc[j][2 * r + e]);
+          }
+        }
+    }
+  };
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dk[j][x] = dv[j][x] = 0.f;
+  const float sl2 = a.scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  const unsigned char* kwarp = Ks + warp * 16 * RS;
+  const unsigned char* vwarp = Vs + warp * 16 * RS;
+  // the queries each of the lane's kv rows meets: [qlo, qhi)
+  int qlo[2], qhi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = kw + g8 + 8 * r;
+    qlo[r] = a.causal ? kr : 0;
+    qhi[r] = kr < a.Skv ? a.Sq : 0;
+  }
+  for (int t = 0; t < n; ++t) {
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const unsigned char* Qt = ring + (t % stages) * slot;
+    const unsigned char* Ot = Qt + KT * RS;
+    const float* Lt = reinterpret_cast<const float*>(Ot + KT * RS);
+    const float* Dl = Lt + KT;
+    const int i0 = q_begin + (t % nqt) * KT;
+#pragma unroll 1
+    for (int qo = 0; qo < KT; qo += QN) {
+      const int iq = i0 + qo;
+      // nothing live for the warp: its kv rows past Skv, the pass's
+      // queries past Sq, or (causal) every kv row after the pass's last
+      // query
+      if (kw >= a.Skv || iq >= a.Sq || (a.causal && kw > iq + QN - 1)) continue;
+      const bool edge = (a.causal && kw + 15 > iq) || iq + QN > a.Sq || kw + 16 > a.Skv;
+      float x[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+      mma_nt<D, NJ>(x, kwarp, Qt + qo * RS, lane);  // S^T = K q^T
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int qc = qo + 8 * j + 2 * t4;  // the tile's query of x[j][0] and x[j][2]
+        const float2 ls = *reinterpret_cast<const float2*>(Lt + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_ftz(fmaf(x[j][e], sl2, -((e & 1) ? ls.y : ls.x) * LOG2E));
+          const int q = i0 + qc + (e & 1);
+          if (edge && !(q >= qlo[e >> 1] && q < qhi[e >> 1])) p = 0.f;
+          x[j][e] = p;
+        }
+      }
+      // dv += p^T do, p in f32 as hi + lo
+      if (dvw > 0) {
+#pragma unroll
+        for (int kk = 0; kk < QN / 16; ++kk) {
+          uint32_t hi[4], lo[4];
+          a_frag_split<NJ>(hi, lo, x, kk);
+          mma_nn<D, NO>(dv, hi, Ot, qo + 16 * kk, c0, lane);
+          mma_nn<D, NO>(dv, lo, Ot, qo + 16 * kk, c0, lane);
+        }
+      }
+      if (dkw > 0) {
+        float dp[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+        mma_nt<D, NJ>(dp, vwarp, Ot + qo * RS, lane);  // dP^T = V do^T
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(Dl + qo + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[j][e] = x[j][e] * (dp[j][e] - ((e & 1) ? dl.y : dl.x)) * a.scale;
+        }
+        // dk += ds^T q, ds rounded to bf16 as it becomes the A operand
+#pragma unroll
+        for (int kk = 0; kk < QN / 16; ++kk) {
+          uint32_t da[4];
+          a_frag<NJ>(da, x, kk);
+          mma_nn<D, NO>(dk, da, Qt, qo + 16 * kk, c0, lane);
+        }
+      }
+    }
+    if (g1 - g0 > 1 && t % nqt == nqt - 1) {  // a head done: into the partial
+      add_part(wk, dk, kstride, dkw, t < nqt);
+      add_part(wv, dv, vstride, dvw, t < nqt);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) dk[j][x] = dv[j][x] = 0.f;
+    }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
+  }
+  if (g1 - g0 > 1 && n > 0) return;  // the partial holds the rank's heads
+  if (wk) {
+    add_part(wk, dk, kstride, dkw, true);
+    add_part(wv, dv, vstride, dvw, true);
+    return;
+  }
+  bf16* dkg = static_cast<bf16*>(a.o1) + kbase;
+  bf16* dvg = static_cast<bf16*>(a.o2) + vbase;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kw + g8 + 8 * r;
+    if (row >= a.Skv) continue;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e;
+        if (col < dkw) dkg[row * kstride + col] = __float2bfloat16(dk[j][2 * r + e]);
+        if (col < dvw) dvg[row * vstride + col] = __float2bfloat16(dv[j][2 * r + e]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1072,6 +1633,17 @@ int launch_fwd(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// the group sum of the dk/dv partials, where there are any (G > 1)
+template <typename T>
+int sum_parts(const Args& a, cudaStream_t st) {
+  if (!a.ws) return (int)cudaSuccess;
+  const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
+  const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
+  flash_dkv_sum_kernel<T><<<(unsigned)((ndk + ndv + 255) / 256), 256, 0, st>>>(
+      a.ws, static_cast<T*>(a.o1), static_cast<T*>(a.o2), ndk, ndv, a.parts);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int W>
 int launch_dkv(const Args& a, cudaStream_t st) {
   const int smem = dkv_smem(a.rows, W, a.stages);
@@ -1085,12 +1657,32 @@ int launch_dkv(const Args& a, cudaStream_t st) {
     if ((e = set_smem(flash_dkv_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
     flash_dkv_kernel<T, W / 32><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
   }
-  if ((e = cudaGetLastError()) != cudaSuccess || !a.ws) return (int)e;
-  const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
-  const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
-  flash_dkv_sum_kernel<T><<<(unsigned)((ndk + ndv + 255) / 256), 256, 0, st>>>(
-      a.ws, static_cast<T*>(a.o1), static_cast<T*>(a.o2), ndk, ndv, a.parts);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return sum_parts<T>(a, st);
+}
+
+// the bf16 kernels on the tensor cores, at D = W
+template <int W>
+int launch_fwd_tc(const Args& a, cudaStream_t st) {
+  const int smem = fwd_tc_smem(W, a.rows, a.stages);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = set_smem(flash_fwd_tc_kernel<W>, smem)) != cudaSuccess) return (int)e;
+  const long long grid = (long long)cdiv(a.Sq, a.rows) * a.H * a.B;
+  flash_fwd_tc_kernel<W><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int W>
+int launch_dkv_tc(const Args& a, cudaStream_t st) {
+  const int smem = dkv_tc_smem(a.rows, W, a.stages);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = set_smem(flash_dkv_tc_kernel<W>, smem)) != cudaSuccess) return (int)e;
+  const long long grid = (long long)cdiv(a.Skv, a.rows) * a.B * a.KVH * a.parts;
+  flash_dkv_tc_kernel<W><<<dim3((unsigned)grid, a.slices), 2 * a.rows, smem, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return sum_parts<bf16>(a, st);
 }
 
 template <typename T, int W>
@@ -1120,15 +1712,19 @@ int width(int hd, int hdv) {
   return m <= 64 ? 64 : m <= CW ? CW : WIDE;
 }
 
-// one launch of L<T, W> at the call's width and dtype
-#define FLASH_DISPATCH(L, dtype, a, st)                                                   \
+template <int W>
+int launch_dq_bf16(const Args& a, cudaStream_t st) {
+  return launch_dq<bf16, W>(a, st);
+}
+
+// one launch at the call's width: F32<float, W> (dtype 0) or BF16<W>
+#define FLASH_DISPATCH(F32, BF16, dtype, a, st)                                           \
   do {                                                                                     \
     const int W_ = width((a).hd, (a).hdv);                                                \
     if ((dtype) == 0)                                                                      \
-      return W_ == 64 ? L<float, 64>(a, st) : W_ == CW ? L<float, CW>(a, st)              \
-                                                       : L<float, WIDE>(a, st);           \
-    return W_ == 64 ? L<bf16, 64>(a, st) : W_ == CW ? L<bf16, CW>(a, st)                  \
-                                                    : L<bf16, WIDE>(a, st);               \
+      return W_ == 64 ? F32<float, 64>(a, st) : W_ == CW ? F32<float, CW>(a, st)          \
+                                                         : F32<float, WIDE>(a, st);       \
+    return W_ == 64 ? BF16<64>(a, st) : W_ == CW ? BF16<CW>(a, st) : BF16<WIDE>(a, st);   \
   } while (0)
 
 // a launch's Args from its arguments; false where the plan is not one the
@@ -1141,11 +1737,13 @@ bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int h
   a.causal = causal, a.scale = scale;
   a.rows = rows, a.stages = stages;
   a.slices = width(hd, hdv) > CW ? cdiv(hd > hdv ? hd : hdv, CW) : 1;
-  const bool f32 = dtype == 0;
-  a.vec_q = f32 && hd % 4 == 0 && aligned16(a.q);
-  a.vec_k = f32 && hd % 4 == 0 && aligned16(a.k);
-  a.vec_v = f32 && hdv % 4 == 0 && aligned16(a.v);
-  a.vec_o = f32 && hdv % 4 == 0 && aligned16(a.dout);
+  // rows of 16-byte multiples on 16-byte boundaries (the bf16 dq kernel
+  // takes ordinary loads whatever these say)
+  const int es = dtype == 0 ? 4 : 2;
+  a.vec_q = hd * es % 16 == 0 && aligned16(a.q);
+  a.vec_k = hd * es % 16 == 0 && aligned16(a.k);
+  a.vec_v = hdv * es % 16 == 0 && aligned16(a.v);
+  a.vec_o = hdv * es % 16 == 0 && aligned16(a.dout);
   return true;
 }
 
@@ -1155,14 +1753,18 @@ bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int h
 // alike; lse and delta are f32).  The plan's arguments (stages, rows,
 // heads, parts, ws) are kernels/flash_attn.py::_flash_plan's.  Each
 // returns the cudaError_t of its launch (0 on success).
+// rows: the query rows of a forward CTA, 16 a warp; f32 takes 64, bf16
+// 64 or 128.
 extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* o,
                                 float* lse, int B, int Sq, int Skv, int H, int KVH, int hd,
-                                int hdv, int causal, float scale, int stages, void* stream) {
+                                int hdv, int causal, float scale, int stages, int rows,
+                                void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.o1 = o, a.lse_out = lse;
-  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, 64, stages))
+  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, stages) ||
+      (dtype == 0 && rows != 64))
     return (int)cudaErrorInvalidValue;
-  FLASH_DISPATCH(launch_fwd, dtype, a, static_cast<cudaStream_t>(stream));
+  FLASH_DISPATCH(launch_fwd, launch_fwd_tc, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
@@ -1173,7 +1775,7 @@ extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const vo
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta, a.o1 = dq;
   if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, DQ_STAGES))
     return (int)cudaErrorInvalidValue;
-  FLASH_DISPATCH(launch_dq, dtype, a, static_cast<cudaStream_t>(stream));
+  FLASH_DISPATCH(launch_dq, launch_dq_bf16, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // ws: `parts` f32 partials of dk then of dv (parts x B x Skv x KVH x (hd
@@ -1190,5 +1792,5 @@ extern "C" int flash_dkv_launch(int dtype, const void* q, const void* k, const v
       heads < 1 || parts != cdiv(H / KVH, heads) || (H / KVH > 1) != (ws != nullptr))
     return (int)cudaErrorInvalidValue;
   a.heads = heads, a.parts = parts;
-  FLASH_DISPATCH(launch_dkv, dtype, a, static_cast<cudaStream_t>(stream));
+  FLASH_DISPATCH(launch_dkv, launch_dkv_tc, dtype, a, static_cast<cudaStream_t>(stream));
 }

@@ -11,11 +11,14 @@ and counts nothing).  The kernels take any Sq/Skv and mask the ragged
 edges themselves.
 
 :func:`_flash_plan` decides how the three kernels run a call (the
-forward's and dk/dv's ring stages, the query rows of a dq CTA, the kv
-rows of a dk/dv CTA and the query heads it walks, so the partials a kv
-head's group is summed from); each kernel issues its heaviest causal
+forward's and dk/dv's ring stages, the query rows of a forward or dq CTA,
+the kv rows of a dk/dv CTA and the query heads it walks, so the partials
+a kv head's group is summed from); each kernel issues its heaviest causal
 tiles first, in the order :func:`_fwd_ctas` (forward and dq) and
-:func:`_dkv_ctas` spell out.
+:func:`_dkv_ctas` spell out.  bf16 runs the forward and dk/dv on kernels
+of their own, on the tensor cores (bf16 tiles in shared memory, p and ds
+as register operands of ``mma.sync``), under the plan's bf16 rules; bf16
+dq runs the f32 design with its operands widened.
 
 ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` are the
 plain PyTorch versions, used for CPU tensors and as what the kernels are
@@ -71,6 +74,15 @@ def _pairs(n_q: int, n_k: int, bq: int, bk: int, causal: bool,
     return [(i, j, t == 0 or ps[t][key] != ps[t - 1][key],
              t == n - 1 or ps[t][key] != ps[t + 1][key])
             for t, (i, j) in enumerate(ps)]
+
+
+def _split_bf16(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) in bf16 with hi = bf16(p) and lo = bf16(p - hi): the pair
+    the tensor-core dk/dv multiplies do by (two products), so that dv
+    takes the f32 p as the reference's does.  p - hi is exact in f32 and
+    lo rounds it to 8 bits, so hi + lo is p to within 2^-17 of |p|."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
 
 
 def _heads_major(x: torch.Tensor, rows: int, G: int = 1) -> torch.Tensor:
@@ -269,6 +281,10 @@ class FlashPlan(NamedTuple):
     slices: int = 1  # 128-column slices of o / dq / dk / dv, each its
     #                  own CTAs (blockIdx.y): ceil(max(hd, hd_v) / 128) past
     #                  W = 128, as the source derives them from hd and hd_v
+    #                  (the bf16 forward holds all of o's columns: it runs
+    #                  one slice whatever this says)
+    fwd_rows: int = 64  # query rows of a forward CTA, 16 a warp (bf16: 64
+    #                     or 128)
 
 
 _TILE = 64                # rows of a forward CTA and of each ring tile
@@ -316,9 +332,32 @@ def _dkv_smem(rows: int, W: int, stages: int) -> int:
                 stages * (2 * _TILE * (wq + 4) + 2 * _TILE))
 
 
+def _tc_stride(W: int) -> int:
+    """Bytes of a bf16 row of a W-wide tile in the tensor-core kernels'
+    shared memory: 2 W and 16 of padding."""
+    return 2 * W + 16
+
+
+def _fwd_tc_smem(W: int, stages: int, rows: int = _TILE) -> int:
+    """Shared bytes of a bf16 forward CTA: its ``rows`` q rows and K/V
+    tiles a stage, bf16 — ``fwd_tc_smem`` of the source."""
+    return _tc_stride(W) * (rows + stages * 2 * _TILE)
+
+
+def _dkv_tc_smem(rows: int, W: int, stages: int) -> int:
+    """Shared bytes of a bf16 dk/dv CTA of ``rows`` kv rows: K and V, and
+    q, do (bf16), lse and delta (f32) a stage — ``dkv_tc_smem`` of the
+    source."""
+    return 2 * rows * _tc_stride(W) + \
+        stages * (2 * _TILE * _tc_stride(W) + 2 * _TILE * 4)
+
+
 @functools.lru_cache(maxsize=1024)
 def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
+                dtype: torch.dtype = torch.float32,
+                fwd_units: Optional[int] = None, num_sms: int = 132,
                 fwd_stages: Optional[int] = None,
+                fwd_rows: Optional[int] = None,
                 dkv_rows: Optional[int] = None,
                 dkv_stages: Optional[int] = None,
                 heads: Optional[int] = None,
@@ -339,14 +378,40 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     8) query heads, so a kv head's group is summed from at most 8
     partials.  ``fwd_stages``, ``dq_rows``, ``dkv_rows``, ``dkv_stages``
     (rows 64 or 128, stages 1 or 2) and ``heads`` override the rules
-    (``launch/bench_flash.py`` times the choices).  Raises where the
-    kernels do not take the plan."""
+    (``launch/bench_flash.py`` times the choices).
+
+    bf16 (``dtype``) runs the forward and dk/dv on the tensor-core
+    kernels, whose tiles stay bf16 (``_fwd_tc_smem``, ``_dkv_tc_smem``),
+    under rules of their own (``launch/bench_flash.py --dtype bf16
+    --variant`` timed them; PERF.md §6): a forward CTA holds 128 query
+    rows (8 warps) with 2 ring stages, unless the call's ``fwd_units``
+    (its (query row, head, batch) count, B H Sq) give fewer 128-row CTAs
+    than ``num_sms``: then 64 rows, twice the CTAs (seamless's encoder, 16
+    heads of 128 rows: 32 CTAs).  A dk/dv CTA holds 64 kv rows with 2
+    stages up to W = 128 and 128 rows with 1 stage at 256.  ``fwd_rows``
+    (64 or 128) overrides the forward's rows.  dq keeps the f32 tiles of
+    its CUDA-core kernel.  Raises where the kernels do not take the
+    plan."""
     if max(hd, hd_v) > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels hold hd, hd_v <= "
                          f"{MAX_HEAD_DIM}, got {hd} / {hd_v}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"no flash kernels for {dtype}")
     W, G = _width(hd, hd_v), H // KVH
-    dkv_rows = dkv_rows or (128 if _dkv_smem(128, W, 2) <= _MAX_SMEM
-                            else 64)
+    tc = dtype == torch.bfloat16
+    if tc:
+        few = fwd_units is not None and fwd_units < num_sms * 128
+        fwd_rows = fwd_rows or (64 if few else 128)
+        if fwd_rows not in (64, 128):
+            raise ValueError(f"a bf16 forward CTA holds 64 or 128 query "
+                             f"rows, not {fwd_rows}")
+        dkv_rows = dkv_rows or (64 if W <= _SLICE else 128)
+    else:
+        if (fwd_rows or 64) != 64:
+            raise ValueError("an f32 forward CTA holds 64 query rows")
+        fwd_rows = 64
+        dkv_rows = dkv_rows or (128 if _dkv_smem(128, W, 2) <= _MAX_SMEM
+                                else 64)
     if dkv_rows not in (64, 128):
         raise ValueError(f"a dk/dv CTA holds 64 or 128 kv rows, not "
                          f"{dkv_rows}")
@@ -365,26 +430,34 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
             raise ValueError(f"{stages} ring stages do not fit at width {W}")
         return stages
 
-    if fwd_stages is None:       # the most CTAs an SM, then the most stages
-        fwd_stages = max((1, 2), key=lambda n: (min(
-            _FWD_CTAS[W], _SM_SMEM // (_fwd_smem(W, n) + 1024)), n))
+    if tc:
+        fwd_smem = functools.partial(_fwd_tc_smem, W, rows=fwd_rows)
+        dkv_smem = functools.partial(_dkv_tc_smem, dkv_rows, W)
+    else:
+        fwd_smem = functools.partial(_fwd_smem, W)
+        dkv_smem = functools.partial(_dkv_smem, dkv_rows, W)
+        if fwd_stages is None:   # the most CTAs an SM, then the most stages
+            fwd_stages = max((1, 2), key=lambda n: (min(
+                _FWD_CTAS[W], _SM_SMEM // (_fwd_smem(W, n) + 1024)), n))
 
     heads = heads or -(-G // _MAX_PARTS)
     if not 1 <= heads <= G:
         raise ValueError(f"a dk/dv CTA walks 1 to G = {G} heads, not {heads}")
     slices = -(-max(hd, hd_v) // _SLICE) if W > _SLICE else 1
-    return FlashPlan(ring(lambda n: _fwd_smem(W, n), fwd_stages), dkv_rows,
-                     ring(lambda n: _dkv_smem(dkv_rows, W, n), dkv_stages),
-                     heads, -(-G // heads), dq_rows, slices)
+    return FlashPlan(ring(fwd_smem, fwd_stages), dkv_rows,
+                     ring(dkv_smem, dkv_stages), heads, -(-G // heads),
+                     dq_rows, slices, fwd_rows)
 
 
 def _fwd_ctas(B: int, Sq: int, H: int,
               rows: int = _TILE) -> List[Tuple[int, int, int]]:
-    """(query tile, head, batch) of each forward CTA (64 query rows) or dq
-    CTA (the plan's ``rows``) in launch order, as both kernels decode
+    """(query tile, head, batch) of each forward CTA (64 query rows; in
+    bf16 the plan's ``fwd_rows``) or dq CTA (the plan's ``dq_rows``),
+    ``rows`` a tile, in launch order, as both kernels decode
     ``blockIdx.x``: the last (causally heaviest) tile of every head first,
     a kv group's heads side by side.  Past W = 128 the grid repeats this
-    row for each of the plan's ``slices`` (``blockIdx.y``)."""
+    row for each of the plan's ``slices`` (``blockIdx.y``; not the bf16
+    forward's, whose CTAs own all of o's columns)."""
     nqt, HB = -(-Sq // rows), H * B
     return [(nqt - 1 - lin // HB, lin % H, (lin // H) % B)
             for lin in range(nqt * HB)]
@@ -405,6 +478,17 @@ def _dkv_ctas(plan: FlashPlan, B: int, Skv: int, KVH: int,
     return out
 
 
+def _call_plan(q, k, v) -> FlashPlan:
+    """The plan the three wrappers run a call under unless given one:
+    :func:`_flash_plan`'s rules for q's type, the call's (query row,
+    head, batch) count and the card's SMs."""
+    B, Sq, H, hd = q.shape
+    return _flash_plan(
+        H, k.shape[2], hd, v.shape[-1], dtype=q.dtype, fwd_units=B * H * Sq,
+        num_sms=torch.cuda.get_device_properties(q.device)
+        .multi_processor_count)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -415,7 +499,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float,
     plan unless ``plan`` gives another (to time it)."""
     from repro_torch.kernels import _build
     B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v)
-    plan = plan or _flash_plan(H, KVH, hd, hd_v)
+    plan = plan or _call_plan(q, k, v)
     o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B * Sq * H == 0:
@@ -425,7 +509,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float,
     err = _build.library("flash_attn").flash_fwd_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, KVH, hd, hd_v,
-        int(causal), scale, plan.fwd_stages, _stream(q))
+        int(causal), scale, plan.fwd_stages, plan.fwd_rows, _stream(q))
     _build.check(err, "flash attention forward")
     flash_fwd_cuda.launches += 1
     return o, lse
@@ -440,7 +524,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     :func:`_flash_plan`'s plan unless ``plan`` gives another."""
     from repro_torch.kernels import _build
     B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v, do, lse, delta)
-    plan = plan or _flash_plan(H, KVH, hd, hd_v)
+    plan = plan or _call_plan(q, k, v)
     if do.shape != (B, Sq, H, hd_v) or do.dtype != q.dtype:
         raise ValueError(f"do must be {(B, Sq, H, hd_v)} {q.dtype}, got "
                          f"{tuple(do.shape)} {do.dtype}")
@@ -472,7 +556,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     call, one count."""
     from repro_torch.kernels import _build
     B, Sq, Skv, H, KVH, hd, hd_v = _check(q, k, v, do, lse, delta)
-    plan = plan or _flash_plan(H, KVH, hd, hd_v)
+    plan = plan or _call_plan(q, k, v)
     if do.shape != (B, Sq, H, hd_v) or do.dtype != q.dtype:
         raise ValueError(f"do must be {(B, Sq, H, hd_v)} {q.dtype}, got "
                          f"{tuple(do.shape)} {do.dtype}")

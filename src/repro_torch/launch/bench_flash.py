@@ -1,27 +1,33 @@
 """Time the flash-attention kernels on the card against SDPA and their
 bounds, and the plan's alternatives against the plan.
 
-    PYTHONPATH=src python -m repro_torch.launch.bench_flash [--variant] [--out FILE]
+    PYTHONPATH=src python -m repro_torch.launch.bench_flash [--dtype bf16] [--variant] [--out FILE]
 
-For phase 7's attention (B = 2, S = 1024, 32 / 8 heads, hd 64, causal,
-f32) and causal S = 512, 2048 and 4096 (B = 1 at 4096), the forward, dq
-and dk/dv kernels run under ``_flash_plan``'s plan, each beside its bound
-(the larger of its bytes over 3.35 TB/s and its flops over the 67 TFLOP/s
-f32 CUDA-core peak, the causal pairs counted) and beside
-``F.scaled_dot_product_attention`` in f32 with ``enable_gqa=True`` (its
-forward; its backward through autograd computes dq, dk and dv at once), a
-yardstick the port never calls.  With ``--variant`` the forward also runs
-with 1 and 2 ring stages (three and two CTAs an SM), dq with 64 and 128
-query rows a CTA (its ring has 2 stages), and dk/dv with 64 and 128 kv
-rows a CTA, 1 and 2 stages, one or two heads a CTA, and every head of a
-group in one CTA;
-each variant is held to the plan's result, bitwise (two heads a dk/dv
-CTA: at the gradients' 3e-5 + 1e-3 relative, as the pairs are summed
-first).  Each time is the median device time of 15
-runs between CUDA events, L2 flushed before each.  The build's registers
-and spills and each flash kernel's FFMA and LDS counts in its SASS
-(``cuobjdump -sass``) are printed first.  One line per case; the records
-go to ``--out`` as JSON.  Needs a CUDA card.
+For phase 7's attention (B = 2, S = 1024, 32 / 8 heads, hd 64, causal)
+and causal S = 512, 2048 and 4096 (B = 1 at 4096), the forward, dq and
+dk/dv kernels run under ``_flash_plan``'s plan, each beside its bound
+(the larger of its bytes over 3.35 TB/s and its flops over the peak of
+its type: 67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s bf16 on the
+tensor cores; the causal pairs counted) and beside
+``F.scaled_dot_product_attention`` in the same type with
+``enable_gqa=True`` (its forward; its backward through autograd computes
+dq, dk and dv at once), a yardstick the port never calls.  ``--dtype
+bf16`` (the tensor-core forward and dk/dv, the CUDA-core dq) adds
+gemma-2b's training attention (B = 2, S = 1024, 8 / 1 heads, hd 256) and
+seamless-m4t-medium's encoder (B = 1, S = 128, 16 heads x 64,
+bidirectional).  With ``--variant`` the forward also runs with 1 and 2
+ring stages (in bf16 also with 64 and 128 query rows a CTA), dq with 64
+and 128 query rows a CTA (its ring has 2 stages), and
+dk/dv with 64 and 128 kv rows a CTA, 1 and 2 stages, one or
+two heads a CTA, and every head of a group in one CTA, each where it
+fits; each variant is held to the plan's result, bitwise (two heads a
+dk/dv CTA: at the gradients' 3e-5 + 1e-3 relative in f32, 2e-2 in bf16,
+as the pairs are summed first).  Each time is the median device time of
+15 runs between CUDA events, L2 flushed before each.  The build's
+registers and spills and each flash kernel's FFMA, LDS and HMMA counts in
+the mainloops of its SASS (``cuobjdump -sass``) are printed first.
+One line per case; the records go to ``--out`` as JSON.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -37,30 +43,40 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import (
-    _dkv_smem, _dq_smem, _flash_plan, _MAX_SMEM, _width, flash_dkv_cuda,
-    flash_dq_cuda, flash_fwd_cuda)
+    _call_plan, _dkv_smem, _dkv_tc_smem, _dq_smem, _flash_plan, _MAX_SMEM,
+    _width, flash_dkv_cuda, flash_dq_cuda, flash_fwd_cuda)
 from repro_torch.launch.bench_gemm import timer
 
-H, KVH, HD = 32, 8, 64          # llama3.2-1b's attention
-PEAK_F32, HBM = 67e12, 3.35e12
-# name, B, S (causal)
-CASES = [("phase 7", 2, 1024), ("S 512", 2, 512), ("S 2048", 2, 2048),
-         ("S 4096", 1, 4096)]
+PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HBM = 3.35e12
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# name, B, S, H, KVH, hd, causal: llama3.2-1b's attention (32 / 8 heads x
+# 64) at four lengths; in bf16 also gemma-2b's (8 / 1 x 256) and
+# seamless-m4t-medium's encoder (16 x 64, bidirectional)
+CASES = [("phase 7", 2, 1024, 32, 8, 64, True),
+         ("S 512", 2, 512, 32, 8, 64, True),
+         ("S 2048", 2, 2048, 32, 8, 64, True),
+         ("S 4096", 1, 4096, 32, 8, 64, True)]
+BF16_CASES = [("gemma-2b", 2, 1024, 8, 1, 256, True),
+              ("seamless", 1, 128, 16, 16, 64, False)]
 
 
 def _short(fn: str) -> str:
     """A mangled flash kernel's name and template arguments, short."""
-    m = re.search(r"(flash_(?:fwd|dq|dkv_sum|dkv)(?:_wide)?_kernel)", fn)
-    args = ["bf16" if "bfloat16" in fn else "f32"]
+    m = re.search(r"(flash_(?:fwd|dq|dkv_sum|dkv)(?:_wide|_tc)?_kernel)", fn)
+    args = ["bf16" if "bfloat16" in fn or "_tc_" in fn else "f32"]
     args += re.findall(r"Li(\d+)E", fn)
     args += ["true" if b == "1" else "false" for b in re.findall(r"Lb(\d)E", fn)]
     return f"{m.group(1) if m else fn}<{', '.join(args)}>"
 
 
 def mainloops(sass: str) -> dict:
-    """{function: [(FFMA, LDS) of each innermost loop, most FFMA first]}
-    of a ``cuobjdump -sass`` listing: a loop runs from a backward branch's
-    target to the branch, innermost when it holds no other loop."""
+    """{function: [(FFMA, LDS, HMMA) of each loop, most HMMA, then most
+    FFMA, first]} of a ``cuobjdump -sass`` listing: a loop runs from a backward
+    branch's target to the branch, and counts its own instructions, not
+    those of the loops inside it (the products' mainloops: an f32
+    kernel's innermost FMA loop, or a tensor-core kernel's tile loop,
+    whose copy loops are nested in it)."""
     funcs, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -78,20 +94,24 @@ def mainloops(sass: str) -> dict:
             m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
             if m and int(m.group(1), 16) < addr:
                 loops.append((int(m.group(1), 16), addr))
-        inner = [(a, b) for a, b in loops
-                 if not any(a <= c and d <= b and (c, d) != (a, b)
-                            for c, d in loops)]
+
+        def own(a, b):
+            inner = [(c, d) for c, d in loops
+                     if a <= c and d <= b and (c, d) != (a, b)]
+            return [t for x, t in ins if a <= x <= b and
+                    not any(c <= x <= d for c, d in inner)]
         counts = [tuple(sum(bool(re.match(rf"(@\S+ )?{op}\b", t))
-                            for x, t in ins if a <= x <= b)
-                        for op in ("FFMA", "LDS")) for a, b in inner]
-        out[fn] = sorted(counts, reverse=True)
+                            for t in own(a, b))
+                        for op in ("FFMA", "LDS", "HMMA")) for a, b in loops]
+        out[fn] = sorted(counts, key=lambda c: (c[2], c[0]), reverse=True)
     return out
 
 
 def build_report(paths) -> list:
-    """ptxas's registers and spills of each flash kernel, and the FFMA and
-    LDS instructions of the three innermost loops of each (the products'
-    mainloops) in the library's SASS."""
+    """ptxas's registers and spills of each flash kernel, and the FFMA, LDS
+    and HMMA (tensor-core) instructions of the three loops of each with
+    the most HMMA, then FFMA, of their own (the products' mainloops) in
+    the library's SASS."""
     lines = []
     log = paths["flash_attn"].with_suffix(".log")
     fn = None
@@ -108,49 +128,55 @@ def build_report(paths) -> list:
                               capture_output=True, text=True).stdout
         for fn, loops in mainloops(sass).items():
             if "flash" in fn and loops:
-                lines.append(f"{_short(fn)}: SASS innermost loops (FFMA, LDS) "
-                             + ", ".join(f"({f}, {n})" for f, n in loops[:3]))
+                lines.append(f"{_short(fn)}: SASS mainloops (FFMA, LDS, "
+                             "HMMA) " + ", ".join(
+                                 f"({f}, {n}, {m})" for f, n, m in loops[:3]))
     return lines
 
 
-def inputs(B, S, seed=0):
+def inputs(B, S, H, KVH, HD, dtype, seed=0):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + S)
     q, do = (torch.randn((B, S, H, HD), generator=gen, device="cuda")
-             for _ in range(2))
+             .to(dtype) for _ in range(2))
     k, v = (torch.randn((B, S, KVH, HD), generator=gen, device="cuda")
-            for _ in range(2))
+            .to(dtype) for _ in range(2))
     return q, k, v, do
 
 
-def bounds(B, S):
+def bounds(B, S, H, KVH, HD, causal, dtype):
     """(fwd, dq, dkv) bound ms: chip_smoke.py's byte and flop counts."""
-    pairs = B * H * S * (S + 1) // 2
-    qb, kb, st = B * S * H * HD * 4, B * S * KVH * HD * 4, 4 * B * H * S
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    es = torch.finfo(dtype).bits // 8
+    qb, kb, st = B * S * H * HD * es, B * S * KVH * HD * es, 4 * B * H * S
 
     def b(nbytes, flops):
-        return max(nbytes / HBM, flops / PEAK_F32) * 1e3
+        return max(nbytes / HBM, flops / PEAK[dtype]) * 1e3
     return (b(2 * qb + 2 * kb + st, 4 * HD * pairs),
             b(3 * qb + 2 * kb + 2 * st, 6 * HD * pairs),
             b(2 * qb + 4 * kb + 2 * st, 8 * HD * pairs))
 
 
-def run_case(name, B, S, variants):
+def run_case(name, B, S, H, KVH, HD, causal, dtype, variants):
     import torch.nn.functional as F
-    q, k, v, do = inputs(B, S)
+    q, k, v, do = inputs(B, S, H, KVH, HD, dtype)
     scale = HD ** -0.5
-    kw = dict(causal=True, scale=scale)
-    plan = _flash_plan(H, KVH, HD, HD)
+    kw = dict(causal=causal, scale=scale)
+    plan = _call_plan(q, k, v)
+    # a variant is the plan's rules under the same call, one field forced
+    rule = dict(dtype=dtype, fwd_units=B * H * S, num_sms=torch.cuda
+                .get_device_properties(0).multi_processor_count)
     o, lse = flash_fwd_cuda(q, k, v, **kw)
-    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     st = (q, k, v, do, lse, delta)
-    bf, bq, bd = bounds(B, S)
+    bf, bq, bd = bounds(B, S, H, KVH, HD, causal, dtype)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                          enable_gqa=True)
     gout = do.transpose(1, 2)
     rec = {"name": name, "B": B, "S": S, "H": H, "KVH": KVH, "hd": HD,
+           "causal": causal, "dtype": str(dtype).split(".")[-1],
            "plan": plan._asdict(),
            "fwd": {"ms": timer(lambda: flash_fwd_cuda(q, k, v, **kw)),
                    "bound_ms": bf},
@@ -159,17 +185,25 @@ def run_case(name, B, S, variants):
            "dkv": {"ms": timer(lambda: flash_dkv_cuda(*st, **kw)),
                    "bound_ms": bd},
            "sdpa_fwd_ms": timer(lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True, enable_gqa=True)),
+               qt, kt, vt, is_causal=causal, enable_gqa=True)),
            "sdpa_bwd_ms": timer(lambda: torch.autograd.grad(
                out, (qt, kt, vt), gout, retain_graph=True)),
            "variants": {}}
     if variants:
         W, G = _width(HD, HD), H // KVH
+        tc = dtype == torch.bfloat16
+        dkv_smem = _dkv_tc_smem if tc else _dkv_smem
         want = (o, lse)
-        for n in (1, 2):
-            p = _flash_plan(H, KVH, HD, HD, fwd_stages=n)
+        fwd = [dict(fwd_stages=n) for n in (1, 2)]
+        if tc:
+            fwd = [dict(fwd_stages=n, fwd_rows=r)
+                   for n in (1, 2) for r in (64, 128)]
+        for var in fwd:
+            p = _flash_plan(H, KVH, HD, HD, **rule, **var)
             got = flash_fwd_cuda(q, k, v, plan=p, **kw)
-            rec["variants"][f"fwd stages {n}"] = {
+            label = f"fwd stages {p.fwd_stages}" + (
+                f" rows {p.fwd_rows}" if tc else "")
+            rec["variants"][label] = {
                 "ms": timer(lambda: flash_fwd_cuda(q, k, v, plan=p, **kw)),
                 "is_plan": p == plan,
                 "ok": all(torch.equal(x, y) for x, y in zip(got, want))}
@@ -177,7 +211,7 @@ def run_case(name, B, S, variants):
         for r in (64, 128):
             if _dq_smem(r, W) > _MAX_SMEM:
                 continue
-            p = _flash_plan(H, KVH, HD, HD, dq_rows=r)
+            p = _flash_plan(H, KVH, HD, HD, **rule, dq_rows=r)
             got = flash_dq_cuda(*st, plan=p, **kw)
             rec["variants"][f"dq rows {r}"] = {
                 "ms": timer(lambda: flash_dq_cuda(*st, plan=p, **kw)),
@@ -185,10 +219,11 @@ def run_case(name, B, S, variants):
         want = flash_dkv_cuda(*st, **kw)
         dkv = [dict(dkv_rows=r, dkv_stages=n, heads=hs) for r in (64, 128)
                for n in (1, 2) for hs in (1, 2)
-               if _dkv_smem(r, W, n) <= _MAX_SMEM]
+               if dkv_smem(r, W, n) <= _MAX_SMEM and hs <= G]
         dkv.append(dict(heads=G))
+        atol, rtol = (2e-2, 2e-2) if tc else (3e-5, 1e-3)
         for var in dkv:
-            p = _flash_plan(H, KVH, HD, HD, **var)
+            p = _flash_plan(H, KVH, HD, HD, **rule, **var)
             got = flash_dkv_cuda(*st, plan=p, **kw)
             label = (f"dkv rows {p.dkv_rows} stages {p.dkv_stages} heads "
                      f"{p.heads}")
@@ -199,7 +234,8 @@ def run_case(name, B, S, variants):
                 "ms": timer(lambda: flash_dkv_cuda(*st, plan=p, **kw)),
                 "is_plan": p == plan,
                 "ok": all(torch.equal(x, y) if same else
-                          torch.allclose(x, y, atol=3e-5, rtol=1e-3)
+                          torch.allclose(x.float(), y.float(), atol=atol,
+                                         rtol=rtol)
                           for x, y in zip(got, want))}
     return rec
 
@@ -209,7 +245,8 @@ def _line(rec):
         r = rec[name]
         return (f"{name} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, "
                 f"{100 * r['bound_ms'] / r['ms']:.0f}%)")
-    head = (f"{rec['name']:<8} B={rec['B']} S={rec['S']}: " +
+    head = (f"{rec['name']:<8} {rec['dtype']} B={rec['B']} S={rec['S']} "
+            f"H={rec['H']}/{rec['KVH']} hd={rec['hd']}: " +
             "  ".join(k(n) for n in ("fwd", "dq", "dkv")) +
             f"  SDPA fwd {rec['sdpa_fwd_ms']:.4f} bwd "
             f"{rec['sdpa_bwd_ms']:.4f}")
@@ -221,6 +258,7 @@ def _line(rec):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--variant", action="store_true",
                     help="also time the plan's alternatives")
     ap.add_argument("--out", default="build/bench_flash.json")
@@ -237,8 +275,9 @@ def main(argv=None) -> int:
     for line in report:
         print(line)
     recs, ok = [], True
-    for name, B, S in CASES:
-        rec = run_case(name, B, S, args.variant)
+    dtype = DTYPES[args.dtype]
+    for case in CASES + (BF16_CASES if dtype == torch.bfloat16 else []):
+        rec = run_case(*case, dtype, args.variant)
         recs.append(rec)
         ok &= all(v["ok"] for v in rec["variants"].values())
         print(_line(rec), flush=True)

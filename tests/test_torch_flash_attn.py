@@ -27,7 +27,8 @@ from repro.kernels.ops import flash_attention as j_flash
 from repro.kernels.ref import flash_attention_ref
 from repro_torch import dispatch
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attn import _pairs, flash_fwd_plain
+from repro_torch.kernels.flash_attn import (_pairs, _split_bf16,
+                                            flash_fwd_plain)
 
 CASES = [
     # B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk
@@ -184,3 +185,33 @@ def test_cpu_runs_the_plain_versions_only():
     with dispatch.use(execute="kernel"), pytest.raises(ValueError):
         ops.flash_attention(q, k, v)
     ops.reset_counts()
+
+
+def test_bf16_split_keeps_p_within_2e_minus_17():
+    """The bf16 dk/dv kernel multiplies do by p as hi + lo, two bf16
+    operands: on seeded p over [2^-60, 1] (and 0 and 1 exactly) hi + lo
+    is p to within 2^-17 of |p|, hi is bf16(p), and dv = hi^T do + lo^T
+    do (f32, as the tensor cores sum exact bf16 products) is the f32
+    p^T do of the reference's dv to within 2^-17 of |p|^T |do| and an
+    f32 summation's error."""
+    rng = np.random.default_rng(6)
+    p = np.exp2(-rng.uniform(0, 60, (64, 64))).astype(np.float32)
+    p[0, :2] = (0.0, 1.0)
+    tp = torch.from_numpy(p)
+    hi, lo = _split_bf16(tp)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, tp.to(torch.bfloat16))
+    back = hi.double() + lo.double()
+    assert bool(((back - tp.double()).abs() <=
+                 2.0 ** -17 * tp.double().abs()).all())
+    assert (back[0, :2] == torch.tensor([0.0, 1.0], dtype=torch.float64)).all()
+    do = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32)) \
+        .to(torch.bfloat16).float()
+    dv = hi.float().t() @ do + lo.float().t() @ do
+    exact = tp.double().t() @ do.double()
+    bound = (2.0 ** -17 + 64 * 2.0 ** -24) * (tp.double().t().abs() @
+                                              do.double().abs())
+    assert bool(((dv.double() - exact).abs() <= bound).all())
+    # rounding p alone to bf16 (the forward's p @ v) would miss by ~2^-9
+    one = hi.float().t() @ do
+    assert bool(((one.double() - exact).abs() > bound).any())

@@ -29,7 +29,10 @@ held to the reference's rtol = atol = 1e-5 (f32 sums of 48 and 128 terms
 in another order).  Past hd, hd_v = 128 (up to 256, over 128-column
 slices) the flash kernels are held to the same tolerances and to
 themselves run to run; the bank GEMM's gradient (dx and dw, one bank
-launch each) to the plain backward within the f32 summation bound.
+launch each) to the plain backward within the f32 summation bound.  The
+bf16 flash forward and dk/dv run on the tensor cores: held to the bf16
+tolerance (lse 2e-6), to themselves run to run and under every plan
+variant, bitwise, on every flash case.
 """
 
 import math
@@ -610,9 +613,9 @@ def test_flash_plan_variants_give_the_same_bits(cuda, case):
 @pytest.mark.parametrize("case", FLASH_CASES[:-1],
                          ids=[str(c[:8]) for c in FLASH_CASES[:-1]])
 def test_flash_dkv_bf16_matches_plain(cuda, case):
-    """The bf16 dk/dv kernel (operands widened to f32 as they land, ds and
-    each head's dk/dv rounded to bf16) against the plain version at the
-    reference's bf16 tolerance."""
+    """The bf16 dk/dv kernel (the tensor cores: p^T as two bf16 operands,
+    ds and each head's dk/dv rounded to bf16) against the plain version
+    at the reference's bf16 tolerance."""
     from repro_torch.kernels.flash_attn import flash_dkv_cuda, flash_dkv_plain
     q, k, v, do, lse, delta = _flash_inputs(case, torch.bfloat16)
     kw = dict(causal=case[7], scale=case[5] ** -0.5)
@@ -725,6 +728,79 @@ def test_wide_flash_kernels_are_bitwise_run_to_run(cuda, case):
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
     assert torch.equal(dq1, dq2)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+BF16_FLASH_CASES = FLASH_CASES + WIDE_FLASH_CASES
+
+
+@pytest.mark.parametrize("case", BF16_FLASH_CASES,
+                         ids=[str(c[:8]) for c in BF16_FLASH_CASES])
+def test_flash_bf16_tensor_core_kernels_are_bitwise_run_to_run(cuda, case):
+    """The bf16 forward and dk/dv (the tensor-core kernels): two launches
+    give the same bits (o, lse, dk, dv; the group sum is ordered, no
+    atomics), kv rows past every query get exactly zero dk/dv, and against
+    the plain versions o, dk and dv meet the reference's bf16 tolerance
+    (2e-2) and lse 2e-6 (absolute + relative), on the small cases (the
+    plain version of the last FLASH_CASES shape loops for minutes)."""
+    from repro_torch.kernels.flash_attn import (flash_dkv_cuda,
+                                                flash_dkv_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.bfloat16)
+    kw = dict(causal=causal, scale=hd ** -0.5)
+    o1, l1 = flash_fwd_cuda(q, k, v, **kw)
+    o2, l2 = flash_fwd_cuda(q, k, v, **kw)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    dk1, dv1 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert dk1.dtype == dv1.dtype == o1.dtype == torch.bfloat16
+    if causal and Skv > Sq:
+        assert not dk1[:, Sq:].any() and not dv1[:, Sq:].any()
+    if case == FLASH_CASES[-1]:
+        return
+    po, plse = flash_fwd_plain(q, k, v, bq=bq, bk=bk, **kw)
+    pdk, pdv = flash_dkv_plain(q, k, v, do, lse, delta, bq=bq, bk=bk, **kw)
+    for got, want in ((o1, po), (dk1, pdk), (dv1, pdv)):
+        assert torch.allclose(got.float(), want.float(), atol=2e-2,
+                              rtol=2e-2)
+    assert torch.allclose(l1, plse, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("case", BF16_FLASH_CASES,
+                         ids=[str(c[:8]) for c in BF16_FLASH_CASES])
+def test_flash_bf16_plan_variants_give_the_same_bits(cuda, case):
+    """Every bf16 plan the tensor-core kernels take gives the plan's bits:
+    the forward with 1 or 2 ring stages and 64 or 128 query rows a CTA,
+    dk/dv with 64 or 128 kv rows a CTA and 1 or 2 stages where they fit,
+    and, where the plan walks one head a CTA, every head of a group in one
+    CTA (the same f32 adds of the rounded heads, in g order)."""
+    from repro_torch.kernels.flash_attn import (_dkv_tc_smem, _flash_plan,
+                                                _width, flash_dkv_cuda,
+                                                flash_fwd_cuda)
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case[:8]
+    bf = torch.bfloat16
+    q, k, v, do, lse, delta = _flash_inputs(case, bf)
+    kw = dict(causal=causal, scale=hd ** -0.5)
+    plan = _flash_plan(H, KVH, hd, hd_v, dtype=bf)
+    W, G = _width(hd, hd_v), H // KVH
+    want = flash_fwd_cuda(q, k, v, **kw)
+    for st in (1, 2):
+        for r in (64, 128):
+            p = _flash_plan(H, KVH, hd, hd_v, dtype=bf, fwd_stages=st,
+                            fwd_rows=r)
+            got = flash_fwd_cuda(q, k, v, plan=p, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), p
+    want = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    variants = [dict(dkv_rows=r, dkv_stages=st) for r in (64, 128)
+                for st in (1, 2) if _dkv_tc_smem(r, W, st) <= 232448]
+    if plan.heads == 1 and G > 1:
+        variants.append(dict(heads=G))
+    for var in variants:
+        p = _flash_plan(H, KVH, hd, hd_v, dtype=bf, **var)
+        got = flash_dkv_cuda(q, k, v, do, lse, delta, plan=p, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), p
 
 
 @pytest.mark.parametrize("E,M,K,N", [(64, 172, 2048, 1408),

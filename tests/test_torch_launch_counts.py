@@ -17,10 +17,11 @@ from repro_torch import dispatch
 from repro_torch.core.hw import IS, OS, WS
 from repro_torch.core.sara import SaraDispatcher
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attn import (_dkv_ctas, _dkv_smem,
+from repro_torch.kernels.flash_attn import (FlashPlan, _dkv_ctas,
+                                            _dkv_smem, _dkv_tc_smem,
                                             _dq_smem,
                                             _flash_plan, _fwd_ctas,
-                                            _fwd_smem, _width,
+                                            _fwd_smem, _fwd_tc_smem, _width,
                                             flash_dkv_cuda, flash_dq_cuda,
                                             flash_fwd_cuda)
 from repro_torch.kernels.linear_attn import (_wkv_plan, linear_attn_cuda,
@@ -942,6 +943,185 @@ def test_flash_default_plan_reaches_the_launch(card):
     assert card.args[0][15] == 1
     assert card.args[1][18:22] == (128, 2, 1, 4) and card.args[1][22]
     assert card.args[2][17] == 128 and len(card.args[2]) == 19
+
+
+# _FLASH_GRID's f32 plans as the rules gave them before bf16 had plans of
+# its own: (fwd_stages, dkv_rows, dkv_stages, heads, parts, dq_rows, slices)
+_F32_PLANS = {
+    (32, 8, 64, 64): (1, 128, 2, 1, 4, 128, 1),
+    (4, 4, 64, 64): (1, 128, 2, 1, 1, 128, 1),
+    (8, 1, 32, 48): (1, 128, 2, 1, 8, 128, 1),
+    (24, 2, 100, 50): (2, 64, 2, 2, 6, 64, 1),
+    (96, 8, 128, 128): (2, 64, 2, 2, 6, 64, 1),
+    (32, 1, 128, 64): (2, 64, 2, 4, 8, 64, 1),
+    (9, 1, 16, 16): (1, 128, 2, 2, 5, 128, 1),
+    (8, 1, 256, 256): (1, 64, 1, 1, 8, 64, 2),
+    (128, 128, 192, 128): (1, 64, 1, 1, 1, 64, 2),
+    (6, 2, 64, 200): (1, 64, 1, 1, 3, 64, 2),
+}
+
+
+@pytest.mark.parametrize("case", _FLASH_GRID, ids=str)
+def test_f32_flash_plans_are_the_rules_before_bf16_plans(case):
+    """The f32 plan is the same with ``dtype`` given or not, and equals
+    the plan the rules gave before bf16 had plans of its own."""
+    H, KVH, hd, hd_v = case[3:7]
+    plan = _flash_plan(H, KVH, hd, hd_v, dtype=torch.float32)
+    assert plan == _flash_plan(H, KVH, hd, hd_v) == \
+        FlashPlan(*_F32_PLANS[(H, KVH, hd, hd_v)])
+
+
+def test_bf16_flash_tiles_are_the_sources_bytes():
+    """The tensor-core kernels' shared bytes (bf16 rows of 2 W + 16
+    bytes): the forward's 64 or 128 q rows and 2 K/V stages, dk/dv's K and
+    V rows and q / do / lse / delta stages — what the source's
+    ``fwd_tc_smem`` and ``dkv_tc_smem`` give.  Two forward stages fit at
+    every width and row count; 128 dk/dv rows with 2 stages up to W = 128,
+    only 64 rows (or one stage) at 256."""
+    assert [_fwd_tc_smem(W, 2) for W in (64, 128, 256)] == \
+        [46080, 87040, 168960]
+    assert [_fwd_tc_smem(W, 2, rows=128) for W in (64, 128, 256)] == \
+        [55296, 104448, 202752]
+    assert [_dkv_tc_smem(128, W, 2) for W in (64, 128)] == [74752, 140288]
+    assert (_dkv_tc_smem(64, 256, 2), _dkv_tc_smem(128, 256, 1)) == \
+        (203776, 203264)
+    assert _dkv_tc_smem(128, 256, 2) > 232448
+
+
+@pytest.mark.parametrize("case", _FLASH_GRID + [
+    (2, 300, 300, 8, 2, 256, 256, True),
+    (1, 200, 130, 16, 16, 192, 128, False)], ids=str)
+def test_bf16_flash_plan_fits_and_covers_every_tile_head_and_slice_once(
+        case):
+    """bf16's plan (the tensor-core forward and dk/dv, the CUDA-core dq):
+    every kernel's CTA within the 227 KB of a CTA; the forward's CTAs
+    cover every (query tile, head, batch) once and own all of o's columns
+    (no slices); dk/dv's cover every (kv tile, kv head, batch) once a
+    128-column slice past W = 128, the ``parts`` CTAs of a group walking
+    its G heads once in g order, and the slices cover dk's and dv's
+    columns once.  The rules: forward CTAs of 128 query rows with 2
+    stages; dk/dv CTAs of 64 kv rows with 2 stages up to W = 128, 128 rows
+    with 1 stage at 256."""
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case
+    G, W = H // KVH, _width(hd, hd_v)
+    plan = _flash_plan(H, KVH, hd, hd_v, dtype=torch.bfloat16)
+    assert (plan.fwd_stages, plan.fwd_rows) == (2, 128)
+    assert (plan.dkv_rows, plan.dkv_stages) == \
+        ((64, 2) if W <= 128 else (128, 1))
+    assert max(_fwd_tc_smem(W, plan.fwd_stages, rows=plan.fwd_rows),
+               _dkv_tc_smem(plan.dkv_rows, W, plan.dkv_stages),
+               _dq_smem(plan.dq_rows, W)) <= 232448
+    assert plan.slices == (-(-max(hd, hd_v) // 128) if W > 128 else 1)
+    assert plan._replace(fwd_stages=1, dkv_rows=64, dkv_stages=1) == \
+        _flash_plan(H, KVH, hd, hd_v, dtype=torch.bfloat16, fwd_stages=1,
+                    dkv_rows=64, dkv_stages=1)
+    nqt = -(-Sq // plan.fwd_rows)
+    assert sorted(_fwd_ctas(B, Sq, H, plan.fwd_rows)) == [
+        (t, h, b) for t in range(nqt) for h in range(H) for b in range(B)]
+    nkt = -(-Skv // plan.dkv_rows)
+    dkv = [(c[:3], tuple(c[3]), sl)
+           for c in _dkv_ctas(plan, B, Skv, KVH, G)
+           for sl in range(plan.slices)]
+    assert len(set(dkv)) == len(dkv) == \
+        nkt * KVH * B * plan.parts * plan.slices
+    for sl in range(plan.slices):
+        heads = {}
+        for unit, gs, s in dkv:
+            if s == sl:
+                heads.setdefault(unit, []).extend(gs)
+        assert sorted(heads) == [(j, kvh, b) for j in range(nkt)
+                                 for kvh in range(KVH) for b in range(B)]
+        assert all(g == list(range(G)) for g in heads.values())
+    width = min(W, 128)
+    for d in (hd, hd_v):
+        cols = [c for sl in range(plan.slices)
+                for c in range(sl * width, min(d, (sl + 1) * width))]
+        assert cols == list(range(d))
+
+
+@pytest.mark.parametrize("H,KVH,hd,hd_v", [
+    (32, 8, 64, 64), (8, 1, 256, 256), (16, 16, 64, 64),
+    (128, 128, 192, 128), (24, 2, 100, 50)])
+def test_bf16_flash_plan_reaches_the_launch(card, H, KVH, hd, hd_v):
+    """bf16 calls launch under the bf16 plan, not the f32 one: dtype code
+    1, the forward's stages and rows, dq's rows, dk/dv's rows, stages,
+    heads and parts and (G > 1) its scratch; each call is one counted
+    launch (the group sum included) and no plain call."""
+    B, S, bf = 2, 70, torch.bfloat16
+    plan = _flash_plan(H, KVH, hd, hd_v, dtype=bf, fwd_units=B * H * S,
+                       num_sms=132)
+    q, do = torch.zeros(B, S, H, hd, dtype=bf), torch.zeros(B, S, H, hd_v,
+                                                            dtype=bf)
+    k = torch.zeros(B, S, KVH, hd, dtype=bf)
+    v = torch.zeros(B, S, KVH, hd_v, dtype=bf)
+    lse = torch.zeros(B, H, S)
+    for n in (1, 2):
+        flash_fwd_cuda(q, k, v, causal=True, scale=0.1)
+        flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
+        flash_dkv_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1)
+        assert card.calls == ["flash_fwd_launch", "flash_dq_launch",
+                              "flash_dkv_launch"] * n
+        fwd, dq, dkv = card.args[-3:]
+        assert fwd[0] == dq[0] == dkv[0] == 1
+        assert fwd[15:17] == (plan.fwd_stages, plan.fwd_rows)
+        assert dq[17] == plan.dq_rows
+        assert dkv[18:22] == (plan.dkv_rows, plan.dkv_stages, plan.heads,
+                              plan.parts)
+        assert (dkv[22] is not None) == (H > KVH)
+        counts = ops.launch_counts()
+        assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"],
+                counts["plain_calls"]) == (n, n, n, 0)
+
+
+@pytest.mark.parametrize("hd,kw", [
+    (256, dict(dkv_rows=128, dkv_stages=2)), (64, dict(fwd_stages=3)),
+    (128, dict(dkv_stages=3)), (256, dict(dkv_rows=96)),
+    (64, dict(fwd_rows=256)), (128, dict(fwd_rows=32))])
+def test_bf16_flash_plan_that_does_not_fit_is_refused_before_a_launch(
+        card, hd, kw):
+    """A bf16 plan past the tensor-core kernels' tiles (128 dk/dv rows
+    with 2 stages at W = 256: 271,360 bytes; 3 stages; rows not 64 or
+    128) raises while it is made, before any launch."""
+    q, k = (torch.zeros(1, 8, h, hd, dtype=torch.bfloat16) for h in (4, 2))
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="do not fit|64 or 128"):
+        plan = _flash_plan(4, 2, hd, hd, dtype=torch.bfloat16, **kw)
+        flash_fwd_cuda(q, k, k, causal=True, scale=0.1, plan=plan)
+        flash_dkv_cuda(q, k, k, q, lse, lse, causal=True, scale=0.1,
+                       plan=plan)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_dkv"] == 0
+
+
+def test_bf16_forward_rows_follow_the_call_size():
+    """The bf16 forward takes 128-row CTAs where the call has at least one
+    such CTA an SM, else 64-row CTAs: phase 7's llama attention and S =
+    512 run the first, seamless's encoder (16 heads of 128 rows) and
+    gemma-2b's 8 heads of 1024 (128 CTAs) the second.  Without a call
+    size the rule takes 128; f32 plans ignore the call size."""
+    bf = torch.bfloat16
+
+    def rows(H, KVH, hd, units, **kw):
+        return _flash_plan(H, KVH, hd, hd, dtype=bf, fwd_units=units,
+                           **kw).fwd_rows
+    assert rows(32, 8, 64, 2 * 32 * 1024) == rows(32, 8, 64,
+                                                  2 * 32 * 512) == 128
+    assert rows(16, 16, 64, 16 * 128) == rows(8, 1, 256, 2 * 8 * 1024) == 64
+    edge = 132 * 128
+    assert rows(4, 4, 128, edge - 1) == 64
+    assert rows(4, 4, 128, edge) == 128
+    assert rows(4, 4, 128, edge, num_sms=133) == 64
+    assert _flash_plan(4, 4, 128, 128, dtype=bf).fwd_rows == 128
+    assert _flash_plan(4, 4, 128, 128, fwd_units=1) == \
+        _flash_plan(4, 4, 128, 128)
+
+
+def test_f32_flash_forward_takes_no_bf16_rows():
+    """The f32 forward's CTAs hold 64 query rows: a plan asking for 128
+    raises."""
+    with pytest.raises(ValueError, match="f32 forward CTA holds 64"):
+        _flash_plan(4, 2, 64, 64, fwd_rows=128)
 
 
 def test_flash_dkv_refuses_wide_heads_before_a_launch(card):
