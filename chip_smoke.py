@@ -239,8 +239,8 @@ in bf16, beside SDPA over the latents gathered beforehand; a forced split
 count run twice, bitwise; one timed lane of 4096 rows) and the bank GEMM (the
 expert banks, E = 256, and the MLA head banks, E = 128 views of W_UK /
 W_UV) against their plain versions at phase 6's shapes, and the three
-flash-attention kernels (forward, dq, dk/dv; f32, and bf16 with the
-forward and dk/dv on the tensor cores, all three run twice and bitwise)
+flash-attention kernels (forward, dq, dk/dv; f32, and bf16 with all
+three on the tensor cores, run twice and bitwise)
 and every training GEMM
 (forward, dx and dw of each site, f32) at phase 7's shapes, and the WKV
 kernel (prefill, ragged with decays down to -e, the chunk-1 decode, the
@@ -266,10 +266,11 @@ beside its plain version, its bound and ``matmul`` / SDPA, and phase
 15's: the three flash kernels at gemma-2b's training shape (B = 2, S =
 1024, 8 / 1 heads, hd 256, causal; f32 and bf16, the bf16 gradients held
 to 2e-2) and at deepseek-v3's expanded-MLA training shape (B = 1, S =
-1024, 128 heads, hd 192 / hd_v 128, causal, f32), all three run to run
-bitwise, and the bank GEMM's dx and dw at 15b's expert banks (E = 64, M =
-172, f32, the transposes read in place) against the plain version and
-``torch.bmm``, each timed beside its bound.
+1024, 128 heads, hd 192 / hd_v 128, causal, f32; f32 dk/dv on CTA pairs
+that split the head dim in halves), all three run to run bitwise, and the
+bank GEMM's dx and dw at 15b's expert banks (E = 64, M = 172, f32, the
+transposes read in place) against the plain version and ``torch.bmm``,
+each timed beside its bound.
 
 After phase 9 one line per mode gives the worst kernel / library-call
 factor over the run's timed GEMM shapes, with its shape.  The lines
@@ -308,8 +309,8 @@ RSA_TPU_BY_MODE = {"OS": RSA_TPU, "WS": "src/repro/kernels/rsa_gemm.py:96",
 RSA_SRC = "src/repro_torch/kernels/csrc/rsa_psum.cu"
 MLA_TPU = {"paged_mla_decode": "src/repro/kernels/paged_attn.py:189",
            "paged_mla_prefill": "src/repro/kernels/paged_attn.py:578"}
-# phase 3's bf16 flash case: the tensor-core forward and dk/dv at phase 7's
-# attention shape, with gradients
+# phase 3's bf16 flash case: the tensor-core forward, dq and dk/dv at phase
+# 7's attention shape
 P3_BF16 = "llama bf16"
 FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attn.py:123",
              "flash_dq": "src/repro/kernels/flash_attn.py:265",
@@ -1381,8 +1382,8 @@ def check_flash(torch, report, timer, cfg):
     phase 7's attention shape (B = 2, S = 1024, 32 / 8 heads, hd = 64,
     causal, f32), a ragged length (Sq = Skv = 1000), kv rows past every
     query (Sq = 500, Skv = 1000: their dk/dv must be exactly 0), the
-    bidirectional form, bf16 (the tensor-core forward and dk/dv, the
-    CUDA-core dq) with its gradients, and a group of G = 8 (32 / 4
+    bidirectional form, bf16 (the tensor-core forward, dq and dk/dv) with
+    its gradients, and a group of G = 8 (32 / 4
     heads: 8 dk/dv partials a kv head).  The backward kernels are held
     alone: both versions get the kernel forward's lse and delta.  In the
     main, bf16 and G = 8 cases all three kernels run twice and must give
@@ -1432,8 +1433,8 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
     second run to the first's bits.  Returns (record, ok)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import (
-        _call_plan, flash_dkv_cuda, flash_dkv_plain, flash_dq_cuda,
-        flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
+        _call_plan, _half_cols, flash_dkv_cuda, flash_dkv_plain,
+        flash_dq_cuda, flash_dq_plain, flash_fwd_cuda, flash_fwd_plain)
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
     hd_v = hd_v or hd
@@ -1499,10 +1500,15 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
            if zeros is not None else "")
         + (f"; o, lse, dq, dk/dv run to run bitwise {bitwise}"
            if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
+    wide_f32 = plan.slices > 1 and dt == f32  # dq slices, dk/dv CTA pairs
+    hk, hv = _half_cols(hd), _half_cols(hd_v)
+    dq_ring = ("one chunk slot" if wide_f32
+               else f"{plan.dq_stages} ring stage(s)")
+    pair = (f" in CTA pairs of {hk} + {hd - hk} / {hv} + {hd_v - hv} "
+            f"columns of hd / hd_v, 32-query tiles" if wide_f32 else "")
     log(f"    plan: forward {plan.fwd_rows} query rows a CTA, "
-        f"{plan.fwd_stages} ring stage(s); dq {plan.dq_rows} query rows a CTA, "
-        f"{'2 ring stages' if plan.slices == 1 else 'one chunk slot'}; "
-        f"dk/dv {plan.dkv_rows} kv rows a CTA, "
+        f"{plan.fwd_stages} ring stage(s); dq {plan.dq_rows} query rows a "
+        f"CTA, {dq_ring}; dk/dv {plan.dkv_rows} kv rows a CTA{pair}, "
         f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
         f"{plan.parts} partial(s) a kv head; {plan.slices} column "
         f"slice(s)")
@@ -2068,8 +2074,8 @@ def check_p13_kernels(torch, report, timer, dispatcher):
     and qwen2-moe's (G = 1, hd 128) serving widths (8 lanes, lengths and
     chunks off the page boundaries up to phase 13's 528 rows); the flash
     kernels, bidirectional, at seamless-m4t-medium's encoder shape (B = 1,
-    S = 128, 16 heads x 64, bf16: the tensor-core forward and dk/dv, the
-    CUDA-core dq) against their plain versions (2e-2, the reference's
+    S = 128, 16 heads x 64, bf16: the tensor-core forward, dq and dk/dv)
+    against their plain versions (2e-2, the reference's
     bf16 tolerance; lse 2e-6), run twice and bitwise, beside
     ``scaled_dot_product_attention``."""
     ok = check_banks(torch, report, timer, None, dispatcher,
@@ -5631,13 +5637,13 @@ P13_PAGED = {"gemma-2b": "13b", "qwen2-moe-a2.7b": "13a"}
 
 
 def bf16_flash_entries(rec, counts):
-    """Kernel-table entries of the bf16 forward and dk/dv of one
+    """Kernel-table entries of the bf16 forward, dq and dk/dv of one
     ``flash_case`` record: the tensor-core kernels.  The forward's
     launches are 13e's (``counts``: seamless serves in bf16, the one path
-    that runs it); no path launches the bf16 dk/dv (training is f32), so
-    its count is 0."""
+    that runs it); no path launches the bf16 dq or dk/dv (training is
+    f32), so their count is 0."""
     out = []
-    for name in ("flash_fwd", "flash_dkv"):
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         t = rec["timed"][name]
         fwd = name == "flash_fwd"
         out.append({
@@ -5660,7 +5666,7 @@ def bf16_flash_entries(rec, counts):
 def p13_table(report):
     """Phase 13's kernel-table entries: the decode and prefill kernels at
     gemma-2b's and qwen2-moe's widths (launches of 13b / 13a), qwen2's
-    expert banks (13a), the bf16 flash forward and dk/dv at seamless's
+    expert banks (13a), the bf16 flash forward, dq and dk/dv at seamless's
     encoder shape (13e's forward launches), beside them phase 3's bf16
     flash cases at phase 7's and gemma-2b's shapes, and each path's two
     most launched GEMM shapes."""

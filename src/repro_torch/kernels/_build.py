@@ -57,7 +57,7 @@ SIGNATURES = {
     "flash_attn": {
         "flash_fwd_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 8 +
                             [_F, _I, _I, _P],
-        "flash_dq_launch": [_I] + [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        "flash_dq_launch": [_I] + [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
         "flash_dkv_launch": [_I] + [_P] * 8 + [_I] * 8 +
                             [_F, _I, _I, _I, _I, _P, _P],
     },

@@ -22,17 +22,18 @@
 // takes exp as exp2 of log2(e)-scaled scores (the f32 forward keeps m in
 // log2 units and returns lse = m ln 2 + log l; the bf16 one keeps the raw
 // scores' max and returns m scale + log l).  Only the summation order and
-// that rounding differ from the reference's.
+// that rounding differ from the reference's (the f32 dk/dv past W = 128
+// sums each score as two halves, so its p may differ from the forward's in
+// the last bits, within the reference's gradient tolerance).
 //
 // What bounds it on the H100: operations.  At training shapes (S = 1024,
 // hd = 64) every q row meets up to 1024 keys, about 4 hd flops a pair each
 // way, far above the bytes of q, k, v and o.  f32 runs full-f32 CUDA-core
-// FMAs (67 TFLOP/s peak), never TF32.  bf16's forward and dk/dv run on the
-// tensor cores (989 TFLOP/s dense), in kernels of their own below
-// (flash_fwd_tc_kernel, flash_dkv_tc_kernel); bf16's dq is the f32 design
-// with its operands widened to f32 as they land in shared memory.
+// FMAs (67 TFLOP/s peak), never TF32.  bf16 runs on the tensor cores (989
+// TFLOP/s dense), in kernels of its own below (flash_fwd_tc_kernel,
+// flash_dq_tc_kernel, flash_dkv_tc_kernel).
 //
-// The bf16 forward and dk/dv (mma.sync.m16n8k16, bf16 in, f32 accumulate,
+// The bf16 kernels (mma.sync.m16n8k16, bf16 in, f32 accumulate,
 // mma_bf16.cuh's register layout; wgmma is not used):
 //  * Tiles stay bf16 in shared memory (half the bytes of a widened tile):
 //    rows 2 W + 16 bytes apart, so ldmatrix reads no bank twice; 16-byte
@@ -72,16 +73,27 @@
 //    flops a (query, key) pair at hd 256).  The plan takes 64 kv rows and
 //    2 stages up to W = 128, 128 rows and 1 stage at 256 (8 warps an SM
 //    either way).
+//  * dq: the dk/dv design transposed.  A warp's 16 query rows compute S =
+//    q K^T and dP = do V^T in passes of 64 keys (W = 64) or 32, so p and
+//    ds land in accumulator layout and ds, rounded to bf16 as the
+//    reference rounds it (no hi + lo: the reference's dq takes ds in
+//    bf16), is the A operand of dq += ds K (K through ldmatrix.trans).  q
+//    and do are re-read from shared memory each pass; at W = 256 dq's 128
+//    f32 accumulators a lane take the registers (as the forward's o): a
+//    CTA owns every column, nothing is recomputed.  64 or 128 query rows
+//    a CTA (the forward's rule) and 1 or 2 K/V stages (2 where they fit:
+//    55,296 / 104,448 / 202,752 bytes with 64 rows, 73,728 / 139,264 with
+//    128 up to W = 128, 202,752 with 1 stage at 256).
 //  * What bounds them: operations, as in f32, now at the tensor cores'
 //    rate.  What holds them below it is latency: mma.sync, the softmax
 //    and the ldmatrix loads of a tile follow one another in each warp,
 //    and 8-16 warps an SM hide only part of it (no warp specialisation,
 //    no wgmma).
 //
-// The design of the f32 kernels and of bf16's dq (kernels/flash_attn.py::
-// _flash_plan picks the forward's and dk/dv's ring stages, the rows of a
-// dq or dk/dv CTA and the heads a dk/dv CTA walks; a forward CTA holds 64
-// query rows, three CTAs an SM at W = 64; dq's ring has 2 stages):
+// The design of the f32 kernels (kernels/flash_attn.py::_flash_plan picks
+// the forward's and dk/dv's ring stages, the rows of a dq or dk/dv CTA and
+// the heads a dk/dv CTA walks; a forward CTA holds 64 query rows, three
+// CTAs an SM at W = 64; dq's ring has 2 stages):
 //  * Register-blocked products.  A warp owns 16 rows of a tile; lane (ly,
 //    lx) = (lane / 8, lane % 8) owns rows ly + 4i (i < 4) and columns lx +
 //    8j (j < 8) of a 64-column score tile, and columns 32c + 4lx .. +3 (c <
@@ -97,8 +109,7 @@
 //    ring's.
 //  * A cp.async ring (1 or 2 stages) brings K/V tiles (forward, dq) or q,
 //    do, lse and delta tiles (dk/dv) ahead of the products: 16-byte copies
-//    for f32 rows on 16-byte boundaries, 4-byte ones for other f32 rows;
-//    bf16 rows take ordinary loads, widened as they land.
+//    for rows on 16-byte boundaries, 4-byte ones for other rows.
 //  * Masks only where a warp's part of a tile needs them (the causal
 //    diagonal, the ragged edges); a dq or dk/dv warp with nothing live
 //    (causally, or all its rows past the end) skips the tile.
@@ -116,19 +127,35 @@
 //  * hd or hd_v past 128 (up to WIDE = 256; hd 192 runs the 256-wide tiles):
 //    a 4 x 4 NCV accumulator a thread per output would pass the register
 //    file (dk + dv at W = 256: 256 registers) and dq's and dk/dv's tiles
-//    the 227 KB of a CTA (dq: 417,792 bytes), so each CTA owns one
-//    CW = 128-column slice of its outputs (blockIdx.y; `slices` =
-//    ceil(max(hd, hd_v) / 128)) and rebuilds the scores over the whole head
-//    dim once a slice.  64 rows a CTA, one stage.  The forward keeps WIDE
-//    Q and K tiles and a slice-wide V tile (185,344 bytes); dq and dk/dv
-//    keep their resident rows WIDE and stream the other operand's tile in
-//    CW-column chunks through one slot (219,136 / 219,648 bytes), summing
-//    each score over the chunks in order, so every slice and the forward
-//    see the same scores bit for bit.  The accumulators are the W = 128
-//    kernels' (o, dq: 64 registers; dk + dv: 128): ptxas gives the forward
-//    254 registers, dq 238 (f32) / 232 (bf16), dk/dv 255 (76 bytes of
-//    spills), one CTA an SM.  Up to W = 128 nothing of this runs:
-//    blockIdx.y is 0 and the tiles are the ones above.
+//    the 227 KB of a CTA (dq: 417,792 bytes).  The forward and dq: each
+//    CTA owns one CW = 128-column slice of its output (blockIdx.y;
+//    `slices` = ceil(max(hd, hd_v) / 128)) and rebuilds the scores over
+//    the whole head dim once a slice, 64 rows a CTA, one stage.  The
+//    forward keeps WIDE Q and K tiles and a slice-wide V tile (185,344
+//    bytes); dq keeps its q and do rows WIDE and streams K / V in
+//    CW-column chunks through one slot (219,136 bytes), summing each score
+//    over the chunks in order, so its slices and the forward see the same
+//    scores bit for bit.  ptxas gives the forward 254 registers, dq 238.
+//  * dk/dv past 128 (flash_dkv_pair_kernel): the earlier one-slot kernel
+//    (each slice rebuilt S^T and dP^T over the whole head dim, 1.5x the
+//    products at hd 256, and waited on every chunk copy) spent 31-38% of
+//    its cycles in its copies and 34-41% on S^T and dP^T
+//    (launch/probe_flash.py).  Now the two CTAs of a thread-block cluster
+//    each own half of hd and of hd_v (half_cols: MLA's 192 / 128 splits
+//    96 + 96 and 64 + 64, so the pair's work is even), keep those columns
+//    of their 64 K and V rows resident and stream the same columns of q
+//    and do in 32-query tiles through a 2-stage ring of bulk copies (TMA);
+//    within a CTA two warps share each 16 kv rows, a quarter of the
+//    columns each.  Each warp computes S^T and dP^T over its quarter, the
+//    pair of warps adds its quarters through shared memory, the CTA sends
+//    its halves into its partner's shared memory (st.async on the
+//    partner's mbarrier, two buffers), and all four warps of a row group
+//    add the halves (an IEEE add commutes, so all hold the same p and ds
+//    bits), each then adding p^T do and ds^T q into its own quarter of dv
+//    and dk.  Every product runs once.  221,728 bytes a CTA with 2 stages:
+//    one CTA of 8 warps an SM (4 warps a CTA, one a scheduler, ran the
+//    products at ~45% of the FFMA rate).  Up to W = 128 nothing of this
+//    runs: blockIdx.y is 0 and the tiles are the ones above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,6 +175,7 @@ constexpr int DQ_STAGES = 2;   // K/V tiles in dq's cp.async ring
 constexpr int MAX_SMEM = 232448;
 constexpr int CW = 128;        // a column slice / chunk of the head dim past W = 128
 constexpr int WIDE = 256;      // the tile width of every call with hd or hd_v > 128
+constexpr int WQT = 32;        // query rows of a ring tile of the paired f32 dk/dv
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -188,11 +216,11 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// `n` rows of d <= W elements (row r at src + (row0 + r) * stride) into
-// dst (row stride W + 4 floats) as f32; rows at or past `rows` and the
-// columns from d to d rounded up to 4 are zero.  f32: 16-byte cp.async
-// copies (vec: d % 4 == 0 and 16-byte aligned rows) or 4-byte ones; bf16:
-// ordinary loads.
+// `n` rows of d <= W f32 elements (row r at src + (row0 + r) * stride)
+// into dst (row stride W + 4 floats); rows at or past `rows` and the
+// columns from d to d rounded up to 4 are zero: 16-byte cp.async copies
+// (vec: d % 4 == 0 and 16-byte aligned rows) or 4-byte ones.  (bf16 tiles
+// stay bf16: copy_tc.)
 template <typename T, int W>
 __device__ __forceinline__ void copy_rows(float* dst, const T* __restrict__ src, long long stride,
                                           int row0, int n, int rows, int d, bool vec, int tid,
@@ -206,19 +234,15 @@ __device__ __forceinline__ void copy_rows(float* dst, const T* __restrict__ src,
     float* s = dst + r * (W + 4) + c;
     const bool row_ok = gr < rows;
     const T* g = src + (row_ok ? (long long)gr * stride + c : 0);
-    if constexpr (sizeof(T) == 4) {
-      if (vec) {
-        cp_async16(s, g, row_ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = row_ok && c + u < d;
-          cp_async4(s + u, ok ? g + u : src, ok ? 4 : 0);
-        }
-      }
+    static_assert(sizeof(T) == 4, "the CUDA-core kernels run f32");
+    if (vec) {
+      cp_async16(s, g, row_ok ? 16 : 0);
     } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) s[u] = row_ok && c + u < d ? to_f(g[u]) : 0.f;
+      for (int u = 0; u < 4; ++u) {
+        const bool ok = row_ok && c + u < d;
+        cp_async4(s + u, ok ? g + u : src, ok ? 4 : 0);
+      }
     }
   }
 }
@@ -233,6 +257,73 @@ __device__ __forceinline__ void copy_vec(float* dst, const float* __restrict__ s
   }
 }
 
+// a thread-block cluster's CTAs (the paired f32 dk/dv): the cluster barrier
+// in halves, a shared-memory address as the same address in another CTA,
+// and mbarriers that count the bytes another CTA stores here
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// one arrival, and `bytes` more to land before the phase completes
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` (a multiple of 16, 16-byte aligned both sides) from global
+// memory into this CTA's shared memory by the bulk-copy (TMA) engine,
+// completing them on mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// this thread's earlier shared-memory stores ordered before its later
+// bulk copies into the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 16 bytes into another CTA's shared memory (`addr`, from map_rank),
+// completing them on its mbarrier `bar`
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // register-blocked products (lane (ly, lx) of a warp owning 16 rows)
 // ---------------------------------------------------------------------------
@@ -241,20 +332,22 @@ __device__ __forceinline__ void copy_vec(float* dst, const float* __restrict__ s
 // A points at the lane's first row (row ly of the warp's 16), Bm at its
 // first column (row lx of the other operand); both row-major along k, k4 a
 // multiple of 4.  A sum split over column chunks of the head dim and taken
-// chunk after chunk into one acc keeps the order of the unsplit sum.
-__device__ __forceinline__ void nt_accum(float (&acc)[4][8], const float* A, int lda,
+// chunk after chunk into one acc keeps the order of the unsplit sum.  NJ
+// columns a lane: a 64-column score tile (8) or a 32-column one (4).
+template <int NJ>
+__device__ __forceinline__ void nt_accum(float (&acc)[4][NJ], const float* A, int lda,
                                          const float* Bm, int ldb, int k4) {
 #pragma unroll 2
   for (int k = 0; k < k4; k += 4) {
-    float4 a[4], b[8];
+    float4 a[4], b[NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + 4 * i * lda + k);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(Bm + 8 * j * ldb + k);
+    for (int j = 0; j < NJ; ++j) b[j] = *reinterpret_cast<const float4*>(Bm + 8 * j * ldb + k);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         float s = acc[i][j];
         s = fmaf(a[i].x, b[j].x, s);
         s = fmaf(a[i].y, b[j].y, s);
@@ -265,28 +358,30 @@ __device__ __forceinline__ void nt_accum(float (&acc)[4][8], const float* A, int
   }
 }
 
-__device__ __forceinline__ void zero_tile(float (&acc)[4][8]) {
+template <int NJ>
+__device__ __forceinline__ void zero_tile(float (&acc)[4][NJ]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 }
 
 // acc = the product above from zero
-__device__ __forceinline__ void nt_product(float (&acc)[4][8], const float* A, int lda,
+template <int NJ>
+__device__ __forceinline__ void nt_product(float (&acc)[4][NJ], const float* A, int lda,
                                            const float* Bm, int ldb, int k4) {
   zero_tile(acc);
   nt_accum(acc, A, lda, Bm, ldb, k4);
 }
 
-// acc[i][4c + e] += sum_{k < KT} P[4i * ldp + k] * V[k * ldv + 32c + e]:
+// acc[i][4c + e] += sum_{k < KN} P[4i * ldp + k] * V[k * ldv + 32c + e]:
 // P points at the lane's first row of a p / ds tile, V at column 4lx of
-// the B operand (KT rows, row-major along the output columns).
-template <int NCV>
+// the B operand (KN rows, row-major along the output columns).
+template <int NCV, int KN = KT>
 __device__ __forceinline__ void nn_product(float (&acc)[4][4 * NCV], const float* P, int ldp,
                                            const float* V, int ldv) {
 #pragma unroll 2
-  for (int k = 0; k < KT; k += 4) {
+  for (int k = 0; k < KN; k += 4) {
     float4 p[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(P + 4 * i * ldp + k);
@@ -335,11 +430,20 @@ struct Args {
 
 __host__ __device__ constexpr int cdiv_c(int a, int b) { return (a + b - 1) / b; }
 
+// the columns of k / q / dk (of v / do / dv) each CTA of a paired f32
+// dk/dv owns: half of d rounded up to 8, so each half and quarter starts
+// on a 16-byte boundary (at most CW: d <= WIDE)
+__host__ __device__ constexpr int half_cols(int d) { return ((d + 1) / 2 + 7) & ~7; }
+
 // shared memory (bytes) of a forward CTA (64 query rows), of a dq CTA of
 // `rows` query rows (DQ_STAGES ring stages) and of a dk/dv CTA of `rows`
 // kv rows, at tile width W and `stages` ring stages.  At W = WIDE the
-// forward's V tiles are one CW-column slice wide, and dq's and dk/dv's
-// ring is one slot of CW-column chunks (see the wide kernels)
+// forward's V tiles are one CW-column slice wide, dq's ring is one slot of
+// CW-column chunks, and a dk/dv CTA of a pair holds its mbarriers, its
+// K / V columns (CW + 4 floats a row), p^T / ds^T of each column group
+// (WQT + 8), its warps' quarters and two buffers of the partner's halves
+// (32 floats a lane, 128 a kv row each) and `stages` WQT-query q / do /
+// lse / delta tiles (see flash_dkv_pair_kernel)
 __host__ __device__ constexpr int fwd_smem(int W, int stages) {
   return 4 * (64 * (W + 4) + stages * KT * ((W + 4) + (W > CW ? CW : W) + 4) + 64 * LDP);
 }
@@ -348,7 +452,8 @@ __host__ __device__ constexpr int dq_smem(int rows, int W) {
                 : 4 * (2 * rows * (W + 4) + rows * LDP + DQ_STAGES * 2 * KT * (W + 4));
 }
 __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
-  return W > CW ? 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (CW + 4) + 2 * KT))
+  return W > CW ? 4 * (8 + 2 * rows * (CW + 4) + 2 * rows * (WQT + 8) + 2 * 128 * rows +
+                       stages * (2 * WQT * (CW + 4) + 2 * WQT))
                 : 4 * (2 * rows * (W + 4) + rows * LDP + stages * (2 * KT * (W + 4) + 2 * KT));
 }
 
@@ -356,13 +461,17 @@ __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
 // D-wide tile takes 2 D bytes and 16 of padding, so the 8 rows an ldmatrix
 // reads fall on distinct banks.  A forward CTA holds its `rows` query rows
 // and `stages` K/V tiles; a dk/dv CTA its `rows` K and V rows and `stages`
-// q / do tiles with their lse and delta.
+// q / do tiles with their lse and delta; a dq CTA its `rows` q and do rows
+// and `stages` K/V tiles.
 __host__ __device__ constexpr int tc_stride(int D) { return 2 * D + 16; }
 __host__ __device__ constexpr int fwd_tc_smem(int D, int rows, int stages) {
   return tc_stride(D) * (rows + stages * 2 * KT);
 }
 __host__ __device__ constexpr int dkv_tc_smem(int rows, int D, int stages) {
   return 2 * rows * tc_stride(D) + stages * (2 * KT * tc_stride(D) + 2 * KT * 4);
+}
+__host__ __device__ constexpr int dq_tc_smem(int rows, int D, int stages) {
+  return tc_stride(D) * (2 * rows + stages * 2 * KT);
 }
 
 // ---------------------------------------------------------------------------
@@ -741,6 +850,46 @@ __global__ void __launch_bounds__(128) flash_dq_wide_kernel(const Args a) {
 // backward: dk, dv
 // ---------------------------------------------------------------------------
 
+// adds (first: sets) the f32 value of acc rounded to T into the partial w
+// (row stride `stride`): rows j0 + r0 + 4i < Skv, columns 32c + 4lx + e < d
+template <typename T, int NC>
+__device__ __forceinline__ void add_part_rows(float* w, const float (&acc)[4][4 * NC],
+                                              long long stride, int d, bool first, int row0,
+                                              int rows, int lx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < d) {
+          float* x = w + row * stride + col;
+          *x = (first ? 0.f : *x) + round_to<T>(acc[i][4 * c + e]);
+        }
+      }
+  }
+}
+// acc rounded to T into out (the same rows and columns)
+template <typename T, int NC>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][4 * NC], long long stride,
+                                           int d, int row0, int rows, int lx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < d) out[row * stride + col] = from_f<T>(acc[i][4 * c + e]);
+      }
+  }
+}
+
 // One CTA of 2 x a.rows threads per (a.rows kv rows, `a.heads` query heads
 // of a kv head's group, batch): CTA x = ((kv tile * B + b) * KVH + kvh) *
 // parts + rank, so kv tile 0 (the longest causal walk) starts first.  Rank
@@ -807,25 +956,6 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
   const long long vbase = (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
   float* wk = a.ws ? a.ws + rank * ndk + kbase : nullptr;
   float* wv = a.ws ? a.ws + cs * ndk + rank * ndv + vbase : nullptr;
-  // adds round_to<T>(acc) into (first: sets) the rank's f32 partial
-  auto add_part = [&](float* w, const float (&acc)[4][4 * NCV], long long stride, int d,
-                      bool first) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = j0 + r0 + 4 * i;
-      if (row >= a.Skv) continue;
-#pragma unroll
-      for (int c = 0; c < NCV; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 32 * c + 4 * lx + e;
-          if (col < d) {
-            float* x = w + row * stride + col;
-            *x = (first ? 0.f : *x) + round_to<T>(acc[i][4 * c + e]);
-          }
-        }
-    }
-  };
 
   float dk[4][4 * NCV], dv[4][4 * NCV];
 #pragma unroll
@@ -882,8 +1012,8 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
       nn_product<NCV>(dk, Ps + r0 * LDP, LDP, Qt + 4 * lx, LD);
     }
     if (g1 - g0 > 1 && t % nqt == nqt - 1) {  // a head done: into the partial
-      add_part(wk, dk, kstride, a.hd, t < nqt);
-      add_part(wv, dv, vstride, a.hdv, t < nqt);
+      add_part_rows<T, NCV>(wk, dk, kstride, a.hd, t < nqt, j0 + r0, a.Skv, lx);
+      add_part_rows<T, NCV>(wv, dv, vstride, a.hdv, t < nqt, j0 + r0, a.Skv, lx);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -893,206 +1023,270 @@ __global__ void __launch_bounds__(256) flash_dkv_kernel(const Args a) {
   }
   if (g1 - g0 > 1 && n > 0) return;  // the partial holds the rank's heads
   if (wk) {
-    add_part(wk, dk, kstride, a.hd, true);
-    add_part(wv, dv, vstride, a.hdv, true);
+    add_part_rows<T, NCV>(wk, dk, kstride, a.hd, true, j0 + r0, a.Skv, lx);
+    add_part_rows<T, NCV>(wv, dv, vstride, a.hdv, true, j0 + r0, a.Skv, lx);
     return;
   }
-  T* dkg = static_cast<T*>(a.o1) + kbase;
-  T* dvg = static_cast<T*>(a.o2) + vbase;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = j0 + r0 + 4 * i;
-    if (row >= a.Skv) continue;
-#pragma unroll
-    for (int c = 0; c < NCV; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 32 * c + 4 * lx + e;
-        if (col < a.hd) dkg[row * kstride + col] = from_f<T>(dk[i][4 * c + e]);
-        if (col < a.hdv) dvg[row * vstride + col] = from_f<T>(dv[i][4 * c + e]);
-      }
-  }
+  store_rows<T, NCV>(static_cast<T*>(a.o1) + kbase, dk, kstride, a.hd, j0 + r0, a.Skv, lx);
+  store_rows<T, NCV>(static_cast<T*>(a.o2) + vbase, dv, vstride, a.hdv, j0 + r0, a.Skv, lx);
 }
 
-// dk/dv at hd or hd_v > 128.  One CTA of 4 warps per (64 kv rows, `heads`
-// query heads, batch, as flash_dkv_kernel) and CW-column slice blockIdx.y
-// of dk and dv: its K and V rows stay resident at WIDE columns, and each
-// query tile comes through one slot of CW-column chunks of q and do (with
-// its lse and delta).  A tile takes two passes over the chunks, each
-// summed in chunk order (the unsplit sum's order): s = K q^T -> p, then
-// dv += p^T do over the slice's chunk of do; dp = V do^T -> ds, then dk +=
-// ds^T q over the slice's chunk of q, the slot refilled wherever it does
-// not hold the chunk a product needs.  Only the two CW-wide accumulators
-// live in registers, as at W = 128.  The heads' sum, the partials and the
-// zeros past every query are flash_dkv_kernel's, slice by slice.
-// 219,648 bytes of shared memory.
-template <typename T>
-__global__ void __launch_bounds__(128) flash_dkv_wide_kernel(const Args a) {
-  constexpr int NCV = CW / 32, LF = WIDE + 4, LC = CW + 4, BK = 64, nthr = 128;
+// f32 dk/dv at hd or hd_v > 128.  A thread-block cluster of two CTAs of 8
+// warps per (64 kv rows, `heads` query heads of a kv head's group, batch);
+// CTA x, the ranks' heads, the partials, the group sum and the zeros past
+// every query are flash_dkv_kernel's.  The CTA of cluster rank `half`
+// (blockIdx.y) owns columns [half hk, (half + 1) hk) of k, q and dk and
+// [half hv, (half + 1) hv) of v, do and dv (hk = half_cols(hd), hv =
+// half_cols(hd_v): MLA's 192 / 128 splits 96 + 96 and 64 + 64): it keeps
+// those columns of its K and V rows resident and streams the same columns
+// of q and do, with lse and delta, in tiles of WQT = 32 queries through a
+// ring of 1 or 2 stages: each q / do row by a bulk copy (TMA) that one lane
+// issues, 8 a warp, completing on the slot's mbarrier (rows past Sq are
+// zeroed instead; cp.async copies where a row is not a 16-byte multiple on
+// a 16-byte boundary), lse and delta by cp.async.  Warps w and w + 4 own
+// kv rows 16w .. 16w + 15, each a quarter of the CTA's columns (column
+// group cg = warp / 4): a tile's partial S^T = K q^T and dP^T = V do^T over
+// its quarter go through shared memory to its sibling, both add the
+// quarters (the CTA's half), warp w stores the half of S^T and warp w + 4
+// the half of dP^T into the partner CTA's shared memory (st.async,
+// completing on the partner's mbarrier of the tile's parity: two buffers,
+// so a CTA sends tile t + 1 while its partner still reads tile t), and
+// both wait for the partner's.  Each sum is quarter + quarter, then half +
+// half: an IEEE add commutes, so all four warps of a row group hold the
+// same S^T and dP^T, so the same p and ds bits.  Each warp then adds p^T
+// do into dv and ds^T q into dk for its own quarter.  Every product runs
+// once, and NK / NV 32-column groups of accumulators a lane (2 / 1 at
+// MLA's quarters of 48 / 32) cover a warp's columns.  (One warp a row
+// group, 4 a CTA, ran its products at ~45% of the FFMA rate: one warp a
+// scheduler hides no latency; launch/probe_flash.py.)
+template <int NK, int NV>
+__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(256)
+    flash_dkv_pair_kernel(const Args a) {
+  constexpr int LC = CW + 4, LQ = WQT + 8, BK = 64, nthr = 256;
+  constexpr int SLOT = 2 * WQT * LC + 2 * WQT;
   const int cs = a.parts, G = a.H / a.KVH;
   const int lin = blockIdx.x, per = a.B * a.KVH * cs;
   const int j0 = lin / per * BK, rank = lin % cs;
   const int kvh = (lin / cs) % a.KVH, b = (lin / (cs * a.KVH)) % a.B;
   const int g0 = rank * a.heads, g1 = min(G, g0 + a.heads);
-  const int sl = blockIdx.y, c0 = sl * CW;
-  // this slice's columns of dk and of dv (0 past either's width)
-  const int dkw = max(0, min(CW, a.hd - c0)), dvw = max(0, min(CW, a.hdv - c0));
+  const uint32_t half = cluster_rank(), other = half ^ 1u;
+  const int hk = half_cols(a.hd), hv = half_cols(a.hdv);
+  const int ck = half * hk, cv = half * hv;  // the CTA's first column of each
+  const int dkw = max(0, min(hk, a.hd - ck)), dvw = max(0, min(hv, a.hdv - cv));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
-  const int r0 = warp * 16 + ly;  // the lane's kv rows: r0 + 4i
+  const int rg = warp & 3, cg = warp >> 2;  // row group, column group
+  const int r0 = rg * 16 + ly;              // the lane's kv rows: r0 + 4i
+  // the warp's quarter: columns [qk0, qk0 + dkq) of the CTA's k columns
+  // and [qv0, qv0 + dvq) of its v columns
+  const int qk0 = cg * (hk / 2), qv0 = cg * (hv / 2);
+  const int dkq = max(0, min(hk / 2, dkw - qk0)), dvq = max(0, min(hv / 2, dvw - qv0));
   extern __shared__ __align__(16) float sm[];
-  float* Ks = sm;                  // BK x LF, this CTA's kv rows
-  float* Vs = Ks + BK * LF;
-  float* Ps = Vs + BK * LF;        // p^T, then ds^T: BK (kv) x LDP (q)
-  float* Qc = Ps + BK * LDP;       // a chunk of a q tile, KT x LC
-  float* Oc = Qc + KT * LC;        // and of its do tile
-  float* Lt = Oc + KT * LC;        // the tile's lse, KT
-  float* Dl = Lt + KT;             // and delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);  // the partner's halves of even / odd tiles
+  uint64_t* full = bars + 2;        // q and do of the ring's slot landed
+  float* Ks = sm + 8;               // BK x LC: the CTA's columns of its kv rows
+  float* Vs = Ks + BK * LC;
+  float* Ps = Vs + BK * LC;         // per column group, p^T then ds^T: BK (kv) x LQ (q)
+  float4* Y = reinterpret_cast<float4*>(Ps + 2 * BK * LQ);  // [cg][rg][8][32]: quarters
+  float4* X = Y + 2 * 4 * 8 * 32;   // [parity][rg][8][32]: the partner's halves
+  float* ring = reinterpret_cast<float*>(X + 2 * 4 * 8 * 32);  // stages x (q, do, lse, delta)
 
-  const T* qg = static_cast<const T*>(a.q);
-  const T* og = static_cast<const T*>(a.dout);
+  const float* qg = static_cast<const float*>(a.q);
+  const float* og = static_cast<const float*>(a.dout);
   const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
   const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
-  const T* kb = static_cast<const T*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
-  const T* vb = static_cast<const T*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const long long kbase = (long long)b * a.Skv * kstride + (long long)kvh * a.hd + ck;
+  const long long vbase = (long long)b * a.Skv * vstride + (long long)kvh * a.hdv + cv;
+  // causal: query tiles wholly above this kv tile see none of it
   const int q_begin = a.causal ? j0 : 0;
-  const int nqt = q_begin < a.Sq ? cdiv_c(a.Sq - q_begin, KT) : 0;
-  const int n = (g1 - g0) * nqt, nch = cdiv_c(max(a.hd, a.hdv), CW);
-  // chunk c of ring tile t into the slot, once every warp is past its
-  // last use
-  auto fetch = [&](int t, int c) {
-    __syncthreads();
-    const int h = kvh * G + g0 + t / nqt, i0 = q_begin + (t % nqt) * KT, o = c * CW;
+  const int nqt = q_begin < a.Sq ? cdiv_c(a.Sq - q_begin, WQT) : 0;
+  const int n = (g1 - g0) * nqt, stages = a.stages;
+  const bool bulk = a.vec_q && a.vec_o;  // rows of 16-byte multiples on 16-byte boundaries
+  // tile t into its slot, every warp its 4 rows 4w .. 4w + 3: lanes 0-3 a
+  // q row each and 4-7 a do row (bulk), or every thread its share of
+  // cp.async copies; lanes 8-11 an lse value and 12-15 a delta
+  auto load = [&](int t) {
+    const int sl = t % stages;
+    float* st = ring + sl * SLOT;
+    const int h = kvh * G + g0 + t / nqt, i0 = q_begin + (t % nqt) * WQT;
     const long long srow = ((long long)b * a.H + h) * a.Sq;
-    copy_rows<T, CW>(Qc, qg + (long long)b * a.Sq * qstride + (long long)h * a.hd + o, qstride,
-                     i0, KT, a.Sq, max(0, min(CW, a.hd - o)), a.vec_q, tid, nthr);
-    copy_rows<T, CW>(Oc, og + (long long)b * a.Sq * ostride + (long long)h * a.hdv + o, ostride,
-                     i0, KT, a.Sq, max(0, min(CW, a.hdv - o)), a.vec_o, tid, nthr);
-    copy_vec(Lt, a.lse_in + srow, i0, a.Sq, tid, nthr);
-    copy_vec(Dl, a.delta + srow, i0, a.Sq, tid, nthr);
-    cp_async_commit();
-    cp_async_wait_ring();
-    __syncthreads();
+    const float* qh = qg + (long long)b * a.Sq * qstride + (long long)h * a.hd + ck;
+    const float* oh = og + (long long)b * a.Sq * ostride + (long long)h * a.hdv + cv;
+    if (!bulk) {
+      copy_rows<float, CW>(st, qh, qstride, i0, WQT, a.Sq, dkw, a.vec_q, tid, nthr);
+      copy_rows<float, CW>(st + WQT * LC, oh, ostride, i0, WQT, a.Sq, dvw, a.vec_o, tid, nthr);
+    }
+    const int r = 4 * warp + (lane & 3), kind = lane >> 2;  // row; q, do, lse, delta
+    // the warp's rows with a query: bytes its lanes 0-7 bring
+    const int live = max(0, min(4, a.Sq - i0 - 4 * warp));
+    if (lane == 0) mbar_expect(&full[sl], bulk ? 4u * (dkw + dvw) * live : 0u);
+    if (kind == 2 || kind == 3) {
+      const float* v = (kind == 2 ? a.lse_in : a.delta) + srow;
+      const bool ok = i0 + r < a.Sq;
+      cp_async4(st + 2 * WQT * LC + (kind - 2) * WQT + r, ok ? v + i0 + r : v, ok ? 4 : 0);
+    } else if (kind < 2 && bulk) {
+      const int d = kind == 0 ? dkw : dvw;
+      float* row = st + (kind * WQT + r) * LC;
+      if (i0 + r < a.Sq) {
+        if (d > 0)
+          bulk_copy(row, (kind == 0 ? qh + (long long)(i0 + r) * qstride
+                                    : oh + (long long)(i0 + r) * ostride),
+                    4u * d, &full[sl]);
+      } else {
+        for (int c = 0; c < d; c += 4)
+          *reinterpret_cast<float4*>(row + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        fence_proxy_async();  // the zeros before this lane's later bulk copies here
+      }
+    }
   };
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_init(&full[0], 8);
+    mbar_init(&full[1], 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive_relaxed();  // both CTAs' mbarriers set before either stores
+  cluster_wait();
   if (n > 0) {
-    copy_rows<T, WIDE>(Ks, kb, kstride, j0, BK, a.Skv, a.hd, a.vec_k, tid, nthr);
-    copy_rows<T, WIDE>(Vs, vb, vstride, j0, BK, a.Skv, a.hdv, a.vec_v, tid, nthr);
+    copy_rows<float, CW>(Ks, static_cast<const float*>(a.k) + kbase, kstride, j0, BK,
+                         a.Skv, dkw, a.vec_k, tid, nthr);
+    copy_rows<float, CW>(Vs, static_cast<const float*>(a.v) + vbase, vstride, j0, BK,
+                         a.Skv, dvw, a.vec_v, tid, nthr);
+  }
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
   }
 
+  // where this warp's part goes: the partial of its rank, or dk/dv (G = 1)
   const long long ndk = (long long)a.B * a.Skv * a.KVH * a.hd;
   const long long ndv = (long long)a.B * a.Skv * a.KVH * a.hdv;
-  const long long kbase = (long long)b * a.Skv * kstride + (long long)kvh * a.hd + c0;
-  const long long vbase = (long long)b * a.Skv * vstride + (long long)kvh * a.hdv + c0;
-  float* wk = a.ws ? a.ws + rank * ndk + kbase : nullptr;
-  float* wv = a.ws ? a.ws + cs * ndk + rank * ndv + vbase : nullptr;
-  auto add_part = [&](float* w, const float (&acc)[4][4 * NCV], long long stride, int d,
-                      bool first) {
+  float* wk = a.ws ? a.ws + rank * ndk + kbase + qk0 : nullptr;
+  float* wv = a.ws ? a.ws + cs * ndk + rank * ndv + vbase + qv0 : nullptr;
+  float dk[4][4 * NK], dv[4][4 * NV];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = j0 + r0 + 4 * i;
-      if (row >= a.Skv) continue;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int c = 0; c < NCV; ++c)
+    for (int c = 0; c < 4 * NK; ++c) dk[i][c] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 32 * c + 4 * lx + e;
-          if (col < d) {
-            float* x = w + row * stride + col;
-            *x = (first ? 0.f : *x) + round_to<T>(acc[i][4 * c + e]);
-          }
-        }
-    }
-  };
-
-  float dk[4][4 * NCV], dv[4][4 * NCV];
+    for (int c = 0; c < 4 * NV; ++c) dv[i][c] = 0.f;
+  }
+  // the queries each of the lane's kv rows meets: [qlo, qhi)
+  int qlo[4], qhi[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NCV; ++c) dk[i][c] = dv[i][c] = 0.f;
-  const int hd4 = (a.hd + 3) & ~3, hdv4 = (a.hdv + 3) & ~3;
-  const float sl2 = a.scale * LOG2E;
+  for (int i = 0; i < 4; ++i) {
+    const int kr = j0 + r0 + 4 * i;
+    qlo[i] = a.causal ? kr : 0;
+    qhi[i] = kr < a.Skv ? a.Sq : 0;
+  }
+  const int k4 = (dkq + 3) & ~3, v4 = (dvq + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  float* Pw = Ps + cg * BK * LQ + r0 * LQ;  // the lane's first row of its group's p^T
+  float4* mine = Y + (cg * 4 + rg) * 8 * 32 + lane;      // this warp's quarters
+  const float4* sib = Y + ((cg ^ 1) * 4 + rg) * 8 * 32 + lane;
   for (int t = 0; t < n; ++t) {
-    const int i0 = q_begin + (t % nqt) * KT, kw = j0 + warp * 16;
-    const bool live = !(a.causal && kw > i0 + KT - 1);
-    const bool edge = (a.causal && kw + 15 > i0) || i0 + KT > a.Sq || kw + 16 > a.Skv;
-    float x[4][8];
-    zero_tile(x);
-    for (int c = 0; c < nch; ++c) {
-      fetch(t, c);
-      if (live) nt_accum(x, Ks + r0 * LF + c * CW, LF, Qc + lx * LC, LC, max(0, min(CW, hd4 - c * CW)));
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
     }
-    int held = nch - 1;  // the chunk in the slot
-    if (live) {
+    cp_async_wait_ring();
+    mbar_wait(&full[t % stages], (t / stages) & 1);
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const float* Qt = ring + (t % stages) * SLOT;
+    const float* Ot = Qt + WQT * LC;
+    const float* Lt = Ot + WQT * LC;
+    const float* Dl = Lt + WQT;
+    const int i0 = q_begin + (t % nqt) * WQT, par = t & 1;
+    // a row group has something live unless its kv rows are past Skv or
+    // (causal) all follow the tile's last query; the pair agrees on it
+    auto live = [&](int g) {
+      const int kw = j0 + 16 * g;
+      return kw < a.Skv && !(a.causal && kw > i0 + WQT - 1);
+    };
+    if (tid == 0)  // the partner's live row groups send 2 x 32 x 64 bytes each
+      mbar_expect(&bars[par], 4096u * (live(0) + live(1) + live(2) + live(3)));
+    if (live(rg)) {
+      const int kw = j0 + rg * 16;
+      const bool edge = (a.causal && kw + 15 > i0) || i0 + WQT > a.Sq || kw + 16 > a.Skv;
+      float s[4][4], dp[4][4];
+      // this warp's quarter of S^T = K q^T and of dP^T = V do^T
+      nt_product(s, Ks + r0 * LC + qk0, LC, Qt + lx * LC + qk0, LC, k4);
+      nt_product(dp, Vs + r0 * LC + qv0, LC, Ot + lx * LC + qv0, LC, v4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mine[i * 32] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        mine[(4 + i) * 32] = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      }
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");  // the two quarters written
+      // the CTA's half: quarter + quarter; warp rg stores the half of
+      // S^T into the partner, warp rg + 4 the half of dP^T
+      float4* rx = X + (par * 4 + rg) * 8 * 32 + lane;  // where the partner's halves land
+      const uint32_t bar = map_rank(&bars[par], other);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 os = sib[i * 32], od = sib[(4 + i) * 32];
+        s[i][0] += os.x, s[i][1] += os.y, s[i][2] += os.z, s[i][3] += os.w;
+        dp[i][0] += od.x, dp[i][1] += od.y, dp[i][2] += od.z, dp[i][3] += od.w;
+        const float4 x = cg == 0 ? make_float4(s[i][0], s[i][1], s[i][2], s[i][3])
+                                 : make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+        st_async4(map_rank(rx + (4 * cg + i) * 32, other), x, bar);
+      }
+      mbar_wait(&bars[par], (t >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 rs = rx[i * 32], rd = rx[(4 + i) * 32];
+        const float os[4] = {rs.x, rs.y, rs.z, rs.w}, od[4] = {rd.x, rd.y, rd.z, rd.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float p = exp2_ftz(fmaf(s[i][j] + os[j], sl2, -Lt[lx + 8 * j] * LOG2E));
+          if (edge) {
+            const int qc = i0 + lx + 8 * j;
+            if (!(qc >= qlo[i] && qc < qhi[i])) p = 0.f;
+          }
+          Pw[4 * i * LQ + lx + 8 * j] = p;
+          dp[i][j] += od[j];
+        }
+      }
+      __syncwarp();  // a kv row's p comes from the 8 lanes of its own warp
+      if (dvq > 0) nn_product<NV, WQT>(dv, Pw, LQ, Ot + qv0 + 4 * lx, LC);
+      __syncwarp();  // every lane is past p^T before ds^T replaces it
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float p = exp2_ftz(fmaf(x[i][j], sl2, -Lt[lx + 8 * j] * LOG2E));
-          if (edge) {
-            const int kr = j0 + r0 + 4 * i, qc = i0 + lx + 8 * j;
-            if (!(qc < a.Sq && kr < a.Skv && (!a.causal || kr <= qc))) p = 0.f;
-          }
-          Ps[(r0 + 4 * i) * LDP + lx + 8 * j] = p;
+        for (int j = 0; j < 4; ++j) {
+          float* e = Pw + 4 * i * LQ + lx + 8 * j;
+          *e = *e * (dp[i][j] - Dl[lx + 8 * j]) * a.scale;
         }
-    }
-    if (dvw > 0) {
-      if (held != sl) fetch(t, held = sl);
-      if (live) {
-        __syncwarp();  // a kv row's p comes from the 8 lanes of its own warp
-        nn_product<NCV>(dv, Ps + r0 * LDP, LDP, Oc + 4 * lx, LC);
-      }
-    }
-    if (dkw > 0) {
-      zero_tile(x);
-      for (int c = 0; c < nch; ++c) {
-        if (held != c) fetch(t, held = c);
-        if (live) nt_accum(x, Vs + r0 * LF + c * CW, LF, Oc + lx * LC, LC, max(0, min(CW, hdv4 - c * CW)));
-      }
-      if (live) {
-        __syncwarp();  // every lane is past p^T before ds^T replaces it
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float* e = Ps + (r0 + 4 * i) * LDP + lx + 8 * j;
-            *e = round_to<T>(*e * (x[i][j] - Dl[lx + 8 * j]) * a.scale);
-          }
-      }
-      if (held != sl) fetch(t, held = sl);
-      if (live) {
-        __syncwarp();
-        nn_product<NCV>(dk, Ps + r0 * LDP, LDP, Qc + 4 * lx, LC);
-      }
+      __syncwarp();
+      if (dkq > 0) nn_product<NK, WQT>(dk, Pw, LQ, Qt + qk0 + 4 * lx, LC);
     }
     if (g1 - g0 > 1 && t % nqt == nqt - 1) {  // a head done: into the partial
-      add_part(wk, dk, kstride, dkw, t < nqt);
-      add_part(wv, dv, vstride, dvw, t < nqt);
+      add_part_rows<float, NK>(wk, dk, kstride, dkq, t < nqt, j0 + r0, a.Skv, lx);
+      add_part_rows<float, NV>(wv, dv, vstride, dvq, t < nqt, j0 + r0, a.Skv, lx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int c = 0; c < 4 * NCV; ++c) dk[i][c] = dv[i][c] = 0.f;
+        for (int c = 0; c < 4 * NK; ++c) dk[i][c] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4 * NV; ++c) dv[i][c] = 0.f;
+      }
     }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
   }
   if (g1 - g0 > 1 && n > 0) return;  // the partial holds the rank's heads
   if (wk) {
-    add_part(wk, dk, kstride, dkw, true);
-    add_part(wv, dv, vstride, dvw, true);
+    add_part_rows<float, NK>(wk, dk, kstride, dkq, true, j0 + r0, a.Skv, lx);
+    add_part_rows<float, NV>(wv, dv, vstride, dvq, true, j0 + r0, a.Skv, lx);
     return;
   }
-  T* dkg = static_cast<T*>(a.o1) + kbase;
-  T* dvg = static_cast<T*>(a.o2) + vbase;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = j0 + r0 + 4 * i;
-    if (row >= a.Skv) continue;
-#pragma unroll
-    for (int c = 0; c < NCV; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 32 * c + 4 * lx + e;
-        if (col < dkw) dkg[row * kstride + col] = from_f<T>(dk[i][4 * c + e]);
-        if (col < dvw) dvg[row * vstride + col] = from_f<T>(dv[i][4 * c + e]);
-      }
-  }
+  store_rows<float, NK>(static_cast<float*>(a.o1) + kbase + qk0, dk, kstride, dkq, j0 + r0,
+                        a.Skv, lx);
+  store_rows<float, NV>(static_cast<float*>(a.o2) + vbase + qv0, dv, vstride, dvq, j0 + r0,
+                        a.Skv, lx);
 }
 
 // dk, dv = the `parts` partials of ws summed in rank order
@@ -1607,6 +1801,146 @@ __global__ void __launch_bounds__(256) flash_dkv_tc_kernel(const Args a) {
   }
 }
 
+// The bf16 dq.  One CTA of a.rows / 16 warps per (a.rows = 64 or 128
+// query rows, head, batch), CTA x as flash_dq_kernel's (the heaviest causal
+// tile of every head first, a kv group's heads side by side).  Its q and do
+// rows stay resident; K/V tiles of 64 keys come through a cp.async ring of
+// 1 or 2 stages.  A warp owns 16 query rows and takes a tile in passes of
+// KN keys (64 at D = 64, else 32, which keeps S and dP to 16 registers each
+// beside the D / 2 of dq): S = q K^T and dP = do V^T on mma.sync (q and do
+// re-read from shared memory each pass) land in accumulator layout, and ds
+// = p (dp - delta) scale, rounded to bf16 as the reference rounds it,
+// becomes in registers the A operand of dq += ds K (K through
+// ldmatrix.trans).  The CTA owns every column of dq (at D = 256 its 128 f32
+// accumulators a lane, as the forward's o): no slices, nothing recomputed.
+// Each row's kv tiles, a tile's passes and a pass's 16-key steps are summed
+// in order, whatever the plan.  (At D = 64, 128 registers a thread keep two
+// 128-row CTAs an SM, with no spills: 0.0907 -> 0.0725 ms at llama's
+// shape; left free, ptxas took 178 and one CTA fit.)
+template <int D>
+__global__ void __launch_bounds__(256, D == 64 ? 2 : 1) flash_dq_tc_kernel(const Args a) {
+  constexpr int RS = tc_stride(D), TILE = KT * RS, NO = D / 8;
+  constexpr int KN = D == 64 ? KT : KT / 2, NJ = KN / 8;
+  const int BQ = a.rows, nthr = blockDim.x;
+  const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
+  const int lin = blockIdx.x;
+  const int q0 = (nqt - 1 - lin / HB) * BQ;
+  const int h = lin % a.H, b = (lin / a.H) % a.B;
+  const int kvh = h / (a.H / a.KVH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int wq = q0 + warp * 16;  // the warp's first row; the lane's: wq + g8, + 8
+  extern __shared__ __align__(16) float sm[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(sm);  // BQ rows
+  unsigned char* Os = Qs + BQ * RS;                           // do, BQ rows
+  unsigned char* ring = Os + BQ * RS;                         // stages x (K, V)
+
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const bf16* qb = static_cast<const bf16*>(a.q) + (long long)b * a.Sq * qstride + (long long)h * a.hd;
+  const bf16* ob = static_cast<const bf16*>(a.dout) + (long long)b * a.Sq * ostride + (long long)h * a.hdv;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
+  const bf16* vb = static_cast<const bf16*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
+  const int n = cdiv_c(kv_end, KT), stages = a.stages;
+  auto load = [&](int t) {
+    unsigned char* st = ring + (t % stages) * 2 * TILE;
+    copy_tc<D>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_tc<D>(st + TILE, vb, vstride, t * KT, KT, a.Skv, a.hdv, a.vec_v, tid, nthr);
+  };
+  copy_tc<D>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  copy_tc<D>(Os, ob, ostride, q0, BQ, a.Sq, a.hdv, a.vec_o, tid, nthr);
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
+
+  // -lse log2(e), delta and the keys [0, lim) of the lane's two rows (a row
+  // past Sq: none, so every p is 0)
+  const long long srow = ((long long)b * a.H + h) * a.Sq;
+  float nl[2], dl[2];
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq + g8 + 8 * r;
+    const bool ok = row < a.Sq;
+    nl[r] = ok ? -a.lse_in[srow + row] * LOG2E : 0.f;
+    dl[r] = ok ? a.delta[srow + row] : 0.f;
+    lim[r] = ok ? (a.causal ? min(a.Skv, row + 1) : a.Skv) : 0;
+  }
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  const unsigned char* qw = Qs + warp * 16 * RS;  // the warp's rows of q
+  const unsigned char* ow = Os + warp * 16 * RS;  // and of do
+  const float sl2 = a.scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  for (int t = 0; t < n; ++t) {
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const unsigned char* ks = ring + (t % stages) * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
+#pragma unroll 1
+    for (int ko = 0; ko < KT; ko += KN) {
+      const int jk = t * KT + ko;  // the pass's first key
+      // nothing live for the warp: its rows past Sq, the pass's keys past
+      // Skv, or (causal) every key after the warp's last row
+      if (wq >= a.Sq || jk >= a.Skv || (a.causal && jk > wq + 15)) continue;
+      const bool edge = jk + KN > a.Skv || (a.causal && jk + KN - 1 > wq) || wq + 16 > a.Sq;
+      float x[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] = dp[j][e] = 0.f;
+      mma_nt<D, NJ>(x, qw, ks + ko * RS, lane);   // S = q K^T
+      mma_nt<D, NJ>(dp, ow, vs + ko * RS, lane);  // dP = do V^T
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_ftz(fmaf(x[j][e], sl2, nl[e >> 1]));
+          if (edge && jk + 8 * j + 2 * t4 + (e & 1) >= lim[e >> 1]) p = 0.f;
+          x[j][e] = p * (dp[j][e] - dl[e >> 1]) * a.scale;
+        }
+      // dq += ds K, ds rounded to bf16 as it becomes the A operand
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) {
+        uint32_t da[4];
+        a_frag<NJ>(da, x, kk);
+        mma_nn<D, NO>(dq, da, ks, ko + 16 * kk, 0, lane);
+      }
+    }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
+  }
+
+  bf16* dqg = static_cast<bf16*>(a.o1);
+  const bool pairs = (a.hd & 1) == 0;  // bf16 pairs of a row on 4-byte boundaries
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq + g8 + 8 * r;
+    if (row >= a.Sq) continue;
+    bf16* drow = dqg + ((long long)b * a.Sq + row) * qstride + (long long)h * a.hd;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col >= a.hd) break;
+      const float x0 = dq[j][2 * r], x1 = dq[j][2 * r + 1];
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(drow + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        drow[col] = __float2bfloat16(x0);
+        if (col + 1 < a.hd) drow[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1644,6 +1978,18 @@ int sum_parts(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// the paired f32 dk/dv at W = WIDE: NK / NV accumulator groups that
+// cover a warp's quarter of the columns (2 / 1 where the v quarters are at
+// most 32 wide, as MLA's 192 / 128, else 2 / 2); a cluster of 2 CTAs
+// (blockIdx.y) of 64 kv rows and 8 warps
+template <int NK, int NV>
+cudaError_t launch_dkv_pair(const Args& a, long long grid, int smem, cudaStream_t st) {
+  cudaError_t e;
+  if ((e = set_smem(flash_dkv_pair_kernel<NK, NV>, smem)) != cudaSuccess) return e;
+  flash_dkv_pair_kernel<NK, NV><<<dim3((unsigned)grid, 2), 256, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int W>
 int launch_dkv(const Args& a, cudaStream_t st) {
   const int smem = dkv_smem(a.rows, W, a.stages);
@@ -1651,8 +1997,11 @@ int launch_dkv(const Args& a, cudaStream_t st) {
   cudaError_t e;
   const long long grid = (long long)cdiv(a.Skv, a.rows) * a.B * a.KVH * a.parts;
   if constexpr (W > CW) {
-    if ((e = set_smem(flash_dkv_wide_kernel<T>, smem)) != cudaSuccess) return (int)e;
-    flash_dkv_wide_kernel<T><<<dim3((unsigned)grid, a.slices), 2 * a.rows, smem, st>>>(a);
+    static_assert(sizeof(T) == 4, "bf16 dk/dv runs on the tensor cores");
+    if (a.rows != 64) return (int)cudaErrorInvalidValue;
+    e = half_cols(a.hdv) / 2 <= 32 ? launch_dkv_pair<2, 1>(a, grid, smem, st)
+                                   : launch_dkv_pair<2, 2>(a, grid, smem, st);
+    if (e != cudaSuccess) return (int)e;
   } else {
     if ((e = set_smem(flash_dkv_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
     flash_dkv_kernel<T, W / 32><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
@@ -1685,6 +2034,17 @@ int launch_dkv_tc(const Args& a, cudaStream_t st) {
   return sum_parts<bf16>(a, st);
 }
 
+template <int W>
+int launch_dq_tc(const Args& a, cudaStream_t st) {
+  const int smem = dq_tc_smem(a.rows, W, a.stages);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = set_smem(flash_dq_tc_kernel<W>, smem)) != cudaSuccess) return (int)e;
+  const long long grid = (long long)cdiv(a.Sq, a.rows) * a.H * a.B;
+  flash_dq_tc_kernel<W><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int W>
 int launch_dq(const Args& a, cudaStream_t st) {
   const int smem = dq_smem(a.rows, W);
@@ -1712,11 +2072,6 @@ int width(int hd, int hdv) {
   return m <= 64 ? 64 : m <= CW ? CW : WIDE;
 }
 
-template <int W>
-int launch_dq_bf16(const Args& a, cudaStream_t st) {
-  return launch_dq<bf16, W>(a, st);
-}
-
 // one launch at the call's width: F32<float, W> (dtype 0) or BF16<W>
 #define FLASH_DISPATCH(F32, BF16, dtype, a, st)                                           \
   do {                                                                                     \
@@ -1737,8 +2092,8 @@ bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int h
   a.causal = causal, a.scale = scale;
   a.rows = rows, a.stages = stages;
   a.slices = width(hd, hdv) > CW ? cdiv(hd > hdv ? hd : hdv, CW) : 1;
-  // rows of 16-byte multiples on 16-byte boundaries (the bf16 dq kernel
-  // takes ordinary loads whatever these say)
+  // rows of 16-byte multiples on 16-byte boundaries: 16-byte cp.async
+  // copies, else 4-byte (f32) or 2-byte (bf16) ones
   const int es = dtype == 0 ? 4 : 2;
   a.vec_q = hd * es % 16 == 0 && aligned16(a.q);
   a.vec_k = hd * es % 16 == 0 && aligned16(a.k);
@@ -1767,15 +2122,18 @@ extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const v
   FLASH_DISPATCH(launch_fwd, launch_fwd_tc, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
+// rows: the query rows of a dq CTA, 16 a warp (64 or 128); stages: its
+// K/V ring's, which f32 fixes at DQ_STAGES and bf16 takes as 1 or 2.
 extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const float* lse, const float* delta, void* dq,
                                int B, int Sq, int Skv, int H, int KVH, int hd, int hdv,
-                               int causal, float scale, int rows, void* stream) {
+                               int causal, float scale, int rows, int stages, void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta, a.o1 = dq;
-  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, DQ_STAGES))
+  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, stages) ||
+      (dtype == 0 && stages != DQ_STAGES))
     return (int)cudaErrorInvalidValue;
-  FLASH_DISPATCH(launch_dq, launch_dq_bf16, dtype, a, static_cast<cudaStream_t>(stream));
+  FLASH_DISPATCH(launch_dq, launch_dq_tc, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // ws: `parts` f32 partials of dk then of dv (parts x B x Skv x KVH x (hd

@@ -15,10 +15,11 @@ forward's and dk/dv's ring stages, the query rows of a forward or dq CTA,
 the kv rows of a dk/dv CTA and the query heads it walks, so the partials
 a kv head's group is summed from); each kernel issues its heaviest causal
 tiles first, in the order :func:`_fwd_ctas` (forward and dq) and
-:func:`_dkv_ctas` spell out.  bf16 runs the forward and dk/dv on kernels
-of their own, on the tensor cores (bf16 tiles in shared memory, p and ds
-as register operands of ``mma.sync``), under the plan's bf16 rules; bf16
-dq runs the f32 design with its operands widened.
+:func:`_dkv_ctas` spell out.  bf16 runs all three on kernels of their
+own, on the tensor cores (bf16 tiles in shared memory, p and ds as
+register operands of ``mma.sync``), under the plan's bf16 rules.  f32
+dk/dv past hd 128 runs on pairs of CTAs that split the head dim in halves
+(:func:`_half_cols`) and exchange their partial scores.
 
 ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` are the
 plain PyTorch versions, used for CPU tensors and as what the kernels are
@@ -34,14 +35,15 @@ f32 throughout.
 Layouts are the model's: q (B, Sq, H, hd), k (B, Skv, KVH, hd), v (B, Skv,
 KVH, hd_v), o (B, Sq, H, hd_v) in q's type, lse and delta (B, H, Sq) f32.
 H must be a multiple of KVH; hd and hd_v are at most 256 (``MAX_HEAD_DIM``;
-the kernels split wider heads into 128-column slices, the source's header
-says how); a causal mask compares absolute positions (column <= row), as
-the reference's does.
+the f32 kernels split wider heads into 128-column slices or, dk/dv, into
+the halves of a CTA pair, the source's header says how); a causal mask
+compares absolute positions (column <= row), as the reference's does.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -92,12 +94,36 @@ def _heads_major(x: torch.Tensor, rows: int, G: int = 1) -> torch.Tensor:
     return x.repeat_interleave(G, dim=1) if G > 1 else x
 
 
+# ln 2 as high bits (n * _LN2_HI is exact for |n| < 2^21) and the rest
+_LOG2E = 1.4426950408889634
+_LN2_HI = 6.93147180369123816490e-01
+_LN2_LO = 1.90821492927058770002e-10
+_EXP_TERMS = [1.0 / math.factorial(k) for k in range(14)]
+
+
 def _exp(x: torch.Tensor) -> torch.Tensor:
-    """f32 exp, taken in f64 and rounded: the correctly rounded value the
-    kernels' and the reference's f32 exp approximate to an ulp or two.
-    (torch 2.13's vectorised f32 exp on the CPU has returned values ~1e-4
-    off on its first call in a process.)"""
-    return torch.exp(x.double()).float()
+    """f32 exp, taken in f64 and rounded: the correctly rounded value (but
+    for ~1e-8 of arguments on the CPU) the kernels' and the reference's
+    f32 exp approximate to an ulp or two.  On the CPU it is built from f64
+    adds and multiplies, an exact rounding and an exact power of two, so
+    every element gets the same bits however the elementwise kernels split
+    the tensor: torch 2.13's vectorised CPU exp has returned values ~1e-4
+    (f32) and ~1e-10 (f64) off on part of a tensor on its first call in a
+    process.  x = n ln 2 + r with |r| <= ln 2 / 2, exp(r) by its Taylor
+    series to r^13 (error < 2^-57), times 2^n; x is clamped to [-200, 100],
+    whose ends round to 0 and inf in f32.  A CUDA tensor takes torch's f64
+    exp, one element a thread (the formula's 15 passes over f64 tensors
+    made the plain versions 5x slower on the card)."""
+    if x.is_cuda:
+        return torch.exp(x.double()).float()
+    d = x.double().clamp(-200.0, 100.0)
+    n = torch.round(d * _LOG2E)
+    r = (d - n * _LN2_HI) - n * _LN2_LO
+    e = torch.full_like(r, _EXP_TERMS[-1])
+    for c in reversed(_EXP_TERMS[:-1]):
+        e = e * r + c
+    two_n = ((n.long() + 1023) << 52).view(torch.float64)
+    return (e * two_n).float()
 
 
 def _masked_scores(qb, kb, i, j, bq, bk, kv_len, causal, scale):
@@ -281,10 +307,14 @@ class FlashPlan(NamedTuple):
     slices: int = 1  # 128-column slices of o / dq / dk / dv, each its
     #                  own CTAs (blockIdx.y): ceil(max(hd, hd_v) / 128) past
     #                  W = 128, as the source derives them from hd and hd_v
-    #                  (the bf16 forward holds all of o's columns: it runs
-    #                  one slice whatever this says)
+    #                  (f32 dk/dv: the 2 CTAs of a cluster, each owning
+    #                  half of hd and of hd_v; the bf16 forward and dq hold
+    #                  all of o's / dq's columns: one slice whatever this
+    #                  says)
     fwd_rows: int = 64  # query rows of a forward CTA, 16 a warp (bf16: 64
     #                     or 128)
+    dq_stages: int = 2  # K/V tiles in dq's cp.async ring (f32: always 2;
+    #                     bf16: 1 or 2)
 
 
 _TILE = 64                # rows of a forward CTA and of each ring tile
@@ -296,6 +326,7 @@ _FWD_CTAS = {64: 3, 128: 1, 256: 1}  # forward CTAs an SM by W: its
 _MAX_PARTS = 8            # partials a kv head's group is summed from
 _SLICE = 128              # past W = 128: the columns of an output slice and
 #                           of a streamed chunk
+_WQT = 32                 # query rows of a ring tile of the paired f32 dk/dv
 
 
 def _width(hd: int, hd_v: int) -> int:
@@ -325,11 +356,27 @@ def _dq_smem(rows: int, W: int) -> int:
 
 def _dkv_smem(rows: int, W: int, stages: int) -> int:
     """Shared bytes of a dk/dv CTA of ``rows`` kv rows: K, V, p^T / ds^T,
-    and q, do, lse, delta a stage (at W = 256: 128-column q/do chunks) —
-    ``dkv_smem`` of the source."""
-    wq = _SLICE if W > _SLICE else W
+    and q, do, lse, delta a stage — ``dkv_smem`` of the source.  At W =
+    256 a CTA of a pair: its four mbarriers, its half of K and V (rows 132
+    floats apart), p^T / ds^T of a 32-query tile for each of its two
+    column groups (40), its warps' quarters and two buffers of its
+    partner's halves (128 floats a kv row each) and 32-query q / do / lse
+    / delta tiles a stage."""
+    if W > _SLICE:
+        return 4 * (8 + 2 * rows * (_SLICE + 4) + 2 * rows * (_WQT + 8) +
+                    2 * 128 * rows +
+                    stages * (2 * _WQT * (_SLICE + 4) + 2 * _WQT))
     return 4 * (2 * rows * (W + 4) + rows * 72 +
-                stages * (2 * _TILE * (wq + 4) + 2 * _TILE))
+                stages * (2 * _TILE * (W + 4) + 2 * _TILE))
+
+
+def _half_cols(d: int) -> int:
+    """The columns of a head dim ``d`` that each CTA of a paired f32
+    dk/dv owns (d of k, q, dk or of v, do, dv), a quarter to each of its
+    two column groups of warps: half of d rounded up to 8, so each half
+    and quarter starts on a 16-byte boundary — ``half_cols`` of the
+    source.  MLA's 192 / 128 gives 96 / 64."""
+    return ((d + 1) // 2 + 7) & ~7
 
 
 def _tc_stride(W: int) -> int:
@@ -352,6 +399,12 @@ def _dkv_tc_smem(rows: int, W: int, stages: int) -> int:
         stages * (2 * _TILE * _tc_stride(W) + 2 * _TILE * 4)
 
 
+def _dq_tc_smem(rows: int, W: int, stages: int) -> int:
+    """Shared bytes of a bf16 dq CTA of ``rows`` query rows: q and do, and
+    K and V tiles a stage, all bf16 — ``dq_tc_smem`` of the source."""
+    return _tc_stride(W) * (2 * rows + stages * 2 * _TILE)
+
+
 @functools.lru_cache(maxsize=1024)
 def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
                 dtype: torch.dtype = torch.float32,
@@ -361,7 +414,8 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
                 dkv_rows: Optional[int] = None,
                 dkv_stages: Optional[int] = None,
                 heads: Optional[int] = None,
-                dq_rows: Optional[int] = None) -> FlashPlan:
+                dq_rows: Optional[int] = None,
+                dq_stages: Optional[int] = None) -> FlashPlan:
     """The three kernels' plan for one call.
 
     A forward CTA holds 64 query rows (4 warps); its ring takes the most
@@ -369,28 +423,31 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     at W = 64 one stage and three CTAs (two stages would leave two), at W
     = 128 two, at W = 256 one (two do not fit).  A dq CTA holds 128 query
     rows and a dk/dv CTA 128 kv rows (8 warps) where that fits two ring
-    stages, else 64 (W = 128 and 256).  Past W = 128 each kernel's outputs
-    are cut into ``slices`` 128-column slices, a grid row of CTAs each,
-    and dq and dk/dv stream 128-column chunks through one slot.  dq's
-    ring always has 2 stages (at W = 64, 128 rows and 2 stages measured
-    2-3% faster than 64 rows and 1 stage, two CTAs an SM; PERF.md §6);
-    dk/dv's takes 2 where they fit, else 1.  A dk/dv CTA walks ceil(G /
-    8) query heads, so a kv head's group is summed from at most 8
-    partials.  ``fwd_stages``, ``dq_rows``, ``dkv_rows``, ``dkv_stages``
-    (rows 64 or 128, stages 1 or 2) and ``heads`` override the rules
-    (``launch/bench_flash.py`` times the choices).
+    stages, else 64 (W = 128 and 256).  Past W = 128 the forward's and
+    dq's outputs are cut into ``slices`` 128-column slices, a grid row of
+    CTAs each, and dq streams 128-column chunks through one slot; dk/dv
+    runs a cluster of ``slices`` = 2 CTAs a (kv tile, head group, batch),
+    each owning half of the head dim (:func:`_half_cols`) and streaming
+    32-query tiles.  dq's ring always has 2 stages (at W = 64, 128 rows and
+    2 stages measured 2-3% faster than 64 rows and 1 stage, two CTAs an
+    SM; PERF.md §6); dk/dv's takes 2 where they fit, else 1.  A dk/dv CTA
+    walks ceil(G / 8) query heads, so a kv head's group is summed from at
+    most 8 partials.  ``fwd_stages``, ``dq_rows``, ``dkv_rows``,
+    ``dkv_stages`` (rows 64 or 128, stages 1 or 2) and ``heads`` override
+    the rules (``launch/bench_flash.py`` times the choices).
 
-    bf16 (``dtype``) runs the forward and dk/dv on the tensor-core
-    kernels, whose tiles stay bf16 (``_fwd_tc_smem``, ``_dkv_tc_smem``),
+    bf16 (``dtype``) runs all three kernels on the tensor cores, whose
+    tiles stay bf16 (``_fwd_tc_smem``, ``_dkv_tc_smem``, ``_dq_tc_smem``),
     under rules of their own (``launch/bench_flash.py --dtype bf16
-    --variant`` timed them; PERF.md §6): a forward CTA holds 128 query
-    rows (8 warps) with 2 ring stages, unless the call's ``fwd_units``
-    (its (query row, head, batch) count, B H Sq) give fewer 128-row CTAs
-    than ``num_sms``: then 64 rows, twice the CTAs (seamless's encoder, 16
-    heads of 128 rows: 32 CTAs).  A dk/dv CTA holds 64 kv rows with 2
-    stages up to W = 128 and 128 rows with 1 stage at 256.  ``fwd_rows``
-    (64 or 128) overrides the forward's rows.  dq keeps the f32 tiles of
-    its CUDA-core kernel.  Raises where the kernels do not take the
+    --variant`` timed them; PERF.md §6): a forward or dq CTA holds 128
+    query rows (8 warps), unless the call's ``fwd_units`` (its (query
+    row, head, batch) count, B H Sq) give fewer 128-row CTAs than
+    ``num_sms``: then 64 rows, twice the CTAs (seamless's encoder, 16
+    heads of 128 rows: 32 CTAs).  The forward's ring has 2 stages, dq's 2
+    where they fit, else 1 (128 rows at W = 256).  A dk/dv CTA holds 64
+    kv rows with 2 stages up to W = 128 and 128 rows with 1 stage at 256.
+    ``fwd_rows`` (64 or 128) overrides the forward's rows, ``dq_stages``
+    dq's stages (bf16 only).  Raises where the kernels do not take the
     plan."""
     if max(hd, hd_v) > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels hold hd, hd_v <= "
@@ -406,20 +463,24 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
             raise ValueError(f"a bf16 forward CTA holds 64 or 128 query "
                              f"rows, not {fwd_rows}")
         dkv_rows = dkv_rows or (64 if W <= _SLICE else 128)
+        dq_rows = dq_rows or (64 if few else 128)
     else:
         if (fwd_rows or 64) != 64:
             raise ValueError("an f32 forward CTA holds 64 query rows")
+        if dq_stages not in (None, 2):
+            raise ValueError("an f32 dq ring has 2 stages")
         fwd_rows = 64
         dkv_rows = dkv_rows or (128 if _dkv_smem(128, W, 2) <= _MAX_SMEM
                                 else 64)
+        dq_rows = dq_rows or (128 if _dq_smem(128, W) <= _MAX_SMEM
+                              else 64)
     if dkv_rows not in (64, 128):
         raise ValueError(f"a dk/dv CTA holds 64 or 128 kv rows, not "
                          f"{dkv_rows}")
-    dq_rows = dq_rows or (128 if _dq_smem(128, W) <= _MAX_SMEM else 64)
     if dq_rows not in (64, 128):
         raise ValueError(f"a dq CTA holds 64 or 128 query rows, not "
                          f"{dq_rows}")
-    if _dq_smem(dq_rows, W) > _MAX_SMEM:
+    if not tc and _dq_smem(dq_rows, W) > _MAX_SMEM:
         raise ValueError(f"a dq CTA of {dq_rows} query rows does not fit "
                          f"at width {W}")
 
@@ -433,6 +494,8 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     if tc:
         fwd_smem = functools.partial(_fwd_tc_smem, W, rows=fwd_rows)
         dkv_smem = functools.partial(_dkv_tc_smem, dkv_rows, W)
+        dq_stages = ring(functools.partial(_dq_tc_smem, dq_rows, W),
+                         dq_stages)
     else:
         fwd_smem = functools.partial(_fwd_smem, W)
         dkv_smem = functools.partial(_dkv_smem, dkv_rows, W)
@@ -446,7 +509,7 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     slices = -(-max(hd, hd_v) // _SLICE) if W > _SLICE else 1
     return FlashPlan(ring(fwd_smem, fwd_stages), dkv_rows,
                      ring(dkv_smem, dkv_stages), heads, -(-G // heads),
-                     dq_rows, slices, fwd_rows)
+                     dq_rows, slices, fwd_rows, dq_stages or 2)
 
 
 def _fwd_ctas(B: int, Sq: int, H: int,
@@ -457,7 +520,7 @@ def _fwd_ctas(B: int, Sq: int, H: int,
     ``blockIdx.x``: the last (causally heaviest) tile of every head first,
     a kv group's heads side by side.  Past W = 128 the grid repeats this
     row for each of the plan's ``slices`` (``blockIdx.y``; not the bf16
-    forward's, whose CTAs own all of o's columns)."""
+    forward's or dq's, whose CTAs own all of o's / dq's columns)."""
     nqt, HB = -(-Sq // rows), H * B
     return [(nqt - 1 - lin // HB, lin % H, (lin // H) % B)
             for lin in range(nqt * HB)]
@@ -538,7 +601,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B,
         Sq, Skv, H, KVH, hd, hd_v, int(causal), scale, plan.dq_rows,
-        _stream(q))
+        plan.dq_stages, _stream(q))
     _build.check(err, "flash attention dq")
     flash_dq_cuda.launches += 1
     return dq

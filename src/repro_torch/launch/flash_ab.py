@@ -3,6 +3,7 @@ their bits on the card tests' cases, and their times at the benchmark's
 shapes.
 
     PYTHONPATH=src python src/repro_torch/launch/flash_ab.py [--dtype f32|bf16] [--time] [--out FILE]
+    python src/repro_torch/launch/flash_ab.py --compare A B
 
 Run as a file with ``PYTHONPATH`` at another tree's ``src/`` (the parent
 commit unpacked beside this checkout, say), it drives that tree's
@@ -14,12 +15,16 @@ Without ``--time``: every case of ``FLASH_CASES`` and
 ``WIDE_FLASH_CASES`` (``tests/test_torch_kernels_cuda.py`` beside this
 file's checkout) runs the forward, dq and dk/dv on seeded inputs (delta
 from the kernel forward's o), one line a case with the SHA-256 of the
-bytes of o, lse, dq, dk and dv: two trees whose lines agree give the same
-bits.  With ``--time``: the three kernels at llama3.2-1b's attention (B =
-2, S = 1024, 32 / 8 heads x 64, causal), gemma-2b's (8 / 1 x 256) and
-seamless-m4t-medium's encoder (B = 1, S = 128, 16 x 64, bidirectional),
-the median device ms of 15 runs (``bench_gemm.timer``: L2 flushed before
-each), one line a shape.  Needs a CUDA card.
+bytes of each of o, lse, dq, dk and dv: two trees whose lines agree give
+the same bits.  With ``--time``: the three kernels at llama3.2-1b's
+attention (B = 2, S = 1024, 32 / 8 heads x 64, causal), gemma-2b's (8 / 1
+x 256), seamless-m4t-medium's encoder (B = 1, S = 128, 16 x 64,
+bidirectional) and the expanded MLA's (B = 1, S = 1024, 128 / 128 heads,
+hd 192 / hd_v 128, causal), the median device ms of 15 runs
+(``bench_gemm.timer``: L2 flushed before each), one line a shape.  Needs
+a CUDA card, but for ``--compare A B``, which reads two digest files and
+prints, for each output, the cases whose bits agree and those that
+differ.
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[3]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# name, B, S, H, KVH, hd, causal
-SHAPES = [("llama", 2, 1024, 32, 8, 64, True),
-          ("gemma-2b", 2, 1024, 8, 1, 256, True),
-          ("seamless encoder", 1, 128, 16, 16, 64, False)]
+OUTPUTS = ("o", "lse", "dq", "dk", "dv")
+# name, B, S, H, KVH, hd, hd_v, causal
+SHAPES = [("llama", 2, 1024, 32, 8, 64, 64, True),
+          ("gemma-2b", 2, 1024, 8, 1, 256, 256, True),
+          ("seamless encoder", 1, 128, 16, 16, 64, 64, False),
+          ("MLA expanded", 1, 1024, 128, 128, 192, 128, True)]
 
 
 def cases():
@@ -69,13 +76,28 @@ def run(B, Sq, Skv, H, KVH, hd, hd_v, causal, dtype, seed):
     return (o, lse, dq, dk, dv), thunks
 
 
-def digest(case, dtype) -> str:
+def digest(case, dtype) -> dict:
+    """{output: SHA-256 of its bytes} of one case."""
     outs, _ = run(*case[:8], dtype, sum(case[:7]))
     torch.cuda.synchronize()
-    h = hashlib.sha256()
-    for t in outs:
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()
+    return {name: hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                                 .numpy().tobytes()).hexdigest()
+            for name, t in zip(OUTPUTS, outs)}
+
+
+def compare(a: str, b: str) -> list:
+    """For each output, the cases of two digest files that agree and the
+    cases that differ, one line an output."""
+    ra, rb = ([json.loads(x) for x in Path(f).read_text().splitlines()]
+              for f in (a, b))
+    lines = []
+    for name in OUTPUTS:
+        same = [x["case"] for x, y in zip(ra, rb)
+                if x["case"] == y["case"] and x[name] == y[name]]
+        diff = [x["case"] for x in ra if x["case"] not in same]
+        lines.append(f"{name}: bitwise at {len(same)} of {len(ra)} cases"
+                     + (f"; differ at {diff}" if diff else ""))
+    return lines
 
 
 def main(argv=None) -> int:
@@ -84,7 +106,12 @@ def main(argv=None) -> int:
     ap.add_argument("--time", action="store_true",
                     help="time the kernels at SHAPES instead")
     ap.add_argument("--out", default=None, help="also write the lines here")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="compare two digest files instead")
     args = ap.parse_args(argv)
+    if args.compare:
+        print("\n".join(compare(*args.compare)))
+        return 0
     if not torch.cuda.is_available():
         print("flash_ab: needs a CUDA card")
         return 2
@@ -92,15 +119,15 @@ def main(argv=None) -> int:
     lines = []
     if args.time:
         from repro_torch.launch.bench_gemm import timer
-        for name, B, S, H, KVH, hd, causal in SHAPES:
-            _, thunks = run(B, S, S, H, KVH, hd, hd, causal, dtype, S)
+        for name, B, S, H, KVH, hd, hd_v, causal in SHAPES:
+            _, thunks = run(B, S, S, H, KVH, hd, hd_v, causal, dtype, S)
             lines.append(json.dumps({"shape": name, "dtype": args.dtype, **{
                 f"{k}_ms": timer(f) for k, f in thunks.items()}}))
             print(lines[-1], flush=True)
     else:
         for c in cases():
             lines.append(json.dumps({"case": list(c[:8]),
-                                     "sha256": digest(c, dtype)}))
+                                     **digest(c, dtype)}))
             print(lines[-1], flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

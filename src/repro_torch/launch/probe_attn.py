@@ -76,7 +76,8 @@ def build() -> ctypes.CDLL:
     out.mkdir(parents=True, exist_ok=True)
     (out / "paged_attn_probe.cu").write_text(src + FOOTER)
     lib = out / "paged_attn_probe.so"
-    r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+    r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
+                        str(_build.CSRC), "-o", str(lib),
                         str(out / "paged_attn_probe.cu")],
                        capture_output=True, text=True)
     if r.returncode:

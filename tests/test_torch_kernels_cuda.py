@@ -633,21 +633,33 @@ def test_flash_dkv_bf16_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", FLASH_CASES[:-1],
                          ids=[str(c[:8]) for c in FLASH_CASES[:-1]])
 def test_flash_dq_bf16_matches_plain(cuda, case):
-    """The bf16 dq kernel (operands widened to f32 as they land, ds and dq
-    rounded to bf16) against the plain version at the reference's bf16
-    tolerance, under the plan and under 64-row CTAs."""
-    from repro_torch.kernels.flash_attn import (_flash_plan, flash_dq_cuda,
+    """The bf16 dq kernel (the tensor cores: S and dP on mma.sync, ds
+    rounded to bf16 as the A operand of dq += ds K) against the plain
+    version at the reference's bf16 tolerance, under the plan and under
+    every plan that fits (64 or 128 query rows, 1 or 2 ring stages), each
+    bitwise the plan's (a row's kv tiles and passes are summed in order
+    whatever the CTA)."""
+    from repro_torch.kernels.flash_attn import (_dq_tc_smem, _flash_plan,
+                                                _width, flash_dq_cuda,
                                                 flash_dq_plain)
     B, Sq, Skv, H, KVH, hd, hd_v = case[:7]
-    q, k, v, do, lse, delta = _flash_inputs(case, torch.bfloat16)
+    bf = torch.bfloat16
+    q, k, v, do, lse, delta = _flash_inputs(case, bf)
     kw = dict(causal=case[7], scale=hd ** -0.5)
     want = flash_dq_plain(q, k, v, do, lse, delta, bq=case[8], bk=case[9],
                           **kw)
-    for plan in (None, _flash_plan(H, KVH, hd, hd_v, dq_rows=64)):
-        got = flash_dq_cuda(q, k, v, do, lse, delta, plan=plan, **kw)
-        assert got.dtype == torch.bfloat16
-        assert torch.allclose(got.float(), want.float(), atol=2e-2,
-                              rtol=2e-2), plan
+    got = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    assert got.dtype == bf
+    assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    W = _width(hd, hd_v)
+    for r in (64, 128):
+        for st in (1, 2):
+            if _dq_tc_smem(r, W, st) > 232448:
+                continue
+            p = _flash_plan(H, KVH, hd, hd_v, dtype=bf, dq_rows=r,
+                            dq_stages=st)
+            assert torch.equal(
+                flash_dq_cuda(q, k, v, do, lse, delta, plan=p, **kw), got), p
 
 
 @pytest.mark.parametrize("case", FLASH_CASES[:-1],
@@ -669,10 +681,13 @@ def test_flash_forward_bf16_matches_plain(cuda, case):
     assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
-# hd or hd_v past 128: the kernels' 128-column slices (two here), gemma-2b's
-# 256 (MQA), the expanded MLA's 192 / 128, a ragged 160 / 96 with G = 3,
-# hd_v > hd bidirectional, kv past every query, and G = 16 (two heads a
-# dk/dv CTA)
+# hd or hd_v past 128: the forward's and dq's 128-column slices (two here)
+# and dk/dv's CTA pairs (halves of hd and hd_v), gemma-2b's 256 (MQA), the
+# expanded MLA's 192 / 128, a ragged 160 / 96 with G = 3, hd_v > hd
+# bidirectional, kv past every query, G = 16 (two heads a dk/dv CTA), MLA's
+# widths with G = 6 (6 partials a kv head) and kv past every query, and
+# 150 / 130, whose rows are no 16-byte multiples (dk/dv's cp.async copies in
+# place of bulk ones)
 WIDE_FLASH_CASES = [
     (2, 200, 200, 8, 1, 256, 256, True, 512, 512),
     (1, 130, 130, 16, 16, 192, 128, True, 512, 512),
@@ -680,6 +695,8 @@ WIDE_FLASH_CASES = [
     (1, 130, 70, 4, 2, 64, 256, False, 64, 64),
     (1, 64, 200, 4, 1, 200, 200, True, 64, 64),      # kv past every query
     (1, 129, 129, 16, 1, 256, 256, True, 64, 64),
+    (1, 70, 300, 12, 2, 192, 128, True, 64, 64),     # kv past every query
+    (1, 70, 70, 4, 2, 150, 130, True, 64, 64),
 ]
 
 
@@ -712,9 +729,12 @@ def test_wide_flash_kernels_match_plain(cuda, case):
 @pytest.mark.parametrize("case", WIDE_FLASH_CASES,
                          ids=[str(c[:8]) for c in WIDE_FLASH_CASES])
 def test_wide_flash_kernels_are_bitwise_run_to_run(cuda, case):
-    """Past W = 128, two launches of each kernel give the same bits (every
-    slice rebuilds the scores in the unsplit sum's order; the group sum
-    is ordered)."""
+    """Past W = 128, two launches of each kernel give the same bits: the
+    forward's and dq's slices rebuild the scores in the unsplit sum's
+    order; dk/dv's CTA pairs sum each score as its two halves (lo + hi,
+    so dk/dv's p may differ from the forward's in the last bits, within
+    the reference's gradient tolerance) with no atomics; the group sum is
+    ordered."""
     from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
                                                 flash_fwd_cuda)
     q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
@@ -730,20 +750,48 @@ def test_wide_flash_kernels_are_bitwise_run_to_run(cuda, case):
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
+@pytest.mark.parametrize("case", WIDE_FLASH_CASES,
+                         ids=[str(c[:8]) for c in WIDE_FLASH_CASES])
+def test_wide_dkv_plan_variants_give_the_same_bits(cuda, case):
+    """The paired f32 dk/dv gives the plan's bits with 1 or 2 ring stages
+    (a tile's products and their order do not change) and, where the plan
+    walks one head a CTA, with every head of a group in one CTA (the same
+    f32 adds of the heads, in g order); kv rows past every query get
+    exact zeros."""
+    from repro_torch.kernels.flash_attn import _flash_plan, flash_dkv_cuda
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case[:8]
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
+    kw = dict(causal=causal, scale=hd ** -0.5)
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    want = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    variants = [dict(dkv_stages=1), dict(dkv_stages=2)]
+    if plan.heads == 1 and H > KVH:
+        variants.append(dict(heads=H // KVH))
+    for var in variants:
+        p = _flash_plan(H, KVH, hd, hd_v, **var)
+        got = flash_dkv_cuda(q, k, v, do, lse, delta, plan=p, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), p
+    if causal and Skv > Sq:
+        assert not want[0][:, Sq:].any() and not want[1][:, Sq:].any()
+
+
 BF16_FLASH_CASES = FLASH_CASES + WIDE_FLASH_CASES
 
 
 @pytest.mark.parametrize("case", BF16_FLASH_CASES,
                          ids=[str(c[:8]) for c in BF16_FLASH_CASES])
 def test_flash_bf16_tensor_core_kernels_are_bitwise_run_to_run(cuda, case):
-    """The bf16 forward and dk/dv (the tensor-core kernels): two launches
-    give the same bits (o, lse, dk, dv; the group sum is ordered, no
-    atomics), kv rows past every query get exactly zero dk/dv, and against
-    the plain versions o, dk and dv meet the reference's bf16 tolerance
-    (2e-2) and lse 2e-6 (absolute + relative), on the small cases (the
-    plain version of the last FLASH_CASES shape loops for minutes)."""
+    """The bf16 forward, dq and dk/dv (the tensor-core kernels): two
+    launches give the same bits (o, lse, dq, dk, dv; the group sum is
+    ordered, no atomics), kv rows past every query get exactly zero dk/dv,
+    and against the plain versions o, dq, dk and dv meet the reference's
+    bf16 tolerance (2e-2) and lse 2e-6 (absolute + relative), on the small
+    cases (the plain version of the last FLASH_CASES shape loops for
+    minutes)."""
     from repro_torch.kernels.flash_attn import (flash_dkv_cuda,
                                                 flash_dkv_plain,
+                                                flash_dq_cuda,
+                                                flash_dq_plain,
                                                 flash_fwd_cuda,
                                                 flash_fwd_plain)
     B, Sq, Skv, H, KVH, hd, hd_v, causal, bq, bk = case
@@ -752,17 +800,21 @@ def test_flash_bf16_tensor_core_kernels_are_bitwise_run_to_run(cuda, case):
     o1, l1 = flash_fwd_cuda(q, k, v, **kw)
     o2, l2 = flash_fwd_cuda(q, k, v, **kw)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    dq1 = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dq2 = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dq1, dq2)
     dk1, dv1 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
     dk2, dv2 = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
-    assert dk1.dtype == dv1.dtype == o1.dtype == torch.bfloat16
+    assert dk1.dtype == dv1.dtype == o1.dtype == dq1.dtype == torch.bfloat16
     if causal and Skv > Sq:
         assert not dk1[:, Sq:].any() and not dv1[:, Sq:].any()
     if case == FLASH_CASES[-1]:
         return
     po, plse = flash_fwd_plain(q, k, v, bq=bq, bk=bk, **kw)
+    pdq = flash_dq_plain(q, k, v, do, lse, delta, bq=bq, bk=bk, **kw)
     pdk, pdv = flash_dkv_plain(q, k, v, do, lse, delta, bq=bq, bk=bk, **kw)
-    for got, want in ((o1, po), (dk1, pdk), (dv1, pdv)):
+    for got, want in ((o1, po), (dq1, pdq), (dk1, pdk), (dv1, pdv)):
         assert torch.allclose(got.float(), want.float(), atol=2e-2,
                               rtol=2e-2)
     assert torch.allclose(l1, plse, atol=2e-6, rtol=2e-6)
@@ -773,11 +825,13 @@ def test_flash_bf16_tensor_core_kernels_are_bitwise_run_to_run(cuda, case):
 def test_flash_bf16_plan_variants_give_the_same_bits(cuda, case):
     """Every bf16 plan the tensor-core kernels take gives the plan's bits:
     the forward with 1 or 2 ring stages and 64 or 128 query rows a CTA,
-    dk/dv with 64 or 128 kv rows a CTA and 1 or 2 stages where they fit,
-    and, where the plan walks one head a CTA, every head of a group in one
-    CTA (the same f32 adds of the rounded heads, in g order)."""
-    from repro_torch.kernels.flash_attn import (_dkv_tc_smem, _flash_plan,
-                                                _width, flash_dkv_cuda,
+    dq with 64 or 128 query rows and 1 or 2 stages where they fit, dk/dv
+    with 64 or 128 kv rows a CTA and 1 or 2 stages where they fit, and,
+    where the plan walks one head a CTA, every head of a group in one CTA
+    (the same f32 adds of the rounded heads, in g order)."""
+    from repro_torch.kernels.flash_attn import (_dkv_tc_smem, _dq_tc_smem,
+                                                _flash_plan, _width,
+                                                flash_dkv_cuda, flash_dq_cuda,
                                                 flash_fwd_cuda)
     B, Sq, Skv, H, KVH, hd, hd_v, causal = case[:8]
     bf = torch.bfloat16
@@ -792,6 +846,14 @@ def test_flash_bf16_plan_variants_give_the_same_bits(cuda, case):
                             fwd_rows=r)
             got = flash_fwd_cuda(q, k, v, plan=p, **kw)
             assert all(torch.equal(x, y) for x, y in zip(got, want)), p
+    want = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    for r in (64, 128):
+        for st in (1, 2):
+            if _dq_tc_smem(r, W, st) <= 232448:
+                p = _flash_plan(H, KVH, hd, hd_v, dtype=bf, dq_rows=r,
+                                dq_stages=st)
+                got = flash_dq_cuda(q, k, v, do, lse, delta, plan=p, **kw)
+                assert torch.equal(got, want), p
     want = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
     variants = [dict(dkv_rows=r, dkv_stages=st) for r in (64, 128)
                 for st in (1, 2) if _dkv_tc_smem(r, W, st) <= 232448]

@@ -19,8 +19,9 @@ from repro_torch.core.sara import SaraDispatcher
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attn import (FlashPlan, _dkv_ctas,
                                             _dkv_smem, _dkv_tc_smem,
-                                            _dq_smem,
+                                            _dq_smem, _dq_tc_smem,
                                             _flash_plan, _fwd_ctas,
+                                            _half_cols,
                                             _fwd_smem, _fwd_tc_smem, _width,
                                             flash_dkv_cuda, flash_dq_cuda,
                                             flash_fwd_cuda)
@@ -777,28 +778,38 @@ def test_dq_ctas_cover_every_tile_and_head_once(case, rows):
                                      (160, 96), (64, 200), (129, 129)])
 def test_wide_flash_plan_covers_every_column_slice_once(hd, hd_v):
     """Past W = 128 (hd or hd_v up to 256; 192 runs the 256-wide tiles)
-    every kernel cuts its outputs into 128-column slices, a grid row each
-    (``blockIdx.y``): every (query tile, head, batch) of the forward and
-    dq and every (kv tile, kv head, batch) of dk/dv is a CTA once a slice,
-    and the slices cover each output's columns once.  One ring stage, 64
-    rows a CTA; each CTA's shared bytes (the source's ``*_smem``) within
-    the 227 KB of a CTA, at the bytes the source's header states."""
+    the forward and dq cut their outputs into 128-column slices, a grid row
+    each (``blockIdx.y``), and dk/dv runs a cluster of two CTAs
+    (``slices`` = 2), each owning half of hd and of hd_v: every (query
+    tile, head, batch) of the forward and dq and every (kv tile, kv head,
+    batch) of dk/dv is a CTA once a slice, and the slices (dk/dv: the
+    halves) cover each output's columns once.  The forward one ring stage,
+    64 rows a CTA, dq 64 rows; dk/dv 64 kv rows a CTA and 2 stages of
+    32-query tiles; each CTA's shared bytes (the source's ``*_smem``)
+    within the 227 KB of a CTA, at the bytes the source's header
+    states."""
     H, KVH, B, S = 8, 2, 2, 300
     plan = _flash_plan(H, KVH, hd, hd_v)
     W = _width(hd, hd_v)
     assert W == 256
-    assert plan.slices == -(-max(hd, hd_v) // 128)
+    assert plan.slices == -(-max(hd, hd_v) // 128) == 2
     assert (plan.fwd_stages, plan.dq_rows, plan.dkv_rows,
-            plan.dkv_stages) == (1, 64, 64, 1)
-    assert (_fwd_smem(W, 1), _dq_smem(64, W), _dkv_smem(64, W, 1)) == \
-        (185344, 219136, 219648)
+            plan.dkv_stages) == (1, 64, 64, 2)
+    assert (_fwd_smem(W, 1), _dq_smem(64, W), _dkv_smem(64, W, 2),
+            _dkv_smem(64, W, 1)) == (185344, 219136, 221728, 187680)
     assert max(_fwd_smem(W, 1), _dq_smem(64, W),
-               _dkv_smem(64, W, 1)) <= 232448
+               _dkv_smem(64, W, 2)) <= 232448
     assert min(_fwd_smem(W, 2), _dq_smem(128, W),
-               _dkv_smem(64, W, 2), _dkv_smem(128, W, 1)) > 232448
-    for d in (hd, hd_v):            # o / dv slices, dq / dk slices
+               _dkv_smem(128, W, 1)) > 232448
+    for d in (hd, hd_v):            # o / dq slices
         cols = [c for sl in range(plan.slices)
                 for c in range(sl * 128, min(d, (sl + 1) * 128))]
+        assert cols == list(range(d))
+    for d in (hd, hd_v):            # dk / dv halves of a pair
+        h = _half_cols(d)
+        assert h % 8 == 0 and h <= 128 and 0 <= d - h <= h
+        cols = [c for sl in range(2) for c in range(sl * h,
+                                                     min(d, (sl + 1) * h))]
         assert cols == list(range(d))
     ctas = [(c, sl) for c in _fwd_ctas(B, S, H, plan.dq_rows)
             for sl in range(plan.slices)]
@@ -828,8 +839,8 @@ def test_wide_flash_calls_are_one_launch_each(card, hd, hd_v):
                           "flash_dkv_launch"]
     plan = _flash_plan(H, KVH, hd, hd_v)
     assert card.args[0][11:13] == (hd, hd_v) and card.args[0][15] == 1
-    assert card.args[1][17] == 64
-    assert card.args[2][18:22] == (64, 1, plan.heads, plan.parts)
+    assert card.args[1][17:19] == (64, 2)
+    assert card.args[2][18:22] == (64, 2, plan.heads, plan.parts)
     counts = ops.launch_counts()
     assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"],
             counts["plain_calls"]) == (1, 1, 1, 0)
@@ -942,11 +953,12 @@ def test_flash_default_plan_reaches_the_launch(card):
     flash_dq_cuda(q, k, k, q, lse, lse, causal=True, scale=0.125)
     assert card.args[0][15] == 1
     assert card.args[1][18:22] == (128, 2, 1, 4) and card.args[1][22]
-    assert card.args[2][17] == 128 and len(card.args[2]) == 19
+    assert card.args[2][17:19] == (128, 2) and len(card.args[2]) == 20
 
 
 # _FLASH_GRID's f32 plans as the rules gave them before bf16 had plans of
-# its own: (fwd_stages, dkv_rows, dkv_stages, heads, parts, dq_rows, slices)
+# its own: (fwd_stages, dkv_rows, dkv_stages, heads, parts, dq_rows, slices),
+# but for dk/dv's 2 ring stages at W = 256 since its CTAs run in pairs
 _F32_PLANS = {
     (32, 8, 64, 64): (1, 128, 2, 1, 4, 128, 1),
     (4, 4, 64, 64): (1, 128, 2, 1, 1, 128, 1),
@@ -955,20 +967,22 @@ _F32_PLANS = {
     (96, 8, 128, 128): (2, 64, 2, 2, 6, 64, 1),
     (32, 1, 128, 64): (2, 64, 2, 4, 8, 64, 1),
     (9, 1, 16, 16): (1, 128, 2, 2, 5, 128, 1),
-    (8, 1, 256, 256): (1, 64, 1, 1, 8, 64, 2),
-    (128, 128, 192, 128): (1, 64, 1, 1, 1, 64, 2),
-    (6, 2, 64, 200): (1, 64, 1, 1, 3, 64, 2),
+    (8, 1, 256, 256): (1, 64, 2, 1, 8, 64, 2),
+    (128, 128, 192, 128): (1, 64, 2, 1, 1, 64, 2),
+    (6, 2, 64, 200): (1, 64, 2, 1, 3, 64, 2),
 }
 
 
 @pytest.mark.parametrize("case", _FLASH_GRID, ids=str)
 def test_f32_flash_plans_are_the_rules_before_bf16_plans(case):
     """The f32 plan is the same with ``dtype`` given or not, and equals
-    the plan the rules gave before bf16 had plans of its own."""
+    the plan the rules gave before bf16 had plans of its own (dk/dv at W
+    = 256 aside: 2 stages of the paired kernel); dq's ring 2 stages."""
     H, KVH, hd, hd_v = case[3:7]
     plan = _flash_plan(H, KVH, hd, hd_v, dtype=torch.float32)
     assert plan == _flash_plan(H, KVH, hd, hd_v) == \
         FlashPlan(*_F32_PLANS[(H, KVH, hd, hd_v)])
+    assert plan.dq_stages == 2
 
 
 def test_bf16_flash_tiles_are_the_sources_bytes():
@@ -993,24 +1007,30 @@ def test_bf16_flash_tiles_are_the_sources_bytes():
     (1, 200, 130, 16, 16, 192, 128, False)], ids=str)
 def test_bf16_flash_plan_fits_and_covers_every_tile_head_and_slice_once(
         case):
-    """bf16's plan (the tensor-core forward and dk/dv, the CUDA-core dq):
-    every kernel's CTA within the 227 KB of a CTA; the forward's CTAs
-    cover every (query tile, head, batch) once and own all of o's columns
+    """bf16's plan (the tensor-core forward, dq and dk/dv): every kernel's
+    CTA within the 227 KB of a CTA; the forward's and dq's CTAs cover
+    every (query tile, head, batch) once and own all of o's / dq's columns
     (no slices); dk/dv's cover every (kv tile, kv head, batch) once a
     128-column slice past W = 128, the ``parts`` CTAs of a group walking
     its G heads once in g order, and the slices cover dk's and dv's
     columns once.  The rules: forward CTAs of 128 query rows with 2
-    stages; dk/dv CTAs of 64 kv rows with 2 stages up to W = 128, 128 rows
-    with 1 stage at 256."""
+    stages; dq CTAs of 128 query rows with 2 stages where they fit, else 1
+    (W = 256); dk/dv CTAs of 64 kv rows with 2 stages up to W = 128, 128
+    rows with 1 stage at 256."""
     B, Sq, Skv, H, KVH, hd, hd_v, causal = case
     G, W = H // KVH, _width(hd, hd_v)
     plan = _flash_plan(H, KVH, hd, hd_v, dtype=torch.bfloat16)
     assert (plan.fwd_stages, plan.fwd_rows) == (2, 128)
+    assert (plan.dq_rows, plan.dq_stages) == ((128, 2) if W <= 128
+                                              else (128, 1))
     assert (plan.dkv_rows, plan.dkv_stages) == \
         ((64, 2) if W <= 128 else (128, 1))
     assert max(_fwd_tc_smem(W, plan.fwd_stages, rows=plan.fwd_rows),
                _dkv_tc_smem(plan.dkv_rows, W, plan.dkv_stages),
-               _dq_smem(plan.dq_rows, W)) <= 232448
+               _dq_tc_smem(plan.dq_rows, W, plan.dq_stages)) <= 232448
+    assert sorted(_fwd_ctas(B, Sq, H, plan.dq_rows)) == [
+        (t, h, b) for t in range(-(-Sq // plan.dq_rows)) for h in range(H)
+        for b in range(B)]
     assert plan.slices == (-(-max(hd, hd_v) // 128) if W > 128 else 1)
     assert plan._replace(fwd_stages=1, dkv_rows=64, dkv_stages=1) == \
         _flash_plan(H, KVH, hd, hd_v, dtype=torch.bfloat16, fwd_stages=1,
@@ -1044,9 +1064,9 @@ def test_bf16_flash_plan_fits_and_covers_every_tile_head_and_slice_once(
     (128, 128, 192, 128), (24, 2, 100, 50)])
 def test_bf16_flash_plan_reaches_the_launch(card, H, KVH, hd, hd_v):
     """bf16 calls launch under the bf16 plan, not the f32 one: dtype code
-    1, the forward's stages and rows, dq's rows, dk/dv's rows, stages,
-    heads and parts and (G > 1) its scratch; each call is one counted
-    launch (the group sum included) and no plain call."""
+    1, the forward's stages and rows, dq's rows and stages, dk/dv's rows,
+    stages, heads and parts and (G > 1) its scratch; each call is one
+    counted launch (the group sum included) and no plain call."""
     B, S, bf = 2, 70, torch.bfloat16
     plan = _flash_plan(H, KVH, hd, hd_v, dtype=bf, fwd_units=B * H * S,
                        num_sms=132)
@@ -1064,7 +1084,7 @@ def test_bf16_flash_plan_reaches_the_launch(card, H, KVH, hd, hd_v):
         fwd, dq, dkv = card.args[-3:]
         assert fwd[0] == dq[0] == dkv[0] == 1
         assert fwd[15:17] == (plan.fwd_stages, plan.fwd_rows)
-        assert dq[17] == plan.dq_rows
+        assert dq[17:19] == (plan.dq_rows, plan.dq_stages)
         assert dkv[18:22] == (plan.dkv_rows, plan.dkv_stages, plan.heads,
                               plan.parts)
         assert (dkv[22] is not None) == (H > KVH)
@@ -1092,6 +1112,126 @@ def test_bf16_flash_plan_that_does_not_fit_is_refused_before_a_launch(
     assert card.calls == []
     counts = ops.launch_counts()
     assert counts["flash_fwd"] == counts["flash_dkv"] == 0
+
+
+def test_bf16_dq_tiles_are_the_sources_bytes():
+    """The tensor-core dq's shared bytes (bf16 rows of 2 W + 16 bytes): its
+    64 or 128 q and do rows and 1 or 2 stages of K / V tiles — what the
+    source's ``dq_tc_smem`` gives.  128 rows with 2 stages fit up to W =
+    128; at W = 256 128 rows take 1 stage and 64 rows 2."""
+    assert [_dq_tc_smem(r, W, st) for r in (64, 128) for W in (64, 128, 256)
+            for st in (1, 2)] == [36864, 55296, 69632, 104448, 135168,
+                                  202752, 55296, 73728, 104448, 139264,
+                                  202752, 270336]
+    assert _dq_tc_smem(128, 256, 2) > 232448 >= _dq_tc_smem(128, 256, 1)
+
+
+_BF16_DQ_PLANS = [(r, st) for r in (64, 128) for st in (1, 2)]
+
+
+@pytest.mark.parametrize("case", _FLASH_GRID, ids=str)
+@pytest.mark.parametrize("rows,stages", _BF16_DQ_PLANS)
+def test_bf16_dq_plans_fit_and_cover_every_tile_and_head_once(case, rows,
+                                                              stages):
+    """Every bf16 dq plan (64 or 128 query rows, 1 or 2 ring stages) that
+    fits the 227 KB of a CTA is kept as given, with every other field the
+    rule's, and its CTAs (``_fwd_ctas`` at its rows, one CTA owning all
+    of dq's columns) cover every (query tile, head, batch) once, the
+    heaviest causal tile first; a plan that does not fit raises."""
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case
+    W, bf = _width(hd, hd_v), torch.bfloat16
+    if _dq_tc_smem(rows, W, stages) > 232448:
+        with pytest.raises(ValueError, match="ring stages do not fit"):
+            _flash_plan(H, KVH, hd, hd_v, dtype=bf, dq_rows=rows,
+                        dq_stages=stages)
+        return
+    plan = _flash_plan(H, KVH, hd, hd_v, dtype=bf, dq_rows=rows,
+                       dq_stages=stages)
+    rule = _flash_plan(H, KVH, hd, hd_v, dtype=bf)
+    assert (plan.dq_rows, plan.dq_stages) == (rows, stages)
+    assert plan._replace(dq_rows=rule.dq_rows,
+                         dq_stages=rule.dq_stages) == rule
+    ctas = _fwd_ctas(B, Sq, H, rows)
+    nqt = -(-Sq // rows)
+    assert sorted(ctas) == [(t, h, b) for t in range(nqt) for h in range(H)
+                            for b in range(B)]
+    assert [t for t, _, _ in ctas] == sorted((t for t, _, _ in ctas),
+                                             reverse=True)
+
+
+def test_bf16_dq_rows_follow_the_call_size():
+    """The bf16 dq takes the forward's rows (128 where the call has at
+    least one 128-row CTA an SM, else 64: seamless's encoder and
+    gemma-2b's 8 heads of 1024 take 64) and 2 ring stages where they fit:
+    every such plan at hd 256 too (64 rows); f32 dq plans ignore the call
+    size and keep their 2 stages."""
+    bf = torch.bfloat16
+
+    def dq(H, KVH, hd, units):
+        p = _flash_plan(H, KVH, hd, hd, dtype=bf, fwd_units=units)
+        return p.dq_rows, p.dq_stages
+    assert dq(32, 8, 64, 2 * 32 * 1024) == (128, 2)
+    assert dq(16, 16, 64, 16 * 128) == (64, 2)
+    assert dq(8, 1, 256, 2 * 8 * 1024) == (64, 2)
+    assert dq(4, 4, 256, 132 * 128) == (128, 1)
+    assert _flash_plan(8, 1, 256, 256, fwd_units=1).dq_stages == 2
+    with pytest.raises(ValueError, match="f32 dq ring has 2 stages"):
+        _flash_plan(4, 2, 64, 64, dq_stages=1)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(64, 64), (128, 128), (256, 256),
+                                     (192, 128), (100, 50)])
+@pytest.mark.parametrize("rows,stages", _BF16_DQ_PLANS)
+def test_bf16_dq_plan_reaches_the_launch(card, hd, hd_v, rows, stages):
+    """A bf16 dq plan that fits reaches ``flash_dq_launch``'s rows and
+    stages (dtype code 1), each call one counted launch and no plain call;
+    one that does not fit raises before any launch and counts nothing."""
+    B, S, H, KVH, bf = 2, 70, 8, 2, torch.bfloat16
+    q, do = torch.zeros(B, S, H, hd, dtype=bf), torch.zeros(B, S, H, hd_v,
+                                                            dtype=bf)
+    k = torch.zeros(B, S, KVH, hd, dtype=bf)
+    v = torch.zeros(B, S, KVH, hd_v, dtype=bf)
+    lse = torch.zeros(B, H, S)
+    if _dq_tc_smem(rows, _width(hd, hd_v), stages) > 232448:
+        with pytest.raises(ValueError, match="do not fit"):
+            plan = _flash_plan(H, KVH, hd, hd_v, dtype=bf, dq_rows=rows,
+                               dq_stages=stages)
+            flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1,
+                          plan=plan)
+        assert card.calls == [] and ops.launch_counts()["flash_dq"] == 0
+        return
+    plan = _flash_plan(H, KVH, hd, hd_v, dtype=bf, dq_rows=rows,
+                       dq_stages=stages)
+    for n in (1, 2):
+        flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1,
+                      plan=plan)
+        assert card.calls == ["flash_dq_launch"] * n
+        args = card.args[-1]
+        assert args[0] == 1 and len(args) == 20
+        assert args[8:19] == (B, S, S, H, KVH, hd, hd_v, 1,
+                              pytest.approx(0.1), rows, stages)
+        counts = ops.launch_counts()
+        assert (counts["flash_dq"], counts["plain_calls"]) == (n, 0)
+
+
+@pytest.mark.parametrize("hd,kw", [
+    (256, dict(dq_rows=128, dq_stages=2)), (64, dict(dq_stages=3)),
+    (128, dict(dq_rows=96)), (64, dict(dq_rows=256)),
+    (256, dict(dq_stages=0))])
+def test_bf16_dq_plan_that_does_not_fit_is_refused_before_a_launch(
+        card, hd, kw):
+    """A bf16 dq plan past the tensor-core dq's tiles (128 rows with 2
+    stages at W = 256: 270,336 bytes; 3 or 0 stages; rows not 64 or 128)
+    raises while it is made, before any launch."""
+    bf = torch.bfloat16
+    q, k = (torch.zeros(1, 8, h, hd, dtype=bf) for h in (4, 2))
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="do not fit|64 or 128"):
+        plan = _flash_plan(4, 2, hd, hd, dtype=bf, **kw)
+        flash_dq_cuda(q, k, k, q, lse, lse, causal=True, scale=0.1,
+                      plan=plan)
+    assert card.calls == []
+    assert ops.launch_counts()["flash_dq"] == 0
 
 
 def test_bf16_forward_rows_follow_the_call_size():
