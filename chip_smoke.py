@@ -212,7 +212,7 @@ Phases (any failure exits non-zero):
 15. the other families trained (optimized profile: attention on the flash
    kernels; f32, 4 steps of 2 x 1024 tokens at the step builder's default
    lr 3e-4, random weights from seed 0): (a) gemma-2b at its published widths cut to 6 of 18 layers
-   (MQA at hd 256: the flash kernels' 128-column slices), (b)
+   (MQA at hd 256: the f32 flash kernels on CTA pairs), (b)
    qwen2-moe-a2.7b cut to 1 of 24 layers (60 -> 64 experts top-4 and 4
    shared: each expert bank's dx and dw as one bank launch each), through
    ``train_main`` with its checkpoints, the final tree restored once, (c)
@@ -266,7 +266,7 @@ beside its plain version, its bound and ``matmul`` / SDPA, and phase
 15's: the three flash kernels at gemma-2b's training shape (B = 2, S =
 1024, 8 / 1 heads, hd 256, causal; f32 and bf16, the bf16 gradients held
 to 2e-2) and at deepseek-v3's expanded-MLA training shape (B = 1, S =
-1024, 128 heads, hd 192 / hd_v 128, causal, f32; f32 dk/dv on CTA pairs
+1024, 128 heads, hd 192 / hd_v 128, causal, f32; all three on CTA pairs
 that split the head dim in halves), all three run to run bitwise, and the
 bank GEMM's dx and dw at 15b's expert banks (E = 64, M = 172, f32, the
 transposes read in place) against the plain version and ``torch.bmm``,
@@ -1500,18 +1500,16 @@ def flash_case(torch, timer, gen, name, B, Sq, Skv, causal, dt, H, KVH,
            if zeros is not None else "")
         + (f"; o, lse, dq, dk/dv run to run bitwise {bitwise}"
            if bitwise is not None else "") + f" {'ok' if good else 'FAIL'}")
-    wide_f32 = plan.slices > 1 and dt == f32  # dq slices, dk/dv CTA pairs
+    wide_f32 = plan.slices > 1 and dt == f32  # all three on CTA pairs
     hk, hv = _half_cols(hd), _half_cols(hd_v)
-    dq_ring = ("one chunk slot" if wide_f32
-               else f"{plan.dq_stages} ring stage(s)")
-    pair = (f" in CTA pairs of {hk} + {hd - hk} / {hv} + {hd_v - hv} "
-            f"columns of hd / hd_v, 32-query tiles" if wide_f32 else "")
+    pair = (f"each in CTA pairs of {hk} + {hd - hk} / {hv} + {hd_v - hv} "
+            f"columns of hd / hd_v, 32-row tiles" if wide_f32 else
+            f"{plan.slices} column slice(s)")
     log(f"    plan: forward {plan.fwd_rows} query rows a CTA, "
         f"{plan.fwd_stages} ring stage(s); dq {plan.dq_rows} query rows a "
-        f"CTA, {dq_ring}; dk/dv {plan.dkv_rows} kv rows a CTA{pair}, "
-        f"{plan.dkv_stages} ring stage(s), {plan.heads} head(s) a CTA, "
-        f"{plan.parts} partial(s) a kv head; {plan.slices} column "
-        f"slice(s)")
+        f"CTA, {plan.dq_stages} ring stage(s); dk/dv {plan.dkv_rows} kv "
+        f"rows a CTA, {plan.dkv_stages} ring stage(s), {plan.heads} "
+        f"head(s) a CTA, {plan.parts} partial(s) a kv head; {pair}")
     pairs = B * H * sum(min(r + 1, Skv) if causal else Skv
                         for r in range(Sq))
     es = q.element_size()
@@ -2226,7 +2224,7 @@ def check_p15_bank_grads(torch, report, timer, dispatcher):
 
 def check_p15_kernels(torch, report, timer, dispatcher):
     """Phase 15's shapes: the three flash kernels at gemma-2b's training
-    shape (B = 2, S = 1024, 8 / 1 heads, hd 256: two 128-column slices,
+    shape (B = 2, S = 1024, 8 / 1 heads, hd 256: f32 on CTA pairs,
     causal) in f32 and bf16 and at deepseek-v3's expanded-MLA training
     shape (B = 1, S = 1024, 128 heads, hd 192 / hd_v 128, causal, f32),
     each against its plain version and run to run bitwise, timed beside

@@ -26,9 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# flags of one library only: rsa_psum encodes TMA descriptors through the
-# driver API (cuTensorMapEncodeTiled)
-LIB_FLAGS = {"rsa_psum": ["-lcuda"]}
+# flags of one library only: rsa_psum and flash_attn encode TMA
+# descriptors through the driver API (cuTensorMapEncodeTiled)
+LIB_FLAGS = {"rsa_psum": ["-lcuda"], "flash_attn": ["-lcuda"]}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)

@@ -22,9 +22,9 @@
 // takes exp as exp2 of log2(e)-scaled scores (the f32 forward keeps m in
 // log2 units and returns lse = m ln 2 + log l; the bf16 one keeps the raw
 // scores' max and returns m scale + log l).  Only the summation order and
-// that rounding differ from the reference's (the f32 dk/dv past W = 128
-// sums each score as two halves, so its p may differ from the forward's in
-// the last bits, within the reference's gradient tolerance).
+// that rounding differ from the reference's (past W = 128 the f32 kernels
+// sum each score as four quarters, (q0 + q1) + (q2 + q3), the forward, dq
+// and dk/dv alike, so their scores agree bit for bit).
 //
 // What bounds it on the H100: operations.  At training shapes (S = 1024,
 // hd = 64) every q row meets up to 1024 keys, about 4 hd flops a pair each
@@ -93,7 +93,7 @@
 // The design of the f32 kernels (kernels/flash_attn.py::_flash_plan picks
 // the forward's and dk/dv's ring stages, the rows of a dq or dk/dv CTA and
 // the heads a dk/dv CTA walks; a forward CTA holds 64 query rows, three
-// CTAs an SM at W = 64; dq's ring has 2 stages):
+// CTAs an SM at W = 64; dq's ring has 2 stages up to W = 128):
 //  * Register-blocked products.  A warp owns 16 rows of a tile; lane (ly,
 //    lx) = (lane / 8, lane % 8) owns rows ly + 4i (i < 4) and columns lx +
 //    8j (j < 8) of a 64-column score tile, and columns 32c + 4lx .. +3 (c <
@@ -124,42 +124,47 @@
 //    a CTA and then over the group's CTAs by a second kernel reading their
 //    partials from an f32 scratch (summing across a thread-block cluster
 //    through distributed shared memory measured slower: PERF.md).
-//  * hd or hd_v past 128 (up to WIDE = 256; hd 192 runs the 256-wide tiles):
-//    a 4 x 4 NCV accumulator a thread per output would pass the register
-//    file (dk + dv at W = 256: 256 registers) and dq's and dk/dv's tiles
-//    the 227 KB of a CTA (dq: 417,792 bytes).  The forward and dq: each
-//    CTA owns one CW = 128-column slice of its output (blockIdx.y;
-//    `slices` = ceil(max(hd, hd_v) / 128)) and rebuilds the scores over
-//    the whole head dim once a slice, 64 rows a CTA, one stage.  The
-//    forward keeps WIDE Q and K tiles and a slice-wide V tile (185,344
-//    bytes); dq keeps its q and do rows WIDE and streams K / V in
-//    CW-column chunks through one slot (219,136 bytes), summing each score
-//    over the chunks in order, so its slices and the forward see the same
-//    scores bit for bit.  ptxas gives the forward 254 registers, dq 238.
-//  * dk/dv past 128 (flash_dkv_pair_kernel): the earlier one-slot kernel
-//    (each slice rebuilt S^T and dP^T over the whole head dim, 1.5x the
-//    products at hd 256, and waited on every chunk copy) spent 31-38% of
-//    its cycles in its copies and 34-41% on S^T and dP^T
-//    (launch/probe_flash.py).  Now the two CTAs of a thread-block cluster
-//    each own half of hd and of hd_v (half_cols: MLA's 192 / 128 splits
-//    96 + 96 and 64 + 64, so the pair's work is even), keep those columns
-//    of their 64 K and V rows resident and stream the same columns of q
-//    and do in 32-query tiles through a 2-stage ring of bulk copies (TMA);
-//    within a CTA two warps share each 16 kv rows, a quarter of the
-//    columns each.  Each warp computes S^T and dP^T over its quarter, the
-//    pair of warps adds its quarters through shared memory, the CTA sends
-//    its halves into its partner's shared memory (st.async on the
-//    partner's mbarrier, two buffers), and all four warps of a row group
-//    add the halves (an IEEE add commutes, so all hold the same p and ds
-//    bits), each then adding p^T do and ds^T q into its own quarter of dv
-//    and dk.  Every product runs once.  221,728 bytes a CTA with 2 stages:
-//    one CTA of 8 warps an SM (4 warps a CTA, one a scheduler, ran the
-//    products at ~45% of the FFMA rate).  Up to W = 128 nothing of this
-//    runs: blockIdx.y is 0 and the tiles are the ones above.
+//  * hd or hd_v past 128 (up to WIDE = 256; hd 192 runs the 256-wide
+//    tiles): a 4 x 4 NCV accumulator a thread per output would pass the
+//    register file (dk + dv at W = 256: 256 registers) and the tiles the
+//    227 KB of a CTA.  The first design (each CTA one 128-column
+//    slice of its output, rebuilding the scores over the whole head dim,
+//    K / V chunks through one unoverlapped slot) spent 21-38% of its cycles
+//    waiting on its copies and rebuilt S (and dP) once a slice: 1.5x the
+//    forward's products at hd 256, 1.67x dq's (launch/probe_flash.py).  Now
+//    all three (flash_fwd_pair_kernel, flash_dq_pair_kernel,
+//    flash_dkv_pair_kernel) run on the two CTAs of a thread-block cluster,
+//    each owning half of hd and of hd_v (half_cols: MLA's 192 / 128 splits
+//    96 + 96 and 64 + 64, so the pair's work is even), 8 warps a CTA, one
+//    CTA an SM (4 warps, one a scheduler, ran the dk/dv's products at ~45%
+//    of the FFMA rate).  A CTA keeps those columns of its resident rows
+//    (the forward's 128 q rows, dq's 64 q and do rows, dk/dv's 64 K and V
+//    rows) and streams the same columns of the other operands in 32-row
+//    tiles through a 2-stage ring: the forward's and dq's K and V by two
+//    tensor copies (TMA) a tile, issued by one thread, dk/dv's q and do by
+//    a bulk copy a row (cp.async where a row is not a 16-byte multiple on
+//    a 16-byte boundary).  Each sums a tile's scores over the quarters of
+//    its half of the head dim, quarter + quarter, and sends the half into
+//    its partner's shared memory (st.async on the partner's mbarrier, two
+//    buffers by parity), where it is added to the partner's half: an IEEE
+//    add commutes, so both CTAs hold the same S (and dP), and the three
+//    kernels' scores agree bit for bit.  The forward's warps each own 16
+//    query rows and all of their CTA's columns (the o accumulators fit),
+//    summing the quarters themselves; dq's and dk/dv's warps come in pairs
+//    over 16 rows, a quarter each, whose quarters meet in shared memory.
+//    Each warp then forms p (and ds: dq's pair splits the tile's keys
+//    between its two warps) and adds P V, ds K or p^T do and ds^T q into
+//    its columns of o, dq or dk and dv.  Every product runs once.
+//    188,576 / 211,104 / 221,728 bytes a forward / dq / dk/dv CTA with 2
+//    stages.  Up to W = 128 nothing of this runs: blockIdx.y is 0 and the
+//    tiles are the ones above.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
 
 #include "mma_bf16.cuh"
 
@@ -171,11 +176,14 @@ constexpr float NEG = -1e30f;
 constexpr int KT = 64;         // kv rows (forward, dq) / query rows (dk/dv) a tile
 constexpr int FWD_THREADS = 128;  // 64 query rows of a forward CTA
 constexpr int LDP = KT + 8;    // row stride of a p / ds tile
-constexpr int DQ_STAGES = 2;   // K/V tiles in dq's cp.async ring
+constexpr int DQ_STAGES = 2;   // K/V tiles in dq's cp.async ring up to W = 128
 constexpr int MAX_SMEM = 232448;
 constexpr int CW = 128;        // a column slice / chunk of the head dim past W = 128
 constexpr int WIDE = 256;      // the tile width of every call with hd or hd_v > 128
 constexpr int WQT = 32;        // query rows of a ring tile of the paired f32 dk/dv
+constexpr int WKT = 32;        // kv rows of a ring tile of the paired f32 forward and dq
+constexpr int PAIR_HEAD = 40;  // floats before the paired forward's / dq's tiles: four
+                               // mbarriers, and slack to align the tiles to 128 bytes
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -309,6 +317,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+// a box of a 4-D tensor map (TMA) at coordinates (c0, c1, c2, c3) into
+// this CTA's shared memory (128-byte aligned), completing on mbarrier
+// `bar`; elements past the tensor's edges land as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
 // this thread's earlier shared-memory stores ordered before its later
 // bulk copies into the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
@@ -328,15 +348,18 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float4 v, uint32_t bar)
 // register-blocked products (lane (ly, lx) of a warp owning 16 rows)
 // ---------------------------------------------------------------------------
 
-// acc[i][j] += sum_{k < k4} A[4i * lda + k] * Bm[8j * ldb + k], k ascending:
-// A points at the lane's first row (row ly of the warp's 16), Bm at its
-// first column (row lx of the other operand); both row-major along k, k4 a
-// multiple of 4.  A sum split over column chunks of the head dim and taken
-// chunk after chunk into one acc keeps the order of the unsplit sum.  NJ
-// columns a lane: a 64-column score tile (8) or a 32-column one (4).
+// acc[i][j] = sum_{k < k4} A[4i * lda + k] * Bm[8j * ldb + k] from zero, k
+// ascending: A points at the lane's first row (row ly of the warp's 16),
+// Bm at its first column (row lx of the other operand); both row-major
+// along k, k4 a multiple of 4.  NJ columns a lane: a 64-column score tile
+// (8) or a 32-column one (4).
 template <int NJ>
-__device__ __forceinline__ void nt_accum(float (&acc)[4][NJ], const float* A, int lda,
-                                         const float* Bm, int ldb, int k4) {
+__device__ __forceinline__ void nt_product(float (&acc)[4][NJ], const float* A, int lda,
+                                           const float* Bm, int ldb, int k4) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
   for (int k = 0; k < k4; k += 4) {
     float4 a[4], b[NJ];
@@ -358,28 +381,16 @@ __device__ __forceinline__ void nt_accum(float (&acc)[4][NJ], const float* A, in
   }
 }
 
-template <int NJ>
-__device__ __forceinline__ void zero_tile(float (&acc)[4][NJ]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-}
-
-// acc = the product above from zero
-template <int NJ>
-__device__ __forceinline__ void nt_product(float (&acc)[4][NJ], const float* A, int lda,
-                                           const float* Bm, int ldb, int k4) {
-  zero_tile(acc);
-  nt_accum(acc, A, lda, Bm, ldb, k4);
-}
-
 // acc[i][4c + e] += sum_{k < KN} P[4i * ldp + k] * V[k * ldv + 32c + e]:
 // P points at the lane's first row of a p / ds tile, V at column 4lx of
-// the B operand (KN rows, row-major along the output columns).
-template <int NCV, int KN = KT>
-__device__ __forceinline__ void nn_product(float (&acc)[4][4 * NCV], const float* P, int ldp,
-                                           const float* V, int ldv) {
+// the B operand (KN rows, row-major along the output columns).  NT = 1
+// adds a 16-column tail, columns 32 NCV + 2lx and + 1 in acc[i][4 NCV +
+// e] from V2 (column 32 NCV + 2lx): a 48-column quarter without 16
+// columns of waste.  Each column's sum runs k ascending whatever its lane.
+template <int NCV, int KN = KT, int NT = 0>
+__device__ __forceinline__ void nn_product(float (&acc)[4][4 * NCV + 2 * NT], const float* P,
+                                           int ldp, const float* V, int ldv,
+                                           const float* V2 = nullptr) {
 #pragma unroll 2
   for (int k = 0; k < KN; k += 4) {
     float4 p[4];
@@ -391,6 +402,8 @@ __device__ __forceinline__ void nn_product(float (&acc)[4][4 * NCV], const float
 #pragma unroll
       for (int c = 0; c < NCV; ++c)
         v[c] = *reinterpret_cast<const float4*>(V + (k + kk) * ldv + 32 * c);
+      float2 w;
+      if constexpr (NT > 0) w = *reinterpret_cast<const float2*>(V2 + (k + kk) * ldv);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = kk == 0 ? p[i].x : kk == 1 ? p[i].y : kk == 2 ? p[i].z : p[i].w;
@@ -400,6 +413,10 @@ __device__ __forceinline__ void nn_product(float (&acc)[4][4 * NCV], const float
           acc[i][4 * c + 1] = fmaf(a, v[c].y, acc[i][4 * c + 1]);
           acc[i][4 * c + 2] = fmaf(a, v[c].z, acc[i][4 * c + 2]);
           acc[i][4 * c + 3] = fmaf(a, v[c].w, acc[i][4 * c + 3]);
+        }
+        if constexpr (NT > 0) {
+          acc[i][4 * NCV + 0] = fmaf(a, w.x, acc[i][4 * NCV + 0]);
+          acc[i][4 * NCV + 1] = fmaf(a, w.y, acc[i][4 * NCV + 1]);
         }
       }
     }
@@ -424,8 +441,10 @@ struct Args {
   int B, Sq, Skv, H, KVH, hd, hdv, causal;
   float scale;
   int rows, stages, heads, parts;  // rows: the query / kv rows of a CTA
-  int slices;        // CW-column slices of the outputs (blockIdx.y); 1 up to W = 128
+  int slices;        // past W = 128 2: an f32 CTA pair, or bf16 dk/dv's CW-column slices
+                     // (blockIdx.y); 1 up to W = 128
   int vec_q, vec_k, vec_v, vec_o;
+  int tma;           // the paired forward's / dq's K / V tiles by tensor maps
 };
 
 __host__ __device__ constexpr int cdiv_c(int a, int b) { return (a + b - 1) / b; }
@@ -436,19 +455,26 @@ __host__ __device__ constexpr int cdiv_c(int a, int b) { return (a + b - 1) / b;
 __host__ __device__ constexpr int half_cols(int d) { return ((d + 1) / 2 + 7) & ~7; }
 
 // shared memory (bytes) of a forward CTA (64 query rows), of a dq CTA of
-// `rows` query rows (DQ_STAGES ring stages) and of a dk/dv CTA of `rows`
-// kv rows, at tile width W and `stages` ring stages.  At W = WIDE the
-// forward's V tiles are one CW-column slice wide, dq's ring is one slot of
-// CW-column chunks, and a dk/dv CTA of a pair holds its mbarriers, its
-// K / V columns (CW + 4 floats a row), p^T / ds^T of each column group
-// (WQT + 8), its warps' quarters and two buffers of the partner's halves
-// (32 floats a lane, 128 a kv row each) and `stages` WQT-query q / do /
-// lse / delta tiles (see flash_dkv_pair_kernel)
+// `rows` query rows and of a dk/dv CTA of `rows` kv rows, at tile width W
+// and `stages` ring stages (dq: DQ_STAGES up to W = 128).  At W = WIDE
+// each is a CTA of a pair (CW + 4 floats a row of its columns) with its
+// four mbarriers (forward and dq: PAIR_HEAD floats with the slack that
+// aligns their tiles to 128 bytes).  The forward holds its 128 q rows, their p (WKT + 8
+// floats a row), two buffers of the partner's halves of S (WKT floats a
+// row each) and `stages` WKT-key K / V tiles (flash_fwd_pair_kernel); dq
+// its `rows` q and do rows, their ds tile, its warps' quarters and two buffers of the partner's halves of S and dP (128 floats
+// a row each) and `stages` K / V tiles (flash_dq_pair_kernel); dk/dv its K
+// / V rows, p^T / ds^T of each column group (WQT + 8), quarters and halves
+// of S^T and dP^T and `stages` WQT-query q / do / lse / delta tiles
+// (flash_dkv_pair_kernel)
 __host__ __device__ constexpr int fwd_smem(int W, int stages) {
-  return 4 * (64 * (W + 4) + stages * KT * ((W + 4) + (W > CW ? CW : W) + 4) + 64 * LDP);
+  return W > CW ? 4 * (PAIR_HEAD + 128 * (CW + 4) + 128 * (WKT + 8) + 2 * WKT * 128 +
+                       stages * 2 * WKT * (CW + 4))
+                : 4 * (64 * (W + 4) + stages * KT * 2 * (W + 4) + 64 * LDP);
 }
-__host__ __device__ constexpr int dq_smem(int rows, int W) {
-  return W > CW ? 4 * (2 * rows * (W + 4) + rows * LDP + 2 * KT * (CW + 4))
+__host__ __device__ constexpr int dq_smem(int rows, int W, int stages) {
+  return W > CW ? 4 * (PAIR_HEAD + 2 * rows * (CW + 4) + rows * (WKT + 8) + 2 * 128 * rows +
+                       stages * 2 * WKT * (CW + 4))
                 : 4 * (2 * rows * (W + 4) + rows * LDP + DQ_STAGES * 2 * KT * (W + 4));
 }
 __host__ __device__ constexpr int dkv_smem(int rows, int W, int stages) {
@@ -481,18 +507,14 @@ __host__ __device__ constexpr int dq_tc_smem(int rows, int D, int stages) {
 // One CTA of 4 warps holds BQ = 64 query rows of one (head, batch): CTA x
 // = (tile t from the last, head h, batch b) = ((nqt - 1 - t) * B + b) * H
 // + h, so every head's heaviest causal tile starts first.  At W = 64 three
-// CTAs fit an SM with one ring stage (168 registers).  Q and K tiles are WQ
-// wide, V tiles and the output 32 NCV = WV: WQ = WV up to 128; at WQ =
-// WIDE the CTA computes the CW-column slice blockIdx.y of o (the scores
-// over the whole hd, once a slice), one ring stage (185,344 bytes).
-template <typename T, int NCV, int WQ>
-__global__ void __launch_bounds__(FWD_THREADS, WQ == 64 ? 3 : 1)
+// CTAs fit an SM with one ring stage (168 registers).  Tiles and the
+// output are 32 NCV = W <= 128 wide (wider heads: flash_fwd_pair_kernel).
+template <typename T, int NCV>
+__global__ void __launch_bounds__(FWD_THREADS, NCV == 2 ? 3 : 1)
     flash_fwd_kernel(const Args a) {
-  constexpr int WV = 32 * NCV, LQ = WQ + 4, LV = WV + 4, BQ = 64, nthr = FWD_THREADS;
+  constexpr int W = 32 * NCV, LQ = W + 4, LV = W + 4, BQ = 64, nthr = FWD_THREADS;
   const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
-  const int lin = blockIdx.x, sl = blockIdx.y, c0 = sl * WV;
-  if (c0 >= a.hdv) return;  // a slice past o's columns (hd wider than hd_v)
-  const int dv = min(WV, a.hdv - c0);  // the slice's columns of o
+  const int lin = blockIdx.x;
   const int q0 = (nqt - 1 - lin / HB) * BQ;
   const int h = lin % a.H, b = (lin / a.H) % a.B;
   const int kvh = h / (a.H / a.KVH);
@@ -511,15 +533,15 @@ __global__ void __launch_bounds__(FWD_THREADS, WQ == 64 ? 3 : 1)
   const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
   const T* qb = qg + (long long)b * a.Sq * qstride + (long long)h * a.hd;
   const T* kb = kg + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
-  const T* vb = vg + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv + c0;
+  const T* vb = vg + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
   const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
   const int n = cdiv_c(kv_end, KT), stages = a.stages;
   auto load = [&](int t) {
     float* st = ring + (t % stages) * slot;
-    copy_rows<T, WQ>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
-    copy_rows<T, WV>(st + KT * LQ, vb, vstride, t * KT, KT, a.Skv, dv, a.vec_v, tid, nthr);
+    copy_rows<T, W>(st, kb, kstride, t * KT, KT, a.Skv, a.hd, a.vec_k, tid, nthr);
+    copy_rows<T, W>(st + KT * LQ, vb, vstride, t * KT, KT, a.Skv, a.hdv, a.vec_v, tid, nthr);
   };
-  copy_rows<T, WQ>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
+  copy_rows<T, W>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
   for (int s = 0; s + 1 < stages; ++s) {
     if (s < n) load(s);
     cp_async_commit();
@@ -610,15 +632,276 @@ __global__ void __launch_bounds__(FWD_THREADS, WQ == 64 ? 3 : 1)
     const int row = q0 + r0 + 4 * i;
     if (row >= a.Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv + c0;
+    T* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv;
 #pragma unroll
     for (int c = 0; c < NCV; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 32 * c + 4 * lx + e;
-        if (col < dv) orow[col] = from_f<T>(o[i][4 * c + e] / lc);
+        if (col < a.hdv) orow[col] = from_f<T>(o[i][4 * c + e] / lc);
       }
-    if (lx == 0 && sl == 0) a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(lc);
+    if (lx == 0) a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(lc);
+  }
+}
+
+// Whether row group g (16 query rows from q0) of a paired f32 forward or
+// dq CTA has something live in the kv tile from j0: its rows not all past
+// Sq and, causally, not all left of the tile's first key.  The pair agrees
+// on it, and a group dead at one tile stays dead, so the partner's halves
+// of a group are sent, and expected, exactly where it is live.
+__device__ __forceinline__ bool pair_live(const Args& a, int q0, int g, int j0) {
+  const int w = q0 + 16 * g;
+  return w < a.Sq && !(a.causal && j0 > w + 15);
+}
+
+// The kv tiles of a paired f32 forward or dq CTA: tile t of WKT keys into
+// ring slot `st` (128-byte aligned), K's columns from ck and V's from cv of
+// kv head kvh, batch b.  With tensor maps (a.tma: rows of 16-byte multiples
+// on 16-byte boundaries; `mk`, `mv` from kv_map) thread 0 issues one tensor
+// copy (TMA) of each, hk + 4 and hv + 4 columns by WKT rows, so the rows
+// land hk + 4 and hv + 4 floats apart (4 mod 8: the 8 rows a lane group
+// reads fall on distinct banks), completing on the slot's mbarrier `full`;
+// the hardware zero-fills rows past Skv (a masked key's p is 0, and 0
+// times stale bits could be NaN) and columns past hd / hd_v.  Else every
+// thread issues its share of cp.async copies (rows CW + 4 floats apart) and
+// thread 0 arrives on `full` with no bytes.
+__device__ __forceinline__ void pair_load_kv(const Args& a, const CUtensorMap* mk,
+                                             const CUtensorMap* mv, float* st, uint64_t* full,
+                                             const float* kh, const float* vh,
+                                             long long kstride, long long vstride, int j0, int b,
+                                             int kvh, int ck, int cv, int hk, int hv, int dkw,
+                                             int dvw, int tid) {
+  float* vt = st + WKT * (CW + 4);
+  if (a.tma) {
+    if (tid == 0) {
+      mbar_expect(full, 4u * WKT * (hk + hv + 8));
+      tma_load_4d(st, mk, full, ck, kvh, j0, b);
+      tma_load_4d(vt, mv, full, cv, kvh, j0, b);
+    }
+  } else {
+    copy_rows<float, CW>(st, kh, kstride, j0, WKT, a.Skv, dkw, a.vec_k, tid, 256);
+    copy_rows<float, CW>(vt, vh, vstride, j0, WKT, a.Skv, dvw, a.vec_v, tid, 256);
+    if (tid == 0) mbar_expect(full, 0u);
+  }
+}
+
+// A paired f32 forward's or dq's four mbarriers at `bars` (the partner's
+// halves of even and odd tiles, then the ring's two slots, one arrival
+// each) set in both CTAs before either stores into the other.
+__device__ __forceinline__ void pair_start(uint64_t* bars, int tid) {
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive_relaxed();
+  cluster_wait();
+}
+
+// The shared tiles of a paired f32 forward or dq CTA start 128 bytes
+// aligned after its four mbarriers at `sm` (PAIR_HEAD floats in all).
+__device__ __forceinline__ float* pair_tiles(float* sm) {
+  return sm + 8 + ((128u - (smem_addr(sm + 8) & 127u)) & 127u) / 4;
+}
+
+// f32 forward at hd or hd_v > 128.  A thread-block cluster of two CTAs of 8
+// warps per (128 query rows, head, batch); CTA x and the order of the
+// tiles are flash_fwd_kernel's at 128 rows.  The CTA of cluster rank
+// `half` (blockIdx.y) owns columns [half hk, (half + 1) hk) of q and k and
+// [half hv, (half + 1) hv) of v and o (hk = half_cols(hd), hv =
+// half_cols(hd_v)): it keeps those columns of its q rows resident and
+// streams the same columns of K and V in tiles of WKT = 32 keys through a
+// ring of 1 or 2 stages (pair_load_kv).  Warp w owns query rows 16w .. 16w
+// + 15 and all of its CTA's columns.  It sums a tile's S = q K^T over each
+// quarter of the head dim that dq's and dk/dv's warps own (columns [0,
+// hk / 2) and [hk / 2, hk) of its half) apart and adds the two (quarter +
+// quarter, the CTA's half), stores the half into the partner CTA's shared
+// memory (st.async on the partner's mbarrier of the tile's parity: two
+// buffers) and adds the partner's half: the same adds as dq's and dk/dv's,
+// and an IEEE add commutes, so both CTAs hold the same S and the three
+// kernels' scores agree bit for bit.  Each warp runs the online softmax of
+// its rows (m and p: the same bits in both CTAs; each lane keeps its share
+// of l, summed over the row's 8 lanes at the end) and adds P V into its
+// CTA's columns of o, NV 32-column groups of accumulators a lane (2 at
+// MLA's half of 64, 4 at gemma-2b's 128).  Every product runs once.  Rank 0
+// writes lse.  (Two warps a row group, each owning a quarter, as dk/dv's,
+// ran the softmax four times a row and took MLA's forward from 2.02 to 2.39
+// ms: PERF.md.)
+template <int NV>
+__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(256, 1)
+    flash_fwd_pair_kernel(const Args a, const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv) {
+  constexpr int LC = CW + 4, LP = WKT + 8, BQ = 128;
+  constexpr int SLOT = 2 * WKT * LC;
+  const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
+  const int lin = blockIdx.x;
+  const int q0 = (nqt - 1 - lin / HB) * BQ;
+  const int h = lin % a.H, b = (lin / a.H) % a.B;
+  const int kvh = h / (a.H / a.KVH);
+  const uint32_t half = cluster_rank(), other = half ^ 1u;
+  const int hk = half_cols(a.hd), hv = half_cols(a.hdv);
+  const int ck = half * hk, cv = half * hv;  // the CTA's first column of each
+  const int dkw = max(0, min(hk, a.hd - ck)), dvw = max(0, min(hv, a.hdv - cv));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
+  const int r0 = warp * 16 + ly;  // the lane's rows: r0 + 4i
+  // the quarters' widths, rounded up to 4 (the columns past dkw are zero)
+  const int k4a = (min(hk / 2, dkw) + 3) & ~3, k4b = (max(0, dkw - hk / 2) + 3) & ~3;
+  extern __shared__ __align__(16) float sm[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);  // the partner's halves of even / odd tiles
+  uint64_t* full = bars + 2;        // K and V of the ring's slot landed
+  float* Qs = pair_tiles(sm);       // BQ x LC: the CTA's columns of its q rows
+  float* Ps = Qs + BQ * LC;         // p: BQ x LP, each warp its own rows
+  float4* X = reinterpret_cast<float4*>(Ps + BQ * LP);  // [parity][warp][4][32]: the partner's halves
+  float* ring = reinterpret_cast<float*>(X + 2 * 8 * 4 * 32);  // stages x (K, V)
+
+  const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
+  const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
+  const float* qh = static_cast<const float*>(a.q) + (long long)b * a.Sq * qstride +
+                    (long long)h * a.hd + ck;
+  const float* kh = static_cast<const float*>(a.k) + (long long)b * a.Skv * kstride +
+                    (long long)kvh * a.hd + ck;
+  const float* vh = static_cast<const float*>(a.v) + (long long)b * a.Skv * vstride +
+                    (long long)kvh * a.hdv + cv;
+  const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
+  const int n = cdiv_c(kv_end, WKT), stages = a.stages;
+  // the K / V rows' strides in the ring: hk + 4 and hv + 4 by tensor
+  // copies, CW + 4 by cp.async
+  const int ldk = a.tma ? hk + 4 : LC, ldv = a.tma ? hv + 4 : LC;
+  auto load = [&](int t) {
+    pair_load_kv(a, &mk, &mv, ring + (t % stages) * SLOT, &full[t % stages], kh, vh, kstride,
+                 vstride, t * WKT, b, kvh, ck, cv, hk, hv, dkw, dvw, tid);
+  };
+  pair_start(bars, tid);
+  copy_rows<float, CW>(Qs, qh, qstride, q0, BQ, a.Sq, dkw, a.vec_q, tid, 256);
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);  // n >= 1: Skv > 0, and a causal CTA sees key 0
+    cp_async_commit();
+  }
+
+  float o[4][4 * NV], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;  // the lane's share: its columns' p
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) o[i][c] = 0.f;
+  }
+  const float sl2 = a.scale * LOG2E;  // scores in log2 units: p = 2^(x - m)
+  float* Pw = Ps + r0 * LP;           // the lane's first row of p
+  const float* Qw = Qs + r0 * LC;
+  const int wq = q0 + 16 * warp;      // the warp's first row
+  for (int t = 0; t < n; ++t) {
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
+    }
+    cp_async_wait_ring();
+    mbar_wait(&full[t % stages], (t / stages) & 1);
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const float* Kt = ring + (t % stages) * SLOT;
+    const float* Vt = Kt + WKT * LC;
+    const int j0 = t * WKT, par = t & 1;
+    if (tid == 0) {  // the partner's live warps send 32 x 64 bytes each
+      int live = 0;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) live += pair_live(a, q0, g, j0);
+      mbar_expect(&bars[par], 2048u * live);
+    }
+    if (pair_live(a, q0, warp, j0)) {
+      const bool edge = j0 + WKT > a.Skv || (a.causal && j0 + WKT - 1 > wq);
+      // S over each quarter of the CTA's half, then quarter + quarter
+      float s[4][4], sb[4][4];
+      nt_product(s, Qw, LC, Kt + lx * ldk, ldk, k4a);
+      nt_product(sb, Qw + hk / 2, LC, Kt + lx * ldk + hk / 2, ldk, k4b);
+      float4* rx = X + (par * 8 + warp) * 4 * 32 + lane;  // where the partner's half lands
+      const uint32_t bar = map_rank(&bars[par], other);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] += sb[i][j];
+        st_async4(map_rank(rx + i * 32, other), make_float4(s[i][0], s[i][1], s[i][2], s[i][3]),
+                  bar);
+      }
+      mbar_wait(&bars[par], (t >> 1) & 1);
+      // half + half, then the four rows' max reduced together over their
+      // 8 lanes
+      float mx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 rs = rx[i * 32];
+        const float os[4] = {rs.x, rs.y, rs.z, rs.w};
+        const int row = wq + ly + 4 * i;
+        mx[i] = NEG;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = (s[i][j] + os[j]) * sl2;
+          if (edge) {
+            const int col = j0 + lx + 8 * j;
+            if (!(col < a.Skv && (!a.causal || col <= row))) x = NEG;
+          }
+          s[i][j] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+      // no row's max moved: every rescale would be by 1 (or, before a
+      // row's first live column, of zeros), so o keeps its bits untouched
+      bool same = true;
+      float corr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float m_new = fmaxf(m[i], mx[i]);
+        // a row with no live column yet subtracts 0: its masked p are 0
+        const float m_ref = m_new > 0.5f * NEG ? m_new : 0.f;
+        corr[i] = exp2_ftz(m[i] - m_ref);
+        same &= m_new == m[i];
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = exp2_ftz(s[i][j] - m_ref);
+          sum += p;
+          Pw[4 * i * LP + lx + 8 * j] = p;
+        }
+        l[i] = l[i] * corr[i] + sum;
+      }
+      if (!__all_sync(0xffffffffu, same)) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4 * NV; ++c) o[i][c] *= corr[i];
+      }
+      __syncwarp();  // a row's p comes from the 8 lanes of its own warp
+      nn_product<NV, WKT>(o, Pw, LP, Vt + 4 * lx, ldv);
+    }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
+  }
+
+  float* og = static_cast<float*>(a.o1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + r0 + 4 * i;
+    if (row >= a.Sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    float* orow = og + ((long long)b * a.Sq + row) * ostride + (long long)h * a.hdv + cv;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * c + 4 * lx + e;
+        if (col < dvw) orow[col] = o[i][4 * c + e] / lc;
+      }
+    if (lx == 0 && half == 0)
+      a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] * LN2 + logf(lc);
   }
 }
 
@@ -732,117 +1015,184 @@ __global__ void __launch_bounds__(256) flash_dq_kernel(const Args a) {
   }
 }
 
-// dq at hd or hd_v > 128.  One CTA of 4 warps per (64 query rows, head,
-// batch) and CW-column slice blockIdx.y of dq: its q and do rows stay
-// resident at WIDE columns, and each kv tile comes through one slot of
-// CW-column chunks of K and V, chunk after chunk: s = q K^T and dp = do
-// V^T are summed over the chunks in order (the unsplit sum's order), then
-// the slot is refilled with the slice's chunk of K (unless it holds it)
-// for dq += ds K.  219,136 bytes of shared memory; no ring, so a chunk's
-// copy does not overlap the products.
-template <typename T>
-__global__ void __launch_bounds__(128) flash_dq_wide_kernel(const Args a) {
-  constexpr int NCV = CW / 32, LF = WIDE + 4, LC = CW + 4, BQ = 64, nthr = 128;
+// f32 dq at hd or hd_v > 128: the paired forward's design with dq's
+// products.  A cluster of two CTAs of 8 warps per (64 query rows, head,
+// batch), CTA x as flash_dq_kernel's; the CTA of rank `half` owns the
+// forward's columns of q, k and dq and of do and v, keeps its columns of
+// its q and do rows resident and streams K and V through the same ring.
+// A tile's quarters of S = q K^T and dP = do V^T go to the sibling warp,
+// warp rg sends the half of S and warp rg + 4 the half of dP into the
+// partner CTA (two buffers by parity), and all four warps of a row group
+// add the halves: S bitwise the forward's, and p and ds = round_T(p (dp -
+// delta) scale) the same bits wherever they are formed.  Each warp of the
+// pair forms ds for half of the tile's keys into the row group's ds tile
+// (ds four times a row, once in every warp, took 7-8% of the cycles), and
+// each adds ds K into its own quarter of dq: NK 32-column groups a lane
+// and, NT = 1, a 16-column tail (MLA's quarters of 48).  Each row's sum runs
+// over the kv tiles in order, k ascending within a tile, under either ring.
+template <int NK, int NT>
+__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(256, 1)
+    flash_dq_pair_kernel(const Args a, const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv) {
+  constexpr int LC = CW + 4, LP = WKT + 8, BQ = 64;
+  constexpr int SLOT = 2 * WKT * LC;
   const int HB = a.H * a.B, nqt = cdiv_c(a.Sq, BQ);
-  const int lin = blockIdx.x, sl = blockIdx.y, c0 = sl * CW;
-  if (c0 >= a.hd) return;  // a slice past dq's columns (hd_v wider than hd)
+  const int lin = blockIdx.x;
   const int q0 = (nqt - 1 - lin / HB) * BQ;
   const int h = lin % a.H, b = (lin / a.H) % a.B;
   const int kvh = h / (a.H / a.KVH);
+  const uint32_t half = cluster_rank(), other = half ^ 1u;
+  const int hk = half_cols(a.hd), hv = half_cols(a.hdv);
+  const int ck = half * hk, cv = half * hv;
+  const int dkw = max(0, min(hk, a.hd - ck)), dvw = max(0, min(hv, a.hdv - cv));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ly = lane >> 3, lx = lane & 7;
-  const int r0 = warp * 16 + ly;  // the lane's rows: r0 + 4i
+  const int rg = warp & 3, cg = warp >> 2;
+  const int r0 = rg * 16 + ly;
+  const int qk0 = cg * (hk / 2), qv0 = cg * (hv / 2);
+  const int dkq = max(0, min(hk / 2, dkw - qk0)), dvq = max(0, min(hv / 2, dvw - qv0));
   extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;                  // BQ x LF
-  float* Os = Qs + BQ * LF;        // do, BQ x LF
-  float* Ds = Os + BQ * LF;        // ds, BQ x LDP
-  float* Kc = Ds + BQ * LDP;       // a chunk of a K tile, KT x LC
-  float* Vc = Kc + KT * LC;        // and of its V tile
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* full = bars + 2;
+  float* Qs = pair_tiles(sm);       // BQ x LC: the CTA's columns of its q rows
+  float* Os = Qs + BQ * LC;         // and of its do rows
+  float* Ps = Os + BQ * LC;         // ds: BQ x LP, each row group its own rows
+  float4* Y = reinterpret_cast<float4*>(Ps + BQ * LP);  // [cg][rg][8][32]: quarters
+  float4* X = Y + 2 * 4 * 8 * 32;   // [parity][rg][8][32]: the partner's halves
+  float* ring = reinterpret_cast<float*>(X + 2 * 4 * 8 * 32);  // stages x (K, V)
 
   const long long qstride = (long long)a.H * a.hd, ostride = (long long)a.H * a.hdv;
   const long long kstride = (long long)a.KVH * a.hd, vstride = (long long)a.KVH * a.hdv;
-  const T* qb = static_cast<const T*>(a.q) + (long long)b * a.Sq * qstride + (long long)h * a.hd;
-  const T* ob = static_cast<const T*>(a.dout) + (long long)b * a.Sq * ostride + (long long)h * a.hdv;
-  const T* kb = static_cast<const T*>(a.k) + (long long)b * a.Skv * kstride + (long long)kvh * a.hd;
-  const T* vb = static_cast<const T*>(a.v) + (long long)b * a.Skv * vstride + (long long)kvh * a.hdv;
+  const float* qh = static_cast<const float*>(a.q) + (long long)b * a.Sq * qstride +
+                    (long long)h * a.hd + ck;
+  const float* oh = static_cast<const float*>(a.dout) + (long long)b * a.Sq * ostride +
+                    (long long)h * a.hdv + cv;
+  const float* kh = static_cast<const float*>(a.k) + (long long)b * a.Skv * kstride +
+                    (long long)kvh * a.hd + ck;
+  const float* vh = static_cast<const float*>(a.v) + (long long)b * a.Skv * vstride +
+                    (long long)kvh * a.hdv + cv;
   const int kv_end = a.causal ? min(a.Skv, q0 + BQ) : a.Skv;
-  const int n = cdiv_c(kv_end, KT), nch = cdiv_c(max(a.hd, a.hdv), CW);
-  copy_rows<T, WIDE>(Qs, qb, qstride, q0, BQ, a.Sq, a.hd, a.vec_q, tid, nthr);
-  copy_rows<T, WIDE>(Os, ob, ostride, q0, BQ, a.Sq, a.hdv, a.vec_o, tid, nthr);
-  // chunk c of kv tile t (K, and V where `with_v`) into the slot, once
-  // every warp is past the slot's last use
-  auto fetch = [&](int t, int c, bool with_v) {
-    __syncthreads();
-    const int o = c * CW;
-    copy_rows<T, CW>(Kc, kb + o, kstride, t * KT, KT, a.Skv, max(0, min(CW, a.hd - o)), a.vec_k,
-                     tid, nthr);
-    if (with_v)
-      copy_rows<T, CW>(Vc, vb + o, vstride, t * KT, KT, a.Skv, max(0, min(CW, a.hdv - o)),
-                       a.vec_v, tid, nthr);
-    cp_async_commit();
-    cp_async_wait_ring();
-    __syncthreads();
+  const int n = cdiv_c(kv_end, WKT), stages = a.stages;
+  // the K / V rows' strides in the ring: hk + 4 and hv + 4 by tensor
+  // copies, CW + 4 by cp.async
+  const int ldk = a.tma ? hk + 4 : LC, ldv = a.tma ? hv + 4 : LC;
+  auto load = [&](int t) {
+    pair_load_kv(a, &mk, &mv, ring + (t % stages) * SLOT, &full[t % stages], kh, vh, kstride,
+                 vstride, t * WKT, b, kvh, ck, cv, hk, hv, dkw, dvw, tid);
   };
+  pair_start(bars, tid);
+  copy_rows<float, CW>(Qs, qh, qstride, q0, BQ, a.Sq, dkw, a.vec_q, tid, 256);
+  copy_rows<float, CW>(Os, oh, ostride, q0, BQ, a.Sq, dvw, a.vec_o, tid, 256);
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
 
+  // -lse log2(e) and delta of the lane's rows (0 past Sq, where q and do
+  // are zero rows, so ds is 0)
   const long long srow = ((long long)b * a.H + h) * a.Sq;
-  float nl[4], dl[4], dq[4][4 * NCV];
+  float nl[4], dl[4], dq[4][4 * NK + 2 * NT];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + r0 + 4 * i;
     nl[i] = row < a.Sq ? -a.lse_in[srow + row] * LOG2E : 0.f;
     dl[i] = row < a.Sq ? a.delta[srow + row] : 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * NCV; ++c) dq[i][c] = 0.f;
+    for (int c = 0; c < 4 * NK + 2 * NT; ++c) dq[i][c] = 0.f;
   }
-  const int hd4 = (a.hd + 3) & ~3, hdv4 = (a.hdv + 3) & ~3;
-  const float sl2 = a.scale * LOG2E;
-  const int wq = q0 + warp * 16;
+  const int k4 = (dkq + 3) & ~3, v4 = (dvq + 3) & ~3;
+  const float sl2 = a.scale * LOG2E;  // p = 2^(s * scale * log2 e - lse * log2 e)
+  float* Pw = Ps + r0 * LP;  // the lane's first row of its group's ds
+  float4* mine = Y + (cg * 4 + rg) * 8 * 32 + lane;
+  const float4* sib = Y + ((cg ^ 1) * 4 + rg) * 8 * 32 + lane;
+  const int wq = q0 + 16 * rg;
   for (int t = 0; t < n; ++t) {
-    const int j0 = t * KT;
-    const bool live = wq < a.Sq && !(a.causal && j0 > wq + 15);
-    float s[4][8], dp[4][8];
-    zero_tile(s);
-    zero_tile(dp);
-    for (int c = 0; c < nch; ++c) {
-      fetch(t, c, true);
-      const int o = c * CW;
-      if (live) {
-        nt_accum(s, Qs + r0 * LF + o, LF, Kc + lx * LC, LC, max(0, min(CW, hd4 - o)));
-        nt_accum(dp, Os + r0 * LF + o, LF, Vc + lx * LC, LC, max(0, min(CW, hdv4 - o)));
-      }
+    if (stages == 1) {
+      load(t);
+      cp_async_commit();
     }
-    if (sl != nch - 1) fetch(t, sl, false);  // the slice's K columns for ds K
-    if (live) {
-      const bool edge = j0 + KT > a.Skv || (a.causal && j0 + KT - 1 > wq);
+    cp_async_wait_ring();
+    mbar_wait(&full[t % stages], (t / stages) & 1);
+    __syncthreads();  // tile t landed; every warp is past tile t - 1
+    if (stages > 1) {
+      if (t + stages - 1 < n) load(t + stages - 1);
+      cp_async_commit();
+    }
+    const float* Kt = ring + (t % stages) * SLOT;
+    const float* Vt = Kt + WKT * LC;
+    const int j0 = t * WKT, par = t & 1;
+    if (tid == 0)  // the partner's live row groups send 2 x 32 x 64 bytes each
+      mbar_expect(&bars[par], 4096u * (pair_live(a, q0, 0, j0) + pair_live(a, q0, 1, j0) +
+                                       pair_live(a, q0, 2, j0) + pair_live(a, q0, 3, j0)));
+    if (pair_live(a, q0, rg, j0)) {
+      const bool edge = j0 + WKT > a.Skv || (a.causal && j0 + WKT - 1 > wq);
+      float s[4][4], dp[4][4];
+      // this warp's quarter of S = q K^T and of dP = do V^T
+      nt_product(s, Qs + r0 * LC + qk0, LC, Kt + lx * ldk + qk0, ldk, k4);
+      nt_product(dp, Os + r0 * LC + qv0, LC, Vt + lx * ldv + qv0, ldv, v4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        mine[i * 32] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        mine[(4 + i) * 32] = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      }
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");  // the two quarters written
+      // the CTA's half: quarter + quarter; warp rg stores the half of S
+      // into the partner, warp rg + 4 the half of dP
+      float4* rx = X + (par * 4 + rg) * 8 * 32 + lane;
+      const uint32_t bar = map_rank(&bars[par], other);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float p = exp2_ftz(fmaf(s[i][j], sl2, nl[i]));
+      for (int i = 0; i < 4; ++i) {
+        const float4 os = sib[i * 32], od = sib[(4 + i) * 32];
+        s[i][0] += os.x, s[i][1] += os.y, s[i][2] += os.z, s[i][3] += os.w;
+        dp[i][0] += od.x, dp[i][1] += od.y, dp[i][2] += od.z, dp[i][3] += od.w;
+        const float4 x = cg == 0 ? make_float4(s[i][0], s[i][1], s[i][2], s[i][3])
+                                 : make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+        st_async4(map_rank(rx + (4 * cg + i) * 32, other), x, bar);
+      }
+      mbar_wait(&bars[par], (t >> 1) & 1);
+      // ds of the warp's half of the tile's keys, columns lx + 8j for j =
+      // 2 cg and 2 cg + 1, into the row group's ds tile
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 rs = rx[i * 32], rd = rx[(4 + i) * 32];
+        const float os[4] = {rs.x, rs.y, rs.z, rs.w}, od[4] = {rd.x, rd.y, rd.z, rd.w};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * cg + jj;
+          const float sv = cg ? s[i][2 + jj] + os[2 + jj] : s[i][jj] + os[jj];
+          const float dv = cg ? dp[i][2 + jj] + od[2 + jj] : dp[i][jj] + od[jj];
+          float p = exp2_ftz(fmaf(sv, sl2, nl[i]));
           if (edge) {
-            const int row = q0 + r0 + 4 * i, col = j0 + lx + 8 * j;
+            const int row = wq + ly + 4 * i, col = j0 + lx + 8 * j;
             if (!(col < a.Skv && (!a.causal || col <= row))) p = 0.f;
           }
-          Ds[(r0 + 4 * i) * LDP + lx + 8 * j] = round_to<T>(p * (dp[i][j] - dl[i]) * a.scale);
+          Pw[4 * i * LP + lx + 8 * j] = p * (dv - dl[i]) * a.scale;
         }
-      __syncwarp();  // a row's ds comes from the 8 lanes of its own warp
-      nn_product<NCV>(dq, Ds + r0 * LDP, LDP, Kc + 4 * lx, LC);
+      }
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");  // both halves of ds written
+      if (dkq > 0)
+        nn_product<NK, WKT, NT>(dq, Pw, LP, Kt + qk0 + 4 * lx, ldk, Kt + qk0 + 32 * NK + 2 * lx);
     }
+    if (stages == 1) __syncthreads();  // the one slot is reloaded next
   }
 
-  T* dqg = static_cast<T*>(a.o1);
-  const int dw = min(CW, a.hd - c0);
+  float* dqg = static_cast<float*>(a.o1);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + r0 + 4 * i;
     if (row >= a.Sq) continue;
-    T* drow = dqg + ((long long)b * a.Sq + row) * qstride + (long long)h * a.hd + c0;
+    float* drow = dqg + ((long long)b * a.Sq + row) * qstride + (long long)h * a.hd + ck + qk0;
 #pragma unroll
-    for (int c = 0; c < NCV; ++c)
+    for (int c = 0; c < NK; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 32 * c + 4 * lx + e;
-        if (col < dw) drow[col] = from_f<T>(dq[i][4 * c + e]);
+        if (col < dkq) drow[col] = dq[i][4 * c + e];
       }
+#pragma unroll
+    for (int e = 0; e < 2 * NT; ++e) {
+      const int col = 32 * NK + 2 * lx + e;
+      if (col < dkq) drow[col] = dq[i][4 * NK + e];
+    }
   }
 }
 
@@ -1954,17 +2304,64 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-// W: the tile width, 64, 128 or WIDE (the kernels over CW-column slices)
+// a paired f32 kernel at W = WIDE: a cluster of 2 CTAs (blockIdx.y) of 8
+// warps, given its arguments
+template <typename K, typename... P>
+cudaError_t launch_pair(K kernel, long long grid, int smem, cudaStream_t st, const P&... args) {
+  cudaError_t e;
+  if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
+  kernel<<<dim3((unsigned)grid, 2), 256, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// The 4-D tensor map (d, KVH, Skv, B) of k or v (f32) whose box is a
+// paired kernel's ring tile: `half` + 4 columns of WKT rows of one kv
+// head, so its rows land half + 4 floats apart (pair_load_kv); false where
+// TMA cannot describe it (rows not 16-byte multiples on 16-byte boundaries).
+bool kv_map(CUtensorMap* out, const void* p, int d, int half, const Args& a) {
+  if (d % 4 || reinterpret_cast<uintptr_t>(p) % 16) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)a.KVH, (cuuint64_t)a.Skv, (cuuint64_t)a.B};
+  cuuint64_t strides[3] = {(cuuint64_t)d * 4, (cuuint64_t)a.KVH * d * 4,
+                           (cuuint64_t)a.Skv * a.KVH * d * 4};
+  cuuint32_t box[4] = {(cuuint32_t)half + 4, 1, (cuuint32_t)WKT, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(p),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a paired forward's or dq's launch: its K / V tensor maps where both
+// rows take them (a.tma), else cp.async tiles
+template <typename K>
+int launch_pair_kv(K kernel, Args a, long long grid, int smem, cudaStream_t st) {
+  CUtensorMap mk, mv;
+  std::memset(&mk, 0, sizeof(mk));
+  std::memset(&mv, 0, sizeof(mv));
+  a.tma = kv_map(&mk, a.k, a.hd, half_cols(a.hd), a) && kv_map(&mv, a.v, a.hdv, half_cols(a.hdv), a);
+  return (int)launch_pair(kernel, grid, smem, st, a, mk, mv);
+}
+
+// W: the tile width, 64, 128 or WIDE (the paired kernel of 128 query rows
+// a CTA, NV accumulator groups covering a CTA's half of o's columns: 2
+// where it is at most 64 wide, as MLA's 128, else 4)
 template <typename T, int W>
 int launch_fwd(const Args& a, cudaStream_t st) {
-  constexpr int NCV = (W > CW ? CW : W) / 32;
   const int smem = fwd_smem(W, a.stages);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if ((e = set_smem(flash_fwd_kernel<T, NCV, W>, smem)) != cudaSuccess) return (int)e;
-  const long long grid = (long long)cdiv(a.Sq, 64) * a.H * a.B;
-  flash_fwd_kernel<T, NCV, W><<<dim3((unsigned)grid, a.slices), FWD_THREADS, smem, st>>>(a);
-  return (int)cudaGetLastError();
+  const long long grid = (long long)cdiv(a.Sq, a.rows) * a.H * a.B;
+  if constexpr (W > CW) {
+    static_assert(sizeof(T) == 4, "the bf16 forward runs on the tensor cores");
+    if (a.rows != 128) return (int)cudaErrorInvalidValue;
+    return half_cols(a.hdv) <= 64 ? launch_pair_kv(flash_fwd_pair_kernel<2>, a, grid, smem, st)
+                                  : launch_pair_kv(flash_fwd_pair_kernel<4>, a, grid, smem, st);
+  } else {
+    if (a.rows != 64) return (int)cudaErrorInvalidValue;
+    cudaError_t e;
+    if ((e = set_smem(flash_fwd_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
+    flash_fwd_kernel<T, W / 32><<<(unsigned)grid, FWD_THREADS, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
 }
 
 // the group sum of the dk/dv partials, where there are any (G > 1)
@@ -1978,18 +2375,6 @@ int sum_parts(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the paired f32 dk/dv at W = WIDE: NK / NV accumulator groups that
-// cover a warp's quarter of the columns (2 / 1 where the v quarters are at
-// most 32 wide, as MLA's 192 / 128, else 2 / 2); a cluster of 2 CTAs
-// (blockIdx.y) of 64 kv rows and 8 warps
-template <int NK, int NV>
-cudaError_t launch_dkv_pair(const Args& a, long long grid, int smem, cudaStream_t st) {
-  cudaError_t e;
-  if ((e = set_smem(flash_dkv_pair_kernel<NK, NV>, smem)) != cudaSuccess) return e;
-  flash_dkv_pair_kernel<NK, NV><<<dim3((unsigned)grid, 2), 256, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
 template <typename T, int W>
 int launch_dkv(const Args& a, cudaStream_t st) {
   const int smem = dkv_smem(a.rows, W, a.stages);
@@ -1998,9 +2383,11 @@ int launch_dkv(const Args& a, cudaStream_t st) {
   const long long grid = (long long)cdiv(a.Skv, a.rows) * a.B * a.KVH * a.parts;
   if constexpr (W > CW) {
     static_assert(sizeof(T) == 4, "bf16 dk/dv runs on the tensor cores");
+    // NK / NV accumulator groups cover a warp's quarter of the columns
+    // (2 / 1 where the v quarters are at most 32 wide, as MLA's 192 / 128)
     if (a.rows != 64) return (int)cudaErrorInvalidValue;
-    e = half_cols(a.hdv) / 2 <= 32 ? launch_dkv_pair<2, 1>(a, grid, smem, st)
-                                   : launch_dkv_pair<2, 2>(a, grid, smem, st);
+    e = half_cols(a.hdv) / 2 <= 32 ? launch_pair(flash_dkv_pair_kernel<2, 1>, grid, smem, st, a)
+                                   : launch_pair(flash_dkv_pair_kernel<2, 2>, grid, smem, st, a);
     if (e != cudaSuccess) return (int)e;
   } else {
     if ((e = set_smem(flash_dkv_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
@@ -2045,15 +2432,22 @@ int launch_dq_tc(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// at W = WIDE the paired kernel, NK accumulator groups and NT tails
+// covering a warp's quarter of dq's columns (1 + 0 where they are at most
+// 32 wide, 1 + 1 up to 48, as MLA's, else 2 + 0)
 template <typename T, int W>
 int launch_dq(const Args& a, cudaStream_t st) {
-  const int smem = dq_smem(a.rows, W);
+  const int smem = dq_smem(a.rows, W, a.stages);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   const long long grid = (long long)cdiv(a.Sq, a.rows) * a.H * a.B;
   if constexpr (W > CW) {
-    if ((e = set_smem(flash_dq_wide_kernel<T>, smem)) != cudaSuccess) return (int)e;
-    flash_dq_wide_kernel<T><<<dim3((unsigned)grid, a.slices), 2 * a.rows, smem, st>>>(a);
+    static_assert(sizeof(T) == 4, "the bf16 dq runs on the tensor cores");
+    if (a.rows != 64) return (int)cudaErrorInvalidValue;
+    const int quarter = half_cols(a.hd) / 2;
+    return quarter <= 32   ? launch_pair_kv(flash_dq_pair_kernel<1, 0>, a, grid, smem, st)
+           : quarter <= 48 ? launch_pair_kv(flash_dq_pair_kernel<1, 1>, a, grid, smem, st)
+                           : launch_pair_kv(flash_dq_pair_kernel<2, 0>, a, grid, smem, st);
   } else {
     if ((e = set_smem(flash_dq_kernel<T, W / 32>, smem)) != cudaSuccess) return (int)e;
     flash_dq_kernel<T, W / 32><<<(unsigned)grid, 2 * a.rows, smem, st>>>(a);
@@ -2108,22 +2502,22 @@ bool make_args(Args& a, int dtype, int B, int Sq, int Skv, int H, int KVH, int h
 // alike; lse and delta are f32).  The plan's arguments (stages, rows,
 // heads, parts, ws) are kernels/flash_attn.py::_flash_plan's.  Each
 // returns the cudaError_t of its launch (0 on success).
-// rows: the query rows of a forward CTA, 16 a warp; f32 takes 64, bf16
-// 64 or 128.
+// rows: the query rows of a forward CTA, 16 a warp; f32 takes 64 up to W
+// = 128 and 128 past it (a CTA of a pair), bf16 64 or 128.
 extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* o,
                                 float* lse, int B, int Sq, int Skv, int H, int KVH, int hd,
                                 int hdv, int causal, float scale, int stages, int rows,
                                 void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.o1 = o, a.lse_out = lse;
-  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, stages) ||
-      (dtype == 0 && rows != 64))
+  if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, stages))
     return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(launch_fwd, launch_fwd_tc, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
-// rows: the query rows of a dq CTA, 16 a warp (64 or 128); stages: its
-// K/V ring's, which f32 fixes at DQ_STAGES and bf16 takes as 1 or 2.
+// rows: the query rows of a dq CTA, 16 a warp (64 or 128; the paired f32
+// kernel past W = 128: 64); stages: its K/V ring's, which f32 fixes at
+// DQ_STAGES up to W = 128 and the paired f32 kernel and bf16 take as 1 or 2.
 extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const float* lse, const float* delta, void* dq,
                                int B, int Sq, int Skv, int H, int KVH, int hd, int hdv,
@@ -2131,7 +2525,7 @@ extern "C" int flash_dq_launch(int dtype, const void* q, const void* k, const vo
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta, a.o1 = dq;
   if (!make_args(a, dtype, B, Sq, Skv, H, KVH, hd, hdv, causal, scale, rows, stages) ||
-      (dtype == 0 && stages != DQ_STAGES))
+      (dtype == 0 && width(hd, hdv) <= CW && stages != DQ_STAGES))
     return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(launch_dq, launch_dq_tc, dtype, a, static_cast<cudaStream_t>(stream));
 }

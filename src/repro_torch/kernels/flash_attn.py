@@ -17,9 +17,10 @@ a kv head's group is summed from); each kernel issues its heaviest causal
 tiles first, in the order :func:`_fwd_ctas` (forward and dq) and
 :func:`_dkv_ctas` spell out.  bf16 runs all three on kernels of their
 own, on the tensor cores (bf16 tiles in shared memory, p and ds as
-register operands of ``mma.sync``), under the plan's bf16 rules.  f32
-dk/dv past hd 128 runs on pairs of CTAs that split the head dim in halves
-(:func:`_half_cols`) and exchange their partial scores.
+register operands of ``mma.sync``), under the plan's bf16 rules.  All
+three f32 kernels past hd 128 run on pairs of CTAs that split the head
+dim in halves (:func:`_half_cols`) and exchange their partial scores, so
+the three build each score from the same quarters in the same order.
 
 ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` are the
 plain PyTorch versions, used for CPU tensors and as what the kernels are
@@ -35,8 +36,8 @@ f32 throughout.
 Layouts are the model's: q (B, Sq, H, hd), k (B, Skv, KVH, hd), v (B, Skv,
 KVH, hd_v), o (B, Sq, H, hd_v) in q's type, lse and delta (B, H, Sq) f32.
 H must be a multiple of KVH; hd and hd_v are at most 256 (``MAX_HEAD_DIM``;
-the f32 kernels split wider heads into 128-column slices or, dk/dv, into
-the halves of a CTA pair, the source's header says how); a causal mask
+the f32 kernels split heads wider than 128 into the halves of a CTA pair,
+the source's header says how); a causal mask
 compares absolute positions (column <= row), as the reference's does.
 """
 
@@ -304,17 +305,17 @@ class FlashPlan(NamedTuple):
     parts: int       # dk/dv CTAs of one kv head's group: ceil(G / heads),
     #                  whose f32 partials a second kernel sums (G > 1)
     dq_rows: int     # query rows of a dq CTA, 64 or 128 (2 x rows threads)
-    slices: int = 1  # 128-column slices of o / dq / dk / dv, each its
-    #                  own CTAs (blockIdx.y): ceil(max(hd, hd_v) / 128) past
-    #                  W = 128, as the source derives them from hd and hd_v
-    #                  (f32 dk/dv: the 2 CTAs of a cluster, each owning
-    #                  half of hd and of hd_v; the bf16 forward and dq hold
-    #                  all of o's / dq's columns: one slice whatever this
-    #                  says)
-    fwd_rows: int = 64  # query rows of a forward CTA, 16 a warp (bf16: 64
-    #                     or 128)
-    dq_stages: int = 2  # K/V tiles in dq's cp.async ring (f32: always 2;
-    #                     bf16: 1 or 2)
+    slices: int = 1  # CTAs a unit (blockIdx.y), as the source derives them
+    #                  from hd and hd_v: ceil(max(hd, hd_v) / 128) = 2
+    #                  past W = 128, the 2 CTAs of a cluster of each f32
+    #                  kernel, each owning half of hd and of hd_v, and
+    #                  bf16 dk/dv's 128-column slices of dk / dv (the bf16
+    #                  forward and dq hold all of o's / dq's columns: one
+    #                  CTA whatever this says)
+    fwd_rows: int = 64  # query rows of a forward CTA, 16 a warp (f32: 64,
+    #                     128 past W = 128; bf16: 64 or 128)
+    dq_stages: int = 2  # K/V tiles in dq's ring (f32 up to W = 128:
+    #                     always 2; past it and bf16: 1 or 2)
 
 
 _TILE = 64                # rows of a forward CTA and of each ring tile
@@ -324,9 +325,13 @@ _SM_SMEM = 233472         # shared memory of an SM (228 KB; 1 KB a CTA is
 _FWD_CTAS = {64: 3, 128: 1, 256: 1}  # forward CTAs an SM by W: its
 #                                      launch bounds
 _MAX_PARTS = 8            # partials a kv head's group is summed from
-_SLICE = 128              # past W = 128: the columns of an output slice and
-#                           of a streamed chunk
+_SLICE = 128              # past W = 128: bf16 dk/dv's column slices, and
+#                           the most columns a paired f32 CTA holds
 _WQT = 32                 # query rows of a ring tile of the paired f32 dk/dv
+_WKT = 32                 # kv rows of a ring tile of the paired f32 forward
+#                           and dq
+_PAIR_HEAD = 40           # floats before their tiles: four mbarriers and the
+#                           slack that aligns the tiles to 128 bytes
 
 
 def _width(hd: int, hd_v: int) -> int:
@@ -338,19 +343,29 @@ def _width(hd: int, hd_v: int) -> int:
 
 def _fwd_smem(W: int, stages: int) -> int:
     """Shared bytes of a forward CTA: q, p, and K/V tiles a stage (rows
-    W + 4 floats apart, p's 72; at W = 256 the V tiles are one 128-column
-    slice wide) — ``fwd_smem`` of the source."""
-    wv = min(W, _SLICE)
-    return 4 * (_TILE * (W + 4) + stages * _TILE * (W + 4 + wv + 4) +
-                _TILE * 72)
-
-
-def _dq_smem(rows: int, W: int) -> int:
-    """Shared bytes of a dq CTA of ``rows`` query rows: q, do, ds, and the
-    K/V tiles of its 2-stage ring (at W = 256: one slot of 128-column K/V
-    chunks) — ``dq_smem`` of the source."""
+    W + 4 floats apart, p's 72) — ``fwd_smem`` of the source.  At W = 256
+    a CTA of a pair: its four mbarriers and alignment slack, its half of
+    128 q rows (rows 132 floats apart), their p of a 32-key tile (40), two
+    buffers of its partner's halves of S (32 floats a query row each) and
+    32-key K / V tiles a stage."""
     if W > _SLICE:
-        return 4 * (2 * rows * (W + 4) + rows * 72 + 2 * _TILE * (_SLICE + 4))
+        return 4 * (_PAIR_HEAD + 128 * (_SLICE + 4) + 128 * (_WKT + 8) +
+                    2 * _WKT * 128 + stages * 2 * _WKT * (_SLICE + 4))
+    return 4 * (_TILE * (W + 4) + stages * _TILE * 2 * (W + 4) + _TILE * 72)
+
+
+def _dq_smem(rows: int, W: int, stages: int = 2) -> int:
+    """Shared bytes of a dq CTA of ``rows`` query rows: q, do, ds, and the
+    K/V tiles of its 2-stage ring — ``dq_smem`` of the source.  At W = 256
+    a CTA of a pair: its four mbarriers and alignment slack, its halves of
+    ``rows`` q and do rows (rows 132 floats apart), their ds of a 32-key
+    tile (40), its warps' quarters and two buffers of its partner's halves
+    of S and dP (128 floats a query row each), and ``stages`` 32-key K / V
+    tiles."""
+    if W > _SLICE:
+        return 4 * (_PAIR_HEAD + 2 * rows * (_SLICE + 4) +
+                    rows * (_WKT + 8) +
+                    2 * 128 * rows + stages * 2 * _WKT * (_SLICE + 4))
     return 4 * (2 * rows * (W + 4) + rows * 72 + 2 * 2 * _TILE * (W + 4))
 
 
@@ -421,20 +436,21 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     A forward CTA holds 64 query rows (4 warps); its ring takes the most
     stages (up to 2) that keep the most CTAs an SM its registers allow:
     at W = 64 one stage and three CTAs (two stages would leave two), at W
-    = 128 two, at W = 256 one (two do not fit).  A dq CTA holds 128 query
-    rows and a dk/dv CTA 128 kv rows (8 warps) where that fits two ring
-    stages, else 64 (W = 128 and 256).  Past W = 128 the forward's and
-    dq's outputs are cut into ``slices`` 128-column slices, a grid row of
-    CTAs each, and dq streams 128-column chunks through one slot; dk/dv
-    runs a cluster of ``slices`` = 2 CTAs a (kv tile, head group, batch),
+    = 128 two.  A dq CTA holds 128 query rows and a dk/dv CTA 128 kv rows
+    (8 warps) where that fits two ring stages, else 64 (W = 128).  Past W
+    = 128 each kernel runs a cluster of ``slices`` = 2 CTAs of 8 warps a
+    (128 query rows, head, batch) (forward: ``fwd_rows`` = 128), (64 query
+    rows, head, batch) (dq) or (64 kv rows, head group, batch) (dk/dv),
     each owning half of the head dim (:func:`_half_cols`) and streaming
-    32-query tiles.  dq's ring always has 2 stages (at W = 64, 128 rows and
-    2 stages measured 2-3% faster than 64 rows and 1 stage, two CTAs an
-    SM; PERF.md §6); dk/dv's takes 2 where they fit, else 1.  A dk/dv CTA
-    walks ceil(G / 8) query heads, so a kv head's group is summed from at
-    most 8 partials.  ``fwd_stages``, ``dq_rows``, ``dkv_rows``,
-    ``dkv_stages`` (rows 64 or 128, stages 1 or 2) and ``heads`` override
-    the rules (``launch/bench_flash.py`` times the choices).
+    32-row K / V (dk/dv: q / do) tiles through a ring of 2 stages, one CTA
+    an SM.  dq's ring always has 2 stages up to W = 128 (at W = 64, 128
+    rows and 2 stages measured 2-3% faster than 64 rows and 1 stage, two
+    CTAs an SM; PERF.md §6); dk/dv's takes 2 where they fit, else 1.  A
+    dk/dv CTA walks ceil(G / 8) query heads, so a kv head's group is
+    summed from at most 8 partials.  ``fwd_stages``, ``dq_rows``,
+    ``dkv_rows``, ``dkv_stages`` (rows 64 or 128, stages 1 or 2),
+    ``dq_stages`` (past W = 128) and ``heads`` override the rules
+    (``launch/bench_flash.py`` times the choices).
 
     bf16 (``dtype``) runs all three kernels on the tensor cores, whose
     tiles stay bf16 (``_fwd_tc_smem``, ``_dkv_tc_smem``, ``_dq_tc_smem``),
@@ -446,9 +462,8 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     heads of 128 rows: 32 CTAs).  The forward's ring has 2 stages, dq's 2
     where they fit, else 1 (128 rows at W = 256).  A dk/dv CTA holds 64
     kv rows with 2 stages up to W = 128 and 128 rows with 1 stage at 256.
-    ``fwd_rows`` (64 or 128) overrides the forward's rows, ``dq_stages``
-    dq's stages (bf16 only).  Raises where the kernels do not take the
-    plan."""
+    ``fwd_rows`` (64 or 128) overrides the forward's rows.  Raises where
+    the kernels do not take the plan."""
     if max(hd, hd_v) > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels hold hd, hd_v <= "
                          f"{MAX_HEAD_DIM}, got {hd} / {hd_v}")
@@ -465,11 +480,13 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
         dkv_rows = dkv_rows or (64 if W <= _SLICE else 128)
         dq_rows = dq_rows or (64 if few else 128)
     else:
-        if (fwd_rows or 64) != 64:
-            raise ValueError("an f32 forward CTA holds 64 query rows")
-        if dq_stages not in (None, 2):
-            raise ValueError("an f32 dq ring has 2 stages")
-        fwd_rows = 64
+        rows = 128 if W > _SLICE else 64
+        if (fwd_rows or rows) != rows:
+            raise ValueError(f"an f32 forward CTA holds {rows} query rows at "
+                             f"width {W}")
+        if W <= _SLICE and dq_stages not in (None, 2):
+            raise ValueError("an f32 dq ring has 2 stages up to width 128")
+        fwd_rows = rows
         dkv_rows = dkv_rows or (128 if _dkv_smem(128, W, 2) <= _MAX_SMEM
                                 else 64)
         dq_rows = dq_rows or (128 if _dq_smem(128, W) <= _MAX_SMEM
@@ -499,6 +516,9 @@ def _flash_plan(H: int, KVH: int, hd: int, hd_v: int, *,
     else:
         fwd_smem = functools.partial(_fwd_smem, W)
         dkv_smem = functools.partial(_dkv_smem, dkv_rows, W)
+        if W > _SLICE:
+            dq_stages = ring(functools.partial(_dq_smem, dq_rows, W),
+                             dq_stages)
         if fwd_stages is None:   # the most CTAs an SM, then the most stages
             fwd_stages = max((1, 2), key=lambda n: (min(
                 _FWD_CTAS[W], _SM_SMEM // (_fwd_smem(W, n) + 1024)), n))
@@ -518,9 +538,10 @@ def _fwd_ctas(B: int, Sq: int, H: int,
     bf16 the plan's ``fwd_rows``) or dq CTA (the plan's ``dq_rows``),
     ``rows`` a tile, in launch order, as both kernels decode
     ``blockIdx.x``: the last (causally heaviest) tile of every head first,
-    a kv group's heads side by side.  Past W = 128 the grid repeats this
-    row for each of the plan's ``slices`` (``blockIdx.y``; not the bf16
-    forward's or dq's, whose CTAs own all of o's / dq's columns)."""
+    a kv group's heads side by side.  Past W = 128 each f32 unit is a
+    cluster of the plan's ``slices`` = 2 CTAs (``blockIdx.y``), each
+    owning half of the head dim (not the bf16 forward's or dq's, whose
+    CTAs own all of o's / dq's columns)."""
     nqt, HB = -(-Sq // rows), H * B
     return [(nqt - 1 - lin // HB, lin % H, (lin // H) % B)
             for lin in range(nqt * HB)]

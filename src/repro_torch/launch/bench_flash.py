@@ -18,7 +18,8 @@ bf16`` (the tensor-core forward, dq and dk/dv) runs seamless-m4t-medium's
 encoder (B = 1, S = 128, 16 heads x 64, bidirectional) in place of the
 MLA shape.  With ``--variant`` the forward also runs with 1 and 2 ring
 stages (in bf16 also with 64 and 128 query rows a CTA), dq with 64 and
-128 query rows a CTA (f32: its ring has 2 stages; bf16: 1 and 2 stages),
+128 query rows a CTA (f32: its ring has 2 stages up to hd 128, 1 and 2
+past it; bf16: 1 and 2 stages),
 and dk/dv with 64 and 128 kv rows a CTA, 1 and 2 stages, one or two heads
 a CTA, and every head of a group in one CTA, each where it fits; each
 variant is held to the plan's result, bitwise (two heads a dk/dv CTA: at
@@ -220,11 +221,13 @@ def run_case(name, B, S, H, KVH, HD, HV, causal, dtype, variants):
         if tc:
             dq = [dict(dq_rows=r, dq_stages=n) for r in (64, 128)
                   for n in (1, 2) if _dq_tc_smem(r, W, n) <= _MAX_SMEM]
+        elif W > 128:                # the paired dq: 64 rows, 1 or 2 stages
+            dq = [dict(dq_stages=n) for n in (1, 2)]
         for var in dq:
             p = _flash_plan(H, KVH, HD, HV, **rule, **var)
             got = flash_dq_cuda(*st, plan=p, **kw)
             label = f"dq rows {p.dq_rows}" + (
-                f" stages {p.dq_stages}" if tc else "")
+                f" stages {p.dq_stages}" if tc or W > 128 else "")
             rec["variants"][label] = {
                 "ms": timer(lambda: flash_dq_cuda(*st, plan=p, **kw)),
                 "is_plan": p == plan, "ok": torch.equal(got, want)}

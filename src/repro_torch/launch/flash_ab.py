@@ -13,10 +13,12 @@ same cases, so two runs on one card compare like with like.
 
 Without ``--time``: every case of ``FLASH_CASES`` and
 ``WIDE_FLASH_CASES`` (``tests/test_torch_kernels_cuda.py`` beside this
-file's checkout) runs the forward, dq and dk/dv on seeded inputs (delta
-from the kernel forward's o), one line a case with the SHA-256 of the
-bytes of each of o, lse, dq, dk and dv: two trees whose lines agree give
-the same bits.  With ``--time``: the three kernels at llama3.2-1b's
+file's checkout) runs the forward, dq and dk/dv on seeded inputs, one
+line a case with the SHA-256 of the bytes of each of o, lse, dq, dk and
+dv: two trees whose lines agree give the same bits.  The backward's lse
+and delta come from an f64 softmax in torch, not from the kernel
+forward, so a tree whose forward changes bits feeds its dq and dk/dv the
+same inputs as the other tree.  With ``--time``: the three kernels at llama3.2-1b's
 attention (B = 2, S = 1024, 32 / 8 heads x 64, causal), gemma-2b's (8 / 1
 x 256), seamless-m4t-medium's encoder (B = 1, S = 128, 16 x 64,
 bidirectional) and the expanded MLA's (B = 1, S = 1024, 128 / 128 heads,
@@ -55,6 +57,23 @@ def cases():
     return mod.FLASH_CASES + mod.WIDE_FLASH_CASES
 
 
+def stats(q, k, v, do, causal, scale):
+    """(lse, delta), both (B, H, Sq) f32, from an f64 softmax over the
+    masked scores: the backward's inputs, the same bits in either tree."""
+    G = q.shape[2] // k.shape[2]
+    kk, vv = (t.double().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) * scale
+    if causal:
+        Sq, Skv = q.shape[1], k.shape[1]
+        keep = torch.arange(Skv, device=q.device)[None, :] <= \
+            torch.arange(Sq, device=q.device)[:, None]
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    o = torch.einsum("bhqk,bkhd->bhqd", torch.exp(s - lse[..., None]), vv)
+    delta = (do.double().transpose(1, 2) * o).sum(-1)
+    return lse.float().contiguous(), delta.float().contiguous()
+
+
 def run(B, Sq, Skv, H, KVH, hd, hd_v, causal, dtype, seed):
     """The three kernels on seeded inputs: (inputs, outputs, thunks)."""
     from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
@@ -65,15 +84,14 @@ def run(B, Sq, Skv, H, KVH, hd, hd_v, causal, dtype, seed):
                    for shape in ((B, Sq, H, hd), (B, Skv, KVH, hd),
                                  (B, Skv, KVH, hd_v), (B, Sq, H, hd_v)))
     kw = dict(causal=causal, scale=hd ** -0.5)
-    o, lse = flash_fwd_cuda(q, k, v, **kw)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    st = (q, k, v, do, lse, delta)
+    o, lse_k = flash_fwd_cuda(q, k, v, **kw)
+    st = (q, k, v, do, *stats(q, k, v, do, **kw))
     dq = flash_dq_cuda(*st, **kw)
     dk, dv = flash_dkv_cuda(*st, **kw)
     thunks = {"fwd": lambda: flash_fwd_cuda(q, k, v, **kw),
               "dq": lambda: flash_dq_cuda(*st, **kw),
               "dkv": lambda: flash_dkv_cuda(*st, **kw)}
-    return (o, lse, dq, dk, dv), thunks
+    return (o, lse_k, dq, dk, dv), thunks
 
 
 def digest(case, dtype) -> dict:

@@ -1,25 +1,28 @@
-"""Where a wide f32 dk/dv CTA's time goes (hd or hd_v past 128), on the card.
+"""Where a wide f32 flash CTA's time goes (hd or hd_v past 128), on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/probe_flash.py [--out FILE]
 
 Builds a copy of ``csrc/flash_attn.cu`` (of the tree whose ``src/`` is on
 ``PYTHONPATH``: run it as a file with ``PYTHONPATH`` at the parent
-commit's ``src/`` to probe the parent's kernel) with ``clock64`` probes
-in its wide f32 dk/dv kernel into ``build/probe_flash/``, runs it at
-gemma-2b's training attention (B = 2, S = 1024, 8 / 1 heads, hd 256,
-causal) and the expanded MLA's (B = 1, S = 1024, 128 / 128 heads, hd 192
-/ hd_v 128, causal) under that tree's plan, and prints, per section of
-the tile loop, the share of thread 0's cycles (warp 0's view: a barrier's
-wait counts where it is waited for) summed over every CTA, and the cycles
-and tiles of the CTA that ran longest.  The sections are the kernel's
-own: the earlier one-slot kernel (``flash_dkv_wide_kernel``) spends its
-time in ``fetch`` (barrier, copy, wait, barrier) and the products S, p,
-dv, dP, ds, dk; the paired kernel (``flash_dkv_pair_kernel``) in its
-ring (the copy wait, the barrier, issuing the next tile's copies), its
-quarters of S and dP, their sum with the sibling warp's and the send,
-the wait for the partner CTA's halves, p, dv, ds and dk.  The probes are
-a diagnostic: the copy is never the kernel the port runs.  Needs a CUDA
-card.
+commit's ``src/`` to probe the parent's kernels) with ``clock64`` probes
+in its wide f32 forward, dq and dk/dv kernels into
+``build/probe_flash/``, runs each at gemma-2b's training attention (B =
+2, S = 1024, 8 / 1 heads, hd 256, causal) and the expanded MLA's (B = 1,
+S = 1024, 128 / 128 heads, hd 192 / hd_v 128, causal) under that tree's
+plan, and prints, per section of the tile loop, the share of thread 0's
+cycles (warp 0's view: a barrier's wait counts where it is waited for)
+summed over every CTA, and the cycles and tiles of the CTA that ran
+longest.  The sections are each kernel's own: the earlier one-slot
+kernels (the forward's ``WIDE`` instance of ``flash_fwd_kernel``,
+``flash_dq_wide_kernel``, ``flash_dkv_wide_kernel``) spend their time in
+their copies (issue, wait and barriers, or ``fetch``) and their products;
+the paired kernels (``flash_fwd_pair_kernel``, ``flash_dq_pair_kernel``,
+``flash_dkv_pair_kernel``) in their ring (issuing the next tile's copies,
+the copy wait, the barrier), their products of the scores, the sum of
+their quarters (dq's and dk/dv's with the sibling warp's) and the send,
+the wait for the partner CTA's halves, and the products that follow.  A tree's kernel of each role is the
+paired one where the source has it.  The probes are a diagnostic: the
+copy is never the kernel the port runs.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -41,12 +44,132 @@ MAX_CTAS = 8192
 # name, B, S, H, KVH, hd, hd_v
 SHAPES = [("gemma-2b hd 256", 2, 1024, 8, 1, 256, 256),
           ("MLA 192/128", 1, 1024, 128, 128, 192, 128)]
-# per kernel: the sections (probe slot i) and (anchor, probe, after) edits
-# inside the kernel's body, each anchor found there once; PACC(i) adds the
-# cycles since the last stamp to slot i; slot NPROBE - 2 takes the total,
-# NPROBE - 1 the tiles
+# per kernel: its role, the sections (probe slot i) and (anchor, probe,
+# after) edits inside the kernel's body, each anchor found there once;
+# PACC(i) adds the cycles since the last stamp to slot i; slot NPROBE - 2
+# takes the total, NPROBE - 1 the tiles
 KERNELS = {
+    # the earlier wide forward: flash_fwd_kernel's WQ = WIDE instance, one
+    # ring stage (its W <= 128 instances carry the probes but never run
+    # here; slice 1 of MLA's returns before PSTART)
+    "flash_fwd_kernel": {
+        "role": "fwd",
+        "sections": ["copy issue", "copy wait", "barrier", "S", "softmax",
+                     "PV", "end barrier", "other"],
+        "edits": [
+            ("  const int n = cdiv_c(kv_end, KT), stages = a.stages;\n",
+             "  PSTART();\n", True),
+            ("    if (stages == 1) {\n      load(t);", "    PACC(7);\n",
+             False),
+            ("    cp_async_wait_ring();\n    __syncthreads();  // tile t "
+             "landed", "    PACC(0);\n", False),
+            ("    __syncthreads();  // tile t landed; every warp is past tile "
+             "t - 1\n", "    PACC(1);\n", False),
+            ("    __syncthreads();  // tile t landed; every warp is past tile "
+             "t - 1\n", "    PACC(2);\n", True),
+            ("    nt_product(s, Qs + r0 * LQ, LQ, Ks + lx * LQ, LQ, hd4);\n",
+             "    PACC(3);\n", True),
+            ("    __syncwarp();  // a row's p comes from the 8 lanes of its "
+             "own warp\n", "    PACC(4);\n", False),
+            ("    nn_product<NCV>(o, Ps + r0 * LDP, LDP, Vs + 4 * lx, LV);\n",
+             "    PACC(5);\n", True),
+            ("    if (stages == 1) __syncthreads();  // the one slot is "
+             "reloaded next\n", "    PACC(6);\n    PTILE();\n", True),
+            ("  T* og = static_cast<T*>(a.o1);\n", "  PEND();\n", False),
+        ],
+    },
+    # the earlier wide dq: every kv tile's 128-column chunks through one slot
+    "flash_dq_wide_kernel": {
+        "role": "dq",
+        "sections": ["fetch", "S, dP", "ds", "dq", "other"],
+        "edits": [
+            ("  const int n = cdiv_c(kv_end, KT), nch = cdiv_c(max(a.hd, "
+             "a.hdv), CW);\n", "  PSTART();\n", True),
+            ("    __syncthreads();\n    const int o = c * CW;\n",
+             "    PACC(4);\n", False),
+            ("    cp_async_wait_ring();\n    __syncthreads();\n",
+             "    PACC(0);\n", True),
+            ("        nt_accum(dp, Os + r0 * LF + o, LF, Vc + lx * LC, LC, "
+             "max(0, min(CW, hdv4 - o)));\n      }\n", "      PACC(1);\n",
+             True),
+            ("      __syncwarp();  // a row's ds comes from the 8 lanes of its "
+             "own warp\n", "      PACC(2);\n", False),
+            ("      nn_product<NCV>(dq, Ds + r0 * LDP, LDP, Kc + 4 * lx, "
+             "LC);\n", "      PACC(3);\n      PTILE();\n", True),
+            ("  T* dqg = static_cast<T*>(a.o1);\n  const int dw",
+             "  PEND();\n", False),
+        ],
+    },
+    # the paired kernels: a 2-stage ring of bulk copies, the scores summed
+    # over quarters (dq: with the sibling warp's) and the partner's halves
+    "flash_fwd_pair_kernel": {
+        "role": "fwd",
+        "sections": ["ring issue", "copy wait", "barrier", "S",
+                     "half, send", "exchange", "softmax", "PV", "other"],
+        "edits": [
+            ("  const int n = cdiv_c(kv_end, WKT), stages = a.stages;\n",
+             "  PSTART();\n", True),
+            ("    if (stages == 1) {\n      load(t);", "    PACC(8);\n",
+             False),
+            ("    cp_async_wait_ring();\n    mbar_wait(&full", "    PACC(0);\n",
+             False),
+            ("    __syncthreads();  // tile t landed; every warp is past tile "
+             "t - 1\n", "    PACC(1);\n", False),
+            ("    __syncthreads();  // tile t landed; every warp is past tile "
+             "t - 1\n", "    PACC(2);\n", True),
+            ("    const float* Kt = ring + (t % stages) * SLOT;\n",
+             "    PACC(0);\n", False),
+            ("      nt_product(sb, Qw + hk / 2, LC, Kt + lx * ldk + hk / 2, ldk, "
+             "k4b);\n", "      PACC(3);\n", True),
+            ("      mbar_wait(&bars[par], (t >> 1) & 1);\n",
+             "      PACC(4);\n", False),
+            ("      mbar_wait(&bars[par], (t >> 1) & 1);\n",
+             "      PACC(5);\n", True),
+            ("      __syncwarp();  // a row's p comes from the 8 lanes of "
+             "its own warp\n", "      PACC(6);\n", False),
+            ("      nn_product<NV, WKT>(o, Pw, LP, Vt + 4 * lx, ldv);\n",
+             "      PACC(7);\n", True),
+            ("    if (stages == 1) __syncthreads();  // the one slot is "
+             "reloaded next\n", "    PACC(8);\n    PTILE();\n", True),
+            ("  float* og = static_cast<float*>(a.o1);\n", "  PEND();\n",
+             False),
+        ],
+    },
+    "flash_dq_pair_kernel": {
+        "role": "dq",
+        "sections": ["ring issue", "copy wait", "barrier", "S, dP",
+                     "quarters, send", "exchange", "ds", "dq", "other"],
+        "edits": [
+            ("  const int n = cdiv_c(kv_end, WKT), stages = a.stages;\n",
+             "  PSTART();\n", True),
+            ("    if (stages == 1) {\n      load(t);", "    PACC(8);\n",
+             False),
+            ("    cp_async_wait_ring();\n    mbar_wait(&full", "    PACC(0);\n",
+             False),
+            ("    __syncthreads();  // tile t landed; every warp is past tile "
+             "t - 1\n", "    PACC(1);\n", False),
+            ("    __syncthreads();  // tile t landed; every warp is past tile "
+             "t - 1\n", "    PACC(2);\n", True),
+            ("    const float* Kt = ring + (t % stages) * SLOT;\n",
+             "    PACC(0);\n", False),
+            ("      nt_product(dp, Os + r0 * LC + qv0, LC, Vt + lx * ldv + qv0, "
+             "ldv, v4);\n", "      PACC(3);\n", True),
+            ("      mbar_wait(&bars[par], (t >> 1) & 1);\n",
+             "      PACC(4);\n", False),
+            ("      mbar_wait(&bars[par], (t >> 1) & 1);\n",
+             "      PACC(5);\n", True),
+            ("      asm volatile(\"bar.sync %0, 64;\\n\" ::\"r\"(1 + rg) : "
+             "\"memory\");  // both halves of ds written\n",
+             "      PACC(6);\n", False),
+            ("Kt + qk0 + 32 * NK + 2 * lx);\n", "      PACC(7);\n", True),
+            ("    if (stages == 1) __syncthreads();  // the one slot is "
+             "reloaded next\n", "    PACC(8);\n    PTILE();\n", True),
+            ("  float* dqg = static_cast<float*>(a.o1);\n", "  PEND();\n",
+             False),
+        ],
+    },
     "flash_dkv_wide_kernel": {
+        "role": "dkv",
         "sections": ["fetch", "S", "p", "dv", "dP", "ds", "dk", "other"],
         "edits": [
             ("  const int n = (g1 - g0) * nqt, nch = cdiv_c(max(a.hd, a.hdv), "
@@ -77,6 +200,7 @@ KERNELS = {
         ],
     },
     "flash_dkv_pair_kernel": {
+        "role": "dkv",
         "sections": ["ring issue", "S, dP", "quarters, send", "exchange",
                      "p", "dv", "ds", "dk", "other", "copy wait", "barrier"],
         "edits": [
@@ -135,35 +259,45 @@ FOOTER = (
         MAX_CTAS, NPROBE, MAX_CTAS, NPROBE)
 
 
+# the kernels a role may have, the paired one first
+ROLES = {"fwd": ("flash_fwd_pair_kernel", "flash_fwd_kernel"),
+         "dq": ("flash_dq_pair_kernel", "flash_dq_wide_kernel"),
+         "dkv": ("flash_dkv_pair_kernel", "flash_dkv_wide_kernel")}
+
+
 def instrument(src: str):
-    """(instrumented source, kernel name, its section names)."""
-    name = next((k for k in KERNELS if f" {k}(const Args a)" in src), None)
-    if name is None:
-        raise RuntimeError("no wide f32 dk/dv kernel this probe knows")
-    spec = KERNELS[name]
-    begin = src.index(f" {name}(const Args a)")
-    end = src.index("\n}\n", begin) + 3
-    body = src[begin:end]
-    for anchor, probe, after in spec["edits"]:
-        if body.count(anchor) != 1:
-            raise RuntimeError(f"probe anchor not found once: {anchor!r}")
-        body = body.replace(anchor, anchor + probe if after
-                            else probe + anchor)
-    out = src[:begin] + body + src[end:]
-    out = out.replace("namespace {\n", "namespace {\n" + HEADER, 1)
-    return out + FOOTER, name, spec["sections"]
+    """(instrumented source, {role: (kernel name, its section names)})."""
+    picked = {}
+    for role, names in ROLES.items():
+        name = next((k for k in names if f" {k}(const Args a" in src), None)
+        if name is None:
+            raise RuntimeError(f"no wide f32 {role} kernel this probe knows")
+        spec = KERNELS[name]
+        begin = src.index(f" {name}(const Args a")
+        end = src.index("\n}\n", begin) + 3
+        body = src[begin:end]
+        for anchor, probe, after in spec["edits"]:
+            if body.count(anchor) != 1:
+                raise RuntimeError(f"{name}: probe anchor not found once: "
+                                   f"{anchor!r}")
+            body = body.replace(anchor, anchor + probe if after
+                                else probe + anchor)
+        src = src[:begin] + body + src[end:]
+        picked[role] = (name, spec["sections"])
+    src = src.replace("namespace {\n", "namespace {\n" + HEADER, 1)
+    return src + FOOTER, picked
 
 
 def build():
-    src, name, sections = instrument(
-        (_build.CSRC / "flash_attn.cu").read_text())
+    src, picked = instrument((_build.CSRC / "flash_attn.cu").read_text())
     out = _build.BUILD_DIR.parent / "probe_flash"
     out.mkdir(parents=True, exist_ok=True)
     (out / "flash_attn_probe.cu").write_text(src)
     lib = out / "flash_attn_probe.so"
     r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
                         str(_build.CSRC), "-o", str(lib),
-                        str(out / "flash_attn_probe.cu")],
+                        str(out / "flash_attn_probe.cu"),
+                        *_build.LIB_FLAGS.get("flash_attn", [])],
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
@@ -171,12 +305,13 @@ def build():
     for fn, argtypes in _build.SIGNATURES["flash_attn"].items():
         getattr(dll, fn).argtypes = argtypes
     dll.probe_read.argtypes = [ctypes.c_void_p]
-    return dll, name, sections
+    return dll, picked
 
 
-def run(dll, sections, B, S, H, KVH, hd, hd_v):
-    """One dk/dv call under the tree's f32 plan, cold L2: the section
-    shares of every CTA's thread 0, and the longest CTA's cycles."""
+def run(dll, role, sections, B, S, H, KVH, hd, hd_v):
+    """One call of ``role``'s kernel under the tree's f32 plan, cold L2:
+    the section shares of every CTA's thread 0, and the longest CTA's
+    cycles."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(S + hd)
     q, do = (torch.randn((B, S, H, d), generator=gen, device="cuda")
@@ -186,20 +321,33 @@ def run(dll, sections, B, S, H, KVH, hd, hd_v):
     lse = torch.randn((B, H, S), generator=gen, device="cuda").abs() + 5
     delta = torch.randn((B, H, S), generator=gen, device="cuda")
     plan = _flash_plan(H, KVH, hd, hd_v)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ws = torch.empty(plan.parts * B * S * KVH * (hd + hd_v), device="cuda") \
-        if H > KVH else None
-    args = (0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    dims = (B, S, S, H, KVH, hd, hd_v, 1, hd ** -0.5)
+    if role == "fwd":
+        o = torch.empty_like(do)
+        fn, args = dll.flash_fwd_launch, (
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *dims, plan.fwd_stages, plan.fwd_rows, None)
+    elif role == "dq":
+        dq = torch.empty_like(q)
+        fn, args = dll.flash_dq_launch, (
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+            plan.dq_rows, plan.dq_stages, None)
+    else:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        ws = torch.empty(plan.parts * B * S * KVH * (hd + hd_v),
+                         device="cuda") if H > KVH else None
+        fn, args = dll.flash_dkv_launch, (
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, S, H, KVH, hd, hd_v, 1, hd ** -0.5, plan.dkv_rows,
-            plan.dkv_stages, plan.heads, plan.parts,
+            *dims, plan.dkv_rows, plan.dkv_stages, plan.heads, plan.parts,
             None if ws is None else ws.data_ptr(), None)
-    _build.check(dll.flash_dkv_launch(*args), "probed dk/dv")
+    _build.check(fn(*args), f"probed {role}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush.zero_()
     torch.cuda.synchronize()
     dll.probe_clear()
-    _build.check(dll.flash_dkv_launch(*args), "probed dk/dv")
+    _build.check(fn(*args), f"probed {role}")
     torch.cuda.synchronize()
     buf = (ctypes.c_longlong * (MAX_CTAS * NPROBE))()
     dll.probe_read(buf)
@@ -225,21 +373,22 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
-    dll, name, sections = build()
+    dll, picked = build()
     recs = {}
-    for shape, *dims in SHAPES:
-        rec = run(dll, sections, *dims)
-        recs[shape] = rec
-        lg = rec["longest"]
-        print(f"{name} {shape}: {rec['ctas']} CTAs; share of thread 0's "
-              "cycles: " + ", ".join(f"{s} {100 * x:.1f}%"
-                                      for s, x in rec["share"].items()))
-        print(f"  longest CTA: {lg['cycles']} cycles, {lg['tiles']} tiles: "
-              + ", ".join(f"{s} {lg[s]}" for s in sections))
+    for role, (name, sections) in picked.items():
+        for shape, *dims in SHAPES:
+            rec = run(dll, role, sections, *dims)
+            recs.setdefault(name, {})[shape] = rec
+            lg = rec["longest"]
+            print(f"{name} {shape}: {rec['ctas']} CTAs; share of thread 0's "
+                  "cycles: " + ", ".join(f"{s} {100 * x:.1f}%"
+                                          for s, x in rec["share"].items()))
+            print(f"  longest CTA: {lg['cycles']} cycles, {lg['tiles']} "
+                  "tiles: " + ", ".join(f"{s} {lg[s]}" for s in sections))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "kernel": name, "shapes": recs}, indent=1))
+            {"card": card, "kernels": recs}, indent=1))
     return 0
 
 

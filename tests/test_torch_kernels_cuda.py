@@ -681,13 +681,13 @@ def test_flash_forward_bf16_matches_plain(cuda, case):
     assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
-# hd or hd_v past 128: the forward's and dq's 128-column slices (two here)
-# and dk/dv's CTA pairs (halves of hd and hd_v), gemma-2b's 256 (MQA), the
+# hd or hd_v past 128: the f32 forward's, dq's and dk/dv's CTA pairs
+# (halves of hd and hd_v), gemma-2b's 256 (MQA), the
 # expanded MLA's 192 / 128, a ragged 160 / 96 with G = 3, hd_v > hd
 # bidirectional, kv past every query, G = 16 (two heads a dk/dv CTA), MLA's
 # widths with G = 6 (6 partials a kv head) and kv past every query, and
-# 150 / 130, whose rows are no 16-byte multiples (dk/dv's cp.async copies in
-# place of bulk ones)
+# 150 / 130, whose rows are no 16-byte multiples (the pairs' cp.async copies
+# in place of bulk ones)
 WIDE_FLASH_CASES = [
     (2, 200, 200, 8, 1, 256, 256, True, 512, 512),
     (1, 130, 130, 16, 16, 192, 128, True, 512, 512),
@@ -730,11 +730,9 @@ def test_wide_flash_kernels_match_plain(cuda, case):
                          ids=[str(c[:8]) for c in WIDE_FLASH_CASES])
 def test_wide_flash_kernels_are_bitwise_run_to_run(cuda, case):
     """Past W = 128, two launches of each kernel give the same bits: the
-    forward's and dq's slices rebuild the scores in the unsplit sum's
-    order; dk/dv's CTA pairs sum each score as its two halves (lo + hi,
-    so dk/dv's p may differ from the forward's in the last bits, within
-    the reference's gradient tolerance) with no atomics; the group sum is
-    ordered."""
+    forward's, dq's and dk/dv's CTA pairs sum each score as its quarters
+    and then its halves (the same adds in all three) with no atomics; the
+    group sum is ordered."""
     from repro_torch.kernels.flash_attn import (flash_dkv_cuda, flash_dq_cuda,
                                                 flash_fwd_cuda)
     q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
@@ -773,6 +771,29 @@ def test_wide_dkv_plan_variants_give_the_same_bits(cuda, case):
         assert all(torch.equal(x, y) for x, y in zip(got, want)), p
     if causal and Skv > Sq:
         assert not want[0][:, Sq:].any() and not want[1][:, Sq:].any()
+
+
+@pytest.mark.parametrize("case", WIDE_FLASH_CASES,
+                         ids=[str(c[:8]) for c in WIDE_FLASH_CASES])
+def test_wide_fwd_dq_plan_variants_give_the_same_bits(cuda, case):
+    """The paired f32 forward and dq give the plan's bits with 1 or 2
+    ring stages: a tile's products, the quarter and half adds and the
+    order of the kv tiles do not change."""
+    from repro_torch.kernels.flash_attn import (_flash_plan, flash_dq_cuda,
+                                                flash_fwd_cuda)
+    B, Sq, Skv, H, KVH, hd, hd_v, causal = case[:8]
+    q, k, v, do, lse, delta = _flash_inputs(case, torch.float32)
+    kw = dict(causal=causal, scale=hd ** -0.5)
+    plan = _flash_plan(H, KVH, hd, hd_v)
+    assert (plan.fwd_stages, plan.dq_stages, plan.slices) == (2, 2, 2)
+    want_o = flash_fwd_cuda(q, k, v, **kw)
+    want_dq = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    for st in (1, 2):
+        p = _flash_plan(H, KVH, hd, hd_v, fwd_stages=st, dq_stages=st)
+        got = flash_fwd_cuda(q, k, v, plan=p, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, want_o)), p
+        assert torch.equal(
+            flash_dq_cuda(q, k, v, do, lse, delta, plan=p, **kw), want_dq), p
 
 
 BF16_FLASH_CASES = FLASH_CASES + WIDE_FLASH_CASES

@@ -700,12 +700,14 @@ def test_flash_plan_covers_every_tile_and_head_once(case):
     tile, kv head, batch) once with the ``parts`` CTAs of a group side by
     side, whose ranks walk the group's G query heads in g order, kv tile
     0 (the longest causal walk) first.  The forward's ring: one stage at
-    W = 64 (three CTAs an SM), two at W = 128; dk/dv's: 128 kv rows a CTA
-    and 2 stages where they fit; at most 8 partials a group."""
+    W = 64 (three CTAs an SM), two at W = 128 and past it (the paired
+    kernel, 128 query rows a CTA); dk/dv's: 128 kv rows a CTA and 2 stages
+    where they fit; at most 8 partials a group."""
     B, Sq, Skv, H, KVH, hd, hd_v, causal = case
     G, W = H // KVH, _width(hd, hd_v)
     plan = _flash_plan(H, KVH, hd, hd_v)
-    assert plan.fwd_stages == (2 if W == 128 else 1)
+    assert plan.fwd_stages == (1 if W == 64 else 2)
+    assert plan.fwd_rows == (128 if W > 128 else 64)
     assert 3 * (_fwd_smem(64, 1) + 1024) <= 233472 < \
         3 * (_fwd_smem(64, 2) + 1024)
     assert plan.dkv_rows == (128 if _dkv_smem(128, W, 2) <= 232448 else 64)
@@ -713,8 +715,8 @@ def test_flash_plan_covers_every_tile_and_head_once(case):
         2 if _dkv_smem(plan.dkv_rows, W, 2) <= 232448 else 1)
     assert plan.heads == -(-G // 8) and plan.parts == -(-G // plan.heads)
     assert plan.parts <= 8
-    ctas = _fwd_ctas(B, Sq, H)
-    nqt = -(-Sq // 64)
+    ctas = _fwd_ctas(B, Sq, H, plan.fwd_rows)
+    nqt = -(-Sq // plan.fwd_rows)
     assert sorted(ctas) == [(t, h, b) for t in range(nqt)
                             for h in range(H) for b in range(B)]
     assert [t for t, _, _ in ctas] == sorted((t for t, _, _ in ctas),
@@ -778,43 +780,39 @@ def test_dq_ctas_cover_every_tile_and_head_once(case, rows):
                                      (160, 96), (64, 200), (129, 129)])
 def test_wide_flash_plan_covers_every_column_slice_once(hd, hd_v):
     """Past W = 128 (hd or hd_v up to 256; 192 runs the 256-wide tiles)
-    the forward and dq cut their outputs into 128-column slices, a grid row
-    each (``blockIdx.y``), and dk/dv runs a cluster of two CTAs
-    (``slices`` = 2), each owning half of hd and of hd_v: every (query
-    tile, head, batch) of the forward and dq and every (kv tile, kv head,
-    batch) of dk/dv is a CTA once a slice, and the slices (dk/dv: the
-    halves) cover each output's columns once.  The forward one ring stage,
-    64 rows a CTA, dq 64 rows; dk/dv 64 kv rows a CTA and 2 stages of
-    32-query tiles; each CTA's shared bytes (the source's ``*_smem``)
-    within the 227 KB of a CTA, at the bytes the source's header
-    states."""
+    each f32 kernel runs a cluster of two CTAs (``slices`` = 2), each
+    owning half of hd and of hd_v: every (query tile, head, batch) of the
+    forward (128 rows) and dq (64 rows) and every (kv tile, kv head,
+    batch) of dk/dv is a CTA once a half, and the halves cover each
+    output's columns once.  The forward 2 ring stages, dq 64 rows and 2
+    stages, dk/dv 64 kv rows a CTA and 2 stages of 32-query tiles; each
+    CTA's shared bytes (the source's ``*_smem``) within the 227 KB of a
+    CTA, at the bytes the source's header states."""
     H, KVH, B, S = 8, 2, 2, 300
     plan = _flash_plan(H, KVH, hd, hd_v)
     W = _width(hd, hd_v)
     assert W == 256
     assert plan.slices == -(-max(hd, hd_v) // 128) == 2
-    assert (plan.fwd_stages, plan.dq_rows, plan.dkv_rows,
-            plan.dkv_stages) == (1, 64, 64, 2)
-    assert (_fwd_smem(W, 1), _dq_smem(64, W), _dkv_smem(64, W, 2),
-            _dkv_smem(64, W, 1)) == (185344, 219136, 221728, 187680)
-    assert max(_fwd_smem(W, 1), _dq_smem(64, W),
-               _dkv_smem(64, W, 2)) <= 232448
-    assert min(_fwd_smem(W, 2), _dq_smem(128, W),
-               _dkv_smem(128, W, 1)) > 232448
-    for d in (hd, hd_v):            # o / dq slices
-        cols = [c for sl in range(plan.slices)
-                for c in range(sl * 128, min(d, (sl + 1) * 128))]
-        assert cols == list(range(d))
-    for d in (hd, hd_v):            # dk / dv halves of a pair
+    assert (plan.fwd_stages, plan.fwd_rows, plan.dq_rows, plan.dq_stages,
+            plan.dkv_rows, plan.dkv_stages) == (2, 128, 64, 2, 64, 2)
+    assert (_fwd_smem(W, 2), _fwd_smem(W, 1), _dq_smem(64, W, 2),
+            _dq_smem(64, W, 1), _dkv_smem(64, W, 2),
+            _dkv_smem(64, W, 1)) == (188576, 154784, 211104, 177312,
+                                     221728, 187680)
+    assert max(_fwd_smem(W, 2), _dq_smem(64, W), _dkv_smem(64, W, 2)) <= \
+        232448
+    assert min(_dq_smem(128, W, 1), _dkv_smem(128, W, 1)) > 232448
+    for d in (hd, hd_v):            # the halves of a pair
         h = _half_cols(d)
         assert h % 8 == 0 and h <= 128 and 0 <= d - h <= h
         cols = [c for sl in range(2) for c in range(sl * h,
                                                      min(d, (sl + 1) * h))]
         assert cols == list(range(d))
-    ctas = [(c, sl) for c in _fwd_ctas(B, S, H, plan.dq_rows)
-            for sl in range(plan.slices)]
-    assert len(set(ctas)) == len(ctas) == \
-        -(-S // 64) * H * B * plan.slices
+    for rows in (plan.fwd_rows, plan.dq_rows):   # forward, dq
+        ctas = [(c, sl) for c in _fwd_ctas(B, S, H, rows)
+                for sl in range(plan.slices)]
+        assert len(set(ctas)) == len(ctas) == \
+            -(-S // rows) * H * B * plan.slices
     dkv = [(c[:3], tuple(c[3]), sl)
            for c in _dkv_ctas(plan, B, S, KVH, H // KVH)
            for sl in range(plan.slices)]
@@ -825,9 +823,10 @@ def test_wide_flash_plan_covers_every_column_slice_once(hd, hd_v):
 @pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
 def test_wide_flash_calls_are_one_launch_each(card, hd, hd_v):
     """A call at hd or hd_v past 128 launches each kernel once with the
-    launch signature of every other width (the source derives the slices
-    from hd and hd_v) and counts one launch; dk/dv's scratch holds parts x
-    (hd + hd_v) floats a kv row and head."""
+    launch signature of every other width (the source derives the CTA
+    pairs from hd and hd_v; the forward's 2 stages and 128 rows, dq's 64
+    rows and 2 stages) and counts one launch; dk/dv's scratch holds parts
+    x (hd + hd_v) floats a kv row and head."""
     B, S, H, KVH = 1, 70, 8, 1
     q, do = torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd_v)
     k, v = torch.zeros(B, S, KVH, hd), torch.zeros(B, S, KVH, hd_v)
@@ -838,12 +837,138 @@ def test_wide_flash_calls_are_one_launch_each(card, hd, hd_v):
     assert card.calls == ["flash_fwd_launch", "flash_dq_launch",
                           "flash_dkv_launch"]
     plan = _flash_plan(H, KVH, hd, hd_v)
-    assert card.args[0][11:13] == (hd, hd_v) and card.args[0][15] == 1
+    assert card.args[0][11:13] == (hd, hd_v)
+    assert card.args[0][15:17] == (2, 128)
     assert card.args[1][17:19] == (64, 2)
     assert card.args[2][18:22] == (64, 2, plan.heads, plan.parts)
     counts = ops.launch_counts()
     assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"],
             counts["plain_calls"]) == (1, 1, 1, 0)
+
+
+# hd, hd_v of the paired f32 kernels: gemma-2b's, MLA's, ragged widths,
+# one of them at or below 128, and tiny halves
+_PAIR_WIDTHS = [(256, 256), (192, 128), (192, 192), (160, 96), (64, 200),
+                (129, 129), (150, 130), (200, 200), (256, 8), (1, 129)]
+
+
+def _quarter_groups(width: int):
+    """(32-column accumulator groups, 16-column tails) a paired dq warp's
+    quarter of ``width`` columns runs under, as the source's ``launch_dq``
+    picks them."""
+    return (1, 0) if width <= 32 else (1, 1) if width <= 48 else (2, 0)
+
+
+@pytest.mark.parametrize("hd,hd_v", _PAIR_WIDTHS)
+@pytest.mark.parametrize("B,S,H", [(2, 300, 8), (1, 1024, 128), (3, 65, 4)])
+def test_wide_forward_and_dq_pairs_cover_every_unit_and_column_once(
+        B, S, H, hd, hd_v):
+    """Past W = 128 the forward's and dq's CTA pairs, as the kernels
+    decode ``blockIdx``: every (query tile, head, batch) is one cluster
+    (128 query rows a forward CTA, 64 a dq CTA), heaviest tile first, its
+    two CTAs the halves of hd and hd_v.  The forward's CTA owns its half
+    of o's columns (accumulator groups that reach past it), dq's warps
+    the quarters of their CTA's half of dq's (groups and tails that reach
+    past each), so the pair writes each column of o and dq once; the
+    forward sums each score over the same quarters as dq (and dk/dv)."""
+    plan = _flash_plan(H, H, hd, hd_v)
+    assert plan.slices == 2
+    for rows in (plan.fwd_rows, plan.dq_rows):
+        units = _fwd_ctas(B, S, H, rows)
+        nqt = -(-S // rows)
+        assert sorted(units) == [(t, h, b) for t in range(nqt)
+                                 for h in range(H) for b in range(B)]
+        assert [t for t, _, _ in units] == sorted(
+            (t for t, _, _ in units), reverse=True)
+    hk, hv = _half_cols(hd), _half_cols(hd_v)
+    o_cols, dq_cols = [], []
+    for half in range(2):
+        dvw = max(0, min(hv, hd_v - half * hv))
+        assert 32 * (2 if hv <= 64 else 4) >= dvw    # the forward's NV
+        o_cols += range(half * hv, half * hv + dvw)
+        dkw = max(0, min(hk, hd - half * hk))
+        fwd_quarters = [(0, min(hk // 2, dkw)),
+                        (hk // 2, max(0, dkw - hk // 2))]
+        for cg in range(2):                          # dq's column groups
+            qk0 = cg * (hk // 2)
+            dkq = max(0, min(hk // 2, dkw - qk0))
+            assert fwd_quarters[cg] == (qk0, dkq)
+            nk, nt = _quarter_groups(hk // 2)
+            assert 32 * nk + 16 * nt >= dkq
+            dq_cols += range(half * hk + qk0, half * hk + qk0 + dkq)
+    assert o_cols == list(range(hd_v)) and dq_cols == list(range(hd))
+
+
+def test_wide_pair_tiles_are_the_sources_bytes():
+    """The paired kernels' shared bytes (``_fwd_smem``, ``_dq_smem``,
+    ``_dkv_smem`` at W = 256) are the bytes the source's header states for
+    a forward / dq / dk/dv CTA with 2 stages, each within the 227 KB of a
+    CTA: four mbarriers and alignment slack, the resident rows' halves
+    (132 floats a row), p or ds (40 floats a row), the exchanged scores
+    and the 32-row tiles of the ring."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attn.cu").read_text()
+    got = (_fwd_smem(256, 2), _dq_smem(64, 256, 2), _dkv_smem(64, 256, 2))
+    assert got == (188576, 211104, 221728)
+    assert max(got) <= 232448
+    head = " ".join(line.lstrip("/ ") for line in src.splitlines()[:200])
+    assert "188,576 / 211,104 / 221,728 bytes" in head
+    assert _fwd_smem(256, 2) == 4 * (40 + 128 * 132 + 128 * 40 +
+                                     2 * 32 * 128 + 2 * 2 * 32 * 132)
+    assert _dq_smem(64, 256, 2) == 4 * (40 + 2 * 64 * 132 + 64 * 40 +
+                                        2 * 128 * 64 + 2 * 2 * 32 * 132)
+
+
+@pytest.mark.parametrize("hd,hd_v,kw,match", [
+    (256, 256, dict(fwd_stages=3), "ring stages do not fit"),
+    (256, 256, dict(fwd_rows=64), "holds 128 query rows"),
+    (192, 128, dict(fwd_rows=256), "holds 128 query rows"),
+    (256, 256, dict(dq_rows=128), "does not fit at width 256"),
+    (192, 128, dict(dq_stages=3), "ring stages do not fit"),
+    (256, 256, dict(dq_stages=0), "ring stages do not fit"),
+    (192, 128, dict(dkv_rows=128), "ring stages do not fit"),
+])
+def test_wide_pair_plan_that_does_not_fit_is_refused_before_a_launch(
+        card, hd, hd_v, kw, match):
+    """A paired f32 plan past the kernels' tiles (128 dq rows: 354,464
+    bytes; 3 or 0 ring stages; a forward CTA of other than 128 rows; 128
+    dk/dv rows) raises while it is made, before any launch, and counts
+    nothing."""
+    B, S, H, KVH = 1, 40, 4, 2
+    q, do = torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd_v)
+    k, v = torch.zeros(B, S, KVH, hd), torch.zeros(B, S, KVH, hd_v)
+    lse = torch.zeros(B, H, S)
+    with pytest.raises(ValueError, match=match):
+        plan = _flash_plan(H, KVH, hd, hd_v, **kw)
+        flash_fwd_cuda(q, k, v, causal=True, scale=0.1, plan=plan)
+        flash_dq_cuda(q, k, v, do, lse, lse, causal=True, scale=0.1,
+                      plan=plan)
+    assert card.calls == []
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"],
+            counts["plain_calls"]) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+def test_wide_pair_ring_stages_reach_the_launch(card, stages):
+    """Either ring stage count of the paired forward and dq reaches their
+    launches (the forward's with its 128 rows, dq's with its 64), one
+    counted launch a call; up to W = 128 dq keeps its 2 stages."""
+    B, S, H, KVH, hd, hd_v = 1, 70, 8, 1, 256, 256
+    plan = _flash_plan(H, KVH, hd, hd_v, fwd_stages=stages,
+                       dq_stages=stages)
+    q, k = torch.zeros(B, S, H, hd), torch.zeros(B, S, KVH, hd)
+    lse = torch.zeros(B, H, S)
+    flash_fwd_cuda(q, k, k, causal=True, scale=0.1, plan=plan)
+    flash_dq_cuda(q, k, k, q, lse, lse, causal=True, scale=0.1, plan=plan)
+    assert card.calls == ["flash_fwd_launch", "flash_dq_launch"]
+    assert card.args[0][15:17] == (stages, 128)
+    assert card.args[1][17:19] == (64, stages)
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dq"],
+            counts["plain_calls"]) == (1, 1, 0)
+    with pytest.raises(ValueError, match="2 stages up to width 128"):
+        _flash_plan(H, KVH, 128, 128, dq_stages=1)
 
 
 def test_flash_plan_refuses_what_the_kernels_do_not_take():
@@ -958,7 +1083,8 @@ def test_flash_default_plan_reaches_the_launch(card):
 
 # _FLASH_GRID's f32 plans as the rules gave them before bf16 had plans of
 # its own: (fwd_stages, dkv_rows, dkv_stages, heads, parts, dq_rows, slices),
-# but for dk/dv's 2 ring stages at W = 256 since its CTAs run in pairs
+# but at W = 256, where all three run in CTA pairs: dk/dv's 2 ring stages,
+# and the forward's 2 stages and (an eighth field) 128 rows a CTA
 _F32_PLANS = {
     (32, 8, 64, 64): (1, 128, 2, 1, 4, 128, 1),
     (4, 4, 64, 64): (1, 128, 2, 1, 1, 128, 1),
@@ -967,17 +1093,18 @@ _F32_PLANS = {
     (96, 8, 128, 128): (2, 64, 2, 2, 6, 64, 1),
     (32, 1, 128, 64): (2, 64, 2, 4, 8, 64, 1),
     (9, 1, 16, 16): (1, 128, 2, 2, 5, 128, 1),
-    (8, 1, 256, 256): (1, 64, 2, 1, 8, 64, 2),
-    (128, 128, 192, 128): (1, 64, 2, 1, 1, 64, 2),
-    (6, 2, 64, 200): (1, 64, 2, 1, 3, 64, 2),
+    (8, 1, 256, 256): (2, 64, 2, 1, 8, 64, 2, 128),
+    (128, 128, 192, 128): (2, 64, 2, 1, 1, 64, 2, 128),
+    (6, 2, 64, 200): (2, 64, 2, 1, 3, 64, 2, 128),
 }
 
 
 @pytest.mark.parametrize("case", _FLASH_GRID, ids=str)
 def test_f32_flash_plans_are_the_rules_before_bf16_plans(case):
     """The f32 plan is the same with ``dtype`` given or not, and equals
-    the plan the rules gave before bf16 had plans of its own (dk/dv at W
-    = 256 aside: 2 stages of the paired kernel); dq's ring 2 stages."""
+    the plan the rules gave before bf16 had plans of its own (W = 256
+    aside: 2 stages of the paired kernels, 128 rows a forward CTA); dq's
+    ring 2 stages."""
     H, KVH, hd, hd_v = case[3:7]
     plan = _flash_plan(H, KVH, hd, hd_v, dtype=torch.float32)
     assert plan == _flash_plan(H, KVH, hd, hd_v) == \
