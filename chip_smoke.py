@@ -170,13 +170,14 @@ Phases (any failure exits non-zero):
    and trace on the dense layout with bucketed prefill (the blockwise
    attention route) and paged with the buckets scattered into pages;
    (e) seamless-m4t-medium (12 + 12 layers, the optimized profile: the
-   encoder and a prefill's cross attention on the flash forward), 8
+   encoder and a prefill's self and cross attention on the flash
+   forward), 8
    requests with seeded source features at src_len 128; (f) internvl2-76b
    cut to 2 layers, 4 requests with seeded patch embeddings.  On every
    path: every request finishes, the pool ends leak-free, each paged
    kernel launches once a layer and model call where the layout runs it,
-   the flash forward once an encoder and a cross-attention layer a
-   prefill, every GEMM site but the f32 router runs on the RSA kernel with
+   the flash forward once an encoder, a self-attention and a
+   cross-attention layer a prefill, every GEMM site but the f32 router runs on the RSA kernel with
    each expert bank one launch, no plain version runs, and one prefill
    and one decode step are within 5% of the plain versions' largest logit
    (MoE routing replayed; both decode the plain run's tokens).  (d)
@@ -232,6 +233,28 @@ Phases (any failure exits non-zero):
    1e-5 / 1e-4 of the same step on the plain versions, a MoE model's aux
    metrics finite and within 1e-5 of the plain step's, and 15b's restored
    tree leaf for leaf the trained one.
+16. the step tooling (``launch/profile.py``, ``launch/dryrun.py``,
+   ``launch/roofline.py``) and the wave baseline.  (a) ``profile_cell`` on
+   llama3.2-1b at full width with the optimized profile, batch 1 of each
+   of ``train_4k`` (f32, the f32 CUDA-core peak; if one 4096-token
+   sequence runs out of memory, the measured peak is printed and phase
+   7's 2 x 1024 profiled instead, under that name), ``prefill_32k`` (bf16
+   on a fresh cache: the flash forward) and ``decode_32k`` (bf16, one
+   token against a cache filled to 32767 seeded rows): one warm-up, 3
+   timed steps, one under ``torch.profiler``.  Each prints the step's
+   wall, the profiled step's kernel device time and wall and the idle
+   share between those two, the model FLOPs
+   and compulsory bytes, ``roofline_fraction`` and ``bound_attainment``,
+   the peak memory and the top 5 kernels; gates: the RSA GEMM launched
+   (and the flash kernels for train and prefill), each of those kernel
+   families with device time in the profiled step, no plain version run,
+   no share above 1.05, the idle share in [0, 1], a finite output.  (b)
+   ``dryrun --device meta`` over all 40 cells, each status printed: every
+   cell "ok" with its estimates or "skipped" with the reference's reason
+   or its memory estimate.  (c) ``serve_waves`` serving full-width llama3.2-1b in bf16,
+   2 waves of 4 prompts of 32 tokens, 32 new tokens each, greedy: every
+   GEMM on the kernel, prefill and decode tok/s printed.  The phase
+   fails past its 90 s budget.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -292,9 +315,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
-PEAK_F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
-PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
+# the H100's peaks (dense bf16 tensor cores, f32 CUDA cores, HBM3 bytes/s),
+# read from repro_torch.core.hw.H100 in main() once src/ is on the path
+PEAK_BF16_FLOPS = PEAK_F32_FLOPS = PEAK_BYTES = None
 F32_EPS = 2.0 ** -24
 BF16_EPS = 2.0 ** -8
 PAGED_TPU = {"paged_decode": "src/repro/kernels/paged_attn.py:104",
@@ -361,6 +384,12 @@ P15_SRC = 128
 P15_FLASH = {"gemma": "gemma hd 256", "gemma bf16": "gemma hd 256 bf16",
              "mla": "deepseek MLA 192/128"}
 P15_KEYS = {}     # each phase 15 run's GEMM launches by ([E,] M, K, N, mode)
+# phase 16: the step tooling on llama3.2-1b's cells (optimized profile,
+# batch 1 of each shape's length), the dry-run's meta sweep and the wave
+# baseline (full-width llama, bf16: waves of prompts, greedy)
+P16_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+P16_WAVES = dict(batch=4, prompt_len=32, gen=32, waves=2)
+P16_BUDGET_S = 90.0
 
 
 def log(*a):
@@ -4484,9 +4513,9 @@ def p13_serve(torch, key, cfg, reqs, cut=None, **ecfg):
     on the RSA kernel but the f32 router, each expert bank one launch a
     layer and model call, the paged decode / prefill kernels once a layer
     and model call where the layout runs them (none on the dense layout
-    or in a bucketed prefill), the flash forward once an encoder layer and
-    a decoder layer's cross-attention a prefill under the optimized
-    profile.  Returns (ok, record, engine, launches by GEMM key)."""
+    or in a bucketed prefill), the flash forward once an encoder layer, a
+    decoder layer's cross-attention and, in a bucketed prefill, a decoder
+    layer's self-attention a prefill under the optimized profile.  Returns (ok, record, engine, launches by GEMM key)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
     from repro_torch.models.moe import padded_num_experts
@@ -4517,12 +4546,16 @@ def p13_serve(torch, key, cfg, reqs, cut=None, **ecfg):
     calls = sum(n for k, n in keys.items() if len(k) == 4 and k[2] == V)
     P = calls - D
     paged = engine.kv_layout == "paged"
+    flash = 0
+    if cfg.attn_impl == "pallas" and cfg.family not in ("ssm", "hybrid"):
+        if cfg.family == "encdec":         # the encoder, the cross-attention
+            flash += cfg.encoder_layers + L
+        if not engine.prefill_chunk and cfg.attention_type == "gqa":
+            flash += L                     # a whole prompt's self-attention
     want = {"paged_decode": L * D if paged else 0,
             "paged_prefill": (L * P if paged and engine.prefill_chunk
                               else 0),
-            "flash_fwd": ((cfg.encoder_layers + L) * P
-                          if cfg.family == "encdec"
-                          and cfg.attn_impl == "pallas" else 0)}
+            "flash_fwd": flash * P}
     banks = {k: n for k, n in keys.items() if len(k) == 5}
     expert = None
     if cfg.moe is not None:
@@ -4928,18 +4961,15 @@ def p14_decode_time(torch, engine, timer):
             engine.model.decode_step(engine.params, toks, c)
             torch.cuda.synchronize()
             walls.append((time.time() - t0) * 1e3)
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.launch.roofline import kernel_events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             engine.model.decode_step(engine.params, toks, c)
             torch.cuda.synchronize()
-        # the kernels' own events only: a CPU op's self device time is the
-        # time of the kernels it launched, which the kernel events count
-        # already (as torch's own table sums it)
-        busy = sum(e.self_device_time_total for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation) / 1e3 or None
+        # the kernels' own events only (launch/roofline.py)
+        busy = sum(us for _, us in kernel_events(prof)) / 1e3 or None
     d_inner, H, P, N = mamba_dims(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
@@ -5701,6 +5731,136 @@ def p13_table(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the step tooling and the wave baseline
+# ---------------------------------------------------------------------------
+
+def p16_cell(torch, shape):
+    """``profile_cell`` on one llama3.2-1b cell at full width (optimized
+    profile), batch 1 of the shape's length.  A train_4k step that runs
+    out of memory prints the measured peak and profiles phase 7's 2 x
+    1024 instead, under that name.  Returns (the cell's record, its
+    gates held)."""
+    from repro_torch.launch.profile import profile_cell
+    kw = dict(top=5, device="cuda", optimized=True, steps=3)
+    torch.cuda.empty_cache()
+    oom_gb = None
+    try:
+        out = profile_cell("llama3.2-1b", shape, {}, batch=1, **kw)
+    except torch.cuda.OutOfMemoryError:
+        if shape != "train_4k":
+            raise
+        oom_gb = torch.cuda.max_memory_allocated() / 1e9
+    if oom_gb is not None:
+        torch.cuda.empty_cache()
+        log(f"    {shape}: out of memory at 1 x 4096 (peak {oom_gb:.2f} GB "
+            f"measured); profiling phase 7's {TRAIN_B} x {TRAIN_S} instead")
+        out = profile_cell("llama3.2-1b", shape, {}, batch=TRAIN_B,
+                           seq_len=TRAIN_S, **kw)
+    t = out["terms"]
+    ran = f"{shape} ({out['batch']} x {out['seq_len']})"
+    L = out["launches"]
+    want = ["rsa_gemm"] + {"train": ["flash_fwd", "flash_dq", "flash_dkv"],
+                           "prefill": ["flash_fwd"]}.get(out["kind"], [])
+    busy_ms = 1e3 * t.busy_s
+    fam_ms = {r["kernel"]: r["device_ms"] for r in out["by_kernel"]
+              if r["family"]}
+    shares = {"roofline_fraction": t.roofline_fraction,
+              "bound_attainment": t.bound_attainment}
+    gates = {
+        "kernels launched": all(L[k] > 0 for k in want),
+        "no plain version": L["plain_calls"] == 0,
+        "device time of each": all(fam_ms.get(k, 0.0) > 0 for k in want),
+        "shares <= 1.05": all(v <= 1.05 for v in shares.values()),
+        "idle share in [0, 1]": 0.0 <= t.idle_share <= 1.0,
+        "finite": out["finite"]}
+    ok = all(gates.values())
+    log(f"  16 {ran}, {out['compute_dtype']} (peak "
+        f"{out['peak_flops'] / 1e12:.0f} TFLOP/s): step {1e3 * t.step_s:.3f}"
+        f" ms wall (median of {len(out['step_walls_s'])}), {busy_ms:.3f} ms "
+        f"of kernels in a profiled step of {1e3 * t.profiled_s:.3f} ms "
+        f"(torch.profiler), idle {100 * t.idle_share:.1f}%; "
+        f"build {out['build_s']:.2f} s; peak memory "
+        f"{out['peak_memory_bytes'] / 1e9:.2f} GB")
+    log(f"    model FLOPs {t.model_flops:.4e}, compulsory bytes "
+        f"{t.model_min_bytes:.4e}: ideal compute {1e3 * t.ideal_compute_s:.3f}"
+        f" ms, memory {1e3 * t.ideal_memory_s:.3f} ms ({t.dominant}); "
+        f"roofline_fraction {t.roofline_fraction:.4f}, bound_attainment "
+        f"{t.bound_attainment:.4f}")
+    log("    launches a step: " + ", ".join(
+        f"{k} {v}" for k, v in L.items() if v))
+    for r in out["rows"]:
+        log(f"    {r['device_ms']:10.4f} ms {100 * r['share']:5.1f}% "
+            f"x{r['launches']:<5d} {r['kernel'][:100]}")
+    log("    gates: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                  for k, v in gates.items()))
+    rec = {k: v for k, v in out.items() if k != "terms"}
+    rec.update(ran=ran, out_of_memory_peak_gb=oom_gb, gates=gates,
+               roofline=t.to_dict())
+    return rec, ok
+
+
+def p16_all(torch, report):
+    """Phase 16: (a) ``profile_cell`` on llama3.2-1b's train_4k,
+    prefill_32k and decode_32k; (b) the dry-run's meta sweep over all 40
+    cells; (c) the wave baseline, ``serve_waves`` on full-width llama in
+    bf16."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import serve_waves
+    t0 = time.time()
+    rep = report["p16"] = {"cells": {}}
+    ok = True
+    for shape in P16_CELLS:
+        rec, good = p16_cell(torch, shape)
+        rep["cells"][shape] = rec
+        ok &= good
+    torch.cuda.empty_cache()
+
+    log("  16b dry-run, --device meta, every arch x shape (estimates only):")
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rc = dryrun.main(["--device", "meta", "--out", str(out_dir)])
+    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    status = {f"{r['arch']} x {r['shape']}": r["status"] for r in recs}
+    rep["meta_sweep"] = {"rc": rc, "status": status}
+    n_ok = sum(v == "ok" for v in status.values())
+    log(f"    rc {rc}: {len(recs)} cells, {n_ok} ok, "
+        f"{len(recs) - n_ok} skipped")
+    ok &= rc == 0 and len(recs) == 40 and all(
+        v in ("ok", "skipped") for v in status.values())
+
+    kw = dict(P16_WAVES, temperature=0.0)
+    log(f"  16c wave baseline: llama3.2-1b full width, bf16, {kw['waves']} "
+        f"waves of {kw['batch']} prompts x {kw['prompt_len']} tokens, "
+        f"{kw['gen']} new tokens each, greedy")
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    outs, stats = serve_waves("llama3.2-1b", preset="full", device="cuda",
+                              execute="kernel", log=False, **kw)
+    counts = ops.launch_counts()
+    pre = stats["prefill_tokens"] / stats["prefill_s"]
+    dec = stats["decode_tokens"] / stats["decode_s"]
+    shapes_ok = all(o.shape == (kw["batch"], kw["gen"]) for o in outs)
+    good = (counts["rsa_gemm"] > 0 and counts["plain_calls"] == 0
+            and shapes_ok and len(outs) == kw["waves"])
+    ok &= good
+    rep["waves"] = {**stats, "prefill_tok_s": pre, "decode_tok_s": dec,
+                    "launches": counts, "ok": good}
+    log(f"    prefill {pre:,.1f} tok/s, decode {dec:,.1f} tok/s (host clock "
+        f"to a device sync); launches {counts['rsa_gemm']} RSA GEMM, "
+        f"{counts['plain_calls']} plain calls: "
+        + ("ok" if good else "FAIL"))
+    rep["seconds"] = report["phase16_s"] = time.time() - t0
+    within = rep["seconds"] <= P16_BUDGET_S
+    ok &= within
+    log(f"  phase 16 took {rep['seconds']:.1f} s (budget {P16_BUDGET_S:.0f} "
+        f"s: {'within' if within else 'OVER'})")
+    if not ok:
+        log("  PHASE 16 FAIL")
+    return ok
+
+
 def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                  sp_counts, sp_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
@@ -5853,6 +6013,11 @@ def main() -> int:
             "it from a checkout of the repository")
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES
+    from repro_torch.core.hw import H100
+    PEAK_BF16_FLOPS, PEAK_F32_FLOPS = H100.peak_bf16_flops, \
+        H100.peak_f32_flops
+    PEAK_BYTES = H100.hbm_bw
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -6014,6 +6179,12 @@ def main() -> int:
         f"preset")
     ok &= p15_all(torch, report)
     log(f"  phase 15 took {report['phase15_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== 16. the step tooling: profile_cell on llama3.2-1b's train_4k, "
+        "prefill_32k and decode_32k (full width, optimized profile, batch 1)"
+        "; the dry-run's meta sweep; the wave baseline")
+    ok &= p16_all(torch, report)
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

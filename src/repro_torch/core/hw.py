@@ -1,13 +1,19 @@
 """Hardware constants.
 
-Two hardware models live here, both copied unchanged from the reference
+``GPUChip`` describes the card the port runs on: ``H100`` holds the
+published peaks of one NVIDIA H100 SXM (dense rates, no sparsity, at its
+700 W limit), the ones ``chip_smoke.py``'s bounds and the step roofline
+(``launch/roofline.py``) divide by.
+
+Two more hardware models live here, both copied from the reference
 (``repro/core/hw.py``):
 
 1. ``TPUChip``, the chip the recommender's tile cost model
    (``core/tpu_costmodel.py``) prices configurations against, so that the
    port recommends exactly the tile the reference does.  It does not
    describe the H100 the port runs on; an H100 tile space is later work
-   (ROADMAP queue 1 item 14).
+   (ROADMAP queue 1 item 14).  Its one addition, ``peak_flops``, gives
+   the step roofline the reference's divisor.
 2. ``AcceleratorTech``, the paper's 28 nm accelerator technology constants
    that the SAGAR cost model (``core/costmodel.py``) and the PPA
    arithmetic (``core/ppa.py``) read.  They describe the paper's array,
@@ -21,6 +27,26 @@ from dataclasses import dataclass
 
 
 @dataclass(frozen=True)
+class GPUChip:
+    """One GPU's published peaks: the counterpart of the reference
+    roofline's ``TPU_V5E`` (``repro/launch/hlo_analysis.py``)."""
+    name: str = "NVIDIA H100 80GB HBM3, 700 W"
+    peak_bf16_flops: float = 989e12     # dense bf16 on the tensor cores
+    peak_f32_flops: float = 67e12       # f32 outside the tensor cores
+    hbm_bw: float = 3.35e12             # HBM3 bytes/s
+    hbm_bytes: float = 80e9
+
+    def peak_flops(self, dtype: str) -> float:
+        """The peak of a step computing in ``dtype`` ("float32" runs on
+        the CUDA cores: TF32 is off, as the reference's f32 training)."""
+        return self.peak_f32_flops if dtype == "float32" else \
+            self.peak_bf16_flops
+
+
+H100 = GPUChip()
+
+
+@dataclass(frozen=True)
 class TPUChip:
     peak_bf16_flops: float = 197e12
     hbm_bw: float = 819e9
@@ -28,6 +54,11 @@ class TPUChip:
     hbm_bytes: float = 16e9
     vmem_bytes: float = 16 * 2 ** 20
     mxu_dim: int = 128
+
+    def peak_flops(self, dtype: str) -> float:
+        """The bf16 peak whatever ``dtype``, as the reference's roofline
+        divides by it."""
+        return self.peak_bf16_flops
 
 
 TPU_V5E = TPUChip()

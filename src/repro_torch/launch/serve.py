@@ -23,6 +23,8 @@
       --kv-layout dense --prefill-chunk none
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --arch seamless-m4t-medium
+  PYTHONPATH=src python -m repro_torch.launch.serve --waves 2 --slots 2 \\
+      --prompt-len 8 --gen 4 --device cpu
 
 The layout follows the model's family unless ``--kv-layout`` says
 otherwise: the attention families are served from the paged KV arena
@@ -50,6 +52,11 @@ snapshot every N steps.  The
 WKV kernel route of rwkv6-1.6b is the reference's optimized profile:
 ``serve_continuous(override_cfg=get_arch("rwkv6-1.6b", optimized=True))``.
 
+``serve_waves`` (``--waves N``) is the wave-based baseline, the port of
+the reference's: a whole batch prefills together on a fresh dense cache
+and decodes until every member has its tokens; it is the baseline the
+reference's serving benchmark compares continuous batching to.
+
 Runs on CUDA unless ``--device cpu`` is given (the CPU runs the kernels'
 plain PyTorch versions); with no CUDA and no ``--device cpu`` it raises.
 """
@@ -61,6 +68,101 @@ import time
 from typing import Optional, Union
 
 import numpy as np
+
+
+def serve_waves(arch: str = "llama3.2-1b", preset: str = "reduced",
+                batch: int = 4, prompt_len: int = 32, gen: int = 32,
+                waves: int = 2, temperature: float = 0.8, top_k: int = 40,
+                seed: int = 0, override_cfg=None, log: bool = True,
+                device: Optional[str] = None, execute: str = "auto",
+                params=None):
+    """Wave-based batched serving (the compatibility / baseline path; the
+    reference's ``serve_waves``): ``waves`` waves of ``batch`` random
+    prompts of ``prompt_len`` tokens from ``seed``, one ``prefill`` a wave
+    on a fresh ``init_cache``, then ``gen - 1`` ``decode_step`` calls.  A vlm
+    model gets zero patch embeddings, an encdec model ``prompt_len``
+    random source frames a prompt.  Tokens are sampled by
+    ``sample_logits`` from a generator seeded with ``seed + 1``
+    (temperature <= 0 is greedy).  ``params`` replaces the weights drawn
+    from ``seed``; ``execute`` is the dispatch mode.  Returns (one (batch,
+    gen) int64 array a wave, stats): the stats' keys are the reference's,
+    prefill and decode tokens and seconds (host clock to a device
+    synchronisation)."""
+    import torch
+
+    from repro_torch import dispatch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.modules import dtype_of
+    from repro_torch.serving.engine import sample_logits
+
+    cfg = override_cfg if override_cfg is not None else get_arch(arch)
+    if preset == "reduced":
+        cfg = cfg.reduced()
+    elif preset != "full":
+        raise ValueError(f"preset must be 'reduced' or 'full', got {preset!r}")
+    model = build_model(cfg, device)
+    dev = model.device
+    if params is None:
+        params = model.init(seed)
+    max_len = prompt_len + gen + 1
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rng = np.random.default_rng(seed)
+    sampler = torch.Generator(device=dev)
+    sampler.manual_seed(seed + 1)
+    stats = {"prefill_tokens": 0, "prefill_s": 0.0,
+             "decode_tokens": 0, "decode_s": 0.0}
+    outputs = []
+    with torch.no_grad(), dispatch.use(execute=execute):
+        for w in range(waves):
+            prompts = rng.integers(0, cfg.vocab_size,
+                                   (batch, prompt_len)).astype(np.int32)
+            batch_in = {"tokens": torch.from_numpy(prompts).to(dev)}
+            n_img = 0
+            if cfg.family == "vlm":
+                n_img = cfg.frontend.num_tokens
+                batch_in["patch_embeds"] = torch.zeros(
+                    (batch, n_img, cfg.frontend.feature_dim), dtype=cdt,
+                    device=dev)
+            src_len = 0
+            if cfg.family == "encdec":
+                src_len = prompt_len
+                batch_in["src_features"] = torch.from_numpy(
+                    rng.standard_normal((batch, src_len,
+                                         cfg.frontend.feature_dim))).to(
+                    device=dev, dtype=cdt)
+            cache = model.init_cache(batch, max_len + n_img, src_len=src_len)
+            sync()
+            t0 = time.time()
+            logits, cache = model.prefill(params, batch_in, cache)
+            sync()
+            stats["prefill_s"] += time.time() - t0
+            stats["prefill_tokens"] += batch * prompt_len
+
+            tok = sample_logits(sampler, logits, temperature, top_k)[:, None]
+            generated = [tok.cpu().numpy()]
+            t0 = time.time()
+            for _ in range(gen - 1):
+                logits, cache = model.decode_step(params, tok, cache)
+                tok = sample_logits(sampler, logits, temperature,
+                                    top_k)[:, None]
+                generated.append(tok.cpu().numpy())
+            sync()
+            stats["decode_s"] += time.time() - t0
+            stats["decode_tokens"] += batch * (gen - 1)
+            outputs.append(np.concatenate(generated, axis=1))
+            if log:
+                print(f"  wave {w}: generated {outputs[-1].shape} tokens")
+
+    if log:
+        print(f"serve: prefill {stats['prefill_tokens']/max(stats['prefill_s'],1e-9):,.0f} tok/s, "
+              f"decode {stats['decode_tokens']/max(stats['decode_s'],1e-9):,.0f} tok/s")
+    return outputs, stats
 
 
 def serve_continuous(arch: str = "llama3.2-1b", preset: str = "reduced",
@@ -263,6 +365,9 @@ def main():
                          "versions)")
     ap.add_argument("--smoke", action="store_true",
                     help="fast smoke: tiny greedy trace, assert completion")
+    ap.add_argument("--waves", type=int, default=0,
+                    help=">0: run the wave-based baseline instead (--slots "
+                         "prompts a wave)")
     a = ap.parse_args()
     picks = dict(dispatcher=a.dispatcher, adaptnet_ckpt=a.adaptnet_ckpt,
                  defrag_threshold=a.defrag_threshold)
@@ -420,6 +525,12 @@ def main():
             print(f"serving smoke OK (adaptnet: {src})")
             return
         print("serving smoke OK")
+        return
+    if a.waves > 0:
+        serve_waves(arch=a.arch, preset=a.preset, batch=a.slots,
+                    prompt_len=a.prompt_len, gen=a.gen, waves=a.waves,
+                    temperature=a.temperature, top_k=a.top_k,
+                    device=a.device, execute=a.execute)
         return
     chaos = None
     if a.chaos is not None:

@@ -1,4 +1,5 @@
-"""Step builders: the train step and the model-FLOPs estimate — the port of
+"""Step builders: the train step, the steps of a shape cell, and the
+model-FLOPs and compulsory-bytes estimates — the port of
 ``repro/launch/steps.py`` for one device (no mesh, no shardings).
 
 The train step takes the value and gradient of ``Model.loss`` with
@@ -8,30 +9,35 @@ active dispatch policy), then runs ``AdamW.update`` and
 ``apply_updates``.  A batch is ``{"tokens": (B, S + 1)}``, with
 ``"patch_embeds"`` (vlm) or ``"src_features"`` (encdec) passed through to
 the loss.
+
+``build_cell`` is the counterpart of the reference's ``lower_for_cell``:
+where the reference lowers a cell's step against abstract inputs, it
+builds the step with concrete seeded inputs on the device, ready to run
+and time (``launch/profile.py``).  ``ShapeSpec`` lives in
+``configs/shapes.py`` and is re-exported here.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec, cache_specs, input_specs
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.moe import padded_num_experts
+from repro_torch.models.modules import (dtype_of, param_bytes,
+                                       param_count, tensors)
 from repro_torch.optim.adamw import AdamW, apply_updates, tree_map
 
-
-@dataclass(frozen=True)
-class ShapeSpec:
-    """A workload shape, as ``repro/configs/shapes.py`` names them."""
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str                   # "train" | "prefill" | "decode"
+__all__ = ["ShapeSpec", "Cell", "build_cell", "build_serve_parts",
+           "build_train_step", "fill_cache", "make_optimizer",
+           "model_flops_estimate", "model_min_bytes_estimate"]
 
 
 @contextlib.contextmanager
@@ -166,6 +172,42 @@ def model_flops_estimate(cfg: ArchConfig, params, shape: ShapeSpec,
             + _ssm_flops(cfg, B, S, shape.kind))
 
 
+def model_min_bytes_estimate(cfg: ArchConfig, params, shape: ShapeSpec
+                             ) -> float:
+    """Compulsory HBM traffic per step, in bytes, at ``shape.global_batch``
+    sequences — the floor of the roofline's memory term.
+
+    train   : params fwd-read + bwd-read + update-write (param dtype)
+              + grads write+read + AdamW m,v read+write (opt dtype)
+              + one residual checkpoint per layer write (fwd) + read (bwd)
+    prefill : params read once + KV-cache write + embeddings/logits touch
+    decode  : params read once + KV-cache read (+1-token write, negligible)
+
+    ``params`` may be abstract (``Model.init_abstract``).  The cache is
+    ``cache_specs``' on the meta device; a cache that cannot be built
+    raises, where the reference passes over one."""
+    p_bytes = float(param_bytes(params))
+    p_count = float(param_count(params))
+    B, S = shape.global_batch, shape.seq_len
+    act_b = dtype_of(cfg.compute_dtype).itemsize
+    L = cfg.num_layers + cfg.encoder_layers
+    d = cfg.d_model
+
+    if shape.kind == "train":
+        ob = dtype_of(cfg.opt_state_dtype).itemsize
+        traffic = p_bytes * 3.0            # fwd read, bwd read, update write
+        traffic += p_bytes * 2.0           # grads: write (bwd) + read (opt)
+        traffic += p_count * ob * 4.0      # m, v: read + write each
+        traffic += 2.0 * B * S * d * L * act_b   # residual ckpt: write + read
+        return traffic
+
+    cache_bytes = float(param_bytes(cache_specs(cfg, shape)))
+    if shape.kind == "prefill":
+        return p_bytes + cache_bytes + 2.0 * B * S * d * act_b
+    # decode: whole cache is read once per emitted token
+    return p_bytes + cache_bytes
+
+
 # ---------------------------------------------------------------------------
 # train step
 # ---------------------------------------------------------------------------
@@ -199,3 +241,100 @@ def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
         return params, opt_state, metrics
 
     return model, train_step, opt
+
+
+# ---------------------------------------------------------------------------
+# serve steps and whole cells
+# ---------------------------------------------------------------------------
+
+def build_serve_parts(cfg: ArchConfig, shape: ShapeSpec,
+                      device: Optional[str] = None):
+    """(model, abstract params, abstract cache) of a serve cell: the
+    reference's parts without their shardings (one device has no mesh)."""
+    model = build_model(cfg, device)
+    return model, model.init_abstract(), cache_specs(cfg, shape)
+
+
+@dataclass
+class Cell:
+    """One cell's step, built: ``fn()`` runs it once and leaves its
+    inputs as they were, so it can be called again."""
+    model: Model
+    params: Any
+    fn: Callable[[], Any]
+
+
+def _seeded_inputs(cfg: ArchConfig, specs: Dict[str, Any], seed: int,
+                   device) -> Dict[str, torch.Tensor]:
+    """Concrete inputs in ``specs``' shapes and dtypes: uniform tokens and
+    standard-normal frontend features from a numpy generator."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, t in specs.items():
+        if t.dtype == torch.int32:
+            a = rng.integers(0, cfg.vocab_size, tuple(t.shape)).astype(
+                np.int32)
+        else:
+            a = rng.standard_normal(tuple(t.shape)).astype(np.float32)
+        out[k] = torch.from_numpy(a).to(device=device, dtype=t.dtype)
+    return out
+
+
+def fill_cache(cache, rows: int, seed: int) -> None:
+    """Fill a dense cache in place as if ``rows`` tokens had run: every
+    floating leaf (K/V rows, cross K/V, recurrent states) standard normal
+    from a generator seeded with ``seed``, every integer leaf (``pos``,
+    the KV lengths) ``rows``.  Drawn one slice of the leading axis at a
+    time, so the f32 draw of a bf16 leaf stays one layer's size."""
+    gen = None
+    for t in tensors(cache):
+        if not t.is_floating_point():
+            t.fill_(rows)
+            continue
+        if gen is None:
+            gen = torch.Generator(device=t.device)
+            gen.manual_seed(int(seed))
+        for sl in (t if t.dim() > 1 else [t]):
+            sl.copy_(torch.randn(sl.shape, generator=gen, device=t.device))
+
+
+def build_cell(cfg: ArchConfig, shape: ShapeSpec, batch: int = 1,
+               device: Optional[str] = None, seed: int = 0,
+               lr: float = 3e-4) -> Cell:
+    """The step of one (arch x shape) cell at ``batch`` sequences of the
+    shape's length, with weights and inputs from ``seed`` on ``device``
+    (the counterpart of the reference's ``lower_for_cell``):
+
+    - train: ``build_train_step``'s step on (params, AdamW state, batch);
+    - prefill: ``model.prefill`` of the prompts on a fresh cache of
+      ``seq_len`` rows (GQA attends over the prompt's rows, the flash
+      forward under ``attn_impl="pallas"``);
+    - decode: one ``decode_step`` against a cache already filled to
+      ``seq_len - 1`` rows with seeded values (the reference lowers
+      against a full-capacity cache; no prefill runs to get there)."""
+    specs = input_specs(cfg, shape, batch)
+    S = shape.seq_len
+    if shape.kind == "train":
+        model, step, opt = build_train_step(cfg, lr, device)
+        params = model.init(seed)
+        opt_state = opt.init(params)
+        data = _seeded_inputs(cfg, specs, seed + 1, model.device)
+        return Cell(model, params, lambda: step(params, opt_state, data))
+    model = build_model(cfg, device)
+    params = model.init(seed)
+    cache = model.init_cache(batch, S,
+                             src_len=S if cfg.family == "encdec" else 0)
+    if shape.kind == "prefill":
+        data = _seeded_inputs(cfg, specs, seed + 1, model.device)
+
+        def prefill():
+            with torch.no_grad():
+                return model.prefill(params, data, cache)
+        return Cell(model, params, prefill)
+    fill_cache(cache, S - 1, seed + 2)
+    tokens = _seeded_inputs(cfg, specs, seed + 1, model.device)["tokens"]
+
+    def decode():
+        with torch.no_grad():
+            return model.decode_step(params, tokens, cache)
+    return Cell(model, params, decode)

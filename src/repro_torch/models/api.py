@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import serving, transformer
-from repro_torch.models.modules import param_count
+from repro_torch.models.modules import MetaGenerator, param_count
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -44,8 +44,15 @@ class Model:
         gen.manual_seed(int(seed))
         return transformer.init_params(gen, self.cfg)
 
-    def num_params(self, params) -> int:
-        return param_count(params)
+    def init_abstract(self) -> Dict[str, Any]:
+        """``init``'s tree on the meta device: every leaf's path, shape and
+        dtype, nothing drawn or allocated (the reference's
+        ``jax.eval_shape`` of ``init``)."""
+        return transformer.init_params(MetaGenerator(), self.cfg)
+
+    def num_params(self, params=None) -> int:
+        tree = params if params is not None else self.init_abstract()
+        return param_count(tree)
 
     # ---- training (dense GQA, ssm, hybrid) ----------------------------------
     def loss(self, params, batch):
@@ -68,7 +75,8 @@ class Model:
     def prefill(self, params, batch, cache, length=None):
         """(logits at the last valid position (B, V), cache) of prompts
         ``batch = {"tokens": (B, n) int, ...}``, right-padded past
-        ``length`` (attention families)."""
+        ``length`` (attention families), into a cache as ``init_cache``
+        returns it."""
         return serving.prefill(params, batch, self.cfg, cache, length)
 
     def decode_step(self, params, tokens, cache):

@@ -237,20 +237,24 @@ def _cache_update(cache: KVCache, k_new, v_new) -> KVCache:
 def gqa_self_attention(params: Params, x: torch.Tensor,
                        positions: torch.Tensor, cfg: ArchConfig, *,
                        cache: Optional[KVCache] = None,
-                       update_cache: bool = False, causal: bool = True
+                       update_cache: bool = False, causal: bool = True,
+                       fresh: bool = False
                        ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention for training (``cache=None``), prefill (a fresh
     cache) and decode (the cache holds the history; x is the new
     token(s)); ``causal=False`` is bidirectional (an encoder).  With a
     cache the attention takes the blockwise route over the whole cache,
-    each sequence from its own length.  Returns (out, the cache with the
-    new rows, or None without one)."""
+    each sequence from its own length; ``fresh`` says the cache holds no
+    row yet, so the new rows are the whole history and the attention runs
+    over them alone, as without a cache (the flash kernels under
+    ``attn_impl="pallas"``).  Returns (out, the cache with the new rows,
+    or None without one)."""
     cdt = dtype_of(cfg.compute_dtype)
     q, k, v = _proj_qkv(params, x, x, cfg, cdt)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
-    if cache is not None:
+    if cache is not None and not fresh:
         start = cache.length
         new_cache = _cache_update(cache, k, v)
         out = multihead_attention(
@@ -258,7 +262,9 @@ def gqa_self_attention(params: Params, x: torch.Tensor,
             q_offset=start, kv_len=new_cache.length, chunk=cfg.attn_chunk,
             logit_cap=cfg.attn_logit_softcap)
     else:
-        if update_cache:
+        if cache is not None:        # fresh: the new rows are all its rows
+            new_cache = _cache_update(cache, k, v)
+        elif update_cache:
             raise ValueError("prefill with a cache must pass an initialized "
                              "cache")
         out = multihead_attention(q, k, v, causal=causal, q_offset=0,

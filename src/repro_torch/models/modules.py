@@ -5,7 +5,9 @@ Params are nested dicts of tensors, shaped as the reference's pytrees
 either package maps key for key onto the other.  Initializers draw from an
 explicit ``torch.Generator`` on the generator's device; they cannot
 reproduce ``jax.random``'s numbers, so tests carry weights across through
-``repro_torch.checkpoint`` instead.
+``repro_torch.checkpoint`` instead.  Given a :class:`MetaGenerator` they
+build the same tree on the meta device: shapes and dtypes, nothing drawn
+or allocated (``Model.init_abstract``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -29,10 +32,25 @@ def dtype_of(name: str) -> torch.dtype:
 # initializers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for an initializer's ``torch.Generator`` on the meta
+    device, which has no generator of its own: the initializers read its
+    ``device`` and draw nothing (:func:`draw_kw`)."""
+    device = torch.device("meta")
+
+
+def draw_kw(gen) -> dict:
+    """The ``generator`` and ``device`` arguments of a draw from ``gen``;
+    on the meta device only the device."""
+    if gen.device.type == "meta":
+        return {"device": gen.device}
+    return {"generator": gen, "device": gen.device}
+
+
 def truncated_normal(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard normal truncated to [-2, 2] (inverse-CDF sampling), f32."""
     lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
-    u = torch.rand(shape, generator=gen, device=gen.device) * (hi - lo) + lo
+    u = torch.rand(shape, **draw_kw(gen)) * (hi - lo) + lo
     return torch.erfinv(u) * math.sqrt(2)
 
 
@@ -45,7 +63,7 @@ def dense_init(gen: torch.Generator, shape, dtype: str = "float32", *,
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: str = "float32") -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device)
+    w = torch.randn((vocab, d), **draw_kw(gen))
     return (w * (1.0 / math.sqrt(d))).to(dtype_of(dtype))
 
 
@@ -136,7 +154,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def tensors(tree):
+    """The tensors of a tree of dicts, lists, tuples and NamedTuples (the
+    reference's ``jax.tree_util.tree_leaves``, its ``None`` leaves
+    dropped)."""
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
 def param_count(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(param_count(v) for v in tree.values())
-    return int(tree.numel())
+    return sum(int(t.numel()) for t in tensors(tree))
+
+
+def param_bytes(tree) -> int:
+    return sum(int(t.numel()) * t.element_size() for t in tensors(tree))

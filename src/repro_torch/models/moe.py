@@ -63,6 +63,8 @@ def _bank_init(gen: torch.Generator, lead, E: int, d_in: int, d_out: int,
     ~15 GB of f32 temporaries."""
     w = torch.empty(tuple(lead) + (E, d_in, d_out), dtype=dtype_of(dt),
                     device=gen.device)
+    if w.is_meta:                    # Model.init_abstract: nothing to draw
+        return w
     flat = w.view((-1, d_in, d_out))
     for i in range(flat.shape[0]):
         flat[i] = dense_init(gen, (d_in, d_out), dt, scale=scale)

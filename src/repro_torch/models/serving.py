@@ -355,12 +355,13 @@ def init_cache(cfg: ArchConfig, batch: int, device, max_len: int = 0,
 
 
 def _run_decoder_stack(params: Params, x, positions, cfg: ArchConfig,
-                       cache: Cache, cross: bool = False
-                       ) -> Tuple[torch.Tensor, KVCache]:
+                       cache: Cache, cross: bool = False,
+                       fresh: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """The decoder layers over x with each layer's slice of the stacked
     cache (written in place), the ``dense_layers`` stack first; ``cross``
-    adds each layer's cross-attention over ``cache["cross_k"/"cross_v"]``.
-    Returns (x, the stacked cache with the new lengths)."""
+    adds each layer's cross-attention over ``cache["cross_k"/"cross_v"]``;
+    ``fresh``: the cache holds no row yet (:func:`prefill`).  Returns (x,
+    the stacked cache with the new lengths)."""
     lc = cache["layers"]
     lengths = []
     i = 0
@@ -374,7 +375,7 @@ def _run_decoder_stack(params: Params, x, positions, cfg: ArchConfig,
             x, new, _ = decoder_layer_apply(
                 layer_params(stack, j), x, positions, cfg,
                 cache=KVCache(lc.k[i], lc.v[i], lc.length[i]),
-                enc_kv=enc_kv)
+                enc_kv=enc_kv, fresh=fresh)
             lengths.append(new.length)
             i += 1
     return x, KVCache(lc.k, lc.v, torch.stack(lengths))
@@ -400,9 +401,9 @@ def _run_recurrent_stack(params: Params, x, cfg: ArchConfig,
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             cache: Cache, length: Optional[int] = None
             ) -> Tuple[torch.Tensor, Cache]:
-    """Run the prompts ``batch["tokens"]`` (B, n) through the model from
-    ``cache`` (written in place).  Returns (f32 logits at the last valid
-    position (B, V), the new cache).
+    """Run the prompts ``batch["tokens"]`` (B, n) through the model into
+    ``cache``, as ``init_cache`` returns it (written in place).  Returns
+    (f32 logits at the last valid position (B, V), the new cache).
 
     ``length`` marks the valid prompt tokens when the prompts are
     right-padded to a bucket: logits come from position ``length - 1``,
@@ -413,7 +414,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     runs the encoder over ``batch["src_features"]`` (B, S_src,
     feature_dim) and fills the cross K/V.  A recurrent state integrates
     every token, so the ssm and hybrid families take exact lengths
-    only."""
+    only.
+
+    The cache holds no row yet, so GQA self-attention runs over the
+    prompt's own rows, as a training forward does: under
+    ``attn_impl="pallas"`` the flash forward kernel.  The reference
+    attends over the whole cache blockwise, which gives the same rows."""
     _check_family(cfg)
     fam = cfg.family
     tokens = batch["tokens"]
@@ -446,7 +452,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         x = _embed(params, tokens, cfg)
     positions = pos0[:, None] + torch.arange(x.shape[1], device=x.device)
     x, layers = _run_decoder_stack(params, x, positions, cfg, new_cache,
-                                   cross=fam == "encdec")
+                                   cross=fam == "encdec", fresh=True)
     # the stack counted the padded width into every KV length
     new_cache["layers"] = KVCache(layers.k, layers.v, layers.length - pad)
     step = length + (x.shape[1] - n)            # + the vlm frontend rows

@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.linear_attn import wkv_scan
-from repro_torch.models.modules import dense, dense_init, dtype_of
+from repro_torch.models.modules import dense, dense_init, draw_kw, dtype_of
 
 Params = Dict[str, Any]
 
@@ -219,7 +219,7 @@ def init_mamba_block(gen: torch.Generator, cfg: ArchConfig,
     conv_ch = d_inner + 2 * N       # x ++ B ++ C  (n_groups = 1)
     kw = dict(dtype=dtype_of(dt), device=gen.device)
     conv_w = torch.randn(lead + (cfg.ssm.conv_width, conv_ch),
-                         generator=gen, device=gen.device) * 0.1
+                         **draw_kw(gen)) * 0.1
     a_log = torch.log(torch.linspace(1.0, 16.0, H, device=gen.device))
     return {
         "w_in": dense_init(gen, lead + (d, 2 * d_inner + 2 * N + H), dt),

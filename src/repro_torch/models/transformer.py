@@ -279,10 +279,12 @@ def _ffn(p: Params, x, cfg: ArchConfig, with_aux: bool = False):
 
 def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
                         cache=None, update_cache: bool = False,
-                        enc_kv=None):
+                        enc_kv=None, fresh: bool = False):
     """One decoder layer over x (B, S, d): over a full sequence with no
     cache (training), or over a dense KV cache (prefill, decode; written
     in place), with the cross-attention block when ``enc_kv`` is given.
+    ``fresh``: the cache holds no row yet (GQA attends over the new rows
+    alone; see ``gqa_self_attention``).
     Returns (x, the layer's new cache or None, aux): a MoE layer's aux
     metrics over a full sequence, zeros for a dense layer and over a cache
     (serving, which drops them)."""
@@ -294,7 +296,8 @@ def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
     else:
         a, new_cache = gqa_self_attention(p["attn"], h, positions, cfg,
                                           cache=cache,
-                                          update_cache=update_cache)
+                                          update_cache=update_cache,
+                                          fresh=fresh)
     x = _cross(p, x + a.to(x.dtype), enc_kv, cfg)
     if cache is None:
         x, aux = _ffn(p, x, cfg, with_aux=True)

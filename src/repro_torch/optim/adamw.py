@@ -113,3 +113,23 @@ class AdamW:
 @torch.no_grad()
 def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def sgd_momentum(lr: float = 0.1, momentum: float = 0.9):
+    """Tiny SGD with momentum (the reference's helper for the ADAPTNET
+    trainers and tests): its state is an ``AdamWState`` with ``v=None``."""
+
+    class SGD:
+        def init(self, params):
+            device = tree_leaves(params)[0].device
+            return AdamWState(
+                step=torch.zeros((), dtype=torch.int32, device=device),
+                m=tree_map(torch.zeros_like, params), v=None)
+
+        @torch.no_grad()
+        def update(self, grads, state, params):
+            m = tree_map(lambda g, m_: momentum * m_ + g, grads, state.m)
+            updates = tree_map(lambda m_: -lr * m_, m)
+            return updates, AdamWState(state.step + 1, m, None), {}
+
+    return SGD()

@@ -2301,8 +2301,9 @@ def test_reduced_bucketed_serve_matches_cpu(cuda, arch, layout):
     or the paged layout, against the same serve on the CPU from the same
     weights: the same greedy tokens, the paged decode kernel once a layer
     and decode step on the paged layout (none on the dense one), the flash
-    forward once an encoder and a decoder layer a prefill for seamless,
-    no plain call."""
+    forward once a decoder layer's self-attention a prefill (a prefill
+    attends over the prompt's own rows) and, for seamless, once more an
+    encoder and a cross-attention layer, no plain call."""
     import numpy as np
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     cfg, params = _reduced_pair(arch)
@@ -2339,5 +2340,6 @@ def test_reduced_bucketed_serve_matches_cpu(cuda, arch, layout):
     assert counts["paged_decode"] == (cfg.num_layers * D
                                       if layout == "paged" else 0)
     assert counts["paged_prefill"] == 0
-    assert counts["flash_fwd"] == ((cfg.encoder_layers + cfg.num_layers) * 3
-                                   if cfg.family == "encdec" else 0)
+    assert counts["flash_fwd"] == (cfg.num_layers + (
+        cfg.encoder_layers + cfg.num_layers if cfg.family == "encdec"
+        else 0)) * 3
