@@ -255,6 +255,25 @@ Phases (any failure exits non-zero):
    2 waves of 4 prompts of 32 tokens, 32 new tokens each, greedy: every
    GEMM on the kernel, prefill and decode tok/s printed.  The phase
    fails past its 90 s budget.
+17. the reference's example drivers on the card, through the port's
+   counterparts (``examples/torch/*.py``, each ``main`` called in this
+   process) and its linter.  (a) saralint (``repro_torch.analysis``) over
+   ``src/repro_torch``: 0 errors, 0 warnings, every suppression with a
+   reason.  (b) ``quickstart.py``, all four parts at their defaults (the
+   cost model's Fig. 3; ADAPTNET trained on the card, 30 000 samples, 4
+   epochs; ``SaraDispatcher.gemm`` at 512x512x512 and 128x8000x128 f32
+   on the RSA kernel, each against ``matmul``; reduced llama trained 15
+   steps through ``train_main``).  (c) ``serve_requests.py`` at its
+   defaults (reduced llama at d = 256, 4 layers, f32; 12 mixed-length
+   requests on 4 slots, sampled): every request finishes with its tokens,
+   the pool ends leak-free.  (d) ``train_lm.py --preset 100m`` (131M
+   parameters, f32) for 20 steps with ``--inject-failure``: the loss
+   falls (here and in (b): the mean of the last 5 steps below the mean
+   of the first 5, as each step draws a new random batch), exactly one
+   restart, which resumes from the step-10 checkpoint (every step runs
+   once).  Gates: (b)-(d) each launch the RSA
+   GEMM kernel, (c) the paged decode and prefill kernels, no plain
+   version runs; the phase fails past its 60 s budget.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -390,6 +409,10 @@ P15_KEYS = {}     # each phase 15 run's GEMM launches by ([E,] M, K, N, mode)
 P16_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 P16_WAVES = dict(batch=4, prompt_len=32, gen=32, waves=2)
 P16_BUDGET_S = 90.0
+# phase 17: the example drivers; train_lm's largest preset, 20 steps with
+# the simulated preemption at step 10 (its checkpoint interval)
+P17_TRAIN = ("--preset", "100m", "--steps", "20", "--inject-failure")
+P17_BUDGET_S = 60.0
 
 
 def log(*a):
@@ -624,10 +647,11 @@ def check_gemms(torch, report, timer, cfg, dispatcher):
     return ok
 
 
-def paged_inputs(torch, gen, S, KVH, G, hd, bs, lengths, dtype):
+def paged_inputs(torch, gen, S, KVH, G, hd, bs, lengths, dtype, width=None):
     """Random arena + per-lane tables over disjoint pages (dead columns
-    repeat the last live id; a length-0 lane gets an all-zero row)."""
-    W = max(1, max(-(-n // bs) for n in lengths))
+    repeat the last live id; a length-0 lane gets an all-zero row), the
+    tables ``width`` columns wide (default: the longest lane's pages)."""
+    W = width or max(1, max(-(-n // bs) for n in lengths))
     tables = torch.zeros((S, W), dtype=torch.int32)
     nxt = 0
     for i, n in enumerate(lengths):
@@ -660,9 +684,9 @@ def plan_text(plan) -> str:
 def check_paged(torch, report, timer, cfg):
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attn import (
-        _attn_plan, _decode_plan, paged_attention_lse_plain,
-        paged_attention_plain, paged_decode_lse_cuda,
-        paged_prefill_attention_plain)
+        _attn_plan, _decode_plan, paged_decode_lse_plain,
+        paged_decode_plain, paged_decode_lse_cuda,
+        paged_prefill_plain)
     from repro_torch.launch.bench_decode import (gathered_sdpa,
                                                  gathered_sdpa_prefill)
     gen = torch.Generator(device="cuda")
@@ -685,8 +709,8 @@ def check_paged(torch, report, timer, cfg):
                                             dec_lengths, dt)
         q = torch.randn((8, H, hd), generator=gen, device="cuda").to(dt)
         out = ops.paged_attention(q, ka, va, tables, lens, logit_cap=cap)
-        plain = paged_attention_plain(q, ka, va, tables, lens, scale=scale,
-                                      logit_cap=cap)
+        plain = paged_decode_plain(q, ka, va, tables, lens, scale=scale,
+                                   logit_cap=cap)
         torch.cuda.synchronize()
         err = (out.float() - plain.float()).abs().max().item()
         # bf16: the kernel rounds p to bf16 before p @ V (as the TPU kernel
@@ -701,7 +725,7 @@ def check_paged(torch, report, timer, cfg):
         if timed:
             rec["ms"] = timer(lambda: ops.paged_attention(
                 q, ka, va, tables, lens))
-            rec["plain_ms"] = timer(lambda: paged_attention_plain(
+            rec["plain_ms"] = timer(lambda: paged_decode_plain(
                 q, ka, va, tables, lens, scale=scale))
             rows = sum(-(-n // bs) * bs for n in dec_lengths)
             flops = 2.0 * H * 2 * hd * sum(dec_lengths)
@@ -732,8 +756,8 @@ def check_paged(torch, report, timer, cfg):
         q = torch.randn((8, C, H, hd), generator=gen, device="cuda").to(dt)
         out = ops.paged_prefill_attention(q, ka, va, tables, st, lens,
                                           logit_cap=cap)
-        plain = paged_prefill_attention_plain(q, ka, va, tables, st, lens,
-                                              scale=scale, logit_cap=cap)
+        plain = paged_prefill_plain(q, ka, va, tables, st, lens,
+                                    scale=scale, logit_cap=cap)
         torch.cuda.synchronize()
         err = (out.float() - plain.float()).abs().max().item()
         good = err <= tol and math.isfinite(err)
@@ -744,7 +768,7 @@ def check_paged(torch, report, timer, cfg):
         if timed:
             rec["ms"] = timer(lambda: ops.paged_prefill_attention(
                 q, ka, va, tables, st, lens))
-            rec["plain_ms"] = timer(lambda: paged_prefill_attention_plain(
+            rec["plain_ms"] = timer(lambda: paged_prefill_plain(
                 q, ka, va, tables, st, lens, scale=scale))
             rows = sum(-(-n // bs) * bs for n in lengths)
             pairs = sum(min(s + r + 1, s + c) for s, c in zip(starts, chunks)
@@ -776,8 +800,8 @@ def check_paged(torch, report, timer, cfg):
     q = torch.randn((8, 64, H, 128), generator=gen, device="cuda") \
         .to(torch.bfloat16)
     out = ops.paged_prefill_attention(q, ka, va, tables, st, lens)
-    plain = paged_prefill_attention_plain(q, ka, va, tables, st, lens,
-                                          scale=128 ** -0.5)
+    plain = paged_prefill_plain(q, ka, va, tables, st, lens,
+                                scale=128 ** -0.5)
     torch.cuda.synchronize()
     err = (out.float() - plain.float()).abs().max().item()
     tol = 5 * 2 * BF16_EPS
@@ -805,7 +829,7 @@ def check_paged(torch, report, timer, cfg):
         .to(torch.bfloat16)
     a = (q, ka, va, tables, st, lens)
     out = ops.paged_prefill_attention(*a)
-    plain = paged_prefill_attention_plain(*a, scale=scale)
+    plain = paged_prefill_plain(*a, scale=scale)
     torch.cuda.synchronize()
     err = (out.float() - plain.float()).abs().max().item()
     good = err <= tol and math.isfinite(err)
@@ -822,7 +846,7 @@ def check_paged(torch, report, timer, cfg):
            "chunks": VERIFY_CHUNKS, "max_abs_err": err, "tol": tol,
            "ok": good, "plan": plan._asdict(),
            "case_ms": timer(lambda: ops.paged_prefill_attention(*a)),
-           "plain_ms": timer(lambda: paged_prefill_attention_plain(
+           "plain_ms": timer(lambda: paged_prefill_plain(
                *a, scale=scale)),
            "sdpa_gathered_ms": timer(gathered_sdpa_prefill(*a, scale)),
            "bound_ms": bound, "bound_by": by}
@@ -851,8 +875,8 @@ def check_paged(torch, report, timer, cfg):
         plan = _decode_plan(S, KVH, G, tables.shape[1], bs, hd, hd, 2, sms)
         out = ops.paged_attention(*a)
         o, m, l = paged_decode_lse_cuda(*a, scale=scale)
-        wo, wm, wl = paged_attention_lse_plain(*a, scale=scale)
-        plain = paged_attention_plain(*a, scale=scale)
+        wo, wm, wl = paged_decode_lse_plain(*a, scale=scale)
+        plain = paged_decode_plain(*a, scale=scale)
         torch.cuda.synchronize()
         err = max((out.float() - plain.float()).abs().max().item(),
                   (o.float() - wo.float()).abs().max().item())
@@ -871,7 +895,7 @@ def check_paged(torch, report, timer, cfg):
                "case_ms": timer(lambda: ops.paged_attention(*a)),
                "lse_ms": timer(lambda: paged_decode_lse_cuda(*a,
                                                              scale=scale)),
-               "plain_ms": timer(lambda: paged_attention_plain(
+               "plain_ms": timer(lambda: paged_decode_plain(
                    *a, scale=scale)),
                "sdpa_gathered_ms": timer(gathered_sdpa(*a, scale)),
                "bound_ms": bound, "bound_by": by}
@@ -934,8 +958,8 @@ def check_cascade(torch, report, timer, cfg):
     the full tables."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attn import (
-        NEG, _attn_plan, paged_attention_lse_plain, paged_decode_lse_cuda,
-        paged_prefix_cuda, shared_prefix_attention_plain)
+        NEG, _attn_plan, paged_decode_lse_plain, paged_decode_lse_cuda,
+        paged_prefix_cuda, paged_prefix_plain)
     from repro_torch.launch.bench_decode import gathered_sdpa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -956,7 +980,7 @@ def check_cascade(torch, report, timer, cfg):
              lambda: paged_prefix_cuda(*a, x["prefix_pages"],
                                        x["prefix_lens"], scale=scale,
                                        logit_cap=cap),
-             lambda: shared_prefix_attention_plain(
+             lambda: paged_prefix_plain(
                  *a, x["prefix_pages"], x["prefix_lens"], scale=scale,
                  logit_cap=cap),
              # rows the prefix phase needs: the longest prefix, read once
@@ -964,7 +988,7 @@ def check_cascade(torch, report, timer, cfg):
             ("paged_decode_lse", 0,
              lambda: paged_decode_lse_cuda(*a, x["utables"], x["ulens"],
                                            scale=scale, logit_cap=cap),
-             lambda: paged_attention_lse_plain(
+             lambda: paged_decode_lse_plain(
                  *a, x["utables"], x["ulens"], scale=scale, logit_cap=cap),
              sum(-(-n // bs) * bs for n in x["ulens_list"]),
              sum(x["ulens_list"])))
@@ -1034,7 +1058,7 @@ def check_cascade(torch, report, timer, cfg):
     x = cascade_inputs(torch, gen, torch.bfloat16, KVH, G, 128, bs)
     a = (x["q"], x["k"], x["v"], x["prefix_pages"], x["prefix_lens"])
     got = paged_prefix_cuda(*a, scale=128 ** -0.5)
-    want = shared_prefix_attention_plain(*a, scale=128 ** -0.5)
+    want = paged_prefix_plain(*a, scale=128 ** -0.5)
     torch.cuda.synchronize()
     tol = 5 * 2 * BF16_EPS
     err = (got[0].float() - want[0].float()).abs().max().item()
@@ -1213,8 +1237,8 @@ def check_mla(torch, report, timer, dcfg):
     split count run twice, bitwise, and one timed lane of 4096 rows."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_mla import (
-        _mla_plan, paged_mla_attention_plain, paged_mla_decode_cuda,
-        paged_mla_prefill_attention_plain)
+        _mla_plan, paged_mla_decode_plain, paged_mla_decode_cuda,
+        paged_mla_prefill_plain)
     from repro_torch.launch.bench_mla import gathered_mla_sdpa, sdpa_backends
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1263,8 +1287,8 @@ def check_mla(torch, report, timer, dcfg):
                                            qk_dim=qk)
 
         def dec_plain():
-            return paged_mla_attention_plain(qa, qr, ckv, kr, tables, lens,
-                                             scale=scale)
+            return paged_mla_decode_plain(qa, qr, ckv, kr, tables, lens,
+                                          scale=scale)
         out, plain = dec(), dec_plain()
         torch.cuda.synchronize()
         err = (out.float() - plain.float()).abs().max().item()
@@ -1327,7 +1351,7 @@ def check_mla(torch, report, timer, dcfg):
                                                    st, lens, qk_dim=qk)
 
         def pre_plain():
-            return paged_mla_prefill_attention_plain(
+            return paged_mla_prefill_plain(
                 qa, qr, ckv, kr, tables, st, lens, scale=scale)
         out, plain = pre(), pre_plain()
         torch.cuda.synchronize()
@@ -1373,7 +1397,7 @@ def check_mla(torch, report, timer, dcfg):
     a = (qa, qr, ckv, kr, tables, lens)
     plan = _mla_plan(1, H, tables.shape[1], bs, r, rd, 2, sms)
     out = ops.mla_paged_attention(*a, qk_dim=qk)
-    plain = paged_mla_attention_plain(*a, scale=scale)
+    plain = paged_mla_decode_plain(*a, scale=scale)
     torch.cuda.synchronize()
     err = (out.float() - plain.float()).abs().max().item()
     good = err <= tol and math.isfinite(err)
@@ -1385,7 +1409,7 @@ def check_mla(torch, report, timer, dcfg):
            "dtype": "bfloat16", "lengths": [4096], "max_abs_err": err,
            "tol": tol, "ok": good, "plan": plan._asdict(),
            "case_ms": timer(lambda: ops.mla_paged_attention(*a, qk_dim=qk)),
-           "plain_ms": timer(lambda: paged_mla_attention_plain(
+           "plain_ms": timer(lambda: paged_mla_decode_plain(
                *a, scale=scale)),
            "bound_ms": bound, "bound_by": by}
     extra = yardstick(rec, gathered_mla_sdpa(*a, scale))
@@ -2012,8 +2036,8 @@ def p13_paged_case(torch, gen, H, KVH, hd, lengths, starts, chunks, sms,
     table)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attn import (
-        _attn_plan, _decode_plan, paged_attention_plain,
-        paged_prefill_attention_plain)
+        _attn_plan, _decode_plan, paged_decode_plain,
+        paged_prefill_plain)
     from repro_torch.launch.bench_decode import (gathered_sdpa,
                                                  gathered_sdpa_prefill)
     bs, G, scale = 16, H // KVH, 1.0 / math.sqrt(hd)
@@ -2030,7 +2054,7 @@ def p13_paged_case(torch, gen, H, KVH, hd, lengths, starts, chunks, sms,
     plan = _decode_plan(len(lengths), KVH, G, tables.shape[1], bs, hd, hd, 2,
                         sms)
     recs.append(("paged_decode", a, lambda *x: ops.paged_attention(*x),
-                 lambda *x: paged_attention_plain(*x, scale=scale),
+                 lambda *x: paged_decode_plain(*x, scale=scale),
                  gathered_sdpa(*a, scale), bound, by,
                  f"{plan.splits} splits x {plan.units} = {plan.ctas} CTAs",
                  {"lengths": lengths}))
@@ -2050,7 +2074,7 @@ def p13_paged_case(torch, gen, H, KVH, hd, lengths, starts, chunks, sms,
                       2, sms, prefill=True)
     recs.append(("paged_prefill", a,
                  lambda *x: ops.paged_prefill_attention(*x),
-                 lambda *x: paged_prefill_attention_plain(*x, scale=scale),
+                 lambda *x: paged_prefill_plain(*x, scale=scale),
                  gathered_sdpa_prefill(*a, scale), bound, by,
                  plan_text(plan._asdict()),
                  {"starts": starts, "chunks": chunks}))
@@ -5861,6 +5885,228 @@ def p16_all(torch, report):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the example drivers and the linter
+# ---------------------------------------------------------------------------
+
+def example(name):
+    """``examples/torch/<name>.py`` loaded as a module (its ``main`` not
+    run)."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def falls(losses, n=5) -> bool:
+    """The loss falls: the mean of the last ``n`` steps' below the mean of
+    the first ``n`` (each step draws a new random batch, whose loss
+    spreads by more than a few steps move it)."""
+    return all(map(math.isfinite, losses)) and \
+        statistics.mean(losses[-n:]) < statistics.mean(losses[:n])
+
+
+def p17_driver(torch, rep, key, run):
+    """Run one driver with the launch counts zeroed around it; returns
+    (its result, its launches, its seconds)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    sec = time.time() - t
+    counts = ops.launch_counts()
+    rep[key] = {"seconds": sec, "launches": {k: v for k, v in counts.items()
+                                             if v}}
+    return out, counts, sec
+
+
+def p17_paged_check(torch, out):
+    """The paged decode and prefill kernels at serve_requests' own widths
+    (H 4 over KVH 2, so G = 2; hd 64; f32), slots, page size, table width
+    and prefill chunk, over the lengths of the trace it served: decode at
+    each request's first and last step, and with idle (length-0) lanes;
+    prefill of each prompt in one chunk from 0, four lanes at a time and
+    two with two idle lanes (the engine's two prefills a step).  Each
+    against its plain version at check_paged's f32 tolerance.  No earlier
+    phase runs G = 2."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attn import (
+        paged_decode_plain, paged_prefill_plain)
+    cfg, eng, reqs = out["cfg"], out["engine"], out["requests"]
+    S, C = eng.ecfg.num_slots, eng.prefill_chunk
+    bs, W = eng.ecfg.block_size, eng._max_blocks_per_slot
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, scale, tol = H // KVH, 1.0 / math.sqrt(hd), 1e-5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    plens = [r.prompt_len for r in reqs]
+    ends = [r.prompt_len + r.max_new_tokens for r in reqs]
+    groups = [range(i, min(i + S, len(reqs))) for i in range(0, len(reqs), S)]
+    cases = [("paged_decode", [plens[i] + 1 for i in g]) for g in groups]
+    cases += [("paged_decode", [ends[i] for i in g]) for g in groups]
+    cases += [("paged_decode", ends[:2] + [0] * (S - 2))]
+    cases += [("paged_prefill", [plens[i] for i in g]) for g in groups]
+    cases += [("paged_prefill", plens[-2:] + [0] * (S - 2))]
+    errs, ok = [], True
+    for kernel, lengths in cases:
+        lengths = lengths + [0] * (S - len(lengths))
+        ka, va, tables, lens = paged_inputs(torch, gen, S, KVH, G, hd, bs,
+                                            lengths, torch.float32, width=W)
+        if kernel == "paged_decode":
+            q = torch.randn((S, H, hd), generator=gen, device="cuda")
+            got = ops.paged_attention(q, ka, va, tables, lens)
+            want = paged_decode_plain(q, ka, va, tables, lens,
+                                      scale=scale)
+        else:
+            q = torch.randn((S, C, H, hd), generator=gen, device="cuda")
+            st = torch.zeros_like(lens)
+            got = ops.paged_prefill_attention(q, ka, va, tables, st, lens)
+            want = paged_prefill_plain(q, ka, va, tables, st, lens,
+                                       scale=scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        good = err <= tol and math.isfinite(err)
+        ok &= good
+        errs.append({"kernel": kernel, "lengths": lengths,
+                     "max_abs_err": err, "ok": good})
+    rec = {"H": H, "KVH": KVH, "G": G, "hd": hd, "dtype": "float32",
+           "slots": S, "block_size": bs, "width": W, "chunk": C, "tol": tol,
+           "cases": errs, "ok": ok}
+    for kernel in ("paged_decode", "paged_prefill"):
+        mine = [c for c in errs if c["kernel"] == kernel]
+        log(f"    {kernel} at serve_requests' widths (H={H}/{KVH}, G={G}, "
+            f"hd={hd}, f32, {S} lanes, pages of {bs}, {W} columns"
+            + (f", chunk {C}" if kernel == "paged_prefill" else "")
+            + f"), {len(mine)} cases: max_abs_err "
+            f"{max(c['max_abs_err'] for c in mine):.3e} (tol {tol:.0e}) "
+            + ("ok" if all(c["ok"] for c in mine) else "FAIL"))
+    return ok, rec
+
+
+def p17_all(torch, report):
+    """Phase 17: (a) saralint over the port; (b) quickstart, all four
+    parts; (c) serve_requests at its defaults; (d) train_lm at its 100m
+    preset with the simulated preemption."""
+    from repro_torch.analysis import run_paths
+    from repro_torch.analysis.core import render_report
+    t0 = time.time()
+    rep = report["p17"] = {}
+    ok = True
+
+    findings = run_paths([str(ROOT / "src" / "repro_torch")])
+    active = [f for f in findings if not f.suppressed]
+    supp = [f for f in findings if f.suppressed]
+    good = not active and all(f.suppress_reason for f in supp)
+    ok &= good
+    summary = render_report(findings).splitlines()[-1]
+    rep["saralint"] = {"active": [f.render() for f in active],
+                       "suppressed": len(supp), "ok": good}
+    log(f"  17a {summary}: {'ok' if good else 'FAIL'}")
+    for f in active:
+        log(f"    {f.render()}")
+
+    log("  17b examples/torch/quickstart.py (all four parts, defaults):")
+    ckpt = ROOT / "build" / "chip_smoke_quickstart"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    qs = example("quickstart")
+    out, counts, sec = p17_driver(torch, rep, "quickstart",
+                                  lambda: qs.main(["--ckpt", str(ckpt)]))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _, history, driver = out["part4"]
+    losses = [h["loss"] for h in history]
+    gemm_ok = all(r["max_abs_err"] <= 16 * F32_EPS * r["K"]
+                  for r in out["part3"])
+    good = (counts["rsa_gemm"] > 0 and counts["plain_calls"] == 0
+            and gemm_ok and driver.restarts == 0 and len(losses) == 15
+            and falls(losses) and math.isfinite(out["part2"].test_accuracy))
+    ok &= good
+    rep["quickstart"].update(
+        part1=out["part1"], accuracy=out["part2"].test_accuracy,
+        part3=[{k: (v.describe() if k == "cfg" else v) for k, v in r.items()}
+               for r in out["part3"]],
+        losses=losses, ok=good)
+    log(f"    {sec:.1f} s; ADAPTNET accuracy "
+        f"{out['part2'].test_accuracy:.4f}; GEMM errors vs matmul "
+        + ", ".join(f"{r['M']}x{r['K']}x{r['N']} {r['max_abs_err']:.3e}"
+                    for r in out["part3"])
+        + f" (<= 16 eps K); loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"mean of the first / last 5 steps "
+        f"{statistics.mean(losses[:5]):.4f} / "
+        f"{statistics.mean(losses[-5:]):.4f}; "
+        f"launches {rep['quickstart']['launches']}: "
+        + ("ok" if good else "FAIL"))
+
+    log("  17c examples/torch/serve_requests.py (defaults):")
+    sr = example("serve_requests")
+    out, counts, sec = p17_driver(torch, rep, "serve_requests",
+                                  lambda: sr.main([]))
+    eng, reqs = out["engine"], out["requests"]
+    eng.pool.check()
+    done = [r for r in eng.requests.values() if r.outcome == "done"]
+    good = (len(done) == len(reqs) == 12
+            and all(len(out["outputs"][r.rid]) == r.max_new_tokens
+                    for r in reqs)
+            and eng.pool.num_free == eng.pool.num_blocks
+            and eng.kv_layout == "paged"
+            and counts["rsa_gemm"] > 0 and counts["paged_decode"] > 0
+            and counts["paged_prefill"] > 0 and counts["plain_calls"] == 0)
+    log(f"    {sec:.1f} s; {len(done)}/{len(reqs)} requests, pool "
+        f"{eng.pool.num_free}/{eng.pool.num_blocks} free; launches "
+        f"{rep['serve_requests']['launches']}: " + ("ok" if good else "FAIL"))
+    # the launches above were read before these comparisons ran
+    paged_ok, paged = p17_paged_check(torch, out)
+    good &= paged_ok
+    ok &= good
+    rep["serve_requests"].update(
+        completed=len(done), tokens=sum(len(v) for v in out["outputs"].values()),
+        leak_free=eng.pool.num_free == eng.pool.num_blocks,
+        gemm_plan=eng.gemm_plan, paged_vs_plain=paged, ok=good)
+
+    log(f"  17d examples/torch/train_lm.py {' '.join(P17_TRAIN)}:")
+    ckpt = ROOT / "build" / "chip_smoke_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tl = example("train_lm")
+    out, counts, sec = p17_driver(
+        torch, rep, "train_lm",
+        lambda: tl.main([*P17_TRAIN, "--ckpt", str(ckpt)]))
+    steps = int(P17_TRAIN[P17_TRAIN.index("--steps") + 1])
+    history, driver = out["history"], out["driver"]
+    losses = [h["loss"] for h in history]
+    n_params = sum(t.numel() for t in _leaves(out["params"]))
+    good = (out["fired"] == [steps // 2] and driver.restarts == 1
+            and [h["step"] for h in history] == list(range(steps))
+            and falls(losses)
+            and counts["rsa_gemm"] > 0 and counts["plain_calls"] == 0)
+    ok &= good
+    rep["train_lm"].update(params=n_params, fired=out["fired"],
+                           restarts=driver.restarts,
+                           steps=[h["step"] for h in history],
+                           losses=losses, ok=good)
+    log(f"    {sec:.1f} s; {n_params:,} parameters; preemption at step "
+        f"{out['fired']}, {driver.restarts} restart, {len(history)} steps "
+        f"run, {history[0]['step']}..{history[-1]['step']} (each once: "
+        f"resumed from the step-{steps // 2} checkpoint); "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first / "
+        f"last 5 steps {statistics.mean(losses[:5]):.4f} / "
+        f"{statistics.mean(losses[-5:]):.4f}; "
+        f"{driver.straggler_report()}; launches "
+        f"{rep['train_lm']['launches']}: " + ("ok" if good else "FAIL"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    rep["seconds"] = report["phase17_s"] = time.time() - t0
+    within = rep["seconds"] <= P17_BUDGET_S
+    ok &= within
+    log(f"  phase 17 took {rep['seconds']:.1f} s (budget {P17_BUDGET_S:.0f} "
+        f"s: {'within' if within else 'OVER'})")
+    if not ok:
+        log("  PHASE 17 FAIL")
+    return ok
+
+
 def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                  sp_counts, sp_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
@@ -6185,6 +6431,12 @@ def main() -> int:
         "prefill_32k and decode_32k (full width, optimized profile, batch 1)"
         "; the dry-run's meta sweep; the wave baseline")
     ok &= p16_all(torch, report)
+    torch.cuda.empty_cache()
+
+    log("== 17. the example drivers: saralint over the port; quickstart, "
+        "serve_requests and train_lm (100m, a simulated preemption) through "
+        "examples/torch")
+    ok &= p17_all(torch, report)
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")

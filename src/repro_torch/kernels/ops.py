@@ -28,13 +28,13 @@ from repro_torch.kernels.linear_attn import (
     linear_attn_cuda, linear_attn_plain, wkv_bshk_cuda, wkv_bshk_plain,
     wkv_scan)
 from repro_torch.kernels.paged_attn import (
-    merge_softmax_states, paged_attention_lse_plain, paged_attention_plain,
-    paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_attention_plain,
+    merge_softmax_states, paged_decode_lse_plain, paged_decode_plain,
+    paged_decode_cuda, paged_decode_lse_cuda, paged_prefill_plain,
     paged_prefill_cuda, paged_prefix_cuda, shared_paged_attention_plain,
-    shared_prefix_attention_plain)
+    paged_prefix_plain)
 from repro_torch.kernels.paged_mla import (
-    paged_mla_attention_plain, paged_mla_decode_cuda,
-    paged_mla_prefill_attention_plain, paged_mla_prefill_cuda)
+    paged_mla_decode_plain, paged_mla_decode_cuda,
+    paged_mla_prefill_plain, paged_mla_prefill_cuda)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda, rsa_gemm_plain
 
 
@@ -64,8 +64,8 @@ def paged_attention(q, k_arena, v_arena, tables, lengths, *,
     (S, H, hd_v); lanes with length 0 yield zeros."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if _backend(q) == "torch":
-        return paged_attention_plain(q, k_arena, v_arena, tables, lengths,
-                                     scale=scale, logit_cap=logit_cap)
+        return paged_decode_plain(q, k_arena, v_arena, tables, lengths,
+                                  scale=scale, logit_cap=logit_cap)
     return paged_decode_cuda(q.contiguous(), k_arena, v_arena, tables,
                              lengths, scale=scale, logit_cap=logit_cap)
 
@@ -81,7 +81,7 @@ def paged_prefill_attention(q, k_arena, v_arena, tables, starts, lengths, *,
     zeros."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if _backend(q) == "torch":
-        return paged_prefill_attention_plain(
+        return paged_prefill_plain(
             q, k_arena, v_arena, tables, starts, lengths, scale=scale,
             logit_cap=logit_cap)
     return paged_prefill_cuda(q.contiguous(), k_arena, v_arena, tables,
@@ -133,9 +133,9 @@ def mla_paged_attention(q_abs, q_rope, ckv_arena, krope_arena, tables,
     length 0 yield zeros."""
     scale = 1.0 / (qk_dim ** 0.5)
     if _backend(q_abs) == "torch":
-        return paged_mla_attention_plain(q_abs, q_rope, ckv_arena,
-                                         krope_arena, tables, lengths,
-                                         scale=scale)
+        return paged_mla_decode_plain(q_abs, q_rope, ckv_arena,
+                                      krope_arena, tables, lengths,
+                                      scale=scale)
     return paged_mla_decode_cuda(q_abs.contiguous(), q_rope.contiguous(),
                                  ckv_arena, krope_arena, tables, lengths,
                                  scale=scale)
@@ -149,7 +149,7 @@ def mla_paged_prefill_attention(q_abs, q_rope, ckv_arena, krope_arena,
     q_rope (S, C, H, rd).  Returns o_lat (S, C, H, r)."""
     scale = 1.0 / (qk_dim ** 0.5)
     if _backend(q_abs) == "torch":
-        return paged_mla_prefill_attention_plain(
+        return paged_mla_prefill_plain(
             q_abs, q_rope, ckv_arena, krope_arena, tables, starts, lengths,
             scale=scale)
     return paged_mla_prefill_cuda(q_abs.contiguous(), q_rope.contiguous(),
@@ -321,12 +321,12 @@ def launch_counts() -> Dict[str, int]:
             "wkv_bshk": wkv_bshk_cuda.launches,
             "linear_attn": linear_attn_cuda.launches,
             "adaptnetx": adaptnetx_cuda.launches,
-            "plain_calls": rsa_gemm_plain.calls + paged_attention_plain.calls
-            + paged_prefill_attention_plain.calls
-            + paged_attention_lse_plain.calls
-            + shared_prefix_attention_plain.calls
-            + paged_mla_attention_plain.calls
-            + paged_mla_prefill_attention_plain.calls
+            "plain_calls": rsa_gemm_plain.calls + paged_decode_plain.calls
+            + paged_prefill_plain.calls
+            + paged_decode_lse_plain.calls
+            + paged_prefix_plain.calls
+            + paged_mla_decode_plain.calls
+            + paged_mla_prefill_plain.calls
             + flash_fwd_plain.calls + flash_dq_plain.calls
             + flash_dkv_plain.calls + wkv_bshk_plain.calls
             + linear_attn_plain.calls + adaptnetx_plain.calls}
@@ -350,12 +350,12 @@ def reset_counts() -> None:
     linear_attn_cuda.launches = 0
     adaptnetx_cuda.launches = 0
     rsa_gemm_plain.calls = 0
-    paged_attention_plain.calls = 0
-    paged_prefill_attention_plain.calls = 0
-    paged_attention_lse_plain.calls = 0
-    shared_prefix_attention_plain.calls = 0
-    paged_mla_attention_plain.calls = 0
-    paged_mla_prefill_attention_plain.calls = 0
+    paged_decode_plain.calls = 0
+    paged_prefill_plain.calls = 0
+    paged_decode_lse_plain.calls = 0
+    paged_prefix_plain.calls = 0
+    paged_mla_decode_plain.calls = 0
+    paged_mla_prefill_plain.calls = 0
     flash_fwd_plain.calls = 0
     flash_dq_plain.calls = 0
     flash_dkv_plain.calls = 0

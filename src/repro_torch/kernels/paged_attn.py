@@ -53,13 +53,13 @@ def paged_gather(arena: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
                      tuple(g.shape[3:]))
 
 
-def paged_attention_plain(q, k_arena, v_arena, tables, lengths, *,
-                          scale: float, logit_cap: float = 0.0):
+def paged_decode_plain(q, k_arena, v_arena, tables, lengths, *,
+                       scale: float, logit_cap: float = 0.0):
     """Masked-dense decode attention over gathered pages (f32 softmax).
 
     q: (S, H, hd) one query per lane.  Returns (S, H, hd_v) in q's dtype;
     lanes of length 0 yield zeros."""
-    paged_attention_plain.calls += 1
+    paged_decode_plain.calls += 1
     S, H, hd = q.shape
     KVH = k_arena.shape[2]
     G = H // KVH
@@ -80,18 +80,18 @@ def paged_attention_plain(q, k_arena, v_arena, tables, lengths, *,
     return o.reshape(S, H, v.shape[-1]).to(q.dtype)
 
 
-paged_attention_plain.calls = 0
+paged_decode_plain.calls = 0
 
 
-def paged_prefill_attention_plain(q, k_arena, v_arena, tables, starts,
-                                  lengths, *, scale: float,
-                                  logit_cap: float = 0.0):
+def paged_prefill_plain(q, k_arena, v_arena, tables, starts,
+                        lengths, *, scale: float,
+                        logit_cap: float = 0.0):
     """Chunked-prefill attention over gathered pages (f32 softmax).
 
     q: (S, C, H, hd) one prompt chunk per lane; chunk row r attends
     causally to arena columns ``<= starts + r`` (and ``< lengths``).
     Returns (S, C, H, hd_v); lanes of length 0 yield zeros."""
-    paged_prefill_attention_plain.calls += 1
+    paged_prefill_plain.calls += 1
     S, C, H, hd = q.shape
     KVH = k_arena.shape[2]
     G = H // KVH
@@ -116,7 +116,7 @@ def paged_prefill_attention_plain(q, k_arena, v_arena, tables, starts,
     return o.reshape(S, C, H, v.shape[-1]).to(q.dtype)
 
 
-paged_prefill_attention_plain.calls = 0
+paged_prefill_plain.calls = 0
 
 
 def merge_softmax_states(o_a, m_a, l_a, o_b, m_b, l_b):
@@ -160,13 +160,13 @@ def _attention_lse(q, k, v, mask, scale: float, logit_cap: float):
             l.reshape(S, H))
 
 
-def paged_attention_lse_plain(q, k_arena, v_arena, tables, lengths, *,
-                              scale: float, logit_cap: float = 0.0):
-    """:func:`paged_attention_plain` that also returns the softmax state:
+def paged_decode_lse_plain(q, k_arena, v_arena, tables, lengths, *,
+                           scale: float, logit_cap: float = 0.0):
+    """:func:`paged_decode_plain` that also returns the softmax state:
     the per-lane unique phase of cascade decode.  q (S, H, hd); returns
     (o (S, H, hd_v) normalised in q's dtype, m (S, H) f32, l (S, H) f32);
     lanes of length 0 come back as (0, -1e30, 0)."""
-    paged_attention_lse_plain.calls += 1
+    paged_decode_lse_plain.calls += 1
     k = paged_gather(k_arena, tables).float()            # (S, L, KVH, hd)
     v = paged_gather(v_arena, tables).float()
     lengths = lengths.to(q.device).long()
@@ -175,19 +175,19 @@ def paged_attention_lse_plain(q, k_arena, v_arena, tables, lengths, *,
     return _attention_lse(q, k, v, mask, scale, logit_cap)
 
 
-paged_attention_lse_plain.calls = 0
+paged_decode_lse_plain.calls = 0
 
 
-def shared_prefix_attention_plain(q, k_arena, v_arena, prefix_pages,
-                                  prefix_lens, *, scale: float,
-                                  logit_cap: float = 0.0):
+def paged_prefix_plain(q, k_arena, v_arena, prefix_pages,
+                       prefix_lens, *, scale: float,
+                       logit_cap: float = 0.0):
     """Partial decode attention of every lane over ONE shared page list:
     the shared-prefix phase of cascade decode.  q (S, H, hd);
     prefix_pages (P,) int32; prefix_lens (S,) int32 prefix rows lane s
     attends (0 = not in the sharing group).  Returns (o, m, l) as
-    :func:`paged_attention_lse_plain`; non-members come back as
+    :func:`paged_decode_lse_plain`; non-members come back as
     (0, -1e30, 0)."""
-    shared_prefix_attention_plain.calls += 1
+    paged_prefix_plain.calls += 1
     S = q.shape[0]
     k = paged_gather(k_arena, prefix_pages[None]).float()  # (1, L, KVH, hd)
     v = paged_gather(v_arena, prefix_pages[None]).float()
@@ -199,7 +199,7 @@ def shared_prefix_attention_plain(q, k_arena, v_arena, prefix_pages,
     return _attention_lse(q, k, v, mask, scale, logit_cap)
 
 
-shared_prefix_attention_plain.calls = 0
+paged_prefix_plain.calls = 0
 
 
 def shared_paged_attention_plain(q, k_arena, v_arena, unique_tables,
@@ -208,8 +208,8 @@ def shared_paged_attention_plain(q, k_arena, v_arena, unique_tables,
     """Cascade decode in one pass: each lane's table is rebuilt gap-free,
     its ``prefix_lens // bs`` shared pages followed by its unique pages (the
     order its full block table has them in), and ONE masked softmax runs
-    over it through :func:`paged_attention_plain`.  At the width of the
-    lanes' full tables it is bitwise equal to ``paged_attention_plain``
+    over it through :func:`paged_decode_plain`.  At the width of the
+    lanes' full tables it is bitwise equal to ``paged_decode_plain``
     over those tables: the only difference is dead columns, whose scores
     are masked to -1e30 and whose p is exactly 0.  Returns (S, H, hd_v)."""
     S = q.shape[0]
@@ -226,9 +226,9 @@ def shared_paged_attention_plain(q, k_arena, v_arena, unique_tables,
     uniq_idx = torch.clamp(j[None, :] - npref[:, None], 0, uw - 1)
     uniq_cols = torch.gather(unique_tables, 1, uniq_idx)
     combined = torch.where(in_prefix, pref_cols, uniq_cols)
-    return paged_attention_plain(q, k_arena, v_arena, combined,
-                                 prefix_lens.to(dev) + unique_lens.to(dev),
-                                 scale=scale, logit_cap=logit_cap)
+    return paged_decode_plain(q, k_arena, v_arena, combined,
+                              prefix_lens.to(dev) + unique_lens.to(dev),
+                              scale=scale, logit_cap=logit_cap)
 
 
 def _check(q, k_arena, v_arena, tables, lengths, starts=None,

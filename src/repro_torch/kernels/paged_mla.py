@@ -51,13 +51,13 @@ def _mla_scores(qa, qr, ckv, krope, scale: float):
     return s.reshape(tuple(qa.shape[:-1]) + (L,))
 
 
-def paged_mla_attention_plain(q_abs, q_rope, ckv_arena, krope_arena, tables,
-                              lengths, *, scale: float):
+def paged_mla_decode_plain(q_abs, q_rope, ckv_arena, krope_arena, tables,
+                           lengths, *, scale: float):
     """Absorbed-MLA decode over gathered latent pages (f32 softmax).
 
     q_abs: (S, H, r); q_rope: (S, H, rd).  Returns o_lat (S, H, r) in
     q_abs's dtype; lanes of length 0 yield zeros."""
-    paged_mla_attention_plain.calls += 1
+    paged_mla_decode_plain.calls += 1
     dev = q_abs.device
     ckv = paged_gather(ckv_arena, tables).float()              # (S, L, r)
     krope = paged_gather(krope_arena, tables).float()
@@ -71,19 +71,19 @@ def paged_mla_attention_plain(q_abs, q_rope, ckv_arena, krope_arena, tables,
     return o.to(q_abs.dtype)
 
 
-paged_mla_attention_plain.calls = 0
+paged_mla_decode_plain.calls = 0
 
 
-def paged_mla_prefill_attention_plain(q_abs, q_rope, ckv_arena, krope_arena,
-                                      tables, starts, lengths, *,
-                                      scale: float):
+def paged_mla_prefill_plain(q_abs, q_rope, ckv_arena, krope_arena,
+                            tables, starts, lengths, *,
+                            scale: float):
     """Absorbed-MLA chunked prefill over gathered latent pages (f32
     softmax).
 
     q_abs: (S, C, H, r); q_rope: (S, C, H, rd); chunk row c attends
     causally to arena columns ``<= starts + c`` (and ``< lengths``).
     Returns o_lat (S, C, H, r); lanes of length 0 yield zeros."""
-    paged_mla_prefill_attention_plain.calls += 1
+    paged_mla_prefill_plain.calls += 1
     dev = q_abs.device
     C = q_abs.shape[1]
     ckv = paged_gather(ckv_arena, tables).float()              # (S, L, r)
@@ -103,7 +103,7 @@ def paged_mla_prefill_attention_plain(q_abs, q_rope, ckv_arena, krope_arena,
     return o.to(q_abs.dtype)
 
 
-paged_mla_prefill_attention_plain.calls = 0
+paged_mla_prefill_plain.calls = 0
 
 
 def _check(q_abs, q_rope, ckv_arena, krope_arena, tables, lengths,

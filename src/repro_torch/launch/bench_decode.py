@@ -32,9 +32,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.paged_attn import (
-    _attn_plan, _decode_plan, paged_attention_plain, paged_decode_cuda,
-    paged_gather, paged_prefill_attention_plain, paged_prefill_cuda,
-    paged_prefix_cuda, shared_prefix_attention_plain)
+    _attn_plan, _decode_plan, paged_decode_plain, paged_decode_cuda,
+    paged_gather, paged_prefill_plain, paged_prefill_cuda,
+    paged_prefix_cuda, paged_prefix_plain)
 from repro_torch.launch.bench_gemm import timer
 
 KVH, G, HD, BS = 8, 4, 64, 16      # llama3.2-1b's decode widths, pages of 16
@@ -130,10 +130,10 @@ def run_case(name, lengths, W, sms):
     S, scale = len(lengths), 1.0 / math.sqrt(HD)
     a = (q, k, v, tables, lens)
     plan = _decode_plan(S, KVH, G, W, BS, HD, HD, 2, sms)
-    want = paged_attention_plain(*a, scale=scale)
+    want = paged_decode_plain(*a, scale=scale)
     rec = {"name": name, "S": S, "W": W, "lengths": lengths,
            "plan": plan._asdict(), "bound_ms": bound_ms(lengths),
-           "plain_ms": timer(lambda: paged_attention_plain(*a, scale=scale)),
+           "plain_ms": timer(lambda: paged_decode_plain(*a, scale=scale)),
            "sdpa_gathered_ms": timer(gathered_sdpa(*a, scale)),
            "variants": {}}
     counts = sorted({plan.splits} | {n for n in FORCED if n <= W})
@@ -179,12 +179,12 @@ def run_prefix_case(name, plens, P, sms):
          torch.tensor(pages, **i32), torch.tensor(plens, **i32))
     scale = 1.0 / math.sqrt(HD)
     W = len(pages)
-    want = shared_prefix_attention_plain(*a, scale=scale)
+    want = paged_prefix_plain(*a, scale=scale)
     rows = max(plens)
     nbytes = -(-rows // BS) * BS * KVH * 2 * HD * 2 + 2 * q.numel() * 2
     rec = {"name": name, "S": S, "W": W, "prefix_lens": plens,
            "bound_ms": nbytes / 3.35e12 * 1e3,
-           "plain_ms": timer(lambda: shared_prefix_attention_plain(
+           "plain_ms": timer(lambda: paged_prefix_plain(
                *a, scale=scale)), "variants": {}}
     _variants(rec, lambda n: _attn_plan(1, S * G, KVH, W, BS, HD, HD, 2, sms,
                                         splits=n),
@@ -209,7 +209,7 @@ def run_prefill_case(name, starts, chunks, sms):
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
     a = (q, k, v, tables, st, lens)
     scale = 1.0 / math.sqrt(HD)
-    want = paged_prefill_attention_plain(*a, scale=scale)
+    want = paged_prefill_plain(*a, scale=scale)
     pairs = sum(min(s + r + 1, s + c) for s, c in zip(starts, chunks)
                 for r in range(c))
     nbytes = (sum(-(-n // BS) * BS for n in lengths) * KVH * 2 * HD * 2 +
@@ -217,7 +217,7 @@ def run_prefill_case(name, starts, chunks, sms):
     rec = {"name": name, "S": S, "W": W, "starts": starts, "chunks": chunks,
            "bound_ms": max(nbytes / 3.35e12,
                            4.0 * KVH * G * HD * pairs / 989e12) * 1e3,
-           "plain_ms": timer(lambda: paged_prefill_attention_plain(
+           "plain_ms": timer(lambda: paged_prefill_plain(
                *a, scale=scale)),
            "sdpa_gathered_ms": timer(gathered_sdpa_prefill(*a, scale)),
            "variants": {}}

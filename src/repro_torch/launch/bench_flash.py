@@ -15,8 +15,10 @@ bf16 on the tensor cores; the causal pairs counted) and beside
 ``enable_gqa=True`` (its forward; its backward through autograd computes
 dq, dk and dv at once), a yardstick the port never calls.  ``--dtype
 bf16`` (the tensor-core forward, dq and dk/dv) runs seamless-m4t-medium's
-encoder (B = 1, S = 128, 16 heads x 64, bidirectional) in place of the
-MLA shape.  With ``--variant`` the forward also runs with 1 and 2 ring
+encoder (B = 1, S = 128, 16 heads x 64, bidirectional) and llama's
+``prefill_32k`` cell (B = 1, causal S = 32768, 32 / 8 heads x 64; phase
+16's prefill step launches the forward there) in place of the MLA
+shape.  With ``--variant`` the forward also runs with 1 and 2 ring
 stages (in bf16 also with 64 and 128 query rows a CTA), dq with 64 and
 128 query rows a CTA (f32: its ring has 2 stages up to hd 128, 1 and 2
 past it; bf16: 1 and 2 stages),
@@ -56,14 +58,15 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # name, B, S, H, KVH, hd, hd_v, causal: llama3.2-1b's attention (32 / 8
 # heads x 64) at four lengths and gemma-2b's (8 / 1 x 256); in f32 also the
 # expanded MLA's (128 heads, 192 / 128), in bf16 seamless-m4t-medium's
-# encoder (16 x 64, bidirectional)
+# encoder (16 x 64, bidirectional) and llama at prefill_32k's length
 CASES = [("phase 7", 2, 1024, 32, 8, 64, 64, True),
          ("S 512", 2, 512, 32, 8, 64, 64, True),
          ("S 2048", 2, 2048, 32, 8, 64, 64, True),
          ("S 4096", 1, 4096, 32, 8, 64, 64, True),
          ("gemma-2b", 2, 1024, 8, 1, 256, 256, True)]
 F32_CASES = [("MLA", 1, 1024, 128, 128, 192, 128, True)]
-BF16_CASES = [("seamless", 1, 128, 16, 16, 64, 64, False)]
+BF16_CASES = [("seamless", 1, 128, 16, 16, 64, 64, False),
+              ("prefill_32k", 1, 32768, 32, 8, 64, 64, True)]
 
 
 def _short(fn: str) -> str:

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.kernels.paged_attn import paged_gather
 from repro_torch.kernels.paged_mla import (
-    _mla_plan, paged_mla_attention_plain, paged_mla_decode_cuda,
-    paged_mla_prefill_attention_plain, paged_mla_prefill_cuda)
+    _mla_plan, paged_mla_decode_plain, paged_mla_decode_cuda,
+    paged_mla_prefill_plain, paged_mla_prefill_cuda)
 from repro_torch.launch.bench_gemm import timer
 
 H, R, RD, BS = 128, 512, 64, 16    # deepseek-v3's MLA widths, pages of 16
@@ -146,14 +146,14 @@ def run_case(name, dtype, lengths=None, starts=None, chunks=None,
         st = torch.tensor(starts, dtype=torch.int32, device="cuda")
         a = (qa, qr, ckv, kr, tables, st, lens)
         kernel, plain_fn = paged_mla_prefill_cuda, \
-            paged_mla_prefill_attention_plain
+            paged_mla_prefill_plain
         live = (torch.arange(C, device="cuda")[None, :] <
                 torch.tensor(chunks, device="cuda")[:, None])
         pairs = sum(s + c + 1 for s, n in zip(starts, chunks)
                     for c in range(n))
     else:
         a = (qa, qr, ckv, kr, tables, lens)
-        kernel, plain_fn = paged_mla_decode_cuda, paged_mla_attention_plain
+        kernel, plain_fn = paged_mla_decode_cuda, paged_mla_decode_plain
         live = torch.ones(S, dtype=torch.bool, device="cuda")
         pairs = sum(lens_list)
     want = plain_fn(*a, scale=scale).float()

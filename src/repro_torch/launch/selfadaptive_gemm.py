@@ -119,6 +119,7 @@ def main(argv: Optional[Sequence[str]] = None):
     same = sum(r["cid"] == r["host_cid"] for r in res["layers"])
     print(f"\nADAPTNETX and the host twin pick the same tile on {same} of "
           f"{len(res['layers'])} layers")
+    return res
 
 
 if __name__ == "__main__":

@@ -92,10 +92,12 @@ class Model:
                                         src_len)
 
     def paged_prefill_write(self, arena, layers_cache, block_ids):
+        # saralint: ok[cow-gate] pass-through to the bucketed prefill scatter; the engine only hands it freshly alloc'd, never-shared pages
         return serving.paged_prefill_write(arena, layers_cache, block_ids)
 
     def paged_prefill_step(self, params, tokens, arena, block_tables,
                            kv_lens, chunk_lens):
+        # saralint: ok[cow-gate] pass-through to the model step; each serving-layer call (engine _chunk_prefill, draft _draft_prefill) is gated or reasoned where it is made
         return serving.paged_prefill_step(params, tokens, self.cfg, arena,
                                           block_tables, kv_lens, chunk_lens)
 
@@ -103,6 +105,7 @@ class Model:
                           kv_lens, chunk_lens):
         """((S, C, V) f32 logits at every chunk row, arena): the
         speculative verifier."""
+        # saralint: ok[cow-gate] pass-through to the model step; the engine's _spec_verify call is gated by _cow_chunk_pages where it is made
         return serving.paged_verify_step(params, tokens, self.cfg, arena,
                                          block_tables, kv_lens, chunk_lens)
 
@@ -110,6 +113,7 @@ class Model:
                           kv_lens, write_mask, state=None):
         """``state``: :meth:`init_paged_state`'s dense residue (an encdec
         model's cross K/V), where the reference passes it second."""
+        # saralint: ok[cow-gate] pass-through to the model step; each serving-layer call (engine _paged_decode, the draft loop) is reasoned where it is made
         return serving.paged_decode_step(params, tokens, self.cfg, arena,
                                          block_tables, kv_lens, write_mask,
                                          state)
@@ -117,6 +121,7 @@ class Model:
     def paged_shared_decode_step(self, params, tokens, arena, block_tables,
                                  kv_lens, write_mask, prefix_pages,
                                  prefix_lens, unique_tables, unique_lens):
+        # saralint: ok[cow-gate] pass-through to the model step; the engine's _paged_shared_decode call is reasoned where it is made
         return serving.paged_shared_decode_step(
             params, tokens, self.cfg, arena, block_tables, kv_lens,
             write_mask, prefix_pages, prefix_lens, unique_tables,

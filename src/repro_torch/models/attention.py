@@ -72,6 +72,7 @@ def _block_step(carry, q_blk, k_blk, v_blk, mask, scale, logit_cap):
     streams' dtype (a bf16 product is exact in f32), p rounded to v's
     dtype before the mix.  mask: (B', qc, kc) bool."""
     m, l, acc = carry
+    # saralint: ok[dispatch-escape] activation-activation attention score; no weight shape for ADAPTNET to tile
     s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk.float(),
                      k_blk.float()) * scale
     if logit_cap > 0.0:
@@ -81,6 +82,7 @@ def _block_step(carry, q_blk, k_blk, v_blk, mask, scale, logit_cap):
     p = torch.exp(s - m_new[..., None])
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(dim=-1)
+    # saralint: ok[dispatch-escape] softmax-weights x values mix, both activations
     acc_new = acc * corr[..., None] + torch.einsum(
         "bhgqk,bkhd->bhgqd", p.to(v_blk.dtype).float(), v_blk.float())
     return m_new, l_new, acc_new
@@ -374,6 +376,7 @@ def gqa_paged_decode(params: Params, x: torch.Tensor,
     # 0/1 chunk length (masked lanes land in the trash block)
     wm = (write_mask > 0).to(kv_lens.dtype)
     rows = _paged_chunk_rows(block_tables, kv_lens, wm, 1, bs, NB)
+    # saralint: ok[cow-gate] decode writes one row in place at row kv_len of the lane's exclusively-owned tail page (or the trash block when masked); shared prefix pages cover only rows < kv_len
     _arena_write_chunk(k_arena, rows, k[:, :1])
     _arena_write_chunk(v_arena, rows, v[:, :1])
     attn_len = kv_lens + wm
@@ -408,6 +411,7 @@ def gqa_paged_shared_decode(params: Params, x: torch.Tensor,
     NB, bs = k_arena.shape[0], k_arena.shape[1]
     wm = (write_mask > 0).to(kv_lens.dtype)
     rows = _paged_chunk_rows(block_tables, kv_lens, wm, 1, bs, NB)
+    # saralint: ok[cow-gate] decode writes one row in place at row kv_len of the lane's exclusively-owned tail page (or the trash block when masked); shared prefix pages cover only rows < kv_len
     _arena_write_chunk(k_arena, rows, k[:, :1])
     _arena_write_chunk(v_arena, rows, v[:, :1])
     o = kops.shared_paged_attention(
@@ -440,6 +444,7 @@ def gqa_paged_prefill(params: Params, x: torch.Tensor,
     NB, bs = k_arena.shape[0], k_arena.shape[1]
     S, C = x.shape[0], x.shape[1]
     rows = _paged_chunk_rows(block_tables, kv_lens, chunk_lens, C, bs, NB)
+    # saralint: ok[cow-gate] chunk rows land in place in pages the engine COW-forked via _cow_chunk_pages before this step runs (masked rows in the trash block)
     _arena_write_chunk(k_arena, rows, k)
     _arena_write_chunk(v_arena, rows, v)
     attn_len = kv_lens + chunk_lens
@@ -543,6 +548,7 @@ def mla_paged_prefill(params: Params, x: torch.Tensor,
 
     NB, bs = ckv_arena.shape[0], ckv_arena.shape[1]
     rows = _paged_chunk_rows(block_tables, kv_lens, chunk_lens, C, bs, NB)
+    # saralint: ok[cow-gate] chunk rows land in place in pages the engine COW-forked via _cow_chunk_pages before this step runs (masked rows in the trash block)
     _arena_write_chunk(ckv_arena, rows, c_kv)
     _arena_write_chunk(krope_arena, rows, k_rope)
 
@@ -575,6 +581,7 @@ def mla_paged_decode(params: Params, x: torch.Tensor,
     NB, bs = ckv_arena.shape[0], ckv_arena.shape[1]
     wm = (write_mask > 0).to(kv_lens.dtype)
     rows = _paged_chunk_rows(block_tables, kv_lens, wm, 1, bs, NB)
+    # saralint: ok[cow-gate] decode writes one row in place at row kv_len of the lane's exclusively-owned tail page (or the trash block when masked); shared prefix pages cover only rows < kv_len
     _arena_write_chunk(ckv_arena, rows, c_kv[:, :1])
     _arena_write_chunk(krope_arena, rows, k_rope[:, :1])
 
@@ -642,7 +649,9 @@ def mla_self_attention(params: Params, x: torch.Tensor,
     q_abs = _mla_absorb_q(q_nope, w_uk, cdt, site="layer.mla.q_absorb")
     scale = 1.0 / torch.sqrt(torch.tensor(
         float(m.qk_nope_head_dim + m.qk_rope_head_dim)))
+    # saralint: ok[dispatch-escape] latent attention scores against the cached activations, not a weight
     s_nope = torch.einsum("bshr,btr->bhst", q_abs, ckv_all)
+    # saralint: ok[dispatch-escape] decoupled-rope scores against the cached activations, not a weight
     s_rope = torch.einsum("bshd,btd->bhst", q_rope, krope_all)
     s = (s_nope + s_rope).float() * scale
     t_pos = torch.arange(ckv_all.shape[1], device=x.device)
@@ -651,6 +660,7 @@ def mla_self_attention(params: Params, x: torch.Tensor,
         (t_pos[None, None, :] < new_cache.length.long()[:, None, None])
     s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(cdt)
+    # saralint: ok[dispatch-escape] softmax-weights x cached latent rows, both activations
     o_lat = torch.einsum("bhst,btr->bshr", p, ckv_all)
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = _mla_mix_latent(o_lat, w_uv, cdt, site="layer.mla.v_mix")

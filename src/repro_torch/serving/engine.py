@@ -661,6 +661,7 @@ class ServingEngine:
             nblk = self.pool.blocks_for(rows)
             table = self.pool.table(req.rid).blocks
             with torch.no_grad():
+                # saralint: ok[cow-gate] bucketed prefill writes only freshly alloc'd pages; this path never coexists with prefix-cache sharing (the cache requires prefill_chunk)
                 self._paged_write(self.arena.leaves, new["layers"],
                                   self._tensor(np.asarray(table[:nblk],
                                                           np.int32)))
@@ -966,6 +967,7 @@ class ServingEngine:
             cands.append((req, pages))
         hit = self.chaos.poison(step, cands)
         if hit is not None:
+            # saralint: ok[cow-gate] chaos poisons only a full page with refcount 1 and no pin: the fault stays on the one lane that owns it, where the sanitizer traps it
             self.arena.poison_page(hit[1])
 
     # -- main loop ------------------------------------------------------------
@@ -1173,6 +1175,7 @@ class ServingEngine:
             with torch.no_grad(), self._dispatch_scope("decode"), \
                     self.timeline.phase("paged_decode", lanes=len(active),
                                         width=width, shared_pages=npages):
+                # saralint: ok[cow-gate] decode appends one row in place into the lane's exclusively-owned tail page; shared prefix pages cover only rows < kv_len
                 logits, _ = self._paged_shared_decode(
                     self.params, args[0], self.arena.leaves, *args[1:],
                     *[self._tensor(a) for a in (prefix_pages, prefix_lens,
@@ -1182,6 +1185,7 @@ class ServingEngine:
             with torch.no_grad(), self._dispatch_scope("decode"), \
                     self.timeline.phase("paged_decode", lanes=len(active),
                                         width=width):
+                # saralint: ok[cow-gate] decode appends one row in place into the lane's exclusively-owned tail page; shared prefix pages cover only rows < kv_len
                 logits, _ = self._paged_decode(
                     self.params, args[0], self.arena.leaves, *args[1:],
                     self._state)

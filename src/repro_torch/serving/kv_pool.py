@@ -351,6 +351,7 @@ class KVBlockPool:
         self._refs[bid] = 1
         self._gen[bid] += 1
         if self.sanitize and self.arena is not None:
+            # saralint: ok[cow-gate] the page was just taken from the free list: its refcount is 1 and its taker the only reader
             self.arena.unpoison_page(bid)
         return bid
 
@@ -359,6 +360,7 @@ class KVBlockPool:
         under sanitize with bound storage, NaN-poison its rows."""
         self._free.append(bid)
         if self.sanitize and self.arena is not None:
+            # saralint: ok[cow-gate] the page's last reference and pin just dropped: no block table or trie entry maps it
             self.arena.poison_page(bid)
             self.poison_fills += 1
 

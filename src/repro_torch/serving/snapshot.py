@@ -135,6 +135,7 @@ def _dense_from_ref(engine, flat: Dict[str, np.ndarray]) -> None:
     """Copy the reference-layout dense leaves in ``flat`` into the
     engine's cache, in place."""
     c = engine._cache
+    # saralint: ok[cow-gate] dense slot caches, not arena pages: nothing is shared
     _copy(c["pos"], flat, "cache/pos")
     for key, t in _dense_leaves(c).items():
         if key not in flat:
@@ -260,6 +261,7 @@ def restore_engine(engine, directory: str,
             np.asarray(flat["rng_state"], np.uint8).copy()))
     if engine.kv_layout == "paged":
         for name, leaf in engine.arena.leaves.items():
+            # saralint: ok[cow-gate] restore fills a fresh engine (refused once a request was submitted) before any page has a reader
             _copy(leaf, flat, f"arena/{name}")
         for name, leaf in engine._state.items():
             _copy(leaf, flat, f"state/{name}")

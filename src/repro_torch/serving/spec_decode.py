@@ -242,6 +242,7 @@ class SpecDecoder:
                     for s in range(S)]
             tables = self.pool.dense_block_table(rids, self._max_blocks)
             with torch.no_grad():
+                # saralint: ok[cow-gate] draft arena pages are private per request (never shared, pinned, or reachable from the prefix cache)
                 self._draft_prefill(
                     self.params, self._tensor(toks), self.arena.leaves,
                     self._tensor(tables), self._tensor(kv),
@@ -264,6 +265,7 @@ class SpecDecoder:
         rids = [jobs[s][0].rid if s in jobs else None for s in range(S)]
         tables = self.pool.dense_block_table(rids, self._max_blocks)
         with torch.no_grad():
+            # saralint: ok[cow-gate] draft arena pages are private per request (never shared, pinned, or reachable from the prefix cache)
             toks = self._draft_loop(
                 self.params, self._tensor(first), self.arena.leaves,
                 self._tensor(tables), self._tensor(kv),
@@ -282,6 +284,7 @@ class SpecDecoder:
         feed, pos, rounds = first, kv, []
         for i in range(self.spec_k):
             wm = (nwrites > i).to(torch.int32)
+            # saralint: ok[cow-gate] draft arena pages are private per request (never shared, pinned, or reachable from the prefix cache)
             logits, _ = self.model.paged_decode_step(
                 params, feed, leaves, tables, pos, wm)
             nxt = torch.argmax(logits, -1).to(torch.int32)

@@ -9,7 +9,7 @@ of magnitude ~1 (the Pallas kernels, run in interpret mode, take an online
 softmax, the oracles one masked softmax: summation order only); exact
 where both sides compute the same masked softmax over the same table
 (``shared_paged_attention_plain`` against the reference's oracle and
-against ``paged_attention_plain``, at equal table width only: the
+against ``paged_decode_plain``, at equal table width only: the
 reference itself differs by ~1e-7 when the widths differ); 1e-4 on logits
 and 1e-5 on arena rows for the model step, as ``test_torch_model.py``;
 identical greedy tokens and cache counters for the engines.
@@ -39,10 +39,10 @@ from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attn import (NEG, _attn_plan,
                                             merge_softmax_states,
-                                            paged_attention_lse_plain,
-                                            paged_attention_plain,
+                                            paged_decode_lse_plain,
+                                            paged_decode_plain,
                                             shared_paged_attention_plain,
-                                            shared_prefix_attention_plain)
+                                            paged_prefix_plain)
 from repro_torch.models import serving
 from repro_torch.models.api import build_model as tbuild
 from repro_torch.serving import (EngineConfig, KVBlockPool, PoolError,
@@ -117,7 +117,7 @@ def test_decode_lse_plain_matches_pallas_and_ref(cap, KVH, G):
     x = _cascade_inputs(rng, KVH, G)
     S, hd = x["q"].shape[0], x["q"].shape[-1]
     scale = 1.0 / hd ** 0.5
-    ours = paged_attention_lse_plain(
+    ours = paged_decode_lse_plain(
         _t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["utables"]),
         _t(x["unique_lens"]), scale=scale, logit_cap=cap)
     args = [jnp.asarray(a) for a in (x["q"], x["k"], x["v"], x["utables"],
@@ -144,7 +144,7 @@ def test_prefix_plain_matches_pallas_and_ref(cap, KVH, G):
     x = _cascade_inputs(rng, KVH, G)
     S, hd = x["q"].shape[0], x["q"].shape[-1]
     scale = 1.0 / hd ** 0.5
-    ours = shared_prefix_attention_plain(
+    ours = paged_prefix_plain(
         _t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["prefix_pages"]),
         _t(x["prefix_lens"]), scale=scale, logit_cap=cap)
     args = [jnp.asarray(a) for a in (x["q"], x["k"], x["v"],
@@ -180,9 +180,9 @@ def test_combined_plain_is_bitwise_the_plain_decode(cap):
         _t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["utables"]),
         _t(x["unique_lens"]), _t(x["prefix_pages"]), _t(x["prefix_lens"]),
         scale=scale, logit_cap=cap).numpy()
-    plain = paged_attention_plain(_t(x["q"]), _t(x["k"]), _t(x["v"]),
-                                  _t(full), _t(lens), scale=scale,
-                                  logit_cap=cap).numpy()
+    plain = paged_decode_plain(_t(x["q"]), _t(x["k"]), _t(x["v"]),
+                               _t(full), _t(lens), scale=scale,
+                               logit_cap=cap).numpy()
     oracle = np.asarray(jref.shared_paged_attention_ref(
         *[jnp.asarray(a) for a in (x["q"], x["k"], x["v"], x["utables"],
                                    x["unique_lens"], x["prefix_pages"],
@@ -212,12 +212,12 @@ def test_two_phase_merge_matches_combined(cap, KVH, G):
     hd = x["q"].shape[-1]
     scale = 1.0 / hd ** 0.5
     a = [_t(x[n]) for n in ("q", "k", "v")]
-    pre = shared_prefix_attention_plain(*a, _t(x["prefix_pages"]),
-                                        _t(x["prefix_lens"]), scale=scale,
-                                        logit_cap=cap)
-    uni = paged_attention_lse_plain(*a, _t(x["utables"]),
-                                    _t(x["unique_lens"]), scale=scale,
-                                    logit_cap=cap)
+    pre = paged_prefix_plain(*a, _t(x["prefix_pages"]),
+                             _t(x["prefix_lens"]), scale=scale,
+                             logit_cap=cap)
+    uni = paged_decode_lse_plain(*a, _t(x["utables"]),
+                                 _t(x["unique_lens"]), scale=scale,
+                                 logit_cap=cap)
     merged, _, _ = merge_softmax_states(*pre, *uni)
     combined = shared_paged_attention_plain(
         *a, _t(x["utables"]), _t(x["unique_lens"]), _t(x["prefix_pages"]),
@@ -254,7 +254,7 @@ def test_merge_with_an_empty_side_is_the_identity():
 def _split_prefix(q, k, v, pages, plens, plan, scale, cap):
     """The plain twin of the prefix kernel's split-and-merge: split j
     attends the prefix columns [j * pages, (j + 1) * pages) through
-    ``shared_prefix_attention_plain`` (lanes whose prefix ends before them
+    ``paged_prefix_plain`` (lanes whose prefix ends before them
     get the empty state), and ``merge_softmax_states`` folds the splits in
     ascending order from the empty state.  Returns (o, m, l)."""
     S, H = q.shape[0], q.shape[1]
@@ -267,7 +267,7 @@ def _split_prefix(q, k, v, pages, plens, plan, scale, cap):
         if c1 <= c0:
             continue
         lens = torch.clamp(plens - c0 * bs, 0, (c1 - c0) * bs)
-        part = shared_prefix_attention_plain(
+        part = paged_prefix_plain(
             q, k, v, pages[c0:c1].contiguous(), lens, scale=scale,
             logit_cap=cap)
         o, m, l = merge_softmax_states(o, m, l, *part)
@@ -308,8 +308,8 @@ def test_split_prefix_twin_matches_plain_ref_and_pallas(splits, hd, cap):
     tq, tk, tv, tp, tl = (_t(x) for x in (q, k, v, pages, plens))
     o, m, l = _split_prefix(tq, tk, tv, tp, tl, plan, scale, cap)
     args = [jnp.asarray(x) for x in (q, k, v, pages, plens)]
-    wants = [shared_prefix_attention_plain(tq, tk, tv, tp, tl, scale=scale,
-                                           logit_cap=cap),
+    wants = [paged_prefix_plain(tq, tk, tv, tp, tl, scale=scale,
+                                logit_cap=cap),
              jref.shared_prefix_attention_ref(*args, scale=scale,
                                               logit_cap=cap),
              paged_gqa_prefix_pallas(args[0].reshape(S, KVH, G, hd),

@@ -15,6 +15,10 @@ import torch
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PKG = SRC / "repro_torch"
+# the port's files outside its package: the example drivers and the CPU
+# gate's trace check
+EXTRA = sorted((SRC.parent / "examples" / "torch").glob("*.py")) + \
+    [SRC.parent / "scripts" / "check_trace_torch.py"]
 
 
 def _modules():
@@ -60,7 +64,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_no_source_imports_repro_or_jax():
-    for p in PKG.rglob("*.py"):
+    assert len(EXTRA) == 5 and all(p.exists() for p in EXTRA)
+    for p in list(PKG.rglob("*.py")) + EXTRA:
         tree = ast.parse(p.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -72,6 +77,27 @@ def test_no_source_imports_repro_or_jax():
             for n in names:
                 root = n.split(".")[0]
                 assert root not in ("repro", "jax"), (p, n)
+
+
+def test_examples_and_gate_script_import_without_jax_or_repro(tmp_path):
+    """Each example driver loads (its imports run, ``main`` does not) and
+    the trace check runs its import path without loading JAX or the
+    ``repro`` package."""
+    code = ("import importlib.util, sys\n"
+            f"paths = {[str(p) for p in EXTRA]!r}\n"
+            "for i, p in enumerate(paths):\n"
+            "    spec = importlib.util.spec_from_file_location(f'm{i}', p)\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            f"assert mod.main([{str(tmp_path / 'none.json')!r}]) == 1\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or "
+            "k.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -43,14 +43,14 @@ import torch
 from repro_torch import dispatch
 from repro_torch.core.hw import IS, OS, WS
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attn import (NEG, paged_attention_lse_plain,
-                                            paged_attention_plain,
+from repro_torch.kernels.paged_attn import (NEG, paged_decode_lse_plain,
+                                            paged_decode_plain,
                                             paged_decode_cuda,
                                             paged_decode_lse_cuda,
-                                            paged_prefill_attention_plain,
+                                            paged_prefill_plain,
                                             paged_prefill_cuda,
                                             paged_prefix_cuda,
-                                            shared_prefix_attention_plain)
+                                            paged_prefix_plain)
 from repro_torch.kernels.rsa_gemm import rsa_gemm_plain
 
 pytestmark = pytest.mark.cuda
@@ -107,13 +107,13 @@ def test_paged_kernels_match_plain(cuda, dtype, tol):
     scale = hd ** -0.5
     with dispatch.use(execute="kernel"):
         got = ops.paged_prefill_attention(q, k, v, tables, starts, lengths)
-    want = paged_prefill_attention_plain(q, k, v, tables, starts, lengths,
-                                         scale=scale)
+    want = paged_prefill_plain(q, k, v, tables, starts, lengths,
+                               scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
     with dispatch.use(execute="kernel"):
         got = ops.paged_attention(q[:, 0], k, v, tables, lengths)
-    want = paged_attention_plain(q[:, 0], k, v, tables, lengths,
-                                 scale=scale)
+    want = paged_decode_plain(q[:, 0], k, v, tables, lengths,
+                              scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert got[3].abs().max().item() == 0.0      # the length-0 lane
 
@@ -170,17 +170,17 @@ def test_cascade_kernels_match_plain(cuda, dtype, tol, cap):
     a = (x["q"], x["k"], x["v"])
     got = paged_prefix_cuda(*a, x["prefix_pages"], x["prefix_lens"],
                             scale=scale, logit_cap=cap)
-    want = shared_prefix_attention_plain(*a, x["prefix_pages"],
-                                         x["prefix_lens"], scale=scale,
-                                         logit_cap=cap)
+    want = paged_prefix_plain(*a, x["prefix_pages"],
+                              x["prefix_lens"], scale=scale,
+                              logit_cap=cap)
     _states_close(got, want, tol)
     # the lane outside the group: exactly the empty state
     assert (got[0][6] == 0).all() and (got[1][6] == NEG).all() and \
         (got[2][6] == 0).all()
     got = paged_decode_lse_cuda(*a, x["utables"], x["ulens"], scale=scale,
                                 logit_cap=cap)
-    want = paged_attention_lse_plain(*a, x["utables"], x["ulens"],
-                                     scale=scale, logit_cap=cap)
+    want = paged_decode_lse_plain(*a, x["utables"], x["ulens"],
+                                  scale=scale, logit_cap=cap)
     _states_close(got, want, tol)
     # the lane of unique length 0: exactly the empty state
     assert (got[0][0] == 0).all() and (got[1][0] == NEG).all() and \
@@ -260,7 +260,7 @@ def test_mla_kernels_match_plain(cuda, dtype, tol, H, r, rd, bs):
     heads (a 64-row CTA spanning chunk rows, or heads of one), at pages
     of 4 (the CPU tests'), 16 (the paths') and 64."""
     from repro_torch.kernels.paged_mla import (
-        paged_mla_attention_plain, paged_mla_prefill_attention_plain)
+        paged_mla_decode_plain, paged_mla_prefill_plain)
     qk = 192
     scale = 1.0 / math.sqrt(qk)
     lengths = [0, 1, 16, 17, 70]
@@ -271,8 +271,8 @@ def test_mla_kernels_match_plain(cuda, dtype, tol, H, r, rd, bs):
     with dispatch.use(execute="kernel"):
         got = ops.mla_paged_attention(qa, qr, ckv, kr, tables, lens,
                                       qk_dim=qk)
-    want = paged_mla_attention_plain(qa, qr, ckv, kr, tables, lens,
-                                     scale=scale)
+    want = paged_mla_decode_plain(qa, qr, ckv, kr, tables, lens,
+                                  scale=scale)
     assert (got[0] == 0).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
 
@@ -287,8 +287,8 @@ def test_mla_kernels_match_plain(cuda, dtype, tol, H, r, rd, bs):
     with dispatch.use(execute="kernel"):
         got = ops.mla_paged_prefill_attention(qa, qr, ckv, kr, tables, st,
                                               lens, qk_dim=qk)
-    want = paged_mla_prefill_attention_plain(qa, qr, ckv, kr, tables, st,
-                                             lens, scale=scale)
+    want = paged_mla_prefill_plain(qa, qr, ckv, kr, tables, st,
+                                   lens, scale=scale)
     live = torch.arange(C, device="cuda")[None, :] < \
         torch.tensor(chunks, device="cuda")[:, None]
     assert (got[3] == 0).all()
@@ -307,7 +307,7 @@ def test_mla_prefill_chunks_off_page_boundaries(cuda, dtype, tol, H, r, rd):
     is compared, those past a lane's length too (they attend to every live
     column, as the reference's); the empty lane is exactly zero."""
     from repro_torch.kernels.paged_mla import (
-        paged_mla_prefill_attention_plain, paged_mla_prefill_cuda)
+        paged_mla_prefill_plain, paged_mla_prefill_cuda)
     starts, chunks, C = PREFILL_STARTS, PREFILL_CHUNKS, 64
     ckv, kr, tables, lens = _mla_inputs(
         cuda, dtype, [s + c for s, c in zip(starts, chunks)], H, r, rd, 16)
@@ -317,8 +317,8 @@ def test_mla_prefill_chunks_off_page_boundaries(cuda, dtype, tol, H, r, rd):
     qr = torch.randn((S, C, H, rd), generator=cuda, device="cuda").to(dtype)
     got = paged_mla_prefill_cuda(qa, qr, ckv, kr, tables, st, lens,
                                  scale=0.07)
-    want = paged_mla_prefill_attention_plain(qa, qr, ckv, kr, tables, st,
-                                             lens, scale=0.07)
+    want = paged_mla_prefill_plain(qa, qr, ckv, kr, tables, st,
+                                   lens, scale=0.07)
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert torch.equal(got, paged_mla_prefill_cuda(qa, qr, ckv, kr, tables,
                                                    st, lens, scale=0.07))
@@ -335,7 +335,7 @@ def test_mla_split_decode_any_split_count_is_right_and_bitwise(
     merge is ordered), one launch a call, the tickets left zero and the
     empty lane exactly zero."""
     from repro_torch.kernels.paged_mla import (_TICKETS, _mla_plan,
-                                               paged_mla_attention_plain,
+                                               paged_mla_decode_plain,
                                                paged_mla_decode_cuda)
     H, r, rd, bs = 128, 512, 64, 16
     lengths = [3, 1, 16, 17, 545, 2000, 0, 4096]
@@ -355,7 +355,7 @@ def test_mla_split_decode_any_split_count_is_right_and_bitwise(
     assert ops.launch_counts()["paged_mla_decode"] == n0 + 2
     assert torch.equal(got, again)
     assert (got[6] == 0).all()
-    want = paged_mla_attention_plain(*a, scale=0.07)
+    want = paged_mla_decode_plain(*a, scale=0.07)
     assert (got.float() - want.float()).abs().max().item() <= tol
     if splits > 1:
         assert not _TICKETS[qa.device].any()
@@ -1702,11 +1702,11 @@ DECODE_LENGTHS = {
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 4e-2)])
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("S", [1, 8, 64])
 def test_split_decode_kernels_match_plain(cuda, S, G, hd, dtype, tol, cap):
     """Decode and decode-lse at S in {1, 8, 64} (split and unsplit plans),
-    G in {1, 4, 8}, hd = hd_v in {64, 128, 256}, lengths 0 ... 8192 with
+    G in {1, 2, 4, 8}, hd = hd_v in {64, 128, 256}, lengths 0 ... 8192 with
     the soft cap on and off, against the plain versions: o within today's
     tolerances, (m, l) within 1e-4 relative, the empty lane exactly (0,
     -1e30, 0); one launch a call."""
@@ -1722,10 +1722,10 @@ def test_split_decode_kernels_match_plain(cuda, S, G, hd, dtype, tol, cap):
     n1 = ops.launch_counts()
     assert (n1["paged_decode"] - n0["paged_decode"],
             n1["paged_decode_lse"] - n0["paged_decode_lse"]) == (1, 1)
-    want = paged_attention_plain(q, k, v, tables, lens, scale=scale,
-                                 logit_cap=cap)
+    want = paged_decode_plain(q, k, v, tables, lens, scale=scale,
+                              logit_cap=cap)
     assert (got.float() - want.float()).abs().max().item() <= tol
-    _states_close(lse, paged_attention_lse_plain(
+    _states_close(lse, paged_decode_lse_plain(
         q, k, v, tables, lens, scale=scale, logit_cap=cap), tol)
     assert torch.equal(lse[0], got)
     for i, n in enumerate(lengths):
@@ -1753,7 +1753,7 @@ def test_split_decode_any_split_count_is_right_and_bitwise(cuda, splits):
     again = paged_decode_lse_cuda(*a, scale=0.125, plan=plan)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
-    _states_close(got, paged_attention_lse_plain(*a, scale=0.125), 4e-2)
+    _states_close(got, paged_decode_lse_plain(*a, scale=0.125), 4e-2)
     from repro_torch.kernels.paged_attn import _TICKETS
     assert not _TICKETS[q.device].any()
 
@@ -1796,21 +1796,21 @@ def _prefill_inputs(gen, KVH, G, hd, dtype, starts=PREFILL_STARTS,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 4e-2)])
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
 def test_prefill_kernel_matches_plain(cuda, G, hd, dtype, tol, cap):
-    """Prefill at hd = hd_v in {64, 128, 256}, G in {1, 4, 8}, chunks 0, 1,
-    10, 37 and 64 at starts off the page boundaries, every row of the
+    """Prefill at hd = hd_v in {64, 128, 256}, G in {1, 2, 4, 8}, chunks 0,
+    1, 10, 37 and 64 at starts off the page boundaries, every row of the
     64-row chunk (rows past a lane's chunk too), against the plain version;
     one launch a call; the lane of length 0 is zeros; the plan splits the
-    20 page columns 3 ways (10, 40 and 80 units)."""
+    20 page columns 3 ways (10, 20, 40 and 80 units)."""
     q, k, v, tables, st, lens = _prefill_inputs(cuda, 2, G, hd, dtype)
     scale = hd ** -0.5
     n0 = ops.launch_counts()["paged_prefill"]
     got = paged_prefill_cuda(q, k, v, tables, st, lens, scale=scale,
                              logit_cap=cap)
     assert ops.launch_counts()["paged_prefill"] == n0 + 1
-    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
-                                         scale=scale, logit_cap=cap)
+    want = paged_prefill_plain(q, k, v, tables, st, lens,
+                               scale=scale, logit_cap=cap)
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert (got[0] == 0).all()
 
@@ -1853,7 +1853,7 @@ def test_prefix_kernel_matches_plain(cuda, G, hd, dtype, tol, cap):
     got = paged_prefix_cuda(q, k, v, pages, plens, scale=scale,
                             logit_cap=cap)
     assert ops.launch_counts()["paged_prefix"] == n0 + 1
-    _states_close(got, shared_prefix_attention_plain(
+    _states_close(got, paged_prefix_plain(
         q, k, v, pages, plens, scale=scale, logit_cap=cap), tol)
     assert (got[0][3] == 0).all() and (got[1][3] == NEG).all() and \
         (got[2][3] == 0).all()
@@ -1884,8 +1884,8 @@ def test_prefill_kernel_at_verify_shapes(cuda, C, G, hd, dtype, tol):
     torch.cuda.synchronize()
     assert ops.launch_counts()["paged_prefill"] == n0 + 2
     assert torch.equal(got, again)
-    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
-                                         scale=scale)
+    want = paged_prefill_plain(q, k, v, tables, st, lens,
+                               scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert (got[0] == 0).all()
 
@@ -1956,7 +1956,7 @@ def test_prefill_and_prefix_any_split_count_are_right_and_bitwise(
     torch.cuda.synchronize()
     assert ops.launch_counts()["paged_prefill"] == n0 + 2
     assert torch.equal(got, again)
-    want = paged_prefill_attention_plain(*a, scale=0.125)
+    want = paged_prefill_plain(*a, scale=0.125)
     assert (got.float() - want.float()).abs().max().item() <= tol
 
     q, k, v, pages, plens = _prefix_inputs(cuda, 2, 4, 64, dtype, P=45)
@@ -1967,7 +1967,7 @@ def test_prefill_and_prefix_any_split_count_are_right_and_bitwise(
     again = paged_prefix_cuda(*a, scale=0.125, plan=plan)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
-    _states_close(got, shared_prefix_attention_plain(*a, scale=0.125), tol)
+    _states_close(got, paged_prefix_plain(*a, scale=0.125), tol)
     assert (got[1][3] == NEG).all() and (got[2][3] == 0).all()
     assert not _TICKETS[q.device].any()
 
@@ -1992,14 +1992,14 @@ def test_prefill_and_prefix_on_unaligned_arenas(cuda, hd, dtype, tol):
     q, k, v = _unaligned(q), _unaligned(k), _unaligned(v)
     scale = hd ** -0.5
     got = paged_prefill_cuda(q, k, v, tables, st, lens, scale=scale)
-    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
-                                         scale=scale)
+    want = paged_prefill_plain(q, k, v, tables, st, lens,
+                               scale=scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
     q, k, v, pages, plens = _prefix_inputs(cuda, 2, 4, hd, dtype)
     k, v = _unaligned(k), _unaligned(v)
     _states_close(paged_prefix_cuda(q, k, v, pages, plens, scale=scale),
-                  shared_prefix_attention_plain(q, k, v, pages, plens,
-                                                scale=scale), tol)
+                  paged_prefix_plain(q, k, v, pages, plens,
+                                     scale=scale), tol)
 
 
 def test_prefill_and_prefix_take_unequal_hd_and_hd_v(cuda):
@@ -2010,7 +2010,7 @@ def test_prefill_and_prefix_take_unequal_hd_and_hd_v(cuda):
                                                torch.bfloat16, hd_v=hd_v)
         got = paged_prefix_cuda(q, k, v, pages, plens, scale=0.1)
         assert got[0].shape == (8, 8, hd_v)
-        _states_close(got, shared_prefix_attention_plain(
+        _states_close(got, paged_prefix_plain(
             q, k, v, pages, plens, scale=0.1), 4e-2)
         lengths = [s + c for s, c in zip(PREFILL_STARTS, PREFILL_CHUNKS)]
         tables = torch.zeros((5, 3), dtype=torch.int32, device="cuda")
@@ -2022,8 +2022,8 @@ def test_prefill_and_prefix_take_unequal_hd_and_hd_v(cuda):
         qp = torch.randn((5, 16, 8, hd), generator=cuda, device="cuda") \
             .to(torch.bfloat16)
         got = paged_prefill_cuda(qp, k, v, tables, st, lens, scale=0.1)
-        want = paged_prefill_attention_plain(qp, k, v, tables, st, lens,
-                                             scale=0.1)
+        want = paged_prefill_plain(qp, k, v, tables, st, lens,
+                                   scale=0.1)
         assert (got.float() - want.float()).abs().max().item() <= 4e-2
 
 
@@ -2220,7 +2220,7 @@ def test_paged_kernels_at_arch_serving_widths(cuda, arch, dtype, tol):
     scale = 1.0 / math.sqrt(hd)
     got = ops.paged_attention(q, k, v, tables, lens)
     again = ops.paged_attention(q, k, v, tables, lens)
-    want = paged_attention_plain(q, k, v, tables, lens, scale=scale)
+    want = paged_decode_plain(q, k, v, tables, lens, scale=scale)
     assert (got.float() - want.float()).abs().max().item() < tol
     assert torch.equal(got, again)
     q, k, v, tables, st, lens = _prefill_inputs(
@@ -2228,8 +2228,8 @@ def test_paged_kernels_at_arch_serving_widths(cuda, arch, dtype, tol):
         chunks=[64, 40, 1, 64, 17])
     got = ops.paged_prefill_attention(q, k, v, tables, st, lens)
     again = ops.paged_prefill_attention(q, k, v, tables, st, lens)
-    want = paged_prefill_attention_plain(q, k, v, tables, st, lens,
-                                         scale=scale)
+    want = paged_prefill_plain(q, k, v, tables, st, lens,
+                               scale=scale)
     live = torch.arange(64, device="cuda")[None] < (lens - st)[:, None]
     diff = (got.float() - want.float()).abs()[live]
     assert diff.max().item() < tol

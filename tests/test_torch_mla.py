@@ -42,8 +42,8 @@ from repro_torch.kernels.paged_attn import (NEG, _attention_lse,
                                             merge_softmax_states,
                                             paged_gather)
 from repro_torch.kernels.paged_mla import (_MERGE_CAP, _mla_plan,
-                                           paged_mla_attention_plain,
-                                           paged_mla_prefill_attention_plain)
+                                           paged_mla_decode_plain,
+                                           paged_mla_prefill_plain)
 from repro_torch.models import attention as tattn
 from repro_torch.models.api import build_model as tbuild
 
@@ -91,9 +91,9 @@ def test_decode_plain_matches_pallas_and_ref(H, r, rd, qk_dim):
     qa = rng.standard_normal((S, H, r)).astype(np.float32)
     qr = rng.standard_normal((S, H, rd)).astype(np.float32)
     scale = 1.0 / qk_dim ** 0.5
-    ours = paged_mla_attention_plain(_t(qa), _t(qr), _t(ckv), _t(krope),
-                                     _t(tables), _t(lengths),
-                                     scale=scale).numpy()
+    ours = paged_mla_decode_plain(_t(qa), _t(qr), _t(ckv), _t(krope),
+                                  _t(tables), _t(lengths),
+                                  scale=scale).numpy()
     args = [jnp.asarray(a) for a in (qa, qr, ckv, krope, tables, lengths)]
     pallas = np.asarray(paged_mla_decode_pallas(*args, scale, True))
     oracle = np.asarray(jref.paged_mla_attention_ref(*args, scale=scale))
@@ -124,7 +124,7 @@ def test_prefill_plain_matches_pallas_and_ref(H, r, rd, qk_dim):
     qa = rng.standard_normal((S, C, H, r)).astype(np.float32)
     qr = rng.standard_normal((S, C, H, rd)).astype(np.float32)
     scale = 1.0 / qk_dim ** 0.5
-    ours = paged_mla_prefill_attention_plain(
+    ours = paged_mla_prefill_plain(
         _t(qa), _t(qr), _t(ckv), _t(krope), _t(tables), _t(starts),
         _t(lengths), scale=scale).numpy()
     args = [jnp.asarray(a) for a in (qa, qr, ckv, krope, tables, starts,
@@ -209,7 +209,7 @@ def test_split_mla_decode_twin_matches_plain_pallas_and_ref(splits, H, r,
         assert plan.splits == splits
     t = [_t(x) for x in (qa, qr, ckv, krope, tables, SPLIT_LENGTHS)]
     o, m, l = _split_mla_decode(*t, plan, scale)
-    plain = paged_mla_attention_plain(*t, scale=scale)
+    plain = paged_mla_decode_plain(*t, scale=scale)
     assert (o - plain).abs().max().item() <= TOL
     args = [jnp.asarray(a) for a in (qa, qr, ckv, krope, tables,
                                      SPLIT_LENGTHS)]

@@ -21,10 +21,10 @@ from repro.kernels.paged_attn import paged_gqa_decode_lse_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attn import (NEG, _attn_plan, _decode_plan,
                                             merge_softmax_states,
-                                            paged_attention_lse_plain,
-                                            paged_attention_plain,
+                                            paged_decode_lse_plain,
+                                            paged_decode_plain,
                                             paged_gather,
-                                            paged_prefill_attention_plain)
+                                            paged_prefill_plain)
 
 BS = 4
 TOL = 2e-5
@@ -79,9 +79,9 @@ def test_decode_plain_matches_pallas_and_ref(cap, KVH, G):
     k, v = _arena(rng, used + 2, KVH, hd)
     q = rng.standard_normal((len(lengths), KVH * G, hd)).astype(np.float32)
     scale = 1.0 / hd ** 0.5
-    ours = paged_attention_plain(_t(q), _t(k), _t(v), _t(tables),
-                                 _t(lengths), scale=scale,
-                                 logit_cap=cap).numpy()
+    ours = paged_decode_plain(_t(q), _t(k), _t(v), _t(tables),
+                              _t(lengths), scale=scale,
+                              logit_cap=cap).numpy()
     args = [jnp.asarray(x) for x in (q, k, v, tables, lengths)]
     pallas = np.asarray(jops.paged_attention(*args, logit_cap=cap,
                                              impl="pallas", interpret=True))
@@ -110,7 +110,7 @@ def test_prefill_plain_matches_pallas_and_ref(cap, KVH, G):
     k, v = _arena(rng, used + 2, KVH, hd)
     q = rng.standard_normal((len(starts), C, KVH * G, hd)).astype(np.float32)
     scale = 1.0 / hd ** 0.5
-    ours = paged_prefill_attention_plain(
+    ours = paged_prefill_plain(
         _t(q), _t(k), _t(v), _t(tables), _t(starts), _t(lengths),
         scale=scale, logit_cap=cap).numpy()
     args = [jnp.asarray(x) for x in (q, k, v, tables, starts, lengths)]
@@ -140,9 +140,9 @@ def test_decode_is_the_one_row_prefill():
     tables, used = _tables(lengths, BS, width=3)
     k, v = _arena(rng, used + 1, 2, 8)
     q = rng.standard_normal((4, 4, 8)).astype(np.float32)
-    dec = paged_attention_plain(_t(q), _t(k), _t(v), _t(tables),
-                                _t(lengths), scale=0.3)
-    pre = paged_prefill_attention_plain(
+    dec = paged_decode_plain(_t(q), _t(k), _t(v), _t(tables),
+                             _t(lengths), scale=0.3)
+    pre = paged_prefill_plain(
         _t(q[:, None]), _t(k), _t(v), _t(tables),
         _t(np.maximum(lengths - 1, 0)), _t(lengths), scale=0.3)
     assert torch.allclose(dec, pre[:, 0], atol=1e-6)
@@ -156,7 +156,7 @@ def test_decode_is_the_one_row_prefill():
 def _split_decode(q, k, v, tables, lengths, plan, scale, cap):
     """The plain twin of the kernel's split-and-merge: split j attends the
     page columns [j * pages, (j + 1) * pages) through
-    ``paged_attention_lse_plain`` (a lane whose length ends before them
+    ``paged_decode_lse_plain`` (a lane whose length ends before them
     gets the empty state), and ``merge_softmax_states`` folds the splits in
     ascending order from the empty state.  Returns (o, m, l)."""
     S, W = tables.shape
@@ -170,7 +170,7 @@ def _split_decode(q, k, v, tables, lengths, plan, scale, cap):
         if c1 <= c0:
             continue
         lens = torch.clamp(lengths - c0 * bs, 0, (c1 - c0) * bs)
-        part = paged_attention_lse_plain(
+        part = paged_decode_lse_plain(
             q, k, v, tables[:, c0:c1].contiguous(), lens, scale=scale,
             logit_cap=cap)
         o, m, l = merge_softmax_states(o, m, l, *part)
@@ -204,10 +204,10 @@ def test_split_decode_twin_matches_plain_and_pallas(splits, cap, KVH, G):
         assert plan.splits == 4 and plan.pages == 32
     tq, tk, tv, tt, tl = (_t(x) for x in (q, k, v, tables, SPLIT_LENGTHS))
     o, m, l = _split_decode(tq, tk, tv, tt, tl, plan, scale, cap)
-    plain = paged_attention_plain(tq, tk, tv, tt, tl, scale=scale,
-                                  logit_cap=cap)
-    lo, lm, ll = paged_attention_lse_plain(tq, tk, tv, tt, tl, scale=scale,
-                                           logit_cap=cap)
+    plain = paged_decode_plain(tq, tk, tv, tt, tl, scale=scale,
+                               logit_cap=cap)
+    lo, lm, ll = paged_decode_lse_plain(tq, tk, tv, tt, tl, scale=scale,
+                                        logit_cap=cap)
     assert (o - plain).abs().max().item() <= TOL
     assert (o - lo).abs().max().item() <= TOL
     assert (m - lm).abs().max().item() <= 1e-5
@@ -367,7 +367,7 @@ def test_prefill_plain_matches_pallas_at_wide_heads(hd):
     q = rng.standard_normal((4, C, KVH * G, hd)).astype(np.float32)
     scale = 1.0 / hd ** 0.5
     for cap in (0.0, 5.0):
-        ours = paged_prefill_attention_plain(
+        ours = paged_prefill_plain(
             _t(q), _t(k), _t(v), _t(tables), _t(starts), _t(lengths),
             scale=scale, logit_cap=cap).numpy()
         args = [jnp.asarray(x) for x in (q, k, v, tables, starts, lengths)]
