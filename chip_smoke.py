@@ -274,6 +274,37 @@ Phases (any failure exits non-zero):
    once).  Gates: (b)-(d) each launch the RSA
    GEMM kernel, (c) the paged decode and prefill kernels, no plain
    version runs; the phase fails past its 60 s budget.
+18. the distribution layer (``parallel/``, ``launch/mesh.py``): the
+   sharded FSDP / ZeRO-3 train step of llama3.2-1b at full width (16
+   layers, d 2048, vocab 128256), f32, ``tp_strategy="dp_all"``, phase
+   7's batch (2 x 1024), 5 steps (18d: the first) from one seeded init
+   on one seeded batch a step.  (a) The unsharded step, (b) the sharded
+   step on a (1, 1) mesh over an NCCL group of one rank: its losses and
+   every parameter equal (a)'s bit for bit, its RSA GEMM and flash launch
+   counts equal (a)'s with no plain call; both step times (median of
+   steps 2-5) and the sharded path's overhead printed.  (c)
+   ``quantized_psum_tree`` over that group on a step's gradients: each
+   sum is the int8 round trip of the gradient (its codes, at the second
+   scale) and each residual the gradient less its first round trip,
+   exactly.  (d) Two ranks on the one card, a (2, 1) mesh over gloo with
+   CUDA tensors (NCCL refuses two ranks on one card;
+   ``scripts/probe_ranks.py``), each a row of the batch, one step: its
+   loss within 1e-5 and grad norm within 1e-4 of (a)'s step 1 (phase 7's
+   gates), and each leaf's weights after it within the larger of 1e-4 of
+   the leaf's largest magnitude and 2e-3 of its travel from the init
+   (``tests/test_torch_train_sharded.py``'s rule) at 99.5% of the leaf's
+   elements at least: AdamW's first update is about lr times the sign of
+   each gradient entry, so an entry whose terms cancel, which the two
+   ranks sum in another order, can move by up to 2 lr the other way (the
+   zero-centred norm weights hold most of them); a leaf reduced wrongly
+   moves the other way at a large share of its entries.  Each rank's
+   launches are (a)'s a step, no plain call.  (e) The entry point users
+   launch, ``torchrun --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --device cuda --optimized`` (3 steps of the
+   reduced llama3.2-1b; the mesh branch of ``train_main`` over an NCCL
+   group from torchrun's environment) against ``train_main`` on one
+   device: the same printed losses, the final checkpoints bit for bit,
+   every GEMM site on the kernel.  The phase fails past its 240 s budget.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -413,6 +444,21 @@ P16_BUDGET_S = 90.0
 # the simulated preemption at step 10 (its checkpoint interval)
 P17_TRAIN = ("--preset", "100m", "--steps", "20", "--inject-failure")
 P17_BUDGET_S = 60.0
+# phase 18: the sharded train step (phase 7's batch) on one rank over
+# NCCL and on two ranks of the one card over gloo (step 1 alone, the step
+# whose weights it gates); the train entry point under torchrun
+P18_STEPS, P18_LR = 5, 1e-3          # (a) and (b)
+P18_RANK_STEPS = 1                   # (d)
+# (d)'s floor on each leaf's share of elements within the rule: the
+# zero-centred norm weights hold the entries whose gradient terms cancel
+# (layers/ln2 at 99.84-99.93% on an H100 80GB HBM3 at 700 W)
+P18_LEAF_SHARE = 0.995
+P18_BUDGET_S = 240.0
+P18_RANK_DEADLINE_S = 200.0
+# (e): launch.train's flags (its default batch and length, 3 steps)
+P18_MAIN_ARGS = ("--optimized", "--steps", "3", "--batch", "8", "--seq",
+                 "128")
+P18_MAIN_DEADLINE_S = 180.0
 
 
 def log(*a):
@@ -6107,6 +6153,426 @@ def p17_all(torch, report):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the distribution layer
+# ---------------------------------------------------------------------------
+
+def p18_cfg():
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("llama3.2-1b", optimized=True, global_batch=TRAIN_B,
+                   devices=1)
+    return cfg.replace(param_dtype="float32", compute_dtype="float32",
+                       opt_state_dtype="float32", tp_strategy="dp_all")
+
+
+def p18_tokens(cfg, step):
+    """Phase 18's global batch of a step: the data pipeline's rows."""
+    from repro_torch.data.pipeline import DataConfig, _batch
+    return _batch(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0),
+                  step)["tokens"]
+
+
+def p18_steps(torch, step_fn, params, opt_state, cfg, rows, mesh=None,
+              after_first=None, steps=P18_STEPS):
+    """``steps`` steps on ``rows`` of each step's batch, calling
+    ``after_first(params)`` after step 1 (off the clock); (params, opt
+    state, losses, grad norms, step seconds, launch counts)."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.hints import use_mesh
+    losses, norms, secs = [], [], []
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    with dispatch.use(execute="kernel"), use_mesh(mesh):
+        for s in range(steps):
+            toks = torch.from_numpy(p18_tokens(cfg, s)[rows]).cuda()
+            t0 = time.time()
+            params, opt_state, m = step_fn(params, opt_state,
+                                           {"tokens": toks})
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if s == 0 and after_first is not None:
+                after_first(params)
+    return params, opt_state, losses, norms, secs, ops.launch_counts()
+
+
+def p18_compare(torch, params, specs, mesh, want_path):
+    """This rank's blocks against the unsharded step's weights after step
+    1 (saved by the parent at ``want_path``, read through a memory map):
+    each leaf's count of elements within the larger of 1e-4 of its
+    largest magnitude and 2e-3 of its travel from the init (the rule
+    tests/test_torch_train_sharded.py holds each leaf to), and its
+    largest difference."""
+    from repro_torch.parallel.sharding import _flat_with_path, shard_leaf
+    want = torch.load(want_path, mmap=True)
+    fs = dict(_flat_with_path(specs))
+    out = {}
+    for path, t in _flat_with_path(params):
+        w = shard_leaf(want["params"][path].to(t.device), fs[path], mesh)
+        diff = (t - w).abs()
+        tol = max(1e-4 * want["max"][path], 2e-3 * want["travel"][path])
+        out[path] = {"within": int((diff <= tol).sum()),
+                     "max_diff": float(diff.max()), "n": diff.numel()}
+        del w, diff
+    return out
+
+
+def p18_rank_main(rank: int, world: int, store: str, out: str,
+                  want_path: str) -> int:
+    """One rank of 18d: the sharded step on a (world, 1) mesh over gloo
+    with CUDA tensors on device 0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.parallel.sharding import local_batch_rows, shard_tree
+    t0 = time.time()
+    init_distributed("cuda", rank=rank, world_size=world, store_path=store,
+                     backend="gloo", timeout_s=120)
+    mesh = make_host_mesh(world, 1, "cuda")
+    cfg = p18_cfg()
+    model, step, opt, (ps, _) = build_train_step(
+        cfg, P18_LR, "cuda", mesh=mesh, global_batch=TRAIN_B)
+    params = shard_tree(model.init(0), ps, mesh)
+    opt_state = opt.init(params)
+    torch.cuda.empty_cache()
+    r0, n, over = local_batch_rows(TRAIN_B, cfg, mesh)
+    setup = time.time() - t0
+    first = {}
+    params, opt_state, losses, norms, secs, counts = p18_steps(
+        torch, step, params, opt_state, cfg, slice(r0, r0 + n), mesh,
+        lambda p: first.update(p18_compare(torch, p, ps, mesh, want_path)),
+        P18_RANK_STEPS)
+    rec = {"rank": rank, "rows": [r0, n], "over": list(over),
+           "losses": losses, "grad_norms": norms, "step_s": secs,
+           "counts": counts, "setup_s": setup, "leaves": first,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    Path(out).write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def p18_entry(rep, args):
+    """18e: the entry point users launch, ``torchrun --standalone
+    --nproc-per-node 1 -m repro_torch.launch.train --device cuda``
+    (``train_main``'s mesh branch: the NCCL group from torchrun's
+    environment and its ``LOCAL_RANK`` device, the loader's rows, the
+    driver's failure all-reduce, ``save_sharded``'s gather), against
+    ``train_main`` on one device in this process: the printed losses
+    equal, the final checkpoints (parameters and AdamW state) bit for
+    bit, every GEMM site on the kernel."""
+    import re
+    import signal
+
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train_main
+    args = list(args)
+    steps = int(args[args.index("--steps") + 1])
+    batch = int(args[args.index("--batch") + 1])
+    seq = int(args[args.index("--seq") + 1])
+    log(f"  18e the entry point: torchrun --standalone --nproc-per-node 1 -m "
+        f"repro_torch.launch.train --device cuda {' '.join(args)}, against "
+        f"train_main on one device")
+    one = ROOT / "build" / "p18e_one"
+    ran = ROOT / "build" / "p18e_torchrun"
+    for d in (one, ran):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+         "--device", "cuda", *args, "--ckpt", str(ran)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        text = proc.communicate(timeout=P18_MAIN_DEADLINE_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text = proc.communicate()[0] + "\n(killed at the deadline)"
+    wall = time.time() - t0
+    # this process: no process group, no torchrun environment
+    cfg = get_arch("llama3.2-1b", optimized=True, global_batch=batch,
+                   devices=1)
+    _, history, _ = train_main(
+        override_cfg=cfg, steps=steps, global_batch=batch, seq_len=seq,
+        checkpoint_dir=str(one), log_every=10, device="cuda")
+    printed = re.findall(r"step +(\d+) loss (\S+)", text)
+    want = [(str(h["step"]), f"{h['loss']:.4f}")
+            for h in history[::10] + history[-1:]]
+    mesh_line = "{'data': 1, 'model': 1} ranks of cuda" in text
+    sites = re.search(r"dispatch: (\d+) GEMM sites executed \((.*)\)", text)
+    on_kernel = bool(sites) and sites.group(2) == \
+        f"{{'kernel': {sites.group(1)}}}"
+    same = False
+    if proc.returncode == 0:
+        sa, fa, _ = load_checkpoint(ran)
+        sb, fb, _ = load_checkpoint(one)
+        same = sa == sb == steps and sorted(fa) == sorted(fb) and all(
+            np.array_equal(fa[k], fb[k]) for k in fb)
+    good = (proc.returncode == 0 and mesh_line and on_kernel
+            and printed == want and same)
+    rep["entry_point"] = {"returncode": proc.returncode, "wall_s": wall,
+                          "printed_losses": printed, "one_device": want,
+                          "mesh": mesh_line, "on_kernel": on_kernel,
+                          "checkpoints_equal": same, "ok": good}
+    log(f"    {wall:.1f} s with torchrun's start; exit {proc.returncode}; "
+        f"over a (1, 1) mesh of cuda {mesh_line}; GEMM sites "
+        f"{sites.group(0) if sites else 'not printed'}; losses "
+        f"{' '.join(v for _, v in printed)} (one device "
+        f"{' '.join(v for _, v in want)}); step-{steps} checkpoints "
+        f"{'bit for bit' if same else 'DIFFERENT'}: "
+        + ("ok" if good else "FAIL"))
+    if not good:
+        log("    " + text[-3000:].replace("\n", "\n    "))
+    for d in (one, ran):
+        shutil.rmtree(d, ignore_errors=True)
+    return good
+
+
+def p18_all(torch, report):
+    """Phase 18: (a) the unsharded step, (b) the sharded step over an
+    NCCL group of one rank, (c) ``quantized_psum_tree`` over it, (d) two
+    ranks on the one card over gloo, (e) the train entry point under
+    torchrun."""
+    import torch.distributed as dist
+    from repro_torch import dispatch
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel.collectives import (_dequant, _quant,
+                                                  quantized_psum_tree)
+    from repro_torch.parallel.sharding import gather_tree, shard_tree
+    t0 = time.time()
+    rep = report["p18"] = {}
+    ok = True
+    cfg = p18_cfg()
+    every = slice(0, TRAIN_B)
+
+    log(f"  18a unsharded step: {cfg.name} full width, f32, dp_all profile, "
+        f"{P18_STEPS} steps of {TRAIN_B} x {TRAIN_S}")
+    model, step, opt = build_train_step(cfg, P18_LR, "cuda")
+    init = model.init(0)
+    # 18d's ranks read the weights after step 1 through a memory map
+    from repro_torch.parallel.sharding import _flat_with_path
+    want_path = ROOT / "build" / "p18_want.pt"
+    saved = {}
+
+    def save_first(p):
+        flat, flat0 = dict(_flat_with_path(p)), dict(_flat_with_path(init))
+        torch.save({"params": {k: t.cpu() for k, t in flat.items()},
+                    "max": {k: float(t.abs().max())
+                            for k, t in flat.items()},
+                    "travel": {k: float((t - flat0[k]).abs().max())
+                               for k, t in flat.items()}}, want_path)
+        saved["leaves"] = len(flat)
+    params, _, losses, norms, secs, counts = p18_steps(
+        torch, step, init, opt.init(init), cfg, every,
+        after_first=save_first)
+    n_want = saved["leaves"]
+    del init
+    want = {"losses": losses, "grad_norms": norms, "step_s": secs,
+            "counts": counts}
+    torch.cuda.empty_cache()
+    med = statistics.median(secs[1:])
+    log(f"    losses {' '.join(f'{x:.6f}' for x in losses)}; step "
+        f"{1e3 * med:.1f} ms (median of steps 2-{P18_STEPS}); launches "
+        f"{counts['rsa_gemm']} RSA GEMM, {counts['flash_fwd']} / "
+        f"{counts['flash_dq']} / {counts['flash_dkv']} flash fwd / dq / "
+        f"dk-dv, {counts['plain_calls']} plain calls")
+
+    log("  18b sharded step on a (1, 1) mesh over an NCCL group of one rank")
+    store = ROOT / "build" / "p18_store"
+    store.unlink(missing_ok=True)
+    init_distributed("cuda", rank=0, world_size=1, store_path=str(store),
+                     timeout_s=120)
+    try:
+        mesh = make_host_mesh(1, 1)
+        smodel, sstep, sopt, (ps, _) = build_train_step(
+            cfg, P18_LR, "cuda", mesh=mesh, global_batch=TRAIN_B)
+        local = shard_tree(smodel.init(0), ps, mesh)
+        local, _, slosses, snorms, ssecs, scounts = p18_steps(
+            torch, sstep, local, sopt.init(local), cfg, every, mesh)
+        full = gather_tree(local, ps, mesh)
+        del local
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(full), tree_leaves(params)))
+        del full, params
+        torch.cuda.empty_cache()
+        smed = statistics.median(ssecs[1:])
+        kernels = ("rsa_gemm", "flash_fwd", "flash_dq", "flash_dkv")
+        counts_same = all(scounts[k] == counts[k] > 0 for k in kernels)
+        good = (same and slosses == losses and snorms == norms
+                and counts_same and scounts["plain_calls"] == 0
+                and counts["plain_calls"] == 0)
+        ok &= good
+        rep["world1"] = {
+            "backend": dist.get_backend(), "mesh": [1, 1],
+            "losses": slosses, "grad_norms": snorms, "step_s": ssecs,
+            "counts": scounts, "bitwise_params": same,
+            "losses_equal": slosses == losses, "counts_equal": counts_same,
+            "median_step_s": smed, "unsharded_median_step_s": med,
+            "overhead": smed / med - 1.0, "ok": good}
+        rep["unsharded"] = want
+        log(f"    losses {' '.join(f'{x:.6f}' for x in slosses)} "
+            f"({'equal' if slosses == losses else 'DIFFERENT'}); params "
+            f"{'bit for bit' if same else 'DIFFERENT'}; launches "
+            f"{scounts['rsa_gemm']} / {scounts['flash_fwd']} / "
+            f"{scounts['flash_dq']} / {scounts['flash_dkv']} "
+            f"({'equal' if counts_same else 'DIFFERENT'}), "
+            f"{scounts['plain_calls']} plain calls; step {1e3 * smed:.1f} ms "
+            f"against {1e3 * med:.1f} ms unsharded: overhead "
+            f"{100 * (smed / med - 1):+.2f}%: " + ("ok" if good else "FAIL"))
+
+        log("  18c quantized_psum_tree over the group on a step's gradients")
+        # step 0's gradient, from the init on step 0's batch
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                          smodel.init(0))
+        toks = torch.from_numpy(p18_tokens(cfg, 0)).cuda()
+        with torch.enable_grad(), dispatch.use(execute="kernel"):
+            loss, _ = smodel.loss(leaves, {"tokens": toks})
+            loss.backward()
+        grads = tree_map(lambda p: p.grad, leaves)
+        del leaves, loss
+        torch.cuda.synchronize()
+        t1 = time.time()
+        sums, errs = quantized_psum_tree(grads, None, 1)
+        torch.cuda.synchronize()
+        q_s = time.time() - t1
+        exact = True
+        n_el = 0
+        for g, o, e in zip(tree_leaves(grads), tree_leaves(sums),
+                           tree_leaves(errs)):
+            s1 = torch.clamp(g.abs().max(), min=1e-20) / 127.0
+            q = _quant(g, s1)
+            s2 = torch.clamp(_dequant(q, s1).abs().max(), min=1e-20) / 127.0
+            exact &= bool(torch.equal(o, _dequant(q, s2)))
+            exact &= bool(torch.equal(e, g - _dequant(q, s1)))
+            n_el += g.numel()
+        del grads, sums, errs, g, o, e, q
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ok &= exact
+        rep["quantized_psum"] = {"elements": n_el, "seconds": q_s,
+                                 "exact": exact}
+        log(f"    {n_el:,} gradient elements in {q_s:.3f} s: sums the int8 "
+            f"round trips and residuals the differences "
+            + ("exactly: ok" if exact else "NOT exactly: FAIL"))
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    world = 2
+    log(f"  18d {world} ranks on the one card: a ({world}, 1) mesh over gloo "
+        f"with CUDA tensors, a row of the batch each")
+    store = ROOT / "build" / "p18_store2"
+    store.unlink(missing_ok=True)
+    outs = [ROOT / "build" / f"p18_rank{r}.json" for r in range(world)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    t2 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--p18-rank", str(r),
+         str(world), str(store), str(outs[r]), str(want_path)],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(
+                1.0, P18_RANK_DEADLINE_S - (time.time() - t2)))[0])
+    except subprocess.TimeoutExpired:
+        logs.append("deadline")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    store.unlink(missing_ok=True)
+    want_path.unlink(missing_ok=True)
+    wall2 = time.time() - t2
+    recs = [json.loads(o.read_text()) if o.exists() else None for o in outs]
+    good = all(p.returncode == 0 for p in procs) and all(recs)
+    if good:
+        loss1_err = max(abs(r["losses"][0] - losses[0]) / abs(losses[0])
+                        for r in recs)
+        gn1_err = max(abs(r["grad_norms"][0] - norms[0]) / abs(norms[0])
+                      for r in recs)
+        # each leaf's share of its elements within the rule, over both
+        # ranks' blocks; the least is gated
+        share = {k: sum(r["leaves"][k]["within"] for r in recs)
+                 / sum(r["leaves"][k]["n"] for r in recs)
+                 for k in recs[0]["leaves"]}
+        worst = min((v, k) for k, v in share.items())
+        max_diff = max(v["max_diff"] for r in recs
+                       for v in r["leaves"].values())
+        n_leaves = {len(r["leaves"]) for r in recs}
+        # each rank launches (a)'s kernels a step
+        counts_same = all(r["counts"][k] * P18_STEPS ==
+                          counts[k] * P18_RANK_STEPS for r in recs
+                          for k in ("rsa_gemm", "flash_fwd", "flash_dq",
+                                    "flash_dkv"))
+        plain = sum(r["counts"]["plain_calls"] for r in recs)
+        good = (loss1_err <= 1e-5 and gn1_err <= 1e-4
+                and worst[0] >= P18_LEAF_SHARE and n_leaves == {n_want}
+                and counts_same and plain == 0)
+        rep["world2"] = {"backend": "gloo", "mesh": [world, 1],
+                         "ranks": recs, "wall_s": wall2,
+                         "step1_loss_rel_err": loss1_err,
+                         "step1_grad_norm_rel_err": gn1_err,
+                         "leaf_share": share,
+                         "weights_worst_leaf": list(worst),
+                         "weights_max_diff": max_diff,
+                         "counts_equal": counts_same,
+                         "step1_s": recs[0]["step_s"][0], "ok": good}
+        log(f"    {wall2:.1f} s with the ranks' start; step 1's loss "
+            f"{recs[0]['losses'][0]:.6f} (rel {loss1_err:.2e}, tol 1e-5), "
+            f"grad norm {recs[0]['grad_norms'][0]:.4f} (rel {gn1_err:.2e}, "
+            f"tol 1e-4); weights after step 1, each of {len(share)} leaves: "
+            f"the share of its elements within the larger of 1e-4 of its "
+            f"largest and 2e-3 of its travel, the least {100 * worst[0]:.3f}"
+            f"% ({worst[1]}; tol {100 * P18_LEAF_SHARE:.1f}%), "
+            f"{sum(v == 1.0 for v in share.values())} of them whole; largest "
+            f"difference {max_diff:.2e} (lr {P18_LR:g}); each rank's "
+            f"launches {recs[0]['counts']['rsa_gemm']} / "
+            f"{recs[0]['counts']['flash_fwd']} / "
+            f"{recs[0]['counts']['flash_dq']} / "
+            f"{recs[0]['counts']['flash_dkv']} "
+            f"({'(a)' if counts_same else 'NOT (a)'}'s a step), {plain} "
+            f"plain calls; step 1 {1e3 * recs[0]['step_s'][0]:.1f} ms (rank "
+            f"0, the first step; peak memory "
+            f"{max(r['peak_memory_gb'] for r in recs):.1f} GB a rank): "
+            + ("ok" if good else "FAIL"))
+    else:
+        rep["world2"] = {"returncodes": [p.returncode for p in procs],
+                         "logs": [lg[-4000:] for lg in logs], "ok": False}
+        log(f"    the ranks failed: return codes "
+            f"{[p.returncode for p in procs]}")
+        for lg in logs:
+            log("    " + lg[-2000:].replace("\n", "\n    "))
+    ok &= good
+    ok &= p18_entry(rep, P18_MAIN_ARGS)
+    rep["seconds"] = report["phase18_s"] = time.time() - t0
+    within = rep["seconds"] <= P18_BUDGET_S
+    ok &= within
+    log(f"  phase 18 took {rep['seconds']:.1f} s (budget {P18_BUDGET_S:.0f} "
+        f"s: {'within' if within else 'OVER'})")
+    if not ok:
+        log("  PHASE 18 FAIL")
+    return ok
+
+
 def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
                  sp_counts, sp_keys):
     """The JSON kernel line: one entry per kernel and main-path shape.
@@ -6437,6 +6903,14 @@ def main() -> int:
         "serve_requests and train_lm (100m, a simulated preemption) through "
         "examples/torch")
     ok &= p17_all(torch, report)
+    torch.cuda.empty_cache()
+
+    log(f"== 18. the distribution layer: llama3.2-1b's sharded train step "
+        f"at full width, f32, dp_all, {P18_STEPS} steps of {TRAIN_B} x "
+        f"{TRAIN_S}: (a) unsharded, (b) a (1, 1) mesh over NCCL, (c) "
+        f"quantized_psum_tree over it, (d) 2 ranks on the one card over "
+        f"gloo, (e) the train entry point under torchrun")
+    ok &= p18_all(torch, report)
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)
     la = next(r for r in report["wkv"] if r["kernel"] == "linear_attn")
@@ -6472,4 +6946,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 7 and sys.argv[1] == "--p18-rank":
+        sys.exit(p18_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                               *sys.argv[4:7]))
     sys.exit(main())

@@ -53,4 +53,9 @@ python -m repro_torch.launch.train_adaptnet --samples 8000 --epochs 2 \
     --buckets 64 --out "$SCRATCH/adaptnet_ckpt" --quiet --device cpu
 "${SERVE[@]}" --dispatcher adaptnet --adaptnet-ckpt "$SCRATCH/adaptnet_ckpt"
 
+echo "== sharded training smoke (4 CPU ranks, torchrun, gloo, (2, 2) dp_all) =="
+torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+    --data-axis 2 --model-axis 2 --device cpu --steps 3 --optimized \
+    --ckpt "$SCRATCH/sharded_ckpt"
+
 echo "check_torch.sh: all green"

@@ -11,6 +11,12 @@ dict for a config, so both packages can run on the same weights.
 :class:`CheckpointManager` writes it (atomic rename, ``keep`` newest
 steps, optional save on a writer thread) and restores into a tree of
 tensors, so each package restores what the other saved.
+
+On a mesh the files are the same: a save gathers every leaf to full and
+rank 0 writes it (:func:`save_sharded`), and :func:`restore_resharded`
+reads the file on every rank and keeps the rank's block of each leaf
+under the specs of the mesh it restores onto, which need not be the one
+that saved.
 """
 
 from __future__ import annotations
@@ -357,3 +363,33 @@ class CheckpointManager:
         ``target_tree``."""
         step, flat, meta = self.restore_flat(step)
         return step, _unflatten(target_tree, flat), meta
+
+
+def save_sharded(mgr: CheckpointManager, step: int, tree: Any, specs: Any,
+                 mesh, metadata: Optional[dict] = None,
+                 blocking: bool = True) -> None:
+    """Save a tree held as blocks under ``specs``: every rank gathers
+    every leaf (a collective), rank 0 writes the unchanged format, and
+    all ranks meet at a barrier.  With ``blocking=False`` rank 0 writes
+    on its writer thread, and a reader first waits for it (``mgr.wait()``
+    on rank 0, then a barrier)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import gather_tree
+    full = gather_tree(tree, specs, mesh)
+    if dist.get_rank() == 0:
+        mgr.save(step, full, metadata=metadata, blocking=blocking)
+    del full
+    dist.barrier()
+
+
+def restore_resharded(directory, target_tree: Any, mesh, specs,
+                      step: Optional[int] = None) -> Tuple[int, Any, dict]:
+    """Elastic restore: the latest (or given) checkpoint onto ``mesh``.
+    Every rank reads the file and keeps its block of each leaf under
+    ``specs``, in the dtype and on the device of ``target_tree``'s leaf
+    (local blocks or full leaves: only the structure, dtypes and devices
+    are read)."""
+    from repro_torch.parallel.sharding import shard_tree
+    step, flat, meta = load_checkpoint(directory, step)
+    return step, shard_tree(_unflatten(target_tree, flat), specs, mesh), meta

@@ -31,7 +31,8 @@ ARCH_IDS = tuple(REGISTRY)
 # kernel for full-sequence attention (the hybrid's shared block too), the
 # ZeRO-3 ``dp_all`` layouts for the small dense and MoE models, and the WKV
 # kernel for the RWKV6 scan.
-# ``tp_strategy`` is data here: one device has no mesh to lay out.
+# ``tp_strategy`` picks the sharded train step's layout
+# (``parallel/sharding.py``); one device ignores it.
 OPTIMIZED_OVERRIDES: Dict[str, dict] = {
     "gemma-2b":            {"attn_impl": "pallas", "tp_strategy": "dp_all"},
     "llama3.2-1b":         {"attn_impl": "pallas", "tp_strategy": "dp_all"},

@@ -200,6 +200,12 @@ class SaraDispatcher:
         self._hits = self._misses = 0
         self._n_adaptnet = self._n_oracle = self._n_fallback = 0
 
+    def recommend_sharding(self, M: int, K: int, N: int,
+                           data: int = 16, model: int = 16) -> tcm.ShardPlan:
+        """The mesh-level recommendation for an (M, K, N) GEMM on a
+        (data, model) mesh: the TPU planner's lowest-latency sharding."""
+        return tcm.plan_gemm_sharding(M, K, N, data=data, model=model)
+
     # -- execution -----------------------------------------------------------
     def gemm(self, x, w, *, site: str = "sara.gemm"):
         """Self-adaptive GEMM: (..., M, K) @ (K, N) through the dispatch

@@ -1,5 +1,7 @@
-"""The RSA configuration space the recommender searches (copied verbatim
-from ``repro/core/tpu_costmodel.py``; the sharding planner is left out).
+"""The RSA configuration space the recommender searches, and the
+mesh-level GEMM sharding planner (both copied verbatim from
+``repro/core/tpu_costmodel.py``, TPU constants included, so the port
+recommends what the reference does).
 
 The MXU is a 128x128 systolic array; the runtime-reconfigurable knobs on a
 TPU GEMM are the Pallas BlockSpec tiling (block_m, block_n, block_k) and the
@@ -108,3 +110,73 @@ def best_tile_config(M, K, N) -> np.ndarray:
     grid = grid / grid.max()
     key = t * (1.0 + 0.01 * grid + 1e-4 * (1.0 - bk / max(BLOCK_K)))
     return np.argmin(key, axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# distributed GEMM sharding planner (mesh-level "configuration")
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShardPlan:
+    name: str
+    x_spec: tuple              # PartitionSpec entries for x (M, K)
+    w_spec: tuple              # for w (K, N)
+    out_spec: tuple            # for out (M, N)
+    comm_bytes: float
+    time_s: float
+
+
+def plan_gemm_sharding(M: int, K: int, N: int, *, data: int = 16,
+                       model: int = 16) -> ShardPlan:
+    """Pick the lowest-latency sharding for out = x @ w on a (data, model)
+    mesh: {replicated, row(M/data), col(N/model), 2D, k-sharded+AR}."""
+    chips = data * model
+    peak = TPU_V5E.peak_bf16_flops
+    link = TPU_V5E.ici_link_bw
+    b = DTYPE_BYTES
+    flops = 2.0 * M * N * K
+    # ICI collective latency floor (~1 us/hop) + SPMD dispatch overhead:
+    # this is what makes tiny GEMMs prefer replication over sharding.
+    LAT = 2e-6
+
+    cands = []
+    # replicated: no comm, no parallelism
+    cands.append(ShardPlan("replicated", (None, None), (None, None),
+                           (None, None), 0.0, flops / peak))
+    # row-parallel: M over data (and pod): w replicated
+    cands.append(ShardPlan("row_dp", ("data", None), (None, None),
+                           ("data", None), 0.0,
+                           flops / (peak * data) + LAT))
+    # col-parallel: N over model; out gathered (all-gather over model)
+    ag = M * N * b
+    cands.append(ShardPlan("col_tp", (None, None), (None, "model"),
+                           (None, "model"), ag,
+                           flops / (peak * model) + ag / (chips * link)
+                           + 2 * LAT))
+    # 2D: M over data, N over model
+    cands.append(ShardPlan("2d", ("data", None), (None, "model"),
+                           ("data", "model"), 0.0,
+                           flops / (peak * chips) + 2 * LAT))
+    # k-sharded over model + all-reduce of out
+    ar = 2 * M * N * b
+    cands.append(ShardPlan("k_model_ar", (None, "model"), ("model", None),
+                           (None, None), ar,
+                           flops / (peak * model) + ar / (chips * link)
+                           + 2 * LAT))
+    # fully sharded: M/data, K/model + all-reduce over model
+    cands.append(ShardPlan("m_data_k_model_ar", ("data", "model"),
+                           ("model", None), ("data", None), ar / data,
+                           flops / (peak * chips) +
+                           ar / data / (chips * link) + 2 * LAT))
+
+    def feasible(p: ShardPlan) -> bool:
+        if "data" in (p.x_spec[0], ) and M % data:
+            return False
+        if "model" in (p.x_spec[1], p.w_spec[0]) and K % model:
+            return False
+        if "model" in (p.w_spec[1],) and N % model:
+            return False
+        return True
+
+    cands = [p for p in cands if feasible(p)] or cands[:1]
+    return min(cands, key=lambda p: p.time_s)

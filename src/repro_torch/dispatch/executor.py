@@ -5,7 +5,8 @@ model stack goes through.  It asks the active dispatcher for the (M, K, N)
 tile configuration, clamps the blocks exactly as the reference does
 (``repro/dispatch/executor.py::_clamped_blocks``, so the recommended tile
 equals the reference's), records it in the active ``SiteRegistry`` under
-the current scope, and runs the RSA GEMM with its ``block_k`` and
+the current scope (with the mesh-level plan's name when a mesh is set,
+``_shard_plan_name``), and runs the RSA GEMM with its ``block_k`` and
 residency mode (OS/WS/IS), the two inputs the function depends on: the
 CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors or
 under ``execute="torch"``.  The kernel's launch records in the same
@@ -47,6 +48,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.hints import current_mesh
+
 ALIGN = 128                    # the reference's block clamp granularity
 
 
@@ -68,6 +71,21 @@ def _resolved_tile(policy, m: int, k: int, n: int):
     return cfg, _clamped_blocks(cfg, m, k, n) + (cfg.mode,)
 
 
+def _shard_plan_name(policy, M: int, K: int, N: int) -> str:
+    """Mesh-level recommendation: "" when meshless, else the plan's name
+    for the (data x pod, model) mesh (recorded; the port lays out its
+    blocks itself, so nothing applies it)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return ""
+    from repro_torch.parallel.sharding import axis_sizes
+    sizes = axis_sizes(mesh)
+    data = sizes.get("data", 1) * sizes.get("pod", 1)
+    plan = policy.dispatcher.recommend_sharding(
+        M, K, N, data=data, model=sizes.get("model", 1))
+    return plan.name
+
+
 def _record(policy, site: str, M: int, K: int, N: int, backend: str):
     """Resolve and record the (M, K, N) site; returns the recommended tile
     and the record (None without a registry)."""
@@ -77,7 +95,8 @@ def _record(policy, site: str, M: int, K: int, N: int, backend: str):
         src = getattr(policy.dispatcher, "source_of", None)
         rec = policy.registry.record(
             site, M, K, N, cfg, *tile, backend,
-            src(M, K, N) if src is not None else "oracle")
+            src(M, K, N) if src is not None else "oracle",
+            _shard_plan_name(policy, M, K, N))
     return tile, rec
 
 

@@ -48,6 +48,7 @@ class SiteRecord:
     mode: int
     backend: str               # "kernel" | "torch"
     source: str = "oracle"     # recommendation provenance
+    shard_plan: str = ""       # mesh-level plan name ("" when meshless)
     # what the card ran, by role ("fwd"; a differentiable 2-D GEMM's
     # backward adds "dx" and "dw"): kernels/rsa_gemm.py's RanPlan, set by
     # each launch; empty on the torch backend
@@ -71,6 +72,8 @@ class SiteRecord:
              f"{DATAFLOW_NAMES[self.mode]} @{self.backend}")
         if self.source != "oracle":
             s += f" src={self.source}"
+        if self.shard_plan:
+            s += f" shard={self.shard_plan}"
         return s
 
     def describe(self) -> str:
@@ -105,9 +108,10 @@ class SiteRegistry:
     # -- recording (called by dispatch.gemm on every call) -------------------
     def record(self, site: str, m: int, k: int, n: int, cfg: TPUTileConfig,
                block_m: int, block_n: int, block_k: int, mode: int,
-               backend: str, source: str = "oracle") -> SiteRecord:
+               backend: str, source: str = "oracle",
+               shard_plan: str = "") -> SiteRecord:
         rec = SiteRecord(site, m, k, n, cfg, block_m, block_n, block_k,
-                         mode, backend, source)
+                         mode, backend, source, shard_plan)
         scope = self._scopes.setdefault(self.current_scope(), {})
         key = site
         if key in scope and (scope[key].m, scope[key].k, scope[key].n) != \

@@ -19,9 +19,9 @@ Per cell it records one JSON, ``build/dryrun/<arch>__<shape>__h100.json``
 Errors are recorded and the sweep goes on; it exits 1 if any cell failed,
 as the reference does.  The reference's cells are a 256-chip pod's
 global batches; the port runs ``--batch`` sequences (1 unless given) of
-each shape's length.  The reference's mesh (``launch/mesh.py``,
-``--multi-pod``) and its sharding (``parallel/``) have no counterpart on
-one card.
+each shape's length on one card: the port's mesh (``launch/mesh.py``)
+and sharding (``parallel/``) train over the ranks a process group has,
+and no 256- or 512-rank group exists here, so ``--multi-pod`` is refused.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta \\

@@ -253,11 +253,11 @@ def add_cell_args(ap: argparse.ArgumentParser,
 
 
 def start(args) -> None:
-    """Refuse ``--multi-pod`` (one card has no mesh) and keep f32 in f32:
-    TF32 off, as the f32 peak assumes."""
+    """Refuse ``--multi-pod`` (one card is no 512-rank mesh) and keep f32
+    in f32: TF32 off, as the f32 peak assumes."""
     if args.multi_pod:
-        raise SystemExit("--multi-pod: one card has no mesh (the reference's "
-                         "512-chip layout has no counterpart here)")
+        raise SystemExit("--multi-pod: a cell's step runs on one card, which "
+                         "has no mesh of the reference's 512 ranks")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

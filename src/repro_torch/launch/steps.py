@@ -1,6 +1,6 @@
-"""Step builders: the train step, the steps of a shape cell, and the
-model-FLOPs and compulsory-bytes estimates — the port of
-``repro/launch/steps.py`` for one device (no mesh, no shardings).
+"""Step builders: the train step (on one device, or sharded over a mesh),
+the steps of a shape cell, and the model-FLOPs and compulsory-bytes
+estimates — the port of ``repro/launch/steps.py``.
 
 The train step takes the value and gradient of ``Model.loss`` with
 autograd (every GEMM's dx/dw, each expert bank's dx/dw and the
@@ -9,6 +9,18 @@ active dispatch policy), then runs ``AdamW.update`` and
 ``apply_updates``.  A batch is ``{"tokens": (B, S + 1)}``, with
 ``"patch_embeds"`` (vlm) or ``"src_features"`` (encdec) passed through to
 the loss.
+
+Over a mesh (``build_train_step(..., mesh=, global_batch=)``) the step is
+FSDP / ZeRO-3 whatever the family: each rank holds the block of every
+parameter and of its AdamW moments that ``param_specs`` gives it and its
+rows of the global batch (``batch_specs``).  A step all-gathers the
+parameters to full, runs the same loss on its rows through the same
+kernels (the cross-entropy's sum over the global count), reduce-scatters
+each gradient onto its leaf's spec over the ranks that hold other rows
+(all-reduces a replicated leaf), takes the clip's norm over every
+rank's distinct blocks, and runs AdamW on its blocks.  Megatron ``tp``
+over a ``model`` axis of more than one rank, and MoE on a mesh that
+shards the batch, raise (ROADMAP items 21 and 22).
 
 ``build_cell`` is the counterpart of the reference's ``lower_for_cell``:
 where the reference lowers a cell's step against abstract inputs, it
@@ -20,6 +32,7 @@ and time (``launch/profile.py``).  ``ShapeSpec`` lives in
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -216,13 +229,48 @@ def make_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> AdamW:
     return AdamW(lr=lr, state_dtype=cfg.opt_state_dtype)
 
 
+def check_mesh_layout(cfg: ArchConfig, mesh, global_batch: int) -> None:
+    """Refuse what the sharded step has not ported, before anything runs:
+    Megatron ``tp`` over a ``model`` axis of more than one rank, and a MoE
+    model on a mesh that shards its batch (capacity and the load-balance
+    statistics are batch-wide in the reference's global program; a rank
+    that routes only its own rows would drop other tokens)."""
+    from repro_torch.parallel.sharding import axis_sizes, batch_shard_axes
+    sizes = axis_sizes(mesh)
+    model = sizes.get("model", 1)
+    if cfg.tp_strategy == "tp" and model > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: tp_strategy='tp' over a model axis of {model} "
+            f"ranks is Megatron tensor parallelism, not ported (ROADMAP "
+            f"item 21); use model_axis=1 (FSDP over data) or dp_all")
+    shards = math.prod(sizes[a] for a in
+                       batch_shard_axes(int(global_batch), cfg, mesh))
+    if cfg.moe is not None and shards > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE on a mesh that shards the batch over {shards} "
+            f"ranks needs batch-wide capacity and load-balance statistics, "
+            f"not ported (ROADMAP item 22)")
+
+
 def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
-                     device: Optional[str] = None):
+                     device: Optional[str] = None, mesh=None,
+                     global_batch: Optional[int] = None):
     """(model, train_step, optimizer); ``train_step(params, opt_state,
     batch) -> (params, opt_state, metrics)`` returns new tensors and
-    leaves its arguments as they were."""
+    leaves its arguments as they were.
+
+    With a ``mesh``, (model, train_step, optimizer, (param specs,
+    optimizer-state specs)): the step takes this rank's blocks
+    (``parallel.sharding.shard_tree``) and its rows of a ``global_batch``
+    (``local_batch_rows``), as the module docstring says."""
     model: Model = build_model(cfg, device)
     opt = make_optimizer(cfg, lr)
+    if mesh is not None:
+        if global_batch is None:
+            raise ValueError("a sharded train step needs the global batch")
+        check_mesh_layout(cfg, mesh, global_batch)
+        step, specs = _sharded_train_step(model, opt, mesh, global_batch)
+        return model, step, opt, specs
 
     def train_step(params, opt_state, batch):
         with torch.enable_grad():
@@ -243,6 +291,64 @@ def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
     return model, train_step, opt
 
 
+def _sharded_train_step(model: Model, opt: AdamW, mesh, global_batch: int):
+    import torch.distributed as dist
+
+    from repro_torch.optim.adamw import AdamWState, tree_leaves
+    from repro_torch.parallel import sharding as sh
+
+    cfg = model.cfg
+    p_specs = sh.param_specs(model.init_abstract(), cfg, mesh)
+    o_specs = AdamWState(step=sh.P(), m=p_specs, v=p_specs)
+    _, _, over = sh.local_batch_rows(global_batch, cfg, mesh)
+    spec_leaves = tree_leaves(p_specs)
+
+    def count_fn(cnt):
+        return sh.sum_over(cnt, mesh, over)
+
+    def train_step(params, opt_state, batch):
+        full = sh.gather_tree(params, p_specs, mesh)
+        with torch.enable_grad():
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              full)
+            del full
+            loss, metrics = model.loss(leaves, batch, count_fn=count_fn)
+            loss.backward()
+        # the graph (and through it every full leaf) goes with the loss;
+        # each full leaf and its gradient go once reduced
+        loss = loss.detach()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        flat = dict(sh._flat_with_path(leaves))
+        del leaves
+        flat_s = dict(sh._flat_with_path(p_specs))
+        grads = {}
+        for path in sorted(flat):
+            grads[path] = sh.reduce_leaf(flat.pop(path).grad, flat_s[path],
+                                         mesh, over)
+        grads = sh._map_with_path(lambda p, _: grads[p], params)
+        # the clip's norm: each distinct block counted once, summed over
+        # every rank
+        sq = sum(torch.sum(torch.square(g.float())) if
+                 sh.counted_here(s, mesh) else
+                 torch.zeros((), device=g.device)
+                 for g, s in zip(tree_leaves(grads), spec_leaves))
+        dist.all_reduce(sq)
+        updates, opt_state, opt_metrics = opt.update(
+            grads, opt_state, params, norm=torch.sqrt(sq))
+        del grads
+        params = apply_updates(params, updates)
+        # the cross-entropy and the loss, each rank's sum over the global
+        # count, summed over the ranks that hold other rows
+        out = dict(metrics, loss=loss)
+        for k in ("ce_loss", "loss"):
+            if k in out:
+                out[k] = sh.sum_over(out[k], mesh, over)
+        out = {**out, **opt_metrics, "loss": out["loss"]}
+        return params, opt_state, out
+
+    return train_step, (p_specs, o_specs)
+
+
 # ---------------------------------------------------------------------------
 # serve steps and whole cells
 # ---------------------------------------------------------------------------
@@ -250,7 +356,9 @@ def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
 def build_serve_parts(cfg: ArchConfig, shape: ShapeSpec,
                       device: Optional[str] = None):
     """(model, abstract params, abstract cache) of a serve cell: the
-    reference's parts without their shardings (one device has no mesh)."""
+    reference's parts without their shardings (a cell's step runs on one
+    device; ``parallel.sharding.param_specs`` / ``cache_specs_tree`` give
+    them for a mesh)."""
     model = build_model(cfg, device)
     return model, model.init_abstract(), cache_specs(cfg, shape)
 

@@ -13,7 +13,17 @@ flash-attention kernels or the blockwise route; rwkv6-1.6b's WKV scan
 through its kernel or the plain scan, zamba2-7b's Mamba2 blocks in plain
 torch), the fault-tolerant driver with periodic async checkpoints +
 restart, straggler monitor.
-There is no mesh: ``data_axis``/``model_axis`` other than 1 raise.
+Over a mesh (a process group is up, the process runs under ``torchrun
+--nproc-per-node N``, or ``data_axis`` x ``model_axis`` > 1): a
+``(data, model)`` ``DeviceMesh`` over the group (NCCL on CUDA, gloo on
+the CPU), the sharded FSDP / ZeRO-3 step of ``launch/steps.py``, each rank its rows of
+the same global batch (``data/pipeline.py``'s pure ``_batch``), saves
+gathered to rank 0's files and collective restarts.  ``tp`` over a model
+axis > 1 and MoE on a batch-sharded mesh raise before the driver.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --data-axis 2 --model-axis 2 --device cpu --steps 3 --optimized
+
 ``--optimized`` applies the reference's optimized profile
 (``attn_impl="pallas"``, the flash kernels; ``ssm_impl="pallas"`` for
 rwkv6-1.6b, the WKV kernel); without it the config's
@@ -47,19 +57,26 @@ def train_main(arch: str = "llama3.2-1b", preset: str = "reduced",
                d_model: Optional[int] = None,
                num_layers: Optional[int] = None,
                device: Optional[str] = None):
+    import torch.distributed as dist
+
     from repro_torch import dispatch
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import _batch, make_loader
+    from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.launch.steps import _dispatch_ctx, build_train_step
     from repro_torch.models.api import resolve_device
     from repro_torch.models.transformer import check_trained_family
+    from repro_torch.parallel.hints import use_mesh
     from repro_torch.runtime.driver import DriverConfig, TrainDriver
 
     dev = resolve_device(device)
-    if data_axis != 1 or model_axis != 1:
-        raise NotImplementedError(
-            f"data_axis={data_axis}, model_axis={model_axis}: the port trains "
-            f"on one device and has no mesh")
+    sharded = dist.is_available() and dist.is_initialized()
+    launched = "WORLD_SIZE" in os.environ          # under torchrun
+    if not (sharded or launched) and data_axis * model_axis > 1:
+        raise ValueError(
+            f"a ({data_axis}, {model_axis}) mesh needs "
+            f"{data_axis * model_axis} ranks: launch under torchrun "
+            f"--nproc-per-node {data_axis * model_axis}")
     cfg = override_cfg if override_cfg is not None else get_arch(arch)
     if preset == "reduced":
         cfg = cfg.reduced()
@@ -81,11 +98,38 @@ def train_main(arch: str = "llama3.2-1b", preset: str = "reduced",
             f"on the missing key); build the step with "
             f"launch.steps.build_train_step and pass {feats!r} in its batch")
 
-    model, step_fn, opt = build_train_step(cfg, lr=lr, device=str(dev))
+    own_group = False
+    mesh = specs = None
+    if sharded or launched or data_axis * model_axis > 1:
+        from repro_torch.launch.mesh import init_distributed, make_host_mesh
+        from repro_torch.parallel.sharding import local_batch_rows
+        if not sharded:
+            dev = init_distributed(dev)
+            own_group = True
+        try:
+            mesh = make_host_mesh(data_axis, model_axis, dev.type)
+            model, step_fn, opt, (p_specs, o_specs) = build_train_step(
+                cfg, lr=lr, device=str(dev), mesh=mesh,
+                global_batch=global_batch)
+        except Exception:
+            if own_group:
+                dist.destroy_process_group()
+            raise
+        specs = {"params": p_specs, "opt": o_specs}
+        row_start, rows, _ = local_batch_rows(global_batch, cfg, mesh)
+    else:
+        model, step_fn, opt = build_train_step(cfg, lr=lr, device=str(dev))
+        row_start, rows = 0, None
     params = model.init(seed)
+    if mesh is not None:
+        from repro_torch.parallel.sharding import shard_tree
+        params = shard_tree(params, specs["params"], mesh)
     opt_state = opt.init(params)
+    lead = mesh is None or dist.get_rank() == 0
 
-    loader = make_loader(cfg.vocab_size, seq_len, global_batch, seed=seed)
+    # each rank its rows of the pure global batch of (seed, step, row)
+    loader = make_loader(cfg.vocab_size, seq_len, global_batch, seed=seed,
+                         row_start=row_start, rows=rows)
 
     def make_batch(step: int):
         # the prefetching loader in order; a restart replays the steps
@@ -97,31 +141,44 @@ def train_main(arch: str = "llama3.2-1b", preset: str = "reduced",
     registry = dispatch.SiteRegistry()
 
     def wrapped_step(params, opt_state, batch):
-        with _dispatch_ctx("train_step", execute, registry):
+        with use_mesh(mesh), \
+                _dispatch_ctx("train_step", execute, registry):
             return step_fn(params, opt_state, batch)
 
     driver = TrainDriver(
         DriverConfig(checkpoint_dir=checkpoint_dir,
                      checkpoint_every=checkpoint_every),
         train_step=wrapped_step, make_batch=make_batch,
-        fail_injector=fail_injector)
+        fail_injector=fail_injector, mesh=mesh, specs=specs)
 
     t0 = time.time()
     try:
         params, opt_state, history = driver.run(params, opt_state,
                                                 start_step=0,
                                                 num_steps=steps)
+        if mesh is not None:
+            from repro_torch.parallel.sharding import gather_tree
+            params = gather_tree(params, specs["params"], mesh)
     finally:
         loader.close()
+        if own_group:
+            dist.destroy_process_group()
     dt = time.time() - t0
     losses = [h["loss"] for h in history]
+    if not lead:
+        log_every = 0
     if log_every:
         for h in history[::log_every] + history[-1:]:
             print(f"  step {h['step']:5d} loss {h['loss']:.4f} "
                   f"grad_norm {h.get('grad_norm', 0):.3f}")
     tok_s = steps * global_batch * seq_len / dt
+    if not lead:
+        driver.opt_state = opt_state
+        return params, history, driver
+    where = dev if mesh is None else \
+        f"{dict(mesh_axis_sizes(mesh))} ranks of {dev.type}"
     print(f"train done: {steps} steps in {dt:.1f}s ({tok_s:,.0f} tok/s on "
-          f"{dev}), loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+          f"{where}), loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
           f"{driver.straggler_report()}")
     plan = registry.plan("train_step")
     if plan:
@@ -156,8 +213,13 @@ def main():
     a = ap.parse_args()
     override = None
     if a.optimized:
+        # the reference's rule: a dp_all layout applies where the global
+        # batch divides the ranks
         from repro_torch.configs.registry import get_arch
-        override = get_arch(a.arch, optimized=True)
+        world = int(os.environ.get("WORLD_SIZE",
+                                   a.data_axis * a.model_axis))
+        override = get_arch(a.arch, optimized=True, global_batch=a.batch,
+                            devices=world)
     train_main(arch=a.arch, preset=a.preset, steps=a.steps,
                global_batch=a.batch, seq_len=a.seq, data_axis=a.data_axis,
                model_axis=a.model_axis, lr=a.lr, checkpoint_dir=a.ckpt,

@@ -55,9 +55,12 @@ class Model:
         return param_count(tree)
 
     # ---- training (dense GQA, ssm, hybrid) ----------------------------------
-    def loss(self, params, batch):
-        """(loss, metrics) of ``batch = {"tokens": (B, S + 1) int}``."""
-        return transformer.loss_fn(params, batch, self.cfg)
+    def loss(self, params, batch, count_fn=None):
+        """(loss, metrics) of ``batch = {"tokens": (B, S + 1) int}``;
+        ``count_fn`` gives the cross-entropy's denominator from the batch's
+        count (a sharded step's global count)."""
+        return transformer.loss_fn(params, batch, self.cfg,
+                                   count_fn=count_fn)
 
     def logits(self, params, batch) -> torch.Tensor:
         return transformer.logits(params, batch, self.cfg)

@@ -8,8 +8,9 @@ state, so the per-slot state is O(1) in sequence length.  The route is
 ``kernels/ops.wkv_attention`` -- the hand-written CUDA kernel on the card,
 its plain version on the CPU; its backward recomputes through the plain
 scan -- and ``"xla"`` runs ``_wkv_chunked``, the reference's einsum scan,
-in torch.  One device has no mesh, so the reference's per-shard
-``_wkv_pallas_sharded`` is that one call.
+in torch.  On a mesh each rank holds its own rows (the sharded step lays
+them out), so the reference's per-shard ``_wkv_pallas_sharded`` is that
+one call on each rank.
 
 Dtypes follow the reference step for step: the five token-shift mixes and
 every GEMM run in the compute dtype; the log decay ``-exp(clip(dec, -12,

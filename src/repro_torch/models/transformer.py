@@ -541,11 +541,14 @@ def _chunk_loss(h, y, m, w):
 
 
 def chunked_ce_loss(params: Params, hidden, labels, mask,
-                    cfg: ArchConfig) -> torch.Tensor:
+                    cfg: ArchConfig, count_fn=None) -> torch.Tensor:
     """Sequence-chunked cross-entropy: the (B, S, V) logits are never
     materialised at once, and each chunk's logits are recomputed in the
     backward pass (checkpointed, as the reference's ``jax.checkpoint``).
-    hidden (B, S, d); labels (B, S) int; mask (B, S)."""
+    hidden (B, S, d); labels (B, S) int; mask (B, S).  ``count_fn`` maps
+    the mask's count to the denominator: a sharded step's rank divides its
+    own sum by the count over every rank's rows, so that the ranks'
+    gradients sum to the one-device gradient."""
     w = _unembed_weight(params, cfg)
     B, S, _ = hidden.shape
     c = min(cfg.loss_chunk, S)
@@ -563,17 +566,21 @@ def chunked_ce_loss(params: Params, hidden, labels, mask,
                           mask[:, rows], w, use_reentrant=False)
         tot = tot + l
         cnt = cnt + k
+    if count_fn is not None:
+        cnt = count_fn(cnt.detach())
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def loss_fn(params: Params, batch, cfg: ArchConfig,
-            moe_loss_weight: float = 0.01, z_loss_weight: float = 1e-4):
+            moe_loss_weight: float = 0.01, z_loss_weight: float = 1e-4,
+            count_fn=None):
     """(total loss, metrics) as the reference's ``loss_fn``: the
-    cross-entropy, plus the weighted load-balance and z losses of a MoE
-    model."""
+    cross-entropy (its denominator through ``count_fn``, as
+    :func:`chunked_ce_loss` says), plus the weighted load-balance and z
+    losses of a MoE model."""
     hidden, aux, mask = forward(params, batch, cfg)
     labels = batch["tokens"][:, 1:]
-    loss = chunked_ce_loss(params, hidden, labels, mask, cfg)
+    loss = chunked_ce_loss(params, hidden, labels, mask, cfg, count_fn)
     total = loss
     if cfg.moe is not None:
         total = total + moe_loss_weight * aux["moe_lb_loss"] + \

@@ -24,10 +24,14 @@ class AdamWState(NamedTuple):
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts of one structure."""
+    """``fn`` over the leaves of nested dicts and named tuples (an
+    ``AdamWState``) of one structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     return fn(tree, *rest)
 
 
@@ -43,8 +47,11 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """``tree`` scaled to at most ``max_norm``; ``norm`` is the tree's
+    global norm where the caller has it (a sharded step's, over every
+    rank's blocks)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 
@@ -84,10 +91,12 @@ class AdamW:
                           v=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params
+    def update(self, grads, state: AdamWState, params, norm=None
                ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+        """One AdamW step; elementwise but for the clip, whose global norm
+        a sharded step passes in (``norm``) for its local blocks."""
         step = state.step + 1
-        grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, self.clip_norm, norm)
         b1, b2, sd = self.b1, self.b2, self.state_dtype
         m_new = tree_map(lambda g, m: (b1 * m.float() + (1 - b1) * g.float())
                          .to(sd), grads, state.m)

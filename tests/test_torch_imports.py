@@ -49,14 +49,19 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs.trace", "repro_torch.obs.spans",
             "repro_torch.obs.export", "repro_torch.runtime.failplan",
             "repro_torch.serving.faults",
-            "repro_torch.serving.snapshot"} <= set(mods)
+            "repro_torch.serving.snapshot",
+            "repro_torch.parallel.sharding", "repro_torch.parallel.hints",
+            "repro_torch.parallel.collectives",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'repro' or "
             "k.startswith('repro.'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            # the distribution layer runs on torch.distributed
+            "assert 'torch.distributed' in sys.modules\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        capture_output=True, text=True)
@@ -206,8 +211,10 @@ def test_train_entry_point_raises_without_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_training_routes_raise(tmp_path):
-    """Training refuses what it has not ported, before the driver (which
-    would retry the error): a mesh, a (family, attention) pair the port
+    """Training refuses what it cannot run, before the driver (which
+    would retry the error): a mesh without its ranks (no process group,
+    no torchrun; the sharded step's own refusals are in
+    test_torch_train_sharded.py), a (family, attention) pair the port
     does not serve, and in ``train_main`` the vlm and encdec families,
     whose batches need features its token loader does not make.  The
     blockwise attention route (``attn_impl="xla"``) is ported: those
@@ -219,7 +226,7 @@ def test_unported_training_routes_raise(tmp_path):
     from repro_torch.models.attention import multihead_attention
     kw = dict(steps=1, log_every=0, device="cpu",
               checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh needs 2 ranks"):
         train_main(data_axis=2, **kw)
     with pytest.raises(ValueError, match="feeds tokens only"):
         train_main(override_cfg=get_arch("internvl2-76b",

@@ -2343,3 +2343,80 @@ def test_reduced_bucketed_serve_matches_cpu(cuda, arch, layout):
     assert counts["flash_fwd"] == (cfg.num_layers + (
         cfg.encoder_layers + cfg.num_layers if cfg.family == "encdec"
         else 0)) * 3
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """An NCCL process group of one rank and its (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    init_distributed("cuda", rank=0, world_size=1,
+                     store_path=str(tmp_path / "store"), timeout_s=60)
+    try:
+        yield make_host_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("strategy", ["dp_all", "tp"])
+def test_sharded_train_step_on_one_nccl_rank(nccl_world1, strategy):
+    """The sharded step of the reduced llama3.2-1b (optimized profile,
+    f32) on a (1, 1) mesh over NCCL: 3 steps bit for bit the unsharded
+    step's (losses, every weight), the same kernel launches, no plain
+    call."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, _batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.hints import use_mesh
+    from repro_torch.parallel.sharding import gather_tree, shard_tree
+    mesh = nccl_world1
+    cfg = get_arch("llama3.2-1b", optimized=True).reduced().replace(
+        tp_strategy=strategy)
+    batches = [torch.from_numpy(_batch(DataConfig(cfg.vocab_size, 48, 4,
+                                                  seed=1), s)["tokens"]
+                                ).cuda() for s in range(3)]
+    runs = {}
+    for sharded in (False, True):
+        if sharded:
+            model, step, opt, (ps, _) = build_train_step(
+                cfg, 1e-3, "cuda", mesh=mesh, global_batch=4)
+            params = shard_tree(model.init(0), ps, mesh)
+        else:
+            model, step, opt = build_train_step(cfg, 1e-3, "cuda")
+            params = model.init(0)
+        state = opt.init(params)
+        losses = []
+        ops.reset_counts()
+        with dispatch.use(execute="kernel"), \
+                use_mesh(mesh if sharded else None):
+            for toks in batches:
+                params, state, m = step(params, state, {"tokens": toks})
+                losses.append(float(m["loss"]))
+        counts = ops.launch_counts()
+        if sharded:
+            params = gather_tree(params, ps, mesh)
+        runs[sharded] = (tree_leaves(params), losses, counts)
+    (p0, l0, c0), (p1, l1, c1) = runs[False], runs[True]
+    assert l1 == l0
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert c1 == c0 and c1["plain_calls"] == 0 and c1["rsa_gemm"] > 0
+    assert c1["flash_fwd"] > 0 and c1["flash_dkv"] > 0
+
+
+def test_quantized_psum_on_one_nccl_rank(nccl_world1):
+    """On one NCCL rank the int8 all-reduce is the round trip: the codes
+    at the second scale, the residual the first round trip's error."""
+    from repro_torch.parallel.collectives import (_dequant, _quant,
+                                                  quantized_psum_tree)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"w": torch.randn(257, 129, device="cuda", generator=g),
+            "b": torch.randn(7, device="cuda", generator=g) * 1e-3}
+    sums, errs = quantized_psum_tree(tree, None, 1)
+    for k, x in tree.items():
+        s1 = torch.clamp(x.abs().max(), min=1e-20) / 127.0
+        q = _quant(x, s1)
+        s2 = torch.clamp(_dequant(q, s1).abs().max(), min=1e-20) / 127.0
+        assert torch.equal(sums[k], _dequant(q, s2)), k
+        assert torch.equal(errs[k], x - _dequant(q, s1)), k
