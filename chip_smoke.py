@@ -304,7 +304,15 @@ Phases (any failure exits non-zero):
    reduced llama3.2-1b; the mesh branch of ``train_main`` over an NCCL
    group from torchrun's environment) against ``train_main`` on one
    device: the same printed losses, the final checkpoints bit for bit,
-   every GEMM site on the kernel.  The phase fails past its 240 s budget.
+   every GEMM site on the kernel.  (f) Megatron tensor parallelism: the
+   same two rank processes, after (d)'s step, on a (1, 2) mesh under
+   ``tp_strategy="tp"`` (``parallel/tp.py``), each rank its half of the
+   heads, FFN columns and vocab rows over the whole batch, one step: its
+   loss and grad norm against (a)'s step 1 with (d)'s gates, each rank's
+   blocks of each leaf within (d)'s rule at ``P18_LEAF_SHARE``, no plain
+   call, RSA GEMM and flash launches on each rank; each rank's step
+   seconds, peak memory, launch counts and local GEMM shapes printed.
+   The phase fails past its 240 s budget.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -315,7 +323,9 @@ W_UV) against their plain versions at phase 6's shapes, and the three
 flash-attention kernels (forward, dq, dk/dv; f32, and bf16 with all
 three on the tensor cores, run twice and bitwise)
 and every training GEMM
-(forward, dx and dw of each site, f32) at phase 7's shapes, and the WKV
+(forward, dx and dw of each site, f32) at phase 7's shapes and at the
+local shapes of 18f's ranks (with the flash kernels over a rank's
+heads), and the WKV
 kernel (prefill, ragged with decays down to -e, the chunk-1 decode, the
 state carry) and the linear-attention kernel at phase 8's widths, and the
 ADAPTNETX kernel (75, 108 and 135 classes; the reference's ids, ids past
@@ -459,6 +469,10 @@ P18_RANK_DEADLINE_S = 200.0
 P18_MAIN_ARGS = ("--optimized", "--steps", "3", "--batch", "8", "--seq",
                  "128")
 P18_MAIN_DEADLINE_S = 180.0
+# (d)'s and (f)'s ranks on the one card: (d) a (2, 1) mesh, (f) a (1, 2)
+# mesh under Megatron tp, each rank half the heads, FFN columns and vocab
+P18_RANKS = 2
+P18F_FLASH = "18f tp llama local heads"
 
 
 def log(*a):
@@ -6221,41 +6235,184 @@ def p18_compare(torch, params, specs, mesh, want_path):
 
 def p18_rank_main(rank: int, world: int, store: str, out: str,
                   want_path: str) -> int:
-    """One rank of 18d: the sharded step on a (world, 1) mesh over gloo
-    with CUDA tensors on device 0."""
+    """One rank of 18d, then of 18f, over gloo with CUDA tensors on device
+    0: 18d the sharded step on a (world, 1) mesh, a row of the batch each;
+    18f the Megatron tp step on a (1, world) mesh, the whole batch each."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.launch.steps import build_train_step
     from repro_torch.parallel.sharding import local_batch_rows, shard_tree
     t0 = time.time()
     init_distributed("cuda", rank=rank, world_size=world, store_path=store,
                      backend="gloo", timeout_s=120)
-    mesh = make_host_mesh(world, 1, "cuda")
-    cfg = p18_cfg()
-    model, step, opt, (ps, _) = build_train_step(
-        cfg, P18_LR, "cuda", mesh=mesh, global_batch=TRAIN_B)
-    params = shard_tree(model.init(0), ps, mesh)
-    opt_state = opt.init(params)
-    torch.cuda.empty_cache()
-    r0, n, over = local_batch_rows(TRAIN_B, cfg, mesh)
-    setup = time.time() - t0
-    first = {}
-    params, opt_state, losses, norms, secs, counts = p18_steps(
-        torch, step, params, opt_state, cfg, slice(r0, r0 + n), mesh,
-        lambda p: first.update(p18_compare(torch, p, ps, mesh, want_path)),
-        P18_RANK_STEPS)
-    rec = {"rank": rank, "rows": [r0, n], "over": list(over),
-           "losses": losses, "grad_norms": norms, "step_s": secs,
-           "counts": counts, "setup_s": setup, "leaves": first,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    group_s = time.time() - t0
+
+    def run(cfg, mesh):
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        model, step, opt, (ps, _) = build_train_step(
+            cfg, P18_LR, "cuda", mesh=mesh, global_batch=TRAIN_B)
+        params = shard_tree(model.init(0), ps, mesh)
+        opt_state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, n, over = local_batch_rows(TRAIN_B, cfg, mesh)
+        setup = time.time() - t0
+        first = {}
+        params, opt_state, losses, norms, secs, counts = p18_steps(
+            torch, step, params, opt_state, cfg, slice(r0, r0 + n), mesh,
+            lambda p: first.update(p18_compare(torch, p, ps, mesh,
+                                               want_path)),
+            P18_RANK_STEPS)
+        keys = [[list(k), v] for k, v in
+                sorted(rsa_gemm_cuda.launches_by_key.items())]
+        del params, opt_state, model, step, opt
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return {"rank": rank, "rows": [r0, n], "over": list(over),
+                "losses": losses, "grad_norms": norms, "step_s": secs,
+                "counts": counts, "gemm_keys": keys, "setup_s": setup,
+                "leaves": first,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    rec = run(p18_cfg(), make_host_mesh(world, 1, "cuda"))
+    rec["setup_s"] += group_s
+    rec["tp"] = run(p18_cfg().replace(tp_strategy="tp"),
+                    make_host_mesh(1, world, "cuda"))
     Path(out).write_text(json.dumps(rec))
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def p18f_local_cfg():
+    """Phase 18's llama3.2-1b as one rank of 18f's (1, 2) tp mesh computes
+    it: its share of the heads, kv heads, FFN columns and vocab rows."""
+    cfg = p18_cfg()
+    m = P18_RANKS
+    return cfg.replace(num_heads=cfg.num_heads // m,
+                       num_kv_heads=cfg.num_kv_heads // m,
+                       d_ff=cfg.d_ff // m, vocab_size=cfg.vocab_size // m)
+
+
+def check_p18f_kernels(torch, report, timer, dispatcher):
+    """The kernels of 18f's path at the local shapes a rank gives them
+    (f32): every training GEMM's forward, dx and dw (the column blocks
+    N / 2, the row blocks K / 2, the unembedding's vocab block; each of
+    the 11 shapes of 18f's step) and the three flash kernels over a
+    rank's heads, against their plain versions."""
+    lcfg = p18f_local_cfg()
+    log(f"  18f's local shapes (llama3.2-1b on a (1, {P18_RANKS}) tp mesh, "
+        f"a rank's {lcfg.num_heads}/{lcfg.num_kv_heads} heads, "
+        f"{lcfg.d_ff} FFN columns, {lcfg.vocab_size} vocab rows), f32")
+    report["p18f_gemm"] = []
+    # o's dw, (q / 2) x M x d, is a shape of its own once q / 2 != d
+    cases = train_gemm_cases(lcfg) + [
+        ("o", "dw", lcfg.q_dim, TRAIN_B * TRAIN_S, lcfg.d_model, True,
+         False)]
+    ok = check_train_gemms(torch, report, lcfg, dispatcher, cases=cases,
+                           key="p18f_gemm")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    rec, good = flash_case(torch, timer, gen, P18F_FLASH, TRAIN_B, TRAIN_S,
+                           TRAIN_S, True, torch.float32, lcfg.num_heads,
+                           lcfg.num_kv_heads, lcfg.head_dim)
+    report["p18f_flash"] = rec
+    torch.cuda.empty_cache()
+    return ok and good
+
+
+def p18_table(report):
+    """18f's kernel-table entries: the RSA GEMM at each local training
+    shape and the flash kernels over a rank's heads, with rank 0's
+    launches in 18f's step."""
+    tp = report.get("p18", {}).get("tp", {})
+    if not tp.get("ranks"):
+        return []
+    r0 = tp["ranks"][0]
+    keys = {tuple(k): v for k, v in r0["gemm_keys"]}
+    out = [gemm_entry(rec, f"rsa_gemm[18f tp {rec['site']} {rec['pass']} "
+                           f"{rec['M']}x{rec['K']}x{rec['N']} {rec['mode']} "
+                           f"f32]", keys.get(tuple(rec["key"]), 0))
+           for rec in report["p18f_gemm"]]
+    rec = report["p18f_flash"]
+    for name, t in rec["timed"].items():
+        out.append({
+            "name": f"{name}[18f tp B={rec['B']} S={rec['Sq']} H="
+                    f"{rec['H']}/{rec['KVH']} f32, a rank's heads]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": FLASH_TPU[name], "launches": r0["counts"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
+
+
+def p18_tp(rep, recs, losses, norms, counts, n_want):
+    """18f's gates, from the ranks' records: the Megatron tp step 1 of
+    full-width llama3.2-1b on a (1, 2) mesh (each rank its heads, FFN
+    columns and vocab rows, the whole batch) against (a)'s step 1: its
+    loss within 1e-5 and grad norm within 1e-4 (phase 7's gates), each
+    rank's blocks of each leaf within (d)'s rule at ``P18_LEAF_SHARE`` of
+    the leaf's elements, no plain call, and RSA GEMM and flash launches on
+    each rank."""
+    log(f"  18f Megatron tp on a (1, {P18_RANKS}) mesh over gloo: each rank "
+        f"its heads, FFN columns and vocab rows, the whole batch")
+    if recs is None:
+        rep["tp"] = {"ok": False}
+        log("    the ranks failed (18d): FAIL")
+        return False
+    tps = [r["tp"] for r in recs]
+    loss_err = max(abs(t["losses"][0] - losses[0]) / abs(losses[0])
+                   for t in tps)
+    gn_err = max(abs(t["grad_norms"][0] - norms[0]) / abs(norms[0])
+                 for t in tps)
+    share = {k: sum(t["leaves"][k]["within"] for t in tps)
+             / sum(t["leaves"][k]["n"] for t in tps)
+             for k in tps[0]["leaves"]}
+    worst = min((v, k) for k, v in share.items())
+    max_diff = max(v["max_diff"] for t in tps for v in t["leaves"].values())
+    kernels = ("rsa_gemm", "flash_fwd", "flash_dq", "flash_dkv")
+    launched = all(t["counts"][k] > 0 for t in tps for k in kernels)
+    plain = sum(t["counts"]["plain_calls"] for t in tps)
+    # each rank runs (a)'s launches a step, each on its local shapes
+    as_a = all(t["counts"][k] * P18_STEPS == counts[k] * P18_RANK_STEPS
+               for t in tps for k in kernels)
+    good = (loss_err <= 1e-5 and gn_err <= 1e-4 and launched and plain == 0
+            and worst[0] >= P18_LEAF_SHARE
+            and {len(t["leaves"]) for t in tps} == {n_want})
+    shapes = sorted({tuple(k[-4:-1]) for k, _ in tps[0]["gemm_keys"]})
+    rep["tp"] = {"mesh": [1, P18_RANKS], "ranks": tps,
+                 "step1_loss_rel_err": loss_err,
+                 "step1_grad_norm_rel_err": gn_err, "leaf_share": share,
+                 "weights_worst_leaf": list(worst),
+                 "weights_max_diff": max_diff, "launches_as_a": as_a,
+                 "gemm_shapes": shapes, "ok": good}
+    log(f"    step 1's loss {tps[0]['losses'][0]:.6f} (rel {loss_err:.2e}, "
+        f"tol 1e-5), grad norm {tps[0]['grad_norms'][0]:.4f} (rel "
+        f"{gn_err:.2e}, tol 1e-4); weights after step 1, each of "
+        f"{len(share)} leaves within (d)'s rule at the least "
+        f"{100 * worst[0]:.3f}% ({worst[1]}; tol "
+        f"{100 * P18_LEAF_SHARE:.1f}%), largest difference {max_diff:.2e}; "
+        f"{plain} plain calls")
+    for t in tps:
+        c = t["counts"]
+        log(f"    rank {t['rank']}: step 1 {1e3 * t['step_s'][0]:.1f} ms, "
+            f"setup {t['setup_s']:.1f} s, peak memory "
+            f"{t['peak_memory_gb']:.1f} GB; launches {c['rsa_gemm']} RSA "
+            f"GEMM, {c['flash_fwd']} / {c['flash_dq']} / {c['flash_dkv']} "
+            f"flash fwd / dq / dk-dv ({'(a)' if as_a else 'NOT (a)'}'s a "
+            f"step)")
+    log(f"    local GEMM shapes (M x K x N) of rank 0: "
+        f"{', '.join('x'.join(map(str, k)) for k in shapes)}: "
+        + ("ok" if good else "FAIL"))
+    return good
 
 
 def p18_entry(rep, args):
@@ -6344,8 +6501,8 @@ def p18_entry(rep, args):
 def p18_all(torch, report):
     """Phase 18: (a) the unsharded step, (b) the sharded step over an
     NCCL group of one rank, (c) ``quantized_psum_tree`` over it, (d) two
-    ranks on the one card over gloo, (e) the train entry point under
-    torchrun."""
+    ranks on the one card over gloo, (f) the same ranks under Megatron tp
+    (``p18_tp``), (e) the train entry point under torchrun."""
     import torch.distributed as dist
     from repro_torch import dispatch
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
@@ -6473,9 +6630,10 @@ def p18_all(torch, report):
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
 
-    world = 2
+    world = P18_RANKS
     log(f"  18d {world} ranks on the one card: a ({world}, 1) mesh over gloo "
-        f"with CUDA tensors, a row of the batch each")
+        f"with CUDA tensors, a row of the batch each; then 18f, the same "
+        f"ranks on a (1, {world}) mesh under Megatron tp")
     store = ROOT / "build" / "p18_store2"
     store.unlink(missing_ok=True)
     outs = [ROOT / "build" / f"p18_rank{r}.json" for r in range(world)]
@@ -6503,7 +6661,7 @@ def p18_all(torch, report):
     want_path.unlink(missing_ok=True)
     wall2 = time.time() - t2
     recs = [json.loads(o.read_text()) if o.exists() else None for o in outs]
-    good = all(p.returncode == 0 for p in procs) and all(recs)
+    good = ran = all(p.returncode == 0 for p in procs) and all(recs)
     if good:
         loss1_err = max(abs(r["losses"][0] - losses[0]) / abs(losses[0])
                         for r in recs)
@@ -6562,6 +6720,7 @@ def p18_all(torch, report):
         for lg in logs:
             log("    " + lg[-2000:].replace("\n", "\n    "))
     ok &= good
+    ok &= p18_tp(rep, recs if ran else None, losses, norms, counts, n_want)
     ok &= p18_entry(rep, P18_MAIN_ARGS)
     rep["seconds"] = report["phase18_s"] = time.time() - t0
     within = rep["seconds"] <= P18_BUDGET_S
@@ -6705,6 +6864,7 @@ def kernel_table(report, gemm_keys, counts, ds_keys, train_keys, rw_keys,
     out += p13_table(report)
     out += p14_table(report)
     out += p15_table(report)
+    out += p18_table(report)
     for rec in report["paged"]:
         if "ms" not in rec or rec.get("case") in P13_PAGED:
             continue
@@ -6788,6 +6948,7 @@ def main() -> int:
         ok &= check_p13_kernels(torch, report, timer, dispatcher)
         ok &= check_p14_kernels(torch, report, timer, dispatcher)
         ok &= check_p15_kernels(torch, report, timer, dispatcher)
+        ok &= check_p18f_kernels(torch, report, timer, dispatcher)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -6909,7 +7070,8 @@ def main() -> int:
         f"at full width, f32, dp_all, {P18_STEPS} steps of {TRAIN_B} x "
         f"{TRAIN_S}: (a) unsharded, (b) a (1, 1) mesh over NCCL, (c) "
         f"quantized_psum_tree over it, (d) 2 ranks on the one card over "
-        f"gloo, (e) the train entry point under torchrun")
+        f"gloo, (e) the train entry point under torchrun, (f) Megatron tp "
+        f"on a (1, 2) mesh")
     ok &= p18_all(torch, report)
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)

@@ -13,6 +13,12 @@ under ``execute="torch"``.  The kernel's launch records in the same
 ``SiteRecord`` the plan it ran (tile, swap, split-K, walk, block_k), so
 the registry holds both.
 
+The (M, K, N) recorded is the one the kernel runs: under Megatron ``tp``
+(``parallel/tp.py``) a rank's local GEMM, its column block (N / m), row
+block (K / m) or bank of E_pad / m experts, where the reference's trace
+of its global program records the global shapes (ROADMAP §3); the
+shard-plan name is the mesh's recommendation for that (M, K, N).
+
 ``w`` may be a transposed view of a row-major (N, K) matrix (the tied
 unembedding ``embed.T``); the kernel reads it in place, with no copy.
 

@@ -10,17 +10,26 @@ active dispatch policy), then runs ``AdamW.update`` and
 ``"patch_embeds"`` (vlm) or ``"src_features"`` (encdec) passed through to
 the loss.
 
-Over a mesh (``build_train_step(..., mesh=, global_batch=)``) the step is
-FSDP / ZeRO-3 whatever the family: each rank holds the block of every
-parameter and of its AdamW moments that ``param_specs`` gives it and its
-rows of the global batch (``batch_specs``).  A step all-gathers the
+Over a mesh (``build_train_step(..., mesh=, global_batch=)``) each rank
+holds the block of every parameter and of its AdamW moments that
+``param_specs`` gives it and its rows of the global batch
+(``batch_specs``).  Under ``dp_all*``, and under ``tp`` on a ``model``
+axis of one rank, the step is FSDP / ZeRO-3: it all-gathers the
 parameters to full, runs the same loss on its rows through the same
-kernels (the cross-entropy's sum over the global count), reduce-scatters
-each gradient onto its leaf's spec over the ranks that hold other rows
-(all-reduces a replicated leaf), takes the clip's norm over every
-rank's distinct blocks, and runs AdamW on its blocks.  Megatron ``tp``
-over a ``model`` axis of more than one rank, and MoE on a mesh that
-shards the batch, raise (ROADMAP items 21 and 22).
+kernels (the cross-entropy's and a MoE layer's aux metrics' sums over
+the global counts), reduce-scatters each gradient onto its leaf's spec
+over the ranks that hold other rows (all-reduces a replicated leaf),
+takes the clip's norm over every rank's distinct blocks, and runs AdamW
+on its blocks.  Under ``tp`` on a ``model`` axis of m > 1 ranks it is
+Megatron tensor parallelism as well (``parallel/tp.py``): a leaf whose
+``model`` block holds whole heads, FFN hidden columns, experts or vocab
+rows is gathered over the other axes only, and the rank computes on its
+block, all-reducing over ``model`` where Megatron does; every other leaf
+is gathered whole.  Each gradient is reduced by ``sharding.tp_use``: a
+block's over the batch axes, a leaf that a rank uses only in part (K/V
+whose kv heads do not divide m, the q/k/v biases, the untied
+unembedding's vocab columns) over ``model`` too.  The ssm and hybrid
+families under ``tp`` with m > 1 raise (ROADMAP item 21b).
 
 ``build_cell`` is the counterpart of the reference's ``lower_for_cell``:
 where the reference lowers a cell's step against abstract inputs, it
@@ -32,7 +41,6 @@ and time (``launch/profile.py``).  ``ShapeSpec`` lives in
 from __future__ import annotations
 
 import contextlib
-import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -230,26 +238,20 @@ def make_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> AdamW:
 
 
 def check_mesh_layout(cfg: ArchConfig, mesh, global_batch: int) -> None:
-    """Refuse what the sharded step has not ported, before anything runs:
-    Megatron ``tp`` over a ``model`` axis of more than one rank, and a MoE
-    model on a mesh that shards its batch (capacity and the load-balance
-    statistics are batch-wide in the reference's global program; a rank
-    that routes only its own rows would drop other tokens)."""
-    from repro_torch.parallel.sharding import axis_sizes, batch_shard_axes
-    sizes = axis_sizes(mesh)
-    model = sizes.get("model", 1)
-    if cfg.tp_strategy == "tp" and model > 1:
+    """Refuse what the sharded step has not ported, on every rank before
+    any collective: the recurrent families (ssm, hybrid) under Megatron
+    ``tp`` over a ``model`` axis of more than one rank, whose ``model``
+    rules cut packed or coupled projections (Mamba2's ``w_in`` over z / x
+    / B / C / dt; RWKV6's channel mix, whose column-split ``w_cr`` gates
+    the row-parallel ``w_cv``)."""
+    from repro_torch.parallel.sharding import axis_sizes
+    model = axis_sizes(mesh).get("model", 1)
+    if cfg.tp_strategy == "tp" and model > 1 and \
+            cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: tp_strategy='tp' over a model axis of {model} "
-            f"ranks is Megatron tensor parallelism, not ported (ROADMAP "
-            f"item 21); use model_axis=1 (FSDP over data) or dp_all")
-    shards = math.prod(sizes[a] for a in
-                       batch_shard_axes(int(global_batch), cfg, mesh))
-    if cfg.moe is not None and shards > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE on a mesh that shards the batch over {shards} "
-            f"ranks needs batch-wide capacity and load-balance statistics, "
-            f"not ported (ROADMAP item 22)")
+            f"ranks for the {cfg.family} family is not ported (ROADMAP "
+            f"item 21b); use model_axis=1 (FSDP over data) or dp_all")
 
 
 def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
@@ -294,21 +296,32 @@ def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
 def _sharded_train_step(model: Model, opt: AdamW, mesh, global_batch: int):
     import torch.distributed as dist
 
+    from repro_torch.models.transformer import AUX_KEYS
     from repro_torch.optim.adamw import AdamWState, tree_leaves
     from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.hints import use_mesh
 
     cfg = model.cfg
-    p_specs = sh.param_specs(model.init_abstract(), cfg, mesh)
+    abstract = model.init_abstract()
+    p_specs = sh.param_specs(abstract, cfg, mesh)
     o_specs = AdamWState(step=sh.P(), m=p_specs, v=p_specs)
     _, _, over = sh.local_batch_rows(global_batch, cfg, mesh)
     spec_leaves = tree_leaves(p_specs)
-
-    def count_fn(cnt):
-        return sh.sum_over(cnt, mesh, over)
+    # how each leaf's model block is used (all "whole" outside tp over a
+    # model axis > 1): a block computed on locally stays cut over model
+    use = dict(sh._flat_with_path(sh.tp_use(abstract, cfg, mesh)))
+    g_specs = sh._map_with_path(
+        lambda p, s: sh.without_model(s) if use[p] == "local" else s,
+        p_specs)
+    flat_g = dict(sh._flat_with_path(g_specs))
+    over_of = {"local": over, "whole": over, "part": over + ("model",)}
+    # the sums over the ranks that hold other rows (none: nothing to sum,
+    # and the loss's arithmetic stays the one-device step's)
+    count_fn = (lambda cnt: sh.sum_over(cnt, mesh, over)) if over else None
 
     def train_step(params, opt_state, batch):
-        full = sh.gather_tree(params, p_specs, mesh)
-        with torch.enable_grad():
+        full = sh.gather_tree(params, g_specs, mesh)
+        with torch.enable_grad(), use_mesh(mesh):
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),
                               full)
             del full
@@ -320,11 +333,10 @@ def _sharded_train_step(model: Model, opt: AdamW, mesh, global_batch: int):
         metrics = {k: v.detach() for k, v in metrics.items()}
         flat = dict(sh._flat_with_path(leaves))
         del leaves
-        flat_s = dict(sh._flat_with_path(p_specs))
         grads = {}
         for path in sorted(flat):
-            grads[path] = sh.reduce_leaf(flat.pop(path).grad, flat_s[path],
-                                         mesh, over)
+            grads[path] = sh.reduce_leaf(flat.pop(path).grad, flat_g[path],
+                                         mesh, over_of[use[path]])
         grads = sh._map_with_path(lambda p, _: grads[p], params)
         # the clip's norm: each distinct block counted once, summed over
         # every rank
@@ -337,10 +349,10 @@ def _sharded_train_step(model: Model, opt: AdamW, mesh, global_batch: int):
             grads, opt_state, params, norm=torch.sqrt(sq))
         del grads
         params = apply_updates(params, updates)
-        # the cross-entropy and the loss, each rank's sum over the global
-        # count, summed over the ranks that hold other rows
+        # the cross-entropy, the aux metrics and the loss, each rank's sum
+        # over the global count, summed over the ranks that hold other rows
         out = dict(metrics, loss=loss)
-        for k in ("ce_loss", "loss"):
+        for k in ("ce_loss", "loss") + AUX_KEYS:
             if k in out:
                 out[k] = sh.sum_over(out[k], mesh, over)
         out = {**out, **opt_metrics, "loss": out["loss"]}

@@ -16,13 +16,20 @@ restart, straggler monitor.
 Over a mesh (a process group is up, the process runs under ``torchrun
 --nproc-per-node N``, or ``data_axis`` x ``model_axis`` > 1): a
 ``(data, model)`` ``DeviceMesh`` over the group (NCCL on CUDA, gloo on
-the CPU), the sharded FSDP / ZeRO-3 step of ``launch/steps.py``, each rank its rows of
-the same global batch (``data/pipeline.py``'s pure ``_batch``), saves
-gathered to rank 0's files and collective restarts.  ``tp`` over a model
-axis > 1 and MoE on a batch-sharded mesh raise before the driver.
+the CPU), the sharded step of ``launch/steps.py`` (FSDP / ZeRO-3 over
+``data``, Megatron tensor parallelism over a ``model`` axis > 1 under
+the config's ``tp_strategy="tp"``), each rank its rows of the same global
+batch (``data/pipeline.py``'s pure ``_batch``), saves gathered to rank
+0's files and collective restarts.  The ssm and hybrid families under
+``tp`` over a model axis > 1 raise before the driver (ROADMAP item 21b).
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --data-axis 2 --model-axis 2 --device cpu --steps 3
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --data-axis 2 --model-axis 2 --device cpu --steps 3 --optimized
+
+The first runs llama's default ``tp``; ``--optimized`` gives llama the
+reference's ``dp_all`` where the batch divides the ranks.
 
 ``--optimized`` applies the reference's optimized profile
 (``attn_impl="pallas"``, the flash kernels; ``ssm_impl="pallas"`` for
@@ -66,7 +73,6 @@ def train_main(arch: str = "llama3.2-1b", preset: str = "reduced",
     from repro_torch.launch.steps import _dispatch_ctx, build_train_step
     from repro_torch.models.api import resolve_device
     from repro_torch.models.transformer import check_trained_family
-    from repro_torch.parallel.hints import use_mesh
     from repro_torch.runtime.driver import DriverConfig, TrainDriver
 
     dev = resolve_device(device)
@@ -141,8 +147,8 @@ def train_main(arch: str = "llama3.2-1b", preset: str = "reduced",
     registry = dispatch.SiteRegistry()
 
     def wrapped_step(params, opt_state, batch):
-        with use_mesh(mesh), \
-                _dispatch_ctx("train_step", execute, registry):
+        # the sharded step sets the ambient mesh itself
+        with _dispatch_ctx("train_step", execute, registry):
             return step_fn(params, opt_state, batch)
 
     driver = TrainDriver(

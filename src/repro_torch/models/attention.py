@@ -39,6 +39,7 @@ from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import (apply_rope, dense, dense_init,
                                         dtype_of, rmsnorm, softcap)
+from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
 NEG_INF = -2.0e38
@@ -168,19 +169,36 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
     return p
 
 
+def head_tp(params, cfg: ArchConfig):
+    """The ``model`` axis where a GQA block's ``wq`` holds a block of the
+    heads (Megatron ``tp``: ``parallel/tp.py``), else None."""
+    return tp_mod.local(cfg, params["wq"].shape[-1], cfg.q_dim)
+
+
 def _proj_qkv(params, x, kv_x, cfg: ArchConfig, compute_dtype,
               site: str = "layer.attn"):
+    """q, k, v (B, S, heads, hd) with the head counts of the weights held:
+    under ``tp`` this rank's query heads, and the kv heads they use."""
     B = x.shape[0]
-    q = dense(x, params["wq"], params.get("bq"), compute_dtype,
-              site=f"{site}.q")
-    k = dense(kv_x, params["wk"], params.get("bk"), compute_dtype,
-              site=f"{site}.k")
-    v = dense(kv_x, params["wv"], params.get("bv"), compute_dtype,
-              site=f"{site}.v")
-    q = q.reshape(B, x.shape[1], cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, kv_x.shape[1], cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, kv_x.shape[1], cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    tp = head_tp(params, cfg)
+    same = kv_x is x
+    x = tp_mod.copy_in(x, tp)
+    kv_x = x if same else tp_mod.copy_in(kv_x, tp)
+    q = dense(x, params["wq"], tp_mod.cols(
+        params.get("bq"), params["wq"].shape[-1], tp), compute_dtype,
+        site=f"{site}.q")
+    k = dense(kv_x, params["wk"], tp_mod.cols(
+        params.get("bk"), params["wk"].shape[-1], tp), compute_dtype,
+        site=f"{site}.k")
+    v = dense(kv_x, params["wv"], tp_mod.cols(
+        params.get("bv"), params["wv"].shape[-1], tp), compute_dtype,
+        site=f"{site}.v")
+    hd = cfg.head_dim
+    q = q.reshape(B, x.shape[1], -1, hd)
+    k = k.reshape(B, kv_x.shape[1], -1, hd)
+    v = v.reshape(B, kv_x.shape[1], -1, hd)
+    heads = (cfg.num_heads, cfg.num_kv_heads, tp)
+    return q, tp_mod.kv_for_heads(k, *heads), tp_mod.kv_for_heads(v, *heads)
 
 
 def multihead_attention(q, k, v, *, causal: bool, q_offset: Offset = 0,
@@ -275,8 +293,9 @@ def gqa_self_attention(params: Params, x: torch.Tensor,
                                   causal_skip=cfg.flash_causal_skip,
                                   impl=cfg.attn_impl)
     B, S = x.shape[0], x.shape[1]
-    return dense(out.reshape(B, S, cfg.q_dim), params["wo"], None, cdt,
-                 site="layer.attn.out"), new_cache
+    o = dense(out.reshape(B, S, -1), params["wo"], None, cdt,
+              site="layer.attn.out")
+    return tp_mod.reduce_out(o, head_tp(params, cfg)), new_cache
 
 
 def gqa_cross_attention(params: Params, x: torch.Tensor, enc_kv,
@@ -286,13 +305,16 @@ def gqa_cross_attention(params: Params, x: torch.Tensor, enc_kv,
     ``attn_impl="pallas"``, the blockwise route for a decode step."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S = x.shape[0], x.shape[1]
-    q = dense(x, params["wq"], params.get("bq"), cdt, site="layer.cross.q")
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    tp = head_tp(params, cfg)
+    q = dense(tp_mod.copy_in(x, tp), params["wq"], tp_mod.cols(
+        params.get("bq"), params["wq"].shape[-1], tp), cdt,
+        site="layer.cross.q")
+    q = q.reshape(B, S, -1, cfg.head_dim)
     k, v = enc_kv
     out = multihead_attention(q, k.to(cdt), v.to(cdt), causal=False,
                               chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    return dense(out.reshape(B, S, cfg.q_dim), params["wo"], None, cdt,
-                 site="layer.cross.out")
+    return tp_mod.reduce_out(dense(out.reshape(B, S, -1), params["wo"], None,
+                                   cdt, site="layer.cross.out"), tp)
 
 
 def cross_attention_kv(params: Params, enc_out: torch.Tensor,
@@ -301,12 +323,17 @@ def cross_attention_kv(params: Params, enc_out: torch.Tensor,
     S_src, d): ((B, S_src, KVH, hd), (B, S_src, KVH, hd))."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S = enc_out.shape[0], enc_out.shape[1]
-    k = dense(enc_out, params["wk"], params.get("bk"), cdt,
-              site="layer.cross.k")
-    v = dense(enc_out, params["wv"], params.get("bv"), cdt,
-              site="layer.cross.v")
-    return (k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
+    tp = head_tp(params, cfg)
+    enc_out = tp_mod.copy_in(enc_out, tp)
+    k = dense(enc_out, params["wk"], tp_mod.cols(
+        params.get("bk"), params["wk"].shape[-1], tp), cdt,
+        site="layer.cross.k")
+    v = dense(enc_out, params["wv"], tp_mod.cols(
+        params.get("bv"), params["wv"].shape[-1], tp), cdt,
+        site="layer.cross.v")
+    heads = (cfg.num_heads, cfg.num_kv_heads, tp)
+    return (tp_mod.kv_for_heads(k.reshape(B, S, -1, cfg.head_dim), *heads),
+            tp_mod.kv_for_heads(v.reshape(B, S, -1, cfg.head_dim), *heads))
 
 
 def init_gqa_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -484,14 +511,17 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
     }
 
 
-def _mla_q(params, x, positions, cfg: ArchConfig, cdt):
+def _mla_q(params, x, positions, cfg: ArchConfig, cdt, tp=None):
+    """(q_nope, q_rope) over the heads ``w_uq`` holds; under ``tp`` the
+    replicated latent enters this rank's heads through ``copy_in``."""
     m = cfg.mla
     B, S = x.shape[0], x.shape[1]
     cq = rmsnorm(dense(x, params["w_dq"], None, cdt,
                        site="layer.mla.q_down"), params["q_norm"],
                  cfg.norm_eps)
-    q = dense(cq, params["w_uq"], None, cdt, site="layer.mla.q_up").reshape(
-        B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = dense(tp_mod.copy_in(cq, tp), params["w_uq"], None, cdt,
+              site="layer.mla.q_up").reshape(
+        B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
                                      m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -620,27 +650,34 @@ def mla_self_attention(params: Params, x: torch.Tensor,
     cdt = dtype_of(cfg.compute_dtype)
     B, S = x.shape[0], x.shape[1]
     H = cfg.num_heads
-    q_nope, q_rope = _mla_q(params, x, positions, cfg, cdt)
+    # Megatron tp (training only): this rank's heads of w_uq / w_uk / w_uv
+    # and wo; the latents, the shared rope key and their projections stay
+    # replicated and enter the heads through copy_in
+    tp = tp_mod.local(cfg, params["w_uk"].shape[-1],
+                      H * m.qk_nope_head_dim)
+    q_nope, q_rope = _mla_q(params, x, positions, cfg, cdt, tp)
     c_kv, k_rope = _mla_ckv(params, x, positions, cfg, cdt)
     if cache is None:
         if update_cache:
             raise ValueError("prefill with a cache must pass an initialized "
                              "cache")
-        k_nope = dense(c_kv, params["w_uk"], None, cdt,
+        H = q_nope.shape[2]
+        c_in = tp_mod.copy_in(c_kv, tp)
+        k_nope = dense(c_in, params["w_uk"], None, cdt,
                        site="layer.mla.k_up").reshape(
             B, S, H, m.qk_nope_head_dim)
-        v = dense(c_kv, params["w_uv"], None, cdt,
+        v = dense(c_in, params["w_uv"], None, cdt,
                   site="layer.mla.v_up").reshape(B, S, H, m.v_head_dim)
-        k_rope_b = k_rope[:, :, None, :].expand(B, S, H,
-                                                m.qk_rope_head_dim)
+        k_rope_b = tp_mod.copy_in(k_rope, tp)[:, :, None, :].expand(
+            B, S, H, m.qk_rope_head_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope_b], dim=-1)
         out = multihead_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
                                   causal_skip=cfg.flash_causal_skip,
                                   impl=cfg.attn_impl)
         out = out.reshape(B, S, H * m.v_head_dim)
-        return dense(out, params["wo"], None, cdt,
-                     site="layer.mla.out"), None
+        return tp_mod.reduce_out(dense(out, params["wo"], None, cdt,
+                                       site="layer.mla.out"), tp), None
     start = cache.length
     new_cache = _cache_update(cache, c_kv, k_rope)
     ckv_all, krope_all = new_cache.k.to(cdt), new_cache.v.to(cdt)

@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import activation, dense, dense_init, dtype_of
+from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
 
@@ -28,8 +29,15 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, cfg: ArchConfig,
 
 def mlp_apply(params: Params, x: torch.Tensor,
               cfg: ArchConfig) -> torch.Tensor:
+    """The gated MLP of ``cfg.d_ff`` hidden columns; under Megatron ``tp``
+    over this rank's block of them (``w_gate`` / ``w_up`` columns,
+    ``w_down`` rows), x through ``copy_in`` and the partial sum through
+    ``reduce_out``."""
     cdt = dtype_of(cfg.compute_dtype)
     act = activation(cfg.mlp_activation)
+    tp = tp_mod.local(cfg, params["w_gate"].shape[-1], cfg.d_ff)
+    x = tp_mod.copy_in(x, tp)
     g = act(dense(x, params["w_gate"], None, cdt, site="layer.mlp.gate"))
     u = dense(x, params["w_up"], None, cdt, site="layer.mlp.up")
-    return dense(g * u, params["w_down"], None, cdt, site="layer.mlp.down")
+    return tp_mod.reduce_out(dense(g * u, params["w_down"], None, cdt,
+                                   site="layer.mlp.down"), tp)

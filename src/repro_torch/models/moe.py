@@ -37,6 +37,7 @@ from repro_torch import dispatch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.modules import (activation, dense, dense_init,
                                         dtype_of)
+from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
 
@@ -137,19 +138,41 @@ def route(params: Params, x: torch.Tensor, cfg: ArchConfig):
 
 
 def moe_aux(logits: torch.Tensor, probs: torch.Tensor, top_idx: torch.Tensor,
-            keep: torch.Tensor, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+            keep: torch.Tensor, cfg: ArchConfig,
+            batch_sum=None) -> Dict[str, torch.Tensor]:
     """The reference's aux metrics over the real experts E: the Switch
     load-balance loss E * sum_e f_e p_e (f_e the share of tokens whose
     top-1 is e, p_e the mean probability of e), the z-loss mean(logsumexp
     (logits)^2), and the share of (token, choice) pairs dropped past
-    capacity."""
+    capacity.
+
+    ``batch_sum`` (a sharded step whose ranks hold other rows of the
+    batch) sums a tensor over those ranks: each metric is then this
+    rank's partial term over the global counts, and the terms sum over
+    the ranks to the metric of the whole batch (the cross-entropy's
+    pattern): f_e from the summed top-1 counts over the global token count
+    N (it has no gradient), E * sum_e f_e * (this rank's sum of p_e) / N,
+    this rank's sum of logsumexp^2 over N, and its dropped pairs over the
+    global pair count.  Capacity is per row, so no drop depends on the
+    other ranks' rows."""
     E = cfg.moe.num_experts
-    me = probs[..., :E].reshape(-1, E).mean(0)
     top1 = torch.nn.functional.one_hot(top_idx[..., 0], probs.shape[-1])
-    fe = top1[..., :E].reshape(-1, E).float().mean(0)
-    return {"moe_lb_loss": E * (me * fe).sum(),
-            "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
-            "moe_drop_frac": 1.0 - keep.float().mean()}
+    if batch_sum is None:
+        me = probs[..., :E].reshape(-1, E).mean(0)
+        fe = top1[..., :E].reshape(-1, E).float().mean(0)
+        return {"moe_lb_loss": E * (me * fe).sum(),
+                "moe_z_loss": torch.logsumexp(logits,
+                                              dim=-1).square().mean(),
+                "moe_drop_frac": 1.0 - keep.float().mean()}
+    dev = probs.device
+    p_sum = probs[..., :E].reshape(-1, E).sum(0)
+    n = batch_sum(torch.tensor(float(top_idx[..., 0].numel()), device=dev))
+    fe = batch_sum(top1[..., :E].reshape(-1, E).float().sum(0)) / n
+    pairs = batch_sum(torch.tensor(float(keep.numel()), device=dev))
+    return {"moe_lb_loss": E * (fe * p_sum).sum() / n,
+            "moe_z_loss": torch.logsumexp(logits,
+                                          dim=-1).square().sum() / n,
+            "moe_drop_frac": (~keep).float().sum() / pairs}
 
 
 def dispatch_plan(top_idx: torch.Tensor, E_pad: int, C: int):
@@ -170,15 +193,25 @@ def dispatch_plan(top_idx: torch.Tensor, E_pad: int, C: int):
 
 
 def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
-              with_aux: bool = False):
+              with_aux: bool = False, batch_sum=None):
     """x: (B, S, d) -> (B, S, d), or with ``with_aux`` ((B, S, d), the
-    aux metrics of :func:`moe_aux`).  Without it the decision comes from
-    :func:`route` (which a caller may stand in for); with it the router's
-    logits are kept for the aux losses."""
+    aux metrics of :func:`moe_aux`, with its ``batch_sum``).  Without it
+    the decision comes from :func:`route` (which a caller may stand in
+    for); with it the router's logits are kept for the aux losses.
+
+    Under Megatron ``tp`` the expert banks hold this rank's E_pad / m
+    experts (EP over ``model``): the replicated router decides over all
+    E_pad experts as on one device, the buffer holds the slots of this
+    rank's experts only, and the combine's partial sum goes through
+    ``reduce_out`` (with the shared experts' partial sum, where they are
+    column / row parallel too).  x and the gates enter the rank's
+    experts through ``copy_in``."""
     m = cfg.moe
     cdt = dtype_of(cfg.compute_dtype)
     B, S, d = x.shape
     E_pad = params["router"].shape[-1]
+    E_loc = params["w_gate"].shape[-3]
+    tp = tp_mod.local(cfg, E_loc, E_pad)
     k = m.experts_per_token
     C = row_capacity(S, cfg)
     dev = x.device
@@ -191,16 +224,24 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
         top_idx, gate_vals = route(params, x, cfg)
     dest, st, order, keep = dispatch_plan(top_idx, E_pad, C)
     sg = torch.gather(gate_vals.reshape(B, S * k), 1, order)
+    xe, mine = x, keep
+    if tp is not None:
+        # this rank's experts' slots; every other pair is dropped here
+        lo = tp.rank * E_loc * C
+        mine = keep & (dest >= lo) & (dest < lo + E_loc * C)
+        dest = torch.where(mine, dest - lo, torch.full_like(dest,
+                                                            E_loc * C))
+        xe, sg = tp_mod.copy_in(x, tp), tp_mod.copy_in(sg, tp)
 
     # scatter each kept pair's row into its expert slot; dropped pairs add
-    # zero rows to the extra slot at E_pad * C
-    slots = E_pad * C + 1
+    # zero rows to the extra slot at E_loc * C
+    slots = E_loc * C + 1
     rows_b = torch.arange(B, device=dev)[:, None]
-    src = x.to(cdt)[rows_b, st] * keep[..., None].to(cdt)      # (B, S*k, d)
+    src = xe.to(cdt)[rows_b, st] * mine[..., None].to(cdt)     # (B, S*k, d)
     buf = torch.zeros((B * slots, d), dtype=cdt, device=dev)
     buf.index_add_(0, (dest + rows_b * slots).reshape(-1),
                    src.reshape(-1, d))
-    buf = buf.view(B, slots, d)[:, :-1].reshape(B, E_pad, C, d)
+    buf = buf.view(B, slots, d)[:, :-1].reshape(B, E_loc, C, d)
 
     act = activation(cfg.mlp_activation)
     g = dispatch.gemm(buf, params["w_gate"].to(cdt), site="moe.expert.gate")
@@ -208,19 +249,29 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig, *,
     out_buf = dispatch.gemm(act(g) * u, params["w_down"].to(cdt),
                             site="moe.expert.down")             # (B,E,C,d)
 
-    flat = out_buf.reshape(B, E_pad * C, d)
-    gathered = flat[rows_b, torch.clamp(dest, max=E_pad * C - 1)]
-    contrib = gathered * (sg * keep)[..., None].to(cdt)
+    flat = out_buf.reshape(B, E_loc * C, d)
+    gathered = flat[rows_b, torch.clamp(dest, max=E_loc * C - 1)]
+    contrib = gathered * (sg * mine)[..., None].to(cdt)
     y = torch.zeros((B * S, d), dtype=cdt, device=dev)
     y.index_add_(0, (st + rows_b * S).reshape(-1), contrib.reshape(-1, d))
     y = y.view(B, S, d)
 
     if "shared" in params:
         sp = params["shared"]
-        gs = act(dense(x, sp["w_gate"], None, cdt, site="moe.shared.gate"))
-        us = dense(x, sp["w_up"], None, cdt, site="moe.shared.up")
-        y = y + dense(gs * us, sp["w_down"], None, cdt,
-                      site="moe.shared.down")
+        tps = tp_mod.local(cfg, sp["w_gate"].shape[-1],
+                           m.d_ff_expert * m.num_shared_experts)
+        xs = xe if tps is not None and tp is not None else \
+            tp_mod.copy_in(x, tps)
+        gs = act(dense(xs, sp["w_gate"], None, cdt, site="moe.shared.gate"))
+        us = dense(xs, sp["w_up"], None, cdt, site="moe.shared.up")
+        ys = dense(gs * us, sp["w_down"], None, cdt, site="moe.shared.down")
+        if tps is not None and tp is not None:
+            y = tp_mod.reduce_out(y + ys, tp)   # one reduce for both sums
+        else:
+            y = tp_mod.reduce_out(y, tp) + tp_mod.reduce_out(ys, tps)
+    else:
+        y = tp_mod.reduce_out(y, tp)
     if with_aux:
-        return y.to(x.dtype), moe_aux(logits, probs, top_idx, keep, cfg)
+        return y.to(x.dtype), moe_aux(logits, probs, top_idx, keep, cfg,
+                                      batch_sum)
     return y.to(x.dtype)

@@ -45,6 +45,7 @@ from repro_torch.models.ssm import (MambaState, RWKVState,
                                     init_mamba_block, init_mamba_state,
                                     init_rwkv_block, init_rwkv_state,
                                     mamba_block_apply, rwkv_block_apply)
+from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
 
@@ -204,7 +205,14 @@ def layer_params(stacked: Params, i: int) -> Params:
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    """The token rows; vocab-parallel where the table is this rank's
+    block of rows (Megatron ``tp``)."""
+    e = params["embed"]
+    tp = tp_mod.local(cfg, e.shape[0], cfg.vocab_size)
+    if tp is not None:
+        return tp_mod.vocab_embed(e, tokens, tp).to(
+            dtype_of(cfg.compute_dtype))
+    return e[tokens.long()].to(dtype_of(cfg.compute_dtype))
 
 
 def _frontend_embed(params, feats: torch.Tensor,
@@ -215,9 +223,13 @@ def _frontend_embed(params, feats: torch.Tensor,
     fe = params["frontend"]
     if cfg.frontend.kind == "audio_frames":
         return dense(feats, fe["proj"], None, cdt, site="frontend.proj")
-    h = dense(feats, fe["proj1"], None, cdt, site="frontend.proj1")
-    return dense(torch.nn.functional.gelu(h, approximate="tanh"),
-                 fe["proj2"], None, cdt, site="frontend.proj2")
+    # Megatron tp: proj1's columns and proj2's rows of this rank's block
+    tp = tp_mod.local(cfg, fe["proj1"].shape[-1], cfg.d_model)
+    h = dense(tp_mod.copy_in(feats, tp), fe["proj1"], None, cdt,
+              site="frontend.proj1")
+    return tp_mod.reduce_out(dense(
+        torch.nn.functional.gelu(h, approximate="tanh"), fe["proj2"], None,
+        cdt, site="frontend.proj2"), tp)
 
 
 def encode(params: Params, feats: torch.Tensor, cfg: ArchConfig,
@@ -262,13 +274,16 @@ def _cross(p: Params, x, enc_kv, cfg: ArchConfig) -> torch.Tensor:
     return x + gqa_cross_attention(p["cross"], hc, enc_kv, cfg).to(x.dtype)
 
 
-def _ffn(p: Params, x, cfg: ArchConfig, with_aux: bool = False):
+def _ffn(p: Params, x, cfg: ArchConfig, with_aux: bool = False,
+         batch_sum=None):
     """The layer's feed-forward half, added to x: MoE or the dense MLP.
-    With ``with_aux``, (x, the MoE layer's aux metrics or zeros)."""
+    With ``with_aux``, (x, the MoE layer's aux metrics or zeros; see
+    ``moe_aux`` for ``batch_sum``)."""
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     aux = _zero_aux(x.device)
     if "moe" in p:
-        f = moe_apply(p["moe"], h2, cfg, with_aux=with_aux)
+        f = moe_apply(p["moe"], h2, cfg, with_aux=with_aux,
+                      batch_sum=batch_sum)
         if with_aux:
             f, aux = f
     else:
@@ -279,15 +294,15 @@ def _ffn(p: Params, x, cfg: ArchConfig, with_aux: bool = False):
 
 def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
                         cache=None, update_cache: bool = False,
-                        enc_kv=None, fresh: bool = False):
+                        enc_kv=None, fresh: bool = False, batch_sum=None):
     """One decoder layer over x (B, S, d): over a full sequence with no
     cache (training), or over a dense KV cache (prefill, decode; written
     in place), with the cross-attention block when ``enc_kv`` is given.
     ``fresh``: the cache holds no row yet (GQA attends over the new rows
     alone; see ``gqa_self_attention``).
     Returns (x, the layer's new cache or None, aux): a MoE layer's aux
-    metrics over a full sequence, zeros for a dense layer and over a cache
-    (serving, which drops them)."""
+    metrics over a full sequence (``batch_sum``: see ``moe_aux``), zeros
+    for a dense layer and over a cache (serving, which drops them)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attention_type == "mla":
         a, new_cache = mla_self_attention(p["attn"], h, positions, cfg,
@@ -300,7 +315,7 @@ def decoder_layer_apply(p: Params, x, positions, cfg: ArchConfig, *,
                                           fresh=fresh)
     x = _cross(p, x + a.to(x.dtype), enc_kv, cfg)
     if cache is None:
-        x, aux = _ffn(p, x, cfg, with_aux=True)
+        x, aux = _ffn(p, x, cfg, with_aux=True, batch_sum=batch_sum)
         return x, None, aux
     return _ffn(p, x, cfg), new_cache, _zero_aux(x.device)
 
@@ -437,23 +452,28 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 def _remat(fn, cfg: ArchConfig):
     """``fn`` checkpointed (its activations recomputed in the backward
-    pass) under ``cfg.remat``, as the reference's ``_maybe_remat``."""
+    pass) under ``cfg.remat``, as the reference's ``_maybe_remat``.  Under
+    Megatron ``tp`` a recomputed region runs its all-reduces again: every
+    rank recomputes the same regions in the same order, and no collective
+    depends on a rank's data."""
     if not cfg.remat:
         return fn
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def _decoder_stack(params: Params, x, positions, cfg: ArchConfig,
-                   enc_out=None):
+                   enc_out=None, batch_sum=None):
     """The layer loop of the reference's ``_scan_decoder`` (the
     ``dense_layers`` stack first), each layer under ``_remat``, the aux
-    metrics summed over the layers; with ``enc_out`` (encdec) each layer
-    first projects its cross K/V from it, inside its remat, as the
-    reference's ``dec_body``.  Returns (x, aux)."""
+    metrics summed over the layers (``batch_sum``: see ``moe_aux``); with
+    ``enc_out`` (encdec) each layer first projects its cross K/V from it,
+    inside its remat, as the reference's ``dec_body``.  Returns (x,
+    aux)."""
     def layer(lp, h, enc):
         enc_kv = None if enc is None else cross_attention_kv(lp["cross"],
                                                              enc, cfg)
-        h, _, a = decoder_layer_apply(lp, h, positions, cfg, enc_kv=enc_kv)
+        h, _, a = decoder_layer_apply(lp, h, positions, cfg, enc_kv=enc_kv,
+                                      batch_sum=batch_sum)
         return h, a
 
     body = _remat(layer, cfg)
@@ -501,14 +521,17 @@ def _hybrid_stack(params: Params, x, positions, cfg: ArchConfig):
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ArchConfig) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+            cfg: ArchConfig, batch_sum=None
+            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Training/eval forward (no cache).  ``batch["tokens"]`` (B, S + 1);
     vlm also takes ``batch["patch_embeds"]`` (B, n_img, feature_dim),
     projected and prepended to the text (predictions over the text only),
     and encdec ``batch["src_features"]`` (B, S_src, feature_dim), run
     through the encoder (each layer under remat) for every decoder layer's
-    cross attention.  Returns (hidden (B, S, d) after the final norm, aux,
-    loss mask (B, S)); logits are not materialised here."""
+    cross attention.  ``batch_sum``: a MoE layer's aux metrics as this
+    rank's terms of the whole batch's (see ``moe_aux``).  Returns (hidden
+    (B, S, d) after the final norm, aux, loss mask (B, S)); logits are not
+    materialised here."""
     check_trained_family(cfg)
     tokens = batch["tokens"]
     x = _embed(params, tokens[:, :-1], cfg)
@@ -526,15 +549,18 @@ def forward(params: Params, batch: Dict[str, torch.Tensor],
     else:
         enc_out = encode(params, batch["src_features"], cfg, train=True) \
             if cfg.family == "encdec" else None
-        x, aux = _decoder_stack(params, x, positions, cfg, enc_out)
+        x, aux = _decoder_stack(params, x, positions, cfg, enc_out,
+                                batch_sum)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)[:, n_img:]
     mask = torch.ones(tuple(tokens[:, 1:].shape), dtype=torch.float32,
                       device=x.device)
     return x, aux, mask
 
 
-def _chunk_loss(h, y, m, w):
+def _chunk_loss(h, y, m, w, tp=None):
     logits = dense(h, w, None, torch.float32, site="loss.unembed")
+    if tp is not None:                  # this rank's block of the vocab
+        return (tp_mod.vocab_ce(logits, y, tp) * m).sum(), m.sum()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y.long()[..., None])[..., 0]
     return ((lse - gold) * m).sum(), m.sum()
@@ -548,8 +574,17 @@ def chunked_ce_loss(params: Params, hidden, labels, mask,
     hidden (B, S, d); labels (B, S) int; mask (B, S).  ``count_fn`` maps
     the mask's count to the denominator: a sharded step's rank divides its
     own sum by the count over every rank's rows, so that the ranks'
-    gradients sum to the one-device gradient."""
+    gradients sum to the one-device gradient.  Under Megatron ``tp`` the
+    cross-entropy is vocab-parallel: each rank's logits over its block of
+    the vocab (the tied table's block of rows, or its columns of the
+    gathered unembedding), the hidden state through ``copy_in``."""
     w = _unembed_weight(params, cfg)
+    tp = tp_mod.context(cfg)
+    if tp is not None and cfg.vocab_size % tp.size == 0:
+        w = tp_mod.cols(w, cfg.vocab_size // tp.size, tp)
+        hidden = tp_mod.copy_in(hidden, tp)
+    else:
+        tp = None
     B, S, _ = hidden.shape
     c = min(cfg.loss_chunk, S)
     n = -(-S // c)
@@ -563,7 +598,7 @@ def chunked_ce_loss(params: Params, hidden, labels, mask,
     for i in range(n):
         rows = slice(i * c, (i + 1) * c)
         l, k = checkpoint(_chunk_loss, hidden[:, rows], labels[:, rows],
-                          mask[:, rows], w, use_reentrant=False)
+                          mask[:, rows], w, tp, use_reentrant=False)
         tot = tot + l
         cnt = cnt + k
     if count_fn is not None:
@@ -577,8 +612,9 @@ def loss_fn(params: Params, batch, cfg: ArchConfig,
     """(total loss, metrics) as the reference's ``loss_fn``: the
     cross-entropy (its denominator through ``count_fn``, as
     :func:`chunked_ce_loss` says), plus the weighted load-balance and z
-    losses of a MoE model."""
-    hidden, aux, mask = forward(params, batch, cfg)
+    losses of a MoE model (``count_fn`` sums them over the ranks that
+    hold other rows, as ``moe_aux``'s ``batch_sum``)."""
+    hidden, aux, mask = forward(params, batch, cfg, count_fn)
     labels = batch["tokens"][:, 1:]
     loss = chunked_ce_loss(params, hidden, labels, mask, cfg, count_fn)
     total = loss

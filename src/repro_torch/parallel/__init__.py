@@ -1,4 +1,5 @@
 """The distribution layer: the mesh's ambient state (``hints``), the
 sharding rules and the local blocks they give each rank (``sharding``),
-and the int8 error-feedback gradient all-reduce (``collectives``), on
+Megatron tensor parallelism's ops over the ``model`` axis (``tp``), and
+the int8 error-feedback gradient all-reduce (``collectives``), on
 ``torch.distributed``."""

@@ -28,7 +28,11 @@ blocks: ``shard_leaf`` cuts a full tensor to this rank's block of a spec,
 ``gather_leaf`` all-gathers the blocks back to the full tensor, and
 ``reduce_leaf`` sums a full-shaped gradient over the ranks that hold
 other rows of the batch and keeps this rank's block (a reduce-scatter),
-each collective on the ``DeviceMesh``'s group of one axis.
+each collective on the ``DeviceMesh``'s group of one axis.  Under
+Megatron ``tp`` over a ``model`` axis of more than one rank, ``tp_use``
+says which leaves a rank computes on its ``model`` block of (gathered
+over the other axes only, ``without_model``), which it uses in part and
+which whole (``launch/steps.py``'s sharded step, ``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -236,6 +240,70 @@ def param_specs(params_aval: Any, cfg: ArchConfig, mesh) -> Any:
                 spec = P()
         return _fits(spec, shape, mesh)
     return _map_with_path(spec_tp, params_aval)
+
+
+def tp_use(params_aval: Any, cfg: ArchConfig, mesh) -> Any:
+    """How the sharded step uses each leaf's ``model`` block, a tree of
+    the parameter tree's structure:
+
+    - ``"local"``: the rank computes on its block (whole heads, hidden
+      columns, experts or vocab rows), gathered over the other axes only;
+      its gradient is the block's, reduced over the batch axes;
+    - ``"part"``: gathered over ``model`` too (or replicated), and the rank
+      uses only a part of it (K/V whose kv heads do not divide the axis;
+      the replicated q/k/v biases; the untied unembedding's vocab
+      columns): each rank's gradient is partial, and
+      is summed over ``model`` as well before it is cut to the block;
+    - ``"whole"``: gathered, and used whole on every rank with a gradient
+      that is already equal on every ``model`` rank (the norms, the
+      router, MLA's down projections; every leaf outside ``tp`` or on a
+      ``model`` axis of one rank).
+
+    Attention is head-parallel where the heads divide the axis; else it
+    runs whole on every rank, as the reference's flash ``shard_map``
+    falls back to replicated heads."""
+    model = axis_sizes(mesh).get("model", 1)
+    if cfg.tp_strategy != "tp" or model == 1:
+        return _map_with_path(lambda *_: "whole", params_aval)
+    from repro_torch.models.moe import padded_num_experts
+    kv = "part" if cfg.num_heads % model == 0 else "whole"
+    vocab = "part" if cfg.vocab_size % model == 0 else "whole"
+    mo = cfg.moe
+    # (path-suffix regex, the units a block must hold whole, the use
+    # where the axis does not divide them).  The untied unembedding's
+    # rule cuts its d rows over `model` (the reference's `embed$` rule
+    # matches it first), so it is gathered and each rank uses its
+    # vocab columns
+    rules = [
+        (r"(^|/)embed$", cfg.vocab_size, "whole"),
+        (r"(^|/)unembed$", 0, vocab),
+        (r"(attn|cross)/w[qo]$|attn/w_u[qkv]$", cfg.num_heads, "whole"),
+        (r"(attn|cross)/w[kv]$", cfg.num_kv_heads, kv),
+        (r"(attn|cross)/b[qkv]$", 0, kv),
+        (r"mlp/w_(gate|up|down)$", cfg.d_ff, "whole"),
+        (r"moe/w_(gate|up|down)$", mo and padded_num_experts(cfg), "whole"),
+        (r"shared/w_(gate|up|down)$",
+         mo and mo.d_ff_expert * mo.num_shared_experts, "whole"),
+        (r"frontend/proj[12]$", cfg.d_model, "whole"),
+    ]
+
+    def use(ps, _):
+        for pat, units, other in rules:
+            if re.search(pat, ps):
+                return "local" if units and units % model == 0 else other
+        return "whole"
+    return _map_with_path(use, params_aval)
+
+
+def without_model(spec: P) -> P:
+    """``spec`` with the ``model`` axis taken out of every entry (the
+    layout of a block that stays cut over ``model``)."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in _entry_axes(e) if a != "model")
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return P(*out)
 
 
 def _batch_entry(mesh, cfg: Optional[ArchConfig]):

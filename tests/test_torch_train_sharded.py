@@ -39,9 +39,12 @@ killed past it) runs every multi-rank case:
   major), ``gather_leaf`` puts the blocks back, and ``reduce_leaf`` over
   each set of batch axes (none, data, model, both) is the block of the
   sum of the ranks' terms, as is ``sum_over`` of a scalar;
-- ``tp`` over a model axis of 2 and a MoE model on a batch-sharded mesh
-  raise ``NotImplementedError`` on every rank, naming their ROADMAP
-  items, and no rank is left waiting (the spawn goes on to its end).
+- the recurrent families under ``tp`` over a model axis of 2
+  (``rwkv6-1.6b`` and ``zamba2-7b`` on (2, 2)) raise
+  ``NotImplementedError`` on every rank, naming ROADMAP item 21b, and no
+  rank is left waiting (the spawn goes on to its end); Megatron ``tp``
+  for the attention families and MoE on a batch-sharded mesh run
+  (``test_torch_train_tp.py``).
 
 In this process, on a gloo group of one rank: the sharded (1, 1) step is
 bit for bit the unsharded step (losses, every parameter), under ``tp``
@@ -180,8 +183,8 @@ MAIN_CASES = {"main-llama": ("llama3.2-1b", False),
               "main-llama-failed": ("llama3.2-1b", True),
               "main-rwkv6": ("rwkv6-1.6b", False),
               "main-zamba2": ("zamba2-7b", False)}
-REFUSED = {"tp-2x2": ("llama3.2-1b", "tp", 2, 2),
-           "moe-2x2": ("qwen2-moe-a2.7b", "dp_all", 2, 2)}
+REFUSED = {"rwkv6-tp-2x2": ("rwkv6-1.6b", "tp", 2, 2),
+           "zamba2-tp-2x2": ("zamba2-7b", "tp", 2, 2)}
 
 
 def _specs():
@@ -479,21 +482,22 @@ def test_leaf_blocks_on_ranks(spawned):
 def test_unported_layouts_raise(spawned):
     _, res = spawned
     for r in range(4):
-        assert "ROADMAP item 21" in res[r]["tp-2x2"], res[r]["tp-2x2"]
-        assert "ROADMAP item 22" in res[r]["moe-2x2"], res[r]["moe-2x2"]
+        for name in REFUSED:
+            assert "ROADMAP item 21b" in res[r][name], res[r][name]
     from repro_torch.launch.steps import check_mesh_layout
 
     class FakeMesh:
         axis_names = ("data", "model")
         devices = np.empty((1, 2), dtype=object)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        check_mesh_layout(tiny("llama3.2-1b", "tp"), FakeMesh(), B)
-    check_mesh_layout(tiny("llama3.2-1b", "dp_all"), FakeMesh(), B)
-    # MoE trains where the batch is not sharded: B = 1 replicates
-    moe = tiny("qwen2-moe-a2.7b", "dp_all")
-    check_mesh_layout(moe, FakeMesh(), 1)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        check_mesh_layout(moe, FakeMesh(), B)
+    for arch in ("rwkv6-1.6b", "zamba2-7b"):
+        with pytest.raises(NotImplementedError, match="item 21b"):
+            check_mesh_layout(tiny(arch, "tp"), FakeMesh(), B)
+        check_mesh_layout(tiny(arch, "dp_all"), FakeMesh(), B)
+    # Megatron tp for the attention families, and MoE on a mesh that
+    # shards its batch, pass
+    check_mesh_layout(tiny("llama3.2-1b", "tp"), FakeMesh(), B)
+    check_mesh_layout(tiny("qwen2-moe-a2.7b", "dp_all"), FakeMesh(), B)
+    check_mesh_layout(tiny("qwen2-moe-a2.7b", "tp"), FakeMesh(), B)
 
 
 def test_train_main_needs_its_ranks(tmp_path):
