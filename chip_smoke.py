@@ -473,6 +473,12 @@ P18_MAIN_DEADLINE_S = 180.0
 # mesh under Megatron tp, each rank half the heads, FFN columns and vocab
 P18_RANKS = 2
 P18F_FLASH = "18f tp llama local heads"
+# (g): the recurrent families under Megatron tp on the same ranks' (1, 2)
+# mesh, full width, depth cut: (key, arch, layer slots); rwkv6 4 of 24
+# layers, zamba2 7 of 81 slots (six Mamba2 blocks, one pass of the shared
+# block)
+P18G_RUNS = (("rwkv6", "rwkv6-1.6b", 4), ("zamba2", "zamba2-7b", 7))
+P18G_FLASH = "18g tp zamba2 local heads"
 
 
 def log(*a):
@@ -6233,11 +6239,60 @@ def p18_compare(torch, params, specs, mesh, want_path):
     return out
 
 
+def p18_save_first(torch, params, init, path) -> int:
+    """Save the weights after step 1 for the ranks' ``p18_compare``
+    (each leaf, its largest magnitude and its travel from ``init``);
+    returns the count of leaves."""
+    from repro_torch.parallel.sharding import _flat_with_path
+    flat, flat0 = dict(_flat_with_path(params)), dict(_flat_with_path(init))
+    torch.save({"params": {k: t.cpu() for k, t in flat.items()},
+                "max": {k: float(t.abs().max()) for k, t in flat.items()},
+                "travel": {k: float((t - flat0[k]).abs().max())
+                           for k, t in flat.items()}}, path)
+    return len(flat)
+
+
+def p18g_one_device(torch, key, cfg, want_path):
+    """18g's one-device step 1 of ``cfg`` in this process, from
+    ``init(0)`` on phase 18's batch: its weights saved for the ranks
+    (``p18g_want``), its loss, grad norm, wall, launches and peak memory;
+    the step freed before it returns."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.modules import param_count
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step, opt = build_train_step(cfg, P18_LR, "cuda")
+    init = model.init(0)
+    saved = {}
+    params, opt_state, losses, norms, secs, counts = p18_steps(
+        torch, step, init, opt.init(init), cfg, slice(0, TRAIN_B),
+        after_first=lambda p: saved.update(leaves=p18_save_first(
+            torch, p, init, p18g_want(want_path, key))),
+        steps=P18_RANK_STEPS)
+    rec = {"arch": cfg.name, "num_layers": cfg.num_layers,
+           "params": param_count(init), "losses": losses,
+           "grad_norms": norms, "step_s": secs, "counts": counts,
+           "leaves": saved["leaves"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, opt_state, init, model, step, opt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"    18g {key} one device: {cfg.name} cut to {cfg.num_layers} "
+        f"slots, {rec['params'] / 1e9:.3f} B parameters: step 1 loss "
+        f"{losses[0]:.6f}, grad norm {norms[0]:.4f}, "
+        f"{1e3 * secs[0]:.1f} ms, peak memory {rec['peak_memory_gb']:.1f} "
+        f"GB; launches " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                     if v))
+    return rec
+
+
 def p18_rank_main(rank: int, world: int, store: str, out: str,
                   want_path: str) -> int:
-    """One rank of 18d, then of 18f, over gloo with CUDA tensors on device
-    0: 18d the sharded step on a (world, 1) mesh, a row of the batch each;
-    18f the Megatron tp step on a (1, world) mesh, the whole batch each."""
+    """One rank of 18d, then of 18f and 18g, over gloo with CUDA tensors on
+    device 0: 18d the sharded step on a (world, 1) mesh, a row of the batch
+    each; 18f the Megatron tp step on a (1, world) mesh, the whole batch
+    each; 18g the same for each of ``P18G_RUNS`` (the weights after its
+    one-device step 1 beside ``want_path``, ``p18g_want``)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -6252,7 +6307,7 @@ def p18_rank_main(rank: int, world: int, store: str, out: str,
                      backend="gloo", timeout_s=120)
     group_s = time.time() - t0
 
-    def run(cfg, mesh):
+    def run(cfg, mesh, want):
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
         model, step, opt, (ps, _) = build_train_step(
@@ -6266,8 +6321,7 @@ def p18_rank_main(rank: int, world: int, store: str, out: str,
         first = {}
         params, opt_state, losses, norms, secs, counts = p18_steps(
             torch, step, params, opt_state, cfg, slice(r0, r0 + n), mesh,
-            lambda p: first.update(p18_compare(torch, p, ps, mesh,
-                                               want_path)),
+            lambda p: first.update(p18_compare(torch, p, ps, mesh, want)),
             P18_RANK_STEPS)
         keys = [[list(k), v] for k, v in
                 sorted(rsa_gemm_cuda.launches_by_key.items())]
@@ -6280,10 +6334,14 @@ def p18_rank_main(rank: int, world: int, store: str, out: str,
                 "leaves": first,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
-    rec = run(p18_cfg(), make_host_mesh(world, 1, "cuda"))
+    rec = run(p18_cfg(), make_host_mesh(world, 1, "cuda"), want_path)
     rec["setup_s"] += group_s
-    rec["tp"] = run(p18_cfg().replace(tp_strategy="tp"),
-                    make_host_mesh(1, world, "cuda"))
+    tp_mesh = make_host_mesh(1, world, "cuda")
+    rec["tp"] = run(p18_cfg().replace(tp_strategy="tp"), tp_mesh,
+                    want_path)
+    rec["tp_g"] = {key: run(p18g_cfg(arch, layers), tp_mesh,
+                            p18g_want(want_path, key))
+                   for key, arch, layers in P18G_RUNS}
     Path(out).write_text(json.dumps(rec))
     dist.barrier()
     dist.destroy_process_group()
@@ -6327,10 +6385,125 @@ def check_p18f_kernels(torch, report, timer, dispatcher):
     return ok and good
 
 
+def p18g_cfg(arch, layers):
+    """18g's config of ``arch``: the optimized profile (the WKV and flash
+    kernels), full width cut to ``layers`` slots, f32, Megatron tp."""
+    from repro_torch.configs.registry import get_arch
+    return get_arch(arch, optimized=True).replace(
+        num_layers=layers, param_dtype="float32", compute_dtype="float32",
+        opt_state_dtype="float32", tp_strategy="tp")
+
+
+def p18g_want(want_path, key):
+    """Where the parent saves 18g's ``key`` one-device weights after step
+    1, beside 18d's."""
+    return str(Path(want_path).with_name(f"p18g_{key}_want.pt"))
+
+
+def p18g_local_sites():
+    """(run key, site, K, N) of the GEMMs whose shape a rank of 18g's (1,
+    2) mesh cuts: rwkv6's time-mix r / k / v / g column blocks, o's rows
+    and the channel mix (``w_ck``'s columns, ``w_cv``'s rows and the whole
+    gate ``w_cr``); zamba2's ``in_proj`` over the rank's columns of the
+    packed [z | x | B | C | dt] (its heads' z, x and dt, all of B and C)
+    and ``out_proj``'s rows."""
+    from repro_torch.models.ssm import mamba_dims
+    m = P18_RANKS
+    out = []
+    for key, arch, layers in P18G_RUNS:
+        cfg = p18g_cfg(arch, layers)
+        d = cfg.d_model
+        if key == "rwkv6":
+            out += [(key, "r/k/v/g", d, d // m), (key, "o", d // m, d),
+                    (key, "ck", d, cfg.d_ff // m),
+                    (key, "cv", cfg.d_ff // m, d), (key, "cr", d, d)]
+        else:
+            d_inner, H, _, N = mamba_dims(cfg)
+            out += [(key, "in_proj", d, 2 * d_inner // m + 2 * N + H // m),
+                    (key, "out_proj", d_inner // m, d)]
+    return out
+
+
+def check_p18g_kernels(torch, report, timer, dispatcher):
+    """The kernels of 18g's path at the local shapes a rank of the (1, 2)
+    mesh gives them (f32): the WKV forward on a rank's 16 of rwkv6's 32
+    heads (B = 2, S = 1024, K = V = 64, chunk 64), the three flash kernels
+    over a rank's 16 of zamba2's shared block's 32 heads of hd 112, and
+    the forward, dx and dw of each GEMM whose shape the rank cuts
+    (``p18g_local_sites``), each against its plain version (and the
+    GEMMs beside ``torch.matmul``)."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.linear_attn import _wkv_plan
+    m = P18_RANKS
+    rcfg, zcfg = (p18g_cfg(arch, layers) for _, arch, layers in P18G_RUNS)
+    log(f"  18g's local shapes (a rank of a (1, {m}) tp mesh: rwkv6's "
+        f"{rcfg.d_model // rcfg.ssm.head_dim // m} heads, zamba2's "
+        f"{zcfg.num_heads // m} shared-block heads and its Mamba2 columns)"
+        f", f32")
+    report["p18g_gemm"] = []
+    ok = True
+    for key, cfg in (("rwkv6", rcfg), ("zamba2", zcfg)):
+        sites = [(n, k, nn) for run, n, k, nn in p18g_local_sites()
+                 if run == key]
+        cases = [c for c in train_gemm_cases(cfg, sites)
+                 if c[0] != "unembed"]
+        n0 = len(report["p18g_gemm"])
+        ok &= check_train_gemms(torch, report, cfg, dispatcher, cases=cases,
+                                key="p18g_gemm")
+        for rec in report["p18g_gemm"][n0:]:
+            rec["run"] = key
+    # the WKV forward on a rank's heads
+    H, K = rcfg.d_model // rcfg.ssm.head_dim // m, rcfg.ssm.head_dim
+    B, S, chunk = TRAIN_B, TRAIN_S, rcfg.ssm.chunk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    args = (rn(B, S, H, K), rn(B, S, H, K), rn(B, S, H, K),
+            -torch.exp(rn(B, S, H, K) * 0.5 - 2.0), rn(H, K) * 0.1,
+            torch.zeros((B, H, K, K), device="cuda"))
+
+    def run(mode):
+        with dispatch.use(execute=mode):
+            return ops.wkv_attention(*args, chunk=chunk)
+    o, sf = run("kernel")
+    po, psf = run("torch")
+    torch.cuda.synchronize()
+    err = max((o - po).abs().max().item(), (sf - psf).abs().max().item())
+    tol = max(wkv_tolerance(po), wkv_tolerance(psf))
+    good = err <= tol and bool(torch.isfinite(o).all())
+    ok &= good
+    b_ms, b_by = bound_ms(wkv_bytes(B, H, K, K, S, 4),
+                          wkv_ops(B, H, K, K, S, chunk), PEAK_F32_FLOPS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rec = {"kernel": "wkv_bshk", "case": "18g tp", "B": B, "S": S, "H": H,
+           "K": K, "V": K, "chunk": chunk,
+           "plan": _wkv_plan(B, S, H, K, K, chunk, sms)._asdict(),
+           "max_abs_err": err, "tol": tol, "ok": good,
+           "ms": timer(lambda: run("kernel")),
+           "plain_ms": timer(lambda: run("torch")),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    report["p18g_wkv"] = rec
+    log(f"  wkv_bshk 18g tp B={B} S={S} H={H} K=V={K} chunk={chunk} (a "
+        f"rank's heads, zero state0): max_abs_err {err:.3e} (tol {tol:.3e})"
+        f" {'ok' if good else 'FAIL'}  kernel {rec['ms']:.4f} ms plain "
+        f"{rec['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    del args, o, sf, po, psf
+    rec, good = flash_case(torch, timer, gen, P18G_FLASH, TRAIN_B, TRAIN_S,
+                           TRAIN_S, True, torch.float32, zcfg.num_heads // m,
+                           zcfg.num_kv_heads // m, zcfg.head_dim)
+    report["p18g_flash"] = rec
+    torch.cuda.empty_cache()
+    return ok and good
+
+
 def p18_table(report):
-    """18f's kernel-table entries: the RSA GEMM at each local training
-    shape and the flash kernels over a rank's heads, with rank 0's
-    launches in 18f's step."""
+    """18f's and 18g's kernel-table entries: the RSA GEMM at each local
+    training shape, the flash kernels over a rank's heads (llama's,
+    zamba2's shared block's) and the WKV kernel on a rank's heads, with
+    rank 0's launches in its step."""
     tp = report.get("p18", {}).get("tp", {})
     if not tp.get("ranks"):
         return []
@@ -6340,18 +6513,42 @@ def p18_table(report):
                            f"{rec['M']}x{rec['K']}x{rec['N']} {rec['mode']} "
                            f"f32]", keys.get(tuple(rec["key"]), 0))
            for rec in report["p18f_gemm"]]
-    rec = report["p18f_flash"]
-    for name, t in rec["timed"].items():
-        out.append({
-            "name": f"{name}[18f tp B={rec['B']} S={rec['Sq']} H="
-                    f"{rec['H']}/{rec['KVH']} f32, a rank's heads]",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
-            "replaces": FLASH_TPU[name], "launches": r0["counts"][name],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    out += flash_entries(report["p18f_flash"], "18f tp", r0["counts"])
+    g0 = {k: v["ranks"][0] for k, v in report["p18"]["tp_g"].items()}
+    for rec in report["p18g_gemm"]:
+        keys = {tuple(k): v for k, v in g0[rec["run"]]["gemm_keys"]}
+        out.append(gemm_entry(
+            rec, f"rsa_gemm[18g tp {rec['run']} {rec['site']} {rec['pass']}"
+                 f" {rec['M']}x{rec['K']}x{rec['N']} {rec['mode']} f32]",
+            keys.get(tuple(rec["key"]), 0)))
+    w = report["p18g_wkv"]
+    out.append({
+        "name": f"wkv_bshk[18g tp rwkv6 B={w['B']} S={w['S']} H={w['H']} "
+                f"chunk {w['chunk']}, a rank's heads]",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/linear_attn.cu",
+        "replaces": LINEAR_TPU["wkv_bshk"],
+        "launches": g0["rwkv6"]["counts"]["wkv_bshk"],
+        "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+        "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "library_ms": None})
+    out += flash_entries(report["p18g_flash"],
+                         f"18g tp zamba2 hd {report['p18g_flash']['hd']}",
+                         g0["zamba2"]["counts"])
     return out
+
+
+def flash_entries(rec, what, counts):
+    """Kernel-table entries of a ``flash_case`` record over a rank's
+    heads, each with its launches in ``counts`` (rank 0's step)."""
+    return [{"name": f"{name}[{what} B={rec['B']} S={rec['Sq']} H="
+                     f"{rec['H']}/{rec['KVH']} f32, a rank's heads]",
+             "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+             "replaces": FLASH_TPU[name], "launches": counts[name],
+             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+            for name, t in rec["timed"].items()]
 
 
 def p18_tp(rep, recs, losses, norms, counts, n_want):
@@ -6413,6 +6610,83 @@ def p18_tp(rep, recs, losses, norms, counts, n_want):
         f"{', '.join('x'.join(map(str, k)) for k in shapes)}: "
         + ("ok" if good else "FAIL"))
     return good
+
+
+def p18_tpg(rep, recs, ones, local_gemms):
+    """18g's gates, from the ranks' records: each of ``P18G_RUNS`` (full
+    width, depth cut, f32) one step under Megatron tp on the (1, 2) mesh,
+    each rank its recurrent heads, FFN / d_ff columns and vocab rows, the
+    whole batch, against its one-device step 1 (``ones``): the loss
+    within 2e-4 relative, each rank's blocks of each leaf within (d)'s
+    rule at ``P18_LEAF_SHARE`` of the leaf's elements, each rank's
+    launches of every kernel of the run the one-device step's (the same
+    calls at the local shapes: each of phase 3's local GEMM shapes in
+    ``local_gemms`` launched on rank 0), no plain call."""
+    log(f"  18g the recurrent families under Megatron tp on the (1, "
+        f"{P18_RANKS}) mesh: each rank its heads, columns and vocab rows, "
+        f"the whole batch")
+    if recs is None:
+        rep["tp_g"] = {"ok": False}
+        log("    the ranks failed (18d): FAIL")
+        return False
+    ok = True
+    rep["tp_g"] = {}
+    for key, _, _ in P18G_RUNS:
+        one, tps = ones[key], [r["tp_g"][key] for r in recs]
+        loss_err = max(abs(t["losses"][0] - one["losses"][0])
+                       / abs(one["losses"][0]) for t in tps)
+        gn_err = max(abs(t["grad_norms"][0] - one["grad_norms"][0])
+                     / abs(one["grad_norms"][0]) for t in tps)
+        share = {k: sum(t["leaves"][k]["within"] for t in tps)
+                 / sum(t["leaves"][k]["n"] for t in tps)
+                 for k in tps[0]["leaves"]}
+        worst = min((v, k) for k, v in share.items())
+        max_diff = max(v["max_diff"] for t in tps
+                       for v in t["leaves"].values())
+        kernels = ("rsa_gemm", "wkv_bshk") if key == "rwkv6" else \
+            ("rsa_gemm", "flash_fwd", "flash_dq", "flash_dkv")
+        launched = all(t["counts"][k] > 0 for t in tps for k in kernels)
+        as_one = all(t["counts"][k] == one["counts"][k]
+                     for t in tps for k in kernels)
+        plain = sum(t["counts"]["plain_calls"] for t in tps) + \
+            one["counts"]["plain_calls"]
+        keys = {tuple(k): v for k, v in tps[0]["gemm_keys"]}
+        local = [r for r in local_gemms if r["run"] == key]
+        seen = sum(keys.get(tuple(r["key"]), 0) > 0 for r in local)
+        good = (loss_err <= 2e-4 and launched and as_one and plain == 0
+                and worst[0] >= P18_LEAF_SHARE and seen == len(local)
+                and {len(t["leaves"]) for t in tps} == {one["leaves"]})
+        ok &= good
+        rep["tp_g"][key] = {
+            "mesh": [1, P18_RANKS], "one_device": one, "ranks": tps,
+            "step1_loss_rel_err": loss_err,
+            "step1_grad_norm_rel_err": gn_err, "leaf_share": share,
+            "weights_worst_leaf": list(worst), "weights_max_diff": max_diff,
+            "launches_as_one_device": as_one,
+            "local_gemm_shapes_launched": f"{seen} of {len(local)}",
+            "gemm_shapes": sorted({tuple(k[-4:-1])
+                                   for k, _ in tps[0]["gemm_keys"]}),
+            "ok": good}
+        log(f"    {key} ({one['arch']}, {one['num_layers']} slots): step 1's "
+            f"loss {tps[0]['losses'][0]:.6f} (rel {loss_err:.2e}, tol 2e-4)"
+            f", grad norm {tps[0]['grad_norms'][0]:.4f} (rel {gn_err:.2e}, "
+            f"not gated: scripts/probe_tp_grad.py); "
+            f"weights after step 1, each of {len(share)} leaves within (d)'s"
+            f" rule at the least {100 * worst[0]:.3f}% ({worst[1]}; tol "
+            f"{100 * P18_LEAF_SHARE:.1f}%), largest difference "
+            f"{max_diff:.2e}; phase 3's local GEMM shapes launched: {seen} "
+            f"of {len(local)}; {plain} plain calls")
+        for t in tps:
+            c = t["counts"]
+            log(f"    {key} rank {t['rank']}: step 1 "
+                f"{1e3 * t['step_s'][0]:.1f} ms (one device "
+                f"{1e3 * one['step_s'][0]:.1f}), setup {t['setup_s']:.1f} s,"
+                f" peak memory {t['peak_memory_gb']:.1f} GB (one device "
+                f"{one['peak_memory_gb']:.1f}); launches "
+                + ", ".join(f"{k} {c[k]}" for k in kernels)
+                + f" ({'the one-device step' if as_one else 'NOT one-device'}"
+                f"'s): " + ("ok" if good else "FAIL"))
+    return ok
 
 
 def p18_entry(rep, args):
@@ -6502,7 +6776,9 @@ def p18_all(torch, report):
     """Phase 18: (a) the unsharded step, (b) the sharded step over an
     NCCL group of one rank, (c) ``quantized_psum_tree`` over it, (d) two
     ranks on the one card over gloo, (f) the same ranks under Megatron tp
-    (``p18_tp``), (e) the train entry point under torchrun."""
+    (``p18_tp``), (g) the recurrent families under it (``p18_tpg``, their
+    one-device steps run here first), (e) the train entry point under
+    torchrun."""
     import torch.distributed as dist
     from repro_torch import dispatch
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
@@ -6522,21 +6798,12 @@ def p18_all(torch, report):
     model, step, opt = build_train_step(cfg, P18_LR, "cuda")
     init = model.init(0)
     # 18d's ranks read the weights after step 1 through a memory map
-    from repro_torch.parallel.sharding import _flat_with_path
     want_path = ROOT / "build" / "p18_want.pt"
     saved = {}
-
-    def save_first(p):
-        flat, flat0 = dict(_flat_with_path(p)), dict(_flat_with_path(init))
-        torch.save({"params": {k: t.cpu() for k, t in flat.items()},
-                    "max": {k: float(t.abs().max())
-                            for k, t in flat.items()},
-                    "travel": {k: float((t - flat0[k]).abs().max())
-                               for k, t in flat.items()}}, want_path)
-        saved["leaves"] = len(flat)
     params, _, losses, norms, secs, counts = p18_steps(
         torch, step, init, opt.init(init), cfg, every,
-        after_first=save_first)
+        after_first=lambda p: saved.update(
+            leaves=p18_save_first(torch, p, init, want_path)))
     n_want = saved["leaves"]
     del init
     want = {"losses": losses, "grad_norms": norms, "step_s": secs,
@@ -6630,10 +6897,18 @@ def p18_all(torch, report):
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
 
+    log(f"  18g's one-device steps (step 1 each, the weights saved for the "
+        f"ranks): " + ", ".join(f"{arch} cut to {layers} slots"
+                               for _, arch, layers in P18G_RUNS))
+    ones = {key: p18g_one_device(torch, key, p18g_cfg(arch, layers),
+                                 want_path)
+            for key, arch, layers in P18G_RUNS}
+    ok &= all(o["counts"]["plain_calls"] == 0 for o in ones.values())
+
     world = P18_RANKS
     log(f"  18d {world} ranks on the one card: a ({world}, 1) mesh over gloo "
-        f"with CUDA tensors, a row of the batch each; then 18f, the same "
-        f"ranks on a (1, {world}) mesh under Megatron tp")
+        f"with CUDA tensors, a row of the batch each; then 18f and 18g, the "
+        f"same ranks on a (1, {world}) mesh under Megatron tp")
     store = ROOT / "build" / "p18_store2"
     store.unlink(missing_ok=True)
     outs = [ROOT / "build" / f"p18_rank{r}.json" for r in range(world)]
@@ -6659,6 +6934,8 @@ def p18_all(torch, report):
                 p.wait()
     store.unlink(missing_ok=True)
     want_path.unlink(missing_ok=True)
+    for key, _, _ in P18G_RUNS:
+        Path(p18g_want(want_path, key)).unlink(missing_ok=True)
     wall2 = time.time() - t2
     recs = [json.loads(o.read_text()) if o.exists() else None for o in outs]
     good = ran = all(p.returncode == 0 for p in procs) and all(recs)
@@ -6721,6 +6998,8 @@ def p18_all(torch, report):
             log("    " + lg[-2000:].replace("\n", "\n    "))
     ok &= good
     ok &= p18_tp(rep, recs if ran else None, losses, norms, counts, n_want)
+    ok &= p18_tpg(rep, recs if ran else None, ones,
+                  report.get("p18g_gemm", []))
     ok &= p18_entry(rep, P18_MAIN_ARGS)
     rep["seconds"] = report["phase18_s"] = time.time() - t0
     within = rep["seconds"] <= P18_BUDGET_S
@@ -6949,6 +7228,7 @@ def main() -> int:
         ok &= check_p14_kernels(torch, report, timer, dispatcher)
         ok &= check_p15_kernels(torch, report, timer, dispatcher)
         ok &= check_p18f_kernels(torch, report, timer, dispatcher)
+        ok &= check_p18g_kernels(torch, report, timer, dispatcher)
     torch.cuda.empty_cache()
     log(f"  kernels {'ok' if ok else 'FAIL'} "
         f"({time.time() - t_start:.1f} s so far)")
@@ -7071,7 +7351,8 @@ def main() -> int:
         f"{TRAIN_S}: (a) unsharded, (b) a (1, 1) mesh over NCCL, (c) "
         f"quantized_psum_tree over it, (d) 2 ranks on the one card over "
         f"gloo, (e) the train entry point under torchrun, (f) Megatron tp "
-        f"on a (1, 2) mesh")
+        f"on a (1, 2) mesh, (g) rwkv6-1.6b (4 of 24 layers) and zamba2-7b "
+        f"(7 of 81 slots) under it at full width")
     ok &= p18_all(torch, report)
     log("== the RSA GEMM's modes against their library calls")
     mode_summary(report)

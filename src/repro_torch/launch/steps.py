@@ -25,11 +25,12 @@ Megatron tensor parallelism as well (``parallel/tp.py``): a leaf whose
 ``model`` block holds whole heads, FFN hidden columns, experts or vocab
 rows is gathered over the other axes only, and the rank computes on its
 block, all-reducing over ``model`` where Megatron does; every other leaf
-is gathered whole.  Each gradient is reduced by ``sharding.tp_use``: a
+is gathered whole.  The recurrent blocks compute on a rank's heads
+(``models/ssm.py``).  Each gradient is reduced by ``sharding.tp_use``: a
 block's over the batch axes, a leaf that a rank uses only in part (K/V
 whose kv heads do not divide m, the q/k/v biases, the untied
-unembedding's vocab columns) over ``model`` too.  The ssm and hybrid
-families under ``tp`` with m > 1 raise (ROADMAP item 21b).
+unembedding's vocab columns, the recurrent blocks' per-head and packed
+leaves) over ``model`` too.
 
 ``build_cell`` is the counterpart of the reference's ``lower_for_cell``:
 where the reference lowers a cell's step against abstract inputs, it
@@ -237,23 +238,6 @@ def make_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> AdamW:
     return AdamW(lr=lr, state_dtype=cfg.opt_state_dtype)
 
 
-def check_mesh_layout(cfg: ArchConfig, mesh, global_batch: int) -> None:
-    """Refuse what the sharded step has not ported, on every rank before
-    any collective: the recurrent families (ssm, hybrid) under Megatron
-    ``tp`` over a ``model`` axis of more than one rank, whose ``model``
-    rules cut packed or coupled projections (Mamba2's ``w_in`` over z / x
-    / B / C / dt; RWKV6's channel mix, whose column-split ``w_cr`` gates
-    the row-parallel ``w_cv``)."""
-    from repro_torch.parallel.sharding import axis_sizes
-    model = axis_sizes(mesh).get("model", 1)
-    if cfg.tp_strategy == "tp" and model > 1 and \
-            cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: tp_strategy='tp' over a model axis of {model} "
-            f"ranks for the {cfg.family} family is not ported (ROADMAP "
-            f"item 21b); use model_axis=1 (FSDP over data) or dp_all")
-
-
 def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
                      device: Optional[str] = None, mesh=None,
                      global_batch: Optional[int] = None):
@@ -270,7 +254,6 @@ def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
     if mesh is not None:
         if global_batch is None:
             raise ValueError("a sharded train step needs the global batch")
-        check_mesh_layout(cfg, mesh, global_batch)
         step, specs = _sharded_train_step(model, opt, mesh, global_batch)
         return model, step, opt, specs
 

@@ -20,8 +20,8 @@ the CPU), the sharded step of ``launch/steps.py`` (FSDP / ZeRO-3 over
 ``data``, Megatron tensor parallelism over a ``model`` axis > 1 under
 the config's ``tp_strategy="tp"``), each rank its rows of the same global
 batch (``data/pipeline.py``'s pure ``_batch``), saves gathered to rank
-0's files and collective restarts.  The ssm and hybrid families under
-``tp`` over a model axis > 1 raise before the driver (ROADMAP item 21b).
+0's files and collective restarts.  Under ``tp`` the recurrent families
+(rwkv6, zamba2) compute on a rank's heads, as the attention families do.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --data-axis 2 --model-axis 2 --device cpu --steps 3

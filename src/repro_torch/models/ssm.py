@@ -24,11 +24,35 @@ Mamba2 has no Pallas kernel in the reference (its SSD scan is einsums in a
 layer.  Its f32 islands are the reference's: ``dt``, the log decay, the
 scan and its state, the gated RMSNorm.  A chunk is ``min(chunk, S)``
 rows, so a decode step is one 1-row chunk.
+
+Under Megatron ``tp`` over a ``model`` axis of m ranks (``parallel/tp.py``,
+the training step only) each block computes on this rank's H / m heads,
+read from its leaves' shapes (``sharding.tp_use`` says which leaf is a
+block, which is used in part, which whole):
+
+- RWKV6's time mix: x enters through one ``copy_in`` before the token
+  shift and the five mixes, so the mixes and the decay LoRA-in
+  (``w_decay_a``, whole on every rank) carry each rank's heads' share of
+  their gradients (their leaves are summed over ``model``); r / k / v /
+  g and the decay LoRA-out are column blocks, the WKV scan and group norm
+  run on the rank's heads, ``w_o``'s row block goes through
+  ``reduce_out``.  The channel mix is an MLP over d_ff: ``w_ck``'s
+  columns behind a ``copy_in`` of its mixed input, ``w_cv``'s rows
+  through ``reduce_out``; the gate ``w_cr`` is whole, and every rank
+  computes it (it gates the summed ``vv``, so no collective is added).
+- Mamba2: x through ``copy_in``, then the GEMM over the rank's columns of
+  the packed ``w_in`` (its heads' z, x and dt, and all of B and C, which
+  every head reads: n_groups = 1); the conv over its x channels and B /
+  C; the SSD scan on its heads with B and C whole; the gated RMSNorm's
+  mean of squares over all d_inner columns through ``reduce_out`` then
+  ``copy_in`` (each rank's columns consume it, so each rank's gradient of
+  it is partial and is summed); ``w_out``'s row block through
+  ``reduce_out``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +63,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.linear_attn import wkv_scan
 from repro_torch.models.modules import dense, dense_init, draw_kw, dtype_of
+from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
 
@@ -67,6 +92,12 @@ class RWKVState(NamedTuple):
 
 def rwkv_num_heads(cfg: ArchConfig) -> int:
     return cfg.d_model // cfg.ssm.head_dim
+
+
+def rwkv_heads(blk: Params, cfg: ArchConfig) -> int:
+    """The heads a (layer-stacked) RWKV6 block's leaves hold: all of them,
+    or this rank's under Megatron ``tp`` (``w_r``'s column block)."""
+    return blk["w_r"].shape[-1] // cfg.ssm.head_dim
 
 
 def init_rwkv_block(gen: torch.Generator, cfg: ArchConfig,
@@ -127,12 +158,17 @@ def rwkv_block_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     new state)."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S, d = x.shape
-    H, K = rwkv_num_heads(cfg), cfg.ssm.head_dim
+    K = cfg.ssm.head_dim
+    H = rwkv_heads(params, cfg)
+    dl = H * K                       # this rank's columns of d
+    tp = tp_mod.local(cfg, dl, d)
+    tpc = tp_mod.local(cfg, params["w_ck"].shape[-1], cfg.d_ff)
     x = x.to(cdt)
-    xx = _shift(x, state.shift_t.to(cdt))
+    xt = tp_mod.copy_in(x, tp)
+    xx = _shift(xt, state.shift_t.to(cdt))
 
     def mix(mu):
-        return x + (xx - x) * params[mu].to(cdt)
+        return xt + (xx - xt) * params[mu].to(cdt)
 
     def proj(h, w, site):
         return dense(h, params[w], None, cdt, site=site)
@@ -145,12 +181,13 @@ def rwkv_block_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     # data-dependent decay (log space, always <= -exp(-12) < 0)
     lora = torch.tanh(proj(mix("mu_w"), "w_decay_a", "ssm.decay_a"))
     dec = proj(lora, "w_decay_b", "ssm.decay_b") + \
-        params["decay_base"].to(cdt)
+        tp_mod.cols(params["decay_base"], dl, tp).to(cdt)
     logw = -torch.exp(torch.clamp(dec, -12.0, 1.0)).float()
     logw = logw.reshape(B, S, H, K)
 
     wkv_args = (r.float(), k.float(), v.float(), logw,
-                params["bonus_u"].float(), state.wkv.float())
+                tp_mod.rows(params["bonus_u"], H, tp).float(),
+                state.wkv.float())
     if cfg.ssm_impl == "pallas":
         out, wkv_state = ops.wkv_attention(*wkv_args,
                                            chunk=min(cfg.ssm.chunk, S))
@@ -161,17 +198,18 @@ def rwkv_block_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     mu = out.mean(dim=-1, keepdim=True)
     var = out.var(dim=-1, keepdim=True, unbiased=False)
     out = (out - mu) * torch.rsqrt(var + 64e-5)
-    out = out * params["ln_scale"].float() + params["ln_bias"].float()
-    out = out.reshape(B, S, d).to(cdt) * g
-    y_time = proj(out, "w_o", "ssm.out")
+    out = out * tp_mod.rows(params["ln_scale"], H, tp).float() + \
+        tp_mod.rows(params["ln_bias"], H, tp).float()
+    out = out.reshape(B, S, dl).to(cdt) * g
+    y_time = tp_mod.reduce_out(proj(out, "w_o", "ssm.out"), tp)
 
     # channel mix, on the residual stream
     xc = x + y_time
     xxc = _shift(xc, state.shift_c.to(cdt))
-    xck = xc + (xxc - xc) * params["mu_ck"].to(cdt)
+    xck = tp_mod.copy_in(xc + (xxc - xc) * params["mu_ck"].to(cdt), tpc)
     xcr = xc + (xxc - xc) * params["mu_cr"].to(cdt)
     kk = torch.square(F.relu(proj(xck, "w_ck", "ssm.channel_k")))
-    vv = proj(kk, "w_cv", "ssm.channel_v")
+    vv = tp_mod.reduce_out(proj(kk, "w_cv", "ssm.channel_v"), tpc)
     rr = torch.sigmoid(proj(xcr, "w_cr", "ssm.channel_r"))
     y = y_time + rr * vv
 
@@ -182,9 +220,12 @@ def rwkv_block_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
-                    device, lead: Tuple[int, ...] = ()) -> RWKVState:
-    """A zero state for ``batch`` sequences (``lead`` stacked in front)."""
-    H, K = rwkv_num_heads(cfg), cfg.ssm.head_dim
+                    device, lead: Tuple[int, ...] = (),
+                    heads: Optional[int] = None) -> RWKVState:
+    """A zero state for ``batch`` sequences (``lead`` stacked in front)
+    over ``heads`` heads (default all; ``rwkv_heads`` of the block's
+    leaves under Megatron ``tp``)."""
+    H, K = heads or rwkv_num_heads(cfg), cfg.ssm.head_dim
     return RWKVState(
         wkv=torch.zeros(lead + (batch, H, K, K), dtype=torch.float32,
                         device=device),
@@ -209,6 +250,18 @@ def mamba_dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
     d_inner = s.expand * cfg.d_model
     H = s.num_heads or d_inner // s.head_dim
     return d_inner, H, s.head_dim, s.state_dim
+
+
+def mamba_heads(blk: Params, cfg: ArchConfig) -> int:
+    """The heads a (layer-stacked) Mamba2 block's leaves hold: all of
+    them, or this rank's under Megatron ``tp`` (``w_out``'s row block)."""
+    return blk["w_out"].shape[-2] // cfg.ssm.head_dim
+
+
+def _rank_cols(t: torch.Tensor, spans) -> torch.Tensor:
+    """``t``'s last-dim columns of the (start, length) ``spans``, in
+    order."""
+    return torch.cat([t[..., a:a + n] for a, n in spans], dim=-1)
 
 
 def init_mamba_block(gen: torch.Generator, cfg: ArchConfig,
@@ -301,49 +354,72 @@ def mamba_block_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     d) normalised input.  Returns (y, new state)."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
-    d_inner, H, P, N = mamba_dims(cfg)
+    d_inner, _, P, N = mamba_dims(cfg)
     W = cfg.ssm.conv_width
-    x = x.to(cdt)
+    H = mamba_heads(params, cfg)
+    di = H * P                       # this rank's columns of d_inner
+    tp = tp_mod.local(cfg, di, d_inner)
+    x = tp_mod.copy_in(x.to(cdt), tp)
+    w_in, conv_w, conv_b = params["w_in"], params["conv_w"], params["conv_b"]
+    if tp is not None:
+        # the rank's columns of the packed [z | x | B | C | dt], and of the
+        # conv's [x | B | C] channels
+        lo = tp.rank * di
+        w_in = _rank_cols(w_in, ((lo, di), (d_inner + lo, di),
+                                 (2 * d_inner, 2 * N),
+                                 (2 * d_inner + 2 * N + tp.rank * H, H)))
+        conv_w, conv_b = (_rank_cols(t, ((lo, di), (d_inner, 2 * N)))
+                          for t in (conv_w, conv_b))
 
-    zxbcdt = dense(x, params["w_in"], None, cdt, site="ssm.in_proj")
-    z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H],
-                                 dim=-1)
+    zxbcdt = dense(x, w_in, None, cdt, site="ssm.in_proj")
+    z, xBC, dt_raw = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
 
     # causal depthwise conv over (x ++ B ++ C), from the carried rows
     conv_in = torch.cat([state.conv.to(cdt), xBC], dim=1)
     new_conv = conv_in[:, -(W - 1):, :] if W > 1 else state.conv
-    wts = params["conv_w"].to(cdt)
+    wts = conv_w.to(cdt)
     acc = conv_in[:, 0:S, :] * wts[0]
     for i in range(1, W):
         acc = acc + conv_in[:, i:i + S, :] * wts[i]
-    xBC = F.silu(acc + params["conv_b"].to(cdt))
+    xBC = F.silu(acc + conv_b.to(cdt))
 
-    xs, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     xs = xs.reshape(B, S, H, P)
-    dt_h = F.softplus(dt_raw.float() + params["dt_bias"].float())  # (B,S,H)
-    loga = -torch.exp(params["A_log"].float()) * dt_h
+    dt_h = F.softplus(dt_raw.float() + tp_mod.rows(
+        params["dt_bias"], H, tp).float())                         # (B,S,H)
+    loga = -torch.exp(tp_mod.rows(params["A_log"], H, tp).float()) * dt_h
     xh = xs.float() * dt_h[..., None]
     y, new_ssm = _ssd_chunked(xh, Bm.float(), Cm.float(), loga,
                               state.ssm.float(), cfg.ssm.chunk)
-    y = y + params["D"].float()[:, None] * xs.float()
-    y = y.reshape(B, S, d_inner).to(cdt)
+    y = y + tp_mod.rows(params["D"], H, tp).float()[:, None] * xs.float()
+    y = y.reshape(B, S, di).to(cdt)
 
-    # normalized gating (mamba2): rmsnorm(y) * silu(z)
+    # normalized gating (mamba2): rmsnorm(y) * silu(z), the mean over all
+    # d_inner columns (every rank's)
     y32 = y.float()
-    var = y32.square().mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = y32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp_mod.copy_in(tp_mod.reduce_out(
+            y32.square().sum(dim=-1, keepdim=True), tp), tp) / d_inner
     y = (y32 * torch.rsqrt(var + cfg.norm_eps) *
-         (1.0 + params["norm_scale"].float())).to(cdt)
+         (1.0 + tp_mod.cols(params["norm_scale"], di, tp).float())).to(cdt)
     y = y * F.silu(z)
-    out = dense(y, params["w_out"], None, cdt, site="ssm.out_proj")
+    out = tp_mod.reduce_out(
+        dense(y, params["w_out"], None, cdt, site="ssm.out_proj"), tp)
     return out.to(x.dtype), MambaState(ssm=new_ssm.to(state.ssm.dtype),
                                        conv=new_conv.to(state.conv.dtype))
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
-                     device, lead: Tuple[int, ...] = ()) -> MambaState:
-    """A zero state for ``batch`` sequences (``lead`` stacked in front)."""
-    d_inner, H, P, N = mamba_dims(cfg)
-    conv_ch = d_inner + 2 * N
+                     device, lead: Tuple[int, ...] = (),
+                     heads: Optional[int] = None) -> MambaState:
+    """A zero state for ``batch`` sequences (``lead`` stacked in front)
+    over ``heads`` heads and their conv channels (default all;
+    ``mamba_heads`` of the block's leaves under Megatron ``tp``)."""
+    _, H, P, N = mamba_dims(cfg)
+    H = heads or H
+    conv_ch = H * P + 2 * N
     return MambaState(
         ssm=torch.zeros(lead + (batch, H, P, N), dtype=torch.float32,
                         device=device),

@@ -44,7 +44,8 @@ from repro_torch.models.modules import (dense, dense_init, dtype_of,
 from repro_torch.models.ssm import (MambaState, RWKVState,
                                     init_mamba_block, init_mamba_state,
                                     init_rwkv_block, init_rwkv_state,
-                                    mamba_block_apply, rwkv_block_apply)
+                                    mamba_block_apply, mamba_heads,
+                                    rwkv_block_apply, rwkv_heads)
 from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
@@ -488,8 +489,10 @@ def _decoder_stack(params: Params, x, positions, cfg: ArchConfig,
 
 def _rwkv_stack(params: Params, x, cfg: ArchConfig):
     """The RWKV6 layers from zero states (the reference's training
-    ``_scan_rwkv``), each layer under ``_remat``."""
-    zero = init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
+    ``_scan_rwkv``; over the heads the leaves hold, a rank's under
+    Megatron ``tp``), each layer under ``_remat``."""
+    zero = init_rwkv_state(cfg, x.shape[0], x.dtype, x.device,
+                           heads=rwkv_heads(params["layers"]["blk"], cfg))
     body = _remat(lambda lp, h: h + rwkv_block_apply(
         lp["blk"], rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
         zero)[0].to(h.dtype), cfg)
@@ -500,11 +503,13 @@ def _rwkv_stack(params: Params, x, cfg: ArchConfig):
 
 def _hybrid_stack(params: Params, x, positions, cfg: ArchConfig):
     """The reference's training ``_hybrid_forward`` from zero states and no
-    cache: each group (its Mamba span, then the shared block) under
+    cache (over the heads the leaves hold, a rank's under Megatron
+    ``tp``): each group (its Mamba span, then the shared block) under
     ``_remat``, then each remainder layer under it."""
     n_m, n_groups, per_group, rem = hybrid_layout(cfg)
     lp, shared = params["layers"], params["shared_attn"]
-    zero = init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
+    zero = init_mamba_state(cfg, x.shape[0], x.dtype, x.device,
+                            heads=mamba_heads(lp["blk"], cfg))
 
     def group(h, g):
         for i in range(g * per_group, (g + 1) * per_group):

@@ -261,7 +261,21 @@ def tp_use(params_aval: Any, cfg: ArchConfig, mesh) -> Any:
 
     Attention is head-parallel where the heads divide the axis; else it
     runs whole on every rank, as the reference's flash ``shard_map``
-    falls back to replicated heads."""
+    falls back to replicated heads.  So are the recurrent blocks
+    (``models/ssm.py``), over their H heads (RWKV6: d / K; Mamba2:
+    d_inner / P), as the reference's WKV ``shard_map`` places them: where
+    H divides the axis, RWKV6's r / k / v / g / o and decay-LoRA-out
+    blocks and Mamba2's ``w_out`` rows are local, and the replicated
+    leaves the rank's heads read from ("part") are its token-shift mixes
+    and decay LoRA-in (x enters the time mix through one copy-in, so
+    their gradients are each rank's heads' share), its decay base,
+    bonus and group norm, and all of Mamba2's others: the packed
+    ``w_in`` (the rank's z / x / dt columns and every rank's B / C),
+    the conv over its x channels and B / C, A, dt bias, D and the gated
+    norm's scale.  RWKV6's channel mix is an MLP over d_ff (``w_ck`` /
+    ``w_cv`` local where d_ff divides), its ``w_cr`` and mixes whole;
+    where H does not divide the axis, every time-mix (RWKV6) or every
+    (Mamba2) ``blk`` leaf is whole."""
     model = axis_sizes(mesh).get("model", 1)
     if cfg.tp_strategy != "tp" or model == 1:
         return _map_with_path(lambda *_: "whole", params_aval)
@@ -286,6 +300,23 @@ def tp_use(params_aval: Any, cfg: ArchConfig, mesh) -> Any:
          mo and mo.d_ff_expert * mo.num_shared_experts, "whole"),
         (r"frontend/proj[12]$", cfg.d_model, "whole"),
     ]
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import rwkv_num_heads
+        heads = rwkv_num_heads(cfg)
+        rules += [
+            (r"blk/w_([rkvgo]|decay_b)$", heads, "whole"),
+            (r"blk/(mu_[rkvwg]|w_decay_a|decay_base|bonus_u|ln_scale"
+             r"|ln_bias)$", 0, "part" if heads % model == 0 else "whole"),
+            (r"blk/w_c[kv]$", cfg.d_ff, "whole"),
+        ]
+    elif cfg.family == "hybrid":
+        from repro_torch.models.ssm import mamba_dims
+        heads = mamba_dims(cfg)[1]
+        rules += [
+            (r"blk/w_out$", heads, "whole"),
+            (r"blk/(w_in|conv_w|conv_b|A_log|dt_bias|D|norm_scale)$", 0,
+             "part" if heads % model == 0 else "whole"),
+        ]
 
     def use(ps, _):
         for pat, units, other in rules:

@@ -15,6 +15,10 @@ axis's group of the ambient ``DeviceMesh`` (``parallel/hints.py``):
   partial sum goes through it where Megatron all-reduces (after a
   row-parallel GEMM, after a rank's experts).
 
+A replicated leaf a rank uses in part is cut to its block by ``cols``
+(the last dim: a bias, a column-parallel input's per-column leaf) or
+``rows`` (the first dim: a recurrent block's per-head leaf).
+
 The vocab-parallel pieces: ``vocab_embed`` (ids outside the rank's rows
 zeroed, then ``reduce_out``) and ``vocab_ce`` (the row max an all-reduce
 MAX, detached; the sum of exponentials and the gold logit, masked to the
@@ -112,6 +116,15 @@ def cols(t: Optional[torch.Tensor], n: int, tp: Optional[TP]):
     if t is None or t.shape[-1] == n:
         return t
     return t[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def rows(t: torch.Tensor, n: int, tp: Optional[TP]) -> torch.Tensor:
+    """This rank's ``n`` of a replicated leaf's first-dim entries (a
+    per-head leaf of a recurrent block: RWKV6's bonus and group norm,
+    Mamba2's A, dt bias and D); the leaf itself where it has ``n``."""
+    if t.shape[0] == n:
+        return t
+    return t[tp.rank * n:(tp.rank + 1) * n]
 
 
 def kv_for_heads(t: torch.Tensor, num_heads: int, num_kv_heads: int,

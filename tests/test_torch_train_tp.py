@@ -39,7 +39,9 @@ groups of 2 (ranks 0-1 and 2-3, each on a store of its own) for the
   gradient is zero but for rounding (``test_torch_train_moe.py``'s
   ``NOISE_LEAVES``), walks by the sign of rounding noise on every element.
   Step 1's ``moe_lb_loss`` and ``moe_z_loss`` within rtol 1e-5 of the
-  one-device step's and ``moe_drop_frac`` within 1e-7.
+  one-device step's and ``moe_drop_frac`` within 1e-7; step 1's grad norm
+  within rtol 1e-4 (a leaf's gradient at a wrong scale moves it, where
+  AdamW's first step moves the weights by the gradient's sign alone).
 - Every attention and MoE arch of the registry builds and runs one step
   on (1, 2), (2, 2) and (4, 1) at its reduced preset (the registry's
   ``tp``): step 1's loss within rtol 2e-4 of the one-device step's.
@@ -50,7 +52,9 @@ groups of 2 (ranks 0-1 and 2-3, each on a store of its own) for the
   subprocess of the test (the host device count is set before JAX
   loads) and is handed to the ranks as arrays.
 - ``sharding.tp_use`` on (1, 2) and (1, 4) without ranks: which leaves a
-  rank computes on its block of, which it uses in part, which whole.
+  rank computes on its block of, which it uses in part, which whole (the
+  recurrent families' rows too; their steps are
+  ``test_torch_train_tp_ssm.py``'s).
 - ``train_main`` on (2, 2) under ``tp`` for llama against ``train_main``
   on one process; its step-3 checkpoint (``tp`` blocks, gathered by
   ``save_sharded``) restored onto (4, 1) ``dp_all`` on the ranks and onto
@@ -241,7 +245,9 @@ def flat_np(tree):
 
 
 def _aux(m):
-    return {k: float(m[k]) for k in AUX}
+    """Step 1's aux metrics and grad norm (the norm shows a gradient's
+    scale, which AdamW's normalised first step hides from the weights)."""
+    return {k: float(m[k]) for k in AUX + ("grad_norm",)}
 
 
 def sharded_run(cfg, mesh, steps):
@@ -398,6 +404,8 @@ def test_tp_step_is_the_one_device_step(spawned, case):
         assert res[r][case]["losses"] == res[ranks[0]][case]["losses"]
     np.testing.assert_allclose(res[ranks[0]][case]["losses"], want_losses,
                                rtol=2e-4)
+    assert res[ranks[0]][case]["aux"]["grad_norm"] == pytest.approx(
+        want_aux["grad_norm"], rel=1e-4)
     assert_close_to(dict(np.load(out / f"{case}.npz")), init, want)
     if arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
         got = res[ranks[0]][case]["aux"]
@@ -527,6 +535,30 @@ USES = [
     ("seamless-m4t-medium", 2, {"frontend/proj": "whole",
                                 "layers/cross/wq": "local",
                                 "enc_layers/attn/wk": "local"}),
+] + [
+    # the recurrent blocks (4 RWKV6 heads, 8 Mamba2 heads): every blk
+    # leaf pinned; x enters RWKV6's time mix through one copy-in, so its
+    # mixes and decay LoRA-in are used in part
+    ("rwkv6-1.6b", m, {
+        **{f"layers/blk/{k}": "local" for k in (
+            "w_r", "w_k", "w_v", "w_g", "w_o", "w_decay_b", "w_ck", "w_cv")},
+        **{f"layers/blk/{k}": "part" for k in (
+            "mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "w_decay_a",
+            "decay_base", "bonus_u", "ln_scale", "ln_bias")},
+        **{f"layers/blk/{k}": "whole" for k in ("mu_ck", "mu_cr", "w_cr")},
+        "layers/ln1": "whole", "embed": "local", "unembed": "part"})
+    for m in (2, 4)
+] + [
+    ("zamba2-7b", m, {
+        "layers/blk/w_out": "local",
+        **{f"layers/blk/{k}": "part" for k in (
+            "w_in", "conv_w", "conv_b", "A_log", "dt_bias", "D",
+            "norm_scale")},
+        "layers/ln1": "whole", "embed": "local",
+        "shared_attn/attn/wq": "local", "shared_attn/attn/wo": "local",
+        "shared_attn/attn/wk": "local" if m == 2 else "part",
+        "shared_attn/mlp/w_down": "local", "shared_attn/ln1": "whole"})
+    for m in (2, 4)
 ]
 
 
