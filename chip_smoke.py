@@ -312,7 +312,13 @@ Phases (any failure exits non-zero):
    blocks of each leaf within (d)'s rule at ``P18_LEAF_SHARE``, no plain
    call, RSA GEMM and flash launches on each rank; each rank's step
    seconds, peak memory, launch counts and local GEMM shapes printed.
-   The phase fails past its 240 s budget.
+   The sharded step gathers a layer at a time inside its remat'd bodies
+   and writes its update into the rank's blocks (``parallel/fsdp.py``):
+   (d), (f) and (g) print each rank's high-water of gathered bytes and
+   the bytes its collectives moved in the step (``sharding.METER``), and
+   the peak memory a rank of (d) and of (f) is gated at
+   ``P18_PEAK_SAVING_GB`` below what the whole-tree step took there
+   (``P18_PEAK_BEFORE_GB``).  The phase fails past its 240 s budget.
 
 Phase 3 also holds the paged MLA kernel (decode over ragged lengths
 0-545, prefill of a 64-row chunk at ragged starts, each with its plan and,
@@ -463,6 +469,11 @@ P18_RANK_STEPS = 1                   # (d)
 # zero-centred norm weights hold the entries whose gradient terms cancel
 # (layers/ln2 at 99.84-99.93% on an H100 80GB HBM3 at 700 W)
 P18_LEAF_SHARE = 0.995
+# (d)'s and (f)'s peak memory a rank under the whole-tree step (runs PG-PK
+# and QA-QD, H100 80GB HBM3 at 700 W), and the least saving of the
+# per-layer gather with the update in place
+P18_PEAK_BEFORE_GB = {"d": 20.8, "f": 20.9}
+P18_PEAK_SAVING_GB = 5.0
 P18_BUDGET_S = 240.0
 P18_RANK_DEADLINE_S = 200.0
 # (e): launch.train's flags (its default batch and length, 3 steps)
@@ -6301,7 +6312,8 @@ def p18_rank_main(rank: int, world: int, store: str, out: str,
     from repro_torch.kernels.rsa_gemm import rsa_gemm_cuda
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.launch.steps import build_train_step
-    from repro_torch.parallel.sharding import local_batch_rows, shard_tree
+    from repro_torch.parallel.sharding import (METER, local_batch_rows,
+                                               shard_tree)
     t0 = time.time()
     init_distributed("cuda", rank=rank, world_size=world, store_path=store,
                      backend="gloo", timeout_s=120)
@@ -6318,11 +6330,16 @@ def p18_rank_main(rank: int, world: int, store: str, out: str,
         torch.cuda.empty_cache()
         r0, n, over = local_batch_rows(TRAIN_B, cfg, mesh)
         setup = time.time() - t0
-        first = {}
+        first, meter = {}, {}
+
+        def after_first(p):
+            meter.update(gathered_high_gb=METER.high / 1e9,
+                         moved_gb=METER.moved / 1e9)
+            first.update(p18_compare(torch, p, ps, mesh, want))
+        METER.reset()
         params, opt_state, losses, norms, secs, counts = p18_steps(
             torch, step, params, opt_state, cfg, slice(r0, r0 + n), mesh,
-            lambda p: first.update(p18_compare(torch, p, ps, mesh, want)),
-            P18_RANK_STEPS)
+            after_first, P18_RANK_STEPS)
         keys = [[list(k), v] for k, v in
                 sorted(rsa_gemm_cuda.launches_by_key.items())]
         del params, opt_state, model, step, opt
@@ -6331,7 +6348,7 @@ def p18_rank_main(rank: int, world: int, store: str, out: str,
         return {"rank": rank, "rows": [r0, n], "over": list(over),
                 "losses": losses, "grad_norms": norms, "step_s": secs,
                 "counts": counts, "gemm_keys": keys, "setup_s": setup,
-                "leaves": first,
+                "leaves": first, **meter,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     rec = run(p18_cfg(), make_host_mesh(world, 1, "cuda"), want_path)
@@ -6581,8 +6598,10 @@ def p18_tp(rep, recs, losses, norms, counts, n_want):
     # each rank runs (a)'s launches a step, each on its local shapes
     as_a = all(t["counts"][k] * P18_STEPS == counts[k] * P18_RANK_STEPS
                for t in tps for k in kernels)
+    peak = max(t["peak_memory_gb"] for t in tps)
+    peak_cap = P18_PEAK_BEFORE_GB["f"] - P18_PEAK_SAVING_GB
     good = (loss_err <= 1e-5 and gn_err <= 1e-4 and launched and plain == 0
-            and worst[0] >= P18_LEAF_SHARE
+            and worst[0] >= P18_LEAF_SHARE and peak <= peak_cap
             and {len(t["leaves"]) for t in tps} == {n_want})
     shapes = sorted({tuple(k[-4:-1]) for k, _ in tps[0]["gemm_keys"]})
     rep["tp"] = {"mesh": [1, P18_RANKS], "ranks": tps,
@@ -6590,6 +6609,7 @@ def p18_tp(rep, recs, losses, norms, counts, n_want):
                  "step1_grad_norm_rel_err": gn_err, "leaf_share": share,
                  "weights_worst_leaf": list(worst),
                  "weights_max_diff": max_diff, "launches_as_a": as_a,
+                 "peak_memory_gb": peak, "peak_memory_cap_gb": peak_cap,
                  "gemm_shapes": shapes, "ok": good}
     log(f"    step 1's loss {tps[0]['losses'][0]:.6f} (rel {loss_err:.2e}, "
         f"tol 1e-5), grad norm {tps[0]['grad_norms'][0]:.4f} (rel "
@@ -6597,12 +6617,16 @@ def p18_tp(rep, recs, losses, norms, counts, n_want):
         f"{len(share)} leaves within (d)'s rule at the least "
         f"{100 * worst[0]:.3f}% ({worst[1]}; tol "
         f"{100 * P18_LEAF_SHARE:.1f}%), largest difference {max_diff:.2e}; "
-        f"{plain} plain calls")
+        f"{plain} plain calls; peak memory {peak:.2f} GB a rank (cap "
+        f"{peak_cap:.1f}: {P18_PEAK_BEFORE_GB['f']} GB less "
+        f"{P18_PEAK_SAVING_GB:g})")
     for t in tps:
         c = t["counts"]
         log(f"    rank {t['rank']}: step 1 {1e3 * t['step_s'][0]:.1f} ms, "
             f"setup {t['setup_s']:.1f} s, peak memory "
-            f"{t['peak_memory_gb']:.1f} GB; launches {c['rsa_gemm']} RSA "
+            f"{t['peak_memory_gb']:.2f} GB, gathered high-water "
+            f"{t['gathered_high_gb']:.3f} GB, collectives moved "
+            f"{t['moved_gb']:.3f} GB; launches {c['rsa_gemm']} RSA "
             f"GEMM, {c['flash_fwd']} / {c['flash_dq']} / {c['flash_dkv']} "
             f"flash fwd / dq / dk-dv ({'(a)' if as_a else 'NOT (a)'}'s a "
             f"step)")
@@ -6681,8 +6705,10 @@ def p18_tpg(rep, recs, ones, local_gemms):
             log(f"    {key} rank {t['rank']}: step 1 "
                 f"{1e3 * t['step_s'][0]:.1f} ms (one device "
                 f"{1e3 * one['step_s'][0]:.1f}), setup {t['setup_s']:.1f} s,"
-                f" peak memory {t['peak_memory_gb']:.1f} GB (one device "
-                f"{one['peak_memory_gb']:.1f}); launches "
+                f" peak memory {t['peak_memory_gb']:.2f} GB (one device "
+                f"{one['peak_memory_gb']:.2f}), gathered high-water "
+                f"{t['gathered_high_gb']:.3f} GB, collectives moved "
+                f"{t['moved_gb']:.3f} GB; launches "
                 + ", ".join(f"{k} {c[k]}" for k in kernels)
                 + f" ({'the one-device step' if as_one else 'NOT one-device'}"
                 f"'s): " + ("ok" if good else "FAIL"))
@@ -6959,9 +6985,11 @@ def p18_all(torch, report):
                           for k in ("rsa_gemm", "flash_fwd", "flash_dq",
                                     "flash_dkv"))
         plain = sum(r["counts"]["plain_calls"] for r in recs)
+        peak = max(r["peak_memory_gb"] for r in recs)
+        peak_cap = P18_PEAK_BEFORE_GB["d"] - P18_PEAK_SAVING_GB
         good = (loss1_err <= 1e-5 and gn1_err <= 1e-4
                 and worst[0] >= P18_LEAF_SHARE and n_leaves == {n_want}
-                and counts_same and plain == 0)
+                and counts_same and plain == 0 and peak <= peak_cap)
         rep["world2"] = {"backend": "gloo", "mesh": [world, 1],
                          "ranks": recs, "wall_s": wall2,
                          "step1_loss_rel_err": loss1_err,
@@ -6970,6 +6998,8 @@ def p18_all(torch, report):
                          "weights_worst_leaf": list(worst),
                          "weights_max_diff": max_diff,
                          "counts_equal": counts_same,
+                         "peak_memory_gb": peak,
+                         "peak_memory_cap_gb": peak_cap,
                          "step1_s": recs[0]["step_s"][0], "ok": good}
         log(f"    {wall2:.1f} s with the ranks' start; step 1's loss "
             f"{recs[0]['losses'][0]:.6f} (rel {loss1_err:.2e}, tol 1e-5), "
@@ -6986,9 +7016,15 @@ def p18_all(torch, report):
             f"{recs[0]['counts']['flash_dkv']} "
             f"({'(a)' if counts_same else 'NOT (a)'}'s a step), {plain} "
             f"plain calls; step 1 {1e3 * recs[0]['step_s'][0]:.1f} ms (rank "
-            f"0, the first step; peak memory "
-            f"{max(r['peak_memory_gb'] for r in recs):.1f} GB a rank): "
-            + ("ok" if good else "FAIL"))
+            f"0, the first step); peak memory {peak:.2f} GB a rank (cap "
+            f"{peak_cap:.1f}: {P18_PEAK_BEFORE_GB['d']} GB less "
+            f"{P18_PEAK_SAVING_GB:g}): " + ("ok" if good else "FAIL"))
+        for r in recs:
+            log(f"    rank {r['rank']}: peak memory "
+                f"{r['peak_memory_gb']:.2f} GB, gathered high-water "
+                f"{r['gathered_high_gb']:.3f} GB, collectives moved "
+                f"{r['moved_gb']:.3f} GB in step 1, step 1 "
+                f"{1e3 * r['step_s'][0]:.1f} ms")
     else:
         rep["world2"] = {"returncodes": [p.returncode for p in procs],
                          "logs": [lg[-4000:] for lg in logs], "ok": False}

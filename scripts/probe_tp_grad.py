@@ -11,11 +11,11 @@ the one-device step on the kernels (``kernel``), on the plain versions
 (``plain``), on the plain versions in f64 (``f64``: the process rebinds
 f32 as ``launch/probe_grad.py`` does), and the ``tp`` step on a (1, 2)
 mesh of two gloo ranks on the card (``tp``: the reduced gradient blocks
-the step hands AdamW, gathered back to full).  Prints each run's grad
-norm and, per leaf, ``|a - b| / |f64|`` for tp and plain against the
-kernel run and for each run against f64, and the leaf's share of the
-f64 norm; writes them as JSON.  The gradients go through ``build/`` and
-are deleted.
+the step hands ``AdamW.update_``, gathered back to full).  Prints each
+run's grad norm and, per leaf, ``|a - b| / |f64|`` for tp and plain
+against the kernel run and for each run against f64, and the leaf's
+share of the f64 norm; writes them as JSON.  The gradients go through
+``build/`` and are deleted.
 """
 
 from __future__ import annotations
@@ -77,6 +77,7 @@ def tp_rank(rank: int, arch: str, layers: int) -> None:
     from repro_torch import dispatch
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.parallel import sharding as sh
     init_distributed("cuda", rank=rank, world_size=2,
                      store_path=str(WORK / "store"), backend="gloo",
@@ -85,16 +86,20 @@ def tp_rank(rank: int, arch: str, layers: int) -> None:
     model, step, opt, (ps, _) = build_train_step(
         cfg, 1e-3, "cuda", mesh=mesh, global_batch=batch["tokens"].shape[0])
     seen = {}
-    update = opt.update
+    update_ = opt.update_
 
     def keep(grads, *args, **kwargs):
-        seen["grads"] = grads
-        return update(grads, *args, **kwargs)
-    opt.update = keep
+        # update_ drops each gradient from the list as it goes
+        seen["grads"] = list(grads)
+        return update_(grads, *args, **kwargs)
+    opt.update_ = keep
     params = sh.shard_tree(model.init(0), ps, mesh)
+    paths = tree_leaves(sh._map_with_path(lambda p, _: p, params))
     with dispatch.use(execute="kernel"):
         step(params, opt.init(params), batch)
-    full = sh.gather_tree(seen["grads"], ps, mesh)
+    grads = dict(zip(paths, seen["grads"]))
+    full = sh.gather_tree(sh._map_with_path(lambda p, _: grads[p], params),
+                          ps, mesh)
     if rank == 0:
         _save(torch, full, "tp")
     dist.barrier()

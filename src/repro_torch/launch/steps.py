@@ -6,31 +6,46 @@ The train step takes the value and gradient of ``Model.loss`` with
 autograd (every GEMM's dx/dw, each expert bank's dx/dw and the
 flash-attention backward run through the hand-written kernels under the
 active dispatch policy), then runs ``AdamW.update`` and
-``apply_updates``.  A batch is ``{"tokens": (B, S + 1)}``, with
-``"patch_embeds"`` (vlm) or ``"src_features"`` (encdec) passed through to
-the loss.
+``apply_updates`` (on one device; a sharded step ``AdamW.update_``).  A
+batch is ``{"tokens": (B, S + 1)}``, with ``"patch_embeds"`` (vlm) or
+``"src_features"`` (encdec) passed through to the loss.
 
 Over a mesh (``build_train_step(..., mesh=, global_batch=)``) each rank
 holds the block of every parameter and of its AdamW moments that
 ``param_specs`` gives it and its rows of the global batch
 (``batch_specs``).  Under ``dp_all*``, and under ``tp`` on a ``model``
-axis of one rank, the step is FSDP / ZeRO-3: it all-gathers the
-parameters to full, runs the same loss on its rows through the same
-kernels (the cross-entropy's and a MoE layer's aux metrics' sums over
-the global counts), reduce-scatters each gradient onto its leaf's spec
-over the ranks that hold other rows (all-reduces a replicated leaf),
-takes the clip's norm over every rank's distinct blocks, and runs AdamW
-on its blocks.  Under ``tp`` on a ``model`` axis of m > 1 ranks it is
-Megatron tensor parallelism as well (``parallel/tp.py``): a leaf whose
-``model`` block holds whole heads, FFN hidden columns, experts or vocab
-rows is gathered over the other axes only, and the rank computes on its
-block, all-reducing over ``model`` where Megatron does; every other leaf
-is gathered whole.  The recurrent blocks compute on a rank's heads
-(``models/ssm.py``).  Each gradient is reduced by ``sharding.tp_use``: a
-block's over the batch axes, a leaf that a rank uses only in part (K/V
-whose kv heads do not divide m, the q/k/v biases, the untied
-unembedding's vocab columns, the recurrent blocks' per-head and packed
-leaves) over ``model`` too.
+axis of one rank, the step is FSDP / ZeRO-3 as the reference's GSPMD
+runs it.  It gathers the leaves used outside the layer stacks whole
+(the embedding, which tied is also the loss's unembedding, the untied
+unembedding, the final norms, a frontend, zamba2's shared block), once
+a step, in sorted order; the training loops take each stack's per-layer
+slices of the rank's blocks once and gather a layer inside its remat'd
+body (``parallel/fsdp.py``), so that a rank holds one gathered layer in
+the forward and one again while the backward recomputes it, and the
+layer's gradient is reduce-scattered onto the rank's block in the
+backward.  Without ``cfg.remat`` the layers' GEMMs save their gathered
+weights for the backward, and the saving is gone, as in the reference.
+After the backward each whole leaf's gradient is reduced onto its block
+(all-reduced where it is replicated), the clip's norm is taken over
+every rank's distinct blocks, and AdamW runs a leaf at a time, writing
+the new moments and parameters into the tensors the step was given and
+dropping each gradient block as it goes (``AdamW.update_``).  So a rank
+holds its blocks, their moments and their gradients, the whole leaves
+with their gradients, and about one gathered layer, never the whole
+tree; the step consumes its arguments and returns them updated, as the
+reference's ``donate_argnums=(0, 1)`` does, and the loss's arithmetic
+and every number are the whole-tree step's.  Under ``tp`` on a
+``model`` axis of m > 1 ranks it is Megatron tensor parallelism as well
+(``parallel/tp.py``): a leaf whose ``model`` block holds whole heads,
+FFN hidden columns, experts or vocab rows is gathered over the other
+axes only, and the rank computes on its block, all-reducing over
+``model`` where Megatron does; every other leaf is gathered whole (a
+layer's a layer at a time).  The recurrent blocks compute on a rank's
+heads (``models/ssm.py``).  Each gradient is reduced by
+``sharding.tp_use``: a block's over the batch axes, a leaf that a rank
+uses only in part (K/V whose kv heads do not divide m, the q/k/v biases,
+the untied unembedding's vocab columns, the recurrent blocks' per-head
+and packed leaves) over ``model`` too.
 
 ``build_cell`` is the counterpart of the reference's ``lower_for_cell``:
 where the reference lowers a cell's step against abstract inputs, it
@@ -248,7 +263,11 @@ def build_train_step(cfg: ArchConfig, lr: float = 3e-4,
     With a ``mesh``, (model, train_step, optimizer, (param specs,
     optimizer-state specs)): the step takes this rank's blocks
     (``parallel.sharding.shard_tree``) and its rows of a ``global_batch``
-    (``local_batch_rows``), as the module docstring says."""
+    (``local_batch_rows``), as the module docstring says, and consumes
+    them: it writes the update into the blocks and the moments it was
+    given and returns those same tensors (the reference's
+    ``donate_argnums=(0, 1)``), so a caller that needs the old values
+    keeps its own copy."""
     model: Model = build_model(cfg, device)
     opt = make_optimizer(cfg, lr)
     if mesh is not None:
@@ -281,6 +300,7 @@ def _sharded_train_step(model: Model, opt: AdamW, mesh, global_batch: int):
 
     from repro_torch.models.transformer import AUX_KEYS
     from repro_torch.optim.adamw import AdamWState, tree_leaves
+    from repro_torch.parallel import fsdp
     from repro_torch.parallel import sharding as sh
     from repro_torch.parallel.hints import use_mesh
 
@@ -298,40 +318,52 @@ def _sharded_train_step(model: Model, opt: AdamW, mesh, global_batch: int):
         p_specs)
     flat_g = dict(sh._flat_with_path(g_specs))
     over_of = {"local": over, "whole": over, "part": over + ("model",)}
+    over_at = {p: over_of[u] for p, u in use.items()}
+    # the layer stacks' leaves go a layer at a time, inside the remat'd
+    # bodies; the others are gathered whole
+    plan = fsdp.plan(g_specs, over_at, mesh)
     # the sums over the ranks that hold other rows (none: nothing to sum,
     # and the loss's arithmetic stays the one-device step's)
     count_fn = (lambda cnt: sh.sum_over(cnt, mesh, over)) if over else None
 
+    def leaf(path, block):
+        if path in plan.specs:
+            return block.detach().requires_grad_(True)
+        full = sh.gather_leaf(block, flat_g[path], mesh)
+        # a gathered leaf is the loss's own (the meter sees its life)
+        return (full.detach() if full is block else full).requires_grad_(
+            True)
+
     def train_step(params, opt_state, batch):
-        full = sh.gather_tree(params, g_specs, mesh)
-        with torch.enable_grad(), use_mesh(mesh):
-            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
-                              full)
-            del full
-            loss, metrics = model.loss(leaves, batch, count_fn=count_fn)
+        flat = dict(sh._flat_with_path(params))
+        leaves = {p: leaf(p, flat[p]) for p in sorted(flat)}
+        with torch.enable_grad(), use_mesh(mesh), fsdp.use_plan(plan):
+            loss, metrics = model.loss(
+                sh._map_with_path(lambda p, _: leaves[p], params), batch,
+                count_fn=count_fn)
             loss.backward()
-        # the graph (and through it every full leaf) goes with the loss;
-        # each full leaf and its gradient go once reduced
+        # the graph goes with the loss; the stacks' gradients arrived as
+        # blocks, each whole leaf's is reduced onto its block, and the
+        # full leaf and its gradient go
         loss = loss.detach()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        flat = dict(sh._flat_with_path(leaves))
-        del leaves
         grads = {}
         for path in sorted(flat):
-            grads[path] = sh.reduce_leaf(flat.pop(path).grad, flat_g[path],
-                                         mesh, over_of[use[path]])
-        grads = sh._map_with_path(lambda p, _: grads[p], params)
+            g = leaves.pop(path).grad
+            grads[path] = g if path in plan.specs else sh.reduce_leaf(
+                g, flat_g[path], mesh, over_at[path])
+            del g
+        grads = tree_leaves(sh._map_with_path(lambda p, _: grads[p],
+                                              params))
         # the clip's norm: each distinct block counted once, summed over
-        # every rank
+        # every rank; it needs every block before any leaf is updated
         sq = sum(torch.sum(torch.square(g.float())) if
                  sh.counted_here(s, mesh) else
                  torch.zeros((), device=g.device)
-                 for g, s in zip(tree_leaves(grads), spec_leaves))
+                 for g, s in zip(grads, spec_leaves))
         dist.all_reduce(sq)
-        updates, opt_state, opt_metrics = opt.update(
-            grads, opt_state, params, norm=torch.sqrt(sq))
-        del grads
-        params = apply_updates(params, updates)
+        sh.METER.collective(sq)
+        opt_metrics = opt.update_(grads, opt_state, params, torch.sqrt(sq))
         # the cross-entropy, the aux metrics and the loss, each rank's sum
         # over the global count, summed over the ranks that hold other rows
         out = dict(metrics, loss=loss)

@@ -46,6 +46,7 @@ from repro_torch.models.ssm import (MambaState, RWKVState,
                                     init_rwkv_block, init_rwkv_state,
                                     mamba_block_apply, mamba_heads,
                                     rwkv_block_apply, rwkv_heads)
+from repro_torch.parallel import fsdp
 from repro_torch.parallel import tp as tp_mod
 
 Params = Dict[str, Any]
@@ -239,12 +240,14 @@ def encode(params: Params, feats: torch.Tensor, cfg: ArchConfig,
     the audio projection, the bidirectional layer stack (full-sequence
     self-attention from position 0: the flash kernels under
     ``attn_impl="pallas"``), the final RMSNorm; ``train`` puts each layer
-    under ``_remat``, as the reference's training ``enc_body``.  Returns
+    under ``_remat``, as the reference's training ``enc_body`` (a sharded
+    step's gather of the layer inside it, ``parallel/fsdp.py``).  Returns
     (B, S_src, d)."""
     x = _frontend_embed(params, feats, cfg)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def layer(lp, x):
+        lp = fsdp.gather_layer(lp, "enc_layers")
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = gqa_self_attention(lp["attn"], h, pos, cfg, causal=False)
         x = x + a.to(x.dtype)
@@ -252,9 +255,8 @@ def encode(params: Params, feats: torch.Tensor, cfg: ArchConfig,
         return x + mlp_apply(lp["mlp"], h2, cfg).to(x.dtype)
 
     body = _remat(layer, cfg) if train else layer
-    enc = params["enc_layers"]
-    for i in range(enc["ln1"].shape[0]):
-        x = body(layer_params(enc, i), x)
+    for lp in fsdp.layer_slices(params["enc_layers"]):
+        x = body(lp, x)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -453,10 +455,13 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 def _remat(fn, cfg: ArchConfig):
     """``fn`` checkpointed (its activations recomputed in the backward
-    pass) under ``cfg.remat``, as the reference's ``_maybe_remat``.  Under
-    Megatron ``tp`` a recomputed region runs its all-reduces again: every
-    rank recomputes the same regions in the same order, and no collective
-    depends on a rank's data."""
+    pass) under ``cfg.remat``, as the reference's ``_maybe_remat``.  Its
+    arguments are a layer's slices of the rank's blocks, and a sharded
+    step gathers the layer inside ``fn`` (``parallel/fsdp.py``), so that
+    checkpoint keeps no gathered leaf alive.  A recomputed region runs its
+    collectives again (the layer's gathers; Megatron ``tp``'s
+    all-reduces): every rank recomputes the same regions in the same
+    order, and no collective depends on a rank's data."""
     if not cfg.remat:
         return fn
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
@@ -470,7 +475,8 @@ def _decoder_stack(params: Params, x, positions, cfg: ArchConfig,
     ``enc_out`` (encdec) each layer first projects its cross K/V from it,
     inside its remat, as the reference's ``dec_body``.  Returns (x,
     aux)."""
-    def layer(lp, h, enc):
+    def layer(lp, h, enc, name):
+        lp = fsdp.gather_layer(lp, name)
         enc_kv = None if enc is None else cross_attention_kv(lp["cross"],
                                                              enc, cfg)
         h, _, a = decoder_layer_apply(lp, h, positions, cfg, enc_kv=enc_kv,
@@ -480,9 +486,10 @@ def _decoder_stack(params: Params, x, positions, cfg: ArchConfig,
     body = _remat(layer, cfg)
     aux = _zero_aux(x.device)
     for name in ("dense_layers", "layers"):
-        stack = params.get(name)
-        for i in range(0 if stack is None else stack["ln1"].shape[0]):
-            x, a = body(layer_params(stack, i), x, enc_out)
+        if name not in params:
+            continue
+        for lp in fsdp.layer_slices(params[name]):
+            x, a = body(lp, x, enc_out, name)
             aux = {k: aux[k] + a[k] for k in AUX_KEYS}
     return x, aux
 
@@ -491,13 +498,16 @@ def _rwkv_stack(params: Params, x, cfg: ArchConfig):
     """The RWKV6 layers from zero states (the reference's training
     ``_scan_rwkv``; over the heads the leaves hold, a rank's under
     Megatron ``tp``), each layer under ``_remat``."""
-    zero = init_rwkv_state(cfg, x.shape[0], x.dtype, x.device,
-                           heads=rwkv_heads(params["layers"]["blk"], cfg))
-    body = _remat(lambda lp, h: h + rwkv_block_apply(
-        lp["blk"], rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
-        zero)[0].to(h.dtype), cfg)
-    for i in range(params["layers"]["ln1"].shape[0]):
-        x = body(layer_params(params["layers"], i), x)
+    def layer(lp, h):
+        lp = fsdp.gather_layer(lp, "layers")
+        zero = init_rwkv_state(cfg, h.shape[0], h.dtype, h.device,
+                               heads=rwkv_heads(lp["blk"], cfg))
+        return h + rwkv_block_apply(lp["blk"], rmsnorm(
+            h, lp["ln1"], cfg.norm_eps), cfg, zero)[0].to(h.dtype)
+
+    body = _remat(layer, cfg)
+    for lp in fsdp.layer_slices(params["layers"]):
+        x = body(lp, x)
     return x
 
 
@@ -505,23 +515,29 @@ def _hybrid_stack(params: Params, x, positions, cfg: ArchConfig):
     """The reference's training ``_hybrid_forward`` from zero states and no
     cache (over the heads the leaves hold, a rank's under Megatron
     ``tp``): each group (its Mamba span, then the shared block) under
-    ``_remat``, then each remainder layer under it."""
+    ``_remat``, then each remainder layer under it.  A sharded step
+    gathers a group's layers inside its remat (the slices are taken
+    outside), so a group's recompute holds its ``per_group`` layers."""
     n_m, n_groups, per_group, rem = hybrid_layout(cfg)
-    lp, shared = params["layers"], params["shared_attn"]
-    zero = init_mamba_state(cfg, x.shape[0], x.dtype, x.device,
-                            heads=mamba_heads(lp["blk"], cfg))
+    slices, shared = fsdp.layer_slices(params["layers"]), params["shared_attn"]
+
+    def mamba(lp, h):
+        lp = fsdp.gather_layer(lp, "layers")
+        zero = init_mamba_state(cfg, h.shape[0], h.dtype, h.device,
+                                heads=mamba_heads(lp["blk"], cfg))
+        return _mamba_layer(lp, h, cfg, zero)[0]
 
     def group(h, g):
-        for i in range(g * per_group, (g + 1) * per_group):
-            h = _mamba_layer(layer_params(lp, i), h, cfg, zero)[0]
+        for lp in slices[g * per_group:(g + 1) * per_group]:
+            h = mamba(lp, h)
         return decoder_layer_apply(shared, h, positions, cfg)[0]
 
     group = _remat(group, cfg)
     for g in range(n_groups):
         x = group(x, g)
-    layer = _remat(lambda p, h: _mamba_layer(p, h, cfg, zero)[0], cfg)
-    for i in range(n_m - rem, n_m):
-        x = layer(layer_params(lp, i), x)
+    layer = _remat(mamba, cfg)
+    for lp in slices[n_m - rem:]:
+        x = layer(lp, x)
     return x
 
 

@@ -4,13 +4,15 @@ tensors — the port of ``repro/optim/adamw.py`` with its f32 arithmetic.
 Optimizer state is ``AdamWState(step, m, v)``: the step an int32 scalar,
 the moments dicts shaped like the parameters in ``state_dtype``.  Every
 function returns new tensors and leaves its inputs as they were, as the
-reference's pure functions do.
+reference's pure functions do, but ``AdamW.update_``: the same numbers a
+leaf at a time, written into the parameters' and the state's tensors,
+as the reference's sharded step donates them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import torch
 
@@ -47,13 +49,21 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (x.float() * scale).to(x.dtype)
+
+
 def clip_by_global_norm(tree, max_norm: float, norm=None):
     """``tree`` scaled to at most ``max_norm``; ``norm`` is the tree's
     global norm where the caller has it (a sharded step's, over every
     rank's blocks)."""
     norm = global_norm(tree) if norm is None else norm
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda x: _scaled(x, scale), tree), norm
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
@@ -97,26 +107,59 @@ class AdamW:
         a sharded step passes in (``norm``) for its local blocks."""
         step = state.step + 1
         grads, gnorm = clip_by_global_norm(grads, self.clip_norm, norm)
-        b1, b2, sd = self.b1, self.b2, self.state_dtype
-        m_new = tree_map(lambda g, m: (b1 * m.float() + (1 - b1) * g.float())
-                         .to(sd), grads, state.m)
-        v_new = tree_map(lambda g, v: (b2 * v.float() + (1 - b2) *
-                                       torch.square(g.float())).to(sd),
-                         grads, state.v)
-        lr = self.lr(step).to(step.device)
-        f32 = dict(dtype=torch.float32, device=step.device)
-        bc1 = 1 - torch.tensor(b1, **f32) ** step.float()
-        bc2 = 1 - torch.tensor(b2, **f32) ** step.float()
-
-        def delta(p, m, v):
-            d = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
-            if p.dim() >= 2:     # decoupled weight decay on matrices only
-                d = d + self.weight_decay * p.float()
-            return (-lr * d).to(p.dtype)
-
-        updates = tree_map(delta, params, m_new, v_new)
+        m_new = tree_map(lambda g, m: self._ema(self.b1, m, g.float()),
+                         grads, state.m)
+        v_new = tree_map(lambda g, v: self._ema(
+            self.b2, v, torch.square(g.float())), grads, state.v)
+        lr, bc1, bc2 = self._schedule(step)
+        updates = tree_map(lambda p, m, v: self._delta(p, m, v, lr, bc1, bc2),
+                           params, m_new, v_new)
         return updates, AdamWState(step=step, m=m_new, v=v_new), \
             {"grad_norm": gnorm, "lr": lr}
+
+    @torch.no_grad()
+    def update_(self, grads: List[torch.Tensor], state: AdamWState, params,
+                norm: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``update`` and ``apply_updates`` one leaf at a time, each result
+        written into ``params``' and ``state``'s own tensors (their step
+        too): every number is theirs, and the step holds no second copy of
+        the parameters, the moments or the gradients.  ``grads`` are the
+        leaves' gradients in ``tree_leaves`` order, each dropped from the
+        list once its leaf is updated; ``norm`` their global norm.
+        Returns ``update``'s metrics."""
+        step = state.step + 1
+        scale = _clip_scale(norm, self.clip_norm)
+        lr, bc1, bc2 = self._schedule(step)
+        for i, (p, m, v) in enumerate(zip(tree_leaves(params),
+                                          tree_leaves(state.m),
+                                          tree_leaves(state.v))):
+            g = _scaled(grads[i], scale)
+            grads[i] = None
+            m.copy_(self._ema(self.b1, m, g.float()))
+            v.copy_(self._ema(self.b2, v, torch.square(g.float())))
+            del g
+            p.add_(self._delta(p, m, v, lr, bc1, bc2))
+        state.step.copy_(step)
+        return {"grad_norm": norm, "lr": lr}
+
+    def _ema(self, b: float, s: torch.Tensor, x: torch.Tensor
+             ) -> torch.Tensor:
+        return (b * s.float() + (1 - b) * x).to(self.state_dtype)
+
+    def _schedule(self, step: torch.Tensor):
+        """(lr, the two bias corrections) at ``step``, the step's number
+        counted from 1."""
+        lr = self.lr(step).to(step.device)
+        f32 = dict(dtype=torch.float32, device=step.device)
+        bc1 = 1 - torch.tensor(self.b1, **f32) ** step.float()
+        bc2 = 1 - torch.tensor(self.b2, **f32) ** step.float()
+        return lr, bc1, bc2
+
+    def _delta(self, p, m, v, lr, bc1, bc2) -> torch.Tensor:
+        d = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
+        if p.dim() >= 2:     # decoupled weight decay on matrices only
+            d = d + self.weight_decay * p.float()
+        return (-lr * d).to(p.dtype)
 
 
 @torch.no_grad()

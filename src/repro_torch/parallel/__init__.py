@@ -1,5 +1,6 @@
 """The distribution layer: the mesh's ambient state (``hints``), the
 sharding rules and the local blocks they give each rank (``sharding``),
-Megatron tensor parallelism's ops over the ``model`` axis (``tp``), and
-the int8 error-feedback gradient all-reduce (``collectives``), on
+the sharded train step's per-layer gather (``fsdp``), Megatron tensor
+parallelism's ops over the ``model`` axis (``tp``), and the int8
+error-feedback gradient all-reduce (``collectives``), on
 ``torch.distributed``."""

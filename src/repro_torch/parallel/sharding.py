@@ -28,7 +28,9 @@ blocks: ``shard_leaf`` cuts a full tensor to this rank's block of a spec,
 ``gather_leaf`` all-gathers the blocks back to the full tensor, and
 ``reduce_leaf`` sums a full-shaped gradient over the ranks that hold
 other rows of the batch and keeps this rank's block (a reduce-scatter),
-each collective on the ``DeviceMesh``'s group of one axis.  Under
+each collective on the ``DeviceMesh``'s group of one axis.  ``METER``
+counts the bytes a rank hands to its collectives and the gathered
+leaves it holds at once.  Under
 Megatron ``tp`` over a ``model`` axis of more than one rank, ``tp_use``
 says which leaves a rank computes on its ``model`` block of (gathered
 over the other axes only, ``without_model``), which it uses in part and
@@ -38,6 +40,8 @@ which whole (``launch/steps.py``'s sharded step, ``parallel/tp.py``).
 from __future__ import annotations
 
 import re
+import threading
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -455,9 +459,48 @@ def shard_leaf(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return local.clone(memory_format=torch.contiguous_format)
 
 
+class Meter:
+    """What a rank's collectives move and what its gathers hold:
+    ``moved``, the bytes it hands to collectives (each all-gather's
+    output, each reduce-scatter's input, each all-reduce's tensor); and
+    ``live``, the bytes of the tensors ``gather_leaf`` gathered whose
+    storage is still alive (a weakref finaliser on the storage, so that a
+    view or a detached alias that autograd or checkpoint keeps counts),
+    with ``high`` its high-water mark since ``reset``."""
+
+    def __init__(self):
+        # reentrant: a finaliser may run on a thread that holds it
+        self._lock = threading.RLock()
+        self.moved = self.live = self.high = 0
+
+    def reset(self) -> None:
+        with self._lock:
+            self.moved, self.high = 0, self.live
+
+    def collective(self, t: torch.Tensor) -> None:
+        with self._lock:
+            self.moved += t.numel() * t.element_size()
+
+    def gathered(self, t: torch.Tensor) -> None:
+        storage = t.untyped_storage()
+        n = storage.nbytes()
+        with self._lock:
+            self.live += n
+            self.high = max(self.high, self.live)
+        weakref.finalize(storage, self._free, n)
+
+    def _free(self, n: int) -> None:
+        with self._lock:
+            self.live -= n
+
+
+METER = Meter()
+
+
 def gather_leaf(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """The full tensor of a leaf held as blocks under ``spec``: an
-    all-gather a sharded axis, the last (minor) axis first."""
+    all-gather a sharded axis, the last (minor) axis first (``local``
+    itself where no axis of more than one rank cuts it)."""
     import torch.distributed as dist
     t = local
     for _, group, n, d in reversed(_sharded_axes(spec, mesh)):
@@ -467,7 +510,10 @@ def gather_leaf(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         out = torch.empty((n * part.shape[0],) + tuple(part.shape[1:]),
                           dtype=t.dtype, device=t.device)
         dist.all_gather_into_tensor(out, part, group=group)
+        METER.collective(out)
         t = out.movedim(0, d)
+    if t is not local:
+        METER.gathered(t)
     return t
 
 
@@ -477,23 +523,30 @@ def reduce_leaf(grad: torch.Tensor, spec: P, mesh,
     one on every rank) over the ranks that differ from it on ``over`` only
     (those that hold other rows of the batch), the first (major) axis
     first: a reduce-scatter on an axis in both, an all-reduce on one in
-    ``over`` alone, a local cut on one in ``spec`` alone."""
+    ``over`` alone, a local cut on one in ``spec`` alone.  ``grad`` is
+    left as it was, and the block owns its storage (no view keeps the
+    full gradient alive)."""
     import torch.distributed as dist
     coords = coordinate(mesh)
-    t = grad
+    t, owned = grad, False
     for a, group, n, d in _sharded_axes(spec, mesh):
         if a in over and d is None:
-            t = t.contiguous()
+            t = t.contiguous() if owned else \
+                t.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(t, group=group)
+            METER.collective(t)
+            owned = True
         elif a in over:
             part = t.movedim(d, 0).contiguous()
             out = torch.empty((part.shape[0] // n,) + tuple(part.shape[1:]),
                               dtype=t.dtype, device=t.device)
             dist.reduce_scatter_tensor(out, part, group=group)
-            t = out.movedim(0, d)
+            METER.collective(part)
+            t, owned = out.movedim(0, d), True
         elif d is not None:
-            t = t.chunk(n, dim=d)[coords[a]]
-    return t.contiguous()
+            t, owned = t.chunk(n, dim=d)[coords[a]], False
+    return t.contiguous() if owned else \
+        t.clone(memory_format=torch.contiguous_format)
 
 
 def sum_over(t: torch.Tensor, mesh, over: Tuple[str, ...]) -> torch.Tensor:
@@ -505,6 +558,7 @@ def sum_over(t: torch.Tensor, mesh, over: Tuple[str, ...]) -> torch.Tensor:
         if a in over and axis_sizes(mesh)[a] > 1:
             t = t.clone()
             dist.all_reduce(t, group=mesh.get_group(a))
+            METER.collective(t)
     return t
 
 

@@ -30,7 +30,8 @@ rank.  The model reads from a leaf's own shape whether it holds a block
 (:func:`local`), so serving and the one-device step never reach a
 collective.  The collectives are ``torch.distributed``'s eager calls
 (the functional ones end both ranks with SIGSEGV over gloo on CUDA
-tensors); a failed one raises and ends its rank.
+tensors), each counted in ``sharding.METER``; a failed one raises and
+ends its rank.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel.sharding import METER
 
 
 class TP(NamedTuple):
@@ -87,6 +89,7 @@ class _CopyIn(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
+        METER.collective(g)
         return g, None
 
 
@@ -95,6 +98,7 @@ class _ReduceOut(torch.autograd.Function):
     def forward(ctx, x, group):
         y = x.contiguous().clone()
         dist.all_reduce(y, group=group)
+        METER.collective(y)
         return y
 
     @staticmethod
@@ -164,6 +168,7 @@ def vocab_ce(logits: torch.Tensor, labels: torch.Tensor,
     n = logits.shape[-1]
     mx = logits.detach().amax(dim=-1)
     dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=tp.group)
+    METER.collective(mx)
     se = reduce_out(torch.exp(logits - mx[..., None]).sum(dim=-1), tp)
     rel = labels.long() - tp.rank * n
     mine = (rel >= 0) & (rel < n)

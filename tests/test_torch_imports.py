@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.serving.snapshot",
             "repro_torch.parallel.sharding", "repro_torch.parallel.hints",
             "repro_torch.parallel.collectives",
-            "repro_torch.parallel.tp",
+            "repro_torch.parallel.tp", "repro_torch.parallel.fsdp",
             "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -167,6 +167,31 @@ WORKER = textwrap.dedent("""
                                                  mesh(d, m), T.B)
         res[name] = {"losses": losses}
         save(name, sh.gather_tree(params, specs["params"], mesh(d, m)))
+
+    res["whole"] = {}
+
+    def whole(name):
+        # a case that fails fails its own tests only
+        try:
+            res["whole"][name] = T.against_whole_tree(name, mesh, out)
+        except Exception:
+            res["whole"][name] = {"error": traceback.format_exc()}
+
+    for name in T.WHOLE_CASES:
+        if T.WHOLE_CASES[name][2] * T.WHOLE_CASES[name][3] == 4:
+            whole(name)
+    dist.barrier()
+    dist.destroy_process_group()
+
+    # two groups of 2 for the (2, 1) and (1, 2) meshes, each on a store of
+    # its own
+    half, pair = rank // 2, rank % 2
+    init_distributed("cpu", rank=pair, world_size=2,
+                     store_path=f"{store}-pair{half}", timeout_s=60)
+    meshes.clear()
+    for name, (_, _, d, m, _) in T.WHOLE_CASES.items():
+        if (d, m) == ((2, 1), (1, 2))[half]:
+            whole(name)
     dist.barrier()
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -187,6 +212,17 @@ MAIN_CASES = {"main-llama": ("llama3.2-1b", False),
 # under Megatron tp: name: (arch, tp_strategy, data, model)
 REFUSED = {"rwkv6-tp-2x2": ("rwkv6-1.6b", "tp", 2, 2),
            "zamba2-tp-2x2": ("zamba2-7b", "tp", 2, 2)}
+# step 1 against the whole-tree step written out below: name: (arch,
+# tp_strategy, data, model, layer slots).  Four layers (zamba2: 14 slots,
+# ten Mamba2 layers in groups of two) so that two of them are less than
+# the stack; zamba2's per-head leaves (10, 8) then cut their stack axis
+# under dp_all on two ranks, and are gathered whole
+WHOLE_ARCHS = (("llama", "llama3.2-1b", 4), ("rwkv6", "rwkv6-1.6b", 4),
+               ("zamba2", "zamba2-7b", 14))
+WHOLE_CASES = {f"{key}-{strategy}-{d}x{m}": (arch, strategy, d, m, layers)
+               for key, arch, layers in WHOLE_ARCHS
+               for strategy in ("dp_all", "tp")
+               for d, m in ((2, 1), (1, 2), (2, 2), (4, 1), (1, 4))}
 
 
 def _specs():
@@ -265,6 +301,149 @@ def sharded_run(cfg, mesh, batch):
             params, opt_state, m = step(params, opt_state, {"tokens": toks})
         losses.append(float(m["loss"]))
     return params, opt_state, {"params": ps, "opt": os_}, losses
+
+
+def whole_tree_step(model, opt, mesh, params, opt_state, batch):
+    """Step 1 as the sharded step ran it before it gathered a layer at a
+    time: the whole tree gathered (``gather_tree``), the loss and its
+    backward on full leaves, each full gradient reduced after the
+    backward in sorted order (``reduce_leaf``), the clip's norm over every
+    rank's distinct blocks, and the functional ``AdamW.update``.  Returns
+    (new params, new optimizer state, loss, grad norm); its arguments are
+    left as they were."""
+    import torch.distributed as dist
+
+    from repro_torch.optim.adamw import apply_updates, tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.hints import use_mesh
+    cfg = model.cfg
+    abstract = model.init_abstract()
+    ps = sh.param_specs(abstract, cfg, mesh)
+    use = dict(sh._flat_with_path(sh.tp_use(abstract, cfg, mesh)))
+    gs = sh._map_with_path(
+        lambda p, s: sh.without_model(s) if use[p] == "local" else s, ps)
+    flat_g = dict(sh._flat_with_path(gs))
+    _, _, over = sh.local_batch_rows(B, cfg, mesh)
+    over_of = {"local": over, "whole": over, "part": over + ("model",)}
+    count_fn = (lambda cnt: sh.sum_over(cnt, mesh, over)) if over else None
+    full = sh.gather_tree(params, gs, mesh)
+    with torch.enable_grad(), use_mesh(mesh):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), full)
+        del full
+        loss, _ = model.loss(leaves, batch, count_fn=count_fn)
+        loss.backward()
+    flat = dict(sh._flat_with_path(leaves))
+    grads = {p: sh.reduce_leaf(flat[p].grad, flat_g[p], mesh,
+                               over_of[use[p]]) for p in sorted(flat)}
+    grads = sh._map_with_path(lambda p, _: grads[p], params)
+    sq = sum(torch.sum(torch.square(g.float())) if sh.counted_here(s, mesh)
+             else torch.zeros(()) for g, s in zip(tree_leaves(grads),
+                                                   tree_leaves(ps)))
+    dist.all_reduce(sq)
+    updates, state, om = opt.update(grads, opt_state, params,
+                                    norm=torch.sqrt(sq))
+    return (apply_updates(params, updates), state,
+            float(sh.sum_over(loss.detach(), mesh, over)),
+            float(om["grad_norm"]))
+
+
+def gathered_bytes(cfg, mesh):
+    """(bytes of the leaves the sharded step gathers whole, bytes of its
+    largest remat'd region's gathered layers: one layer, a zamba2 group's
+    Mamba2 layers, the stacked leaves gathered whole), counting only the
+    leaves some axis of more than one rank gathers, each at its gathered
+    size (a block that stays cut over ``model`` its block's)."""
+    from repro_torch.models.transformer import hybrid_layout
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel import sharding as sh
+    abstract = model_of(cfg).init_abstract()
+    ps = sh.param_specs(abstract, cfg, mesh)
+    use = dict(sh._flat_with_path(sh.tp_use(abstract, cfg, mesh)))
+    gs = sh._map_with_path(
+        lambda p, s: sh.without_model(s) if use[p] == "local" else s, ps)
+    flat_g = dict(sh._flat_with_path(gs))
+    plan = fsdp.plan(gs, {p: () for p in use}, mesh)
+    flat_p, sizes = dict(sh._flat_with_path(ps)), sh.axis_sizes(mesh)
+    whole = layer = 0
+    stacked = []
+    for path, t in sh._flat_with_path(abstract):
+        if not any(d is not None
+                   for *_, d in sh._sharded_axes(flat_g[path], mesh)):
+            continue
+        n = t.numel() * t.element_size()
+        for a in set(sh.spec_axes(flat_p[path], mesh)) - \
+                set(sh.spec_axes(flat_g[path], mesh)):
+            n //= sizes[a]
+        if path in plan.specs:
+            layer += n // t.shape[0]
+        else:
+            whole += n
+            if path.split("/")[0] in fsdp.STACKS:
+                stacked.append(path)
+    unit = hybrid_layout(cfg)[2] if cfg.family == "hybrid" else 1
+    return whole, unit * layer, stacked
+
+
+def against_whole_tree(name, mesh_of, out):
+    """One ``WHOLE_CASES`` case on this rank: the sharded step's step 1
+    and ``whole_tree_step``'s from the same blocks, and on two ranks each
+    one's step 2 from its own step 1 (``second``); a record of the
+    comparison, and both step-1 gathered trees saved by the rank at
+    coordinate 0 (``{name}-step.npz``, ``{name}-whole.npz``)."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.modules import tensors
+    from repro_torch.parallel import sharding as sh
+    arch, strategy, d, m, layers = WHOLE_CASES[name]
+    cfg = tiny(arch, strategy).replace(num_layers=layers)
+    assert cfg.remat
+    mesh = mesh_of(d, m)
+    model, step, opt, (ps, _) = build_train_step(cfg, LR, "cpu", mesh=mesh,
+                                                 global_batch=B)
+    params = sh.shard_tree(model.init(0), ps, mesh)
+    opt_state = opt.init(params)
+    r0, rows, _ = sh.local_batch_rows(B, cfg, mesh)
+    batch = {"tokens": torch.from_numpy(tokens(cfg, B, 0)[r0:r0 + rows])}
+    sh.METER.reset()
+    want, want_state, want_loss, want_gn = whole_tree_step(
+        model, opt, mesh, params, opt_state, batch)
+    whole_high = sh.METER.high
+    given = tensors((params, opt_state))
+    ptrs = [t.data_ptr() for t in given]
+    sh.METER.reset()
+    got, got_state, metrics = step(params, opt_state, batch)
+    high, moved = sh.METER.high, sh.METER.moved
+    returned = tensors((got, got_state))
+    a = flat_np({"params": got, "opt": got_state})
+    b = flat_np({"params": want, "opt": want_state})
+    differ = sorted(k for k in b if not np.array_equal(a[k], b[k]))
+    whole, unit, stacked = gathered_bytes(cfg, mesh)
+    full = sh.gather_tree(got, ps, mesh), sh.gather_tree(want, ps, mesh)
+    if sh.coordinate(mesh) == {"data": 0, "model": 0}:
+        np.savez(out / f"{name}-step.npz", **flat_np(full[0]))
+        np.savez(out / f"{name}-whole.npz", **flat_np(full[1]))
+    rec = {"loss": [float(metrics["loss"]), want_loss],
+           "grad_norm": [float(metrics["grad_norm"]), want_gn],
+           "differ": differ, "leaves": len(b),
+           "high": high, "whole_high": whole_high, "moved": moved,
+           "whole_bytes": whole, "unit_bytes": unit,
+           "stacked_whole": stacked,
+           "same_tensors": len(returned) == len(given) and all(
+               x is y for x, y in zip(returned, given)),
+           "same_ptrs": [t.data_ptr() for t in returned] == ptrs}
+    if d * m == 2:
+        batch = {"tokens": torch.from_numpy(
+            tokens(cfg, B, 1)[r0:r0 + rows])}
+        want, want_state, want_loss, want_gn = whole_tree_step(
+            model, opt, mesh, want, want_state, batch)
+        got, got_state, metrics = step(got, got_state, batch)
+        a = flat_np({"params": got, "opt": got_state})
+        b = flat_np({"params": want, "opt": want_state})
+        rec["second"] = {
+            "loss": [float(metrics["loss"]), want_loss],
+            "grad_norm": [float(metrics["grad_norm"]), want_gn],
+            "differ": sorted(k for k in b if not np.array_equal(a[k], b[k])),
+            "step": [int(got_state.step), int(want_state.step)]}
+    return rec
 
 
 def unsharded_run(cfg, batch):
@@ -495,6 +674,120 @@ def test_unported_layouts_raise(spawned, case):
                                rtol=2e-4)
     assert_close_to(dict(np.load(out / f"{case}.npz")), init, want,
                     hybrid=arch == "zamba2-7b")
+
+
+def _whole(res, name):
+    for r in range(4):
+        if name in res[r]["whole"]:
+            rec = res[r]["whole"][name]
+            assert "error" not in rec, (r, rec.get("error"))
+            yield r, rec
+
+
+@pytest.mark.parametrize("case", [c for c, v in WHOLE_CASES.items()
+                                  if v[2] * v[3] == 2])
+def test_step_is_the_whole_tree_step(spawned, case):
+    """On (2, 1) and (1, 2), where each summed axis has two ranks, step 1
+    gives the whole-tree step's weights, moments, loss and grad norm bit
+    for bit on every rank."""
+    _, res = spawned
+    recs = list(_whole(res, case))
+    assert len(recs) == 2
+    for r, rec in recs:
+        assert rec["differ"] == [], (r, rec["differ"])
+        assert rec["leaves"] > 3
+        assert rec["loss"][0] == rec["loss"][1], r
+        assert rec["grad_norm"][0] == rec["grad_norm"][1], r
+
+
+@pytest.mark.parametrize("case", [c for c, v in WHOLE_CASES.items()
+                                  if v[2] * v[3] == 2])
+def test_second_step_is_the_whole_tree_step(spawned, case):
+    """Step 2, each step from its own step 1 on a second batch, is the
+    whole-tree step's bit for bit on (2, 1) and (1, 2): the step counter
+    written in place, and the bias corrections past step 1."""
+    _, res = spawned
+    recs = list(_whole(res, case))
+    assert len(recs) == 2
+    for r, rec in recs:
+        two = rec["second"]
+        assert two["differ"] == [], (r, two["differ"])
+        assert two["step"] == [2, 2], r
+        assert two["loss"][0] == two["loss"][1], r
+        assert two["grad_norm"][0] == two["grad_norm"][1], r
+
+
+@pytest.mark.parametrize("case", [c for c, v in WHOLE_CASES.items()
+                                  if v[2] * v[3] == 4])
+def test_step_near_the_whole_tree_step(spawned, case):
+    """On (2, 2), (4, 1) and (1, 4), where four ranks sum an axis in
+    another order, step 1's gathered weights hold the whole-tree step's
+    by the module's rule; its loss and grad norm within rtol 2e-4 and
+    1e-4."""
+    out, res = spawned
+    arch, strategy, _, _, layers = WHOLE_CASES[case]
+    recs = list(_whole(res, case))
+    assert len(recs) == 4
+    for _, rec in recs:
+        np.testing.assert_allclose(rec["loss"][0], rec["loss"][1],
+                                   rtol=2e-4)
+        np.testing.assert_allclose(rec["grad_norm"][0], rec["grad_norm"][1],
+                                   rtol=1e-4)
+    cfg = tiny(arch, strategy).replace(num_layers=layers)
+    assert_close_to(dict(np.load(out / f"{case}-step.npz")),
+                    flat_np(model_of(cfg).init(0)),
+                    dict(np.load(out / f"{case}-whole.npz")),
+                    hybrid=arch == "zamba2-7b")
+
+
+@pytest.mark.parametrize("case", sorted(WHOLE_CASES))
+def test_gathered_layers_high_water(spawned, case):
+    """The bytes of gathered leaves alive at once in a step (``gather_leaf``'s
+    meter) never exceed the leaves gathered whole and two remat'd
+    regions' layers (one layer; a zamba2 group's two Mamba2 layers),
+    where the whole-tree step's reach every gathered leaf of the tree."""
+    _, res = spawned
+    arch, strategy, d, m, layers = WHOLE_CASES[case]
+    cfg = tiny(arch, strategy).replace(num_layers=layers)
+    for r, rec in _whole(res, case):
+        bound = rec["whole_bytes"] + 2 * rec["unit_bytes"]
+        assert rec["high"] <= bound, (r, rec["high"], bound)
+        if rec["unit_bytes"]:
+            assert rec["whole_high"] > bound, (r, rec["whole_high"], bound)
+            assert rec["moved"] > 0
+    if arch == "zamba2-7b" and strategy == "dp_all" and d * m == 2:
+        # the per-head leaves (10 Mamba2 layers, 8 heads) cut their stack
+        # axis over both ranks, and are gathered whole
+        assert {"layers/blk/A_log", "layers/blk/dt_bias", "layers/blk/D"} \
+            <= set(rec["stacked_whole"])
+        assert cfg.num_layers == 14
+
+
+@pytest.mark.parametrize("case", sorted(WHOLE_CASES))
+def test_sharded_step_returns_its_arguments(spawned, case):
+    """The sharded step writes its update into the tensors it was given
+    and returns them, as the reference's donated step does."""
+    _, res = spawned
+    for r, rec in _whole(res, case):
+        assert rec["same_tensors"] and rec["same_ptrs"], r
+
+
+def test_one_device_step_leaves_its_arguments():
+    """The one-device step returns new tensors and leaves its arguments as
+    they were (``build_cell`` calls it again on the same inputs)."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.modules import tensors
+    cfg = tiny("llama3.2-1b", "dp_all")
+    model, step, opt = build_train_step(cfg, LR, "cpu")
+    params = model.init(0)
+    opt_state = opt.init(params)
+    before = [t.clone() for t in tensors((params, opt_state))]
+    new, new_state, _ = step(params, opt_state, {"tokens": torch.from_numpy(
+        tokens(cfg, B, 0))})
+    for t, b in zip(tensors((params, opt_state)), before):
+        assert torch.equal(t, b)
+    ptrs = {t.data_ptr() for t in tensors((params, opt_state))}
+    assert not ptrs & {t.data_ptr() for t in tensors((new, new_state))}
 
 
 def test_train_main_needs_its_ranks(tmp_path):
